@@ -1,0 +1,84 @@
+// CPU emulation of the CUDA subset that csrc/*.cu use, for testing their
+// logic where there is no GPU and no nvcc (tests/test_torch_kernel_emulation.py).
+//
+// A source is rewritten for g++ (cuda_runtime.h -> this header, dynamic
+// shared memory -> g_smem, `k<<<grid, block, smem, stream>>>(args)` ->
+// emu_launch) and run with one std::thread per CUDA thread:
+// __syncthreads is a barrier over the block, __shfl_xor_sync exchanges
+// through a per-warp buffer between two per-warp barriers. Blocks run one
+// after another; each starts with its shared memory filled with NaN, so a
+// read of shared memory that the block never wrote shows in the results.
+// It checks indexing, masking and barrier placement, not speed, and it
+// does not model warp-synchronous execution.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <functional>
+#include <memory>
+#include <thread>
+#include <vector>
+
+using std::min;
+
+struct emu_dim3 {
+  unsigned x = 0, y = 0, z = 0;
+};
+inline thread_local emu_dim3 threadIdx, blockIdx;
+inline emu_dim3 blockDim, gridDim;
+inline std::barrier<>* g_block_barrier = nullptr;
+inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_barriers;
+inline float g_shfl[32][32];
+inline float* g_smem = nullptr;
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+constexpr int kEmuMaxDynamicSmem = 232448;  // H100: 227 KB per block
+
+template <class Kernel>
+cudaError_t cudaFuncSetAttribute(Kernel, cudaFuncAttribute, int bytes) {
+  return bytes > kEmuMaxDynamicSmem ? cudaErrorInvalidValue : cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
+
+inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  g_shfl[warp][lane] = v;
+  g_warp_barriers[warp]->arrive_and_wait();
+  const float out = g_shfl[warp][lane ^ lane_mask];
+  g_warp_barriers[warp]->arrive_and_wait();
+  return out;
+}
+
+inline void emu_launch(unsigned grid, unsigned block, size_t smem_bytes,
+                       const std::function<void()>& body) {
+  blockDim.x = block;
+  gridDim.x = grid;
+  std::vector<float> smem(smem_bytes / sizeof(float) + 1);
+  for (unsigned b = 0; b < grid; ++b) {
+    std::fill(smem.begin(), smem.end(), std::nanf(""));
+    g_smem = smem.data();
+    std::barrier<> bar(block);
+    g_block_barrier = &bar;
+    g_warp_barriers.clear();
+    for (unsigned w = 0; w < (block + 31) / 32; ++w)
+      g_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block; ++t)
+      threads.emplace_back([&, t, b] {
+        threadIdx.x = t;
+        blockIdx.x = b;
+        body();
+      });
+    for (auto& th : threads) th.join();
+  }
+}

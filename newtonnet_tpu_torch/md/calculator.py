@@ -1,0 +1,98 @@
+'''Single-system calculator: one request per `calculate` call.
+
+Loads a checkpoint, pads the atom count up to a multiple of 8 (so a
+molecule keeps one shape from call to call) and returns numpy results.
+'''
+import numpy as np
+import torch
+
+from newtonnet_tpu_torch.layers.precision import get_precision_by_string
+from newtonnet_tpu_torch.models.output import NewtonNet
+from newtonnet_tpu_torch.utils.checkpoint import load_model
+
+# ASE result name -> model output property
+PROPERTY_MAP = {
+    'energy': 'energy',
+    'free_energy': 'energy',
+    'forces': 'gradient_force',
+    'stress': 'stress',
+    'virial': 'virial',
+}
+
+
+def _round_up(x, m=8):
+    return max(m, ((x + m - 1) // m) * m)
+
+
+class NewtonNetCalculator:
+    '''Evaluate a trained model on one system per call.
+
+    Args:
+        model_path: .msgpack checkpoint of the JAX package.
+        properties: ASE-style result names (default: energy and forces
+            where the model has them).
+        precision: 'float32' (the kernels' type) or 'float64' (CPU only).
+        device: CUDA unless 'cpu' is passed; raises with no CUDA device.
+    '''
+
+    def __init__(self, model_path, properties=None, precision='float32',
+                 device=None):
+        model = load_model(model_path, device=device)
+        if properties is None:
+            inv = {'energy': 'energy', 'gradient_force': 'forces'}
+            properties = [inv[k] for k in model.output_properties
+                          if k in inv]
+        unknown = set(properties) - set(PROPERTY_MAP)
+        if unknown:
+            raise NotImplementedError(
+                f'properties {sorted(unknown)} are not ported yet')
+        self.properties = list(properties)
+        # derivative outputs reuse the trained parameters: extend the
+        # model's outputs with them
+        needed = {PROPERTY_MAP[p] for p in self.properties}
+        missing = needed - set(model.output_properties)
+        if 'energy' in missing:
+            raise ValueError('checkpoint has no trained energy head')
+        if missing:
+            cfg = model.config_dict()
+            cfg['output_properties'] = (list(model.output_properties)
+                                        + sorted(missing))
+            extended = NewtonNet(**cfg, device=model.device)
+            extended.load_state_dict(model.state_dict())
+            model = extended.requires_grad_(False).eval()
+        self.dtype = get_precision_by_string(precision)
+        self.model = model.to(self.dtype)
+        self.device = model.device
+
+    def calculate(self, numbers, positions, cell=None):
+        '''Run the model on one system: numbers (n,), positions (n, 3),
+        optional cell (3, 3). Returns numpy results keyed by property:
+        energy (float), forces (n, 3), stress (Voigt-6 xx yy zz yz xz xy),
+        virial (3, 3).'''
+        numbers = np.asarray(numbers)
+        n = len(numbers)
+        n_pad = _round_up(n)
+        np_dtype = np.float64 if self.dtype == torch.float64 else np.float32
+        z = np.zeros((1, n_pad), dtype=np.int64)
+        z[0, :n] = numbers
+        pos = np.zeros((1, n_pad, 3), dtype=np_dtype)
+        pos[0, :n] = positions
+        c = np.zeros((1, 3, 3), dtype=np_dtype)
+        if cell is not None:
+            c[0] = cell
+        out = self.model(torch.from_numpy(z).to(self.device),
+                         torch.from_numpy(pos).to(self.device),
+                         torch.from_numpy(c).to(self.device))
+        results = {}
+        for prop in self.properties:
+            v = out[PROPERTY_MAP[prop]].cpu().numpy()
+            if prop in ('energy', 'free_energy'):
+                results[prop] = float(v[0])
+            elif prop == 'forces':
+                results[prop] = v[0, :n]
+            elif prop == 'stress':
+                s = v[0]
+                results[prop] = s[[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]]
+            elif prop == 'virial':
+                results[prop] = v[0]
+        return results

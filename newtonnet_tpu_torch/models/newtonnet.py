@@ -1,0 +1,123 @@
+'''NewtonNet parameter tree as nn.Modules.
+
+The module and parameter names follow the JAX package's flax tree one to
+one (`node_embedding`, `interaction_{i}.message_nodepart.TorchLinear_0.
+kernel`, ..., `energy_head.TorchLinear_2.bias`, `scaler_energy.scale`), and
+every kernel keeps flax's `x @ kernel` (in, out) layout, so a checkpoint
+maps across without transposes (utils/params.py).
+
+Initialization follows the flax one (torch's nn.Linear default): every
+kernel and bias is U(+-1/sqrt(fan_in)); the embedding is N(0, 1) with the
+padding row 0 zeroed; scale starts at ones and shift at zeros. Random
+draws come from the `generator` passed in.
+
+These modules hold parameters; the forward computation over them lives in
+models/fused_stack.py.
+'''
+import torch
+from torch import nn
+
+N_ELEMENTS = 119
+
+
+def _uniform(shape, bound, generator, device, dtype):
+    t = torch.empty(shape, device=device, dtype=dtype)
+    return t.uniform_(-bound, bound, generator=generator)
+
+
+class TorchLinear(nn.Module):
+    '''`x @ kernel (+ bias)` with kernel (fan_in, features).'''
+
+    def __init__(self, fan_in, features, use_bias=True, generator=None,
+                 device=None, dtype=torch.float32):
+        super().__init__()
+        bound = 1.0 / fan_in ** 0.5
+        self.kernel = nn.Parameter(_uniform((fan_in, features), bound,
+                                            generator, device, dtype))
+        self.bias = (nn.Parameter(_uniform((features,), bound, generator,
+                                           device, dtype))
+                     if use_bias else None)
+
+    def forward(self, x):
+        y = x @ self.kernel
+        return y if self.bias is None else y + self.bias
+
+
+class MLP(nn.Module):
+    '''TorchLinear_0, TorchLinear_1, ... with `activation` between them
+    (not after the last).'''
+
+    def __init__(self, fan_in, features, activation=None, use_bias=True,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        self.activation = activation
+        for i, f in enumerate(features):
+            self.add_module(f'TorchLinear_{i}', TorchLinear(
+                fan_in, f, use_bias, generator, device, dtype))
+            fan_in = f
+
+    def forward(self, x):
+        for i, layer in enumerate(self.children()):
+            if i > 0:
+                x = self.activation(x)
+            x = layer(x)
+        return x
+
+
+class ScaleShift(nn.Module):
+    '''Per-element (Z-indexed) scale and shift, each (119, 1).'''
+
+    def __init__(self, device=None, dtype=torch.float32):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones((N_ELEMENTS, 1), device=device,
+                                             dtype=dtype))
+        self.shift = nn.Parameter(torch.zeros((N_ELEMENTS, 1), device=device,
+                                              dtype=dtype))
+
+    def forward(self, output, z):
+        return output * self.scale[z, 0][..., None] + self.shift[z, 0][..., None]
+
+
+class InteractionNet(nn.Module):
+    '''Parameters of one message-passing layer: message_nodepart (2-layer
+    biased MLP), message_edgepart (R -> F), equiv_message1/2 (2-layer
+    bias-free MLPs) and equiv_update (F -> F).'''
+
+    def __init__(self, n_features, n_basis, generator=None, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        f = n_features
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        act = nn.functional.silu
+        self.message_nodepart = MLP(f, [f, f], act, **kw)
+        self.message_edgepart = TorchLinear(n_basis, f, use_bias=False, **kw)
+        self.equiv_message1 = MLP(f, [f, f], act, use_bias=False, **kw)
+        self.equiv_message2 = MLP(f, [f, f], act, use_bias=False, **kw)
+        self.equiv_update = TorchLinear(f, f, use_bias=False, **kw)
+
+
+class NewtonNetCore(nn.Module):
+    '''All parameters of the energy model: node_embedding, interaction_{i},
+    energy_head (F -> F -> F -> 1) and scaler_energy.'''
+
+    def __init__(self, n_features=128, n_basis=20, n_interactions=3,
+                 generator=None, device=None, dtype=torch.float32):
+        super().__init__()
+        self.n_features = n_features
+        self.n_basis = n_basis
+        self.n_interactions = n_interactions
+        kw = dict(generator=generator, device=device, dtype=dtype)
+        emb = torch.empty((N_ELEMENTS, n_features), device=device,
+                          dtype=dtype).normal_(generator=generator)
+        emb[0] = 0.0
+        self.node_embedding = nn.Parameter(emb)
+        for i in range(n_interactions):
+            self.add_module(f'interaction_{i}',
+                            InteractionNet(n_features, n_basis, **kw))
+        self.energy_head = MLP(n_features, [n_features, n_features, 1],
+                               nn.functional.silu, **kw)
+        self.scaler_energy = ScaleShift(device=device, dtype=dtype)
+
+    def interactions(self):
+        return [getattr(self, f'interaction_{i}')
+                for i in range(self.n_interactions)]

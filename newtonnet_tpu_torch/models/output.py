@@ -1,0 +1,250 @@
+'''User-facing NewtonNet: configuration, parameters and derivative heads.
+
+The JAX package's `models/output.py` for the configuration this port
+serves: kernel='pallas' (the fused pair op), graph_mode='dense', swish,
+outputs within {energy, gradient_force, virial, stress}. Forces, virial
+and stress are one autograd pass over the energy:
+
+    forces = -dE/dpos, virial = -dE/d(displacement),
+    stress = dE/d(displacement) / |det(cell)|,
+
+where `displacement` is an identity-valued (B, 3, 3) strain applied
+(symmetrized) to positions and cell before the graph is built.
+
+Other configurations raise NotImplementedError naming the ROADMAP.md item
+that will port them.
+'''
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from newtonnet_tpu_torch.models.fused_stack import apply_core
+from newtonnet_tpu_torch.models.newtonnet import NewtonNetCore
+from newtonnet_tpu_torch.ops.linalg3 import det3x3
+
+DIRECT_PROPERTIES = ('energy', 'charge', 'direct_force')
+DERIVATIVE_PROPERTIES = ('gradient_force', 'virial', 'stress')
+SECOND_DERIVATIVE_PROPERTIES = ('hessian', 'bec')
+ALL_PROPERTIES = (DIRECT_PROPERTIES + DERIVATIVE_PROPERTIES
+                  + SECOND_DERIVATIVE_PROPERTIES)
+SERVED_PROPERTIES = ('energy', 'gradient_force', 'virial', 'stress')
+
+_NOT_YET = {
+    'charge': 'ROADMAP.md A, "charge head and Ewald"',
+    'direct_force': 'ROADMAP.md A, "remaining heads"',
+    'hessian': 'ROADMAP.md A, "Hessian"',
+    'bec': 'ROADMAP.md A, "BEC"',
+}
+
+
+def resolve_device(device=None):
+    '''The device an entry point runs on: `device` if given, else CUDA.
+    Raises where there is no CUDA device and none was named: nothing runs
+    on the CPU unless the caller asks for it.'''
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           'CPU')
+    return torch.device('cuda')
+
+
+class NewtonNet(nn.Module):
+    '''NewtonNet energy model with its derivative heads.
+
+    Takes the JAX package's constructor arguments (and validation), plus
+    `device` (CUDA unless 'cpu' is passed), `dtype` of the parameters and
+    a torch.Generator for their initialization. `kernel` defaults to
+    'pallas', the only path ported so far.
+    '''
+
+    def __init__(
+            self,
+            cutoff: float = 5.0,
+            n_features: int = 128,
+            n_basis: int = 20,
+            n_interactions: int = 3,
+            activation: str = 'swish',
+            layer_norm: bool = False,
+            output_properties: Sequence[str] = (),
+            mic_mode: str = 'exact',
+            graph_mode: str = 'dense',
+            k_max: int = 48,
+            cell_grid: Sequence[int] = (),
+            cell_capacity: int = 0,
+            reverse_lists: bool = False,
+            inverse_lists: bool = False,
+            newton3: bool = False,
+            newton3_compact: bool = False,
+            compute_dtype: str = '',
+            trainable_basis: bool = False,
+            hessian_block: int = 0,
+            ewald_sigma: float = 1.0,
+            ewald_n_k: int = 8,
+            ewald_mode: str = 'auto',
+            kernel: str = 'pallas',
+            pallas_dot_dtype: str = 'float32',
+            pallas_grad_dot_dtype: str = 'bfloat16',
+            device=None,
+            dtype=torch.float32,
+            generator=None,
+    ):
+        super().__init__()
+        for key in output_properties:
+            if key not in ALL_PROPERTIES:
+                raise NotImplementedError(
+                    f'Output type {key} is not implemented yet')
+        if newton3_compact and (newton3 or reverse_lists or inverse_lists
+                                or graph_mode != 'neighborlist'
+                                or kernel != 'xla'):
+            raise ValueError(
+                'newton3_compact is its own neighborlist edge layout '
+                '(kernel=xla, no newton3/reverse_lists/inverse_lists)')
+        if kernel not in ('xla', 'pallas'):
+            raise ValueError(f'kernel must be xla or pallas, got {kernel}')
+        if kernel == 'pallas':
+            allowed = set(SERVED_PROPERTIES)
+            bad = set(output_properties) - allowed
+            if (bad or graph_mode not in ('dense', 'neighborlist')
+                    or activation != 'swish' or layer_norm
+                    or trainable_basis):
+                raise ValueError(
+                    'kernel=pallas supports the dense/neighborlist graph '
+                    'modes with swish activation, no layer_norm/'
+                    'trainable_basis, and outputs '
+                    f'within {sorted(allowed)}; offending config: '
+                    f'{sorted(bad) or [graph_mode, activation]}')
+            if graph_mode == 'dense' and compute_dtype:
+                raise ValueError(
+                    'kernel=pallas (dense) does not take compute_dtype '
+                    '(the fused kernels manage precision internally)')
+            if graph_mode == 'neighborlist' and (newton3 or reverse_lists
+                                                 or inverse_lists):
+                raise ValueError(
+                    'kernel=pallas neighborlist uses plain full lists '
+                    '(newton3/reverse_lists/inverse_lists unsupported)')
+        # what this port serves so far
+        for key in output_properties:
+            if key in _NOT_YET:
+                raise NotImplementedError(
+                    f'output {key!r} is not ported yet ({_NOT_YET[key]})')
+        if kernel == 'xla':
+            raise NotImplementedError(
+                "kernel='xla' is not ported yet (ROADMAP.md A, \"XLA "
+                "kernel='xla' path\"); use kernel='pallas'")
+        if graph_mode != 'dense':
+            raise NotImplementedError(
+                f'graph_mode={graph_mode!r} is not ported yet (ROADMAP.md A, '
+                '"neighbour lists")')
+        if pallas_dot_dtype != 'float32':
+            raise NotImplementedError(
+                f'pallas_dot_dtype={pallas_dot_dtype!r}: the ported kernels '
+                'compute in float32 only')
+
+        self.output_properties = list(output_properties)
+        self.cutoff = cutoff
+        self.n_features = n_features
+        self.n_basis = n_basis
+        self.n_interactions = n_interactions
+        self.activation = activation
+        self.layer_norm = layer_norm
+        self.mic_mode = mic_mode
+        self.graph_mode = graph_mode
+        self.k_max = k_max
+        self.cell_grid = tuple(cell_grid)
+        self.cell_capacity = cell_capacity
+        self.reverse_lists = reverse_lists
+        self.inverse_lists = inverse_lists
+        self.newton3 = newton3
+        self.newton3_compact = newton3_compact
+        self.compute_dtype = compute_dtype
+        self.trainable_basis = trainable_basis
+        self.hessian_block = hessian_block
+        self.ewald_sigma = ewald_sigma
+        self.ewald_n_k = ewald_n_k
+        self.ewald_mode = ewald_mode
+        self.kernel = kernel
+        self.pallas_dot_dtype = pallas_dot_dtype
+        self.pallas_grad_dot_dtype = pallas_grad_dot_dtype
+        needs = set(self.output_properties)
+        if needs & set(DERIVATIVE_PROPERTIES):
+            needs.add('energy')
+        self._needs = needs
+        self.core = NewtonNetCore(n_features, n_basis, n_interactions,
+                                  generator=generator,
+                                  device=resolve_device(device), dtype=dtype)
+
+    @property
+    def device(self):
+        return self.core.node_embedding.device
+
+    def config_dict(self):
+        '''Serializable model config (the checkpoints' `config`).'''
+        return {
+            'cutoff': self.cutoff, 'n_features': self.n_features,
+            'n_basis': self.n_basis, 'n_interactions': self.n_interactions,
+            'activation': self.activation, 'layer_norm': self.layer_norm,
+            'output_properties': list(self.output_properties),
+            'mic_mode': self.mic_mode, 'graph_mode': self.graph_mode,
+            'k_max': self.k_max, 'cell_grid': list(self.cell_grid),
+            'cell_capacity': self.cell_capacity,
+            'reverse_lists': self.reverse_lists,
+            'inverse_lists': self.inverse_lists,
+            'newton3': self.newton3,
+            'newton3_compact': self.newton3_compact,
+            'compute_dtype': self.compute_dtype,
+            'trainable_basis': self.trainable_basis,
+            'hessian_block': self.hessian_block,
+            'ewald_sigma': self.ewald_sigma, 'ewald_n_k': self.ewald_n_k,
+            'ewald_mode': self.ewald_mode, 'kernel': self.kernel,
+            'pallas_dot_dtype': self.pallas_dot_dtype,
+            'pallas_grad_dot_dtype': self.pallas_grad_dot_dtype,
+        }
+
+    def _energy_and_aux(self, z, pos, displacement, cell, pair_op=None):
+        '''Total (summed over graphs) energy and the per-graph outputs, at
+        positions and cell strained by the symmetrized displacement.'''
+        sym = 0.5 * (displacement + displacement.transpose(-1, -2))
+        pos_d = torch.einsum('bni,bij->bnj', pos, sym)
+        cell_d = torch.einsum('bxi,bij->bxj', cell, sym)
+        out = apply_core(self.core, z, pos_d, cell_d, self.cutoff,
+                         mic_mode=self.mic_mode, pair_op=pair_op)
+        energy = torch.sum(out['atomic_energy'][..., 0], dim=-1)
+        out['energy'] = energy
+        return torch.sum(energy), out
+
+    def forward(self, z, pos, cell, pair_op=None):
+        '''Full forward pass.
+
+        Args:
+            z: (B, N) int atomic numbers, 0 = padding.
+            pos: (B, N, 3) positions.
+            cell: (B, 3, 3) lattice rows (all-zero = aperiodic).
+            pair_op: the pair-interaction op (default: the fused kernels).
+
+        Returns:
+            dict with energy (B,), the configured derivative outputs
+            (gradient_force (B, N, 3), virial/stress (B, 3, 3)) and
+            atom_node, force_node, atomic_energy; all detached.
+        '''
+        needs = self._needs
+        need_grad = bool(needs & set(DERIVATIVE_PROPERTIES))
+        pos = pos.detach().requires_grad_(need_grad)
+        displacement = torch.eye(3, dtype=cell.dtype, device=cell.device) \
+            .expand(cell.shape[0], 3, 3).clone().requires_grad_(need_grad)
+        with torch.enable_grad():
+            total, out = self._energy_and_aux(z, pos, displacement, cell,
+                                              pair_op)
+            if need_grad:
+                pos_grad, disp_grad = torch.autograd.grad(
+                    total, (pos, displacement))
+        outputs = {k: v.detach() for k, v in out.items()}
+        if 'gradient_force' in needs:
+            outputs['gradient_force'] = -pos_grad
+        if 'virial' in needs:
+            outputs['virial'] = -disp_grad
+        if 'stress' in needs:
+            volume = torch.abs(det3x3(cell))[:, None, None]
+            outputs['stress'] = disp_grad / volume
+        return outputs

@@ -1,0 +1,80 @@
+'''Build the package's CUDA sources at first use and load them with ctypes.
+
+Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
+for sm_90a into `newtonnet_tpu_torch/_build/lib<name>-<hash>.so`, where the
+hash covers the source and the flags: an edited source builds anew, an
+unchanged one loads from the cache. `build_all` starts one `nvcc` per
+source at once and waits for all of them. Nothing here runs at import.
+'''
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(_PKG, '_build')
+SOURCES = ('fused_dense',)
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+_LIBS = {}
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    for root in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if root and os.path.exists(os.path.join(root, 'bin', 'nvcc')):
+            return os.path.join(root, 'bin', 'nvcc')
+    raise RuntimeError('nvcc not found: the CUDA kernels build only where '
+                       'the CUDA toolkit is installed')
+
+
+def _target(name):
+    with open(os.path.join(SRC_DIR, name + '.cu'), 'rb') as f:
+        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
+
+
+def build_all(names=SOURCES):
+    '''Compile every source whose library is missing, all in parallel.
+
+    Returns {name: (seconds, ptxas report)} for the sources it compiled.
+    Raises RuntimeError with the compiler's output if one fails.'''
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    jobs = {}
+    for name in names:
+        so = _target(name)
+        if os.path.exists(so):
+            continue
+        tmp = f'{so}.{os.getpid()}.tmp'
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+               os.path.join(SRC_DIR, name + '.cu')]
+        jobs[name] = (so, tmp, time.perf_counter(),
+                      subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True))
+    report, failed = {}, []
+    for name, (so, tmp, t0, proc) in jobs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f'{name}:\n{out}')
+            continue
+        os.replace(tmp, so)
+        with open(so[:-3] + '.log', 'w') as f:
+            f.write(out)
+        report[name] = (time.perf_counter() - t0, out)
+    if failed:
+        raise RuntimeError('nvcc failed for ' + '\n'.join(failed))
+    return report
+
+
+def load(name):
+    '''The ctypes handle of csrc/<name>.cu, built first if needed.'''
+    if name not in _LIBS:
+        build_all((name,))
+        _LIBS[name] = ctypes.CDLL(_target(name))
+    return _LIBS[name]

@@ -1,0 +1,267 @@
+'''Fused dense pair-interaction layer: plain versions, CUDA wrappers and the
+autograd Function.
+
+The layer (the JAX package's `ops/pallas_dense.py`), for B molecules of N
+atoms, F features and R radial basis functions:
+
+    msg  = (rbf @ We) * np_i * np_j * adj          (B, N, N, F)
+    inv1 = sum_j msg                               (B, N, F)
+    phi1 = (silu(msg @ W1a) @ W1b) * adj
+    phi2 = (silu(msg @ W2a) @ W2b) * adj
+    eq[:, d] = sum_j phi1 * dir[:, d, ..., None]
+             + sum_j phi2 * force[:, d, None, :, :]   (B, 3, N, F)
+
+`first_layer=True` drops phi2: the stack's first layer sees force == 0.
+
+On the card the forward runs `csrc/fused_dense.cu:nn_pair_fwd` (K1) and
+the backward `nn_pair_bwd` (K2), both fp32; on the CPU the wrappers run
+the plain versions below. A CUDA tensor either launches the kernel or
+raises: nothing falls back.
+'''
+import ctypes
+
+import torch
+
+# Launches of each kernel variant, counted by its wrapper.
+LAUNCHES = {'pair_fwd': 0, 'pair_fwd_first': 0,
+            'pair_bwd': 0, 'pair_bwd_first': 0}
+KERNEL_WIDTHS = (32, 64, 128)  # the F the CUDA kernels are built for
+_TI = 8  # rows i per block in the kernels (csrc/fused_dense.cu: TI)
+
+
+def reset_launch_counts():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+_silu = torch.nn.functional.silu
+
+
+def _dsilu(x):
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s))
+
+
+def pair_interaction_fwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
+                             W2b, first_layer=False):
+    '''Plain PyTorch forward of the layer -> (inv1 (B,N,F), eq (B,3,N,F)).'''
+    adj4 = adj[..., None]
+    msg = (rbf @ We) * np_[:, :, None, :] * np_[:, None, :, :] * adj4
+    inv1 = msg.sum(2)
+    phi1 = (_silu(msg @ W1a) @ W1b) * adj4
+    eqs = [(phi1 * dir_[:, d, :, :, None]).sum(2) for d in range(3)]
+    if not first_layer:
+        phi2 = (_silu(msg @ W2a) @ W2b) * adj4
+        eqs = [e + (phi2 * force[:, d, None, :, :]).sum(2)
+               for d, e in enumerate(eqs)]
+    return inv1, torch.stack(eqs, dim=1)
+
+
+def pair_interaction_bwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
+                             W2b, dinv1, deq, first_layer=False,
+                             weight_grads=True):
+    '''Plain PyTorch backward of the layer, written out by hand (not
+    autograd of the forward): the cotangents of every input given those of
+    (inv1, eq).
+
+    Returns (dnp, drbf, ddir, dforce, dWe, dW1a, dW1b, dW2a, dW2b); the five
+    weight cotangents are None unless weight_grads. At the first layer
+    dforce, dW2a and dW2b are zeros.'''
+    adj4 = adj[..., None]
+    ni, nj = np_[:, :, None, :], np_[:, None, :, :]
+    me = rbf @ We
+    msg = me * ni * nj * adj4
+    p1 = msg @ W1a
+    h1 = _silu(p1)
+    phi1 = (h1 @ W1b) * adj4
+    g = deq[:, :, :, None, :]                          # (B, 3, N, 1, F)
+    dphi1 = sum(g[:, d] * dir_[:, d, :, :, None] for d in range(3)) * adj4
+    ddir = (phi1[:, None] * g).sum(-1)                 # (B, 3, N, N)
+    dh1 = dphi1 @ W1b.T
+    dp1 = dh1 * _dsilu(p1)
+    dmsg = dp1 @ W1a.T
+    if first_layer:
+        dforce = torch.zeros_like(force)
+    else:
+        p2 = msg @ W2a
+        h2 = _silu(p2)
+        phi2 = (h2 @ W2b) * adj4
+        dforce = (phi2[:, None] * g).sum(2)            # sum over i
+        dphi2 = sum(g[:, d] * force[:, d, None, :, :]
+                    for d in range(3)) * adj4
+        dp2 = (dphi2 @ W2b.T) * _dsilu(p2)
+        dmsg = dmsg + dp2 @ W2a.T
+    dmsg4 = (dmsg + dinv1[:, :, None, :]) * adj4
+    dnp = (dmsg4 * me * nj).sum(2) + (dmsg4 * me * ni).sum(1)
+    dme = dmsg4 * ni * nj
+    drbf = dme @ We.T
+    if not weight_grads:
+        return dnp, drbf, ddir, dforce, None, None, None, None, None
+
+    def dotT(a, b):
+        return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
+
+    dWe = dotT(rbf, dme)
+    dW1a = dotT(msg, dp1)
+    dW1b = dotT(h1, dphi1)
+    if first_layer:
+        dW2a, dW2b = torch.zeros_like(W2a), torch.zeros_like(W2b)
+    else:
+        dW2a, dW2b = dotT(msg, dp2), dotT(h2, dphi2)
+    return dnp, drbf, ddir, dforce, dWe, dW1a, dW1b, dW2a, dW2b
+
+
+# ----------------------------------------------------------------------- #
+def _lib():
+    from newtonnet_tpu_torch.ops import _build
+    lib = _build.load('fused_dense')
+    if not getattr(lib, '_nn_typed', False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nn_pair_fwd.argtypes = [p] * 12 + [i] * 5 + [p]
+        lib.nn_pair_fwd.restype = i
+        lib.nn_pair_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
+        lib.nn_pair_bwd.restype = i
+        lib._nn_typed = True
+    return lib
+
+
+def _check_cuda(named, shapes):
+    '''Device, dtype, shape and contiguity checks before a launch.'''
+    device = named[0][1].device
+    for (name, t), shape in zip(named, shapes):
+        if t.device != device:
+            raise ValueError(f'{name} is on {t.device}, expected {device}')
+        if t.dtype != torch.float32:
+            raise TypeError(f'{name} must be float32 on CUDA, got {t.dtype}')
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, '
+                             f'expected {tuple(shape)}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+
+
+def _shapes(np_, rbf):
+    B, N, F = np_.shape
+    R = rbf.shape[-1]
+    if F not in KERNEL_WIDTHS:
+        raise ValueError(f'the CUDA kernels take F in {KERNEL_WIDTHS}, '
+                         f'got {F}')
+    if B * N == 0:
+        raise ValueError(f'empty batch: B={B}, N={N}')
+    return B, N, F, R, [(B, N, F), (B, N, N, R), (B, 3, N, N), (B, N, N),
+                        (B, 3, N, F), (R, F), (F, F), (F, F), (F, F), (F, F)]
+
+
+_NAMES = ('np_', 'rbf', 'dir_', 'adj', 'force', 'We', 'W1a', 'W1b', 'W2a',
+          'W2b')
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f'{what} launch failed: cudaError_t {err}')
+
+
+def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
+                         first_layer=False):
+    '''The layer's forward: kernel K1 for CUDA tensors, the plain version
+    for CPU tensors. -> (inv1, eq).'''
+    ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
+    if np_.device.type == 'cpu':
+        return pair_interaction_fwd_ref(*ins, first_layer=first_layer)
+    if np_.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {np_.device}')
+    B, N, F, R, shapes = _shapes(np_, rbf)
+    _check_cuda(list(zip(_NAMES, ins)), shapes)
+    inv1 = torch.empty((B, N, F), device=np_.device, dtype=torch.float32)
+    eq = torch.empty((B, 3, N, F), device=np_.device, dtype=torch.float32)
+    lib = _lib()
+    err = lib.nn_pair_fwd(*[t.data_ptr() for t in ins], inv1.data_ptr(),
+                          eq.data_ptr(), B, N, F, R, int(first_layer),
+                          torch.cuda.current_stream(np_.device).cuda_stream)
+    _raise_on(err, 'nn_pair_fwd')
+    LAUNCHES['pair_fwd_first' if first_layer else 'pair_fwd'] += 1
+    return inv1, eq
+
+
+def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
+                         dinv1, deq, first_layer=False, weight_grads=True):
+    '''The layer's backward: kernel K2 for CUDA tensors, the plain version
+    for CPU tensors. -> (dnp, drbf, ddir, dforce, dWe, dW1a, dW1b, dW2a,
+    dW2b), weight cotangents None unless weight_grads.'''
+    ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
+    if np_.device.type == 'cpu':
+        return pair_interaction_bwd_ref(*ins, dinv1, deq,
+                                        first_layer=first_layer,
+                                        weight_grads=weight_grads)
+    if np_.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {np_.device}')
+    B, N, F, R, shapes = _shapes(np_, rbf)
+    _check_cuda(list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq))),
+                shapes + [(B, N, F), (B, 3, N, F)])
+    n_it = (N + _TI - 1) // _TI
+    opts = dict(device=np_.device, dtype=torch.float32)
+    dnp = torch.empty((B, N, F), **opts)
+    drbf = torch.empty((B, N, N, R), **opts)
+    ddir = torch.empty((B, 3, N, N), **opts)
+    dforce = torch.empty((B, 3, N, F), **opts)
+    col_np = torch.empty((B, n_it, N, F), **opts)
+    col_force = torch.empty((B, n_it, 3, N, F), **opts)
+    n_w = R * F + 4 * F * F
+    wpart = (torch.empty((B * n_it, n_w), **opts) if weight_grads
+             else None)
+    dw = torch.empty((n_w,), **opts) if weight_grads else None
+    lib = _lib()
+    err = lib.nn_pair_bwd(
+        *[t.data_ptr() for t in ins + (dinv1, deq, dnp, drbf, ddir, dforce,
+                                       col_np, col_force)],
+        wpart.data_ptr() if weight_grads else None,
+        dw.data_ptr() if weight_grads else None,
+        B, N, F, R, int(first_layer), int(weight_grads),
+        torch.cuda.current_stream(np_.device).cuda_stream)
+    _raise_on(err, 'nn_pair_bwd')
+    LAUNCHES['pair_bwd_first' if first_layer else 'pair_bwd'] += 1
+    if not weight_grads:
+        return dnp, drbf, ddir, dforce, None, None, None, None, None
+    sizes = [R * F] + [F * F] * 4
+    shapes_w = [(R, F)] + [(F, F)] * 4
+    return (dnp, drbf, ddir, dforce,
+            *[v.view(s) for v, s in zip(dw.split(sizes), shapes_w)])
+
+
+class FusedPairInteraction(torch.autograd.Function):
+    '''The layer as an autograd op: forward K1, backward K2 (plain versions
+    on the CPU). Differentiable to first order in np_, rbf, dir_, force and
+    the five weights; adj is a mask and gets no gradient.
+
+    apply(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b, first_layer)
+    -> (inv1, eq)'''
+
+    @staticmethod
+    def forward(ctx, np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
+                first_layer=False):
+        ctx.first_layer = bool(first_layer)
+        ctx.save_for_backward(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
+                              W2b)
+        return pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a,
+                                     W1b, W2a, W2b,
+                                     first_layer=ctx.first_layer)
+
+    @staticmethod
+    def backward(ctx, dinv1, deq):
+        need_w = ctx.needs_input_grad[5:10]
+        grads = pair_interaction_bwd(
+            *ctx.saved_tensors, dinv1.contiguous(), deq.contiguous(),
+            first_layer=ctx.first_layer, weight_grads=any(need_w))
+        dnp, drbf, ddir, dforce = grads[:4]
+        dws = [g if need else None for g, need in zip(grads[4:], need_w)]
+        return (dnp, drbf, ddir, None, dforce, *dws, None)
+
+
+def fused_pair_interaction(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
+                           W2b, first_layer=False):
+    '''The layer through FusedPairInteraction (the kernels on the card).
+    pair_interaction_fwd_ref, autograd-differentiated, is the same layer as
+    plain PyTorch ops on any device.'''
+    return FusedPairInteraction.apply(np_, rbf, dir_, adj, force, We, W1a,
+                                      W1b, W2a, W2b, first_layer)
+

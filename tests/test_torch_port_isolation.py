@@ -1,0 +1,64 @@
+'''The port (newtonnet_tpu_torch) stands alone: importing it loads no JAX,
+flax, optax or msgpack and nothing of newtonnet_tpu, and its entry points
+refuse to run quietly on the CPU.'''
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CKPT = os.path.join(ROOT, 'artifacts', 'md17_model_pallas',
+                    'best_model.msgpack')
+
+
+def test_import_loads_no_jax_and_no_reference_package():
+    code = textwrap.dedent('''
+        import sys
+        import newtonnet_tpu_torch
+        import newtonnet_tpu_torch.data.loader
+        import newtonnet_tpu_torch.md.calculator
+        import newtonnet_tpu_torch.ops._build
+        import newtonnet_tpu_torch.ops.fused_dense
+        import newtonnet_tpu_torch.utils.checkpoint
+        import newtonnet_tpu_torch.utils.params
+        banned = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack')
+        bad = sorted(m for m in sys.modules
+                     if m.split('.')[0] in banned
+                     or m == 'newtonnet_tpu'
+                     or m.startswith('newtonnet_tpu.'))
+        print(','.join(bad))
+    ''')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == ''
+
+
+def test_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default is valid')
+    from newtonnet_tpu_torch import (NewtonNet, NewtonNetCalculator,
+                                     load_model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_model(CKPT)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NewtonNetCalculator(CKPT)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        NewtonNet(output_properties=['energy'])
+    assert load_model(CKPT, device='cpu').device.type == 'cpu'
+
+
+@pytest.mark.parametrize('kw, item', [
+    ({'kernel': 'xla'}, 'XLA'),
+    ({'graph_mode': 'neighborlist'}, 'neighbour lists'),
+    ({'kernel': 'xla', 'output_properties': ['energy', 'hessian']},
+     'Hessian'),
+    ({'kernel': 'xla', 'output_properties': ['energy', 'charge']},
+     'charge head and Ewald'),
+])
+def test_unported_configurations_name_their_roadmap_item(kw, item):
+    from newtonnet_tpu_torch import NewtonNet
+    with pytest.raises(NotImplementedError, match=f'ROADMAP.md A.*{item}'):
+        NewtonNet(device='cpu', **kw)
