@@ -8,11 +8,16 @@ with a non-zero exit code and no result line):
 
 1. env      the card, its power limit (nvidia-smi), torch / CUDA versions;
             TF32 off for matmuls and cuDNN.
-2. build    nvcc builds every kernel source of the package (sm_90a).
-3. kernels  each kernel against its plain PyTorch version on the card, at
-            the batched serving shape (B=100, N=21, F=128, R=20), at one
+2. build    nvcc builds every kernel source of the package (sm_90a), all
+            at once; ptxas registers, spills and shared memory per kernel.
+3. kernels  K1/K2 against their plain PyTorch versions on the card, at the
+            batched serving shape (B=100, N=21, F=128, R=20), at one
             calculator request (B=1, N=24) and at (B=2, N=70, F=64, R=16);
             bar: max|kernel - plain| <= 1e-4 * max|plain| per output.
+   dual     K3/K4 against theirs at the training shape (B=10, N=24, F=128,
+            R=20), at one molecule (B=1, N=24) and at (B=2, N=70, F=64,
+            R=16), both variants; fp32 mode at the same 1e-4 bar, bf16 mode
+            at DUAL_BF16_BAR (see there).
 4. serve    the trained MD17-aspirin checkpoint serves all 500 test frames
             in batches of 100 through the kernels; energy and force errors
             against the labels must reproduce the JAX package's (energy MAE
@@ -25,15 +30,32 @@ with a non-zero exit code and no result line):
             match phase 4 at the same tolerances.
    profile  one batch and one request under torch.profiler: device busy
             time, idle share, the fused kernels' share, the top kernels.
-6. timing   each kernel variant's launches during phases 4-5, its time and
-            its plain version's at the batched shape (CUDA events, median of
-            7 reps), and the least time the card could take (fp32 bound).
+7. train    fine-tuning from the checkpoint with scripts/config_md17_pallas.yml
+            (F=128, R=20, 3 interactions, energy + 50 x force mse, Adam
+            1e-3, clip 1.0, plateau, batch 10, bf16 duals):
+            a. the first 10 steps, loss and gradient norm against the JAX
+               package's (JAX_STEP_LOSS / JAX_STEP_GRAD_NORM);
+            b. the first step through the plain path on the card: the same
+               gradients within DUAL_BF16_BAR;
+            c. one whole epoch through the training CLI's entry point (95
+               steps, val, test, final re-evaluation): log.csv has the JAX
+               package's columns with finite values, best_model.msgpack
+               reloads and reproduces the logged test metrics, and every
+               K1-K4 variant ran, K2 never with weight cotangents.
+   profile  one training step under torch.profiler.
+6. timing   each kernel variant's launches on its main path, its time and
+            its plain version's (CUDA events, median of 7 reps), and the
+            least time the card could take: K1/K2 at the batched serving
+            shape (fp32 bound), K3/K4 at the training shape in bf16 mode
+            (the training path's; bf16 tensor-core bound) and in fp32 mode.
 
 Then the card's nvidia-smi line, the `kernels` JSON line and, last,
 {"ok": true, "device": {...}}.
 '''
 import json
+import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -44,16 +66,66 @@ CKPT = os.path.join(ROOT, 'artifacts', 'md17_model_pallas',
                     'best_model.msgpack')
 XYZ = os.path.join(ROOT, 'data', 'md17_aspirin', 'ccsd_test', 'raw',
                    'aspirin_ccsd-test.xyz')
+XYZ_TRAIN = os.path.join(ROOT, 'data', 'md17_aspirin', 'ccsd_train', 'raw',
+                         'aspirin_ccsd-train.xyz')
 JAX_ENERGY_MAE, JAX_FORCE_MAE = 0.007094, 0.022353  # JAX package, CPU
 E_ATOL, F_ATOL = 2e-2, 1e-4
 KERNEL_BAR = 1e-4
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3 rate
-PEAK_FP32_FLOPS, PEAK_BYTES_PER_S = 67e12, 3.35e12
-KERNEL_SOURCE = 'newtonnet_tpu_torch/csrc/fused_dense.cu'
+# K3/K4 in bf16 mode against their plain versions: both round the same
+# operands to bf16 and sum in fp32, but a one-ulp fp32 difference of a sum
+# can flip the bf16 rounding of a later operand (2^-8 relative), which
+# moves an output by a few 1e-4 of its largest magnitude (the dual phase
+# prints the measured worst case); held at 2e-3, ten times tighter than
+# the JAX package's own bf16 bar of 2e-2 relative norm
+# (tests/test_pallas_stack.py:240).
+DUAL_BF16_BAR = 2e-3
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, bf16 tensor
+# cores (dense), HBM3 rate
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 67e12, 989e12
+PEAK_BYTES_PER_S = 3.35e12
+SOURCES = {'pair': 'newtonnet_tpu_torch/csrc/fused_dense.cu',
+           'dual': 'newtonnet_tpu_torch/csrc/fused_dual.cu'}
 REPLACES = {'pair_fwd': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'pair_fwd_first': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'pair_bwd': 'newtonnet_tpu/ops/pallas_dense.py:102',
-            'pair_bwd_first': 'newtonnet_tpu/ops/pallas_dense.py:102'}
+            'pair_bwd_first': 'newtonnet_tpu/ops/pallas_dense.py:102',
+            'dual_fwd': 'newtonnet_tpu/ops/pallas_dense.py:299',
+            'dual_fwd_first': 'newtonnet_tpu/ops/pallas_dense.py:299',
+            'dual_bwd': 'newtonnet_tpu/ops/pallas_dense.py:334',
+            'dual_bwd_first': 'newtonnet_tpu/ops/pallas_dense.py:334'}
+
+MD17_CONFIG = os.path.join(ROOT, 'scripts', 'config_md17_pallas.yml')
+# The JAX package's first 10 fine-tuning steps of that configuration (loss,
+# global gradient norm before the clip), on the CPU with Pallas in
+# interpret mode at default matmul precision and bf16 duals:
+#   train_gen, _, _, stats = parse_train_test(train_root=<ccsd_train>,
+#       test_root=<ccsd_test>, train_size=950, train_batch_size=10,
+#       val_batch_size=50, test_batch_size=500, seed=0)
+#   model, params = load_model(<checkpoint>)
+#   params = set_scalers(params, model.output_properties, stats,
+#                        {'energy': {'fit_scale': True, 'fit_shift': True}})
+#   tx = get_optimizer_by_string('adam', clip_grad=1.0, lr=1e-3)
+#   then jit(fastgrad.value_and_grad) + tx.update over the loader's first
+#   10 batches.
+JAX_STEP_LOSS = [7.431698, 1.915496, 1.701782, 2.004409, 0.8471781,
+                 0.4329701, 0.4297071, 0.2887689, 0.4286618, 0.4786679]
+JAX_STEP_GRAD_NORM = [442.05, 157.16, 170.20, 223.88, 102.84, 32.152,
+                      25.714, 12.341, 39.999, 37.467]
+# the JAX CLI on the CPU, same configuration, bf16 duals: test force MAE
+# after epoch 0 (reported beside the port's, with no bar: a whole epoch
+# of bf16 gradient noise moves it by 20% between dual dtypes)
+JAX_EPOCH0_TEST_FORCE_MAE = 0.04655
+LOG_COLUMNS = (
+    ['epoch', 'lr', 'step']
+    + [f'train_{k}' for k in ('loss', 'energy_mae', 'energy_mse',
+                              'energy_per_atom_mae', 'energy_per_atom_mse',
+                              'gradient_force_mae', 'gradient_force_mse')]
+    + ['epoch_seconds', 'steps_per_s', 'edges_per_s']
+    + [f'{s}_{k}' for s in ('val', 'test')
+       for k in ('loss', 'energy_mae', 'energy_mse', 'energy_per_atom_mae',
+                 'energy_per_atom_mse', 'gradient_force_mae',
+                 'gradient_force_mse')]
+    + ['best_model'])
 
 
 class PhaseFailed(Exception):
@@ -104,6 +176,43 @@ def layer_work(B, N, F, R, kind, first):
     return flops, 4 * floats
 
 
+def dual_inputs(torch, B, N, F, R, seed):
+    '''K3's 14 inputs and K4's 4 cotangents, made on the card.'''
+    ins, di, dq = random_inputs(torch, B, N, F, R, seed)
+    g = torch.Generator(device='cuda').manual_seed(seed + 100)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device='cuda') * 0.1
+
+    np_, rbf, dir_, adj, force = ins[:5]
+    args = [np_, rnd(B, N, F), rbf, rnd(B, N, N, R), dir_, rnd(B, 3, N, N),
+            adj, force, rnd(B, 3, N, F)] + ins[5:]
+    return args, [di, dq, rnd(B, N, F), rnd(B, 3, N, F)]
+
+
+def dual_work(B, N, F, R, kind, first):
+    '''(flops, bytes) of K3 ('fwd') or K4 ('bwd'): the matrix products (K3
+    per pair slot: me, medot, and p, pdot, phi, phidot per branch; K4 adds
+    dh, dhdot, dmsg, dmsgdot and the weight cotangents h^T g, hdot^T gdot,
+    msg^T dp, msgdot^T dpdot per branch, rbf^T dme and rbfdot^T dmedot)
+    plus the per-feature multiply-adds (sigmoids not counted); each input
+    read once and each output written once, fp32.'''
+    S = B * N * N
+    nb = 1 if first else 2
+    node = B * N * F
+    floats_in = (2 * node + 2 * S * R + 7 * S + R * F + nb * 2 * F * F
+                 + (0 if first else 6 * node))
+    if kind == 'fwd':
+        flops = S * (4 * R * F + (4 if first else 12) * F
+                     + nb * (8 * F * F + 14 * F))
+        floats = floats_in + 8 * node
+    else:
+        flops = S * (8 * R * F + (10 if first else 24) * F
+                     + nb * (20 * F * F + 40 * F) + (nb - 1) * 4 * F * F)
+        floats = floats_in + 8 * node + 8 * node + R * F + 4 * F * F
+    return flops, 4 * floats
+
+
 def time_ms(torch, fn, reps=7, inner=10):
     '''Median over `reps` of the mean time of `inner` back-to-back calls,
     from CUDA events.'''
@@ -139,11 +248,13 @@ def profile_call(torch, fn):
            for e in prof.key_averages()
            if str(e.device_type).endswith('CUDA')]
     busy = sum(ms for _, ms, _ in dev)
-    fused = sum(ms for key, ms, _ in dev if 'pair_' in key)
+    families = {f: sum(ms for key, ms, _ in dev if f in key)
+                for f in ('pair_fwd', 'pair_bwd', 'dual_fwd', 'dual_bwd')}
     top = sorted(dev, key=lambda d: -d[1])[:5]
     return {'wall_ms': wall, 'device_busy_ms': busy,
             'device_idle_share': 1.0 - busy / wall if busy else None,
-            'fused_kernels_ms': fused,
+            'fused_kernels_ms': sum(families.values()),
+            'kernel_ms': families,
             'top_device_ms': [[k[:70], ms, n] for k, ms, n in top]}
 
 
@@ -192,6 +303,211 @@ def phase_kernels(torch, fd):
     return errs
 
 
+def phase_dual_kernels(torch, fdd):
+    '''Phase 3, dual: K3/K4 against their plain versions, both variants,
+    fp32 and bf16 modes. -> {variant: max abs err} at the training shape in
+    bf16 mode (the training path's).'''
+    errs = {}
+    shapes = [(10, 24, 128, 20), (1, 24, 128, 20), (2, 70, 64, 16)]
+    labels = ['inv1', 'eq', 'inv1dot', 'eqdot', 'dnp', 'dnpdot', 'dforce',
+              'dforcedot', 'dWe', 'dW1a', 'dW1b', 'dW2a', 'dW2b']
+    for si, (B, N, F, R) in enumerate(shapes):
+        args, cots = dual_inputs(torch, B, N, F, R, seed=10 + si)
+        worst = {}
+        for first in (False, True):
+            suffix = '_first' if first else ''
+            for dt, bar in (('float32', KERNEL_BAR),
+                            ('bfloat16', DUAL_BF16_BAR)):
+                kw = dict(first_layer=first, dot_dtype=dt)
+                got = list(fdd.pair_interaction_dual_fwd(*args, **kw))
+                got += fdd.pair_interaction_dual_bwd(*args, *cots, **kw)
+                ref = list(fdd.pair_interaction_dual_fwd_ref(*args, **kw))
+                ref += fdd.pair_interaction_dual_bwd_ref(*args, *cots, **kw)
+                torch.cuda.synchronize()
+                for k, (lab, a, b) in enumerate(zip(labels, got, ref)):
+                    kname = ('dual_fwd' if k < 4 else 'dual_bwd') + suffix
+                    err = (a - b).abs().max().item()
+                    scale = b.abs().max().item()
+                    check(bool(torch.isfinite(a).all()),
+                          f'{kname} {lab} not finite at {(B, N, F, R)} {dt}')
+                    check(err <= bar * scale,
+                          f'{kname} {lab} at {(B, N, F, R)} {dt}: max err '
+                          f'{err} > {bar} * {scale}')
+                    worst[dt] = max(worst.get(dt, 0.0),
+                                    err / scale if scale else err)
+                    if si == 0 and dt == 'bfloat16':
+                        errs[kname] = max(errs.get(kname, 0.0), err)
+        emit('dual_vs_plain', shape=dict(B=B, N=N, F=F, R=R),
+             worst_err_over_max=worst,
+             bar={'float32': KERNEL_BAR, 'bfloat16': DUAL_BF16_BAR})
+    return errs
+
+
+def md17_settings(output, epochs):
+    '''scripts/config_md17_pallas.yml warm-started from the trained
+    checkpoint, on CUDA, with the data of this checkout, `epochs` epochs,
+    writing into `output`.'''
+    import yaml
+    with open(MD17_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg['general'].update(device='cuda', output=output)
+    cfg['data'].update(train_root=os.path.dirname(os.path.dirname(XYZ_TRAIN)),
+                       test_root=os.path.dirname(os.path.dirname(XYZ)))
+    cfg['model']['pretrained_model'] = {'path': CKPT}
+    cfg['training']['epochs'] = epochs
+    return cfg
+
+
+def rel_norm(a, b):
+    '''||a - b|| / ||b|| over lists of tensors.'''
+    num = sum(float(((x - y) ** 2).sum()) for x, y in zip(a, b))
+    den = sum(float((y ** 2).sum()) for y in b)
+    return (num / den) ** 0.5
+
+
+def phase_train_steps(torch, fd, fdd):
+    '''Phase 7a/b: the first 10 fine-tuning steps against the JAX package's,
+    and the first step through the plain path. -> (the model's device
+    batch of step 1, the fine-tuned model, its optimizer, main_loss, step
+    seconds).'''
+    import functools
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.train import fastgrad
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    from newtonnet_tpu_torch.train.trainer import fp32_matmuls
+
+    import numpy as np
+    cfg = md17_settings(None, 1)
+    train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
+    main_loss, _ = get_loss_by_string(cfg['training']['loss'])
+
+    def fine_tune_start():
+        model = load_model(CKPT).requires_grad_(True)
+        set_scalers(model.core, model.output_properties, stats,
+                    {'energy': dict(cfg['training']['fit_scalers'])})
+        return model
+
+    it = iter(train_gen)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()}
+               for _ in range(10)]
+    model = fine_tune_start()
+    opt = get_optimizer_by_string('adam', model.core, clip_grad=1.0, lr=1e-3)
+    losses, norms, step_s, grads1 = [], [], [], None
+    with fp32_matmuls():
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _ = fastgrad.value_and_grad(model, main_loss, b)
+            norm = opt.global_norm()
+            if grads1 is None:
+                grads1 = [p.grad.clone() for p in model.core.parameters()]
+            opt.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            norms.append(float(norm))
+        rel_loss = [abs(a - b) / b for a, b in zip(losses, JAX_STEP_LOSS)]
+        rel_norm_jax = [abs(a - b) / b for a, b in zip(norms,
+                                                       JAX_STEP_GRAD_NORM)]
+        emit('train_steps', loss=losses, jax_loss=JAX_STEP_LOSS,
+             grad_norm=norms, jax_grad_norm=JAX_STEP_GRAD_NORM,
+             rel_loss=rel_loss, rel_grad_norm=rel_norm_jax,
+             step_ms=[1e3 * t for t in step_s],
+             step_ms_median=1e3 * statistics.median(step_s[1:]),
+             steps_per_s=1.0 / statistics.median(step_s[1:]))
+        check(all(math.isfinite(v) for v in losses + norms),
+              'non-finite loss or gradient norm')
+        # Step 1's loss is mostly the energy term of energies near -17,600
+        # eV, where one float32 ulp is 0.002 eV: two float32 programs that
+        # sum the atomic energies in another order land a few ulp apart per
+        # frame. One ulp of every frame's energy, all of one sign, moves the
+        # loss by (2/B) sum_b |E_b - E_ref_b| ulp(E_b): the bar for step 1,
+        # relative to the float64 loss of the same step (plain path), both
+        # for the port against the JAX value and for each against float64.
+        b64 = {k: v.double() if v.is_floating_point() else v
+               for k, v in batches[0].items()}
+        preds = fine_tune_start().double()(
+            b64['z'], b64['pos'], b64['cell'],
+            pair_op=fd.pair_interaction_fwd_ref)
+        loss64 = float(main_loss(preds, b64))
+        e64 = preds['energy'].cpu().numpy()
+        err = e64 - b64['energy'].cpu().numpy()
+        ulp_term = 2.0 / len(err) * float(
+            (abs(err) * abs(np.spacing(e64.astype(np.float32)))).sum())
+        bar1 = ulp_term / loss64
+        to64 = {'port': abs(losses[0] - loss64) / loss64,
+                'jax': abs(JAX_STEP_LOSS[0] - loss64) / loss64}
+        emit('train_step1_float64', loss64=loss64, rel_to_float64=to64,
+             port_rel_to_jax=rel_loss[0], energy_ulp_loss_term=ulp_term,
+             step1_loss_bar=bar1)
+        check(max(rel_loss[0], *to64.values()) <= bar1,
+              f'step 1 loss {losses[0]} (float64 {loss64})')
+        check(rel_norm_jax[0] <= 1e-3, f'step 1 grad norm {norms[0]}')
+        check(max(rel_loss[1:]) <= 1e-2, f'steps 2-10 loss {losses}')
+
+        plain = fine_tune_start()
+        loss_p, _ = fastgrad.value_and_grad(
+            plain, main_loss, batches[0], pair_op=fd.pair_interaction_fwd_ref,
+            dual_op=functools.partial(fdd.fused_pair_interaction_dual,
+                                      plain=True))
+        grads_p = [p.grad for p in plain.core.parameters()]
+        rel = rel_norm(grads1, grads_p)
+        emit('train_step_vs_plain', loss=losses[0], plain_loss=float(loss_p),
+             grad_rel_norm_diff=rel, bar=DUAL_BF16_BAR)
+        check(abs(losses[0] - float(loss_p)) <= 1e-5 * float(loss_p),
+              'kernel vs plain step loss')
+        check(rel <= DUAL_BF16_BAR, f'kernel vs plain gradients: {rel}')
+    return batches[0], model, opt, main_loss, step_s
+
+
+def phase_train_epoch(torch, fd, fdd):
+    '''Phase 7c: one epoch through the CLI's entry point, the training main
+    path. -> its launch counts.'''
+    import csv
+    import tempfile
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        fd.reset_launch_counts()
+        fdd.reset_launch_counts()
+        t = time.perf_counter()
+        trainer = train_from_settings(md17_settings(out, 1))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {**fd.LAUNCHES, **fdd.LAUNCHES}
+        wgrad = dict(fd.WEIGHT_GRAD_LAUNCHES)
+        with open(os.path.join(trainer.output_path, 'log.csv')) as f:
+            rows = list(csv.DictReader(f))
+        best = load_model(os.path.join(trainer.model_path,
+                                       'best_model.msgpack'))
+        again = trainer.run_one_epoch(trainer.test_generator, model=best)
+    row = rows[0]
+    emit('train_epoch', seconds=seconds, rows=[r['epoch'] for r in rows],
+         log=row, jax_epoch0_test_force_mae=JAX_EPOCH0_TEST_FORCE_MAE,
+         reloaded_best_test=again, launches=launches,
+         weight_grad_launches=wgrad)
+    check(list(row) == LOG_COLUMNS, f'log.csv columns {list(row)}')
+    check([r['epoch'] for r in rows] == ['0', 'last', 'best'],
+          'log.csv rows')
+    check(all(math.isfinite(float(row[k])) for k in LOG_COLUMNS[1:-1]),
+          'non-finite log.csv value')
+    check(row['best_model'] == 'True', 'epoch 0 saved no best model')
+    for k, v in again.items():
+        logged = float(row[f'test_{k}'])
+        check(abs(v - logged) <= 1e-5 * abs(logged),
+              f'reloaded best model test_{k}: {v} vs {logged}')
+    check(all(launches[k] > 0 for k in launches),
+          f'a kernel was not launched on the training path: {launches}')
+    check(sum(wgrad.values()) == 0,
+          f'K2 computed weight cotangents while training: {wgrad}')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -207,6 +523,8 @@ def main():
     from newtonnet_tpu_torch.data.loader import collate, parse_xyz
     from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_dual as fdd
+    from newtonnet_tpu_torch.train import fastgrad
 
     # 1. environment
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -226,21 +544,34 @@ def main():
     # 2. build
     t0 = time.perf_counter()
     report = _build.build_all()
-    ptxas = []
+    ptxas = {}
     for name, (_, log) in report.items():
         entry = None
         for line in log.splitlines():
             if 'Compiling entry function' in line:
-                entry = line.split("'")[1]
-            elif 'registers' in line and entry:
-                ptxas.append(f'{entry}: {line.split(":", 1)[1].strip()}')
-            elif 'spill' in line and entry:
-                ptxas.append(f'{entry}: {line.strip()}')
+                # e.g. ..._15dual_bwd_kernelILi128ELb0ELb1EE... ->
+                # dual_bwd_kernel<128,0,1>
+                m = re.search(r'((?:pair|dual)_[a-z_]+?_kernel)(I(?:L[ib]\d+E)+E)?',
+                              line.split("'")[1])
+                args = re.findall(r'L[ib](\d+)E', m.group(2) or '')
+                entry = m.group(1) + (f'<{",".join(args)}>' if args else '')
+                ptxas[entry] = {}
+            elif entry and 'registers' in line:
+                ptxas[entry]['registers'] = int(
+                    re.search(r'Used (\d+) registers', line).group(1))
+            elif entry and 'spill' in line:
+                ptxas[entry]['spill_bytes'] = sum(
+                    int(v) for v in re.findall(r'(\d+) bytes spill', line))
     emit('build', seconds=time.perf_counter() - t0,
-         built=sorted(report), ptxas=ptxas)
+         built={name: sec for name, (sec, _) in report.items()},
+         ptxas=ptxas)
 
     # 3. kernels against their plain versions
     errs = phase_kernels(torch, fd)
+    errs.update(phase_dual_kernels(torch, fdd))
+    emit('dual_shared_memory_bytes', R=20, **{
+        f'{kind} F={F}': fdd.smem_bytes(F, 20, kind)
+        for kind in ('fwd', 'bwd') for F in (32, 64, 128)})
 
     # 4. + 5. the main path: batched serving, then calculator requests
     samples = parse_xyz(XYZ)
@@ -338,6 +669,20 @@ def main():
          **profile_call(torch, lambda: calc.calculate(
              numbers=s['z'], positions=s['pos'])))
 
+    # 7. training: the first 10 steps, the plain path, one whole epoch
+    b0, tuned, opt, main_loss, step_s = phase_train_steps(torch, fd, fdd)
+    train_launches = phase_train_epoch(torch, fd, fdd)
+
+    def one_step():
+        fastgrad.value_and_grad(tuned, main_loss, b0)
+        opt.step()
+    prof = profile_call(torch, one_step)
+    step_ms = 1e3 * statistics.median(step_s[1:])
+    emit('profile', what='one training step (B=10, N=24)',
+         step_ms_median_unprofiled=step_ms,
+         device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
+         / step_ms, **prof)
+
     # 6. timing at the batched serving shape
     B, N, F, R = 100, 21, 128, 20
     ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=0)
@@ -366,7 +711,7 @@ def main():
         flops, nbytes = layer_work(B, N, F, R, kind, first)
         t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
         rows.append({
-            'name': name, 'route': 'cuda', 'source': KERNEL_SOURCE,
+            'name': name, 'route': 'cuda', 'source': SOURCES['pair'],
             'replaces': REPLACES[name], 'launches': launches[name],
             'max_abs_err': errs[name], 'ms': statistics.median([ms, ms2]),
             'plain_ms': statistics.median([plain1, plain2]),
@@ -378,6 +723,47 @@ def main():
     emit('timing', shape=dict(B=B, N=N, F=F, R=R), weight_grads=False,
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12,
          peak_tb_per_s=PEAK_BYTES_PER_S / 1e12)
+
+    # K3/K4 at the training shape: bf16 mode (the training path's, in the
+    # kernels line, bound by the bf16 tensor-core peak) and fp32 mode
+    B, N, F, R = 10, 24, 128, 20
+    args, cots = dual_inputs(torch, B, N, F, R, seed=0)
+    fp32_rows = []
+    for name in ('dual_fwd', 'dual_fwd_first', 'dual_bwd', 'dual_bwd_first'):
+        first = name.endswith('first')
+        kind = 'fwd' if name.startswith('dual_fwd') else 'bwd'
+        for dt in ('bfloat16', 'float32'):
+            def run(ref=False, first=first, kind=kind, dt=dt):
+                kw = dict(first_layer=first, dot_dtype=dt)
+                if kind == 'fwd':
+                    f = fdd.pair_interaction_dual_fwd_ref if ref else \
+                        fdd.pair_interaction_dual_fwd
+                    return f(*args, **kw)
+                f = fdd.pair_interaction_dual_bwd_ref if ref else \
+                    fdd.pair_interaction_dual_bwd
+                return f(*args, *cots, **kw)
+            plain1 = time_ms(torch, lambda: run(True))
+            ms = time_ms(torch, run)
+            ms2 = time_ms(torch, run)
+            plain2 = time_ms(torch, lambda: run(True))
+            flops, nbytes = dual_work(B, N, F, R, kind, first)
+            peak = PEAK_BF16_FLOPS if dt == 'bfloat16' else PEAK_FP32_FLOPS
+            t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+            row = {
+                'name': name, 'route': 'cuda', 'source': SOURCES['dual'],
+                'replaces': REPLACES[name], 'launches': train_launches[name],
+                'max_abs_err': errs[name],
+                'ms': statistics.median([ms, ms2]),
+                'plain_ms': statistics.median([plain1, plain2]),
+                'bound_ms': 1e3 * max(t_ops, t_bytes),
+                'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+                'library_ms': None, 'dot_dtype': dt,
+                'flops': flops, 'bytes': nbytes,
+                'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]}
+            (rows if dt == 'bfloat16' else fp32_rows).append(row)
+    emit('timing', shape=dict(B=B, N=N, F=F, R=R), what='K3/K4',
+         peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
+         peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12, fp32_mode_rows=fp32_rows)
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

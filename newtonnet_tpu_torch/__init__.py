@@ -1,15 +1,27 @@
 '''newtonnet_tpu_torch: the PyTorch / CUDA port of newtonnet_tpu.
 
-Serves the NewtonNet energy model (energy, forces, virial, stress) on an
-NVIDIA Hopper GPU through hand-written CUDA kernels for the fused dense
-pair interaction (csrc/fused_dense.cu), built with nvcc at first use. It
-imports torch and numpy only: no JAX and nothing of newtonnet_tpu.
+Serves the NewtonNet energy model (energy, forces, virial, stress) and
+trains it (energy + force losses) on an NVIDIA Hopper GPU through
+hand-written CUDA kernels for the fused dense pair interaction
+(csrc/fused_dense.cu) and its dual for the parameter gradient
+(csrc/fused_dual.cu), built with nvcc at first use. It imports torch and
+numpy only: no JAX and nothing of newtonnet_tpu.
 
 Entry points run on CUDA unless the caller passes device='cpu'.
 '''
 from newtonnet_tpu_torch.md.calculator import NewtonNetCalculator
 from newtonnet_tpu_torch.models.output import NewtonNet
-from newtonnet_tpu_torch.utils.checkpoint import load_model
+from newtonnet_tpu_torch.train.trainer import Trainer
+from newtonnet_tpu_torch.utils.checkpoint import load_model, save_model
 
-__all__ = ['NewtonNet', 'NewtonNetCalculator', 'load_model']
-__version__ = '0.1.0'
+
+def main(argv=None):
+    '''The training CLI (newtonnet_tpu_torch.train.cli), imported when
+    called so that `python -m newtonnet_tpu_torch.train.cli` runs it
+    fresh.'''
+    from newtonnet_tpu_torch.train.cli import main as cli_main
+    return cli_main(argv)
+
+__all__ = ['NewtonNet', 'NewtonNetCalculator', 'Trainer', 'load_model',
+           'main', 'save_model']
+__version__ = '0.2.0'

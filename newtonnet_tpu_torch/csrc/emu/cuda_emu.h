@@ -4,8 +4,10 @@
 // A source is rewritten for g++ (cuda_runtime.h -> this header, dynamic
 // shared memory -> g_smem, `k<<<grid, block, smem, stream>>>(args)` ->
 // emu_launch) and run with one std::thread per CUDA thread:
-// __syncthreads is a barrier over the block, __shfl_xor_sync exchanges
-// through a per-warp buffer between two per-warp barriers. Blocks run one
+// __syncthreads is a barrier over the block, __syncwarp one over the warp,
+// __shfl_xor_sync exchanges through a per-warp buffer between two per-warp
+// barriers. Lanes run as independent threads, as the CUDA memory model
+// allows, so a missing __syncwarp shows as a race. Blocks run one
 // after another; each starts with its shared memory filled with NaN, so a
 // read of shared memory that the block never wrote shows in the results.
 // It checks indexing, masking and barrier placement, not speed, and it
@@ -15,6 +17,7 @@
 #include <barrier>
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <functional>
 #include <memory>
 #include <thread>
@@ -50,6 +53,10 @@ cudaError_t cudaFuncSetAttribute(Kernel, cudaFuncAttribute, int bytes) {
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  g_warp_barriers[threadIdx.x >> 5]->arrive_and_wait();
+}
+
 inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   g_shfl[warp][lane] = v;
@@ -57,6 +64,25 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   const float out = g_shfl[warp][lane ^ lane_mask];
   g_warp_barriers[warp]->arrive_and_wait();
   return out;
+}
+
+// bf16 as cuda_bf16.h gives it: round to nearest even, NaN kept quiet.
+struct __nv_bfloat16 {
+  unsigned short x;
+};
+inline __nv_bfloat16 __float2bfloat16_rn(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  if ((u & 0x7fffffffu) > 0x7f800000u)
+    return {(unsigned short)((u >> 16) | 0x40u)};
+  u += 0x7fffu + ((u >> 16) & 1u);
+  return {(unsigned short)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 h) {
+  const unsigned u = (unsigned)h.x << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
 }
 
 inline void emu_launch(unsigned grid, unsigned block, size_t smem_bytes,

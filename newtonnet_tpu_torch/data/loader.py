@@ -1,10 +1,18 @@
-'''Samples from extxyz files and padded batching.
+'''Samples from extxyz files, datasets and padded batching (the JAX
+package's data/loader.py, in-memory and unbucketed).
 
-`parse_xyz` reads frames into Samples in eV and Angstrom; `collate` pads
-a list of Samples into one static-shape batch, atoms padded with z = 0.
+`parse_xyz` reads frames into Samples in eV and Angstrom;
+`MolecularInMemoryDataset` holds a directory's raw files in memory;
+`Subset` and `random_split` cut it; `collate` pads a list of Samples into
+one static-shape batch (atoms padded with z = 0, missing graphs with
+graph_mask False); `PaddedLoader` iterates over batches.
 '''
+import os
+import os.path as osp
+
 import numpy as np
 
+from newtonnet_tpu_torch.data.units import get_unit
 from newtonnet_tpu_torch.data.xyz import read_extxyz
 
 EV_ANGSTROM = {'length': 1.0, 'energy': 1.0}
@@ -41,21 +49,110 @@ def parse_xyz(raw_path, units=EV_ANGSTROM):
     return samples
 
 
-def collate(samples, n_pad):
-    '''Pad Samples into one float32 batch of numpy arrays: z (B, N),
-    pos (B, N, 3), cell (B, 3, 3), energy (B,), force (B, N, 3), with
-    B = len(samples) and N = n_pad.'''
-    B, N = len(samples), n_pad
+class MolecularInMemoryDataset:
+    '''Every frame of `root`/raw/*.xyz|*.extxyz (sorted by name) in memory,
+    with float data in `precision`. Unlike the JAX package's dataset it
+    writes no processed/ cache: the raw files are parsed at construction.
+
+    Args:
+        root: directory holding a raw/ subdirectory.
+        precision: numpy dtype of the float data (default float32).
+        data_length_unit / data_energy_unit: units of the raw files
+            (converted into eV and Angstrom).
+        force_reload: taken for the config schema's sake; there is no
+            cache to reload.
+    '''
+
+    def __init__(self, root, precision=np.float32, data_length_unit='Ang',
+                 data_energy_unit='eV', force_reload=False):
+        self.precision = np.dtype(precision)
+        units = {'length': get_unit(data_length_unit),
+                 'energy': get_unit(data_energy_unit)}
+        raw_dir = osp.join(root, 'raw')
+        names = sorted(n for n in os.listdir(raw_dir)
+                       if n.endswith(('.npz', '.xyz', '.extxyz')))
+        self._samples = []
+        for name in names:
+            if name.endswith('.npz'):
+                raise NotImplementedError(
+                    f'{name}: npz datasets are not ported yet (ROADMAP.md A, '
+                    '"data pipeline")')
+            self._samples += [self._cast(s) for s in
+                              parse_xyz(osp.join(raw_dir, name), units)]
+
+    def _cast(self, s):
+        out = Sample(s)
+        for key in ('pos', 'cell', 'force'):
+            if out.get(key) is not None:
+                out[key] = np.asarray(out[key]).astype(self.precision)
+        if out.get('energy') is not None:
+            out['energy'] = self.precision.type(out['energy'])
+        return out
+
+    def __len__(self):
+        return len(self._samples)
+
+    def __getitem__(self, idx):
+        return self._samples[idx]
+
+    @property
+    def max_atoms(self):
+        return max(len(s['z']) for s in self._samples)
+
+
+class Subset:
+    '''Index-based view of a dataset.'''
+
+    def __init__(self, dataset, indices):
+        self.dataset = dataset
+        self.indices = np.asarray(indices)
+
+    def __len__(self):
+        return len(self.indices)
+
+    def __getitem__(self, i):
+        return self.dataset[self.indices[i]]
+
+    @property
+    def max_atoms(self):
+        return self.dataset.max_atoms
+
+    @property
+    def precision(self):
+        return self.dataset.precision
+
+
+def random_split(dataset, sizes, rng):
+    '''Split into consecutive Subsets of one permutation drawn from the
+    numpy Generator `rng`, as the JAX package does without locality
+    blocks.'''
+    if sum(sizes) != len(dataset):
+        raise ValueError(f'sizes {sizes} do not add up to {len(dataset)}')
+    perm = rng.permutation(len(dataset))
+    out, start = [], 0
+    for size in sizes:
+        out.append(Subset(dataset, perm[start:start + size]))
+        start += size
+    return out
+
+
+def collate(samples, n_pad, batch_pad=None, dtype=np.float32):
+    '''Pad Samples into one batch of numpy arrays: z (B, N), pos (B, N, 3),
+    cell (B, 3, 3), energy (B,), force (B, N, 3) and graph_mask (B,), with
+    B = batch_pad (default len(samples)) and N = n_pad. Rows past
+    len(samples) are empty graphs (graph_mask False).'''
+    B, N = batch_pad or len(samples), n_pad
     oversized = max((len(s['z']) for s in samples), default=0)
     if oversized > N:
         raise ValueError(f'sample with {oversized} atoms does not fit '
                          f'n_pad={N}')
     batch = {
         'z': np.zeros((B, N), dtype=np.int32),
-        'pos': np.zeros((B, N, 3), dtype=np.float32),
-        'cell': np.zeros((B, 3, 3), dtype=np.float32),
-        'energy': np.zeros((B,), dtype=np.float32),
-        'force': np.zeros((B, N, 3), dtype=np.float32),
+        'pos': np.zeros((B, N, 3), dtype=dtype),
+        'cell': np.zeros((B, 3, 3), dtype=dtype),
+        'energy': np.zeros((B,), dtype=dtype),
+        'force': np.zeros((B, N, 3), dtype=dtype),
+        'graph_mask': np.zeros((B,), dtype=bool),
     }
     for i, s in enumerate(samples):
         n = len(s['z'])
@@ -66,4 +163,41 @@ def collate(samples, n_pad):
             batch['energy'][i] = s['energy']
         if s.get('force') is not None:
             batch['force'][i, :n] = s['force']
+        batch['graph_mask'][i] = True
     return batch
+
+
+class PaddedLoader:
+    '''Batches of identical shape (batch_size, n_pad): atoms padded with
+    z = 0, the last partial batch padded with empty graphs. With shuffle,
+    each epoch draws one permutation from its own numpy Generator, seeded
+    with `seed` (the JAX package's PaddedLoader, shuffle_block None).
+
+    Args:
+        dataset: indexable dataset or Subset.
+        batch_size: graphs per batch.
+        shuffle: reshuffle at every epoch.
+        n_pad: atom padding (default: dataset.max_atoms rounded up to a
+            multiple of 8).
+        seed: shuffling seed.
+    '''
+
+    def __init__(self, dataset, batch_size, shuffle=False, n_pad=None,
+                 seed=0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.n_pad = n_pad or max(8, -(-dataset.max_atoms // 8) * 8)
+        self._rng = np.random.default_rng(seed)
+        self.dtype = np.dtype(getattr(dataset, 'precision', np.float32))
+
+    def __len__(self):
+        return -(-len(self.dataset) // self.batch_size)
+
+    def __iter__(self):
+        order = (self._rng.permutation(len(self.dataset)) if self.shuffle
+                 else np.arange(len(self.dataset)))
+        for start in range(len(self)):
+            idx = order[start * self.batch_size:(start + 1) * self.batch_size]
+            yield collate([self.dataset[i] for i in idx], self.n_pad,
+                          self.batch_size, dtype=self.dtype)

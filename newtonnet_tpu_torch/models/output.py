@@ -14,6 +14,7 @@ where `displacement` is an identity-valued (B, 3, 3) strain applied
 Other configurations raise NotImplementedError naming the ROADMAP.md item
 that will port them.
 '''
+import contextlib
 from typing import Sequence
 
 import torch
@@ -48,6 +49,22 @@ def resolve_device(device=None):
         raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
                            'CPU')
     return torch.device('cuda')
+
+
+@contextlib.contextmanager
+def constant_parameters(module):
+    '''Hold every parameter of `module` constant (requires_grad False)
+    inside the block and restore the flags after it. Autograd then asks
+    the fused backward (K2) for no weight cotangents: the JAX package's
+    force pass closes over the parameters the same way.'''
+    params = list(module.parameters())
+    saved = [p.requires_grad for p in params]
+    module.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p, flag in zip(params, saved):
+            p.requires_grad_(flag)
 
 
 class NewtonNet(nn.Module):
@@ -233,7 +250,8 @@ class NewtonNet(nn.Module):
         pos = pos.detach().requires_grad_(need_grad)
         displacement = torch.eye(3, dtype=cell.dtype, device=cell.device) \
             .expand(cell.shape[0], 3, 3).clone().requires_grad_(need_grad)
-        with torch.enable_grad():
+        # the outputs are detached: no parameter cotangent is ever read
+        with torch.enable_grad(), constant_parameters(self.core):
             total, out = self._energy_and_aux(z, pos, displacement, cell,
                                               pair_op)
             if need_grad:

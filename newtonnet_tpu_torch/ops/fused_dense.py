@@ -25,13 +25,16 @@ import torch
 # Launches of each kernel variant, counted by its wrapper.
 LAUNCHES = {'pair_fwd': 0, 'pair_fwd_first': 0,
             'pair_bwd': 0, 'pair_bwd_first': 0}
+# K2 launches among those that computed the weight cotangents
+WEIGHT_GRAD_LAUNCHES = {'pair_bwd': 0, 'pair_bwd_first': 0}
 KERNEL_WIDTHS = (32, 64, 128)  # the F the CUDA kernels are built for
 _TI = 8  # rows i per block in the kernels (csrc/fused_dense.cu: TI)
 
 
 def reset_launch_counts():
-    for key in LAUNCHES:
-        LAUNCHES[key] = 0
+    for counts in (LAUNCHES, WEIGHT_GRAD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
 
 
 _silu = torch.nn.functional.silu
@@ -222,6 +225,7 @@ def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     LAUNCHES['pair_bwd_first' if first_layer else 'pair_bwd'] += 1
     if not weight_grads:
         return dnp, drbf, ddir, dforce, None, None, None, None, None
+    WEIGHT_GRAD_LAUNCHES['pair_bwd_first' if first_layer else 'pair_bwd'] += 1
     sizes = [R * F] + [F * F] * 4
     shapes_w = [(R, F)] + [(F, F)] * 4
     return (dnp, drbf, ddir, dforce,

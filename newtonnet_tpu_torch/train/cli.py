@@ -1,0 +1,147 @@
+'''Training command line (the JAX package's scripts/newtonnet_train.py):
+
+    python -m newtonnet_tpu_torch.train.cli --config config.yml
+    python -m newtonnet_tpu_torch.train.cli --resume runs/x/training_1
+
+The same YAML schema (general / data / model / training). general.device
+'cpu' trains on the CPU (the kernels' plain versions); any other value
+trains on CUDA and raises where there is none. model.pretrained_model.path
+to a .msgpack checkpoint warm-starts from it, with its freeze flags.
+Not ported, and refused with NotImplementedError: a .pt warm start,
+training.parallel, training.wandb and general.debug_nans.
+'''
+import argparse
+import os
+
+import numpy as np
+
+_NOT_PORTED = '{} is not ported yet (ROADMAP.md A, "{}")'
+
+
+def _config_path(args):
+    if args.resume is None:
+        if args.config is None:
+            raise SystemExit('give --config or --resume')
+        return args.config
+    if args.config is not None:
+        raise SystemExit('Cannot resume and train from scratch at the same '
+                         'time.')
+    scripts = os.path.join(args.resume, 'run_scripts')
+    configs = [f for f in os.listdir(scripts)
+               if f.endswith(('.yaml', '.yml'))]
+    if len(configs) != 1:
+        raise SystemExit(f'Found {len(configs)} config files in '
+                         f'{args.resume}.')
+    return os.path.join(scripts, configs[0])
+
+
+def train_from_settings(settings, settings_path=None, resume=None):
+    '''Build the data, model, loss, optimizer and Trainer from a settings
+    dict of the YAML schema (consumed as the JAX CLI consumes it), train,
+    and return the Trainer. `resume` is a training_{n} directory.'''
+    general, training = settings['general'], settings['training']
+    for key, item in (('wandb', 'training extras'),
+                      ('parallel', 'parallelism')):
+        if training.get(key):
+            raise NotImplementedError(
+                _NOT_PORTED.format(f'training.{key}', item))
+    if general.get('debug_nans', False):
+        raise NotImplementedError(
+            _NOT_PORTED.format('general.debug_nans', 'training extras'))
+    import torch
+
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.layers.precision import get_precision_by_string
+    from newtonnet_tpu_torch.models.output import NewtonNet, resolve_device
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import (
+        get_optimizer_by_string,
+        get_scheduler_by_string,
+    )
+    from newtonnet_tpu_torch.train.trainer import Trainer
+    from newtonnet_tpu_torch.utils.checkpoint import load_model
+
+    device = resolve_device('cpu' if general.get('device') == 'cpu'
+                            else None)
+    dtype = get_precision_by_string(general['precision'])
+    seed = general.get('seed', 0)
+    train_gen, val_gen, test_gen, stats = parse_train_test(
+        precision=np.dtype(str(dtype).split('.')[-1]), seed=seed,
+        **settings['data'])
+
+    pretrained = settings['model'].pop('pretrained_model', None)
+    freeze = None
+    if pretrained is not None:
+        path = str(pretrained['path'])
+        if path.endswith('.pt'):
+            raise NotImplementedError(_NOT_PORTED.format('a .pt warm start',
+                                                         'export'))
+        model = load_model(path, device=device)
+        freeze = {k: pretrained.get(k, False)
+                  for k in ('freeze_encoder', 'freeze_interaction',
+                            'freeze_decoder', 'freeze_scaler')}
+    else:
+        model = NewtonNet(
+            **settings['model'], device=device, dtype=dtype,
+            generator=torch.Generator(device=device).manual_seed(seed))
+
+    # fit scalers as the JAX CLI does: per output property, its entry of
+    # training.fit_scalers, or {} (fit scale and shift) where it has none
+    fit_scalers = training.pop('fit_scalers', {}) or {}
+    fit_config = {key: fit_scalers.pop(key, {})
+                  for key in model.output_properties}
+    set_scalers(model.core, model.output_properties, stats, fit_config)
+
+    main_loss, eval_loss = get_loss_by_string(training.pop('loss', None))
+    clip_grad = training.pop('clip_grad', 0.0) or 0.0
+    opt_name, opt_kwargs = training.pop('optimizer',
+                                        {'adam': {}}).popitem()
+    optimizer = get_optimizer_by_string(opt_name, model.core,
+                                        clip_grad=clip_grad,
+                                        **(opt_kwargs or {}))
+    lr = (opt_kwargs or {}).get('lr', 1e-3)
+    sched_cfg = training.pop('lr_scheduler', None)
+    lr_scheduler = get_scheduler_by_string(
+        sched_cfg.items() if sched_cfg else None, lr)
+
+    trainer = Trainer(
+        model=model,
+        loss_fns=(main_loss, eval_loss),
+        optimizer=optimizer,
+        lr_scheduler=lr_scheduler,
+        output_base_path=general['output'],
+        script_path=os.path.abspath(__file__),
+        settings_path=settings_path,
+        train_generator=train_gen,
+        val_generator=val_gen,
+        test_generator=test_gen,
+        freeze=freeze,
+        **training,
+    )
+    if resume is not None:
+        trainer.resume(resume)
+    trainer.train()
+    return trainer
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description='Train NewtonNet with the PyTorch port.')
+    parser.add_argument('-c', '--config', type=str,
+                        help='The path to the YAML configuration file.')
+    parser.add_argument('-r', '--resume', type=str,
+                        help='A training_{n} directory to continue.')
+    args = parser.parse_args(argv)
+    import yaml
+
+    settings_path = os.path.abspath(_config_path(args))
+    with open(settings_path) as f:
+        settings = yaml.safe_load(f)
+    trainer = train_from_settings(settings, settings_path, args.resume)
+    print('done!')
+    return trainer
+
+
+if __name__ == '__main__':
+    main()

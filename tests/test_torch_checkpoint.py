@@ -78,3 +78,37 @@ def test_batched_forward_matches_jax(samples):
     # and both are the trained model: errors against the labels are small
     assert np.abs(e - batch['energy']).mean() < 0.05
     assert np.abs(f - batch['force']).mean() < 0.05
+
+
+def test_msgpack_encoder_writes_what_flax_reads():
+    '''utils/_msgpack.py's encoder over every type it takes, every length
+    class of str / bin / array / map and every int width, read back by
+    flax.serialization.msgpack_restore and by the port's own decoder.'''
+    from newtonnet_tpu_torch.utils._msgpack import msgpack_serialize
+    tree = {
+        'ints': [0, 1, 127, 128, 255, 256, 65535, 65536, 2 ** 32,
+                 2 ** 63, -1, -32, -33, -128, -129, -2 ** 15 - 1,
+                 -2 ** 31 - 1, -2 ** 63],
+        'floats': [0.0, -1.5, 1e300], 'flags': [True, False, None],
+        'text': ['', 'a' * 31, 'b' * 32, 'c' * 300, 'd' * 70000],
+        'raw': [b'', b'x' * 300, b'y' * 70000],
+        'long_list': list(range(20)),
+        'wide_map': {f'k{i}': i for i in range(20)},
+        'arrays': {'f32': np.arange(6, dtype=np.float32).reshape(2, 3),
+                   'i64': np.array([-5, 7], np.int64),
+                   'f64_0d': np.array(2.5), 'b': np.array([True, False]),
+                   'one': np.arange(1, dtype=np.int8)},
+    }
+    data = msgpack_serialize(tree)
+    for back in (serialization.msgpack_restore(data), msgpack_restore(data)):
+        for key in ('ints', 'floats', 'flags', 'text', 'raw', 'long_list',
+                    'wide_map'):
+            assert list(back[key]) == list(tree[key]) if key != 'wide_map' \
+                else back[key] == tree[key], key
+        for name, arr in tree['arrays'].items():
+            got = np.asarray(back['arrays'][name])
+            assert got.dtype == arr.dtype and np.array_equal(got, arr), name
+    with pytest.raises(TypeError):
+        msgpack_serialize({1: 2})
+    with pytest.raises(TypeError):
+        msgpack_serialize(object())

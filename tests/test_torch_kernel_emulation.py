@@ -1,11 +1,14 @@
-'''The CUDA source of kernels K1/K2 (newtonnet_tpu_torch/csrc/fused_dense.cu)
-run on the CPU under an emulation of CUDA's thread model
-(newtonnet_tpu_torch/csrc/emu/cuda_emu.h), against the plain PyTorch
-versions. The card checks the same in chip_smoke.py; this catches faults of
-indexing, masking and barriers before a source goes to the card.
+'''The CUDA sources of kernels K1/K2 (newtonnet_tpu_torch/csrc/fused_dense.cu)
+and K3/K4 (csrc/fused_dual.cu) run on the CPU under an emulation of CUDA's
+thread model (newtonnet_tpu_torch/csrc/emu/cuda_emu.h), against the plain
+PyTorch versions. The card checks the same in chip_smoke.py; this catches
+faults of indexing, masking and barriers before a source goes to the card.
 
 Bar: max|kernel - plain| <= 1e-4 * max|plain| per output, as on the card:
-both are float32 and sum in another order.
+both are float32 and sum in another order. In bf16 mode a one-ulp fp32
+difference of a sum can flip the bf16 rounding of a later operand (one bf16
+ulp is 2^-8 relative), so the bar there is BF16_BAR, derived in
+test_emulated_dual_kernels_match_plain.
 '''
 import ctypes
 import os
@@ -18,15 +21,18 @@ import pytest
 import torch
 
 from newtonnet_tpu_torch.ops import fused_dense as fd
+from newtonnet_tpu_torch.ops import fused_dual as fdd
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'newtonnet_tpu_torch')
 BAR = 1e-4
+BF16_BAR = 2e-3
 
 
 def _for_gxx(src):
     '''Rewrite a CUDA source for g++ over the emulation header.'''
     src = src.replace('#include <cuda_runtime.h>', '#include "cuda_emu.h"')
+    src = src.replace('#include <cuda_bf16.h>', '')
     src = src.replace('extern __shared__ float smem[];',
                       'float* smem = g_smem;')
 
@@ -39,20 +45,28 @@ def _for_gxx(src):
                   flags=re.S)
 
 
-@pytest.fixture(scope='module')
-def lib(tmp_path_factory):
+def _compile(out, name, src):
+    '''Compile a rewritten source with g++ into out/lib<name>.so.'''
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++')
-    out = tmp_path_factory.mktemp('emu')
-    with open(os.path.join(PKG, 'csrc', 'fused_dense.cu')) as f:
-        (out / 'fused_dense_emu.cpp').write_text(_for_gxx(f.read()))
-    so = out / 'libfused_dense_emu.so'
+    (out / f'{name}.cpp').write_text(_for_gxx(src))
+    so = out / f'lib{name}.so'
     subprocess.run([gxx, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
                     '-I', os.path.join(PKG, 'csrc', 'emu'), '-o', str(so),
-                    str(out / 'fused_dense_emu.cpp')], check=True,
-                   timeout=600)
-    handle = ctypes.CDLL(str(so))
+                    str(out / f'{name}.cpp')], check=True, timeout=600)
+    return ctypes.CDLL(str(so))
+
+
+def _source(name):
+    with open(os.path.join(PKG, 'csrc', name + '.cu')) as f:
+        return f.read()
+
+
+@pytest.fixture(scope='module')
+def lib(tmp_path_factory):
+    handle = _compile(tmp_path_factory.mktemp('emu'), 'fused_dense_emu',
+                      _source('fused_dense'))
     p, i = ctypes.c_void_p, ctypes.c_int
     handle.nn_pair_fwd.argtypes = [p] * 12 + [i] * 5 + [p]
     handle.nn_pair_fwd.restype = i
@@ -127,3 +141,123 @@ def test_emulated_kernels_refuse_what_they_do_not_take(lib):
     out = [_nan(1, 4, 32), _nan(1, 3, 4, 32)]
     assert lib.nn_pair_fwd(*_ptrs(ins + out), 1, 4, 48, 4, 0, None) == 1
     assert lib.nn_pair_fwd(*_ptrs(ins + out), 1, 4, 128, 900, 0, None) == 1
+
+
+def _dual_handle(handle):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.nn_dual_fwd.argtypes = [p] * 18 + [i] * 6 + [p]
+    handle.nn_dual_fwd.restype = i
+    handle.nn_dual_bwd.argtypes = [p] * 25 + [i] * 6 + [p]
+    handle.nn_dual_bwd.restype = i
+    return handle
+
+
+@pytest.fixture(scope='module')
+def dual_lib(tmp_path_factory):
+    return _dual_handle(_compile(tmp_path_factory.mktemp('emu_dual'),
+                                 'fused_dual_emu', _source('fused_dual')))
+
+
+def _dual_inputs(B, N, F, R, seed):
+    '''K3's inputs and K4's cotangents, of the scale the model produces.'''
+    ins, di, dq = _inputs(B, N, F, R, seed)
+    rs = np.random.RandomState(seed + 100)
+
+    def t(*shape):
+        return torch.tensor(rs.randn(*shape) * 0.1, dtype=torch.float32)
+
+    np_, rbf, dir_, adj, force = ins[:5]
+    args = [np_, t(B, N, F), rbf, t(B, N, N, R), dir_, t(B, 3, N, N), adj,
+            force, t(B, 3, N, F)] + ins[5:]
+    return args, [di, dq, t(B, N, F), t(B, 3, N, F)]
+
+
+def _run_dual(handle, args, cots, first_layer, bf16):
+    '''(K3 outputs, K4 outputs) of the emulated kernels, NaN-initialised.'''
+    B, N, F = args[0].shape
+    R = args[2].shape[-1]
+    fwd = [_nan(B, N, F), _nan(B, 3, N, F), _nan(B, N, F), _nan(B, 3, N, F)]
+    assert handle.nn_dual_fwd(*_ptrs(args + fwd), B, N, F, R,
+                              int(first_layer), int(bf16), None) == 0
+    n_it = (N + 7) // 8
+    n_w = R * F + 4 * F * F
+    bwd = [_nan(B, N, F), _nan(B, N, F), _nan(B, 3, N, F), _nan(B, 3, N, F)]
+    scratch = [_nan(B, n_it, 8, N, F), _nan(B * n_it, n_w), _nan(n_w)]
+    assert handle.nn_dual_bwd(*_ptrs(args + cots + bwd + scratch), B, N, F, R,
+                              int(first_layer), int(bf16), None) == 0
+    bwd += [v.view(s) for v, s in zip(scratch[2].split([R * F] + [F * F] * 4),
+                                      [(R, F)] + [(F, F)] * 4)]
+    return fwd, bwd
+
+
+def _worst(got, want):
+    '''max over outputs of max|got - want| / max|want|; fails on non-finite.'''
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.isfinite(g).all(), k
+        scale = w.abs().max().item()
+        err = (g - w).abs().max().item()
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+@pytest.mark.parametrize('shape, first_layer, bf16', [
+    (shape, first, bf16) for shape in [(2, 10, 32, 8), (1, 13, 64, 16)]
+    for first in (False, True) for bf16 in (False, True)]
+    + [((1, 21, 128, 20), False, True)])
+def test_emulated_dual_kernels_match_plain(dual_lib, shape, first_layer,
+                                           bf16):
+    '''K3/K4 at ragged atom counts (10, 13 and 21 are no multiple of the
+    8-row or 4-column tiles), both variants and both dot dtypes at F=32
+    and 64; at F=128 the training path's variant (the card runs them
+    all, chip_smoke.py phase 3). fp32 mode holds
+    BAR. bf16 mode holds BF16_BAR = 2e-3: where an fp32 sum of the kernel
+    and of the plain version differ in their last bit, the bf16 roundings
+    of a later product operand (h, g, dp, msg, rbf-tangent products) can
+    differ by one bf16 ulp (2^-8 = 3.9e-3 relative) in that one element;
+    summed with the others into an output, that moves it well under 1e-3
+    of its largest magnitude.'''
+    B, N, F, R = shape
+    args, cots = _dual_inputs(B, N, F, R, seed=N)
+    dot_dtype = 'bfloat16' if bf16 else 'float32'
+    fwd, bwd = _run_dual(dual_lib, args, cots, first_layer, bf16)
+    want_f = fdd.pair_interaction_dual_fwd_ref(*args, first_layer=first_layer,
+                                               dot_dtype=dot_dtype)
+    want_b = fdd.pair_interaction_dual_bwd_ref(*args, *cots,
+                                               first_layer=first_layer,
+                                               dot_dtype=dot_dtype)
+    worst = max(_worst(fwd, want_f), _worst(bwd, want_b))
+    assert worst <= (BF16_BAR if bf16 else BAR), worst
+    if first_layer:  # dnpdot, dforce, dforcedot, dW2a, dW2b: exact zeros
+        for k in (1, 2, 3, 7, 8):
+            assert not bwd[k].any(), k
+
+
+def test_emulated_dual_kernels_refuse_what_they_do_not_take(dual_lib):
+    '''F outside (32, 64, 128), or an R whose tiles overflow the 227 KB of
+    shared memory a block may use, return cudaErrorInvalidValue.'''
+    args, cots = _dual_inputs(1, 4, 32, 4, seed=0)
+    out = [_nan(1, 4, 32), _nan(1, 3, 4, 32)] * 2
+    assert dual_lib.nn_dual_fwd(*_ptrs(args + out), 1, 4, 48, 4, 0, 0,
+                                None) == 1
+    scratch = [_nan(1, 4, 32)] * 7
+    assert dual_lib.nn_dual_bwd(*_ptrs(args + cots + scratch), 1, 4, 128,
+                                200, 0, 0, None) == 1
+
+
+def test_emulation_catches_a_dual_kernel_fault(tmp_path):
+    '''A mutant of fused_dual.cu whose K4 drops the tangent term of the
+    column part of dnp (a fault of the kind that only shows through a
+    reduction across blocks) fails the comparison that the source passes.'''
+    src = _source('fused_dual')
+    good = 's += p_s[o] * ai + (pdot_s[o] * ai + h_s[o] * npdoti_s[il * F + f]);'
+    assert src.count(good) == 1
+    mutant = _dual_handle(_compile(
+        tmp_path, 'fused_dual_mutant',
+        src.replace(good, 's += p_s[o] * ai + pdot_s[o] * ai;')))
+    args, cots = _dual_inputs(1, 10, 32, 8, seed=3)
+    fwd, bwd = _run_dual(mutant, args, cots, False, False)
+    want = fdd.pair_interaction_dual_bwd_ref(*args, *cots,
+                                             dot_dtype='float32')
+    assert _worst(fwd + bwd[:1], fdd.pair_interaction_dual_fwd_ref(
+        *args, dot_dtype='float32') + want[:1]) > BAR

@@ -19,10 +19,21 @@ def test_import_loads_no_jax_and_no_reference_package():
         import sys
         import newtonnet_tpu_torch
         import newtonnet_tpu_torch.data.loader
+        import newtonnet_tpu_torch.data.pipeline
+        import newtonnet_tpu_torch.data.statistics
+        import newtonnet_tpu_torch.data.units
         import newtonnet_tpu_torch.md.calculator
+        import newtonnet_tpu_torch.models.fused_stack
         import newtonnet_tpu_torch.ops._build
         import newtonnet_tpu_torch.ops.fused_dense
+        import newtonnet_tpu_torch.ops.fused_dual
+        import newtonnet_tpu_torch.train.cli
+        import newtonnet_tpu_torch.train.fastgrad
+        import newtonnet_tpu_torch.train.loss
+        import newtonnet_tpu_torch.train.optimizer
+        import newtonnet_tpu_torch.train.trainer
         import newtonnet_tpu_torch.utils.checkpoint
+        import newtonnet_tpu_torch.utils.freeze
         import newtonnet_tpu_torch.utils.params
         banned = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack')
         bad = sorted(m for m in sys.modules
@@ -48,6 +59,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         NewtonNet(output_properties=['energy'])
     assert load_model(CKPT, device='cpu').device.type == 'cpu'
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_from_settings({'general': {'device': 'cuda'}, 'training': {}})
 
 
 @pytest.mark.parametrize('kw, item', [
