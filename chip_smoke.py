@@ -18,6 +18,11 @@ with a non-zero exit code and no result line):
             R=20), at one molecule (B=1, N=24) and at (B=2, N=70, F=64,
             R=16), both variants; fp32 mode at the same 1e-4 bar, bf16 mode
             at DUAL_BF16_BAR (see there).
+   klist    K5-K8 (K6 with and without weight cotangents) against theirs,
+            both variants, at the large box's shape (B=1, N=4096, K=88,
+            F=128, R=20, bf16 edges), at (B=100, N=21, K=20) and at (B=2,
+            N=70, K=37, F=64, R=16) in fp32; bar 1e-4 of each output's
+            largest magnitude, plus one bf16 ulp for bf16-stored outputs.
 4. serve    the trained MD17-aspirin checkpoint serves all 500 test frames
             in batches of 100 through the kernels; energy and force errors
             against the labels must reproduce the JAX package's (energy MAE
@@ -30,6 +35,16 @@ with a non-zero exit code and no result line):
             match phase 4 at the same tolerances.
    profile  one batch and one request under torch.profiler: device busy
             time, idle share, the fused kernels' share, the top kernels.
+4b. serve-nlist  the same 500 frames through the checkpoint in
+            neighbour-list mode (K5/K6, fp32 edges, K=20): the JAX MAE bars,
+            phase 4's dense numbers at the same tolerances, no overflow.
+5b. box     calculator requests (energy, forces, stress) on the
+            4096-atom periodic box of tools/bench_train_large.py (k_max 88,
+            bf16 edges, box_weights): against the plain path on the card,
+            and on the 512-atom box against the JAX package's numbers, at
+            bars of BOX_SPREAD_FACTOR times the bf16-to-fp32-edge spread;
+            request latency; then one request under torch.profiler with
+            the gather and scatter-add times apart.
 7. train    fine-tuning from the checkpoint with scripts/config_md17_pallas.yml
             (F=128, R=20, 3 interactions, energy + 50 x force mse, Adam
             1e-3, clip 1.0, plateau, batch 10, bf16 duals):
@@ -43,15 +58,25 @@ with a non-zero exit code and no result line):
                reloads and reproduces the logged test metrics, and every
                K1-K4 variant ran, K2 never with weight cotangents.
    profile  one training step under torch.profiler.
+7d. train-nlist  the same fine-tuning in neighbour-list mode (K5-K8):
+            a. 10 steps against the JAX package's (JAX_NLIST_STEP_*), PR 2's
+               bars; b. step 1's gradient against the dense port path with
+               fp32 duals (the same function); c. one epoch of 10 steps
+               (train_size 100) through train_from_settings.
+7e. box-train  three fastgrad steps with Adam on the box, step 1 against
+            the plain path on the card (2e-3 relative norm); one step under
+            torch.profiler.
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
             shape (fp32 bound), K3/K4 at the training shape in bf16 mode
-            (the training path's; bf16 tensor-core bound) and in fp32 mode.
+            (the training path's; bf16 tensor-core bound) and in fp32 mode;
+            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work).
 
 Then the card's nvidia-smi line, the `kernels` JSON line and, last,
 {"ok": true, "device": {...}}.
 '''
+import functools
 import json
 import math
 import os
@@ -84,7 +109,8 @@ DUAL_BF16_BAR = 2e-3
 PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 67e12, 989e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCES = {'pair': 'newtonnet_tpu_torch/csrc/fused_dense.cu',
-           'dual': 'newtonnet_tpu_torch/csrc/fused_dual.cu'}
+           'dual': 'newtonnet_tpu_torch/csrc/fused_dual.cu',
+           'klist': 'newtonnet_tpu_torch/csrc/fused_klist.cu'}
 REPLACES = {'pair_fwd': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'pair_fwd_first': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'pair_bwd': 'newtonnet_tpu/ops/pallas_dense.py:102',
@@ -92,9 +118,18 @@ REPLACES = {'pair_fwd': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'dual_fwd': 'newtonnet_tpu/ops/pallas_dense.py:299',
             'dual_fwd_first': 'newtonnet_tpu/ops/pallas_dense.py:299',
             'dual_bwd': 'newtonnet_tpu/ops/pallas_dense.py:334',
-            'dual_bwd_first': 'newtonnet_tpu/ops/pallas_dense.py:334'}
+            'dual_bwd_first': 'newtonnet_tpu/ops/pallas_dense.py:334',
+            'klist_fwd': 'newtonnet_tpu/ops/pallas_klist.py:131',
+            'klist_fwd_first': 'newtonnet_tpu/ops/pallas_klist.py:131',
+            'klist_bwd': 'newtonnet_tpu/ops/pallas_klist.py:155',
+            'klist_bwd_first': 'newtonnet_tpu/ops/pallas_klist.py:155',
+            'klist_dual_fwd': 'newtonnet_tpu/ops/pallas_klist.py:253',
+            'klist_dual_fwd_first': 'newtonnet_tpu/ops/pallas_klist.py:253',
+            'klist_dual_bwd': 'newtonnet_tpu/ops/pallas_klist.py:288',
+            'klist_dual_bwd_first': 'newtonnet_tpu/ops/pallas_klist.py:288'}
 
 MD17_CONFIG = os.path.join(ROOT, 'scripts', 'config_md17_pallas.yml')
+BOX_ATOMS, BOX_K_MAX, BOX_REF_ATOMS = 4096, 88, 512
 # The JAX package's first 10 fine-tuning steps of that configuration (loss,
 # global gradient norm before the clip), on the CPU with Pallas in
 # interpret mode at default matmul precision and bf16 duals:
@@ -115,6 +150,45 @@ JAX_STEP_GRAD_NORM = [442.05, 157.16, 170.20, 223.88, 102.84, 32.152,
 # after epoch 0 (reported beside the port's, with no bar: a whole epoch
 # of bf16 gradient noise moves it by 20% between dual dtypes)
 JAX_EPOCH0_TEST_FORCE_MAE = 0.04655
+# The same fine-tuning in neighbour-list mode (graph_mode neighborlist, k_max
+# 48, fp32 edges; the K-list duals compute in float32): the JAX package's
+# first 10 steps, from `python tests/test_torch_klist_reference.py steps`
+# (CPU, Pallas in interpret mode).
+JAX_NLIST_STEP_LOSS = [7.431698, 1.917212, 1.701129, 2.000114, 0.8446221,
+                       0.4311443, 0.4295923, 0.2881154, 0.4282749, 0.4789315]
+JAX_NLIST_STEP_GRAD_NORM = [441.98, 157.24, 170.4, 222.99, 102.69, 31.998,
+                            25.624, 12.321, 40.37, 36.709]
+# One request on box_system(BOX_REF_ATOMS) with box_model's weights: the
+# JAX package's energy (eV) and the forces of the first 8 atoms (eV/A),
+# with bf16 edges and with fp32 edges, from `python
+# tests/test_torch_klist_reference.py box` (CPU, Pallas in interpret mode;
+# the machine with the card has no flax, and 512 atoms keep that CPU run
+# small). Rounding the edge tensors to bf16 moves the numbers far more than
+# float32 rounding does, so the box phase's bars are BOX_SPREAD_FACTOR times
+# that spread (bf16 against fp32 edges, within one package).
+JAX_BOX_ENERGY = -43.9780387878418
+JAX_BOX_FORCES_8 = [
+    [-0.059481725096702576, -0.04440084844827652, 0.2644277513027191],
+    [0.15478065609931946, 0.1095714345574379, 0.10916266590356827],
+    [0.015232101082801819, 0.5800017714500427, 0.3384057581424713],
+    [-0.23470914363861084, -0.09447100013494492, 0.04846468195319176],
+    [-0.07883767038583755, -0.24986504018306732, 0.03565562516450882],
+    [-0.21956074237823486, -0.05005502700805664, -0.06566018611192703],
+    [0.015504099428653717, -0.006339889019727707, -0.17289698123931885],
+    [-0.08519262820482254, 0.1517954021692276, 0.016054946929216385],
+]
+JAX_BOX_FP32_EDGES_ENERGY = -43.98573303222656
+JAX_BOX_FP32_EDGES_FORCES_8 = [
+    [-0.059608928859233856, -0.04478030651807785, 0.2650977671146393],
+    [0.15508434176445007, 0.10977096110582352, 0.10862404108047485],
+    [0.01531795784831047, 0.5810218453407288, 0.33905816078186035],
+    [-0.23467105627059937, -0.09398595243692398, 0.04832283779978752],
+    [-0.07897371798753738, -0.2502093017101288, 0.03517238050699234],
+    [-0.21945680677890778, -0.049925073981285095, -0.06610751152038574],
+    [0.015352100133895874, -0.006744787096977234, -0.1734355390071869],
+    [-0.08451390266418457, 0.1513175517320633, 0.01589856669306755],
+]
+BOX_SPREAD_FACTOR = 4.0
 LOG_COLUMNS = (
     ['epoch', 'lr', 'step']
     + [f'train_{k}' for k in ('loss', 'energy_mae', 'energy_mse',
@@ -244,17 +318,27 @@ def profile_call(torch, fn):
         fn()
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t)
+    events = prof.key_averages()
     dev = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages()
-           if str(e.device_type).endswith('CUDA')]
+           for e in events if str(e.device_type).endswith('CUDA')]
     busy = sum(ms for _, ms, _ in dev)
-    families = {f: sum(ms for key, ms, _ in dev if f in key)
-                for f in ('pair_fwd', 'pair_bwd', 'dual_fwd', 'dual_bwd')}
+    families = {}
+    for key, ms, _ in dev:
+        m = re.search(r'(klist_dual_fwd|klist_dual_bwd|klist_fwd|klist_bwd|'
+                      r'pair_fwd|pair_bwd|dual_fwd|dual_bwd)_kernel', key)
+        if m:
+            families[m.group(1)] = families.get(m.group(1), 0.0) + ms
+    # the neighbour gathers and their transposes, from the operators that
+    # launch them (their device time, children included)
+    ops = {e.key: getattr(e, 'device_time_total', 0.0) / 1e3 for e in events}
     top = sorted(dev, key=lambda d: -d[1])[:5]
     return {'wall_ms': wall, 'device_busy_ms': busy,
             'device_idle_share': 1.0 - busy / wall if busy else None,
             'fused_kernels_ms': sum(families.values()),
             'kernel_ms': families,
+            'gather_ms': ops.get('aten::gather', 0.0),
+            'scatter_add_ms': ops.get('aten::scatter_add_',
+                                      ops.get('aten::scatter_add', 0.0)),
             'top_device_ms': [[k[:70], ms, n] for k, ms, n in top]}
 
 
@@ -343,6 +427,60 @@ def phase_dual_kernels(torch, fdd):
     return errs
 
 
+def box_system(n_atoms=BOX_ATOMS, seed=0):
+    """The large periodic box of tools/bench_train_large.py: n_atoms at 0.1
+    atoms per cubic Angstrom in a cubic cell, z drawn from {1, 1, 8}, and
+    energy / force targets, all from numpy with `seed`. -> (z (1, N), pos
+    (1, N, 3), cell (1, 3, 3), energy (1,), force (1, N, 3))."""
+    import numpy as np
+    L = (n_atoms / 0.1) ** (1 / 3)
+    rs = np.random.RandomState(seed)
+    z = rs.choice([1, 1, 8], size=(1, n_atoms)).astype(np.int32)
+    pos = (rs.rand(1, n_atoms, 3) * L).astype(np.float32)
+    cell = np.diag([L, L, L]).astype(np.float32)[None]
+    energy = np.zeros((1,), np.float32)
+    force = rs.randn(1, n_atoms, 3).astype(np.float32)
+    return z, pos, cell, energy, force
+
+
+def box_weights(torch, core, seed=0):
+    """Fill `core` from numpy with `seed`, as flax initializes it: every
+    kernel and bias U(+-1/sqrt(fan_in)), the embedding N(0, 1) with row 0
+    zeroed; the energy scaler stays at scale 1, shift 0. The box runs on
+    such weights, as tools/bench_train_large.py runs it: the trained aspirin
+    weights overflow float32 at the random box's 0.2 A contacts."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    params = dict(core.named_parameters())
+    with torch.no_grad():
+        for name in sorted(params):
+            p = params[name]
+            if name.startswith('scaler_energy'):
+                continue
+            if name == 'node_embedding':
+                v = rs.randn(*p.shape)
+                v[0] = 0.0
+            else:
+                fan_in = params[name.rsplit('.', 1)[0] + '.kernel'].shape[0]
+                bound = fan_in ** -0.5
+                v = rs.uniform(-bound, bound, size=tuple(p.shape))
+            p.copy_(torch.from_numpy(v))
+    return core
+
+
+def box_model(torch, base_cfg, compute_dtype, output_properties,
+              device='cuda'):
+    """The checkpoint's widths (F=128, R=20, 3 interactions, cutoff 5 A) in
+    neighbour-list mode with k_max BOX_K_MAX and box_weights."""
+    from newtonnet_tpu_torch import NewtonNet
+    model = NewtonNet(**dict(base_cfg, graph_mode='neighborlist',
+                             k_max=BOX_K_MAX, compute_dtype=compute_dtype,
+                             output_properties=output_properties),
+                      device=device)
+    box_weights(torch, model.core)
+    return model.requires_grad_(False).eval()
+
+
 def md17_settings(output, epochs):
     '''scripts/config_md17_pallas.yml warm-started from the trained
     checkpoint, on CUDA, with the data of this checkout, `epochs` epochs,
@@ -365,12 +503,27 @@ def rel_norm(a, b):
     return (num / den) ** 0.5
 
 
+def float64_loss(fd, main_loss, batch, model):
+    """(loss, one-ulp term) of `batch` through the dense model's plain
+    path in float64: the loss, and (2/B) sum_b |E_b - E_ref_b| ulp(E_b),
+    what one float32 ulp of every frame's energy moves it by."""
+    import numpy as np
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    preds = model.double()(b64['z'], b64['pos'], b64['cell'],
+                           pair_op=fd.pair_interaction_fwd_ref)
+    e64 = preds['energy'].cpu().numpy()
+    err = e64 - b64['energy'].cpu().numpy()
+    ulp_term = 2.0 / len(err) * float(
+        (abs(err) * abs(np.spacing(e64.astype(np.float32)))).sum())
+    return float(main_loss(preds, b64)), ulp_term
+
+
 def phase_train_steps(torch, fd, fdd):
     '''Phase 7a/b: the first 10 fine-tuning steps against the JAX package's,
     and the first step through the plain path. -> (the model's device
     batch of step 1, the fine-tuned model, its optimizer, main_loss, step
     seconds).'''
-    import functools
     from newtonnet_tpu_torch import load_model
     from newtonnet_tpu_torch.data.pipeline import parse_train_test
     from newtonnet_tpu_torch.data.statistics import set_scalers
@@ -379,7 +532,6 @@ def phase_train_steps(torch, fd, fdd):
     from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
     from newtonnet_tpu_torch.train.trainer import fp32_matmuls
 
-    import numpy as np
     cfg = md17_settings(None, 1)
     train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
     main_loss, _ = get_loss_by_string(cfg['training']['loss'])
@@ -427,16 +579,8 @@ def phase_train_steps(torch, fd, fdd):
         # loss by (2/B) sum_b |E_b - E_ref_b| ulp(E_b): the bar for step 1,
         # relative to the float64 loss of the same step (plain path), both
         # for the port against the JAX value and for each against float64.
-        b64 = {k: v.double() if v.is_floating_point() else v
-               for k, v in batches[0].items()}
-        preds = fine_tune_start().double()(
-            b64['z'], b64['pos'], b64['cell'],
-            pair_op=fd.pair_interaction_fwd_ref)
-        loss64 = float(main_loss(preds, b64))
-        e64 = preds['energy'].cpu().numpy()
-        err = e64 - b64['energy'].cpu().numpy()
-        ulp_term = 2.0 / len(err) * float(
-            (abs(err) * abs(np.spacing(e64.astype(np.float32)))).sum())
+        loss64, ulp_term = float64_loss(fd, main_loss, batches[0],
+                                        fine_tune_start())
         bar1 = ulp_term / loss64
         to64 = {'port': abs(losses[0] - loss64) / loss64,
                 'jax': abs(JAX_STEP_LOSS[0] - loss64) / loss64}
@@ -508,6 +652,556 @@ def phase_train_epoch(torch, fd, fdd):
     return launches
 
 
+KLIST_NAMES = ('klist_fwd', 'klist_fwd_first', 'klist_bwd', 'klist_bwd_first',
+               'klist_dual_fwd', 'klist_dual_fwd_first', 'klist_dual_bwd',
+               'klist_dual_bwd_first')
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each element of x: 2^(floor(log2|x|) - 7)."""
+    a = x.float().abs().clamp_min(2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def klist_inputs(torch, B, N, K, F, R, first, edt, seed):
+    """K5's inputs, K7's tangents and the cotangents of both, made on the
+    card at the scale the model produces; the edge tensors in edt."""
+    g = torch.Generator(device='cuda').manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(shape, generator=g, device='cuda') * scale) \
+            .to(dtype)
+
+    C = F if first else 4 * F
+    mask = (torch.rand((B, N, K), generator=g, device='cuda') < 0.7).float()
+    ins = [rnd(B, N, F, scale=0.3), rnd(B, N, K, C, scale=0.3, dtype=edt),
+           rnd(B, N, K, R, scale=0.3, dtype=edt), rnd(B, 3, N, K), mask]
+    ins += [rnd(*s, scale=s[0] ** -0.5)
+            for s in [(R, F), (F, F), (F, F), (F, F), (F, F)]]
+    tans = [rnd(B, N, F, scale=0.1), rnd(B, N, K, C, scale=0.1, dtype=edt),
+            rnd(B, N, K, R, scale=0.1, dtype=edt), rnd(B, 3, N, K, scale=0.1)]
+    cots = [rnd(B, N, F), rnd(B, 3, N, F), rnd(B, N, F, scale=0.3),
+            rnd(B, 3, N, F, scale=0.3)]
+    return ins, tans, cots
+
+
+def klist_calls(fk, ins, tans, cots, first, ref=False):
+    """{call: (kernel name, argument list, keywords)} of K5, K6 without and
+    with weight cotangents, K7 and K8; ref=True names the plain versions."""
+    args = [ins[0], tans[0], ins[1], tans[1], ins[2], tans[2], ins[3],
+            tans[3], ins[4]] + ins[5:]
+    sfx = '_ref' if ref else ''
+    return {
+        'klist_fwd': (getattr(fk, 'klist_fwd' + sfx), ins, {}),
+        'klist_bwd(wg=0)': (getattr(fk, 'klist_bwd' + sfx), ins + cots[:2],
+                            {'weight_grads': False}),
+        'klist_bwd(wg=1)': (getattr(fk, 'klist_bwd' + sfx), ins + cots[:2],
+                            {'weight_grads': True}),
+        'klist_dual_fwd': (getattr(fk, 'klist_dual_fwd' + sfx), args, {}),
+        'klist_dual_bwd': (getattr(fk, 'klist_dual_bwd' + sfx), args + cots,
+                           {})}
+
+
+def klist_work(B, N, K, F, R, kind, first, edge_bytes):
+    """(flops, bytes) of K5 ('klist_fwd'), K6 without weight cotangents
+    ('klist_bwd', the force pass's), K7 ('klist_dual_fwd') or K8
+    ('klist_dual_bwd') over the B*N*K list slots: the matrix products as
+    layer_work and dual_work count them (K5 2(R*F + 4F^2) per slot) plus the
+    per-feature multiply-adds (sigmoids not counted); each input read once
+    and each output written once, edge tensors in edge_bytes per value."""
+    S, node = B * N * K, B * N * F
+    nb = 1 if first else 2
+    C = F if first else 4 * F
+    w = R * F + nb * 2 * F * F
+    edge = S * (C + R)
+    if kind == 'klist_fwd':
+        flops = S * (2 * R * F + 4 * F + nb * (4 * F * F + 6 * F))
+        nbytes = 4 * (node + 4 * S + w + 4 * node) + edge_bytes * edge
+    elif kind == 'klist_bwd':
+        flops = S * (4 * R * F + 11 * F + nb * (8 * F * F + 12 * F))
+        nbytes = (4 * (node + 4 * S + w + 4 * node + node + 3 * S)
+                  + edge_bytes * 2 * edge)
+    elif kind == 'klist_dual_fwd':
+        flops = S * (4 * R * F + 12 * F + nb * (8 * F * F + 14 * F))
+        nbytes = 4 * (2 * node + 7 * S + w + 8 * node) + edge_bytes * 2 * edge
+    else:
+        flops = S * (8 * R * F + 24 * F + nb * (20 * F * F + 40 * F)
+                     + (nb - 1) * 4 * F * F)
+        nbytes = (4 * (2 * node + 7 * S + w + 8 * node + 2 * node + R * F
+                       + 4 * F * F)
+                  + edge_bytes * (2 * edge + 2 * S * C))
+    return flops, nbytes
+
+
+def phase_klist_kernels(torch, fk):
+    """Phase 3, klist: K5-K8 (K6 with and without weight cotangents) against
+    their plain versions, both variants, at the large box's shape with bf16
+    edges and two fp32 shapes. fp32 outputs: max|kernel - plain| <=
+    KERNEL_BAR * max|plain|. bf16-stored outputs (dcat, dcatdot, drbf): at
+    most one bf16 ulp of the element beyond that, as a last-bit fp32
+    difference before the store can round to the neighbouring bf16 value.
+    -> {variant: max abs err} at the box shape."""
+    errs = {}
+    shapes = [(1, BOX_ATOMS, BOX_K_MAX, 128, 20, torch.bfloat16),
+              (100, 21, 20, 128, 20, torch.float32),
+              (2, 70, 37, 64, 16, torch.float32)]
+    for si, (B, N, K, F, R, edt) in enumerate(shapes):
+        worst = {'fp32': 0.0, 'bf16_stored': 0.0}
+        for first in (False, True):
+            ins, tans, cots = klist_inputs(torch, B, N, K, F, R, first, edt,
+                                           seed=20 + si)
+            got = {c: fn(*a, first_layer=first, **kw) for c, (fn, a, kw) in
+                   klist_calls(fk, ins, tans, cots, first).items()}
+            torch.cuda.synchronize()
+            for call, (fn, a, kw) in klist_calls(fk, ins, tans, cots, first,
+                                                 ref=True).items():
+                want = fn(*a, first_layer=first, **kw)
+                kname = call.split('(')[0] + ('_first' if first else '')
+                where = f'{call} first={first} at {(B, N, K, F, R)}'
+                for k, (x, y) in enumerate(zip(got[call], want)):
+                    check((x is None) == (y is None), f'{where} output {k}')
+                    if x is None:
+                        continue
+                    check(x.dtype == y.dtype and x.shape == y.shape,
+                          f'{where} output {k}: {x.dtype} {tuple(x.shape)}')
+                    check(bool(torch.isfinite(x.float()).all()),
+                          f'{where} output {k} not finite')
+                    x32, y32 = x.float(), y.float()
+                    diff = (x32 - y32).abs()
+                    scale = y32.abs().max().item()
+                    if x.dtype == torch.bfloat16:
+                        key = 'bf16_stored'
+                        over = (diff - bf16_ulp(torch, torch.maximum(
+                            x32.abs(), y32.abs()))).clamp_min(0).max().item()
+                    else:
+                        key, over = 'fp32', diff.max().item()
+                    ratio = over / scale if scale else over
+                    check(ratio <= KERNEL_BAR,
+                          f'{where} output {k}: {ratio} > {KERNEL_BAR}')
+                    worst[key] = max(worst[key], ratio)
+                    if si == 0:
+                        errs[kname] = max(errs.get(kname, 0.0),
+                                          diff.max().item())
+                del want
+            del got, ins, tans, cots
+            torch.cuda.empty_cache()
+        emit('klist_vs_plain', shape=dict(B=B, N=N, K=K, F=F, R=R),
+             edge_dtype=str(edt).split('.')[-1], worst_err_over_max=worst,
+             bar=KERNEL_BAR, bf16_stored_bar='one bf16 ulp + bar')
+    return errs
+
+
+def klist_model(torch, base, **changes):
+    """The checkpoint's weights in a neighbour-list model on the card."""
+    from newtonnet_tpu_torch import NewtonNet
+    cfg = dict(base.config_dict(), graph_mode='neighborlist', **changes)
+    model = NewtonNet(**cfg, device='cuda')
+    model.load_state_dict(base.state_dict())
+    return model.requires_grad_(False).eval()
+
+
+def plain_klist(fk):
+    return functools.partial(fk.fused_klist_interaction, plain=True)
+
+
+def phase_serve_nlist(torch, fk, base, batches, to_dev, served):
+    """Phase 4b: the 500 aspirin test frames through the checkpoint in
+    neighbour-list mode (fp32 edges, K = 20) in batches of 100: the JAX
+    package's MAE bars, and phase 4's dense kernel path at E_ATOL /
+    F_ATOL. -> the launch counts of the 500 frames."""
+    import numpy as np
+    from newtonnet_tpu_torch.ops.nlist import neighbor_list
+    model = klist_model(torch, base)
+    model(*to_dev(batches[0]))  # first use loads the library
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    out_nl, batch_s = [], []
+    for b in batches:
+        t = time.perf_counter()
+        out = model(*to_dev(b))
+        out_nl.append((out['energy'].cpu().numpy(),
+                       out['gradient_force'].cpu().numpy()))
+        batch_s.append(time.perf_counter() - t)
+    launches = dict(fk.LAUNCHES)
+    overflow = 0
+    for b in batches:
+        z, pos, cell = to_dev(b)
+        overflow += int(neighbor_list(pos, cell, z > 0, model.cutoff,
+                                      model.k_max)[3].sum())
+    ae = af = 0.0
+    e_diff = f_diff = 0.0
+    for b, (e, f), (ed, fd_) in zip(batches, out_nl, served):
+        check(np.isfinite(e).all() and np.isfinite(f).all(),
+              'non-finite neighbour-list output')
+        ae += np.abs(e - b['energy']).astype(np.float64).sum()
+        af += np.abs(f - b['force']).astype(np.float64).sum()
+        e_diff = max(e_diff, float(np.abs(e - ed).max()))
+        f_diff = max(f_diff, float(np.abs(f - fd_).max()))
+    e_mae, f_mae = ae / 500, af / (500 * 21 * 3)
+    emit('serve_nlist', frames=500, batch=100, k=min(model.k_max, 20),
+         energy_mae=e_mae, force_mae=f_mae, jax_energy_mae=JAX_ENERGY_MAE,
+         jax_force_mae=JAX_FORCE_MAE, energy_max_abs_diff_vs_dense=e_diff,
+         force_max_abs_diff_vs_dense=f_diff, overflow=overflow,
+         batch_ms_median=1e3 * statistics.median(batch_s),
+         launches=launches)
+    check(abs(e_mae - JAX_ENERGY_MAE) <= 5e-4, f'nlist energy MAE {e_mae}')
+    check(abs(f_mae - JAX_FORCE_MAE) <= 5e-5, f'nlist force MAE {f_mae}')
+    check(e_diff <= E_ATOL and f_diff <= F_ATOL, 'nlist vs dense serving')
+    check(overflow == 0, f'aspirin lists overflowed: {overflow}')
+    check(all(launches[k] > 0 for k in KLIST_NAMES[:4]),
+          f'a K5/K6 variant was not launched serving: {launches}')
+    return launches
+
+
+def phase_box_request(torch, fk, base):
+    """Phase 5b: calculator requests (energy, forces, stress) on the
+    4096-atom box: box_model (k_max 88, bf16 edges), served from a
+    checkpoint file. Held against the plain path on the card, and on the
+    512-atom box against the JAX package's numbers, at bars of
+    BOX_SPREAD_FACTOR times the bf16-to-fp32-edge spread. -> (per-request
+    launch counts, the calculator, the request's arguments)."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.ops.nlist import neighbor_list
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    outs = ['energy', 'gradient_force', 'stress']
+    box = box_model(torch, base.config_dict(), 'bfloat16', outs)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'box.msgpack')
+        save_model(path, box)
+        calc = NewtonNetCalculator(path, properties=['energy', 'forces',
+                                                     'stress'])
+    z, pos, cell, _, _ = box_system()
+    request = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    calc.calculate(**request)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    lat, forces, n_req = [], [], 3
+    for _ in range(n_req):
+        t = time.perf_counter()
+        r = calc.calculate(**request)
+        lat.append(time.perf_counter() - t)
+        forces.append(r['forces'])
+    launches = {k: v // n_req for k, v in fk.LAUNCHES.items()}
+    # gather_nodes' backward scatter-adds with atomics: do the requests'
+    # forces repeat their bits? (reported, no bar)
+    repeats = all(np.array_equal(forces[0], x) for x in forces[1:])
+    tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (z, pos, cell)]
+    _, kmask, _, over = neighbor_list(tpos, tcell, tz > 0, box.cutoff,
+                                      BOX_K_MAX)
+    overflow, n_edges = int(over.sum()), int(kmask.sum())
+    plain = box(tz, tpos, tcell, pair_op=plain_klist(fk))
+    p32 = box_model(torch, base.config_dict(), '', outs)(
+        tz, tpos, tcell, pair_op=plain_klist(fk))
+    e, f = r['energy'], r['forces']
+    e_p = float(plain['energy'][0])
+    f_p = plain['gradient_force'][0].cpu().numpy()
+    e_32 = float(p32['energy'][0])
+    f_32 = p32['gradient_force'][0].cpu().numpy()
+    s_p = plain['stress'][0].cpu().numpy()
+    voigt = s_p[[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]]
+    # the 512-atom box against the JAX package's numbers
+    z5, pos5, cell5, _, _ = box_system(BOX_REF_ATOMS)
+    r5 = calc.calculate(numbers=z5[0], positions=pos5[0], cell=cell5[0])
+    jf8 = np.asarray(JAX_BOX_FORCES_8)
+    jf8_32 = np.asarray(JAX_BOX_FP32_EDGES_FORCES_8)
+    k = BOX_SPREAD_FACTOR
+    bars = {'energy_vs_plain': k * abs(e_p - e_32),
+            'forces_vs_plain': k * float(np.abs(f_p - f_32).max()),
+            'energy_512_vs_jax': k * abs(JAX_BOX_ENERGY
+                                         - JAX_BOX_FP32_EDGES_ENERGY),
+            'forces8_512_vs_jax': k * float(np.abs(jf8 - jf8_32).max())}
+    diffs = {'energy_vs_plain': abs(e - e_p),
+             'forces_vs_plain': float(np.abs(f - f_p).max()),
+             'energy_512_vs_jax': abs(r5['energy'] - JAX_BOX_ENERGY),
+             'forces8_512_vs_jax': float(np.abs(r5['forces'][:8] - jf8)
+                                         .max())}
+    emit('box_request', atoms=BOX_ATOMS, k_max=BOX_K_MAX, edges=n_edges,
+         overflow=overflow, energy=e, plain_energy=e_p,
+         plain_fp32_edges_energy=e_32,
+         forces_max_abs=float(np.abs(f).max()),
+         energy_512=r5['energy'], jax_energy_512=JAX_BOX_ENERGY,
+         diffs=diffs, bars=bars,
+         stress_vs_plain=float(np.abs(r['stress'] - voigt).max()),
+         stress_max_abs=float(np.abs(voigt).max()),
+         latency_ms=[1e3 * t for t in lat],
+         latency_ms_median=1e3 * statistics.median(lat),
+         forces_repeat_their_bits=repeats,
+         launches_per_request=launches)
+    check(np.isfinite(e) and np.isfinite(f).all()
+          and np.isfinite(r['stress']).all(), 'box request not finite')
+    check(overflow == 0, f'box lists overflowed: {overflow}')
+    for key, d in diffs.items():
+        check(d <= bars[key], f'box {key}: {d} > {bars[key]}')
+    check(all(launches[k] > 0 for k in KLIST_NAMES[:4]),
+          f'a K5/K6 variant was not launched on the box: {launches}')
+    return launches, calc, request
+
+
+def phase_box_train(torch, fk, base):
+    """Phase 7e: three fastgrad steps with Adam (lr 1e-3, no clip) on the
+    box, as tools/bench_train_large.py takes them: box_model (bf16 edges),
+    targets from box_system's seed. Step 1's gradient is held against the
+    plain path on the card at 2e-3 relative norm. -> (per-step launch
+    counts, one_step, step seconds)."""
+    import math as _math
+    from newtonnet_tpu_torch.train import fastgrad
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    from newtonnet_tpu_torch.train.trainer import fp32_matmuls
+    z, pos, cell, energy, force = box_system()
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             (('z', z), ('pos', pos), ('cell', cell), ('energy', energy),
+              ('force', force))}
+    batch['graph_mask'] = torch.ones(1, dtype=torch.bool, device='cuda')
+    main_loss, _ = get_loss_by_string({'energy': {'weight': 1.0},
+                                       'gradient_force': {'weight': 50.0}})
+
+    def start():
+        return box_model(torch, base.config_dict(), 'bfloat16',
+                         ['energy', 'gradient_force']).requires_grad_(True)
+
+    model = start()
+    opt = get_optimizer_by_string('adam', model.core, lr=1e-3)
+    losses, step_s, grads1, launches = [], [], None, None
+    with fp32_matmuls():
+        for k in range(3):
+            torch.cuda.synchronize()
+            if k == 2:
+                fk.reset_launch_counts()
+            t = time.perf_counter()
+            loss, _ = fastgrad.value_and_grad(model, main_loss, batch)
+            if grads1 is None:
+                grads1 = [p.grad.clone() for p in model.core.parameters()]
+            opt.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            if k == 2:
+                launches = dict(fk.LAUNCHES)
+            losses.append(float(loss))
+        plain = start()
+        loss_p, _ = fastgrad.value_and_grad(
+            plain, main_loss, batch, pair_op=plain_klist(fk),
+            dual_op=functools.partial(fk.fused_klist_interaction_dual,
+                                      plain=True))
+        rel = rel_norm(grads1, [p.grad for p in plain.core.parameters()])
+
+    def one_step():
+        with fp32_matmuls():
+            fastgrad.value_and_grad(model, main_loss, batch)
+            opt.step()
+    emit('box_train', atoms=BOX_ATOMS, steps=3, loss=losses,
+         plain_loss=float(loss_p), grad_rel_norm_diff_vs_plain=rel,
+         bar=2e-3, step_ms=[1e3 * t for t in step_s],
+         step_ms_after_first=1e3 * statistics.median(step_s[1:]),
+         launches_per_step=launches)
+    check(all(_math.isfinite(v) for v in losses), f'box losses {losses}')
+    check(rel <= 2e-3, f'box step 1 gradient vs plain: {rel}')
+    check(all(launches[k] > 0 for k in KLIST_NAMES),
+          f'a K5-K8 variant was not launched in a box step: {launches}')
+    return launches, one_step, step_s
+
+
+def phase_train_nlist_steps(torch, fd, fk):
+    """Phase 7d a/b: the first 10 neighbour-list fine-tuning steps against
+    the JAX package's, and step 1's gradient against the dense port path
+    with fp32 duals on the same batch (the same function: all 20
+    neighbours of each atom fit in the list)."""
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.models.fused_stack import apply_core
+    from newtonnet_tpu_torch.train import fastgrad
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    from newtonnet_tpu_torch.train.trainer import fp32_matmuls
+    cfg = md17_settings(None, 1)
+    train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
+    main_loss, _ = get_loss_by_string(cfg['training']['loss'])
+
+    def fine_tune_start(**changes):
+        base = load_model(CKPT)
+        model = NewtonNet(**dict(base.config_dict(), **changes),
+                          device='cuda')
+        model.load_state_dict(base.state_dict())
+        set_scalers(model.core, model.output_properties, stats,
+                    {'energy': dict(cfg['training']['fit_scalers'])})
+        return model.requires_grad_(True)
+
+    it = iter(train_gen)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()}
+               for _ in range(10)]
+    model = fine_tune_start(graph_mode='neighborlist')
+    opt = get_optimizer_by_string('adam', model.core, clip_grad=1.0, lr=1e-3)
+    losses, norms, step_s, grads1, e1 = [], [], [], None, None
+    with fp32_matmuls():
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, preds = fastgrad.value_and_grad(model, main_loss, b)
+            norm = opt.global_norm()
+            if grads1 is None:
+                grads1 = [p.grad.clone() for p in model.core.parameters()]
+                e1 = preds['energy']
+            opt.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            norms.append(float(norm))
+        rel_loss = [abs(a - b) / b for a, b in zip(losses,
+                                                   JAX_NLIST_STEP_LOSS)]
+        rel_gn = [abs(a - b) / b for a, b in zip(norms,
+                                                 JAX_NLIST_STEP_GRAD_NORM)]
+        # step 1's bar as phase 7's, from the dense plain path in float64
+        # (the same function)
+        loss64, ulp_term = float64_loss(fd, main_loss, batches[0],
+                                        fine_tune_start())
+        bar1 = ulp_term / loss64
+        # b: the dense path, fp32 duals, same batch. Its energies differ
+        # from these by float32 rounding (a few ulp of -17,600 eV), which
+        # changes e_bar = dL/dE by de; the gradient then moves by
+        # grad_theta(de . E) on top of the products' own rounding: the bar
+        # is 1e-4 plus that term's norm relative to the gradient's
+        dense = fine_tune_start(pallas_grad_dot_dtype='float32')
+        loss_d, preds_d = fastgrad.value_and_grad(dense, main_loss,
+                                                  batches[0])
+        grads_d = [p.grad.clone() for p in dense.core.parameters()]
+        rel = rel_norm(grads1, grads_d)
+        with torch.enable_grad():
+            bar_e = []
+            for e in (e1, preds_d['energy']):
+                e = e.clone().requires_grad_(True)
+                (g,) = torch.autograd.grad(main_loss(
+                    {'energy': e, 'gradient_force': preds_d['gradient_force']},
+                    batches[0]), e)
+                bar_e.append(g)
+            de = (bar_e[0] - bar_e[1]).detach()
+            for p in dense.core.parameters():
+                p.grad = None
+            out = apply_core(dense.core, batches[0]['z'], batches[0]['pos'],
+                             batches[0]['cell'], dense.cutoff)
+            torch.dot(de, out['atomic_energy'][..., 0].sum(-1)).backward()
+        e_term = (sum(float((p.grad ** 2).sum())
+                      for p in dense.core.parameters())
+                  / sum(float((g ** 2).sum()) for g in grads_d)) ** 0.5
+    bar_b = 1e-4 + e_term
+    emit('train_nlist_steps', loss=losses, jax_loss=JAX_NLIST_STEP_LOSS,
+         grad_norm=norms, jax_grad_norm=JAX_NLIST_STEP_GRAD_NORM,
+         rel_loss=rel_loss, rel_grad_norm=rel_gn, step1_loss_bar=bar1,
+         loss64=loss64, step_ms=[1e3 * t for t in step_s],
+         step_ms_median=1e3 * statistics.median(step_s[1:]),
+         dense_loss=float(loss_d), grad_rel_norm_diff_vs_dense=rel,
+         vs_dense_bar=bar_b, energy_residual_term=e_term)
+    check(all(math.isfinite(v) for v in losses + norms),
+          'non-finite neighbour-list loss or gradient norm')
+    check(max(rel_loss[0], abs(losses[0] - loss64) / loss64) <= bar1,
+          f'nlist step 1 loss {losses[0]} (float64 {loss64})')
+    check(rel_gn[0] <= 1e-3, f'nlist step 1 grad norm {norms[0]}')
+    check(max(rel_loss[1:]) <= 1e-2, f'nlist steps 2-10 loss {losses}')
+    check(rel <= bar_b, f'nlist vs dense step 1 gradient: {rel} > {bar_b}')
+    return step_s
+
+
+def phase_train_nlist_epoch(torch, fk, fd, fdd):
+    """Phase 7d c: one epoch at train_size 100 (10 steps) with val and test
+    through train_from_settings, from the checkpoint in neighbour-list mode.
+    -> its launch counts."""
+    import csv
+    import tempfile
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    with tempfile.TemporaryDirectory() as out:
+        start = os.path.join(out, 'nlist_start.msgpack')
+        save_model(start, klist_model(torch, load_model(CKPT)))
+        cfg = md17_settings(out, 1)
+        cfg['data']['train_size'] = 100
+        cfg['model']['graph_mode'] = 'neighborlist'
+        cfg['model']['pretrained_model'] = {'path': start}
+        torch.cuda.synchronize()
+        for mod in (fk, fd, fdd):
+            mod.reset_launch_counts()
+        t = time.perf_counter()
+        trainer = train_from_settings(cfg)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = dict(fk.LAUNCHES)
+        dense = {**fd.LAUNCHES, **fdd.LAUNCHES}
+        wgrad = dict(fk.WEIGHT_GRAD_LAUNCHES)
+        with open(os.path.join(trainer.output_path, 'log.csv')) as f:
+            rows = list(csv.DictReader(f))
+        best = load_model(os.path.join(trainer.model_path,
+                                       'best_model.msgpack'))
+        again = trainer.run_one_epoch(trainer.test_generator, model=best)
+    row = rows[0]
+    emit('train_nlist_epoch', seconds=seconds, steps=row['step'], log=row,
+         reloaded_best_test=again, launches=launches,
+         weight_grad_launches=wgrad, dense_launches=dense)
+    check(list(row) == LOG_COLUMNS, f'log.csv columns {list(row)}')
+    check([r['epoch'] for r in rows] == ['0', 'last', 'best'],
+          'log.csv rows')
+    check(row['step'] == '10', f'expected 10 steps, got {row["step"]}')
+    check(all(math.isfinite(float(row[k])) for k in LOG_COLUMNS[1:-1]),
+          'non-finite log.csv value')
+    check(best.graph_mode == 'neighborlist', 'best model lost its lists')
+    for k, v in again.items():
+        logged = float(row[f'test_{k}'])
+        check(abs(v - logged) <= 1e-5 * abs(logged),
+              f'reloaded best model test_{k}: {v} vs {logged}')
+    check(all(launches[k] > 0 for k in KLIST_NAMES),
+          f'a K5-K8 variant was not launched training: {launches}')
+    check(sum(wgrad.values()) == 0,
+          f'K6 computed weight cotangents while training: {wgrad}')
+    check(sum(dense.values()) == 0, f'a dense kernel ran: {dense}')
+    return launches
+
+
+def klist_timing(torch, fk, errs, launches):
+    """Each K5-K8 variant at the box shape (bf16 edges), the force pass's K6
+    (no weight cotangents): CUDA-event times, the plain versions', and the
+    bound from klist_work. -> the `kernels` rows."""
+    B, N, K, F, R = 1, BOX_ATOMS, BOX_K_MAX, 128, 20
+    rows = []
+    for first in (False, True):
+        ins, tans, cots = klist_inputs(torch, B, N, K, F, R, first,
+                                       torch.bfloat16, seed=30)
+        calls = klist_calls(fk, ins, tans, cots, first)
+        refs = klist_calls(fk, ins, tans, cots, first, ref=True)
+        for call in ('klist_fwd', 'klist_bwd(wg=0)', 'klist_dual_fwd',
+                     'klist_dual_bwd'):
+            kind = call.split('(')[0]
+            name = kind + ('_first' if first else '')
+
+            def run(entry):
+                fn, a, kw = entry
+                return lambda: fn(*a, first_layer=first, **kw)
+            plain1 = time_ms(torch, run(refs[call]), inner=3)
+            ms = time_ms(torch, run(calls[call]), inner=3)
+            ms2 = time_ms(torch, run(calls[call]), inner=3)
+            plain2 = time_ms(torch, run(refs[call]), inner=3)
+            flops, nbytes = klist_work(B, N, K, F, R, kind, first, 2)
+            t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+            rows.append({
+                'name': name, 'route': 'cuda', 'source': SOURCES['klist'],
+                'replaces': REPLACES[name], 'launches': launches[name],
+                'max_abs_err': errs[name],
+                'ms': statistics.median([ms, ms2]),
+                'plain_ms': statistics.median([plain1, plain2]),
+                'bound_ms': 1e3 * max(t_ops, t_bytes),
+                'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+                'library_ms': None, 'flops': flops, 'bytes': nbytes,
+                'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
+        del ins, tans, cots, calls, refs
+        torch.cuda.empty_cache()
+    rows.sort(key=lambda r: KLIST_NAMES.index(r['name']))
+    emit('timing', shape=dict(B=B, N=N, K=K, F=F, R=R), what='K5-K8',
+         edge_dtype='bfloat16', weight_grads=False,
+         peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12)
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -524,6 +1218,7 @@ def main():
     from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_dense as fd
     from newtonnet_tpu_torch.ops import fused_dual as fdd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
     from newtonnet_tpu_torch.train import fastgrad
 
     # 1. environment
@@ -551,9 +1246,12 @@ def main():
             if 'Compiling entry function' in line:
                 # e.g. ..._15dual_bwd_kernelILi128ELb0ELb1EE... ->
                 # dual_bwd_kernel<128,0,1>
-                m = re.search(r'((?:pair|dual)_[a-z_]+?_kernel)(I(?:L[ib]\d+E)+E)?',
-                              line.split("'")[1])
+                mangled = line.split("'")[1]
+                m = re.search(r'((?:pair|dual|klist)_[a-z_]+?_kernel)'
+                              r'(I(?:L[ib]\d+E)+)?', mangled)
                 args = re.findall(r'L[ib](\d+)E', m.group(2) or '')
+                if 'bfloat16' in mangled:  # the K-list edge type
+                    args.append('bf16')
                 entry = m.group(1) + (f'<{",".join(args)}>' if args else '')
                 ptxas[entry] = {}
             elif entry and 'registers' in line:
@@ -572,6 +1270,11 @@ def main():
     emit('dual_shared_memory_bytes', R=20, **{
         f'{kind} F={F}': fdd.smem_bytes(F, 20, kind)
         for kind in ('fwd', 'bwd') for F in (32, 64, 128)})
+    errs.update(phase_klist_kernels(torch, fk))
+    emit('klist_shared_memory_bytes', R=20, **{
+        f'{kind} F={F}': fk.smem_bytes(F, 20, kind)
+        for kind in ('fwd', 'bwd', 'dual_fwd', 'dual_bwd')
+        for F in (32, 64, 128)})
 
     # 4. + 5. the main path: batched serving, then calculator requests
     samples = parse_xyz(XYZ)
@@ -669,6 +1372,14 @@ def main():
          **profile_call(torch, lambda: calc.calculate(
              numbers=s['z'], positions=s['pos'])))
 
+    # 4b. + 5b. neighbour lists: the aspirin frames, then the large box
+    serve_nl_launches = phase_serve_nlist(torch, fk, model, batches, to_dev,
+                                          served)
+    box_launches, box_calc, box_req = phase_box_request(torch, fk, model)
+    emit('profile', what=f'one calculator request on the {BOX_ATOMS}-atom '
+         'box', **profile_call(torch, lambda: box_calc.calculate(**box_req)))
+    del box_calc
+
     # 7. training: the first 10 steps, the plain path, one whole epoch
     b0, tuned, opt, main_loss, step_s = phase_train_steps(torch, fd, fdd)
     train_launches = phase_train_epoch(torch, fd, fdd)
@@ -682,6 +1393,25 @@ def main():
          step_ms_median_unprofiled=step_ms,
          device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
          / step_ms, **prof)
+
+    # 7d. + 7e. neighbour-list training: 10 steps against the JAX package's,
+    # one epoch through the CLI's entry point, three steps on the box
+    phase_train_nlist_steps(torch, fd, fk)
+    train_nl_launches = phase_train_nlist_epoch(torch, fk, fd, fdd)
+    box_step_launches, box_step, box_step_s = phase_box_train(torch, fk,
+                                                              model)
+    prof = profile_call(torch, box_step)
+    step_ms = 1e3 * statistics.median(box_step_s[1:])
+    emit('profile', what=f'one training step on the {BOX_ATOMS}-atom box',
+         step_ms_median_unprofiled=step_ms,
+         device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
+         / step_ms, **prof)
+    # K5/K6 launches of the 500 aspirin frames, K7/K8 of the training epoch
+    klist_launches = {k: (serve_nl_launches if 'dual' not in k
+                          else train_nl_launches)[k] for k in KLIST_NAMES}
+    emit('klist_launches', serve_500_frames=serve_nl_launches,
+         per_box_request=box_launches, train_epoch=train_nl_launches,
+         per_box_step=box_step_launches)
 
     # 6. timing at the batched serving shape
     B, N, F, R = 100, 21, 128, 20
@@ -764,6 +1494,8 @@ def main():
     emit('timing', shape=dict(B=B, N=N, F=F, R=R), what='K3/K4',
          peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12, fp32_mode_rows=fp32_rows)
+
+    rows += klist_timing(torch, fk, errs, klist_launches)
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

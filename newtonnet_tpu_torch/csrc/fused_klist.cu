@@ -1,0 +1,1422 @@
+// Fused neighbour-list (K-list) pair-interaction layer for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of newtonnet_tpu/ops/pallas_klist.py:
+// _fwd_kernel (K5), _bwd_kernel (K6), _dual_fwd_kernel (K7) and
+// _dual_bwd_kernel (K8). All are templated on the feature width F (32, 64
+// or 128), on FIRST (the stack's first layer: cat holds np_j only, C = F,
+// and the phi2 branch is skipped) and on the edge storage type E (float or
+// __nv_bfloat16) of cat, rbf and their tangents; every read converts to
+// fp32, and K6/K8 store the per-edge cotangents dcat, dcatdot and drbf in E.
+// K6 is also templated on WGRAD (the five weight cotangents; off in the
+// force pass). R (radial basis), N (atoms) and K (list width) are runtime.
+//
+// Computation, per molecule b, atom i and list slot k (neighbour j):
+//     npj = cat[i,k,:F], force_j[d] = cat[i,k,(d+1)F:(d+2)F]
+//     me  = rbf[i,k] @ We,  msg = me * np_i * npj * mask[i,k]
+//     inv1[i] = sum_k msg
+//     phi1 = (silu(msg @ W1a) @ W1b) * mask,  phi2 = (silu(msg @ W2a) @ W2b) * mask
+//     eq[d,i] = sum_k phi1 * dir[d,i,k] + phi2 * force_j[d]
+// K6 is its reverse: dnpi, dcat (per slot), drbf, ddir and the weight
+// cotangents. K7 carries a position tangent through the same chain (npidot,
+// catdot, rbfdot, dirdot; the weights carry none) and K8 is its reverse:
+// dnpi, dnpidot, dcat, dcatdot and the weight cotangents (rbf/dir get none:
+// the parameter-gradient surrogate of train/fastgrad.py holds the geometry
+// constant).
+//
+// What bounds it on this card: fp32 FMA throughput. Per slot K5 does
+// 2(R*F + 4F^2) flops of matrix products (136 kflop at F=128, R=20) and
+// reads C+R+4 edge values, far above the H100's fp32 ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 flop/byte); K6 about 3x K5, K7 2x, K8 about 6x.
+//
+// Design: that of K1-K4 (csrc/fused_dense.cu, csrc/fused_dual.cu). One block
+// of 8 warps per (molecule, tile of TI=8 atoms i); the block loops over
+// tiles of TJ list slots (8 for K5/K6, 4 for K7/K8), so a tile holds
+// M = TI*TJ slots; warp w owns the TJ slots of atom i0+w and lane l owns
+// feature columns l+32c. The j-side operand is per slot here, not per
+// column: it is not staged in shared memory (4F floats per slot would not
+// fit beside the chain) but read from device memory where it is used, each
+// warp reading one slot's row of F contiguous values at a time (coalesced).
+// The per-slot chain lives in shared memory and registers; the weights
+// stream through shared memory in KC-row chunks. Sums over k are
+// per-thread register sums, the cotangents of the j side leave as per-slot
+// outputs (gather_nodes' backward scatters them onto atoms outside), so no
+// sum crosses blocks except the weight cotangents: each block writes its
+// partials to scratch and a second kernel sums them in a fixed order. No
+// float atomics: a run gives the same bits every time. Plain IEEE fp32
+// FMAs, no tensor cores and no TF32.
+//
+// Shared memory at F=128, R=20: K5 about 92 KB, K6 185 KB, K7 96 KB, K8
+// 195 KB. The host functions return the cudaError_t of the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int TI = kWarps;  // atoms i per block: one per warp
+constexpr int TJ_P = 8;     // list slots per tile in K5/K6
+constexpr int TJ_D = 4;     // list slots per tile in K7/K8
+constexpr int KC = 32;      // rows of a streamed weight chunk
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ float sigmoid_f(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+__device__ __forceinline__ float silu_f(float x) { return x * sigmoid_f(x); }
+__device__ __forceinline__ float dsilu_f(float x) {
+  const float s = sigmoid_f(x);
+  return s * (1.0f + x * (1.0f - s));
+}
+__device__ __forceinline__ float d2silu_f(float x) {
+  const float s = sigmoid_f(x);
+  return s * (1.0f - s) * (2.0f + x * (1.0f - 2.0f * s));
+}
+
+__host__ __device__ inline size_t slot_at(int b, int i, int k, int N,
+                                          int K) {
+  return ((size_t)b * N + i) * K + k;
+}
+
+// acc[r][c] = sum_q A[(w*TJ + r)*lda + q] * B(q, l + 32c), q < Q, for the
+// calling thread's warp w and lane l. B(q, n) = W[q*F + n] (W is Q x F), or
+// with TRANS B(q, n) = W[n*Q + q] (W is F x Q). A holds the warp's own
+// slots only, so a warp may write its A rows just before the call; the
+// leading __syncthreads of each chunk orders everything else. Every lane
+// reads all of a row, so overwriting A itself after the call needs a
+// __syncwarp first. All threads of the block must call it.
+template <int F, int TJ, bool TRANS>
+__device__ __forceinline__ void gemm_rows(const float* __restrict__ A, int lda,
+                                          int Q, const float* __restrict__ W,
+                                          float* __restrict__ w_s,
+                                          float (&acc)[TJ][F / 32]) {
+  constexpr int C = F / 32;
+  constexpr int WLD = F + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int r = 0; r < TJ; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
+  const float* arow = A + (size_t)(warp * TJ) * lda;
+  for (int q0 = 0; q0 < Q; q0 += KC) {
+    const int qc = min(KC, Q - q0);
+    __syncthreads();
+    if (!TRANS) {
+      for (int idx = threadIdx.x; idx < qc * F; idx += kThreads) {
+        const int qq = idx / F, n = idx - qq * F;
+        w_s[qq * WLD + n] = W[(size_t)(q0 + qq) * F + n];
+      }
+    } else {
+      for (int idx = threadIdx.x; idx < qc * F; idx += kThreads) {
+        const int n = idx / qc, qq = idx - n * qc;
+        w_s[qq * WLD + n] = W[(size_t)n * Q + q0 + qq];
+      }
+    }
+    __syncthreads();
+    for (int qq = 0; qq < qc; ++qq) {
+      float bv[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) bv[c] = w_s[qq * WLD + lane + 32 * c];
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const float a = arow[r * lda + q0 + qq];
+#pragma unroll
+        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(a, bv[c], acc[r][c]);
+      }
+    }
+  }
+}
+
+// part[q*F + n] (+)= sum_p A1[p*lda + q] * B1[p*(F+1) + n]
+//                      (+ A2[p*lda + q] * B2[p*(F+1) + n] with TWO)
+// over the M slots of the tile, for q < qrows. Each element has one owning
+// thread and each block its own part, so no two threads ever write one
+// address. `init` (the block's first tile) overwrites instead of adding.
+template <int F, int M, bool TWO>
+__device__ void wgrad(const float* __restrict__ A1,
+                      const float* __restrict__ B1,
+                      const float* __restrict__ A2,
+                      const float* __restrict__ B2, int lda, int qrows,
+                      float* __restrict__ part, bool init) {
+  constexpr int C = F / 32;
+  constexpr int LD = F + 1;
+  constexpr int QC = 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  __syncthreads();
+  for (int g0 = 0; warp + kWarps * g0 < qrows; g0 += QC) {
+    float acc[QC][C];
+#pragma unroll
+    for (int g = 0; g < QC; ++g)
+#pragma unroll
+      for (int c = 0; c < C; ++c) acc[g][c] = 0.0f;
+    for (int p = 0; p < M; ++p) {
+      float b1[C], b2[C];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        b1[c] = B1[p * LD + lane + 32 * c];
+        b2[c] = TWO ? B2[p * LD + lane + 32 * c] : 0.0f;
+      }
+#pragma unroll
+      for (int g = 0; g < QC; ++g) {
+        const int q = warp + kWarps * (g0 + g);
+        const float a1 = q < qrows ? A1[p * lda + q] : 0.0f;
+        const float a2 = (TWO && q < qrows) ? A2[p * lda + q] : 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          acc[g][c] = fmaf(a1, b1[c], acc[g][c]);
+          if (TWO) acc[g][c] = fmaf(a2, b2[c], acc[g][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < QC; ++g) {
+      const int q = warp + kWarps * (g0 + g);
+      if (q < qrows) {
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          float* dst = part + (size_t)q * F + lane + 32 * c;
+          *dst = init ? acc[g][c] : *dst + acc[g][c];
+        }
+      }
+    }
+  }
+}
+
+// Row-side inputs of the block's TI atoms (zero past N): TI x F.
+__device__ void load_rows(const float* __restrict__ src, int b, int i0,
+                          int N, int F, float* dst) {
+  for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
+    const int il = idx / F, f = idx - il * F;
+    dst[idx] = i0 + il < N ? src[((size_t)b * N + i0 + il) * F + f] : 0.0f;
+  }
+}
+
+// Row-side Cartesian inputs (deq, dq, dqdot) of the TI atoms: 3 x TI x F.
+__device__ void load_rows3(const float* __restrict__ src, int b, int i0,
+                           int N, int F, float* dst) {
+  for (int idx = threadIdx.x; idx < 3 * TI * F; idx += kThreads) {
+    const int d = idx / (TI * F), rem = idx - d * (TI * F);
+    const int il = rem / F, f = rem - il * F;
+    dst[idx] = i0 + il < N
+                   ? src[(((size_t)b * 3 + d) * N + i0 + il) * F + f] : 0.0f;
+  }
+}
+
+// The tile's per-slot geometry: mask, dir (and with DUAL dirdot), rbf (and
+// rbfdot), converted to fp32. Slots past N or K read as zero, so they
+// contribute nothing and stay finite (silu(0) = 0).
+template <int TJ, bool DUAL, class E>
+__device__ void load_slots(const float* __restrict__ mask,
+                           const float* __restrict__ dir,
+                           const float* __restrict__ dirdot,
+                           const E* __restrict__ rbf,
+                           const E* __restrict__ rbfdot, int b, int i0,
+                           int k0, int N, int K, int R, float* mask_s,
+                           float* dir_s, float* dirdot_s, float* rbf_s,
+                           float* rbfdot_s) {
+  constexpr int M = TI * TJ;
+  constexpr int NG = DUAL ? 7 : 4;  // 0: mask, 1-3: dir, 4-6: dirdot
+  for (int idx = threadIdx.x; idx < NG * M; idx += kThreads) {
+    const int g = idx / M, p = idx - g * M;
+    const int i = i0 + p / TJ, k = k0 + p % TJ;
+    const bool ok = i < N && k < K;
+    if (g == 0) {
+      mask_s[p] = ok ? mask[slot_at(b, i, k, N, K)] : 0.0f;
+    } else if (g < 4) {
+      dir_s[(g - 1) * M + p] =
+          ok ? dir[slot_at(b * 3 + g - 1, i, k, N, K)] : 0.0f;
+    } else {
+      dirdot_s[(g - 4) * M + p] =
+          ok ? dirdot[slot_at(b * 3 + g - 4, i, k, N, K)] : 0.0f;
+    }
+  }
+  for (int idx = threadIdx.x; idx < M * R; idx += kThreads) {
+    const int p = idx / R, r = idx - p * R;
+    const int i = i0 + p / TJ, k = k0 + p % TJ;
+    const bool ok = i < N && k < K;
+    const size_t at = slot_at(b, i, k, N, K) * R + r;
+    rbf_s[idx] = ok ? ld(rbf + at) : 0.0f;
+    if (DUAL) rbfdot_s[idx] = ok ? ld(rbfdot + at) : 0.0f;
+  }
+}
+
+// Weight cotangents inside one block's partial slot (and inside the
+// reduced output): We, W1a, W1b, W2a, W2b one after the other.
+__host__ __device__ inline size_t wgrad_size(int F, int R) {
+  return (size_t)R * F + (size_t)4 * F * F;
+}
+
+// ------------------------------------------------------------------ K5 --
+template <int F>
+constexpr size_t fwd_smem_floats(int R) {
+  constexpr int M = TI * TJ_P;
+  return (size_t)2 * M * (F + 1) + (size_t)KC * (F + 1) + (size_t)TI * F +
+         (size_t)4 * M + (size_t)M * R;
+}
+
+template <int F, bool FIRST, class E>
+__global__ void __launch_bounds__(kThreads, 2)
+klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
+                 const E* __restrict__ rbf, const float* __restrict__ dir,
+                 const float* __restrict__ mask, const float* __restrict__ We,
+                 const float* __restrict__ W1a, const float* __restrict__ W1b,
+                 const float* __restrict__ W2a, const float* __restrict__ W2b,
+                 float* __restrict__ inv1, float* __restrict__ eq, int N,
+                 int K, int R, int n_itiles) {
+  constexpr int TJ = TJ_P;
+  constexpr int M = TI * TJ;
+  constexpr int C = F / 32;
+  constexpr int LD = F + 1;
+  constexpr int CW = FIRST ? F : 4 * F;  // width of a cat row
+  extern __shared__ float smem[];
+  float* msg_s = smem;               // M x LD
+  float* h_s = msg_s + M * LD;       // M x LD
+  float* w_s = h_s + M * LD;         // KC x LD
+  float* npi_s = w_s + KC * LD;      // TI x F
+  float* mask_s = npi_s + TI * F;    // M
+  float* dir_s = mask_s + M;         // 3 x M
+  float* rbf_s = dir_s + 3 * M;      // M x R
+
+  const int b = blockIdx.x / n_itiles;
+  const int i0 = (blockIdx.x - b * n_itiles) * TI;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = i0 + warp;
+
+  load_rows(npi, b, i0, N, F, npi_s);
+  float inv_acc[C], eq_acc[3][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    inv_acc[c] = 0.0f;
+    eq_acc[0][c] = eq_acc[1][c] = eq_acc[2][c] = 0.0f;
+  }
+  float acc[TJ][C];
+
+  for (int k0 = 0; k0 < K; k0 += TJ) {
+    __syncthreads();
+    load_slots<TJ, false, E>(mask, dir, nullptr, rbf, nullptr, b, i0, k0, N,
+                             K, R, mask_s, dir_s, nullptr, rbf_s, nullptr);
+    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r, k = k0 + r;
+      const bool ok = i < N && k < K;
+      const E* cj = cat + (ok ? slot_at(b, i, k, N, K) * CW : 0);
+      const float a = mask_s[p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        const float npj = ok ? ld(cj + f) : 0.0f;
+        const float m = acc[r][c] * npi_s[warp * F + f] * npj * a;
+        msg_s[p * LD + f] = m;
+        inv_acc[c] += m;
+      }
+    }
+    gemm_rows<F, TJ, false>(msg_s, LD, F, W1a, w_s, acc);
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
+    gemm_rows<F, TJ, false>(h_s, LD, F, W1b, w_s, acc);
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r;
+      const float a = mask_s[p];
+      const float d0 = dir_s[p], d1 = dir_s[M + p], d2 = dir_s[2 * M + p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float phi = acc[r][c] * a;
+        eq_acc[0][c] += phi * d0;
+        eq_acc[1][c] += phi * d1;
+        eq_acc[2][c] += phi * d2;
+      }
+    }
+    if (!FIRST) {
+      gemm_rows<F, TJ, false>(msg_s, LD, F, W2a, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
+      gemm_rows<F, TJ, false>(h_s, LD, F, W2b, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r, k = k0 + r;
+        const bool ok = i < N && k < K;
+        const E* cj = cat + (ok ? slot_at(b, i, k, N, K) * CW : 0);
+        const float a = mask_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c;
+          const float phi = acc[r][c] * a;
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+            eq_acc[d][c] += phi * (ok ? ld(cj + (d + 1) * F + f) : 0.0f);
+        }
+      }
+    }
+  }
+
+  if (i < N) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K6 --
+template <int F>
+constexpr size_t bwd_smem_floats(int R) {
+  constexpr int M = TI * TJ_P;
+  return (size_t)4 * M * (F + 1) + (size_t)KC * (F + 1) +
+         (size_t)R * (F + 1) + (size_t)5 * TI * F + (size_t)4 * M +
+         (size_t)M * R;
+}
+
+template <int F, bool FIRST, bool WGRAD, class E>
+__global__ void __launch_bounds__(kThreads, 1)
+klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
+                 const E* __restrict__ rbf, const float* __restrict__ dir,
+                 const float* __restrict__ mask, const float* __restrict__ We,
+                 const float* __restrict__ W1a, const float* __restrict__ W1b,
+                 const float* __restrict__ W2a, const float* __restrict__ W2b,
+                 const float* __restrict__ dinv1,
+                 const float* __restrict__ deq, float* __restrict__ dnpi,
+                 E* __restrict__ dcat, E* __restrict__ drbf,
+                 float* __restrict__ ddir, float* __restrict__ wpart, int N,
+                 int K, int R, int n_itiles) {
+  constexpr int TJ = TJ_P;
+  constexpr int M = TI * TJ;
+  constexpr int C = F / 32;
+  constexpr int LD = F + 1;
+  constexpr int CW = FIRST ? F : 4 * F;
+  extern __shared__ float smem[];
+  float* msg_s = smem;               // M x LD: msg
+  float* p_s = msg_s + M * LD;       // M x LD: p, then dp in place
+  float* h_s = p_s + M * LD;         // M x LD: h, then dme
+  float* x_s = h_s + M * LD;         // M x LD: dphi
+  float* w_s = x_s + M * LD;         // KC x LD
+  float* we_s = w_s + KC * LD;       // R x LD: We, resident
+  float* npi_s = we_s + R * LD;      // TI x F
+  float* g_s = npi_s + TI * F;       // 3 x TI x F: deq of the TI atoms
+  float* dinv_s = g_s + 3 * TI * F;  // TI x F
+  float* mask_s = dinv_s + TI * F;   // M
+  float* dir_s = mask_s + M;         // 3 x M
+  float* rbf_s = dir_s + 3 * M;      // M x R
+
+  const int b = blockIdx.x / n_itiles;
+  const int i0 = (blockIdx.x - b * n_itiles) * TI;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = i0 + warp;
+
+  load_rows(npi, b, i0, N, F, npi_s);
+  load_rows(dinv1, b, i0, N, F, dinv_s);
+  load_rows3(deq, b, i0, N, F, g_s);
+  for (int idx = threadIdx.x; idx < R * F; idx += kThreads) {
+    const int r = idx / F, f = idx - r * F;
+    we_s[r * LD + f] = We[idx];
+  }
+
+  float* wp = WGRAD ? wpart + (size_t)blockIdx.x * wgrad_size(F, R) : nullptr;
+  float dnp_acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dnp_acc[c] = 0.0f;
+  float acc[TJ][C], dmsg[TJ][C];
+
+  for (int k0 = 0; k0 < K; k0 += TJ) {
+    const bool init = k0 == 0;
+    __syncthreads();
+    load_slots<TJ, false, E>(mask, dir, nullptr, rbf, nullptr, b, i0, k0, N,
+                             K, R, mask_s, dir_s, nullptr, rbf_s, nullptr);
+    // recompute msg
+    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r, k = k0 + r;
+      const bool ok = i < N && k < K;
+      const E* cj = cat + (ok ? slot_at(b, i, k, N, K) * CW : 0);
+      const float a = mask_s[p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        const float npj = ok ? ld(cj + f) : 0.0f;
+        msg_s[p * LD + f] = acc[r][c] * npi_s[warp * F + f] * npj * a;
+      }
+    }
+
+    // ---- branch 1: phi1 = (silu(msg @ W1a) @ W1b) * mask
+    gemm_rows<F, TJ, false>(msg_s, LD, F, W1a, w_s, acc);
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int o = (warp * TJ + r) * LD + lane + 32 * c;
+        p_s[o] = acc[r][c];
+        h_s[o] = silu_f(acc[r][c]);
+      }
+    gemm_rows<F, TJ, false>(h_s, LD, F, W1b, w_s, acc);
+    // ddir[d,i,k] = sum_f phi1 * deq[d,i]; dphi1 = sum_d deq[d,i] dir[d,i,k]
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r, k = k0 + r;
+      const float a = mask_s[p];
+      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        const float phi = acc[r][c] * a;
+        const float g0 = g_s[warp * F + f];
+        const float g1 = g_s[(TI + warp) * F + f];
+        const float g2 = g_s[(2 * TI + warp) * F + f];
+        s0 += phi * g0;
+        s1 += phi * g1;
+        s2 += phi * g2;
+        x_s[p * LD + f] =
+            (g0 * dir_s[p] + g1 * dir_s[M + p] + g2 * dir_s[2 * M + p]) * a;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+      }
+      if (lane == 0 && i < N && k < K) {
+        ddir[slot_at(b * 3 + 0, i, k, N, K)] = s0;
+        ddir[slot_at(b * 3 + 1, i, k, N, K)] = s1;
+        ddir[slot_at(b * 3 + 2, i, k, N, K)] = s2;
+      }
+    }
+    if (WGRAD)
+      wgrad<F, M, false>(h_s, x_s, nullptr, nullptr, LD, F,
+                         wp + (size_t)R * F + F * F, init);
+    gemm_rows<F, TJ, true>(x_s, LD, F, W1b, w_s, acc);  // dh1
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int o = (warp * TJ + r) * LD + lane + 32 * c;
+        p_s[o] = acc[r][c] * dsilu_f(p_s[o]);  // dp1
+      }
+    if (WGRAD)
+      wgrad<F, M, false>(msg_s, p_s, nullptr, nullptr, LD, F,
+                         wp + (size_t)R * F, init);
+    gemm_rows<F, TJ, true>(p_s, LD, F, W1a, w_s, dmsg);
+
+    // ---- branch 2 (skipped at the first layer: force_node is zero)
+    if (!FIRST) {
+      gemm_rows<F, TJ, false>(msg_s, LD, F, W2a, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          p_s[o] = acc[r][c];
+          h_s[o] = silu_f(acc[r][c]);
+        }
+      gemm_rows<F, TJ, false>(h_s, LD, F, W2b, w_s, acc);
+      // dcat[force_j[d]] = phi2 * deq[d,i]; dphi2 = sum_d deq[d,i] force_j[d]
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r, k = k0 + r;
+        const bool ok = i < N && k < K;
+        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+        const float a = mask_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c;
+          const float phi = acc[r][c] * a;
+          float dphi = 0.0f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float g = g_s[(d * TI + warp) * F + f];
+            if (ok) {
+              st(dcat + at + (d + 1) * F + f, phi * g);
+              dphi += g * ld(cat + at + (d + 1) * F + f);
+            }
+          }
+          x_s[p * LD + f] = dphi * a;
+        }
+      }
+      if (WGRAD)
+        wgrad<F, M, false>(h_s, x_s, nullptr, nullptr, LD, F,
+                           wp + (size_t)R * F + 3 * F * F, init);
+      gemm_rows<F, TJ, true>(x_s, LD, F, W2b, w_s, acc);  // dh2
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          p_s[o] = acc[r][c] * dsilu_f(p_s[o]);  // dp2
+        }
+      if (WGRAD)
+        wgrad<F, M, false>(msg_s, p_s, nullptr, nullptr, LD, F,
+                           wp + (size_t)R * F + 2 * F * F, init);
+      gemm_rows<F, TJ, true>(p_s, LD, F, W2a, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) dmsg[r][c] += acc[r][c];
+    }
+
+    // ---- dmsg3 = (dmsg + dinv1_i) * mask; dnpi, dcat[np_j], dme, drbf, dWe
+    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me again
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r, k = k0 + r;
+      const bool ok = i < N && k < K;
+      const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+      const float a = mask_s[p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        const float d3 = (dmsg[r][c] + dinv_s[warp * F + f]) * a;
+        const float t = d3 * acc[r][c];
+        const float ni = npi_s[warp * F + f];
+        const float nj = ok ? ld(cat + at + f) : 0.0f;
+        dnp_acc[c] += t * nj;
+        if (ok) st(dcat + at + f, t * ni);
+        h_s[p * LD + f] = d3 * ni * nj;  // dme
+      }
+    }
+    __syncthreads();
+    // drbf[i,k,r] = sum_f dme[i,k,f] * We[r,f]
+    for (int idx = threadIdx.x; idx < M * R; idx += kThreads) {
+      const int p = idx / R, r = idx - p * R;
+      const int ii = i0 + p / TJ, k = k0 + p % TJ;
+      float s = 0.0f;
+      for (int f = 0; f < F; ++f) s += h_s[p * LD + f] * we_s[r * LD + f];
+      if (ii < N && k < K) st(drbf + slot_at(b, ii, k, N, K) * R + r, s);
+    }
+    if (WGRAD)
+      wgrad<F, M, false>(rbf_s, h_s, nullptr, nullptr, R, R, wp, init);
+  }
+
+  if (i < N) {
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      dnpi[((size_t)b * N + i) * F + lane + 32 * c] = dnp_acc[c];
+  }
+}
+
+// ------------------------------------------------- dual chain, K7 and K8 --
+// msg and msgdot of the warp's own slots into msg_s / msgdot_s (M x LD),
+// from me (computed first, parked in msgdot_s) and medot; np_j and its
+// tangent are read from cat / catdot. Uses `acc` as scratch. All threads of
+// the block must call it.
+template <int F, int CW, class E>
+__device__ void dual_messages(const float* rbf_s, const float* rbfdot_s,
+                              int R, const float* __restrict__ We,
+                              float* w_s, const float* npi_s,
+                              const float* npidot_s, const E* __restrict__ cat,
+                              const E* __restrict__ catdot, int b, int i,
+                              int k0, int N, int K, const float* mask_s,
+                              float* msg_s, float* msgdot_s,
+                              float (&acc)[TJ_D][F / 32]) {
+  constexpr int TJ = TJ_D;
+  constexpr int C = F / 32;
+  constexpr int LD = F + 1;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me
+#pragma unroll
+  for (int r = 0; r < TJ; ++r) {
+    const int p = warp * TJ + r, k = k0 + r;
+    const bool ok = i < N && k < K;
+    const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+    const float a = mask_s[p];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      const float aj = ok ? ld(cat + at + f) : 0.0f;
+      msg_s[p * LD + f] = acc[r][c] * npi_s[warp * F + f] * aj * a;
+      msgdot_s[p * LD + f] = acc[r][c];
+    }
+  }
+  gemm_rows<F, TJ, false>(rbfdot_s, R, R, We, w_s, acc);  // medot
+#pragma unroll
+  for (int r = 0; r < TJ; ++r) {
+    const int p = warp * TJ + r, k = k0 + r;
+    const bool ok = i < N && k < K;
+    const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+    const float a = mask_s[p];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      const float ai = npi_s[warp * F + f], aidot = npidot_s[warp * F + f];
+      const float aj = ok ? ld(cat + at + f) : 0.0f;
+      const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+      const float me = msgdot_s[p * LD + f];
+      msgdot_s[p * LD + f] =
+          (acc[r][c] * ai * aj + me * aidot * aj + me * ai * ajdot) * a;
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K7 --
+template <int F>
+constexpr size_t dual_fwd_smem_floats(int R) {
+  constexpr int M = TI * TJ_D;
+  return (size_t)4 * M * (F + 1) + (size_t)KC * (F + 1) + (size_t)2 * TI * F +
+         (size_t)7 * M + (size_t)2 * M * R;
+}
+
+template <int F, bool FIRST, class E>
+__global__ void __launch_bounds__(kThreads, 2)
+klist_dual_fwd_kernel(const float* __restrict__ npi,
+                      const float* __restrict__ npidot,
+                      const E* __restrict__ cat, const E* __restrict__ catdot,
+                      const E* __restrict__ rbf, const E* __restrict__ rbfdot,
+                      const float* __restrict__ dir,
+                      const float* __restrict__ dirdot,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ We,
+                      const float* __restrict__ W1a,
+                      const float* __restrict__ W1b,
+                      const float* __restrict__ W2a,
+                      const float* __restrict__ W2b, float* __restrict__ inv1,
+                      float* __restrict__ eq, float* __restrict__ inv1dot,
+                      float* __restrict__ eqdot, int N, int K, int R,
+                      int n_itiles) {
+  constexpr int TJ = TJ_D;
+  constexpr int M = TI * TJ;
+  constexpr int C = F / 32;
+  constexpr int LD = F + 1;
+  constexpr int CW = FIRST ? F : 4 * F;
+  extern __shared__ float smem[];
+  float* msg_s = smem;                 // M x LD
+  float* msgdot_s = msg_s + M * LD;    // M x LD
+  float* h_s = msgdot_s + M * LD;      // M x LD
+  float* hdot_s = h_s + M * LD;        // M x LD
+  float* w_s = hdot_s + M * LD;        // KC x LD
+  float* npi_s = w_s + KC * LD;        // TI x F
+  float* npidot_s = npi_s + TI * F;    // TI x F
+  float* mask_s = npidot_s + TI * F;   // M
+  float* dir_s = mask_s + M;           // 3 x M
+  float* dirdot_s = dir_s + 3 * M;     // 3 x M
+  float* rbf_s = dirdot_s + 3 * M;     // M x R
+  float* rbfdot_s = rbf_s + M * R;     // M x R
+
+  const int b = blockIdx.x / n_itiles;
+  const int i0 = (blockIdx.x - b * n_itiles) * TI;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = i0 + warp;
+
+  load_rows(npi, b, i0, N, F, npi_s);
+  load_rows(npidot, b, i0, N, F, npidot_s);
+  float inv_acc[C], invdot_acc[C], eq_acc[3][C], eqdot_acc[3][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    inv_acc[c] = invdot_acc[c] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) eq_acc[d][c] = eqdot_acc[d][c] = 0.0f;
+  }
+  float acc[TJ][C];
+
+  for (int k0 = 0; k0 < K; k0 += TJ) {
+    __syncthreads();
+    load_slots<TJ, true, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N, K,
+                            R, mask_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
+    dual_messages<F, CW, E>(rbf_s, rbfdot_s, R, We, w_s, npi_s, npidot_s, cat,
+                            catdot, b, i, k0, N, K, mask_s, msg_s, msgdot_s,
+                            acc);
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int o = (warp * TJ + r) * LD + lane + 32 * c;
+        inv_acc[c] += msg_s[o];
+        invdot_acc[c] += msgdot_s[o];
+      }
+
+#pragma unroll
+    for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
+      const float* Wa = br == 0 ? W1a : W2a;
+      const float* Wb = br == 0 ? W1b : W2b;
+      gemm_rows<F, TJ, false>(msg_s, LD, F, Wa, w_s, acc);  // p
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          h_s[o] = silu_f(acc[r][c]);
+          hdot_s[o] = dsilu_f(acc[r][c]);
+        }
+      gemm_rows<F, TJ, false>(msgdot_s, LD, F, Wa, w_s, acc);  // pdot
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          hdot_s[o] = hdot_s[o] * acc[r][c];
+        }
+      // phi: eq += phi x, eqdot += phi xdot, with (x, xdot) = (dir, dirdot)
+      // in branch 1 and (force_j, forcedot_j) in branch 2
+      gemm_rows<F, TJ, false>(h_s, LD, F, Wb, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r, k = k0 + r;
+        const bool ok = i < N && k < K;
+        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+        const float a = mask_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c;
+          const float phi = acc[r][c] * a;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            float x, xdot;
+            if (br == 0) {
+              x = dir_s[d * M + p];
+              xdot = dirdot_s[d * M + p];
+            } else {
+              x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
+              xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
+            }
+            eq_acc[d][c] += phi * x;
+            eqdot_acc[d][c] += phi * xdot;
+          }
+        }
+      }
+      // phidot: eqdot += phidot x
+      gemm_rows<F, TJ, false>(hdot_s, LD, F, Wb, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r, k = k0 + r;
+        const bool ok = i < N && k < K;
+        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+        const float a = mask_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c;
+          const float phidot = acc[r][c] * a;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float x = br == 0 ? dir_s[d * M + p]
+                                    : (ok ? ld(cat + at + (d + 1) * F + f)
+                                          : 0.0f);
+            eqdot_acc[d][c] += phidot * x;
+          }
+        }
+      }
+    }
+  }
+
+  if (i < N) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
+      inv1dot[((size_t)b * N + i) * F + f] = invdot_acc[c];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
+        eqdot[(((size_t)b * 3 + d) * N + i) * F + f] = eqdot_acc[d][c];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ K8 --
+template <int F>
+constexpr size_t dual_bwd_smem_floats(int R) {
+  constexpr int M = TI * TJ_D;
+  return (size_t)8 * M * (F + 1) + (size_t)KC * (F + 1) +
+         (size_t)10 * TI * F + (size_t)7 * M + (size_t)2 * M * R;
+}
+
+template <int F, bool FIRST, class E>
+__global__ void __launch_bounds__(kThreads, 1)
+klist_dual_bwd_kernel(const float* __restrict__ npi,
+                      const float* __restrict__ npidot,
+                      const E* __restrict__ cat, const E* __restrict__ catdot,
+                      const E* __restrict__ rbf, const E* __restrict__ rbfdot,
+                      const float* __restrict__ dir,
+                      const float* __restrict__ dirdot,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ We,
+                      const float* __restrict__ W1a,
+                      const float* __restrict__ W1b,
+                      const float* __restrict__ W2a,
+                      const float* __restrict__ W2b,
+                      const float* __restrict__ di,
+                      const float* __restrict__ dq,
+                      const float* __restrict__ didot,
+                      const float* __restrict__ dqdot,
+                      float* __restrict__ dnpi, float* __restrict__ dnpidot,
+                      E* __restrict__ dcat, E* __restrict__ dcatdot,
+                      float* __restrict__ wpart, int N, int K, int R,
+                      int n_itiles) {
+  constexpr int TJ = TJ_D;
+  constexpr int M = TI * TJ;
+  constexpr int C = F / 32;
+  constexpr int LD = F + 1;
+  constexpr int CW = FIRST ? F : 4 * F;
+  extern __shared__ float smem[];
+  float* msg_s = smem;                 // M x LD: msg
+  float* msgdot_s = msg_s + M * LD;    // M x LD: msgdot
+  float* p_s = msgdot_s + M * LD;      // M x LD: p; tail: me
+  float* pdot_s = p_s + M * LD;        // M x LD: pdot, then s'' pdot dhdot
+  float* h_s = pdot_s + M * LD;        // M x LD: h
+  float* hdot_s = h_s + M * LD;        // M x LD: hdot; tail: dme
+  float* g_s = hdot_s + M * LD;        // M x LD: phi2, g, dp; tail: dmedot
+  float* gdot_s = g_s + M * LD;        // M x LD: gdot, dpdot
+  float* w_s = gdot_s + M * LD;        // KC x LD
+  float* npi_s = w_s + KC * LD;        // TI x F
+  float* npidot_s = npi_s + TI * F;    // TI x F
+  float* di_s = npidot_s + TI * F;     // TI x F
+  float* didot_s = di_s + TI * F;      // TI x F
+  float* dq_s = didot_s + TI * F;      // 3 x TI x F
+  float* dqdot_s = dq_s + 3 * TI * F;  // 3 x TI x F
+  float* mask_s = dqdot_s + 3 * TI * F;  // M
+  float* dir_s = mask_s + M;           // 3 x M
+  float* dirdot_s = dir_s + 3 * M;     // 3 x M
+  float* rbf_s = dirdot_s + 3 * M;     // M x R
+  float* rbfdot_s = rbf_s + M * R;     // M x R
+
+  const int b = blockIdx.x / n_itiles;
+  const int i0 = (blockIdx.x - b * n_itiles) * TI;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = i0 + warp;
+
+  load_rows(npi, b, i0, N, F, npi_s);
+  load_rows(npidot, b, i0, N, F, npidot_s);
+  load_rows(di, b, i0, N, F, di_s);
+  load_rows(didot, b, i0, N, F, didot_s);
+  load_rows3(dq, b, i0, N, F, dq_s);
+  load_rows3(dqdot, b, i0, N, F, dqdot_s);
+
+  float* wp = wpart + (size_t)blockIdx.x * wgrad_size(F, R);
+  float dnp_acc[C], dnpdot_acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dnp_acc[c] = dnpdot_acc[c] = 0.0f;
+  float acc[TJ][C], dmsg[TJ][C], dmsgdot[TJ][C];
+
+  for (int k0 = 0; k0 < K; k0 += TJ) {
+    const bool init = k0 == 0;
+    __syncthreads();
+    load_slots<TJ, true, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N, K,
+                            R, mask_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
+    dual_messages<F, CW, E>(rbf_s, rbfdot_s, R, We, w_s, npi_s, npidot_s, cat,
+                            catdot, b, i, k0, N, K, mask_s, msg_s, msgdot_s,
+                            acc);
+
+#pragma unroll
+    for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
+      const float* Wa = br == 0 ? W1a : W2a;
+      const float* Wb = br == 0 ? W1b : W2b;
+      float* wpa = wp + (size_t)R * F + (size_t)(2 * br) * F * F;
+      float* wpb = wpa + (size_t)F * F;
+      gemm_rows<F, TJ, false>(msg_s, LD, F, Wa, w_s, acc);  // p
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          p_s[o] = acc[r][c];
+          h_s[o] = silu_f(acc[r][c]);
+        }
+      gemm_rows<F, TJ, false>(msgdot_s, LD, F, Wa, w_s, acc);  // pdot
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          pdot_s[o] = acc[r][c];
+          hdot_s[o] = dsilu_f(p_s[o]) * acc[r][c];
+        }
+      if (br == 1) {
+        // phi2, phi2dot -> the per-slot force cotangents:
+        // dcat[force_j[d]] = phi2 dq[d,i] + phi2dot dqdot[d,i],
+        // dcatdot[force_j[d]] = phi2 dqdot[d,i]
+        gemm_rows<F, TJ, false>(h_s, LD, F, Wb, w_s, acc);
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            g_s[(warp * TJ + r) * LD + lane + 32 * c] =
+                acc[r][c] * mask_s[warp * TJ + r];
+        gemm_rows<F, TJ, false>(hdot_s, LD, F, Wb, w_s, acc);
+#pragma unroll
+        for (int r = 0; r < TJ; ++r) {
+          const int p = warp * TJ + r, k = k0 + r;
+          if (!(i < N && k < K)) continue;
+          const size_t at = slot_at(b, i, k, N, K) * CW;
+          const float a = mask_s[p];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int f = lane + 32 * c;
+            const float phi = g_s[p * LD + f];
+            const float phid = acc[r][c] * a;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const float q = dq_s[(d * TI + warp) * F + f];
+              const float qd = dqdot_s[(d * TI + warp) * F + f];
+              st(dcat + at + (d + 1) * F + f, phi * q + phid * qd);
+              st(dcatdot + at + (d + 1) * F + f, phi * qd);
+            }
+          }
+        }
+      }
+      // g = dphi * mask, gdot = dphidot * mask, where
+      // dphi = sum_d dq[d,i] x[d] + dqdot[d,i] xdot[d], dphidot = sum_d
+      // dqdot[d,i] x[d], with (x, xdot) = (dir, dirdot) or (force_j,
+      // forcedot_j)
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r, k = k0 + r;
+        const bool ok = i < N && k < K;
+        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+        const float a = mask_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c;
+          float dphi = 0.0f, dphidot = 0.0f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float q = dq_s[(d * TI + warp) * F + f];
+            const float qd = dqdot_s[(d * TI + warp) * F + f];
+            float x, xdot;
+            if (br == 0) {
+              x = dir_s[d * M + p];
+              xdot = dirdot_s[d * M + p];
+            } else {
+              x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
+              xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
+            }
+            dphi = dphi + q * x + qd * xdot;
+            dphidot = dphidot + qd * x;
+          }
+          g_s[p * LD + f] = dphi * a;
+          gdot_s[p * LD + f] = dphidot * a;
+        }
+      }
+      wgrad<F, M, true>(h_s, g_s, hdot_s, gdot_s, LD, F, wpb, init);  // dWb
+      gemm_rows<F, TJ, true>(gdot_s, LD, F, Wb, w_s, acc);  // dhdot
+      __syncwarp();  // the warp's lanes have read gdot before it is replaced
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          const float pv = p_s[o];
+          pdot_s[o] = d2silu_f(pv) * pdot_s[o] * acc[r][c];
+          gdot_s[o] = dsilu_f(pv) * acc[r][c];  // dpdot
+        }
+      gemm_rows<F, TJ, true>(g_s, LD, F, Wb, w_s, acc);  // dh
+      __syncwarp();  // as above, for g
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          g_s[o] = dsilu_f(p_s[o]) * acc[r][c] + pdot_s[o];  // dp
+        }
+      wgrad<F, M, true>(msg_s, g_s, msgdot_s, gdot_s, LD, F, wpa, init);
+      gemm_rows<F, TJ, true>(g_s, LD, F, Wa, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          dmsg[r][c] = br == 0 ? acc[r][c] : dmsg[r][c] + acc[r][c];
+      gemm_rows<F, TJ, true>(gdot_s, LD, F, Wa, w_s, acc);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          dmsgdot[r][c] = br == 0 ? acc[r][c] : dmsgdot[r][c] + acc[r][c];
+    }
+
+    // ---- t = (dmsg + di_i) mask, tdot = (dmsgdot + didot_i) mask; dnpi,
+    // dnpidot, dcat[np_j], dcatdot[np_j], dme, dmedot, dWe. me and medot
+    // are recomputed.
+    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        p_s[(warp * TJ + r) * LD + lane + 32 * c] = acc[r][c];
+    gemm_rows<F, TJ, false>(rbfdot_s, R, R, We, w_s, acc);  // medot
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r, k = k0 + r;
+      const bool ok = i < N && k < K;
+      const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+      const float a = mask_s[p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        const int o = p * LD + f;
+        const float t = (dmsg[r][c] + di_s[warp * F + f]) * a;
+        const float tdot = (dmsgdot[r][c] + didot_s[warp * F + f]) * a;
+        const float me = p_s[o], medot = acc[r][c];
+        const float ai = npi_s[warp * F + f];
+        const float aidot = npidot_s[warp * F + f];
+        const float aj = ok ? ld(cat + at + f) : 0.0f;
+        const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+        dnp_acc[c] += t * me * aj + tdot * (medot * aj + me * ajdot);
+        dnpdot_acc[c] += tdot * me * aj;
+        hdot_s[o] = t * ai * aj + tdot * (aidot * aj + ai * ajdot);  // dme
+        g_s[o] = tdot * ai * aj;                                      // dmedot
+        if (ok) {
+          st(dcat + at + f, t * me * ai + tdot * (medot * ai + me * aidot));
+          st(dcatdot + at + f, tdot * me * ai);
+        }
+      }
+    }
+    wgrad<F, M, true>(rbf_s, hdot_s, rbfdot_s, g_s, R, R, wp, init);  // dWe
+  }
+
+  if (i < N) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      dnpi[((size_t)b * N + i) * F + f] = dnp_acc[c];
+      dnpidot[((size_t)b * N + i) * F + f] = dnpdot_acc[c];
+    }
+  }
+}
+
+// out[e] = sum_blk part[blk, e] for e < n_valid; 0 for the rest (the
+// first layer's W2a/W2b). Fixed summation order.
+__global__ void klist_wsum_kernel(float* __restrict__ out,
+                                  const float* __restrict__ part,
+                                  int n_blocks, size_t n, size_t n_valid) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= n) return;
+  float s = 0.0f;
+  if (e < n_valid)
+    for (int k = 0; k < n_blocks; ++k) s += part[(size_t)k * n + e];
+  out[e] = s;
+}
+
+cudaError_t sum_weights(float* dw, const float* wpart, int n_blocks, int F,
+                        int R, bool first, cudaStream_t stream) {
+  const size_t n = wgrad_size(F, R);
+  const size_t n_valid = first ? (size_t)R * F + 2 * (size_t)F * F : n;
+  klist_wsum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      dw, wpart, n_blocks, n, n_valid);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------- launches --
+// Pointers of one call: inputs, outputs and scratch, in the order of the C
+// functions below. Edge tensors are untyped until the launch picks E.
+struct Args {
+  const void* in[18];
+  void* out[6];
+  int B, N, K, R;
+  bool wgrad;
+  cudaStream_t stream;
+};
+
+template <class T>
+const T* cin(const Args& a, int k) {
+  return static_cast<const T*>(a.in[k]);
+}
+template <class T>
+T* cout_(const Args& a, int k) {
+  return static_cast<T*>(a.out[k]);
+}
+
+template <int F, bool FIRST, class E>
+cudaError_t launch_fwd(const Args& a) {
+  const size_t smem = fwd_smem_floats<F>(a.R) * sizeof(float);
+  auto kern = klist_fwd_kernel<F, FIRST, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_itiles = (a.N + TI - 1) / TI;
+  const float* npi = cin<float>(a, 0);
+  const E* cat = cin<E>(a, 1);
+  const E* rbf = cin<E>(a, 2);
+  const float* dir = cin<float>(a, 3);
+  const float* mask = cin<float>(a, 4);
+  const float* We = cin<float>(a, 5);
+  const float* W1a = cin<float>(a, 6);
+  const float* W1b = cin<float>(a, 7);
+  const float* W2a = cin<float>(a, 8);
+  const float* W2b = cin<float>(a, 9);
+  float* inv1 = cout_<float>(a, 0);
+  float* eq = cout_<float>(a, 1);
+  const int N = a.N, K = a.K, R = a.R;
+  kern<<<a.B * n_itiles, kThreads, smem, a.stream>>>(
+      npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b, inv1, eq, N, K, R,
+      n_itiles);
+  return cudaGetLastError();
+}
+
+template <int F, bool FIRST, bool WGRAD, class E>
+cudaError_t launch_bwd_w(const Args& a) {
+  const size_t smem = bwd_smem_floats<F>(a.R) * sizeof(float);
+  auto kern = klist_bwd_kernel<F, FIRST, WGRAD, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_itiles = (a.N + TI - 1) / TI;
+  const int n_blocks = a.B * n_itiles;
+  const float* npi = cin<float>(a, 0);
+  const E* cat = cin<E>(a, 1);
+  const E* rbf = cin<E>(a, 2);
+  const float* dir = cin<float>(a, 3);
+  const float* mask = cin<float>(a, 4);
+  const float* We = cin<float>(a, 5);
+  const float* W1a = cin<float>(a, 6);
+  const float* W1b = cin<float>(a, 7);
+  const float* W2a = cin<float>(a, 8);
+  const float* W2b = cin<float>(a, 9);
+  const float* dinv1 = cin<float>(a, 10);
+  const float* deq = cin<float>(a, 11);
+  float* dnpi = cout_<float>(a, 0);
+  E* dcat = cout_<E>(a, 1);
+  E* drbf = cout_<E>(a, 2);
+  float* ddir = cout_<float>(a, 3);
+  float* wpart = cout_<float>(a, 4);
+  const int N = a.N, K = a.K, R = a.R;
+  kern<<<n_blocks, kThreads, smem, a.stream>>>(
+      npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b, dinv1, deq, dnpi,
+      dcat, drbf, ddir, wpart, N, K, R, n_itiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !WGRAD) return err;
+  return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, a.R, FIRST,
+                     a.stream);
+}
+
+template <int F, bool FIRST, class E>
+cudaError_t launch_bwd(const Args& a) {
+  return a.wgrad ? launch_bwd_w<F, FIRST, true, E>(a)
+                 : launch_bwd_w<F, FIRST, false, E>(a);
+}
+
+template <int F, bool FIRST, class E>
+cudaError_t launch_dual_fwd(const Args& a) {
+  const size_t smem = dual_fwd_smem_floats<F>(a.R) * sizeof(float);
+  auto kern = klist_dual_fwd_kernel<F, FIRST, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_itiles = (a.N + TI - 1) / TI;
+  const float* npi = cin<float>(a, 0);
+  const float* npidot = cin<float>(a, 1);
+  const E* cat = cin<E>(a, 2);
+  const E* catdot = cin<E>(a, 3);
+  const E* rbf = cin<E>(a, 4);
+  const E* rbfdot = cin<E>(a, 5);
+  const float* dir = cin<float>(a, 6);
+  const float* dirdot = cin<float>(a, 7);
+  const float* mask = cin<float>(a, 8);
+  const float* We = cin<float>(a, 9);
+  const float* W1a = cin<float>(a, 10);
+  const float* W1b = cin<float>(a, 11);
+  const float* W2a = cin<float>(a, 12);
+  const float* W2b = cin<float>(a, 13);
+  float* inv1 = cout_<float>(a, 0);
+  float* eq = cout_<float>(a, 1);
+  float* inv1dot = cout_<float>(a, 2);
+  float* eqdot = cout_<float>(a, 3);
+  const int N = a.N, K = a.K, R = a.R;
+  kern<<<a.B * n_itiles, kThreads, smem, a.stream>>>(
+      npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We, W1a, W1b,
+      W2a, W2b, inv1, eq, inv1dot, eqdot, N, K, R, n_itiles);
+  return cudaGetLastError();
+}
+
+template <int F, bool FIRST, class E>
+cudaError_t launch_dual_bwd(const Args& a) {
+  const size_t smem = dual_bwd_smem_floats<F>(a.R) * sizeof(float);
+  auto kern = klist_dual_bwd_kernel<F, FIRST, E>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int n_itiles = (a.N + TI - 1) / TI;
+  const int n_blocks = a.B * n_itiles;
+  const float* npi = cin<float>(a, 0);
+  const float* npidot = cin<float>(a, 1);
+  const E* cat = cin<E>(a, 2);
+  const E* catdot = cin<E>(a, 3);
+  const E* rbf = cin<E>(a, 4);
+  const E* rbfdot = cin<E>(a, 5);
+  const float* dir = cin<float>(a, 6);
+  const float* dirdot = cin<float>(a, 7);
+  const float* mask = cin<float>(a, 8);
+  const float* We = cin<float>(a, 9);
+  const float* W1a = cin<float>(a, 10);
+  const float* W1b = cin<float>(a, 11);
+  const float* W2a = cin<float>(a, 12);
+  const float* W2b = cin<float>(a, 13);
+  const float* di = cin<float>(a, 14);
+  const float* dq = cin<float>(a, 15);
+  const float* didot = cin<float>(a, 16);
+  const float* dqdot = cin<float>(a, 17);
+  float* dnpi = cout_<float>(a, 0);
+  float* dnpidot = cout_<float>(a, 1);
+  E* dcat = cout_<E>(a, 2);
+  E* dcatdot = cout_<E>(a, 3);
+  float* wpart = cout_<float>(a, 4);
+  const int N = a.N, K = a.K, R = a.R;
+  kern<<<n_blocks, kThreads, smem, a.stream>>>(
+      npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We, W1a, W1b,
+      W2a, W2b, di, dq, didot, dqdot, dnpi, dnpidot, dcat, dcatdot, wpart, N,
+      K, R, n_itiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, a.R, FIRST,
+                     a.stream);
+}
+
+typedef cudaError_t (*launch_fn)(const Args&);
+
+template <template <int, bool, class> class L>
+launch_fn pick(int F, bool first, bool bf) {
+#define NN_PICK(FF)                                                        \
+  return first ? (bf ? L<FF, true, bf16>::fn : L<FF, true, float>::fn)     \
+               : (bf ? L<FF, false, bf16>::fn : L<FF, false, float>::fn)
+  switch (F) {
+    case 32: NN_PICK(32);
+    case 64: NN_PICK(64);
+    case 128: NN_PICK(128);
+    default: return nullptr;
+  }
+#undef NN_PICK
+}
+
+template <int F, bool FIRST, class E>
+struct Fwd {
+  static constexpr launch_fn fn = launch_fwd<F, FIRST, E>;
+};
+template <int F, bool FIRST, class E>
+struct Bwd {
+  static constexpr launch_fn fn = launch_bwd<F, FIRST, E>;
+};
+template <int F, bool FIRST, class E>
+struct DualFwd {
+  static constexpr launch_fn fn = launch_dual_fwd<F, FIRST, E>;
+};
+template <int F, bool FIRST, class E>
+struct DualBwd {
+  static constexpr launch_fn fn = launch_dual_bwd<F, FIRST, E>;
+};
+
+template <template <int, bool, class> class L>
+int run(int F, int first, int bf16, const Args& a) {
+  const launch_fn fn = pick<L>(F, first != 0, bf16 != 0);
+  if (fn == nullptr || a.B * a.N * a.K == 0) return (int)cudaErrorInvalidValue;
+  return (int)fn(a);
+}
+
+}  // namespace
+
+extern "C" {
+
+// K5. npi (B,N,F) f32; cat (B,N,K,C), C = F if first_layer else 4F, and
+// rbf (B,N,K,R) in the edge type (fp32, or bf16 when bf16 != 0); dir
+// (B,3,N,K), mask (B,N,K) f32; We (R,F), W* (F,F) f32 -> inv1 (B,N,F),
+// eq (B,3,N,F) f32. Contiguous, on the device of `stream`; F in 32/64/128.
+int nn_klist_fwd(const float* npi, const void* cat, const void* rbf,
+                 const float* dir, const float* mask, const float* We,
+                 const float* W1a, const float* W1b, const float* W2a,
+                 const float* W2b, float* inv1, float* eq, int B, int N,
+                 int K, int F, int R, int first_layer, int bf16,
+                 void* stream) {
+  Args a = {{npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b},
+            {inv1, eq},
+            B, N, K, R, false, static_cast<cudaStream_t>(stream)};
+  return run<Fwd>(F, first_layer, bf16, a);
+}
+
+// K6. Inputs of K5 plus dinv1 (B,N,F), deq (B,3,N,F) f32. Outputs dnpi
+// (B,N,F) f32, dcat (B,N,K,C) and drbf (B,N,K,R) in the edge type, ddir
+// (B,3,N,K) f32. With weight_grads: scratch wpart (B*ceil(N/8), R*F+4F^2)
+// and output dw (R*F+4F^2: dWe, dW1a, dW1b, dW2a, dW2b).
+int nn_klist_bwd(const float* npi, const void* cat, const void* rbf,
+                 const float* dir, const float* mask, const float* We,
+                 const float* W1a, const float* W1b, const float* W2a,
+                 const float* W2b, const float* dinv1, const float* deq,
+                 float* dnpi, void* dcat, void* drbf, float* ddir,
+                 float* wpart, float* dw, int B, int N, int K, int F, int R,
+                 int first_layer, int weight_grads, int bf16, void* stream) {
+  Args a = {{npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b, dinv1, deq},
+            {dnpi, dcat, drbf, ddir, wpart, dw},
+            B, N, K, R, weight_grads != 0,
+            static_cast<cudaStream_t>(stream)};
+  return run<Bwd>(F, first_layer, bf16, a);
+}
+
+// K7. npi, npidot (B,N,F) f32; cat, catdot (B,N,K,C) and rbf, rbfdot
+// (B,N,K,R) in the edge type; dir, dirdot (B,3,N,K), mask (B,N,K) f32;
+// We, W* f32 -> inv1, inv1dot (B,N,F), eq, eqdot (B,3,N,F) f32.
+int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
+                      const void* catdot, const void* rbf, const void* rbfdot,
+                      const float* dir, const float* dirdot,
+                      const float* mask, const float* We, const float* W1a,
+                      const float* W1b, const float* W2a, const float* W2b,
+                      float* inv1, float* eq, float* inv1dot, float* eqdot,
+                      int B, int N, int K, int F, int R, int first_layer,
+                      int bf16, void* stream) {
+  Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
+             W1a, W1b, W2a, W2b},
+            {inv1, eq, inv1dot, eqdot},
+            B, N, K, R, false, static_cast<cudaStream_t>(stream)};
+  return run<DualFwd>(F, first_layer, bf16, a);
+}
+
+// K8. Inputs of K7 plus di, didot (B,N,F) and dq, dqdot (B,3,N,F) f32.
+// Outputs dnpi, dnpidot (B,N,F) f32, dcat, dcatdot (B,N,K,C) in the edge
+// type and dw (R*F+4F^2). Scratch wpart (B*ceil(N/8), R*F+4F^2).
+int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
+                      const void* catdot, const void* rbf, const void* rbfdot,
+                      const float* dir, const float* dirdot,
+                      const float* mask, const float* We, const float* W1a,
+                      const float* W1b, const float* W2a, const float* W2b,
+                      const float* di, const float* dq, const float* didot,
+                      const float* dqdot, float* dnpi, float* dnpidot,
+                      void* dcat, void* dcatdot, float* wpart, float* dw,
+                      int B, int N, int K, int F, int R, int first_layer,
+                      int bf16, void* stream) {
+  Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
+             W1a, W1b, W2a, W2b, di, dq, didot, dqdot},
+            {dnpi, dnpidot, dcat, dcatdot, wpart, dw},
+            B, N, K, R, false, static_cast<cudaStream_t>(stream)};
+  return run<DualBwd>(F, first_layer, bf16, a);
+}
+
+// Dynamic shared memory of one block of K5 (kind 0), K6 (1), K7 (2) or K8
+// (3), in bytes; 0 for an F the kernels are not built for.
+size_t nn_klist_smem_bytes(int F, int R, int kind) {
+#define NN_SMEM(FF)                                                      \
+  return (kind == 0   ? fwd_smem_floats<FF>(R)                           \
+          : kind == 1 ? bwd_smem_floats<FF>(R)                           \
+          : kind == 2 ? dual_fwd_smem_floats<FF>(R)                      \
+                      : dual_bwd_smem_floats<FF>(R)) * sizeof(float)
+  switch (F) {
+    case 32: NN_SMEM(32);
+    case 64: NN_SMEM(64);
+    case 128: NN_SMEM(128);
+    default: return 0;
+  }
+#undef NN_SMEM
+}
+
+}  // extern "C"

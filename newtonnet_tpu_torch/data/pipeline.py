@@ -52,9 +52,13 @@ def parse_train_test(
     Returns:
         (train_gen, val_gen, test_gen, stats)
     '''
+    if precompute_nlist:
+        raise NotImplementedError(
+            'data: precompute_nlist is not ported yet (ROADMAP.md A, "XLA '
+            "kernel='xla' path\"): the neighbour-list model builds its "
+            'lists on the device in every step')
     for name, value in (('in_memory', in_memory is not True),
                         ('bucketed', bucketed),
-                        ('precompute_nlist', precompute_nlist),
                         ('prefetch', prefetch),
                         ('spatial_sort', spatial_sort),
                         ('locality_block', locality_block not in

@@ -1,7 +1,9 @@
 '''Single-system calculator: one request per `calculate` call.
 
 Loads a checkpoint, pads the atom count up to a multiple of 8 (so a
-molecule keeps one shape from call to call) and returns numpy results.
+molecule keeps one shape from call to call) and returns numpy results. A
+neighbour-list model builds its list on the device in every call
+(nlist=None), as the JAX package's calculator does for plain lists.
 '''
 import numpy as np
 import torch

@@ -1,9 +1,11 @@
 '''User-facing NewtonNet: configuration, parameters and derivative heads.
 
-The JAX package's `models/output.py` for the configuration this port
-serves: kernel='pallas' (the fused pair op), graph_mode='dense', swish,
-outputs within {energy, gradient_force, virial, stress}. Forces, virial
-and stress are one autograd pass over the energy:
+The JAX package's `models/output.py` for the configurations this port
+serves: kernel='pallas' (the fused pair ops) with graph_mode='dense'
+(models/fused_stack.py) or 'neighborlist' (plain full lists,
+models/fused_klist.py), swish, outputs within {energy, gradient_force,
+virial, stress}. Forces, virial and stress are one autograd pass over the
+energy:
 
     forces = -dE/dpos, virial = -dE/d(displacement),
     stress = dE/d(displacement) / |det(cell)|,
@@ -20,6 +22,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from newtonnet_tpu_torch.models.fused_klist import COMPUTE_DTYPES, \
+    apply_core_nlist
 from newtonnet_tpu_torch.models.fused_stack import apply_core
 from newtonnet_tpu_torch.models.newtonnet import NewtonNetCore
 from newtonnet_tpu_torch.ops.linalg3 import det3x3
@@ -73,7 +77,7 @@ class NewtonNet(nn.Module):
     Takes the JAX package's constructor arguments (and validation), plus
     `device` (CUDA unless 'cpu' is passed), `dtype` of the parameters and
     a torch.Generator for their initialization. `kernel` defaults to
-    'pallas', the only path ported so far.
+    'pallas', the only kernel ported so far.
     '''
 
     def __init__(
@@ -150,14 +154,15 @@ class NewtonNet(nn.Module):
             raise NotImplementedError(
                 "kernel='xla' is not ported yet (ROADMAP.md A, \"XLA "
                 "kernel='xla' path\"); use kernel='pallas'")
-        if graph_mode != 'dense':
-            raise NotImplementedError(
-                f'graph_mode={graph_mode!r} is not ported yet (ROADMAP.md A, '
-                '"neighbour lists")')
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f'compute_dtype must be one of '
+                             f'{sorted(COMPUTE_DTYPES)}, got '
+                             f'{compute_dtype!r}')
         if pallas_dot_dtype != 'float32':
             raise NotImplementedError(
-                f'pallas_dot_dtype={pallas_dot_dtype!r}: the ported kernels '
-                'compute in float32 only')
+                f'pallas_dot_dtype={pallas_dot_dtype!r} is not ported yet '
+                '(ROADMAP.md A, "bf16 pair-layer products"): the ported '
+                'kernels compute in float32 only')
 
         self.output_properties = list(output_properties)
         self.cutoff = cutoff
@@ -219,26 +224,35 @@ class NewtonNet(nn.Module):
             'pallas_grad_dot_dtype': self.pallas_grad_dot_dtype,
         }
 
-    def _energy_and_aux(self, z, pos, displacement, cell, pair_op=None):
+    def _energy_and_aux(self, z, pos, displacement, cell, pair_op=None,
+                        nlist=None):
         '''Total (summed over graphs) energy and the per-graph outputs, at
         positions and cell strained by the symmetrized displacement.'''
         sym = 0.5 * (displacement + displacement.transpose(-1, -2))
         pos_d = torch.einsum('bni,bij->bnj', pos, sym)
         cell_d = torch.einsum('bxi,bij->bxj', cell, sym)
-        out = apply_core(self.core, z, pos_d, cell_d, self.cutoff,
-                         mic_mode=self.mic_mode, pair_op=pair_op)
+        if self.graph_mode == 'neighborlist':
+            out = apply_core_nlist(self, z, pos_d, cell_d, nlist=nlist,
+                                   pair_op=pair_op)
+        else:
+            out = apply_core(self.core, z, pos_d, cell_d, self.cutoff,
+                             mic_mode=self.mic_mode, pair_op=pair_op)
         energy = torch.sum(out['atomic_energy'][..., 0], dim=-1)
         out['energy'] = energy
         return torch.sum(energy), out
 
-    def forward(self, z, pos, cell, pair_op=None):
+    def forward(self, z, pos, cell, pair_op=None, nlist=None):
         '''Full forward pass.
 
         Args:
             z: (B, N) int atomic numbers, 0 = padding.
             pos: (B, N, 3) positions.
             cell: (B, 3, 3) lattice rows (all-zero = aperiodic).
-            pair_op: the pair-interaction op (default: the fused kernels).
+            pair_op: the pair-interaction op of the graph mode (default: the
+                fused kernels).
+            nlist: optional precomputed (idx, mask) neighbour lists, each
+                (B, N, K) (graph_mode='neighborlist' only; None builds them
+                at pos).
 
         Returns:
             dict with energy (B,), the configured derivative outputs
@@ -253,7 +267,7 @@ class NewtonNet(nn.Module):
         # the outputs are detached: no parameter cotangent is ever read
         with torch.enable_grad(), constant_parameters(self.core):
             total, out = self._energy_and_aux(z, pos, displacement, cell,
-                                              pair_op)
+                                              pair_op, nlist)
             if need_grad:
                 pos_grad, disp_grad = torch.autograd.grad(
                     total, (pos, displacement))

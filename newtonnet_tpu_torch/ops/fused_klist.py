@@ -1,0 +1,522 @@
+'''Fused neighbour-list (K-list) pair-interaction layer and its dual: plain
+versions, CUDA wrappers and the autograd Functions.
+
+The layer (the JAX package's `ops/pallas_klist.py`), for B molecules of N
+atoms, K list slots, F features and R radial basis functions:
+
+    npi     (B, N, F)      node part of atom i
+    cat     (B, N, K, C)   gathered neighbour features [np_j | force_j x|y|z],
+                           C = 4F, or C = F at the first layer
+    rbf     (B, N, K, R),  dir (B, 3, N, K),  mask (B, N, K) float
+
+    msg  = (rbf @ We) * npi_i * np_j * mask
+    inv1 = sum_k msg                                       (B, N, F)
+    phi1 = (silu(msg @ W1a) @ W1b) * mask
+    phi2 = (silu(msg @ W2a) @ W2b) * mask
+    eq[:, d] = sum_k phi1 * dir[:, d] + phi2 * force_j[d]  (B, 3, N, F)
+
+`first_layer=True` (the JAX package's with_force=False) drops phi2: the
+stack's first layer sees force == 0. The dual carries a position tangent
+(npidot, catdot, rbfdot, dirdot; the weights carry none) and gives
+(inv1, eq, inv1dot, eqdot); its backward gives the cotangents of npi,
+npidot, cat, catdot and the five weights, and none for the geometry.
+
+Edge tensors (cat, rbf and their tangents) may be bfloat16: the kernels
+and the plain versions read them into fp32 and round the per-edge
+cotangents (dcat, dcatdot, drbf) to the edge dtype on store, as the JAX
+kernels do. Every product and every sum runs in fp32: the JAX package's
+K-list kernels compute in model.pallas_dot_dtype, which the port takes as
+float32 only.
+
+On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
+nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
+the CPU the wrappers run the plain versions below. A CUDA tensor either
+launches the kernel or raises: nothing falls back.
+'''
+import ctypes
+
+import torch
+
+from newtonnet_tpu_torch.ops.fused_dense import (
+    KERNEL_WIDTHS,
+    _dsilu,
+    _raise_on,
+    _silu,
+)
+from newtonnet_tpu_torch.ops.fused_dual import _d2silu
+
+# Launches of each kernel variant, counted by its wrapper.
+LAUNCHES = {'klist_fwd': 0, 'klist_fwd_first': 0,
+            'klist_bwd': 0, 'klist_bwd_first': 0,
+            'klist_dual_fwd': 0, 'klist_dual_fwd_first': 0,
+            'klist_dual_bwd': 0, 'klist_dual_bwd_first': 0}
+# K6 launches among those that computed the weight cotangents
+WEIGHT_GRAD_LAUNCHES = {'klist_bwd': 0, 'klist_bwd_first': 0}
+EDGE_DTYPES = (torch.float32, torch.bfloat16)
+_TI = 8  # atoms per block in the kernels (csrc/fused_klist.cu: TI)
+
+
+def reset_launch_counts():
+    for counts in (LAUNCHES, WEIGHT_GRAD_LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def _key(name, first_layer):
+    return name + ('_first' if first_layer else '')
+
+
+def _tdot(a, b):
+    '''a^T @ b over the flattened (B, N, K) slots.'''
+    return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
+
+
+def _chain(npi, cat, rbf, mask, weights, first_layer):
+    '''The per-slot forward chain in fp32: npj, me, msg and, per branch,
+    (p, h, phi); branch 2 is None at the first layer.'''
+    We, W1a, W1b, W2a, W2b = weights
+    F = npi.shape[-1]
+    m = mask[..., None]
+    npj = cat[..., :F].to(npi.dtype)
+    me = rbf.to(npi.dtype) @ We
+    msg = me * npi[:, :, None] * npj * m
+
+    def branch(wa, wb):
+        p = msg @ wa
+        h = _silu(p)
+        return p, h, (h @ wb) * m
+
+    return npj, me, msg, branch(W1a, W1b), \
+        None if first_layer else branch(W2a, W2b)
+
+
+def _forces(cat, npi):
+    F = npi.shape[-1]
+    return [cat[..., (d + 1) * F:(d + 2) * F].to(npi.dtype)
+            for d in range(3)]
+
+
+def klist_fwd_ref(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
+                  first_layer=False):
+    '''Plain PyTorch forward of the layer -> (inv1 (B,N,F), eq (B,3,N,F)).'''
+    _, _, msg, b1, b2 = _chain(npi, cat, rbf, mask, (We, W1a, W1b, W2a, W2b),
+                               first_layer)
+    eqs = [(b1[2] * dir_[:, d, ..., None]).sum(2) for d in range(3)]
+    if not first_layer:
+        fj = _forces(cat, npi)
+        eqs = [e + (b2[2] * fj[d]).sum(2) for d, e in enumerate(eqs)]
+    return msg.sum(2), torch.stack(eqs, dim=1)
+
+
+def klist_bwd_ref(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1,
+                  deq, first_layer=False, weight_grads=True):
+    '''Plain PyTorch backward of the layer, written out by hand (the JAX
+    package's `_bwd_kernel`), given the cotangents of (inv1, eq).
+
+    Returns (dnpi, dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a, dW2b): dcat and
+    drbf in the edge dtype, the rest fp32; the weight cotangents are None
+    unless weight_grads, and dW2a, dW2b are zeros at the first layer.'''
+    m = mask[..., None]
+    npj, me, msg, (p1, h1, phi1), b2 = _chain(
+        npi, cat, rbf, mask, (We, W1a, W1b, W2a, W2b), first_layer)
+    g = [deq[:, d, :, None, :] for d in range(3)]      # (B, N, 1, F)
+    dphi1 = sum(g[d] * dir_[:, d, ..., None] for d in range(3)) * m
+    ddir = torch.stack([(phi1 * g[d]).sum(-1) for d in range(3)], dim=1)
+    dp1 = (dphi1 @ W1b.T) * _dsilu(p1)
+    dmsg = dp1 @ W1a.T
+    dcat_f = []
+    if not first_layer:
+        p2, h2, phi2 = b2
+        fj = _forces(cat, npi)
+        dcat_f = [phi2 * g[d] for d in range(3)]
+        dphi2 = sum(g[d] * fj[d] for d in range(3)) * m
+        dp2 = (dphi2 @ W2b.T) * _dsilu(p2)
+        dmsg = dmsg + dp2 @ W2a.T
+    dmsg3 = (dmsg + dinv1[:, :, None, :]) * m
+    ni = npi[:, :, None, :]
+    dnpi = (dmsg3 * me * npj).sum(2)
+    dcat = torch.cat([dmsg3 * me * ni] + dcat_f, dim=-1).to(cat.dtype)
+    dme = dmsg3 * ni * npj
+    drbf = (dme @ We.T).to(rbf.dtype)
+    if not weight_grads:
+        return dnpi, dcat, drbf, ddir, None, None, None, None, None
+    dWe = _tdot(rbf.to(npi.dtype), dme)
+    dW1a, dW1b = _tdot(msg, dp1), _tdot(h1, dphi1)
+    if first_layer:
+        dW2a, dW2b = torch.zeros_like(W2a), torch.zeros_like(W2b)
+    else:
+        dW2a, dW2b = _tdot(msg, dp2), _tdot(h2, dphi2)
+    return dnpi, dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a, dW2b
+
+
+def _dual_chain(npi, npidot, cat, catdot, rbf, rbfdot, mask, weights,
+                first_layer):
+    '''The per-slot primal and tangent chain in fp32 (the JAX package's
+    `_dual_chain`): npj, npjdot, me, medot, msg, msgdot and, per branch,
+    (p, pdot, h, hdot, phi, phidot).'''
+    We, W1a, W1b, W2a, W2b = weights
+    F = npi.shape[-1]
+    m = mask[..., None]
+    npj, npjdot = cat[..., :F].to(npi.dtype), catdot[..., :F].to(npi.dtype)
+    me, medot = rbf.to(npi.dtype) @ We, rbfdot.to(npi.dtype) @ We
+    ai, aidot = npi[:, :, None], npidot[:, :, None]
+    msg = me * ai * npj * m
+    msgdot = (medot * ai * npj + me * aidot * npj + me * ai * npjdot) * m
+
+    def branch(wa, wb):
+        p, pdot = msg @ wa, msgdot @ wa
+        h, hdot = _silu(p), _dsilu(p) * pdot
+        return p, pdot, h, hdot, (h @ wb) * m, (hdot @ wb) * m
+
+    b2 = None if first_layer else branch(W2a, W2b)
+    return npj, npjdot, me, medot, msg, msgdot, branch(W1a, W1b), b2
+
+
+def klist_dual_fwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
+                       mask, We, W1a, W1b, W2a, W2b, first_layer=False):
+    '''Plain PyTorch dual forward -> (inv1, eq, inv1dot, eqdot).'''
+    *_, msg, msgdot, b1, b2 = _dual_chain(
+        npi, npidot, cat, catdot, rbf, rbfdot, mask,
+        (We, W1a, W1b, W2a, W2b), first_layer)
+    phi1, phi1dot = b1[4], b1[5]
+    fjs, fjdots = _forces(cat, npi), _forces(catdot, npi)
+    eq, eqdot = [], []
+    for d in range(3):
+        dird, dirddot = dir_[:, d, ..., None], dirdot[:, d, ..., None]
+        e = (phi1 * dird).sum(2)
+        edot = (phi1dot * dird + phi1 * dirddot).sum(2)
+        if not first_layer:
+            phi2, phi2dot = b2[4], b2[5]
+            fj, fjdot = fjs[d], fjdots[d]
+            e = e + (phi2 * fj).sum(2)
+            edot = edot + (phi2dot * fj + phi2 * fjdot).sum(2)
+        eq.append(e)
+        eqdot.append(edot)
+    return (msg.sum(2), torch.stack(eq, dim=1), msgdot.sum(2),
+            torch.stack(eqdot, dim=1))
+
+
+def klist_dual_bwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
+                       mask, We, W1a, W1b, W2a, W2b, di, dq, didot, dqdot,
+                       first_layer=False):
+    '''Plain PyTorch reverse of the dual forward, written out by hand (the
+    JAX package's `_dual_bwd_kernel`), given the cotangents (di, dq, didot,
+    dqdot) of (inv1, eq, inv1dot, eqdot).
+
+    Returns (dnpi, dnpidot, dcat, dcatdot, dWe, dW1a, dW1b, dW2a, dW2b):
+    dcat and dcatdot in the edge dtype; dW2a, dW2b zeros at the first
+    layer.'''
+    m = mask[..., None]
+    npj, npjdot, me, medot, msg, msgdot, b1, b2 = _dual_chain(
+        npi, npidot, cat, catdot, rbf, rbfdot, mask,
+        (We, W1a, W1b, W2a, W2b), first_layer)
+    q = [dq[:, d, :, None, :] for d in range(3)]
+    qd = [dqdot[:, d, :, None, :] for d in range(3)]
+    dirs = [dir_[:, d, ..., None] for d in range(3)]
+    dirdots = [dirdot[:, d, ..., None] for d in range(3)]
+    dphi1 = sum(q[d] * dirs[d] + qd[d] * dirdots[d] for d in range(3))
+    dphi1dot = sum(qd[d] * dirs[d] for d in range(3))
+
+    def backprop_branch(dphi, dphidot, br, wa, wb):
+        p, pdot, h, hdot = br[:4]
+        g, gdot = dphi * m, dphidot * m
+        dh, dhdot = g @ wb.T, gdot @ wb.T
+        dwb = _tdot(h, g) + _tdot(hdot, gdot)
+        dp = _dsilu(p) * dh + _d2silu(p) * pdot * dhdot
+        dpdot = _dsilu(p) * dhdot
+        dwa = _tdot(msg, dp) + _tdot(msgdot, dpdot)
+        return dp @ wa.T, dpdot @ wa.T, dwa, dwb
+
+    dmsg, dmsgdot, dW1a, dW1b = backprop_branch(dphi1, dphi1dot, b1, W1a, W1b)
+    dcat_f, dcatdot_f = [], []
+    if first_layer:
+        dW2a, dW2b = torch.zeros_like(W2a), torch.zeros_like(W2b)
+    else:
+        phi2, phi2dot = b2[4], b2[5]
+        fj, fjdot = _forces(cat, npi), _forces(catdot, npi)
+        dphi2 = sum(q[d] * fj[d] + qd[d] * fjdot[d] for d in range(3))
+        dphi2dot = sum(qd[d] * fj[d] for d in range(3))
+        dcat_f = [phi2 * q[d] + phi2dot * qd[d] for d in range(3)]
+        dcatdot_f = [phi2 * qd[d] for d in range(3)]
+        dm2, dm2dot, dW2a, dW2b = backprop_branch(dphi2, dphi2dot, b2, W2a,
+                                                  W2b)
+        dmsg, dmsgdot = dmsg + dm2, dmsgdot + dm2dot
+    t = (dmsg + di[:, :, None, :]) * m
+    tdot = (dmsgdot + didot[:, :, None, :]) * m
+    ai, aidot = npi[:, :, None], npidot[:, :, None]
+    dme = t * ai * npj + tdot * (aidot * npj + ai * npjdot)
+    dmedot = tdot * ai * npj
+    dnpi = (t * me * npj + tdot * (medot * npj + me * npjdot)).sum(2)
+    dnpidot = (tdot * me * npj).sum(2)
+    dcat = torch.cat([t * me * ai + tdot * (medot * ai + me * aidot)]
+                     + dcat_f, dim=-1).to(cat.dtype)
+    dcatdot = torch.cat([tdot * me * ai] + dcatdot_f,
+                        dim=-1).to(catdot.dtype)
+    dWe = _tdot(rbf.to(npi.dtype), dme) + _tdot(rbfdot.to(npi.dtype), dmedot)
+    return dnpi, dnpidot, dcat, dcatdot, dWe, dW1a, dW1b, dW2a, dW2b
+
+
+# ----------------------------------------------------------------------- #
+def _lib():
+    from newtonnet_tpu_torch.ops import _build
+    lib = _build.load('fused_klist')
+    if not getattr(lib, '_nn_typed', False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.nn_klist_bwd.argtypes = [p] * 18 + [i] * 8 + [p]
+        lib.nn_klist_dual_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
+        lib.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 7 + [p]
+        for fn in (lib.nn_klist_fwd, lib.nn_klist_bwd, lib.nn_klist_dual_fwd,
+                   lib.nn_klist_dual_bwd):
+            fn.restype = i
+        lib.nn_klist_smem_bytes.argtypes = [i] * 3
+        lib.nn_klist_smem_bytes.restype = ctypes.c_size_t
+        lib._nn_typed = True
+    return lib
+
+
+def smem_bytes(F, R, kind):
+    '''Dynamic shared memory of one block of K5 ('fwd'), K6 ('bwd'), K7
+    ('dual_fwd') or K8 ('dual_bwd'), as the CUDA source computes it.'''
+    kinds = ('fwd', 'bwd', 'dual_fwd', 'dual_bwd')
+    return _lib().nn_klist_smem_bytes(F, R, kinds.index(kind))
+
+
+def _checked(npi, cat, rbf, named, first_layer):
+    '''(B, N, K, F, R, bf16) after the device, dtype, shape and contiguity
+    checks of a launch. `named` lists (name, tensor, kind); kinds 'cat' and
+    'rbf' take the edge dtype (cat's), the others fp32.'''
+    B, N, F = npi.shape
+    K, R = cat.shape[2], rbf.shape[-1]
+    C = F if first_layer else 4 * F
+    if F not in KERNEL_WIDTHS:
+        raise ValueError(f'the CUDA kernels take F in {KERNEL_WIDTHS}, '
+                         f'got {F}')
+    if B * N * K == 0:
+        raise ValueError(f'empty batch: B={B}, N={N}, K={K}')
+    edt = cat.dtype
+    if edt not in EDGE_DTYPES:
+        raise TypeError(f'edge tensors must be one of {EDGE_DTYPES}, got '
+                        f'{edt}')
+    shapes = {'node': (B, N, F), 'vec': (B, 3, N, F), 'cat': (B, N, K, C),
+              'rbf': (B, N, K, R), 'dir': (B, 3, N, K), 'mask': (B, N, K),
+              'We': (R, F), 'W': (F, F)}
+    for name, t, kind in named:
+        if t.device != npi.device:
+            raise ValueError(f'{name} is on {t.device}, expected '
+                             f'{npi.device}')
+        want = edt if kind in ('cat', 'rbf') else torch.float32
+        if t.dtype != want:
+            raise TypeError(f'{name} must be {want}, got {t.dtype}')
+        if tuple(t.shape) != shapes[kind]:
+            raise ValueError(f'{name} has shape {tuple(t.shape)}, expected '
+                             f'{shapes[kind]}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name} must be contiguous')
+    return B, N, K, F, R, int(edt == torch.bfloat16)
+
+
+_KINDS = ('node', 'cat', 'rbf', 'dir', 'mask', 'We', 'W', 'W', 'W', 'W')
+_NAMES = ('npi', 'cat', 'rbf', 'dir_', 'mask', 'We', 'W1a', 'W1b', 'W2a',
+          'W2b')
+_DUAL_KINDS = ('node', 'node', 'cat', 'cat', 'rbf', 'rbf', 'dir', 'dir',
+               'mask', 'We', 'W', 'W', 'W', 'W')
+_DUAL_NAMES = ('npi', 'npidot', 'cat', 'catdot', 'rbf', 'rbfdot', 'dir_',
+               'dirdot', 'mask', 'We', 'W1a', 'W1b', 'W2a', 'W2b')
+
+
+def _stream(t):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _split_w(dw, F, R):
+    shapes = [(R, F)] + [(F, F)] * 4
+    return [v.view(s) for v, s in zip(dw.split([R * F] + [F * F] * 4),
+                                      shapes)]
+
+
+def _device(t):
+    if t.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no kernel for device {t.device}')
+    return t.device.type
+
+
+def klist_fwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
+              first_layer=False):
+    '''The layer's forward: kernel K5 for CUDA tensors, the plain version
+    for CPU tensors. -> (inv1, eq).'''
+    ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
+    if _device(npi) == 'cpu':
+        return klist_fwd_ref(*ins, first_layer=first_layer)
+    B, N, K, F, R, bf = _checked(npi, cat, rbf,
+                                 list(zip(_NAMES, ins, _KINDS)), first_layer)
+    opts = dict(device=npi.device, dtype=torch.float32)
+    outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
+    err = _lib().nn_klist_fwd(*[t.data_ptr() for t in ins + outs], B, N, K,
+                              F, R, int(first_layer), bf, _stream(npi))
+    _raise_on(err, 'nn_klist_fwd')
+    LAUNCHES[_key('klist_fwd', first_layer)] += 1
+    return outs
+
+
+def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
+              first_layer=False, weight_grads=True):
+    '''The layer's backward: kernel K6 for CUDA tensors, the plain version
+    for CPU tensors. -> (dnpi, dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a,
+    dW2b), weight cotangents None unless weight_grads.'''
+    ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
+    if _device(npi) == 'cpu':
+        return klist_bwd_ref(*ins, dinv1, deq, first_layer=first_layer,
+                             weight_grads=weight_grads)
+    B, N, K, F, R, bf = _checked(
+        npi, cat, rbf, list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq),
+                                _KINDS + ('node', 'vec'))), first_layer)
+    opts = dict(device=npi.device, dtype=torch.float32)
+    outs = (torch.empty((B, N, F), **opts), torch.empty_like(cat),
+            torch.empty_like(rbf), torch.empty((B, 3, N, K), **opts))
+    n_w = R * F + 4 * F * F
+    n_blocks = B * ((N + _TI - 1) // _TI)
+    wpart = torch.empty((n_blocks, n_w), **opts) if weight_grads else None
+    dw = torch.empty((n_w,), **opts) if weight_grads else None
+    err = _lib().nn_klist_bwd(
+        *[t.data_ptr() for t in ins + (dinv1, deq) + outs],
+        wpart.data_ptr() if weight_grads else None,
+        dw.data_ptr() if weight_grads else None,
+        B, N, K, F, R, int(first_layer), int(weight_grads), bf, _stream(npi))
+    _raise_on(err, 'nn_klist_bwd')
+    key = _key('klist_bwd', first_layer)
+    LAUNCHES[key] += 1
+    if not weight_grads:
+        return (*outs, None, None, None, None, None)
+    WEIGHT_GRAD_LAUNCHES[key] += 1
+    return (*outs, *_split_w(dw, F, R))
+
+
+def klist_dual_fwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
+                   We, W1a, W1b, W2a, W2b, first_layer=False):
+    '''The dual forward: kernel K7 for CUDA tensors, the plain version for
+    CPU tensors. -> (inv1, eq, inv1dot, eqdot).'''
+    ins = (npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
+           W1a, W1b, W2a, W2b)
+    if _device(npi) == 'cpu':
+        return klist_dual_fwd_ref(*ins, first_layer=first_layer)
+    B, N, K, F, R, bf = _checked(npi, cat, rbf,
+                                 list(zip(_DUAL_NAMES, ins, _DUAL_KINDS)),
+                                 first_layer)
+    opts = dict(device=npi.device, dtype=torch.float32)
+    outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts),
+            torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
+    err = _lib().nn_klist_dual_fwd(*[t.data_ptr() for t in ins + outs], B, N,
+                                   K, F, R, int(first_layer), bf,
+                                   _stream(npi))
+    _raise_on(err, 'nn_klist_dual_fwd')
+    LAUNCHES[_key('klist_dual_fwd', first_layer)] += 1
+    return outs
+
+
+def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
+                   We, W1a, W1b, W2a, W2b, di, dq, didot, dqdot,
+                   first_layer=False):
+    '''The dual backward: kernel K8 for CUDA tensors, the plain version for
+    CPU tensors. -> (dnpi, dnpidot, dcat, dcatdot, dWe, dW1a, dW1b, dW2a,
+    dW2b).'''
+    ins = (npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
+           W1a, W1b, W2a, W2b)
+    cots = (di, dq, didot, dqdot)
+    if _device(npi) == 'cpu':
+        return klist_dual_bwd_ref(*ins, *cots, first_layer=first_layer)
+    named = list(zip(_DUAL_NAMES + ('di', 'dq', 'didot', 'dqdot'),
+                     ins + cots, _DUAL_KINDS + ('node', 'vec', 'node', 'vec')))
+    B, N, K, F, R, bf = _checked(npi, cat, rbf, named, first_layer)
+    opts = dict(device=npi.device, dtype=torch.float32)
+    outs = (torch.empty((B, N, F), **opts), torch.empty((B, N, F), **opts),
+            torch.empty_like(cat), torch.empty_like(catdot))
+    n_w = R * F + 4 * F * F
+    wpart = torch.empty((B * ((N + _TI - 1) // _TI), n_w), **opts)
+    dw = torch.empty((n_w,), **opts)
+    err = _lib().nn_klist_dual_bwd(
+        *[t.data_ptr() for t in ins + cots + outs + (wpart, dw)], B, N, K, F,
+        R, int(first_layer), bf, _stream(npi))
+    _raise_on(err, 'nn_klist_dual_bwd')
+    LAUNCHES[_key('klist_dual_bwd', first_layer)] += 1
+    return (*outs, *_split_w(dw, F, R))
+
+
+# ----------------------------------------------------------------------- #
+class FusedKlistInteraction(torch.autograd.Function):
+    '''The layer as an autograd op: forward K5, backward K6 (the plain
+    versions on the CPU, or everywhere with plain=True). Differentiable to
+    first order in npi, cat, rbf, dir_ and the five weights; mask gets no
+    gradient. K6 computes the weight cotangents only when a weight needs
+    one (the force pass holds the parameters constant).
+
+    apply(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, first_layer,
+          plain) -> (inv1, eq)'''
+
+    @staticmethod
+    def forward(ctx, npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
+                first_layer=False, plain=False):
+        ctx.first_layer, ctx.plain = bool(first_layer), bool(plain)
+        ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
+        ctx.save_for_backward(*ins)
+        fwd = klist_fwd_ref if plain else klist_fwd
+        return fwd(*ins, first_layer=ctx.first_layer)
+
+    @staticmethod
+    def backward(ctx, dinv1, deq):
+        need_w = ctx.needs_input_grad[5:10]
+        bwd = klist_bwd_ref if ctx.plain else klist_bwd
+        grads = bwd(*ctx.saved_tensors, dinv1.contiguous(), deq.contiguous(),
+                    first_layer=ctx.first_layer, weight_grads=any(need_w))
+        dws = [g if need else None for g, need in zip(grads[4:], need_w)]
+        return (*grads[:4], None, *dws, None, None)
+
+
+class FusedKlistInteractionDual(torch.autograd.Function):
+    '''The dual layer as an autograd op: forward K7, backward K8 (the plain
+    versions on the CPU, or everywhere with plain=True). Its backward gives
+    the cotangents of npi, npidot, cat, catdot and the five weights, and
+    None for rbf, rbfdot, dir_, dirdot and mask, as the JAX package's custom
+    VJP gives zeros there.
+
+    apply(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
+          W1a, W1b, W2a, W2b, first_layer, plain) -> (inv1, eq, inv1dot,
+          eqdot)'''
+
+    @staticmethod
+    def forward(ctx, npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
+                mask, We, W1a, W1b, W2a, W2b, first_layer=False, plain=False):
+        ctx.first_layer, ctx.plain = bool(first_layer), bool(plain)
+        ins = (npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
+               W1a, W1b, W2a, W2b)
+        ctx.save_for_backward(*ins)
+        fwd = klist_dual_fwd_ref if plain else klist_dual_fwd
+        return fwd(*ins, first_layer=ctx.first_layer)
+
+    @staticmethod
+    def backward(ctx, di, dq, didot, dqdot):
+        bwd = klist_dual_bwd_ref if ctx.plain else klist_dual_bwd
+        dnpi, dnpidot, dcat, dcatdot, *dws = bwd(
+            *ctx.saved_tensors, di.contiguous(), dq.contiguous(),
+            didot.contiguous(), dqdot.contiguous(),
+            first_layer=ctx.first_layer)
+        return (dnpi, dnpidot, dcat, dcatdot, None, None, None, None, None,
+                *dws, None, None)
+
+
+def fused_klist_interaction(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a,
+                            W2b, first_layer=False, plain=False):
+    '''The layer through FusedKlistInteraction: K5/K6 on the card, or with
+    plain=True the plain versions on any device.'''
+    return FusedKlistInteraction.apply(npi, cat, rbf, dir_, mask, We, W1a,
+                                       W1b, W2a, W2b, first_layer, plain)
+
+
+def fused_klist_interaction_dual(npi, npidot, cat, catdot, rbf, rbfdot, dir_,
+                                 dirdot, mask, We, W1a, W1b, W2a, W2b,
+                                 first_layer=False, plain=False):
+    '''The dual layer through FusedKlistInteractionDual: K7/K8 on the card,
+    or with plain=True the plain versions on any device.'''
+    return FusedKlistInteractionDual.apply(
+        npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We, W1a,
+        W1b, W2a, W2b, first_layer, plain)

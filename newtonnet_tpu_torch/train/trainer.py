@@ -7,14 +7,16 @@ JAX package's column names, plateau (or any epoch-level or per-step)
 scheduler stepping, the lr early stop, train_state.msgpack with resume,
 and the final re-evaluation of the last and best models. Training steps
 take the first-order parameter gradient of train/fastgrad.py (kernels
-K1-K4 on the card); evaluation runs NewtonNet.forward (K1/K2). All matrix
-products are IEEE fp32: TF32 is off while the Trainer runs.
+K1-K4 on the card, or K5-K8 for a neighbour-list model, whose lists are
+built on the device in every step); evaluation runs NewtonNet.forward
+(K1/K2, or K5/K6). All matrix products are IEEE fp32: TF32 is off while
+the Trainer runs.
 
-Not here (ROADMAP.md A, "parallelism" and "neighbour lists"): meshes,
-halo exchange, several processes, precomputed neighbour lists, wandb and
-the profiler hook. The JAX Trainer's steps_per_call, which chunks steps
-into one device dispatch, has no counterpart: eager PyTorch dispatches
-each operation as it comes.
+Not here (ROADMAP.md A, "parallelism" and "XLA kernel='xla' path"):
+meshes, halo exchange, several processes, precomputed neighbour lists,
+wandb and the profiler hook. The JAX Trainer's steps_per_call, which
+chunks steps into one device dispatch, has no counterpart: eager PyTorch
+dispatches each operation as it comes.
 '''
 import contextlib
 import csv

@@ -12,6 +12,8 @@ bf16-vs-fp32 bar (2e-2), and they do differ from the fp32 ones by more.
 Against double backward the port is held in float64, where the two
 algorithms agree to rounding: rtol 1e-9. One test runs the MD17 checkpoint
 at full width for the first fine-tuning step's loss (its own bars there).
+The neighbour-list branch (graph_mode='neighborlist', K5-K8) is held to
+the JAX package's at atol 2e-4 and to double backward in float64.
 '''
 import jax
 import jax.numpy as jnp
@@ -241,6 +243,74 @@ def test_frozen_parameters_get_no_gradient():
     assert tm.core.node_embedding.grad is None
     assert tm.core.energy_head.TorchLinear_0.kernel.grad is not None
     assert not tm.core.node_embedding.requires_grad
+
+
+def _klist_setup(seed=8, B=2, N=12, K=16):
+    """The neighbour-list model of tests/test_pallas_klist.py's fastgrad
+    test (F=32, R=8, 2 interactions, k_max 16) with a batch from a seed."""
+    cfg = dict(cutoff=5.0, n_features=32, n_basis=8, n_interactions=2,
+               graph_mode='neighborlist', k_max=K, kernel='pallas',
+               output_properties=['energy', 'gradient_force'])
+    jm = JaxNewtonNet(**cfg)
+    rs = np.random.RandomState(seed)
+    z = np.zeros((B, N), np.int32)
+    for b in range(B):
+        n = rs.randint(6, N + 1)
+        z[b, :n] = rs.choice([1, 6, 7, 8], size=n)
+    batch = {'z': z, 'pos': (rs.randn(B, N, 3) * 1.8).astype(np.float32),
+             'cell': np.zeros((B, 3, 3), np.float32),
+             'graph_mask': np.ones(B, bool),
+             'energy': rs.randn(B).astype(np.float32),
+             'force': rs.randn(B, N, 3).astype(np.float32)}
+    params = jm.init(jax.random.PRNGKey(seed), jnp.asarray(z),
+                     jnp.asarray(batch['pos']), jnp.asarray(batch['cell']))
+    params = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    return jm, params, batch, cfg
+
+
+def test_klist_fastgrad_matches_jax():
+    """The neighbour-list branch (K5/K6 force pass, K7/K8 dual; their plain
+    versions here) against the JAX package's fastgrad with interpret-mode
+    Pallas: loss at rtol 2e-5, gradients at atol 2e-4, the bars of
+    tests/test_pallas_klist.py:test_klist_fastgrad_matches_xla_training_
+    gradient."""
+    jm, params, batch, cfg = _klist_setup()
+    l_j, g_j = _jax_grads(jm, params, batch)
+    loss, preds, g_t = _port_grads(_port(cfg, params), batch)
+    np.testing.assert_allclose(float(loss), l_j, rtol=2e-5)
+    assert set(g_t) == set(g_j)
+    for name, g in g_t.items():
+        np.testing.assert_allclose(g.numpy(), g_j[name], atol=2e-4,
+                                   err_msg=name)
+    assert preds['gradient_force'].shape == batch['force'].shape
+
+
+def test_klist_fastgrad_equals_double_backward_in_float64():
+    """In float64 the K-list surrogate gradient equals autograd of the force
+    loss taken through the plain K-list layer's forward (a gradient of a
+    gradient), to rounding: rtol 1e-9."""
+    from newtonnet_tpu_torch.models.fused_klist import apply_core_nlist
+    from newtonnet_tpu_torch.ops.fused_klist import klist_fwd_ref
+    _, params, batch, cfg = _klist_setup(seed=3)
+    tm = _port(cfg, params, dtype=torch.float64)
+    loss, _, g_fast = _port_grads(tm, batch, dtype=torch.float64)
+    main_loss, _ = get_loss_by_string(LOSSES)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    for k in ('pos', 'cell', 'energy', 'force'):
+        b[k] = b[k].double()
+    pos = b['pos'].clone().requires_grad_(True)
+    out = apply_core_nlist(tm, b['z'], pos, b['cell'], pair_op=klist_fwd_ref)
+    energy = out['atomic_energy'][..., 0].sum(-1)
+    (dpos,) = torch.autograd.grad(energy.sum(), pos, create_graph=True)
+    ref_loss = main_loss({'energy': energy, 'gradient_force': -dpos}, b)
+    names = [n for n, _ in tm.core.named_parameters()]
+    ref = torch.autograd.grad(ref_loss, list(tm.core.parameters()),
+                              allow_unused=True)
+    assert float(loss) == pytest.approx(ref_loss.item(), rel=1e-12)
+    for name, r, p in zip(names, ref, tm.core.parameters()):
+        r = torch.zeros_like(p) if r is None else r
+        torch.testing.assert_close(g_fast[name], r, rtol=1e-9, atol=1e-12,
+                                   msg=name)
 
 
 def test_fastgrad_refuses_what_is_not_ported():

@@ -1,7 +1,8 @@
-'''The CUDA sources of kernels K1/K2 (newtonnet_tpu_torch/csrc/fused_dense.cu)
-and K3/K4 (csrc/fused_dual.cu) run on the CPU under an emulation of CUDA's
-thread model (newtonnet_tpu_torch/csrc/emu/cuda_emu.h), against the plain
-PyTorch versions. The card checks the same in chip_smoke.py; this catches
+'''The CUDA sources of kernels K1/K2 (newtonnet_tpu_torch/csrc/fused_dense.cu),
+K3/K4 (csrc/fused_dual.cu) and K5-K8 (csrc/fused_klist.cu) run on the CPU
+under an emulation of CUDA's thread model
+(newtonnet_tpu_torch/csrc/emu/cuda_emu.h), against the plain PyTorch
+versions. The card checks the same in chip_smoke.py; this catches
 faults of indexing, masking and barriers before a source goes to the card.
 
 Bar: max|kernel - plain| <= 1e-4 * max|plain| per output, as on the card:
@@ -22,6 +23,7 @@ import torch
 
 from newtonnet_tpu_torch.ops import fused_dense as fd
 from newtonnet_tpu_torch.ops import fused_dual as fdd
+from newtonnet_tpu_torch.ops import fused_klist as fk
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'newtonnet_tpu_torch')
@@ -243,6 +245,137 @@ def test_emulated_dual_kernels_refuse_what_they_do_not_take(dual_lib):
     scratch = [_nan(1, 4, 32)] * 7
     assert dual_lib.nn_dual_bwd(*_ptrs(args + cots + scratch), 1, 4, 128,
                                 200, 0, 0, None) == 1
+
+
+def _klist_handle(handle):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
+    handle.nn_klist_bwd.argtypes = [p] * 18 + [i] * 8 + [p]
+    handle.nn_klist_dual_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
+    handle.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 7 + [p]
+    for fn in (handle.nn_klist_fwd, handle.nn_klist_bwd,
+               handle.nn_klist_dual_fwd, handle.nn_klist_dual_bwd):
+        fn.restype = i
+    return handle
+
+
+@pytest.fixture(scope='module')
+def klist_lib(tmp_path_factory):
+    return _klist_handle(_compile(tmp_path_factory.mktemp('emu_klist'),
+                                  'fused_klist_emu', _source('fused_klist')))
+
+
+def _klist_inputs(B, N, K, F, R, first_layer, bf16, seed):
+    '''K5's inputs, K7's tangents and the cotangents of both, with the edge
+    tensors (cat, rbf and their tangents) in the edge dtype.'''
+    rs = np.random.RandomState(seed)
+    C = F if first_layer else 4 * F
+    edt = torch.bfloat16 if bf16 else torch.float32
+
+    def t(*shape, scale=1.0, dtype=torch.float32):
+        return torch.tensor(rs.randn(*shape) * scale, dtype=torch.float32) \
+            .to(dtype)
+
+    mask = torch.tensor(rs.rand(B, N, K) < 0.7, dtype=torch.float32)
+    ins = [t(B, N, F, scale=0.3), t(B, N, K, C, scale=0.3, dtype=edt),
+           t(B, N, K, R, scale=0.3, dtype=edt), t(B, 3, N, K), mask]
+    ins += [t(*s, scale=s[0] ** -0.5)
+            for s in [(R, F), (F, F), (F, F), (F, F), (F, F)]]
+    tans = [t(B, N, F, scale=0.1), t(B, N, K, C, scale=0.1, dtype=edt),
+            t(B, N, K, R, scale=0.1, dtype=edt), t(B, 3, N, K, scale=0.1)]
+    cots = [t(B, N, F), t(B, 3, N, F), t(B, N, F, scale=0.3),
+            t(B, 3, N, F, scale=0.3)]
+    return ins, tans, cots
+
+
+def _run_klist(handle, ins, tans, cots, first_layer, bf16):
+    '''(K5, K6 without and with weight cotangents, K7, K8) outputs of the
+    emulated kernels, NaN-initialised, and the plain versions' values.'''
+    B, N, F = ins[0].shape
+    K, R = ins[1].shape[2], ins[2].shape[-1]
+    fl, bf = int(first_layer), int(bf16)
+    n_w = R * F + 4 * F * F
+    n_blk = B * ((N + 7) // 8)
+
+    def nan_like(x):
+        return torch.full_like(x, float('nan'))
+
+    got, want = [], []
+    fwd = [_nan(B, N, F), _nan(B, 3, N, F)]
+    assert handle.nn_klist_fwd(*_ptrs(ins + fwd), B, N, K, F, R, fl, bf,
+                               None) == 0
+    got += fwd
+    want += fk.klist_fwd_ref(*ins, first_layer=first_layer)
+    for wg in (False, True):
+        outs = [_nan(B, N, F), nan_like(ins[1]), nan_like(ins[2]),
+                _nan(B, 3, N, K)]
+        wpart, dw = _nan(n_blk, n_w), _nan(n_w)
+        assert handle.nn_klist_bwd(
+            *_ptrs(ins + cots[:2] + outs),
+            wpart.data_ptr() if wg else None, dw.data_ptr() if wg else None,
+            B, N, K, F, R, fl, int(wg), bf, None) == 0
+        ref = fk.klist_bwd_ref(*ins, *cots[:2], first_layer=first_layer,
+                               weight_grads=wg)
+        got += outs + (list(dw.split([R * F] + [F * F] * 4)) if wg else [])
+        want += list(ref[:4]) + ([r.reshape(-1) for r in ref[4:]]
+                                 if wg else [])
+    args = [ins[0], tans[0], ins[1], tans[1], ins[2], tans[2], ins[3],
+            tans[3], ins[4]] + ins[5:]
+    dfwd = [_nan(B, N, F), _nan(B, 3, N, F), _nan(B, N, F), _nan(B, 3, N, F)]
+    assert handle.nn_klist_dual_fwd(*_ptrs(args + dfwd), B, N, K, F, R, fl,
+                                    bf, None) == 0
+    got += dfwd
+    want += fk.klist_dual_fwd_ref(*args, first_layer=first_layer)
+    dbwd = [_nan(B, N, F), _nan(B, N, F), nan_like(ins[1]), nan_like(tans[1])]
+    wpart, dw = _nan(n_blk, n_w), _nan(n_w)
+    assert handle.nn_klist_dual_bwd(*_ptrs(args + cots + dbwd + [wpart, dw]),
+                                    B, N, K, F, R, fl, bf, None) == 0
+    ref = fk.klist_dual_bwd_ref(*args, *cots, first_layer=first_layer)
+    got += dbwd + list(dw.split([R * F] + [F * F] * 4))
+    want += list(ref[:4]) + [r.reshape(-1) for r in ref[4:]]
+    return got, want
+
+
+@pytest.mark.parametrize('shape, first_layer, bf16', [
+    ((2, 10, 13, 32, 8), False, False), ((2, 10, 13, 32, 8), True, False),
+    ((2, 10, 13, 32, 8), False, True), ((2, 10, 13, 32, 8), True, True),
+    ((1, 9, 6, 64, 16), False, True), ((1, 9, 6, 64, 16), True, False)])
+def test_emulated_klist_kernels_match_plain(klist_lib, shape, first_layer,
+                                            bf16):
+    '''K5-K8 at ragged sizes (N = 10 and 9 are no multiple of the 8-atom
+    tiles, K = 13 and 6 none of the 8- or 4-slot tiles), both variants, fp32
+    and bf16 edges, K6 with and without weight cotangents. fp32 outputs hold
+    BAR; the bf16-stored ones (dcat, dcatdot, drbf) one bf16 ulp, 2^-8 of
+    the output's largest magnitude (a last-bit fp32 difference before the
+    rounding can move a value to the neighbouring bf16 value).'''
+    B, N, K, F, R = shape
+    ins, tans, cots = _klist_inputs(B, N, K, F, R, first_layer, bf16,
+                                    seed=N + K)
+    got, want = _run_klist(klist_lib, ins, tans, cots, first_layer, bf16)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype, k
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), k
+        bar = 2.0 ** -8 if bf16 and got[k].dtype == torch.bfloat16 else BAR
+        err = (g - w).abs().max().item()
+        assert err <= bar * w.abs().max().item(), (k, err)
+    # masked slots: exact zeros in dcat (K6 and K8) and drbf
+    off = ins[4] == 0
+    for k in (3, 4, 7, 8, 21, 22):
+        assert not got[k].float()[off].any(), k
+
+
+def test_emulated_klist_kernels_refuse_what_they_do_not_take(klist_lib):
+    '''F outside (32, 64, 128), an R whose tiles overflow the 227 KB of
+    shared memory a block may use, or an empty list: cudaErrorInvalidValue.'''
+    ins, _, _ = _klist_inputs(1, 4, 3, 32, 4, False, False, seed=0)
+    out = [_nan(1, 4, 32), _nan(1, 3, 4, 32)]
+    assert klist_lib.nn_klist_fwd(*_ptrs(ins + out), 1, 4, 3, 48, 4, 0, 0,
+                                  None) == 1
+    assert klist_lib.nn_klist_fwd(*_ptrs(ins + out), 1, 4, 3, 128, 900, 0, 0,
+                                  None) == 1
+    assert klist_lib.nn_klist_fwd(*_ptrs(ins + out), 1, 4, 0, 32, 4, 0, 0,
+                                  None) == 1
 
 
 def test_emulation_catches_a_dual_kernel_fault(tmp_path):

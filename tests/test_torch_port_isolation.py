@@ -23,10 +23,13 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.data.statistics
         import newtonnet_tpu_torch.data.units
         import newtonnet_tpu_torch.md.calculator
+        import newtonnet_tpu_torch.models.fused_klist
         import newtonnet_tpu_torch.models.fused_stack
         import newtonnet_tpu_torch.ops._build
         import newtonnet_tpu_torch.ops.fused_dense
         import newtonnet_tpu_torch.ops.fused_dual
+        import newtonnet_tpu_torch.ops.fused_klist
+        import newtonnet_tpu_torch.ops.nlist
         import newtonnet_tpu_torch.train.cli
         import newtonnet_tpu_torch.train.fastgrad
         import newtonnet_tpu_torch.train.loss
@@ -66,7 +69,8 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 @pytest.mark.parametrize('kw, item', [
     ({'kernel': 'xla'}, 'XLA'),
-    ({'graph_mode': 'neighborlist'}, 'neighbour lists'),
+    ({'graph_mode': 'neighborlist', 'newton3': True, 'kernel': 'xla'},
+     'XLA'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'hessian']},
      'Hessian'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'charge']},
