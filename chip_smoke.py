@@ -23,6 +23,15 @@ with a non-zero exit code and no result line):
             F=128, R=20, bf16 edges), at (B=100, N=21, K=20) and at (B=2,
             N=70, K=37, F=64, R=16) in fp32; bar 1e-4 of each output's
             largest magnitude, plus one bf16 ulp for bf16-stored outputs.
+3e. gather  K9 (row_gather) against the plain row gather, bitwise, at the
+            box's inv_gather shapes (bf16, fp32; 4F, F and positions), its
+            scatter-chunk shape, the aspirin shapes and odd widths; K12
+            (K9 at B=1) at tools/exp_pallas_gather.py's shape; K10 bitwise
+            and K11 within 1e-6 of the largest magnitude plus one ulp of
+            the output dtype, at tools/bench_window.py's shape on the
+            cell-sorted box (the full list, the smallest passing W); the
+            transposition identity in float64; the window ops' entry
+            point (gather, and its backward through autograd: K11).
 4. serve    the trained MD17-aspirin checkpoint serves all 500 test frames
             in batches of 100 through the kernels; energy and force errors
             against the labels must reproduce the JAX package's (energy MAE
@@ -66,12 +75,26 @@ with a non-zero exit code and no result line):
 7e. box-train  three fastgrad steps with Adam on the box, step 1 against
             the plain path on the card (2e-3 relative norm); one step under
             torch.profiler.
+4c. serve-xla  the trained kernel='xla' checkpoint (artifacts/md17_model)
+            on the 500 frames, dense and over inverse lists (k_max 48,
+            host_symmetric_nlist; K9): the JAX package's MAE bars, the
+            dense path at E_ATOL / F_ATOL, the plain row gather bitwise;
+            20 calculator requests over inverse lists against the batches.
+5c. box-xla calculator requests on the 4096-atom box over inverse lists
+            (k_max 88, bf16 stack, box_weights): the plain row gather
+            bitwise, three requests repeating their bits, the K-list path
+            of 5b and, at 512 atoms, the JAX package (bf16 and fp32);
+            latency, host list build, model evaluation, and a profile
+            with K9's share and launches beside the K-list request's time.
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
             shape (fp32 bound), K3/K4 at the training shape in bf16 mode
             (the training path's; bf16 tensor-core bound) and in fp32 mode;
-            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work).
+            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work);
+            K9 (box inv_gather and scatter-chunk shapes), K12, K10 and K11
+            with one PyTorch call's time beside them (index_select,
+            index_add_), bound by bytes.
 
 Then the card's nvidia-smi line, the `kernels` JSON line and, last,
 {"ok": true, "device": {...}}.
@@ -110,7 +133,9 @@ PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 67e12, 989e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCES = {'pair': 'newtonnet_tpu_torch/csrc/fused_dense.cu',
            'dual': 'newtonnet_tpu_torch/csrc/fused_dual.cu',
-           'klist': 'newtonnet_tpu_torch/csrc/fused_klist.cu'}
+           'klist': 'newtonnet_tpu_torch/csrc/fused_klist.cu',
+           'gather': 'newtonnet_tpu_torch/csrc/row_gather.cu',
+           'window': 'newtonnet_tpu_torch/csrc/window.cu'}
 REPLACES = {'pair_fwd': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'pair_fwd_first': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'pair_bwd': 'newtonnet_tpu/ops/pallas_dense.py:102',
@@ -126,7 +151,12 @@ REPLACES = {'pair_fwd': 'newtonnet_tpu/ops/pallas_dense.py:78',
             'klist_dual_fwd': 'newtonnet_tpu/ops/pallas_klist.py:253',
             'klist_dual_fwd_first': 'newtonnet_tpu/ops/pallas_klist.py:253',
             'klist_dual_bwd': 'newtonnet_tpu/ops/pallas_klist.py:288',
-            'klist_dual_bwd_first': 'newtonnet_tpu/ops/pallas_klist.py:288'}
+            'klist_dual_bwd_first': 'newtonnet_tpu/ops/pallas_klist.py:288',
+            'row_gather': 'newtonnet_tpu/ops/pallas_gather.py:106',
+            'row_gather_chunk': 'newtonnet_tpu/ops/pallas_gather.py:106',
+            'window_gather': 'newtonnet_tpu/ops/pallas_window.py:125',
+            'window_scatter_sum': 'newtonnet_tpu/ops/pallas_window.py:136',
+            'exp_row_gather': 'tools/exp_pallas_gather.py:30'}
 
 MD17_CONFIG = os.path.join(ROOT, 'scripts', 'config_md17_pallas.yml')
 BOX_ATOMS, BOX_K_MAX, BOX_REF_ATOMS = 4096, 88, 512
@@ -189,6 +219,47 @@ JAX_BOX_FP32_EDGES_FORCES_8 = [
     [-0.08451390266418457, 0.1513175517320633, 0.01589856669306755],
 ]
 BOX_SPREAD_FACTOR = 4.0
+# The trained kernel='xla' checkpoint (its config has no kernel key) on the
+# 500 aspirin test frames in batches of 100: the JAX package's energy and
+# force MAE, dense and in inverse-list mode (graph_mode neighborlist,
+# inverse_lists, k_max 48, lists from its host_symmetric_nlist), from
+# `python tests/test_torch_xla_reference.py mae` (CPU, float32).
+XLA_CKPT = os.path.join(ROOT, 'artifacts', 'md17_model',
+                        'best_model.msgpack')
+JAX_XLA_ENERGY_MAE, JAX_XLA_FORCE_MAE = 0.00616796875, 0.022559619799136444
+JAX_XLA_INV_ENERGY_MAE, JAX_XLA_INV_FORCE_MAE = (0.00616796875,
+                                                 0.022559623331373183)
+INV_K_MAX = 48
+# One request on box_system(BOX_REF_ATOMS) with box_weights' weights in
+# inverse-list mode (k_max BOX_K_MAX), bf16 interaction stack and float32:
+# the JAX package's energy and the first 8 atoms' forces, from `python
+# tests/test_torch_xla_reference.py box` (CPU).
+JAX_XLA_BOX_ENERGY = -43.98672866821289
+JAX_XLA_BOX_FORCES_8 = [
+    [-0.060234490782022476, -0.04290322959423065, 0.2658465504646301],
+    [0.15587830543518066, 0.10695922374725342, 0.11042125523090363],
+    [0.014639332890510559, 0.580086350440979, 0.3384668231010437],
+    [-0.23275412619113922, -0.10091244429349899, 0.04792490601539612],
+    [-0.07914137095212936, -0.25100213289260864, 0.036664173007011414],
+    [-0.21675190329551697, -0.050611186772584915, -0.06463852524757385],
+    [0.01614745706319809, -0.006400882266461849, -0.1735510528087616],
+    [-0.0816798061132431, 0.15193113684654236, 0.014391984790563583],
+]
+JAX_XLA_BOX_FP32_ENERGY = -43.98573303222656
+JAX_XLA_BOX_FP32_FORCES_8 = [
+    [-0.05960889905691147, -0.044780369848012924, 0.2650974988937378],
+    [0.15508432686328888, 0.1097710058093071, 0.10862377285957336],
+    [0.01531803235411644, 0.5810221433639526, 0.3390587270259857],
+    [-0.23467063903808594, -0.09398631751537323, 0.048322614282369614],
+    [-0.07897380739450455, -0.25020939111709595, 0.03517230600118637],
+    [-0.2194567173719406, -0.04992446303367615, -0.06610745191574097],
+    [0.015352045185863972, -0.006744819693267345, -0.17343561351299286],
+    [-0.08451394736766815, 0.15131747722625732, 0.015898654237389565],
+]
+# the window ops' shapes (tools/bench_window.py): T atoms per block, the
+# payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
+WINDOW_T, WINDOW_F = 128, 512
+EXP_GATHER_N, EXP_GATHER_F, EXP_GATHER_ROWS = 4096, 512, 163840
 LOG_COLUMNS = (
     ['epoch', 'lr', 'step']
     + [f'train_{k}' for k in ('loss', 'energy_mae', 'energy_mse',
@@ -325,7 +396,8 @@ def profile_call(torch, fn):
     families = {}
     for key, ms, _ in dev:
         m = re.search(r'(klist_dual_fwd|klist_dual_bwd|klist_fwd|klist_bwd|'
-                      r'pair_fwd|pair_bwd|dual_fwd|dual_bwd)_kernel', key)
+                      r'pair_fwd|pair_bwd|dual_fwd|dual_bwd|row_gather)'
+                      r'_kernel', key)
         if m:
             families[m.group(1)] = families.get(m.group(1), 0.0) + ms
     # the neighbour gathers and their transposes, from the operators that
@@ -334,7 +406,11 @@ def profile_call(torch, fn):
     top = sorted(dev, key=lambda d: -d[1])[:5]
     return {'wall_ms': wall, 'device_busy_ms': busy,
             'device_idle_share': 1.0 - busy / wall if busy else None,
-            'fused_kernels_ms': sum(families.values()),
+            'fused_kernels_ms': sum(v for k, v in families.items()
+                                    if k != 'row_gather'),
+            'k9_ms': families.get('row_gather', 0.0),
+            'k9_launches': sum(n for k, _, n in dev
+                               if 'row_gather_kernel' in k),
             'kernel_ms': families,
             'gather_ms': ops.get('aten::gather', 0.0),
             'scatter_add_ms': ops.get('aten::scatter_add_',
@@ -469,13 +545,14 @@ def box_weights(torch, core, seed=0):
 
 
 def box_model(torch, base_cfg, compute_dtype, output_properties,
-              device='cuda'):
+              device='cuda', **changes):
     """The checkpoint's widths (F=128, R=20, 3 interactions, cutoff 5 A) in
-    neighbour-list mode with k_max BOX_K_MAX and box_weights."""
+    neighbour-list mode with k_max BOX_K_MAX and box_weights; `changes`
+    (such as inverse_lists=True) on top."""
     from newtonnet_tpu_torch import NewtonNet
     model = NewtonNet(**dict(base_cfg, graph_mode='neighborlist',
                              k_max=BOX_K_MAX, compute_dtype=compute_dtype,
-                             output_properties=output_properties),
+                             output_properties=output_properties, **changes),
                       device=device)
     box_weights(torch, model.core)
     return model.requires_grad_(False).eval()
@@ -937,7 +1014,10 @@ def phase_box_request(torch, fk, base):
         check(d <= bars[key], f'box {key}: {d} > {bars[key]}')
     check(all(launches[k] > 0 for k in KLIST_NAMES[:4]),
           f'a K5/K6 variant was not launched on the box: {launches}')
-    return launches, calc, request
+    timing = {'latency_ms_median': 1e3 * statistics.median(lat)}
+    return launches, calc, request, {'energy': e, 'forces': f,
+                                     'energy_fp32': e_32,
+                                     'forces_fp32': f_32, **timing}
 
 
 def phase_box_train(torch, fk, base):
@@ -1202,6 +1282,479 @@ def klist_timing(torch, fk, errs, launches):
     return rows
 
 
+def exact(torch, a, b):
+    """True iff a and b hold the same bits (NaN-free values)."""
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        torch.equal(a, b))
+
+
+def window_list(torch, n_atoms=BOX_ATOMS):
+    """The cell-sorted box (tools/bench_window.py's recipe on box_system):
+    the port's full list (k_max BOX_K_MAX, cutoff 5 A) in the K-major
+    layout, masked slots pointed at their block's window start, and the
+    smallest multiple of WINDOW_T that check_window passes. -> (idx_kn
+    (1, K, N) int64, mask_kn, W, window_margin, valid edges)."""
+    from newtonnet_tpu_torch.ops import window as wn
+    from newtonnet_tpu_torch.ops.nlist import neighbor_list
+    z, pos, cell, _, _ = box_system(n_atoms)
+    order = wn.cell_sort_order(pos[0], cell[0], 5.0)
+    tz, tpos, tcell = [torch.from_numpy(a).cuda()
+                       for a in (z[:, order], pos[:, order], cell)]
+    idx, kmask, _, over = neighbor_list(tpos, tcell, tz > 0, 5.0, BOX_K_MAX)
+    check(int(over.sum()) == 0, 'window list overflowed')
+    idx_kn = idx.transpose(1, 2).contiguous()
+    mask_kn = kmask.transpose(1, 2).contiguous()
+    N = n_atoms
+    for W in range(WINDOW_T, N + 1, WINDOW_T):
+        starts = torch.tensor(wn.window_starts(N, W, WINDOW_T),
+                              device='cuda').repeat_interleave(WINDOW_T)
+        cand = torch.where(mask_kn, idx_kn, starts[None, None])
+        if wn.check_window(cand, mask_kn, W, WINDOW_T):
+            return cand, mask_kn, W, wn.window_margin(cand, mask_kn, W,
+                                                      WINDOW_T), \
+                int(mask_kn.sum())
+    raise PhaseFailed('no window holds the box list')
+
+
+def phase_gather_kernels(torch, rg, wn):
+    """Phase 3e: K9 (row_gather) and K12 (its B = 1 form) against the plain
+    row gather, bitwise, at the shapes of their paths; K10 against its
+    plain version bitwise and K11 within 1e-6 of the largest magnitude
+    plus one ulp of the output dtype, on the cell-sorted box; the
+    transposition identity in float64 over the card's outputs; then the
+    window ops' entry point (gather and its backward) with the launch
+    counts. -> ({kernel row: max abs err}, window path launches, the
+    window list)."""
+    g = torch.Generator(device='cuda').manual_seed(40)
+    N = BOX_ATOMS
+    cases = [  # (what, B, N, F, R, dtype, index dtype)
+        ('box inv_gather, 4F', 1, N, 4 * 128, BOX_K_MAX * N, torch.bfloat16,
+         torch.int64),
+        ('box inv_gather, F', 1, N, 128, BOX_K_MAX * N, torch.bfloat16,
+         torch.int64),
+        ('box inv_gather fp32, 4F', 1, N, 4 * 128, BOX_K_MAX * N,
+         torch.float32, torch.int64),
+        ('box scatter chunk', 1, 6 * N, 4 * 128, 6 * N, torch.bfloat16,
+         torch.int64),
+        ('box positions', 1, N, 3, BOX_K_MAX * N, torch.float32,
+         torch.int64),
+        ('aspirin, 4F', 100, 21, 512, INV_K_MAX * 21, torch.float32,
+         torch.int64),
+        ('aspirin, F', 100, 21, 128, INV_K_MAX * 21, torch.float32,
+         torch.int32),
+        ('odd', 3, 21, 3, 1001, torch.float32, torch.int32),
+        ('odd bf16', 2, 33, 5, 777, torch.bfloat16, torch.int64),
+        ('K12 exp_pallas_gather bf16', 1, EXP_GATHER_N, EXP_GATHER_F,
+         EXP_GATHER_ROWS, torch.bfloat16, torch.int32),
+        ('K12 exp_pallas_gather fp32', 1, EXP_GATHER_N, EXP_GATHER_F,
+         EXP_GATHER_ROWS, torch.float32, torch.int32)]
+    results = []
+    for what, B, n, F, R, dt, it in cases:
+        x = torch.randn((B, n, F), generator=g, device='cuda').to(dt)
+        idx = torch.randint(0, n, (B, R), generator=g, device='cuda').to(it)
+        got = rg.row_gather(x, idx)
+        torch.cuda.synchronize()
+        same = exact(torch, got, rg.row_gather_ref(x, idx))
+        results.append({'what': what, 'shape': [B, n, F, R],
+                        'dtype': str(dt).split('.')[-1], 'bitwise': same})
+        check(same, f'K9 {what}: kernel and plain gather differ')
+        del x, idx, got
+    emit('gather_vs_plain', cases=results, bar='bitwise')
+
+    idx_kn, mask_kn, W, margin, n_edges = window_list(torch)
+    K = idx_kn.shape[1]
+    x = torch.randn((1, N, WINDOW_F), generator=g, device='cuda') \
+        .to(torch.bfloat16)
+    y = (torch.randn((1, K, N, WINDOW_F), generator=g, device='cuda')
+         * mask_kn[..., None]).to(torch.bfloat16)
+    errs = {}
+    got = wn.window_gather_fwd(x, idx_kn, W, WINDOW_T)
+    torch.cuda.synchronize()
+    check(exact(torch, got, wn.window_gather_ref(x, idx_kn, W, WINDOW_T)),
+          'K10: kernel and plain differ')
+    errs['window_gather'] = 0.0
+    got32 = wn.window_gather_fwd(x.float(), idx_kn, W, WINDOW_T)
+    check(exact(torch, got32, wn.window_gather_ref(x.float(), idx_kn, W,
+                                                   WINDOW_T)),
+          'K10 (fp32 payload): kernel and plain differ')
+    del got, got32
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.float32):
+        yd = y.to(dt)
+        s = wn.window_scatter_sum_fwd(yd, idx_kn, W, WINDOW_T).float()
+        want = wn.window_scatter_sum_ref(yd, idx_kn, W, WINDOW_T).float()
+        diff = (s - want).abs()
+        over = (diff - torch.finfo(dt).eps * want.abs()).clamp_min(0).max()
+        scale = want.abs().max().item()
+        worst = max(worst, over.item() / scale)
+        check(over.item() <= 1e-6 * scale,
+              f'K11 {dt}: {over.item()} > 1e-6 * {scale} beyond one ulp')
+        if dt == torch.bfloat16:
+            errs['window_scatter_sum'] = diff.max().item()
+        del yd, s, want, diff
+    # the transposition identity over bf16-exact payloads in fp32 storage
+    gx = wn.window_gather_fwd(x.float(), idx_kn, W, WINDOW_T).double()
+    sy = wn.window_scatter_sum_fwd(y.float(), idx_kn, W, WINDOW_T).double()
+    lhs = float((gx * y.double()).sum())
+    rhs = float((x.double() * sy).sum())
+    rel_t = abs(lhs - rhs) / abs(lhs)
+    del gx, sy
+    # the entry point: the gather and, through autograd, its transpose
+    torch.cuda.synchronize()
+    wn.reset_launch_counts()
+    xg = x.clone().requires_grad_(True)
+    out = wn.window_gather(xg, idx_kn, W, WINDOW_T)
+    (out.float() * y.float()).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(wn.LAUNCHES)
+    emit('window_vs_plain', atoms=N, k=K, valid_edges=n_edges, W=W,
+         T=WINDOW_T, F=WINDOW_F, window_margin=margin,
+         k10='bitwise (bf16 and fp32 payloads)',
+         k11_worst_over_max_beyond_ulp=worst, k11_bar=1e-6,
+         transposition_rel_diff=rel_t, transposition_bar=1e-6,
+         entry_point_launches=launches)
+    check(margin >= 0, f'window margin {margin}')
+    check(rel_t <= 1e-6, f'<gather(x), y> != <x, scatter(y)>: {rel_t}')
+    check(exact(torch, xg.grad, wn.window_scatter_sum_fwd(
+        y, idx_kn, W, WINDOW_T)), 'window_gather backward is not K11')
+    check(all(v > 0 for v in launches.values()),
+          f'a window kernel was not launched: {launches}')
+    return errs, launches, (idx_kn, mask_kn, W)
+
+
+def xla_model(torch, base, **changes):
+    """The XLA checkpoint's weights in a model of another layout."""
+    from newtonnet_tpu_torch import NewtonNet
+    model = NewtonNet(**dict(base.config_dict(), **changes), device='cuda')
+    model.load_state_dict(base.state_dict())
+    return model.requires_grad_(False).eval()
+
+
+def mae(batches, outs):
+    import numpy as np
+    ae = af = 0.0
+    for b, (e, f) in zip(batches, outs):
+        check(np.isfinite(e).all() and np.isfinite(f).all(),
+              'non-finite XLA output')
+        ae += np.abs(e - b['energy']).astype(np.float64).sum()
+        af += np.abs(f - b['force']).astype(np.float64).sum()
+    n = sum(len(b['energy']) for b in batches)
+    return ae / n, af / (n * 21 * 3)
+
+
+def phase_serve_xla(torch, rg, batches, samples, to_dev):
+    """Phase 4c: the trained kernel='xla' checkpoint on the 500 aspirin
+    frames, dense and in inverse-list mode (host_symmetric_nlist, k_max
+    INV_K_MAX), each against the JAX package's MAEs; inverse lists against
+    the dense XLA path (E_ATOL, F_ATOL) and against their plain row gather
+    (bitwise); then 20 calculator requests in inverse-list mode against
+    the batches. -> K9 launches of the 500 frames."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator, load_model
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    base = load_model(XLA_CKPT)
+    check(base.kernel == 'xla' and base.graph_mode == 'dense',
+          f'the XLA checkpoint loaded as {base.kernel}/{base.graph_mode}')
+    base(*to_dev(batches[0]))
+    dense, dense_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = base(*to_dev(b))
+        dense.append((out['energy'].cpu().numpy(),
+                      out['gradient_force'].cpu().numpy()))
+        dense_s.append(time.perf_counter() - t)
+    e_mae, f_mae = mae(batches, dense)
+    inv = xla_model(torch, base, graph_mode='neighborlist', k_max=INV_K_MAX,
+                    inverse_lists=True)
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    served, lists, inv_s, list_s = [], [], [], []
+    for b in batches:
+        z, pos, cell = to_dev(b)
+        t = time.perf_counter()
+        nl = host_symmetric_nlist(inv, z, pos, cell, skin=0.0)
+        t1 = time.perf_counter()
+        out = inv(z, pos, cell, nlist=nl)
+        served.append((out['energy'].cpu().numpy(),
+                       out['gradient_force'].cpu().numpy()))
+        t2 = time.perf_counter()
+        lists.append(nl)
+        list_s.append(t1 - t)
+        inv_s.append(t2 - t)
+    launches = dict(rg.LAUNCHES)
+    ie_mae, if_mae = mae(batches, served)
+    same_bits = True
+    for b, nl, (e, f) in zip(batches, lists, served):
+        out = inv(*to_dev(b), nlist=nl, plain=True)
+        same_bits &= (np.array_equal(out['energy'].cpu().numpy(), e)
+                      and np.array_equal(
+                          out['gradient_force'].cpu().numpy(), f))
+    e_diff = max(float(np.abs(a[0] - d[0]).max())
+                 for a, d in zip(served, dense))
+    f_diff = max(float(np.abs(a[1] - d[1]).max())
+                 for a, d in zip(served, dense))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'inv.msgpack')
+        save_model(path, inv)
+        calc = NewtonNetCalculator(path, properties=['energy', 'forces',
+                                                     'stress', 'virial'])
+    box = 30.0 * np.eye(3)
+    r_e = r_f = r_s = 0.0
+    lat = []
+    e_ref, f_ref = served[0]
+    for k in range(20):
+        s = samples[k]
+        t = time.perf_counter()
+        r = calc.calculate(numbers=s['z'], positions=s['pos'],
+                           cell=box if k >= 10 else None)
+        lat.append(time.perf_counter() - t)
+        check(np.isfinite(r['energy']) and np.isfinite(r['forces']).all(),
+              f'XLA request {k} not finite')
+        r_e = max(r_e, abs(r['energy'] - float(e_ref[k])))
+        r_f = max(r_f, float(np.abs(r['forces'] - f_ref[k]).max()))
+        if k >= 10:
+            v = -r['virial'] / 30.0 ** 3
+            r_s = max(r_s, float(np.abs(
+                r['stress'] - v[[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]])
+                .max()))
+    emit('serve_xla', frames=500, batch=100, checkpoint=XLA_CKPT[len(ROOT)
+                                                                 + 1:],
+         dense_energy_mae=e_mae, dense_force_mae=f_mae,
+         jax_energy_mae=JAX_XLA_ENERGY_MAE, jax_force_mae=JAX_XLA_FORCE_MAE,
+         inv_energy_mae=ie_mae, inv_force_mae=if_mae,
+         jax_inv_energy_mae=JAX_XLA_INV_ENERGY_MAE,
+         jax_inv_force_mae=JAX_XLA_INV_FORCE_MAE, k_max=INV_K_MAX,
+         inv_vs_dense_energy_max_abs=e_diff, inv_vs_dense_force_max_abs=f_diff,
+         inv_kernel_vs_plain_bitwise=same_bits,
+         dense_batch_ms_median=1e3 * statistics.median(dense_s),
+         inv_batch_ms_median=1e3 * statistics.median(inv_s),
+         inv_host_list_ms_median=1e3 * statistics.median(list_s),
+         requests=20, request_energy_max_abs_diff=r_e,
+         request_force_max_abs_diff=r_f, request_stress_vs_virial=r_s,
+         request_latency_ms_median=1e3 * statistics.median(lat),
+         launches_500_frames=launches)
+    check(abs(e_mae - JAX_XLA_ENERGY_MAE) <= 5e-4, f'XLA energy MAE {e_mae}')
+    check(abs(f_mae - JAX_XLA_FORCE_MAE) <= 5e-5, f'XLA force MAE {f_mae}')
+    check(abs(ie_mae - JAX_XLA_INV_ENERGY_MAE) <= 5e-4,
+          f'XLA inverse-list energy MAE {ie_mae}')
+    check(abs(if_mae - JAX_XLA_INV_FORCE_MAE) <= 5e-5,
+          f'XLA inverse-list force MAE {if_mae}')
+    check(e_diff <= E_ATOL and f_diff <= F_ATOL, 'XLA inverse vs dense')
+    check(same_bits, 'XLA inverse lists: kernel and plain gathers differ')
+    check(r_e <= E_ATOL and r_f <= F_ATOL, 'XLA requests vs batches')
+    check(r_s <= 1e-6, 'XLA request stress is not -virial / volume')
+    check(launches['row_gather'] > 0, f'K9 was not launched: {launches}')
+    return launches
+
+
+def phase_box_xla(torch, rg, klist_box):
+    """Phase 5c: calculator requests (energy, forces, stress) on the
+    4096-atom box in inverse-list mode (k_max BOX_K_MAX, bf16 stack,
+    box_weights): against the plain row gather (bitwise), three requests
+    repeating their bits, the 512-atom box against the JAX package, and
+    the 4096-atom result against the K-list path of phase 5b (klist_box:
+    its bf16-edge and fp32 results): bf16 against bf16 at
+    BOX_SPREAD_FACTOR times the larger bf16-to-fp32 spread of the two,
+    float32 against float32 at 1e-5 of the energy and 1e-4 of the largest
+    force.
+    -> (K9 launches per request, the calculator, the request, the list
+    build, timings)."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator, load_model
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    outs = ['energy', 'gradient_force', 'stress']
+    xcfg = load_model(XLA_CKPT).config_dict()
+    box = box_model(torch, xcfg, 'bfloat16', outs, inverse_lists=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'box_xla.msgpack')
+        save_model(path, box)
+        calc = NewtonNetCalculator(path, properties=['energy', 'forces',
+                                                     'stress'])
+    z, pos, cell, _, _ = box_system()
+    request = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    calc.calculate(**request)
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    lat, results = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        results.append(calc.calculate(**request))
+        lat.append(time.perf_counter() - t)
+    launches = {k: v // 3 for k, v in rg.LAUNCHES.items()}
+    repeats = all(np.array_equal(results[0][k], r[k])
+                  for r in results[1:] for k in ('forces', 'stress')) and \
+        all(results[0]['energy'] == r['energy'] for r in results[1:])
+    tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (z, pos, cell)]
+    list_s, model_s = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nl = host_symmetric_nlist(calc.model, tz, tpos, tcell, skin=0.0)
+        list_s.append(time.perf_counter() - t)
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = calc.model(tz, tpos, tcell, nlist=nl)
+        torch.cuda.synchronize()
+        model_s.append(time.perf_counter() - t)
+    plain = calc.model(tz, tpos, tcell, nlist=nl, plain=True)
+    bitwise = all(exact(torch, out[k], plain[k]) for k in outs)
+    r = results[0]
+    calc_vs_model = (r['energy'] == float(out['energy'][0])
+                     and np.array_equal(r['forces'], out['gradient_force'][0]
+                                        .cpu().numpy()))
+    n_edges = int(nl[1].sum())
+    del plain
+    torch.cuda.empty_cache()
+    p32 = box_model(torch, xcfg, '', outs, inverse_lists=True)(
+        tz, tpos, tcell, nlist=nl)
+    e_32 = float(p32['energy'][0])
+    f_32 = p32['gradient_force'][0].cpu().numpy()
+    del p32
+    torch.cuda.empty_cache()
+    e, f = r['energy'], r['forces']
+    k = BOX_SPREAD_FACTOR
+    spread_e = max(abs(e - e_32), abs(klist_box['energy']
+                                      - klist_box['energy_fp32']))
+    spread_f = max(float(np.abs(f - f_32).max()),
+                   float(np.abs(klist_box['forces']
+                                - klist_box['forces_fp32']).max()))
+    z5, pos5, cell5, _, _ = box_system(BOX_REF_ATOMS)
+    r5 = calc.calculate(numbers=z5[0], positions=pos5[0], cell=cell5[0])
+    calc32 = box_model(torch, xcfg, '', outs, inverse_lists=True)
+    t5 = [torch.from_numpy(a).cuda() for a in (z5, pos5, cell5)]
+    o5 = calc32(*t5, nlist=host_symmetric_nlist(calc32, *t5, skin=0.0))
+    jf8 = np.asarray(JAX_XLA_BOX_FORCES_8)
+    jf8_32 = np.asarray(JAX_XLA_BOX_FP32_FORCES_8)
+    f8_32 = o5['gradient_force'][0, :8].cpu().numpy()
+    # XLA on the CPU keeps float32 between the bf16 operations of a fusion
+    # (its excess precision), so the JAX package's bf16 stack sits about 40
+    # times closer to float32 than the port's, which rounds every
+    # operation's output (on the CPU as on the card): two bf16 programs are
+    # held to BOX_SPREAD_FACTOR times the larger of their spreads.
+    spread5_e = max(abs(JAX_XLA_BOX_ENERGY - JAX_XLA_BOX_FP32_ENERGY),
+                    abs(r5['energy'] - float(o5['energy'][0])))
+    spread5_f = max(float(np.abs(jf8 - jf8_32).max()),
+                    float(np.abs(r5['forces'][:8] - f8_32).max()))
+    # float32 against float32: the same function, float32 rounding
+    bars = {'energy_vs_klist': k * spread_e, 'forces_vs_klist': k * spread_f,
+            'energy_fp32_vs_klist_fp32': 1e-5 * abs(e_32),
+            'forces_fp32_vs_klist_fp32': 1e-4 * float(np.abs(f_32).max()),
+            'energy_512_vs_jax': k * spread5_e,
+            'forces8_512_vs_jax': k * spread5_f,
+            'energy_512_fp32_vs_jax': 1e-5 * abs(JAX_XLA_BOX_FP32_ENERGY),
+            'forces8_512_fp32_vs_jax': 1e-4 * float(np.abs(jf8_32).max())}
+    diffs = {'energy_vs_klist': abs(e - klist_box['energy']),
+             'forces_vs_klist': float(np.abs(f - klist_box['forces']).max()),
+             'energy_fp32_vs_klist_fp32': abs(e_32
+                                              - klist_box['energy_fp32']),
+             'forces_fp32_vs_klist_fp32': float(np.abs(
+                 f_32 - klist_box['forces_fp32']).max()),
+             'energy_512_vs_jax': abs(r5['energy'] - JAX_XLA_BOX_ENERGY),
+             'forces8_512_vs_jax': float(np.abs(r5['forces'][:8]
+                                                - jf8).max()),
+             'energy_512_fp32_vs_jax': abs(float(o5['energy'][0])
+                                           - JAX_XLA_BOX_FP32_ENERGY),
+             'forces8_512_fp32_vs_jax': float(np.abs(f8_32 - jf8_32).max())}
+    timing = {'latency_ms': [1e3 * t for t in lat],
+              'latency_ms_median': 1e3 * statistics.median(lat),
+              'host_list_ms_median': 1e3 * statistics.median(list_s),
+              'model_ms_median': 1e3 * statistics.median(model_s)}
+    emit('box_xla', atoms=BOX_ATOMS, k_max=BOX_K_MAX, edges=n_edges,
+         compute_dtype='bfloat16', energy=e, fp32_energy=e_32,
+         klist_energy=klist_box['energy'], energy_512=r5['energy'],
+         jax_energy_512=JAX_XLA_BOX_ENERGY, diffs=diffs, bars=bars,
+         kernel_vs_plain_bitwise=bitwise, calculator_vs_model_bitwise=(
+             calc_vs_model), requests_repeat_their_bits=repeats,
+         forces_max_abs=float(np.abs(f).max()),
+         launches_per_request=launches, **timing)
+    check(np.isfinite(e) and np.isfinite(f).all()
+          and np.isfinite(r['stress']).all(), 'XLA box request not finite')
+    check(bitwise, 'XLA box: kernel and plain gathers differ')
+    check(calc_vs_model, 'XLA box: calculator and model differ')
+    check(repeats, 'XLA box: requests do not repeat their bits')
+    for key, d in diffs.items():
+        check(d <= bars[key], f'XLA box {key}: {d} > {bars[key]}')
+    check(launches['row_gather'] > 0 and launches['row_gather_b1'] > 0,
+          f'K9 was not launched on the box: {launches}')
+    return launches, calc, request, timing
+
+
+def gather_timing(torch, rg, wn, errs, launches, window):
+    """Rows of the kernels line for K9 (box inv_gather and scatter-chunk
+    shapes), K12, K10 and K11: CUDA-event times of the kernel, its plain
+    version and one PyTorch call computing the same function, in turns;
+    the bound: the bytes written, the indices and one read of the source
+    (L2 holds it) over the memory rate."""
+    g = torch.Generator(device='cuda').manual_seed(50)
+    N, F4 = BOX_ATOMS, 4 * 128
+    rows = []
+
+    def row(name, source, what, launch, err, run, plain, library, nbytes):
+        plain1 = time_ms(torch, plain, inner=5)
+        ms = time_ms(torch, run, inner=5)
+        ms2 = time_ms(torch, run, inner=5)
+        plain2 = time_ms(torch, plain, inner=5)
+        lib1 = time_ms(torch, library, inner=5)
+        rows.append({
+            'name': name, 'route': 'cuda', 'source': SOURCES[source],
+            'replaces': REPLACES[name], 'launches': launch,
+            'max_abs_err': err, 'ms': statistics.median([ms, ms2]),
+            'plain_ms': statistics.median([plain1, plain2]),
+            'bound_ms': 1e3 * nbytes / PEAK_BYTES_PER_S, 'bound_by': 'bytes',
+            'library_ms': lib1, 'shape': what, 'bytes': nbytes,
+            'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
+
+    for name, n, R in (('row_gather', N, BOX_K_MAX * N),
+                       ('row_gather_chunk', 6 * N, 6 * N),
+                       ('exp_row_gather', EXP_GATHER_N, EXP_GATHER_ROWS)):
+        x = torch.randn((1, n, F4), generator=g, device='cuda') \
+            .to(torch.bfloat16)
+        idx = torch.randint(0, n, (1, R), generator=g, device='cuda')
+        flat = idx[0]
+        key = 'row_gather_b1' if name == 'exp_row_gather' else 'row_gather'
+        row(name, 'gather', f'x (1, {n}, {F4}) bf16, {R} rows',
+            launches[key], 0.0, lambda: rg.row_gather(x, idx),
+            lambda: rg.row_gather_ref(x, idx),
+            lambda: torch.index_select(x[0], 0, flat),
+            R * F4 * 2 + R * 8 + n * F4 * 2)
+        del x, idx, flat
+    idx_kn, mask_kn, W = window
+    K = idx_kn.shape[1]
+    x = torch.randn((1, N, F4), generator=g, device='cuda') \
+        .to(torch.bfloat16)
+    y = (torch.randn((1, K, N, F4), generator=g, device='cuda')
+         * mask_kn[..., None]).to(torch.bfloat16)
+    flat = idx_kn.reshape(-1)
+    acc = torch.zeros((N, F4), device='cuda')
+    y2f = y.reshape(K * N, F4).float()
+    row('window_gather', 'window', f'x (1, {N}, {F4}) bf16, idx (1, {K}, '
+        f'{N}), W={W}, T={WINDOW_T}', launches['window_gather'],
+        errs['window_gather'],
+        lambda: wn.window_gather_fwd(x, idx_kn, W, WINDOW_T),
+        lambda: wn.window_gather_ref(x, idx_kn, W, WINDOW_T),
+        lambda: torch.index_select(x[0], 0, flat),
+        K * N * F4 * 2 + K * N * 8 + N * F4 * 2)
+    row('window_scatter_sum', 'window', f'y (1, {K}, {N}, {F4}) bf16 -> '
+        f'(1, {N}, {F4}), W={W}, T={WINDOW_T}',
+        launches['window_scatter_sum'], errs['window_scatter_sum'],
+        lambda: wn.window_scatter_sum_fwd(y, idx_kn, W, WINDOW_T),
+        lambda: wn.window_scatter_sum_ref(y, idx_kn, W, WINDOW_T),
+        lambda: acc.index_add_(0, flat, y2f),
+        K * N * F4 * 2 + K * N * 8 + N * F4 * 2)
+    emit('timing', what='K9-K12', peak_tb_per_s=PEAK_BYTES_PER_S / 1e12,
+         bound='(bytes written + indices + one read of the source) / HBM '
+               'rate')
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1219,6 +1772,8 @@ def main():
     from newtonnet_tpu_torch.ops import fused_dense as fd
     from newtonnet_tpu_torch.ops import fused_dual as fdd
     from newtonnet_tpu_torch.ops import fused_klist as fk
+    from newtonnet_tpu_torch.ops import row_gather as rg
+    from newtonnet_tpu_torch.ops import window as wn
     from newtonnet_tpu_torch.train import fastgrad
 
     # 1. environment
@@ -1247,9 +1802,15 @@ def main():
                 # e.g. ..._15dual_bwd_kernelILi128ELb0ELb1EE... ->
                 # dual_bwd_kernel<128,0,1>
                 mangled = line.split("'")[1]
-                m = re.search(r'((?:pair|dual|klist)_[a-z_]+?_kernel)'
-                              r'(I(?:L[ib]\d+E)+)?', mangled)
+                m = re.search(r'([a-z_]+_kernel)(I\w*?E)?E', mangled)
+                if m is None:
+                    entry = mangled
+                    ptxas[entry] = {}
+                    continue
                 args = re.findall(r'L[ib](\d+)E', m.group(2) or '')
+                if m.group(1).startswith(('row_gather', 'window')) \
+                        and m.group(2):  # type arguments, as mangled
+                    args = [m.group(2)[1:-1]]
                 if 'bfloat16' in mangled:  # the K-list edge type
                     args.append('bf16')
                 entry = m.group(1) + (f'<{",".join(args)}>' if args else '')
@@ -1275,6 +1836,9 @@ def main():
         f'{kind} F={F}': fk.smem_bytes(F, 20, kind)
         for kind in ('fwd', 'bwd', 'dual_fwd', 'dual_bwd')
         for F in (32, 64, 128)})
+    # 3e. the gathers: K9/K12 and K10/K11, and the window ops' entry point
+    gather_errs, window_launches, window = phase_gather_kernels(torch, rg,
+                                                                wn)
 
     # 4. + 5. the main path: batched serving, then calculator requests
     samples = parse_xyz(XYZ)
@@ -1375,10 +1939,28 @@ def main():
     # 4b. + 5b. neighbour lists: the aspirin frames, then the large box
     serve_nl_launches = phase_serve_nlist(torch, fk, model, batches, to_dev,
                                           served)
-    box_launches, box_calc, box_req = phase_box_request(torch, fk, model)
+    box_launches, box_calc, box_req, klist_box = phase_box_request(
+        torch, fk, model)
     emit('profile', what=f'one calculator request on the {BOX_ATOMS}-atom '
          'box', **profile_call(torch, lambda: box_calc.calculate(**box_req)))
     del box_calc
+    torch.cuda.empty_cache()
+
+    # 4c. + 5c. kernel='xla': the aspirin frames dense and over inverse
+    # lists (K9), then the box over inverse lists
+    serve_xla_launches = phase_serve_xla(torch, rg, batches, samples, to_dev)
+    box_xla_launches, xla_calc, xla_req, xla_t = phase_box_xla(torch, rg,
+                                                               klist_box)
+    emit('profile', what=f'one XLA inverse-list request on the {BOX_ATOMS}'
+         '-atom box', **profile_call(torch, lambda: xla_calc.calculate(
+             **xla_req)))
+    emit('box_requests_compared', atoms=BOX_ATOMS,
+         klist_latency_ms_median=klist_box['latency_ms_median'],
+         xla_inverse_latency_ms_median=xla_t['latency_ms_median'],
+         xla_host_list_ms_median=xla_t['host_list_ms_median'],
+         xla_model_ms_median=xla_t['model_ms_median'])
+    del xla_calc
+    torch.cuda.empty_cache()
 
     # 7. training: the first 10 steps, the plain path, one whole epoch
     b0, tuned, opt, main_loss, step_s = phase_train_steps(torch, fd, fdd)
@@ -1496,6 +2078,11 @@ def main():
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12, fp32_mode_rows=fp32_rows)
 
     rows += klist_timing(torch, fk, errs, klist_launches)
+    emit('gather_launches', serve_500_frames_xla=serve_xla_launches,
+         per_box_xla_request=box_xla_launches,
+         window_entry_point=window_launches)
+    rows += gather_timing(torch, rg, wn, gather_errs,
+                          {**box_xla_launches, **window_launches}, window)
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -4,9 +4,12 @@ Serves the NewtonNet energy model (energy, forces, virial, stress) and
 trains it (energy + force losses) on an NVIDIA Hopper GPU through
 hand-written CUDA kernels for the fused pair interaction and its dual for
 the parameter gradient, over the dense graph (csrc/fused_dense.cu,
-csrc/fused_dual.cu) or over neighbour lists (csrc/fused_klist.cu), built
-with nvcc at first use. It imports torch and
-numpy only: no JAX and nothing of newtonnet_tpu.
+csrc/fused_dual.cu) or over neighbour lists (csrc/fused_klist.cu); and it
+serves kernel='xla' checkpoints (the default) as plain PyTorch, whose
+inverse-list gathers run the hand-written row gather (csrc/row_gather.cu;
+the windowed gather ops are csrc/window.cu). The kernels are built with
+nvcc at first use. It imports torch and numpy only: no JAX and nothing of
+newtonnet_tpu.
 
 Entry points run on CUDA unless the caller passes device='cpu'.
 '''

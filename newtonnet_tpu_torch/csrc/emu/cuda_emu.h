@@ -41,6 +41,11 @@ inline float* g_smem = nullptr;
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 
+// the 16-byte vector type of vector_types.h
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
@@ -51,6 +56,10 @@ cudaError_t cudaFuncSetAttribute(Kernel, cudaFuncAttribute, int bytes) {
   return bytes > kEmuMaxDynamicSmem ? cudaErrorInvalidValue : cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaMemsetAsync(void* p, int v, size_t n, cudaStream_t) {
+  std::memset(p, v, n);
+  return cudaSuccess;
+}
 inline void __syncthreads() { g_block_barrier->arrive_and_wait(); }
 
 inline void __syncwarp(unsigned = 0xffffffffu) {

@@ -44,9 +44,11 @@ def cosine_cutoff(dist):
     return 0.5 * (torch.cos(dist * math.pi) + 1.0)
 
 
-def radial_bessel(dist, n_basis=20):
+def radial_bessel(dist, n_basis=20, frequencies=None):
     '''Radial Bessel basis sin(k pi d)/d for k = 1..n_basis: (..., 1)
-    scaled distances -> (..., n_basis).'''
-    frequencies = torch.arange(1, n_basis + 1, dtype=dist.dtype,
-                               device=dist.device) * math.pi
-    return torch.sin(frequencies * dist) / dist
+    scaled distances -> (..., n_basis). `frequencies` (n_basis,) replaces
+    the fixed k*pi grid (the trainable_basis option).'''
+    if frequencies is None:
+        frequencies = torch.arange(1, n_basis + 1, dtype=dist.dtype,
+                                   device=dist.device) * math.pi
+    return torch.sin(frequencies.to(dist.dtype) * dist) / dist

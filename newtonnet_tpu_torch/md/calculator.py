@@ -2,13 +2,16 @@
 
 Loads a checkpoint, pads the atom count up to a multiple of 8 (so a
 molecule keeps one shape from call to call) and returns numpy results. A
-neighbour-list model builds its list on the device in every call
-(nlist=None), as the JAX package's calculator does for plain lists.
+neighbour-list model builds its list in every call, as the JAX package's
+calculator does: a plain list on the device inside the model (nlist=None),
+or, for an inverse_lists model, the symmetric-slotted lists of
+md/driver.host_symmetric_nlist (device build, host coloring).
 '''
 import numpy as np
 import torch
 
 from newtonnet_tpu_torch.layers.precision import get_precision_by_string
+from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
 from newtonnet_tpu_torch.models.output import NewtonNet
 from newtonnet_tpu_torch.utils.checkpoint import load_model
 
@@ -82,9 +85,13 @@ class NewtonNetCalculator:
         c = np.zeros((1, 3, 3), dtype=np_dtype)
         if cell is not None:
             c[0] = cell
-        out = self.model(torch.from_numpy(z).to(self.device),
-                         torch.from_numpy(pos).to(self.device),
-                         torch.from_numpy(c).to(self.device))
+        z, pos, c = (torch.from_numpy(a).to(self.device)
+                     for a in (z, pos, c))
+        nlist = None
+        if (self.model.graph_mode == 'neighborlist'
+                and self.model.inverse_lists):
+            nlist = host_symmetric_nlist(self.model, z, pos, c, skin=0.0)
+        out = self.model(z, pos, c, nlist=nlist)
         results = {}
         for prop in self.properties:
             v = out[PROPERTY_MAP[prop]].cpu().numpy()

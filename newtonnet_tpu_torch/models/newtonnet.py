@@ -8,14 +8,27 @@ maps across without transposes (utils/params.py).
 
 Initialization follows the flax one (torch's nn.Linear default): every
 kernel and bias is U(+-1/sqrt(fan_in)); the embedding is N(0, 1) with the
-padding row 0 zeroed; scale starts at ones and shift at zeros. Random
-draws come from the `generator` passed in.
+padding row 0 zeroed; scale starts at ones and shift at zeros, as do a
+layer norm's scale and bias; `bessel_frequencies` (trainable_basis) starts
+at the fixed k*pi grid. Random draws come from the `generator` passed in.
+
+The MLPs apply the configured activation between their layers; with
+`swiglu`, which halves the width, each layer after an activation takes
+half the features (flax infers that fan-in from its input).
 
 These modules hold parameters; the forward computation over them lives in
-models/fused_stack.py.
+models/fused_stack.py and models/fused_klist.py (kernel='pallas') and
+models/xla_stack.py (kernel='xla').
 '''
+import math
+
 import torch
 from torch import nn
+
+from newtonnet_tpu_torch.layers.activations import (
+    WIDTH_DIVISOR,
+    get_activation_by_string,
+)
 
 N_ELEMENTS = 119
 
@@ -39,22 +52,24 @@ class TorchLinear(nn.Module):
                      if use_bias else None)
 
     def forward(self, x):
-        y = x @ self.kernel
-        return y if self.bias is None else y + self.bias
+        # the parameters in x's dtype, as flax's x @ kernel.astype(x.dtype)
+        y = x @ self.kernel.to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class MLP(nn.Module):
-    '''TorchLinear_0, TorchLinear_1, ... with `activation` between them
-    (not after the last).'''
+    '''TorchLinear_0, TorchLinear_1, ... with the activation named
+    `activation` between them (not after the last).'''
 
-    def __init__(self, fan_in, features, activation=None, use_bias=True,
+    def __init__(self, fan_in, features, activation='swish', use_bias=True,
                  generator=None, device=None, dtype=torch.float32):
         super().__init__()
-        self.activation = activation
+        self.activation = get_activation_by_string(activation)
+        shrink = WIDTH_DIVISOR.get(activation, 1)
         for i, f in enumerate(features):
             self.add_module(f'TorchLinear_{i}', TorchLinear(
                 fan_in, f, use_bias, generator, device, dtype))
-            fan_in = f
+            fan_in = f // shrink
 
     def forward(self, x):
         for i, layer in enumerate(self.children()):
@@ -78,29 +93,63 @@ class ScaleShift(nn.Module):
         return output * self.scale[z, 0][..., None] + self.shift[z, 0][..., None]
 
 
+class LayerNorm(nn.Module):
+    '''flax nn.LayerNorm over the last axis (epsilon 1e-5): statistics in at
+    least float32 with the fast variance E[x^2] - E[x]^2 (clipped at 0),
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias, returned in the
+    promotion of x's dtype and the parameters' (float32 for a bf16 x, as
+    flax gives it).'''
+
+    def __init__(self, features, epsilon=1e-5, device=None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features, device=device,
+                                             dtype=dtype))
+        self.bias = nn.Parameter(torch.zeros(features, device=device,
+                                             dtype=dtype))
+
+    def forward(self, x):
+        stat = torch.promote_types(x.dtype, torch.float32)
+        xs = x.to(stat)
+        mean = xs.mean(-1, keepdim=True)
+        var = torch.clamp((xs * xs).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.to(stat)
+        y = (xs - mean) * mul + self.bias.to(stat)
+        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+
+
 class InteractionNet(nn.Module):
     '''Parameters of one message-passing layer: message_nodepart (2-layer
     biased MLP), message_edgepart (R -> F), equiv_message1/2 (2-layer
-    bias-free MLPs) and equiv_update (F -> F).'''
+    bias-free MLPs), equiv_update (F -> F) and, with layer_norm, a
+    LayerNorm over the atom features.'''
 
-    def __init__(self, n_features, n_basis, generator=None, device=None,
+    def __init__(self, n_features, n_basis, activation='swish',
+                 layer_norm=False, generator=None, device=None,
                  dtype=torch.float32):
         super().__init__()
         f = n_features
         kw = dict(generator=generator, device=device, dtype=dtype)
-        act = nn.functional.silu
-        self.message_nodepart = MLP(f, [f, f], act, **kw)
+        self.message_nodepart = MLP(f, [f, f], activation, **kw)
         self.message_edgepart = TorchLinear(n_basis, f, use_bias=False, **kw)
-        self.equiv_message1 = MLP(f, [f, f], act, use_bias=False, **kw)
-        self.equiv_message2 = MLP(f, [f, f], act, use_bias=False, **kw)
+        self.equiv_message1 = MLP(f, [f, f], activation, use_bias=False,
+                                  **kw)
+        self.equiv_message2 = MLP(f, [f, f], activation, use_bias=False,
+                                  **kw)
         self.equiv_update = TorchLinear(f, f, use_bias=False, **kw)
+        if layer_norm:
+            self.layer_norm = LayerNorm(f, device=device, dtype=dtype)
 
 
 class NewtonNetCore(nn.Module):
     '''All parameters of the energy model: node_embedding, interaction_{i},
-    energy_head (F -> F -> F -> 1) and scaler_energy.'''
+    energy_head (F -> F -> F -> 1), scaler_energy and, with
+    trainable_basis, bessel_frequencies (n_basis,).'''
 
     def __init__(self, n_features=128, n_basis=20, n_interactions=3,
+                 activation='swish', layer_norm=False, trainable_basis=False,
                  generator=None, device=None, dtype=torch.float32):
         super().__init__()
         self.n_features = n_features
@@ -112,11 +161,15 @@ class NewtonNetCore(nn.Module):
         emb[0] = 0.0
         self.node_embedding = nn.Parameter(emb)
         for i in range(n_interactions):
-            self.add_module(f'interaction_{i}',
-                            InteractionNet(n_features, n_basis, **kw))
+            self.add_module(f'interaction_{i}', InteractionNet(
+                n_features, n_basis, activation, layer_norm, **kw))
         self.energy_head = MLP(n_features, [n_features, n_features, 1],
-                               nn.functional.silu, **kw)
+                               activation, **kw)
         self.scaler_energy = ScaleShift(device=device, dtype=dtype)
+        if trainable_basis:
+            self.bessel_frequencies = nn.Parameter(
+                torch.arange(1, n_basis + 1, device=device, dtype=dtype)
+                * math.pi)
 
     def interactions(self):
         return [getattr(self, f'interaction_{i}')

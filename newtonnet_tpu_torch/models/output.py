@@ -1,11 +1,18 @@
 '''User-facing NewtonNet: configuration, parameters and derivative heads.
 
 The JAX package's `models/output.py` for the configurations this port
-serves: kernel='pallas' (the fused pair ops) with graph_mode='dense'
-(models/fused_stack.py) or 'neighborlist' (plain full lists,
-models/fused_klist.py), swish, outputs within {energy, gradient_force,
-virial, stress}. Forces, virial and stress are one autograd pass over the
-energy:
+serves, outputs within {energy, gradient_force, virial, stress}:
+
+* kernel='xla' (the default, as there): the plain formulation of
+  models/xla_stack.py, every activation, layer_norm, trainable_basis and
+  compute_dtype, over the dense graph or neighbour lists (plain full
+  lists, or the symmetric-slotted inverse lists of inverse_lists models,
+  whose gathers run kernel K9);
+* kernel='pallas': the fused pair ops, graph_mode='dense'
+  (models/fused_stack.py, K1/K2) or 'neighborlist' (plain full lists,
+  models/fused_klist.py, K5/K6), swish.
+
+Forces, virial and stress are one autograd pass over the energy:
 
     forces = -dE/dpos, virial = -dE/d(displacement),
     stress = dE/d(displacement) / |det(cell)|,
@@ -13,8 +20,10 @@ energy:
 where `displacement` is an identity-valued (B, 3, 3) strain applied
 (symmetrized) to positions and cell before the graph is built.
 
-Other configurations raise NotImplementedError naming the ROADMAP.md item
-that will port them.
+Other configurations (the charge, direct-force, Hessian and BEC heads, and
+kernel='xla''s newton3, newton3_compact, reverse-list and cell-grid list
+layouts) raise NotImplementedError naming the ROADMAP.md item that will
+port them.
 '''
 import contextlib
 from typing import Sequence
@@ -26,6 +35,7 @@ from newtonnet_tpu_torch.models.fused_klist import COMPUTE_DTYPES, \
     apply_core_nlist
 from newtonnet_tpu_torch.models.fused_stack import apply_core
 from newtonnet_tpu_torch.models.newtonnet import NewtonNetCore
+from newtonnet_tpu_torch.models.xla_stack import apply_core_xla
 from newtonnet_tpu_torch.ops.linalg3 import det3x3
 
 DIRECT_PROPERTIES = ('energy', 'charge', 'direct_force')
@@ -41,6 +51,14 @@ _NOT_YET = {
     'hessian': 'ROADMAP.md A, "Hessian"',
     'bec': 'ROADMAP.md A, "BEC"',
 }
+# kernel='xla' list layouts not ported yet: (config key, its part of
+# ROADMAP.md A item 6)
+_XLA_LAYOUTS_NOT_YET = (
+    ('newton3', 'newton3_half_list'),
+    ('newton3_compact', 'newton3_compact / staircase'),
+    ('reverse_lists', 'reverse lists'),
+    ('cell_grid', 'cellgrid'),
+)
 
 
 def resolve_device(device=None):
@@ -74,10 +92,9 @@ def constant_parameters(module):
 class NewtonNet(nn.Module):
     '''NewtonNet energy model with its derivative heads.
 
-    Takes the JAX package's constructor arguments (and validation), plus
-    `device` (CUDA unless 'cpu' is passed), `dtype` of the parameters and
-    a torch.Generator for their initialization. `kernel` defaults to
-    'pallas', the only kernel ported so far.
+    Takes the JAX package's constructor arguments, defaults (kernel='xla')
+    and validation, plus `device` (CUDA unless 'cpu' is passed), `dtype` of
+    the parameters and a torch.Generator for their initialization.
     '''
 
     def __init__(
@@ -104,7 +121,7 @@ class NewtonNet(nn.Module):
             ewald_sigma: float = 1.0,
             ewald_n_k: int = 8,
             ewald_mode: str = 'auto',
-            kernel: str = 'pallas',
+            kernel: str = 'xla',
             pallas_dot_dtype: str = 'float32',
             pallas_grad_dot_dtype: str = 'bfloat16',
             device=None,
@@ -151,14 +168,20 @@ class NewtonNet(nn.Module):
                 raise NotImplementedError(
                     f'output {key!r} is not ported yet ({_NOT_YET[key]})')
         if kernel == 'xla':
-            raise NotImplementedError(
-                "kernel='xla' is not ported yet (ROADMAP.md A, \"XLA "
-                "kernel='xla' path\"); use kernel='pallas'")
+            if graph_mode not in ('dense', 'neighborlist'):
+                raise ValueError(f'unknown graph_mode {graph_mode}')
+            config = dict(newton3=newton3, newton3_compact=newton3_compact,
+                          reverse_lists=reverse_lists, cell_grid=cell_grid)
+            for key, part in _XLA_LAYOUTS_NOT_YET:
+                if config[key] and graph_mode == 'neighborlist':
+                    raise NotImplementedError(
+                        f'{key} is not ported yet (ROADMAP.md A, "XLA '
+                        f'kernel=\'xla\' path": {part})')
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f'compute_dtype must be one of '
                              f'{sorted(COMPUTE_DTYPES)}, got '
                              f'{compute_dtype!r}')
-        if pallas_dot_dtype != 'float32':
+        if kernel == 'pallas' and pallas_dot_dtype != 'float32':
             raise NotImplementedError(
                 f'pallas_dot_dtype={pallas_dot_dtype!r} is not ported yet '
                 '(ROADMAP.md A, "bf16 pair-layer products"): the ported '
@@ -194,6 +217,9 @@ class NewtonNet(nn.Module):
             needs.add('energy')
         self._needs = needs
         self.core = NewtonNetCore(n_features, n_basis, n_interactions,
+                                  activation=activation,
+                                  layer_norm=layer_norm,
+                                  trainable_basis=trainable_basis,
                                   generator=generator,
                                   device=resolve_device(device), dtype=dtype)
 
@@ -225,13 +251,20 @@ class NewtonNet(nn.Module):
         }
 
     def _energy_and_aux(self, z, pos, displacement, cell, pair_op=None,
-                        nlist=None):
+                        nlist=None, plain=False):
         '''Total (summed over graphs) energy and the per-graph outputs, at
         positions and cell strained by the symmetrized displacement.'''
         sym = 0.5 * (displacement + displacement.transpose(-1, -2))
         pos_d = torch.einsum('bni,bij->bnj', pos, sym)
         cell_d = torch.einsum('bxi,bij->bxj', cell, sym)
-        if self.graph_mode == 'neighborlist':
+        if (pair_op is not None and self.kernel != 'pallas') or \
+                (plain and self.kernel != 'xla'):
+            raise ValueError('pair_op applies to kernel=pallas models, '
+                             'plain to kernel=xla models')
+        if self.kernel == 'xla':
+            out = apply_core_xla(self, z, pos_d, cell_d, nlist=nlist,
+                                 plain=plain)
+        elif self.graph_mode == 'neighborlist':
             out = apply_core_nlist(self, z, pos_d, cell_d, nlist=nlist,
                                    pair_op=pair_op)
         else:
@@ -241,18 +274,22 @@ class NewtonNet(nn.Module):
         out['energy'] = energy
         return torch.sum(energy), out
 
-    def forward(self, z, pos, cell, pair_op=None, nlist=None):
+    def forward(self, z, pos, cell, pair_op=None, nlist=None, plain=False):
         '''Full forward pass.
 
         Args:
             z: (B, N) int atomic numbers, 0 = padding.
             pos: (B, N, 3) positions.
             cell: (B, 3, 3) lattice rows (all-zero = aperiodic).
-            pair_op: the pair-interaction op of the graph mode (default: the
-                fused kernels).
+            pair_op: kernel='pallas': the pair-interaction op of the graph
+                mode (default: the fused kernels).
             nlist: optional precomputed (idx, mask) neighbour lists, each
-                (B, N, K) (graph_mode='neighborlist' only; None builds them
-                at pos).
+                (B, N, K), or for an inverse_lists model (kernel='xla') the
+                4-tuple (idx, mask, inv, inv_mask) of
+                md/driver.host_symmetric_nlist (graph_mode='neighborlist'
+                only; None builds a plain list at pos).
+            plain: kernel='xla': run the inverse-list gathers through the
+                plain row gather instead of kernel K9.
 
         Returns:
             dict with energy (B,), the configured derivative outputs
@@ -267,7 +304,7 @@ class NewtonNet(nn.Module):
         # the outputs are detached: no parameter cotangent is ever read
         with torch.enable_grad(), constant_parameters(self.core):
             total, out = self._energy_and_aux(z, pos, displacement, cell,
-                                              pair_op, nlist)
+                                              pair_op, nlist, plain)
             if need_grad:
                 pos_grad, disp_grad = torch.autograd.grad(
                     total, (pos, displacement))

@@ -16,7 +16,8 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, 'csrc')
 BUILD_DIR = os.path.join(_PKG, '_build')
-SOURCES = ('fused_dense', 'fused_dual', 'fused_klist')
+SOURCES = ('fused_dense', 'fused_dual', 'fused_klist', 'row_gather',
+           'window')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 

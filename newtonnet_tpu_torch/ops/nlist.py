@@ -1,5 +1,6 @@
-'''Padded full neighbour lists for large systems (the JAX package's
-`ops/nlist.py`, its plain full-list part).
+'''Padded neighbour lists for large systems (the JAX package's
+`ops/nlist.py`: plain full lists, and the symmetric-slotted inverse lists
+of kernel='xla').
 
 Instead of the dense (B, N, N) pair tensor (ops/neighbors.py), the graph
 is a padded per-atom list of static width K = k_max:
@@ -11,15 +12,30 @@ is a padded per-atom list of static width K = k_max:
 Construction is O(N^2) in distances, row-chunked (never more than
 (chunk, N) at once), and keeps the K nearest in-range neighbours per atom
 with torch.topk; atoms with more than K neighbours inside the cutoff lose
-their farthest ones and are counted in `overflow`. The half, inverse,
-reverse, staircase and cell-grid layouts belong to kernel='xla' and are
-not here (ROADMAP.md A, "XLA kernel='xla' path"). minimum_image takes
+their farthest ones and are counted in `overflow`. minimum_image takes
 (B, N, K, 3) edges as they are, so the JAX package's `_mic_edges` reshape
 has no counterpart.
+
+Inverse lists (kernel='xla', inverse_lists): symmetrize_slots re-slots a
+full list on the host so that every undirected edge holds the same slot
+in both endpoints' rows; in the K-major (B, K, N) layout each slot is then
+an involution, its own inverse list (build_inverse_list). inv_gather and
+inv_scatter_sum are a mutually transposed pair of autograd Functions over
+such lists: the neighbour gather, and its adjoint as a sum of per-chunk
+gathers, both through the row gather (ops/row_gather.py, kernel K9), so
+every derivative order is gather-only and no scatter-add (and no atomic)
+runs. The half (newton3), reverse, staircase and cell-grid layouts are not
+ported (ROADMAP.md A, "XLA kernel='xla' path").
 '''
+import numpy as np
 import torch
 
 from newtonnet_tpu_torch.ops.neighbors import minimum_image
+from newtonnet_tpu_torch.ops.row_gather import row_gather, row_gather_ref
+
+# slots per chunk of inv_scatter_sum: one row gather over a (B, c*N, F)
+# stack per chunk (the JAX package's NEWTONNET_SCATTER_CHUNK default)
+SCATTER_CHUNK = 6
 
 
 def neighbor_list(pos, cell, atom_mask, cutoff, k_max, mic_mode='exact',
@@ -84,3 +100,180 @@ def gather_nodes(x, idx):
     flat = x.reshape(B, N, -1)
     index = idx.long().reshape(B, R * K, 1).expand(B, R * K, flat.shape[-1])
     return torch.gather(flat, 1, index).reshape((B, R, K) + x.shape[2:])
+
+
+def recompute_displacements_kn(pos, cell, idx_kn, inv, inv_mask,
+                               mic_mode='exact', plain=False):
+    '''K-major displacements disp[b, k, n] = pos[b, n] - pos[b,
+    idx_kn[b, k, n]], minimum-imaged, with the neighbour positions gathered
+    by inv_gather: the backward onto pos is inv_scatter_sum, no
+    scatter-add. Needs symmetric-slotted lists (symmetrize_slots).'''
+    is_periodic = torch.any((cell != 0).flatten(1), dim=-1)
+    pos_j = inv_gather(pos, idx_kn, inv, inv_mask, plain)   # (B, K, N, 3)
+    return minimum_image(pos[:, None] - pos_j, cell, is_periodic,
+                         mic_mode=mic_mode)
+
+
+def symmetrize_slots(idx, kmask, k_max=None):
+    '''Re-slot a symmetric neighbour list so that each undirected edge
+    (i, j) takes the SAME slot c in both endpoint rows: out_idx[i, c] = j
+    and out_idx[j, c] = i. Host-side numpy (the JAX package's reference
+    loop; its C++ builder is not ported).
+
+    The edge set is unchanged. Greedy coloring in descending-degree edge
+    order, each edge taking the lowest slot free in both rows; it needs a
+    few slots more than the largest degree.
+
+    Args:
+        idx, kmask: (N, K) or (B, N, K) numpy arrays.
+        k_max: output slot capacity (default K). Raises ValueError if the
+            coloring needs more.
+
+    Returns:
+        (idx2, kmask2) with k_max slots.'''
+    if idx.ndim == 3:
+        outs = [symmetrize_slots(idx[b], kmask[b], k_max)
+                for b in range(idx.shape[0])]
+        return (np.stack([o[0] for o in outs]),
+                np.stack([o[1] for o in outs]))
+    idx = np.asarray(idx)
+    kmask = np.asarray(kmask)
+    N, K = idx.shape
+    k_max = k_max or K
+    rows = np.repeat(np.arange(N), K)[kmask.ravel()]
+    cols = idx.ravel()[kmask.ravel()]
+    lo, hi = np.minimum(rows, cols), np.maximum(rows, cols)
+    pairs = np.unique(np.stack([lo, hi], axis=1), axis=0)
+    deg = np.bincount(pairs[:, 0], minlength=N) \
+        + np.bincount(pairs[:, 1], minlength=N)
+    order = np.argsort(-(deg[pairs[:, 0]] + deg[pairs[:, 1]]),
+                       kind='stable')
+    used = np.zeros((N, k_max), bool)
+    idx2 = np.zeros((N, k_max), idx.dtype)
+    kmask2 = np.zeros((N, k_max), bool)
+    for i, j in pairs[order]:
+        free = ~(used[i] | used[j])
+        if not free.any():
+            raise ValueError(
+                f'symmetrize_slots: >{k_max} shared slots needed '
+                f'(max degree {deg.max()}); raise k_max')
+        c = int(np.argmax(free))
+        used[i, c] = used[j, c] = True
+        idx2[i, c], idx2[j, c] = j, i
+        kmask2[i, c] = kmask2[j, c] = True
+    return idx2, kmask2
+
+
+def build_inverse_list(idx_kn, kmask_kn):
+    '''Per-slot inverse lists of a K-major list idx_kn (B, K, N):
+    idx_kn[b, k, inv[b, k, j]] == j wherever inv_mask[b, k, j]. Exact only
+    where each slot's map n -> idx_kn[k, n] is injective on valid entries,
+    as for symmetric-slotted lists (there inv == idx_kn); a colliding edge
+    is dropped.
+
+    Returns inv (B, K, N) int64 (0 where invalid) and inv_mask (B, K, N)
+    bool.'''
+    B, K, N = idx_kn.shape
+    src = torch.arange(N, device=idx_kn.device).expand(B, K, N)
+    tgt = torch.where(kmask_kn, idx_kn.long(), N)  # invalid -> column N
+    filled = torch.full((B, K, N + 1), -1, dtype=torch.int64,
+                        device=idx_kn.device)
+    filled.scatter_reduce_(2, tgt, src, reduce='amax')
+    inv = filled[..., :N]
+    return inv.clamp_min(0), inv >= 0
+
+
+def _gather_kn(x, idx_kn, plain):
+    '''x (B, N, ...) -> (B, K, N, ...) at idx_kn (B, K, N): one row
+    gather.'''
+    B, K, N = idx_kn.shape
+    flat = x.reshape(B, x.shape[1], -1)
+    fn = row_gather_ref if plain else row_gather
+    out = fn(flat, idx_kn.reshape(B, K * N))
+    return out.reshape((B, K, N) + x.shape[2:])
+
+
+def _scatter_kn(y, inv, inv_mask, plain):
+    '''out[b, j] = sum_k where(inv_mask[b, k, j], y[b, k, inv[b, k, j]], 0)
+    for y (B, K, N, ...): per chunk of SCATTER_CHUNK slots one row gather
+    whose source is the chunk's (B, c*N, F) stack (a view of y), then the
+    mask, the sum over the chunk and the accumulation, in y's dtype (the
+    JAX package's _inv_scatter_impl; its last chunk is padded with masked
+    slots, here it is narrower, which adds the same zeros).'''
+    B, K, N = inv.shape
+    feat = y.shape[3:]
+    y = y.reshape(B, K, N, -1).contiguous()
+    Ff = y.shape[-1]
+    fn = row_gather_ref if plain else row_gather
+    acc = torch.zeros((B, N, Ff), dtype=y.dtype, device=y.device)
+    for k0 in range(0, K, SCATTER_CHUNK):
+        c = min(SCATTER_CHUNK, K - k0)
+        offs = torch.arange(c, device=inv.device, dtype=inv.dtype) * N
+        iv = (inv[:, k0:k0 + c] + offs[None, :, None]).reshape(B, c * N)
+        g = fn(y[:, k0:k0 + c].reshape(B, c * N, Ff), iv)
+        g = torch.where(inv_mask[:, k0:k0 + c].reshape(B, c * N, 1), g, 0)
+        acc = acc + g.reshape(B, c, N, Ff).sum(1)
+    return acc.reshape((B, N) + feat)
+
+
+class InvGather(torch.autograd.Function):
+    '''out[b, k, n] = x[b, idx_kn[b, k, n]]; backward InvScatterSum.
+
+    apply(x, idx_kn, inv, inv_mask, plain) -> (B, K, N, ...)'''
+
+    @staticmethod
+    def forward(ctx, x, idx_kn, inv, inv_mask, plain=False):
+        ctx.save_for_backward(idx_kn, inv, inv_mask)
+        ctx.plain = plain
+        return _gather_kn(x, idx_kn, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx_kn, inv, inv_mask = ctx.saved_tensors
+        return (InvScatterSum.apply(g, idx_kn, inv, inv_mask, ctx.plain),
+                None, None, None, None)
+
+
+class InvScatterSum(torch.autograd.Function):
+    '''The adjoint of InvGather; backward InvGather.
+
+    apply(y, idx_kn, inv, inv_mask, plain) -> (B, N, ...)'''
+
+    @staticmethod
+    def forward(ctx, y, idx_kn, inv, inv_mask, plain=False):
+        ctx.save_for_backward(idx_kn, inv, inv_mask)
+        ctx.plain = plain
+        return _scatter_kn(y, inv, inv_mask, plain)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx_kn, inv, inv_mask = ctx.saved_tensors
+        return (InvGather.apply(g, idx_kn, inv, inv_mask, ctx.plain),
+                None, None, None, None)
+
+
+def inv_gather(x, idx_kn, inv, inv_mask, plain=False):
+    '''K-major neighbour gather with a scatter-free backward.
+
+    out[b, k, n] = x[b, idx_kn[b, k, n]] (gather_nodes' values on the
+    transposed list), through row_gather: kernel K9 on the card, or with
+    plain=True its plain version on any device. Its cotangent accumulates
+    onto the atoms through inv_scatter_sum, whose own backward is this
+    gather, so every derivative order runs gathers only.
+
+    Args:
+        x: (B, N, ...) node features.
+        idx_kn, inv, inv_mask: (B, K, N) forward and inverse lists
+            (build_inverse_list; symmetric-slotted lists are their own).
+
+    Returns:
+        (B, K, N, ...) gathered neighbour features.'''
+    return InvGather.apply(x, idx_kn, inv, inv_mask, plain)
+
+
+def inv_scatter_sum(y, idx_kn, inv, inv_mask, plain=False):
+    '''Adjoint of inv_gather: out[b, j] = sum over (k, n) with
+    idx_kn[b, k, n] == j of y[b, k, n], as chunks of row gathers (see
+    _scatter_kn). Exact only for per-slot injective lists
+    (build_inverse_list).'''
+    return InvScatterSum.apply(y, idx_kn, inv, inv_mask, plain)

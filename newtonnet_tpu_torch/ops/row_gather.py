@@ -1,0 +1,88 @@
+'''Row gather out[b, r] = x[b, idx[b, r]]: the plain version and the CUDA
+wrapper of kernel K9 (the JAX package's `ops/pallas_gather.py`; K12,
+`tools/exp_pallas_gather.py`, is the same function at B = 1).
+
+The neighbour gather of the inverse-list layout and every chunk of its
+transpose run through row_gather (ops/nlist.py: inv_gather,
+inv_scatter_sum). On the card it launches `csrc/row_gather.cu:nn_row_gather`
+for any width and dtype; on the CPU it runs the plain version. A CUDA
+tensor either launches the kernel or raises: nothing falls back. The TPU
+kernel's eligibility rules (F >= 128, a VMEM budget, the NEWTONNET_GATHER
+opt-in) are TPU limits with no counterpart here.
+'''
+import ctypes
+
+import torch
+
+# Launches counted by the wrapper: all of them, and those at B = 1 (the
+# 2-D form of tools/exp_pallas_gather.py, K12).
+LAUNCHES = {'row_gather': 0, 'row_gather_b1': 0}
+INDEX_DTYPES = (torch.int32, torch.int64)
+
+
+def reset_launch_counts():
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def row_gather_ref(x, idx):
+    '''Plain PyTorch: x (B, N, F), idx (B, R) int -> (B, R, F).'''
+    b = torch.arange(x.shape[0], device=x.device)[:, None]
+    return x[b, idx.long()]
+
+
+def _lib():
+    from newtonnet_tpu_torch.ops import _build
+    lib = _build.load('row_gather')
+    if not getattr(lib, '_nn_typed', False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nn_row_gather.argtypes = [p, p, p, i, i, i, i, ctypes.c_longlong,
+                                      i, p]
+        lib.nn_row_gather.restype = i
+        lib._nn_typed = True
+    return lib
+
+
+def row_gather(x, idx):
+    '''out[b, r] = x[b, idx[b, r]]: kernel K9 for CUDA tensors, the plain
+    version for CPU tensors.
+
+    Args:
+        x: (B, N, F) with contiguous rows (a batch stride other than N*F is
+            taken as it is: a slot chunk of a larger tensor needs no copy).
+        idx: (B, R) int32 or int64, in [0, N).
+
+    Returns:
+        (B, R, F) in x's dtype.'''
+    if x.device.type == 'cpu':
+        return row_gather_ref(x, idx)
+    if x.device.type != 'cuda':
+        raise ValueError(f'no kernel for device {x.device}')
+    if x.dim() != 3 or idx.dim() != 2 or idx.shape[0] != x.shape[0]:
+        raise ValueError(f'expected x (B, N, F) and idx (B, R), got '
+                         f'{tuple(x.shape)} and {tuple(idx.shape)}')
+    if idx.device != x.device:
+        raise ValueError(f'idx is on {idx.device}, expected {x.device}')
+    if idx.dtype not in INDEX_DTYPES:
+        raise TypeError(f'idx must be one of {INDEX_DTYPES}, got {idx.dtype}')
+    B, N, F = x.shape
+    R = idx.shape[1]
+    if not idx.is_contiguous():
+        raise ValueError('idx must be contiguous')
+    if x.stride(2) != 1 or (N > 1 and x.stride(1) != F) \
+            or x.stride(0) % max(F, 1):
+        raise ValueError('the rows of x must be contiguous')
+    out = torch.empty((B, R, F), dtype=x.dtype, device=x.device)
+    if B * R * F == 0:
+        return out
+    bstride = x.stride(0) // F if B > 1 else N
+    err = _lib().nn_row_gather(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, R,
+        F * x.element_size(), bstride, int(idx.dtype == torch.int64),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'nn_row_gather launch failed: cudaError_t {err}')
+    LAUNCHES['row_gather'] += 1
+    if B == 1:
+        LAUNCHES['row_gather_b1'] += 1
+    return out

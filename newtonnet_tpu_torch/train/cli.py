@@ -7,8 +7,10 @@ The same YAML schema (general / data / model / training). general.device
 'cpu' trains on the CPU (the kernels' plain versions); any other value
 trains on CUDA and raises where there is none. model.pretrained_model.path
 to a .msgpack checkpoint warm-starts from it, with its freeze flags.
-Not ported, and refused with NotImplementedError: a .pt warm start,
-training.parallel, training.wandb and general.debug_nans.
+Not ported, and refused with NotImplementedError before any data is
+read: a kernel='xla' model (a model section, or a pretrained checkpoint,
+without `kernel: pallas`), a .pt warm start, training.parallel,
+training.wandb and general.debug_nans.
 '''
 import argparse
 import os
@@ -54,23 +56,30 @@ def train_from_settings(settings, settings_path=None, resume=None):
     from newtonnet_tpu_torch.data.statistics import set_scalers
     from newtonnet_tpu_torch.layers.precision import get_precision_by_string
     from newtonnet_tpu_torch.models.output import NewtonNet, resolve_device
+    from newtonnet_tpu_torch.train.fastgrad import refuse_unported_kernel
     from newtonnet_tpu_torch.train.loss import get_loss_by_string
     from newtonnet_tpu_torch.train.optimizer import (
         get_optimizer_by_string,
         get_scheduler_by_string,
     )
     from newtonnet_tpu_torch.train.trainer import Trainer
-    from newtonnet_tpu_torch.utils.checkpoint import load_model
+    from newtonnet_tpu_torch.utils.checkpoint import load_model, read_config
 
     device = resolve_device('cpu' if general.get('device') == 'cpu'
                             else None)
+    pretrained = settings['model'].get('pretrained_model')
+    model_config = settings['model']
+    if pretrained is not None and not str(pretrained['path']).endswith(
+            '.pt'):
+        model_config = read_config(str(pretrained['path']))
+    refuse_unported_kernel(model_config.get('kernel', 'xla'))
     dtype = get_precision_by_string(general['precision'])
     seed = general.get('seed', 0)
     train_gen, val_gen, test_gen, stats = parse_train_test(
         precision=np.dtype(str(dtype).split('.')[-1]), seed=seed,
         **settings['data'])
 
-    pretrained = settings['model'].pop('pretrained_model', None)
+    settings['model'].pop('pretrained_model', None)
     freeze = None
     if pretrained is not None:
         path = str(pretrained['path'])

@@ -41,6 +41,16 @@ def supports(losses):
     return losses is not None and set(losses) <= SUPPORTED_KEYS
 
 
+def refuse_unported_kernel(kernel):
+    '''Training runs the fused kernels' first-order surrogate: only
+    kernel='pallas' models train so far.'''
+    if kernel != 'pallas':
+        raise NotImplementedError(
+            f'training kernel={kernel!r} models is not ported yet '
+            '(ROADMAP.md A, "XLA training"); kernel=\'pallas\' models '
+            'train')
+
+
 def _forces(model, z, pos, cell, pair_op=None, nlist=None):
     '''Energies (B,) and forces (B, N, 3) with every parameter held
     constant, as the JAX package closes over them: K2 (K6) then computes no
@@ -85,10 +95,7 @@ def value_and_grad(model, main_loss, batch, pair_op=None, dual_op=None,
     predictions {'energy': (B,), 'gradient_force': (B, N, 3)}. The gradient
     is left in each parameter's .grad (parameters with requires_grad
     False get none).'''
-    if model.kernel != 'pallas':
-        raise NotImplementedError(
-            f'fastgrad for kernel={model.kernel!r} is not ported yet '
-            "(ROADMAP.md A, \"XLA kernel='xla' path\")")
+    refuse_unported_kernel(model.kernel)
     z, pos, cell = batch['z'], batch['pos'], batch['cell']
     klist = model.graph_mode == 'neighborlist'
     if klist:

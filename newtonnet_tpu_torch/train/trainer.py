@@ -12,7 +12,8 @@ built on the device in every step); evaluation runs NewtonNet.forward
 (K1/K2, or K5/K6). All matrix products are IEEE fp32: TF32 is off while
 the Trainer runs.
 
-Not here (ROADMAP.md A, "parallelism" and "XLA kernel='xla' path"):
+Not here (ROADMAP.md A, "parallelism", "XLA training" and "XLA
+kernel='xla' path"): kernel='xla' models (refused before anything else),
 meshes, halo exchange, several processes, precomputed neighbour lists,
 wandb and the profiler hook. The JAX Trainer's steps_per_call, which
 chunks steps into one device dispatch, has no counterpart: eager PyTorch
@@ -76,6 +77,7 @@ class Trainer:
             freeze=None,
             fast_grad='auto',
             ):
+        fastgrad.refuse_unported_kernel(model.kernel)
         self.model = model
         model.requires_grad_(True)
         apply_freeze(model.core, **(freeze or {}))

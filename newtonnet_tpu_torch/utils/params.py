@@ -19,14 +19,18 @@ def _flatten(tree, prefix=''):
 def params_from_flax(tree, core=None, device='cpu'):
     '''Load a flax `{'params': {...}}` tree of arrays into a NewtonNetCore.
 
-    With core=None a core is built on `device` with the widths read from
-    the tree. Raises if the names or shapes differ. Returns the core.'''
+    With core=None a core is built on `device` with the widths, the layer
+    norms and the trainable basis read from the tree (and the swish
+    activation's layer widths). Raises if the names or shapes differ.
+    Returns the core.'''
     p = tree['params']
     if core is None:
         n_int = sum(k.startswith('interaction_') for k in p)
         F = np.shape(p['node_embedding'])[1]
         R = np.shape(p['interaction_0']['message_edgepart']['kernel'])[0]
-        core = NewtonNetCore(F, R, n_int, device=device)
+        core = NewtonNetCore(
+            F, R, n_int, layer_norm='layer_norm' in p['interaction_0'],
+            trainable_basis='bessel_frequencies' in p, device=device)
     flat = dict(_flatten(p))
     own = dict(core.named_parameters())
     if set(flat) != set(own):

@@ -160,8 +160,8 @@ def test_unported_neighbour_list_options_are_refused():
     '''bf16 products in the fused layers are not ported; an unknown
     compute_dtype is an error.'''
     with pytest.raises(NotImplementedError, match='ROADMAP.md A'):
-        NewtonNet(graph_mode='neighborlist', pallas_dot_dtype='bfloat16',
-                  device='cpu')
+        NewtonNet(graph_mode='neighborlist', kernel='pallas',
+                  pallas_dot_dtype='bfloat16', device='cpu')
     with pytest.raises(ValueError, match='compute_dtype'):
         NewtonNet(graph_mode='neighborlist', compute_dtype='float16',
                   device='cpu')

@@ -22,14 +22,19 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.data.pipeline
         import newtonnet_tpu_torch.data.statistics
         import newtonnet_tpu_torch.data.units
+        import newtonnet_tpu_torch.layers.activations
         import newtonnet_tpu_torch.md.calculator
+        import newtonnet_tpu_torch.md.driver
         import newtonnet_tpu_torch.models.fused_klist
         import newtonnet_tpu_torch.models.fused_stack
+        import newtonnet_tpu_torch.models.xla_stack
         import newtonnet_tpu_torch.ops._build
         import newtonnet_tpu_torch.ops.fused_dense
         import newtonnet_tpu_torch.ops.fused_dual
         import newtonnet_tpu_torch.ops.fused_klist
         import newtonnet_tpu_torch.ops.nlist
+        import newtonnet_tpu_torch.ops.row_gather
+        import newtonnet_tpu_torch.ops.window
         import newtonnet_tpu_torch.train.cli
         import newtonnet_tpu_torch.train.fastgrad
         import newtonnet_tpu_torch.train.loss
@@ -68,7 +73,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 
 @pytest.mark.parametrize('kw, item', [
-    ({'kernel': 'xla'}, 'XLA'),
+    ({'graph_mode': 'neighborlist', 'reverse_lists': True}, 'XLA'),
     ({'graph_mode': 'neighborlist', 'newton3': True, 'kernel': 'xla'},
      'XLA'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'hessian']},

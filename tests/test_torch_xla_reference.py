@@ -1,0 +1,165 @@
+'''The JAX package's numbers that chip_smoke.py holds the kernel='xla'
+phases to, the recipes that make them, and checks that they reproduce.
+
+    python tests/test_torch_xla_reference.py mae   # JAX_XLA_*_MAE
+    python tests/test_torch_xla_reference.py box   # JAX_XLA_BOX_*
+
+`mae`: the energy and force MAE of the trained kernel='xla' checkpoint
+artifacts/md17_model/best_model.msgpack on the 500 MD17-aspirin test
+frames in batches of 100 (padded to 21 atoms), through the dense model and
+through graph_mode neighborlist with inverse_lists, k_max 48 and the lists
+of the JAX package's host_symmetric_nlist. `box`: one request (energy,
+forces of the first 8 atoms) on chip_smoke.py's box recipe (box_system) at
+BOX_REF_ATOMS = 512 atoms, in inverse-list mode with k_max 88 and
+box_weights' weights, with a bf16 interaction stack and, for the spread
+that its rounding makes, in float32. Both run the JAX package on the CPU
+(the machine with the card has no flax).
+'''
+import importlib.util
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+XLA_CKPT = os.path.join(ROOT, 'artifacts', 'md17_model',
+                        'best_model.msgpack')
+XYZ = os.path.join(ROOT, 'data', 'md17_aspirin', 'ccsd_test', 'raw',
+                   'aspirin_ccsd-test.xyz')
+BOX_REF_ATOMS = 512
+
+
+def chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(ROOT, 'chip_smoke.py'))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def aspirin_batches():
+    from newtonnet_tpu_torch.data.loader import collate, parse_xyz
+    samples = parse_xyz(XYZ)
+    return [collate(samples[k:k + 100], n_pad=21)
+            for k in range(0, len(samples), 100)]
+
+
+def jax_aspirin_mae(inverse_lists, batches=None):
+    '''The JAX package's (energy MAE, force MAE) of the XLA checkpoint over
+    the batches (default: all 500 test frames).'''
+    from newtonnet_tpu.md.driver import host_symmetric_nlist
+    from newtonnet_tpu.models import NewtonNet
+    from newtonnet_tpu.utils.checkpoint import load_model
+    model, params = load_model(XLA_CKPT)
+    if inverse_lists:
+        model = NewtonNet(**dict(model.config_dict(),
+                                 graph_mode='neighborlist', k_max=48,
+                                 inverse_lists=True))
+    apply = jax.jit(lambda p, z, pos, cell, nl: model.apply(
+        p, z, pos, cell, nlist=nl))
+    ae = af = 0.0
+    n_frames = n_forces = 0
+    for b in batches or aspirin_batches():
+        nl = (host_symmetric_nlist(model, b['z'], b['pos'], b['cell'],
+                                   skin=0.0) if inverse_lists else None)
+        out = apply(params, jnp.asarray(b['z']), jnp.asarray(b['pos']),
+                    jnp.asarray(b['cell']), nl)
+        e = np.asarray(out['energy'], np.float64)
+        f = np.asarray(out['gradient_force'], np.float64)
+        ae += np.abs(e - b['energy']).sum()
+        af += np.abs(f - b['force']).sum()
+        n_frames += len(e)
+        n_forces += f.size
+    return ae / n_frames, af / n_forces
+
+
+def port_box_model(compute_dtype):
+    '''chip_smoke.py's XLA box model on the CPU.'''
+    import torch
+
+    from newtonnet_tpu_torch import load_model
+    base = load_model(XLA_CKPT, device='cpu')
+    return chip_smoke().box_model(
+        torch, base.config_dict(), compute_dtype,
+        ['energy', 'gradient_force', 'stress'], device='cpu',
+        inverse_lists=True)
+
+
+def jax_box_request(n_atoms, compute_dtype):
+    '''The JAX package's energy and forces on box_system(n_atoms) with
+    box_model's weights, inverse lists from its host_symmetric_nlist.'''
+    from newtonnet_tpu.md.driver import host_symmetric_nlist
+    from newtonnet_tpu.models import NewtonNet
+    from newtonnet_tpu_torch.utils.params import params_to_flax
+    tm = port_box_model(compute_dtype)
+    jm = NewtonNet(**tm.config_dict())
+    params = params_to_flax(tm.core)
+    z, pos, cell, _, _ = chip_smoke().box_system(n_atoms)
+    nl = host_symmetric_nlist(jm, z, pos, cell, skin=0.0)
+    out = jax.jit(lambda p, a, b, c, n: jm.apply(p, a, b, c, nlist=n))(
+        params, jnp.asarray(z), jnp.asarray(pos), jnp.asarray(cell), nl)
+    return float(out['energy'][0]), np.asarray(out['gradient_force'][0])
+
+
+def test_embedded_aspirin_maes_reproduce():
+    '''chip_smoke.py's JAX_XLA_* constants are this recipe's numbers: the
+    dense and inverse-list MAEs over all 500 frames, to 1e-6 relative.'''
+    cs = chip_smoke()
+    batches = aspirin_batches()
+    for inverse, (e_want, f_want) in (
+            (False, (cs.JAX_XLA_ENERGY_MAE, cs.JAX_XLA_FORCE_MAE)),
+            (True, (cs.JAX_XLA_INV_ENERGY_MAE, cs.JAX_XLA_INV_FORCE_MAE))):
+        e_mae, f_mae = jax_aspirin_mae(inverse, batches)
+        assert e_mae == pytest.approx(e_want, rel=1e-6)
+        assert f_mae == pytest.approx(f_want, rel=1e-6)
+
+
+def test_box_recipe_matches_the_port_at_256_atoms():
+    '''The XLA box recipe at 256 atoms: the port's inverse-list model
+    (plain row gather) against the JAX package's, each with its own
+    lists. float32: energy at rtol 1e-5, forces to 1e-4 of their largest
+    magnitude. bf16 stack: within four times the larger bf16-to-fp32
+    spread of the two packages (XLA on the CPU keeps float32 between the
+    bf16 operations of a fusion, the port rounds every operation's
+    output, so its spread is the larger).'''
+    import torch
+
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    z, pos, cell, _, _ = chip_smoke().box_system(256)
+    got = {}
+    for cd in ('', 'bfloat16'):
+        tm = port_box_model(cd)
+        args = [torch.from_numpy(a) for a in (z, pos, cell)]
+        out = tm(*args, nlist=host_symmetric_nlist(tm, *args, skin=0.0))
+        got[cd] = (float(out['energy'][0]), out['gradient_force'][0].numpy())
+    e32, f32 = jax_box_request(256, '')
+    e16, f16 = jax_box_request(256, 'bfloat16')
+    assert got[''][0] == pytest.approx(e32, rel=1e-5)
+    assert np.abs(got[''][1] - f32).max() <= 1e-4 * np.abs(f32).max()
+    spread_e = max(abs(e16 - e32), abs(got['bfloat16'][0] - got[''][0]))
+    spread_f = max(np.abs(f16 - f32).max(),
+                   np.abs(got['bfloat16'][1] - got[''][1]).max())
+    assert abs(got['bfloat16'][0] - e16) <= 4 * spread_e
+    assert np.abs(got['bfloat16'][1] - f16).max() <= 4 * spread_f
+    assert chip_smoke().BOX_REF_ATOMS == BOX_REF_ATOMS
+
+
+if __name__ == '__main__':
+    sys.path.insert(0, ROOT)
+    jax.config.update('jax_platforms', 'cpu')
+    np.set_printoptions(precision=9)
+    if sys.argv[1:] == ['mae']:
+        for inverse, tag in ((False, ''), (True, '_INV')):
+            e, f = jax_aspirin_mae(inverse)
+            print(f'JAX_XLA{tag}_ENERGY_MAE, JAX_XLA{tag}_FORCE_MAE =',
+                  repr(e), ',', repr(f), flush=True)
+    elif sys.argv[1:] == ['box']:
+        for cd, tag in (('bfloat16', ''), ('', '_FP32')):
+            e, f = jax_box_request(BOX_REF_ATOMS, cd)
+            print(f'JAX_XLA_BOX{tag}_ENERGY =', repr(e))
+            print(f'JAX_XLA_BOX{tag}_FORCES_8 =', f[:8].tolist(), flush=True)
+    else:
+        sys.exit('usage: test_torch_xla_reference.py mae|box')
