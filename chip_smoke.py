@@ -21,8 +21,10 @@ with a non-zero exit code and no result line):
    klist    K5-K8 (K6 with and without weight cotangents) against theirs,
             both variants, at the large box's shape (B=1, N=4096, K=88,
             F=128, R=20, bf16 edges), at (B=100, N=21, K=20) and at (B=2,
-            N=70, K=37, F=64, R=16) in fp32; bar 1e-4 of each output's
-            largest magnitude, plus one bf16 ulp for bf16-stored outputs.
+            N=70, K=37, F=64, R=16) in fp32, and ragged at (B=3, N=61,
+            K=39, F=32, R=12) in bf16; bar 1e-4 of each output's largest
+            magnitude, plus one bf16 ulp for bf16-stored outputs (K8 on the
+            tensor cores in 3xTF32 holds the same bar).
 3e. gather  K9 (row_gather) against the plain row gather, bitwise, at the
             box's inv_gather shapes (bf16, fp32; 4F, F and positions), its
             scatter-chunk shape, the aspirin shapes and odd widths; K12
@@ -42,6 +44,9 @@ with a non-zero exit code and no result line):
 5. requests 20 single-molecule calculator calls (energy, forces, stress,
             virial), 10 aperiodic and 10 in a 30 A periodic box; they must
             match phase 4 at the same tolerances.
+   tf32     one request with both TF32 flags switched on gives the bits
+            of one with them off (the calculator pins fp32 products); the
+            same for one XLA box request in 5c.
    profile  one batch and one request under torch.profiler: device busy
             time, idle share, the fused kernels' share, the top kernels.
 4b. serve-nlist  the same 500 frames through the checkpoint in
@@ -52,8 +57,10 @@ with a non-zero exit code and no result line):
             bf16 edges, box_weights): against the plain path on the card,
             and on the 512-atom box against the JAX package's numbers, at
             bars of BOX_SPREAD_FACTOR times the bf16-to-fp32-edge spread;
-            request latency; then one request under torch.profiler with
-            the gather and scatter-add times apart.
+            three requests give forces of equal bits (gather_nodes'
+            fixed-order backward); request latency; then one request under
+            torch.profiler with the gather backward's device time beside
+            the 13.2 ms of the atomic scatter-add it replaced.
 7. train    fine-tuning from the checkpoint with scripts/config_md17_pallas.yml
             (F=128, R=20, 3 interactions, energy + 50 x force mse, Adam
             1e-3, clip 1.0, plateau, batch 10, bf16 duals):
@@ -73,8 +80,10 @@ with a non-zero exit code and no result line):
                fp32 duals (the same function); c. one epoch of 10 steps
                (train_size 100) through train_from_settings.
 7e. box-train  three fastgrad steps with Adam on the box, step 1 against
-            the plain path on the card (2e-3 relative norm); one step under
-            torch.profiler.
+            the plain path on the card (2e-3 relative norm); three
+            gradients from one start with equal bits; one step under
+            torch.profiler, split into K8, K7, K6, K5, the gather backward
+            and the rest.
 4c. serve-xla  the trained kernel='xla' checkpoint (artifacts/md17_model)
             on the 500 frames, dense and over inverse lists (k_max 48,
             host_symmetric_nlist; K9): the JAX package's MAE bars, the
@@ -91,7 +100,8 @@ with a non-zero exit code and no result line):
             least time the card could take: K1/K2 at the batched serving
             shape (fp32 bound), K3/K4 at the training shape in bf16 mode
             (the training path's; bf16 tensor-core bound) and in fp32 mode;
-            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work);
+            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work; K8
+            also its 3xTF32 tensor-core bound);
             K9 (box inv_gather and scatter-chunk shapes), K12, K10 and K11
             with one PyTorch call's time beside them (index_select,
             index_add_), bound by bytes.
@@ -127,9 +137,9 @@ KERNEL_BAR = 1e-4
 # the JAX package's own bf16 bar of 2e-2 relative norm
 # (tests/test_pallas_stack.py:240).
 DUAL_BF16_BAR = 2e-3
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, bf16 tensor
-# cores (dense), HBM3 rate
-PEAK_FP32_FLOPS, PEAK_BF16_FLOPS = 67e12, 989e12
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, bf16 and tf32
+# tensor cores (dense), HBM3 rate
+PEAK_FP32_FLOPS, PEAK_BF16_FLOPS, PEAK_TF32_FLOPS = 67e12, 989e12, 495e12
 PEAK_BYTES_PER_S = 3.35e12
 SOURCES = {'pair': 'newtonnet_tpu_torch/csrc/fused_dense.cu',
            'dual': 'newtonnet_tpu_torch/csrc/fused_dual.cu',
@@ -413,6 +423,8 @@ def profile_call(torch, fn):
                                if 'row_gather_kernel' in k),
             'kernel_ms': families,
             'gather_ms': ops.get('aten::gather', 0.0),
+            'gather_nodes_backward_ms': ops.get('gather_nodes_backward',
+                                                0.0),
             'scatter_add_ms': ops.get('aten::scatter_add_',
                                       ops.get('aten::scatter_add', 0.0)),
             'top_device_ms': [[k[:70], ms, n] for k, ms, n in top]}
@@ -607,7 +619,7 @@ def phase_train_steps(torch, fd, fdd):
     from newtonnet_tpu_torch.train import fastgrad
     from newtonnet_tpu_torch.train.loss import get_loss_by_string
     from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
-    from newtonnet_tpu_torch.train.trainer import fp32_matmuls
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
 
     cfg = md17_settings(None, 1)
     train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
@@ -813,7 +825,10 @@ def klist_work(B, N, K, F, R, kind, first, edge_bytes):
 def phase_klist_kernels(torch, fk):
     """Phase 3, klist: K5-K8 (K6 with and without weight cotangents) against
     their plain versions, both variants, at the large box's shape with bf16
-    edges and two fp32 shapes. fp32 outputs: max|kernel - plain| <=
+    edges, two fp32 shapes and a ragged bf16 one at F=32 (N = 61 and K = 39
+    no multiple of the 8-atom and 4-slot tiles; K8's grid of at most one
+    block per SM then walks several atom tiles per block at the box
+    shape). fp32 outputs: max|kernel - plain| <=
     KERNEL_BAR * max|plain|. bf16-stored outputs (dcat, dcatdot, drbf): at
     most one bf16 ulp of the element beyond that, as a last-bit fp32
     difference before the store can round to the neighbouring bf16 value.
@@ -821,7 +836,8 @@ def phase_klist_kernels(torch, fk):
     errs = {}
     shapes = [(1, BOX_ATOMS, BOX_K_MAX, 128, 20, torch.bfloat16),
               (100, 21, 20, 128, 20, torch.float32),
-              (2, 70, 37, 64, 16, torch.float32)]
+              (2, 70, 37, 64, 16, torch.float32),
+              (3, 61, 39, 32, 12, torch.bfloat16)]
     for si, (B, N, K, F, R, edt) in enumerate(shapes):
         worst = {'fp32': 0.0, 'bf16_stored': 0.0}
         for first in (False, True):
@@ -962,8 +978,8 @@ def phase_box_request(torch, fk, base):
         lat.append(time.perf_counter() - t)
         forces.append(r['forces'])
     launches = {k: v // n_req for k, v in fk.LAUNCHES.items()}
-    # gather_nodes' backward scatter-adds with atomics: do the requests'
-    # forces repeat their bits? (reported, no bar)
+    # gather_nodes' backward sums in a fixed order (no atomics): the
+    # requests' forces repeat their bits (ROADMAP.md C4)
     repeats = all(np.array_equal(forces[0], x) for x in forces[1:])
     tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (z, pos, cell)]
     _, kmask, _, over = neighbor_list(tpos, tcell, tz > 0, box.cutoff,
@@ -1010,6 +1026,7 @@ def phase_box_request(torch, fk, base):
     check(np.isfinite(e) and np.isfinite(f).all()
           and np.isfinite(r['stress']).all(), 'box request not finite')
     check(overflow == 0, f'box lists overflowed: {overflow}')
+    check(repeats, 'three box requests gave forces of different bits')
     for key, d in diffs.items():
         check(d <= bars[key], f'box {key}: {d} > {bars[key]}')
     check(all(launches[k] > 0 for k in KLIST_NAMES[:4]),
@@ -1030,7 +1047,7 @@ def phase_box_train(torch, fk, base):
     from newtonnet_tpu_torch.train import fastgrad
     from newtonnet_tpu_torch.train.loss import get_loss_by_string
     from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
-    from newtonnet_tpu_torch.train.trainer import fp32_matmuls
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
     z, pos, cell, energy, force = box_system()
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              (('z', z), ('pos', pos), ('cell', cell), ('energy', energy),
@@ -1067,6 +1084,17 @@ def phase_box_train(torch, fk, base):
             dual_op=functools.partial(fk.fused_klist_interaction_dual,
                                       plain=True))
         rel = rel_norm(grads1, [p.grad for p in plain.core.parameters()])
+        del plain
+        # three gradients from the same start: the same bits (C4)
+        again = []
+        for _ in range(3):
+            fresh = start()
+            fastgrad.value_and_grad(fresh, main_loss, batch)
+            again.append([p.grad.clone() for p in fresh.core.parameters()])
+            del fresh
+        repeats = all(exact(torch, a, b) for g in again[1:]
+                      for a, b in zip(again[0], g))
+        del again
 
     def one_step():
         with fp32_matmuls():
@@ -1076,8 +1104,9 @@ def phase_box_train(torch, fk, base):
          plain_loss=float(loss_p), grad_rel_norm_diff_vs_plain=rel,
          bar=2e-3, step_ms=[1e3 * t for t in step_s],
          step_ms_after_first=1e3 * statistics.median(step_s[1:]),
-         launches_per_step=launches)
+         gradients_repeat_their_bits=repeats, launches_per_step=launches)
     check(all(_math.isfinite(v) for v in losses), f'box losses {losses}')
+    check(repeats, 'three box gradients from one start differ in their bits')
     check(rel <= 2e-3, f'box step 1 gradient vs plain: {rel}')
     check(all(launches[k] > 0 for k in KLIST_NAMES),
           f'a K5-K8 variant was not launched in a box step: {launches}')
@@ -1096,7 +1125,7 @@ def phase_train_nlist_steps(torch, fd, fk):
     from newtonnet_tpu_torch.train import fastgrad
     from newtonnet_tpu_torch.train.loss import get_loss_by_string
     from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
-    from newtonnet_tpu_torch.train.trainer import fp32_matmuls
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
     cfg = md17_settings(None, 1)
     train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
     main_loss, _ = get_loss_by_string(cfg['training']['loss'])
@@ -1273,6 +1302,9 @@ def klist_timing(torch, fk, errs, launches):
                 'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
                 'library_ms': None, 'flops': flops, 'bytes': nbytes,
                 'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
+            if kind == 'klist_dual_bwd':  # three tf32 products per fp32 one
+                rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops \
+                    / PEAK_TF32_FLOPS
         del ins, tans, cots, calls, refs
         torch.cuda.empty_cache()
     rows.sort(key=lambda r: KLIST_NAMES.index(r['name']))
@@ -1280,6 +1312,23 @@ def klist_timing(torch, fk, errs, launches):
          edge_dtype='bfloat16', weight_grads=False,
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12)
     return rows
+
+
+def tf32_pinned(torch, what, calc, request):
+    """C6: one calculator request with both TF32 flags switched on by the
+    caller gives the bits of one with them off (the calculator pins IEEE
+    fp32 products, as the JAX calculator pins 'highest'); the flags are
+    left off, as main sets them."""
+    import numpy as np
+    out = {}
+    for on in (True, False):
+        torch.backends.cuda.matmul.allow_tf32 = on
+        torch.backends.cudnn.allow_tf32 = on
+        out[on] = calc.calculate(**request)
+    same = all(np.array_equal(np.asarray(out[True][k]),
+                              np.asarray(out[False][k])) for k in out[False])
+    emit('tf32_pinned', what=what, same_bits=same)
+    check(same, f'{what}: TF32 switched on changed the result')
 
 
 def exact(torch, a, b):
@@ -1634,11 +1683,12 @@ def phase_box_xla(torch, rg, klist_box):
     jf8 = np.asarray(JAX_XLA_BOX_FORCES_8)
     jf8_32 = np.asarray(JAX_XLA_BOX_FP32_FORCES_8)
     f8_32 = o5['gradient_force'][0, :8].cpu().numpy()
-    # XLA on the CPU keeps float32 between the bf16 operations of a fusion
-    # (its excess precision), so the JAX package's bf16 stack sits about 40
-    # times closer to float32 than the port's, which rounds every
-    # operation's output (on the CPU as on the card): two bf16 programs are
-    # held to BOX_SPREAD_FACTOR times the larger of their spreads.
+    # XLA on the CPU elides the bf16 round trips that meet arithmetic (its
+    # excess precision) and rounds the gathered rows; the port's bf16 stack
+    # does the same (models/xla_stack.py), so the two spreads are of one
+    # size (0.0010 and 0.0014 eV at 512 atoms on the CPU,
+    # tests/test_torch_xla_reference.py). Two bf16 programs are held to
+    # BOX_SPREAD_FACTOR times the larger of their spreads.
     spread5_e = max(abs(JAX_XLA_BOX_ENERGY - JAX_XLA_BOX_FP32_ENERGY),
                     abs(r5['energy'] - float(o5['energy'][0])))
     spread5_f = max(float(np.abs(jf8 - jf8_32).max()),
@@ -1929,6 +1979,8 @@ def main():
     check(all(launches[k] > 0 for k in fd.LAUNCHES),
           f'a kernel was not launched on the main path: {launches}')
     emit('launches', **launches)
+    tf32_pinned(torch, 'one calculator request (N=24)', calc,
+                dict(numbers=samples[0]['z'], positions=samples[0]['pos']))
     emit('profile', what='one batch of 100 frames (N=21)',
          **profile_call(torch, lambda: model(*to_dev(batches[0]))))
     s = samples[0]
@@ -1941,8 +1993,11 @@ def main():
                                           served)
     box_launches, box_calc, box_req, klist_box = phase_box_request(
         torch, fk, model)
+    # the atomic scatter-adds that gather_nodes' backward was before: 13.2
+    # ms of a box request (PERF.md section 5, PR 3's run)
     emit('profile', what=f'one calculator request on the {BOX_ATOMS}-atom '
-         'box', **profile_call(torch, lambda: box_calc.calculate(**box_req)))
+         'box', gather_nodes_backward_ms_was=13.2,
+         **profile_call(torch, lambda: box_calc.calculate(**box_req)))
     del box_calc
     torch.cuda.empty_cache()
 
@@ -1954,6 +2009,8 @@ def main():
     emit('profile', what=f'one XLA inverse-list request on the {BOX_ATOMS}'
          '-atom box', **profile_call(torch, lambda: xla_calc.calculate(
              **xla_req)))
+    tf32_pinned(torch, f'one XLA inverse-list request on the {BOX_ATOMS}'
+                '-atom box', xla_calc, xla_req)
     emit('box_requests_compared', atoms=BOX_ATOMS,
          klist_latency_ms_median=klist_box['latency_ms_median'],
          xla_inverse_latency_ms_median=xla_t['latency_ms_median'],
@@ -1984,8 +2041,13 @@ def main():
                                                               model)
     prof = profile_call(torch, box_step)
     step_ms = 1e3 * statistics.median(box_step_s[1:])
+    split = {name: prof['kernel_ms'].get(fam, 0.0) for name, fam in (
+        ('K8', 'klist_dual_bwd'), ('K7', 'klist_dual_fwd'),
+        ('K6', 'klist_bwd'), ('K5', 'klist_fwd'))}
+    split['gather_nodes_backward'] = prof['gather_nodes_backward_ms']
+    split['rest'] = prof['device_busy_ms'] - sum(split.values())
     emit('profile', what=f'one training step on the {BOX_ATOMS}-atom box',
-         step_ms_median_unprofiled=step_ms,
+         step_ms_median_unprofiled=step_ms, device_split_ms=split,
          device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
          / step_ms, **prof)
     # K5/K6 launches of the 500 aspirin frames, K7/K8 of the training epoch

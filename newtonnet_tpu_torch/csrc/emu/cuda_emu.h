@@ -12,7 +12,16 @@
 // read of shared memory that the block never wrote shows in the results.
 // It checks indexing, masking and barrier placement, not speed, and it
 // does not model warp-synchronous execution.
+//
+// The PTX wrappers of csrc/fused_klist.cu (mma_tf32, cp_async16,
+// cp_async_commit, cp_async_wait<N>; compiled there only without
+// NN_CUDA_EMU) are replaced here: mma.sync m16n8k8 tf32 with the PTX ISA's
+// fragment layout, each lane depositing its fragments in a per-warp buffer
+// between two warp barriers and computing its four outputs from the whole
+// warp's (fp32 sums over k in order); cp.async as a plain 16-byte copy,
+// its commit and wait as nothing.
 #pragma once
+#define NN_CUDA_EMU 1
 #include <algorithm>
 #include <barrier>
 #include <cmath>
@@ -39,6 +48,7 @@ inline float* g_smem = nullptr;
 #define __device__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __launch_bounds__(...)
 
 // the 16-byte vector type of vector_types.h
@@ -74,6 +84,64 @@ inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   g_warp_barriers[warp]->arrive_and_wait();
   return out;
 }
+
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
+struct float2 {
+  float x, y;
+};
+inline float2 make_float2(float x, float y) { return {x, y}; }
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+
+inline unsigned g_mma_a[32][32][4];
+inline unsigned g_mma_b[32][32][2];
+
+// d += A B for the warp's 16x8 tile: A 16x8 row-major (a0 (g, t), a1
+// (g+8, t), a2 (g, t+4), a3 (g+8, t+4)), B 8x8 column-major (b0 (k=t,
+// n=g), b1 (k=t+4, n=g)), D (d0 (g, 2t), d1 (g, 2t+1), d2 (g+8, 2t), d3
+// (g+8, 2t+1)), g = lane / 4, t = lane % 4; operands as tf32 (the low 13
+// bits ignored).
+inline void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                     const unsigned (&b)[2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = 0; r < 4; ++r) g_mma_a[warp][lane][r] = a[r];
+  g_mma_b[warp][lane][0] = b[0];
+  g_mma_b[warp][lane][1] = b[1];
+  g_warp_barriers[warp]->arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int o = 0; o < 4; ++o) {
+    const int row = g + (o >= 2 ? 8 : 0), col = 2 * t + (o & 1);
+    float s = d[o];
+    for (int k = 0; k < 8; ++k) {
+      const unsigned av = g_mma_a[warp][(row & 7) * 4 + (k & 3)]
+                                 [(row >= 8 ? 1 : 0) + (k >= 4 ? 2 : 0)];
+      const unsigned bv = g_mma_b[warp][col * 4 + (k & 3)][k >= 4 ? 1 : 0];
+      s = std::fma(__uint_as_float(av & 0xffffe000u),
+                   __uint_as_float(bv & 0xffffe000u), s);
+    }
+    d[o] = s;
+  }
+  g_warp_barriers[warp]->arrive_and_wait();
+}
+
+inline void cp_async16(void* dst, const void* src) {
+  std::memcpy(dst, src, 16);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
 
 // bf16 as cuda_bf16.h gives it: round to nearest even, NaN kept quiet.
 struct __nv_bfloat16 {

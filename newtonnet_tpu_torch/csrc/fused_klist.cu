@@ -28,7 +28,9 @@
 // reads C+R+4 edge values, far above the H100's fp32 ridge (67 TFLOP/s over
 // 3.35 TB/s = 20 flop/byte); K6 about 3x K5, K7 2x, K8 about 6x.
 //
-// Design: that of K1-K4 (csrc/fused_dense.cu, csrc/fused_dual.cu). One block
+// Design of K5-K7: that of K1-K4 (csrc/fused_dense.cu, csrc/fused_dual.cu);
+// K8 keeps its ownership of slots and columns but has its own products
+// (the note above klist_dual_bwd_kernel). One block
 // of 8 warps per (molecule, tile of TI=8 atoms i); the block loops over
 // tiles of TJ list slots (8 for K5/K6, 4 for K7/K8), so a tile holds
 // M = TI*TJ slots; warp w owns the TJ slots of atom i0+w and lane l owns
@@ -39,14 +41,15 @@
 // The per-slot chain lives in shared memory and registers; the weights
 // stream through shared memory in KC-row chunks. Sums over k are
 // per-thread register sums, the cotangents of the j side leave as per-slot
-// outputs (gather_nodes' backward scatters them onto atoms outside), so no
+// outputs (gather_nodes' backward sums them onto atoms outside), so no
 // sum crosses blocks except the weight cotangents: each block writes its
 // partials to scratch and a second kernel sums them in a fixed order. No
-// float atomics: a run gives the same bits every time. Plain IEEE fp32
-// FMAs, no tensor cores and no TF32.
+// float atomics: a run gives the same bits every time. K5-K7: plain IEEE
+// fp32 FMAs, no tensor cores and no TF32. K8: tensor cores in 3xTF32, at
+// fp32-level accuracy (no 1xTF32 anywhere).
 //
 // Shared memory at F=128, R=20: K5 about 92 KB, K6 185 KB, K7 96 KB, K8
-// 195 KB. The host functions return the cudaError_t of the launch.
+// 215 KB. The host functions return the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -839,11 +842,352 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
 }
 
 // ------------------------------------------------------------------ K8 --
+// K8 is its own design (K5-K7 above keep the CUDA-core one). What bounds
+// it: its products, about 6x K5's flops per slot (272 GFLOP per full
+// layer at the box shape B=1, N=4096, K=88, F=128, R=20), above the fp32
+// ridge. The CUDA-core version (gemm_rows) capped near half the FMA rate
+// on shared-memory loads, its weight chunks loaded with no product in
+// flight, and its weight-cotangent partials were rewritten every tile. So:
+//
+// * Products on the tensor cores at fp32-level accuracy:
+//   mma.sync.m16n8k8 tf32 with the 3xTF32 split. Each operand x is split
+//   as hi = tf32_rna(x), lo = tf32_rna(x - hi), and the sum takes
+//   lo*hi + hi*lo + hi*hi in fp32 (lo*lo, about 2^-22 relative, is
+//   dropped). Plain 1xTF32 (about 3 digits) is not used anywhere.
+// * mma_rows: the 32-slot tile's M x Q @ Q x F products. Warp w owns the
+//   16-row half (w & 1) and F/4 columns as F/32 tiles of 16 x 8. The
+//   weight streams through a ring of KSTAGES chunks of KC8 rows by
+//   cp.async: three chunks load while one multiplies, one __syncthreads
+//   per chunk. The ring holds W rows at stride F+8, or W^T rows (a
+//   transposed product) at stride KC8+4, so the B fragments' 32 lanes hit
+//   32 banks; the slot buffers have stride F+4, so the A fragments do
+//   too. The products land in c_s and each thread reads back the entries
+//   the elementwise code of the chain owns (slot rows of its warp, columns
+//   lane + 32c), so that code is the CUDA-core version's.
+// * wgrad_tc: the weight cotangents dW = A1^T B1 + A2^T B2 over the tile's
+//   32 slots on the same tensor cores, summed in registers; the partial's
+//   old values are loaded before the products and the sum is stored once
+//   per tile.
+// * Fewer, larger partials: the grid is at most one block per SM (the
+//   wrapper passes the SM count), and each block walks the atom tiles
+//   blockIdx, blockIdx + gridDim, ..., summing all of them into one
+//   partial: 132 partials instead of 512 at the box shape. The partials
+//   are then summed in a fixed order (klist_wsum_kernel); no atomics.
+// * Occupancy: one block of 8 warps per SM (about 215 KB of shared memory
+//   at F=128, R=20); the cp.async ring keeps the weights' latency off the
+//   products.
+// * Issue: the splits round with integer operations (tf32_rna), not
+//   through the conversion unit, and mma_product and wgrad_tc are out of
+//   line with the branch body unrolled once, so that the kernel's code
+//   fits the instruction cache (inlined, the same kernel ran 27% slower).
+constexpr int KC8 = 16;     // depth rows of a staged weight chunk in K8
+constexpr int KSTAGES = 4;  // weight chunk slots in K8's ring
+
+template <int F>
+struct K8Shape {
+  static constexpr int LD = F + 4;      // slot buffers (M x LD)
+  static constexpr int WLD = F + 8;     // a chunk of W rows (KC8 x WLD)
+  static constexpr int TLD = KC8 + 4;   // a chunk of W^T rows (F x TLD)
+  static constexpr int RING =
+      KC8 * WLD > F * TLD ? KC8 * WLD : F * TLD;  // floats per ring slot
+};
+
+// x rounded to tf32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 for finite x, from two integer operations. The
+// conversion unit issues 16 results per clock per SM, a quarter of the
+// integer rate, and the splits took most of a product's time through it.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+#ifndef NN_CUDA_EMU
+// One inline-PTX site per instruction (csrc/emu/cuda_emu.h replaces these
+// functions on the CPU).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+#endif
+
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4],
+                                     const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// Rows [q0, q0 + KC8) of the depth of B into one ring slot: W (Q x F) rows
+// at stride WLD, or with TRANS (W is F x Q; needs Q % KC8 == 0) the
+// columns q0.. of every W row at stride TLD. 16-byte cp.async copies; a
+// chunk past Q copies nothing.
+template <int F, bool TRANS>
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ W,
+                                            int Q, int q0, float* buf) {
+  using S = K8Shape<F>;
+  if (q0 >= Q) return;
+  if (!TRANS) {
+    const int qc = min(KC8, Q - q0);
+    for (int v = threadIdx.x; v < qc * (F / 4); v += kThreads) {
+      const int qq = v / (F / 4), n = (v - qq * (F / 4)) * 4;
+      cp_async16(buf + qq * S::WLD + n, W + (size_t)(q0 + qq) * F + n);
+    }
+  } else {
+    for (int v = threadIdx.x; v < F * (KC8 / 4); v += kThreads) {
+      const int n = v / (KC8 / 4), qq = (v - n * (KC8 / 4)) * 4;
+      cp_async16(buf + n * S::TLD + qq, W + (size_t)n * Q + q0 + qq);
+    }
+  }
+}
+
+// c_s[m*LD + n] = sum_q A[m*lda + q] * B(q, n), q < Q, for the tile's 32
+// slot rows m: B(q, n) = W[q*F + n], or with TRANS W[n*Q + q]. Warp w
+// computes the 16-row half (w & 1) and F/4 columns. The weight streams
+// through a ring of KSTAGES chunk slots: KSTAGES - 1 chunks are in flight
+// while one multiplies, one __syncthreads per chunk. Every warp reads rows
+// of other warps' slots, so A must be written before the call; it may be
+// overwritten after it (the last barrier orders that). All threads of the
+// block must call it. Not inlined: K8 runs 18 products per tile, and one
+// copy of each of the two variants keeps the kernel's code small enough
+// for the instruction cache.
+template <int F, bool TRANS>
+__device__ __noinline__ void mma_product(const float* __restrict__ A,
+                                         int lda, int Q,
+                                         const float* __restrict__ W,
+                                         float* ring, float* c_s) {
+  using S = K8Shape<F>;
+  constexpr int NT = F / 32;  // 16 x 8 tiles per warp
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * (F / 4);
+  float d[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
+  const float* a_lo = A + (size_t)(m0 + g) * lda;  // rows g and g + 8
+  const float* a_hi = a_lo + (size_t)8 * lda;
+  const int nch = (Q + KC8 - 1) / KC8;
+#pragma unroll
+  for (int st = 0; st < KSTAGES - 1; ++st) {  // one group per stage
+    stage_chunk<F, TRANS>(W, Q, st * KC8, ring + st * S::RING);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<KSTAGES - 2>();
+    __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+    stage_chunk<F, TRANS>(W, Q, (ch + KSTAGES - 1) * KC8,
+                          ring + ((ch + KSTAGES - 1) % KSTAGES) * S::RING);
+    cp_async_commit();
+    const float* wc = ring + (ch % KSTAGES) * S::RING;
+    const int q0 = ch * KC8, qc = min(KC8, Q - q0);
+    for (int kk = 0; kk < qc; kk += 8) {
+      const int ka = q0 + kk + t, kb = kk + t;
+      unsigned ah[4], al[4];
+      split_tf32(ka < Q ? a_lo[ka] : 0.0f, ah[0], al[0]);
+      split_tf32(ka < Q ? a_hi[ka] : 0.0f, ah[1], al[1]);
+      split_tf32(ka + 4 < Q ? a_lo[ka + 4] : 0.0f, ah[2], al[2]);
+      split_tf32(ka + 4 < Q ? a_hi[ka + 4] : 0.0f, ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int n = n0 + j * 8 + g;
+        const float b0 = kb >= qc ? 0.0f
+                         : TRANS  ? wc[n * S::TLD + kb]
+                                  : wc[kb * S::WLD + n];
+        const float b1 = kb + 4 >= qc ? 0.0f
+                         : TRANS      ? wc[n * S::TLD + kb + 4]
+                                      : wc[(kb + 4) * S::WLD + n];
+        unsigned bh[2], bl[2];
+        split_tf32(b0, bh[0], bl[0]);
+        split_tf32(b1, bh[1], bl[1]);
+        mma3(d[j], ah, al, bh, bl);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int n = n0 + j * 8 + 2 * t;
+    c_s[(m0 + g) * S::LD + n] = d[j][0];
+    c_s[(m0 + g) * S::LD + n + 1] = d[j][1];
+    c_s[(m0 + g + 8) * S::LD + n] = d[j][2];
+    c_s[(m0 + g + 8) * S::LD + n + 1] = d[j][3];
+  }
+  __syncthreads();
+}
+
+// acc[r][c] = sum_q A[(w*TJ + r)*lda + q] * B(q, l + 32c), q < Q, for the
+// calling thread's warp w and lane l (gemm_rows' result and ownership),
+// through mma_product.
+template <int F, bool TRANS>
+__device__ __forceinline__ void mma_rows(const float* __restrict__ A,
+                                         int lda, int Q,
+                                         const float* __restrict__ W,
+                                         float* ring, float* c_s,
+                                         float (&acc)[TJ_D][F / 32]) {
+  constexpr int LD = K8Shape<F>::LD;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  mma_product<F, TRANS>(A, lda, Q, W, ring, c_s);
+#pragma unroll
+  for (int r = 0; r < TJ_D; ++r)
+#pragma unroll
+    for (int c = 0; c < F / 32; ++c)
+      acc[r][c] = c_s[(warp * TJ_D + r) * LD + lane + 32 * c];
+}
+
+// part[q*F + n] (+)= sum_p A1[p*lda + q] B1[p*LD + n] + A2[p*lda + q]
+// B2[p*LD + n] over the tile's 32 slots, q < qrows, as 16 x 8 tensor-core
+// tiles in 3xTF32: warp w takes the (16-row, 32-column) groups w, w + 8,
+// ..., sums its 16 x 32 block in registers and adds it to the block's
+// partial once (`init`, the block's first tile: overwrites). The partial's
+// old values are loaded before the products, so their latency hides behind
+// them. Each element has one owning thread and each block its own partial.
+// Not inlined, as mma_product.
+template <int F>
+__device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
+                         const float* __restrict__ B1,
+                         const float* __restrict__ A2,
+                         const float* __restrict__ B2, int lda, int qrows,
+                         float* __restrict__ part, bool init) {
+  constexpr int LD = K8Shape<F>::LD;
+  constexpr int M = TI * TJ_D;
+  constexpr int NG = F / 32;  // 32-column groups per 16-row band
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  __syncthreads();
+  const int n_groups = (qrows + 15) / 16 * NG;
+  for (int grp = warp; grp < n_groups; grp += kWarps) {
+    const int qa = (grp / NG) * 16 + g, qb = qa + 8;
+    const int nb = (grp % NG) * 32;
+    float d[4][4], old[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = nb + j * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = h == 0 ? qa : qb;
+        const bool keep = !init && q < qrows;
+        old[j][2 * h] = keep ? part[(size_t)q * F + n] : 0.0f;
+        old[j][2 * h + 1] = keep ? part[(size_t)q * F + n + 1] : 0.0f;
+        d[j][2 * h] = d[j][2 * h + 1] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int src = 0; src < 2; ++src) {
+      const float* A = src == 0 ? A1 : A2;
+      const float* B = src == 0 ? B1 : B2;
+#pragma unroll
+      for (int kk = 0; kk < M; kk += 8) {
+        const int p = kk + t;
+        unsigned ah[4], al[4];
+        split_tf32(qa < qrows ? A[p * lda + qa] : 0.0f, ah[0], al[0]);
+        split_tf32(qb < qrows ? A[p * lda + qb] : 0.0f, ah[1], al[1]);
+        split_tf32(qa < qrows ? A[(p + 4) * lda + qa] : 0.0f, ah[2], al[2]);
+        split_tf32(qb < qrows ? A[(p + 4) * lda + qb] : 0.0f, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = nb + j * 8 + g;
+          unsigned bh[2], bl[2];
+          split_tf32(B[p * LD + n], bh[0], bl[0]);
+          split_tf32(B[(p + 4) * LD + n], bh[1], bl[1]);
+          mma3(d[j], ah, al, bh, bl);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int n = nb + j * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = h == 0 ? qa : qb;
+        if (q >= qrows) continue;
+        part[(size_t)q * F + n] = old[j][2 * h] + d[j][2 * h];
+        part[(size_t)q * F + n + 1] = old[j][2 * h + 1] + d[j][2 * h + 1];
+      }
+    }
+  }
+}
+
+// dual_messages on the tensor cores (mma_rows; slot buffers at stride
+// K8Shape<F>::LD).
+template <int F, int CW, class E>
+__device__ void dual_messages_tc(const float* rbf_s, const float* rbfdot_s,
+                                 int R, const float* __restrict__ We,
+                                 float* ring, float* c_s, const float* npi_s,
+                                 const float* npidot_s,
+                                 const E* __restrict__ cat,
+                                 const E* __restrict__ catdot, int b, int i,
+                                 int k0, int N, int K, const float* mask_s,
+                                 float* msg_s, float* msgdot_s,
+                                 float (&acc)[TJ_D][F / 32]) {
+  constexpr int TJ = TJ_D;
+  constexpr int C = F / 32;
+  constexpr int LD = K8Shape<F>::LD;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  mma_rows<F, false>(rbf_s, R, R, We, ring, c_s, acc);  // me
+#pragma unroll
+  for (int r = 0; r < TJ; ++r) {
+    const int p = warp * TJ + r, k = k0 + r;
+    const bool ok = i < N && k < K;
+    const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+    const float a = mask_s[p];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      const float aj = ok ? ld(cat + at + f) : 0.0f;
+      msg_s[p * LD + f] = acc[r][c] * npi_s[warp * F + f] * aj * a;
+      msgdot_s[p * LD + f] = acc[r][c];
+    }
+  }
+  mma_rows<F, false>(rbfdot_s, R, R, We, ring, c_s, acc);  // medot
+#pragma unroll
+  for (int r = 0; r < TJ; ++r) {
+    const int p = warp * TJ + r, k = k0 + r;
+    const bool ok = i < N && k < K;
+    const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+    const float a = mask_s[p];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      const float ai = npi_s[warp * F + f], aidot = npidot_s[warp * F + f];
+      const float aj = ok ? ld(cat + at + f) : 0.0f;
+      const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+      const float me = msgdot_s[p * LD + f];
+      msgdot_s[p * LD + f] =
+          (acc[r][c] * ai * aj + me * aidot * aj + me * ai * ajdot) * a;
+    }
+  }
+}
+
 template <int F>
 constexpr size_t dual_bwd_smem_floats(int R) {
+  using S = K8Shape<F>;
   constexpr int M = TI * TJ_D;
-  return (size_t)8 * M * (F + 1) + (size_t)KC * (F + 1) +
-         (size_t)10 * TI * F + (size_t)7 * M + (size_t)2 * M * R;
+  return (size_t)KSTAGES * S::RING + (size_t)9 * M * S::LD +
+         (size_t)4 * TI * F +
+         (size_t)7 * M + (size_t)2 * M * R;
 }
 
 template <int F, bool FIRST, class E>
@@ -867,14 +1211,16 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
                       float* __restrict__ dnpi, float* __restrict__ dnpidot,
                       E* __restrict__ dcat, E* __restrict__ dcatdot,
                       float* __restrict__ wpart, int N, int K, int R,
-                      int n_itiles) {
+                      int n_itiles, int n_tiles) {
   constexpr int TJ = TJ_D;
   constexpr int M = TI * TJ;
   constexpr int C = F / 32;
-  constexpr int LD = F + 1;
+  constexpr int LD = K8Shape<F>::LD;
   constexpr int CW = FIRST ? F : 4 * F;
   extern __shared__ float smem[];
-  float* msg_s = smem;                 // M x LD: msg
+  float* ring = smem;  // KSTAGES x RING: weight chunks
+  float* c_s = ring + KSTAGES * K8Shape<F>::RING;  // M x LD: mma products
+  float* msg_s = c_s + M * LD;         // M x LD: msg
   float* msgdot_s = msg_s + M * LD;    // M x LD: msgdot
   float* p_s = msgdot_s + M * LD;      // M x LD: p; tail: me
   float* pdot_s = p_s + M * LD;        // M x LD: pdot, then s'' pdot dhdot
@@ -882,108 +1228,182 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
   float* hdot_s = h_s + M * LD;        // M x LD: hdot; tail: dme
   float* g_s = hdot_s + M * LD;        // M x LD: phi2, g, dp; tail: dmedot
   float* gdot_s = g_s + M * LD;        // M x LD: gdot, dpdot
-  float* w_s = gdot_s + M * LD;        // KC x LD
-  float* npi_s = w_s + KC * LD;        // TI x F
+  float* npi_s = gdot_s + M * LD;      // TI x F
   float* npidot_s = npi_s + TI * F;    // TI x F
   float* di_s = npidot_s + TI * F;     // TI x F
   float* didot_s = di_s + TI * F;      // TI x F
-  float* dq_s = didot_s + TI * F;      // 3 x TI x F
-  float* dqdot_s = dq_s + 3 * TI * F;  // 3 x TI x F
-  float* mask_s = dqdot_s + 3 * TI * F;  // M
+  float* mask_s = didot_s + TI * F;    // M
   float* dir_s = mask_s + M;           // 3 x M
   float* dirdot_s = dir_s + 3 * M;     // 3 x M
   float* rbf_s = dirdot_s + 3 * M;     // M x R
   float* rbfdot_s = rbf_s + M * R;     // M x R
 
-  const int b = blockIdx.x / n_itiles;
-  const int i0 = (blockIdx.x - b * n_itiles) * TI;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int i = i0 + warp;
-
-  load_rows(npi, b, i0, N, F, npi_s);
-  load_rows(npidot, b, i0, N, F, npidot_s);
-  load_rows(di, b, i0, N, F, di_s);
-  load_rows(didot, b, i0, N, F, didot_s);
-  load_rows3(dq, b, i0, N, F, dq_s);
-  load_rows3(dqdot, b, i0, N, F, dqdot_s);
-
   float* wp = wpart + (size_t)blockIdx.x * wgrad_size(F, R);
-  float dnp_acc[C], dnpdot_acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) dnp_acc[c] = dnpdot_acc[c] = 0.0f;
   float acc[TJ][C], dmsg[TJ][C], dmsgdot[TJ][C];
 
-  for (int k0 = 0; k0 < K; k0 += TJ) {
-    const bool init = k0 == 0;
-    __syncthreads();
-    load_slots<TJ, true, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N, K,
-                            R, mask_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
-    dual_messages<F, CW, E>(rbf_s, rbfdot_s, R, We, w_s, npi_s, npidot_s, cat,
-                            catdot, b, i, k0, N, K, mask_s, msg_s, msgdot_s,
-                            acc);
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const bool first_tile = tile == (int)blockIdx.x;
+    const int b = tile / n_itiles;
+    const int i0 = (tile - b * n_itiles) * TI;
+    const int i = i0 + warp;
+    __syncthreads();  // the last tile's reads of the row buffers are done
+    load_rows(npi, b, i0, N, F, npi_s);
+    load_rows(npidot, b, i0, N, F, npidot_s);
+    load_rows(di, b, i0, N, F, di_s);
+    load_rows(didot, b, i0, N, F, didot_s);
+    // dq, dqdot of the warp's atom (zero past N), read through L1 where
+    // they are used
+    auto row3 = [&](const float* src, int d, int f) {
+      return i < N ? __ldg(src + (((size_t)b * 3 + d) * N + i) * F + f)
+                   : 0.0f;
+    };
+    float dnp_acc[C], dnpdot_acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) dnp_acc[c] = dnpdot_acc[c] = 0.0f;
 
-#pragma unroll
-    for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
-      const float* Wa = br == 0 ? W1a : W2a;
-      const float* Wb = br == 0 ? W1b : W2b;
-      float* wpa = wp + (size_t)R * F + (size_t)(2 * br) * F * F;
-      float* wpb = wpa + (size_t)F * F;
-      gemm_rows<F, TJ, false>(msg_s, LD, F, Wa, w_s, acc);  // p
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          p_s[o] = acc[r][c];
-          h_s[o] = silu_f(acc[r][c]);
-        }
-      gemm_rows<F, TJ, false>(msgdot_s, LD, F, Wa, w_s, acc);  // pdot
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          pdot_s[o] = acc[r][c];
-          hdot_s[o] = dsilu_f(p_s[o]) * acc[r][c];
-        }
-      if (br == 1) {
-        // phi2, phi2dot -> the per-slot force cotangents:
-        // dcat[force_j[d]] = phi2 dq[d,i] + phi2dot dqdot[d,i],
-        // dcatdot[force_j[d]] = phi2 dqdot[d,i]
-        gemm_rows<F, TJ, false>(h_s, LD, F, Wb, w_s, acc);
+    for (int k0 = 0; k0 < K; k0 += TJ) {
+      const bool init = first_tile && k0 == 0;
+      __syncthreads();
+      load_slots<TJ, true, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N,
+                              K, R, mask_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
+      dual_messages_tc<F, CW, E>(rbf_s, rbfdot_s, R, We, ring, c_s, npi_s,
+                                 npidot_s, cat, catdot, b, i, k0, N, K,
+                                 mask_s, msg_s, msgdot_s, acc);
+
+#pragma unroll 1  // one copy of the branch body: code size
+      for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
+        const float* Wa = br == 0 ? W1a : W2a;
+        const float* Wb = br == 0 ? W1b : W2b;
+        float* wpa = wp + (size_t)R * F + (size_t)(2 * br) * F * F;
+        float* wpb = wpa + (size_t)F * F;
+        mma_rows<F, false>(msg_s, LD, F, Wa, ring, c_s, acc);  // p
 #pragma unroll
         for (int r = 0; r < TJ; ++r)
 #pragma unroll
-          for (int c = 0; c < C; ++c)
-            g_s[(warp * TJ + r) * LD + lane + 32 * c] =
-                acc[r][c] * mask_s[warp * TJ + r];
-        gemm_rows<F, TJ, false>(hdot_s, LD, F, Wb, w_s, acc);
+          for (int c = 0; c < C; ++c) {
+            const int o = (warp * TJ + r) * LD + lane + 32 * c;
+            p_s[o] = acc[r][c];
+            h_s[o] = silu_f(acc[r][c]);
+          }
+        mma_rows<F, false>(msgdot_s, LD, F, Wa, ring, c_s, acc);  // pdot
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int o = (warp * TJ + r) * LD + lane + 32 * c;
+            pdot_s[o] = acc[r][c];
+            hdot_s[o] = dsilu_f(p_s[o]) * acc[r][c];
+          }
+        if (br == 1) {
+          // phi2, phi2dot -> the per-slot force cotangents:
+          // dcat[force_j[d]] = phi2 dq[d,i] + phi2dot dqdot[d,i],
+          // dcatdot[force_j[d]] = phi2 dqdot[d,i]
+          mma_rows<F, false>(h_s, LD, F, Wb, ring, c_s, acc);
+#pragma unroll
+          for (int r = 0; r < TJ; ++r)
+#pragma unroll
+            for (int c = 0; c < C; ++c)
+              g_s[(warp * TJ + r) * LD + lane + 32 * c] =
+                  acc[r][c] * mask_s[warp * TJ + r];
+          mma_rows<F, false>(hdot_s, LD, F, Wb, ring, c_s, acc);
+#pragma unroll
+          for (int r = 0; r < TJ; ++r) {
+            const int p = warp * TJ + r, k = k0 + r;
+            if (!(i < N && k < K)) continue;
+            const size_t at = slot_at(b, i, k, N, K) * CW;
+            const float a = mask_s[p];
+#pragma unroll
+            for (int c = 0; c < C; ++c) {
+              const int f = lane + 32 * c;
+              const float phi = g_s[p * LD + f];
+              const float phid = acc[r][c] * a;
+#pragma unroll
+              for (int d = 0; d < 3; ++d) {
+                const float q = row3(dq, d, f), qd = row3(dqdot, d, f);
+                st(dcat + at + (d + 1) * F + f, phi * q + phid * qd);
+                st(dcatdot + at + (d + 1) * F + f, phi * qd);
+              }
+            }
+          }
+        }
+        // g = dphi * mask, gdot = dphidot * mask, where
+        // dphi = sum_d dq[d,i] x[d] + dqdot[d,i] xdot[d], dphidot = sum_d
+        // dqdot[d,i] x[d], with (x, xdot) = (dir, dirdot) or (force_j,
+        // forcedot_j)
 #pragma unroll
         for (int r = 0; r < TJ; ++r) {
           const int p = warp * TJ + r, k = k0 + r;
-          if (!(i < N && k < K)) continue;
-          const size_t at = slot_at(b, i, k, N, K) * CW;
+          const bool ok = i < N && k < K;
+          const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
           const float a = mask_s[p];
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             const int f = lane + 32 * c;
-            const float phi = g_s[p * LD + f];
-            const float phid = acc[r][c] * a;
+            float dphi = 0.0f, dphidot = 0.0f;
 #pragma unroll
             for (int d = 0; d < 3; ++d) {
-              const float q = dq_s[(d * TI + warp) * F + f];
-              const float qd = dqdot_s[(d * TI + warp) * F + f];
-              st(dcat + at + (d + 1) * F + f, phi * q + phid * qd);
-              st(dcatdot + at + (d + 1) * F + f, phi * qd);
+              const float q = row3(dq, d, f), qd = row3(dqdot, d, f);
+              float x, xdot;
+              if (br == 0) {
+                x = dir_s[d * M + p];
+                xdot = dirdot_s[d * M + p];
+              } else {
+                x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
+                xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
+              }
+              dphi = dphi + q * x + qd * xdot;
+              dphidot = dphidot + qd * x;
             }
+            g_s[p * LD + f] = dphi * a;
+            gdot_s[p * LD + f] = dphidot * a;
           }
         }
+        wgrad_tc<F>(h_s, g_s, hdot_s, gdot_s, LD, F, wpb, init);  // dWb
+        mma_rows<F, true>(gdot_s, LD, F, Wb, ring, c_s, acc);  // dhdot
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int o = (warp * TJ + r) * LD + lane + 32 * c;
+            const float pv = p_s[o];
+            pdot_s[o] = d2silu_f(pv) * pdot_s[o] * acc[r][c];
+            gdot_s[o] = dsilu_f(pv) * acc[r][c];  // dpdot
+          }
+        mma_rows<F, true>(g_s, LD, F, Wb, ring, c_s, acc);  // dh
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int o = (warp * TJ + r) * LD + lane + 32 * c;
+            g_s[o] = dsilu_f(p_s[o]) * acc[r][c] + pdot_s[o];  // dp
+          }
+        wgrad_tc<F>(msg_s, g_s, msgdot_s, gdot_s, LD, F, wpa, init);  // dWa
+        mma_rows<F, true>(g_s, LD, F, Wa, ring, c_s, acc);
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            dmsg[r][c] = br == 0 ? acc[r][c] : dmsg[r][c] + acc[r][c];
+        mma_rows<F, true>(gdot_s, LD, F, Wa, ring, c_s, acc);
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c)
+            dmsgdot[r][c] = br == 0 ? acc[r][c] : dmsgdot[r][c] + acc[r][c];
       }
-      // g = dphi * mask, gdot = dphidot * mask, where
-      // dphi = sum_d dq[d,i] x[d] + dqdot[d,i] xdot[d], dphidot = sum_d
-      // dqdot[d,i] x[d], with (x, xdot) = (dir, dirdot) or (force_j,
-      // forcedot_j)
+
+      // ---- t = (dmsg + di_i) mask, tdot = (dmsgdot + didot_i) mask; dnpi,
+      // dnpidot, dcat[np_j], dcatdot[np_j], dme, dmedot, dWe. me and medot
+      // are recomputed.
+      mma_rows<F, false>(rbf_s, R, R, We, ring, c_s, acc);  // me
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          p_s[(warp * TJ + r) * LD + lane + 32 * c] = acc[r][c];
+      mma_rows<F, false>(rbfdot_s, R, R, We, ring, c_s, acc);  // medot
 #pragma unroll
       for (int r = 0; r < TJ; ++r) {
         const int p = warp * TJ + r, k = k0 + r;
@@ -993,108 +1413,34 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
 #pragma unroll
         for (int c = 0; c < C; ++c) {
           const int f = lane + 32 * c;
-          float dphi = 0.0f, dphidot = 0.0f;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float q = dq_s[(d * TI + warp) * F + f];
-            const float qd = dqdot_s[(d * TI + warp) * F + f];
-            float x, xdot;
-            if (br == 0) {
-              x = dir_s[d * M + p];
-              xdot = dirdot_s[d * M + p];
-            } else {
-              x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
-              xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
-            }
-            dphi = dphi + q * x + qd * xdot;
-            dphidot = dphidot + qd * x;
+          const int o = p * LD + f;
+          const float t = (dmsg[r][c] + di_s[warp * F + f]) * a;
+          const float tdot = (dmsgdot[r][c] + didot_s[warp * F + f]) * a;
+          const float me = p_s[o], medot = acc[r][c];
+          const float ai = npi_s[warp * F + f];
+          const float aidot = npidot_s[warp * F + f];
+          const float aj = ok ? ld(cat + at + f) : 0.0f;
+          const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+          dnp_acc[c] += t * me * aj + tdot * (medot * aj + me * ajdot);
+          dnpdot_acc[c] += tdot * me * aj;
+          hdot_s[o] = t * ai * aj + tdot * (aidot * aj + ai * ajdot);  // dme
+          g_s[o] = tdot * ai * aj;                                    // dmedot
+          if (ok) {
+            st(dcat + at + f, t * me * ai + tdot * (medot * ai + me * aidot));
+            st(dcatdot + at + f, tdot * me * ai);
           }
-          g_s[p * LD + f] = dphi * a;
-          gdot_s[p * LD + f] = dphidot * a;
         }
       }
-      wgrad<F, M, true>(h_s, g_s, hdot_s, gdot_s, LD, F, wpb, init);  // dWb
-      gemm_rows<F, TJ, true>(gdot_s, LD, F, Wb, w_s, acc);  // dhdot
-      __syncwarp();  // the warp's lanes have read gdot before it is replaced
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          const float pv = p_s[o];
-          pdot_s[o] = d2silu_f(pv) * pdot_s[o] * acc[r][c];
-          gdot_s[o] = dsilu_f(pv) * acc[r][c];  // dpdot
-        }
-      gemm_rows<F, TJ, true>(g_s, LD, F, Wb, w_s, acc);  // dh
-      __syncwarp();  // as above, for g
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          g_s[o] = dsilu_f(p_s[o]) * acc[r][c] + pdot_s[o];  // dp
-        }
-      wgrad<F, M, true>(msg_s, g_s, msgdot_s, gdot_s, LD, F, wpa, init);
-      gemm_rows<F, TJ, true>(g_s, LD, F, Wa, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          dmsg[r][c] = br == 0 ? acc[r][c] : dmsg[r][c] + acc[r][c];
-      gemm_rows<F, TJ, true>(gdot_s, LD, F, Wa, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          dmsgdot[r][c] = br == 0 ? acc[r][c] : dmsgdot[r][c] + acc[r][c];
+      wgrad_tc<F>(rbf_s, hdot_s, rbfdot_s, g_s, R, R, wp, init);  // dWe
     }
 
-    // ---- t = (dmsg + di_i) mask, tdot = (dmsgdot + didot_i) mask; dnpi,
-    // dnpidot, dcat[np_j], dcatdot[np_j], dme, dmedot, dWe. me and medot
-    // are recomputed.
-    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me
-#pragma unroll
-    for (int r = 0; r < TJ; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        p_s[(warp * TJ + r) * LD + lane + 32 * c] = acc[r][c];
-    gemm_rows<F, TJ, false>(rbfdot_s, R, R, We, w_s, acc);  // medot
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r, k = k0 + r;
-      const bool ok = i < N && k < K;
-      const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
-      const float a = mask_s[p];
+    if (i < N) {
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int f = lane + 32 * c;
-        const int o = p * LD + f;
-        const float t = (dmsg[r][c] + di_s[warp * F + f]) * a;
-        const float tdot = (dmsgdot[r][c] + didot_s[warp * F + f]) * a;
-        const float me = p_s[o], medot = acc[r][c];
-        const float ai = npi_s[warp * F + f];
-        const float aidot = npidot_s[warp * F + f];
-        const float aj = ok ? ld(cat + at + f) : 0.0f;
-        const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
-        dnp_acc[c] += t * me * aj + tdot * (medot * aj + me * ajdot);
-        dnpdot_acc[c] += tdot * me * aj;
-        hdot_s[o] = t * ai * aj + tdot * (aidot * aj + ai * ajdot);  // dme
-        g_s[o] = tdot * ai * aj;                                      // dmedot
-        if (ok) {
-          st(dcat + at + f, t * me * ai + tdot * (medot * ai + me * aidot));
-          st(dcatdot + at + f, tdot * me * ai);
-        }
+        dnpi[((size_t)b * N + i) * F + f] = dnp_acc[c];
+        dnpidot[((size_t)b * N + i) * F + f] = dnpdot_acc[c];
       }
-    }
-    wgrad<F, M, true>(rbf_s, hdot_s, rbfdot_s, g_s, R, R, wp, init);  // dWe
-  }
-
-  if (i < N) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
-      dnpi[((size_t)b * N + i) * F + f] = dnp_acc[c];
-      dnpidot[((size_t)b * N + i) * F + f] = dnpdot_acc[c];
     }
   }
 }
@@ -1130,6 +1476,7 @@ struct Args {
   int B, N, K, R;
   bool wgrad;
   cudaStream_t stream;
+  int max_blocks;  // K8: the grid's upper bound (one block per SM)
 };
 
 template <class T>
@@ -1251,7 +1598,9 @@ cudaError_t launch_dual_bwd(const Args& a) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_itiles = (a.N + TI - 1) / TI;
-  const int n_blocks = a.B * n_itiles;
+  const int n_tiles = a.B * n_itiles;
+  const int n_blocks = n_tiles < a.max_blocks ? n_tiles : a.max_blocks;
+  if (n_blocks < 1) return cudaErrorInvalidValue;
   const float* npi = cin<float>(a, 0);
   const float* npidot = cin<float>(a, 1);
   const E* cat = cin<E>(a, 2);
@@ -1279,7 +1628,7 @@ cudaError_t launch_dual_bwd(const Args& a) {
   kern<<<n_blocks, kThreads, smem, a.stream>>>(
       npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We, W1a, W1b,
       W2a, W2b, di, dq, didot, dqdot, dnpi, dnpidot, dcat, dcatdot, wpart, N,
-      K, R, n_itiles);
+      K, R, n_itiles, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, a.R, FIRST,
@@ -1383,8 +1732,11 @@ int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
 }
 
 // K8. Inputs of K7 plus di, didot (B,N,F) and dq, dqdot (B,3,N,F) f32.
-// Outputs dnpi, dnpidot (B,N,F) f32, dcat, dcatdot (B,N,K,C) in the edge
-// type and dw (R*F+4F^2). Scratch wpart (B*ceil(N/8), R*F+4F^2).
+// Outputs dnpi, dnpidot (B,N,F)
+// f32, dcat, dcatdot (B,N,K,C) in the edge type and dw (R*F+4F^2).
+// The weights 16-byte aligned (cp.async). Scratch wpart (min(B*ceil(N/8),
+// max_blocks), R*F+4F^2); max_blocks bounds the grid (the wrapper passes
+// the SM count).
 int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
                       const void* catdot, const void* rbf, const void* rbfdot,
                       const float* dir, const float* dirdot,
@@ -1394,11 +1746,12 @@ int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
                       const float* dqdot, float* dnpi, float* dnpidot,
                       void* dcat, void* dcatdot, float* wpart, float* dw,
                       int B, int N, int K, int F, int R, int first_layer,
-                      int bf16, void* stream) {
+                      int bf16, int max_blocks, void* stream) {
   Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
              W1a, W1b, W2a, W2b, di, dq, didot, dqdot},
             {dnpi, dnpidot, dcat, dcatdot, wpart, dw},
-            B, N, K, R, false, static_cast<cudaStream_t>(stream)};
+            B, N, K, R, false, static_cast<cudaStream_t>(stream),
+            max_blocks};
   return run<DualBwd>(F, first_layer, bf16, a);
 }
 

@@ -1,5 +1,9 @@
 '''Precision string -> torch dtype map (the JAX package's
-`layers/precision.get_precision_by_string`, returning torch dtypes).'''
+`layers/precision.get_precision_by_string`, returning torch dtypes), and
+fp32_matmuls, the port's counterpart of running under
+`jax.default_matmul_precision('highest')`.'''
+import contextlib
+
 import torch
 
 _PRECISION = {
@@ -20,3 +24,19 @@ def get_precision_by_string(key):
     if key not in _PRECISION:
         raise ValueError(f'precision {key} is not supported')
     return _PRECISION[key]
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    '''TF32 off for matrix products and cuDNN, the caller's flags restored
+    afterwards: every fp32 product inside runs in IEEE fp32, as the JAX
+    package's calculator and Trainer pin 'highest'.'''
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved

@@ -10,7 +10,10 @@ md/driver.host_symmetric_nlist (device build, host coloring).
 import numpy as np
 import torch
 
-from newtonnet_tpu_torch.layers.precision import get_precision_by_string
+from newtonnet_tpu_torch.layers.precision import (
+    fp32_matmuls,
+    get_precision_by_string,
+)
 from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
 from newtonnet_tpu_torch.models.output import NewtonNet
 from newtonnet_tpu_torch.utils.checkpoint import load_model
@@ -69,11 +72,23 @@ class NewtonNetCalculator:
         self.model = model.to(self.dtype)
         self.device = model.device
 
-    def calculate(self, numbers, positions, cell=None):
+    def calculate(self, system=None, numbers=None, positions=None,
+                  cell=None):
         '''Run the model on one system: numbers (n,), positions (n, 3),
-        optional cell (3, 3). Returns numpy results keyed by property:
-        energy (float), forces (n, 3), stress (Voigt-6 xx yy zz yz xz xy),
-        virial (3, 3).'''
+        optional cell (3, 3); the JAX package's signature, whose first
+        argument is an MD system object (not ported: pass None or use the
+        keywords). Returns numpy results keyed by property: energy
+        (float), forces (n, 3), stress (Voigt-6 xx yy zz yz xz xy),
+        virial (3, 3). Matrix products run in IEEE fp32 (fp32_matmuls),
+        the caller's TF32 flags restored afterwards.'''
+        if system is not None:
+            raise NotImplementedError(
+                'calculate(system=...) is not ported yet: md/system.py '
+                '(ROADMAP.md A, "MD"); pass numbers, positions and cell')
+        with fp32_matmuls():
+            return self._calculate(numbers, positions, cell)
+
+    def _calculate(self, numbers, positions, cell):
         numbers = np.asarray(numbers)
         n = len(numbers)
         n_pad = _round_up(n)

@@ -5,7 +5,9 @@ The same parameters, math and masking as the dense stack
 (models/fused_stack.py), for graph_mode='neighborlist': every pair-tensor
 operation runs inside the fused ops of ops/fused_klist.py (K5/K6, and the
 dual K7/K8), and the neighbour features reach them through gather_nodes
-(ops/nlist.py), whose backward is a scatter-add onto the atoms. Per layer
+(ops/nlist.py), whose backward sums onto the atoms over the list's
+transpose in a fixed order (row gathers, K9 on the card), built once per
+call and shared by every gather: a request repeats its bits. Per layer
 device memory sees one gathered (B, N, K, C) edge tensor plus node-sized
 tensors.
 
@@ -37,6 +39,7 @@ from newtonnet_tpu_torch.ops.fused_klist import (
 from newtonnet_tpu_torch.ops.nlist import (
     gather_nodes,
     neighbor_list,
+    node_transpose,
     recompute_displacements,
 )
 
@@ -60,11 +63,12 @@ def resolve_nlist(model, z, pos, cell, nlist=None):
     return idx, kmask
 
 
-def geometry(model, pos, cell, idx, kmask):
+def geometry(model, pos, cell, idx, kmask, tr):
     '''The edge mask, tightened at the current positions (a stale list
     keeps only the pairs still inside the cutoff), as a float (B, N, K),
     and the function x -> (dir (B,3,N,K), rbf (B,N,K,R)) of the positions,
-    differentiable in them and in the cell.'''
+    differentiable in them and in the cell. tr is the list's
+    node_transpose.'''
     with torch.no_grad():
         disp0 = recompute_displacements(pos, cell, idx,
                                         mic_mode=model.mic_mode)
@@ -72,7 +76,8 @@ def geometry(model, pos, cell, idx, kmask):
         mask = (kmask & (d2 < model.cutoff * model.cutoff)).to(pos.dtype)
 
     def feats(x):
-        disp = recompute_displacements(x, cell, idx, mic_mode=model.mic_mode)
+        disp = recompute_displacements(x, cell, idx, mic_mode=model.mic_mode,
+                                       mask=kmask, transpose=tr)
         dist, dir_edge = scaled_norm(disp, model.cutoff)
         rbf = polynomial_cutoff(dist) * radial_bessel(dist, model.n_basis)
         return dir_edge.movedim(-1, 1).contiguous(), rbf.contiguous()
@@ -107,7 +112,8 @@ def apply_core_nlist(model, z, pos, cell, nlist=None, pair_op=None):
     dtype = pos.dtype
     edt = edge_dtype(model, pos)
     idx, kmask = resolve_nlist(model, z, pos, cell, nlist)
-    mask, feats = geometry(model, pos, cell, idx, kmask)
+    tr = node_transpose(idx, N, kmask)
+    mask, feats = geometry(model, pos, cell, idx, kmask, tr)
     dir_t, rbf = feats(pos)
     rbf = rbf.to(edt)
 
@@ -117,7 +123,8 @@ def apply_core_nlist(model, z, pos, cell, nlist=None, pair_op=None):
                           device=pos.device)
     for i, lp in enumerate(core.interactions()):
         np_ = lp.message_nodepart(atom_node)
-        cat_j = gather_nodes(_cat(np_, force_t, i == 0).to(edt), idx)
+        cat_j = gather_nodes(_cat(np_, force_t, i == 0).to(edt), idx, kmask,
+                             tr)
         inv1, eq = op(np_, cat_j, rbf, dir_t, mask, *_layer_weights(lp),
                       first_layer=(i == 0))
         atom_node = atom_node + inv1
@@ -144,7 +151,8 @@ def dual_energy_nlist(model, z, pos, cell, v, nlist=None, dual_op=None):
     edt = edge_dtype(model, pos)
     pos, v = pos.detach(), v.detach()
     idx, kmask = resolve_nlist(model, z, pos, cell, nlist)
-    mask, feats = geometry(model, pos, cell, idx, kmask)
+    tr = node_transpose(idx, N, kmask)
+    mask, feats = geometry(model, pos, cell, idx, kmask, tr)
     (dir_t, rbf), (dirdot_t, rbfdot) = torch.func.jvp(feats, (pos,), (v,))
     dirdot_t = dirdot_t.contiguous()
     rbf, rbfdot = rbf.to(edt), rbfdot.to(edt).contiguous()
@@ -158,8 +166,10 @@ def dual_energy_nlist(model, z, pos, cell, v, nlist=None, dual_op=None):
     for i, lp in enumerate(core.interactions()):
         first = i == 0
         np_, npdot = _mlp2_dual(lp.message_nodepart, atom_node, atomdot)
-        cat_j = gather_nodes(_cat(np_, force_t, first).to(edt), idx)
-        catdot_j = gather_nodes(_cat(npdot, forcedot_t, first).to(edt), idx)
+        cat_j = gather_nodes(_cat(np_, force_t, first).to(edt), idx, kmask,
+                             tr)
+        catdot_j = gather_nodes(_cat(npdot, forcedot_t, first).to(edt), idx,
+                                kmask, tr)
         inv1, eq, inv1dot, eqdot = op(
             np_, npdot, cat_j, catdot_j, rbf, rbfdot, dir_t, dirdot_t, mask,
             *_layer_weights(lp), first_layer=first)

@@ -31,6 +31,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from newtonnet_tpu_torch.layers.precision import fp32_matmuls
 from newtonnet_tpu_torch.models.fused_klist import COMPUTE_DTYPES, \
     apply_core_nlist
 from newtonnet_tpu_torch.models.fused_stack import apply_core
@@ -294,8 +295,14 @@ class NewtonNet(nn.Module):
         Returns:
             dict with energy (B,), the configured derivative outputs
             (gradient_force (B, N, 3), virial/stress (B, 3, 3)) and
-            atom_node, force_node, atomic_energy; all detached.
+            atom_node, force_node, atomic_energy; all detached. Matrix
+            products run in IEEE fp32 (fp32_matmuls), whatever TF32 flags
+            the caller set, as the JAX package's calculator pins 'highest'.
         '''
+        with fp32_matmuls():
+            return self._forward(z, pos, cell, pair_op, nlist, plain)
+
+    def _forward(self, z, pos, cell, pair_op, nlist, plain):
         needs = self._needs
         need_grad = bool(needs & set(DERIVATIVE_PROPERTIES))
         pos = pos.detach().requires_grad_(need_grad)

@@ -10,21 +10,22 @@ Graph layouts:
 * neighbour lists, K-major: every per-edge tensor is (B, K, N, ...) and
   the sums run over the slot axis 1. The neighbour features come from
   gather_nodes on a plain full list (built here, or given as (idx, mask)),
-  whose backward is a scatter-add; or, for an inverse_lists model given
-  the 4-tuple (idx, mask, inv, inv_mask) of symmetric-slotted lists
-  (md/driver.host_symmetric_nlist), from inv_gather, whose backward is
-  inv_scatter_sum: both run through the row gather (kernel K9 on the card),
-  so no scatter-add runs and a request repeats its bits. An inverse_lists
-  model given a plain (idx, mask) list, or none, falls back to the plain
-  gather, as the JAX package does.
+  whose backward sums over the list's transpose in a fixed order; or, for
+  an inverse_lists model given the 4-tuple (idx, mask, inv, inv_mask) of
+  symmetric-slotted lists (md/driver.host_symmetric_nlist), from
+  inv_gather, whose backward is inv_scatter_sum. All of them run through
+  the row gather (kernel K9 on the card), so no scatter-add runs and a
+  request repeats its bits. An inverse_lists model given a plain (idx,
+  mask) list, or none, falls back to the plain gather, as the JAX package
+  does.
 
 Every layer after the first gathers [nodepart | force x|y|z] as one 4F-wide
 row; the first sees force == 0, gathers nodepart alone and skips phi2.
-compute_dtype 'bfloat16' runs the interaction stack in bf16 (node features,
-dir and rbf rounded, the parameters cast to bf16 in every product), while
-the graph, the heads and the derivatives' accumulation stay in the
-positions' dtype. Forces, virial and stress are autograd of the energy
-(models/output.py).
+compute_dtype 'bfloat16' gathers the neighbour rows in bf16 (rounded once,
+before the gather: half the gather traffic) and runs everything else in
+the positions' dtype, as the JAX package's stack computes on the CPU: XLA
+elides the bf16 round trips that meet arithmetic (apply_core_xla).
+Forces, virial and stress are autograd of the energy (models/output.py).
 '''
 from typing import Callable, NamedTuple, Optional
 
@@ -41,6 +42,7 @@ from newtonnet_tpu_torch.ops.nlist import (
     gather_nodes,
     inv_gather,
     neighbor_list,
+    node_transpose,
     recompute_displacements,
     recompute_displacements_kn,
 )
@@ -94,24 +96,30 @@ def nlist_edges(model, z, pos, cell, nlist=None, plain=False):
                      gather=lambda x: inv_gather(x, idx_kn, inv, inv_mask,
                                                  plain))
     if nlist is not None:
-        idx, kmask = nlist[0].long(), nlist[1].bool()
+        idx, listed = nlist[0].long(), nlist[1].bool()
         disp = recompute_displacements(pos, cell, idx,
-                                       mic_mode=model.mic_mode)
-        kmask = kmask & (torch.sum(disp * disp, dim=-1) < cut2)
+                                       mic_mode=model.mic_mode, mask=listed)
+        kmask = listed & (torch.sum(disp * disp, dim=-1) < cut2)
     else:
-        idx, kmask, disp, _ = neighbor_list(pos, cell, z > 0, model.cutoff,
-                                            model.k_max,
-                                            mic_mode=model.mic_mode)
+        idx, listed, disp, _ = neighbor_list(pos, cell, z > 0, model.cutoff,
+                                             model.k_max,
+                                             mic_mode=model.mic_mode)
+        kmask = listed
     dir_, rbf = _features(model, disp)
-    idx_kn = idx.transpose(1, 2)
+    idx_kn, listed_kn = idx.transpose(1, 2), listed.transpose(1, 2)
+    tr = node_transpose(idx_kn, idx.shape[1], listed_kn)
     return Edges(mask=kmask.transpose(1, 2), dir=dir_.transpose(1, 2),
                  rbf=rbf.transpose(1, 2),
-                 gather=lambda x: gather_nodes(x, idx_kn))
+                 gather=lambda x: gather_nodes(x, idx_kn, listed_kn, tr))
 
 
-def interaction(lp, atom_node, force_node, edges, first_layer, layer_norm):
+def interaction(lp, atom_node, force_node, edges, first_layer, layer_norm,
+                cd=None):
     '''One message-passing layer (InteractionNet.__call__, 'unroll'):
-    atom_node (B, N, F) and force_node (B, N, 3, F) -> updated.'''
+    atom_node (B, N, F) and force_node (B, N, 3, F) -> updated. With a
+    compute dtype cd (bfloat16), the gathered neighbour rows travel in cd
+    (rounded once, before the gather) and everything else runs in the
+    features' dtype.'''
     f = atom_node.shape[-1]
     dense = edges.gather is None
     jaxis = 2 if dense else 1
@@ -120,17 +128,21 @@ def interaction(lp, atom_node, force_node, edges, first_layer, layer_norm):
     def bcast_i(x):
         return x[:, :, None] if dense else x[:, None]
 
+    def gather(x):
+        return edges.gather(x) if cd is None else \
+            edges.gather(x.to(cd)).to(atom_node.dtype)
+
     nodepart = lp.message_nodepart(atom_node)
     edgepart = lp.message_edgepart(edges.rbf)
     cat_j = None
     if dense:
         nodepart_j = nodepart[:, None]
     elif not first_layer:
-        cat_j = edges.gather(torch.cat(
+        cat_j = gather(torch.cat(
             [nodepart] + [force_node[:, :, d] for d in range(3)], dim=-1))
         nodepart_j = cat_j[..., :f]
     else:
-        nodepart_j = edges.gather(nodepart)
+        nodepart_j = gather(nodepart)
     message = edgepart * bcast_i(nodepart) * nodepart_j * w
     atom_node = atom_node + torch.sum(message, dim=jaxis)
 
@@ -169,14 +181,15 @@ def apply_core_xla(model, z, pos, cell, nlist=None, plain=False):
         edges = dense_edges(model, z, pos, cell)
     else:
         edges = nlist_edges(model, z, pos, cell, nlist, plain)
+    # compute_dtype: the JAX package casts the stack's inputs to it
+    # (models/newtonnet.py:769-794), but XLA on the CPU elides every
+    # fp32 -> bf16 -> fp32 round trip that meets an arithmetic op (its excess
+    # precision); what stays rounded are the bf16 rows that data movement
+    # carries, the neighbour gathers. So does the port's stack.
     cd = COMPUTE_DTYPES[model.compute_dtype]
-    if cd is not None:
-        atom_node, force_node = atom_node.to(cd), force_node.to(cd)
-        edges = edges._replace(dir=edges.dir.to(cd), rbf=edges.rbf.to(cd))
     for i, lp in enumerate(core.interactions()):
         atom_node, force_node = interaction(lp, atom_node, force_node, edges,
-                                            i == 0, model.layer_norm)
-    atom_node, force_node = atom_node.to(pos.dtype), force_node.to(pos.dtype)
+                                            i == 0, model.layer_norm, cd)
     e = core.scaler_energy(core.energy_head(atom_node), z)
     return {'atom_node': atom_node, 'force_node': force_node,
             'atomic_energy': e * fmask}

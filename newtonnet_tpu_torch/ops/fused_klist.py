@@ -30,8 +30,11 @@ float32 only.
 
 On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
 nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
-the CPU the wrappers run the plain versions below. A CUDA tensor either
-launches the kernel or raises: nothing falls back.
+the CPU the wrappers run the plain versions below. K5-K7 use plain fp32
+FMAs; K8 multiplies on the tensor cores in 3xTF32 (each operand split in
+a TF32 high and low part, three products summed in fp32), which keeps
+fp32-level accuracy. A CUDA tensor either launches the kernel or raises:
+nothing falls back.
 '''
 import ctypes
 
@@ -265,7 +268,7 @@ def _lib():
         lib.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.nn_klist_bwd.argtypes = [p] * 18 + [i] * 8 + [p]
         lib.nn_klist_dual_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
-        lib.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 7 + [p]
+        lib.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
         for fn in (lib.nn_klist_fwd, lib.nn_klist_bwd, lib.nn_klist_dual_fwd,
                    lib.nn_klist_dual_bwd):
             fn.restype = i
@@ -428,15 +431,21 @@ def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
     named = list(zip(_DUAL_NAMES + ('di', 'dq', 'didot', 'dqdot'),
                      ins + cots, _DUAL_KINDS + ('node', 'vec', 'node', 'vec')))
     B, N, K, F, R, bf = _checked(npi, cat, rbf, named, first_layer)
+    for name, w in zip(_DUAL_NAMES[9:], ins[9:]):
+        if w.data_ptr() % 16:
+            raise ValueError(f'{name} must be 16-byte aligned (cp.async)')
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, N, F), **opts),
             torch.empty_like(cat), torch.empty_like(catdot))
     n_w = R * F + 4 * F * F
-    wpart = torch.empty((B * ((N + _TI - 1) // _TI), n_w), **opts)
+    # one block per SM at most, each summing its atom tiles into one partial
+    sms = torch.cuda.get_device_properties(npi.device).multi_processor_count
+    n_blocks = min(B * ((N + _TI - 1) // _TI), sms)
+    wpart = torch.empty((n_blocks, n_w), **opts)
     dw = torch.empty((n_w,), **opts)
     err = _lib().nn_klist_dual_bwd(
         *[t.data_ptr() for t in ins + cots + outs + (wpart, dw)], B, N, K, F,
-        R, int(first_layer), bf, _stream(npi))
+        R, int(first_layer), bf, n_blocks, _stream(npi))
     _raise_on(err, 'nn_klist_dual_bwd')
     LAUNCHES[_key('klist_dual_bwd', first_layer)] += 1
     return (*outs, *_split_w(dw, F, R))

@@ -24,9 +24,13 @@ inv_scatter_sum are a mutually transposed pair of autograd Functions over
 such lists: the neighbour gather, and its adjoint as a sum of per-chunk
 gathers, both through the row gather (ops/row_gather.py, kernel K9), so
 every derivative order is gather-only and no scatter-add (and no atomic)
-runs. The half (newton3), reverse, staircase and cell-grid layouts are not
-ported (ROADMAP.md A, "XLA kernel='xla' path").
+runs. gather_nodes, the plain list's gather, has the same property: its
+backward sums over the list's transpose (node_transpose) with K9 row
+gathers in a fixed order. The half (newton3), reverse, staircase and
+cell-grid layouts are not ported (ROADMAP.md A, "XLA kernel='xla' path").
 '''
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -36,6 +40,8 @@ from newtonnet_tpu_torch.ops.row_gather import row_gather, row_gather_ref
 # slots per chunk of inv_scatter_sum: one row gather over a (B, c*N, F)
 # stack per chunk (the JAX package's NEWTONNET_SCATTER_CHUNK default)
 SCATTER_CHUNK = 6
+# bytes of gathered rows per chunk of gather_nodes' backward (_scatter_rows)
+TRANSPOSE_CHUNK_BYTES = 256 << 20
 
 
 def neighbor_list(pos, cell, atom_mask, cutoff, k_max, mic_mode='exact',
@@ -78,28 +84,165 @@ def neighbor_list(pos, cell, atom_mask, cutoff, k_max, mic_mode='exact',
         overflow += ((n_valid > k_max) & rmask).sum(-1)
     kmask = torch.cat(mask_c, dim=1)
     idx = torch.where(kmask, torch.cat(idx_c, dim=1), 0)
-    return idx, kmask, recompute_displacements(pos, cell, idx, mic_mode), \
-        overflow
+    return idx, kmask, recompute_displacements(pos, cell, idx, mic_mode,
+                                               mask=kmask), overflow
 
 
-def recompute_displacements(pos, cell, idx, mic_mode='exact'):
+def recompute_displacements(pos, cell, idx, mic_mode='exact', mask=None,
+                            transpose=None):
     '''pos_i - pos_j for an index list, minimum-imaged. The indices carry
-    no gradient; the displacements are differentiable in pos and cell.'''
+    no gradient; the displacements are differentiable in pos and cell
+    (through gather_nodes: with a mask, masked slots pass none).'''
     is_periodic = torch.any((cell != 0).flatten(1), dim=-1)
-    disp = pos[:, :, None, :] - gather_nodes(pos, idx)
+    disp = pos[:, :, None, :] - gather_nodes(pos, idx, mask, transpose)
     return minimum_image(disp, cell, is_periodic, mic_mode=mic_mode)
 
 
-def gather_nodes(x, idx):
-    '''Per-atom features at neighbour indices: x (B, N, ...) -> (B, R, K,
-    ...) for idx (B, R, K). Its backward is a scatter-add onto the atoms
-    (in x's dtype; on CUDA with atomics, so its bits may differ between
-    runs).'''
+class NodeTranspose(NamedTuple):
+    '''The transpose of a list idx (B, R, K) onto N nodes: slots[b, j, d]
+    is the d-th flat slot id r*K + k (in increasing order) with idx[b, r,
+    k] == j, for d below j's in-degree, where valid[b, j, d] is True; both
+    (B, N, D), D the largest in-degree.'''
+    slots: torch.Tensor
+    valid: torch.Tensor
+
+
+def node_transpose(idx, n_nodes, mask=None):
+    '''NodeTranspose of idx (B, R, K) onto n_nodes nodes, counting only
+    the slots where `mask` (B, R, K) is True (all of them without one).
+    Integer ops only: a stable argsort of the flat keys (a masked slot's
+    key is n_nodes, past every node), then each node's run of the sorted
+    slot ids, padded to the largest in-degree.'''
+    B = idx.shape[0]
+    S = idx.shape[1] * idx.shape[2]
+    dev = idx.device
+    key = idx.reshape(B, S).long()
+    if mask is not None:
+        key = torch.where(mask.reshape(B, S).bool(), key, n_nodes)
+    order = torch.argsort(key, dim=1, stable=True)
+    bounds = torch.searchsorted(
+        torch.gather(key, 1, order).contiguous(),
+        torch.arange(n_nodes + 1, device=dev).expand(B, -1).contiguous())
+    start, deg = bounds[:, :-1], bounds[:, 1:] - bounds[:, :-1]
+    D = max(int(deg.max()), 1) if deg.numel() else 1
+    col = torch.arange(D, device=dev)
+    valid = col < deg[..., None]
+    at = (start[..., None] + col).clamp_max(S - 1).reshape(B, -1)
+    slots = torch.gather(order, 1, at).reshape(B, n_nodes, D)
+    return NodeTranspose(torch.where(valid, slots, 0), valid)
+
+
+def _gather_rows(x, idx):
+    '''x (B, N, ...) -> (B, R, K, ...) at idx (B, R, K): torch.gather.'''
     B, N = x.shape[:2]
     R, K = idx.shape[1], idx.shape[2]
     flat = x.reshape(B, N, -1)
     index = idx.long().reshape(B, R * K, 1).expand(B, R * K, flat.shape[-1])
     return torch.gather(flat, 1, index).reshape((B, R, K) + x.shape[2:])
+
+
+def _scatter_rows(y, tr):
+    '''out[b, j] = sum_d where(tr.valid[b, j, d], y_flat[b, tr.slots[b, j,
+    d]], 0) for y (B, R, K, ...): per chunk of columns d (as many as fit
+    TRANSPOSE_CHUNK_BYTES of gathered rows) one row gather of the (B, R*K,
+    F) cotangent rows, then the mask and the sum over the chunk,
+    accumulated chunk after chunk. Sums run in fp32 (fp64 for fp64 y) in
+    the order of d, and the result is rounded to y's dtype once: the same
+    bits in every run.'''
+    B, N, D = tr.slots.shape
+    feat = y.shape[3:]
+    rows = y.reshape(B, y.shape[1] * y.shape[2], -1).contiguous()
+    Ff = rows.shape[-1]
+    acc_dt = torch.promote_types(y.dtype, torch.float32)
+    acc = torch.zeros((B, N, Ff), dtype=acc_dt, device=y.device)
+    chunk = max(1, TRANSPOSE_CHUNK_BYTES // max(1, B * N * Ff
+                                                * rows.element_size()))
+    for d0 in range(0, D, chunk):
+        c = min(chunk, D - d0)
+        g = row_gather(rows, tr.slots[:, :, d0:d0 + c].reshape(B, N * c))
+        g = torch.where(tr.valid[:, :, d0:d0 + c].reshape(B, N * c, 1), g, 0)
+        acc = acc + g.reshape(B, N, c, Ff).sum(2, dtype=acc_dt)
+    return acc.to(y.dtype).reshape((B, N) + feat)
+
+
+def _masked(y, mask):
+    if mask is None:
+        return y
+    return torch.where(mask.reshape(mask.shape + (1,) * (y.dim() - 3)), y, 0)
+
+
+class GatherNodes(torch.autograd.Function):
+    '''y = x[idx] (all slots); its derivative is that of where(mask,
+    x[idx], 0): masked slots are constants. Backward ScatterNodes.
+
+    apply(x, idx, mask, slots, valid) -> (B, R, K, ...)'''
+
+    @staticmethod
+    def forward(x, idx, mask, slots, valid):
+        return _gather_rows(x, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, idx, mask, slots, valid = inputs
+        ctx.save_for_backward(idx, mask, slots, valid)
+        ctx.idx, ctx.mask, ctx.n_nodes = idx, mask, x.shape[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, mask, slots, valid = ctx.saved_tensors
+        if slots is None:  # built at the first backward, not in forward
+            slots, valid = node_transpose(idx, ctx.n_nodes, mask)
+        return (ScatterNodes.apply(g, idx, mask, slots, valid), None, None,
+                None, None)
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        return _masked(_gather_rows(x_t, ctx.idx), ctx.mask)
+
+
+class ScatterNodes(torch.autograd.Function):
+    '''The adjoint of GatherNodes' derivative: the sum of each node's
+    unmasked slot rows, in a fixed order (_scatter_rows). Backward
+    GatherNodes, masked.
+
+    apply(y, idx, mask, slots, valid) -> (B, N, ...)'''
+
+    @staticmethod
+    def forward(y, idx, mask, slots, valid):
+        with torch.profiler.record_function('gather_nodes_backward'):
+            return _scatter_rows(y, NodeTranspose(slots, valid))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, idx, mask, slots, valid = inputs
+        ctx.save_for_backward(idx, mask, slots, valid)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, mask, slots, valid = ctx.saved_tensors
+        return (_masked(GatherNodes.apply(g, idx, mask, slots, valid), mask),
+                None, None, None, None)
+
+
+def gather_nodes(x, idx, mask=None, transpose=None):
+    '''Per-atom features at neighbour indices: x (B, N, ...) -> (B, R, K,
+    ...) for idx (B, R, K).
+
+    The forward is torch.gather at every slot. The backward sums each
+    atom's slot cotangents in a fixed order through row gathers (kernel K9
+    on the card) over the list's transpose, never with atomics, so it
+    repeats its bits; its own backward is this gather again. With a mask
+    (B, R, K), masked slots are held constant: their cotangents are dropped
+    (the model's are zeros) and their tangents are zero.
+
+    Args:
+        x: (B, N, ...) node features.
+        idx: (B, R, K) int indices in [0, N).
+        mask: optional (B, R, K) bool, the slots that carry derivatives.
+        transpose: node_transpose(idx, N, mask), built here when None;
+            pass it to share one across the gathers of a list.'''
+    slots, valid = transpose if transpose is not None else (None, None)
+    return GatherNodes.apply(x, idx, mask, slots, valid)
 
 
 def recompute_displacements_kn(pos, cell, idx_kn, inv, inv_mask,

@@ -10,7 +10,9 @@ to a .msgpack checkpoint warm-starts from it, with its freeze flags.
 Not ported, and refused with NotImplementedError before any data is
 read: a kernel='xla' model (a model section, or a pretrained checkpoint,
 without `kernel: pallas`), a .pt warm start, training.parallel,
-training.wandb and general.debug_nans.
+training.halo, training.wandb, training.profile_dir and
+general.debug_nans. training.steps_per_call is accepted and does nothing
+(eager PyTorch has no dispatch chunking).
 '''
 import argparse
 import os
@@ -50,6 +52,8 @@ def train_from_settings(settings, settings_path=None, resume=None):
     if general.get('debug_nans', False):
         raise NotImplementedError(
             _NOT_PORTED.format('general.debug_nans', 'training extras'))
+    from newtonnet_tpu_torch.train.trainer import refuse_unported_extras
+    refuse_unported_extras(**training)
     import torch
 
     from newtonnet_tpu_torch.data.pipeline import parse_train_test

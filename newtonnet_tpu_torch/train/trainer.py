@@ -15,11 +15,11 @@ the Trainer runs.
 Not here (ROADMAP.md A, "parallelism", "XLA training" and "XLA
 kernel='xla' path"): kernel='xla' models (refused before anything else),
 meshes, halo exchange, several processes, precomputed neighbour lists,
-wandb and the profiler hook. The JAX Trainer's steps_per_call, which
-chunks steps into one device dispatch, has no counterpart: eager PyTorch
-dispatches each operation as it comes.
+wandb and the profiler hook (`halo` and `profile_dir` raise
+NotImplementedError). The JAX Trainer's steps_per_call, which chunks
+steps into one device dispatch, is accepted and does nothing: eager
+PyTorch dispatches each operation as it comes.
 '''
-import contextlib
 import csv
 import os
 import shutil
@@ -28,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from newtonnet_tpu_torch.layers.precision import fp32_matmuls
 from newtonnet_tpu_torch.ops.neighbors import dense_graph
 from newtonnet_tpu_torch.train import fastgrad
 from newtonnet_tpu_torch.train.loss import get_loss_by_string
@@ -37,18 +38,17 @@ from newtonnet_tpu_torch.utils.freeze import apply_freeze
 from newtonnet_tpu_torch.utils.params import params_from_flax
 
 
-@contextlib.contextmanager
-def fp32_matmuls():
-    '''TF32 off for matrix products and cuDNN, restored afterwards.'''
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+# Trainer arguments of the JAX package that the port refuses when set, with
+# the ROADMAP.md A item that ports each.
+UNPORTED_EXTRAS = {'profile_dir': 'training extras', 'halo': 'parallelism'}
+
+
+def refuse_unported_extras(**given):
+    '''NotImplementedError for the first of UNPORTED_EXTRAS given a value.'''
+    for key, item in UNPORTED_EXTRAS.items():
+        if given.get(key):
+            raise NotImplementedError(
+                f'training.{key} is not ported yet (ROADMAP.md A, "{item}")')
 
 
 class Trainer:
@@ -76,7 +76,12 @@ class Trainer:
             clip_grad=0.0,
             freeze=None,
             fast_grad='auto',
+            steps_per_call=1,
+            profile_dir=None,
+            halo=None,
             ):
+        del steps_per_call  # no dispatch chunking in eager PyTorch
+        refuse_unported_extras(profile_dir=profile_dir, halo=halo)
         fastgrad.refuse_unported_kernel(model.kernel)
         self.model = model
         model.requires_grad_(True)

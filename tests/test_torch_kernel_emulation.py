@@ -255,7 +255,7 @@ def _klist_handle(handle):
     handle.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
     handle.nn_klist_bwd.argtypes = [p] * 18 + [i] * 8 + [p]
     handle.nn_klist_dual_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
-    handle.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 7 + [p]
+    handle.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
     for fn in (handle.nn_klist_fwd, handle.nn_klist_bwd,
                handle.nn_klist_dual_fwd, handle.nn_klist_dual_bwd):
         fn.restype = i
@@ -291,9 +291,11 @@ def _klist_inputs(B, N, K, F, R, first_layer, bf16, seed):
     return ins, tans, cots
 
 
-def _run_klist(handle, ins, tans, cots, first_layer, bf16):
+def _run_klist(handle, ins, tans, cots, first_layer, bf16, max_blocks=3):
     '''(K5, K6 without and with weight cotangents, K7, K8) outputs of the
-    emulated kernels, NaN-initialised, and the plain versions' values.'''
+    emulated kernels, NaN-initialised, and the plain versions' values. K8's
+    grid is at most max_blocks blocks, so a block walks several atom tiles
+    (of both molecules where B = 2) into one weight partial.'''
     B, N, F = ins[0].shape
     K, R = ins[1].shape[2], ins[2].shape[-1]
     fl, bf = int(first_layer), int(bf16)
@@ -330,9 +332,10 @@ def _run_klist(handle, ins, tans, cots, first_layer, bf16):
     got += dfwd
     want += fk.klist_dual_fwd_ref(*args, first_layer=first_layer)
     dbwd = [_nan(B, N, F), _nan(B, N, F), nan_like(ins[1]), nan_like(tans[1])]
-    wpart, dw = _nan(n_blk, n_w), _nan(n_w)
+    wpart, dw = _nan(min(n_blk, max_blocks), n_w), _nan(n_w)
     assert handle.nn_klist_dual_bwd(*_ptrs(args + cots + dbwd + [wpart, dw]),
-                                    B, N, K, F, R, fl, bf, None) == 0
+                                    B, N, K, F, R, fl, bf, max_blocks,
+                                    None) == 0
     ref = fk.klist_dual_bwd_ref(*args, *cots, first_layer=first_layer)
     got += dbwd + list(dw.split([R * F] + [F * F] * 4))
     want += list(ref[:4]) + [r.reshape(-1) for r in ref[4:]]
@@ -342,12 +345,15 @@ def _run_klist(handle, ins, tans, cots, first_layer, bf16):
 @pytest.mark.parametrize('shape, first_layer, bf16', [
     ((2, 10, 13, 32, 8), False, False), ((2, 10, 13, 32, 8), True, False),
     ((2, 10, 13, 32, 8), False, True), ((2, 10, 13, 32, 8), True, True),
-    ((1, 9, 6, 64, 16), False, True), ((1, 9, 6, 64, 16), True, False)])
+    ((1, 9, 6, 64, 16), False, True), ((1, 9, 6, 64, 16), True, False),
+    ((1, 9, 5, 128, 20), False, True), ((1, 9, 5, 128, 20), True, False)])
 def test_emulated_klist_kernels_match_plain(klist_lib, shape, first_layer,
                                             bf16):
     '''K5-K8 at ragged sizes (N = 10 and 9 are no multiple of the 8-atom
-    tiles, K = 13 and 6 none of the 8- or 4-slot tiles), both variants, fp32
-    and bf16 edges, K6 with and without weight cotangents. fp32 outputs hold
+    tiles, K = 13, 6 and 5 none of the 8- or 4-slot tiles), every width the
+    kernels are built for, both variants, fp32 and bf16 edges, K6 with and
+    without weight cotangents; K8 (tensor cores, 3xTF32) with a grid of at
+    most 3 blocks, so that a block sums several atom tiles. fp32 outputs hold
     BAR; the bf16-stored ones (dcat, dcatdot, drbf) one bf16 ulp, 2^-8 of
     the output's largest magnitude (a last-bit fp32 difference before the
     rounding can move a value to the neighbouring bf16 value).'''
@@ -397,6 +403,24 @@ def test_emulation_catches_a_dual_kernel_fault(tmp_path):
                                              dot_dtype='float32')
     assert _worst(fwd + bwd[:1], fdd.pair_interaction_dual_fwd_ref(
         *args, dot_dtype='float32') + want[:1]) > BAR
+
+
+def test_emulation_catches_a_tensor_core_fragment_fault(tmp_path):
+    '''A mutant of fused_klist.cu whose K8 reads the second B fragment of
+    an mma tile from the wrong depth row (k + 3 for k + 4, a fragment
+    index of the PTX layout) fails the comparison of K8 with its plain
+    version that the source passes.'''
+    src = _source('fused_klist')
+    good = 'wc[(kb + 4) * S::WLD + n]'
+    assert src.count(good) == 1
+    mutant = _klist_handle(_compile(
+        tmp_path, 'fused_klist_mutant',
+        src.replace(good, 'wc[(kb + 3) * S::WLD + n]')))
+    ins, tans, cots = _klist_inputs(1, 9, 6, 32, 8, False, False, seed=15)
+    got, want = _run_klist(mutant, ins, tans, cots, False, False)
+    worst = max((g - w).abs().max().item() / w.abs().max().item()
+                for g, w in zip(got[-9:], want[-9:]))
+    assert worst > BAR
 
 
 @pytest.fixture(scope='module')

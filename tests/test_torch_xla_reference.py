@@ -147,6 +147,29 @@ def test_box_recipe_matches_the_port_at_256_atoms():
     assert chip_smoke().BOX_REF_ATOMS == BOX_REF_ATOMS
 
 
+
+def test_bf16_stack_spread_at_512_atoms_is_within_4x_jax():
+    '''The port's bf16-to-fp32 spread on the box recipe at BOX_REF_ATOMS
+    (energy) lies within four times the JAX package's, from chip_smoke.py's
+    JAX_XLA_BOX_* numbers (this script's `box` output). The bf16 stack
+    gathers its neighbour rows in bf16 and computes in fp32, as XLA does on
+    the CPU, where rounding every operation put the port 40 times farther
+    from fp32 than the JAX package.'''
+    import torch
+
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    cs = chip_smoke()
+    z, pos, cell, _, _ = cs.box_system(BOX_REF_ATOMS)
+    args = [torch.from_numpy(a) for a in (z, pos, cell)]
+    energy = {}
+    for cd in ('', 'bfloat16'):
+        tm = port_box_model(cd)
+        out = tm(*args, nlist=host_symmetric_nlist(tm, *args, skin=0.0))
+        energy[cd] = float(out['energy'][0])
+    jax_spread = abs(cs.JAX_XLA_BOX_ENERGY - cs.JAX_XLA_BOX_FP32_ENERGY)
+    assert abs(energy['bfloat16'] - energy['']) <= 4 * jax_spread
+    assert abs(energy['bfloat16'] - cs.JAX_XLA_BOX_ENERGY) <= 4 * jax_spread
+
 if __name__ == '__main__':
     sys.path.insert(0, ROOT)
     jax.config.update('jax_platforms', 'cpu')
