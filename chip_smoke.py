@@ -15,9 +15,12 @@ with a non-zero exit code and no result line):
             calculator request (B=1, N=24) and at (B=2, N=70, F=64, R=16);
             bar: max|kernel - plain| <= 1e-4 * max|plain| per output.
    dual     K3/K4 against theirs at the training shape (B=10, N=24, F=128,
-            R=20), at one molecule (B=1, N=24) and at (B=2, N=70, F=64,
-            R=16), both variants; fp32 mode at the same 1e-4 bar, bf16 mode
-            at DUAL_BF16_BAR (see there).
+            R=20), at one molecule (B=1, N=24), at (B=2, N=70, F=64,
+            R=16) and ragged at (B=3, N=37, F=32, R=12), both variants;
+            fp32 mode (3xTF32 tensor cores) at the same 1e-4 bar, bf16
+            mode (bf16 tensor cores) at DUAL_BF16_BAR (see there); three
+            K4 launches at the training shape give equal bits, both modes
+            and variants.
    klist    K5-K8 (K6 with and without weight cotangents) against theirs,
             both variants, at the large box's shape (B=1, N=4096, K=88,
             F=128, R=20, bf16 edges), at (B=100, N=21, K=20) and at (B=2,
@@ -73,7 +76,10 @@ with a non-zero exit code and no result line):
                package's columns with finite values, best_model.msgpack
                reloads and reproduces the logged test metrics, and every
                K1-K4 variant ran, K2 never with weight cotangents.
-   profile  one training step under torch.profiler.
+   profile  one training step under torch.profiler: its host-clock
+            median, device busy time and idle share, split into K1, K2,
+            K3 and K4 (each with its reductions and weight preparation)
+            and the rest.
 7d. train-nlist  the same fine-tuning in neighbour-list mode (K5-K8):
             a. 10 steps against the JAX package's (JAX_NLIST_STEP_*), PR 2's
                bars; b. step 1's gradient against the dense port path with
@@ -99,7 +105,8 @@ with a non-zero exit code and no result line):
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
             shape (fp32 bound), K3/K4 at the training shape in bf16 mode
-            (the training path's; bf16 tensor-core bound) and in fp32 mode;
+            (the training path's; bf16 tensor-core bound) and in fp32 mode
+            (fp32 bound, and the 3xTF32 tensor-core bound);
             K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work; K8
             also its 3xTF32 tensor-core bound);
             K9 (box inv_gather and scatter-chunk shapes), K12, K10 and K11
@@ -387,6 +394,21 @@ def time_ms(torch, fn, reps=7, inner=10):
     return statistics.median(times)
 
 
+def device_ms(torch, fn, calls=20):
+    '''Device time of one call of fn: its kernels' device time summed under
+    torch.profiler over `calls` back-to-back calls, divided by `calls`
+    (time_ms measures the host's enqueue instead where that is longer).'''
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total
+               for e in prof.key_averages()) / 1e3 / calls
+
+
 def profile_call(torch, fn):
     """One call of fn under torch.profiler: wall ms (host clock, ending in
     a synchronise), device busy ms (the sum of the device's own events),
@@ -410,6 +432,15 @@ def profile_call(torch, fn):
                       r'_kernel', key)
         if m:
             families[m.group(1)] = families.get(m.group(1), 0.0) + ms
+    # K1-K4 with their reductions and weight preparation, by kernel name
+    dense = {}
+    for key, ms, _ in dev:
+        m = re.search(r'(?<!klist_)(pair_fwd|pair_bwd|dual_fwd|dual_bwd)_\w*'
+                      r'kernel', key)
+        if m:
+            k = {'pair_fwd': 'K1', 'pair_bwd': 'K2', 'dual_fwd': 'K3',
+                 'dual_bwd': 'K4'}[m.group(1)]
+            dense[k] = dense.get(k, 0.0) + ms
     # the neighbour gathers and their transposes, from the operators that
     # launch them (their device time, children included)
     ops = {e.key: getattr(e, 'device_time_total', 0.0) / 1e3 for e in events}
@@ -421,7 +452,7 @@ def profile_call(torch, fn):
             'k9_ms': families.get('row_gather', 0.0),
             'k9_launches': sum(n for k, _, n in dev
                                if 'row_gather_kernel' in k),
-            'kernel_ms': families,
+            'kernel_ms': families, 'dense_kernel_ms': dense,
             'gather_ms': ops.get('aten::gather', 0.0),
             'gather_nodes_backward_ms': ops.get('gather_nodes_backward',
                                                 0.0),
@@ -480,7 +511,10 @@ def phase_dual_kernels(torch, fdd):
     fp32 and bf16 modes. -> {variant: max abs err} at the training shape in
     bf16 mode (the training path's).'''
     errs = {}
-    shapes = [(10, 24, 128, 20), (1, 24, 128, 20), (2, 70, 64, 16)]
+    # the training shape, one molecule, and two whose N is no multiple of
+    # the 8-row or 4-column tiles (the last with R padded to 32)
+    shapes = [(10, 24, 128, 20), (1, 24, 128, 20), (2, 70, 64, 16),
+              (3, 37, 32, 12)]
     labels = ['inv1', 'eq', 'inv1dot', 'eqdot', 'dnp', 'dnpdot', 'dforce',
               'dforcedot', 'dWe', 'dW1a', 'dW1b', 'dW2a', 'dW2b']
     for si, (B, N, F, R) in enumerate(shapes):
@@ -512,6 +546,20 @@ def phase_dual_kernels(torch, fdd):
         emit('dual_vs_plain', shape=dict(B=B, N=N, F=F, R=R),
              worst_err_over_max=worst,
              bar={'float32': KERNEL_BAR, 'bfloat16': DUAL_BF16_BAR})
+    # three K4 launches on one input give equal bits (no float atomics)
+    args, cots = dual_inputs(torch, *shapes[0], seed=10)
+    same = {}
+    for dt in ('float32', 'bfloat16'):
+        for first in (False, True):
+            runs = [fdd.pair_interaction_dual_bwd(*args, *cots,
+                                                  first_layer=first,
+                                                  dot_dtype=dt)
+                    for _ in range(3)]
+            same[f'{dt} first={int(first)}'] = all(
+                exact(torch, a, b) for r in runs[1:]
+                for a, b in zip(runs[0], r))
+    emit('dual_bwd_repeats_its_bits', shape=shapes[0], **same)
+    check(all(same.values()), f'three K4 launches differ in their bits: {same}')
     return errs
 
 
@@ -1879,8 +1927,9 @@ def main():
     errs = phase_kernels(torch, fd)
     errs.update(phase_dual_kernels(torch, fdd))
     emit('dual_shared_memory_bytes', R=20, **{
-        f'{kind} F={F}': fdd.smem_bytes(F, 20, kind)
-        for kind in ('fwd', 'bwd') for F in (32, 64, 128)})
+        f'{kind} F={F} {dt}': fdd.smem_bytes(F, 20, kind, dt)
+        for kind in ('fwd', 'bwd') for F in (32, 64, 128)
+        for dt in ('bfloat16', 'float32')})
     errs.update(phase_klist_kernels(torch, fk))
     emit('klist_shared_memory_bytes', R=20, **{
         f'{kind} F={F}': fk.smem_bytes(F, 20, kind)
@@ -2028,8 +2077,11 @@ def main():
         opt.step()
     prof = profile_call(torch, one_step)
     step_ms = 1e3 * statistics.median(step_s[1:])
+    split = {k: prof['dense_kernel_ms'].get(k, 0.0)
+             for k in ('K1', 'K2', 'K3', 'K4')}
+    split['rest'] = prof['device_busy_ms'] - sum(split.values())
     emit('profile', what='one training step (B=10, N=24)',
-         step_ms_median_unprofiled=step_ms,
+         step_ms_median_unprofiled=step_ms, device_split_ms=split,
          device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
          / step_ms, **prof)
 
@@ -2134,6 +2186,11 @@ def main():
                 'library_ms': None, 'dot_dtype': dt,
                 'flops': flops, 'bytes': nbytes,
                 'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]}
+            # the kernels' own device time: at this shape the wrapper's
+            # host work per call can outlast them
+            row['device_ms'] = device_ms(torch, run)
+            if dt == 'float32':  # three tf32 products per fp32 one
+                row['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops / PEAK_TF32_FLOPS
             (rows if dt == 'bfloat16' else fp32_rows).append(row)
     emit('timing', shape=dict(B=B, N=N, F=F, R=R), what='K3/K4',
          peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,

@@ -13,13 +13,14 @@
 // It checks indexing, masking and barrier placement, not speed, and it
 // does not model warp-synchronous execution.
 //
-// The PTX wrappers of csrc/fused_klist.cu (mma_tf32, cp_async16,
-// cp_async_commit, cp_async_wait<N>; compiled there only without
-// NN_CUDA_EMU) are replaced here: mma.sync m16n8k8 tf32 with the PTX ISA's
-// fragment layout, each lane depositing its fragments in a per-warp buffer
-// between two warp barriers and computing its four outputs from the whole
-// warp's (fp32 sums over k in order); cp.async as a plain 16-byte copy,
-// its commit and wait as nothing.
+// The PTX wrappers of csrc/fused_klist.cu and csrc/fused_dual.cu
+// (mma_tf32, mma_bf16, cp_async16, cp_async_commit, cp_async_wait<N>;
+// compiled there only without NN_CUDA_EMU) are replaced here: mma.sync
+// m16n8k8 tf32 and m16n8k16 bf16 with the PTX ISA's fragment layouts, each
+// lane depositing its fragments in a per-warp buffer between two warp
+// barriers and computing its four outputs from the whole warp's (fp32 sums
+// over k in order); cp.async as a plain 16-byte copy, its commit and wait
+// as nothing.
 #pragma once
 #define NN_CUDA_EMU 1
 #include <algorithm>
@@ -136,6 +137,37 @@ inline void mma_tf32(float (&d)[4], const unsigned (&a)[4],
   g_warp_barriers[warp]->arrive_and_wait();
 }
 
+// d += A B for the warp's 16x8 tile, bf16 operands packed two to a
+// register, the lower k (or column) in the low half: A 16x16 row-major
+// (a0 (g, 2t..2t+1), a1 (g+8, 2t..2t+1), a2 (g, 2t+8..2t+9), a3 (g+8,
+// 2t+8..2t+9)), B 16x8 column-major (b0 (k=2t..2t+1, n=g), b1 (k=2t+8..
+// 2t+9, n=g)), D as mma_tf32's.
+inline float emu_bf16_half(unsigned v, int hi) {
+  return __uint_as_float(hi ? (v & 0xffff0000u) : (v << 16));
+}
+inline void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                     const unsigned (&b)[2]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = 0; r < 4; ++r) g_mma_a[warp][lane][r] = a[r];
+  g_mma_b[warp][lane][0] = b[0];
+  g_mma_b[warp][lane][1] = b[1];
+  g_warp_barriers[warp]->arrive_and_wait();
+  const int g = lane >> 2, t = lane & 3;
+  for (int o = 0; o < 4; ++o) {
+    const int row = g + (o >= 2 ? 8 : 0), col = 2 * t + (o & 1);
+    float s = d[o];
+    for (int k = 0; k < 16; ++k) {
+      const int kt = (k & 7) >> 1, half = k & 1, upper = k >= 8;
+      const unsigned av = g_mma_a[warp][(row & 7) * 4 + kt]
+                                 [(row >= 8 ? 1 : 0) + (upper ? 2 : 0)];
+      const unsigned bv = g_mma_b[warp][col * 4 + kt][upper];
+      s = std::fma(emu_bf16_half(av, half), emu_bf16_half(bv, half), s);
+    }
+    d[o] = s;
+  }
+  g_warp_barriers[warp]->arrive_and_wait();
+}
+
 inline void cp_async16(void* dst, const void* src) {
   std::memcpy(dst, src, 16);
 }
@@ -154,6 +186,13 @@ inline __nv_bfloat16 __float2bfloat16_rn(float f) {
     return {(unsigned short)((u >> 16) | 0x40u)};
   u += 0x7fffu + ((u >> 16) & 1u);
   return {(unsigned short)(u >> 16)};
+}
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }
+struct __nv_bfloat162 {
+  __nv_bfloat16 x, y;
+};
+inline __nv_bfloat162 __floats2bfloat162_rn(float lo, float hi) {
+  return {__float2bfloat16_rn(lo), __float2bfloat16_rn(hi)};
 }
 inline float __bfloat162float(__nv_bfloat16 h) {
   const unsigned u = (unsigned)h.x << 16;

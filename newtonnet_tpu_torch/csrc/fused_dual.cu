@@ -24,35 +24,64 @@
 //         every molecule. rbf/dir cotangents are not produced (the
 //         geometry is constant in the surrogate train/fastgrad.py builds).
 //
-// Precision. With BF every operand of every matrix product (the gemm A
-// rows and weights, both operands of the weight-cotangent products) is
-// rounded to bf16 with __float2bfloat16_rn and the product accumulated in
-// fp32, where the JAX package's `dot`/`dotT` round (pallas_dense.py
-// :267-269, :369-378); all elementwise arithmetic stays fp32. A product of
-// two bf16 values is exact in fp32, so the kernels and the plain versions
-// (ops/fused_dual.py) differ only in summation order. Plain IEEE fp32 FMAs,
-// no tensor cores.
-//
 // What bounds it on this card: operations. Per pair slot K3 does
 // 16F^2 + 4RF flops of matrix products and K4 44F^2 + 8RF (276 and 737
-// kflop at F=128, R=20) against 2R+8 floats of pair data read.
+// kflop at F=128, R=20) against 2R+8 floats of pair data read. At the
+// training shape (B=10, N=24: 5,760 slots) that is 4.35 GFLOP per
+// full-layer K4, a few microseconds of the bf16 tensor cores: the time is
+// latency, and the design is about keeping every SM busy.
 //
-// Design: K1/K2's (csrc/fused_dense.cu). One block of 8 warps per
-// (molecule, tile of TI=8 rows i), looping over tiles of TJ=4 columns j, so
-// a tile is M=32 pair slots; warp w owns the TJ slots of row i0+w, lane l
-// owns feature columns l+32c. The per-slot chain lives only in shared
-// memory and registers, the weights stay in L2 and stream through shared
-// memory in KC-row chunks, and sums over j are per-thread register sums.
-// K4 carries a primal and a tangent of every intermediate (msg, p, h, g,
-// dp and their dots: 8 slot buffers of M x (F+1) floats), so its tile is
-// half of K2's 64 slots: 207 KB of shared memory at F=128, R=20, one block
-// per SM; K3 takes 110 KB.
+// Design.
+// * Grid: one block of 8 warps per (molecule, tile of TI=8 rows i, tile
+//   of TJ=4 columns j), M=32 pair slots: B * ceil(N/8) * ceil(N/4) blocks,
+//   180 at the training shape for 132 SMs. Warp w owns the TJ slots of row
+//   i0+w and lane l the feature columns l+32c in the elementwise chain.
+// * Products on the tensor cores (tc_pair): each weight is used by two
+//   products with the same B (me/medot, p/pdot, phi/phidot, dh/dhdot,
+//   dmsg/dmsgdot), so one call computes both, 32 x Q @ Q x F each, warp w
+//   taking the 16-row half (w & 1) and F/4 columns. bf16 mode:
+//   mma.sync m16n8k16 bf16 -> fp32; fp32 mode: mma.sync m16n8k8 tf32 in
+//   3xTF32 (hi = tf32(x), lo = tf32(x - hi), lo*hi + hi*lo + hi*hi; tf32
+//   rounding by integer ops). Plain 1xTF32 is not used.
+// * Weights: a small kernel rounds (bf16) or copies (fp32) the five
+//   weights once per launch into the n-major layout the B fragments read,
+//   W^T for a product with W and W for one with W^T, the depth padded with
+//   zeros to a multiple of 32 (prep_weights). A product stages its weight
+//   by cp.async in a two-slot ring of 64-byte chunk rows (32 bf16 or 16
+//   fp32 of depth) at a stride of 20 words, so the B fragments' 32 lanes
+//   hit 32 banks; the next chunk loads while the current one multiplies.
+// * Summing: each chunk's products accumulate in a fresh tensor-core
+//   accumulator and are added to the running sum on the CUDA cores (the
+//   tensor cores' fp32 accumulation drops bits against a large addend).
+// * Weight cotangents (wgrad_pair) on the same tensor cores: A^T over the
+//   slot axis read transposed from the fp32 slot buffers; each block
+//   writes its partial of R*F + 4F^2 floats once (266 KB at F=128, R=20;
+//   180 partials, 48 MB, summed by dual_bwd_wsum_kernel in a fixed order).
+// * Sums that cross blocks: K3's row sums over j and K4's row parts
+//   (dnp, dnpdot) go to per-(molecule, j-tile) partials, K4's column parts
+//   over i (dnp, dnpdot, dforce, dforcedot) to per-(molecule, i-tile)
+//   partials; dual_fwd_rowsum_kernel / dual_bwd_nodesum_kernel add them
+//   in a fixed order. No float atomics: a run gives the same bits every
+//   time.
+// * Occupancy: K4's block holds 8 fp32 slot buffers (msg, msgdot, p, pdot,
+//   h, hdot, g, gdot) and takes 199 KB of shared memory at F=128, R=20
+//   (K3 157 KB), and about 220 registers a thread: one block per SM, so
+//   the 180 blocks run in two waves (180 / 264 of the SM time).
+// * Code size: tc_pair and wgrad_pair are out of line (__noinline__), one
+//   copy per (F, BF), so that the kernels fit the instruction cache.
 //
-// K4's sums over i (the column parts of dnp and dnpdot, dforce, dforcedot)
-// and its weight cotangents cross blocks: each block writes its partials
-// to scratch (one slot per (molecule, i-tile)) and a second kernel sums
-// them in a fixed order. No float atomics: a run gives the same bits every
-// time. The host functions return the cudaError_t of the launch.
+// Precision. With BF every operand of every matrix product is rounded to
+// bf16 (round to nearest even) where the JAX package's `dot`/`dotT` round
+// it (pallas_dense.py :267-269, :369-378): the weights once per launch,
+// the slot operands (rbf, msg, h, g, dp, dme and their tangents) when a
+// fragment is loaded (cvt.rn.bf16x2.f32; rounding is idempotent, so where
+// it happens does not change the value). Products of two bf16 values are
+// exact in fp32 and summed in fp32; all elementwise arithmetic stays fp32,
+// on the fp32 slot buffers. The kernels and the plain versions
+// (ops/fused_dual.py) differ only in summation order.
+//
+// The host functions return the cudaError_t of the launches; the scratch
+// sizes come from nn_dual_scratch_floats.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,17 +91,46 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int TI = kWarps;   // rows i per block: one per warp
+constexpr int TI = kWarps;   // rows i per tile: one per warp
 constexpr int TJ = 4;        // columns j per tile: all held by one warp
 constexpr int M = TI * TJ;   // pair slots per tile; slot p = il * TJ + jl
-constexpr int KC = 32;       // rows of a streamed weight chunk
-constexpr int kColSlots = 8; // K4 column partials: dnp, dnpdot, dforce[3],
-                             // dforcedot[3]
+constexpr int kRowSlotsFwd = 8;  // K3 row partials: inv1, inv1dot, eq[3],
+                                 // eqdot[3]
+constexpr int kRowSlotsBwd = 2;  // K4 row partials: dnp, dnpdot
+constexpr int kColSlots = 8;     // K4 column partials: dnp, dnpdot,
+                                 // dforce[3], dforcedot[3]
+constexpr int KW = 20;       // 32-bit words per staged chunk row: 16 + 4
+constexpr int kStages = 2;   // chunk slots of the weight ring
 
-template <bool BF>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
+__host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
+
+template <int F, bool BF>
+struct Shape {
+  static constexpr int LD = F + (BF ? 8 : 4);  // slot buffers (M x LD)
+  static constexpr int KC = BF ? 32 : 16;      // depth of a weight chunk
+  static constexpr int ES = BF ? 2 : 4;        // bytes of a weight element
+  static constexpr int RING = F * KW;          // words per ring slot
+};
+
+// Row stride of the staged rbf and rbfdot (M x ldr, zero past R).
+__host__ __device__ constexpr int ldr(int R, bool bf) {
+  return pad32(R) + (bf ? 8 : 4);
+}
+
+// The prepared weights, in elements of the mode's type, n-major with the
+// depth contiguous: block 0 is We^T (F x pad32(R)), blocks 1-8 are F x F:
+// W1a^T, W1b^T, W2a^T, W2b^T (products with W), then W1a, W1b, W2a, W2b
+// (products with W^T).
+__host__ __device__ inline size_t prep_offset(int F, int R, int block) {
+  return block == 0 ? 0
+                    : (size_t)F * pad32(R) + (size_t)(block - 1) * F * F;
+}
+__host__ __device__ inline size_t prep_floats(int F, int R) {
+  return prep_offset(F, R, 9);
+}
+
+__host__ __device__ inline size_t wgrad_size(int F, int R) {
+  return (size_t)R * F + (size_t)4 * F * F;
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
@@ -88,113 +146,329 @@ __device__ __forceinline__ float d2silu_f(float x) {
   return s * (1.0f - s) * (2.0f + x * (1.0f - 2.0f * s));
 }
 
-// acc[r][c] = sum_k A[(w*TJ + r)*lda + k] * B(k, l + 32c), k < K, for the
-// calling thread's warp w and lane l. B(k, n) = W[k*F + n] (W is K x F), or
-// with TRANS B(k, n) = W[n*K + k] (W is F x K). With BF both operands are
-// rounded to bf16. A holds the warp's own slots only, so a warp may write
-// its A rows just before the call and any other buffer's rows just after;
-// the leading __syncthreads of each chunk orders everything else. Every lane
-// reads all of a row, so overwriting A itself after the call needs a
-// __syncwarp first. All threads of the block must call it.
-template <int F, bool TRANS, bool BF>
-__device__ __forceinline__ void gemm_rows(const float* __restrict__ A, int lda,
-                                          int K, const float* __restrict__ W,
-                                          float* __restrict__ w_s,
-                                          float (&acc)[TJ][F / 32]) {
-  constexpr int C = F / 32;
-  constexpr int WLD = F + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < TJ; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
-  const float* arow = A + (size_t)(warp * TJ) * lda;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();
-    if (!TRANS) {
-      for (int idx = threadIdx.x; idx < kc * F; idx += kThreads) {
-        const int kk = idx / F, n = idx - kk * F;
-        w_s[kk * WLD + n] = rnd<BF>(W[(size_t)(k0 + kk) * F + n]);
-      }
+#ifndef NN_CUDA_EMU
+// One inline-PTX site per instruction (csrc/emu/cuda_emu.h replaces these
+// functions on the CPU).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+#endif
+
+// (lo, hi) rounded to bf16 (nearest even) and packed, lo in the low half:
+// one register of an mma bf16 fragment.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return (unsigned)__bfloat16_as_ushort(v.x) |
+         ((unsigned)__bfloat16_as_ushort(v.y) << 16);
+}
+
+// x rounded to tf32, to nearest with ties away from zero: the bits of
+// cvt.rna.tf32.f32 for finite x, from two integer operations.
+__device__ __forceinline__ unsigned tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d += a b in 3xTF32, the small terms first.
+__device__ __forceinline__ void mma3(float (&d)[4], const unsigned (&ah)[4],
+                                     const unsigned (&al)[4],
+                                     const unsigned (&bh)[2],
+                                     const unsigned (&bl)[2]) {
+  mma_tf32(d, al, bh);
+  mma_tf32(d, ah, bl);
+  mma_tf32(d, ah, bh);
+}
+
+// The prepared weights (prep_offset's layout) from We, W1a, W1b, W2a, W2b,
+// rounded to bf16 with BF, else copied; zeros past R in We^T's depth.
+template <bool BF>
+__device__ void prep_weights(const float* __restrict__ We,
+                             const float* __restrict__ W1a,
+                             const float* __restrict__ W1b,
+                             const float* __restrict__ W2a,
+                             const float* __restrict__ W2b, void* out, int F,
+                             int R) {
+  const int Rp = pad32(R);
+  const size_t n_e = (size_t)F * Rp, total = prep_floats(F, R);
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float v;
+    if (e < n_e) {
+      const int n = (int)(e / Rp), q = (int)(e % Rp);
+      v = q < R ? We[(size_t)q * F + n] : 0.0f;
     } else {
-      for (int idx = threadIdx.x; idx < kc * F; idx += kThreads) {
-        const int n = idx / kc, kk = idx - n * kc;
-        w_s[kk * WLD + n] = rnd<BF>(W[(size_t)n * K + k0 + kk]);
-      }
+      const size_t e2 = e - n_e, ff = (size_t)F * F;
+      const int k = (int)(e2 / ff), r = (int)(e2 % ff);
+      const int n = r / F, q = r % F;
+      const float* W = (k & 3) == 0 ? W1a : (k & 3) == 1 ? W1b
+                       : (k & 3) == 2 ? W2a : W2b;
+      v = k < 4 ? W[(size_t)q * F + n] : W[(size_t)n * F + q];
     }
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      float bv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) bv[c] = w_s[kk * WLD + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const float a = rnd<BF>(arow[r * lda + k0 + kk]);
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(a, bv[c], acc[r][c]);
-      }
-    }
+    if constexpr (BF)
+      static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(out)[e] = v;
   }
 }
 
-// part[k*F + n] (+)= sum_p A1[p*lda + k] * B1[p*(F+1) + n]
-//                      + A2[p*lda + k] * B2[p*(F+1) + n]
-// over the M slots of the tile, for k < krows, operands rounded with BF.
-// Each element has one owning thread and each block its own part, so no
-// two threads ever write one address. `init` (the block's first tile)
-// overwrites instead of adding.
+template <bool BF>
+__global__ void dual_fwd_prep_kernel(const float* We, const float* W1a,
+                                     const float* W1b, const float* W2a,
+                                     const float* W2b, void* out, int F,
+                                     int R) {
+  prep_weights<BF>(We, W1a, W1b, W2a, W2b, out, F, R);
+}
+template <bool BF>
+__global__ void dual_bwd_prep_kernel(const float* We, const float* W1a,
+                                     const float* W1b, const float* W2a,
+                                     const float* W2b, void* out, int F,
+                                     int R) {
+  prep_weights<BF>(We, W1a, W1b, W2a, W2b, out, F, R);
+}
+
+// Chunk ch of a prepared weight (F rows of Qp elements) into a ring slot:
+// per row n the 64 bytes of depth [ch*KC, ch*KC + KC) at word n*KW, as
+// four 16-byte cp.async copies.
 template <int F, bool BF>
-__device__ void wgrad2(const float* __restrict__ A1,
-                       const float* __restrict__ B1,
-                       const float* __restrict__ A2,
-                       const float* __restrict__ B2, int lda, int krows,
-                       float* __restrict__ part, bool init) {
-  constexpr int C = F / 32;
-  constexpr int LD = F + 1;
-  constexpr int QC = 4;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  for (int q0 = 0; warp + kWarps * q0 < krows; q0 += QC) {
-    float acc[QC][C];
+__device__ __forceinline__ void stage_chunk(const char* __restrict__ Bt,
+                                            int Qp, int ch, unsigned* slot) {
+  using S = Shape<F, BF>;
+  for (int v = threadIdx.x; v < F * 4; v += kThreads) {
+    const int n = v >> 2, part = v & 3;
+    cp_async16(slot + n * KW + part * 4,
+               Bt + ((size_t)n * Qp + (size_t)ch * S::KC) * S::ES + part * 16);
+  }
+}
+
+// D1[m*LD + n] = sum_q A1[m*lda + q] B(q, n) and D2 likewise from A2, for
+// the tile's M slot rows m and n < F, q < Qp (Qp a multiple of 32; A's
+// columns past the true depth hold zeros). Bt is the prepared weight:
+// B(q, n) = Bt[n*Qp + q]. Warp w computes the 16-row half (w & 1) and F/4
+// columns. Each chunk accumulates in fresh tensor-core registers and is
+// added to the running sum on the CUDA cores. A1 and A2 are read by every
+// warp, so they must be written before the call; D1 and D2 are written at
+// its end and must be free during it (neither may be A1 or A2). Ends with
+// a __syncthreads, after which the D rows may be read by any thread. All
+// threads of the block must call it. Not inlined (code size).
+template <int F, bool BF>
+__device__ __noinline__ void tc_pair(const float* __restrict__ A1,
+                                     const float* __restrict__ A2, int lda,
+                                     int Qp, const void* Bt_,
+                                     unsigned* ring, float* __restrict__ D1,
+                                     float* __restrict__ D2) {
+  using S = Shape<F, BF>;
+  constexpr int NT = F / 32;  // 16 x 8 tiles per warp and product
+  const char* Bt = static_cast<const char*>(Bt_);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * (F / 4);
+  float tot[2][NT][4];
 #pragma unroll
-    for (int q = 0; q < QC; ++q)
+  for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int c = 0; c < C; ++c) acc[q][c] = 0.0f;
-    for (int p = 0; p < M; ++p) {
-      float b1[C], b2[C];
+    for (int j = 0; j < NT; ++j)
+      tot[x][j][0] = tot[x][j][1] = tot[x][j][2] = tot[x][j][3] = 0.0f;
+  const float* rows[2][2] = {
+      {A1 + (size_t)(m0 + g) * lda, A1 + (size_t)(m0 + g + 8) * lda},
+      {A2 + (size_t)(m0 + g) * lda, A2 + (size_t)(m0 + g + 8) * lda}};
+  const int nch = Qp / S::KC;
+  stage_chunk<F, BF>(Bt, Qp, 0, ring);
+  cp_async_commit();
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+    if (ch + 1 < nch)
+      stage_chunk<F, BF>(Bt, Qp, ch + 1, ring + ((ch + 1) % kStages) * S::RING);
+    cp_async_commit();
+    const unsigned* wc = ring + (ch % kStages) * S::RING;
+    float d[2][NT][4];
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        b1[c] = rnd<BF>(B1[p * LD + lane + 32 * c]);
-        b2[c] = rnd<BF>(B2[p * LD + lane + 32 * c]);
-      }
+    for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int q = 0; q < QC; ++q) {
-        const int k = warp + kWarps * (q0 + q);
-        const float a1 = k < krows ? rnd<BF>(A1[p * lda + k]) : 0.0f;
-        const float a2 = k < krows ? rnd<BF>(A2[p * lda + k]) : 0.0f;
+      for (int j = 0; j < NT; ++j)
+        d[x][j][0] = d[x][j][1] = d[x][j][2] = d[x][j][3] = 0.0f;
 #pragma unroll
-        for (int c = 0; c < C; ++c)
-          acc[q][c] = fmaf(a2, b2[c], fmaf(a1, b1[c], acc[q][c]));
-      }
-    }
+    for (int s = 0; s < 2; ++s) {  // two k-steps per chunk
+      if constexpr (BF) {
+        const int k = ch * S::KC + s * 16 + 2 * t;
+        unsigned a[2][4];
 #pragma unroll
-    for (int q = 0; q < QC; ++q) {
-      const int k = warp + kWarps * (q0 + q);
-      if (k < krows) {
+        for (int x = 0; x < 2; ++x) {
+          const float2 v0 = *reinterpret_cast<const float2*>(rows[x][0] + k);
+          const float2 v1 = *reinterpret_cast<const float2*>(rows[x][1] + k);
+          const float2 v2 =
+              *reinterpret_cast<const float2*>(rows[x][0] + k + 8);
+          const float2 v3 =
+              *reinterpret_cast<const float2*>(rows[x][1] + k + 8);
+          a[x][0] = pack_bf16(v0.x, v0.y);
+          a[x][1] = pack_bf16(v1.x, v1.y);
+          a[x][2] = pack_bf16(v2.x, v2.y);
+          a[x][3] = pack_bf16(v3.x, v3.y);
+        }
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float* dst = part + (size_t)k * F + lane + 32 * c;
-          *dst = init ? acc[q][c] : *dst + acc[q][c];
+        for (int j = 0; j < NT; ++j) {
+          const unsigned* w = wc + (n0 + j * 8 + g) * KW + s * 8 + t;
+          const unsigned b[2] = {w[0], w[4]};
+          mma_bf16(d[0][j], a[0], b);
+          mma_bf16(d[1][j], a[1], b);
+        }
+      } else {
+        const int k = ch * S::KC + s * 8 + t;
+        unsigned ah[2][4], al[2][4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          split_tf32(rows[x][0][k], ah[x][0], al[x][0]);
+          split_tf32(rows[x][1][k], ah[x][1], al[x][1]);
+          split_tf32(rows[x][0][k + 4], ah[x][2], al[x][2]);
+          split_tf32(rows[x][1][k + 4], ah[x][3], al[x][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const unsigned* w = wc + (n0 + j * 8 + g) * KW + s * 8 + t;
+          unsigned bh[2], bl[2];
+          split_tf32(__uint_as_float(w[0]), bh[0], bl[0]);
+          split_tf32(__uint_as_float(w[4]), bh[1], bl[1]);
+          mma3(d[0][j], ah[0], al[0], bh, bl);
+          mma3(d[1][j], ah[1], al[1], bh, bl);
         }
       }
     }
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[x][j][e] += d[x][j][e];
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    float* D = x == 0 ? D1 : D2;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int n = n0 + j * 8 + 2 * t;
+      D[(m0 + g) * S::LD + n] = tot[x][j][0];
+      D[(m0 + g) * S::LD + n + 1] = tot[x][j][1];
+      D[(m0 + g + 8) * S::LD + n] = tot[x][j][2];
+      D[(m0 + g + 8) * S::LD + n + 1] = tot[x][j][3];
+    }
+  }
+  __syncthreads();
+}
+
+// part[q*F + n] = sum_p A1[p*lda + q] B1[p*LD + n] + A2[p*lda + q]
+// B2[p*LD + n] over the tile's M slots, q < qrows, on the tensor cores
+// (bf16, or 3xTF32): warp w takes the (16-row, 32-column) groups w, w + 8,
+// ...; each source sums its 32 slots in the tensor cores and the two are
+// added on the CUDA cores. A's columns up to the next multiple of 16 past
+// qrows must be readable and finite (zeros). Every element of the block's
+// partial is written once (part 8-byte aligned, F even). Starts with a
+// __syncthreads. Not inlined.
+template <int F, bool BF>
+__device__ __noinline__ void wgrad_pair(const float* __restrict__ A1,
+                                        const float* __restrict__ B1,
+                                        const float* __restrict__ A2,
+                                        const float* __restrict__ B2,
+                                        int lda, int qrows,
+                                        float* __restrict__ part) {
+  constexpr int LD = Shape<F, BF>::LD;
+  constexpr int NG = F / 32;  // 32-column groups per 16-row band
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  __syncthreads();
+  const int n_groups = (qrows + 15) / 16 * NG;
+  for (int grp = warp; grp < n_groups; grp += kWarps) {
+    const int qa = (grp / NG) * 16 + g, qb = qa + 8;
+    const int nb = (grp % NG) * 32;
+    float d[2][4][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        d[x][j][0] = d[x][j][1] = d[x][j][2] = d[x][j][3] = 0.0f;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const float* A = x == 0 ? A1 : A2;
+      const float* B = x == 0 ? B1 : B2;
+      if constexpr (BF) {
+#pragma unroll
+        for (int kk = 0; kk < M; kk += 16) {
+          const int p = kk + 2 * t;
+          const unsigned a[4] = {
+              pack_bf16(A[p * lda + qa], A[(p + 1) * lda + qa]),
+              pack_bf16(A[p * lda + qb], A[(p + 1) * lda + qb]),
+              pack_bf16(A[(p + 8) * lda + qa], A[(p + 9) * lda + qa]),
+              pack_bf16(A[(p + 8) * lda + qb], A[(p + 9) * lda + qb])};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = nb + j * 8 + g;
+            const unsigned b[2] = {
+                pack_bf16(B[p * LD + n], B[(p + 1) * LD + n]),
+                pack_bf16(B[(p + 8) * LD + n], B[(p + 9) * LD + n])};
+            mma_bf16(d[x][j], a, b);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int kk = 0; kk < M; kk += 8) {
+          const int p = kk + t;
+          unsigned ah[4], al[4];
+          split_tf32(A[p * lda + qa], ah[0], al[0]);
+          split_tf32(A[p * lda + qb], ah[1], al[1]);
+          split_tf32(A[(p + 4) * lda + qa], ah[2], al[2]);
+          split_tf32(A[(p + 4) * lda + qb], ah[3], al[3]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = nb + j * 8 + g;
+            unsigned bh[2], bl[2];
+            split_tf32(B[p * LD + n], bh[0], bl[0]);
+            split_tf32(B[(p + 4) * LD + n], bh[1], bl[1]);
+            mma3(d[x][j], ah, al, bh, bl);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // (n, n + 1) as one 8-byte store
+      const int n = nb + j * 8 + 2 * t;
+      if (qa < qrows)
+        *reinterpret_cast<float2*>(part + (size_t)qa * F + n) = make_float2(
+            d[0][j][0] + d[1][j][0], d[0][j][1] + d[1][j][1]);
+      if (qb < qrows)
+        *reinterpret_cast<float2*>(part + (size_t)qb * F + n) = make_float2(
+            d[0][j][2] + d[1][j][2], d[0][j][3] + d[1][j][3]);
+    }
   }
 }
 
-// Row-side inputs of the block's TI rows (zero past N): TI x F each.
+// Row-side inputs of the tile's TI rows (zero past N): TI x F each.
 __device__ void load_rows(const float* __restrict__ src, int b, int i0,
                           int N, int F, float* dst) {
   for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
@@ -203,21 +477,10 @@ __device__ void load_rows(const float* __restrict__ src, int b, int i0,
   }
 }
 
-// Row-side Cartesian inputs (dq, dqdot) of the TI rows: 3 x TI x F.
-__device__ void load_rows3(const float* __restrict__ src, int b, int i0,
-                           int N, int F, float* dst) {
-  for (int idx = threadIdx.x; idx < 3 * TI * F; idx += kThreads) {
-    const int d = idx / (TI * F), rem = idx - d * (TI * F);
-    const int il = rem / F, f = rem - il * F;
-    dst[idx] = i0 + il < N
-                   ? src[(((size_t)b * 3 + d) * N + i0 + il) * F + f] : 0.0f;
-  }
-}
-
 // The tile's column-side inputs: np_j and, unless FIRST, npdot_j, force_j
-// and forcedot_j; the per-slot adj, dir, dirdot, rbf and rbfdot. Slots
-// outside the molecule read as zero, so they contribute nothing and stay
-// finite (silu(0) = 0).
+// and forcedot_j; the per-slot adj, dir, dirdot, rbf and rbfdot (rows of
+// stride lr, zeros from R to pad32(R)). Slots outside the molecule read as
+// zero, so they contribute nothing and stay finite (silu(0) = 0).
 template <bool FIRST>
 __device__ void load_tile(const float* __restrict__ np_,
                           const float* __restrict__ npdot,
@@ -228,7 +491,7 @@ __device__ void load_tile(const float* __restrict__ np_,
                           const float* __restrict__ adj,
                           const float* __restrict__ force,
                           const float* __restrict__ forcedot, int b, int i0,
-                          int j0, int N, int F, int R, float* npj_s,
+                          int j0, int N, int F, int R, int lr, float* npj_s,
                           float* npdotj_s, float* fj_s, float* fjdot_s,
                           float* adj_s, float* dir_s, float* dirdot_s,
                           float* rbf_s, float* rbfdot_s) {
@@ -261,70 +524,67 @@ __device__ void load_tile(const float* __restrict__ np_,
           ok ? dirdot[(((size_t)b * 3 + d - 4) * N + i) * N + j] : 0.0f;
     }
   }
-  for (int idx = threadIdx.x; idx < M * R; idx += kThreads) {
-    const int p = idx / R, r = idx - p * R;
+  const int Rp = pad32(R);
+  for (int idx = threadIdx.x; idx < M * Rp; idx += kThreads) {
+    const int p = idx / Rp, r = idx - p * Rp;
     const int i = i0 + p / TJ, j = j0 + p % TJ;
-    const bool ok = i < N && j < N;
+    const bool ok = i < N && j < N && r < R;
     const size_t at = (((size_t)b * N + i) * N + j) * R + r;
-    rbf_s[idx] = ok ? rbf[at] : 0.0f;
-    rbfdot_s[idx] = ok ? rbfdot[at] : 0.0f;
+    rbf_s[p * lr + r] = ok ? rbf[at] : 0.0f;
+    rbfdot_s[p * lr + r] = ok ? rbfdot[at] : 0.0f;
   }
 }
 
-// msg and msgdot of the warp's own slots into msg_s / msgdot_s (M x LD),
-// from me (computed first, parked in msgdot_s) and medot. Uses `acc` as
-// scratch. All threads of the block must call it.
+// msg and msgdot of the warp's own slots into msg_s / msgdot_s from me and
+// medot (me_s, medot_s: tc_pair's output).
 template <int F, bool FIRST, bool BF>
-__device__ void dual_messages(const float* rbf_s, const float* rbfdot_s,
-                              int R, const float* __restrict__ We,
-                              float* w_s, const float* npi_s,
-                              const float* npdoti_s, const float* npj_s,
-                              const float* npdotj_s, const float* adj_s,
-                              float* msg_s, float* msgdot_s,
-                              float (&acc)[TJ][F / 32]) {
+__device__ void messages(const float* me_s, const float* medot_s,
+                         const float* npi_s, const float* npdoti_s,
+                         const float* npj_s, const float* npdotj_s,
+                         const float* adj_s, float* msg_s, float* msgdot_s) {
   constexpr int C = F / 32;
-  constexpr int LD = F + 1;
+  constexpr int LD = Shape<F, BF>::LD;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  gemm_rows<F, false, BF>(rbf_s, R, R, We, w_s, acc);  // me
 #pragma unroll
   for (int r = 0; r < TJ; ++r) {
     const int p = warp * TJ + r;
     const float a = adj_s[p];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
-      msg_s[p * LD + f] = acc[r][c] * npi_s[warp * F + f] * npj_s[r * F + f] * a;
-      msgdot_s[p * LD + f] = acc[r][c];
-    }
-  }
-  gemm_rows<F, false, BF>(rbfdot_s, R, R, We, w_s, acc);  // medot
-#pragma unroll
-  for (int r = 0; r < TJ; ++r) {
-    const int p = warp * TJ + r;
-    const float a = adj_s[p];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
+      const int f = lane + 32 * c, o = p * LD + f;
       const float ai = npi_s[warp * F + f], aj = npj_s[r * F + f];
-      const float me = msgdot_s[p * LD + f];
-      float v = acc[r][c] * ai * aj;
+      const float me = me_s[o];
+      msg_s[o] = me * ai * aj * a;
+      float v = medot_s[o] * ai * aj;
       if (!FIRST)
         v = v + me * npdoti_s[warp * F + f] * aj + me * ai * npdotj_s[r * F + f];
-      msgdot_s[p * LD + f] = v * a;
+      msgdot_s[o] = v * a;
     }
   }
 }
 
+// (b, it, jt) of this block: blockIdx.x = (b * n_it + it) * n_jt + jt.
+struct Tile {
+  int b, it, jt;
+  __device__ Tile(int n_it, int n_jt) {
+    const int rest = blockIdx.x / n_jt;
+    jt = blockIdx.x - rest * n_jt;
+    b = rest / n_it;
+    it = rest - b * n_it;
+  }
+};
+
 // ------------------------------------------------------------------ K3 --
-template <int F>
+template <int F, bool BF>
 constexpr size_t fwd_smem_floats(int R) {
-  return (size_t)4 * M * (F + 1) + (size_t)KC * (F + 1) + (size_t)2 * TI * F +
-         (size_t)8 * TJ * F + (size_t)7 * M + (size_t)2 * M * R;
+  return (size_t)kStages * Shape<F, BF>::RING +
+         (size_t)6 * M * Shape<F, BF>::LD + (size_t)2 * TI * F +
+         (size_t)8 * TJ * F + (size_t)7 * M + (size_t)2 * M * ldr(R, BF);
 }
 
 template <int F, bool FIRST, bool BF>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, 1)
 dual_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
                 const float* __restrict__ rbf,
                 const float* __restrict__ rbfdot,
@@ -332,38 +592,46 @@ dual_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
                 const float* __restrict__ dirdot,
                 const float* __restrict__ adj, const float* __restrict__ force,
                 const float* __restrict__ forcedot,
-                const float* __restrict__ We, const float* __restrict__ W1a,
-                const float* __restrict__ W1b, const float* __restrict__ W2a,
-                const float* __restrict__ W2b, float* __restrict__ inv1,
-                float* __restrict__ eq, float* __restrict__ inv1dot,
-                float* __restrict__ eqdot, int N, int R, int n_itiles) {
+                const char* __restrict__ wprep, float* __restrict__ rowpart,
+                int N, int R, int n_it, int n_jt) {
+  using S = Shape<F, BF>;
   constexpr int C = F / 32;
-  constexpr int LD = F + 1;
+  constexpr int LD = S::LD;
+  const int lr = ldr(R, BF), Rp = pad32(R);
   extern __shared__ float smem[];
-  float* msg_s = smem;                 // M x LD
-  float* msgdot_s = msg_s + M * LD;    // M x LD
-  float* h_s = msgdot_s + M * LD;      // M x LD
-  float* hdot_s = h_s + M * LD;        // M x LD
-  float* w_s = hdot_s + M * LD;        // KC x LD
-  float* npi_s = w_s + KC * LD;        // TI x F
-  float* npdoti_s = npi_s + TI * F;    // TI x F
-  float* npj_s = npdoti_s + TI * F;    // TJ x F
-  float* npdotj_s = npj_s + TJ * F;    // TJ x F
-  float* fj_s = npdotj_s + TJ * F;     // 3 x TJ x F
-  float* fjdot_s = fj_s + 3 * TJ * F;  // 3 x TJ x F
-  float* adj_s = fjdot_s + 3 * TJ * F; // M
-  float* dir_s = adj_s + M;            // 3 x M
-  float* dirdot_s = dir_s + 3 * M;     // 3 x M
-  float* rbf_s = dirdot_s + 3 * M;     // M x R
-  float* rbfdot_s = rbf_s + M * R;     // M x R
+  unsigned* ring = reinterpret_cast<unsigned*>(smem);  // kStages x RING
+  float* msg_s = smem + kStages * S::RING;  // M x LD
+  float* msgdot_s = msg_s + M * LD;         // M x LD
+  float* h_s = msgdot_s + M * LD;           // M x LD: me, p, h
+  float* hdot_s = h_s + M * LD;             // M x LD: medot, pdot, hdot
+  float* phi_s = hdot_s + M * LD;           // M x LD
+  float* phidot_s = phi_s + M * LD;         // M x LD
+  float* npi_s = phidot_s + M * LD;         // TI x F
+  float* npdoti_s = npi_s + TI * F;         // TI x F
+  float* npj_s = npdoti_s + TI * F;         // TJ x F
+  float* npdotj_s = npj_s + TJ * F;         // TJ x F
+  float* fj_s = npdotj_s + TJ * F;          // 3 x TJ x F
+  float* fjdot_s = fj_s + 3 * TJ * F;       // 3 x TJ x F
+  float* adj_s = fjdot_s + 3 * TJ * F;      // M
+  float* dir_s = adj_s + M;                 // 3 x M
+  float* dirdot_s = dir_s + 3 * M;          // 3 x M
+  float* rbf_s = dirdot_s + 3 * M;          // M x lr
+  float* rbfdot_s = rbf_s + M * lr;         // M x lr
 
-  const int b = blockIdx.x / n_itiles;
-  const int i0 = (blockIdx.x - b * n_itiles) * TI;
+  const Tile tl(n_it, n_jt);
+  const int b = tl.b, i0 = tl.it * TI, j0 = tl.jt * TJ;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const size_t es = S::ES;
 
   load_rows(np_, b, i0, N, F, npi_s);
   if (!FIRST) load_rows(npdot, b, i0, N, F, npdoti_s);
+  load_tile<FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force, forcedot,
+                   b, i0, j0, N, F, R, lr, npj_s, npdotj_s, fj_s, fjdot_s,
+                   adj_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
+  tc_pair<F, BF>(rbf_s, rbfdot_s, lr, Rp, wprep, ring, h_s, hdot_s);
+  messages<F, FIRST, BF>(h_s, hdot_s, npi_s, npdoti_s, npj_s, npdotj_s,
+                         adj_s, msg_s, msgdot_s);
 
   float inv_acc[C], invdot_acc[C], eq_acc[3][C], eqdot_acc[3][C];
 #pragma unroll
@@ -372,114 +640,105 @@ dual_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
 #pragma unroll
     for (int d = 0; d < 3; ++d) eq_acc[d][c] = eqdot_acc[d][c] = 0.0f;
   }
-  float acc[TJ][C];
+#pragma unroll
+  for (int r = 0; r < TJ; ++r)
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int o = (warp * TJ + r) * LD + lane + 32 * c;
+      inv_acc[c] += msg_s[o];
+      invdot_acc[c] += msgdot_s[o];
+    }
 
-  for (int j0 = 0; j0 < N; j0 += TJ) {
-    __syncthreads();
-    load_tile<FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force,
-                     forcedot, b, i0, j0, N, F, R, npj_s, npdotj_s, fj_s,
-                     fjdot_s, adj_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
-    dual_messages<F, FIRST, BF>(rbf_s, rbfdot_s, R, We, w_s, npi_s, npdoti_s,
-                                npj_s, npdotj_s, adj_s, msg_s, msgdot_s, acc);
+#pragma unroll 1
+  for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
+    const char* Wa = wprep + prep_offset(F, R, 1 + 2 * br) * es;
+    const char* Wb = wprep + prep_offset(F, R, 2 + 2 * br) * es;
+    tc_pair<F, BF>(msg_s, msgdot_s, LD, F, Wa, ring, h_s, hdot_s);  // p, pdot
 #pragma unroll
     for (int r = 0; r < TJ; ++r)
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int o = (warp * TJ + r) * LD + lane + 32 * c;
-        inv_acc[c] += msg_s[o];
-        invdot_acc[c] += msgdot_s[o];
+        const float pv = h_s[o];
+        h_s[o] = silu_f(pv);
+        hdot_s[o] = dsilu_f(pv) * hdot_s[o];
       }
-
+    tc_pair<F, BF>(h_s, hdot_s, LD, F, Wb, ring, phi_s, phidot_s);
+    // eq += phi x, eqdot += phi xdot + phidot x, where (x, xdot) is
+    // (dir, dirdot) in branch 1 and (force_j, forcedot_j) in branch 2
 #pragma unroll
-    for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
-      const float* Wa = br == 0 ? W1a : W2a;
-      const float* Wb = br == 0 ? W1b : W2b;
-      gemm_rows<F, false, BF>(msg_s, LD, F, Wa, w_s, acc);  // p
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r;
+      const float a = adj_s[p];
 #pragma unroll
-      for (int r = 0; r < TJ; ++r)
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        const float phi = phi_s[p * LD + f] * a;
+        const float phidot = phidot_s[p * LD + f] * a;
 #pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          h_s[o] = silu_f(acc[r][c]);
-          hdot_s[o] = dsilu_f(acc[r][c]);
-        }
-      gemm_rows<F, false, BF>(msgdot_s, LD, F, Wa, w_s, acc);  // pdot
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          hdot_s[o] = hdot_s[o] * acc[r][c];
-        }
-      // phi: eq += phi * x, eqdot += phi * xdot, where (x, xdot) is
-      // (dir, dirdot) in branch 1 and (force_j, forcedot_j) in branch 2
-      gemm_rows<F, false, BF>(h_s, LD, F, Wb, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const int p = warp * TJ + r;
-        const float a = adj_s[p];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          const float phi = acc[r][c] * a;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float x = br == 0 ? dir_s[d * M + p] : fj_s[(d * TJ + r) * F + f];
-            const float xdot =
-                br == 0 ? dirdot_s[d * M + p] : fjdot_s[(d * TJ + r) * F + f];
-            eq_acc[d][c] += phi * x;
-            eqdot_acc[d][c] += phi * xdot;
-          }
-        }
-      }
-      // phidot: eqdot += phidot * x
-      gemm_rows<F, false, BF>(hdot_s, LD, F, Wb, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const int p = warp * TJ + r;
-        const float a = adj_s[p];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          const float phidot = acc[r][c] * a;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float x = br == 0 ? dir_s[d * M + p] : fj_s[(d * TJ + r) * F + f];
-            eqdot_acc[d][c] += phidot * x;
-          }
+        for (int d = 0; d < 3; ++d) {
+          const float x = br == 0 ? dir_s[d * M + p] : fj_s[(d * TJ + r) * F + f];
+          const float xdot =
+              br == 0 ? dirdot_s[d * M + p] : fjdot_s[(d * TJ + r) * F + f];
+          eq_acc[d][c] += phi * x;
+          eqdot_acc[d][c] += phi * xdot + phidot * x;
         }
       }
     }
   }
 
+  // this tile's part of the row sums over j
   const int i = i0 + warp;
   if (i < N) {
+    const size_t nf = (size_t)N * F;
+    float* rp = rowpart + ((size_t)b * n_jt + tl.jt) * kRowSlotsFwd * nf +
+                (size_t)i * F;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int f = lane + 32 * c;
-      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
-      inv1dot[((size_t)b * N + i) * F + f] = invdot_acc[c];
+      rp[f] = inv_acc[c];
+      rp[nf + f] = invdot_acc[c];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
-        eqdot[(((size_t)b * 3 + d) * N + i) * F + f] = eqdot_acc[d][c];
+        rp[(2 + d) * nf + f] = eq_acc[d][c];
+        rp[(5 + d) * nf + f] = eqdot_acc[d][c];
       }
     }
+  }
+}
+
+// inv1 = sum_jt rowpart[., jt, 0], inv1dot ... [1], eq[d] ... [2 + d],
+// eqdot[d] ... [5 + d]. Fixed summation order.
+__global__ void dual_fwd_rowsum_kernel(float* __restrict__ inv1,
+                                       float* __restrict__ eq,
+                                       float* __restrict__ inv1dot,
+                                       float* __restrict__ eqdot,
+                                       const float* __restrict__ rowpart,
+                                       int B, int N, int F, int n_jt) {
+  const size_t nf = (size_t)N * F;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)B * nf) return;
+  const size_t b = idx / nf, rem = idx - b * nf;
+  float s[kRowSlotsFwd];
+  for (int k = 0; k < kRowSlotsFwd; ++k) s[k] = 0.0f;
+  for (int jt = 0; jt < n_jt; ++jt) {
+    const float* c = rowpart + (b * n_jt + jt) * kRowSlotsFwd * nf + rem;
+    for (int k = 0; k < kRowSlotsFwd; ++k) s[k] += c[k * nf];
+  }
+  inv1[idx] = s[0];
+  inv1dot[idx] = s[1];
+  for (int d = 0; d < 3; ++d) {
+    eq[(b * 3 + d) * nf + rem] = s[2 + d];
+    eqdot[(b * 3 + d) * nf + rem] = s[5 + d];
   }
 }
 
 // ------------------------------------------------------------------ K4 --
-template <int F>
+template <int F, bool BF>
 constexpr size_t bwd_smem_floats(int R) {
-  return (size_t)8 * M * (F + 1) + (size_t)KC * (F + 1) + (size_t)4 * TI * F +
-         (size_t)6 * TI * F + (size_t)8 * TJ * F + (size_t)7 * M +
-         (size_t)2 * M * R;
-}
-
-// Offsets of the five weight cotangents inside one block's partial slot
-// (and inside the reduced output): We, W1a, W1b, W2a, W2b.
-__host__ __device__ inline size_t wgrad_size(int F, int R) {
-  return (size_t)R * F + (size_t)4 * F * F;
+  return (size_t)kStages * Shape<F, BF>::RING +
+         (size_t)8 * M * Shape<F, BF>::LD + (size_t)4 * TI * F +
+         (size_t)8 * TJ * F + (size_t)7 * M + (size_t)2 * M * ldr(R, BF);
 }
 
 template <int F, bool FIRST, bool BF>
@@ -491,208 +750,111 @@ dual_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
                 const float* __restrict__ dirdot,
                 const float* __restrict__ adj, const float* __restrict__ force,
                 const float* __restrict__ forcedot,
-                const float* __restrict__ We, const float* __restrict__ W1a,
-                const float* __restrict__ W1b, const float* __restrict__ W2a,
-                const float* __restrict__ W2b, const float* __restrict__ di,
+                const char* __restrict__ wprep, const float* __restrict__ di,
                 const float* __restrict__ dq, const float* __restrict__ didot,
-                const float* __restrict__ dqdot, float* __restrict__ dnp,
-                float* __restrict__ dnpdot, float* __restrict__ col,
-                float* __restrict__ wpart, int N, int R, int n_itiles) {
+                const float* __restrict__ dqdot, float* __restrict__ rowpart,
+                float* __restrict__ colpart, float* __restrict__ wpart, int N,
+                int R, int n_it, int n_jt) {
+  using S = Shape<F, BF>;
   constexpr int C = F / 32;
-  constexpr int LD = F + 1;
+  constexpr int LD = S::LD;
+  const int lr = ldr(R, BF), Rp = pad32(R);
   extern __shared__ float smem[];
-  float* msg_s = smem;                 // M x LD: msg
-  float* msgdot_s = msg_s + M * LD;    // M x LD: msgdot
-  float* p_s = msgdot_s + M * LD;      // M x LD: p; tail: me, then t me
-  float* pdot_s = p_s + M * LD;        // M x LD: pdot, then s'' pdot dhdot
-  float* h_s = pdot_s + M * LD;        // M x LD: h; tail: tdot me
-  float* hdot_s = h_s + M * LD;        // M x LD: hdot; tail: dme
-  float* g_s = hdot_s + M * LD;        // M x LD: phi2, g, dp; tail: dmedot
-  float* gdot_s = g_s + M * LD;        // M x LD: phi2dot, gdot, dpdot
-  float* w_s = gdot_s + M * LD;        // KC x LD
-  float* npi_s = w_s + KC * LD;        // TI x F
-  float* npdoti_s = npi_s + TI * F;    // TI x F
-  float* di_s = npdoti_s + TI * F;     // TI x F
-  float* didot_s = di_s + TI * F;      // TI x F
-  float* dq_s = didot_s + TI * F;      // 3 x TI x F
-  float* dqdot_s = dq_s + 3 * TI * F;  // 3 x TI x F
-  float* npj_s = dqdot_s + 3 * TI * F; // TJ x F
-  float* npdotj_s = npj_s + TJ * F;    // TJ x F
-  float* fj_s = npdotj_s + TJ * F;     // 3 x TJ x F
-  float* fjdot_s = fj_s + 3 * TJ * F;  // 3 x TJ x F
-  float* adj_s = fjdot_s + 3 * TJ * F; // M
-  float* dir_s = adj_s + M;            // 3 x M
-  float* dirdot_s = dir_s + 3 * M;     // 3 x M
-  float* rbf_s = dirdot_s + 3 * M;     // M x R
-  float* rbfdot_s = rbf_s + M * R;     // M x R
+  unsigned* ring = reinterpret_cast<unsigned*>(smem);  // kStages x RING
+  float* msg_s = smem + kStages * S::RING;  // M x LD: msg
+  float* msgdot_s = msg_s + M * LD;  // M x LD: msgdot
+  float* p_s = msgdot_s + M * LD;    // M x LD: me, p; at the end t me
+  float* pdot_s = p_s + M * LD;      // M x LD: medot, pdot; tdot medot
+  float* h_s = pdot_s + M * LD;      // M x LD: h, dh, dmsg; tdot me
+  float* hdot_s = h_s + M * LD;      // M x LD: hdot, dhdot, dmsgdot; dme
+  float* g_s = hdot_s + M * LD;      // M x LD: phi2, g, dp; dmedot
+  float* gdot_s = g_s + M * LD;      // M x LD: phi2dot, gdot, dpdot
+  float* npi_s = gdot_s + M * LD;    // TI x F
+  float* npdoti_s = npi_s + TI * F;  // TI x F
+  float* di_s = npdoti_s + TI * F;   // TI x F
+  float* didot_s = di_s + TI * F;    // TI x F
+  float* npj_s = didot_s + TI * F;   // TJ x F
+  float* npdotj_s = npj_s + TJ * F;  // TJ x F
+  float* fj_s = npdotj_s + TJ * F;   // 3 x TJ x F
+  float* fjdot_s = fj_s + 3 * TJ * F;   // 3 x TJ x F
+  float* adj_s = fjdot_s + 3 * TJ * F;  // M
+  float* dir_s = adj_s + M;             // 3 x M
+  float* dirdot_s = dir_s + 3 * M;      // 3 x M
+  float* rbf_s = dirdot_s + 3 * M;      // M x lr
+  float* rbfdot_s = rbf_s + M * lr;     // M x lr
 
-  const int b = blockIdx.x / n_itiles;
-  const int it = blockIdx.x - b * n_itiles;
-  const int i0 = it * TI;
+  const Tile tl(n_it, n_jt);
+  const int b = tl.b, i0 = tl.it * TI, j0 = tl.jt * TJ;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int i = i0 + warp;
+  const size_t es = S::ES, nf = (size_t)N * F;
 
   load_rows(np_, b, i0, N, F, npi_s);
   if (!FIRST) load_rows(npdot, b, i0, N, F, npdoti_s);
   load_rows(di, b, i0, N, F, di_s);
   load_rows(didot, b, i0, N, F, didot_s);
-  load_rows3(dq, b, i0, N, F, dq_s);
-  load_rows3(dqdot, b, i0, N, F, dqdot_s);
+  load_tile<FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force, forcedot,
+                   b, i0, j0, N, F, R, lr, npj_s, npdotj_s, fj_s, fjdot_s,
+                   adj_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
+  tc_pair<F, BF>(rbf_s, rbfdot_s, lr, Rp, wprep, ring, p_s, pdot_s);
+  messages<F, FIRST, BF>(p_s, pdot_s, npi_s, npdoti_s, npj_s, npdotj_s,
+                         adj_s, msg_s, msgdot_s);
 
   float* wp = wpart + (size_t)blockIdx.x * wgrad_size(F, R);
-  float* colb = col + ((size_t)b * n_itiles + it) * kColSlots * N * F;
-  float dnp_acc[C], dnpdot_acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) dnp_acc[c] = dnpdot_acc[c] = 0.0f;
-  float acc[TJ][C], dmsg[TJ][C], dmsgdot[TJ][C];
+  float* colb = colpart + ((size_t)b * n_it + tl.it) * kColSlots * nf;
+  float dmsg[TJ][C], dmsgdot[TJ][C];
 
-  for (int j0 = 0; j0 < N; j0 += TJ) {
-    const bool init = j0 == 0;
-    __syncthreads();
-    load_tile<FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force,
-                     forcedot, b, i0, j0, N, F, R, npj_s, npdotj_s, fj_s,
-                     fjdot_s, adj_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
-    dual_messages<F, FIRST, BF>(rbf_s, rbfdot_s, R, We, w_s, npi_s, npdoti_s,
-                                npj_s, npdotj_s, adj_s, msg_s, msgdot_s, acc);
-
-#pragma unroll
-    for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
-      const float* Wa = br == 0 ? W1a : W2a;
-      const float* Wb = br == 0 ? W1b : W2b;
-      float* wpa = wp + (size_t)R * F + (size_t)(2 * br) * F * F;
-      float* wpb = wpa + (size_t)F * F;
-      gemm_rows<F, false, BF>(msg_s, LD, F, Wa, w_s, acc);  // p
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          p_s[o] = acc[r][c];
-          h_s[o] = silu_f(acc[r][c]);
-        }
-      gemm_rows<F, false, BF>(msgdot_s, LD, F, Wa, w_s, acc);  // pdot
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          pdot_s[o] = acc[r][c];
-          hdot_s[o] = dsilu_f(p_s[o]) * acc[r][c];
-        }
-      if (br == 1) {
-        // phi2, phi2dot for the column sums over i:
-        // dforce[d,j] = sum_i phi2 dq[d,i] + phi2dot dqdot[d,i],
-        // dforcedot[d,j] = sum_i phi2 dqdot[d,i]
-        gemm_rows<F, false, BF>(h_s, LD, F, Wb, w_s, acc);
-#pragma unroll
-        for (int r = 0; r < TJ; ++r)
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            g_s[(warp * TJ + r) * LD + lane + 32 * c] =
-                acc[r][c] * adj_s[warp * TJ + r];
-        gemm_rows<F, false, BF>(hdot_s, LD, F, Wb, w_s, acc);
-#pragma unroll
-        for (int r = 0; r < TJ; ++r)
-#pragma unroll
-          for (int c = 0; c < C; ++c)
-            gdot_s[(warp * TJ + r) * LD + lane + 32 * c] =
-                acc[r][c] * adj_s[warp * TJ + r];
-        __syncthreads();
-        for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
-          const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
-          if (j >= N) continue;
-          float sf[3] = {0.0f, 0.0f, 0.0f}, sfd[3] = {0.0f, 0.0f, 0.0f};
-          for (int il = 0; il < TI; ++il) {
-            const float phi = g_s[(il * TJ + jl) * LD + f];
-            const float phid = gdot_s[(il * TJ + jl) * LD + f];
-#pragma unroll
-            for (int d = 0; d < 3; ++d) {
-              const float q = dq_s[(d * TI + il) * F + f];
-              const float qd = dqdot_s[(d * TI + il) * F + f];
-              sf[d] += phi * q + phid * qd;
-              sfd[d] += phi * qd;
-            }
-          }
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            colb[((size_t)(2 + d) * N + j) * F + f] = sf[d];
-            colb[((size_t)(5 + d) * N + j) * F + f] = sfd[d];
-          }
-        }
-        __syncthreads();
-      }
-      // g = dphi * adj, gdot = dphidot * adj, where
-      // dphi = sum_d dq[d,i] x[d] + dqdot[d,i] xdot[d], dphidot = sum_d
-      // dqdot[d,i] x[d], with (x, xdot) = (dir, dirdot) or (force_j,
-      // forcedot_j)
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const int p = warp * TJ + r;
-        const float a = adj_s[p];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          float dphi = 0.0f, dphidot = 0.0f;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float q = dq_s[(d * TI + warp) * F + f];
-            const float qd = dqdot_s[(d * TI + warp) * F + f];
-            const float x = br == 0 ? dir_s[d * M + p] : fj_s[(d * TJ + r) * F + f];
-            const float xdot =
-                br == 0 ? dirdot_s[d * M + p] : fjdot_s[(d * TJ + r) * F + f];
-            dphi = dphi + q * x + qd * xdot;
-            dphidot = dphidot + qd * x;
-          }
-          g_s[p * LD + f] = dphi * a;
-          gdot_s[p * LD + f] = dphidot * a;
-        }
-      }
-      wgrad2<F, BF>(h_s, g_s, hdot_s, gdot_s, LD, F, wpb, init);  // dWb
-      gemm_rows<F, true, BF>(gdot_s, LD, F, Wb, w_s, acc);       // dhdot
-      __syncwarp();  // the warp's lanes have read gdot before it is replaced
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          const float pv = p_s[o];
-          pdot_s[o] = d2silu_f(pv) * pdot_s[o] * acc[r][c];
-          gdot_s[o] = dsilu_f(pv) * acc[r][c];  // dpdot
-        }
-      gemm_rows<F, true, BF>(g_s, LD, F, Wb, w_s, acc);  // dh
-      __syncwarp();  // as above, for g
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          g_s[o] = dsilu_f(p_s[o]) * acc[r][c] + pdot_s[o];  // dp
-        }
-      wgrad2<F, BF>(msg_s, g_s, msgdot_s, gdot_s, LD, F, wpa, init);  // dWa
-      gemm_rows<F, true, BF>(g_s, LD, F, Wa, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          dmsg[r][c] = br == 0 ? acc[r][c] : dmsg[r][c] + acc[r][c];
-      gemm_rows<F, true, BF>(gdot_s, LD, F, Wa, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          dmsgdot[r][c] = br == 0 ? acc[r][c] : dmsgdot[r][c] + acc[r][c];
-    }
-
-    // ---- t = (dmsg + di_i) adj, tdot = (dmsgdot + didot_i) adj; dnp,
-    // dnpdot, dme, dmedot, dWe. me and medot are recomputed.
-    gemm_rows<F, false, BF>(rbf_s, R, R, We, w_s, acc);  // me
+#pragma unroll 1
+  for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
+    const char* WaT = wprep + prep_offset(F, R, 1 + 2 * br) * es;
+    const char* WbT = wprep + prep_offset(F, R, 2 + 2 * br) * es;
+    const char* Wa = wprep + prep_offset(F, R, 5 + 2 * br) * es;
+    const char* Wb = wprep + prep_offset(F, R, 6 + 2 * br) * es;
+    float* wpa = wp + (size_t)R * F + (size_t)(2 * br) * F * F;
+    float* wpb = wpa + (size_t)F * F;
+    tc_pair<F, BF>(msg_s, msgdot_s, LD, F, WaT, ring, p_s, pdot_s);
 #pragma unroll
     for (int r = 0; r < TJ; ++r)
 #pragma unroll
-      for (int c = 0; c < C; ++c)
-        p_s[(warp * TJ + r) * LD + lane + 32 * c] = acc[r][c];
-    gemm_rows<F, false, BF>(rbfdot_s, R, R, We, w_s, acc);  // medot
+      for (int c = 0; c < C; ++c) {
+        const int o = (warp * TJ + r) * LD + lane + 32 * c;
+        h_s[o] = silu_f(p_s[o]);
+        hdot_s[o] = dsilu_f(p_s[o]) * pdot_s[o];
+      }
+    if (br == 1) {
+      // phi2, phi2dot for the column sums over i:
+      // dforce[d,j] = sum_i phi2 dq[d,i] + phi2dot dqdot[d,i],
+      // dforcedot[d,j] = sum_i phi2 dqdot[d,i]
+      tc_pair<F, BF>(h_s, hdot_s, LD, F, WbT, ring, g_s, gdot_s);
+      for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
+        const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
+        if (j >= N) continue;
+        float sf[3] = {0.0f, 0.0f, 0.0f}, sfd[3] = {0.0f, 0.0f, 0.0f};
+        for (int il = 0; il < TI && i0 + il < N; ++il) {
+          const int p = il * TJ + jl;
+          const float phi = g_s[p * LD + f] * adj_s[p];
+          const float phid = gdot_s[p * LD + f] * adj_s[p];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const size_t at = ((size_t)b * 3 + d) * nf + (size_t)(i0 + il) * F + f;
+            const float q = dq[at], qd = dqdot[at];
+            sf[d] += phi * q + phid * qd;
+            sfd[d] += phi * qd;
+          }
+        }
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          colb[(2 + d) * nf + (size_t)j * F + f] = sf[d];
+          colb[(5 + d) * nf + (size_t)j * F + f] = sfd[d];
+        }
+      }
+      __syncthreads();  // g_s and gdot_s are replaced next
+    }
+    // g = dphi * adj, gdot = dphidot * adj, where
+    // dphi = sum_d dq[d,i] x[d] + dqdot[d,i] xdot[d], dphidot = sum_d
+    // dqdot[d,i] x[d], with (x, xdot) = (dir, dirdot) or (force_j,
+    // forcedot_j)
 #pragma unroll
     for (int r = 0; r < TJ; ++r) {
       const int p = warp * TJ + r;
@@ -700,83 +862,144 @@ dual_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int f = lane + 32 * c;
-        const int o = p * LD + f;
-        const float t = (dmsg[r][c] + di_s[warp * F + f]) * a;
-        const float tdot = (dmsgdot[r][c] + didot_s[warp * F + f]) * a;
-        const float me = p_s[o], medot = acc[r][c];
-        const float ai = npi_s[warp * F + f], aj = npj_s[r * F + f];
-        if (FIRST) {
-          dnp_acc[c] += t * me * aj + tdot * medot * aj;
-          hdot_s[o] = t * ai * aj;  // dme
-        } else {
-          const float aidot = npdoti_s[warp * F + f];
-          const float ajdot = npdotj_s[r * F + f];
-          dnp_acc[c] += t * me * aj + tdot * (medot * aj + me * ajdot);
-          dnpdot_acc[c] += tdot * me * aj;
-          hdot_s[o] = t * ai * aj + tdot * (aidot * aj + ai * ajdot);
+        float dphi = 0.0f, dphidot = 0.0f;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const size_t at = ((size_t)b * 3 + d) * nf + (size_t)i * F + f;
+          const float q = i < N ? dq[at] : 0.0f;
+          const float qd = i < N ? dqdot[at] : 0.0f;
+          const float x = br == 0 ? dir_s[d * M + p] : fj_s[(d * TJ + r) * F + f];
+          const float xdot =
+              br == 0 ? dirdot_s[d * M + p] : fjdot_s[(d * TJ + r) * F + f];
+          dphi = dphi + q * x + qd * xdot;
+          dphidot = dphidot + qd * x;
         }
-        g_s[o] = tdot * ai * aj;  // dmedot
-        p_s[o] = t * me;
-        pdot_s[o] = tdot * medot;
-        h_s[o] = tdot * me;
+        g_s[p * LD + f] = dphi * a;
+        gdot_s[p * LD + f] = dphidot * a;
       }
     }
-    __syncthreads();
-    // column parts over i: dnp[j] += sum_i t me np_i + tdot (medot np_i +
-    // me npdot_i), dnpdot[j] += sum_i tdot me np_i
-    for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
-      const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
-      if (j >= N) continue;
-      float s = 0.0f, sd = 0.0f;
-      for (int il = 0; il < TI; ++il) {
-        const int o = (il * TJ + jl) * LD + f;
-        const float ai = npi_s[il * F + f];
-        if (FIRST) {
-          s += p_s[o] * ai + pdot_s[o] * ai;
-        } else {
-          s += p_s[o] * ai + (pdot_s[o] * ai + h_s[o] * npdoti_s[il * F + f]);
-          sd += h_s[o] * ai;
-        }
+    wgrad_pair<F, BF>(h_s, g_s, hdot_s, gdot_s, LD, F, wpb);  // dWb
+    tc_pair<F, BF>(g_s, gdot_s, LD, F, Wb, ring, h_s, hdot_s);  // dh, dhdot
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int o = (warp * TJ + r) * LD + lane + 32 * c;
+        const float pv = p_s[o], dh = h_s[o], dhdot = hdot_s[o];
+        g_s[o] = dsilu_f(pv) * dh + d2silu_f(pv) * pdot_s[o] * dhdot;  // dp
+        gdot_s[o] = dsilu_f(pv) * dhdot;  // dpdot
       }
-      colb[(size_t)j * F + f] = s;
-      colb[((size_t)N + j) * F + f] = sd;
-    }
-    wgrad2<F, BF>(rbf_s, hdot_s, rbfdot_s, g_s, R, R, wp, init);  // dWe
+    wgrad_pair<F, BF>(msg_s, g_s, msgdot_s, gdot_s, LD, F, wpa);  // dWa
+    tc_pair<F, BF>(g_s, gdot_s, LD, F, Wa, ring, h_s, hdot_s);  // dmsg(dot)
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int o = (warp * TJ + r) * LD + lane + 32 * c;
+        dmsg[r][c] = br == 0 ? h_s[o] : dmsg[r][c] + h_s[o];
+        dmsgdot[r][c] = br == 0 ? hdot_s[o] : dmsgdot[r][c] + hdot_s[o];
+      }
   }
 
-  if (i < N) {
+  // ---- t = (dmsg + di_i) adj, tdot = (dmsgdot + didot_i) adj; dnp,
+  // dnpdot, dme, dmedot, dWe. me and medot are recomputed.
+  tc_pair<F, BF>(rbf_s, rbfdot_s, lr, Rp, wprep, ring, p_s, pdot_s);
+  float dnp_acc[C], dnpdot_acc[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) dnp_acc[c] = dnpdot_acc[c] = 0.0f;
+#pragma unroll
+  for (int r = 0; r < TJ; ++r) {
+    const int p = warp * TJ + r;
+    const float a = adj_s[p];
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int f = lane + 32 * c;
-      dnp[((size_t)b * N + i) * F + f] = dnp_acc[c];
-      dnpdot[((size_t)b * N + i) * F + f] = dnpdot_acc[c];
+      const int o = p * LD + f;
+      const float t = (dmsg[r][c] + di_s[warp * F + f]) * a;
+      const float tdot = (dmsgdot[r][c] + didot_s[warp * F + f]) * a;
+      const float me = p_s[o], medot = pdot_s[o];
+      const float ai = npi_s[warp * F + f], aj = npj_s[r * F + f];
+      if (FIRST) {
+        dnp_acc[c] += t * me * aj + tdot * medot * aj;
+        hdot_s[o] = t * ai * aj;  // dme
+      } else {
+        const float aidot = npdoti_s[warp * F + f];
+        const float ajdot = npdotj_s[r * F + f];
+        dnp_acc[c] += t * me * aj + tdot * (medot * aj + me * ajdot);
+        dnpdot_acc[c] += tdot * me * aj;
+        hdot_s[o] = t * ai * aj + tdot * (aidot * aj + ai * ajdot);
+      }
+      g_s[o] = tdot * ai * aj;  // dmedot
+      p_s[o] = t * me;
+      pdot_s[o] = tdot * medot;
+      h_s[o] = tdot * me;
+    }
+  }
+  __syncthreads();
+  // column parts over i: dnp[j] += sum_i t me np_i + tdot (medot np_i +
+  // me npdot_i), dnpdot[j] += sum_i tdot me np_i
+  for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
+    const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
+    if (j >= N) continue;
+    float s = 0.0f, sd = 0.0f;
+    for (int il = 0; il < TI; ++il) {
+      const int o = (il * TJ + jl) * LD + f;
+      const float ai = npi_s[il * F + f];
+      if (FIRST) {
+        s += p_s[o] * ai + pdot_s[o] * ai;
+      } else {
+        s += p_s[o] * ai + (pdot_s[o] * ai + h_s[o] * npdoti_s[il * F + f]);
+        sd += h_s[o] * ai;
+      }
+    }
+    colb[(size_t)j * F + f] = s;
+    colb[nf + (size_t)j * F + f] = sd;
+  }
+  wgrad_pair<F, BF>(rbf_s, hdot_s, rbfdot_s, g_s, lr, R, wp);  // dWe
+
+  // this tile's row parts over j
+  if (i < N) {
+    float* rp = rowpart + ((size_t)b * n_jt + tl.jt) * kRowSlotsBwd * nf +
+                (size_t)i * F;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      rp[lane + 32 * c] = dnp_acc[c];
+      rp[nf + lane + 32 * c] = dnpdot_acc[c];
     }
   }
 }
 
-// dnp += sum_it col[.,it,0]; dnpdot += sum_it col[.,it,1]; dforce[d] =
-// sum_it col[.,it,2+d]; dforcedot[d] = sum_it col[.,it,5+d]. The first
-// layer's dnpdot, dforce and dforcedot are zero. Fixed summation order.
-__global__ void dual_bwd_colsum_kernel(float* __restrict__ dnp,
-                                       float* __restrict__ dnpdot,
-                                       float* __restrict__ dforce,
-                                       float* __restrict__ dforcedot,
-                                       const float* __restrict__ col, int B,
-                                       int N, int F, int n_itiles, int first) {
+// dnp = sum_jt rowpart[., jt, 0] + sum_it colpart[., it, 0]; dnpdot
+// likewise from slot 1; dforce[d] = sum_it colpart[., it, 2+d];
+// dforcedot[d] = sum_it colpart[., it, 5+d]. The first layer's dnpdot,
+// dforce and dforcedot are zero. Fixed summation order.
+__global__ void dual_bwd_nodesum_kernel(float* __restrict__ dnp,
+                                        float* __restrict__ dnpdot,
+                                        float* __restrict__ dforce,
+                                        float* __restrict__ dforcedot,
+                                        const float* __restrict__ rowpart,
+                                        const float* __restrict__ colpart,
+                                        int B, int N, int F, int n_it,
+                                        int n_jt, int first) {
   const size_t nf = (size_t)N * F;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)B * nf) return;
   const size_t b = idx / nf, rem = idx - b * nf;
   float s[kColSlots];
   for (int k = 0; k < kColSlots; ++k) s[k] = 0.0f;
-  for (int it = 0; it < n_itiles; ++it) {
-    const float* c = col + (b * n_itiles + it) * kColSlots * nf + rem;
+  for (int jt = 0; jt < n_jt; ++jt) {
+    const float* c = rowpart + (b * n_jt + jt) * kRowSlotsBwd * nf + rem;
+    s[0] += c[0];
+    if (!first) s[1] += c[nf];
+  }
+  for (int it = 0; it < n_it; ++it) {
+    const float* c = colpart + (b * n_it + it) * kColSlots * nf + rem;
     s[0] += c[0];
     if (!first)
       for (int k = 1; k < kColSlots; ++k) s[k] += c[k * nf];
   }
-  dnp[idx] += s[0];
-  dnpdot[idx] = first ? 0.0f : dnpdot[idx] + s[1];
+  dnp[idx] = s[0];
+  dnpdot[idx] = s[1];
   for (int d = 0; d < 3; ++d) {
     dforce[(b * 3 + d) * nf + rem] = s[2 + d];
     dforcedot[(b * 3 + d) * nf + rem] = s[5 + d];
@@ -796,54 +1019,95 @@ __global__ void dual_bwd_wsum_kernel(float* __restrict__ out,
   out[e] = s;
 }
 
+// Scratch of one launch, in floats: the prepared weights, then K3's row
+// partials, or K4's row, column and weight partials.
+size_t scratch_floats(int B, int N, int F, int R, bool bwd) {
+  const size_t n_it = (N + TI - 1) / TI, n_jt = (N + TJ - 1) / TJ;
+  const size_t nf = (size_t)N * F;
+  if (!bwd) return prep_floats(F, R) + B * n_jt * kRowSlotsFwd * nf;
+  return prep_floats(F, R) + B * n_jt * kRowSlotsBwd * nf +
+         B * n_it * kColSlots * nf + B * n_it * n_jt * wgrad_size(F, R);
+}
+
+template <class Prep>
+cudaError_t launch_prep(Prep prep, const float* const* in, void* out, int F,
+                        int R, cudaStream_t stream) {
+  const size_t total = prep_floats(F, R);
+  const size_t want = (total + 255) / 256;
+  const unsigned grid = (unsigned)(want < 264 ? want : 264);
+  prep<<<grid, 256, 0, stream>>>(in[9], in[10], in[11], in[12], in[13], out,
+                                 F, R);
+  return cudaGetLastError();
+}
+
 template <int F, bool FIRST, bool BF>
-cudaError_t launch_fwd(const float* const* in, float* const* out, int B,
-                       int N, int R, cudaStream_t stream) {
-  const size_t smem = fwd_smem_floats<F>(R) * sizeof(float);
+cudaError_t launch_fwd(const float* const* in, float* const* out,
+                       float* scratch, int B, int N, int R,
+                       cudaStream_t stream) {
+  const size_t smem = fwd_smem_floats<F, BF>(R) * sizeof(float);
   auto kern = dual_fwd_kernel<F, FIRST, BF>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_itiles = (N + TI - 1) / TI;
-  kern<<<B * n_itiles, kThreads, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      in[10], in[11], in[12], in[13], out[0], out[1], out[2], out[3], N, R,
-      n_itiles);
+  const int n_it = (N + TI - 1) / TI, n_jt = (N + TJ - 1) / TJ;
+  char* wprep = reinterpret_cast<char*>(scratch);
+  float* rowpart = scratch + prep_floats(F, R);
+  err = launch_prep(dual_fwd_prep_kernel<BF>, in, wprep, F, R, stream);
+  if (err != cudaSuccess) return err;
+  const unsigned n_blocks = (unsigned)(B * n_it * n_jt);
+  kern<<<n_blocks, kThreads, smem, stream>>>(
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], wprep,
+      rowpart, N, R, n_it, n_jt);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)(((size_t)B * N * F + 255) / 256);
+  dual_fwd_rowsum_kernel<<<grid, 256, 0, stream>>>(
+      out[0], out[1], out[2], out[3], rowpart, B, N, F, n_jt);
   return cudaGetLastError();
 }
 
 // in: the 14 inputs of K3 then di, dq, didot, dqdot; out: dnp, dnpdot,
-// dforce, dforcedot, col, wpart, dw.
+// dforce, dforcedot, dw.
 template <int F, bool FIRST, bool BF>
-cudaError_t launch_bwd(const float* const* in, float* const* out, int B,
-                       int N, int R, cudaStream_t stream) {
-  const size_t smem = bwd_smem_floats<F>(R) * sizeof(float);
+cudaError_t launch_bwd(const float* const* in, float* const* out,
+                       float* scratch, int B, int N, int R,
+                       cudaStream_t stream) {
+  const size_t smem = bwd_smem_floats<F, BF>(R) * sizeof(float);
   auto kern = dual_bwd_kernel<F, FIRST, BF>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_itiles = (N + TI - 1) / TI;
-  const int n_blocks = B * n_itiles;
+  const int n_it = (N + TI - 1) / TI, n_jt = (N + TJ - 1) / TJ;
+  const size_t nf = (size_t)N * F;
+  char* wprep = reinterpret_cast<char*>(scratch);
+  float* rowpart = scratch + prep_floats(F, R);
+  float* colpart = rowpart + (size_t)B * n_jt * kRowSlotsBwd * nf;
+  float* wpart = colpart + (size_t)B * n_it * kColSlots * nf;
+  err = launch_prep(dual_bwd_prep_kernel<BF>, in, wprep, F, R, stream);
+  if (err != cudaSuccess) return err;
+  const int n_blocks = B * n_it * n_jt;
   kern<<<n_blocks, kThreads, smem, stream>>>(
-      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], in[9],
-      in[10], in[11], in[12], in[13], in[14], in[15], in[16], in[17], out[0],
-      out[1], out[4], out[5], N, R, n_itiles);
+      in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], wprep,
+      in[14], in[15], in[16], in[17], rowpart, colpart, wpart, N, R, n_it,
+      n_jt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t total = (size_t)B * N * F;
-  dual_bwd_colsum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      out[0], out[1], out[2], out[3], out[4], B, N, F, n_itiles, FIRST ? 1 : 0);
+  const unsigned grid = (unsigned)(((size_t)B * nf + 255) / 256);
+  dual_bwd_nodesum_kernel<<<grid, 256, 0, stream>>>(
+      out[0], out[1], out[2], out[3], rowpart, colpart, B, N, F, n_it, n_jt,
+      FIRST ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t n = wgrad_size(F, R);
   const size_t n_valid = FIRST ? (size_t)R * F + 2 * (size_t)F * F : n;
-  dual_bwd_wsum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      out[6], out[5], n_blocks, n, n_valid);
+  const unsigned wgrid = (unsigned)((n + 255) / 256);
+  dual_bwd_wsum_kernel<<<wgrid, 256, 0, stream>>>(out[4], wpart, n_blocks, n,
+                                                  n_valid);
   return cudaGetLastError();
 }
 
-typedef cudaError_t (*launch_fn)(const float* const*, float* const*, int, int,
-                                 int, cudaStream_t);
+typedef cudaError_t (*launch_fn)(const float* const*, float* const*, float*,
+                                 int, int, int, cudaStream_t);
 
 // The instantiation for (F, first, bf16), or nullptr for an F the kernels
 // are not built for.
@@ -876,7 +1140,8 @@ extern "C" {
 
 // K3. Shapes: np, npdot (B,N,F); rbf, rbfdot (B,N,N,R); dir, dirdot
 // (B,3,N,N); adj (B,N,N); force, forcedot (B,3,N,F); We (R,F); W* (F,F)
-// -> inv1, inv1dot (B,N,F); eq, eqdot (B,3,N,F). All fp32, contiguous, on
+// -> inv1, inv1dot (B,N,F); eq, eqdot (B,3,N,F). Scratch: 16-byte aligned,
+// nn_dual_scratch_floats(B, N, F, R, 0) floats. All fp32, contiguous, on
 // the device of `stream`. F must be 32, 64 or 128; bf16 != 0 rounds the
 // product operands to bf16.
 int nn_dual_fwd(const float* np_, const float* npdot, const float* rbf,
@@ -884,20 +1149,21 @@ int nn_dual_fwd(const float* np_, const float* npdot, const float* rbf,
                 const float* adj, const float* force, const float* forcedot,
                 const float* We, const float* W1a, const float* W1b,
                 const float* W2a, const float* W2b, float* inv1, float* eq,
-                float* inv1dot, float* eqdot, int B, int N, int F, int R,
-                int first_layer, int bf16, void* stream) {
+                float* inv1dot, float* eqdot, float* scratch, int B, int N,
+                int F, int R, int first_layer, int bf16, void* stream) {
   const launch_fn fn = pick<FwdLaunch>(F, first_layer != 0, bf16 != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const float* in[14] = {np_, npdot, rbf, rbfdot, dir, dirdot, adj,
                          force, forcedot, We, W1a, W1b, W2a, W2b};
   float* out[4] = {inv1, eq, inv1dot, eqdot};
-  return (int)fn(in, out, B, N, R, static_cast<cudaStream_t>(stream));
+  return (int)fn(in, out, scratch, B, N, R,
+                 static_cast<cudaStream_t>(stream));
 }
 
 // K4. Inputs of K3 plus di, didot (B,N,F) and dq, dqdot (B,3,N,F).
 // Outputs dnp, dnpdot (B,N,F), dforce, dforcedot (B,3,N,F) and dw
-// (R*F+4F^2: dWe, dW1a, dW1b, dW2a, dW2b one after the other). Scratch col
-// (B, ceil(N/8), 8, N, F) and wpart (B*ceil(N/8), R*F+4F^2).
+// (R*F+4F^2: dWe, dW1a, dW1b, dW2a, dW2b one after the other). Scratch:
+// 16-byte aligned, nn_dual_scratch_floats(B, N, F, R, 1) floats.
 int nn_dual_bwd(const float* np_, const float* npdot, const float* rbf,
                 const float* rbfdot, const float* dir, const float* dirdot,
                 const float* adj, const float* force, const float* forcedot,
@@ -905,22 +1171,32 @@ int nn_dual_bwd(const float* np_, const float* npdot, const float* rbf,
                 const float* W2a, const float* W2b, const float* di,
                 const float* dq, const float* didot, const float* dqdot,
                 float* dnp, float* dnpdot, float* dforce, float* dforcedot,
-                float* col, float* wpart, float* dw, int B, int N, int F,
-                int R, int first_layer, int bf16, void* stream) {
+                float* dw, float* scratch, int B, int N, int F, int R,
+                int first_layer, int bf16, void* stream) {
   const launch_fn fn = pick<BwdLaunch>(F, first_layer != 0, bf16 != 0);
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   const float* in[18] = {np_, npdot, rbf, rbfdot, dir, dirdot,
                          adj, force, forcedot, We, W1a, W1b,
                          W2a, W2b, di, dq, didot, dqdot};
-  float* out[7] = {dnp, dnpdot, dforce, dforcedot, col, wpart, dw};
-  return (int)fn(in, out, B, N, R, static_cast<cudaStream_t>(stream));
+  float* out[5] = {dnp, dnpdot, dforce, dforcedot, dw};
+  return (int)fn(in, out, scratch, B, N, R,
+                 static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory of one block of K3 (kind 0) or K4 (kind 1), in
-// bytes; 0 for an F the kernels are not built for.
-size_t nn_dual_smem_bytes(int F, int R, int kind) {
-#define NN_SMEM(FF) \
-  return (kind ? bwd_smem_floats<FF>(R) : fwd_smem_floats<FF>(R)) * sizeof(float)
+// Scratch of one K3 (kind 0) or K4 (kind 1) launch, in floats.
+size_t nn_dual_scratch_floats(int B, int N, int F, int R, int kind) {
+  return scratch_floats(B, N, F, R, kind != 0);
+}
+
+// Dynamic shared memory of one block of K3 (kind 0) or K4 (kind 1) in
+// bf16 (bf16 != 0) or fp32 mode, in bytes; 0 for an F the kernels are not
+// built for.
+size_t nn_dual_smem_bytes(int F, int R, int kind, int bf16) {
+#define NN_SMEM(FF)                                                     \
+  return (kind ? (bf16 ? bwd_smem_floats<FF, true>(R)                   \
+                       : bwd_smem_floats<FF, false>(R))                 \
+               : (bf16 ? fwd_smem_floats<FF, true>(R)                   \
+                       : fwd_smem_floats<FF, false>(R))) * sizeof(float)
   switch (F) {
     case 32: NN_SMEM(32);
     case 64: NN_SMEM(64);

@@ -49,7 +49,6 @@ from newtonnet_tpu_torch.ops.fused_dense import (
 LAUNCHES = {'dual_fwd': 0, 'dual_fwd_first': 0,
             'dual_bwd': 0, 'dual_bwd_first': 0}
 DOT_DTYPES = ('float32', 'bfloat16')
-_TI = 8  # rows i per block in the kernels (csrc/fused_dual.cu: TI)
 
 
 def reset_launch_counts():
@@ -207,20 +206,31 @@ def _lib():
     lib = _build.load('fused_dual')
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nn_dual_fwd.argtypes = [p] * 18 + [i] * 6 + [p]
+        lib.nn_dual_fwd.argtypes = [p] * 19 + [i] * 6 + [p]
         lib.nn_dual_fwd.restype = i
-        lib.nn_dual_bwd.argtypes = [p] * 25 + [i] * 6 + [p]
+        lib.nn_dual_bwd.argtypes = [p] * 24 + [i] * 6 + [p]
         lib.nn_dual_bwd.restype = i
-        lib.nn_dual_smem_bytes.argtypes = [i] * 3
+        lib.nn_dual_smem_bytes.argtypes = [i] * 4
         lib.nn_dual_smem_bytes.restype = ctypes.c_size_t
+        lib.nn_dual_scratch_floats.argtypes = [i] * 5
+        lib.nn_dual_scratch_floats.restype = ctypes.c_size_t
         lib._nn_typed = True
     return lib
 
 
-def smem_bytes(F, R, kind):
-    '''Dynamic shared memory of one block of K3 (kind 'fwd') or K4 ('bwd'),
-    as the CUDA source computes it (builds the source if needed).'''
-    return _lib().nn_dual_smem_bytes(F, R, int(kind == 'bwd'))
+def smem_bytes(F, R, kind, dot_dtype='bfloat16'):
+    '''Dynamic shared memory of one block of K3 (kind 'fwd') or K4 ('bwd')
+    in the given dot mode, as the CUDA source computes it (builds the
+    source if needed).'''
+    return _lib().nn_dual_smem_bytes(F, R, int(kind == 'bwd'),
+                                     int(dot_dtype == 'bfloat16'))
+
+
+def _scratch(B, N, F, R, kind, device):
+    '''The scratch of one K3 (kind 'fwd') or K4 ('bwd') launch, sized by
+    the CUDA source (csrc/fused_dual.cu: nn_dual_scratch_floats).'''
+    n = _lib().nn_dual_scratch_floats(B, N, F, R, int(kind == 'bwd'))
+    return torch.empty((n,), device=device, dtype=torch.float32)
 
 
 _NAMES = ('np_', 'npdot', 'rbf', 'rbfdot', 'dir_', 'dirdot', 'adj', 'force',
@@ -265,9 +275,10 @@ def pair_interaction_dual_fwd(np_, npdot, rbf, rbfdot, dir_, dirdot, adj,
     opts = dict(device=np_.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts),
             torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
+    scratch = _scratch(B, N, F, R, 'fwd', np_.device)
     err = _lib().nn_dual_fwd(
-        *[t.data_ptr() for t in ins + outs], B, N, F, R, int(first_layer),
-        int(dot_dtype == 'bfloat16'),
+        *[t.data_ptr() for t in ins + outs + (scratch,)], B, N, F, R,
+        int(first_layer), int(dot_dtype == 'bfloat16'),
         torch.cuda.current_stream(np_.device).cuda_stream)
     _raise_on(err, 'nn_dual_fwd')
     LAUNCHES['dual_fwd_first' if first_layer else 'dual_fwd'] += 1
@@ -291,18 +302,14 @@ def pair_interaction_dual_bwd(np_, npdot, rbf, rbfdot, dir_, dirdot, adj,
     if np_.device.type != 'cuda':
         raise ValueError(f'no kernel for device {np_.device}')
     B, N, F, R = _checked(ins, dot_dtype, cots)
-    n_it = (N + _TI - 1) // _TI
     opts = dict(device=np_.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, N, F), **opts),
             torch.empty((B, 3, N, F), **opts),
             torch.empty((B, 3, N, F), **opts))
-    # per-(molecule, i-tile) column partials: dnp, dnpdot, dforce, dforcedot
-    col = torch.empty((B, n_it, 8, N, F), **opts)
-    n_w = R * F + 4 * F * F
-    wpart = torch.empty((B * n_it, n_w), **opts)
-    dw = torch.empty((n_w,), **opts)
+    dw = torch.empty((R * F + 4 * F * F,), **opts)
+    scratch = _scratch(B, N, F, R, 'bwd', np_.device)
     err = _lib().nn_dual_bwd(
-        *[t.data_ptr() for t in ins + cots + outs + (col, wpart, dw)],
+        *[t.data_ptr() for t in ins + cots + outs + (dw, scratch)],
         B, N, F, R, int(first_layer), int(dot_dtype == 'bfloat16'),
         torch.cuda.current_stream(np_.device).cuda_stream)
     _raise_on(err, 'nn_dual_bwd')

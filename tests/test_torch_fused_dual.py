@@ -175,3 +175,21 @@ def test_dual_kernels_match_plain_on_cuda():
                 for g, r in zip(got, ref):
                     scale = r.abs().max().item()
                     assert (g - r).abs().max().item() <= bar * scale
+
+
+@pytest.mark.cuda
+def test_dual_bwd_kernel_repeats_its_bits_on_cuda():
+    '''Three K4 launches on one input give equal bits, both modes and both
+    variants, at the training shape: every sum that crosses blocks is a
+    fixed-order reduction of per-block partials (no float atomics).'''
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    ins, cots = _inputs(10, 24, 128, 20, seed=8)
+    args = [t.cuda() for t in _torch(ins + cots)]
+    for first in (False, True):
+        for dt in ('float32', 'bfloat16'):
+            runs = [fdd.pair_interaction_dual_bwd(*args, first_layer=first,
+                                                  dot_dtype=dt)
+                    for _ in range(3)]
+            for run in runs[1:]:
+                assert all(torch.equal(a, b) for a, b in zip(runs[0], run))

@@ -150,10 +150,12 @@ def test_emulated_kernels_refuse_what_they_do_not_take(lib):
 
 def _dual_handle(handle):
     p, i = ctypes.c_void_p, ctypes.c_int
-    handle.nn_dual_fwd.argtypes = [p] * 18 + [i] * 6 + [p]
+    handle.nn_dual_fwd.argtypes = [p] * 19 + [i] * 6 + [p]
     handle.nn_dual_fwd.restype = i
-    handle.nn_dual_bwd.argtypes = [p] * 25 + [i] * 6 + [p]
+    handle.nn_dual_bwd.argtypes = [p] * 24 + [i] * 6 + [p]
     handle.nn_dual_bwd.restype = i
+    handle.nn_dual_scratch_floats.argtypes = [i] * 5
+    handle.nn_dual_scratch_floats.restype = ctypes.c_size_t
     return handle
 
 
@@ -178,19 +180,21 @@ def _dual_inputs(B, N, F, R, seed):
 
 
 def _run_dual(handle, args, cots, first_layer, bf16):
-    '''(K3 outputs, K4 outputs) of the emulated kernels, NaN-initialised.'''
+    '''(K3 outputs, K4 outputs) of the emulated kernels, NaN-initialised,
+    with scratch (NaN too) of the size the source gives.'''
     B, N, F = args[0].shape
     R = args[2].shape[-1]
     fwd = [_nan(B, N, F), _nan(B, 3, N, F), _nan(B, N, F), _nan(B, 3, N, F)]
-    assert handle.nn_dual_fwd(*_ptrs(args + fwd), B, N, F, R,
+    scratch = _nan(handle.nn_dual_scratch_floats(B, N, F, R, 0))
+    assert handle.nn_dual_fwd(*_ptrs(args + fwd + [scratch]), B, N, F, R,
                               int(first_layer), int(bf16), None) == 0
-    n_it = (N + 7) // 8
     n_w = R * F + 4 * F * F
     bwd = [_nan(B, N, F), _nan(B, N, F), _nan(B, 3, N, F), _nan(B, 3, N, F)]
-    scratch = [_nan(B, n_it, 8, N, F), _nan(B * n_it, n_w), _nan(n_w)]
-    assert handle.nn_dual_bwd(*_ptrs(args + cots + bwd + scratch), B, N, F, R,
-                              int(first_layer), int(bf16), None) == 0
-    bwd += [v.view(s) for v, s in zip(scratch[2].split([R * F] + [F * F] * 4),
+    dw = _nan(n_w)
+    scratch = _nan(handle.nn_dual_scratch_floats(B, N, F, R, 1))
+    assert handle.nn_dual_bwd(*_ptrs(args + cots + bwd + [dw, scratch]), B, N,
+                              F, R, int(first_layer), int(bf16), None) == 0
+    bwd += [v.view(s) for v, s in zip(dw.split([R * F] + [F * F] * 4),
                                       [(R, F)] + [(F, F)] * 4)]
     return fwd, bwd
 
@@ -209,13 +213,16 @@ def _worst(got, want):
 @pytest.mark.parametrize('shape, first_layer, bf16', [
     (shape, first, bf16) for shape in [(2, 10, 32, 8), (1, 13, 64, 16)]
     for first in (False, True) for bf16 in (False, True)]
-    + [((1, 21, 128, 20), False, True)])
+    + [((1, 21, 128, 20), False, True), ((3, 11, 32, 12), False, True),
+       ((3, 11, 32, 12), True, False)])
 def test_emulated_dual_kernels_match_plain(dual_lib, shape, first_layer,
                                            bf16):
-    '''K3/K4 at ragged atom counts (10, 13 and 21 are no multiple of the
-    8-row or 4-column tiles), both variants and both dot dtypes at F=32
+    '''K3/K4 at ragged atom counts (10, 11, 13 and 21 are no multiple of
+    the 8-row or 4-column tiles), both variants and both dot dtypes at F=32
     and 64; at F=128 the training path's variant (the card runs them
-    all, chip_smoke.py phase 3). fp32 mode holds
+    all, chip_smoke.py phase 3); three molecules with R=12 (a radial depth
+    padded to 32 in the tensor-core products), in both modes. fp32 mode
+    holds
     BAR. bf16 mode holds BF16_BAR = 2e-3: where an fp32 sum of the kernel
     and of the plain version differ in their last bit, the bf16 roundings
     of a later product operand (h, g, dp, msg, rbf-tangent products) can
@@ -242,10 +249,10 @@ def test_emulated_dual_kernels_refuse_what_they_do_not_take(dual_lib):
     '''F outside (32, 64, 128), or an R whose tiles overflow the 227 KB of
     shared memory a block may use, return cudaErrorInvalidValue.'''
     args, cots = _dual_inputs(1, 4, 32, 4, seed=0)
-    out = [_nan(1, 4, 32), _nan(1, 3, 4, 32)] * 2
+    out = [_nan(1, 4, 32), _nan(1, 3, 4, 32)] * 2 + [_nan(1, 4, 32)]
     assert dual_lib.nn_dual_fwd(*_ptrs(args + out), 1, 4, 48, 4, 0, 0,
                                 None) == 1
-    scratch = [_nan(1, 4, 32)] * 7
+    scratch = [_nan(1, 4, 32)] * 6
     assert dual_lib.nn_dual_bwd(*_ptrs(args + cots + scratch), 1, 4, 128,
                                 200, 0, 0, None) == 1
 
@@ -403,6 +410,25 @@ def test_emulation_catches_a_dual_kernel_fault(tmp_path):
                                              dot_dtype='float32')
     assert _worst(fwd + bwd[:1], fdd.pair_interaction_dual_fwd_ref(
         *args, dot_dtype='float32') + want[:1]) > BAR
+
+
+def test_emulation_catches_a_bf16_fragment_fault(tmp_path):
+    '''A mutant of fused_dual.cu whose bf16 products read the second B
+    fragment register of an m16n8k16 tile from the wrong depth word (k+6
+    for k+8, a fragment index of the PTX layout) fails the comparison of
+    K3/K4 with their plain versions in bf16 mode that the source passes.'''
+    src = _source('fused_dual')
+    good = 'const unsigned b[2] = {w[0], w[4]};'
+    assert src.count(good) == 1
+    mutant = _dual_handle(_compile(
+        tmp_path, 'fused_dual_bf16_mutant',
+        src.replace(good, 'const unsigned b[2] = {w[0], w[3]};')))
+    args, cots = _dual_inputs(1, 10, 32, 8, seed=5)
+    fwd, bwd = _run_dual(mutant, args, cots, False, True)
+    kw = dict(dot_dtype='bfloat16')
+    want = (fdd.pair_interaction_dual_fwd_ref(*args, **kw)
+            + fdd.pair_interaction_dual_bwd_ref(*args, *cots, **kw))
+    assert _worst(fwd + bwd, want) > BF16_BAR
 
 
 def test_emulation_catches_a_tensor_core_fragment_fault(tmp_path):
