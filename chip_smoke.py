@@ -12,8 +12,11 @@ with a non-zero exit code and no result line):
             at once; ptxas registers, spills and shared memory per kernel.
 3. kernels  K1/K2 against their plain PyTorch versions on the card, at the
             batched serving shape (B=100, N=21, F=128, R=20), at one
-            calculator request (B=1, N=24) and at (B=2, N=70, F=64, R=16);
-            bar: max|kernel - plain| <= 1e-4 * max|plain| per output.
+            calculator request (B=1, N=24), at (B=2, N=70, F=64, R=16) and
+            ragged at (B=3, N=37, F=32, R=12), with and without weight
+            cotangents; bar: max|kernel - plain| <= 1e-4 * max|plain| per
+            output (K2 on the tensor cores in 3xTF32 holds the same bar);
+            three K2 launches at the serving shape give equal bits.
    dual     K3/K4 against theirs at the training shape (B=10, N=24, F=128,
             R=20), at one molecule (B=1, N=24), at (B=2, N=70, F=64,
             R=16) and ragged at (B=3, N=37, F=32, R=12), both variants;
@@ -26,8 +29,9 @@ with a non-zero exit code and no result line):
             F=128, R=20, bf16 edges), at (B=100, N=21, K=20) and at (B=2,
             N=70, K=37, F=64, R=16) in fp32, and ragged at (B=3, N=61,
             K=39, F=32, R=12) in bf16; bar 1e-4 of each output's largest
-            magnitude, plus one bf16 ulp for bf16-stored outputs (K8 on the
-            tensor cores in 3xTF32 holds the same bar).
+            magnitude, plus one bf16 ulp for bf16-stored outputs (K7 and
+            K8 on the tensor cores in 3xTF32 hold the same bar); three K7
+            launches at the box shape give equal bits.
 3e. gather  K9 (row_gather) against the plain row gather, bitwise, at the
             box's inv_gather shapes (bf16, fp32; 4F, F and positions), its
             scatter-chunk shape, the aspirin shapes and odd widths; K12
@@ -88,8 +92,8 @@ with a non-zero exit code and no result line):
 7e. box-train  three fastgrad steps with Adam on the box, step 1 against
             the plain path on the card (2e-3 relative norm); three
             gradients from one start with equal bits; one step under
-            torch.profiler, split into K8, K7, K6, K5, the gather backward
-            and the rest.
+            torch.profiler, split into K8, K7 (with its weight
+            preparation), K6, K5, the gather backward and the rest.
 4c. serve-xla  the trained kernel='xla' checkpoint (artifacts/md17_model)
             on the 500 frames, dense and over inverse lists (k_max 48,
             host_symmetric_nlist; K9): the JAX package's MAE bars, the
@@ -104,11 +108,13 @@ with a non-zero exit code and no result line):
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
-            shape (fp32 bound), K3/K4 at the training shape in bf16 mode
+            shape (fp32 bound; K2 also its 3xTF32 tensor-core bound, and
+            its time, device time and launches at the training shape
+            B=10, N=24), K3/K4 at the training shape in bf16 mode
             (the training path's; bf16 tensor-core bound) and in fp32 mode
             (fp32 bound, and the 3xTF32 tensor-core bound);
-            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work; K8
-            also its 3xTF32 tensor-core bound);
+            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work; K7
+            and K8 also their 3xTF32 tensor-core bound);
             K9 (box inv_gather and scatter-chunk shapes), K12, K10 and K11
             with one PyTorch call's time beside them (index_select,
             index_add_), bound by bytes.
@@ -429,7 +435,7 @@ def profile_call(torch, fn):
     for key, ms, _ in dev:
         m = re.search(r'(klist_dual_fwd|klist_dual_bwd|klist_fwd|klist_bwd|'
                       r'pair_fwd|pair_bwd|dual_fwd|dual_bwd|row_gather)'
-                      r'_kernel', key)
+                      r'(?:_prep)?_kernel', key)
         if m:
             families[m.group(1)] = families.get(m.group(1), 0.0) + ms
     # K1-K4 with their reductions and weight preparation, by kernel name
@@ -464,7 +470,10 @@ def profile_call(torch, fn):
 def phase_kernels(torch, fd):
     '''Phase 3: every kernel variant against its plain version.'''
     errs = {}
-    shapes = [(100, 21, 128, 20), (1, 24, 128, 20), (2, 70, 64, 16)]
+    # the last one ragged: N = 37 is no multiple of K2's 8-row or 4-column
+    # tiles, R = 12 pads to 32 in its products
+    shapes = [(100, 21, 128, 20), (1, 24, 128, 20), (2, 70, 64, 16),
+              (3, 37, 32, 12)]
     for si, (B, N, F, R) in enumerate(shapes):
         ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=si)
         worst = 0.0
@@ -503,6 +512,20 @@ def phase_kernels(torch, fd):
                     errs[kname] = max(errs.get(kname, 0.0), err)
         emit('kernel_vs_plain', shape=dict(B=B, N=N, F=F, R=R),
              worst_err_over_max=worst, bar=KERNEL_BAR)
+    # three K2 launches on one input give equal bits (no float atomics)
+    ins, dinv1, deq = random_inputs(torch, *shapes[0], seed=0)
+    same = {}
+    for first in (False, True):
+        for wg in (False, True):
+            runs = [fd.pair_interaction_bwd(*ins, dinv1, deq,
+                                            first_layer=first,
+                                            weight_grads=wg)
+                    for _ in range(3)]
+            same[f'first={int(first)} wg={int(wg)}'] = all(
+                exact(torch, a, b) for r in runs[1:]
+                for a, b in zip(runs[0], r) if a is not None)
+    emit('pair_bwd_repeats_its_bits', shape=shapes[0], **same)
+    check(all(same.values()), f'three K2 launches differ in their bits: {same}')
     return errs
 
 
@@ -929,6 +952,21 @@ def phase_klist_kernels(torch, fk):
         emit('klist_vs_plain', shape=dict(B=B, N=N, K=K, F=F, R=R),
              edge_dtype=str(edt).split('.')[-1], worst_err_over_max=worst,
              bar=KERNEL_BAR, bf16_stored_bar='one bf16 ulp + bar')
+    # three K7 launches at the box shape give equal bits
+    B, N, K, F, R, edt = shapes[0]
+    same = {}
+    for first in (False, True):
+        ins, tans, cots = klist_inputs(torch, B, N, K, F, R, first, edt,
+                                       seed=20)
+        fn, a, kw = klist_calls(fk, ins, tans, cots, first)['klist_dual_fwd']
+        runs = [fn(*a, first_layer=first, **kw) for _ in range(3)]
+        same[f'first={int(first)}'] = all(
+            exact(torch, x, y) for r in runs[1:] for x, y in zip(runs[0], r))
+        del ins, tans, cots, runs
+        torch.cuda.empty_cache()
+    emit('klist_dual_fwd_repeats_its_bits', shape=dict(B=B, N=N, K=K, F=F,
+                                                       R=R), **same)
+    check(all(same.values()), f'three K7 launches differ in their bits: {same}')
     return errs
 
 
@@ -1350,7 +1388,8 @@ def klist_timing(torch, fk, errs, launches):
                 'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
                 'library_ms': None, 'flops': flops, 'bytes': nbytes,
                 'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
-            if kind == 'klist_dual_bwd':  # three tf32 products per fp32 one
+            if kind in ('klist_dual_fwd', 'klist_dual_bwd'):
+                # three tf32 products per fp32 one
                 rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops \
                     / PEAK_TF32_FLOPS
         del ins, tans, cots, calls, refs
@@ -2146,9 +2185,35 @@ def main():
             'library_ms': None,
             'flops': flops, 'bytes': nbytes,
             'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
+        if kind == 'bwd':  # K2: three tf32 products per fp32 one
+            rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    # K2 at the training shape, where the dense epoch launches it (phase
+    # 7c: 2 full-layer and 1 first-layer launch per step): the wrapper's
+    # event time, the kernels' own device time and the epoch's launches
+    Bt, Nt = 10, 24
+    ins_t, dinv1_t, deq_t = random_inputs(torch, Bt, Nt, F, R, seed=0)
+    for row in rows:
+        if not row['name'].startswith('pair_bwd'):
+            continue
+        first = row['name'].endswith('first')
+
+        def run_t(first=first):
+            return fd.pair_interaction_bwd(*ins_t, dinv1_t, deq_t,
+                                           first_layer=first,
+                                           weight_grads=False)
+        flops, nbytes = layer_work(Bt, Nt, F, R, 'bwd', first)
+        row['train_shape'] = dict(B=Bt, N=Nt, F=F, R=R)
+        row['train_ms'] = time_ms(torch, run_t)
+        row['train_device_ms'] = device_ms(torch, run_t)
+        row['train_bound_ms'] = 1e3 * max(flops / PEAK_FP32_FLOPS,
+                                          nbytes / PEAK_BYTES_PER_S)
+        row['train_launches'] = train_launches[row['name']]
     emit('timing', shape=dict(B=B, N=N, F=F, R=R), weight_grads=False,
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12,
-         peak_tb_per_s=PEAK_BYTES_PER_S / 1e12)
+         peak_tb_per_s=PEAK_BYTES_PER_S / 1e12,
+         k2_training_shape={r['name']: {k: r[k] for k in (
+             'train_ms', 'train_device_ms', 'train_bound_ms',
+             'train_launches')} for r in rows if 'train_ms' in r})
 
     # K3/K4 at the training shape: bf16 mode (the training path's, in the
     # kernels line, bound by the bf16 tensor-core peak) and fp32 mode

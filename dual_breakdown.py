@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 '''Where kernels K3 and K4 (dual_fwd_kernel / dual_bwd_kernel of
 newtonnet_tpu_torch/csrc/fused_dual.cu) and their wrappers spend their
-time on the card.
+time on the card; with the argument `k2k7`, kernels K2 (pair_bwd_kernel,
+csrc/fused_dense.cu) and K7 (klist_dual_fwd_kernel, csrc/fused_klist.cu).
 
-    python3 dual_breakdown.py
+    python3 dual_breakdown.py [k2k7]
 
 Builds the source as it is and in variants with one part taken out
 (written to newtonnet_tpu_torch/_build/dual_breakdown/, gitignored; all
@@ -19,6 +20,15 @@ variant and dot mode: the device microseconds per call of each kernel
 microseconds per wrapper call (host clock over 50 calls, no synchronise:
 checks, allocations, the ctypes call and the launches). Needs a CUDA card
 and nvcc.
+
+With `k2k7` the variants are no_products (k2_prod / k7_pair run no chunk:
+no staging, no tensor-core product) and no_mma (the chunks are staged and
+their fragments loaded, but no mma is issued), beside the source as it is;
+it prints one JSON line per source and variant: K2's device milliseconds
+per call at the serving shape (B=100, N=21) and at the training shape
+(B=10, N=24), and K7's milliseconds per call at the box shape (B=1,
+N=4096, K=88, bf16 edges; CUDA events, chip_smoke.time_ms), full and
+first layer, no weight cotangents.
 '''
 import ctypes
 import json
@@ -50,23 +60,44 @@ VARIANTS = {
 }
 
 
-def build():
+# the K2 and K7 variants, by source
+K2K7_VARIANTS = {
+    'fused_dense': {
+        'as_is': [],
+        'no_products': [('  const int nch = Qp / KC2;',
+                         '  const int nch = 0 * Qp;')],
+        'no_mma': [('          mma3(d[x][j], ah, al, bh, bl);',
+                    '          d[x][j][0] += __uint_as_float(ah[0] ^ bh[0]'
+                    ' ^ al[1] ^ bl[1]);')]},
+    'fused_klist': {
+        'as_is': [],
+        'no_products': [('  const int nch = Qp / KC7;\n  // chunk v',
+                         '  const int nch = 0 * Qp;\n  // chunk v')],
+        'no_mma': [(f'        for (int x = 0; x < 2; ++x) mma_tf32(d[x][j], '
+                    f'{a}[x], {b}[j]);',
+                    f'        for (int x = 0; x < 2; ++x) d[x][j][{e}] += '
+                    f'__uint_as_float({a}[x][{e}] ^ {b}[j][1]);')
+                   for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
+                                               ('ah', 'bh')))]}}
+
+
+def build(source='fused_dual', variants=VARIANTS):
     '''{variant: path of its shared library}, built all at once.'''
     from newtonnet_tpu_torch.ops import _build
-    with open(os.path.join(_build.SRC_DIR, 'fused_dual.cu')) as f:
+    with open(os.path.join(_build.SRC_DIR, source + '.cu')) as f:
         src = f.read()
     os.makedirs(OUT, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in variants.items():
         text = src
         for old, new in edits:
             if text.count(old) != 1:
                 raise RuntimeError(f'{name}: {old!r} is not in the source')
             text = text.replace(old, new)
-        cu = os.path.join(OUT, f'{name}.cu')
+        cu = os.path.join(OUT, f'{source}_{name}.cu')
         with open(cu, 'w') as f:
             f.write(text)
-        so = os.path.join(OUT, f'lib{name}.so')
+        so = os.path.join(OUT, f'lib{source}_{name}.so')
         procs[name] = (so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, '-o', so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -77,6 +108,51 @@ def build():
             raise RuntimeError(f'nvcc failed for {name}:\n{log}')
         libs[name] = so
     return libs
+
+
+def k2k7(torch, cs, card):
+    '''The K2 and K7 lines (module docstring).'''
+    import threading
+    from newtonnet_tpu_torch.ops import _build
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    built = {}
+    threads = [threading.Thread(target=lambda s=src, v=vs: built.update(
+        {s: build(s, v)})) for src, vs in K2K7_VARIANTS.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    pair = {s: cs.random_inputs(torch, s[0], s[1], 128, 20, seed=0)
+            for s in ((100, 21), (10, 24))}
+    box = {}
+    for first in (False, True):
+        ins, tans, cots = cs.klist_inputs(torch, 1, cs.BOX_ATOMS,
+                                          cs.BOX_K_MAX, 128, 20, first,
+                                          torch.bfloat16, seed=30)
+        box[first] = cs.klist_calls(fk, ins, tans, cots, first)[
+            'klist_dual_fwd']
+    for src, libs in built.items():
+        for name, so in libs.items():
+            _build._LIBS[src] = ctypes.CDLL(so)  # the wrapper's library
+            ms = {}
+            for first in (False, True):
+                tag = 'first' if first else 'full'
+                if src == 'fused_dense':
+                    for (B, N), (ins, dinv1, deq) in pair.items():
+                        def fn(ins=ins, dinv1=dinv1, deq=deq, first=first):
+                            fd.pair_interaction_bwd(
+                                *ins, dinv1, deq, first_layer=first,
+                                weight_grads=False)
+                        ms[f'K2 B={B} N={N} {tag} device'] = \
+                            cs.device_ms(torch, fn)
+                else:
+                    f, a, kw = box[first]
+                    ms[f'K7 box {tag}'] = cs.time_ms(
+                        torch, lambda: f(*a, first_layer=first, **kw),
+                        inner=3)
+            print(json.dumps({'source': src, 'variant': name, 'ms': ms,
+                              'card': card}), flush=True)
 
 
 def main():
@@ -90,11 +166,14 @@ def main():
     from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_dual as fdd
 
-    libs = build()
-    args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True, timeout=60).stdout.strip()
+    if sys.argv[1:] == ['k2k7']:
+        k2k7(torch, cs, card)
+        return 0
+    libs = build()
+    args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)
     for name, so in libs.items():
         _build._LIBS['fused_dual'] = ctypes.CDLL(so)  # the wrapper's library
         for dt in ('bfloat16', 'float32'):

@@ -13,14 +13,14 @@
 // It checks indexing, masking and barrier placement, not speed, and it
 // does not model warp-synchronous execution.
 //
-// The PTX wrappers of csrc/fused_klist.cu and csrc/fused_dual.cu
-// (mma_tf32, mma_bf16, cp_async16, cp_async_commit, cp_async_wait<N>;
-// compiled there only without NN_CUDA_EMU) are replaced here: mma.sync
-// m16n8k8 tf32 and m16n8k16 bf16 with the PTX ISA's fragment layouts, each
-// lane depositing its fragments in a per-warp buffer between two warp
-// barriers and computing its four outputs from the whole warp's (fp32 sums
-// over k in order); cp.async as a plain 16-byte copy, its commit and wait
-// as nothing.
+// The PTX wrappers of csrc/fused_klist.cu, csrc/fused_dual.cu and
+// csrc/fused_dense.cu (mma_tf32, mma_bf16, cp_async16, cp_async_commit,
+// cp_async_wait<N>, prefetch_l2; compiled there only without NN_CUDA_EMU)
+// are replaced here: mma.sync m16n8k8 tf32 and m16n8k16 bf16 with the PTX
+// ISA's fragment layouts, each lane depositing its fragments in a per-warp
+// buffer between two warp barriers and computing its four outputs from
+// the whole warp's (fp32 sums over k in order); cp.async as a plain
+// 16-byte copy, its commit and wait as nothing; an L2 prefetch as nothing.
 #pragma once
 #define NN_CUDA_EMU 1
 #include <algorithm>
@@ -94,6 +94,10 @@ struct float2 {
   float x, y;
 };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+inline uint2 make_uint2(unsigned x, unsigned y) { return {x, y}; }
 
 inline float __uint_as_float(unsigned u) {
   float f;
@@ -174,6 +178,7 @@ inline void cp_async16(void* dst, const void* src) {
 inline void cp_async_commit() {}
 template <int N>
 inline void cp_async_wait() {}
+inline void prefetch_l2(const void*) {}
 
 // bf16 as cuda_bf16.h gives it: round to nearest even, NaN kept quiet.
 struct __nv_bfloat16 {

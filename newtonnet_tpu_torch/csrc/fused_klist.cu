@@ -28,9 +28,9 @@
 // reads C+R+4 edge values, far above the H100's fp32 ridge (67 TFLOP/s over
 // 3.35 TB/s = 20 flop/byte); K6 about 3x K5, K7 2x, K8 about 6x.
 //
-// Design of K5-K7: that of K1-K4 (csrc/fused_dense.cu, csrc/fused_dual.cu);
-// K8 keeps its ownership of slots and columns but has its own products
-// (the note above klist_dual_bwd_kernel). One block
+// Design of K5/K6: that of K1 (csrc/fused_dense.cu); K7 and K8 keep its
+// ownership of slots and columns but have their own products (the notes
+// above klist_dual_fwd_kernel and klist_dual_bwd_kernel). One block
 // of 8 warps per (molecule, tile of TI=8 atoms i); the block loops over
 // tiles of TJ list slots (8 for K5/K6, 4 for K7/K8), so a tile holds
 // M = TI*TJ slots; warp w owns the TJ slots of atom i0+w and lane l owns
@@ -44,11 +44,11 @@
 // outputs (gather_nodes' backward sums them onto atoms outside), so no
 // sum crosses blocks except the weight cotangents: each block writes its
 // partials to scratch and a second kernel sums them in a fixed order. No
-// float atomics: a run gives the same bits every time. K5-K7: plain IEEE
-// fp32 FMAs, no tensor cores and no TF32. K8: tensor cores in 3xTF32, at
-// fp32-level accuracy (no 1xTF32 anywhere).
+// float atomics: a run gives the same bits every time. K5/K6: plain IEEE
+// fp32 FMAs, no tensor cores and no TF32. K7/K8: tensor cores in 3xTF32,
+// at fp32-level accuracy (no 1xTF32 anywhere).
 //
-// Shared memory at F=128, R=20: K5 about 92 KB, K6 185 KB, K7 96 KB, K8
+// Shared memory at F=128, R=20: K5 about 92 KB, K6 185 KB, K7 215 KB, K8
 // 215 KB. The host functions return the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
@@ -622,225 +622,6 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
   }
 }
 
-// ------------------------------------------------- dual chain, K7 and K8 --
-// msg and msgdot of the warp's own slots into msg_s / msgdot_s (M x LD),
-// from me (computed first, parked in msgdot_s) and medot; np_j and its
-// tangent are read from cat / catdot. Uses `acc` as scratch. All threads of
-// the block must call it.
-template <int F, int CW, class E>
-__device__ void dual_messages(const float* rbf_s, const float* rbfdot_s,
-                              int R, const float* __restrict__ We,
-                              float* w_s, const float* npi_s,
-                              const float* npidot_s, const E* __restrict__ cat,
-                              const E* __restrict__ catdot, int b, int i,
-                              int k0, int N, int K, const float* mask_s,
-                              float* msg_s, float* msgdot_s,
-                              float (&acc)[TJ_D][F / 32]) {
-  constexpr int TJ = TJ_D;
-  constexpr int C = F / 32;
-  constexpr int LD = F + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me
-#pragma unroll
-  for (int r = 0; r < TJ; ++r) {
-    const int p = warp * TJ + r, k = k0 + r;
-    const bool ok = i < N && k < K;
-    const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
-    const float a = mask_s[p];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
-      const float aj = ok ? ld(cat + at + f) : 0.0f;
-      msg_s[p * LD + f] = acc[r][c] * npi_s[warp * F + f] * aj * a;
-      msgdot_s[p * LD + f] = acc[r][c];
-    }
-  }
-  gemm_rows<F, TJ, false>(rbfdot_s, R, R, We, w_s, acc);  // medot
-#pragma unroll
-  for (int r = 0; r < TJ; ++r) {
-    const int p = warp * TJ + r, k = k0 + r;
-    const bool ok = i < N && k < K;
-    const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
-    const float a = mask_s[p];
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
-      const float ai = npi_s[warp * F + f], aidot = npidot_s[warp * F + f];
-      const float aj = ok ? ld(cat + at + f) : 0.0f;
-      const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
-      const float me = msgdot_s[p * LD + f];
-      msgdot_s[p * LD + f] =
-          (acc[r][c] * ai * aj + me * aidot * aj + me * ai * ajdot) * a;
-    }
-  }
-}
-
-// ------------------------------------------------------------------ K7 --
-template <int F>
-constexpr size_t dual_fwd_smem_floats(int R) {
-  constexpr int M = TI * TJ_D;
-  return (size_t)4 * M * (F + 1) + (size_t)KC * (F + 1) + (size_t)2 * TI * F +
-         (size_t)7 * M + (size_t)2 * M * R;
-}
-
-template <int F, bool FIRST, class E>
-__global__ void __launch_bounds__(kThreads, 2)
-klist_dual_fwd_kernel(const float* __restrict__ npi,
-                      const float* __restrict__ npidot,
-                      const E* __restrict__ cat, const E* __restrict__ catdot,
-                      const E* __restrict__ rbf, const E* __restrict__ rbfdot,
-                      const float* __restrict__ dir,
-                      const float* __restrict__ dirdot,
-                      const float* __restrict__ mask,
-                      const float* __restrict__ We,
-                      const float* __restrict__ W1a,
-                      const float* __restrict__ W1b,
-                      const float* __restrict__ W2a,
-                      const float* __restrict__ W2b, float* __restrict__ inv1,
-                      float* __restrict__ eq, float* __restrict__ inv1dot,
-                      float* __restrict__ eqdot, int N, int K, int R,
-                      int n_itiles) {
-  constexpr int TJ = TJ_D;
-  constexpr int M = TI * TJ;
-  constexpr int C = F / 32;
-  constexpr int LD = F + 1;
-  constexpr int CW = FIRST ? F : 4 * F;
-  extern __shared__ float smem[];
-  float* msg_s = smem;                 // M x LD
-  float* msgdot_s = msg_s + M * LD;    // M x LD
-  float* h_s = msgdot_s + M * LD;      // M x LD
-  float* hdot_s = h_s + M * LD;        // M x LD
-  float* w_s = hdot_s + M * LD;        // KC x LD
-  float* npi_s = w_s + KC * LD;        // TI x F
-  float* npidot_s = npi_s + TI * F;    // TI x F
-  float* mask_s = npidot_s + TI * F;   // M
-  float* dir_s = mask_s + M;           // 3 x M
-  float* dirdot_s = dir_s + 3 * M;     // 3 x M
-  float* rbf_s = dirdot_s + 3 * M;     // M x R
-  float* rbfdot_s = rbf_s + M * R;     // M x R
-
-  const int b = blockIdx.x / n_itiles;
-  const int i0 = (blockIdx.x - b * n_itiles) * TI;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int i = i0 + warp;
-
-  load_rows(npi, b, i0, N, F, npi_s);
-  load_rows(npidot, b, i0, N, F, npidot_s);
-  float inv_acc[C], invdot_acc[C], eq_acc[3][C], eqdot_acc[3][C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    inv_acc[c] = invdot_acc[c] = 0.0f;
-#pragma unroll
-    for (int d = 0; d < 3; ++d) eq_acc[d][c] = eqdot_acc[d][c] = 0.0f;
-  }
-  float acc[TJ][C];
-
-  for (int k0 = 0; k0 < K; k0 += TJ) {
-    __syncthreads();
-    load_slots<TJ, true, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N, K,
-                            R, mask_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
-    dual_messages<F, CW, E>(rbf_s, rbfdot_s, R, We, w_s, npi_s, npidot_s, cat,
-                            catdot, b, i, k0, N, K, mask_s, msg_s, msgdot_s,
-                            acc);
-#pragma unroll
-    for (int r = 0; r < TJ; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int o = (warp * TJ + r) * LD + lane + 32 * c;
-        inv_acc[c] += msg_s[o];
-        invdot_acc[c] += msgdot_s[o];
-      }
-
-#pragma unroll
-    for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
-      const float* Wa = br == 0 ? W1a : W2a;
-      const float* Wb = br == 0 ? W1b : W2b;
-      gemm_rows<F, TJ, false>(msg_s, LD, F, Wa, w_s, acc);  // p
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          h_s[o] = silu_f(acc[r][c]);
-          hdot_s[o] = dsilu_f(acc[r][c]);
-        }
-      gemm_rows<F, TJ, false>(msgdot_s, LD, F, Wa, w_s, acc);  // pdot
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          hdot_s[o] = hdot_s[o] * acc[r][c];
-        }
-      // phi: eq += phi x, eqdot += phi xdot, with (x, xdot) = (dir, dirdot)
-      // in branch 1 and (force_j, forcedot_j) in branch 2
-      gemm_rows<F, TJ, false>(h_s, LD, F, Wb, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const int p = warp * TJ + r, k = k0 + r;
-        const bool ok = i < N && k < K;
-        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
-        const float a = mask_s[p];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          const float phi = acc[r][c] * a;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            float x, xdot;
-            if (br == 0) {
-              x = dir_s[d * M + p];
-              xdot = dirdot_s[d * M + p];
-            } else {
-              x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
-              xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
-            }
-            eq_acc[d][c] += phi * x;
-            eqdot_acc[d][c] += phi * xdot;
-          }
-        }
-      }
-      // phidot: eqdot += phidot x
-      gemm_rows<F, TJ, false>(hdot_s, LD, F, Wb, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const int p = warp * TJ + r, k = k0 + r;
-        const bool ok = i < N && k < K;
-        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
-        const float a = mask_s[p];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          const float phidot = acc[r][c] * a;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float x = br == 0 ? dir_s[d * M + p]
-                                    : (ok ? ld(cat + at + (d + 1) * F + f)
-                                          : 0.0f);
-            eqdot_acc[d][c] += phidot * x;
-          }
-        }
-      }
-    }
-  }
-
-  if (i < N) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
-      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
-      inv1dot[((size_t)b * N + i) * F + f] = invdot_acc[c];
-#pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
-        eqdot[(((size_t)b * 3 + d) * N + i) * F + f] = eqdot_acc[d][c];
-      }
-    }
-  }
-}
-
 // ------------------------------------------------------------------ K8 --
 // K8 is its own design (K5-K7 above keep the CUDA-core one). What bounds
 // it: its products, about 6x K5's flops per slot (272 GFLOP per full
@@ -922,6 +703,10 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+// bring the 128-byte line of device memory at p into L2
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 #endif
 
@@ -1129,7 +914,7 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
   }
 }
 
-// dual_messages on the tensor cores (mma_rows; slot buffers at stride
+// msg and msgdot on the tensor cores (mma_rows; slot buffers at stride
 // K8Shape<F>::LD).
 template <int F, int CW, class E>
 __device__ void dual_messages_tc(const float* rbf_s, const float* rbfdot_s,
@@ -1445,6 +1230,460 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
   }
 }
 
+// ------------------------------------------------------------------ K7 --
+// K7 is its own design too. What bounds it: its products, 2x K5's flops
+// per slot (100 GFLOP per full layer at the box shape B=1, N=4096, K=88,
+// F=128, R=20), above the fp32 ridge. The CUDA-core version fed every FMA
+// from shared memory (4 broadcast A and 4 B loads per 16 FMAs), staged each
+// weight twice per pair of products that share it, and loaded its chunks
+// with no product in flight: 27% of the fp32 peak. K8's tensor-core
+// product re-splits every operand at every use. So:
+//
+// * Paired products on the tensor cores (k7_pair): me/medot share We,
+//   p/pdot share Wa and phi/phidot share Wb, so one pass computes both
+//   members of a pair, 32 x Q @ Q x F each, warp w taking the 16-row half
+//   (w & 1) and F/4 columns: mma.sync m16n8k8 tf32 in 3xTF32 (hi =
+//   tf32(x), lo = tf32(x - hi), lo*hi + hi*lo + hi*hi in fp32; no 1xTF32).
+//   Each chunk's products accumulate in fresh tensor-core registers and are
+//   added to the running sum on the CUDA cores (the tensor cores' fp32
+//   accumulation drops bits against a large addend).
+// * Weights split once per launch: klist_dual_fwd_prep_kernel writes We^T,
+//   W1a^T, W1b^T, W2a^T and W2b^T as (hi, lo) tf32 word pairs, n-major with
+//   the depth contiguous (We^T's depth padded with zeros to a multiple of
+//   32), into the launch's scratch (nn_klist_scratch_floats). Chunks of
+//   KC7 depth steps stream by cp.async through a ring of K7_STAGES slots,
+//   two in flight while one multiplies, and the stream runs across
+//   products: a product stages the first two chunks of the one after it
+//   (the next tile's We after the last), so no product starts on an empty
+//   ring. Ring rows are XOR-swizzled (pair q of row n at q ^ 4(n & 3)), so
+//   that the B fragments' 64-bit loads take the minimum two wavefronts
+//   with no padding. The product loop does no split arithmetic on B.
+// * Activations split once, where they are written: the tile loader stores
+//   rbf and rbfdot, the elementwise chain msg, msgdot, h and hdot, as (hi,
+//   lo) pairs (row stride Q + 4 pairs: the A fragments' 64-bit loads take
+//   two wavefronts too). msg and msgdot feed both branches; every A element
+//   is read by the four column-group warps. The product loop splits
+//   nothing.
+// * Shared memory at F=128, R=20: the ring 48 KB, msg/msgdot 66 KB, h/hdot
+//   66 KB (rbf/rbfdot at a tile's start), the fp32 products 34 KB (me,
+//   then p, then phi, and tangents), npi/npidot 8 KB: 223 KB, one block of
+//   8 warps per SM (the CUDA-core version: 96 KB, two).
+// * The next tile's edge rows (cat, catdot, rbf, rbfdot) are prefetched
+//   into L2 at the start of a tile, so the elementwise chain's reads of
+//   them wait on L2 rather than device memory.
+// * Grid as before: one block per (molecule, 8 atoms), looping over tiles
+//   of TJ_D list slots; sums over k are per-thread register sums, so no sum
+//   crosses blocks and no float atomics: a run gives the same bits every
+//   time.
+// * Code size: k7_pair is out of line (one copy per F), as K8's products.
+// On the card its time splits three ways (PERF.md, dual_breakdown.py
+// k2k7): the elementwise chain and tile loads, the weight stream (each
+// 32-slot tile streams all five weights from L2, 544 KB of pairs at
+// F=128) with the fragment loads, and the mma.
+constexpr int KC7 = 16;       // depth steps of a staged weight chunk in K7
+constexpr int K7_STAGES = 3;  // chunk slots of K7's weight ring
+
+__host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
+
+template <int F>
+struct K7Shape {
+  static constexpr int M = TI * TJ_D;   // slots of a tile
+  static constexpr int LDA = F + 4;     // split slot buffers, in pairs
+  static constexpr int LDP = F + 8;     // fp32 product buffers
+  static constexpr int RING = F * KC7;  // pairs per ring slot
+};
+
+// The prepared weights, in (hi, lo) pairs: block 0 is We^T (F x pad32(R)),
+// blocks 1-4 W1a^T, W1b^T, W2a^T, W2b^T (F x F), each n-major.
+__host__ __device__ inline size_t k7_prep_offset(int F, int R, int block) {
+  return block == 0 ? 0
+                    : (size_t)F * pad32(R) + (size_t)(block - 1) * F * F;
+}
+
+// Row stride (pairs) of the h/hdot buffers, which hold rbf/rbfdot (depth
+// pad32(R)) at the start of a tile.
+__host__ __device__ constexpr int k7_ldh(int F, int R) {
+  return (pad32(R) > F ? pad32(R) : F) + 4;
+}
+
+template <int F>
+constexpr size_t k7_smem_floats(int R) {
+  using S = K7Shape<F>;
+  return 2 * ((size_t)K7_STAGES * S::RING + (size_t)2 * S::M * S::LDA +
+              (size_t)2 * S::M * k7_ldh(F, R)) +
+         (size_t)2 * S::M * S::LDP + (size_t)2 * TI * F + (size_t)7 * S::M;
+}
+
+// x as (tf32 hi, tf32 lo): hi = tf32(x), lo = tf32(x - hi).
+__device__ __forceinline__ uint2 split2(float x) {
+  const unsigned hi = tf32_rna(x);
+  return make_uint2(hi, tf32_rna(x - __uint_as_float(hi)));
+}
+
+__global__ void klist_dual_fwd_prep_kernel(const float* __restrict__ We,
+                                           const float* __restrict__ W1a,
+                                           const float* __restrict__ W1b,
+                                           const float* __restrict__ W2a,
+                                           const float* __restrict__ W2b,
+                                           uint2* __restrict__ out, int F,
+                                           int R) {
+  const int Rp = pad32(R);
+  const size_t n_e = (size_t)F * Rp, total = k7_prep_offset(F, R, 5);
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    float v;
+    if (e < n_e) {
+      const int n = (int)(e / Rp), q = (int)(e % Rp);
+      v = q < R ? We[(size_t)q * F + n] : 0.0f;
+    } else {
+      const size_t e2 = e - n_e, ff = (size_t)F * F;
+      const int k = (int)(e2 / ff), r = (int)(e2 % ff);
+      const float* W = k == 0 ? W1a : k == 1 ? W1b : k == 2 ? W2a : W2b;
+      v = W[(size_t)(r % F) * F + r / F];
+    }
+    out[e] = split2(v);
+  }
+}
+
+// Chunk ch of a prepared weight (F rows of Qp pairs) into a ring slot: per
+// row n the KC7 pairs of depth [ch*KC7, ch*KC7 + KC7), swizzled (pair q at
+// n*KC7 + (q ^ 4(n & 3))), as eight 16-byte cp.async copies.
+template <int F>
+__device__ __forceinline__ void k7_stage(const uint2* __restrict__ Bt, int Qp,
+                                         int ch, uint2* slot) {
+  for (int v = threadIdx.x; v < F * 8; v += kThreads) {
+    const int n = v >> 3, part = v & 7;
+    cp_async16(slot + n * KC7 + ((part * 2) ^ ((n & 3) << 2)),
+               Bt + (size_t)n * Qp + (size_t)ch * KC7 + part * 2);
+  }
+}
+
+// D1[m*LDP + n] = sum_q A1(m, q) B(q, n) and D2 likewise from A2, for the
+// tile's 32 slot rows m and n < F, q < Qp (a multiple of 32), in 3xTF32.
+// A1 and A2 are split slot buffers (row m at A + m*lda, (hi, lo) pairs,
+// zeros past the true depth); Bt is the prepared weight, B(q, n) =
+// Bt[n*Qp + q]. The weight stream: chunk c of this product sits in ring
+// slot (slot0 + c) % K7_STAGES; unless `staged`, chunks 0 and 1 are staged
+// here (else the product before staged them, one commit group each). While
+// it runs, the product stages the first two chunks of the next one (Bn,
+// depth Qn; none if Bn is null) and returns the slot of its chunk 0. Every
+// warp reads every A row after the loop's first barrier, so A may be
+// written just before the call; D is written after the last chunk and must
+// not be A. Ends with a __syncthreads, after which any thread may read D.
+// All threads of the block must call it. Not inlined (code size).
+template <int F>
+__device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
+                                    const uint2* __restrict__ A2, int lda,
+                                    int Qp, const uint2* __restrict__ Bt,
+                                    const uint2* __restrict__ Bn, int Qn,
+                                    int slot0, bool staged, uint2* ring,
+                                    float* __restrict__ D1,
+                                    float* __restrict__ D2) {
+  using S = K7Shape<F>;
+  constexpr int NT = F / 32;  // 16 x 8 tiles per warp and product
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * (F / 4);
+  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
+  const int nch = Qp / KC7;
+  // chunk v of the stream from this product's chunk 0, one commit group
+  auto stage = [&](int v) {
+    uint2* dst = ring + ((slot0 + v) % K7_STAGES) * S::RING;
+    if (v < nch)
+      k7_stage<F>(Bt, Qp, v, dst);
+    else if (Bn != nullptr)
+      k7_stage<F>(Bn, Qn, v - nch, dst);
+    cp_async_commit();
+  };
+  float tot[2][NT][4];
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+      tot[x][j][0] = tot[x][j][1] = tot[x][j][2] = tot[x][j][3] = 0.0f;
+  const uint2* rows[2][2] = {
+      {A1 + (size_t)(m0 + g) * lda, A1 + (size_t)(m0 + g + 8) * lda},
+      {A2 + (size_t)(m0 + g) * lda, A2 + (size_t)(m0 + g + 8) * lda}};
+  if (!staged) {
+    stage(0);
+    stage(1);
+  }
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<1>();
+    __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+    stage(ch + 2);
+    const uint2* wc = ring + ((slot0 + ch) % K7_STAGES) * S::RING;
+    float d[2][NT][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        d[x][j][0] = d[x][j][1] = d[x][j][2] = d[x][j][3] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {  // two k-steps per chunk
+      const int k = ch * KC7 + s * 8 + t;
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const uint2 v0 = rows[x][0][k], v1 = rows[x][1][k];
+        const uint2 v2 = rows[x][0][k + 4], v3 = rows[x][1][k + 4];
+        ah[x][0] = v0.x, ah[x][1] = v1.x, ah[x][2] = v2.x, ah[x][3] = v3.x;
+        al[x][0] = v0.y, al[x][1] = v1.y, al[x][2] = v2.y, al[x][3] = v3.y;
+      }
+      unsigned bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const uint2* w = wc + (n0 + j * 8 + g) * KC7;
+        const uint2 wk = w[(s * 8) ^ o0], wk4 = w[(s * 8) ^ o0 ^ 4];
+        bh[j][0] = wk.x, bh[j][1] = wk4.x, bl[j][0] = wk.y, bl[j][1] = wk4.y;
+      }
+      // lo*hi, hi*lo, hi*hi of every tile in turn: 2 NT independent
+      // accumulators between two dependent products
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) mma_tf32(d[x][j], al[x], bh[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) mma_tf32(d[x][j], ah[x], bl[j]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int x = 0; x < 2; ++x) mma_tf32(d[x][j], ah[x], bh[j]);
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tot[x][j][e] += d[x][j][e];
+  }
+#pragma unroll
+  for (int x = 0; x < 2; ++x) {
+    float* D = x == 0 ? D1 : D2;
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {  // (n, n + 1) as one 8-byte store
+      const int n = n0 + j * 8 + 2 * t;
+      *reinterpret_cast<float2*>(D + (m0 + g) * S::LDP + n) =
+          make_float2(tot[x][j][0], tot[x][j][1]);
+      *reinterpret_cast<float2*>(D + (m0 + g + 8) * S::LDP + n) =
+          make_float2(tot[x][j][2], tot[x][j][3]);
+    }
+  }
+  __syncthreads();
+  return (slot0 + nch) % K7_STAGES;
+}
+
+// The tile's per-slot mask, dir and dirdot (fp32), and rbf, rbfdot split
+// into (hi, lo) pairs at row stride ldh, zeros from R to pad32(R). Slots
+// past N or K read as zero, so they contribute nothing and stay finite.
+template <class E>
+__device__ void k7_load_slots(const float* __restrict__ mask,
+                              const float* __restrict__ dir,
+                              const float* __restrict__ dirdot,
+                              const E* __restrict__ rbf,
+                              const E* __restrict__ rbfdot, int b, int i0,
+                              int k0, int N, int K, int R, int ldh,
+                              float* mask_s, float* dir_s, float* dirdot_s,
+                              uint2* rbf2, uint2* rbfdot2) {
+  constexpr int M = TI * TJ_D;
+  for (int idx = threadIdx.x; idx < 7 * M; idx += kThreads) {
+    const int g = idx / M, p = idx - g * M;  // 0: mask, 1-3: dir, 4-6: dirdot
+    const int i = i0 + p / TJ_D, k = k0 + p % TJ_D;
+    const bool ok = i < N && k < K;
+    if (g == 0)
+      mask_s[p] = ok ? mask[slot_at(b, i, k, N, K)] : 0.0f;
+    else if (g < 4)
+      dir_s[(g - 1) * M + p] =
+          ok ? dir[slot_at(b * 3 + g - 1, i, k, N, K)] : 0.0f;
+    else
+      dirdot_s[(g - 4) * M + p] =
+          ok ? dirdot[slot_at(b * 3 + g - 4, i, k, N, K)] : 0.0f;
+  }
+  const int Rp = pad32(R);
+  for (int idx = threadIdx.x; idx < M * Rp; idx += kThreads) {
+    const int p = idx / Rp, r = idx - p * Rp;
+    const int i = i0 + p / TJ_D, k = k0 + p % TJ_D;
+    const bool ok = i < N && k < K && r < R;
+    const size_t at = slot_at(b, i, k, N, K) * R + r;
+    rbf2[p * ldh + r] = split2(ok ? ld(rbf + at) : 0.0f);
+    rbfdot2[p * ldh + r] = split2(ok ? ld(rbfdot + at) : 0.0f);
+  }
+}
+
+template <int F, bool FIRST, class E>
+__global__ void __launch_bounds__(kThreads, 1)
+klist_dual_fwd_kernel(const float* __restrict__ npi,
+                      const float* __restrict__ npidot,
+                      const E* __restrict__ cat, const E* __restrict__ catdot,
+                      const E* __restrict__ rbf, const E* __restrict__ rbfdot,
+                      const float* __restrict__ dir,
+                      const float* __restrict__ dirdot,
+                      const float* __restrict__ mask,
+                      const uint2* __restrict__ wprep,
+                      float* __restrict__ inv1, float* __restrict__ eq,
+                      float* __restrict__ inv1dot, float* __restrict__ eqdot,
+                      int N, int K, int R, int n_itiles) {
+  using S = K7Shape<F>;
+  constexpr int TJ = TJ_D;
+  constexpr int M = S::M;
+  constexpr int C = F / 32;
+  constexpr int LDA = S::LDA, LDP = S::LDP;
+  constexpr int CW = FIRST ? F : 4 * F;
+  const int ldh = k7_ldh(F, R), Rp = pad32(R);
+  extern __shared__ float smem[];
+  uint2* ring = reinterpret_cast<uint2*>(smem);  // K7_STAGES x RING
+  uint2* msg2 = ring + K7_STAGES * S::RING;  // M x LDA: msg
+  uint2* msgdot2 = msg2 + M * LDA;     // M x LDA: msgdot
+  uint2* h2 = msgdot2 + M * LDA;       // M x ldh: rbf, then h
+  uint2* hdot2 = h2 + M * ldh;         // M x ldh: rbfdot, then hdot
+  float* p_s = reinterpret_cast<float*>(hdot2 + M * ldh);  // M x LDP
+  float* pdot_s = p_s + M * LDP;       // M x LDP
+  float* npi_s = pdot_s + M * LDP;     // TI x F
+  float* npidot_s = npi_s + TI * F;    // TI x F
+  float* mask_s = npidot_s + TI * F;   // M
+  float* dir_s = mask_s + M;           // 3 x M
+  float* dirdot_s = dir_s + 3 * M;     // 3 x M
+
+  const int b = blockIdx.x / n_itiles;
+  const int i0 = (blockIdx.x - b * n_itiles) * TI;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int i = i0 + warp;
+
+  load_rows(npi, b, i0, N, F, npi_s);
+  load_rows(npidot, b, i0, N, F, npidot_s);
+  float inv_acc[C], invdot_acc[C], eq_acc[3][C], eqdot_acc[3][C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    inv_acc[c] = invdot_acc[c] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < 3; ++d) eq_acc[d][c] = eqdot_acc[d][c] = 0.0f;
+  }
+
+  const uint2* W1a = wprep + k7_prep_offset(F, R, 1);
+  int slot = 0;  // the ring slot of the next product's first chunk
+  for (int k0 = 0; k0 < K; k0 += TJ) {
+    const bool last = k0 + TJ >= K;
+    if (!last) {  // the next tile's edge rows into L2
+      const int kn = k0 + TJ, nk = min(TJ, K - kn);
+      const int lines = (nk * CW * (int)sizeof(E) + 127) / 128;
+      const int rlines = (nk * R * (int)sizeof(E) + 127) / 128;
+      for (int v = threadIdx.x; v < TI * (lines + rlines); v += kThreads) {
+        const int il = v / (lines + rlines), l = v - il * (lines + rlines);
+        if (i0 + il >= N) continue;
+        const size_t at = slot_at(b, i0 + il, kn, N, K);
+        if (l < lines) {
+          prefetch_l2(reinterpret_cast<const char*>(cat + at * CW) + l * 128);
+          prefetch_l2(reinterpret_cast<const char*>(catdot + at * CW) +
+                      l * 128);
+        } else {
+          const int lr = (l - lines) * 128;
+          prefetch_l2(reinterpret_cast<const char*>(rbf + at * R) + lr);
+          prefetch_l2(reinterpret_cast<const char*>(rbfdot + at * R) + lr);
+        }
+      }
+    }
+    __syncthreads();  // the last tile's reads of the slot buffers are done
+    k7_load_slots<E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N, K, R, ldh,
+                     mask_s, dir_s, dirdot_s, h2, hdot2);
+    slot = k7_pair<F>(h2, hdot2, ldh, Rp, wprep, W1a, F, slot, k0 > 0, ring,
+                      p_s, pdot_s);  // me, medot
+    // msg and msgdot of the warp's own slots; np_j and its tangent from
+    // cat / catdot
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r, k = k0 + r;
+      const bool ok = i < N && k < K;
+      const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+      const float a = mask_s[p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        const float ai = npi_s[warp * F + f], aidot = npidot_s[warp * F + f];
+        const float aj = ok ? ld(cat + at + f) : 0.0f;
+        const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+        const float me = p_s[p * LDP + f], medot = pdot_s[p * LDP + f];
+        const float msg = me * ai * aj * a;
+        const float msgdot = (medot * ai * aj + me * aidot * aj +
+                              me * ai * ajdot) * a;
+        inv_acc[c] += msg;
+        invdot_acc[c] += msgdot;
+        msg2[p * LDA + f] = split2(msg);
+        msgdot2[p * LDA + f] = split2(msgdot);
+      }
+    }
+
+#pragma unroll 1  // one copy of the branch body: code size
+    for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
+      const uint2* Wa = wprep + k7_prep_offset(F, R, 1 + 2 * br);
+      const uint2* Wb = wprep + k7_prep_offset(F, R, 2 + 2 * br);
+      // after phi: the second branch's Wa, or the next tile's We
+      const bool last_br = FIRST || br == 1;
+      const uint2* Wn = !last_br ? wprep + k7_prep_offset(F, R, 3)
+                        : last   ? nullptr
+                                 : wprep;
+      slot = k7_pair<F>(msg2, msgdot2, LDA, F, Wa, Wb, F, slot, true, ring,
+                        p_s, pdot_s);  // p, pdot
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int p = warp * TJ + r, f = lane + 32 * c;
+          const float pv = p_s[p * LDP + f], sg = sigmoid_f(pv);
+          h2[p * ldh + f] = split2(pv * sg);  // silu, silu' as silu_f, dsilu_f
+          hdot2[p * ldh + f] =
+              split2(sg * (1.0f + pv * (1.0f - sg)) * pdot_s[p * LDP + f]);
+        }
+      slot = k7_pair<F>(h2, hdot2, ldh, F, Wb, Wn, last_br ? Rp : F, slot,
+                        true, ring, p_s, pdot_s);  // phi, phidot
+      // eq += phi x, eqdot += phi xdot + phidot x, with (x, xdot) = (dir,
+      // dirdot) in branch 1 and (force_j, forcedot_j) in branch 2
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r, k = k0 + r;
+        const bool ok = i < N && k < K;
+        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+        const float a = mask_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c;
+          const float phi = p_s[p * LDP + f] * a;
+          const float phidot = pdot_s[p * LDP + f] * a;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            float x, xdot;
+            if (br == 0) {
+              x = dir_s[d * M + p];
+              xdot = dirdot_s[d * M + p];
+            } else {
+              x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
+              xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
+            }
+            eq_acc[d][c] += phi * x;
+            eqdot_acc[d][c] += phi * xdot + phidot * x;
+          }
+        }
+      }
+    }
+  }
+
+  if (i < N) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int f = lane + 32 * c;
+      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
+      inv1dot[((size_t)b * N + i) * F + f] = invdot_acc[c];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
+        eqdot[(((size_t)b * 3 + d) * N + i) * F + f] = eqdot_acc[d][c];
+      }
+    }
+  }
+}
+
 // out[e] = sum_blk part[blk, e] for e < n_valid; 0 for the rest (the
 // first layer's W2a/W2b). Fixed summation order.
 __global__ void klist_wsum_kernel(float* __restrict__ out,
@@ -1559,34 +1798,30 @@ cudaError_t launch_bwd(const Args& a) {
 
 template <int F, bool FIRST, class E>
 cudaError_t launch_dual_fwd(const Args& a) {
-  const size_t smem = dual_fwd_smem_floats<F>(a.R) * sizeof(float);
+  const size_t smem = k7_smem_floats<F>(a.R) * sizeof(float);
   auto kern = klist_dual_fwd_kernel<F, FIRST, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_itiles = (a.N + TI - 1) / TI;
-  const float* npi = cin<float>(a, 0);
-  const float* npidot = cin<float>(a, 1);
+  const float* W[5];
+  for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 9 + k);
+  uint2* wprep = cout_<uint2>(a, 4);  // the launch's scratch
+  const size_t want = (k7_prep_offset(F, a.R, 5) + 255) / 256;
+  klist_dual_fwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
+                               a.stream>>>(W[0], W[1], W[2], W[3], W[4],
+                                           wprep, F, a.R);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const E* cat = cin<E>(a, 2);
   const E* catdot = cin<E>(a, 3);
   const E* rbf = cin<E>(a, 4);
   const E* rbfdot = cin<E>(a, 5);
-  const float* dir = cin<float>(a, 6);
-  const float* dirdot = cin<float>(a, 7);
-  const float* mask = cin<float>(a, 8);
-  const float* We = cin<float>(a, 9);
-  const float* W1a = cin<float>(a, 10);
-  const float* W1b = cin<float>(a, 11);
-  const float* W2a = cin<float>(a, 12);
-  const float* W2b = cin<float>(a, 13);
-  float* inv1 = cout_<float>(a, 0);
-  float* eq = cout_<float>(a, 1);
-  float* inv1dot = cout_<float>(a, 2);
-  float* eqdot = cout_<float>(a, 3);
-  const int N = a.N, K = a.K, R = a.R;
   kern<<<a.B * n_itiles, kThreads, smem, a.stream>>>(
-      npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We, W1a, W1b,
-      W2a, W2b, inv1, eq, inv1dot, eqdot, N, K, R, n_itiles);
+      cin<float>(a, 0), cin<float>(a, 1), cat, catdot, rbf, rbfdot,
+      cin<float>(a, 6), cin<float>(a, 7), cin<float>(a, 8), wprep,
+      cout_<float>(a, 0), cout_<float>(a, 1), cout_<float>(a, 2),
+      cout_<float>(a, 3), a.N, a.K, a.R, n_itiles);
   return cudaGetLastError();
 }
 
@@ -1715,18 +1950,20 @@ int nn_klist_bwd(const float* npi, const void* cat, const void* rbf,
 
 // K7. npi, npidot (B,N,F) f32; cat, catdot (B,N,K,C) and rbf, rbfdot
 // (B,N,K,R) in the edge type; dir, dirdot (B,3,N,K), mask (B,N,K) f32;
-// We, W* f32 -> inv1, inv1dot (B,N,F), eq, eqdot (B,3,N,F) f32.
+// We, W* f32 -> inv1, inv1dot (B,N,F), eq, eqdot (B,3,N,F) f32. Scratch:
+// 16-byte aligned, nn_klist_scratch_floats(F, R, 2) floats (the weights
+// split into tf32 pairs).
 int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
                       const void* catdot, const void* rbf, const void* rbfdot,
                       const float* dir, const float* dirdot,
                       const float* mask, const float* We, const float* W1a,
                       const float* W1b, const float* W2a, const float* W2b,
                       float* inv1, float* eq, float* inv1dot, float* eqdot,
-                      int B, int N, int K, int F, int R, int first_layer,
-                      int bf16, void* stream) {
+                      float* scratch, int B, int N, int K, int F, int R,
+                      int first_layer, int bf16, void* stream) {
   Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
              W1a, W1b, W2a, W2b},
-            {inv1, eq, inv1dot, eqdot},
+            {inv1, eq, inv1dot, eqdot, scratch},
             B, N, K, R, false, static_cast<cudaStream_t>(stream)};
   return run<DualFwd>(F, first_layer, bf16, a);
 }
@@ -1761,7 +1998,7 @@ size_t nn_klist_smem_bytes(int F, int R, int kind) {
 #define NN_SMEM(FF)                                                      \
   return (kind == 0   ? fwd_smem_floats<FF>(R)                           \
           : kind == 1 ? bwd_smem_floats<FF>(R)                           \
-          : kind == 2 ? dual_fwd_smem_floats<FF>(R)                      \
+          : kind == 2 ? k7_smem_floats<FF>(R)                            \
                       : dual_bwd_smem_floats<FF>(R)) * sizeof(float)
   switch (F) {
     case 32: NN_SMEM(32);
@@ -1770,6 +2007,13 @@ size_t nn_klist_smem_bytes(int F, int R, int kind) {
     default: return 0;
   }
 #undef NN_SMEM
+}
+
+// Scratch of one launch of K5 (kind 0), K6 (1), K7 (2) or K8 (3), in
+// floats, beyond the weight partials that K6 and K8 take as an argument:
+// K7's weights split into tf32 pairs; 0 for the others.
+size_t nn_klist_scratch_floats(int F, int R, int kind) {
+  return kind == 2 ? 2 * k7_prep_offset(F, R, 5) : 0;
 }
 
 }  // extern "C"

@@ -13,9 +13,10 @@ atoms, F features and R radial basis functions:
 
 `first_layer=True` drops phi2: the stack's first layer sees force == 0.
 
-On the card the forward runs `csrc/fused_dense.cu:nn_pair_fwd` (K1) and
-the backward `nn_pair_bwd` (K2), both fp32; on the CPU the wrappers run
-the plain versions below. A CUDA tensor either launches the kernel or
+On the card the forward runs `csrc/fused_dense.cu:nn_pair_fwd` (K1, IEEE
+fp32 FMAs) and the backward `nn_pair_bwd` (K2, tensor cores in 3xTF32:
+each operand split in a TF32 high and low part, three products summed in
+fp32); on the CPU the wrappers run the plain versions below. A CUDA tensor either launches the kernel or
 raises: nothing falls back.
 '''
 import ctypes
@@ -28,7 +29,6 @@ LAUNCHES = {'pair_fwd': 0, 'pair_fwd_first': 0,
 # K2 launches among those that computed the weight cotangents
 WEIGHT_GRAD_LAUNCHES = {'pair_bwd': 0, 'pair_bwd_first': 0}
 KERNEL_WIDTHS = (32, 64, 128)  # the F the CUDA kernels are built for
-_TI = 8  # rows i per block in the kernels (csrc/fused_dense.cu: TI)
 
 
 def reset_launch_counts():
@@ -122,8 +122,10 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_pair_fwd.argtypes = [p] * 12 + [i] * 5 + [p]
         lib.nn_pair_fwd.restype = i
-        lib.nn_pair_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
+        lib.nn_pair_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
         lib.nn_pair_bwd.restype = i
+        lib.nn_pair_scratch_floats.argtypes = [i] * 5
+        lib.nn_pair_scratch_floats.restype = ctypes.c_size_t
         lib._nn_typed = True
     return lib
 
@@ -201,24 +203,21 @@ def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     B, N, F, R, shapes = _shapes(np_, rbf)
     _check_cuda(list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq))),
                 shapes + [(B, N, F), (B, 3, N, F)])
-    n_it = (N + _TI - 1) // _TI
     opts = dict(device=np_.device, dtype=torch.float32)
     dnp = torch.empty((B, N, F), **opts)
     drbf = torch.empty((B, N, N, R), **opts)
     ddir = torch.empty((B, 3, N, N), **opts)
     dforce = torch.empty((B, 3, N, F), **opts)
-    col_np = torch.empty((B, n_it, N, F), **opts)
-    col_force = torch.empty((B, n_it, 3, N, F), **opts)
-    n_w = R * F + 4 * F * F
-    wpart = (torch.empty((B * n_it, n_w), **opts) if weight_grads
-             else None)
-    dw = torch.empty((n_w,), **opts) if weight_grads else None
+    dw = (torch.empty((R * F + 4 * F * F,), **opts) if weight_grads
+          else None)
     lib = _lib()
+    # the weights split into tf32 pairs, the cross-block partials and, with
+    # weight cotangents, one partial per block
+    scratch = torch.empty(
+        (lib.nn_pair_scratch_floats(B, N, F, R, int(weight_grads)),), **opts)
     err = lib.nn_pair_bwd(
-        *[t.data_ptr() for t in ins + (dinv1, deq, dnp, drbf, ddir, dforce,
-                                       col_np, col_force)],
-        wpart.data_ptr() if weight_grads else None,
-        dw.data_ptr() if weight_grads else None,
+        *[t.data_ptr() for t in ins + (dinv1, deq, dnp, drbf, ddir, dforce)],
+        dw.data_ptr() if weight_grads else None, scratch.data_ptr(),
         B, N, F, R, int(first_layer), int(weight_grads),
         torch.cuda.current_stream(np_.device).cuda_stream)
     _raise_on(err, 'nn_pair_bwd')

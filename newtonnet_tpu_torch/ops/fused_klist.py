@@ -30,9 +30,9 @@ float32 only.
 
 On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
 nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
-the CPU the wrappers run the plain versions below. K5-K7 use plain fp32
-FMAs; K8 multiplies on the tensor cores in 3xTF32 (each operand split in
-a TF32 high and low part, three products summed in fp32), which keeps
+the CPU the wrappers run the plain versions below. K5/K6 use plain fp32
+FMAs; K7 and K8 multiply on the tensor cores in 3xTF32 (each operand split
+in a TF32 high and low part, three products summed in fp32), which keeps
 fp32-level accuracy. A CUDA tensor either launches the kernel or raises:
 nothing falls back.
 '''
@@ -267,13 +267,14 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
         lib.nn_klist_bwd.argtypes = [p] * 18 + [i] * 8 + [p]
-        lib.nn_klist_dual_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
+        lib.nn_klist_dual_fwd.argtypes = [p] * 19 + [i] * 7 + [p]
         lib.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
         for fn in (lib.nn_klist_fwd, lib.nn_klist_bwd, lib.nn_klist_dual_fwd,
                    lib.nn_klist_dual_bwd):
             fn.restype = i
-        lib.nn_klist_smem_bytes.argtypes = [i] * 3
-        lib.nn_klist_smem_bytes.restype = ctypes.c_size_t
+        for fn in (lib.nn_klist_smem_bytes, lib.nn_klist_scratch_floats):
+            fn.argtypes = [i] * 3
+            fn.restype = ctypes.c_size_t
         lib._nn_typed = True
     return lib
 
@@ -409,9 +410,12 @@ def klist_dual_fwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts),
             torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
-    err = _lib().nn_klist_dual_fwd(*[t.data_ptr() for t in ins + outs], B, N,
-                                   K, F, R, int(first_layer), bf,
-                                   _stream(npi))
+    lib = _lib()
+    # the weights split into tf32 (hi, lo) pairs, once per launch
+    scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 2),), **opts)
+    err = lib.nn_klist_dual_fwd(*[t.data_ptr() for t in ins + outs],
+                                scratch.data_ptr(), B, N, K, F, R,
+                                int(first_layer), bf, _stream(npi))
     _raise_on(err, 'nn_klist_dual_fwd')
     LAUNCHES[_key('klist_dual_fwd', first_layer)] += 1
     return outs

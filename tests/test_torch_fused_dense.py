@@ -145,3 +145,27 @@ def test_kernels_match_plain_on_cuda():
                     continue
                 bar = 1e-4 * r.abs().max().item()
                 assert (g - r).abs().max().item() <= bar
+
+
+@pytest.mark.cuda
+def test_backward_kernel_repeats_its_bits_on_cuda():
+    '''Three K2 launches on one input give equal bits, both variants, with
+    and without weight cotangents: every sum across blocks (the row and
+    column partials of dnp and dforce, the weight partials) is taken in a
+    fixed order, with no float atomics. B=5, N=21: 15 i-tiles and 30
+    j-tiles of partials.'''
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    ins, dinv1, deq = _inputs(5, 21, 128, 20, seed=11)
+    args = [t.cuda() for t in _torch(ins + [dinv1, deq])]
+    for first in (False, True):
+        for wg in (False, True):
+            runs = [fd.pair_interaction_bwd(*args, first_layer=first,
+                                            weight_grads=wg)
+                    for _ in range(3)]
+            torch.cuda.synchronize()
+            for run in runs[1:]:
+                for a, b in zip(runs[0], run):
+                    assert (a is None) == (b is None)
+                    if a is not None:
+                        assert torch.equal(a, b)

@@ -259,3 +259,28 @@ def test_kernels_match_plain_on_cuda():
             scale = b.float().abs().max().item()
             bar = BF16_BAR if (bf16 and a.dtype == torch.bfloat16) else 1e-4
             assert (a.float() - b.float()).abs().max().item() <= bar * scale
+
+
+@pytest.mark.cuda
+def test_dual_forward_kernel_repeats_its_bits_on_cuda():
+    '''Three K7 launches on one input give equal bits, both variants, fp32
+    and bf16 edges: its sums over the list stay inside a block, in a fixed
+    order, and its products are deterministic.'''
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    for first in (False, True):
+        for bf16 in (False, True):
+            ins, ws, tans, _ = _inputs(13, first, seed=5, F=128, R=20, N=37)
+            edge = lambda a, e: _torch(a, bf16 and e).cuda()  # noqa: E731
+            args = [edge(ins[0], False), edge(tans[0], False),
+                    edge(ins[1], True), edge(tans[1], True),
+                    edge(ins[2], True), edge(tans[2], True),
+                    edge(ins[3], False), edge(tans[3], False),
+                    edge(ins[4], False)]
+            tw = [torch.from_numpy(w).cuda() for w in ws]
+            runs = [fk.klist_dual_fwd(*args, *tw, first_layer=first)
+                    for _ in range(3)]
+            torch.cuda.synchronize()
+            for run in runs[1:]:
+                for a, b in zip(runs[0], run):
+                    assert torch.equal(a, b)

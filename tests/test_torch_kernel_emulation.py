@@ -75,8 +75,10 @@ def lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     handle.nn_pair_fwd.argtypes = [p] * 12 + [i] * 5 + [p]
     handle.nn_pair_fwd.restype = i
-    handle.nn_pair_bwd.argtypes = [p] * 20 + [i] * 6 + [p]
+    handle.nn_pair_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
     handle.nn_pair_bwd.restype = i
+    handle.nn_pair_scratch_floats.argtypes = [i] * 5
+    handle.nn_pair_scratch_floats.restype = ctypes.c_size_t
     return handle
 
 
@@ -102,29 +104,26 @@ def _ptrs(ts):
     return [t.data_ptr() for t in ts]
 
 
-@pytest.mark.parametrize('first_layer', [False, True])
-@pytest.mark.parametrize('shape', [(2, 10, 32, 8), (1, 17, 64, 16),
-                                   (1, 21, 128, 20)])
-def test_emulated_kernels_match_plain(lib, shape, first_layer):
-    '''Ragged atom counts (10, 17, 21 are no multiple of the 8-row tiles),
-    every width the kernels are built for, weight cotangents on and off.'''
-    B, N, F, R = shape
-    ins, dinv1, deq = _inputs(B, N, F, R, seed=N)
+def _run_pair(handle, ins, dinv1, deq, first_layer):
+    '''(kernel, plain) output pairs of K1 and of K2 with and without weight
+    cotangents, emulated, NaN-initialised, with K2's scratch (NaN too) of
+    the size the source gives.'''
+    B, N, F = ins[0].shape
+    R = ins[1].shape[-1]
     inv1, eq = _nan(B, N, F), _nan(B, 3, N, F)
-    assert lib.nn_pair_fwd(*_ptrs(ins + [inv1, eq]), B, N, F, R,
-                           int(first_layer), None) == 0
+    assert handle.nn_pair_fwd(*_ptrs(ins + [inv1, eq]), B, N, F, R,
+                              int(first_layer), None) == 0
     pairs = list(zip((inv1, eq), fd.pair_interaction_fwd_ref(
         *ins, first_layer=first_layer)))
-    n_it = (N + 7) // 8
     n_w = R * F + 4 * F * F
     for wg in (True, False):
         outs = [_nan(B, N, F), _nan(B, N, N, R), _nan(B, 3, N, N),
                 _nan(B, 3, N, F)]
-        scratch = [_nan(B, n_it, N, F), _nan(B, n_it, 3, N, F)]
-        wpart, dw = _nan(B * n_it, n_w), _nan(n_w)
-        assert lib.nn_pair_bwd(
-            *_ptrs(ins + [dinv1, deq] + outs + scratch),
-            wpart.data_ptr() if wg else None, dw.data_ptr() if wg else None,
+        dw = _nan(n_w)
+        scratch = _nan(handle.nn_pair_scratch_floats(B, N, F, R, int(wg)))
+        assert handle.nn_pair_bwd(
+            *_ptrs(ins + [dinv1, deq] + outs),
+            dw.data_ptr() if wg else None, scratch.data_ptr(),
             B, N, F, R, int(first_layer), int(wg), None) == 0
         if wg:
             outs += [v.view(s) for v, s in zip(
@@ -133,6 +132,20 @@ def test_emulated_kernels_match_plain(lib, shape, first_layer):
                                           first_layer=first_layer,
                                           weight_grads=wg)
         pairs += list(zip(outs, ref))
+    return pairs
+
+
+@pytest.mark.parametrize('first_layer', [False, True])
+@pytest.mark.parametrize('shape', [(2, 10, 32, 8), (1, 17, 64, 16),
+                                   (1, 21, 128, 20), (3, 13, 32, 12)])
+def test_emulated_kernels_match_plain(lib, shape, first_layer):
+    '''Ragged atom counts (10, 13, 17, 21 are no multiple of K1's 8-row
+    tiles, nor of K2's 8-row and 4-column ones), every width the kernels
+    are built for, weight cotangents on and off; three molecules with
+    R=12 (a radial depth padded to 32 in K2's products).'''
+    B, N, F, R = shape
+    ins, dinv1, deq = _inputs(B, N, F, R, seed=N)
+    pairs = _run_pair(lib, ins, dinv1, deq, first_layer)
     for k, (got, want) in enumerate(pairs):
         assert torch.isfinite(got).all(), k
         err = (got - want).abs().max().item()
@@ -261,11 +274,13 @@ def _klist_handle(handle):
     p, i = ctypes.c_void_p, ctypes.c_int
     handle.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
     handle.nn_klist_bwd.argtypes = [p] * 18 + [i] * 8 + [p]
-    handle.nn_klist_dual_fwd.argtypes = [p] * 18 + [i] * 7 + [p]
+    handle.nn_klist_dual_fwd.argtypes = [p] * 19 + [i] * 7 + [p]
     handle.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
     for fn in (handle.nn_klist_fwd, handle.nn_klist_bwd,
                handle.nn_klist_dual_fwd, handle.nn_klist_dual_bwd):
         fn.restype = i
+    handle.nn_klist_scratch_floats.argtypes = [i] * 3
+    handle.nn_klist_scratch_floats.restype = ctypes.c_size_t
     return handle
 
 
@@ -334,8 +349,9 @@ def _run_klist(handle, ins, tans, cots, first_layer, bf16, max_blocks=3):
     args = [ins[0], tans[0], ins[1], tans[1], ins[2], tans[2], ins[3],
             tans[3], ins[4]] + ins[5:]
     dfwd = [_nan(B, N, F), _nan(B, 3, N, F), _nan(B, N, F), _nan(B, 3, N, F)]
-    assert handle.nn_klist_dual_fwd(*_ptrs(args + dfwd), B, N, K, F, R, fl,
-                                    bf, None) == 0
+    scratch = _nan(handle.nn_klist_scratch_floats(F, R, 2))
+    assert handle.nn_klist_dual_fwd(*_ptrs(args + dfwd + [scratch]), B, N, K,
+                                    F, R, fl, bf, None) == 0
     got += dfwd
     want += fk.klist_dual_fwd_ref(*args, first_layer=first_layer)
     dbwd = [_nan(B, N, F), _nan(B, N, F), nan_like(ins[1]), nan_like(tans[1])]
@@ -447,6 +463,42 @@ def test_emulation_catches_a_tensor_core_fragment_fault(tmp_path):
     worst = max((g - w).abs().max().item() / w.abs().max().item()
                 for g, w in zip(got[-9:], want[-9:]))
     assert worst > BAR
+
+
+def test_emulation_catches_a_k2_fragment_fault(tmp_path):
+    '''A mutant of fused_dense.cu whose K2 products read the second B
+    fragment word of an m16n8k8 tile from the wrong depth (k + 3 for k + 4,
+    a fragment index of the PTX layout) fails the comparison of K2 with its
+    plain version that the source passes.'''
+    src = _source('fused_dense')
+    good = 'const uint2 b0 = w[0], b1 = w[4];'
+    assert src.count(good) == 1
+    mutant = _compile(tmp_path, 'fused_dense_mutant',
+                      src.replace(good, 'const uint2 b0 = w[0], b1 = w[3];'))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    mutant.nn_pair_fwd.argtypes = [p] * 12 + [i] * 5 + [p]
+    mutant.nn_pair_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
+    mutant.nn_pair_scratch_floats.argtypes = [i] * 5
+    mutant.nn_pair_scratch_floats.restype = ctypes.c_size_t
+    ins, dinv1, deq = _inputs(1, 10, 32, 8, seed=4)
+    pairs = _run_pair(mutant, ins, dinv1, deq, False)[2:]  # K2's outputs
+    assert _worst([g for g, _ in pairs], [w for _, w in pairs]) > BAR
+
+
+def test_emulation_catches_a_k7_fragment_fault(tmp_path):
+    '''A mutant of fused_klist.cu whose K7 products read the second B
+    fragment word of an m16n8k8 tile from the wrong depth of the swizzled
+    ring row (k + 5 for k + 4) fails the comparison of K7 with its plain
+    version that the source passes.'''
+    src = _source('fused_klist')
+    good = 'wk4 = w[(s * 8) ^ o0 ^ 4];'
+    assert src.count(good) == 1
+    mutant = _klist_handle(_compile(
+        tmp_path, 'fused_klist_k7_mutant',
+        src.replace(good, 'wk4 = w[(s * 8) ^ o0 ^ 5];')))
+    ins, tans, cots = _klist_inputs(1, 9, 6, 32, 8, False, False, seed=15)
+    got, want = _run_klist(mutant, ins, tans, cots, False, False)
+    assert _worst(got[15:19], want[15:19]) > BAR  # inv1, eq, inv1dot, eqdot
 
 
 @pytest.fixture(scope='module')
