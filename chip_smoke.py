@@ -15,8 +15,9 @@ with a non-zero exit code and no result line):
             calculator request (B=1, N=24), at (B=2, N=70, F=64, R=16) and
             ragged at (B=3, N=37, F=32, R=12), with and without weight
             cotangents; bar: max|kernel - plain| <= 1e-4 * max|plain| per
-            output (K2 on the tensor cores in 3xTF32 holds the same bar);
-            three K2 launches at the serving shape give equal bits.
+            output (K1 and K2 on the tensor cores in 3xTF32 hold the same
+            bar); three K2 launches and three K1 launches at the serving
+            shape give equal bits.
    dual     K3/K4 against theirs at the training shape (B=10, N=24, F=128,
             R=20), at one molecule (B=1, N=24), at (B=2, N=70, F=64,
             R=16) and ragged at (B=3, N=37, F=32, R=12), both variants;
@@ -29,9 +30,10 @@ with a non-zero exit code and no result line):
             F=128, R=20, bf16 edges), at (B=100, N=21, K=20) and at (B=2,
             N=70, K=37, F=64, R=16) in fp32, and ragged at (B=3, N=61,
             K=39, F=32, R=12) in bf16; bar 1e-4 of each output's largest
-            magnitude, plus one bf16 ulp for bf16-stored outputs (K7 and
-            K8 on the tensor cores in 3xTF32 hold the same bar); three K7
-            launches at the box shape give equal bits.
+            magnitude, plus one bf16 ulp for bf16-stored outputs (K6, K7
+            and K8 on the tensor cores in 3xTF32 hold the same bar); three
+            K7 launches and three K6 launches (with and without weight
+            cotangents) at the box shape give equal bits.
 3e. gather  K9 (row_gather) against the plain row gather, bitwise, at the
             box's inv_gather shapes (bf16, fp32; 4F, F and positions), its
             scatter-chunk shape, the aspirin shapes and odd widths; K12
@@ -108,13 +110,14 @@ with a non-zero exit code and no result line):
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
-            shape (fp32 bound; K2 also its 3xTF32 tensor-core bound, and
-            its time, device time and launches at the training shape
+            shape (fp32 bound and 3xTF32 tensor-core bound, and their
+            time, device time, bounds and launches at the training shape
             B=10, N=24), K3/K4 at the training shape in bf16 mode
             (the training path's; bf16 tensor-core bound) and in fp32 mode
             (fp32 bound, and the 3xTF32 tensor-core bound);
-            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work; K7
-            and K8 also their 3xTF32 tensor-core bound);
+            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work; K6,
+            K7 and K8 also their 3xTF32 tensor-core bound; K5 and K6 their
+            launches in the list-mode training epoch);
             K9 (box inv_gather and scatter-chunk shapes), K12, K10 and K11
             with one PyTorch call's time beside them (index_select,
             index_add_), bound by bytes.
@@ -526,6 +529,15 @@ def phase_kernels(torch, fd):
                 for a, b in zip(runs[0], r) if a is not None)
     emit('pair_bwd_repeats_its_bits', shape=shapes[0], **same)
     check(all(same.values()), f'three K2 launches differ in their bits: {same}')
+    # and three K1 launches (its row sums over column tiles, fixed order)
+    same = {}
+    for first in (False, True):
+        runs = [fd.pair_interaction_fwd(*ins, first_layer=first)
+                for _ in range(3)]
+        same[f'first={int(first)}'] = all(
+            exact(torch, a, b) for r in runs[1:] for a, b in zip(runs[0], r))
+    emit('pair_fwd_repeats_its_bits', shape=shapes[0], **same)
+    check(all(same.values()), f'three K1 launches differ in their bits: {same}')
     return errs
 
 
@@ -967,6 +979,25 @@ def phase_klist_kernels(torch, fk):
     emit('klist_dual_fwd_repeats_its_bits', shape=dict(B=B, N=N, K=K, F=F,
                                                        R=R), **same)
     check(all(same.values()), f'three K7 launches differ in their bits: {same}')
+    # and three K6 launches, with and without weight cotangents (its weight
+    # partials are summed in a fixed order)
+    same = {}
+    for first in (False, True):
+        ins, tans, cots = klist_inputs(torch, B, N, K, F, R, first, edt,
+                                       seed=20)
+        calls = klist_calls(fk, ins, tans, cots, first)
+        for wg in (0, 1):
+            fn, a, kw = calls[f'klist_bwd(wg={wg})']
+            runs = [fn(*a, first_layer=first, **kw) for _ in range(3)]
+            same[f'first={int(first)} wg={wg}'] = all(
+                exact(torch, x, y) for r in runs[1:]
+                for x, y in zip(runs[0], r) if x is not None)
+            del runs
+        del ins, tans, cots, calls
+        torch.cuda.empty_cache()
+    emit('klist_bwd_repeats_its_bits', shape=dict(B=B, N=N, K=K, F=F, R=R),
+         **same)
+    check(all(same.values()), f'three K6 launches differ in their bits: {same}')
     return errs
 
 
@@ -1353,10 +1384,11 @@ def phase_train_nlist_epoch(torch, fk, fd, fdd):
     return launches
 
 
-def klist_timing(torch, fk, errs, launches):
+def klist_timing(torch, fk, errs, launches, train_launches):
     """Each K5-K8 variant at the box shape (bf16 edges), the force pass's K6
     (no weight cotangents): CUDA-event times, the plain versions', and the
-    bound from klist_work. -> the `kernels` rows."""
+    bound from klist_work; K5/K6 rows also give their launches in the
+    list-mode training epoch. -> the `kernels` rows."""
     B, N, K, F, R = 1, BOX_ATOMS, BOX_K_MAX, 128, 20
     rows = []
     for first in (False, True):
@@ -1388,10 +1420,11 @@ def klist_timing(torch, fk, errs, launches):
                 'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
                 'library_ms': None, 'flops': flops, 'bytes': nbytes,
                 'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
-            if kind in ('klist_dual_fwd', 'klist_dual_bwd'):
-                # three tf32 products per fp32 one
+            if kind != 'klist_fwd':  # three tf32 products per fp32 one
                 rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops \
                     / PEAK_TF32_FLOPS
+            if kind in ('klist_fwd', 'klist_bwd'):
+                rows[-1]['train_launches'] = train_launches[name]
         del ins, tans, cots, calls, refs
         torch.cuda.empty_cache()
     rows.sort(key=lambda r: KLIST_NAMES.index(r['name']))
@@ -2185,35 +2218,37 @@ def main():
             'library_ms': None,
             'flops': flops, 'bytes': nbytes,
             'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
-        if kind == 'bwd':  # K2: three tf32 products per fp32 one
-            rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops / PEAK_TF32_FLOPS
-    # K2 at the training shape, where the dense epoch launches it (phase
-    # 7c: 2 full-layer and 1 first-layer launch per step): the wrapper's
-    # event time, the kernels' own device time and the epoch's launches
+        # K1 and K2: three tf32 products per fp32 one
+        rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops / PEAK_TF32_FLOPS
+    # K1 and K2 at the training shape, where the dense epoch launches them
+    # (phase 7c): the wrapper's event time, the kernels' own device time
+    # and the epoch's launches
     Bt, Nt = 10, 24
     ins_t, dinv1_t, deq_t = random_inputs(torch, Bt, Nt, F, R, seed=0)
     for row in rows:
-        if not row['name'].startswith('pair_bwd'):
-            continue
         first = row['name'].endswith('first')
+        kind = 'fwd' if row['name'].startswith('pair_fwd') else 'bwd'
 
-        def run_t(first=first):
+        def run_t(first=first, kind=kind):
+            if kind == 'fwd':
+                return fd.pair_interaction_fwd(*ins_t, first_layer=first)
             return fd.pair_interaction_bwd(*ins_t, dinv1_t, deq_t,
                                            first_layer=first,
                                            weight_grads=False)
-        flops, nbytes = layer_work(Bt, Nt, F, R, 'bwd', first)
+        flops, nbytes = layer_work(Bt, Nt, F, R, kind, first)
         row['train_shape'] = dict(B=Bt, N=Nt, F=F, R=R)
         row['train_ms'] = time_ms(torch, run_t)
         row['train_device_ms'] = device_ms(torch, run_t)
         row['train_bound_ms'] = 1e3 * max(flops / PEAK_FP32_FLOPS,
                                           nbytes / PEAK_BYTES_PER_S)
+        row['train_tc_3xtf32_bound_ms'] = 1e3 * 3 * flops / PEAK_TF32_FLOPS
         row['train_launches'] = train_launches[row['name']]
     emit('timing', shape=dict(B=B, N=N, F=F, R=R), weight_grads=False,
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12,
          peak_tb_per_s=PEAK_BYTES_PER_S / 1e12,
-         k2_training_shape={r['name']: {k: r[k] for k in (
+         training_shape={r['name']: {k: r[k] for k in (
              'train_ms', 'train_device_ms', 'train_bound_ms',
-             'train_launches')} for r in rows if 'train_ms' in r})
+             'train_tc_3xtf32_bound_ms', 'train_launches')} for r in rows})
 
     # K3/K4 at the training shape: bf16 mode (the training path's, in the
     # kernels line, bound by the bf16 tensor-core peak) and fp32 mode
@@ -2261,7 +2296,7 @@ def main():
          peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12, fp32_mode_rows=fp32_rows)
 
-    rows += klist_timing(torch, fk, errs, klist_launches)
+    rows += klist_timing(torch, fk, errs, klist_launches, train_nl_launches)
     emit('gather_launches', serve_500_frames_xla=serve_xla_launches,
          per_box_xla_request=box_xla_launches,
          window_entry_point=window_launches)

@@ -2,9 +2,10 @@
 '''Where kernels K3 and K4 (dual_fwd_kernel / dual_bwd_kernel of
 newtonnet_tpu_torch/csrc/fused_dual.cu) and their wrappers spend their
 time on the card; with the argument `k2k7`, kernels K2 (pair_bwd_kernel,
-csrc/fused_dense.cu) and K7 (klist_dual_fwd_kernel, csrc/fused_klist.cu).
+csrc/fused_dense.cu) and K7 (klist_dual_fwd_kernel, csrc/fused_klist.cu);
+with `k6k1`, kernels K6 (klist_bwd_kernel) and K1 (pair_fwd_kernel).
 
-    python3 dual_breakdown.py [k2k7]
+    python3 dual_breakdown.py [k2k7 | k6k1 | k1train ROOT...]
 
 Builds the source as it is and in variants with one part taken out
 (written to newtonnet_tpu_torch/_build/dual_breakdown/, gitignored; all
@@ -20,6 +21,21 @@ variant and dot mode: the device microseconds per call of each kernel
 microseconds per wrapper call (host clock over 50 calls, no synchronise:
 checks, allocations, the ctypes call and the launches). Needs a CUDA card
 and nvcc.
+
+With `k6k1` the same three versions of K6 (klist_bwd_kernel, csrc/
+fused_klist.cu: k6_prod) and K1 (pair_fwd_kernel, csrc/fused_dense.cu:
+k1_prod): K6's milliseconds per call at the box shape (CUDA events, no
+weight cotangents, the force pass's) and K1's device milliseconds per call
+at the serving shape (B=100, N=21), full and first layer, and the weight
+bytes one launch streams from L2 into shared memory, beside those of the
+K7/K2 design (32-slot tiles) and of the CUDA-core kernels they replace.
+
+With `k1train ROOT...` it times K1 at the training shape (B=10, N=24,
+F=128, R=20) in the package of each checkout ROOT in turn, each in a
+process of its own (its kernels built from its own sources): the device
+milliseconds per call, full and first layer. Give the parent commit's
+checkout (a `git archive` unpacked into a gitignored directory) and this
+one in turns, e.g. `k1train runs/parent . . runs/parent`.
 
 With `k2k7` the variants are no_products (k2_prod / k7_pair run no chunk:
 no staging, no tensor-core product) and no_mma (the chunks are staged and
@@ -79,6 +95,137 @@ K2K7_VARIANTS = {
                     f'__uint_as_float({a}[x][{e}] ^ {b}[j][1]);')
                    for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
                                                ('ah', 'bh')))]}}
+
+
+# the K6 and K1 variants, by source
+K6K1_VARIANTS = {
+    'fused_klist': {
+        'as_is': [],
+        'no_products': [('  const int nch = cur.qp / RW;',
+                         '  const int nch = 0 * cur.qp;')],
+        'no_mma': [(f'          for (int rg = 0; rg < 2; ++rg) mma_tf32('
+                    f'd[o][rg][j], {a}[rg], {b}[j]);',
+                    f'          for (int rg = 0; rg < 2; ++rg) d[o][rg][j][{e}]'
+                    f' += __uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
+                   for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
+                                               ('ah', 'bh')))]},
+    'fused_dense': {
+        'as_is': [],
+        'no_products': [('  const int nch = cur.qp / RW;',
+                         '  const int nch = 0 * cur.qp;')],
+        'no_mma': [(f'          for (int rg = 0; rg < 2; ++rg) mma_tf32('
+                    f'd[x][rg][j], {a}[rg], {b}[j]);',
+                    f'          for (int rg = 0; rg < 2; ++rg) d[x][rg][j][{e}]'
+                    f' += __uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
+                   for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
+                                               ('ah', 'bh')))]}}
+
+
+def pad32(q):
+    return (q + 31) // 32 * 32
+
+
+def weight_bytes(kernel, B, N, K, F, R, first):
+    '''Weight bytes one launch of K6 (kernel 'K6', at the list width K) or K1
+    ('K1', K ignored) streams from L2: per tile, every prepared weight of its
+    products as tf32 (hi, lo) pairs of 8 bytes; beside the same for 32-slot
+    tiles (the K7/K2 design) and the fp32 weights the CUDA-core kernels
+    streamed per 64-slot tile (the old K6 computed me twice and streamed
+    each weight once per product).'''
+    nb = 1 if first else 2
+    ff, fr = F * F, F * pad32(R)
+    if kernel == 'K6':
+        tiles = B * -(-N // 8) * -(-K // 8)
+        pairs = 2 * fr + 4 * nb * ff  # me, p, phi, dh, dmsg, drbf
+        old = 4 * (2 * R * F + 4 * nb * ff)
+    else:
+        tiles = B * (-(-N // 8)) ** 2
+        pairs = fr + 2 * nb * ff  # me, p, phi
+        old = 4 * (R * F + 2 * nb * ff)
+    return {'tiles_of_64_slots': tiles, 'bytes': 8 * pairs * tiles,
+            'bytes_32_slot_tiles': 2 * 8 * pairs * tiles,
+            'bytes_cuda_core_kernel': old * tiles}
+
+
+def k6k1(torch, cs, card):
+    '''The K6 and K1 lines (module docstring).'''
+    import threading
+    from newtonnet_tpu_torch.ops import _build
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    built = {}
+    threads = [threading.Thread(target=lambda s=src, v=vs: built.update(
+        {s: build(s, v)})) for src, vs in K6K1_VARIANTS.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    pair = cs.random_inputs(torch, 100, 21, 128, 20, seed=0)[0]
+    box = {}
+    for first in (False, True):
+        ins, tans, cots = cs.klist_inputs(torch, 1, cs.BOX_ATOMS,
+                                          cs.BOX_K_MAX, 128, 20, first,
+                                          torch.bfloat16, seed=30)
+        box[first] = cs.klist_calls(fk, ins, tans, cots, first)[
+            'klist_bwd(wg=0)']
+    streamed = {}
+    for first in (False, True):
+        tag = 'first' if first else 'full'
+        streamed[f'K6 box {tag}'] = weight_bytes(
+            'K6', 1, cs.BOX_ATOMS, cs.BOX_K_MAX, 128, 20, first)
+        streamed[f'K1 B=100 N=21 {tag}'] = weight_bytes(
+            'K1', 100, 21, 0, 128, 20, first)
+    print(json.dumps({'weight_bytes_per_launch': streamed, 'card': card}),
+          flush=True)
+    for src, libs in built.items():
+        for name, so in libs.items():
+            _build._LIBS[src] = ctypes.CDLL(so)  # the wrapper's library
+            ms = {}
+            for first in (False, True):
+                tag = 'first' if first else 'full'
+                if src == 'fused_dense':
+                    ms[f'K1 B=100 N=21 {tag} device'] = cs.device_ms(
+                        torch, lambda: fd.pair_interaction_fwd(
+                            *pair, first_layer=first))
+                else:
+                    f, a, kw = box[first]
+                    ms[f'K6 box {tag}'] = cs.time_ms(
+                        torch, lambda: f(*a, first_layer=first, **kw),
+                        inner=3)
+            print(json.dumps({'source': src, 'variant': name, 'ms': ms,
+                              'card': card}), flush=True)
+
+
+def k1train(roots, card):
+    '''The K1 training-shape lines (module docstring): one process per
+    checkout root, in the order given.'''
+    for root in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              'k1time', os.path.abspath(root)],
+                             capture_output=True, text=True, timeout=1200)
+        if out.returncode != 0:
+            raise RuntimeError(f'k1time {root} failed:\n{out.stderr[-3000:]}')
+        ms = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps({'root': root, 'K1 B=10 N=24 device ms': ms,
+                          'card': card}), flush=True)
+
+
+def k1time(torch, root):
+    '''K1's device ms per call at the training shape, full and first layer,
+    from the package under root (printed as one JSON line), with this
+    checkout's chip_smoke.py making the inputs and timing.'''
+    import importlib.util
+    sys.path.insert(0, root)  # the package under root, not this one's
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    assert fd.__file__.startswith(root), fd.__file__
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke_here', os.path.join(HERE, 'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ins = cs.random_inputs(torch, 10, 24, 128, 20, seed=0)[0]
+    print(json.dumps({tag: cs.device_ms(torch, lambda first=first: (
+        fd.pair_interaction_fwd(*ins, first_layer=first)))
+        for tag, first in (('full', False), ('first', True))}), flush=True)
 
 
 def build(source='fused_dual', variants=VARIANTS):
@@ -160,6 +307,9 @@ def main():
     if not torch.cuda.is_available():
         print('dual_breakdown: no CUDA device', file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ['k1time']:  # before this checkout's package loads
+        k1time(torch, sys.argv[2])
+        return 0
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
@@ -171,6 +321,12 @@ def main():
                           text=True, timeout=60).stdout.strip()
     if sys.argv[1:] == ['k2k7']:
         k2k7(torch, cs, card)
+        return 0
+    if sys.argv[1:] == ['k6k1']:
+        k6k1(torch, cs, card)
+        return 0
+    if sys.argv[1:2] == ['k1train']:
+        k1train(sys.argv[2:], card)
         return 0
     libs = build()
     args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)

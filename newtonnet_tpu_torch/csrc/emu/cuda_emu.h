@@ -1,5 +1,6 @@
 // CPU emulation of the CUDA subset that csrc/*.cu use, for testing their
-// logic where there is no GPU and no nvcc (tests/test_torch_kernel_emulation.py).
+// logic where there is no GPU and no nvcc
+// (tests/test_torch_kernel_emulation_*.py).
 //
 // A source is rewritten for g++ (cuda_runtime.h -> this header, dynamic
 // shared memory -> g_smem, `k<<<grid, block, smem, stream>>>(args)` ->
@@ -20,7 +21,8 @@
 // ISA's fragment layouts, each lane depositing its fragments in a per-warp
 // buffer between two warp barriers and computing its four outputs from
 // the whole warp's (fp32 sums over k in order); cp.async as a plain
-// 16-byte copy, its commit and wait as nothing; an L2 prefetch as nothing.
+// 16-byte copy, its commit and wait as nothing; an L2 prefetch as nothing;
+// __expf and __fdividef exactly.
 #pragma once
 #define NN_CUDA_EMU 1
 #include <algorithm>
@@ -90,6 +92,9 @@ template <class T>
 inline T __ldg(const T* p) {
   return *p;
 }
+// the fast intrinsics, exactly
+inline float __expf(float x) { return std::exp(x); }
+inline float __fdividef(float a, float b) { return a / b; }
 struct float2 {
   float x, y;
 };

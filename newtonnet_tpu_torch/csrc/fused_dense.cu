@@ -20,22 +20,12 @@
 // (67 TFLOP/s over 3.35 TB/s = 20 flop/byte). K2 recomputes the chain and
 // adds the transposed products: about 2x the flops of K1.
 //
-// K1's design. One block of 8 warps per (molecule, tile of TI=8 rows i);
-// the block loops over tiles of TJ=8 columns j. A tile is M=64 pair slots;
-// warp w owns the TJ slots of row i0+w, lane l owns feature columns l+32c.
-// The per-slot chain (me, msg, p, h, phi) lives only in shared memory and
-// registers; the weights stay in L2 and stream through shared memory in
-// KC-row chunks. Sums over j (inv1, eq) are per-thread register sums over
-// the warp's own slots, so they are deterministic and need no atomics.
-// Plain IEEE fp32 FMAs: no TF32, no tensor cores. K1 takes 109 KB of
-// shared memory at F=128, R=20 (two blocks per SM).
-//
-// K2 has its own design, on the tensor cores in 3xTF32 (the note above
-// pair_bwd_kernel): fp32-level products (each operand split in a tf32 high
-// and low part, three products summed in fp32; never 1xTF32). Its sums
-// over i and j and its weight cotangents cross blocks and are summed by
-// second kernels in a fixed order: no float atomics, a run gives the same
-// bits every time.
+// Both multiply on the tensor cores in 3xTF32 (the notes above
+// pair_bwd_kernel and pair_fwd_kernel): fp32-level products (each operand
+// split in a tf32 high and low part, three products summed in fp32; never
+// 1xTF32). Their sums over i and j and K2's weight cotangents cross blocks
+// and are summed by second kernels in a fixed order: no float atomics, a
+// run gives the same bits every time.
 //
 // The host functions return the cudaError_t of the launches.
 
@@ -47,9 +37,6 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int TI = kWarps;   // rows i per block: one per warp
-constexpr int TJ = 8;        // columns j per tile: all held by one warp
-constexpr int M = TI * TJ;   // pair slots per tile; slot p = il * TJ + jl
-constexpr int KC = 32;       // rows of a streamed weight chunk
 
 __device__ __forceinline__ float sigmoid_f(float x) {
   return 1.0f / (1.0f + expf(-x));
@@ -60,209 +47,22 @@ __device__ __forceinline__ float dsilu_f(float x) {
   return s * (1.0f + x * (1.0f - s));
 }
 
-// acc[r][c] = sum_k A[(w*TJ + r)*lda + k] * W[k*F + l + 32c], k < K (W is
-// K x F), for the calling thread's warp w and lane l. A holds the warp's
-// own slots only, so a warp may write its A rows just before the call; the
-// leading __syncthreads of each chunk orders everything else. All threads
-// of the block must call it.
-template <int F>
-__device__ __forceinline__ void gemm_rows(const float* __restrict__ A, int lda,
-                                          int K, const float* __restrict__ W,
-                                          float* __restrict__ w_s,
-                                          float (&acc)[TJ][F / 32]) {
-  constexpr int C = F / 32;
-  constexpr int WLD = F + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < TJ; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
-  const float* arow = A + (size_t)(warp * TJ) * lda;
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < kc * F; idx += kThreads) {
-      const int kk = idx / F, n = idx - kk * F;
-      w_s[kk * WLD + n] = W[(size_t)(k0 + kk) * F + n];
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kc; ++kk) {
-      float bv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) bv[c] = w_s[kk * WLD + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const float a = arow[r * lda + k0 + kk];
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(a, bv[c], acc[r][c]);
-      }
-    }
-  }
+// silu and its derivative with the fast exponential and division (a few
+// ulp, far inside the kernels' bar): the activations of the tensor-core
+// kernels K1 and K6, where the IEEE ones cost a fifth of the launch.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
 }
-
-// Loads the tile's column-side inputs: np_j, force_j (unless FIRST), and
-// the per-slot adj, dir and rbf. Slots outside the molecule read as zero,
-// so they contribute nothing and stay finite (silu(0) = 0).
-template <int F, bool FIRST>
-__device__ void load_tile(const float* __restrict__ np_,
-                          const float* __restrict__ rbf,
-                          const float* __restrict__ dir,
-                          const float* __restrict__ adj,
-                          const float* __restrict__ force, int b, int i0,
-                          int j0, int N, int R, float* npj_s, float* fj_s,
-                          float* adj_s, float* dir_s, float* rbf_s) {
-  for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
-    const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
-    npj_s[idx] = j < N ? np_[((size_t)b * N + j) * F + f] : 0.0f;
-  }
-  if (!FIRST) {
-    for (int idx = threadIdx.x; idx < 3 * TJ * F; idx += kThreads) {
-      const int d = idx / (TJ * F), rem = idx - d * (TJ * F);
-      const int jl = rem / F, f = rem - jl * F, j = j0 + jl;
-      fj_s[idx] = j < N ? force[(((size_t)b * 3 + d) * N + j) * F + f] : 0.0f;
-    }
-  }
-  for (int idx = threadIdx.x; idx < 4 * M; idx += kThreads) {
-    const int d = idx / M, p = idx - d * M;  // d = 0: adj, 1..3: dir
-    const int i = i0 + p / TJ, j = j0 + p % TJ;
-    const bool ok = i < N && j < N;
-    if (d == 0)
-      adj_s[p] = ok ? adj[((size_t)b * N + i) * N + j] : 0.0f;
-    else
-      dir_s[(d - 1) * M + p] =
-          ok ? dir[(((size_t)b * 3 + d - 1) * N + i) * N + j] : 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < M * R; idx += kThreads) {
-    const int p = idx / R, r = idx - p * R;
-    const int i = i0 + p / TJ, j = j0 + p % TJ;
-    rbf_s[idx] =
-        (i < N && j < N) ? rbf[(((size_t)b * N + i) * N + j) * R + r] : 0.0f;
-  }
+__device__ __forceinline__ float silu_fast(float x) {
+  return x * sigmoid_fast(x);
 }
-
-// ------------------------------------------------------------------ K1 --
-template <int F>
-constexpr size_t fwd_smem_floats(int R) {
-  return (size_t)2 * M * (F + 1) + (size_t)KC * (F + 1) + (size_t)TI * F +
-         (size_t)4 * TJ * F + (size_t)4 * M + (size_t)M * R;
-}
-
-template <int F, bool FIRST>
-__global__ void __launch_bounds__(kThreads, 2)
-pair_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
-                const float* __restrict__ dir, const float* __restrict__ adj,
-                const float* __restrict__ force, const float* __restrict__ We,
-                const float* __restrict__ W1a, const float* __restrict__ W1b,
-                const float* __restrict__ W2a, const float* __restrict__ W2b,
-                float* __restrict__ inv1, float* __restrict__ eq, int N,
-                int R, int n_itiles) {
-  constexpr int C = F / 32;
-  constexpr int LD = F + 1;
-  extern __shared__ float smem[];
-  float* msg_s = smem;                 // M x LD
-  float* h_s = msg_s + M * LD;         // M x LD
-  float* w_s = h_s + M * LD;           // KC x LD
-  float* npi_s = w_s + KC * LD;        // TI x F
-  float* npj_s = npi_s + TI * F;       // TJ x F
-  float* fj_s = npj_s + TJ * F;        // 3 x TJ x F
-  float* adj_s = fj_s + 3 * TJ * F;    // M
-  float* dir_s = adj_s + M;            // 3 x M
-  float* rbf_s = dir_s + 3 * M;        // M x R
-
-  const int b = blockIdx.x / n_itiles;
-  const int i0 = (blockIdx.x - b * n_itiles) * TI;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
-    const int il = idx / F, f = idx - il * F;
-    npi_s[idx] = i0 + il < N ? np_[((size_t)b * N + i0 + il) * F + f] : 0.0f;
-  }
-
-  float inv_acc[C], eq_acc[3][C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    inv_acc[c] = 0.0f;
-    eq_acc[0][c] = eq_acc[1][c] = eq_acc[2][c] = 0.0f;
-  }
-  float acc[TJ][C];
-
-  for (int j0 = 0; j0 < N; j0 += TJ) {
-    __syncthreads();
-    load_tile<F, FIRST>(np_, rbf, dir, adj, force, b, i0, j0, N, R, npj_s,
-                        fj_s, adj_s, dir_s, rbf_s);
-    gemm_rows<F>(rbf_s, R, R, We, w_s, acc);  // me
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r;
-      const float a = adj_s[p];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int f = lane + 32 * c;
-        const float m = acc[r][c] * npi_s[warp * F + f] * npj_s[r * F + f] * a;
-        msg_s[p * LD + f] = m;
-        inv_acc[c] += m;
-      }
-    }
-    gemm_rows<F>(msg_s, LD, F, W1a, w_s, acc);
-#pragma unroll
-    for (int r = 0; r < TJ; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
-    gemm_rows<F>(h_s, LD, F, W1b, w_s, acc);
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r;
-      const float a = adj_s[p];
-      const float d0 = dir_s[p], d1 = dir_s[M + p], d2 = dir_s[2 * M + p];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float phi = acc[r][c] * a;
-        eq_acc[0][c] += phi * d0;
-        eq_acc[1][c] += phi * d1;
-        eq_acc[2][c] += phi * d2;
-      }
-    }
-    if (!FIRST) {
-      gemm_rows<F>(msg_s, LD, F, W2a, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
-      gemm_rows<F>(h_s, LD, F, W2b, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const float a = adj_s[warp * TJ + r];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          const float phi = acc[r][c] * a;
-          eq_acc[0][c] += phi * fj_s[(0 * TJ + r) * F + f];
-          eq_acc[1][c] += phi * fj_s[(1 * TJ + r) * F + f];
-          eq_acc[2][c] += phi * fj_s[(2 * TJ + r) * F + f];
-        }
-      }
-    }
-  }
-
-  const int i = i0 + warp;
-  if (i < N) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
-      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
-    }
-  }
+__device__ __forceinline__ float dsilu_fast(float x) {
+  const float s = sigmoid_fast(x);
+  return s * (1.0f + x * (1.0f - s));
 }
 
 // ------------------------------------------------------------------ K2 --
-// K2 on the tensor cores (its own design; K1 above keeps the CUDA cores).
+// K2 on the tensor cores.
 // What bounds it: its products, 2(2RF + 8F^2) flops per pair slot at a
 // full layer (no weight cotangents; 12.2 GFLOP at the serving shape B=100,
 // N=21, F=128, R=20). The CUDA-core version ran one block per (molecule,
@@ -369,6 +169,16 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
                                            unsigned& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// split_tf32 in three integer and float operations instead of five, for
+// operands that go straight to mma_tf32, which reads the top 19 bits of
+// each word: hi is x plus half a tf32 ulp (the mma's truncation of it is
+// tf32_rna(x)) and lo = x - tf32_rna(x) whole (truncated by the mma).
+__device__ __forceinline__ void split_tf32_mma(float x, unsigned& hi,
+                                               unsigned& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
 }
 
 // d += a b in 3xTF32, the small terms first.
@@ -881,6 +691,420 @@ __global__ void pair_bwd_wsum_kernel(float* __restrict__ out,
   out[e] = s;
 }
 
+// ------------------------------------------------------------------ K1 --
+// K1 on the tensor cores, the design of K6 (csrc/fused_klist.cu) over pair
+// slots. What bounds it: its products, 2(RF + 4F^2) flops per pair slot at
+// a full layer (6.0 GFLOP at the serving shape B=100, N=21, F=128, R=20).
+// The CUDA-core version ran one block per (molecule, 8 rows), 300 blocks at
+// the serving shape and 30 at the training shape (B=10, N=24) for 132 SMs,
+// fed every FMA from shared memory and loaded each weight chunk with no
+// product in flight. So:
+//
+// * 64-slot tiles, (molecule, 8 rows i, 8 columns j), walked by at most one
+//   block per SM (the wrapper passes the SM count): 900 tiles at the
+//   serving shape, 90 at the training shape (one each). Every staged weight
+//   chunk feeds 64 slot rows. Warp w owns the 8 slots of row i0+w and lane
+//   l the feature columns l+32c in the elementwise chain, so a tile's sums
+//   over its 8 columns j are per-thread register sums; they go to a
+//   per-(molecule, column tile) partial, and pair_fwd_rowsum_kernel adds a
+//   row's partials in a fixed order (no float atomics: a run gives the same
+//   bits every time).
+// * Products on the tensor cores (k1_prod): mma.sync m16n8k8 tf32 in
+//   3xTF32 (no 1xTF32), 64 x Q @ Q x F, warp w taking the 32 rows (w & 1)
+//   and F/4 columns; each chunk's products accumulate in fresh registers
+//   and are added to the running sum on the CUDA cores. me is a product;
+//   p1/p2 run paired from msg (its A fragments split once for both),
+//   phi1/phi2 paired from h1/h2; the first layer skips branch 2.
+// * Weights split once per launch by pair_fwd_prep_kernel into tf32 (hi,
+//   lo) pairs, chunk-major in the order the tile multiplies them and
+//   swizzled as a ring slot holds them, so a chunk stages as one
+//   contiguous cp.async copy; streamed through a two-slot ring of 32 depth
+//   steps of one weight or 16 of each of two, the stream running across
+//   products and tiles (a product stages the first chunk of the one after
+//   it). Slot operands are fp32 and split at fragment load in three
+//   operations (split_tf32_mma). Activations with the fast exponential and
+//   division (silu_fast).
+// * Shared memory at F=128, R=20: the ring 64 KB, three fp32 slot buffers
+//   (me then msg; p1, h1, phi1; p2, h2, phi2) 99 KB, rbf 9 KB, the row and
+//   column inputs 24 KB: 196 KB, one block per SM.
+constexpr int TJ1 = 8;          // columns j per K1 tile
+constexpr int M1 = TI * TJ1;    // pair slots per K1 tile; p = il * TJ1 + jl
+constexpr int K1_RW = 32;       // depth pairs of one weight in a ring slot
+constexpr int kRowSlots = 4;    // row partials: inv1, eq[3]
+
+template <int F>
+struct K1Shape {
+  static constexpr int LD = F + 4;       // fp32 slot buffers (M1 x LD)
+  static constexpr int RING = K1_RW * F;  // pairs per ring slot
+};
+
+template <int F>
+constexpr size_t fwd_smem_floats(int R) {
+  using S = K1Shape<F>;
+  return (size_t)4 * S::RING + (size_t)3 * M1 * S::LD +
+         (size_t)M1 * (pad32(R) + 4) + (size_t)TI * F + (size_t)4 * TJ1 * F +
+         (size_t)4 * M1;
+}
+
+// K1's prepared weights, in (hi, lo) tf32 pairs: me's We^T (B(q, n) =
+// We[q][n], q < pad32(R)), then p's W1a and phi's W1b (B(q, n) = W[q][n]),
+// each with its second branch's weight (W2a, W2b) except at the first
+// layer; each chunk-major and swizzled as a ring slot holds it, so that a
+// chunk stages as one contiguous copy: chunks of 32 depth steps of one
+// weight (rows n of 32 pairs), or of 16 of each of two (rows x*F + n of 16
+// pairs), pair q of row r at r*rw + (q ^ 4(r & 3)).
+__host__ __device__ inline size_t k1_prep_pairs(int F, int R) {
+  return (size_t)F * pad32(R) + (size_t)4 * F * F;
+}
+
+__global__ void pair_fwd_prep_kernel(const float* __restrict__ We,
+                                     const float* __restrict__ W1a,
+                                     const float* __restrict__ W1b,
+                                     const float* __restrict__ W2a,
+                                     const float* __restrict__ W2b,
+                                     uint2* __restrict__ out, int F, int R,
+                                     int first) {
+  const size_t fr = (size_t)F * pad32(R), ff = (size_t)F * F;
+  const size_t total = fr + (first ? 2 : 4) * ff;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const bool me = e < fr;  // else p (k = 0) or phi (k = 1)
+    const int k = me ? 0 : (int)((e - fr) / ((first ? 1 : 2) * ff));
+    const size_t local = me ? e : e - fr - k * (first ? 1 : 2) * ff;
+    const int rw = me || first ? 32 : 16;
+    const int ch = (int)(local / (32 * F)), rem = (int)(local % (32 * F));
+    const int r = rem / rw, j = rem - r * rw;
+    const int q = ch * rw + (j ^ ((r & 3) << 2)), x = r / F, n = r - x * F;
+    float v;
+    if (me) {
+      v = q < R ? We[(size_t)q * F + n] : 0.0f;
+    } else {
+      const float* W = k == 0 ? (x ? W2a : W1a) : (x ? W2b : W1b);
+      v = W[(size_t)q * F + n];
+    }
+    const unsigned hi = tf32_rna(v);
+    out[e] = make_uint2(hi, tf32_rna(v - __uint_as_float(hi)));
+  }
+}
+
+// A product's prepared weight: chunks of 32 F pairs from b, qp depth steps
+// in all.
+struct K1W {
+  const uint2* b;
+  int qp;
+};
+
+// Chunk ch of w into a ring slot: one contiguous copy (the preparation
+// laid it out as the slot holds it), by 16-byte cp.async copies.
+template <int F>
+__device__ __forceinline__ void k1_stage(const K1W& w, int ch, uint2* slot) {
+  const uint2* src = w.b + (size_t)ch * 32 * F;
+  for (int v = threadIdx.x; v < 16 * F; v += kThreads)
+    cp_async16(slot + 2 * v, src + 2 * v);
+}
+
+// For the tile's 64 slot rows m and n < F, q < cur.qp, in 3xTF32: MODE 0
+// D1 = A1 B1; MODE 1 D1 = A1 B1 and D2 = A1 B2; MODE 2 D1 = A1 B1 and D2 =
+// A2 B2, where A is fp32 at row stride lda (zeros past the true depth) and
+// B the prepared weight of cur (pair_fwd_prep_kernel's layout). Chunk 0 of
+// cur sits in ring slot `slot`, staged by the product before; while its
+// last chunk multiplies this product stages chunk 0 of `next` (none if
+// next.b is null) and returns that chunk's slot. Every warp reads every A
+// row after the loop's first barrier and D is written after a barrier that
+// follows the last read, so A may be written just before the call and D
+// may be A. Ends with a __syncthreads. All threads of the block must call
+// it. Not inlined (code size).
+template <int F, int MODE>
+__device__ __noinline__ int k1_prod(const float* A1, const float* A2,
+                                    int lda, K1W cur, K1W next, int slot,
+                                    uint2* ring, float* D1, float* D2,
+                                    int ldd) {
+  constexpr int NT = F / 32;             // 16 x 8 tiles per row group
+  constexpr int NX = MODE == 0 ? 1 : 2;  // weights per chunk and products
+  constexpr int RW = K1_RW / NX;         // pairs per ring row
+  constexpr int RING = K1Shape<F>::RING;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * (F / 4);
+  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
+  const int nch = cur.qp / RW;
+  float tot[NX][2][NT][4];
+#pragma unroll
+  for (int x = 0; x < NX; ++x)
+#pragma unroll
+    for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        tot[x][rg][j][0] = tot[x][rg][j][1] = tot[x][rg][j][2] =
+            tot[x][rg][j][3] = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+    uint2* other = ring + (slot ^ 1) * RING;
+    if (ch + 1 < nch)
+      k1_stage<F>(cur, ch + 1, other);
+    else if (next.b != nullptr)
+      k1_stage<F>(next, 0, other);
+    cp_async_commit();
+    const uint2* wc = ring + slot * RING;
+    float d[NX][2][NT][4];
+#pragma unroll
+    for (int x = 0; x < NX; ++x)
+#pragma unroll
+      for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          d[x][rg][j][0] = d[x][rg][j][1] = d[x][rg][j][2] =
+              d[x][rg][j][3] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < RW / 8; ++s) {
+      const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int x = 0; x < NX; ++x) {
+        if (x == 0 || MODE == 2) {
+          const float* A = x == 0 ? A1 : A2;
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) {
+            const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
+            const float* r8 = r0 + (size_t)8 * lda;
+            split_tf32_mma(r0[k], ah[rg][0], al[rg][0]);
+            split_tf32_mma(r8[k], ah[rg][1], al[rg][1]);
+            split_tf32_mma(r0[k + 4], ah[rg][2], al[rg][2]);
+            split_tf32_mma(r8[k + 4], ah[rg][3], al[rg][3]);
+          }
+        }
+        unsigned bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint2* w = wc + (x * F + n0 + j * 8 + g) * RW;
+          const uint2 wk = w[(s * 8) ^ o0], wk4 = w[(s * 8) ^ o0 ^ 4];
+          bh[j][0] = wk.x, bh[j][1] = wk4.x, bl[j][0] = wk.y, bl[j][1] = wk4.y;
+        }
+        // lo*hi, hi*lo, hi*hi of every tile in turn: 2 NT independent
+        // accumulators between two dependent products
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[x][rg][j], al[rg], bh[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[x][rg][j], ah[rg], bl[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[x][rg][j], ah[rg], bh[j]);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < NX; ++x)
+#pragma unroll
+      for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[x][rg][j][e] += d[x][rg][j][e];
+    slot ^= 1;
+  }
+  __syncthreads();  // every warp is done reading A: D may overwrite it
+#pragma unroll
+  for (int x = 0; x < NX; ++x) {
+    float* D = x == 0 ? D1 : D2;
+#pragma unroll
+    for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {  // (n, n + 1) as one 8-byte store
+        const int m = m0 + rg * 16 + g, n = n0 + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(D + m * ldd + n) =
+            make_float2(tot[x][rg][j][0], tot[x][rg][j][1]);
+        *reinterpret_cast<float2*>(D + (m + 8) * ldd + n) =
+            make_float2(tot[x][rg][j][2], tot[x][rg][j][3]);
+      }
+  }
+  __syncthreads();
+  return slot;
+}
+
+template <int F, bool FIRST>
+__global__ void __launch_bounds__(kThreads, 1)
+pair_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
+                const float* __restrict__ dir, const float* __restrict__ adj,
+                const float* __restrict__ force,
+                const uint2* __restrict__ wprep,
+                float* __restrict__ rowpart, int N, int R, int n_it,
+                int n_jt, int n_tiles) {
+  using S = K1Shape<F>;
+  constexpr int C = F / 32;
+  constexpr int LD = S::LD;
+  constexpr int TJ = TJ1, M = M1;
+  const int Rp = pad32(R), lr = Rp + 4;
+  extern __shared__ float smem[];
+  uint2* ring = reinterpret_cast<uint2*>(smem);  // 2 x RING
+  float* x_s = smem + 4 * S::RING;   // M x LD: me, then msg
+  float* p1_s = x_s + M * LD;        // M x LD: p1, h1, phi1
+  float* p2_s = p1_s + M * LD;       // M x LD: p2, h2, phi2
+  float* rbf_s = p2_s + M * LD;      // M x lr
+  float* npi_s = rbf_s + M * lr;     // TI x F
+  float* npj_s = npi_s + TI * F;     // TJ x F
+  float* fj_s = npj_s + TJ * F;      // 3 x TJ x F
+  float* adj_s = fj_s + 3 * TJ * F;  // M
+  float* dir_s = adj_s + M;          // 3 x M
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const size_t nf = (size_t)N * F;
+  // the products of a tile, in the order of the prepared weights
+  const size_t wbr = (size_t)(FIRST ? 1 : 2) * F * F;
+  const K1W w_me = {wprep, Rp};
+  const K1W w_p = {wprep + (size_t)F * Rp, F};
+  const K1W w_phi = {w_p.b + wbr, F};
+  const K1W none = {nullptr, 0};
+
+  int slot = 0;  // the ring slot of the next product's first chunk
+  if ((int)blockIdx.x < n_tiles) k1_stage<F>(w_me, 0, ring);
+  cp_async_commit();
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const bool more = tile + (int)gridDim.x < n_tiles;
+    const int rest = tile / n_jt, jt = tile - rest * n_jt;
+    const int b = rest / n_it, it = rest - b * n_it;
+    const int i0 = it * TI, j0 = jt * TJ, i = i0 + warp;
+    __syncthreads();  // the last tile's reads of the tile buffers are done
+    for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
+      const int il = idx / F, f = idx - il * F;
+      npi_s[idx] = i0 + il < N ? np_[((size_t)b * N + i0 + il) * F + f]
+                               : 0.0f;
+    }
+    for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
+      const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
+      npj_s[idx] = j < N ? np_[((size_t)b * N + j) * F + f] : 0.0f;
+    }
+    if (!FIRST) {
+      for (int idx = threadIdx.x; idx < 3 * TJ * F; idx += kThreads) {
+        const int d = idx / (TJ * F), rem = idx - d * (TJ * F);
+        const int jl = rem / F, f = rem - jl * F, j = j0 + jl;
+        fj_s[idx] = j < N ? force[((size_t)b * 3 + d) * nf + (size_t)j * F + f]
+                          : 0.0f;
+      }
+    }
+    for (int idx = threadIdx.x; idx < 4 * M; idx += kThreads) {
+      const int d = idx / M, p = idx - d * M;  // d = 0: adj, 1..3: dir
+      const int ii = i0 + p / TJ, j = j0 + p % TJ;
+      const bool ok = ii < N && j < N;
+      if (d == 0)
+        adj_s[p] = ok ? adj[((size_t)b * N + ii) * N + j] : 0.0f;
+      else
+        dir_s[(d - 1) * M + p] =
+            ok ? dir[(((size_t)b * 3 + d - 1) * N + ii) * N + j] : 0.0f;
+    }
+    for (int idx = threadIdx.x; idx < M * Rp; idx += kThreads) {
+      const int p = idx / Rp, r = idx - p * Rp;
+      const int ii = i0 + p / TJ, j = j0 + p % TJ;
+      rbf_s[p * lr + r] = (ii < N && j < N && r < R)
+                              ? rbf[(((size_t)b * N + ii) * N + j) * R + r]
+                              : 0.0f;
+    }
+    // me, then msg = me np_i np_j adj in place; inv1 over the tile's j
+    slot = k1_prod<F, 0>(rbf_s, nullptr, lr, w_me, w_p, slot, ring, x_s,
+                         nullptr, LD);
+    float inv_acc[C], eq_acc[3][C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      inv_acc[c] = 0.0f;
+      eq_acc[0][c] = eq_acc[1][c] = eq_acc[2][c] = 0.0f;
+    }
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r;
+      const float a = adj_s[p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c, o = p * LD + f;
+        const float m = x_s[o] * npi_s[warp * F + f] * npj_s[r * F + f] * a;
+        x_s[o] = m;
+        inv_acc[c] += m;
+      }
+    }
+    // p1, p2; h = silu(p); phi = h @ Wb (the second branch is skipped at
+    // the first layer: force_node is zero)
+    slot = k1_prod<F, FIRST ? 0 : 1>(x_s, nullptr, LD, w_p, w_phi, slot,
+                                     ring, p1_s, p2_s, LD);
+#pragma unroll
+    for (int r = 0; r < TJ; ++r)
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int o = (warp * TJ + r) * LD + lane + 32 * c;
+        p1_s[o] = silu_fast(p1_s[o]);
+        if (!FIRST) p2_s[o] = silu_fast(p2_s[o]);
+      }
+    slot = k1_prod<F, FIRST ? 0 : 2>(p1_s, p2_s, LD, w_phi,
+                                     more ? w_me : none, slot, ring, p1_s,
+                                     p2_s, LD);
+    // eq[d,i] += phi1 adj dir[d,i,j] + phi2 adj force[d,j]
+#pragma unroll
+    for (int r = 0; r < TJ; ++r) {
+      const int p = warp * TJ + r;
+      const float a = adj_s[p];
+      const float d0 = dir_s[p], d1 = dir_s[M + p], d2 = dir_s[2 * M + p];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c, o = p * LD + f;
+        const float phi = p1_s[o] * a;
+        eq_acc[0][c] += phi * d0;
+        eq_acc[1][c] += phi * d1;
+        eq_acc[2][c] += phi * d2;
+      }
+    }
+    if (!FIRST) {
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r;
+        const float a = adj_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c;
+          const float phi = p2_s[p * LD + f] * a;
+          eq_acc[0][c] += phi * fj_s[(0 * TJ + r) * F + f];
+          eq_acc[1][c] += phi * fj_s[(1 * TJ + r) * F + f];
+          eq_acc[2][c] += phi * fj_s[(2 * TJ + r) * F + f];
+        }
+      }
+    }
+    // this tile's part of the row sums over j
+    if (i < N) {
+      float* rp = rowpart + ((size_t)b * n_jt + jt) * kRowSlots * nf +
+                  (size_t)i * F;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int f = lane + 32 * c;
+        rp[f] = inv_acc[c];
+#pragma unroll
+        for (int d = 0; d < 3; ++d) rp[(1 + d) * nf + f] = eq_acc[d][c];
+      }
+    }
+  }
+}
+
+// inv1 = sum_jt rowpart[., jt, 0], eq[d] = sum_jt rowpart[., jt, 1+d]:
+// fixed summation order.
+__global__ void pair_fwd_rowsum_kernel(float* __restrict__ inv1,
+                                       float* __restrict__ eq,
+                                       const float* __restrict__ rowpart,
+                                       int B, int N, int F, int n_jt) {
+  const size_t nf = (size_t)N * F;
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)B * nf) return;
+  const size_t b = idx / nf, rem = idx - b * nf;
+  float s[kRowSlots] = {0.0f, 0.0f, 0.0f, 0.0f};
+  for (int jt = 0; jt < n_jt; ++jt) {
+    const float* r = rowpart + (b * n_jt + jt) * kRowSlots * nf + rem;
+#pragma unroll
+    for (int k = 0; k < kRowSlots; ++k) s[k] += r[k * nf];
+  }
+  inv1[idx] = s[0];
+  for (int d = 0; d < 3; ++d) eq[(b * 3 + d) * nf + rem] = s[1 + d];
+}
+
 // Scratch of one K2 launch, in floats: the prepared weights, the row and
 // column partials and, with weight cotangents, one partial per block.
 size_t bwd_scratch_floats(int B, int N, int F, int R, bool wgrad) {
@@ -891,21 +1115,42 @@ size_t bwd_scratch_floats(int B, int N, int F, int R, bool wgrad) {
          (wgrad ? B * n_it * n_jt * wgrad_size(F, R) : 0);
 }
 
+// Scratch of one K1 launch, in floats: the prepared weights and the row
+// partials.
+size_t fwd_scratch_floats(int B, int N, int F, int R) {
+  const size_t n_jt = (N + TJ1 - 1) / TJ1;
+  return 2 * k1_prep_pairs(F, R) + B * n_jt * kRowSlots * (size_t)N * F;
+}
+
 template <int F, bool FIRST>
-cudaError_t launch_fwd(const float* np_, const float* rbf, const float* dir,
-                       const float* adj, const float* force, const float* We,
-                       const float* W1a, const float* W1b, const float* W2a,
-                       const float* W2b, float* inv1, float* eq, int B, int N,
-                       int R, cudaStream_t stream) {
+cudaError_t launch_fwd(const float* const* in, float* inv1, float* eq,
+                       float* scratch, int B, int N, int R, int max_blocks,
+                       cudaStream_t stream) {
   const size_t smem = fwd_smem_floats<F>(R) * sizeof(float);
   auto kern = pair_fwd_kernel<F, FIRST>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_itiles = (N + TI - 1) / TI;
-  kern<<<B * n_itiles, kThreads, smem, stream>>>(
-      np_, rbf, dir, adj, force, We, W1a, W1b, W2a, W2b, inv1, eq, N, R,
-      n_itiles);
+  const int n_it = (N + TI - 1) / TI, n_jt = (N + TJ1 - 1) / TJ1;
+  const int n_tiles = B * n_it * n_jt;
+  const int n_blocks = n_tiles < max_blocks ? n_tiles : max_blocks;
+  if (n_blocks < 1) return cudaErrorInvalidValue;
+  uint2* wprep = reinterpret_cast<uint2*>(scratch);
+  float* rowpart = scratch + 2 * k1_prep_pairs(F, R);
+  const size_t want = (k1_prep_pairs(F, R) + 255) / 256;
+  pair_fwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
+                         stream>>>(in[5], in[6], in[7], in[8], in[9], wprep,
+                                   F, R, FIRST ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kern<<<n_blocks, kThreads, smem, stream>>>(in[0], in[1], in[2], in[3],
+                                             in[4], wprep, rowpart, N, R,
+                                             n_it, n_jt, n_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned grid = (unsigned)(((size_t)B * N * F + 255) / 256);
+  pair_fwd_rowsum_kernel<<<grid, 256, 0, stream>>>(inv1, eq, rowpart, B, N,
+                                                   F, n_jt);
   return cudaGetLastError();
 }
 
@@ -972,19 +1217,22 @@ extern "C" {
 // K1. Shapes: np (B,N,F), rbf (B,N,N,R), dir (B,3,N,N), adj (B,N,N),
 // force (B,3,N,F), We (R,F), W* (F,F) -> inv1 (B,N,F), eq (B,3,N,F); all
 // fp32, contiguous, on the device of `stream`. F must be 32, 64 or 128.
+// Scratch: 16-byte aligned, nn_pair_scratch_floats(B, N, F, R, 2) floats;
+// max_blocks bounds the grid (the wrapper passes the SM count).
 int nn_pair_fwd(const float* np_, const float* rbf, const float* dir,
                 const float* adj, const float* force, const float* We,
                 const float* W1a, const float* W1b, const float* W2a,
-                const float* W2b, float* inv1, float* eq, int B, int N, int F,
-                int R, int first_layer, void* stream) {
+                const float* W2b, float* inv1, float* eq, float* scratch,
+                int B, int N, int F, int R, int first_layer, int max_blocks,
+                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define NN_FWD(FF)                                                            \
-  return first_layer ? launch_fwd<FF, true>(np_, rbf, dir, adj, force, We,    \
-                                            W1a, W1b, W2a, W2b, inv1, eq, B,  \
-                                            N, R, s)                          \
-                     : launch_fwd<FF, false>(np_, rbf, dir, adj, force, We,   \
-                                             W1a, W1b, W2a, W2b, inv1, eq, B, \
-                                             N, R, s)
+  const float* in[10] = {np_, rbf, dir, adj, force, We, W1a, W1b, W2a, W2b};
+#define NN_FWD(FF)                                                          \
+  return first_layer                                                        \
+             ? launch_fwd<FF, true>(in, inv1, eq, scratch, B, N, R,         \
+                                    max_blocks, s)                          \
+             : launch_fwd<FF, false>(in, inv1, eq, scratch, B, N, R,        \
+                                     max_blocks, s)
   switch (F) {
     case 32: NN_FWD(32);
     case 64: NN_FWD(64);
@@ -1023,9 +1271,10 @@ int nn_pair_bwd(const float* np_, const float* rbf, const float* dir,
 }
 
 // Scratch of one K2 launch without (kind 0) or with (kind 1) weight
-// cotangents, in floats.
+// cotangents, or of one K1 launch (kind 2), in floats.
 size_t nn_pair_scratch_floats(int B, int N, int F, int R, int kind) {
-  return bwd_scratch_floats(B, N, F, R, kind != 0);
+  return kind == 2 ? fwd_scratch_floats(B, N, F, R)
+                   : bwd_scratch_floats(B, N, F, R, kind != 0);
 }
 
 }  // extern "C"

@@ -23,32 +23,31 @@
 // the parameter-gradient surrogate of train/fastgrad.py holds the geometry
 // constant).
 //
-// What bounds it on this card: fp32 FMA throughput. Per slot K5 does
-// 2(R*F + 4F^2) flops of matrix products (136 kflop at F=128, R=20) and
-// reads C+R+4 edge values, far above the H100's fp32 ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 flop/byte); K6 about 3x K5, K7 2x, K8 about 6x.
+// What bounds it on this card: operations. Per slot K5 does 2(R*F + 4F^2)
+// flops of matrix products (136 kflop at F=128, R=20) and reads C+R+4 edge
+// values, far above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20
+// flop/byte); K6 about 2x K5, K7 2x, K8 about 6x.
 //
-// Design of K5/K6: that of K1 (csrc/fused_dense.cu); K7 and K8 keep its
-// ownership of slots and columns but have their own products (the notes
-// above klist_dual_fwd_kernel and klist_dual_bwd_kernel). One block
-// of 8 warps per (molecule, tile of TI=8 atoms i); the block loops over
-// tiles of TJ list slots (8 for K5/K6, 4 for K7/K8), so a tile holds
-// M = TI*TJ slots; warp w owns the TJ slots of atom i0+w and lane l owns
-// feature columns l+32c. The j-side operand is per slot here, not per
-// column: it is not staged in shared memory (4F floats per slot would not
-// fit beside the chain) but read from device memory where it is used, each
-// warp reading one slot's row of F contiguous values at a time (coalesced).
-// The per-slot chain lives in shared memory and registers; the weights
-// stream through shared memory in KC-row chunks. Sums over k are
+// Design of K5: one block of 8 warps per (molecule, tile of TI=8 atoms i);
+// the block loops over tiles of TJ_P=8 list slots, so a tile holds M = 64
+// slots; warp w owns the TJ slots of atom i0+w and lane l owns feature
+// columns l+32c, and gemm_rows multiplies on the CUDA cores (plain IEEE
+// fp32 FMAs) with the weights streamed through shared memory in KC-row
+// chunks. K6, K7 and K8 keep that ownership of slots and columns but have
+// their own products on the tensor cores in 3xTF32, at fp32-level accuracy
+// (no 1xTF32 anywhere; the notes above klist_bwd_kernel,
+// klist_dual_fwd_kernel and klist_dual_bwd_kernel). The j-side operand is
+// per slot here, not per column: it is not staged in shared memory (4F
+// floats per slot would not fit beside the chain) but read from device
+// memory (or L2, where prefetched) where it is used, each warp reading one
+// slot's row of F contiguous values at a time (coalesced). Sums over k are
 // per-thread register sums, the cotangents of the j side leave as per-slot
-// outputs (gather_nodes' backward sums them onto atoms outside), so no
-// sum crosses blocks except the weight cotangents: each block writes its
-// partials to scratch and a second kernel sums them in a fixed order. No
-// float atomics: a run gives the same bits every time. K5/K6: plain IEEE
-// fp32 FMAs, no tensor cores and no TF32. K7/K8: tensor cores in 3xTF32,
-// at fp32-level accuracy (no 1xTF32 anywhere).
+// outputs (gather_nodes' backward sums them onto atoms outside), so no sum
+// crosses blocks except the weight cotangents: each block writes its
+// partial to scratch and a second kernel sums them in a fixed order. No
+// float atomics: a run gives the same bits every time.
 //
-// Shared memory at F=128, R=20: K5 about 92 KB, K6 185 KB, K7 215 KB, K8
+// Shared memory at F=128, R=20: K5 about 92 KB, K6 214 KB, K7 223 KB, K8
 // 215 KB. The host functions return the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
@@ -60,7 +59,7 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int TI = kWarps;  // atoms i per block: one per warp
-constexpr int TJ_P = 8;     // list slots per tile in K5/K6
+constexpr int TJ_P = 8;     // list slots per tile in K5
 constexpr int TJ_D = 4;     // list slots per tile in K7/K8
 constexpr int KC = 32;      // rows of a streamed weight chunk
 
@@ -83,6 +82,20 @@ __device__ __forceinline__ float dsilu_f(float x) {
   const float s = sigmoid_f(x);
   return s * (1.0f + x * (1.0f - s));
 }
+
+// silu and its derivative with the fast exponential and division (a few
+// ulp, far inside the kernels' bar): the activations of the tensor-core
+// kernels K1 and K6, where the IEEE ones cost a fifth of the launch.
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.0f, 1.0f + __expf(-x));
+}
+__device__ __forceinline__ float silu_fast(float x) {
+  return x * sigmoid_fast(x);
+}
+__device__ __forceinline__ float dsilu_fast(float x) {
+  const float s = sigmoid_fast(x);
+  return s * (1.0f + x * (1.0f - s));
+}
 __device__ __forceinline__ float d2silu_f(float x) {
   const float s = sigmoid_f(x);
   return s * (1.0f - s) * (2.0f + x * (1.0f - 2.0f * s));
@@ -93,14 +106,13 @@ __host__ __device__ inline size_t slot_at(int b, int i, int k, int N,
   return ((size_t)b * N + i) * K + k;
 }
 
-// acc[r][c] = sum_q A[(w*TJ + r)*lda + q] * B(q, l + 32c), q < Q, for the
-// calling thread's warp w and lane l. B(q, n) = W[q*F + n] (W is Q x F), or
-// with TRANS B(q, n) = W[n*Q + q] (W is F x Q). A holds the warp's own
+// acc[r][c] = sum_q A[(w*TJ + r)*lda + q] * W[q*F + l + 32c], q < Q (W is
+// Q x F), for the calling thread's warp w and lane l. A holds the warp's own
 // slots only, so a warp may write its A rows just before the call; the
 // leading __syncthreads of each chunk orders everything else. Every lane
 // reads all of a row, so overwriting A itself after the call needs a
 // __syncwarp first. All threads of the block must call it.
-template <int F, int TJ, bool TRANS>
+template <int F, int TJ>
 __device__ __forceinline__ void gemm_rows(const float* __restrict__ A, int lda,
                                           int Q, const float* __restrict__ W,
                                           float* __restrict__ w_s,
@@ -117,16 +129,9 @@ __device__ __forceinline__ void gemm_rows(const float* __restrict__ A, int lda,
   for (int q0 = 0; q0 < Q; q0 += KC) {
     const int qc = min(KC, Q - q0);
     __syncthreads();
-    if (!TRANS) {
-      for (int idx = threadIdx.x; idx < qc * F; idx += kThreads) {
-        const int qq = idx / F, n = idx - qq * F;
-        w_s[qq * WLD + n] = W[(size_t)(q0 + qq) * F + n];
-      }
-    } else {
-      for (int idx = threadIdx.x; idx < qc * F; idx += kThreads) {
-        const int n = idx / qc, qq = idx - n * qc;
-        w_s[qq * WLD + n] = W[(size_t)n * Q + q0 + qq];
-      }
+    for (int idx = threadIdx.x; idx < qc * F; idx += kThreads) {
+      const int qq = idx / F, n = idx - qq * F;
+      w_s[qq * WLD + n] = W[(size_t)(q0 + qq) * F + n];
     }
     __syncthreads();
     for (int qq = 0; qq < qc; ++qq) {
@@ -143,79 +148,12 @@ __device__ __forceinline__ void gemm_rows(const float* __restrict__ A, int lda,
   }
 }
 
-// part[q*F + n] (+)= sum_p A1[p*lda + q] * B1[p*(F+1) + n]
-//                      (+ A2[p*lda + q] * B2[p*(F+1) + n] with TWO)
-// over the M slots of the tile, for q < qrows. Each element has one owning
-// thread and each block its own part, so no two threads ever write one
-// address. `init` (the block's first tile) overwrites instead of adding.
-template <int F, int M, bool TWO>
-__device__ void wgrad(const float* __restrict__ A1,
-                      const float* __restrict__ B1,
-                      const float* __restrict__ A2,
-                      const float* __restrict__ B2, int lda, int qrows,
-                      float* __restrict__ part, bool init) {
-  constexpr int C = F / 32;
-  constexpr int LD = F + 1;
-  constexpr int QC = 4;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  __syncthreads();
-  for (int g0 = 0; warp + kWarps * g0 < qrows; g0 += QC) {
-    float acc[QC][C];
-#pragma unroll
-    for (int g = 0; g < QC; ++g)
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc[g][c] = 0.0f;
-    for (int p = 0; p < M; ++p) {
-      float b1[C], b2[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        b1[c] = B1[p * LD + lane + 32 * c];
-        b2[c] = TWO ? B2[p * LD + lane + 32 * c] : 0.0f;
-      }
-#pragma unroll
-      for (int g = 0; g < QC; ++g) {
-        const int q = warp + kWarps * (g0 + g);
-        const float a1 = q < qrows ? A1[p * lda + q] : 0.0f;
-        const float a2 = (TWO && q < qrows) ? A2[p * lda + q] : 0.0f;
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          acc[g][c] = fmaf(a1, b1[c], acc[g][c]);
-          if (TWO) acc[g][c] = fmaf(a2, b2[c], acc[g][c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < QC; ++g) {
-      const int q = warp + kWarps * (g0 + g);
-      if (q < qrows) {
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          float* dst = part + (size_t)q * F + lane + 32 * c;
-          *dst = init ? acc[g][c] : *dst + acc[g][c];
-        }
-      }
-    }
-  }
-}
-
 // Row-side inputs of the block's TI atoms (zero past N): TI x F.
 __device__ void load_rows(const float* __restrict__ src, int b, int i0,
                           int N, int F, float* dst) {
   for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
     const int il = idx / F, f = idx - il * F;
     dst[idx] = i0 + il < N ? src[((size_t)b * N + i0 + il) * F + f] : 0.0f;
-  }
-}
-
-// Row-side Cartesian inputs (deq, dq, dqdot) of the TI atoms: 3 x TI x F.
-__device__ void load_rows3(const float* __restrict__ src, int b, int i0,
-                           int N, int F, float* dst) {
-  for (int idx = threadIdx.x; idx < 3 * TI * F; idx += kThreads) {
-    const int d = idx / (TI * F), rem = idx - d * (TI * F);
-    const int il = rem / F, f = rem - il * F;
-    dst[idx] = i0 + il < N
-                   ? src[(((size_t)b * 3 + d) * N + i0 + il) * F + f] : 0.0f;
   }
 }
 
@@ -313,7 +251,7 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
     __syncthreads();
     load_slots<TJ, false, E>(mask, dir, nullptr, rbf, nullptr, b, i0, k0, N,
                              K, R, mask_s, dir_s, nullptr, rbf_s, nullptr);
-    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me
+    gemm_rows<F, TJ>(rbf_s, R, R, We, w_s, acc);  // me
 #pragma unroll
     for (int r = 0; r < TJ; ++r) {
       const int p = warp * TJ + r, k = k0 + r;
@@ -329,13 +267,13 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
         inv_acc[c] += m;
       }
     }
-    gemm_rows<F, TJ, false>(msg_s, LD, F, W1a, w_s, acc);
+    gemm_rows<F, TJ>(msg_s, LD, F, W1a, w_s, acc);
 #pragma unroll
     for (int r = 0; r < TJ; ++r)
 #pragma unroll
       for (int c = 0; c < C; ++c)
         h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
-    gemm_rows<F, TJ, false>(h_s, LD, F, W1b, w_s, acc);
+    gemm_rows<F, TJ>(h_s, LD, F, W1b, w_s, acc);
 #pragma unroll
     for (int r = 0; r < TJ; ++r) {
       const int p = warp * TJ + r;
@@ -350,13 +288,13 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
       }
     }
     if (!FIRST) {
-      gemm_rows<F, TJ, false>(msg_s, LD, F, W2a, w_s, acc);
+      gemm_rows<F, TJ>(msg_s, LD, F, W2a, w_s, acc);
 #pragma unroll
       for (int r = 0; r < TJ; ++r)
 #pragma unroll
         for (int c = 0; c < C; ++c)
           h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
-      gemm_rows<F, TJ, false>(h_s, LD, F, W2b, w_s, acc);
+      gemm_rows<F, TJ>(h_s, LD, F, W2b, w_s, acc);
 #pragma unroll
       for (int r = 0; r < TJ; ++r) {
         const int p = warp * TJ + r, k = k0 + r;
@@ -384,241 +322,6 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
       for (int d = 0; d < 3; ++d)
         eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
     }
-  }
-}
-
-// ------------------------------------------------------------------ K6 --
-template <int F>
-constexpr size_t bwd_smem_floats(int R) {
-  constexpr int M = TI * TJ_P;
-  return (size_t)4 * M * (F + 1) + (size_t)KC * (F + 1) +
-         (size_t)R * (F + 1) + (size_t)5 * TI * F + (size_t)4 * M +
-         (size_t)M * R;
-}
-
-template <int F, bool FIRST, bool WGRAD, class E>
-__global__ void __launch_bounds__(kThreads, 1)
-klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
-                 const E* __restrict__ rbf, const float* __restrict__ dir,
-                 const float* __restrict__ mask, const float* __restrict__ We,
-                 const float* __restrict__ W1a, const float* __restrict__ W1b,
-                 const float* __restrict__ W2a, const float* __restrict__ W2b,
-                 const float* __restrict__ dinv1,
-                 const float* __restrict__ deq, float* __restrict__ dnpi,
-                 E* __restrict__ dcat, E* __restrict__ drbf,
-                 float* __restrict__ ddir, float* __restrict__ wpart, int N,
-                 int K, int R, int n_itiles) {
-  constexpr int TJ = TJ_P;
-  constexpr int M = TI * TJ;
-  constexpr int C = F / 32;
-  constexpr int LD = F + 1;
-  constexpr int CW = FIRST ? F : 4 * F;
-  extern __shared__ float smem[];
-  float* msg_s = smem;               // M x LD: msg
-  float* p_s = msg_s + M * LD;       // M x LD: p, then dp in place
-  float* h_s = p_s + M * LD;         // M x LD: h, then dme
-  float* x_s = h_s + M * LD;         // M x LD: dphi
-  float* w_s = x_s + M * LD;         // KC x LD
-  float* we_s = w_s + KC * LD;       // R x LD: We, resident
-  float* npi_s = we_s + R * LD;      // TI x F
-  float* g_s = npi_s + TI * F;       // 3 x TI x F: deq of the TI atoms
-  float* dinv_s = g_s + 3 * TI * F;  // TI x F
-  float* mask_s = dinv_s + TI * F;   // M
-  float* dir_s = mask_s + M;         // 3 x M
-  float* rbf_s = dir_s + 3 * M;      // M x R
-
-  const int b = blockIdx.x / n_itiles;
-  const int i0 = (blockIdx.x - b * n_itiles) * TI;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int i = i0 + warp;
-
-  load_rows(npi, b, i0, N, F, npi_s);
-  load_rows(dinv1, b, i0, N, F, dinv_s);
-  load_rows3(deq, b, i0, N, F, g_s);
-  for (int idx = threadIdx.x; idx < R * F; idx += kThreads) {
-    const int r = idx / F, f = idx - r * F;
-    we_s[r * LD + f] = We[idx];
-  }
-
-  float* wp = WGRAD ? wpart + (size_t)blockIdx.x * wgrad_size(F, R) : nullptr;
-  float dnp_acc[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) dnp_acc[c] = 0.0f;
-  float acc[TJ][C], dmsg[TJ][C];
-
-  for (int k0 = 0; k0 < K; k0 += TJ) {
-    const bool init = k0 == 0;
-    __syncthreads();
-    load_slots<TJ, false, E>(mask, dir, nullptr, rbf, nullptr, b, i0, k0, N,
-                             K, R, mask_s, dir_s, nullptr, rbf_s, nullptr);
-    // recompute msg
-    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r, k = k0 + r;
-      const bool ok = i < N && k < K;
-      const E* cj = cat + (ok ? slot_at(b, i, k, N, K) * CW : 0);
-      const float a = mask_s[p];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int f = lane + 32 * c;
-        const float npj = ok ? ld(cj + f) : 0.0f;
-        msg_s[p * LD + f] = acc[r][c] * npi_s[warp * F + f] * npj * a;
-      }
-    }
-
-    // ---- branch 1: phi1 = (silu(msg @ W1a) @ W1b) * mask
-    gemm_rows<F, TJ, false>(msg_s, LD, F, W1a, w_s, acc);
-#pragma unroll
-    for (int r = 0; r < TJ; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int o = (warp * TJ + r) * LD + lane + 32 * c;
-        p_s[o] = acc[r][c];
-        h_s[o] = silu_f(acc[r][c]);
-      }
-    gemm_rows<F, TJ, false>(h_s, LD, F, W1b, w_s, acc);
-    // ddir[d,i,k] = sum_f phi1 * deq[d,i]; dphi1 = sum_d deq[d,i] dir[d,i,k]
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r, k = k0 + r;
-      const float a = mask_s[p];
-      float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int f = lane + 32 * c;
-        const float phi = acc[r][c] * a;
-        const float g0 = g_s[warp * F + f];
-        const float g1 = g_s[(TI + warp) * F + f];
-        const float g2 = g_s[(2 * TI + warp) * F + f];
-        s0 += phi * g0;
-        s1 += phi * g1;
-        s2 += phi * g2;
-        x_s[p * LD + f] =
-            (g0 * dir_s[p] + g1 * dir_s[M + p] + g2 * dir_s[2 * M + p]) * a;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-        s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-        s2 += __shfl_xor_sync(0xffffffffu, s2, off);
-      }
-      if (lane == 0 && i < N && k < K) {
-        ddir[slot_at(b * 3 + 0, i, k, N, K)] = s0;
-        ddir[slot_at(b * 3 + 1, i, k, N, K)] = s1;
-        ddir[slot_at(b * 3 + 2, i, k, N, K)] = s2;
-      }
-    }
-    if (WGRAD)
-      wgrad<F, M, false>(h_s, x_s, nullptr, nullptr, LD, F,
-                         wp + (size_t)R * F + F * F, init);
-    gemm_rows<F, TJ, true>(x_s, LD, F, W1b, w_s, acc);  // dh1
-#pragma unroll
-    for (int r = 0; r < TJ; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int o = (warp * TJ + r) * LD + lane + 32 * c;
-        p_s[o] = acc[r][c] * dsilu_f(p_s[o]);  // dp1
-      }
-    if (WGRAD)
-      wgrad<F, M, false>(msg_s, p_s, nullptr, nullptr, LD, F,
-                         wp + (size_t)R * F, init);
-    gemm_rows<F, TJ, true>(p_s, LD, F, W1a, w_s, dmsg);
-
-    // ---- branch 2 (skipped at the first layer: force_node is zero)
-    if (!FIRST) {
-      gemm_rows<F, TJ, false>(msg_s, LD, F, W2a, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          p_s[o] = acc[r][c];
-          h_s[o] = silu_f(acc[r][c]);
-        }
-      gemm_rows<F, TJ, false>(h_s, LD, F, W2b, w_s, acc);
-      // dcat[force_j[d]] = phi2 * deq[d,i]; dphi2 = sum_d deq[d,i] force_j[d]
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const int p = warp * TJ + r, k = k0 + r;
-        const bool ok = i < N && k < K;
-        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
-        const float a = mask_s[p];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          const float phi = acc[r][c] * a;
-          float dphi = 0.0f;
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float g = g_s[(d * TI + warp) * F + f];
-            if (ok) {
-              st(dcat + at + (d + 1) * F + f, phi * g);
-              dphi += g * ld(cat + at + (d + 1) * F + f);
-            }
-          }
-          x_s[p * LD + f] = dphi * a;
-        }
-      }
-      if (WGRAD)
-        wgrad<F, M, false>(h_s, x_s, nullptr, nullptr, LD, F,
-                           wp + (size_t)R * F + 3 * F * F, init);
-      gemm_rows<F, TJ, true>(x_s, LD, F, W2b, w_s, acc);  // dh2
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int o = (warp * TJ + r) * LD + lane + 32 * c;
-          p_s[o] = acc[r][c] * dsilu_f(p_s[o]);  // dp2
-        }
-      if (WGRAD)
-        wgrad<F, M, false>(msg_s, p_s, nullptr, nullptr, LD, F,
-                           wp + (size_t)R * F + 2 * F * F, init);
-      gemm_rows<F, TJ, true>(p_s, LD, F, W2a, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c) dmsg[r][c] += acc[r][c];
-    }
-
-    // ---- dmsg3 = (dmsg + dinv1_i) * mask; dnpi, dcat[np_j], dme, drbf, dWe
-    gemm_rows<F, TJ, false>(rbf_s, R, R, We, w_s, acc);  // me again
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r, k = k0 + r;
-      const bool ok = i < N && k < K;
-      const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
-      const float a = mask_s[p];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int f = lane + 32 * c;
-        const float d3 = (dmsg[r][c] + dinv_s[warp * F + f]) * a;
-        const float t = d3 * acc[r][c];
-        const float ni = npi_s[warp * F + f];
-        const float nj = ok ? ld(cat + at + f) : 0.0f;
-        dnp_acc[c] += t * nj;
-        if (ok) st(dcat + at + f, t * ni);
-        h_s[p * LD + f] = d3 * ni * nj;  // dme
-      }
-    }
-    __syncthreads();
-    // drbf[i,k,r] = sum_f dme[i,k,f] * We[r,f]
-    for (int idx = threadIdx.x; idx < M * R; idx += kThreads) {
-      const int p = idx / R, r = idx - p * R;
-      const int ii = i0 + p / TJ, k = k0 + p % TJ;
-      float s = 0.0f;
-      for (int f = 0; f < F; ++f) s += h_s[p * LD + f] * we_s[r * LD + f];
-      if (ii < N && k < K) st(drbf + slot_at(b, ii, k, N, K) * R + r, s);
-    }
-    if (WGRAD)
-      wgrad<F, M, false>(rbf_s, h_s, nullptr, nullptr, R, R, wp, init);
-  }
-
-  if (i < N) {
-#pragma unroll
-    for (int c = 0; c < C; ++c)
-      dnpi[((size_t)b * N + i) * F + lane + 32 * c] = dnp_acc[c];
   }
 }
 
@@ -714,6 +417,16 @@ __device__ __forceinline__ void split_tf32(float x, unsigned& hi,
                                            unsigned& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// split_tf32 in three integer and float operations instead of five, for
+// operands that go straight to mma_tf32, which reads the top 19 bits of
+// each word: hi is x plus half a tf32 ulp (the mma's truncation of it is
+// tf32_rna(x)) and lo = x - tf32_rna(x) whole (truncated by the mma).
+__device__ __forceinline__ void split_tf32_mma(float x, unsigned& hi,
+                                               unsigned& lo) {
+  hi = __float_as_uint(x) + 0x1000u;
+  lo = __float_as_uint(x - __uint_as_float(hi & 0xffffe000u));
 }
 
 // d += a b in 3xTF32, the small terms first.
@@ -841,22 +554,24 @@ __device__ __forceinline__ void mma_rows(const float* __restrict__ A,
       acc[r][c] = c_s[(warp * TJ_D + r) * LD + lane + 32 * c];
 }
 
-// part[q*F + n] (+)= sum_p A1[p*lda + q] B1[p*LD + n] + A2[p*lda + q]
-// B2[p*LD + n] over the tile's 32 slots, q < qrows, as 16 x 8 tensor-core
-// tiles in 3xTF32: warp w takes the (16-row, 32-column) groups w, w + 8,
-// ..., sums its 16 x 32 block in registers and adds it to the block's
-// partial once (`init`, the block's first tile: overwrites). The partial's
-// old values are loaded before the products, so their latency hides behind
-// them. Each element has one owning thread and each block its own partial.
-// Not inlined, as mma_product.
-template <int F>
+// part[q*F + n] (+)= sum_p a1(p, q) B1[p*LD + n] (+ A2[p*lda + q] B2[p*LD +
+// n] with TWO) over the tile's M slots (a multiple of 32), q < qrows, where
+// a1(p, q) = A1[p*lda + q], or silu_fast of it with SILU (h from p), as 16
+// x 8 tensor-core tiles in 3xTF32: warp w takes the (16-row, 32-column) groups
+// w, w + 8, ..., sums each 32 slots' products in fresh registers, adds them
+// on the CUDA cores and adds the block's 16 x 32 block to its partial once
+// (`init`, the block's first tile: overwrites). The partial's old values
+// are loaded before the products, so their latency hides behind them. Each
+// element has one owning thread and each block its own partial. Starts
+// with a __syncthreads. Not inlined, as mma_product. K8 takes 32 slots and
+// two sources, K6 64 slots and one.
+template <int F, int M = TI * TJ_D, bool SILU = false, bool TWO = true>
 __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
                          const float* __restrict__ B1,
                          const float* __restrict__ A2,
                          const float* __restrict__ B2, int lda, int qrows,
                          float* __restrict__ part, bool init) {
   constexpr int LD = K8Shape<F>::LD;
-  constexpr int M = TI * TJ_D;
   constexpr int NG = F / 32;  // 32-column groups per 16-row band
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
@@ -865,7 +580,7 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
   for (int grp = warp; grp < n_groups; grp += kWarps) {
     const int qa = (grp / NG) * 16 + g, qb = qa + 8;
     const int nb = (grp % NG) * 32;
-    float d[4][4], old[4][4];
+    float acc[4][4], old[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = nb + j * 8 + 2 * t;
@@ -875,30 +590,45 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
         const bool keep = !init && q < qrows;
         old[j][2 * h] = keep ? part[(size_t)q * F + n] : 0.0f;
         old[j][2 * h + 1] = keep ? part[(size_t)q * F + n + 1] : 0.0f;
-        d[j][2 * h] = d[j][2 * h + 1] = 0.0f;
       }
     }
 #pragma unroll
-    for (int src = 0; src < 2; ++src) {
-      const float* A = src == 0 ? A1 : A2;
-      const float* B = src == 0 ? B1 : B2;
+    for (int half = 0; half < M / 32; ++half) {
+      float d[4][4];
 #pragma unroll
-      for (int kk = 0; kk < M; kk += 8) {
-        const int p = kk + t;
-        unsigned ah[4], al[4];
-        split_tf32(qa < qrows ? A[p * lda + qa] : 0.0f, ah[0], al[0]);
-        split_tf32(qb < qrows ? A[p * lda + qb] : 0.0f, ah[1], al[1]);
-        split_tf32(qa < qrows ? A[(p + 4) * lda + qa] : 0.0f, ah[2], al[2]);
-        split_tf32(qb < qrows ? A[(p + 4) * lda + qb] : 0.0f, ah[3], al[3]);
+      for (int j = 0; j < 4; ++j)
+        d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = nb + j * 8 + g;
-          unsigned bh[2], bl[2];
-          split_tf32(B[p * LD + n], bh[0], bl[0]);
-          split_tf32(B[(p + 4) * LD + n], bh[1], bl[1]);
-          mma3(d[j], ah, al, bh, bl);
+      for (int src = 0; src < (TWO ? 2 : 1); ++src) {
+        const float* A = src == 0 ? A1 : A2;
+        const float* B = src == 0 ? B1 : B2;
+        const bool silu = SILU && src == 0;
+#pragma unroll
+        for (int kk = half * 32; kk < half * 32 + 32; kk += 8) {
+          const int p = kk + t;
+          float av[4] = {qa < qrows ? A[p * lda + qa] : 0.0f,
+                         qb < qrows ? A[p * lda + qb] : 0.0f,
+                         qa < qrows ? A[(p + 4) * lda + qa] : 0.0f,
+                         qb < qrows ? A[(p + 4) * lda + qb] : 0.0f};
+          unsigned ah[4], al[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            split_tf32(silu ? silu_fast(av[e]) : av[e], ah[e], al[e]);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int n = nb + j * 8 + g;
+            unsigned bh[2], bl[2];
+            split_tf32(B[p * LD + n], bh[0], bl[0]);
+            split_tf32(B[(p + 4) * LD + n], bh[1], bl[1]);
+            mma3(d[j], ah, al, bh, bl);
+          }
         }
       }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[j][e] = half == 0 ? d[j][e] : acc[j][e] + d[j][e];
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -907,8 +637,8 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
       for (int h = 0; h < 2; ++h) {
         const int q = h == 0 ? qa : qb;
         if (q >= qrows) continue;
-        part[(size_t)q * F + n] = old[j][2 * h] + d[j][2 * h];
-        part[(size_t)q * F + n + 1] = old[j][2 * h + 1] + d[j][2 * h + 1];
+        part[(size_t)q * F + n] = old[j][2 * h] + acc[j][2 * h];
+        part[(size_t)q * F + n + 1] = old[j][2 * h + 1] + acc[j][2 * h + 1];
       }
     }
   }
@@ -1684,6 +1414,631 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
   }
 }
 
+// ------------------------------------------------------------------ K6 --
+// K6 is its own design too: the K-list twin of K2 (csrc/fused_dense.cu),
+// the same chain over list slots. What bounds it: its products, 2(2RF +
+// 8F^2) flops per slot at a full layer (98 GFLOP per full layer at the box
+// shape B=1, N=4096, K=88, F=128, R=20), above the fp32 ridge. The
+// CUDA-core version fed every FMA from shared memory, loaded each weight
+// chunk with no product in flight, computed me twice per tile and drbf as
+// scalar dot products; K7 and K2 moved to the tensor cores but stream all
+// their weights from L2 for every 32-slot tile (1.1 MB of tf32 pairs per
+// tile here). So:
+//
+// * 64-slot tiles: one block of 8 warps walks (molecule, 8 atoms) tiles
+//   blockIdx, blockIdx + gridDim, ... (at most one block per SM: the
+//   wrapper passes the SM count), each in steps of TJ6 = 8 list slots: 64
+//   slot rows per step, so every staged weight chunk feeds 64 rows and a
+//   full layer streams half the weight bytes of a 32-slot tile design.
+//   Warp w owns the 8 slots of atom i0+w and lane l the feature columns
+//   l+32c in the elementwise chain, so the sums over k (dnpi) are per-thread
+//   register sums and ddir a warp sum; no sum crosses blocks except the
+//   weight cotangents.
+// * Products on the tensor cores (k6_prod): mma.sync m16n8k8 tf32 in
+//   3xTF32 (hi = tf32(x), lo = tf32(x - hi), lo*hi + hi*lo + hi*hi in fp32;
+//   no 1xTF32), 64 x Q @ Q x NB, warp w taking the 32 rows (w & 1) and NB/4
+//   columns: 2 NB/32 independent 16 x 8 tiles per product. Each chunk's
+//   products accumulate in fresh registers and are added to the running
+//   sum on the CUDA cores. p1/p2 run paired (one pass, both from msg, its
+//   A fragments split once for both) and dmsg = dp1 W1a^T + dp2 W2a^T as
+//   one summed pass; phi and dh run per branch (each warp already has 8
+//   tiles in flight per product, and a fifth 64-row buffer for pairing
+//   them would not fit beside the ring). me is computed once per tile and
+//   kept; drbf = dme We^T is a product (32 columns r at a time).
+// * Weights split once per launch: klist_bwd_prep_kernel writes them as
+//   (hi, lo) tf32 pairs into the launch's scratch, chunk-major in the order
+//   the step multiplies them and swizzled as a ring slot holds them, so a
+//   chunk stages as one contiguous run of 16-byte cp.async copies
+//   (per-row staging, its index arithmetic issued by every thread, cost
+//   more than a millisecond of a box launch). They stream through a
+//   two-slot ring of 32 depth steps of one weight, or 16 of each of two:
+//   one chunk in flight while one multiplies, and the stream runs across
+//   products and tiles (a product stages the first chunk of the one after
+//   it), so no product starts on an empty ring. Smaller chunks in a deeper
+//   ring (16 depth steps, five slots) ran slower: each chunk costs a
+//   barrier and a drain of the products in flight. Ring rows are
+//   XOR-swizzled, so the B fragments' 64-bit loads take the minimum two
+//   wavefronts. Slot operands are fp32 (row stride F + 4: conflict-free A
+//   fragment loads) and split at fragment load in three operations
+//   (split_tf32_mma: the mma itself truncates to tf32).
+// * Activations with the fast exponential and division (silu_fast,
+//   dsilu_fast): the IEEE ones cost a fifth of the launch.
+// * The next step's edge rows (cat, rbf) are prefetched into L2 at the
+//   start of a step, so the chain's reads of np_j and force_j wait on L2.
+// * Weight cotangents (WGRAD, off in the force pass) on the same tensor
+//   cores (wgrad_tc over 64 slots): each block adds them into its one
+//   partial, and klist_wsum_kernel sums the partials in a fixed order. No
+//   float atomics: a run gives the same bits every time.
+// * Shared memory at F=128, R=20: the ring 64 KB, four fp32 slot buffers
+//   (me; msg, h1, phi1, dphi1, dh1, dp1, dmsg; p1, then h2 ... dp2, dme;
+//   p2, then msg again for WGRAD) 132 KB, rbf (then drbf) 9 KB, the row
+//   inputs 8 KB: 214 KB, one block per SM.
+constexpr int TJ6 = 8;         // list slots per atom in a K6 step
+constexpr int M6 = TI * TJ6;   // slot rows of a K6 step
+constexpr int K6_RW = 32;      // depth pairs of one weight in a ring slot
+
+template <int F>
+struct K6Shape {
+  static constexpr int LD = F + 4;       // fp32 slot buffers (M6 x LD)
+  static constexpr int RING = K6_RW * F;  // pairs per ring slot
+};
+
+template <int F>
+constexpr size_t k6_smem_floats(int R) {
+  using S = K6Shape<F>;
+  return (size_t)4 * S::RING + (size_t)4 * M6 * S::LD +
+         (size_t)M6 * (pad32(R) + 4) + (size_t)2 * TI * F + (size_t)4 * M6;
+}
+
+// K6's prepared weights, in (hi, lo) tf32 pairs: the products of a step in
+// the order it runs them (me, p, phi1, dh1, phi2, dh2, dmsg, then drbf 32
+// columns at a time; the first layer has no phi2 and dh2, and its p and
+// dmsg take one weight), each chunk-major and swizzled as a ring slot
+// holds it, so that a chunk stages as one contiguous copy. Product p is
+// B(q, n), n < nb, q < qp, in chunks of 32 depth steps of one weight (rows
+// n of 32 pairs), or of 16 of each of two (rows x*nb + n of 16 pairs);
+// pair q of row r of a chunk sits at r*rw + (q ^ 4(r & 3)), so that the B
+// fragments' 64-bit loads take the minimum two wavefronts.
+struct K6P {
+  int src;     // B(q, n) = 0: We[q][n], 1: W[q][n], 2: W[n][q], 3: We[n][q]
+  int w1, w2;  // W1a, W1b, W2a or W2b (0-3); w2 < 0: one weight
+  int nb, qp;  // rows and depth
+  int row0;    // src 3: the first row of We
+};
+
+__host__ __device__ inline int k6_n_products(int R, bool first) {
+  return (first ? 5 : 7) + pad32(R) / 32;
+}
+
+__host__ __device__ inline K6P k6_product(int p, int F, int R, bool first) {
+  const int d = first ? 4 : 6;  // dmsg
+  if (p == 0) return {0, 0, -1, F, pad32(R), 0};          // me
+  if (p == 1) return {1, 0, first ? -1 : 2, F, F, 0};     // p1, p2
+  if (p == 2) return {1, 1, -1, F, F, 0};                 // phi1
+  if (p == 3) return {2, 1, -1, F, F, 0};                 // dh1
+  if (p == 4 && !first) return {1, 3, -1, F, F, 0};       // phi2
+  if (p == 5 && !first) return {2, 3, -1, F, F, 0};       // dh2
+  if (p == d) return {2, 0, first ? -1 : 2, F, F, 0};     // dmsg
+  return {3, 0, -1, 32, F, 32 * (p - d - 1)};             // drbf
+}
+
+__host__ __device__ inline size_t k6_product_pairs(const K6P& q) {
+  return (size_t)q.nb * q.qp * (q.w2 >= 0 ? 2 : 1);
+}
+
+// pairs of the prepared weights (the full layer's table, the larger)
+__host__ __device__ inline size_t k6_prep_pairs(int F, int R) {
+  size_t n = 0;
+  for (int p = 0; p < k6_n_products(R, false); ++p)
+    n += k6_product_pairs(k6_product(p, F, R, false));
+  return n;
+}
+
+__global__ void klist_bwd_prep_kernel(const float* __restrict__ We,
+                                      const float* __restrict__ W1a,
+                                      const float* __restrict__ W1b,
+                                      const float* __restrict__ W2a,
+                                      const float* __restrict__ W2b,
+                                      uint2* __restrict__ out, int F, int R,
+                                      int first) {
+  const float* Ws[4] = {W1a, W1b, W2a, W2b};
+  const int np = k6_n_products(R, first != 0);
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;;
+       e += (size_t)gridDim.x * blockDim.x) {
+    size_t base = 0;  // the product of e
+    int p = 0;
+    K6P q = k6_product(0, F, R, first != 0);
+    while (e >= base + k6_product_pairs(q)) {
+      base += k6_product_pairs(q);
+      if (++p == np) return;
+      q = k6_product(p, F, R, first != 0);
+    }
+    const int rw = q.w2 >= 0 ? 16 : 32;
+    const size_t local = e - base, chunk = (size_t)32 * q.nb;
+    const int ch = (int)(local / chunk), rem = (int)(local % chunk);
+    const int r = rem / rw, j = rem - r * rw;
+    const int dq = ch * rw + (j ^ ((r & 3) << 2)), x = r / q.nb;
+    const int n = r - x * q.nb;
+    const float* W = Ws[x ? q.w2 : q.w1];
+    float v;
+    if (q.src == 0)
+      v = dq < R ? We[(size_t)dq * F + n] : 0.0f;
+    else if (q.src == 1)
+      v = W[(size_t)dq * F + n];
+    else if (q.src == 2)
+      v = W[(size_t)n * F + dq];
+    else
+      v = q.row0 + n < R ? We[(size_t)(q.row0 + n) * F + dq] : 0.0f;
+    out[e] = split2(v);
+  }
+}
+
+// A product's prepared weight: chunks of 32 nb pairs from b, qp depth
+// steps in all.
+struct K6W {
+  const uint2* b;
+  int qp, nb;
+};
+
+// Chunk ch of w into a ring slot: one contiguous copy (the preparation
+// laid it out as the slot holds it), by 16-byte cp.async copies.
+__device__ __forceinline__ void k6_stage(const K6W& w, int ch, uint2* slot) {
+  const uint2* src = w.b + (size_t)ch * 32 * w.nb;
+  for (int v = threadIdx.x; v < 16 * w.nb; v += kThreads)
+    cp_async16(slot + 2 * v, src + 2 * v);
+}
+
+// For the step's 64 slot rows m and n < NB, q < cur.qp, in 3xTF32: MODE 0
+// D1 = A1 B1; MODE 1 (pair) D1 = A1 B1 and D2 = A1 B2; MODE 2 (sum) D1 =
+// A1 B1 + A2 B2, where A is fp32 at row stride lda (zeros past the true
+// depth) and B the prepared weight of cur (k6_product's layout). Chunk 0
+// of cur sits in ring slot `slot`, staged by the product before; while
+// its last chunk multiplies this product stages chunk 0 of `next` (none if
+// next.b is null) and returns that chunk's slot. Every warp reads every A
+// row after the loop's first barrier and D is written after a barrier
+// that follows the last read, so A may be written just before the call
+// and D may be A. Ends with a __syncthreads. All threads of the block must
+// call it. Not inlined (code size).
+template <int F, int NB, int MODE>
+__device__ __noinline__ int k6_prod(const float* A1, const float* A2,
+                                    int lda, K6W cur, K6W next, int slot,
+                                    uint2* ring, float* D1, float* D2,
+                                    int ldd) {
+  constexpr int NT = NB / 32;            // 16 x 8 tiles per row group
+  constexpr int NX = MODE == 0 ? 1 : 2;  // weights per chunk
+  constexpr int ND = MODE == 1 ? 2 : 1;  // products kept apart
+  constexpr int RW = K6_RW / NX;         // pairs per ring row
+  constexpr int RING = K6Shape<F>::RING;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * (NB / 4);
+  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
+  const int nch = cur.qp / RW;
+  float tot[ND][2][NT][4];
+#pragma unroll
+  for (int o = 0; o < ND; ++o)
+#pragma unroll
+    for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        tot[o][rg][j][0] = tot[o][rg][j][1] = tot[o][rg][j][2] =
+            tot[o][rg][j][3] = 0.0f;
+  for (int ch = 0; ch < nch; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+    uint2* other = ring + (slot ^ 1) * RING;
+    if (ch + 1 < nch)
+      k6_stage(cur, ch + 1, other);
+    else if (next.b != nullptr)
+      k6_stage(next, 0, other);
+    cp_async_commit();
+    const uint2* wc = ring + slot * RING;
+    float d[ND][2][NT][4];
+#pragma unroll
+    for (int o = 0; o < ND; ++o)
+#pragma unroll
+      for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          d[o][rg][j][0] = d[o][rg][j][1] = d[o][rg][j][2] =
+              d[o][rg][j][3] = 0.0f;
+#pragma unroll
+    for (int s = 0; s < RW / 8; ++s) {
+      const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
+      unsigned ah[2][4], al[2][4];
+#pragma unroll
+      for (int x = 0; x < NX; ++x) {
+        if (x == 0 || MODE == 2) {
+          const float* A = x == 0 ? A1 : A2;
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) {
+            const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
+            const float* r8 = r0 + (size_t)8 * lda;
+            split_tf32_mma(r0[k], ah[rg][0], al[rg][0]);
+            split_tf32_mma(r8[k], ah[rg][1], al[rg][1]);
+            split_tf32_mma(r0[k + 4], ah[rg][2], al[rg][2]);
+            split_tf32_mma(r8[k + 4], ah[rg][3], al[rg][3]);
+          }
+        }
+        unsigned bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint2* w = wc + (x * NB + n0 + j * 8 + g) * RW;
+          const uint2 b0 = w[(s * 8) ^ o0], b4 = w[(s * 8) ^ o0 ^ 4];
+          bh[j][0] = b0.x, bh[j][1] = b4.x, bl[j][0] = b0.y, bl[j][1] = b4.y;
+        }
+        const int o = MODE == 1 ? x : 0;
+        // lo*hi, hi*lo, hi*hi of every tile in turn: 2 NT independent
+        // accumulators between two dependent products
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[o][rg][j], al[rg], bh[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[o][rg][j], ah[rg], bl[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[o][rg][j], ah[rg], bh[j]);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < ND; ++o)
+#pragma unroll
+      for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[o][rg][j][e] += d[o][rg][j][e];
+    slot ^= 1;
+  }
+  __syncthreads();  // every warp is done reading A: D may overwrite it
+#pragma unroll
+  for (int o = 0; o < ND; ++o) {
+    float* D = o == 0 ? D1 : D2;
+#pragma unroll
+    for (int rg = 0; rg < 2; ++rg)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {  // (n, n + 1) as one 8-byte store
+        const int m = m0 + rg * 16 + g, n = n0 + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(D + m * ldd + n) =
+            make_float2(tot[o][rg][j][0], tot[o][rg][j][1]);
+        *reinterpret_cast<float2*>(D + (m + 8) * ldd + n) =
+            make_float2(tot[o][rg][j][2], tot[o][rg][j][3]);
+      }
+  }
+  __syncthreads();
+  return slot;
+}
+
+// The step's per-slot mask and dir (fp32), and rbf in fp32 at row stride
+// lr, zeros from R to pad32(R). Slots past N or K read as zero, so they
+// contribute nothing and stay finite (silu(0) = 0).
+template <class E>
+__device__ void k6_load_slots(const float* __restrict__ mask,
+                              const float* __restrict__ dir,
+                              const E* __restrict__ rbf, int b, int i0,
+                              int k0, int N, int K, int R, int lr,
+                              float* mask_s, float* dir_s, float* rbf_s) {
+  for (int idx = threadIdx.x; idx < 4 * M6; idx += kThreads) {
+    const int gi = idx / M6, p = idx - gi * M6;  // 0: mask, 1-3: dir
+    const int i = i0 + p / TJ6, k = k0 + p % TJ6;
+    const bool ok = i < N && k < K;
+    if (gi == 0)
+      mask_s[p] = ok ? mask[slot_at(b, i, k, N, K)] : 0.0f;
+    else
+      dir_s[(gi - 1) * M6 + p] =
+          ok ? dir[slot_at(b * 3 + gi - 1, i, k, N, K)] : 0.0f;
+  }
+  const int Rp = pad32(R);
+  for (int idx = threadIdx.x; idx < M6 * Rp; idx += kThreads) {
+    const int p = idx / Rp, r = idx - p * Rp;
+    const int i = i0 + p / TJ6, k = k0 + p % TJ6;
+    rbf_s[p * lr + r] = i < N && k < K && r < R
+                            ? ld(rbf + slot_at(b, i, k, N, K) * R + r)
+                            : 0.0f;
+  }
+}
+
+template <int F, bool FIRST, bool WGRAD, class E>
+__global__ void __launch_bounds__(kThreads, 1)
+klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
+                 const E* __restrict__ rbf, const float* __restrict__ dir,
+                 const float* __restrict__ mask,
+                 const uint2* __restrict__ wprep,
+                 const float* __restrict__ dinv1,
+                 const float* __restrict__ deq, float* __restrict__ dnpi,
+                 E* __restrict__ dcat, E* __restrict__ drbf,
+                 float* __restrict__ ddir, float* __restrict__ wpart, int N,
+                 int K, int R, int n_itiles, int n_tiles) {
+  using S = K6Shape<F>;
+  constexpr int TJ = TJ6, M = M6;
+  constexpr int C = F / 32;
+  constexpr int LD = S::LD;
+  constexpr int CW = FIRST ? F : 4 * F;
+  const int Rp = pad32(R), lr = Rp + 4;
+  extern __shared__ float smem[];
+  uint2* ring = reinterpret_cast<uint2*>(smem);  // 2 x RING
+  float* me_s = smem + 4 * S::RING;  // M x LD: me
+  float* x_s = me_s + M * LD;        // M x LD: msg, h1, phi1, dphi1, dh1,
+                                     //   dp1, dmsg
+  float* y_s = x_s + M * LD;         // M x LD: p1, then h2, phi2, dphi2,
+                                     //   dh2, dp2, dme
+  float* z_s = y_s + M * LD;         // M x LD: p2, then msg (WGRAD)
+  float* rbf_s = z_s + M * LD;       // M x lr: rbf, then drbf
+  float* npi_s = rbf_s + M * lr;     // TI x F
+  float* dinv_s = npi_s + TI * F;    // TI x F
+  float* mask_s = dinv_s + TI * F;   // M
+  float* dir_s = mask_s + M;         // 3 x M
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // the products of a step, in the order of the prepared weights
+  const uint2* wb = wprep;
+  auto next_w = [&](int qp, int two) {
+    const K6W w = {wb, qp, F};
+    wb += (size_t)F * qp * (two ? 2 : 1);
+    return w;
+  };
+  const K6W w_me = next_w(Rp, 0);
+  const K6W w_p = next_w(F, !FIRST);
+  const K6W w_phi1 = next_w(F, 0), w_dh1 = next_w(F, 0);
+  const K6W w_phi2 = FIRST ? w_dh1 : next_w(F, 0);
+  const K6W w_dh2 = FIRST ? w_dh1 : next_w(F, 0);
+  const K6W w_dmsg = next_w(F, !FIRST);
+  const uint2* w_rbf = wb;  // 32 x F pairs for each 32 columns r
+  const K6W none = {nullptr, 0, 0};
+  // the block's weight partial: dWe, then dW1a, dW1b, dW2a, dW2b
+  float* wp = WGRAD ? wpart + (size_t)blockIdx.x * wgrad_size(F, R) : nullptr;
+  float* wp1a = WGRAD ? wp + (size_t)R * F : nullptr;
+  const size_t ff = (size_t)F * F;
+
+  int slot = 0;  // the ring slot of the next product's first chunk
+  if ((int)blockIdx.x < n_tiles) k6_stage(w_me, 0, ring);
+  cp_async_commit();
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const bool first_tile = tile == (int)blockIdx.x;
+    const int b = tile / n_itiles;
+    const int i0 = (tile - b * n_itiles) * TI;
+    const int i = i0 + warp;
+    __syncthreads();  // the last tile's reads of the row buffers are done
+    load_rows(npi, b, i0, N, F, npi_s);
+    load_rows(dinv1, b, i0, N, F, dinv_s);
+    // deq of the warp's atom (zero past N), read through L1 where used
+    auto deq_at = [&](int d, int f) {
+      return i < N ? __ldg(deq + (((size_t)b * 3 + d) * N + i) * F + f)
+                   : 0.0f;
+    };
+    float dnp_acc[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) dnp_acc[c] = 0.0f;
+
+    for (int k0 = 0; k0 < K; k0 += TJ) {
+      const bool init = first_tile && k0 == 0;
+      const bool more = k0 + TJ < K || tile + (int)gridDim.x < n_tiles;
+      if (k0 + TJ < K) {  // the next step's edge rows into L2
+        const int kn = k0 + TJ, nk = min(TJ, K - kn);
+        const int lines = (nk * CW * (int)sizeof(E) + 127) / 128;
+        const int rlines = (nk * R * (int)sizeof(E) + 127) / 128;
+        for (int v = threadIdx.x; v < TI * (lines + rlines); v += kThreads) {
+          const int il = v / (lines + rlines), l = v - il * (lines + rlines);
+          if (i0 + il >= N) continue;
+          const size_t at = slot_at(b, i0 + il, kn, N, K);
+          prefetch_l2(l < lines ? reinterpret_cast<const char*>(cat + at * CW)
+                                      + l * 128
+                                : reinterpret_cast<const char*>(rbf + at * R)
+                                      + (l - lines) * 128);
+        }
+      }
+      __syncthreads();  // the last step's reads of the slot buffers are done
+      k6_load_slots<E>(mask, dir, rbf, b, i0, k0, N, K, R, lr, mask_s, dir_s,
+                       rbf_s);
+      slot = k6_prod<F, F, 0>(rbf_s, nullptr, lr, w_me, w_p, slot, ring,
+                              me_s, nullptr, LD);  // me
+      // msg = me np_i np_j mask, np_j from cat
+      auto msg_into = [&](float* dst) {
+#pragma unroll
+        for (int r = 0; r < TJ; ++r) {
+          const int p = warp * TJ + r, k = k0 + r;
+          const bool ok = i < N && k < K;
+          const E* cj = cat + (ok ? slot_at(b, i, k, N, K) * CW : 0);
+          const float a = mask_s[p];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int f = lane + 32 * c;
+            const float npj = ok ? ld(cj + f) : 0.0f;
+            dst[p * LD + f] = me_s[p * LD + f] * npi_s[warp * F + f] * npj * a;
+          }
+        }
+      };
+      msg_into(x_s);
+      // p1, p2 (the second branch is skipped at the first layer: force_node
+      // is zero)
+      if (FIRST)
+        slot = k6_prod<F, F, 0>(x_s, nullptr, LD, w_p, w_phi1, slot, ring,
+                                y_s, nullptr, LD);
+      else
+        slot = k6_prod<F, F, 1>(x_s, nullptr, LD, w_p, w_phi1, slot, ring,
+                                y_s, z_s, LD);
+      // ---- branch 1: h1 = silu(p1), phi1 = (h1 @ W1b) mask
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          x_s[o] = silu_fast(y_s[o]);
+        }
+      slot = k6_prod<F, F, 0>(x_s, nullptr, LD, w_phi1, w_dh1, slot, ring,
+                              x_s, nullptr, LD);
+      // ddir[d,i,k] = sum_f phi1 deq[d,i]; dphi1 = sum_d deq[d,i] dir[d,i,k]
+      {
+        float gq[3][C];
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+#pragma unroll
+          for (int c = 0; c < C; ++c) gq[d][c] = deq_at(d, lane + 32 * c);
+#pragma unroll
+        for (int r = 0; r < TJ; ++r) {
+          const int p = warp * TJ + r, k = k0 + r;
+          const float a = mask_s[p];
+          const float d0 = dir_s[p], d1 = dir_s[M + p], d2 = dir_s[2 * M + p];
+          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int o = p * LD + lane + 32 * c;
+            const float phi = x_s[o] * a;
+            s0 += phi * gq[0][c];
+            s1 += phi * gq[1][c];
+            s2 += phi * gq[2][c];
+            x_s[o] = (gq[0][c] * d0 + gq[1][c] * d1 + gq[2][c] * d2) * a;
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+            s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+            s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+          }
+          if (lane == 0 && i < N && k < K) {
+            ddir[slot_at(b * 3 + 0, i, k, N, K)] = s0;
+            ddir[slot_at(b * 3 + 1, i, k, N, K)] = s1;
+            ddir[slot_at(b * 3 + 2, i, k, N, K)] = s2;
+          }
+        }
+      }
+      if (WGRAD)  // dW1b = h1^T dphi1, h1 = silu(p1)
+        wgrad_tc<F, M, true, false>(y_s, x_s, nullptr, nullptr, LD, F,
+                                    wp1a + ff, init);
+      // dh1 = dphi1 @ W1b^T; dp1 = dh1 silu'(p1)
+      slot = k6_prod<F, F, 0>(x_s, nullptr, LD, w_dh1,
+                              FIRST ? w_dmsg : w_phi2, slot, ring, x_s,
+                              nullptr, LD);
+#pragma unroll
+      for (int r = 0; r < TJ; ++r)
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int o = (warp * TJ + r) * LD + lane + 32 * c;
+          x_s[o] = x_s[o] * dsilu_fast(y_s[o]);
+        }
+
+      // ---- branch 2: phi2 = (silu(p2) @ W2b) mask, in y_s
+      if (!FIRST) {
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int o = (warp * TJ + r) * LD + lane + 32 * c;
+            y_s[o] = silu_fast(z_s[o]);
+          }
+        slot = k6_prod<F, F, 0>(y_s, nullptr, LD, w_phi2, w_dh2, slot, ring,
+                                y_s, nullptr, LD);
+        // dcat[force_j[d]] = phi2 deq[d,i]; dphi2 = sum_d deq[d,i] force_j[d]
+        float gq[3][C];
+#pragma unroll
+        for (int d = 0; d < 3; ++d)
+#pragma unroll
+          for (int c = 0; c < C; ++c) gq[d][c] = deq_at(d, lane + 32 * c);
+#pragma unroll
+        for (int r = 0; r < TJ; ++r) {
+          const int p = warp * TJ + r, k = k0 + r;
+          const bool ok = i < N && k < K;
+          const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+          const float a = mask_s[p];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int f = lane + 32 * c, o = p * LD + f;
+            const float phi = y_s[o] * a;
+            float dphi = 0.0f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const float gd = gq[d][c];
+              if (ok) {
+                st(dcat + at + (d + 1) * F + f, phi * gd);
+                dphi += gd * ld(cat + at + (d + 1) * F + f);
+              }
+            }
+            y_s[o] = dphi * a;
+          }
+        }
+        if (WGRAD)  // dW2b = h2^T dphi2
+          wgrad_tc<F, M, true, false>(z_s, y_s, nullptr, nullptr, LD, F,
+                                      wp1a + 3 * ff, init);
+        slot = k6_prod<F, F, 0>(y_s, nullptr, LD, w_dh2, w_dmsg, slot, ring,
+                                y_s, nullptr, LD);
+#pragma unroll
+        for (int r = 0; r < TJ; ++r)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            const int o = (warp * TJ + r) * LD + lane + 32 * c;
+            y_s[o] = y_s[o] * dsilu_fast(z_s[o]);  // dp2
+          }
+      }
+      if (WGRAD) {  // dW1a = msg^T dp1, dW2a = msg^T dp2; msg again, in z_s
+        msg_into(z_s);
+        wgrad_tc<F, M, false, false>(z_s, x_s, nullptr, nullptr, LD, F, wp1a,
+                                     init);
+        if (!FIRST)
+          wgrad_tc<F, M, false, false>(z_s, y_s, nullptr, nullptr, LD, F,
+                                       wp1a + 2 * ff, init);
+      }
+      // dmsg = dp1 @ W1a^T + dp2 @ W2a^T
+      const K6W w_rbf0 = {w_rbf, F, 32};
+      if (FIRST)
+        slot = k6_prod<F, F, 0>(x_s, nullptr, LD, w_dmsg, w_rbf0, slot, ring,
+                                x_s, nullptr, LD);
+      else
+        slot = k6_prod<F, F, 2>(x_s, y_s, LD, w_dmsg, w_rbf0, slot, ring,
+                                x_s, nullptr, LD);
+
+      // d3 = (dmsg + dinv1_i) mask; t = d3 me: dnpi += t np_j, dcat[np_j] =
+      // t np_i; dme = d3 np_i np_j
+#pragma unroll
+      for (int r = 0; r < TJ; ++r) {
+        const int p = warp * TJ + r, k = k0 + r;
+        const bool ok = i < N && k < K;
+        const size_t at = ok ? slot_at(b, i, k, N, K) * CW : 0;
+        const float a = mask_s[p];
+#pragma unroll
+        for (int c = 0; c < C; ++c) {
+          const int f = lane + 32 * c, o = p * LD + f;
+          const float d3 = (x_s[o] + dinv_s[warp * F + f]) * a;
+          const float tt = d3 * me_s[o];
+          const float ni = npi_s[warp * F + f];
+          const float nj = ok ? ld(cat + at + f) : 0.0f;
+          dnp_acc[c] += tt * nj;
+          if (ok) st(dcat + at + f, tt * ni);
+          y_s[o] = d3 * ni * nj;  // dme
+        }
+      }
+      if (WGRAD)  // dWe = rbf^T dme
+        wgrad_tc<F, M, false, false>(rbf_s, y_s, nullptr, nullptr, lr, R, wp,
+                                     init);
+      // drbf = dme @ We^T, 32 columns r at a time, into rbf_s; then the
+      // next step's me
+      for (int cb = 0; cb < Rp; cb += 32) {
+        const K6W w_cb = {w_rbf + (size_t)cb * F, F, 32};
+        const K6W w_next = {w_rbf + (size_t)(cb + 32) * F, F, 32};
+        slot = k6_prod<F, 32, 0>(y_s, nullptr, LD, w_cb,
+                                 cb + 32 < Rp ? w_next : more ? w_me : none,
+                                 slot, ring, rbf_s + cb, nullptr, lr);
+      }
+      for (int idx = threadIdx.x; idx < M * R; idx += kThreads) {
+        const int p = idx / R, r = idx - p * R;
+        const int ii = i0 + p / TJ, k = k0 + p % TJ;
+        if (ii < N && k < K)
+          st(drbf + slot_at(b, ii, k, N, K) * R + r, rbf_s[p * lr + r]);
+      }
+    }
+
+    if (i < N) {
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        dnpi[((size_t)b * N + i) * F + lane + 32 * c] = dnp_acc[c];
+    }
+  }
+}
+
 // out[e] = sum_blk part[blk, e] for e < n_valid; 0 for the rest (the
 // first layer's W2a/W2b). Fixed summation order.
 __global__ void klist_wsum_kernel(float* __restrict__ out,
@@ -1711,11 +2066,11 @@ cudaError_t sum_weights(float* dw, const float* wpart, int n_blocks, int F,
 // functions below. Edge tensors are untyped until the launch picks E.
 struct Args {
   const void* in[18];
-  void* out[6];
+  void* out[7];
   int B, N, K, R;
   bool wgrad;
   cudaStream_t stream;
-  int max_blocks;  // K8: the grid's upper bound (one block per SM)
+  int max_blocks;  // K6, K8: the grid's upper bound (one block per SM)
 };
 
 template <class T>
@@ -1756,34 +2111,30 @@ cudaError_t launch_fwd(const Args& a) {
 
 template <int F, bool FIRST, bool WGRAD, class E>
 cudaError_t launch_bwd_w(const Args& a) {
-  const size_t smem = bwd_smem_floats<F>(a.R) * sizeof(float);
+  const size_t smem = k6_smem_floats<F>(a.R) * sizeof(float);
   auto kern = klist_bwd_kernel<F, FIRST, WGRAD, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int n_itiles = (a.N + TI - 1) / TI;
-  const int n_blocks = a.B * n_itiles;
-  const float* npi = cin<float>(a, 0);
-  const E* cat = cin<E>(a, 1);
-  const E* rbf = cin<E>(a, 2);
-  const float* dir = cin<float>(a, 3);
-  const float* mask = cin<float>(a, 4);
-  const float* We = cin<float>(a, 5);
-  const float* W1a = cin<float>(a, 6);
-  const float* W1b = cin<float>(a, 7);
-  const float* W2a = cin<float>(a, 8);
-  const float* W2b = cin<float>(a, 9);
-  const float* dinv1 = cin<float>(a, 10);
-  const float* deq = cin<float>(a, 11);
-  float* dnpi = cout_<float>(a, 0);
-  E* dcat = cout_<E>(a, 1);
-  E* drbf = cout_<E>(a, 2);
-  float* ddir = cout_<float>(a, 3);
+  const int n_tiles = a.B * n_itiles;
+  const int n_blocks = n_tiles < a.max_blocks ? n_tiles : a.max_blocks;
+  if (n_blocks < 1) return cudaErrorInvalidValue;
+  const float* W[5];
+  for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 5 + k);
+  uint2* wprep = cout_<uint2>(a, 6);  // the launch's scratch
+  const size_t want = (k6_prep_pairs(F, a.R) + 255) / 256;
+  klist_bwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
+                          a.stream>>>(W[0], W[1], W[2], W[3], W[4], wprep, F,
+                                      a.R, FIRST ? 1 : 0);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   float* wpart = cout_<float>(a, 4);
-  const int N = a.N, K = a.K, R = a.R;
   kern<<<n_blocks, kThreads, smem, a.stream>>>(
-      npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b, dinv1, deq, dnpi,
-      dcat, drbf, ddir, wpart, N, K, R, n_itiles);
+      cin<float>(a, 0), cin<E>(a, 1), cin<E>(a, 2), cin<float>(a, 3),
+      cin<float>(a, 4), wprep, cin<float>(a, 10), cin<float>(a, 11),
+      cout_<float>(a, 0), cout_<E>(a, 1), cout_<E>(a, 2), cout_<float>(a, 3),
+      wpart, a.N, a.K, a.R, n_itiles, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || !WGRAD) return err;
   return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, a.R, FIRST,
@@ -1932,19 +2283,23 @@ int nn_klist_fwd(const float* npi, const void* cat, const void* rbf,
 
 // K6. Inputs of K5 plus dinv1 (B,N,F), deq (B,3,N,F) f32. Outputs dnpi
 // (B,N,F) f32, dcat (B,N,K,C) and drbf (B,N,K,R) in the edge type, ddir
-// (B,3,N,K) f32. With weight_grads: scratch wpart (B*ceil(N/8), R*F+4F^2)
-// and output dw (R*F+4F^2: dWe, dW1a, dW1b, dW2a, dW2b).
+// (B,3,N,K) f32. With weight_grads: scratch wpart (min(B*ceil(N/8),
+// max_blocks), R*F+4F^2) and output dw (R*F+4F^2: dWe, dW1a, dW1b, dW2a,
+// dW2b). Scratch: 16-byte aligned, nn_klist_scratch_floats(F, R, 1) floats
+// (the weights split into tf32 pairs); max_blocks bounds the grid (the
+// wrapper passes the SM count).
 int nn_klist_bwd(const float* npi, const void* cat, const void* rbf,
                  const float* dir, const float* mask, const float* We,
                  const float* W1a, const float* W1b, const float* W2a,
                  const float* W2b, const float* dinv1, const float* deq,
                  float* dnpi, void* dcat, void* drbf, float* ddir,
-                 float* wpart, float* dw, int B, int N, int K, int F, int R,
-                 int first_layer, int weight_grads, int bf16, void* stream) {
+                 float* wpart, float* dw, float* scratch, int B, int N, int K,
+                 int F, int R, int first_layer, int weight_grads, int bf16,
+                 int max_blocks, void* stream) {
   Args a = {{npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b, dinv1, deq},
-            {dnpi, dcat, drbf, ddir, wpart, dw},
+            {dnpi, dcat, drbf, ddir, wpart, dw, scratch},
             B, N, K, R, weight_grads != 0,
-            static_cast<cudaStream_t>(stream)};
+            static_cast<cudaStream_t>(stream), max_blocks};
   return run<Bwd>(F, first_layer, bf16, a);
 }
 
@@ -1997,7 +2352,7 @@ int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
 size_t nn_klist_smem_bytes(int F, int R, int kind) {
 #define NN_SMEM(FF)                                                      \
   return (kind == 0   ? fwd_smem_floats<FF>(R)                           \
-          : kind == 1 ? bwd_smem_floats<FF>(R)                           \
+          : kind == 1 ? k6_smem_floats<FF>(R)                            \
           : kind == 2 ? k7_smem_floats<FF>(R)                            \
                       : dual_bwd_smem_floats<FF>(R)) * sizeof(float)
   switch (F) {
@@ -2011,9 +2366,12 @@ size_t nn_klist_smem_bytes(int F, int R, int kind) {
 
 // Scratch of one launch of K5 (kind 0), K6 (1), K7 (2) or K8 (3), in
 // floats, beyond the weight partials that K6 and K8 take as an argument:
-// K7's weights split into tf32 pairs; 0 for the others.
+// the weights split into tf32 pairs (K6: ten blocks, K7: five); 0 for the
+// others.
 size_t nn_klist_scratch_floats(int F, int R, int kind) {
-  return kind == 2 ? 2 * k7_prep_offset(F, R, 5) : 0;
+  return kind == 1   ? 2 * k6_prep_pairs(F, R)
+         : kind == 2 ? 2 * k7_prep_offset(F, R, 5)
+                     : 0;
 }
 
 }  // extern "C"

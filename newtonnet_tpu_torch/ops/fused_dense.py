@@ -13,11 +13,11 @@ atoms, F features and R radial basis functions:
 
 `first_layer=True` drops phi2: the stack's first layer sees force == 0.
 
-On the card the forward runs `csrc/fused_dense.cu:nn_pair_fwd` (K1, IEEE
-fp32 FMAs) and the backward `nn_pair_bwd` (K2, tensor cores in 3xTF32:
-each operand split in a TF32 high and low part, three products summed in
-fp32); on the CPU the wrappers run the plain versions below. A CUDA tensor either launches the kernel or
-raises: nothing falls back.
+On the card the forward runs `csrc/fused_dense.cu:nn_pair_fwd` (K1) and
+the backward `nn_pair_bwd` (K2), both on the tensor cores in 3xTF32 (each
+operand split in a TF32 high and low part, three products summed in fp32);
+on the CPU the wrappers run the plain versions below. A CUDA tensor either
+launches the kernel or raises: nothing falls back.
 '''
 import ctypes
 
@@ -120,7 +120,7 @@ def _lib():
     lib = _build.load('fused_dense')
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nn_pair_fwd.argtypes = [p] * 12 + [i] * 5 + [p]
+        lib.nn_pair_fwd.argtypes = [p] * 13 + [i] * 6 + [p]
         lib.nn_pair_fwd.restype = i
         lib.nn_pair_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
         lib.nn_pair_bwd.restype = i
@@ -177,11 +177,18 @@ def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
         raise ValueError(f'no kernel for device {np_.device}')
     B, N, F, R, shapes = _shapes(np_, rbf)
     _check_cuda(list(zip(_NAMES, ins)), shapes)
-    inv1 = torch.empty((B, N, F), device=np_.device, dtype=torch.float32)
-    eq = torch.empty((B, 3, N, F), device=np_.device, dtype=torch.float32)
+    opts = dict(device=np_.device, dtype=torch.float32)
+    inv1 = torch.empty((B, N, F), **opts)
+    eq = torch.empty((B, 3, N, F), **opts)
     lib = _lib()
+    # the weights split into tf32 pairs and the row partials
+    scratch = torch.empty((lib.nn_pair_scratch_floats(B, N, F, R, 2),),
+                          **opts)
+    # at most one block per SM, each walking tiles
+    sms = torch.cuda.get_device_properties(np_.device).multi_processor_count
     err = lib.nn_pair_fwd(*[t.data_ptr() for t in ins], inv1.data_ptr(),
-                          eq.data_ptr(), B, N, F, R, int(first_layer),
+                          eq.data_ptr(), scratch.data_ptr(), B, N, F, R,
+                          int(first_layer), sms,
                           torch.cuda.current_stream(np_.device).cuda_stream)
     _raise_on(err, 'nn_pair_fwd')
     LAUNCHES['pair_fwd_first' if first_layer else 'pair_fwd'] += 1

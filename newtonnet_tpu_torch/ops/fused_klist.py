@@ -30,11 +30,11 @@ float32 only.
 
 On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
 nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
-the CPU the wrappers run the plain versions below. K5/K6 use plain fp32
-FMAs; K7 and K8 multiply on the tensor cores in 3xTF32 (each operand split
-in a TF32 high and low part, three products summed in fp32), which keeps
-fp32-level accuracy. A CUDA tensor either launches the kernel or raises:
-nothing falls back.
+the CPU the wrappers run the plain versions below. K5 uses plain fp32
+FMAs; K6, K7 and K8 multiply on the tensor cores in 3xTF32 (each operand
+split in a TF32 high and low part, three products summed in fp32), which
+keeps fp32-level accuracy. A CUDA tensor either launches the kernel or
+raises: nothing falls back.
 '''
 import ctypes
 
@@ -266,7 +266,7 @@ def _lib():
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
-        lib.nn_klist_bwd.argtypes = [p] * 18 + [i] * 8 + [p]
+        lib.nn_klist_bwd.argtypes = [p] * 19 + [i] * 9 + [p]
         lib.nn_klist_dual_fwd.argtypes = [p] * 19 + [i] * 7 + [p]
         lib.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
         for fn in (lib.nn_klist_fwd, lib.nn_klist_bwd, lib.nn_klist_dual_fwd,
@@ -339,6 +339,13 @@ def _split_w(dw, F, R):
                                       shapes)]
 
 
+def _n_blocks(B, N, device):
+    '''The grid of K6 and K8: one block per SM at most, each walking atom
+    tiles and summing them into one weight partial.'''
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return min(B * ((N + _TI - 1) // _TI), sms)
+
+
 def _device(t):
     if t.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no kernel for device {t.device}')
@@ -379,14 +386,18 @@ def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
     outs = (torch.empty((B, N, F), **opts), torch.empty_like(cat),
             torch.empty_like(rbf), torch.empty((B, 3, N, K), **opts))
     n_w = R * F + 4 * F * F
-    n_blocks = B * ((N + _TI - 1) // _TI)
+    lib = _lib()
+    n_blocks = _n_blocks(B, N, npi.device)
     wpart = torch.empty((n_blocks, n_w), **opts) if weight_grads else None
     dw = torch.empty((n_w,), **opts) if weight_grads else None
-    err = _lib().nn_klist_bwd(
+    # the weights split into tf32 (hi, lo) pairs, once per launch
+    scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 1),), **opts)
+    err = lib.nn_klist_bwd(
         *[t.data_ptr() for t in ins + (dinv1, deq) + outs],
         wpart.data_ptr() if weight_grads else None,
-        dw.data_ptr() if weight_grads else None,
-        B, N, K, F, R, int(first_layer), int(weight_grads), bf, _stream(npi))
+        dw.data_ptr() if weight_grads else None, scratch.data_ptr(),
+        B, N, K, F, R, int(first_layer), int(weight_grads), bf, n_blocks,
+        _stream(npi))
     _raise_on(err, 'nn_klist_bwd')
     key = _key('klist_bwd', first_layer)
     LAUNCHES[key] += 1
@@ -442,9 +453,7 @@ def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, N, F), **opts),
             torch.empty_like(cat), torch.empty_like(catdot))
     n_w = R * F + 4 * F * F
-    # one block per SM at most, each summing its atom tiles into one partial
-    sms = torch.cuda.get_device_properties(npi.device).multi_processor_count
-    n_blocks = min(B * ((N + _TI - 1) // _TI), sms)
+    n_blocks = _n_blocks(B, N, npi.device)
     wpart = torch.empty((n_blocks, n_w), **opts)
     dw = torch.empty((n_w,), **opts)
     err = _lib().nn_klist_dual_bwd(

@@ -169,3 +169,22 @@ def test_backward_kernel_repeats_its_bits_on_cuda():
                     assert (a is None) == (b is None)
                     if a is not None:
                         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_repeats_its_bits_on_cuda():
+    '''Three K1 launches on one input give equal bits, both variants: its
+    row sums over the column tiles are taken in a fixed order, with no
+    float atomics. B=5, N=21: 45 tiles, 3 column tiles per row.'''
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    ins, _, _ = _inputs(5, 21, 128, 20, seed=12)
+    args = [t.cuda() for t in _torch(ins)]
+    for first in (False, True):
+        runs = [fd.pair_interaction_fwd(*args, first_layer=first)
+                for _ in range(3)]
+        torch.cuda.synchronize()
+        for run in runs[1:]:
+            for a, b in zip(runs[0], run):
+                assert torch.equal(a, b)
+

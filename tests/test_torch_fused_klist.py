@@ -284,3 +284,30 @@ def test_dual_forward_kernel_repeats_its_bits_on_cuda():
             for run in runs[1:]:
                 for a, b in zip(runs[0], run):
                     assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_repeats_its_bits_on_cuda():
+    '''Three K6 launches on one input give equal bits, both variants, fp32
+    and bf16 edges, with and without weight cotangents: its sums over the
+    list stay inside a block and its weight partials are summed in a fixed
+    order, with no float atomics.'''
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    for first in (False, True):
+        for bf16 in (False, True):
+            ins, ws, _, cots = _inputs(13, first, seed=6, F=128, R=20, N=37)
+            edge = lambda a, e: _torch(a, bf16 and e).cuda()  # noqa: E731
+            tin = [edge(a, k in (1, 2)) for k, a in enumerate(ins)]
+            tw = [torch.from_numpy(w).cuda() for w in ws]
+            tc = [torch.from_numpy(c).cuda() for c in cots[:2]]
+            for wg in (False, True):
+                runs = [fk.klist_bwd(*tin, *tw, *tc, first_layer=first,
+                                     weight_grads=wg) for _ in range(3)]
+                torch.cuda.synchronize()
+                for run in runs[1:]:
+                    for a, b in zip(runs[0], run):
+                        assert (a is None) == (b is None)
+                        if a is not None:
+                            assert torch.equal(a, b)
+

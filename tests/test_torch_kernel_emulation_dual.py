@@ -1,0 +1,149 @@
+'''The CUDA source of kernels K3/K4 (newtonnet_tpu_torch/csrc/fused_dual.cu)
+runs on the CPU under the emulation of CUDA's thread model
+(tests/torch_kernel_emu.py), against the plain PyTorch versions, in fp32
+and bf16 mode.
+'''
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+from newtonnet_tpu_torch.ops import fused_dual as fdd
+from torch_kernel_emu import (BAR, BF16_BAR, compile_emu, nan, pair_inputs,
+                              ptrs, source, worst_ratio)
+
+
+def _dual_handle(handle):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.nn_dual_fwd.argtypes = [p] * 19 + [i] * 6 + [p]
+    handle.nn_dual_fwd.restype = i
+    handle.nn_dual_bwd.argtypes = [p] * 24 + [i] * 6 + [p]
+    handle.nn_dual_bwd.restype = i
+    handle.nn_dual_scratch_floats.argtypes = [i] * 5
+    handle.nn_dual_scratch_floats.restype = ctypes.c_size_t
+    return handle
+
+
+@pytest.fixture(scope='module')
+def dual_lib(tmp_path_factory):
+    return _dual_handle(compile_emu(tmp_path_factory.mktemp('emu_dual'),
+                                    'fused_dual_emu', source('fused_dual')))
+
+
+def _dual_inputs(B, N, F, R, seed):
+    '''K3's inputs and K4's cotangents, of the scale the model produces.'''
+    ins, di, dq = pair_inputs(B, N, F, R, seed)
+    rs = np.random.RandomState(seed + 100)
+
+    def t(*shape):
+        return torch.tensor(rs.randn(*shape) * 0.1, dtype=torch.float32)
+
+    np_, rbf, dir_, adj, force = ins[:5]
+    args = [np_, t(B, N, F), rbf, t(B, N, N, R), dir_, t(B, 3, N, N), adj,
+            force, t(B, 3, N, F)] + ins[5:]
+    return args, [di, dq, t(B, N, F), t(B, 3, N, F)]
+
+
+def _run_dual(handle, args, cots, first_layer, bf16):
+    '''(K3 outputs, K4 outputs) of the emulated kernels, NaN-initialised,
+    with scratch (NaN too) of the size the source gives.'''
+    B, N, F = args[0].shape
+    R = args[2].shape[-1]
+    fwd = [nan(B, N, F), nan(B, 3, N, F), nan(B, N, F), nan(B, 3, N, F)]
+    scratch = nan(handle.nn_dual_scratch_floats(B, N, F, R, 0))
+    assert handle.nn_dual_fwd(*ptrs(args + fwd + [scratch]), B, N, F, R,
+                              int(first_layer), int(bf16), None) == 0
+    n_w = R * F + 4 * F * F
+    bwd = [nan(B, N, F), nan(B, N, F), nan(B, 3, N, F), nan(B, 3, N, F)]
+    dw = nan(n_w)
+    scratch = nan(handle.nn_dual_scratch_floats(B, N, F, R, 1))
+    assert handle.nn_dual_bwd(*ptrs(args + cots + bwd + [dw, scratch]), B, N,
+                              F, R, int(first_layer), int(bf16), None) == 0
+    bwd += [v.view(s) for v, s in zip(dw.split([R * F] + [F * F] * 4),
+                                      [(R, F)] + [(F, F)] * 4)]
+    return fwd, bwd
+
+
+@pytest.mark.parametrize('shape, first_layer, bf16', [
+    (shape, first, bf16) for shape in [(2, 10, 32, 8), (1, 13, 64, 16)]
+    for first in (False, True) for bf16 in (False, True)]
+    + [((1, 21, 128, 20), False, True), ((3, 11, 32, 12), False, True),
+       ((3, 11, 32, 12), True, False)])
+def test_emulated_dual_kernels_match_plain(dual_lib, shape, first_layer,
+                                           bf16):
+    '''K3/K4 at ragged atom counts (10, 11, 13 and 21 are no multiple of
+    the 8-row or 4-column tiles), both variants and both dot dtypes at F=32
+    and 64; at F=128 the training path's variant (the card runs them
+    all, chip_smoke.py phase 3); three molecules with R=12 (a radial depth
+    padded to 32 in the tensor-core products), in both modes. fp32 mode
+    holds
+    BAR. bf16 mode holds BF16_BAR = 2e-3: where an fp32 sum of the kernel
+    and of the plain version differ in their last bit, the bf16 roundings
+    of a later product operand (h, g, dp, msg, rbf-tangent products) can
+    differ by one bf16 ulp (2^-8 = 3.9e-3 relative) in that one element;
+    summed with the others into an output, that moves it well under 1e-3
+    of its largest magnitude.'''
+    B, N, F, R = shape
+    args, cots = _dual_inputs(B, N, F, R, seed=N)
+    dot_dtype = 'bfloat16' if bf16 else 'float32'
+    fwd, bwd = _run_dual(dual_lib, args, cots, first_layer, bf16)
+    want_f = fdd.pair_interaction_dual_fwd_ref(*args, first_layer=first_layer,
+                                               dot_dtype=dot_dtype)
+    want_b = fdd.pair_interaction_dual_bwd_ref(*args, *cots,
+                                               first_layer=first_layer,
+                                               dot_dtype=dot_dtype)
+    worst = max(worst_ratio(fwd, want_f), worst_ratio(bwd, want_b))
+    assert worst <= (BF16_BAR if bf16 else BAR), worst
+    if first_layer:  # dnpdot, dforce, dforcedot, dW2a, dW2b: exact zeros
+        for k in (1, 2, 3, 7, 8):
+            assert not bwd[k].any(), k
+
+
+def test_emulated_dual_kernels_refuse_what_they_do_not_take(dual_lib):
+    '''F outside (32, 64, 128), or an R whose tiles overflow the 227 KB of
+    shared memory a block may use, return cudaErrorInvalidValue.'''
+    args, cots = _dual_inputs(1, 4, 32, 4, seed=0)
+    out = [nan(1, 4, 32), nan(1, 3, 4, 32)] * 2 + [nan(1, 4, 32)]
+    assert dual_lib.nn_dual_fwd(*ptrs(args + out), 1, 4, 48, 4, 0, 0,
+                                None) == 1
+    scratch = [nan(1, 4, 32)] * 6
+    assert dual_lib.nn_dual_bwd(*ptrs(args + cots + scratch), 1, 4, 128,
+                                200, 0, 0, None) == 1
+
+
+def test_emulation_catches_a_dual_kernel_fault(tmp_path):
+    '''A mutant of fused_dual.cu whose K4 drops the tangent term of the
+    column part of dnp (a fault of the kind that only shows through a
+    reduction across blocks) fails the comparison that the source passes.'''
+    src = source('fused_dual')
+    good = 's += p_s[o] * ai + (pdot_s[o] * ai + h_s[o] * npdoti_s[il * F + f]);'
+    assert src.count(good) == 1
+    mutant = _dual_handle(compile_emu(
+        tmp_path, 'fused_dual_mutant',
+        src.replace(good, 's += p_s[o] * ai + pdot_s[o] * ai;')))
+    args, cots = _dual_inputs(1, 10, 32, 8, seed=3)
+    fwd, bwd = _run_dual(mutant, args, cots, False, False)
+    want = fdd.pair_interaction_dual_bwd_ref(*args, *cots,
+                                             dot_dtype='float32')
+    assert worst_ratio(fwd + bwd[:1], fdd.pair_interaction_dual_fwd_ref(
+        *args, dot_dtype='float32') + want[:1]) > BAR
+
+
+def test_emulation_catches_a_bf16_fragment_fault(tmp_path):
+    '''A mutant of fused_dual.cu whose bf16 products read the second B
+    fragment register of an m16n8k16 tile from the wrong depth word (k+6
+    for k+8, a fragment index of the PTX layout) fails the comparison of
+    K3/K4 with their plain versions in bf16 mode that the source passes.'''
+    src = source('fused_dual')
+    good = 'const unsigned b[2] = {w[0], w[4]};'
+    assert src.count(good) == 1
+    mutant = _dual_handle(compile_emu(
+        tmp_path, 'fused_dual_bf16_mutant',
+        src.replace(good, 'const unsigned b[2] = {w[0], w[3]};')))
+    args, cots = _dual_inputs(1, 10, 32, 8, seed=5)
+    fwd, bwd = _run_dual(mutant, args, cots, False, True)
+    kw = dict(dot_dtype='bfloat16')
+    want = (fdd.pair_interaction_dual_fwd_ref(*args, **kw)
+            + fdd.pair_interaction_dual_bwd_ref(*args, *cots, **kw))
+    assert worst_ratio(fwd + bwd, want) > BF16_BAR
