@@ -30,19 +30,20 @@ with a non-zero exit code and no result line):
             F=128, R=20, bf16 edges), at (B=100, N=21, K=20) and at (B=2,
             N=70, K=37, F=64, R=16) in fp32, and ragged at (B=3, N=61,
             K=39, F=32, R=12) in bf16; bar 1e-4 of each output's largest
-            magnitude, plus one bf16 ulp for bf16-stored outputs (K6, K7
-            and K8 on the tensor cores in 3xTF32 hold the same bar); three
-            K7 launches and three K6 launches (with and without weight
-            cotangents) at the box shape give equal bits.
+            magnitude, plus one bf16 ulp for bf16-stored outputs (K5-K8
+            on the tensor cores in 3xTF32 hold the same bar); three K5
+            launches, three K7 launches and three K6 launches (with and
+            without weight cotangents) at the box shape give equal bits.
 3e. gather  K9 (row_gather) against the plain row gather, bitwise, at the
             box's inv_gather shapes (bf16, fp32; 4F, F and positions), its
             scatter-chunk shape, the aspirin shapes and odd widths; K12
             (K9 at B=1) at tools/exp_pallas_gather.py's shape; K10 bitwise
             and K11 within 1e-6 of the largest magnitude plus one ulp of
             the output dtype, at tools/bench_window.py's shape on the
-            cell-sorted box (the full list, the smallest passing W); the
-            transposition identity in float64; the window ops' entry
-            point (gather, and its backward through autograd: K11).
+            cell-sorted box (the full list, the smallest passing W);
+            three K11 launches there give equal bits; the transposition
+            identity in float64; the window ops' entry point (gather, and
+            its backward through autograd: K11).
 4. serve    the trained MD17-aspirin checkpoint serves all 500 test frames
             in batches of 100 through the kernels; energy and force errors
             against the labels must reproduce the JAX package's (energy MAE
@@ -115,9 +116,9 @@ with a non-zero exit code and no result line):
             B=10, N=24), K3/K4 at the training shape in bf16 mode
             (the training path's; bf16 tensor-core bound) and in fp32 mode
             (fp32 bound, and the 3xTF32 tensor-core bound);
-            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work; K6,
-            K7 and K8 also their 3xTF32 tensor-core bound; K5 and K6 their
-            launches in the list-mode training epoch);
+            K5-K8 at the box shape (bf16 edges, fp32 bound, klist_work, and
+            their 3xTF32 tensor-core bound; K5 and K6 their launches in
+            the list-mode training epoch);
             K9 (box inv_gather and scatter-chunk shapes), K12, K10 and K11
             with one PyTorch call's time beside them (index_select,
             index_add_), bound by bytes.
@@ -964,21 +965,25 @@ def phase_klist_kernels(torch, fk):
         emit('klist_vs_plain', shape=dict(B=B, N=N, K=K, F=F, R=R),
              edge_dtype=str(edt).split('.')[-1], worst_err_over_max=worst,
              bar=KERNEL_BAR, bf16_stored_bar='one bf16 ulp + bar')
-    # three K7 launches at the box shape give equal bits
+    # three K5 launches and three K7 launches at the box shape give equal
+    # bits
     B, N, K, F, R, edt = shapes[0]
-    same = {}
-    for first in (False, True):
-        ins, tans, cots = klist_inputs(torch, B, N, K, F, R, first, edt,
-                                       seed=20)
-        fn, a, kw = klist_calls(fk, ins, tans, cots, first)['klist_dual_fwd']
-        runs = [fn(*a, first_layer=first, **kw) for _ in range(3)]
-        same[f'first={int(first)}'] = all(
-            exact(torch, x, y) for r in runs[1:] for x, y in zip(runs[0], r))
-        del ins, tans, cots, runs
-        torch.cuda.empty_cache()
-    emit('klist_dual_fwd_repeats_its_bits', shape=dict(B=B, N=N, K=K, F=F,
-                                                       R=R), **same)
-    check(all(same.values()), f'three K7 launches differ in their bits: {same}')
+    for call, kname in (('klist_fwd', 'K5'), ('klist_dual_fwd', 'K7')):
+        same = {}
+        for first in (False, True):
+            ins, tans, cots = klist_inputs(torch, B, N, K, F, R, first, edt,
+                                           seed=20)
+            fn, a, kw = klist_calls(fk, ins, tans, cots, first)[call]
+            runs = [fn(*a, first_layer=first, **kw) for _ in range(3)]
+            same[f'first={int(first)}'] = all(
+                exact(torch, x, y) for r in runs[1:]
+                for x, y in zip(runs[0], r))
+            del ins, tans, cots, runs
+            torch.cuda.empty_cache()
+        emit(f'{call}_repeats_its_bits', shape=dict(B=B, N=N, K=K, F=F, R=R),
+             **same)
+        check(all(same.values()),
+              f'three {kname} launches differ in their bits: {same}')
     # and three K6 launches, with and without weight cotangents (its weight
     # partials are summed in a fixed order)
     same = {}
@@ -1420,9 +1425,8 @@ def klist_timing(torch, fk, errs, launches, train_launches):
                 'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
                 'library_ms': None, 'flops': flops, 'bytes': nbytes,
                 'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2]})
-            if kind != 'klist_fwd':  # three tf32 products per fp32 one
-                rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops \
-                    / PEAK_TF32_FLOPS
+            # three tf32 products per fp32 one
+            rows[-1]['tc_3xtf32_bound_ms'] = 1e3 * 3 * flops / PEAK_TF32_FLOPS
             if kind in ('klist_fwd', 'klist_bwd'):
                 rows[-1]['train_launches'] = train_launches[name]
         del ins, tans, cots, calls, refs
@@ -1548,6 +1552,7 @@ def phase_gather_kernels(torch, rg, wn):
           'K10 (fp32 payload): kernel and plain differ')
     del got, got32
     worst = 0.0
+    k11_same = {}  # three launches give equal bits
     for dt in (torch.bfloat16, torch.float32):
         yd = y.to(dt)
         s = wn.window_scatter_sum_fwd(yd, idx_kn, W, WINDOW_T).float()
@@ -1560,7 +1565,11 @@ def phase_gather_kernels(torch, rg, wn):
               f'K11 {dt}: {over.item()} > 1e-6 * {scale} beyond one ulp')
         if dt == torch.bfloat16:
             errs['window_scatter_sum'] = diff.max().item()
-        del yd, s, want, diff
+        runs = [s] + [wn.window_scatter_sum_fwd(yd, idx_kn, W, WINDOW_T)
+                      .float() for _ in range(2)]
+        k11_same[str(dt).split('.')[-1]] = all(exact(torch, runs[0], r)
+                                               for r in runs[1:])
+        del yd, s, want, diff, runs
     # the transposition identity over bf16-exact payloads in fp32 storage
     gx = wn.window_gather_fwd(x.float(), idx_kn, W, WINDOW_T).double()
     sy = wn.window_scatter_sum_fwd(y.float(), idx_kn, W, WINDOW_T).double()
@@ -1580,8 +1589,11 @@ def phase_gather_kernels(torch, rg, wn):
          T=WINDOW_T, F=WINDOW_F, window_margin=margin,
          k10='bitwise (bf16 and fp32 payloads)',
          k11_worst_over_max_beyond_ulp=worst, k11_bar=1e-6,
+         k11_repeats_its_bits=k11_same,
          transposition_rel_diff=rel_t, transposition_bar=1e-6,
          entry_point_launches=launches)
+    check(all(k11_same.values()),
+          f'three K11 launches differ in their bits: {k11_same}')
     check(margin >= 0, f'window margin {margin}')
     check(rel_t <= 1e-6, f'<gather(x), y> != <x, scatter(y)>: {rel_t}')
     check(exact(torch, xg.grad, wn.window_scatter_sum_fwd(

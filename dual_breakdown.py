@@ -5,7 +5,7 @@ time on the card; with the argument `k2k7`, kernels K2 (pair_bwd_kernel,
 csrc/fused_dense.cu) and K7 (klist_dual_fwd_kernel, csrc/fused_klist.cu);
 with `k6k1`, kernels K6 (klist_bwd_kernel) and K1 (pair_fwd_kernel).
 
-    python3 dual_breakdown.py [k2k7 | k6k1 | k1train ROOT...]
+    python3 dual_breakdown.py [k2k7 | k6k1 | k5k11 | k1train ROOT...]
 
 Builds the source as it is and in variants with one part taken out
 (written to newtonnet_tpu_torch/_build/dual_breakdown/, gitignored; all
@@ -37,6 +37,22 @@ milliseconds per call, full and first layer. Give the parent commit's
 checkout (a `git archive` unpacked into a gitignored directory) and this
 one in turns, e.g. `k1train runs/parent . . runs/parent`.
 
+With `k5k11`, kernel K5 (klist_fwd_kernel, csrc/fused_klist.cu: k5_prod)
+as it is (16-atom tiles, 128 slot rows a step), with 8-atom tiles (m64: 64
+rows a step, K6's), with two slots unrolled in its elementwise passes
+(unroll2) or four (unroll4) against eight, with no product and with no
+mma issued: its
+milliseconds per call at the box shape (CUDA events), full and first layer,
+and the weight bytes one launch streams at 128 and at 64 rows a step;
+then kernel K11 (csrc/window.cu) at the window-op cell of chip_smoke.py,
+as it is (four payload rows in flight per warp, 256-position segments),
+with its segment sums built for two blocks per SM (lb2), with eight rows
+in flight (rows8) and on 128-position segments (seg128): the device
+microseconds per call of each
+of its kernels (the radix passes' histogram, offsets and scatter, the run
+bounds, the segment sums and the join; torch.profiler over 20 calls) and
+its milliseconds per call (CUDA events) beside index_add_'s.
+
 With `k2k7` the variants are no_products (k2_prod / k7_pair run no chunk:
 no staging, no tensor-core product) and no_mma (the chunks are staged and
 their fragments loaded, but no mma is issued), beside the source as it is;
@@ -49,6 +65,7 @@ first layer, no weight cotangents.
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -119,6 +136,31 @@ K6K1_VARIANTS = {
                     f' += __uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
                    for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
                                                ('ah', 'bh')))]}}
+
+
+# the K5 variants
+K5_VARIANTS = {
+    'fused_klist': {
+        'as_is': [],
+        'm64': [('constexpr int TA5 = 16;', 'constexpr int TA5 = 8;')],
+        'unroll2': [('constexpr int kRowUnroll5 = 8;',
+                     'constexpr int kRowUnroll5 = 2;')],
+        'unroll4': [('constexpr int kRowUnroll5 = 8;',
+                     'constexpr int kRowUnroll5 = 4;')],
+        'no_products': [('  const int n_chunks = cur.qp / RW;',
+                         '  const int n_chunks = 0 * cur.qp;')],
+        'no_mma': [(f'            mma_tf32(acc[x][rg][j], {a}[rg], {b}[j]);',
+                    f'            acc[x][rg][j][{e}] += '
+                    f'__uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
+                   for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
+                                               ('ah', 'bh')))]},
+    'window': {
+        'as_is': [],
+        'lb2': [('constexpr int kSegMinBlocks = 1;',
+                 'constexpr int kSegMinBlocks = 2;')],
+        'rows8': [('constexpr int kRowsInFlight = 4;',
+                   'constexpr int kRowsInFlight = 8;')],
+        'seg128': [('constexpr int kSeg = 256;', 'constexpr int kSeg = 128;')]}}
 
 
 def pad32(q):
@@ -194,6 +236,86 @@ def k6k1(torch, cs, card):
                         inner=3)
             print(json.dumps({'source': src, 'variant': name, 'ms': ms,
                               'card': card}), flush=True)
+
+
+def k5_weight_bytes(B, N, K, F, R, first, rows):
+    '''Weight bytes one K5 launch streams from L2 into shared memory at
+    `rows` slot rows a step (8 slots of rows/8 atoms): every prepared
+    weight of a step (me, p, phi) as tf32 (hi, lo) pairs of 8 bytes.'''
+    atoms = rows // 8
+    steps = B * -(-N // atoms) * -(-K // 8)
+    pairs = F * pad32(R) + 2 * (1 if first else 2) * F * F
+    return 8 * pairs * steps
+
+
+def k5k11(torch, cs, card):
+    '''The K5 and K11 lines (module docstring).'''
+    import threading
+    from torch.profiler import ProfilerActivity, profile
+    from newtonnet_tpu_torch.ops import _build
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    from newtonnet_tpu_torch.ops import window as wn
+    built = {}
+    threads = [threading.Thread(target=lambda s=src, v=vs: built.update(
+        {s: build(s, v)})) for src, vs in K5_VARIANTS.items()]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    box = {}
+    for first in (False, True):
+        ins, tans, cots = cs.klist_inputs(torch, 1, cs.BOX_ATOMS,
+                                          cs.BOX_K_MAX, 128, 20, first,
+                                          torch.bfloat16, seed=30)
+        box[first] = cs.klist_calls(fk, ins, tans, cots, first)['klist_fwd']
+    print(json.dumps({'k5_weight_bytes_per_launch': {
+        f'{tag} rows={rows}': k5_weight_bytes(
+            1, cs.BOX_ATOMS, cs.BOX_K_MAX, 128, 20, first, rows)
+        for first, tag in ((False, 'full'), (True, 'first'))
+        for rows in (128, 64)}, 'card': card}), flush=True)
+    for name, so in built['fused_klist'].items():
+        _build._LIBS['fused_klist'] = ctypes.CDLL(so)  # the wrapper's library
+        ms = {}
+        for first in (False, True):
+            f, a, kw = box[first]
+            ms[f'K5 box {"first" if first else "full"}'] = cs.time_ms(
+                torch, lambda: f(*a, first_layer=first, **kw), inner=3)
+        print(json.dumps({'source': 'fused_klist', 'variant': name,
+                          'ms': ms, 'card': card}), flush=True)
+    idx_kn, mask_kn, W = cs.window_list(torch)[:3]
+    K, N, F = idx_kn.shape[1], cs.BOX_ATOMS, 4 * 128
+    g = torch.Generator(device='cuda').manual_seed(50)
+    y = (torch.randn((1, K, N, F), generator=g, device='cuda')
+         * mask_kn[..., None]).to(torch.bfloat16)
+    acc = torch.zeros((N, F), device='cuda')
+    flat, y2f = idx_kn.reshape(-1), y.reshape(K * N, F).float()
+
+    def k11():
+        wn.window_scatter_sum_fwd(y, idx_kn, W, cs.WINDOW_T)
+    for name, so in built['window'].items():
+        _build._LIBS['window'] = ctypes.CDLL(so)  # the wrapper's library
+        for _ in range(3):
+            k11()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                k11()
+            torch.cuda.synchronize()
+        dev = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                m = re.search(r'(\w+_kernel)', e.key)
+                kname = m.group(1) if m else e.key
+                dev[kname] = dev.get(kname, 0.0) + \
+                    e.self_device_time_total / 20
+        print(json.dumps({
+            'source': 'window', 'variant': name,
+            'K11 window cell': dict(K=K, N=N, F=F, W=W, T=cs.WINDOW_T),
+            'device_us_per_call': dev,
+            'ms': cs.time_ms(torch, k11, inner=5),
+            'index_add_ms': cs.time_ms(
+                torch, lambda: acc.index_add_(0, flat, y2f), inner=5),
+            'card': card}), flush=True)
 
 
 def k1train(roots, card):
@@ -324,6 +446,9 @@ def main():
         return 0
     if sys.argv[1:] == ['k6k1']:
         k6k1(torch, cs, card)
+        return 0
+    if sys.argv[1:] == ['k5k11']:
+        k5k11(torch, cs, card)
         return 0
     if sys.argv[1:2] == ['k1train']:
         k1train(sys.argv[2:], card)

@@ -28,15 +28,11 @@
 // values, far above the H100's fp32 ridge (67 TFLOP/s over 3.35 TB/s = 20
 // flop/byte); K6 about 2x K5, K7 2x, K8 about 6x.
 //
-// Design of K5: one block of 8 warps per (molecule, tile of TI=8 atoms i);
-// the block loops over tiles of TJ_P=8 list slots, so a tile holds M = 64
-// slots; warp w owns the TJ slots of atom i0+w and lane l owns feature
-// columns l+32c, and gemm_rows multiplies on the CUDA cores (plain IEEE
-// fp32 FMAs) with the weights streamed through shared memory in KC-row
-// chunks. K6, K7 and K8 keep that ownership of slots and columns but have
-// their own products on the tensor cores in 3xTF32, at fp32-level accuracy
-// (no 1xTF32 anywhere; the notes above klist_bwd_kernel,
-// klist_dual_fwd_kernel and klist_dual_bwd_kernel). The j-side operand is
+// Design: every kernel multiplies on the tensor cores in 3xTF32, at
+// fp32-level accuracy (no 1xTF32 anywhere; the notes above
+// klist_fwd_kernel, klist_bwd_kernel, klist_dual_fwd_kernel and
+// klist_dual_bwd_kernel). Warp w owns the list slots of its atoms and lane l
+// the feature columns l+32c in the elementwise chain. The j-side operand is
 // per slot here, not per column: it is not staged in shared memory (4F
 // floats per slot would not fit beside the chain) but read from device
 // memory (or L2, where prefetched) where it is used, each warp reading one
@@ -47,7 +43,7 @@
 // partial to scratch and a second kernel sums them in a fixed order. No
 // float atomics: a run gives the same bits every time.
 //
-// Shared memory at F=128, R=20: K5 about 92 KB, K6 214 KB, K7 223 KB, K8
+// Shared memory at F=128, R=20: K5 206 KB, K6 214 KB, K7 223 KB, K8
 // 215 KB. The host functions return the cudaError_t of the launch.
 
 #include <cuda_bf16.h>
@@ -58,10 +54,8 @@ namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int TI = kWarps;  // atoms i per block: one per warp
-constexpr int TJ_P = 8;     // list slots per tile in K5
+constexpr int TI = kWarps;  // atoms i per block in K6-K8: one per warp
 constexpr int TJ_D = 4;     // list slots per tile in K7/K8
-constexpr int KC = 32;      // rows of a streamed weight chunk
 
 typedef __nv_bfloat16 bf16;
 
@@ -106,52 +100,10 @@ __host__ __device__ inline size_t slot_at(int b, int i, int k, int N,
   return ((size_t)b * N + i) * K + k;
 }
 
-// acc[r][c] = sum_q A[(w*TJ + r)*lda + q] * W[q*F + l + 32c], q < Q (W is
-// Q x F), for the calling thread's warp w and lane l. A holds the warp's own
-// slots only, so a warp may write its A rows just before the call; the
-// leading __syncthreads of each chunk orders everything else. Every lane
-// reads all of a row, so overwriting A itself after the call needs a
-// __syncwarp first. All threads of the block must call it.
-template <int F, int TJ>
-__device__ __forceinline__ void gemm_rows(const float* __restrict__ A, int lda,
-                                          int Q, const float* __restrict__ W,
-                                          float* __restrict__ w_s,
-                                          float (&acc)[TJ][F / 32]) {
-  constexpr int C = F / 32;
-  constexpr int WLD = F + 1;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int r = 0; r < TJ; ++r)
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[r][c] = 0.0f;
-  const float* arow = A + (size_t)(warp * TJ) * lda;
-  for (int q0 = 0; q0 < Q; q0 += KC) {
-    const int qc = min(KC, Q - q0);
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < qc * F; idx += kThreads) {
-      const int qq = idx / F, n = idx - qq * F;
-      w_s[qq * WLD + n] = W[(size_t)(q0 + qq) * F + n];
-    }
-    __syncthreads();
-    for (int qq = 0; qq < qc; ++qq) {
-      float bv[C];
-#pragma unroll
-      for (int c = 0; c < C; ++c) bv[c] = w_s[qq * WLD + lane + 32 * c];
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const float a = arow[r * lda + q0 + qq];
-#pragma unroll
-        for (int c = 0; c < C; ++c) acc[r][c] = fmaf(a, bv[c], acc[r][c]);
-      }
-    }
-  }
-}
-
-// Row-side inputs of the block's TI atoms (zero past N): TI x F.
+// Row-side inputs of the block's `rows` atoms (zero past N): rows x F.
 __device__ void load_rows(const float* __restrict__ src, int b, int i0,
-                          int N, int F, float* dst) {
-  for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
+                          int N, int F, float* dst, int rows = TI) {
+  for (int idx = threadIdx.x; idx < rows * F; idx += kThreads) {
     const int il = idx / F, f = idx - il * F;
     dst[idx] = i0 + il < N ? src[((size_t)b * N + i0 + il) * F + f] : 0.0f;
   }
@@ -201,137 +153,12 @@ __host__ __device__ inline size_t wgrad_size(int F, int R) {
   return (size_t)R * F + (size_t)4 * F * F;
 }
 
-// ------------------------------------------------------------------ K5 --
-template <int F>
-constexpr size_t fwd_smem_floats(int R) {
-  constexpr int M = TI * TJ_P;
-  return (size_t)2 * M * (F + 1) + (size_t)KC * (F + 1) + (size_t)TI * F +
-         (size_t)4 * M + (size_t)M * R;
-}
-
-template <int F, bool FIRST, class E>
-__global__ void __launch_bounds__(kThreads, 2)
-klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
-                 const E* __restrict__ rbf, const float* __restrict__ dir,
-                 const float* __restrict__ mask, const float* __restrict__ We,
-                 const float* __restrict__ W1a, const float* __restrict__ W1b,
-                 const float* __restrict__ W2a, const float* __restrict__ W2b,
-                 float* __restrict__ inv1, float* __restrict__ eq, int N,
-                 int K, int R, int n_itiles) {
-  constexpr int TJ = TJ_P;
-  constexpr int M = TI * TJ;
-  constexpr int C = F / 32;
-  constexpr int LD = F + 1;
-  constexpr int CW = FIRST ? F : 4 * F;  // width of a cat row
-  extern __shared__ float smem[];
-  float* msg_s = smem;               // M x LD
-  float* h_s = msg_s + M * LD;       // M x LD
-  float* w_s = h_s + M * LD;         // KC x LD
-  float* npi_s = w_s + KC * LD;      // TI x F
-  float* mask_s = npi_s + TI * F;    // M
-  float* dir_s = mask_s + M;         // 3 x M
-  float* rbf_s = dir_s + 3 * M;      // M x R
-
-  const int b = blockIdx.x / n_itiles;
-  const int i0 = (blockIdx.x - b * n_itiles) * TI;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int i = i0 + warp;
-
-  load_rows(npi, b, i0, N, F, npi_s);
-  float inv_acc[C], eq_acc[3][C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    inv_acc[c] = 0.0f;
-    eq_acc[0][c] = eq_acc[1][c] = eq_acc[2][c] = 0.0f;
-  }
-  float acc[TJ][C];
-
-  for (int k0 = 0; k0 < K; k0 += TJ) {
-    __syncthreads();
-    load_slots<TJ, false, E>(mask, dir, nullptr, rbf, nullptr, b, i0, k0, N,
-                             K, R, mask_s, dir_s, nullptr, rbf_s, nullptr);
-    gemm_rows<F, TJ>(rbf_s, R, R, We, w_s, acc);  // me
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r, k = k0 + r;
-      const bool ok = i < N && k < K;
-      const E* cj = cat + (ok ? slot_at(b, i, k, N, K) * CW : 0);
-      const float a = mask_s[p];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const int f = lane + 32 * c;
-        const float npj = ok ? ld(cj + f) : 0.0f;
-        const float m = acc[r][c] * npi_s[warp * F + f] * npj * a;
-        msg_s[p * LD + f] = m;
-        inv_acc[c] += m;
-      }
-    }
-    gemm_rows<F, TJ>(msg_s, LD, F, W1a, w_s, acc);
-#pragma unroll
-    for (int r = 0; r < TJ; ++r)
-#pragma unroll
-      for (int c = 0; c < C; ++c)
-        h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
-    gemm_rows<F, TJ>(h_s, LD, F, W1b, w_s, acc);
-#pragma unroll
-    for (int r = 0; r < TJ; ++r) {
-      const int p = warp * TJ + r;
-      const float a = mask_s[p];
-      const float d0 = dir_s[p], d1 = dir_s[M + p], d2 = dir_s[2 * M + p];
-#pragma unroll
-      for (int c = 0; c < C; ++c) {
-        const float phi = acc[r][c] * a;
-        eq_acc[0][c] += phi * d0;
-        eq_acc[1][c] += phi * d1;
-        eq_acc[2][c] += phi * d2;
-      }
-    }
-    if (!FIRST) {
-      gemm_rows<F, TJ>(msg_s, LD, F, W2a, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r)
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          h_s[(warp * TJ + r) * LD + lane + 32 * c] = silu_f(acc[r][c]);
-      gemm_rows<F, TJ>(h_s, LD, F, W2b, w_s, acc);
-#pragma unroll
-      for (int r = 0; r < TJ; ++r) {
-        const int p = warp * TJ + r, k = k0 + r;
-        const bool ok = i < N && k < K;
-        const E* cj = cat + (ok ? slot_at(b, i, k, N, K) * CW : 0);
-        const float a = mask_s[p];
-#pragma unroll
-        for (int c = 0; c < C; ++c) {
-          const int f = lane + 32 * c;
-          const float phi = acc[r][c] * a;
-#pragma unroll
-          for (int d = 0; d < 3; ++d)
-            eq_acc[d][c] += phi * (ok ? ld(cj + (d + 1) * F + f) : 0.0f);
-        }
-      }
-    }
-  }
-
-  if (i < N) {
-#pragma unroll
-    for (int c = 0; c < C; ++c) {
-      const int f = lane + 32 * c;
-      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
-#pragma unroll
-      for (int d = 0; d < 3; ++d)
-        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
-    }
-  }
-}
-
 // ------------------------------------------------------------------ K8 --
-// K8 is its own design (K5-K7 above keep the CUDA-core one). What bounds
-// it: its products, about 6x K5's flops per slot (272 GFLOP per full
-// layer at the box shape B=1, N=4096, K=88, F=128, R=20), above the fp32
-// ridge. The CUDA-core version (gemm_rows) capped near half the FMA rate
-// on shared-memory loads, its weight chunks loaded with no product in
-// flight, and its weight-cotangent partials were rewritten every tile. So:
+// What bounds K8: its products, about 6x K5's flops per slot (272 GFLOP
+// per full layer at the box shape B=1, N=4096, K=88, F=128, R=20), above
+// the fp32 ridge. The CUDA-core version (per-row FMA loops) capped near
+// half the FMA rate on shared-memory loads, its weight chunks loaded with
+// no product in flight, and its weight-cotangent partials were rewritten every tile. So:
 //
 // * Products on the tensor cores at fp32-level accuracy:
 //   mma.sync.m16n8k8 tf32 with the 3xTF32 split. Each operand x is split
@@ -536,7 +363,7 @@ __device__ __noinline__ void mma_product(const float* __restrict__ A,
 }
 
 // acc[r][c] = sum_q A[(w*TJ + r)*lda + q] * B(q, l + 32c), q < Q, for the
-// calling thread's warp w and lane l (gemm_rows' result and ownership),
+// calling thread's warp w and lane l (the ownership of the elementwise code),
 // through mma_product.
 template <int F, bool TRANS>
 __device__ __forceinline__ void mma_rows(const float* __restrict__ A,
@@ -1445,7 +1272,7 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
 //   tiles in flight per product, and a fifth 64-row buffer for pairing
 //   them would not fit beside the ring). me is computed once per tile and
 //   kept; drbf = dme We^T is a product (32 columns r at a time).
-// * Weights split once per launch: klist_bwd_prep_kernel writes them as
+// * Weights split once per launch: klist_prep_kernel writes them as
 //   (hi, lo) tf32 pairs into the launch's scratch, chunk-major in the order
 //   the step multiplies them and swizzled as a ring slot holds them, so a
 //   chunk stages as one contiguous run of 16-byte cp.async copies
@@ -1526,32 +1353,46 @@ __host__ __device__ inline size_t k6_product_pairs(const K6P& q) {
   return (size_t)q.nb * q.qp * (q.w2 >= 0 ? 2 : 1);
 }
 
-// pairs of the prepared weights (the full layer's table, the larger)
-__host__ __device__ inline size_t k6_prep_pairs(int F, int R) {
+// K5 (fwd) runs the first products of K6's table: me, p, phi1 and (not
+// at the first layer) phi2, K6's product 4.
+__host__ __device__ inline int prep_n_products(bool fwd, int R, bool first) {
+  return fwd ? (first ? 3 : 4) : k6_n_products(R, first);
+}
+
+__host__ __device__ inline K6P prep_product(bool fwd, int p, int F, int R,
+                                            bool first) {
+  return k6_product(fwd && p == 3 ? 4 : p, F, R, first);
+}
+
+// pairs of the prepared weights of K5 (fwd) or K6 (the full layer's table,
+// the larger)
+__host__ __device__ inline size_t prep_pairs(bool fwd, int F, int R) {
   size_t n = 0;
-  for (int p = 0; p < k6_n_products(R, false); ++p)
-    n += k6_product_pairs(k6_product(p, F, R, false));
+  for (int p = 0; p < prep_n_products(fwd, R, false); ++p)
+    n += k6_product_pairs(prep_product(fwd, p, F, R, false));
   return n;
 }
 
-__global__ void klist_bwd_prep_kernel(const float* __restrict__ We,
-                                      const float* __restrict__ W1a,
-                                      const float* __restrict__ W1b,
-                                      const float* __restrict__ W2a,
-                                      const float* __restrict__ W2b,
-                                      uint2* __restrict__ out, int F, int R,
-                                      int first) {
+// The weights of K5 (fwd != 0) or K6 in (hi, lo) tf32 pairs, laid out as
+// k6_product describes, once per launch.
+__global__ void klist_prep_kernel(const float* __restrict__ We,
+                                  const float* __restrict__ W1a,
+                                  const float* __restrict__ W1b,
+                                  const float* __restrict__ W2a,
+                                  const float* __restrict__ W2b,
+                                  uint2* __restrict__ out, int F, int R,
+                                  int first, int fwd) {
   const float* Ws[4] = {W1a, W1b, W2a, W2b};
-  const int np = k6_n_products(R, first != 0);
+  const int np = prep_n_products(fwd != 0, R, first != 0);
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;;
        e += (size_t)gridDim.x * blockDim.x) {
     size_t base = 0;  // the product of e
     int p = 0;
-    K6P q = k6_product(0, F, R, first != 0);
+    K6P q = prep_product(fwd != 0, 0, F, R, first != 0);
     while (e >= base + k6_product_pairs(q)) {
       base += k6_product_pairs(q);
       if (++p == np) return;
-      q = k6_product(p, F, R, first != 0);
+      q = prep_product(fwd != 0, p, F, R, first != 0);
     }
     const int rw = q.w2 >= 0 ? 16 : 32;
     const size_t local = e - base, chunk = (size_t)32 * q.nb;
@@ -1714,26 +1555,27 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
 }
 
 // The step's per-slot mask and dir (fp32), and rbf in fp32 at row stride
-// lr, zeros from R to pad32(R). Slots past N or K read as zero, so they
+// lr, zeros from R to pad32(R), for its M slot rows (TJ6 slots of M/TJ6
+// atoms; K5 takes 128). Slots past N or K read as zero, so they
 // contribute nothing and stay finite (silu(0) = 0).
-template <class E>
+template <class E, int M = M6>
 __device__ void k6_load_slots(const float* __restrict__ mask,
                               const float* __restrict__ dir,
                               const E* __restrict__ rbf, int b, int i0,
                               int k0, int N, int K, int R, int lr,
                               float* mask_s, float* dir_s, float* rbf_s) {
-  for (int idx = threadIdx.x; idx < 4 * M6; idx += kThreads) {
-    const int gi = idx / M6, p = idx - gi * M6;  // 0: mask, 1-3: dir
+  for (int idx = threadIdx.x; idx < 4 * M; idx += kThreads) {
+    const int gi = idx / M, p = idx - gi * M;  // 0: mask, 1-3: dir
     const int i = i0 + p / TJ6, k = k0 + p % TJ6;
     const bool ok = i < N && k < K;
     if (gi == 0)
       mask_s[p] = ok ? mask[slot_at(b, i, k, N, K)] : 0.0f;
     else
-      dir_s[(gi - 1) * M6 + p] =
+      dir_s[(gi - 1) * M + p] =
           ok ? dir[slot_at(b * 3 + gi - 1, i, k, N, K)] : 0.0f;
   }
   const int Rp = pad32(R);
-  for (int idx = threadIdx.x; idx < M6 * Rp; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < M * Rp; idx += kThreads) {
     const int p = idx / Rp, r = idx - p * Rp;
     const int i = i0 + p / TJ6, k = k0 + p % TJ6;
     rbf_s[p * lr + r] = i < N && k < K && r < R
@@ -2039,6 +1881,365 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
   }
 }
 
+// ------------------------------------------------------------------ K5 --
+// K5, the forward, in the design of K6 (the notes above klist_bwd_kernel)
+// with more slot rows per step. What bounds it: its products, 2(R*F + 4F^2)
+// flops per slot at a full layer (50 GFLOP at the box shape B=1, N=4096,
+// K=88, F=128, R=20), above the fp32 ridge. The CUDA-core version fed every
+// FMA from shared memory, loaded each weight chunk with no product in
+// flight and streamed all the weights from L2 for every 64-slot tile. So:
+//
+// * 128-slot steps: one block of 8 warps walks (molecule, TA5 = 16 atoms)
+//   tiles blockIdx, blockIdx + gridDim, ... (at most one block per SM: the
+//   wrapper passes the SM count), each in steps of TJ5 = 8 list slots: 128
+//   slot rows per step, so every staged weight chunk feeds 128 rows and a
+//   full layer streams half the weight bytes of K6's 64-row steps. K5 keeps
+//   no cotangents, so two fp32 slot buffers hold the chain: x (me, msg, p1,
+//   h1, phi1) and y (rbf, p2, h2, phi2), each product writing over its
+//   input. Warp w owns the 16 slot rows of atoms 2w and 2w+1 and lane l
+//   the F/32 contiguous features from l F/32 in the elementwise chain, so
+//   inv1 and eq are per-thread register sums over k in a fixed order; no
+//   sum crosses blocks.
+// * Products on the tensor cores (k5_prod): mma.sync m16n8k8 tf32 in 3xTF32
+//   (hi = tf32(x), lo = tf32(x - hi), lo*hi + hi*lo + hi*hi in fp32; no
+//   1xTF32), 128 x Q @ Q x NB, warp w taking the 64 rows (w & 1) and NB/4
+//   columns: 4 NB/32 independent 16 x 8 tiles per product, summed straight
+//   into their accumulators (fresh registers per chunk, as K6 keeps, would
+//   not fit beside them). p1/p2 run paired from msg, its A fragments split
+//   once for both; phi1 and phi2 run one after the other.
+// * Weights split once per launch: klist_prep_kernel writes the first
+//   products of K6's table (me, p, phi1, phi2) as (hi, lo) tf32 pairs,
+//   chunk-major and swizzled as a ring slot holds them; they stream through
+//   K6's two-slot ring (32 depth steps of one weight or 16 of each of two),
+//   the stream running across products, steps and tiles.
+// * Activations with the fast exponential and division (silu_fast).
+// * The next step's edge rows (cat, rbf) are prefetched into L2 at the
+//   start of a step, so the chain's reads of np_j and force_j wait on L2;
+//   a lane reads its features of a row (np_j, force_j[d], a slot buffer)
+//   as one vector load.
+// * Shared memory at F=128, R=20: the ring 64 KB, the two 128-row buffers
+//   132 KB, the row inputs 8 KB: 206 KB, one block per SM.
+constexpr int TJ5 = TJ6;            // list slots per atom in a K5 step
+constexpr int TA5 = 16;             // atoms of a K5 tile
+constexpr int M5 = TA5 * TJ5;       // slot rows of a K5 step
+constexpr int APW5 = TA5 / kWarps;  // atoms per warp
+// slots of an atom unrolled in the elementwise passes (a tuning knob:
+// loads in flight against registers)
+constexpr int kRowUnroll5 = 8;
+
+// Row stride of K5's slot buffers: the wider of a feature row and an rbf
+// row, plus 4 (conflict-free A fragment loads).
+__host__ __device__ constexpr int k5_ld(int F, int R) {
+  return (pad32(R) > F ? pad32(R) : F) + 4;
+}
+
+template <int F>
+constexpr size_t k5_smem_floats(int R) {
+  return (size_t)4 * K6Shape<F>::RING + (size_t)2 * M5 * k5_ld(F, R) +
+         (size_t)TA5 * F + (size_t)4 * M5;
+}
+
+// For the step's M5 slot rows m and n < NB, q < cur.qp, in 3xTF32: MODE 0
+// D1 = A B1; MODE 1 (pair) D1 = A B1 and D2 = A B2, where A is fp32 at row
+// stride lda (zeros past the true depth) and B the prepared weight of cur
+// (k6_product's layout); D1 and D2 at row stride lda. The weight stream is
+// k6_prod's: chunk 0 of cur sits in ring slot `slot`, staged by the
+// product before; while its last chunk multiplies this product stages
+// chunk 0 of `next` (none if next.b is null) and returns that chunk's slot.
+// Every warp reads every A row after the loop's first barrier and D is
+// written after a barrier that follows the last read, so A may be written
+// just before the call and D may be A. Ends with a __syncthreads. All
+// threads of the block must call it. Not inlined (code size).
+template <int F, int NB, int MODE>
+__device__ __noinline__ int k5_prod(const float* A, int lda, K6W cur,
+                                    K6W next, int slot, uint2* ring,
+                                    float* D1, float* D2) {
+  constexpr int RG = M5 / 32;            // 16-row groups per warp
+  constexpr int NT = NB / 32;            // 16 x 8 tiles per row group
+  constexpr int NX = MODE == 1 ? 2 : 1;  // weights per chunk
+  constexpr int RW = K6_RW / NX;         // pairs per ring row
+  constexpr int RING = K6Shape<F>::RING;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp & 1) * (M5 / 2), n0 = (warp >> 1) * (NB / 4);
+  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
+  const int n_chunks = cur.qp / RW;
+  float acc[NX][RG][NT][4];
+#pragma unroll
+  for (int x = 0; x < NX; ++x)
+#pragma unroll
+    for (int rg = 0; rg < RG; ++rg)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        acc[x][rg][j][0] = acc[x][rg][j][1] = acc[x][rg][j][2] =
+            acc[x][rg][j][3] = 0.0f;
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    cp_async_wait<0>();
+    __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+    uint2* other = ring + (slot ^ 1) * RING;
+    if (ch + 1 < n_chunks)
+      k6_stage(cur, ch + 1, other);
+    else if (next.b != nullptr)
+      k6_stage(next, 0, other);
+    cp_async_commit();
+    const uint2* wc = ring + slot * RING;
+#pragma unroll
+    for (int s = 0; s < RW / 8; ++s) {
+      const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
+      unsigned ah[RG][4], al[RG][4];
+#pragma unroll
+      for (int rg = 0; rg < RG; ++rg) {
+        const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
+        const float* r8 = r0 + (size_t)8 * lda;
+        split_tf32_mma(r0[k], ah[rg][0], al[rg][0]);
+        split_tf32_mma(r8[k], ah[rg][1], al[rg][1]);
+        split_tf32_mma(r0[k + 4], ah[rg][2], al[rg][2]);
+        split_tf32_mma(r8[k + 4], ah[rg][3], al[rg][3]);
+      }
+#pragma unroll
+      for (int x = 0; x < NX; ++x) {
+        unsigned bh[NT][2], bl[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const uint2* w = wc + (x * NB + n0 + j * 8 + g) * RW;
+          const uint2 u0 = w[(s * 8) ^ o0], u4 = w[(s * 8) ^ o0 ^ 4];
+          bh[j][0] = u0.x, bh[j][1] = u4.x, bl[j][0] = u0.y, bl[j][1] = u4.y;
+        }
+        // lo*hi, hi*lo, hi*hi of every tile in turn: RG NT independent
+        // accumulators between two dependent products
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(acc[x][rg][j], al[rg], bh[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(acc[x][rg][j], ah[rg], bl[j]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(acc[x][rg][j], ah[rg], bh[j]);
+      }
+    }
+    slot ^= 1;
+  }
+  __syncthreads();  // every warp is done reading A: D may overwrite it
+#pragma unroll
+  for (int x = 0; x < NX; ++x) {
+    float* D = x == 0 ? D1 : D2;
+#pragma unroll
+    for (int rg = 0; rg < RG; ++rg)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {  // (n, n + 1) as one 8-byte store
+        const int m = m0 + rg * 16 + g, n = n0 + j * 8 + 2 * t;
+        *reinterpret_cast<float2*>(D + m * lda + n) =
+            make_float2(acc[x][rg][j][0], acc[x][rg][j][1]);
+        *reinterpret_cast<float2*>(D + (m + 8) * lda + n) =
+            make_float2(acc[x][rg][j][2], acc[x][rg][j][3]);
+      }
+  }
+  __syncthreads();
+  return slot;
+}
+
+// C contiguous values, loaded or stored as one vector
+template <int C, class T>
+struct alignas(C * sizeof(T)) Pack {
+  T v[C];
+};
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+
+// p[0..C) in fp32, one vector load
+template <int C, class T>
+__device__ __forceinline__ void load_pack(const T* p, float (&out)[C]) {
+  const Pack<C, T> q = *reinterpret_cast<const Pack<C, T>*>(p);
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c] = to_f(q.v[c]);
+}
+
+template <int C>
+__device__ __forceinline__ void store_pack(float* p, const float (&in)[C]) {
+  Pack<C, float> q;
+#pragma unroll
+  for (int c = 0; c < C; ++c) q.v[c] = in[c];
+  *reinterpret_cast<Pack<C, float>*>(p) = q;
+}
+
+template <int F, bool FIRST, class E>
+__global__ void __launch_bounds__(kThreads, 1)
+klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
+                 const E* __restrict__ rbf, const float* __restrict__ dir,
+                 const float* __restrict__ mask,
+                 const uint2* __restrict__ wprep, float* __restrict__ inv1,
+                 float* __restrict__ eq, int N, int K, int R, int n_itiles,
+                 int n_tiles) {
+  constexpr int TJ = TJ5, M = M5;
+  constexpr int RPW = M / kWarps;  // slot rows per warp (silu pass)
+  constexpr int C = F / 32;        // features per lane: lane*C ..
+  constexpr int CW = FIRST ? F : 4 * F;
+  const int Rp = pad32(R), L = k5_ld(F, R);
+  extern __shared__ float smem[];
+  uint2* ring = reinterpret_cast<uint2*>(smem);  // 2 x RING
+  float* x_s = smem + 4 * K6Shape<F>::RING;  // M x L: me, msg, p1, h1, phi1
+  float* y_s = x_s + M * L;                  // M x L: rbf, p2, h2, phi2
+  float* npi_s = y_s + M * L;                // TA5 x F
+  float* mask_s = npi_s + TA5 * F;           // M
+  float* dir_s = mask_s + M;                 // 3 x M
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int f0 = lane * C;  // the lane's first feature
+  // the products of a step, in the order of the prepared weights
+  const uint2* wb = wprep;
+  auto next_w = [&](int qp, int two) {
+    const K6W w = {wb, qp, F};
+    wb += (size_t)F * qp * (two ? 2 : 1);
+    return w;
+  };
+  const K6W w_me = next_w(Rp, 0);
+  const K6W w_p = next_w(F, !FIRST);
+  const K6W w_phi1 = next_w(F, 0);
+  const K6W w_phi2 = FIRST ? w_phi1 : next_w(F, 0);
+  const K6W none = {nullptr, 0, 0};
+
+  int slot = 0;  // the ring slot of the next product's first chunk
+  if ((int)blockIdx.x < n_tiles) k6_stage(w_me, 0, ring);
+  cp_async_commit();
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int b = tile / n_itiles;
+    const int i0 = (tile - b * n_itiles) * TA5;
+    __syncthreads();  // the last tile's reads of npi_s are done
+    load_rows(npi, b, i0, N, F, npi_s, TA5);
+    float inv_acc[APW5][C], eq_acc[APW5][3][C];
+#pragma unroll
+    for (int a = 0; a < APW5; ++a)
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        inv_acc[a][c] = eq_acc[a][0][c] = eq_acc[a][1][c] = eq_acc[a][2][c] =
+            0.0f;
+
+    for (int k0 = 0; k0 < K; k0 += TJ) {
+      const bool more = k0 + TJ < K || tile + (int)gridDim.x < n_tiles;
+      if (k0 + TJ < K) {  // the next step's edge rows into L2
+        const int kn = k0 + TJ, nk = min(TJ, K - kn);
+        const int lines = (nk * CW * (int)sizeof(E) + 127) / 128;
+        const int rlines = (nk * R * (int)sizeof(E) + 127) / 128;
+        for (int v = threadIdx.x; v < TA5 * (lines + rlines); v += kThreads) {
+          const int il = v / (lines + rlines), l = v - il * (lines + rlines);
+          if (i0 + il >= N) continue;
+          const size_t at = slot_at(b, i0 + il, kn, N, K);
+          prefetch_l2(l < lines ? reinterpret_cast<const char*>(cat + at * CW)
+                                      + l * 128
+                                : reinterpret_cast<const char*>(rbf + at * R)
+                                      + (l - lines) * 128);
+        }
+      }
+      __syncthreads();  // the last step's reads of the slot buffers are done
+      k6_load_slots<E, M5>(mask, dir, rbf, b, i0, k0, N, K, R, L, mask_s,
+                           dir_s, y_s);
+      slot = k5_prod<F, F, 0>(y_s, L, w_me, w_p, slot, ring, x_s,
+                              nullptr);  // me
+      // msg = me np_i np_j mask in place, np_j from cat; inv1 += msg
+#pragma unroll
+      for (int a = 0; a < APW5; ++a) {
+        const int al = warp * APW5 + a, i = i0 + al;  // the warp's atoms
+        float ni[C];
+        load_pack<C>(npi_s + al * F + f0, ni);
+#pragma unroll(kRowUnroll5)
+        for (int kk = 0; kk < TJ; ++kk) {
+          const int p = al * TJ + kk, k = k0 + kk;
+          float nj[C] = {}, v[C];
+          if (i < N && k < K)
+            load_pack<C>(cat + slot_at(b, i, k, N, K) * CW + f0, nj);
+          load_pack<C>(x_s + p * L + f0, v);
+          const float m = mask_s[p];
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            v[c] = v[c] * ni[c] * nj[c] * m;
+            inv_acc[a][c] += v[c];
+          }
+          store_pack<C>(x_s + p * L + f0, v);
+        }
+      }
+      // p1 into x, p2 into y (the second branch is skipped at the first
+      // layer: force_node is zero)
+      if (FIRST)
+        slot = k5_prod<F, F, 0>(x_s, L, w_p, w_phi1, slot, ring, x_s,
+                                nullptr);
+      else
+        slot = k5_prod<F, F, 1>(x_s, L, w_p, w_phi1, slot, ring, x_s, y_s);
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        float* row[2] = {x_s + (warp * RPW + r) * L + f0,
+                         y_s + (warp * RPW + r) * L + f0};
+#pragma unroll
+        for (int x = 0; x < (FIRST ? 1 : 2); ++x) {
+          float v[C];
+          load_pack<C>(row[x], v);
+#pragma unroll
+          for (int c = 0; c < C; ++c) v[c] = silu_fast(v[c]);
+          store_pack<C>(row[x], v);
+        }
+      }
+      // phi1 = h1 @ W1b, phi2 = h2 @ W2b (masked below); then the next
+      // step's me
+      slot = k5_prod<F, F, 0>(x_s, L, w_phi1,
+                              !FIRST ? w_phi2 : more ? w_me : none, slot,
+                              ring, x_s, nullptr);
+      if (!FIRST)
+        slot = k5_prod<F, F, 0>(y_s, L, w_phi2, more ? w_me : none, slot,
+                                ring, y_s, nullptr);
+      // eq[d] += phi1 dir[d] + phi2 force_j[d]
+#pragma unroll
+      for (int a = 0; a < APW5; ++a) {
+        const int al = warp * APW5 + a, i = i0 + al;
+#pragma unroll(kRowUnroll5)
+        for (int kk = 0; kk < TJ; ++kk) {
+          const int p = al * TJ + kk, k = k0 + kk;
+          const float m = mask_s[p];
+          const float dd[3] = {dir_s[p], dir_s[M + p], dir_s[2 * M + p]};
+          float phi[C];
+          load_pack<C>(x_s + p * L + f0, phi);
+#pragma unroll
+          for (int d = 0; d < 3; ++d)
+#pragma unroll
+            for (int c = 0; c < C; ++c) eq_acc[a][d][c] += phi[c] * m * dd[d];
+          if (!FIRST) {
+            load_pack<C>(y_s + p * L + f0, phi);
+            float fj[3][C] = {};
+            if (i < N && k < K) {
+              const E* cj = cat + slot_at(b, i, k, N, K) * CW + f0;
+#pragma unroll
+              for (int d = 0; d < 3; ++d) load_pack<C>(cj + (d + 1) * F, fj[d]);
+            }
+#pragma unroll
+            for (int d = 0; d < 3; ++d)
+#pragma unroll
+              for (int c = 0; c < C; ++c)
+                eq_acc[a][d][c] += phi[c] * m * fj[d][c];
+          }
+        }
+      }
+    }
+
+#pragma unroll
+    for (int a = 0; a < APW5; ++a) {
+      const int i = i0 + warp * APW5 + a;
+      if (i >= N) continue;
+      store_pack<C>(inv1 + ((size_t)b * N + i) * F + f0, inv_acc[a]);
+#pragma unroll
+      for (int d = 0; d < 3; ++d)
+        store_pack<C>(eq + (((size_t)b * 3 + d) * N + i) * F + f0,
+                      eq_acc[a][d]);
+    }
+  }
+}
+
 // out[e] = sum_blk part[blk, e] for e < n_valid; 0 for the rest (the
 // first layer's W2a/W2b). Fixed summation order.
 __global__ void klist_wsum_kernel(float* __restrict__ out,
@@ -2070,7 +2271,7 @@ struct Args {
   int B, N, K, R;
   bool wgrad;
   cudaStream_t stream;
-  int max_blocks;  // K6, K8: the grid's upper bound (one block per SM)
+  int max_blocks;  // K5, K6, K8: the grid's upper bound (one block per SM)
 };
 
 template <class T>
@@ -2082,30 +2283,41 @@ T* cout_(const Args& a, int k) {
   return static_cast<T*>(a.out[k]);
 }
 
+// The weights of K5 (fwd) or K6 split into tf32 pairs, into wprep.
+cudaError_t prep_weights(const float* const* W, uint2* wprep, int F,
+                         int R, bool first, bool fwd, cudaStream_t stream) {
+  const size_t want = (prep_pairs(fwd, F, R) + 255) / 256;
+  klist_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0, stream>>>(
+      W[0], W[1], W[2], W[3], W[4], wprep, F, R, first ? 1 : 0, fwd ? 1 : 0);
+  return cudaGetLastError();
+}
+
 template <int F, bool FIRST, class E>
 cudaError_t launch_fwd(const Args& a) {
-  const size_t smem = fwd_smem_floats<F>(a.R) * sizeof(float);
+  const size_t smem = k5_smem_floats<F>(a.R) * sizeof(float);
   auto kern = klist_fwd_kernel<F, FIRST, E>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_itiles = (a.N + TI - 1) / TI;
-  const float* npi = cin<float>(a, 0);
-  const E* cat = cin<E>(a, 1);
-  const E* rbf = cin<E>(a, 2);
-  const float* dir = cin<float>(a, 3);
-  const float* mask = cin<float>(a, 4);
-  const float* We = cin<float>(a, 5);
-  const float* W1a = cin<float>(a, 6);
-  const float* W1b = cin<float>(a, 7);
-  const float* W2a = cin<float>(a, 8);
-  const float* W2b = cin<float>(a, 9);
-  float* inv1 = cout_<float>(a, 0);
-  float* eq = cout_<float>(a, 1);
-  const int N = a.N, K = a.K, R = a.R;
-  kern<<<a.B * n_itiles, kThreads, smem, a.stream>>>(
-      npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b, inv1, eq, N, K, R,
-      n_itiles);
+  const int n_itiles = (a.N + TA5 - 1) / TA5;
+  const int n_tiles = a.B * n_itiles;
+  const int n_blocks = n_tiles < a.max_blocks ? n_tiles : a.max_blocks;
+  if (n_blocks < 1) return cudaErrorInvalidValue;
+  // the vector loads of the elementwise chain: F/32 values of npi, cat,
+  // inv1 and eq at a time
+  const size_t vec = (size_t)(F / 32) * sizeof(E), vecf = F / 32 * 4;
+  if ((size_t)a.in[1] % vec || (size_t)a.in[0] % vecf ||
+      (size_t)a.out[0] % vecf || (size_t)a.out[1] % vecf)
+    return cudaErrorInvalidValue;
+  const float* W[5];
+  for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 5 + k);
+  uint2* wprep = cout_<uint2>(a, 2);  // the launch's scratch
+  err = prep_weights(W, wprep, F, a.R, FIRST, true, a.stream);
+  if (err != cudaSuccess) return err;
+  kern<<<n_blocks, kThreads, smem, a.stream>>>(
+      cin<float>(a, 0), cin<E>(a, 1), cin<E>(a, 2), cin<float>(a, 3),
+      cin<float>(a, 4), wprep, cout_<float>(a, 0), cout_<float>(a, 1), a.N,
+      a.K, a.R, n_itiles, n_tiles);
   return cudaGetLastError();
 }
 
@@ -2123,11 +2335,7 @@ cudaError_t launch_bwd_w(const Args& a) {
   const float* W[5];
   for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 5 + k);
   uint2* wprep = cout_<uint2>(a, 6);  // the launch's scratch
-  const size_t want = (k6_prep_pairs(F, a.R) + 255) / 256;
-  klist_bwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
-                          a.stream>>>(W[0], W[1], W[2], W[3], W[4], wprep, F,
-                                      a.R, FIRST ? 1 : 0);
-  err = cudaGetLastError();
+  err = prep_weights(W, wprep, F, a.R, FIRST, false, a.stream);
   if (err != cudaSuccess) return err;
   float* wpart = cout_<float>(a, 4);
   kern<<<n_blocks, kThreads, smem, a.stream>>>(
@@ -2269,15 +2477,19 @@ extern "C" {
 // rbf (B,N,K,R) in the edge type (fp32, or bf16 when bf16 != 0); dir
 // (B,3,N,K), mask (B,N,K) f32; We (R,F), W* (F,F) f32 -> inv1 (B,N,F),
 // eq (B,3,N,F) f32. Contiguous, on the device of `stream`; F in 32/64/128.
+// Scratch: 16-byte aligned, nn_klist_scratch_floats(F, R, 0) floats (the
+// weights split into tf32 pairs); max_blocks bounds the grid (the wrapper
+// passes the SM count).
 int nn_klist_fwd(const float* npi, const void* cat, const void* rbf,
                  const float* dir, const float* mask, const float* We,
                  const float* W1a, const float* W1b, const float* W2a,
-                 const float* W2b, float* inv1, float* eq, int B, int N,
-                 int K, int F, int R, int first_layer, int bf16,
-                 void* stream) {
+                 const float* W2b, float* inv1, float* eq, float* scratch,
+                 int B, int N, int K, int F, int R, int first_layer, int bf16,
+                 int max_blocks, void* stream) {
   Args a = {{npi, cat, rbf, dir, mask, We, W1a, W1b, W2a, W2b},
-            {inv1, eq},
-            B, N, K, R, false, static_cast<cudaStream_t>(stream)};
+            {inv1, eq, scratch},
+            B, N, K, R, false, static_cast<cudaStream_t>(stream),
+            max_blocks};
   return run<Fwd>(F, first_layer, bf16, a);
 }
 
@@ -2351,7 +2563,7 @@ int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
 // (3), in bytes; 0 for an F the kernels are not built for.
 size_t nn_klist_smem_bytes(int F, int R, int kind) {
 #define NN_SMEM(FF)                                                      \
-  return (kind == 0   ? fwd_smem_floats<FF>(R)                           \
+  return (kind == 0   ? k5_smem_floats<FF>(R)                           \
           : kind == 1 ? k6_smem_floats<FF>(R)                            \
           : kind == 2 ? k7_smem_floats<FF>(R)                            \
                       : dual_bwd_smem_floats<FF>(R)) * sizeof(float)
@@ -2366,10 +2578,10 @@ size_t nn_klist_smem_bytes(int F, int R, int kind) {
 
 // Scratch of one launch of K5 (kind 0), K6 (1), K7 (2) or K8 (3), in
 // floats, beyond the weight partials that K6 and K8 take as an argument:
-// the weights split into tf32 pairs (K6: ten blocks, K7: five); 0 for the
-// others.
+// the weights split into tf32 pairs (K5: four blocks, K6: ten, K7: five);
+// 0 for K8.
 size_t nn_klist_scratch_floats(int F, int R, int kind) {
-  return kind == 1   ? 2 * k6_prep_pairs(F, R)
+  return kind <= 1   ? 2 * prep_pairs(kind == 0, F, R)
          : kind == 2 ? 2 * k7_prep_offset(F, R, 5)
                      : 0;
 }

@@ -30,10 +30,9 @@ float32 only.
 
 On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
 nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
-the CPU the wrappers run the plain versions below. K5 uses plain fp32
-FMAs; K6, K7 and K8 multiply on the tensor cores in 3xTF32 (each operand
-split in a TF32 high and low part, three products summed in fp32), which
-keeps fp32-level accuracy. A CUDA tensor either launches the kernel or
+the CPU the wrappers run the plain versions below. All four multiply on
+the tensor cores in 3xTF32 (each operand split in a TF32 high and low
+part, three products summed in fp32), which keeps fp32-level accuracy. A CUDA tensor either launches the kernel or
 raises: nothing falls back.
 '''
 import ctypes
@@ -56,7 +55,7 @@ LAUNCHES = {'klist_fwd': 0, 'klist_fwd_first': 0,
 # K6 launches among those that computed the weight cotangents
 WEIGHT_GRAD_LAUNCHES = {'klist_bwd': 0, 'klist_bwd_first': 0}
 EDGE_DTYPES = (torch.float32, torch.bfloat16)
-_TI = 8  # atoms per block in the kernels (csrc/fused_klist.cu: TI)
+_TI = 8  # atoms per tile in K6-K8 (csrc/fused_klist.cu: TI)
 
 
 def reset_launch_counts():
@@ -265,7 +264,7 @@ def _lib():
     lib = _build.load('fused_klist')
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
+        lib.nn_klist_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
         lib.nn_klist_bwd.argtypes = [p] * 19 + [i] * 9 + [p]
         lib.nn_klist_dual_fwd.argtypes = [p] * 19 + [i] * 7 + [p]
         lib.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
@@ -339,11 +338,14 @@ def _split_w(dw, F, R):
                                       shapes)]
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _n_blocks(B, N, device):
     '''The grid of K6 and K8: one block per SM at most, each walking atom
     tiles and summing them into one weight partial.'''
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return min(B * ((N + _TI - 1) // _TI), sms)
+    return min(B * ((N + _TI - 1) // _TI), _sms(device))
 
 
 def _device(t):
@@ -363,8 +365,13 @@ def klist_fwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
                                  list(zip(_NAMES, ins, _KINDS)), first_layer)
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
-    err = _lib().nn_klist_fwd(*[t.data_ptr() for t in ins + outs], B, N, K,
-                              F, R, int(first_layer), bf, _stream(npi))
+    lib = _lib()
+    # the weights split into tf32 (hi, lo) pairs, once per launch; at most
+    # one block per SM, each walking atom tiles
+    scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 0),), **opts)
+    err = lib.nn_klist_fwd(*[t.data_ptr() for t in ins + outs + (scratch,)],
+                           B, N, K, F, R, int(first_layer), bf,
+                           _sms(npi.device), _stream(npi))
     _raise_on(err, 'nn_klist_fwd')
     LAUNCHES[_key('klist_fwd', first_layer)] += 1
     return outs

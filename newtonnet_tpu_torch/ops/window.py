@@ -24,10 +24,10 @@ their autograd Functions are each other's backward. check_window says
 whether every valid edge is in its window; window_margin by how many rows.
 
 On the card the wrappers launch `csrc/window.cu` (nn_window_gather, K10:
-a row gather with the window test; nn_window_scatter, K11: a per-block sort
-of the edges by window row, segment sums of the sorted edges, the pieces
-of each run joined and the blocks' window rows added in a fixed order, no
-float atomics); on the CPU they run the plain versions. A CUDA tensor
+a row gather with the window test; nn_window_scatter, K11: a stable radix
+sort of the edges by destination row, then segment sums of the sorted
+edges with the pieces of each run joined in a fixed order, no float
+atomics); on the CPU they run the plain versions. A CUDA tensor
 either launches the kernel or raises.
 '''
 import ctypes
@@ -185,7 +185,8 @@ def window_scatter_sum_fwd(y, idx_kn, W, T=128):
     lib = _lib()
     n_bytes = lib.nn_window_scratch_bytes(B, K, N, F, W, T)
     if n_bytes == 0:
-        raise ValueError(f'K11 takes K * T <= 32768, got K={K}, T={T}')
+        raise ValueError(f'K11 takes B * K * N < 2^31 edges, got B={B}, '
+                         f'K={K}, N={N}')
     scratch = torch.empty((n_bytes,), dtype=torch.uint8, device=y.device)
     out = torch.empty((B, N) + y.shape[3:], dtype=y.dtype, device=y.device)
     err = lib.nn_window_scatter(

@@ -311,3 +311,25 @@ def test_backward_kernel_repeats_its_bits_on_cuda():
                         if a is not None:
                             assert torch.equal(a, b)
 
+
+
+@pytest.mark.cuda
+def test_forward_kernel_repeats_its_bits_on_cuda():
+    '''Three K5 launches on one input give equal bits, both variants, fp32
+    and bf16 edges, with more atom tiles than blocks on a 3-block grid
+    and on the wrapper's one block per SM: its sums over the list stay
+    inside a block, in a fixed order, with no float atomics.'''
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    for first in (False, True):
+        for bf16 in (False, True):
+            ins, ws, _, _ = _inputs(13, first, seed=4, F=128, R=20, N=37)
+            edge = lambda a, e: _torch(a, bf16 and e).cuda()  # noqa: E731
+            tin = [edge(a, k in (1, 2)) for k, a in enumerate(ins)]
+            tw = [torch.from_numpy(w).cuda() for w in ws]
+            runs = [fk.klist_fwd(*tin, *tw, first_layer=first)
+                    for _ in range(3)]
+            torch.cuda.synchronize()
+            for run in runs[1:]:
+                for a, b in zip(runs[0], run):
+                    assert torch.equal(a, b)

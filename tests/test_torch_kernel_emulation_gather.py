@@ -79,7 +79,8 @@ def window_lib(tmp_path_factory):
 
 @pytest.mark.parametrize('B, K, N, F, W, T, dtype', [
     (2, 3, 256, 16, 128, 128, torch.bfloat16),
-    (1, 5, 96, 6, 40, 32, torch.float32)])
+    (1, 5, 96, 6, 40, 32, torch.float32),
+    (1, 9, 512, 8, 256, 128, torch.bfloat16)])
 def test_emulated_window_kernels_match_plain(window_lib, B, K, N, F, W, T,
                                              dtype):
     """K10 equals its plain version bit for bit (the window test and the
@@ -88,7 +89,8 @@ def test_emulated_window_kernels_match_plain(window_lib, B, K, N, F, W, T,
     another order), with edges in and out of their windows and indices of
     both widths; with int64 indices a third of the edges point at atom 0,
     a window row with a long run of edges (as masked slots pointed at a
-    block's start make)."""
+    block's start make). The last case sorts its 4608 edges in three tiles
+    of K11's radix sort."""
     rs = np.random.RandomState(N + K)
     x = torch.tensor(rs.randn(B, N, F), dtype=torch.float32).to(dtype)
     y = torch.tensor(rs.randn(B, K, N, F), dtype=torch.float32).to(dtype)
@@ -118,9 +120,53 @@ def test_emulated_window_kernels_match_plain(window_lib, B, K, N, F, W, T,
                 <= 1e-6 * want.abs().max() + ulp).all()
 
 
+def _scatter(lib, y, idx, W, T):
+    B, K, N = idx.shape
+    F = y[0, 0, 0].numel()
+    scratch = torch.full((lib.nn_window_scratch_bytes(B, K, N, F, W, T),),
+                         255, dtype=torch.uint8)
+    got = torch.full((B, N, F), float('nan'), dtype=y.dtype)
+    assert lib.nn_window_scatter(
+        y.data_ptr(), idx.data_ptr(), scratch.data_ptr(), got.data_ptr(), B,
+        K, N, F, W, T, int(y.dtype == torch.bfloat16),
+        int(idx.dtype == torch.int64), None) == 0
+    return got
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+def test_emulated_window_scatter_sums_long_runs_and_repeats_its_bits(
+        window_lib, dtype):
+    """K11 on a cell-sorted-like list whose masked slots (two in five) point
+    at their block's window start, as chip_smoke.window_list makes them:
+    four rows with runs of about 460 edges, over two or three of the
+    kernel's 256-position segments, beside rows of a few edges, rows with
+    none and edges out of their windows. int32 and int64 indices, fp32 and
+    bf16 payloads; within 1e-6 of the largest magnitude plus one ulp of the
+    output dtype of the plain index_add_, and a second launch gives the
+    same bits."""
+    B, K, N, F, W, T = 1, 9, 512, 8, 256, 128
+    rs = np.random.RandomState(7)
+    y = torch.tensor(rs.randn(B, K, N, F), dtype=torch.float32).to(dtype)
+    starts = torch.tensor(wn.window_starts(N, W, T)).repeat_interleave(T)
+    near = starts[None, None] + torch.tensor(rs.randint(0, W + 8,
+                                                        size=(B, K, N)))
+    masked = torch.tensor(rs.rand(B, K, N) < 0.4)
+    for idx_dtype in (torch.int32, torch.int64):
+        idx = torch.where(masked, starts[None, None], near % N).to(idx_dtype)
+        loc = wn.window_locals(idx, W, T)
+        assert (loc >= W).any()
+        got = _scatter(window_lib, y, idx, W, T)
+        want = wn.window_scatter_sum_ref(y, idx, W, T).float()
+        ulp = torch.finfo(dtype).eps * want.abs()
+        assert ((got.float() - want).abs()
+                <= 1e-6 * want.abs().max() + ulp).all()
+        assert torch.equal(got, _scatter(window_lib, y, idx, W, T))
+
+
 def test_emulated_window_kernels_refuse_what_they_do_not_take(window_lib):
-    """N not a multiple of T, W above N, or more edges per block than the
-    sort holds: cudaErrorInvalidValue (and no scratch size)."""
+    """N not a multiple of T, W above N, or more edges than K11's 32-bit
+    edge ids hold: cudaErrorInvalidValue (and no scratch size). K11's sort
+    holds no block's edges in shared memory, so K * T is not bounded."""
     x, idx, out = torch.zeros(1, 8, 4), torch.zeros(1, 2, 8,
                                                    dtype=torch.int32), \
         torch.zeros(1, 2, 8, 4)
@@ -129,8 +175,13 @@ def test_emulated_window_kernels_refuse_what_they_do_not_take(window_lib):
                                        None) == 1
     assert window_lib.nn_window_gather(*args, 1, 2, 8, 4, 9, 4, 0, 0,
                                        None) == 1
-    assert window_lib.nn_window_scratch_bytes(1, 300, 256, 4, 128, 128) == 0
+    assert window_lib.nn_window_scratch_bytes(1, 300, 256, 4, 128, 128) > 0
+    assert window_lib.nn_window_scratch_bytes(1, 1 << 16, 1 << 15, 4, 128,
+                                              128) == 0
     assert window_lib.nn_window_scatter(x.data_ptr(), idx.data_ptr(),
                                         out.data_ptr(), out.data_ptr(), 1,
-                                        300, 256, 4, 128, 128, 0, 0,
+                                        1 << 16, 1 << 15, 4, 128, 128, 0, 0,
                                         None) == 1
+    assert window_lib.nn_window_scatter(x.data_ptr(), idx.data_ptr(),
+                                        out.data_ptr(), out.data_ptr(), 1, 2,
+                                        8, 4, 4, 3, 0, 0, None) == 1

@@ -14,7 +14,7 @@ from torch_kernel_emu import BAR, compile_emu, nan, ptrs, source, worst_ratio
 
 def _klist_handle(handle):
     p, i = ctypes.c_void_p, ctypes.c_int
-    handle.nn_klist_fwd.argtypes = [p] * 12 + [i] * 7 + [p]
+    handle.nn_klist_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
     handle.nn_klist_bwd.argtypes = [p] * 19 + [i] * 9 + [p]
     handle.nn_klist_dual_fwd.argtypes = [p] * 19 + [i] * 7 + [p]
     handle.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
@@ -55,6 +55,19 @@ def _klist_inputs(B, N, K, F, R, first_layer, bf16, seed):
     return ins, tans, cots
 
 
+def _run_k5(handle, ins, first_layer, bf16, max_blocks=3):
+    '''(inv1, eq) of the emulated K5, NaN-initialised, its scratch too, with
+    a grid of at most max_blocks blocks.'''
+    B, N, F = ins[0].shape
+    K, R = ins[1].shape[2], ins[2].shape[-1]
+    out = [nan(B, N, F), nan(B, 3, N, F),
+           nan(handle.nn_klist_scratch_floats(F, R, 0))]
+    assert handle.nn_klist_fwd(*ptrs(ins + out), B, N, K, F, R,
+                               int(first_layer), int(bf16), max_blocks,
+                               None) == 0
+    return out[:2]
+
+
 def _run_klist(handle, ins, tans, cots, first_layer, bf16, max_blocks=3):
     '''(K5, K6 without and with weight cotangents, K7, K8) outputs of the
     emulated kernels, NaN-initialised, and the plain versions' values. The
@@ -71,9 +84,7 @@ def _run_klist(handle, ins, tans, cots, first_layer, bf16, max_blocks=3):
         return torch.full_like(x, float('nan'))
 
     got, want = [], []
-    fwd = [nan(B, N, F), nan(B, 3, N, F)]
-    assert handle.nn_klist_fwd(*ptrs(ins + fwd), B, N, K, F, R, fl, bf,
-                               None) == 0
+    fwd = _run_k5(handle, ins, first_layer, bf16, max_blocks)
     got += fwd
     want += fk.klist_fwd_ref(*ins, first_layer=first_layer)
     for wg in (False, True):
@@ -148,12 +159,12 @@ def test_emulated_klist_kernels_refuse_what_they_do_not_take(klist_lib):
     '''F outside (32, 64, 128), an R whose tiles overflow the 227 KB of
     shared memory a block may use, or an empty list: cudaErrorInvalidValue.'''
     ins, _, _ = _klist_inputs(1, 4, 3, 32, 4, False, False, seed=0)
-    out = [nan(1, 4, 32), nan(1, 3, 4, 32)]
-    assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 3, 48, 4, 0, 0,
+    out = [nan(1, 4, 32), nan(1, 3, 4, 32), nan(4096)]
+    assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 3, 48, 4, 0, 0, 1,
                                   None) == 1
     assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 3, 128, 900, 0, 0,
-                                  None) == 1
-    assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 0, 32, 4, 0, 0,
+                                  1, None) == 1
+    assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 0, 32, 4, 0, 0, 1,
                                   None) == 1
 
 
@@ -207,3 +218,35 @@ def test_emulation_catches_a_k6_fragment_fault(tmp_path):
     got, want = _run_klist(mutant, ins, tans, cots, False, False)
     # K6 without and with weight cotangents: dnpi, dcat, drbf, ddir, dW*
     assert worst_ratio(got[2:15], want[2:15]) > BAR
+
+
+@pytest.mark.parametrize('first_layer, bf16', [(False, True), (True, False)])
+def test_emulated_k5_walks_atom_tiles_and_repeats_its_bits(klist_lib,
+                                                           first_layer, bf16):
+    '''K5 (tensor cores, 3xTF32, 16-atom tiles of 128 slot rows) with a grid
+    of 3 blocks over 6 tiles of two molecules (N = 37, no multiple of 16; K
+    = 11, no multiple of the 8-slot step), so that each block walks two
+    tiles and the weight stream runs across steps and tiles: BAR against
+    its plain version, and a second launch gives the same bits.'''
+    ins, _, _ = _klist_inputs(2, 37, 11, 32, 8, first_layer, bf16, seed=37)
+    got = _run_k5(klist_lib, ins, first_layer, bf16)
+    want = fk.klist_fwd_ref(*ins, first_layer=first_layer)
+    assert worst_ratio(got, want) <= BAR
+    again = _run_k5(klist_lib, ins, first_layer, bf16)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_emulation_catches_a_k5_fragment_fault(tmp_path):
+    '''A mutant of fused_klist.cu whose K5 products read the second B
+    fragment word of an m16n8k8 tile from the wrong depth of the swizzled
+    ring row (k + 5 for k + 4) fails the comparison of K5 with its plain
+    version that the source passes.'''
+    src = source('fused_klist')
+    good = 'u4 = w[(s * 8) ^ o0 ^ 4];'
+    assert src.count(good) == 1
+    mutant = _klist_handle(compile_emu(
+        tmp_path, 'fused_klist_k5_mutant',
+        src.replace(good, 'u4 = w[(s * 8) ^ o0 ^ 5];')))
+    ins, _, _ = _klist_inputs(1, 9, 6, 32, 8, False, False, seed=15)
+    got = _run_k5(mutant, ins, False, False)
+    assert worst_ratio(got, fk.klist_fwd_ref(*ins)) > BAR

@@ -151,3 +151,18 @@ def test_window_kernels_match_plain_on_cuda():
         ulp = torch.finfo(dt).eps * want.abs()
         assert ((s.cpu().float() - want).abs()
                 <= 1e-6 * want.abs().max() + ulp).all()
+
+
+@pytest.mark.cuda
+def test_scatter_kernel_repeats_its_bits_on_cuda():
+    '''Three K11 launches on one input give equal bits, fp32 and bf16
+    payloads: its sums run in a fixed order, with no float atomics.'''
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device')
+    idx, _, _, y = _case(4)
+    ti = torch.from_numpy(idx).cuda()
+    for dt in (torch.float32, torch.bfloat16):
+        ty = torch.from_numpy(y).to(dt).cuda()
+        runs = [wn.window_scatter_sum_fwd(ty, ti, W, T) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
