@@ -106,8 +106,40 @@ with a non-zero exit code and no result line):
             (k_max 88, bf16 stack, box_weights): the plain row gather
             bitwise, three requests repeating their bits, the K-list path
             of 5b and, at 512 atoms, the JAX package (bf16 and fp32);
-            latency, host list build, model evaluation, and a profile
-            with K9's share and launches beside the K-list request's time.
+            latency, host list build (the C++ slot coloring of
+            csrc/host/symslots.cpp, beside the 1050 ms the numpy loop
+            took on this request), model evaluation, and a profile with
+            K9's share and launches beside the K-list request's time.
+7f. train-xla  fine-tuning the kernel='xla' checkpoint with its own
+            config, artifacts/md17_model/config.yml (F=128, R=20, 3
+            interactions, energy + 50 x force mse, Adam 1e-3, clip 1.0,
+            batch 10): a. the first 10 steps by the standard step
+            (reverse over reverse: fast_grad 'auto', as the JAX Trainer
+            resolves it) and b. by fastgrad (reverse over forward,
+            fast_grad True), each against the JAX package's
+            (JAX_XLA_STEP_*) at phase 7a's bars, step 1's gradients of
+            the two at 1e-4 relative norm; c. one epoch through the CLI's entry
+            point (95 steps, val, test, re-evaluation) with the JAX
+            columns and a best model that reproduces its test metrics;
+            then one step under torch.profiler.
+7g. train-xla-nlist  the same with graph_mode neighborlist, k_max 48:
+            10 standard steps against JAX_XLA_NLIST_STEP_*, step 1's
+            gradient against 7f's dense one, K9 launched (gather_nodes'
+            fixed-order backward in every derivative order), three step-1
+            gradients with equal bits.
+7h. box-train-xla  the standard step on the 4096-atom box (bf16 stack,
+            box_weights) with an energy + force + stress loss
+            (BOX_XLA_LOSS), three steps over plain lists and three over
+            inverse lists (K9 in every derivative order): step 1 against
+            the plain row gather (equal bits) and against plain lists
+            (2e-3), three gradients with equal bits, fastgrad against its
+            plain row gather (equal bits) and the standard step (energy +
+            force, 2e-3), and at 512 atoms step 1's loss and gradient norm
+            against the JAX package's (JAX_XLA_BOX_STEP_*; bf16 at
+            BOX_SPREAD_FACTOR times the JAX package's bf16-to-fp32 spread
+            plus the float32 bar, float32 at 1e-4); one step per
+            list layout under torch.profiler (K9, the gather backward,
+            the rest).
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
@@ -121,7 +153,8 @@ with a non-zero exit code and no result line):
             the list-mode training epoch);
             K9 (box inv_gather and scatter-chunk shapes), K12, K10 and K11
             with one PyTorch call's time beside them (index_select,
-            index_add_), bound by bytes.
+            index_add_), bound by bytes; K9 and K12 also with their
+            launches on the XLA training paths (7g, 7h).
 
 Then the card's nvidia-smi line, the `kernels` JSON line and, last,
 {"ok": true, "device": {...}}.
@@ -283,6 +316,35 @@ JAX_XLA_BOX_FP32_FORCES_8 = [
     [0.015352045185863972, -0.006744819693267345, -0.17343561351299286],
     [-0.08451394736766815, 0.15131747722625732, 0.015898654237389565],
 ]
+# Fine-tuning the XLA checkpoint with its own config (phase 7f: energy + 50
+# x force mse, Adam 1e-3, clip 1.0, batch 10, scalers refit; the JAX
+# package's default step for it is the standard, reverse-over-reverse one):
+# the JAX package's first 10 steps (loss, global gradient norm before the
+# clip), dense and with graph_mode neighborlist, k_max 48 (phase 7g), from
+# `python tests/test_torch_xla_reference.py steps` (CPU, float32, matmul
+# precision 'highest' as the config asks).
+XLA_CONFIG = os.path.join(ROOT, 'artifacts', 'md17_model', 'config.yml')
+JAX_XLA_STEP_LOSS = [7.462329, 1.820544, 1.754462, 1.822755, 0.7851596,
+                     0.4112062, 0.3771977, 0.2621882, 0.3426366, 0.2904399]
+JAX_XLA_STEP_GRAD_NORM = [470.11, 166.22, 152.34, 221.74, 114.48, 48.389,
+                          40.471, 36.628, 21.758, 31.631]
+JAX_XLA_NLIST_STEP_LOSS = [7.462329, 1.820544, 1.754462, 1.822755,
+                           0.7851592, 0.4112058, 0.3771978, 0.2621885,
+                           0.3426363, 0.2904404]
+JAX_XLA_NLIST_STEP_GRAD_NORM = [470.11, 166.22, 152.34, 221.74, 114.48,
+                                48.389, 40.471, 36.628, 21.758, 31.631]
+# Phase 7h's loss on the box: energy + force + stress mse, the labels from
+# box_system and box_stress (numpy seeds). At BOX_REF_ATOMS, over inverse
+# lists with box_weights' weights, the JAX package's standard step 1 (loss,
+# global gradient norm) with a bf16 stack and in float32, from `python
+# tests/test_torch_xla_reference.py box-steps` (CPU).
+BOX_XLA_LOSS = {'energy': {'weight': 1.0},
+                'gradient_force': {'weight': 50.0},
+                'stress': {'weight': 100.0}}
+JAX_XLA_BOX_STEP_LOSS = {'bfloat16': 2047.69287109375,
+                         'float32': 2048.697021484375}
+JAX_XLA_BOX_STEP_GRAD_NORM = {'bfloat16': 103632.2890625,
+                              'float32': 103555.421875}
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
 WINDOW_T, WINDOW_F = 128, 512
@@ -615,6 +677,14 @@ def box_system(n_atoms=BOX_ATOMS, seed=0):
     return z, pos, cell, energy, force
 
 
+def box_stress(seed=0):
+    """The box's (1, 3, 3) stress label (eV/A^3) for phase 7h's loss, from
+    numpy with `seed` (box_system's labels have none)."""
+    import numpy as np
+    return (np.random.RandomState(seed + 1).randn(1, 3, 3)
+            * 1e-3).astype(np.float32)
+
+
 def box_weights(torch, core, seed=0):
     """Fill `core` from numpy with `seed`, as flax initializes it: every
     kernel and bias U(+-1/sqrt(fan_in)), the embedding N(0, 1) with row 0
@@ -678,13 +748,16 @@ def rel_norm(a, b):
 
 def float64_loss(fd, main_loss, batch, model):
     """(loss, one-ulp term) of `batch` through the dense model's plain
-    path in float64: the loss, and (2/B) sum_b |E_b - E_ref_b| ulp(E_b),
-    what one float32 ulp of every frame's energy moves it by."""
+    path in float64 (kernel='pallas': the fused layer's plain version;
+    kernel='xla' is plain PyTorch): the loss, and (2/B) sum_b |E_b -
+    E_ref_b| ulp(E_b), what one float32 ulp of every frame's energy moves
+    it by."""
     import numpy as np
     b64 = {k: v.double() if v.is_floating_point() else v
            for k, v in batch.items()}
-    preds = model.double()(b64['z'], b64['pos'], b64['cell'],
-                           pair_op=fd.pair_interaction_fwd_ref)
+    plain = {'pair_op': fd.pair_interaction_fwd_ref} \
+        if model.kernel == 'pallas' else {}
+    preds = model.double()(b64['z'], b64['pos'], b64['cell'], **plain)
     e64 = preds['energy'].cpu().numpy()
     err = e64 - b64['energy'].cpu().numpy()
     ulp_term = 2.0 / len(err) * float(
@@ -1869,6 +1942,404 @@ def phase_box_xla(torch, rg, klist_box):
     return launches, calc, request, timing
 
 
+def xla_settings(output, epochs):
+    '''artifacts/md17_model/config.yml (no kernel key: an XLA model),
+    warm-started from the XLA checkpoint, on CUDA, with the data of this
+    checkout, `epochs` epochs, writing into `output`.'''
+    import yaml
+    with open(XLA_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg['general'].update(device='cuda', output=output)
+    cfg['data'].update(train_root=os.path.dirname(os.path.dirname(XYZ_TRAIN)),
+                       test_root=os.path.dirname(os.path.dirname(XYZ)))
+    cfg['model']['pretrained_model'] = {'path': XLA_CKPT}
+    cfg['training']['epochs'] = epochs
+    return cfg
+
+
+def xla_fine_tune(torch, **changes):
+    '''The fine-tuning of phases 7f/7g: (config, its first 10 training
+    batches on the card, a function giving the starting model, the
+    configured main loss). The start is the XLA checkpoint's weights in a
+    model with `changes`, the energy scaler refit as the CLI refits it.'''
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    cfg = xla_settings(None, 1)
+    train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
+    it = iter(train_gen)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()}
+               for _ in range(10)]
+
+    def start(**more):
+        base = load_model(XLA_CKPT)
+        model = NewtonNet(**dict(base.config_dict(), **changes, **more),
+                          device='cuda')
+        model.load_state_dict(base.state_dict())
+        set_scalers(model.core, model.output_properties, stats,
+                    {'energy': dict(cfg['training']['fit_scalers'])})
+        return model.requires_grad_(True)
+    return cfg, batches, start, get_loss_by_string(cfg['training']['loss'])
+
+
+def param_grads(torch, model):
+    """Each parameter's gradient (zeros where it got none)."""
+    return [p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+            for p in model.core.parameters()]
+
+
+def xla_steps(torch, model, loss_fns, batches, fast_grad):
+    """Steps through Trainer.loss_and_grad (the step fast_grad resolves
+    to) with Adam (lr 1e-3, clip 1.0). -> (losses, global gradient norms
+    before the clip, step seconds, step 1's gradients and predictions,
+    the Trainer)."""
+    from newtonnet_tpu_torch import Trainer
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    opt = get_optimizer_by_string('adam', model.core, clip_grad=1.0, lr=1e-3)
+    trainer = Trainer(model, loss_fns=loss_fns, optimizer=opt,
+                      fast_grad=fast_grad)
+    losses, norms, step_s, grads1, preds1 = [], [], [], None, None
+    with fp32_matmuls():
+        for b in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, preds = trainer.loss_and_grad(b)
+            norm = opt.global_norm()
+            if grads1 is None:
+                grads1, preds1 = param_grads(torch, model), preds
+            opt.step()
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            norms.append(float(norm))
+    return losses, norms, step_s, grads1, preds1, trainer
+
+
+def check_jax_steps(what, losses, norms, jax_loss, jax_norm, loss64, bar1):
+    """Phase 7a's bars: step 1's loss, and the JAX package's, within bar1
+    (one float32 ulp of every frame's energy) of the float64 loss and of
+    each other; step 1's gradient norm at 1e-3 and steps 2-10's losses at 1e-2
+    relative to the JAX package's. -> the relative differences."""
+    rel_loss = [abs(a - b) / b for a, b in zip(losses, jax_loss)]
+    rel_gn = [abs(a - b) / b for a, b in zip(norms, jax_norm)]
+    check(all(math.isfinite(v) for v in losses + norms),
+          f'{what}: non-finite loss or gradient norm')
+    check(max(rel_loss[0], abs(losses[0] - loss64) / loss64,
+              abs(jax_loss[0] - loss64) / loss64) <= bar1,
+          f'{what}: step 1 loss {losses[0]} (float64 {loss64})')
+    check(rel_gn[0] <= 1e-3, f'{what}: step 1 grad norm {norms[0]}')
+    check(max(rel_loss[1:]) <= 1e-2, f'{what}: steps 2-10 loss {losses}')
+    return rel_loss, rel_gn
+
+
+def phase_train_xla_steps(torch, fd):
+    """Phase 7f a/b: the first 10 fine-tuning steps of the XLA checkpoint
+    with its own config, by the standard step (fast_grad 'auto', as the
+    JAX Trainer resolves it for an XLA model) and by fastgrad's reverse
+    over forward (fast_grad True), each against the JAX package's
+    (JAX_XLA_STEP_*); step 1's gradient of the two at 1e-4 relative norm.
+    -> (step 1's batch, the starting model's maker, the fine-tuned
+    model's Trainer, the step seconds, step 1's gradients and energies,
+    the float64 loss and bar)."""
+    _, batches, start, loss_fns = xla_fine_tune(torch)
+    runs = {fg: xla_steps(torch, start(), loss_fns, batches, fg)
+            for fg in ('auto', True)}
+    loss64, ulp_term = float64_loss(fd, loss_fns[0], batches[0], start())
+    bar1 = ulp_term / loss64
+    out = {}
+    for fg, (losses, norms, step_s, _, _, trainer) in runs.items():
+        check(trainer.fast_grad is (fg is True),
+              f'fast_grad {fg!r} resolved to {trainer.fast_grad}')
+        rel_loss, rel_gn = check_jax_steps(
+            f'XLA fast_grad={fg}', losses, norms, JAX_XLA_STEP_LOSS,
+            JAX_XLA_STEP_GRAD_NORM, loss64, bar1)
+        out[str(fg)] = dict(
+            loss=losses, grad_norm=norms, rel_loss=rel_loss,
+            rel_grad_norm=rel_gn, step_ms=[1e3 * t for t in step_s],
+            step_ms_median=1e3 * statistics.median(step_s[1:]))
+    rel = rel_norm(runs[True][3], runs['auto'][3])
+    emit('train_xla_steps', checkpoint=XLA_CKPT[len(ROOT) + 1:],
+         config=XLA_CONFIG[len(ROOT) + 1:], jax_loss=JAX_XLA_STEP_LOSS,
+         jax_grad_norm=JAX_XLA_STEP_GRAD_NORM, loss64=loss64,
+         step1_loss_bar=bar1, standard=out['auto'], fast_grad=out['True'],
+         fast_vs_standard_grad_rel_norm=rel, bar=1e-4)
+    check(rel <= 1e-4, f'XLA fastgrad vs standard step 1 gradient: {rel}')
+    _, _, step_s, grads1, preds1, trainer = runs['auto']
+    return (batches[0], start, trainer, step_s, grads1, preds1['energy'],
+            (loss64, bar1))
+
+
+def phase_train_xla_epoch(torch, rg):
+    """Phase 7c of the XLA checkpoint (7f c): one epoch through the CLI's
+    entry point with artifacts/md17_model/config.yml (95 steps, val, test,
+    final re-evaluation). -> its seconds."""
+    import csv
+    import tempfile
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    with tempfile.TemporaryDirectory() as out:
+        torch.cuda.synchronize()
+        rg.reset_launch_counts()
+        t = time.perf_counter()
+        trainer = train_from_settings(xla_settings(out, 1))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = dict(rg.LAUNCHES)
+        with open(os.path.join(trainer.output_path, 'log.csv')) as f:
+            rows = list(csv.DictReader(f))
+        best = load_model(os.path.join(trainer.model_path,
+                                       'best_model.msgpack'))
+        again = trainer.run_one_epoch(trainer.test_generator, model=best)
+    row = rows[0]
+    emit('train_xla_epoch', seconds=seconds, steps=row['step'], log=row,
+         fast_grad=trainer.fast_grad, reloaded_best_test=again,
+         launches=launches)
+    check(trainer.model.kernel == 'xla' and not trainer.fast_grad,
+          'the XLA config did not train an XLA model by the standard step')
+    check(list(row) == LOG_COLUMNS, f'log.csv columns {list(row)}')
+    check([r['epoch'] for r in rows] == ['0', 'last', 'best'],
+          'log.csv rows')
+    check(row['step'] == '95', f'expected 95 steps, got {row["step"]}')
+    check(all(math.isfinite(float(row[k])) for k in LOG_COLUMNS[1:-1]),
+          'non-finite log.csv value')
+    check(row['best_model'] == 'True', 'epoch 0 saved no best model')
+    check(best.kernel == 'xla', 'the best model is not an XLA model')
+    for k, v in again.items():
+        logged = float(row[f'test_{k}'])
+        check(abs(v - logged) <= 1e-5 * abs(logged),
+              f'reloaded best model test_{k}: {v} vs {logged}')
+    return seconds
+
+
+def phase_train_xla_nlist_steps(torch, rg, dense_start, dense_grads1,
+                                dense_e1, f64):
+    """Phase 7g: the same fine-tuning with graph_mode neighborlist, k_max
+    48 (plain lists; every neighbour fits, so it computes the dense
+    function): 10 standard steps against JAX_XLA_NLIST_STEP_* at phase
+    7a's bars (step 1's from 7f's float64 loss), step 1's gradient against the
+    dense port path of 7f (1e-4 relative norm plus the term that the
+    energies' float32 rounding moves e_bar by, as phase 7d), K9 launched
+    (gather_nodes' fixed-order backward), and three step-1 gradients from
+    one start with equal bits."""
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.train.trainer import standard_value_and_grad
+    _, batches, start, loss_fns = xla_fine_tune(
+        torch, graph_mode='neighborlist', k_max=INV_K_MAX)
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    losses, norms, step_s, grads1, preds1, _ = xla_steps(
+        torch, start(), loss_fns, batches, 'auto')
+    launches = dict(rg.LAUNCHES)
+    loss64, bar1 = f64
+    rel_loss, rel_gn = check_jax_steps(
+        'XLA neighbour lists', losses, norms, JAX_XLA_NLIST_STEP_LOSS,
+        JAX_XLA_NLIST_STEP_GRAD_NORM, loss64, bar1)
+    rel = rel_norm(grads1, dense_grads1)
+    main_loss = loss_fns[0]
+    b0 = batches[0]
+    with fp32_matmuls(), torch.enable_grad():
+        # the energies of the two paths differ by float32 rounding, which
+        # moves e_bar = dL/dE by de: grad_theta(de . E) on the dense model
+        bars = []
+        for e in (preds1['energy'], dense_e1):
+            e = e.clone().requires_grad_(True)
+            (g,) = torch.autograd.grad(main_loss(
+                {'energy': e, 'gradient_force': preds1['gradient_force']},
+                b0), e)
+            bars.append(g)
+        dense = dense_start()
+        out = dense(b0['z'], b0['pos'], b0['cell'], create_graph=True)
+        torch.dot((bars[0] - bars[1]).detach(), out['energy']).backward()
+        e_term = (sum(float((g ** 2).sum())
+                      for g in param_grads(torch, dense))
+                  / sum(float((g ** 2).sum()) for g in dense_grads1)) ** 0.5
+        again = []
+        for _ in range(3):
+            model = start()
+            standard_value_and_grad(model, main_loss, b0)
+            again.append(param_grads(torch, model))
+    repeats = all(exact(torch, a, b) for g in again[1:]
+                  for a, b in zip(again[0], g))
+    bar = 1e-4 + e_term
+    emit('train_xla_nlist_steps', k_max=INV_K_MAX, loss=losses,
+         jax_loss=JAX_XLA_NLIST_STEP_LOSS, grad_norm=norms,
+         jax_grad_norm=JAX_XLA_NLIST_STEP_GRAD_NORM, rel_loss=rel_loss,
+         rel_grad_norm=rel_gn, step_ms=[1e3 * t for t in step_s],
+         step_ms_median=1e3 * statistics.median(step_s[1:]),
+         grad_rel_norm_diff_vs_dense=rel, vs_dense_bar=bar,
+         energy_residual_term=e_term, launches_10_steps=launches,
+         gradients_repeat_their_bits=repeats)
+    check(rel <= bar, f'XLA nlist vs dense step 1 gradient: {rel} > {bar}')
+    check(launches['row_gather'] > 0,
+          f'K9 was not launched on the XLA list training path: {launches}')
+    check(repeats, 'three XLA list gradients from one start differ in '
+          'their bits')
+    return launches
+
+
+def box_xla_batch(torch, n_atoms):
+    """box_system(n_atoms) with its labels and box_stress's on the card."""
+    z, pos, cell, energy, force = box_system(n_atoms)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in
+             (('z', z), ('pos', pos), ('cell', cell), ('energy', energy),
+              ('force', force), ('stress', box_stress()))}
+    batch['graph_mask'] = torch.ones(1, dtype=torch.bool, device='cuda')
+    return batch
+
+
+def phase_box_train_xla(torch, rg, xcfg):
+    """Phase 7h: the standard training step on the 4096-atom box
+    (box_model, bf16 stack, box_weights) with BOX_XLA_LOSS (energy + force
+    + stress), Adam lr 1e-3: three steps over plain lists and three over
+    inverse lists built once by host_symmetric_nlist, from one start.
+    Step 1 over inverse lists against the plain row gather (equal bits) and
+    against plain lists (2e-3 relative norm: bf16 rows summed in another
+    order); three step-1 gradients with equal bits; fastgrad (energy +
+    force) against itself over the plain row gather (equal bits) and
+    against the standard step on the same loss (2e-3); at BOX_REF_ATOMS,
+    step 1's loss and gradient norm against the JAX package's, in float32
+    (1e-4 relative) and with the bf16 stack (BOX_SPREAD_FACTOR times the
+    JAX package's bf16-to-fp32 spread, plus the float32 bar).
+    -> ({list layout: K9 launches per step}, {list layout: (one more
+    step, the step seconds)})."""
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    from newtonnet_tpu_torch.train import fastgrad
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    from newtonnet_tpu_torch.train.trainer import standard_value_and_grad
+    outs = ['energy', 'gradient_force', 'stress']
+    main_loss, _ = get_loss_by_string(BOX_XLA_LOSS)
+    ef_loss, _ = get_loss_by_string({k: BOX_XLA_LOSS[k]
+                                     for k in ('energy', 'gradient_force')})
+
+    def start(cd='bfloat16'):
+        return box_model(torch, xcfg, cd, outs,
+                         inverse_lists=True).requires_grad_(True)
+
+    def grad_norm(grads):
+        return math.sqrt(sum(float((g.double() ** 2).sum()) for g in grads))
+
+    batch = box_xla_batch(torch, BOX_ATOMS)
+    nl = host_symmetric_nlist(start(), batch['z'], batch['pos'],
+                              batch['cell'], skin=0.0)
+    runs = {}
+    with fp32_matmuls():
+        for name, lists in (('plain_lists', None), ('inverse_lists', nl)):
+            model = start()
+            opt = get_optimizer_by_string('adam', model.core, lr=1e-3)
+            losses, step_s, grads1, launches = [], [], None, None
+            for k in range(3):
+                torch.cuda.synchronize()
+                if k == 2:
+                    rg.reset_launch_counts()
+                t = time.perf_counter()
+                loss, _ = standard_value_and_grad(model, main_loss, batch,
+                                                  nlist=lists)
+                if grads1 is None:
+                    grads1 = param_grads(torch, model)
+                opt.step()
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                if k == 2:
+                    launches = dict(rg.LAUNCHES)
+                losses.append(float(loss))
+            runs[name] = (losses, step_s, grads1, launches, model, opt)
+        g_inv = runs['inverse_lists'][2]
+        plain = start()
+        standard_value_and_grad(plain, main_loss, batch, nlist=nl,
+                                plain=True)
+        bitwise = all(exact(torch, a, b)
+                      for a, b in zip(g_inv, param_grads(torch, plain)))
+        del plain
+        again = []
+        for _ in range(3):
+            model = start()
+            standard_value_and_grad(model, main_loss, batch, nlist=nl)
+            again.append(param_grads(torch, model))
+        repeats = all(exact(torch, a, b) for g in again[1:]
+                      for a, b in zip(again[0], g))
+        del again
+        model = start()
+        fastgrad.value_and_grad(model, ef_loss, batch, nlist=nl)
+        g_fast = param_grads(torch, model)
+        fastgrad.value_and_grad(model, ef_loss, batch, nlist=nl, plain=True)
+        fast_bitwise = all(exact(torch, a, b) for a, b in
+                           zip(g_fast, param_grads(torch, model)))
+        standard_value_and_grad(model, ef_loss, batch, nlist=nl)
+        rel_fast = rel_norm(g_fast, param_grads(torch, model))
+        del model, g_fast
+        torch.cuda.empty_cache()
+        b5 = box_xla_batch(torch, BOX_REF_ATOMS)
+        ref = {}
+        for cd in ('bfloat16', ''):
+            model = start(cd)
+            loss, _ = standard_value_and_grad(
+                model, main_loss, b5, nlist=host_symmetric_nlist(
+                    model, b5['z'], b5['pos'], b5['cell'], skin=0.0))
+            ref[cd or 'float32'] = (float(loss),
+                                    grad_norm(param_grads(torch, model)))
+    rel_lists = rel_norm(g_inv, runs['plain_lists'][2])
+    diffs, bars = {}, {}
+    shifts = {}
+    for i, what in enumerate(('loss', 'grad_norm')):
+        jax = (JAX_XLA_BOX_STEP_LOSS, JAX_XLA_BOX_STEP_GRAD_NORM)[i]
+        # the bf16 bar is the reference's own bf16-to-fp32 spread: the
+        # port's would raise its own bar (ROADMAP.md C11: the two bf16
+        # programs round different values, so their shifts differ)
+        shifts[what] = {'jax': jax['bfloat16'] - jax['float32'],
+                        'port': ref['bfloat16'][i] - ref['float32'][i]}
+        diffs[f'{what}_512_vs_jax'] = abs(ref['bfloat16'][i]
+                                          - jax['bfloat16'])
+        bars[f'{what}_512_vs_jax'] = (BOX_SPREAD_FACTOR
+                                      * abs(shifts[what]['jax'])
+                                      + 1e-4 * abs(jax['float32']))
+        diffs[f'{what}_512_fp32_vs_jax'] = abs(ref['float32'][i]
+                                               - jax['float32'])
+        bars[f'{what}_512_fp32_vs_jax'] = 1e-4 * abs(jax['float32'])
+    def stepper(name, lists):
+        model, opt = runs[name][4:]
+
+        def one_step():
+            with fp32_matmuls():
+                standard_value_and_grad(model, main_loss, batch,
+                                        nlist=lists)
+                opt.step()
+        return one_step, runs[name][1]
+    emit('box_train_xla', atoms=BOX_ATOMS, k_max=BOX_K_MAX,
+         compute_dtype='bfloat16', loss=BOX_XLA_LOSS,
+         **{f'{name}_loss': r[0] for name, r in runs.items()},
+         **{f'{name}_step_ms': [1e3 * t for t in r[1]]
+            for name, r in runs.items()},
+         **{f'{name}_launches_per_step': r[3] for name, r in runs.items()},
+         kernel_vs_plain_gather_bitwise=bitwise,
+         fastgrad_kernel_vs_plain_gather_bitwise=fast_bitwise,
+         gradients_repeat_their_bits=repeats,
+         inverse_vs_plain_lists_grad_rel_norm=rel_lists,
+         fastgrad_vs_standard_ef_grad_rel_norm=rel_fast, bar=2e-3,
+         step1_512=ref, jax_step1_512={
+             'loss': JAX_XLA_BOX_STEP_LOSS,
+             'grad_norm': JAX_XLA_BOX_STEP_GRAD_NORM},
+         bf16_shift_512=shifts, diffs=diffs, bars=bars)
+    for name, r in runs.items():
+        check(all(math.isfinite(v) for v in r[0]), f'box {name} losses')
+        check(r[3]['row_gather'] > 0 and r[3]['row_gather_b1'] > 0,
+              f'K9 was not launched in an XLA box step ({name}): {r[3]}')
+    check(bitwise, 'XLA box step: kernel and plain gathers differ')
+    check(fast_bitwise, 'XLA box fastgrad: kernel and plain gathers differ')
+    check(repeats, 'three XLA box gradients from one start differ in their '
+          'bits')
+    check(rel_lists <= 2e-3, f'XLA box inverse vs plain lists: {rel_lists}')
+    check(rel_fast <= 2e-3, f'XLA box fastgrad vs standard: {rel_fast}')
+    for key, d in diffs.items():
+        check(d <= bars[key], f'XLA box step {key}: {d} > {bars[key]}')
+    return ({name: r[3] for name, r in runs.items()},
+            {'inverse_lists': stepper('inverse_lists', nl),
+             'plain_lists': stepper('plain_lists', None)})
+
+
 def gather_timing(torch, rg, wn, errs, launches, window):
     """Rows of the kernels line for K9 (box inv_gather and scatter-chunk
     shapes), K12, K10 and K11: CUDA-event times of the kernel, its plain
@@ -1950,6 +2421,7 @@ def main():
     import numpy as np
     from newtonnet_tpu_torch import NewtonNetCalculator, load_model
     from newtonnet_tpu_torch.data.loader import collate, parse_xyz
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
     from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_dense as fd
     from newtonnet_tpu_torch.ops import fused_dual as fdd
@@ -2148,6 +2620,7 @@ def main():
          klist_latency_ms_median=klist_box['latency_ms_median'],
          xla_inverse_latency_ms_median=xla_t['latency_ms_median'],
          xla_host_list_ms_median=xla_t['host_list_ms_median'],
+         xla_host_list_ms_numpy_loop_before=1050.0,
          xla_model_ms_median=xla_t['model_ms_median'])
     del xla_calc
     torch.cuda.empty_cache()
@@ -2186,6 +2659,44 @@ def main():
          step_ms_median_unprofiled=step_ms, device_split_ms=split,
          device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
          / step_ms, **prof)
+    # 7f. + 7g. + 7h. kernel='xla' training: the checkpoint's own config by
+    # both steps and one epoch; over neighbour lists; the box with stress
+    b0x, x_start, x_trainer, x_step_s, x_grads1, x_e1, f64 = \
+        phase_train_xla_steps(torch, fd)
+    phase_train_xla_epoch(torch, rg)
+
+    def xla_step():
+        with fp32_matmuls():
+            x_trainer.loss_and_grad(b0x)
+            x_trainer.optimizer.step()
+    prof = profile_call(torch, xla_step)
+    step_ms = 1e3 * statistics.median(x_step_s[1:])
+    emit('profile', what='one XLA standard training step (B=10, N=24)',
+         step_ms_median_unprofiled=step_ms, device_split_ms={
+             'K9': prof['k9_ms'],
+             'rest': prof['device_busy_ms'] - prof['k9_ms']},
+         device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
+         / step_ms, **prof)
+    xla_nlist_launches = phase_train_xla_nlist_steps(torch, rg, x_start,
+                                                     x_grads1, x_e1, f64)
+    del x_trainer, x_start
+    torch.cuda.empty_cache()
+    box_xla_launches_step, box_xla_steps = phase_box_train_xla(
+        torch, rg, load_model(XLA_CKPT).config_dict())
+    for lists, (one_step, step_s) in box_xla_steps.items():
+        prof = profile_call(torch, one_step)
+        step_ms = 1e3 * statistics.median(step_s[1:])
+        split = {'K9': prof['k9_ms'],
+                 'gather_nodes_backward': prof['gather_nodes_backward_ms']}
+        split['rest'] = prof['device_busy_ms'] - sum(split.values())
+        emit('profile', what=f'one XLA standard training step on the '
+             f'{BOX_ATOMS}-atom box over {lists}',
+             step_ms_median_unprofiled=step_ms, device_split_ms=split,
+             device_idle_share_vs_unprofiled=1.0 - prof['device_busy_ms']
+             / step_ms, **prof)
+    del box_xla_steps
+    torch.cuda.empty_cache()
+
     # K5/K6 launches of the 500 aspirin frames, K7/K8 of the training epoch
     klist_launches = {k: (serve_nl_launches if 'dual' not in k
                           else train_nl_launches)[k] for k in KLIST_NAMES}
@@ -2314,6 +2825,16 @@ def main():
          window_entry_point=window_launches)
     rows += gather_timing(torch, rg, wn, gather_errs,
                           {**box_xla_launches, **window_launches}, window)
+    # K9 (and K12, its B = 1 shape) on the XLA training paths: the 10
+    # list-mode fine-tuning steps of 7g, one box step of 7h per list layout
+    for row in rows:
+        key = {'row_gather': 'row_gather',
+               'exp_row_gather': 'row_gather_b1'}.get(row['name'])
+        if key:
+            row['train_launches'] = {
+                'xla_nlist_10_steps': xla_nlist_launches[key],
+                **{f'per_box_xla_step_{lists}': n[key]
+                   for lists, n in box_xla_launches_step.items()}}
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

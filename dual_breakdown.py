@@ -5,7 +5,8 @@ time on the card; with the argument `k2k7`, kernels K2 (pair_bwd_kernel,
 csrc/fused_dense.cu) and K7 (klist_dual_fwd_kernel, csrc/fused_klist.cu);
 with `k6k1`, kernels K6 (klist_bwd_kernel) and K1 (pair_fwd_kernel).
 
-    python3 dual_breakdown.py [k2k7 | k6k1 | k5k11 | k1train ROOT...]
+    python3 dual_breakdown.py [k2k7 | k6k1 | k5k11 | k1train ROOT... |
+                               steptime ROOT...]
 
 Builds the source as it is and in variants with one part taken out
 (written to newtonnet_tpu_torch/_build/dual_breakdown/, gitignored; all
@@ -36,6 +37,15 @@ process of its own (its kernels built from its own sources): the device
 milliseconds per call, full and first layer. Give the parent commit's
 checkout (a `git archive` unpacked into a gitignored directory) and this
 one in turns, e.g. `k1train runs/parent . . runs/parent`.
+
+With `steptime ROOT...` it times chip_smoke.py's dense kernel='pallas'
+fine-tuning step (phase 7a: scripts/config_md17_pallas.yml from the MD17
+checkpoint, B=10, N=24, fastgrad with K1-K4, Adam) in the package of each
+checkout ROOT in turn, each in a process of its own: the host-clock
+milliseconds of 30 steps (three passes over the first 10 batches; the
+median of steps 2-10, as phase 7a reports it, and of steps 2-30) and one
+step under torch.profiler (device busy ms, idle share). Give the parent
+and this checkout in turns, e.g. `steptime runs/parent . . runs/parent`.
 
 With `k5k11`, kernel K5 (klist_fwd_kernel, csrc/fused_klist.cu: k5_prod)
 as it is (16-atom tiles, 128 slot rows a step), with 8-atom tiles (m64: 64
@@ -350,6 +360,74 @@ def k1time(torch, root):
         for tag, first in (('full', False), ('first', True))}), flush=True)
 
 
+def steptime(roots, card):
+    '''The dense training step lines (module docstring): one process per
+    checkout root, in the order given.'''
+    for root in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              'stepone', os.path.abspath(root)],
+                             capture_output=True, text=True, timeout=1200)
+        if out.returncode != 0:
+            raise RuntimeError(f'stepone {root} failed:\n'
+                               f'{out.stderr[-3000:]}')
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps({'root': root, 'dense pallas step': res,
+                          'card': card}), flush=True)
+
+
+def stepone(torch, root):
+    '''chip_smoke.py phase 7a's step, from the package under root, timed
+    (one JSON line), with this checkout's chip_smoke.py giving the
+    settings and the profile.'''
+    import importlib.util
+    import statistics
+    sys.path.insert(0, root)  # the package under root, not this one's
+    import newtonnet_tpu_torch
+    assert newtonnet_tpu_torch.__file__.startswith(root)
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.train import fastgrad
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke_here', os.path.join(HERE, 'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = cs.md17_settings(None, 1)
+    train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
+    main_loss, _ = get_loss_by_string(cfg['training']['loss'])
+    model = load_model(cs.CKPT).requires_grad_(True)
+    set_scalers(model.core, model.output_properties, stats,
+                {'energy': dict(cfg['training']['fit_scalers'])})
+    opt = get_optimizer_by_string('adam', model.core, clip_grad=1.0, lr=1e-3)
+    it = iter(train_gen)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()}
+               for _ in range(10)]
+
+    def step(b):
+        fastgrad.value_and_grad(model, main_loss, b)
+        opt.global_norm()
+        opt.step()
+
+    step_ms = []
+    with fp32_matmuls():
+        for b in batches * 3:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(b)
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t))
+        prof = cs.profile_call(torch, lambda: step(batches[0]))
+    print(json.dumps({
+        'step_ms_median_2_10': statistics.median(step_ms[1:10]),
+        'step_ms_median_2_30': statistics.median(step_ms[1:]),
+        'step_ms': step_ms, 'profiled_wall_ms': prof['wall_ms'],
+        'device_busy_ms': prof['device_busy_ms'],
+        'device_idle_share': prof['device_idle_share']}), flush=True)
+
+
 def build(source='fused_dual', variants=VARIANTS):
     '''{variant: path of its shared library}, built all at once.'''
     from newtonnet_tpu_torch.ops import _build
@@ -432,6 +510,9 @@ def main():
     if sys.argv[1:2] == ['k1time']:  # before this checkout's package loads
         k1time(torch, sys.argv[2])
         return 0
+    if sys.argv[1:2] == ['stepone']:  # the same
+        stepone(torch, sys.argv[2])
+        return 0
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
@@ -452,6 +533,9 @@ def main():
         return 0
     if sys.argv[1:2] == ['k1train']:
         k1train(sys.argv[2:], card)
+        return 0
+    if sys.argv[1:2] == ['steptime']:
+        steptime(sys.argv[2:], card)
         return 0
     libs = build()
     args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)

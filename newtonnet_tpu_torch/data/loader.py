@@ -82,7 +82,7 @@ class MolecularInMemoryDataset:
 
     def _cast(self, s):
         out = Sample(s)
-        for key in ('pos', 'cell', 'force'):
+        for key in ('pos', 'cell', 'force', 'stress', 'virial'):
             if out.get(key) is not None:
                 out[key] = np.asarray(out[key]).astype(self.precision)
         if out.get('energy') is not None:
@@ -139,8 +139,10 @@ def random_split(dataset, sizes, rng):
 def collate(samples, n_pad, batch_pad=None, dtype=np.float32):
     '''Pad Samples into one batch of numpy arrays: z (B, N), pos (B, N, 3),
     cell (B, 3, 3), energy (B,), force (B, N, 3) and graph_mask (B,), with
-    B = batch_pad (default len(samples)) and N = n_pad. Rows past
-    len(samples) are empty graphs (graph_mask False).'''
+    B = batch_pad (default len(samples)) and N = n_pad, and stress / virial
+    (B, 3, 3) where the samples carry them (all or none: a partial label
+    would train on zeros). Rows past len(samples) are empty graphs
+    (graph_mask False).'''
     B, N = batch_pad or len(samples), n_pad
     oversized = max((len(s['z']) for s in samples), default=0)
     if oversized > N:
@@ -154,6 +156,13 @@ def collate(samples, n_pad, batch_pad=None, dtype=np.float32):
         'force': np.zeros((B, N, 3), dtype=dtype),
         'graph_mask': np.zeros((B,), dtype=bool),
     }
+    for key in ('stress', 'virial'):
+        labelled = sum(s.get(key) is not None for s in samples)
+        if labelled and labelled != len(samples):
+            raise ValueError(f'mixed batch: {labelled}/{len(samples)} '
+                             f'samples carry a {key} label')
+        if labelled:
+            batch[key] = np.zeros((B, 3, 3), dtype=dtype)
     for i, s in enumerate(samples):
         n = len(s['z'])
         batch['z'][i, :n] = s['z']
@@ -163,6 +172,9 @@ def collate(samples, n_pad, batch_pad=None, dtype=np.float32):
             batch['energy'][i] = s['energy']
         if s.get('force') is not None:
             batch['force'][i, :n] = s['force']
+        for key in ('stress', 'virial'):
+            if key in batch:
+                batch[key][i] = s[key]
         batch['graph_mask'][i] = True
     return batch
 

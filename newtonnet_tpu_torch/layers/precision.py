@@ -1,7 +1,8 @@
 '''Precision string -> torch dtype map (the JAX package's
 `layers/precision.get_precision_by_string`, returning torch dtypes), and
 fp32_matmuls, the port's counterpart of running under
-`jax.default_matmul_precision('highest')`.'''
+`jax.default_matmul_precision('highest')`, with check_matmul_precision,
+which refuses any other matmul precision a JAX setting asks for.'''
 import contextlib
 
 import torch
@@ -40,3 +41,14 @@ def fp32_matmuls():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def check_matmul_precision(value, key):
+    '''ValueError unless `value`, a JAX matmul precision setting named
+    `key`, is 'highest' or None: the port's products are IEEE fp32
+    (fp32_matmuls), and it has no lower-precision mode that the JAX
+    package's would match.'''
+    if value not in ('highest', None):
+        raise ValueError(
+            f'{key}={value!r} is not available: the port computes in IEEE '
+            "fp32, which is 'highest'")

@@ -11,12 +11,14 @@ import numpy as np
 import torch
 
 from newtonnet_tpu_torch.layers.precision import (
+    check_matmul_precision,
     fp32_matmuls,
     get_precision_by_string,
 )
 from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
 from newtonnet_tpu_torch.models.output import NewtonNet
 from newtonnet_tpu_torch.utils.checkpoint import load_model
+from newtonnet_tpu_torch.utils.params import params_from_flax
 
 # ASE result name -> model output property
 PROPERTY_MAP = {
@@ -36,16 +38,42 @@ class NewtonNetCalculator:
     '''Evaluate a trained model on one system per call.
 
     Args:
-        model_path: .msgpack checkpoint of the JAX package.
+        model_path: .msgpack checkpoint of the JAX package (or pass model=
+            and params=, as the JAX calculator takes them). A list of
+            checkpoints (an ensemble) is not ported yet (ROADMAP.md A,
+            "remaining heads").
         properties: ASE-style result names (default: energy and forces
             where the model has them).
         precision: 'float32' (the kernels' type) or 'float64' (CPU only).
-        device: CUDA unless 'cpu' is passed; raises with no CUDA device.
+        model: with params, in place of model_path: a NewtonNet of this
+            package, whose configuration the calculator serves.
+        params: a flax-named tree {'params': {...}} of numpy arrays (the
+            JAX package's parameters; utils/params.params_to_flax gives
+            them for a port model), loaded into a copy of model.
+        matmul_precision: 'highest' (or None): the port computes in IEEE
+            fp32, which is what 'highest' asks of the JAX calculator; other
+            values raise ValueError.
+        device: CUDA unless 'cpu' is passed (default with model=: the
+            model's device); raises with no CUDA device.
     '''
 
-    def __init__(self, model_path, properties=None, precision='float32',
+    def __init__(self, model_path=None, properties=None, precision='float32',
+                 model=None, params=None, matmul_precision='highest',
                  device=None):
-        model = load_model(model_path, device=device)
+        check_matmul_precision(matmul_precision, 'matmul_precision')
+        if isinstance(model_path, (list, tuple)):
+            raise NotImplementedError(
+                'an ensemble of checkpoints (a list model_path) is not ported '
+                'yet (ROADMAP.md A, "remaining heads")')
+        if model_path is not None:
+            model = load_model(model_path, device=device)
+        elif model is None or params is None:
+            raise ValueError('need model_path or (model, params)')
+        else:
+            own = NewtonNet(**model.config_dict(),
+                            device=device or model.device)
+            params_from_flax(params, core=own.core)
+            model = own.requires_grad_(False).eval()
         if properties is None:
             inv = {'energy': 'energy', 'gradient_force': 'forces'}
             properties = [inv[k] for k in model.output_properties

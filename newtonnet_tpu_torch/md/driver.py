@@ -13,10 +13,11 @@ def host_symmetric_nlist(model, z, pos, cell, skin=1.0):
     NewtonNet.forward takes as nlist, K = model.k_max, on model.device.
 
     The full list is built on the device (ops/nlist.neighbor_list, radius
-    cutoff + skin, capacity k_max; raises ValueError on overflow), then
-    re-slotted on the host by symmetrize_slots (numpy), one structure at a
-    time. With shared slots each slot's list is its own inverse, so inv and
-    inv_mask are the K-major transposes of idx and mask.
+    cutoff + skin, capacity k_max; raises ValueError on overflow), copied
+    to the host and re-slotted there by symmetrize_slots (the C++ of
+    csrc/host/symslots.cpp), one structure at a time. With shared slots
+    each slot's list is its own inverse, so inv and inv_mask are the
+    K-major transposes of idx and mask.
 
     Args:
         model: a NewtonNet (kernel='xla', inverse_lists).

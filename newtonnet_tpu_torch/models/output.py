@@ -18,12 +18,16 @@ Forces, virial and stress are one autograd pass over the energy:
     stress = dE/d(displacement) / |det(cell)|,
 
 where `displacement` is an identity-valued (B, 3, 3) strain applied
-(symmetrized) to positions and cell before the graph is built.
+(symmetrized) to positions and cell before the graph is built. Serving
+holds the parameters constant and detaches the outputs; with
+create_graph=True (kernel='xla') the outputs stay differentiable in the
+parameters, for the standard training step (train/trainer.py), which
+trains energy, force, stress and virial losses.
 
-Other configurations (the charge, direct-force, Hessian and BEC heads, and
-kernel='xla''s newton3, newton3_compact, reverse-list and cell-grid list
-layouts) raise NotImplementedError naming the ROADMAP.md item that will
-port them.
+Not here: the charge, direct-force, Hessian and BEC heads, the bf16
+pair-layer products of kernel='pallas', and kernel='xla''s newton3,
+newton3_compact, reverse-list and cell-grid list layouts raise
+NotImplementedError naming the ROADMAP.md item that will port them.
 '''
 import contextlib
 from typing import Sequence
@@ -275,7 +279,8 @@ class NewtonNet(nn.Module):
         out['energy'] = energy
         return torch.sum(energy), out
 
-    def forward(self, z, pos, cell, pair_op=None, nlist=None, plain=False):
+    def forward(self, z, pos, cell, pair_op=None, nlist=None, plain=False,
+                create_graph=False):
         '''Full forward pass.
 
         Args:
@@ -291,31 +296,46 @@ class NewtonNet(nn.Module):
                 only; None builds a plain list at pos).
             plain: kernel='xla': run the inverse-list gathers through the
                 plain row gather instead of kernel K9.
+            create_graph: keep the graph through the parameters and the
+                derivative outputs, so that a loss of the outputs can be
+                differentiated in the parameters (the standard training
+                step, reverse over reverse: the JAX package's model.apply
+                under jax.value_and_grad). kernel='xla' only: the fused
+                kernels are first order.
 
         Returns:
             dict with energy (B,), the configured derivative outputs
             (gradient_force (B, N, 3), virial/stress (B, 3, 3)) and
-            atom_node, force_node, atomic_energy; all detached. Matrix
-            products run in IEEE fp32 (fp32_matmuls), whatever TF32 flags
-            the caller set, as the JAX package's calculator pins 'highest'.
+            atom_node, force_node, atomic_energy; detached unless
+            create_graph. Matrix products run in IEEE fp32 (fp32_matmuls),
+            whatever TF32 flags the caller set, as the JAX package's
+            calculator pins 'highest'.
         '''
+        if create_graph and self.kernel != 'xla':
+            raise ValueError('create_graph needs a kernel=xla model: the '
+                             'fused kernels are first order')
         with fp32_matmuls():
-            return self._forward(z, pos, cell, pair_op, nlist, plain)
+            return self._forward(z, pos, cell, pair_op, nlist, plain,
+                                 create_graph)
 
-    def _forward(self, z, pos, cell, pair_op, nlist, plain):
+    def _forward(self, z, pos, cell, pair_op, nlist, plain, create_graph):
         needs = self._needs
         need_grad = bool(needs & set(DERIVATIVE_PROPERTIES))
         pos = pos.detach().requires_grad_(need_grad)
         displacement = torch.eye(3, dtype=cell.dtype, device=cell.device) \
             .expand(cell.shape[0], 3, 3).clone().requires_grad_(need_grad)
-        # the outputs are detached: no parameter cotangent is ever read
-        with torch.enable_grad(), constant_parameters(self.core):
+        # serving holds the parameters constant and detaches the outputs:
+        # no parameter cotangent is ever read
+        held = contextlib.nullcontext() if create_graph else \
+            constant_parameters(self.core)
+        with torch.enable_grad(), held:
             total, out = self._energy_and_aux(z, pos, displacement, cell,
                                               pair_op, nlist, plain)
             if need_grad:
                 pos_grad, disp_grad = torch.autograd.grad(
-                    total, (pos, displacement))
-        outputs = {k: v.detach() for k, v in out.items()}
+                    total, (pos, displacement), create_graph=create_graph)
+        outputs = out if create_graph else \
+            {k: v.detach() for k, v in out.items()}
         if 'gradient_force' in needs:
             outputs['gradient_force'] = -pos_grad
         if 'virial' in needs:

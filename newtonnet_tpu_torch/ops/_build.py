@@ -1,10 +1,14 @@
-'''Build the package's CUDA sources at first use and load them with ctypes.
+'''Build the package's native sources at first use and load them with
+ctypes.
 
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for sm_90a into `newtonnet_tpu_torch/_build/lib<name>-<hash>.so`, where the
 hash covers the source and the flags: an edited source builds anew, an
 unchanged one loads from the cache. `build_all` starts one `nvcc` per
-source at once and waits for all of them. Nothing here runs at import.
+source at once and waits for all of them. The host-side C++ in
+`csrc/host/<name>.cpp` (plain C interface too) is built the same way by
+`g++` (`load_host`): it needs no CUDA toolkit, so it also builds where
+there is no card. Nothing here runs at import.
 '''
 import ctypes
 import hashlib
@@ -15,11 +19,13 @@ import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, 'csrc')
+HOST_DIR = os.path.join(SRC_DIR, 'host')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('fused_dense', 'fused_dual', 'fused_klist', 'row_gather',
            'window')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+GXX_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC')
 
 _LIBS = {}
 
@@ -35,10 +41,11 @@ def _nvcc():
                        'the CUDA toolkit is installed')
 
 
-def _target(name):
-    with open(os.path.join(SRC_DIR, name + '.cu'), 'rb') as f:
-        digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
+def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib'):
+    with open(src or os.path.join(SRC_DIR, name + '.cu'), 'rb') as f:
+        digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
+    return os.path.join(BUILD_DIR,
+                        f'{prefix}{name}-{digest.hexdigest()[:16]}.so')
 
 
 def build_all(names=SOURCES):
@@ -79,3 +86,27 @@ def load(name):
         build_all((name,))
         _LIBS[name] = ctypes.CDLL(_target(name))
     return _LIBS[name]
+
+
+def load_host(name):
+    '''The ctypes handle of csrc/host/<name>.cpp, built by g++ at first use
+    (a changed source builds anew). Raises RuntimeError with the
+    compiler's output if the build fails: there is no fallback.'''
+    key = 'host/' + name
+    if key not in _LIBS:
+        src = os.path.join(HOST_DIR, name + '.cpp')
+        so = _target(name, src, GXX_FLAGS, prefix='libhost_')
+        if not os.path.exists(so):
+            cxx = shutil.which('g++') or shutil.which('c++')
+            if cxx is None:
+                raise RuntimeError(f'no C++ compiler (g++) to build {src}')
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f'{so}.{os.getpid()}.tmp'
+            out = subprocess.run([cxx, *GXX_FLAGS, '-o', tmp, src],
+                                 capture_output=True, text=True)
+            if out.returncode != 0:
+                raise RuntimeError(f'g++ failed for {src}:\n{out.stdout}'
+                                   f'{out.stderr}')
+            os.replace(tmp, so)
+        _LIBS[key] = ctypes.CDLL(so)
+    return _LIBS[key]

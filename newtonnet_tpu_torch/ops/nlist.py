@@ -16,10 +16,11 @@ their farthest ones and are counted in `overflow`. minimum_image takes
 (B, N, K, 3) edges as they are, so the JAX package's `_mic_edges` reshape
 has no counterpart.
 
-Inverse lists (kernel='xla', inverse_lists): symmetrize_slots re-slots a
-full list on the host so that every undirected edge holds the same slot
-in both endpoints' rows; in the K-major (B, K, N) layout each slot is then
-an involution, its own inverse list (build_inverse_list). inv_gather and
+Inverse lists (kernel='xla', inverse_lists): symmetrize_slots (host C++,
+csrc/host/symslots.cpp) re-slots a full list so that every undirected edge
+holds the same slot in both endpoints' rows; in the K-major (B, K, N)
+layout each slot is then an involution, its own inverse list
+(build_inverse_list). inv_gather and
 inv_scatter_sum are a mutually transposed pair of autograd Functions over
 such lists: the neighbour gather, and its adjoint as a sum of per-chunk
 gathers, both through the row gather (ops/row_gather.py, kernel K9), so
@@ -29,11 +30,13 @@ backward sums over the list's transpose (node_transpose) with K9 row
 gathers in a fixed order. The half (newton3), reverse, staircase and
 cell-grid layouts are not ported (ROADMAP.md A, "XLA kernel='xla' path").
 '''
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from newtonnet_tpu_torch.ops import _build
 from newtonnet_tpu_torch.ops.neighbors import minimum_image
 from newtonnet_tpu_torch.ops.row_gather import row_gather, row_gather_ref
 
@@ -185,7 +188,7 @@ class GatherNodes(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         x, idx, mask, slots, valid = inputs
         ctx.save_for_backward(idx, mask, slots, valid)
-        ctx.idx, ctx.mask, ctx.n_nodes = idx, mask, x.shape[1]
+        ctx.lists, ctx.n_nodes = (idx, mask, slots, valid), x.shape[1]
 
     @staticmethod
     def backward(ctx, g):
@@ -197,7 +200,9 @@ class GatherNodes(torch.autograd.Function):
 
     @staticmethod
     def jvp(ctx, x_t, *_):
-        return _masked(_gather_rows(x_t, ctx.idx), ctx.mask)
+        # the gather itself, so that a reverse pass over the tangent runs
+        # ScatterNodes (fixed order), not torch.gather's scatter-add
+        return _masked(GatherNodes.apply(x_t, *ctx.lists), ctx.lists[1])
 
 
 class ScatterNodes(torch.autograd.Function):
@@ -257,15 +262,52 @@ def recompute_displacements_kn(pos, cell, idx_kn, inv, inv_mask,
                          mic_mode=mic_mode)
 
 
+def _per_frame(fn, idx, kmask, k_max):
+    '''fn over each frame of (B, N, K) lists, stacked; or over one (N, K).'''
+    if idx.ndim == 2:
+        return fn(idx, kmask, k_max)
+    outs = [fn(idx[b], kmask[b], k_max) for b in range(idx.shape[0])]
+    return (np.stack([o[0] for o in outs]), np.stack([o[1] for o in outs]))
+
+
+def _symslots_fn():
+    fn = _build.load_host('symslots').symmetrize_slots
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _symmetrize_frame(idx, kmask, k_max):
+    N, K = idx.shape
+    k_max = k_max or K
+    idx_in = np.ascontiguousarray(idx, dtype=np.int32)
+    mask_in = np.ascontiguousarray(kmask, dtype=np.uint8)
+    if np.any(mask_in.astype(bool) & ((idx_in < 0) | (idx_in >= N))):
+        raise ValueError('symmetrize_slots: a listed index is outside [0, N)')
+    idx_out = np.empty((N, k_max), np.int32)
+    mask_out = np.empty((N, k_max), np.uint8)
+    used = _symslots_fn()(idx_in.ctypes.data, mask_in.ctypes.data, N, K,
+                          k_max, idx_out.ctypes.data, mask_out.ctypes.data)
+    if used < 0:
+        raise ValueError(
+            f'symmetrize_slots: >{k_max} shared slots needed (max degree '
+            f'{int(mask_in.sum(1).max())}); raise k_max')
+    return idx_out.astype(idx.dtype), mask_out.astype(bool)
+
+
 def symmetrize_slots(idx, kmask, k_max=None):
     '''Re-slot a symmetric neighbour list so that each undirected edge
     (i, j) takes the SAME slot c in both endpoint rows: out_idx[i, c] = j
-    and out_idx[j, c] = i. Host-side numpy (the JAX package's reference
-    loop; its C++ builder is not ported).
+    and out_idx[j, c] = i. On the host, by the C++ of
+    csrc/host/symslots.cpp (a copy of the JAX package's C++), one
+    frame at a time.
 
-    The edge set is unchanged. Greedy coloring in descending-degree edge
-    order, each edge taking the lowest slot free in both rows; it needs a
-    few slots more than the largest degree.
+    The edge set is unchanged. Greedy coloring in descending combined-degree
+    edge order (ties in the order of the rows, then of their slots), each
+    edge taking the lowest slot free in both rows; it needs a few slots
+    more than the largest degree.
 
     Args:
         idx, kmask: (N, K) or (B, N, K) numpy arrays.
@@ -273,14 +315,12 @@ def symmetrize_slots(idx, kmask, k_max=None):
             coloring needs more.
 
     Returns:
-        (idx2, kmask2) with k_max slots.'''
-    if idx.ndim == 3:
-        outs = [symmetrize_slots(idx[b], kmask[b], k_max)
-                for b in range(idx.shape[0])]
-        return (np.stack([o[0] for o in outs]),
-                np.stack([o[1] for o in outs]))
-    idx = np.asarray(idx)
-    kmask = np.asarray(kmask)
+        (idx2, kmask2) with k_max slots, idx2 in idx's dtype.'''
+    return _per_frame(_symmetrize_frame, np.asarray(idx), np.asarray(kmask),
+                      k_max)
+
+
+def _symmetrize_frame_ref(idx, kmask, k_max):
     N, K = idx.shape
     k_max = k_max or K
     rows = np.repeat(np.arange(N), K)[kmask.ravel()]
@@ -305,6 +345,14 @@ def symmetrize_slots(idx, kmask, k_max=None):
         idx2[i, c], idx2[j, c] = j, i
         kmask2[i, c] = kmask2[j, c] = True
     return idx2, kmask2
+
+
+def symmetrize_slots_ref(idx, kmask, k_max=None):
+    '''symmetrize_slots as a numpy loop over the edges (the JAX package's
+    reference loop), ties in the order of sorted (lo, hi) pairs: the tests'
+    reference. Nothing on the serving or training path calls it.'''
+    return _per_frame(_symmetrize_frame_ref, np.asarray(idx),
+                      np.asarray(kmask), k_max)
 
 
 def build_inverse_list(idx_kn, kmask_kn):
@@ -360,39 +408,56 @@ def _scatter_kn(y, inv, inv_mask, plain):
 
 
 class InvGather(torch.autograd.Function):
-    '''out[b, k, n] = x[b, idx_kn[b, k, n]]; backward InvScatterSum.
+    '''out[b, k, n] = x[b, idx_kn[b, k, n]]; backward InvScatterSum. Linear,
+    so its jvp is the gather of the tangent, through apply: a reverse pass
+    over that tangent runs InvScatterSum again.
 
     apply(x, idx_kn, inv, inv_mask, plain) -> (B, K, N, ...)'''
 
     @staticmethod
-    def forward(ctx, x, idx_kn, inv, inv_mask, plain=False):
-        ctx.save_for_backward(idx_kn, inv, inv_mask)
-        ctx.plain = plain
+    def forward(x, idx_kn, inv, inv_mask, plain):
         return _gather_kn(x, idx_kn, plain)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, idx_kn, inv, inv_mask, plain = inputs
+        ctx.save_for_backward(idx_kn, inv, inv_mask)
+        ctx.lists, ctx.plain = (idx_kn, inv, inv_mask), plain
+
+    @staticmethod
     def backward(ctx, g):
-        idx_kn, inv, inv_mask = ctx.saved_tensors
-        return (InvScatterSum.apply(g, idx_kn, inv, inv_mask, ctx.plain),
+        return (InvScatterSum.apply(g, *ctx.saved_tensors, ctx.plain),
                 None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        return InvGather.apply(x_t, *ctx.lists, ctx.plain)
 
 
 class InvScatterSum(torch.autograd.Function):
-    '''The adjoint of InvGather; backward InvGather.
+    '''The adjoint of InvGather; backward InvGather. Linear: its jvp is
+    the scatter-sum of the tangent, through apply.
 
     apply(y, idx_kn, inv, inv_mask, plain) -> (B, N, ...)'''
 
     @staticmethod
-    def forward(ctx, y, idx_kn, inv, inv_mask, plain=False):
-        ctx.save_for_backward(idx_kn, inv, inv_mask)
-        ctx.plain = plain
+    def forward(y, idx_kn, inv, inv_mask, plain):
         return _scatter_kn(y, inv, inv_mask, plain)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, idx_kn, inv, inv_mask, plain = inputs
+        ctx.save_for_backward(idx_kn, inv, inv_mask)
+        ctx.lists, ctx.plain = (idx_kn, inv, inv_mask), plain
+
+    @staticmethod
     def backward(ctx, g):
-        idx_kn, inv, inv_mask = ctx.saved_tensors
-        return (InvGather.apply(g, idx_kn, inv, inv_mask, ctx.plain),
+        return (InvGather.apply(g, *ctx.saved_tensors, ctx.plain),
                 None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, y_t, *_):
+        return InvScatterSum.apply(y_t, *ctx.lists, ctx.plain)
 
 
 def inv_gather(x, idx_kn, inv, inv_mask, plain=False):

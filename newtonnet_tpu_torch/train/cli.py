@@ -6,13 +6,16 @@
 The same YAML schema (general / data / model / training). general.device
 'cpu' trains on the CPU (the kernels' plain versions); any other value
 trains on CUDA and raises where there is none. model.pretrained_model.path
-to a .msgpack checkpoint warm-starts from it, with its freeze flags.
-Not ported, and refused with NotImplementedError before any data is
-read: a kernel='xla' model (a model section, or a pretrained checkpoint,
-without `kernel: pallas`), a .pt warm start, training.parallel,
-training.halo, training.wandb, training.profile_dir and
-general.debug_nans. training.steps_per_call is accepted and does nothing
-(eager PyTorch has no dispatch chunking).
+to a .msgpack checkpoint warm-starts from it, with its freeze flags. Both
+kernels train: kernel='xla' (the default, as scripts/config.yml and
+artifacts/md17_model/config.yml have it) and kernel='pallas'.
+general.matmul_precision and training.eval_matmul_precision take
+'highest' (or nothing): the port computes in IEEE fp32; other values raise
+ValueError. Not ported, and refused with NotImplementedError before any
+data is read: a .pt warm start, a set training.parallel, training.halo, a
+set training.wandb, training.profile_dir and general.debug_nans.
+training.steps_per_call is accepted and does nothing (eager PyTorch has
+no dispatch chunking).
 '''
 import argparse
 import os
@@ -46,37 +49,37 @@ def train_from_settings(settings, settings_path=None, resume=None):
     general, training = settings['general'], settings['training']
     for key, item in (('wandb', 'training extras'),
                       ('parallel', 'parallelism')):
-        if training.get(key):
+        # popped as the JAX CLI pops them: the Trainer takes neither
+        if training.pop(key, None):
             raise NotImplementedError(
                 _NOT_PORTED.format(f'training.{key}', item))
     if general.get('debug_nans', False):
         raise NotImplementedError(
             _NOT_PORTED.format('general.debug_nans', 'training extras'))
+    from newtonnet_tpu_torch.layers.precision import check_matmul_precision
     from newtonnet_tpu_torch.train.trainer import refuse_unported_extras
     refuse_unported_extras(**training)
+    check_matmul_precision(general.get('matmul_precision'),
+                           'general.matmul_precision')
+    check_matmul_precision(training.get('eval_matmul_precision'),
+                           'training.eval_matmul_precision')
     import torch
 
     from newtonnet_tpu_torch.data.pipeline import parse_train_test
     from newtonnet_tpu_torch.data.statistics import set_scalers
     from newtonnet_tpu_torch.layers.precision import get_precision_by_string
     from newtonnet_tpu_torch.models.output import NewtonNet, resolve_device
-    from newtonnet_tpu_torch.train.fastgrad import refuse_unported_kernel
     from newtonnet_tpu_torch.train.loss import get_loss_by_string
     from newtonnet_tpu_torch.train.optimizer import (
         get_optimizer_by_string,
         get_scheduler_by_string,
     )
     from newtonnet_tpu_torch.train.trainer import Trainer
-    from newtonnet_tpu_torch.utils.checkpoint import load_model, read_config
+    from newtonnet_tpu_torch.utils.checkpoint import load_model
 
     device = resolve_device('cpu' if general.get('device') == 'cpu'
                             else None)
     pretrained = settings['model'].get('pretrained_model')
-    model_config = settings['model']
-    if pretrained is not None and not str(pretrained['path']).endswith(
-            '.pt'):
-        model_config = read_config(str(pretrained['path']))
-    refuse_unported_kernel(model_config.get('kernel', 'xla'))
     dtype = get_precision_by_string(general['precision'])
     seed = general.get('seed', 0)
     train_gen, val_gen, test_gen, stats = parse_train_test(

@@ -5,20 +5,32 @@ Same surface and the same records: training_{n}/ with run_scripts/ and
 models/{best,last}_model.msgpack, train/val/test cadence, log.csv with the
 JAX package's column names, plateau (or any epoch-level or per-step)
 scheduler stepping, the lr early stop, train_state.msgpack with resume,
-and the final re-evaluation of the last and best models. Training steps
-take the first-order parameter gradient of train/fastgrad.py (kernels
-K1-K4 on the card, or K5-K8 for a neighbour-list model, whose lists are
-built on the device in every step); evaluation runs NewtonNet.forward
-(K1/K2, or K5/K6). All matrix products are IEEE fp32: TF32 is off while
-the Trainer runs.
+and the final re-evaluation of the last and best models.
 
-Not here (ROADMAP.md A, "parallelism", "XLA training" and "XLA
-kernel='xla' path"): kernel='xla' models (refused before anything else),
-meshes, halo exchange, several processes, precomputed neighbour lists,
-wandb and the profiler hook (`halo` and `profile_dir` raise
-NotImplementedError). The JAX Trainer's steps_per_call, which chunks
-steps into one device dispatch, is accepted and does nothing: eager
-PyTorch dispatches each operation as it comes.
+A training step is one of two, chosen as the JAX Trainer chooses
+(fast_grad, resolved in __init__):
+* the first-order parameter gradient of train/fastgrad.py (energy and
+  gradient_force losses): kernels K1-K4 for a kernel='pallas' model, K5-K8
+  with neighbour lists (built on the device in every step), and for a
+  kernel='xla' model reverse over forward (K9 row gathers with lists);
+* the standard step, reverse over reverse: the loss over
+  NewtonNet.forward(..., create_graph=True), then loss.backward(). It
+  trains every loss the model has outputs for: energy, gradient_force,
+  stress and virial (kernel='xla' only; the fused kernels are first
+  order, so a kernel='pallas' model with fast_grad=False is refused when
+  the Trainer is built).
+Evaluation runs NewtonNet.forward (K1/K2, or K5/K6, for kernel='pallas').
+All matrix products are IEEE fp32: TF32 is off while the Trainer runs,
+which is what eval_matmul_precision='highest' asks of the JAX Trainer.
+
+Not here (ROADMAP.md A, "parallelism", "remaining heads", "training
+extras" and "XLA kernel='xla' path"): meshes, halo exchange, several
+processes, precomputed neighbour lists, direct_force losses, wandb, the
+profiler hook and the standard step over a kernel='pallas' model
+(`halo`, `profile_dir` and that step raise NotImplementedError).
+The JAX Trainer's steps_per_call, which chunks steps into one device
+dispatch, is accepted and does nothing: eager PyTorch dispatches each
+operation as it comes.
 '''
 import csv
 import os
@@ -28,7 +40,10 @@ import time
 import numpy as np
 import torch
 
-from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+from newtonnet_tpu_torch.layers.precision import (
+    check_matmul_precision,
+    fp32_matmuls,
+)
 from newtonnet_tpu_torch.ops.neighbors import dense_graph
 from newtonnet_tpu_torch.train import fastgrad
 from newtonnet_tpu_torch.train.loss import get_loss_by_string
@@ -41,6 +56,8 @@ from newtonnet_tpu_torch.utils.params import params_from_flax
 # Trainer arguments of the JAX package that the port refuses when set, with
 # the ROADMAP.md A item that ports each.
 UNPORTED_EXTRAS = {'profile_dir': 'training extras', 'halo': 'parallelism'}
+# loss keys the standard step trains (prediction keys a model can output)
+TRAINED_KEYS = frozenset({'energy', 'gradient_force', 'stress', 'virial'})
 
 
 def refuse_unported_extras(**given):
@@ -49,6 +66,26 @@ def refuse_unported_extras(**given):
         if given.get(key):
             raise NotImplementedError(
                 f'training.{key} is not ported yet (ROADMAP.md A, "{item}")')
+
+
+def standard_value_and_grad(model, main_loss, batch, nlist=None,
+                            plain=False):
+    '''The standard training step's loss and parameter gradient, reverse
+    over reverse (the JAX Trainer's jax.value_and_grad of the loss over
+    model.apply): the loss of NewtonNet.forward(..., create_graph=True),
+    then one backward pass. Any loss the model has outputs for (energy,
+    gradient_force, stress, virial); kernel='xla' models only.
+
+    Arguments and result as train/fastgrad.value_and_grad's: nlist and
+    plain pass through to the model (plain: the inverse-list gathers
+    through the plain row gather instead of kernel K9).'''
+    for p in model.core.parameters():
+        p.grad = None
+    preds = model(batch['z'], batch['pos'], batch['cell'], nlist=nlist,
+                  plain=plain, create_graph=True)
+    loss = main_loss(preds, batch)
+    loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in preds.items()}
 
 
 class Trainer:
@@ -79,25 +116,23 @@ class Trainer:
             steps_per_call=1,
             profile_dir=None,
             halo=None,
+            eval_matmul_precision='highest',
             ):
         del steps_per_call  # no dispatch chunking in eager PyTorch
         refuse_unported_extras(profile_dir=profile_dir, halo=halo)
-        fastgrad.refuse_unported_kernel(model.kernel)
+        check_matmul_precision(eval_matmul_precision,
+                               'eval_matmul_precision')
         self.model = model
         model.requires_grad_(True)
         apply_freeze(model.core, **(freeze or {}))
         self.main_loss, self.eval_loss = (
             loss_fns or get_loss_by_string({'energy': {}}))
         loss_keys = getattr(self.main_loss, 'keys', None)
-        if not fastgrad.supports(loss_keys):
+        if set(loss_keys or ()) - TRAINED_KEYS:
             raise NotImplementedError(
-                f'training on {sorted(loss_keys or ())} is not ported yet: '
-                f'losses within {sorted(fastgrad.SUPPORTED_KEYS)} only '
-                '(ROADMAP.md A, "energy+stress training")')
-        if fast_grad not in (True, 'auto'):
-            raise NotImplementedError(
-                'the second-order training step is not ported: the fused '
-                'kernels are first order, so fast_grad must be True or auto')
+                f'training on {sorted(set(loss_keys) - TRAINED_KEYS)} is not '
+                'ported yet (ROADMAP.md A, "remaining heads")')
+        self.fast_grad = self._resolve_fast_grad(fast_grad, loss_keys)
         self.optimizer = optimizer if optimizer is not None else \
             get_optimizer_by_string('adam', model.core, clip_grad=clip_grad)
         self.lr_scheduler = lr_scheduler
@@ -124,6 +159,37 @@ class Trainer:
         self.check_val = checkpoint.get('check_val', 1)
         self.check_test = checkpoint.get('check_test', 1)
         self.print_layers()
+
+    def _resolve_fast_grad(self, fast_grad, loss_keys):
+        '''fast_grad as the JAX Trainer resolves it: 'auto' takes
+        train/fastgrad.py for kernel='pallas' models whose loss it covers,
+        the standard step otherwise; True forces fastgrad (any kernel).
+        The JAX Trainer's ValueErrors; a kernel='pallas' model without
+        fastgrad raises too (the standard step needs create_graph).'''
+        pallas = self.model.kernel == 'pallas'
+        if fast_grad == 'auto':
+            fast_grad = pallas and fastgrad.supports(loss_keys)
+        if fast_grad and not fastgrad.supports(loss_keys):
+            raise ValueError(
+                f'fast_grad requires losses within '
+                f'{sorted(fastgrad.SUPPORTED_KEYS)}, got {loss_keys}')
+        keys = set(loss_keys or ())
+        if pallas and not fast_grad and 'gradient_force' in keys:
+            raise ValueError(
+                'kernel=pallas force training needs fast_grad (the fused '
+                'kernels are first-order); pass fast_grad=True or "auto"')
+        if pallas and not fast_grad and keys & {'stress', 'virial'}:
+            # the standard step would differentiate K2 (K6) again
+            raise ValueError(
+                f'kernel=pallas cannot train {sorted(keys)}: the fused '
+                'kernels are first order; use a kernel=xla model')
+        if pallas and not fast_grad:
+            # the standard step needs NewtonNet.forward(create_graph=True)
+            raise NotImplementedError(
+                'the standard step (fast_grad=False) over a kernel=pallas '
+                'model is not ported yet (ROADMAP.md A, "training '
+                'extras"); pass fast_grad=True or "auto"')
+        return bool(fast_grad)
 
     # ------------------------------------------------------------------ #
     def make_subdirs(self, output_base_path, script_path, settings_path):
@@ -217,19 +283,31 @@ class Trainer:
         metrics = {'loss': loss}
         evals = self.eval_loss(preds, batch)
         metrics.update({k: evals[k] for k in sorted(evals)})
-        if edges:
+        if edges and batch['z'].shape[-1] > 2048:
+            # the JAX Trainer counts no edges above 2048 atoms, where the
+            # pair tensor would rival the model's own memory
+            metrics['edges'] = torch.zeros((), dtype=torch.float32,
+                                           device=batch['z'].device)
+        elif edges:
             _, adj = dense_graph(batch['pos'], batch['cell'],
                                  batch['z'] > 0, self.model.cutoff)
             metrics['edges'] = adj.sum().to(torch.float32)
         return metrics
+
+    def loss_and_grad(self, batch):
+        '''The loss of a batch of device tensors and its parameter gradient
+        (left in each parameter's .grad) by the step fast_grad chose:
+        -> (loss, detached predictions).'''
+        step = fastgrad.value_and_grad if self.fast_grad else \
+            standard_value_and_grad
+        return step(self.model, self.main_loss, batch)
 
     def train_step(self, batch):
         '''One optimizer step on a numpy batch; -> its metrics as 0-d
         tensors on the device: loss, the eval battery and the edge count.'''
         b = self._to_device(batch)
         with fp32_matmuls():
-            loss, preds = fastgrad.value_and_grad(self.model, self.main_loss,
-                                                  b)
+            loss, preds = self.loss_and_grad(b)
             if self._per_step_sched:
                 # the lr of step k is the scheduler's value before its
                 # k-th advance (torch semantics)

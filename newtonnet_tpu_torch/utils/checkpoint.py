@@ -10,12 +10,6 @@ from newtonnet_tpu_torch.utils._msgpack import msgpack_restore, \
 from newtonnet_tpu_torch.utils.params import params_from_flax, params_to_flax
 
 
-def read_config(path):
-    '''The model config embedded in a checkpoint, as a dict.'''
-    with open(path, 'rb') as f:
-        return json.loads(msgpack_restore(f.read())['config'])
-
-
 def load_model(path, device=None):
     '''Rebuild the model from its embedded config and load its weights.
 

@@ -76,7 +76,8 @@ def _port_grads(tm, batch, dtype=torch.float32):
     for k in ('pos', 'cell', 'energy', 'force'):
         b[k] = b[k].to(dtype)
     loss, preds = fastgrad.value_and_grad(tm, main_loss, b)
-    return loss, preds, {n: p.grad.clone()
+    return loss, preds, {n: p.grad.clone() if p.grad is not None
+                         else torch.zeros_like(p)
                          for n, p in tm.core.named_parameters()}
 
 
@@ -313,9 +314,79 @@ def test_klist_fastgrad_equals_double_backward_in_float64():
                                    msg=name)
 
 
+def _standard_grads(tm, batch, dtype, nlist=None):
+    """The standard step's loss and gradients (train/trainer.py:
+    standard_value_and_grad, reverse over reverse)."""
+    from newtonnet_tpu_torch.train.trainer import standard_value_and_grad
+    main_loss, _ = get_loss_by_string(LOSSES)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    for k in ('pos', 'cell', 'energy', 'force'):
+        b[k] = b[k].to(dtype)
+    tm.requires_grad_(True)
+    loss, _ = standard_value_and_grad(tm, main_loss, b, nlist=nlist)
+    return loss, {n: p.grad.clone() if p.grad is not None
+                  else torch.zeros_like(p)
+                  for n, p in tm.core.named_parameters()}
+
+
 def test_fastgrad_refuses_what_is_not_ported():
+    """(The name is kept from when XLA models were refused.) On the XLA
+    model of the same weights, fastgrad.value_and_grad (reverse over
+    forward) gives the standard step's loss and gradients in float32, to
+    1e-5 of each gradient's largest magnitude."""
     _, params, batch, cfg = _setup(seed=5)
-    tm = _port(cfg, params)
-    tm.kernel = 'xla'
-    with pytest.raises(NotImplementedError, match='ROADMAP.md A'):
-        fastgrad.value_and_grad(tm, get_loss_by_string(LOSSES)[0], batch)
+    tm = _port(dict(cfg, kernel='xla'), params)
+    loss, preds, g_fast = _port_grads(tm, batch)
+    loss_s, g_std = _standard_grads(tm, batch, torch.float32)
+    assert float(loss) == pytest.approx(float(loss_s), rel=1e-6)
+    assert preds['gradient_force'].shape == batch['force'].shape
+    for name, g in g_std.items():
+        torch.testing.assert_close(g_fast[name], g, rtol=0,
+                                   atol=1e-5 * float(g.abs().max()) + 1e-12,
+                                   msg=name)
+
+
+def _xla_box(layout, seed=3, B=2, N=12, L=6.0):
+    """A float64 XLA model (F=16, 2 interactions) in `layout` and a
+    periodic batch of two boxes (the second padded by 2 atoms), with the
+    host-built inverse lists for 'inverse'."""
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    kw = {} if layout == 'dense' else dict(
+        graph_mode='neighborlist', k_max=16,
+        inverse_lists=layout == 'inverse')
+    tm = NewtonNet(n_features=16, n_basis=6, n_interactions=2,
+                   output_properties=['energy', 'gradient_force'],
+                   device='cpu', dtype=torch.float64,
+                   generator=torch.Generator().manual_seed(seed), **kw)
+    rs = np.random.RandomState(seed)
+    z = rs.choice([1, 6, 8], size=(B, N)).astype(np.int32)
+    z[1, -2:] = 0
+    batch = {'z': z, 'pos': rs.rand(B, N, 3) * L,
+             'cell': np.broadcast_to(np.eye(3) * L, (B, 3, 3)).copy(),
+             'graph_mask': np.ones(B, bool), 'energy': rs.randn(B),
+             'force': rs.randn(B, N, 3)}
+    nl = None
+    if layout == 'inverse':
+        nl = host_symmetric_nlist(tm, batch['z'], batch['pos'],
+                                  batch['cell'], skin=0.0)
+    return tm, batch, nl
+
+
+@pytest.mark.parametrize('layout', ['dense', 'plain', 'inverse'])
+def test_xla_fastgrad_equals_the_standard_step_in_float64(layout):
+    """kernel='xla': fastgrad's reverse over forward against the standard
+    step's reverse over reverse, dense, over plain lists and over inverse
+    lists, in float64 at rtol 1e-9 (the two algorithms agree to
+    rounding)."""
+    tm, batch, nl = _xla_box(layout)
+    main_loss, _ = get_loss_by_string(LOSSES)
+    b = {k: torch.as_tensor(v) for k, v in batch.items()}
+    tm.requires_grad_(True)
+    loss, _ = fastgrad.value_and_grad(tm, main_loss, b, nlist=nl)
+    g_fast = {n: p.grad.clone() if p.grad is not None
+              else torch.zeros_like(p) for n, p in tm.core.named_parameters()}
+    loss_s, g_std = _standard_grads(tm, batch, torch.float64, nlist=nl)
+    assert float(loss) == pytest.approx(float(loss_s), rel=1e-12)
+    for name, g in g_std.items():
+        torch.testing.assert_close(g_fast[name], g, rtol=1e-9, atol=1e-12,
+                                   msg=name)

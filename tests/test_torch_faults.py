@@ -1,5 +1,5 @@
 '''Repairs of the port's faults against the JAX package (ROADMAP.md C4, C6,
-C7, C8; C5 is in tests/test_torch_xla_reference.py).
+C7, C8, C9, C10; C5 is in tests/test_torch_xla_reference.py).
 
 C4: gather_nodes' backward sums each atom's slot cotangents over the list's
 transpose in a fixed order, no atomics. Held to torch.gather's autograd (the
@@ -13,6 +13,19 @@ C7: calculate(system=None, numbers=None, positions=None, cell=None), the
 JAX calculator's signature.
 C8: the JAX Trainer's steps_per_call is accepted (a no-op), profile_dir
 and halo are refused, each before any data is read.
+C9: training.wandb and training.parallel given without a value, and
+training.eval_matmul_precision / general.matmul_precision 'highest', reach
+training; set values of the first two and other precisions are refused
+before any data is read.
+C10: NewtonNetCalculator(model_path=None, properties=None,
+precision='float32', model=None, params=None, matmul_precision='highest',
+device=None), the JAX calculator's keywords, with its refusals.
+Also: a kernel='pallas' model without fastgrad is refused when the
+Trainer is built (the standard step needs create_graph); the Trainer's
+edge counter gives 0 above 2048 atoms, as the JAX Trainer's does; and
+gather_nodes' jvp is the gather itself, so a reverse
+pass over a tangent runs its fixed-order transpose, never torch.gather's
+scatter-add.
 '''
 import os
 
@@ -225,12 +238,19 @@ def _settings(tmp_path, train_root):
 @pytest.mark.parametrize('key, value, item', [
     ('steps_per_call', 8, None),
     ('profile_dir', 'prof', 'training extras'),
-    ('halo', {'axis': 'atoms'}, 'parallelism')])
+    ('halo', {'axis': 'atoms'}, 'parallelism'),
+    ('wandb', None, None),
+    ('parallel', None, None),
+    ('eval_matmul_precision', 'highest', None),
+    ('wandb', {'project': 'x'}, 'training extras'),
+    ('parallel', {'data': 2}, 'parallelism')])
 def test_jax_training_keys(tmp_path, key, value, item):
     '''training.steps_per_call trains (eager PyTorch has no dispatch
-    chunking to do); profile_dir and halo raise NotImplementedError naming
-    their ROADMAP.md A item, before any data is read (the data root does
-    not exist).'''
+    chunking to do), and so do wandb and parallel without a value and
+    eval_matmul_precision 'highest' (C9: each ended in a TypeError after
+    the data were read); profile_dir, halo and set wandb / parallel raise
+    NotImplementedError naming their ROADMAP.md A item, before any data
+    is read (the data root does not exist).'''
     if item is None:
         cfg = _settings(tmp_path, os.path.join(ASPIRIN, 'ccsd_train'))
         cfg['training'][key] = value
@@ -255,3 +275,164 @@ def test_trainer_takes_the_jax_trainers_keys():
         Trainer(model, profile_dir='prof')
     with pytest.raises(NotImplementedError, match='parallelism'):
         Trainer(model, halo={'axis': 'atoms'})
+
+
+@pytest.mark.parametrize('where, key, value', [
+    ('general', 'matmul_precision', 'highest'),
+    ('general', 'matmul_precision', 'default'),
+    ('training', 'eval_matmul_precision', 'bfloat16')])
+def test_matmul_precision_settings(tmp_path, where, key, value):
+    """general.matmul_precision 'highest' (artifacts/md17_model/config.yml
+    has it) trains; any precision other than 'highest' raises ValueError
+    before any data is read: the port computes in IEEE fp32 only."""
+    if value == 'highest':
+        cfg = _settings(tmp_path, os.path.join(ASPIRIN, 'ccsd_train'))
+        cfg[where][key] = value
+        assert os.path.exists(os.path.join(
+            cli.train_from_settings(cfg).output_path, 'log.csv'))
+        return
+    cfg = _settings(tmp_path, str(tmp_path / 'no_such_data'))
+    cfg[where][key] = value
+    with pytest.raises(ValueError, match=f'{key}=.{value}. is not'):
+        cli.train_from_settings(cfg)
+    assert not os.path.exists(tmp_path / 'runs')
+    from newtonnet_tpu_torch import Trainer
+    model = load_model(XLA_CKPT, device='cpu')
+    with pytest.raises(ValueError, match='eval_matmul_precision'):
+        Trainer(model, eval_matmul_precision=value)
+
+
+def test_calculator_takes_the_jax_constructors_keywords():
+    """C10: model= with params= (a flax-named tree of numpy arrays), as
+    the JAX calculator takes them, and matmul_precision='highest' give the
+    bits of the checkpoint's calculator, served from a copy of the model,
+    and match the JAX calculator built from the same model and params; the
+    JAX refusal text for no path and no (model, params) pair (model= alone
+    included), and the refusals of a precision other than 'highest' and
+    an ensemble."""
+    from newtonnet_tpu.md.calculator import NewtonNetCalculator as JaxCalc
+    from newtonnet_tpu.utils.checkpoint import load_model as jax_load
+    from newtonnet_tpu_torch import NewtonNet
+    from newtonnet_tpu_torch.utils.params import params_to_flax
+    numbers, positions = _aspirin_request()
+    req = dict(numbers=numbers, positions=positions)
+    want = NewtonNetCalculator(XLA_CKPT, device='cpu',
+                               matmul_precision='highest').calculate(**req)
+    model = load_model(XLA_CKPT, device='cpu')
+    fresh = NewtonNet(**model.config_dict(), device='cpu')
+    params = params_to_flax(model.core)
+    for calc in (NewtonNetCalculator(model=model, params=params),
+                 NewtonNetCalculator(model=fresh, params=params,
+                                     matmul_precision=None)):
+        got = calc.calculate(**req)
+        assert got['energy'] == want['energy']
+        assert np.array_equal(got['forces'], want['forces'])
+        assert calc.model is not model and calc.model is not fresh
+    jm, _ = jax_load(XLA_CKPT)
+    jax_got = JaxCalc(model=jm, params=params).calculate(**req)
+    assert want['energy'] == pytest.approx(jax_got['energy'], abs=2e-4)
+    np.testing.assert_allclose(want['forces'], jax_got['forces'], atol=2e-4)
+    for kw in ({}, {'model': model}, {'params': params}):
+        with pytest.raises(ValueError, match='need model_path or'):
+            NewtonNetCalculator(**kw)
+    with pytest.raises(ValueError, match='matmul_precision'):
+        NewtonNetCalculator(XLA_CKPT, device='cpu', matmul_precision='high')
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md A, "remaining heads"'):
+        NewtonNetCalculator([XLA_CKPT, XLA_CKPT], device='cpu')
+
+
+def test_standard_step_over_a_pallas_model_is_refused_when_built(tmp_path):
+    """A kernel='pallas' model with fast_grad=False and an energy loss
+    (which the JAX Trainer trains by its standard step): the port's
+    standard step needs NewtonNet.forward(create_graph=True), which the
+    fused kernels do not give, so the Trainer raises NotImplementedError
+    naming ROADMAP.md A, "training extras" when it is built, and the CLI
+    before it makes a run directory; 'auto' takes fastgrad."""
+    from newtonnet_tpu_torch import NewtonNet, Trainer
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    model = NewtonNet(n_features=32, n_basis=8, n_interactions=1,
+                      kernel='pallas', output_properties=['energy'],
+                      device='cpu')
+    energy = get_loss_by_string({'energy': {}})
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md A, "training extras"'):
+        Trainer(model, loss_fns=energy, fast_grad=False)
+    assert Trainer(model, loss_fns=energy).fast_grad is True
+    cfg = _settings(tmp_path, os.path.join(ASPIRIN, 'ccsd_train'))
+    cfg['training'].update(fast_grad=False, loss={'energy': {}})
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md A, "training extras"'):
+        cli.train_from_settings(cfg)
+    assert not os.path.exists(tmp_path / 'runs')
+
+
+def test_edges_metric_is_zero_above_2048_atoms():
+    """The Trainer's edge count for throughput logging: the dense graph's
+    edges up to 2048 atoms, 0 above, as the JAX Trainer's _count_edges
+    gives them (which skips the pair tensor there)."""
+    from types import SimpleNamespace
+
+    from newtonnet_tpu.train.trainer import Trainer as JaxTrainer
+    from newtonnet_tpu_torch import NewtonNet, Trainer
+    trainer = Trainer(NewtonNet(n_features=16, n_basis=4, n_interactions=1,
+                                output_properties=['energy'], device='cpu'))
+    fake = SimpleNamespace(model=SimpleNamespace(cutoff=trainer.model.cutoff))
+    rs = np.random.RandomState(0)
+    for n in (64, 2049):
+        L = (n / 0.1) ** (1 / 3)
+        batch = {'z': np.ones((1, n), np.int32),
+                 'pos': (rs.rand(1, n, 3) * L).astype(np.float32),
+                 'cell': (np.eye(3) * L)[None].astype(np.float32),
+                 'energy': np.zeros(1, np.float32),
+                 'graph_mask': np.ones(1, bool)}
+        b = {k: torch.as_tensor(v) for k, v in batch.items()}
+        edges = trainer._metrics(torch.zeros(()), {'energy': b['energy']},
+                                 b, edges=True)['edges']
+        want = float(JaxTrainer._count_edges(fake, batch))
+        assert float(edges) == want
+        assert (want > 0) == (n <= 2048)
+
+
+def test_gather_nodes_jvp_stays_on_the_fixed_order_path():
+    """A tangent of gather_nodes that depends on a parameter w: its jvp is
+    GatherNodes itself, so the tangent's graph holds GatherNodes and no
+    GatherBackward0 (torch.gather's), and the reverse pass over it runs
+    ScatterNodes (the 'gather_nodes_backward' range) and no scatter-add;
+    the values match torch.gather's in float64 at 1e-12."""
+    from torch.profiler import profile
+    idx, kmask, _ = _list(6, seed=3)
+    rs = np.random.RandomState(4)
+    x = torch.tensor(rs.randn(2, 14, 5))
+    x_t = torch.tensor(rs.randn(2, 14, 5))
+    w = torch.tensor(rs.randn(5, 5), requires_grad=True)
+    cot = torch.tensor(rs.randn(2, 14, idx.shape[2], 5)) \
+        * kmask[..., None]
+
+    def names(root):
+        seen, todo = set(), [root]
+        while todo:
+            fn = todo.pop()
+            if fn is None or fn in seen:
+                continue
+            seen.add(fn)
+            todo += [f for f, _ in fn.next_functions]
+        return {type(fn).__name__ for fn in seen}
+
+    runs = []
+    for gather in (lambda t: nlist.gather_nodes(t, idx, kmask),
+                   lambda t: torch.where(kmask[..., None],
+                                         _old_gather(t, idx), 0)):
+        _, y_t = torch.func.jvp(lambda v: gather(torch.tanh(v @ w)), (x,),
+                                (x_t,))
+        with profile() as prof:
+            (g,) = torch.autograd.grad((y_t * cot).sum(), w)
+        ran = {e.key for e in prof.key_averages()}
+        runs.append((g, names(y_t.grad_fn), ran))
+    (g, graph, ran), (g_ref, graph_ref, ran_ref) = runs
+    assert 'GatherNodesBackward' in graph and 'GatherBackward0' not in graph
+    assert 'gather_nodes_backward' in ran
+    assert not {'aten::scatter_add', 'aten::scatter_add_'} & ran
+    assert 'GatherBackward0' in graph_ref
+    assert {'aten::scatter_add', 'aten::scatter_add_'} & ran_ref
+    np.testing.assert_allclose(g.numpy(), g_ref.numpy(), rtol=0, atol=1e-12)

@@ -5,7 +5,9 @@ float64, with lists built from the same seeded positions.
 
 Bars: lists and gathers are integer or copy operations (exact); the sums
 of inv_scatter_sum and the derivatives through it run in another order
-than JAX's (atol 1e-12 in float64).
+than JAX's (atol 1e-12 in float64). Forward mode too: torch.func.jvp of
+both ops against jax.jvp, and the reverse pass over each jvp, which the
+kernel='xla' training step takes (train/fastgrad.py).
 '''
 import jax
 import jax.numpy as jnp
@@ -166,3 +168,52 @@ def test_recompute_displacements_kn_matches_jax():
     np.testing.assert_allclose(d_t.detach().numpy(), np.asarray(d_j),
                                atol=1e-12)
     np.testing.assert_allclose(g_t.numpy(), np.asarray(g_j), atol=1e-12)
+
+
+def test_inv_gather_and_scatter_jvps_match_jax_and_differentiate():
+    """torch.func.jvp of inv_gather and inv_scatter_sum against jax.jvp of
+    the JAX primitives, and the gradient of a loss of each jvp in a
+    parameter w that its tangent depends on (reverse over forward) against
+    JAX's, in float64 at 1e-12; plain=True gives the same bits."""
+    _, _, _, _, idx_kn, m_kn = _lists(seed=7)
+    inv, invm = tnl.build_inverse_list(idx_kn, m_kn)
+    lists = (idx_kn, inv, invm)
+    j_lists = _jax_lists(idx_kn, m_kn)
+    B, K, N = idx_kn.shape
+    rs = np.random.RandomState(8)
+    m = m_kn.numpy()[..., None]
+    w = rs.randn(5, 5)
+    cases = (
+        (tnl.inv_gather, jnl.inv_gather, rs.randn(B, N, 5),
+         rs.randn(B, N, 5), rs.randn(B, K, N, 5) * m),
+        (tnl.inv_scatter_sum, jnl.inv_scatter_sum, rs.randn(B, K, N, 5) * m,
+         rs.randn(B, K, N, 5) * m, rs.randn(B, N, 5)))
+    for op_t, op_j, primal, tangent, cot in cases:
+        _, out_t = torch.func.jvp(lambda v: op_t(v, *lists),
+                                  (torch.tensor(primal),),
+                                  (torch.tensor(tangent),))
+        _, out_j = jax.jvp(lambda v: op_j(v, *j_lists),
+                           (jnp.asarray(primal),), (jnp.asarray(tangent),))
+        np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j),
+                                   rtol=0, atol=1e-12)
+
+        def loss_t(wt, plain=False):
+            _, o = torch.func.jvp(
+                lambda v: op_t(torch.sin(v), *lists, plain=plain),
+                (torch.tensor(primal),), (torch.tensor(tangent) @ wt,))
+            return torch.sum(o * torch.tensor(cot))
+
+        def loss_j(wj):
+            _, o = jax.jvp(lambda v: op_j(jnp.sin(v), *j_lists),
+                           (jnp.asarray(primal),),
+                           (jnp.asarray(tangent) @ wj,))
+            return jnp.sum(o * cot)
+
+        grads = []
+        for plain in (False, True):
+            wt = torch.tensor(w, requires_grad=True)
+            grads.append(torch.autograd.grad(loss_t(wt, plain), wt)[0])
+        assert torch.equal(grads[0], grads[1])
+        np.testing.assert_allclose(
+            grads[0].numpy(), np.asarray(jax.grad(loss_j)(jnp.asarray(w))),
+            rtol=0, atol=1e-12)

@@ -1,5 +1,6 @@
 '''The port (newtonnet_tpu_torch) stands alone: importing it loads no JAX,
-flax, optax or msgpack and nothing of newtonnet_tpu, and its entry points
+flax, optax or msgpack and nothing of newtonnet_tpu, its native sources
+are its own copies under newtonnet_tpu_torch/csrc/, and its entry points
 refuse to run quietly on the CPU.'''
 import os
 import subprocess
@@ -29,6 +30,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.models.fused_stack
         import newtonnet_tpu_torch.models.xla_stack
         import newtonnet_tpu_torch.ops._build
+        import newtonnet_tpu_torch.layers.precision
         import newtonnet_tpu_torch.ops.fused_dense
         import newtonnet_tpu_torch.ops.fused_dual
         import newtonnet_tpu_torch.ops.fused_klist
@@ -53,6 +55,26 @@ def test_import_loads_no_jax_and_no_reference_package():
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == ''
+
+
+def test_native_sources_are_the_ports_own():
+    '''The host C++ builds from newtonnet_tpu_torch/csrc/host/ (its copy of
+    native/symslots.cpp), and no file of the port or chip_smoke.py names
+    the JAX package's native/ directory or its loader.'''
+    from newtonnet_tpu_torch.ops import _build
+    pkg = os.path.join(ROOT, 'newtonnet_tpu_torch')
+    assert _build.HOST_DIR == os.path.join(pkg, 'csrc', 'host')
+    assert os.path.exists(os.path.join(_build.HOST_DIR, 'symslots.cpp'))
+    paths = [os.path.join(ROOT, 'chip_smoke.py')]
+    for base, _, files in os.walk(pkg):
+        paths += [os.path.join(base, f) for f in files
+                  if f.endswith(('.py', '.cu', '.cpp', '.h'))]
+    for path in paths:
+        with open(path) as f:
+            text = f.read()
+        for banned in ("'native'", 'native/', 'newtonnet_tpu.native',
+                       'newtonnet_tpu/native'):
+            assert banned not in text, (path, banned)
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu():

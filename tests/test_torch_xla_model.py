@@ -203,24 +203,31 @@ def test_calculator_with_inverse_lists_matches_jax(tmp_path):
 
 
 def test_training_an_xla_model_is_refused_before_any_work(tmp_path):
-    '''The Trainer, and the CLI for a config without `kernel:` (an XLA
-    model) or with a pretrained XLA checkpoint, raise NotImplementedError
-    naming the ROADMAP item before they read any data.'''
+    """(The name is kept from when the port refused it.) The Trainer takes
+    an XLA model and chooses the standard step for it, as the JAX Trainer
+    does; the CLI trains a config without `kernel:` (an XLA model) and one
+    warm-started from the XLA checkpoint, each through one epoch to
+    log.csv."""
     from newtonnet_tpu_torch import Trainer
     from newtonnet_tpu_torch.train.cli import train_from_settings
-    match = 'ROADMAP.md A.*XLA training'
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(NewtonNet(n_features=16, n_basis=4, n_interactions=1,
-                          output_properties=['energy'], device='cpu'))
-    missing = str(tmp_path / 'no_such_data')
-    settings = {'general': {'device': 'cpu', 'precision': 'float32',
-                            'output': str(tmp_path)},
-                'data': {'train_root': missing},
-                'model': {'n_features': 16},
-                'training': {}}
-    with pytest.raises(NotImplementedError, match=match):
-        train_from_settings(settings)
-    settings['model'] = {'pretrained_model': {'path': os.path.join(
-        ROOT, 'artifacts', 'md17_model', 'best_model.msgpack')}}
-    with pytest.raises(NotImplementedError, match=match):
-        train_from_settings(settings)
+    trainer = Trainer(NewtonNet(n_features=16, n_basis=4, n_interactions=1,
+                                output_properties=['energy'], device='cpu'))
+    assert trainer.fast_grad is False and trainer.model.kernel == 'xla'
+    aspirin = os.path.join(ROOT, 'data', 'md17_aspirin', 'ccsd_train')
+    data = {'train_root': aspirin, 'test_root': None, 'train_size': 2,
+            'val_size': 1, 'test_size': 1, 'train_batch_size': 2,
+            'val_batch_size': 1, 'test_batch_size': 1}
+    loss = {'energy': {'weight': 1.0},
+            'gradient_force': {'weight': 50.0}}
+    for n, model in enumerate((
+            {'n_features': 16, 'n_basis': 4, 'n_interactions': 1,
+             'output_properties': ['energy', 'gradient_force']},
+            {'pretrained_model': {'path': os.path.join(
+                ROOT, 'artifacts', 'md17_model', 'best_model.msgpack')}})):
+        settings = {'general': {'device': 'cpu', 'precision': 'float32',
+                                'output': str(tmp_path / str(n))},
+                    'data': dict(data), 'model': model,
+                    'training': {'epochs': 1, 'loss': loss}}
+        trainer = train_from_settings(settings)
+        assert trainer.model.kernel == 'xla' and not trainer.fast_grad
+        assert os.path.exists(os.path.join(trainer.output_path, 'log.csv'))

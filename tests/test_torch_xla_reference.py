@@ -1,8 +1,11 @@
 '''The JAX package's numbers that chip_smoke.py holds the kernel='xla'
 phases to, the recipes that make them, and checks that they reproduce.
 
-    python tests/test_torch_xla_reference.py mae   # JAX_XLA_*_MAE
-    python tests/test_torch_xla_reference.py box   # JAX_XLA_BOX_*
+    python tests/test_torch_xla_reference.py mae        # JAX_XLA_*_MAE
+    python tests/test_torch_xla_reference.py box        # JAX_XLA_BOX_*
+    python tests/test_torch_xla_reference.py steps      # JAX_XLA_*STEP_*
+    python tests/test_torch_xla_reference.py box-steps  # JAX_XLA_BOX_STEP_*
+    python tests/test_torch_xla_reference.py bf16-shift # ROADMAP.md C11
 
 `mae`: the energy and force MAE of the trained kernel='xla' checkpoint
 artifacts/md17_model/best_model.msgpack on the 500 MD17-aspirin test
@@ -12,8 +15,22 @@ of the JAX package's host_symmetric_nlist. `box`: one request (energy,
 forces of the first 8 atoms) on chip_smoke.py's box recipe (box_system) at
 BOX_REF_ATOMS = 512 atoms, in inverse-list mode with k_max 88 and
 box_weights' weights, with a bf16 interaction stack and, for the spread
-that its rounding makes, in float32. Both run the JAX package on the CPU
-(the machine with the card has no flax).
+that its rounding makes, in float32. `steps`: the first 10 fine-tuning
+steps (loss, global gradient norm before the clip) of that checkpoint with
+its own config (artifacts/md17_model/config.yml: energy + 50 x force mse,
+Adam 1e-3, clip 1.0, batch 10, scalers refit, matmul precision
+'highest') by the JAX package's standard step (jax.value_and_grad of the
+loss over model.apply, which fast_grad 'auto' gives an XLA model), dense
+and with graph_mode neighborlist, k_max 48. `box-steps`: step 1 of that
+standard step on box_system(BOX_REF_ATOMS) over inverse lists, with
+box_weights' weights and chip_smoke.py's BOX_XLA_LOSS (energy + force +
+stress, labels from box_system and box_stress), bf16 stack and float32.
+`bf16-shift`: both packages' bf16-to-fp32 energy shift on small seeded
+molecules and the bf16 roundings JAX's compiled program keeps
+(bf16_shift_report).
+All run the JAX package on the CPU (the machine with the card has no
+flax). test_embedded_xla_steps_reproduce recomputes the first two dense
+steps at full width (about 10 s on the CPU).
 '''
 import importlib.util
 import os
@@ -104,6 +121,101 @@ def jax_box_request(n_atoms, compute_dtype):
     return float(out['energy'][0]), np.asarray(out['gradient_force'][0])
 
 
+def jax_xla_steps(n_steps=10, **changes):
+    """The JAX package's first fine-tuning steps of the XLA checkpoint with
+    its config, standard step: (losses, global gradient norms before the
+    clip). `changes` go into the model's config (graph_mode, k_max)."""
+    import optax
+    import yaml
+
+    from newtonnet_tpu.data import parse_train_test
+    from newtonnet_tpu.data.statistics import set_scalers
+    from newtonnet_tpu.models import NewtonNet
+    from newtonnet_tpu.train.loss import get_loss_by_string
+    from newtonnet_tpu.train.optimizer import get_optimizer_by_string
+    from newtonnet_tpu.utils.checkpoint import load_model
+    cs = chip_smoke()
+    with open(cs.XLA_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    data = os.path.join(ROOT, 'data', 'md17_aspirin')
+    train_gen, _, _, stats = parse_train_test(
+        train_root=os.path.join(data, 'ccsd_train'),
+        test_root=os.path.join(data, 'ccsd_test'), train_size=950,
+        train_batch_size=10, val_batch_size=50, test_batch_size=500, seed=0)
+    model, params = load_model(XLA_CKPT)
+    jm = NewtonNet(**dict(model.config_dict(), **changes))
+    params = set_scalers(params, jm.output_properties, stats,
+                         {'energy': dict(cfg['training']['fit_scalers'])})
+    main_loss, _ = get_loss_by_string(cfg['training']['loss'])
+    tx = get_optimizer_by_string('adam', clip_grad=1.0, lr=1e-3)
+    opt = tx.init(params)
+
+    @jax.jit
+    def step(p, o, b):
+        def loss_fn(q):
+            return main_loss(jm.apply(q, b['z'], b['pos'], b['cell']), b)
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        updates, o = tx.update(grads, o, p)
+        return optax.apply_updates(p, updates), o, loss, \
+            optax.global_norm(grads)
+
+    losses, norms = [], []
+    with jax.default_matmul_precision(cfg['general']['matmul_precision']):
+        for _, batch in zip(range(n_steps), train_gen):
+            params, opt, loss, norm = step(
+                params, opt, {k: jnp.asarray(v) for k, v in batch.items()})
+            losses.append(float(loss))
+            norms.append(float(norm))
+    return losses, norms
+
+
+def jax_xla_box_step(n_atoms, compute_dtype):
+    """The JAX package's standard step 1 on box_system(n_atoms) over its
+    inverse lists with box_model's weights and BOX_XLA_LOSS: (loss, global
+    gradient norm)."""
+    from newtonnet_tpu.md.driver import host_symmetric_nlist
+    from newtonnet_tpu.models import NewtonNet
+    from newtonnet_tpu.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.utils.params import params_to_flax
+    cs = chip_smoke()
+    tm = port_box_model(compute_dtype)
+    jm = NewtonNet(**tm.config_dict())
+    params = params_to_flax(tm.core)
+    z, pos, cell, energy, force = cs.box_system(n_atoms)
+    batch = {'z': z, 'pos': pos, 'cell': cell, 'energy': energy,
+             'force': force, 'stress': cs.box_stress(),
+             'graph_mask': np.ones(1, bool)}
+    nl = host_symmetric_nlist(jm, z, pos, cell, skin=0.0)
+    main_loss, _ = get_loss_by_string(cs.BOX_XLA_LOSS)
+
+    @jax.jit
+    def step(p, b, n):
+        def loss_fn(q):
+            return main_loss(jm.apply(q, b['z'], b['pos'], b['cell'],
+                                      nlist=n), b)
+        loss, grads = jax.value_and_grad(loss_fn)(p)
+        return loss, jnp.sqrt(sum(jnp.sum(g * g) for g in
+                                  jax.tree_util.tree_leaves(grads)))
+
+    loss, norm = step(params, {k: jnp.asarray(v) for k, v in batch.items()},
+                      nl)
+    return float(loss), float(norm)
+
+
+def test_embedded_xla_steps_reproduce():
+    """chip_smoke.py's JAX_XLA_STEP_* are this recipe's numbers: the first
+    two dense steps, as the script prints them (loss to 7 digits,
+    gradient norm to 5). The recipe runs as its script
+    does, with JAX's 64-bit mode off (the suite's conftest turns it on,
+    which moves step 2's loss by 1.4e-5)."""
+    cs = chip_smoke()
+    with jax.enable_x64(False):
+        losses, norms = jax_xla_steps(n_steps=2)
+    assert [float(f'{v:.7g}') for v in losses] == cs.JAX_XLA_STEP_LOSS[:2]
+    assert [float(f'{v:.5g}') for v in norms] == \
+        cs.JAX_XLA_STEP_GRAD_NORM[:2]
+
+
 def test_embedded_aspirin_maes_reproduce():
     '''chip_smoke.py's JAX_XLA_* constants are this recipe's numbers: the
     dense and inverse-list MAEs over all 500 frames, to 1e-6 relative.'''
@@ -170,6 +282,63 @@ def test_bf16_stack_spread_at_512_atoms_is_within_4x_jax():
     assert abs(energy['bfloat16'] - energy['']) <= 4 * jax_spread
     assert abs(energy['bfloat16'] - cs.JAX_XLA_BOX_ENERGY) <= 4 * jax_spread
 
+def bf16_shift_report():
+    '''`bf16-shift`: on four random molecules of at most 8 atoms (numpy
+    seed 1) with a seeded F=32, R=8, 2-interaction model, each package's
+    bf16-to-fp32 energy shift (largest over the molecules), dense and over
+    plain lists (k_max 12), and the values JAX's compiled bf16 energy
+    program rounds to bf16: the count of its converts to bf16, by what
+    they convert (a parameter of a fusion, or an operation).'''
+    import re
+    from collections import Counter
+
+    import torch
+
+    from newtonnet_tpu.models import NewtonNet as JaxNewtonNet
+    from newtonnet_tpu_torch import NewtonNet
+    from newtonnet_tpu_torch.utils.params import params_from_flax
+    rs = np.random.RandomState(1)
+    B, n = 4, 8
+    z, pos = np.zeros((B, n), np.int32), np.zeros((B, n, 3), np.float32)
+    for b in range(B):
+        k = rs.randint(3, n + 1)
+        z[b, :k] = rs.choice([1, 6, 7, 8], size=k)
+        pos[b, :k] = rs.randn(k, 3) * 1.6
+    cell = np.zeros((B, 3, 3), np.float32)
+    base = dict(cutoff=5.0, n_features=32, n_basis=8, n_interactions=2,
+                output_properties=['energy', 'gradient_force'])
+    for layout in ({'graph_mode': 'dense'},
+                   {'graph_mode': 'neighborlist', 'k_max': 12}):
+        energy, converts = {}, None
+        for cd in ('', 'bfloat16'):
+            cfg = dict(base, compute_dtype=cd, **layout)
+            jm = JaxNewtonNet(**cfg)
+            params = jm.init(jax.random.PRNGKey(0), jnp.ones((1, 4),
+                                                             jnp.int32),
+                             jnp.asarray(pos[:1, :4]), jnp.zeros((1, 3, 3)))
+            params = jax.tree.map(lambda a: np.asarray(a, np.float32),
+                                  params)
+            fn = jax.jit(lambda p: jm.apply(p, z, pos, cell)['energy'])
+            tm = NewtonNet(**cfg, device='cpu')
+            params_from_flax(params, core=tm.core)
+            energy[cd] = (np.asarray(fn(params)), tm(
+                *(torch.from_numpy(a) for a in (z, pos, cell)))
+                ['energy'].numpy())
+            if cd:
+                hlo = fn.lower(params).compile().as_text()
+                converts = Counter(
+                    'parameter' if m.group(1).startswith('param')
+                    else re.sub(r'[._]\d+$', '', m.group(1))
+                    for m in re.finditer(
+                        r'= bf16\[[^\]]*\][^ ]* convert\(%([\w.]+)\)',
+                        hlo))
+        shift = [float(np.abs(energy['bfloat16'][i] - energy[''][i]).max())
+                 for i in (0, 1)]
+        print({'layout': layout, 'jax_bf16_energy_shift': shift[0],
+               'port_bf16_energy_shift': shift[1],
+               'jax_bf16_converts': dict(converts)}, flush=True)
+
+
 if __name__ == '__main__':
     sys.path.insert(0, ROOT)
     jax.config.update('jax_platforms', 'cpu')
@@ -184,5 +353,23 @@ if __name__ == '__main__':
             e, f = jax_box_request(BOX_REF_ATOMS, cd)
             print(f'JAX_XLA_BOX{tag}_ENERGY =', repr(e))
             print(f'JAX_XLA_BOX{tag}_FORCES_8 =', f[:8].tolist(), flush=True)
+    elif sys.argv[1:] == ['steps']:
+        for changes, tag in (({}, ''), ({'graph_mode': 'neighborlist',
+                                         'k_max': 48}, '_NLIST')):
+            losses, norms = jax_xla_steps(**changes)
+            print(f'JAX_XLA{tag}_STEP_LOSS =',
+                  [float(f'{v:.7g}') for v in losses])
+            print(f'JAX_XLA{tag}_STEP_GRAD_NORM =',
+                  [float(f'{v:.5g}') for v in norms], flush=True)
+    elif sys.argv[1:] == ['box-steps']:
+        out = {cd or 'float32': jax_xla_box_step(BOX_REF_ATOMS, cd)
+               for cd in ('bfloat16', '')}
+        print('JAX_XLA_BOX_STEP_LOSS =',
+              {k: v[0] for k, v in out.items()})
+        print('JAX_XLA_BOX_STEP_GRAD_NORM =',
+              {k: v[1] for k, v in out.items()}, flush=True)
+    elif sys.argv[1:] == ['bf16-shift']:
+        bf16_shift_report()
     else:
-        sys.exit('usage: test_torch_xla_reference.py mae|box')
+        sys.exit('usage: test_torch_xla_reference.py mae|box|steps|'
+                 'box-steps|bf16-shift')
