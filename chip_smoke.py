@@ -104,8 +104,14 @@ with a non-zero exit code and no result line):
             20 calculator requests over inverse lists against the batches.
 5c. box-xla calculator requests on the 4096-atom box over inverse lists
             (k_max 88, bf16 stack, box_weights): the plain row gather
-            bitwise, three requests repeating their bits, the K-list path
-            of 5b and, at 512 atoms, the JAX package (bf16 and fp32);
+            bitwise, three requests repeating their bits, its float32
+            request against the K-list path of 5b, its bf16 request
+            against its float32 one (BOX_BF16_VS_FP32, with a control
+            that must fail it); the bf16 stack on the C11 boxes (256 and
+            512 atoms) against the JAX package's bf16 program (C11_BARS,
+            in units of that program's own bf16-to-fp32 shift, the
+            float32 model as a control that must fail them), both shifts
+            printed; the 512-atom float32 request against the JAX package;
             latency, host list build (the C++ slot coloring of
             csrc/host/symslots.cpp, beside the 1050 ms the numpy loop
             took on this request), model evaluation, and a profile with
@@ -136,10 +142,32 @@ with a non-zero exit code and no result line):
             plain row gather (equal bits) and the standard step (energy +
             force, 2e-3), and at 512 atoms step 1's loss and gradient norm
             against the JAX package's (JAX_XLA_BOX_STEP_*; bf16 at
-            BOX_SPREAD_FACTOR times the JAX package's bf16-to-fp32 spread
+            C11_STEP_SHIFTS times the JAX package's bf16-to-fp32 shift
             plus the float32 bar, float32 at 1e-4); one step per
             list layout under torch.profiler (K9, the gather backward,
             the rest).
+8a. newton3-serve  the trained newton3 checkpoint (artifacts/
+            lj_liquid_newton3: F=48, 2 interactions, k_max 16) on a
+            64-atom LJ box built with numpy (lj_box) against the JAX
+            package's calculator (JAX_LJ_N3_*); the 4096-atom box with
+            newton3 (half-list capacity 48) in float32 against 5c's
+            float32 inverse-list request, the plain row gather bitwise,
+            requests repeating their bits; K9 launches per request and in
+            the forward alone (the mirror sums).
+8b. newton3-train  LJ_CONFIG (prefetch 0) on numpy LJ frames through
+            data.precompute_nlist mode newton3: 10 fine-tuning steps of
+            the checkpoint against the JAX package's (JAX_LJ_STEP_*),
+            step 1's gradient against full inverse lists (1e-4), one
+            epoch through the CLI's entry point.
+8c. revlist-cellgrid  the 4096-atom box over reverse lists and over the
+            cell grid (float32) against 5c's float32 request; the grid's
+            list against neighbor_list's as an edge set; both builders'
+            times.
+8d. staircase  the 4096-atom box with newton3_compact over staircase
+            chunks against 8a's newton3 request; a compact checkpoint
+            through the calculator (swapped to newton3) equal to 8a's
+            request bit for bit; the staircase's host build and slot rows.
+8e. c11     the bf16 numbers of 5c and 7h in units of the JAX shift.
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
@@ -279,6 +307,34 @@ JAX_BOX_FP32_EDGES_FORCES_8 = [
     [-0.08451390266418457, 0.1513175517320633, 0.01589856669306755],
 ]
 BOX_SPREAD_FACTOR = 4.0
+# C11: the XLA bf16 stack against the JAX package's bf16 program (compiled
+# without excess precision). Both round the same values to bf16; their
+# float32 arithmetic differs in order (a matmul's accumulation: XLA's CPU
+# dot, torch's CPU or cuBLAS gemm) and in the last bits of the edge
+# features (XLA fuses the cutoff polynomial with multiply-adds), which
+# flips a few bf16 roundings that grow through the layers. So the bars are
+# pooled over the C11_BOXES (box_system(atoms, seed)) and taken in units of
+# the JAX program's own bf16-to-fp32 shift, each as a root mean square:
+# of the total energies, of the per-atom energies and of the force
+# components. The JAX numbers are in C11_REF (`python
+# tests/test_torch_xla_reference.py bf16-boxes`, CPU). On the CPU the port
+# measures 0.22, 0.40 and 0.47 (the same recipe); the port's float32
+# request, which is what the bf16 stack was before C11, measures 1.00 in
+# all three, and must fail every bar (c11_box_stats).
+C11_BOXES = ((256, 0), (512, 0), (256, 1), (512, 1),
+             (512, 2), (512, 3), (256, 2), (256, 3))
+C11_REF = os.path.join(ROOT, 'tests', 'reference', 'jax_xla_bf16_boxes.npz')
+C11_BARS = {'energy': 0.5, 'atom_energy': 0.6, 'forces': 0.75}
+C11_STEP_SHIFTS = 2.0
+# The 4096-atom bf16 request against its own float32 request (phase 5c):
+# the per-atom energies and the force components as root mean squares in
+# units of the JAX program's pooled bf16-to-fp32 shifts of C11_REF (the
+# same weights and density; per atom, so the atom count drops out). A
+# control request, the same bf16 stack with every layer's message_nodepart
+# rows rounded through float8_e4m3fn (3 mantissa bits for bf16's 7), must
+# exceed it. On the C11 boxes (CPU, `bf16-boxes`) the bf16 stack measures
+# 1.06 (per-atom energies) and 0.67 (forces), the control 5.04 and 3.91.
+BOX_BF16_VS_FP32 = 1.5
 # The trained kernel='xla' checkpoint (its config has no kernel key) on the
 # 500 aspirin test frames in batches of 100: the JAX package's energy and
 # force MAE, dense and in inverse-list mode (graph_mode neighborlist,
@@ -291,20 +347,9 @@ JAX_XLA_INV_ENERGY_MAE, JAX_XLA_INV_FORCE_MAE = (0.00616796875,
                                                  0.022559623331373183)
 INV_K_MAX = 48
 # One request on box_system(BOX_REF_ATOMS) with box_weights' weights in
-# inverse-list mode (k_max BOX_K_MAX), bf16 interaction stack and float32:
-# the JAX package's energy and the first 8 atoms' forces, from `python
-# tests/test_torch_xla_reference.py box` (CPU).
-JAX_XLA_BOX_ENERGY = -43.98672866821289
-JAX_XLA_BOX_FORCES_8 = [
-    [-0.060234490782022476, -0.04290322959423065, 0.2658465504646301],
-    [0.15587830543518066, 0.10695922374725342, 0.11042125523090363],
-    [0.014639332890510559, 0.580086350440979, 0.3384668231010437],
-    [-0.23275412619113922, -0.10091244429349899, 0.04792490601539612],
-    [-0.07914137095212936, -0.25100213289260864, 0.036664173007011414],
-    [-0.21675190329551697, -0.050611186772584915, -0.06463852524757385],
-    [0.01614745706319809, -0.006400882266461849, -0.1735510528087616],
-    [-0.0816798061132431, 0.15193113684654236, 0.014391984790563583],
-]
+# inverse-list mode (k_max BOX_K_MAX), float32: the JAX package's energy and
+# the first 8 atoms' forces, from `python tests/test_torch_xla_reference.py
+# box` (CPU).
 JAX_XLA_BOX_FP32_ENERGY = -43.98573303222656
 JAX_XLA_BOX_FP32_FORCES_8 = [
     [-0.05960889905691147, -0.044780369848012924, 0.2650974988937378],
@@ -337,14 +382,45 @@ JAX_XLA_NLIST_STEP_GRAD_NORM = [470.11, 166.22, 152.34, 221.74, 114.48,
 # box_system and box_stress (numpy seeds). At BOX_REF_ATOMS, over inverse
 # lists with box_weights' weights, the JAX package's standard step 1 (loss,
 # global gradient norm) with a bf16 stack and in float32, from `python
-# tests/test_torch_xla_reference.py box-steps` (CPU).
+# tests/test_torch_xla_reference.py box-steps` (CPU; compiled without
+# excess precision).
 BOX_XLA_LOSS = {'energy': {'weight': 1.0},
                 'gradient_force': {'weight': 50.0},
                 'stress': {'weight': 100.0}}
-JAX_XLA_BOX_STEP_LOSS = {'bfloat16': 2047.69287109375,
+JAX_XLA_BOX_STEP_LOSS = {'bfloat16': 2047.775146484375,
                          'float32': 2048.697021484375}
-JAX_XLA_BOX_STEP_GRAD_NORM = {'bfloat16': 103632.2890625,
+JAX_XLA_BOX_STEP_GRAD_NORM = {'bfloat16': 103630.796875,
                               'float32': 103555.421875}
+# The trained newton3 checkpoint (F=48, R=16, 2 interactions, k_max 16) and
+# its config; lj_box's 64-atom LJ box served by the JAX package's
+# calculator (energy, first 8 atoms' forces), and its first 10 fine-tuning
+# steps of that config (loss, global gradient norm before the clip) on
+# write_lj_dataset's frames over precompute_nlist mode newton3, from
+# `python tests/test_torch_xla_reference.py lj|lj-steps` (CPU, float32).
+LJ_DIR = os.path.join(ROOT, 'artifacts', 'lj_liquid_newton3', 'training_1')
+LJ_CKPT = os.path.join(LJ_DIR, 'models', 'best_model.msgpack')
+LJ_CONFIG = os.path.join(LJ_DIR, 'run_scripts', 'lj_n3_cfg.yml')
+LJ_FRAMES = 150
+# the 4096-atom box's half-list capacity with newton3 (its full list is
+# built at 2 * BOX_N3_K_MAX + 8 = 104 > the box's largest degree)
+BOX_N3_K_MAX = 48
+# phase 8b's step-1 loss bar, relative to the float64 loss
+LJ_STEP1_REL = 1e-5
+JAX_LJ_N3_ENERGY = -0.8382080793380737
+JAX_LJ_N3_FORCES_8 = [
+    [-0.06270407140254974, 0.007688228040933609, 0.009886199608445168],
+    [-0.0018866043537855148, -0.09109240025281906, 0.058984044939279556],
+    [-0.041957028210163116, 0.1762581765651703, 0.11202788352966309],
+    [0.023618699982762337, 0.09030535817146301, 0.045221783220767975],
+    [-0.15615397691726685, 0.1090630441904068, -0.16298463940620422],
+    [-0.044347070157527924, -0.09446987509727478, 0.06551916152238846],
+    [0.28402113914489746, -0.05271579697728157, 0.04702087491750717],
+    [-0.18937335908412933, -0.21798810362815857, -0.07471662014722824],
+]
+JAX_LJ_STEP_LOSS = [11.21076, 7.211863, 5.258116, 2.762722, 1.232769,
+                    0.6052042, 0.4521829, 0.4364477, 0.6743013, 1163.501]
+JAX_LJ_STEP_GRAD_NORM = [152.23, 317.9, 210.82, 81.833, 51.404, 33.548,
+                         19.597, 66.983, 21.964, 14627.0]
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
 WINDOW_T, WINDOW_F = 128, 512
@@ -677,6 +753,83 @@ def box_system(n_atoms=BOX_ATOMS, seed=0):
     return z, pos, cell, energy, force
 
 
+def lj_periodic(np, pos, box, r_c, eps=0.0104, sigma=3.4):
+    """Truncated and shifted Lennard-Jones (argon) energy and forces of one
+    cubic box under the minimum image, as tools/make_lj_periodic_dataset.py
+    computes its labels."""
+    d = pos[:, None, :] - pos[None, :, :]
+    d -= box * np.round(d / box)
+    r2 = np.sum(d * d, axis=-1)
+    np.fill_diagonal(r2, np.inf)
+    inside = r2 < r_c * r_c
+    inv6 = np.where(inside, (sigma * sigma / np.where(inside, r2, 1.0)) ** 3,
+                    0.0)
+    inv12 = inv6 * inv6
+    s6 = (sigma / r_c) ** 6
+    shift = 4.0 * eps * (s6 * s6 - s6)
+    energy = 2.0 * np.sum(eps * 4.0 * 0.5 * (inv12 - inv6)
+                          - 0.5 * shift * inside)
+    coef = np.where(inside, 4.0 * eps * (12.0 * inv12 - 6.0 * inv6)
+                    / np.where(inside, r2, 1.0), 0.0)
+    return energy, np.sum(coef[:, :, None] * d, axis=1)
+
+
+def lj_box(n_atoms=64, n_frames=1, seed=0, cutoff=5.0, density=0.021):
+    """Periodic LJ liquid frames packed as tools/make_lj_periodic_dataset.py
+    packs them (random positions, 80 damped relaxation steps, a 0.09 A
+    jitter), from numpy's default_rng(seed). -> (z (F, N) argon, pos
+    (F, N, 3), cell (F, 3, 3), energy (F,), force (F, N, 3)), float64."""
+    import numpy as np
+    box = (n_atoms / density) ** (1 / 3)
+    rng = np.random.default_rng(seed)
+    pos, energy, force = [], [], []
+    for _ in range(n_frames):
+        p = rng.random((n_atoms, 3)) * box
+        for _ in range(80):
+            _, f = lj_periodic(np, p, box, cutoff)
+            p = (p + np.clip(f * 15.0, -0.25, 0.25)) % box
+        p = (p + rng.standard_normal((n_atoms, 3)) * 0.09) % box
+        e, f = lj_periodic(np, p, box, cutoff)
+        pos.append(p)
+        energy.append(e)
+        force.append(f)
+    z = np.full((n_frames, n_atoms), 18, np.int32)
+    cell = np.broadcast_to(np.eye(3) * box, (n_frames, 3, 3)).copy()
+    return z, np.stack(pos), cell, np.asarray(energy), np.stack(force)
+
+
+def write_lj_dataset(root, n_frames=LJ_FRAMES, seed=0):
+    """lj_box frames as root/raw/lj_liquid.extxyz, in the format of
+    tools/make_lj_periodic_dataset.py (positions and forces to 8 decimals,
+    energy to 10)."""
+    import numpy as np
+    z, pos, cell, energy, force = lj_box(n_frames=n_frames, seed=seed)
+    os.makedirs(os.path.join(root, 'raw'), exist_ok=True)
+    box = cell[0, 0, 0]
+    with open(os.path.join(root, 'raw', 'lj_liquid.extxyz'), 'w') as f:
+        for p, e, fo in zip(pos, energy, force):
+            f.write(f'{len(p)}\n')
+            f.write(f'Lattice="{box} 0 0 0 {box} 0 0 0 {box}" '
+                    f'Properties=species:S:1:pos:R:3:forces:R:3 '
+                    f'energy={e:.10f} pbc="T T T"\n')
+            for a, b in zip(p, fo):
+                f.write(f'Ar {a[0]:.8f} {a[1]:.8f} {a[2]:.8f} '
+                        f'{b[0]:.8f} {b[1]:.8f} {b[2]:.8f}\n')
+    return root
+
+
+def lj_data_settings(root):
+    """The `data` section of LJ_CONFIG for write_lj_dataset's frames: its
+    batch size 12 and precompute_nlist (mode newton3, k_max 16), prefetch 0
+    (ROADMAP.md A4), 120 / 15 / 15 frames."""
+    import yaml
+    with open(LJ_CONFIG) as f:
+        data = yaml.safe_load(f)['data']
+    data.update(train_root=root, prefetch=0, train_size=120, val_size=15,
+                test_size=15, val_batch_size=15, test_batch_size=15)
+    return data
+
+
 def box_stress(seed=0):
     """The box's (1, 3, 3) stress label (eV/A^3) for phase 7h's loss, from
     numpy with `seed` (box_system's labels have none)."""
@@ -714,14 +867,71 @@ def box_model(torch, base_cfg, compute_dtype, output_properties,
               device='cuda', **changes):
     """The checkpoint's widths (F=128, R=20, 3 interactions, cutoff 5 A) in
     neighbour-list mode with k_max BOX_K_MAX and box_weights; `changes`
-    (such as inverse_lists=True) on top."""
+    (such as inverse_lists=True, or a k_max) on top."""
     from newtonnet_tpu_torch import NewtonNet
-    model = NewtonNet(**dict(base_cfg, graph_mode='neighborlist',
-                             k_max=BOX_K_MAX, compute_dtype=compute_dtype,
-                             output_properties=output_properties, **changes),
+    model = NewtonNet(**{**base_cfg, 'graph_mode': 'neighborlist',
+                         'k_max': BOX_K_MAX, 'compute_dtype': compute_dtype,
+                         'output_properties': output_properties, **changes},
                       device=device)
     box_weights(torch, model.core)
     return model.requires_grad_(False).eval()
+
+
+def c11_reference():
+    """C11_REF: for each (atoms, seed) of C11_BOXES and each stack ('bf16',
+    'fp32'), the JAX package's energy, per-atom energies (N,) and forces
+    (N, 3) under f'{atoms}_{seed}_{stack}_energy' / '_atom_energy' /
+    '_forces'."""
+    import numpy as np
+    with np.load(C11_REF) as f:
+        return {k: f[k] for k in f.files}
+
+
+def c11_box_requests(torch, model, device='cuda'):
+    """model (a box_model over inverse lists) on every C11 box: {(atoms,
+    seed): (energy, per-atom energies (N,), forces (N, 3))}, numpy."""
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    got = {}
+    for n, seed in C11_BOXES:
+        z, pos, cell, _, _ = box_system(n, seed=seed)
+        t = [torch.from_numpy(a).to(device) for a in (z, pos, cell)]
+        o = model(*t, nlist=host_symmetric_nlist(model, *t, skin=0.0))
+        got[(n, seed)] = (float(o['energy'][0]),
+                          o['atomic_energy'][0].reshape(-1).cpu().numpy(),
+                          o['gradient_force'][0].cpu().numpy())
+    return got
+
+
+def c11_box_stats(np, ref, got):
+    """got (c11_box_requests) against the JAX package's bf16 program, in
+    units of that program's own bf16-to-fp32 shift, each a root mean square
+    over the C11 boxes: of the total energies ('energy'), the per-atom
+    energies ('atom_energy') and the force components ('forces'); and the
+    JAX shifts themselves (the units, '*_jax_shift')."""
+    def rms(parts):
+        v = np.concatenate([np.ravel(np.asarray(x, np.float64))
+                            for x in parts])
+        return float(np.sqrt(np.mean(v * v)))
+    out = {}
+    for i, key in enumerate(('energy', 'atom_energy', 'forces')):
+        diff, shift = [], []
+        for n, seed in C11_BOXES:
+            j16 = ref[f'{n}_{seed}_bf16_{key}']
+            diff.append(got[(n, seed)][i] - j16)
+            shift.append(j16 - ref[f'{n}_{seed}_fp32_{key}'])
+        out[f'{key}_jax_shift'] = rms(shift)
+        out[key] = rms(diff) / out[f'{key}_jax_shift']
+    return out
+
+
+def node_rows_fp8(torch, model):
+    """The control of phase 5c's bf16-to-fp32 bar: every layer's
+    message_nodepart rows (the rows the layer gathers) rounded through
+    float8_e4m3fn. -> the hook handles (remove them to undo)."""
+    def hook(module, args, out):
+        return out.to(torch.float8_e4m3fn).to(out.dtype)
+    return [lp.message_nodepart.register_forward_hook(hook)
+            for lp in model.core.interactions()]
 
 
 def md17_settings(output, epochs):
@@ -746,7 +956,7 @@ def rel_norm(a, b):
     return (num / den) ** 0.5
 
 
-def float64_loss(fd, main_loss, batch, model):
+def float64_loss(fd, main_loss, batch, model, nlist=None):
     """(loss, one-ulp term) of `batch` through the dense model's plain
     path in float64 (kernel='pallas': the fused layer's plain version;
     kernel='xla' is plain PyTorch): the loss, and (2/B) sum_b |E_b -
@@ -754,9 +964,9 @@ def float64_loss(fd, main_loss, batch, model):
     it by."""
     import numpy as np
     b64 = {k: v.double() if v.is_floating_point() else v
-           for k, v in batch.items()}
+           for k, v in batch.items() if k != 'nlist_stair'}
     plain = {'pair_op': fd.pair_interaction_fwd_ref} \
-        if model.kernel == 'pallas' else {}
+        if model.kernel == 'pallas' else {'nlist': nlist}
     preds = model.double()(b64['z'], b64['pos'], b64['cell'], **plain)
     e64 = preds['energy'].cpu().numpy()
     err = e64 - b64['energy'].cpu().numpy()
@@ -1809,14 +2019,18 @@ def phase_box_xla(torch, rg, klist_box):
     """Phase 5c: calculator requests (energy, forces, stress) on the
     4096-atom box in inverse-list mode (k_max BOX_K_MAX, bf16 stack,
     box_weights): against the plain row gather (bitwise), three requests
-    repeating their bits, the 512-atom box against the JAX package, and
-    the 4096-atom result against the K-list path of phase 5b (klist_box:
-    its bf16-edge and fp32 results): bf16 against bf16 at
-    BOX_SPREAD_FACTOR times the larger bf16-to-fp32 spread of the two,
-    float32 against float32 at 1e-5 of the energy and 1e-4 of the largest
-    force.
-    -> (K9 launches per request, the calculator, the request, the list
-    build, timings)."""
+    repeating their bits; C11: the bf16 stack on the C11 boxes against the
+    JAX package's bf16 program (C11_BARS, in units of that program's own
+    bf16-to-fp32 shift), with the float32 model as the control that must
+    fail them; the 512-atom float32 request against the JAX package (1e-5
+    of the energy, 1e-4 of the largest force); the 4096-atom bf16 request
+    against its float32 one (per-atom energies and forces within
+    BOX_BF16_VS_FP32 of the JAX program's pooled shifts; the node_rows_fp8
+    control must exceed it); and the 4096-atom float32 result against the
+    K-list path of phase 5b (klist_box) at the float32 bars (the bf16
+    K-list program's distance is printed).
+    -> (K9 launches per request, the calculator, the request, timings with
+    the float32 result and the C11 numbers)."""
     import tempfile
 
     import numpy as np
@@ -1867,65 +2081,83 @@ def phase_box_xla(torch, rg, klist_box):
     n_edges = int(nl[1].sum())
     del plain
     torch.cuda.empty_cache()
-    p32 = box_model(torch, xcfg, '', outs, inverse_lists=True)(
-        tz, tpos, tcell, nlist=nl)
+    ae_16 = out['atomic_energy'][0].reshape(-1).cpu().numpy()
+    handles = node_rows_fp8(torch, calc.model)
+    ctl = calc.model(tz, tpos, tcell, nlist=nl)
+    for h in handles:
+        h.remove()
+    ae_ctl = ctl['atomic_energy'][0].reshape(-1).cpu().numpy()
+    f_ctl = ctl['gradient_force'][0].cpu().numpy()
+    del ctl
+    model32 = box_model(torch, xcfg, '', outs, inverse_lists=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p32 = model32(tz, tpos, tcell, nlist=nl)
+    torch.cuda.synchronize()
+    fp32_model_s = time.perf_counter() - t
     e_32 = float(p32['energy'][0])
+    ae_32 = p32['atomic_energy'][0].reshape(-1).cpu().numpy()
     f_32 = p32['gradient_force'][0].cpu().numpy()
     del p32
     torch.cuda.empty_cache()
     e, f = r['energy'], r['forces']
-    k = BOX_SPREAD_FACTOR
-    spread_e = max(abs(e - e_32), abs(klist_box['energy']
-                                      - klist_box['energy_fp32']))
-    spread_f = max(float(np.abs(f - f_32).max()),
-                   float(np.abs(klist_box['forces']
-                                - klist_box['forces_fp32']).max()))
+    # C11 on the reference boxes: the bf16 stack, and the float32 model
+    # (what the bf16 stack was before C11) as the control
+    ref = c11_reference()
+    g16 = c11_box_requests(torch, calc.model)
+    g32 = c11_box_requests(torch, model32)
+    c11 = {'bf16': c11_box_stats(np, ref, g16),
+           'fp32_control': c11_box_stats(np, ref, g32)}
+    # both packages' shifts: the port's own bf16-to-fp32 shift on the same
+    # boxes, in the same units
+    c11['port_bf16_shift'] = {
+        key: float(np.sqrt(np.mean(np.concatenate(
+            [np.ravel(g16[b][i] - g32[b][i]) for b in C11_BOXES]) ** 2)))
+        / c11['bf16'][f'{key}_jax_shift']
+        for i, key in enumerate(('energy', 'atom_energy', 'forces'))}
     z5, pos5, cell5, _, _ = box_system(BOX_REF_ATOMS)
-    r5 = calc.calculate(numbers=z5[0], positions=pos5[0], cell=cell5[0])
-    calc32 = box_model(torch, xcfg, '', outs, inverse_lists=True)
     t5 = [torch.from_numpy(a).cuda() for a in (z5, pos5, cell5)]
-    o5 = calc32(*t5, nlist=host_symmetric_nlist(calc32, *t5, skin=0.0))
-    jf8 = np.asarray(JAX_XLA_BOX_FORCES_8)
+    o5 = model32(*t5, nlist=host_symmetric_nlist(model32, *t5, skin=0.0))
+    del model32
+    torch.cuda.empty_cache()
     jf8_32 = np.asarray(JAX_XLA_BOX_FP32_FORCES_8)
     f8_32 = o5['gradient_force'][0, :8].cpu().numpy()
-    # XLA on the CPU elides the bf16 round trips that meet arithmetic (its
-    # excess precision) and rounds the gathered rows; the port's bf16 stack
-    # does the same (models/xla_stack.py), so the two spreads are of one
-    # size (0.0010 and 0.0014 eV at 512 atoms on the CPU,
-    # tests/test_torch_xla_reference.py). Two bf16 programs are held to
-    # BOX_SPREAD_FACTOR times the larger of their spreads.
-    spread5_e = max(abs(JAX_XLA_BOX_ENERGY - JAX_XLA_BOX_FP32_ENERGY),
-                    abs(r5['energy'] - float(o5['energy'][0])))
-    spread5_f = max(float(np.abs(jf8 - jf8_32).max()),
-                    float(np.abs(r5['forces'][:8] - f8_32).max()))
-    # float32 against float32: the same function, float32 rounding
-    bars = {'energy_vs_klist': k * spread_e, 'forces_vs_klist': k * spread_f,
-            'energy_fp32_vs_klist_fp32': 1e-5 * abs(e_32),
+
+    def rms(x):
+        return float(np.sqrt(np.mean(np.square(x, dtype=np.float64))))
+    # the 4096-atom bf16 request against its float32 one, per atom, in
+    # units of the JAX program's pooled shifts; the control must exceed it
+    unit = {'atom_energy': c11['bf16']['atom_energy_jax_shift'],
+            'forces': c11['bf16']['forces_jax_shift']}
+    own = {'atom_energy': rms(ae_16 - ae_32) / unit['atom_energy'],
+           'forces': rms(f - f_32) / unit['forces']}
+    control = {'atom_energy': rms(ae_ctl - ae_32) / unit['atom_energy'],
+               'forces': rms(f_ctl - f_32) / unit['forces']}
+    c11['box_bf16_vs_fp32'] = {'bf16': own, 'fp8_rows_control': control,
+                               'bar': BOX_BF16_VS_FP32}
+    bars = {'energy_fp32_vs_klist_fp32': 1e-5 * abs(e_32),
             'forces_fp32_vs_klist_fp32': 1e-4 * float(np.abs(f_32).max()),
-            'energy_512_vs_jax': k * spread5_e,
-            'forces8_512_vs_jax': k * spread5_f,
             'energy_512_fp32_vs_jax': 1e-5 * abs(JAX_XLA_BOX_FP32_ENERGY),
             'forces8_512_fp32_vs_jax': 1e-4 * float(np.abs(jf8_32).max())}
-    diffs = {'energy_vs_klist': abs(e - klist_box['energy']),
-             'forces_vs_klist': float(np.abs(f - klist_box['forces']).max()),
-             'energy_fp32_vs_klist_fp32': abs(e_32
+    diffs = {'energy_fp32_vs_klist_fp32': abs(e_32
                                               - klist_box['energy_fp32']),
              'forces_fp32_vs_klist_fp32': float(np.abs(
                  f_32 - klist_box['forces_fp32']).max()),
-             'energy_512_vs_jax': abs(r5['energy'] - JAX_XLA_BOX_ENERGY),
-             'forces8_512_vs_jax': float(np.abs(r5['forces'][:8]
-                                                - jf8).max()),
              'energy_512_fp32_vs_jax': abs(float(o5['energy'][0])
                                            - JAX_XLA_BOX_FP32_ENERGY),
              'forces8_512_fp32_vs_jax': float(np.abs(f8_32 - jf8_32).max())}
+    c11['bf16_vs_klist_bf16_edges'] = {
+        'energy': abs(e - klist_box['energy']),
+        'forces': float(np.abs(f - klist_box['forces']).max())}
     timing = {'latency_ms': [1e3 * t for t in lat],
               'latency_ms_median': 1e3 * statistics.median(lat),
               'host_list_ms_median': 1e3 * statistics.median(list_s),
-              'model_ms_median': 1e3 * statistics.median(model_s)}
+              'model_ms_median': 1e3 * statistics.median(model_s),
+              'fp32_model_ms_one_call': 1e3 * fp32_model_s}
     emit('box_xla', atoms=BOX_ATOMS, k_max=BOX_K_MAX, edges=n_edges,
          compute_dtype='bfloat16', energy=e, fp32_energy=e_32,
-         klist_energy=klist_box['energy'], energy_512=r5['energy'],
-         jax_energy_512=JAX_XLA_BOX_ENERGY, diffs=diffs, bars=bars,
+         klist_energy=klist_box['energy'], diffs=diffs, bars=bars, c11=c11,
+         c11_bars=C11_BARS,
          kernel_vs_plain_bitwise=bitwise, calculator_vs_model_bitwise=(
              calc_vs_model), requests_repeat_their_bits=repeats,
          forces_max_abs=float(np.abs(f).max()),
@@ -1937,8 +2169,23 @@ def phase_box_xla(torch, rg, klist_box):
     check(repeats, 'XLA box: requests do not repeat their bits')
     for key, d in diffs.items():
         check(d <= bars[key], f'XLA box {key}: {d} > {bars[key]}')
+    for key, bar in C11_BARS.items():
+        check(c11['bf16'][key] <= bar,
+              f'C11: bf16 {key} {c11["bf16"][key]} > {bar} JAX shifts')
+        check(c11['fp32_control'][key] > bar,
+              f'C11: the float32 control passes the {key} bar '
+              f'({c11["fp32_control"][key]} <= {bar})')
+    for key in own:
+        check(own[key] <= BOX_BF16_VS_FP32,
+              f'XLA box bf16 vs fp32 {key}: {own[key]} > '
+              f'{BOX_BF16_VS_FP32} JAX shifts')
+        check(control[key] > BOX_BF16_VS_FP32,
+              f'XLA box: the fp8-rows control passes the bf16 vs fp32 '
+              f'{key} bar ({control[key]} <= {BOX_BF16_VS_FP32})')
     check(launches['row_gather'] > 0 and launches['row_gather_b1'] > 0,
           f'K9 was not launched on the box: {launches}')
+    timing['fp32'] = {'energy': e_32, 'forces': f_32}
+    timing['c11'] = c11
     return launches, calc, request, timing
 
 
@@ -1989,15 +2236,16 @@ def param_grads(torch, model):
             for p in model.core.parameters()]
 
 
-def xla_steps(torch, model, loss_fns, batches, fast_grad):
+def xla_steps(torch, model, loss_fns, batches, fast_grad, lr=1e-3,
+              clip=1.0):
     """Steps through Trainer.loss_and_grad (the step fast_grad resolves
-    to) with Adam (lr 1e-3, clip 1.0). -> (losses, global gradient norms
-    before the clip, step seconds, step 1's gradients and predictions,
-    the Trainer)."""
+    to) with Adam (lr, clip). -> (losses, global gradient norms before the
+    clip, step seconds, step 1's gradients and predictions, the
+    Trainer)."""
     from newtonnet_tpu_torch import Trainer
     from newtonnet_tpu_torch.layers.precision import fp32_matmuls
     from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
-    opt = get_optimizer_by_string('adam', model.core, clip_grad=1.0, lr=1e-3)
+    opt = get_optimizer_by_string('adam', model.core, clip_grad=clip, lr=lr)
     trainer = Trainer(model, loss_fns=loss_fns, optimizer=opt,
                       fast_grad=fast_grad)
     losses, norms, step_s, grads1, preds1 = [], [], [], None, None
@@ -2200,8 +2448,9 @@ def phase_box_train_xla(torch, rg, xcfg):
     force) against itself over the plain row gather (equal bits) and
     against the standard step on the same loss (2e-3); at BOX_REF_ATOMS,
     step 1's loss and gradient norm against the JAX package's, in float32
-    (1e-4 relative) and with the bf16 stack (BOX_SPREAD_FACTOR times the
-    JAX package's bf16-to-fp32 spread, plus the float32 bar).
+    (1e-4 relative) and with the bf16 stack (C11_STEP_SHIFTS times the
+    JAX package's bf16-to-fp32 shift, plus the float32 bar; both shifts
+    printed).
     -> ({list layout: K9 launches per step}, {list layout: (one more
     step, the step seconds)})."""
     from newtonnet_tpu_torch.layers.precision import fp32_matmuls
@@ -2293,7 +2542,7 @@ def phase_box_train_xla(torch, rg, xcfg):
                         'port': ref['bfloat16'][i] - ref['float32'][i]}
         diffs[f'{what}_512_vs_jax'] = abs(ref['bfloat16'][i]
                                           - jax['bfloat16'])
-        bars[f'{what}_512_vs_jax'] = (BOX_SPREAD_FACTOR
+        bars[f'{what}_512_vs_jax'] = (C11_STEP_SHIFTS
                                       * abs(shifts[what]['jax'])
                                       + 1e-4 * abs(jax['float32']))
         diffs[f'{what}_512_fp32_vs_jax'] = abs(ref['float32'][i]
@@ -2337,7 +2586,369 @@ def phase_box_train_xla(torch, rg, xcfg):
         check(d <= bars[key], f'XLA box step {key}: {d} > {bars[key]}')
     return ({name: r[3] for name, r in runs.items()},
             {'inverse_lists': stepper('inverse_lists', nl),
-             'plain_lists': stepper('plain_lists', None)})
+             'plain_lists': stepper('plain_lists', None)},
+            {'shifts': shifts, 'in_jax_shifts': {
+                what: diffs[f'{what}_512_vs_jax'] / abs(shifts[what]['jax'])
+                for what in ('loss', 'grad_norm')}})
+
+
+def box_calculator(torch, model):
+    """A calculator serving `model` from a checkpoint file, as a user
+    serves one."""
+    import tempfile
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'box.msgpack')
+        save_model(path, model)
+        return NewtonNetCalculator(path, properties=['energy', 'forces',
+                                                     'stress'])
+
+
+def timed_requests(torch, rg, calc, request, n=3):
+    """n calculator requests after one warm-up: (results, latencies, K9
+    launches per request, whether they repeat their bits)."""
+    import numpy as np
+    calc.calculate(**request)
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    results, lat = [], []
+    for _ in range(n):
+        t = time.perf_counter()
+        results.append(calc.calculate(**request))
+        lat.append(time.perf_counter() - t)
+    launches = {k: v // n for k, v in rg.LAUNCHES.items()}
+    repeats = all(np.array_equal(results[0][k], r[k]) for r in results[1:]
+                  for k in results[0])
+    return results, lat, launches, repeats
+
+
+def against_fp32_box(np, what, r, ref):
+    """{diffs, bars} of a float32 box request `r` against phase 5c's
+    inverse-list float32 request: 1e-5 of the energy, 1e-4 of the largest
+    force."""
+    diffs = {'energy': abs(r['energy'] - ref['energy']),
+             'forces': float(np.abs(r['forces'] - ref['forces']).max())}
+    bars = {'energy': 1e-5 * abs(ref['energy']),
+            'forces': 1e-4 * float(np.abs(ref['forces']).max())}
+    for key, d in diffs.items():
+        check(d <= bars[key], f'{what} {key}: {d} > {bars[key]}')
+    return {'diffs': diffs, 'bars': bars}
+
+
+def phase_newton3_serve(torch, rg, xcfg, ref32):
+    """Phase 8a: newton3 half lists served. The trained newton3 checkpoint
+    (LJ_CKPT: F=48, 2 interactions, k_max 16) on lj_box's 64-atom LJ box
+    against the JAX package's calculator (JAX_LJ_N3_*, float32 bars: 1e-5
+    of the energy, 1e-4 of the largest force); the 4096-atom box
+    (box_weights, F=128, 3 interactions) with newton3 and half-list
+    capacity BOX_N3_K_MAX in float32 against phase 5c's inverse-list
+    float32 request (ref32) at the same bars, against the plain row gather
+    (bitwise), three requests repeating their bits. K9 runs the half
+    lists' gathers and mirror sums (inv_gather / inv_scatter_sum) in the
+    forward (counted alone, in a forward without gradients) and every
+    backward.
+    -> (K9 launches per LJ request, per box request; the box model; the
+    newton3 box result; timings)."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    from newtonnet_tpu_torch.models.xla_stack import apply_core_xla
+    z, pos, cell, _, _ = lj_box()
+    lj_calc = NewtonNetCalculator(LJ_CKPT)
+    check(lj_calc.model.newton3 and lj_calc.model.n_features == 48,
+          'the LJ checkpoint is not a newton3 model at F=48')
+    lj_req = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    lj_res, lj_lat, lj_launches, lj_repeats = timed_requests(
+        torch, rg, lj_calc, lj_req)
+    r = lj_res[0]
+    jf8 = np.asarray(JAX_LJ_N3_FORCES_8)
+    lj = {'energy': r['energy'], 'jax_energy': JAX_LJ_N3_ENERGY,
+          'energy_diff': abs(r['energy'] - JAX_LJ_N3_ENERGY),
+          'energy_bar': 1e-5 * abs(JAX_LJ_N3_ENERGY),
+          'forces8_diff': float(np.abs(r['forces'][:8] - jf8).max()),
+          'forces8_bar': 1e-4 * float(np.abs(jf8).max())}
+    outs = ['energy', 'gradient_force', 'stress']
+    model = box_model(torch, xcfg, '', outs, newton3=True,
+                      k_max=BOX_N3_K_MAX)
+    calc = box_calculator(torch, model)
+    zb, pb, cb, _, _ = box_system()
+    req = dict(numbers=zb[0], positions=pb[0], cell=cb[0])
+    res, lat, launches, repeats = timed_requests(torch, rg, calc, req)
+    tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (zb, pb, cb)]
+    list_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        nl = host_symmetric_nlist(calc.model, tz, tpos, tcell, skin=0.0)
+        list_s.append(time.perf_counter() - t)
+    out = calc.model(tz, tpos, tcell, nlist=nl)
+    plain = calc.model(tz, tpos, tcell, nlist=nl, plain=True)
+    bitwise = all(exact(torch, out[k], plain[k]) for k in outs)
+    del plain
+    # the forward alone: the half lists' gathers and mirror sums
+    rg.reset_launch_counts()
+    with torch.no_grad():
+        apply_core_xla(calc.model, tz, tpos, tcell, nlist=nl)
+    forward_launches = dict(rg.LAUNCHES)
+    torch.cuda.empty_cache()
+    cmp = against_fp32_box(np, 'newton3 box', res[0], ref32)
+    timing = {'lj_latency_ms_median': 1e3 * statistics.median(lj_lat),
+              'box_latency_ms_median': 1e3 * statistics.median(lat),
+              'box_host_list_ms_median': 1e3 * statistics.median(list_s)}
+    emit('newton3_serve', lj=lj, lj_requests_repeat_their_bits=lj_repeats,
+         lj_launches_per_request=lj_launches, atoms=BOX_ATOMS,
+         k_max_half=BOX_N3_K_MAX, half_edges=int(nl[1].sum()),
+         box_vs_inverse_fp32=cmp, kernel_vs_plain_bitwise=bitwise,
+         box_requests_repeat_their_bits=repeats,
+         box_launches_per_request=launches,
+         box_forward_launches=forward_launches, **timing)
+    check(np.isfinite(r['energy']) and np.isfinite(r['forces']).all(),
+          'LJ newton3 request not finite')
+    check(lj['energy_diff'] <= lj['energy_bar'],
+          f'LJ newton3 energy: {lj["energy_diff"]}')
+    check(lj['forces8_diff'] <= lj['forces8_bar'],
+          f'LJ newton3 forces: {lj["forces8_diff"]}')
+    check(lj_repeats and repeats, 'newton3 requests do not repeat their '
+          'bits')
+    check(bitwise, 'newton3 box: kernel and plain gathers differ')
+    for name, n in (('LJ request', lj_launches), ('box request', launches),
+                    ('box forward', forward_launches)):
+        check(n['row_gather'] > 0,
+              f'K9 was not launched in a newton3 {name}: {n}')
+    return lj_launches, launches, model, res[0], timing
+
+
+def phase_newton3_train(torch, fd, rg):
+    """Phase 8b: newton3 training over precomputed lists. LJ_CONFIG with
+    prefetch 0 on write_lj_dataset's frames through
+    data.precompute_nlist mode newton3: the first 10 fine-tuning steps of
+    LJ_CKPT (its scalers refit, Adam at the config's lr, its clip) by the
+    standard step against the JAX package's (JAX_LJ_STEP_*, phase 7a's
+    bars, step 1's loss at LJ_STEP1_REL); step 1's gradient against the
+    same batch over full inverse lists (1e-4 relative norm); one epoch of
+    the config, from its own initialization, through the CLI's entry
+    point.
+    -> (K9 launches in the 10 steps, in the epoch)."""
+    import csv
+    import tempfile
+
+    import yaml
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.trainer import standard_value_and_grad
+    with open(LJ_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    main_loss = get_loss_by_string(cfg['training']['loss'])
+    lr = cfg['training']['optimizer']['adam']['lr']
+    with tempfile.TemporaryDirectory() as root:
+        write_lj_dataset(root)
+        train_gen, _, _, stats = parse_train_test(
+            seed=0, **lj_data_settings(root))
+        it = iter(train_gen)
+        batches = [next(it) for _ in range(10)]
+
+        def start(**changes):
+            base = load_model(LJ_CKPT)
+            model = NewtonNet(**dict(base.config_dict(), **changes),
+                              device='cuda')
+            model.load_state_dict(base.state_dict())
+            set_scalers(model.core, model.output_properties, stats,
+                        {'energy': dict(cfg['training']['fit_scalers'])})
+            return model.requires_grad_(True)
+        model = start()
+        dbatches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+                    for b in batches]
+        rg.reset_launch_counts()
+        losses, norms, step_s, grads1, _, trainer = xla_steps(
+            torch, model, main_loss, dbatches, 'auto', lr=lr,
+            clip=cfg['training']['clip_grad'])
+        step_launches = dict(rg.LAUNCHES)
+        nl0 = trainer._batch_nlist(dbatches[0])
+        loss64, ulp_term = float64_loss(fd, main_loss[0], dbatches[0],
+                                        start(), nlist=nl0)
+        # phase 7a's step-1 bar is one float32 ulp of every frame's energy;
+        # here the loss is mostly 50 x force mse, whose float32 sums round
+        # more than that: 1e-5 relative (LJ_STEP1_REL) where it is larger
+        bar1 = max(ulp_term / loss64, LJ_STEP1_REL)
+        rel_loss, rel_gn = check_jax_steps(
+            'newton3 LJ', losses, norms, JAX_LJ_STEP_LOSS,
+            JAX_LJ_STEP_GRAD_NORM, loss64, bar1)
+        full = start(newton3=False, inverse_lists=True,
+                     k_max=2 * cfg['model']['k_max'] + 8)
+        b0 = dbatches[0]
+        standard_value_and_grad(full, main_loss[0], b0,
+                                nlist=host_symmetric_nlist(
+                                    full, b0['z'], b0['pos'], b0['cell'],
+                                    skin=0.0))
+        rel_full = rel_norm(grads1, param_grads(torch, full))
+        del full
+        settings = dict(cfg, general=dict(cfg['general'], device='cuda'),
+                        data=lj_data_settings(root),
+                        training=dict(cfg['training'], epochs=1))
+        with tempfile.TemporaryDirectory() as out:
+            settings['general']['output'] = out
+            torch.cuda.synchronize()
+            rg.reset_launch_counts()
+            t = time.perf_counter()
+            tr = train_from_settings(settings)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t
+            epoch_launches = dict(rg.LAUNCHES)
+            with open(os.path.join(tr.output_path, 'log.csv')) as f:
+                rows = list(csv.DictReader(f))
+    finite = all(math.isfinite(float(rows[0][k])) for k in
+                 ('train_loss', 'val_loss', 'test_loss'))
+    emit('newton3_train', config=LJ_CONFIG[len(ROOT) + 1:],
+         precompute_nlist=lj_data_settings('')['precompute_nlist'],
+         loss=losses, grad_norm=norms, jax_loss=JAX_LJ_STEP_LOSS,
+         jax_grad_norm=JAX_LJ_STEP_GRAD_NORM, rel_loss=rel_loss,
+         rel_grad_norm=rel_gn, loss64=loss64, step1_loss_bar=bar1,
+         step1_vs_full_inverse_lists_grad_rel_norm=rel_full, bar=1e-4,
+         step_ms=[1e3 * t for t in step_s],
+         step_ms_median=1e3 * statistics.median(step_s[1:]),
+         launches_10_steps=step_launches, cli_epoch_seconds=epoch_s,
+         cli_epoch_launches=epoch_launches,
+         cli_epoch_log={k: rows[0][k] for k in
+                        ('train_loss', 'val_loss', 'test_loss',
+                         'steps_per_s')})
+    check(rel_full <= 1e-4, f'newton3 vs full inverse lists: {rel_full}')
+    check(finite, f'newton3 CLI epoch log not finite: {rows[0]}')
+    check(step_launches['row_gather'] > 0 and
+          epoch_launches['row_gather'] > 0,
+          f'K9 was not launched in newton3 training: {step_launches}')
+    return step_launches, epoch_launches
+
+
+def phase_revlist_cellgrid(torch, rg, xcfg, ref32):
+    """Phase 8c: the 4096-atom box in float32 over reverse lists
+    (reverse_lists, lists built in the model) and over the O(N) cell grid
+    (cell_grid from suggest_grid / suggest_capacity), each against phase
+    5c's inverse-list float32 request (ref32) at the float32 box bars;
+    the grid's list against neighbor_list's as an edge set (no overflow
+    in either), and both builders' times."""
+    import numpy as np
+    from newtonnet_tpu_torch.ops.cellgrid import (
+        cell_grid_neighbor_list,
+        suggest_capacity,
+        suggest_grid,
+    )
+    from newtonnet_tpu_torch.ops.nlist import neighbor_list
+    outs = ['energy', 'gradient_force', 'stress']
+    z, pos, cell, _, _ = box_system()
+    req = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    grid = suggest_grid(cell[0], xcfg['cutoff'])
+    cap = suggest_capacity(BOX_ATOMS, grid)
+    results = {}
+    for name, layout in (('reverse_lists', {'reverse_lists': True}),
+                         ('cell_grid', {'cell_grid': grid,
+                                        'cell_capacity': cap})):
+        calc = box_calculator(torch, box_model(torch, xcfg, '', outs,
+                                               **layout))
+        res, lat, _, repeats = timed_requests(torch, rg, calc, req)
+        results[name] = dict(
+            against_fp32_box(np, f'{name} box', res[0], ref32),
+            latency_ms_median=1e3 * statistics.median(lat),
+            requests_repeat_their_bits=repeats)
+        check(repeats, f'{name} box requests do not repeat their bits')
+        del calc
+        torch.cuda.empty_cache()
+    tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (z, pos, cell)]
+    mask = tz > 0
+    build = {}
+    for name, fn in (('neighbor_list', lambda: neighbor_list(
+            tpos, tcell, mask, xcfg['cutoff'], BOX_K_MAX)),
+            ('cell_grid', lambda: cell_grid_neighbor_list(
+                tpos, tcell, mask, xcfg['cutoff'], BOX_K_MAX, grid, cap))):
+        fn()
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            lists = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        build[name] = (lists, 1e3 * statistics.median(ts))
+
+    def edges(lists):
+        idx, kmask = lists[0][0].cpu().numpy(), lists[1][0].cpu().numpy()
+        rows = np.repeat(np.arange(idx.shape[0]), idx.shape[1])
+        return set(zip(rows[kmask.ravel()].tolist(),
+                       idx.ravel()[kmask.ravel()].tolist()))
+    same = edges(build['neighbor_list'][0]) == edges(build['cell_grid'][0])
+    over = {k: int(v[0][3].sum()) for k, v in build.items()}
+    emit('revlist_cellgrid', atoms=BOX_ATOMS, k_max=BOX_K_MAX, grid=grid,
+         cell_capacity=cap, requests=results, grid_edges_equal=same,
+         overflow=over, build_ms={k: v[1] for k, v in build.items()})
+    check(same, 'cell grid and neighbor_list edge sets differ')
+    check(not any(over.values()), f'list overflow at the box: {over}')
+
+
+def phase_staircase(torch, rg, xcfg, n3_model, n3_result):
+    """Phase 8d: the 4096-atom box with newton3_compact over staircase
+    chunks (ops/staircase.py from the full list at 2 * BOX_N3_K_MAX + 8,
+    the frame permuted into the staircase's order) against phase 8a's
+    newton3 request (n3_result) at the float32 box bars, and a compact
+    checkpoint served by the calculator, which swaps it to the newton3
+    layout: its request equals 8a's bit for bit. -> K9 launches of one
+    staircase forward + forces."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNet
+    from newtonnet_tpu_torch.ops.nlist import neighbor_list
+    from newtonnet_tpu_torch.ops.staircase import (stair_nlist,
+                                                   staircase_half_list)
+    z, pos, cell, _, _ = box_system()
+    tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (z, pos, cell)]
+    compact = NewtonNet(**dict(n3_model.config_dict(), newton3=False,
+                               newton3_compact=True), device='cuda')
+    compact.load_state_dict(n3_model.state_dict())
+    compact.requires_grad_(False).eval()
+
+    def build():
+        idx, kmask, _, over = neighbor_list(
+            tpos, tcell, tz > 0, xcfg['cutoff'], 2 * BOX_N3_K_MAX + 8)
+        check(int(over.sum()) == 0, 'staircase full list overflows')
+        sl = staircase_half_list(idx[0].cpu().numpy(),
+                                 kmask[0].cpu().numpy())
+        return sl, tuple(tuple(torch.from_numpy(a).cuda() for a in ch)
+                         for ch in stair_nlist(sl))
+    build()  # the first call builds csrc/host/staircase.cpp
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sl, nl = build()
+    host_ms = 1e3 * (time.perf_counter() - t)
+    perm = torch.from_numpy(sl.perm.astype(np.int64)).cuda()
+    compact(tz[:, perm], tpos[:, perm], tcell, nlist=nl)
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    t = time.perf_counter()
+    out = compact(tz[:, perm], tpos[:, perm], tcell, nlist=nl)
+    torch.cuda.synchronize()
+    model_ms = 1e3 * (time.perf_counter() - t)
+    launches = dict(rg.LAUNCHES)
+    r = {'energy': float(out['energy'][0]),
+         'forces': out['gradient_force'][0].cpu().numpy()[sl.inv_perm]}
+    cmp = against_fp32_box(np, 'staircase box', r, n3_result)
+    calc = box_calculator(torch, compact)
+    swapped = calc.model.newton3 and not calc.model.newton3_compact
+    rc = calc.calculate(numbers=z[0], positions=pos[0], cell=cell[0])
+    same = rc['energy'] == n3_result['energy'] and \
+        np.array_equal(rc['forces'], n3_result['forces'])
+    slots = sum(c * n for c, n in sl.widths)
+    emit('staircase', atoms=BOX_ATOMS, widths=sl.widths, chunk_slot_rows=slots,
+         newton3_slot_rows=BOX_ATOMS * BOX_N3_K_MAX, vs_newton3=cmp,
+         calculator_swaps_to_newton3=swapped,
+         calculator_equals_newton3_bitwise=same, host_build_ms=host_ms,
+         model_ms_one_call=model_ms, launches_one_call=launches)
+    check(swapped, 'the calculator did not swap the compact checkpoint')
+    check(same, 'compact checkpoint served through newton3 differs from '
+          'the newton3 request')
+    check(launches['row_gather'] > 0, f'K9 not launched: {launches}')
+    return launches
 
 
 def gather_timing(torch, rg, wn, errs, launches, window):
@@ -2433,6 +3044,7 @@ def main():
     # 1. environment
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -2443,7 +3055,10 @@ def main():
          torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0],
          matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
-         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         bf16_reduced_precision_reduction=(
+             torch.backends.cuda.matmul
+             .allow_bf16_reduced_precision_reduction))
 
     # 2. build
     t0 = time.perf_counter()
@@ -2681,7 +3296,7 @@ def main():
                                                      x_grads1, x_e1, f64)
     del x_trainer, x_start
     torch.cuda.empty_cache()
-    box_xla_launches_step, box_xla_steps = phase_box_train_xla(
+    box_xla_launches_step, box_xla_steps, box_xla_c11 = phase_box_train_xla(
         torch, rg, load_model(XLA_CKPT).config_dict())
     for lists, (one_step, step_s) in box_xla_steps.items():
         prof = profile_call(torch, one_step)
@@ -2696,6 +3311,22 @@ def main():
              / step_ms, **prof)
     del box_xla_steps
     torch.cuda.empty_cache()
+
+    # 8. the rest of the kernel='xla' path: newton3 half lists served and
+    # trained, reverse lists, the cell grid, the staircase; C11's numbers
+    xcfg = load_model(XLA_CKPT).config_dict()
+    n3_lj_launches, n3_box_launches, n3_model, n3_result, n3_t = \
+        phase_newton3_serve(torch, rg, xcfg, xla_t['fp32'])
+    n3_step_launches, n3_epoch_launches = phase_newton3_train(torch, fd, rg)
+    phase_revlist_cellgrid(torch, rg, xcfg, xla_t['fp32'])
+    stair_launches = phase_staircase(torch, rg, xcfg, n3_model, n3_result)
+    del n3_model
+    torch.cuda.empty_cache()
+    emit('c11', box_requests=xla_t['c11'],
+         box_step_512=box_xla_c11, bars={**C11_BARS,
+                                         'step': C11_STEP_SHIFTS},
+         bf16_box_request_ms_median=xla_t['latency_ms_median'],
+         fp32_box_model_ms_one_call=xla_t['fp32_model_ms_one_call'])
 
     # K5/K6 launches of the 500 aspirin frames, K7/K8 of the training epoch
     klist_launches = {k: (serve_nl_launches if 'dual' not in k
@@ -2834,7 +3465,14 @@ def main():
             row['train_launches'] = {
                 'xla_nlist_10_steps': xla_nlist_launches[key],
                 **{f'per_box_xla_step_{lists}': n[key]
-                   for lists, n in box_xla_launches_step.items()}}
+                   for lists, n in box_xla_launches_step.items()},
+                'newton3_lj_10_steps': n3_step_launches[key],
+                'newton3_lj_cli_epoch': n3_epoch_launches[key]}
+            # the half lists' gathers and mirror sums (phase 8)
+            row['newton3_launches'] = {
+                'per_lj_request': n3_lj_launches[key],
+                'per_box_request': n3_box_launches[key],
+                'staircase_box_forward_and_forces': stair_launches[key]}
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

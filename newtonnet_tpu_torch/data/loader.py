@@ -141,7 +141,10 @@ def collate(samples, n_pad, batch_pad=None, dtype=np.float32):
     cell (B, 3, 3), energy (B,), force (B, N, 3) and graph_mask (B,), with
     B = batch_pad (default len(samples)) and N = n_pad, and stress / virial
     (B, 3, 3) where the samples carry them (all or none: a partial label
-    would train on zeros). Rows past len(samples) are empty graphs
+    would train on zeros), and the samples' precomputed lists
+    (data/prelists.py): nlist_idx / nlist_mask (B, N, K) padded along
+    the atoms, or nlist_stair, a tuple of per-chunk (idx, mask, inv,
+    inv_mask) arrays (B, c, n). Rows past len(samples) are empty graphs
     (graph_mask False).'''
     B, N = batch_pad or len(samples), n_pad
     oversized = max((len(s['z']) for s in samples), default=0)
@@ -156,6 +159,37 @@ def collate(samples, n_pad, batch_pad=None, dtype=np.float32):
         'force': np.zeros((B, N, 3), dtype=dtype),
         'graph_mask': np.zeros((B,), dtype=bool),
     }
+    # precomputed lists (data/prelists.py): padded along the atoms, the
+    # slot width K the builder's
+    with_nl = sum('nlist_idx' in s for s in samples)
+    if with_nl and with_nl != len(samples):
+        raise ValueError(
+            'mixed batch: some samples carry precomputed neighbor lists '
+            'and some do not (wrap every dataset in NeighborListDataset)')
+    if with_nl:
+        K = samples[0]['nlist_idx'].shape[-1]
+        batch['nlist_idx'] = np.zeros((B, N, K), np.int32)
+        batch['nlist_mask'] = np.zeros((B, N, K), bool)
+    with_st = sum('nlist_stair' in s for s in samples)
+    if with_st and with_st != len(samples):
+        raise ValueError(
+            'mixed batch: some samples carry staircase lists and some do '
+            'not (wrap every dataset in NeighborListDataset)')
+    if with_st:
+        widths = tuple(ch[0].shape for ch in samples[0]['nlist_stair'])
+        if any(tuple(ch[0].shape for ch in s['nlist_stair']) != widths
+               for s in samples[1:]):
+            raise ValueError(
+                'staircase shape plan differs across the batch (use one '
+                'NeighborListDataset wrapper per dataset so the plan is '
+                'shared)')
+        if any(n > N for _, n in widths):
+            raise ValueError(
+                f'staircase chunk width exceeds n_pad={N}; raise n_pad')
+        batch['nlist_stair'] = tuple(
+            tuple(np.zeros((B, c, n), dt) for dt in (np.int32, bool,
+                                                      np.int32, bool))
+            for c, n in widths)
     for key in ('stress', 'virial'):
         labelled = sum(s.get(key) is not None for s in samples)
         if labelled and labelled != len(samples):
@@ -175,6 +209,13 @@ def collate(samples, n_pad, batch_pad=None, dtype=np.float32):
         for key in ('stress', 'virial'):
             if key in batch:
                 batch[key][i] = s[key]
+        if with_nl:
+            batch['nlist_idx'][i, :n] = s['nlist_idx']
+            batch['nlist_mask'][i, :n] = s['nlist_mask']
+        if with_st:
+            for arrs, src in zip(batch['nlist_stair'], s['nlist_stair']):
+                for a, src_a in zip(arrs, src):
+                    a[i] = src_a
         batch['graph_mask'][i] = True
     return batch
 

@@ -16,6 +16,7 @@ from newtonnet_tpu_torch.data.loader import (
     PaddedLoader,
     random_split,
 )
+from newtonnet_tpu_torch.data.prelists import NeighborListDataset
 from newtonnet_tpu_torch.data.statistics import compute_statistics
 
 _NOT_PORTED = 'is not ported yet (ROADMAP.md A, "data pipeline")'
@@ -44,19 +45,17 @@ def parse_train_test(
         **dataset_kwargs):
     '''Build the three loaders and the scaler statistics.
 
-    Takes the JAX package's arguments (the YAML `data` section). What this
-    port does not have raises NotImplementedError: in_memory other than
-    True, bucketed, precompute_nlist, prefetch, spatial_sort and an integer
-    locality_block. bucket_multiple only matters with bucketed.
+    Takes the JAX package's arguments (the YAML `data` section).
+    precompute_nlist ({cutoff, k_max, mode}, data/prelists.py) wraps the
+    three datasets in NeighborListDataset, whose samples carry their
+    lists. What this port does not have raises NotImplementedError:
+    in_memory other than True, bucketed, prefetch (ROADMAP.md A4),
+    spatial_sort and an integer locality_block. bucket_multiple only
+    matters with bucketed.
 
     Returns:
         (train_gen, val_gen, test_gen, stats)
     '''
-    if precompute_nlist:
-        raise NotImplementedError(
-            'data: precompute_nlist is not ported yet (ROADMAP.md A, "XLA '
-            "kernel='xla' path\"): the neighbour-list model builds its "
-            'lists on the device in every step')
     for name, value in (('in_memory', in_memory is not True),
                         ('bucketed', bucketed),
                         ('prefetch', prefetch),
@@ -93,6 +92,12 @@ def parse_train_test(
         test_data, [test_size, len(test_data) - test_size], rng)
     print(f'data size (train, val, test): '
           f'{len(train_data)}, {len(val_data)}, {len(test_data)}')
+
+    if precompute_nlist:
+        # {cutoff, k_max, mode}: each frame's list built once on the host
+        train_data, val_data, test_data = (
+            NeighborListDataset(d, **precompute_nlist)
+            for d in (train_data, val_data, test_data))
 
     # one atom padding shared by the three loaders
     if n_pad is None:

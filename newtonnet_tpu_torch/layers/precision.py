@@ -29,18 +29,23 @@ def get_precision_by_string(key):
 
 @contextlib.contextmanager
 def fp32_matmuls():
-    '''TF32 off for matrix products and cuDNN, the caller's flags restored
-    afterwards: every fp32 product inside runs in IEEE fp32, as the JAX
-    package's calculator and Trainer pin 'highest'.'''
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    '''TF32 off for matrix products and cuDNN, and bf16 products reduced in
+    fp32 (no split-K partial sums rounded to bf16 by cuBLAS), the caller's
+    flags restored afterwards: every fp32 product inside runs in IEEE
+    fp32, as the JAX package's calculator and Trainer pin 'highest', and a
+    bf16 product accumulates in fp32 and rounds once, as the JAX program
+    does.'''
+    matmul = torch.backends.cuda.matmul
+    saved = (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             matmul.allow_bf16_reduced_precision_reduction)
+    matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    matmul.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
+        (matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
 
 
 def check_matmul_precision(value, key):

@@ -3,9 +3,12 @@
 Loads a checkpoint, pads the atom count up to a multiple of 8 (so a
 molecule keeps one shape from call to call) and returns numpy results. A
 neighbour-list model builds its list in every call, as the JAX package's
-calculator does: a plain list on the device inside the model (nlist=None),
-or, for an inverse_lists model, the symmetric-slotted lists of
-md/driver.host_symmetric_nlist (device build, host coloring).
+calculator does: a plain list on the device inside the model (nlist=None,
+or the cell grid of a cell_grid model), or, for an inverse_lists or a
+newton3 model, the symmetric-slotted or half lists of
+md/driver.host_symmetric_nlist (device build, host colouring). A
+newton3_compact checkpoint is served through the newton3 layout, with the
+same parameters.
 '''
 import numpy as np
 import torch
@@ -74,6 +77,17 @@ class NewtonNetCalculator:
                             device=device or model.device)
             params_from_flax(params, core=own.core)
             model = own.requires_grad_(False).eval()
+        if model.newton3_compact:
+            # the staircase layer creates the newton3 layer's parameters:
+            # a calculator serves a staircase-trained checkpoint through
+            # the rectangular newton3 layout (single requests would
+            # otherwise change their chunk widths from geometry to
+            # geometry)
+            swapped = NewtonNet(**dict(model.config_dict(),
+                                       newton3_compact=False, newton3=True),
+                                device=model.device)
+            swapped.load_state_dict(model.state_dict())
+            model = swapped.requires_grad_(False).eval()
         if properties is None:
             inv = {'energy': 'energy', 'gradient_force': 'forces'}
             properties = [inv[k] for k in model.output_properties
@@ -132,7 +146,7 @@ class NewtonNetCalculator:
                      for a in (z, pos, c))
         nlist = None
         if (self.model.graph_mode == 'neighborlist'
-                and self.model.inverse_lists):
+                and (self.model.inverse_lists or self.model.newton3)):
             nlist = host_symmetric_nlist(self.model, z, pos, c, skin=0.0)
         out = self.model(z, pos, c, nlist=nlist)
         results = {}

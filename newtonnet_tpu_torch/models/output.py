@@ -5,9 +5,12 @@ serves, outputs within {energy, gradient_force, virial, stress}:
 
 * kernel='xla' (the default, as there): the plain formulation of
   models/xla_stack.py, every activation, layer_norm, trainable_basis and
-  compute_dtype, over the dense graph or neighbour lists (plain full
-  lists, or the symmetric-slotted inverse lists of inverse_lists models,
-  whose gathers run kernel K9);
+  compute_dtype, over the dense graph or neighbour lists: plain full
+  lists (built by the O(N^2) search or, with cell_grid, the cell grid),
+  reverse lists, the symmetric-slotted inverse lists of inverse_lists
+  models, the half lists of newton3 models and the staircase chunks of
+  newton3_compact models (the last three gather and sum through kernel
+  K9);
 * kernel='pallas': the fused pair ops, graph_mode='dense'
   (models/fused_stack.py, K1/K2) or 'neighborlist' (plain full lists,
   models/fused_klist.py, K5/K6), swish.
@@ -24,10 +27,9 @@ create_graph=True (kernel='xla') the outputs stay differentiable in the
 parameters, for the standard training step (train/trainer.py), which
 trains energy, force, stress and virial losses.
 
-Not here: the charge, direct-force, Hessian and BEC heads, the bf16
-pair-layer products of kernel='pallas', and kernel='xla''s newton3,
-newton3_compact, reverse-list and cell-grid list layouts raise
-NotImplementedError naming the ROADMAP.md item that will port them.
+Not here: the charge, direct-force, Hessian and BEC heads and the bf16
+pair-layer products of kernel='pallas' raise NotImplementedError naming
+the ROADMAP.md item that will port them.
 '''
 import contextlib
 from typing import Sequence
@@ -56,14 +58,6 @@ _NOT_YET = {
     'hessian': 'ROADMAP.md A, "Hessian"',
     'bec': 'ROADMAP.md A, "BEC"',
 }
-# kernel='xla' list layouts not ported yet: (config key, its part of
-# ROADMAP.md A item 6)
-_XLA_LAYOUTS_NOT_YET = (
-    ('newton3', 'newton3_half_list'),
-    ('newton3_compact', 'newton3_compact / staircase'),
-    ('reverse_lists', 'reverse lists'),
-    ('cell_grid', 'cellgrid'),
-)
 
 
 def resolve_device(device=None):
@@ -172,16 +166,8 @@ class NewtonNet(nn.Module):
             if key in _NOT_YET:
                 raise NotImplementedError(
                     f'output {key!r} is not ported yet ({_NOT_YET[key]})')
-        if kernel == 'xla':
-            if graph_mode not in ('dense', 'neighborlist'):
-                raise ValueError(f'unknown graph_mode {graph_mode}')
-            config = dict(newton3=newton3, newton3_compact=newton3_compact,
-                          reverse_lists=reverse_lists, cell_grid=cell_grid)
-            for key, part in _XLA_LAYOUTS_NOT_YET:
-                if config[key] and graph_mode == 'neighborlist':
-                    raise NotImplementedError(
-                        f'{key} is not ported yet (ROADMAP.md A, "XLA '
-                        f'kernel=\'xla\' path": {part})')
+        if kernel == 'xla' and graph_mode not in ('dense', 'neighborlist'):
+            raise ValueError(f'unknown graph_mode {graph_mode}')
         if compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f'compute_dtype must be one of '
                              f'{sorted(COMPUTE_DTYPES)}, got '
@@ -290,10 +276,14 @@ class NewtonNet(nn.Module):
             pair_op: kernel='pallas': the pair-interaction op of the graph
                 mode (default: the fused kernels).
             nlist: optional precomputed (idx, mask) neighbour lists, each
-                (B, N, K), or for an inverse_lists model (kernel='xla') the
-                4-tuple (idx, mask, inv, inv_mask) of
-                md/driver.host_symmetric_nlist (graph_mode='neighborlist'
-                only; None builds a plain list at pos).
+                (B, N, K); for an inverse_lists or newton3 model
+                (kernel='xla') the 4-tuple (idx, mask, inv, inv_mask) of
+                md/driver.host_symmetric_nlist (a newton3 model needs
+                it); for a reverse_lists model optionally the 4-tuple
+                (idx, mask, rev, rev_mask); for a newton3_compact model
+                the chunk tuple of ops/staircase.stair_nlist, with the
+                frame in the staircase's atom order (graph_mode=
+                'neighborlist' only; None builds a plain list at pos).
             plain: kernel='xla': run the inverse-list gathers through the
                 plain row gather instead of kernel K9.
             create_graph: keep the graph through the parameters and the

@@ -41,9 +41,12 @@ def _nvcc():
                        'the CUDA toolkit is installed')
 
 
-def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib'):
+def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib', headers=()):
     with open(src or os.path.join(SRC_DIR, name + '.cu'), 'rb') as f:
         digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
+    for path in headers:
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR,
                         f'{prefix}{name}-{digest.hexdigest()[:16]}.so')
 
@@ -90,12 +93,16 @@ def load(name):
 
 def load_host(name):
     '''The ctypes handle of csrc/host/<name>.cpp, built by g++ at first use
-    (a changed source builds anew). Raises RuntimeError with the
-    compiler's output if the build fails: there is no fallback.'''
+    (a changed source, or header of csrc/host/, builds anew). Raises
+    RuntimeError with the compiler's output if the build fails: there is
+    no fallback.'''
     key = 'host/' + name
     if key not in _LIBS:
         src = os.path.join(HOST_DIR, name + '.cpp')
-        so = _target(name, src, GXX_FLAGS, prefix='libhost_')
+        headers = sorted(os.path.join(HOST_DIR, h)
+                         for h in os.listdir(HOST_DIR) if h.endswith('.h'))
+        so = _target(name, src, GXX_FLAGS, prefix='libhost_',
+                     headers=headers)
         if not os.path.exists(so):
             cxx = shutil.which('g++') or shutil.which('c++')
             if cxx is None:

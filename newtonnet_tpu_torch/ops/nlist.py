@@ -1,6 +1,6 @@
 '''Padded neighbour lists for large systems (the JAX package's
-`ops/nlist.py`: plain full lists, and the symmetric-slotted inverse lists
-of kernel='xla').
+`ops/nlist.py`: plain full lists, reverse lists, and the symmetric-slotted
+inverse lists and newton3 half lists of kernel='xla').
 
 Instead of the dense (B, N, N) pair tensor (ops/neighbors.py), the graph
 is a padded per-atom list of static width K = k_max:
@@ -14,21 +14,31 @@ Construction is O(N^2) in distances, row-chunked (never more than
 with torch.topk; atoms with more than K neighbours inside the cutoff lose
 their farthest ones and are counted in `overflow`. minimum_image takes
 (B, N, K, 3) edges as they are, so the JAX package's `_mic_edges` reshape
-has no counterpart.
+has no counterpart. ops/cellgrid.py builds the same lists in O(N).
+
+Reverse lists (reverse_lists): build_reverse_list finds, for each slot,
+where the atom appears in its neighbour's row; edge_gather (the
+neighbour gather) and edge_pull (per-edge values moved onto the reverse
+slots) are autograd Functions whose backwards are gathers: edge_gather's
+is edge_pull and a sum over the slots, edge_pull's is edge_pull, so no
+scatter-add runs in any derivative order.
 
 Inverse lists (kernel='xla', inverse_lists): symmetrize_slots (host C++,
 csrc/host/symslots.cpp) re-slots a full list so that every undirected edge
 holds the same slot in both endpoints' rows; in the K-major (B, K, N)
 layout each slot is then an involution, its own inverse list
-(build_inverse_list). inv_gather and
+(build_inverse_list). newton3_half_list (host C++, csrc/host/newton3.cpp)
+stores each undirected edge once and colours the slots so that each
+slot's map is injective on both sides; build_inverse_list gives its
+inverse. inv_gather and
 inv_scatter_sum are a mutually transposed pair of autograd Functions over
 such lists: the neighbour gather, and its adjoint as a sum of per-chunk
 gathers, both through the row gather (ops/row_gather.py, kernel K9), so
 every derivative order is gather-only and no scatter-add (and no atomic)
 runs. gather_nodes, the plain list's gather, has the same property: its
 backward sums over the list's transpose (node_transpose) with K9 row
-gathers in a fixed order. The half (newton3), reverse, staircase and
-cell-grid layouts are not ported (ROADMAP.md A, "XLA kernel='xla' path").
+gathers in a fixed order. The staircase layout of half lists is
+ops/staircase.py.
 '''
 import ctypes
 from typing import NamedTuple
@@ -353,6 +363,166 @@ def symmetrize_slots_ref(idx, kmask, k_max=None):
     reference. Nothing on the serving or training path calls it.'''
     return _per_frame(_symmetrize_frame_ref, np.asarray(idx),
                       np.asarray(kmask), k_max)
+
+
+def _newton3_fn():
+    fn = _build.load_host('newton3').newton3_half_list
+    fn.restype = ctypes.c_int64
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    return fn
+
+
+def _half_frame(idx, kmask, k_max):
+    N, K = idx.shape
+    idx_in = np.ascontiguousarray(idx, dtype=np.int32)
+    mask_in = np.ascontiguousarray(kmask, dtype=np.uint8)
+    if np.any(mask_in.astype(bool) & ((idx_in < 0) | (idx_in >= N))):
+        raise ValueError('newton3_half_list: a listed index is outside '
+                         '[0, N)')
+    k_out = k_max or K  # the half list never needs more than K slots
+    idx_out = np.zeros((N, k_out), np.int32)
+    mask_out = np.zeros((N, k_out), np.uint8)
+    used = _newton3_fn()(idx_in.ctypes.data, mask_in.ctypes.data, N, K,
+                         k_out, idx_out.ctypes.data, mask_out.ctypes.data)
+    if used < 0:
+        raise ValueError(f'newton3_half_list: needs more than k_max={k_out} '
+                         'slots (max out/in degree)')
+    if not k_max:
+        idx_out, mask_out = idx_out[:, :used], mask_out[:, :used]
+    return idx_out.astype(idx.dtype), mask_out.astype(bool)
+
+
+def newton3_half_list(idx, kmask, k_max=None):
+    '''Orient and slot-colour a symmetric neighbour list into a HALF list
+    (Newton's third law): each undirected edge (i, j) is stored once, on
+    the row of one endpoint, and the layer aggregates it onto both. On the
+    host, by the C++ of csrc/host/newton3.cpp (a copy of the JAX package's
+    native builder: the same lists, bit for bit), one frame at a time: an
+    Eulerian orientation (out- and in-degree <= ceil(degree / 2)), then a
+    Koenig edge colouring under which no two out-edges of an atom and no
+    two in-edges of an atom share a slot, in exactly max(out-degree,
+    in-degree) slots. The in-side condition makes each slot's map
+    injective, which build_inverse_list and inv_scatter_sum need.
+
+    Args:
+        idx, kmask: (N, K) or (B, N, K) numpy arrays of a symmetric list
+            (both (i, j) and (j, i) present).
+        k_max: the half list's slot capacity; default the Koenig optimum
+            (the largest over the frames, the others padded). Raises
+            ValueError if a frame needs more.
+
+    Returns:
+        (idx2, kmask2) with k_max (or the optimum) slots, idx2 in idx's
+        dtype.'''
+    idx, kmask = np.asarray(idx), np.asarray(kmask)
+    if idx.ndim == 2:
+        return _half_frame(idx, kmask, k_max)
+    outs = [_half_frame(idx[b], kmask[b], k_max) for b in range(len(idx))]
+    k2 = max(o[0].shape[-1] for o in outs)
+    return (np.stack([np.pad(o[0], ((0, 0), (0, k2 - o[0].shape[-1])))
+                      for o in outs]),
+            np.stack([np.pad(o[1], ((0, 0), (0, k2 - o[1].shape[-1])))
+                      for o in outs]))
+
+
+def build_reverse_list(idx, kmask):
+    '''Reverse (transpose) lists of a symmetric full list idx (B, N, K):
+    rev[b, n, k] is the slot r with idx[b, idx[b, n, k], r] == n, where
+    atom n appears in its neighbour's own row. A one-sided edge (its
+    reciprocal dropped by a k_max overflow) is masked out of rev_mask.
+    Integer gathers only.
+
+    Returns rev (B, N, K) int64 (0 where invalid) and rev_mask (B, N, K)
+    bool.'''
+    N = idx.shape[1]
+    idx = idx.long()
+    rows = _gather_rows(idx, idx)                # [b,n,k,r] = idx[b, j, r]
+    valid = _gather_rows(kmask.bool(), idx)      # kmask[b, j, r]
+    me = torch.arange(N, device=idx.device)[None, :, None, None]
+    eq = (rows == me) & valid
+    rev = torch.argmax(eq.to(torch.uint8), dim=-1)
+    return rev, torch.any(eq, dim=-1) & kmask.bool()
+
+
+def _pull(y, idx, rev, rev_mask):
+    '''out[b, n, k] = where(rev_mask, y[b, idx[b, n, k], rev[b, n, k]], 0)
+    for y (B, N, K, ...): one torch.gather of the flat slot rows.'''
+    B, N, K = idx.shape
+    flat = y.reshape(B, N * K, -1)
+    at = (idx.long() * K + rev.long()).reshape(B, N * K, 1)
+    out = torch.gather(flat, 1, at.expand(B, N * K, flat.shape[-1]))
+    return _masked(out.reshape(y.shape), rev_mask)
+
+
+class EdgePull(torch.autograd.Function):
+    '''_pull: on the valid slots of a symmetric list the slot map (n, k)
+    -> (idx[n, k], rev[n, k]) is an involution, so the linear map is its
+    own transpose: backward and jvp are EdgePull again.
+
+    apply(y, idx, rev, rev_mask) -> (B, N, K, ...)'''
+
+    @staticmethod
+    def forward(y, idx, rev, rev_mask):
+        return _pull(y, idx, rev, rev_mask)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, idx, rev, rev_mask = inputs
+        ctx.save_for_backward(idx, rev, rev_mask)
+        ctx.lists = (idx, rev, rev_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        return EdgePull.apply(g, *ctx.saved_tensors), None, None, None
+
+    @staticmethod
+    def jvp(ctx, y_t, *_):
+        return EdgePull.apply(y_t, *ctx.lists)
+
+
+class EdgeGather(torch.autograd.Function):
+    '''x[idx] (torch.gather at every slot) whose backward pulls the slot
+    cotangents onto the reverse slots and sums them over K: grad_x[b, j] =
+    sum_k cot[b, idx[b, j, k], rev[b, j, k]], gathers only (exact where
+    the model does not mask; a masked slot's cotangent is zero). jvp: the
+    gather of the tangent.
+
+    apply(x, idx, rev, rev_mask) -> (B, N, K, ...)'''
+
+    @staticmethod
+    def forward(x, idx, rev, rev_mask):
+        return _gather_rows(x, idx)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        _, idx, rev, rev_mask = inputs
+        ctx.save_for_backward(idx, rev, rev_mask)
+        ctx.lists = (idx, rev, rev_mask)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (EdgePull.apply(g, *ctx.saved_tensors).sum(2), None, None,
+                None)
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        return EdgeGather.apply(x_t, *ctx.lists)
+
+
+def edge_pull(y, idx, rev, rev_mask):
+    '''Transpose-permute per-edge values of a symmetric list: out[b, n, k]
+    = y[b, idx[b, n, k], rev[b, n, k]] where rev_mask, else 0. Every
+    derivative order is this gather again.'''
+    return EdgePull.apply(y, idx, rev, rev_mask)
+
+
+def edge_gather(x, idx, rev, rev_mask):
+    '''x (B, N, ...) -> (B, N, K, ...) at idx (B, N, K), with a gather-only
+    backward through the reverse lists (build_reverse_list): edge_pull,
+    then a sum over the slots.'''
+    return EdgeGather.apply(x, idx, rev, rev_mask)
 
 
 def build_inverse_list(idx_kn, kmask_kn):

@@ -23,11 +23,17 @@ Evaluation runs NewtonNet.forward (K1/K2, or K5/K6, for kernel='pallas').
 All matrix products are IEEE fp32: TF32 is off while the Trainer runs,
 which is what eval_matmul_precision='highest' asks of the JAX Trainer.
 
-Not here (ROADMAP.md A, "parallelism", "remaining heads", "training
-extras" and "XLA kernel='xla' path"): meshes, halo exchange, several
-processes, precomputed neighbour lists, direct_force losses, wandb, the
-profiler hook and the standard step over a kernel='pallas' model
-(`halo`, `profile_dir` and that step raise NotImplementedError).
+A batch's precomputed lists (data.precompute_nlist, data/prelists.py)
+go to the model as its nlist (_batch_nlist), and the first batch of each
+pass is checked against the model's list mode with the JAX Trainer's
+errors (_check_batch_nlist). Every list layout keeps the step gather-only:
+inv_gather / inv_scatter_sum, gather_nodes and edge_gather have gather
+backwards in every order.
+
+Not here (ROADMAP.md A, "parallelism", "remaining heads" and "training
+extras"): meshes, halo exchange, several processes, direct_force losses,
+wandb, the profiler hook and the standard step over a kernel='pallas'
+model (`halo`, `profile_dir` and that step raise NotImplementedError).
 The JAX Trainer's steps_per_call, which chunks steps into one device
 dispatch, is accepted and does nothing: eager PyTorch dispatches each
 operation as it comes.
@@ -45,6 +51,7 @@ from newtonnet_tpu_torch.layers.precision import (
     fp32_matmuls,
 )
 from newtonnet_tpu_torch.ops.neighbors import dense_graph
+from newtonnet_tpu_torch.ops.nlist import build_inverse_list
 from newtonnet_tpu_torch.train import fastgrad
 from newtonnet_tpu_torch.train.loss import get_loss_by_string
 from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
@@ -277,7 +284,70 @@ class Trainer:
     # ------------------------------------------------------------------ #
     def _to_device(self, batch):
         dev = self.model.device
-        return {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+        def move(v):
+            if isinstance(v, tuple):  # nlist_stair's chunk tuples
+                return tuple(move(a) for a in v)
+            return torch.as_tensor(v).to(dev)
+        return {k: move(v) for k, v in batch.items()}
+
+    def _batch_nlist(self, batch, model=None):
+        '''The nlist a batch of device tensors carries for the model
+        (data/prelists.py), or None (the model builds its graph): the
+        staircase chunk tuples as they are; for a newton3 model the half
+        list with its inverse (build_inverse_list, on the device); for an
+        inverse_lists model the symmetric-slotted list with its K-major
+        transposes, its own inverse; else (idx, mask).'''
+        model = model or self.model
+        if 'nlist_stair' in batch:
+            return batch['nlist_stair']
+        if 'nlist_idx' not in batch:
+            return None
+        idx, mask = batch['nlist_idx'].long(), batch['nlist_mask']
+        idx_kn, mask_kn = (idx.transpose(1, 2).contiguous(),
+                           mask.transpose(1, 2).contiguous())
+        if model.newton3:
+            return (idx, mask) + build_inverse_list(idx_kn, mask_kn)
+        if model.inverse_lists:
+            return idx, mask, idx_kn, mask_kn
+        return idx, mask
+
+    def _check_batch_nlist(self, batch):
+        '''The first batch's lists against the model's list mode, with the
+        JAX Trainer's errors: a newton3_compact model pairs with staircase
+        batches and only it; a newton3 model refuses a list with a
+        reciprocal pair (a full list); an inverse_lists model refuses
+        lists that are no per-slot involution.'''
+        compact = self.model.newton3_compact
+        if compact != ('nlist_stair' in batch):
+            raise ValueError(
+                'newton3_compact models pair with staircase batches '
+                "(data.precompute_nlist mode: 'newton3c') and vice versa; "
+                f'model compact={compact}, batch '
+                f'{"carries" if "nlist_stair" in batch else "lacks"} '
+                'nlist_stair')
+        if 'nlist_idx' not in batch:
+            return
+        idx = np.asarray(batch['nlist_idx'])[0]
+        mask = np.asarray(batch['nlist_mask'])[0]
+        n = idx.shape[0]
+        if self.model.newton3:
+            rows = np.repeat(np.arange(n), idx.shape[1])[mask.ravel()]
+            cols = idx.ravel()[mask.ravel()]
+            fwd = set(zip(rows.tolist(), cols.tolist()))
+            if any((j, i) in fwd for i, j in fwd):
+                raise ValueError(
+                    'newton3 model fed a full/symmetric neighbor list '
+                    '(reciprocal edge found) -- set '
+                    "data.precompute_nlist mode: 'newton3'")
+        elif self.model.inverse_lists:
+            ii = np.where(mask, idx, np.arange(n)[:, None])
+            if not (np.take_along_axis(ii, ii, axis=0)
+                    == np.arange(n)[:, None]).all():
+                raise ValueError(
+                    'inverse_lists model fed lists that are not '
+                    'symmetric-slotted (per-slot involution fails) -- set '
+                    "data.precompute_nlist mode: 'inverse'")
 
     def _metrics(self, loss, preds, batch, edges):
         metrics = {'loss': loss}
@@ -300,7 +370,8 @@ class Trainer:
         -> (loss, detached predictions).'''
         step = fastgrad.value_and_grad if self.fast_grad else \
             standard_value_and_grad
-        return step(self.model, self.main_loss, batch)
+        return step(self.model, self.main_loss, batch,
+                    nlist=self._batch_nlist(batch))
 
     def train_step(self, batch):
         '''One optimizer step on a numpy batch; -> its metrics as 0-d
@@ -321,7 +392,8 @@ class Trainer:
         model = model or self.model
         b = self._to_device(batch)
         with fp32_matmuls():
-            preds = model(b['z'], b['pos'], b['cell'])
+            preds = model(b['z'], b['pos'], b['cell'],
+                          nlist=self._batch_nlist(b, model))
             return self._metrics(self.main_loss(preds, b), preds, b,
                                  edges=False)
 
@@ -329,6 +401,8 @@ class Trainer:
         '''One pass over a loader; the metrics averaged per batch.'''
         totals, n = None, 0
         for batch in generator:
+            if n == 0:
+                self._check_batch_nlist(batch)
             m = self.train_step(batch) if step else \
                 self.eval_step(batch, model)
             totals = m if totals is None else \

@@ -170,8 +170,8 @@ def test_unported_neighbour_list_options_are_refused():
 def test_cli_trains_a_neighbour_list_model_on_cpu(tmp_path):
     '''The training CLI with model: {graph_mode: neighborlist, k_max,
     compute_dtype} on the CPU: one epoch, finite log.csv values, a best
-    model that reloads in neighbour-list mode; data.precompute_nlist is
-    refused with its ROADMAP item.'''
+    model that reloads in neighbour-list mode; then the same model over
+    data.precompute_nlist (mode plain), whose batches carry the lists.'''
     import csv
 
     import yaml
@@ -204,7 +204,15 @@ def test_cli_trains_a_neighbour_list_model_on_cpu(tmp_path):
                       device='cpu')
     assert (best.graph_mode, best.k_max, best.compute_dtype) == \
         ('neighborlist', 12, 'bfloat16')
-    cfg['data']['precompute_nlist'] = 'plain'
+    # precomputed lists (data/prelists.py): the same model trains over
+    # the batches' lists, built once on the host at the model's k_max
+    cfg['model']['k_max'] = 20
+    cfg['data']['precompute_nlist'] = {'cutoff': cfg['model']['cutoff'],
+                                       'k_max': 20, 'mode': 'plain'}
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A.*XLA"):
-        cli.main(['--config', str(path)])
+    trainer = cli.main(['--config', str(path)])
+    batch = next(iter(trainer.train_generator))
+    assert batch['nlist_idx'].shape[-1] == 20
+    with open(os.path.join(trainer.output_path, 'log.csv')) as f:
+        rows = list(csv.DictReader(f))
+    assert np.isfinite(float(rows[0]['train_loss']))

@@ -95,9 +95,10 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 
 
 @pytest.mark.parametrize('kw, item', [
-    ({'graph_mode': 'neighborlist', 'reverse_lists': True}, 'XLA'),
-    ({'graph_mode': 'neighborlist', 'newton3': True, 'kernel': 'xla'},
-     'XLA'),
+    ({'kernel': 'xla', 'output_properties': ['energy', 'direct_force']},
+     'remaining heads'),
+    ({'graph_mode': 'neighborlist', 'kernel': 'pallas',
+      'pallas_dot_dtype': 'bfloat16'}, 'bf16 pair-layer products'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'hessian']},
      'Hessian'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'charge']},
@@ -107,3 +108,17 @@ def test_unported_configurations_name_their_roadmap_item(kw, item):
     from newtonnet_tpu_torch import NewtonNet
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md A.*{item}'):
         NewtonNet(device='cpu', **kw)
+
+
+@pytest.mark.parametrize('kw', [
+    {'reverse_lists': True}, {'newton3': True},
+    {'newton3_compact': True}, {'cell_grid': (2, 2, 2), 'cell_capacity': 8}])
+def test_ported_list_layouts_construct(kw):
+    '''The kernel='xla' list layouts of ROADMAP.md A3 build a model (they
+    were refused before the port had them).'''
+    from newtonnet_tpu_torch import NewtonNet
+    model = NewtonNet(graph_mode='neighborlist', n_features=8, n_basis=4,
+                      n_interactions=1, output_properties=['energy'],
+                      device='cpu', **kw)
+    for key, value in kw.items():
+        assert getattr(model, key) == value

@@ -11,11 +11,15 @@ md/driver.host_symmetric_nlist builds, handed to both packages
 Bars: float32, atol 2e-4 for energy, forces, virial and stress (float32
 sums over neighbours, features and layers in another order; the K-list
 model's bar, tests/test_torch_klist_model.py). compute_dtype='bfloat16'
-runs the interaction stack in bf16 in both packages, which round at other
-places (torch sums bf16 in float32 and rounds once; XLA on the CPU rounds
-after every operation), so a one-ulp difference (2^-8 relative) of an
+runs the interaction stack in bf16 in both packages; against the JAX
+program as jax.jit compiles it by default (which keeps float32 between
+some of its bf16 operations) a one-ulp difference (2^-8 relative) of an
 intermediate moves an output by a few 1e-3 of its largest magnitude: the
-bf16 bar is 2e-2 of each output's largest magnitude.
+bf16 bar is 2e-2 of each output's largest magnitude. The bf16 stack's
+own rules: every activation and its vjp equal the JAX functions compiled
+without excess precision bit for bit, and a dtype audit finds every
+tensor inside the layers bf16 (tests/test_torch_xla_reference.py holds the
+whole stack to that JAX program in units of its bf16 shift).
 '''
 import os
 
@@ -231,3 +235,85 @@ def test_training_an_xla_model_is_refused_before_any_work(tmp_path):
         trainer = train_from_settings(settings)
         assert trainer.model.kernel == 'xla' and not trainer.fast_grad
         assert os.path.exists(os.path.join(trainer.output_path, 'log.csv'))
+
+
+NO_EXCESS_PRECISION = {'xla_allow_excess_precision': False}
+
+
+@pytest.mark.parametrize('name', sorted(jact._ACTIVATIONS))
+def test_bf16_activation_and_gradient_match_compiled_jax_bitwise(name):
+    '''On 20,000 seeded bf16 values, every activation and its vjp equal
+    the JAX function's compiled without excess precision, bit for bit:
+    the bf16 rules of layers/activations.py (silu is x * (1 / (1 + exp(-x)))
+    with each step rounded and logistic's derivative s * (1 - s)).'''
+    rs = np.random.RandomState(0)
+    x = jnp.asarray((rs.randn(4, 5000) * 4).astype(np.float32)).astype(
+        jnp.bfloat16)
+    fn = jact.get_activation_by_string(name)
+    y = jax.jit(fn).lower(x).compile(compiler_options=NO_EXCESS_PRECISION)(x)
+    g = jnp.asarray(rs.randn(*y.shape).astype(np.float32)).astype(
+        jnp.bfloat16)
+    gx = jax.jit(lambda a, b: jax.vjp(fn, a)[1](b)[0]).lower(x, g).compile(
+        compiler_options=NO_EXCESS_PRECISION)(x, g)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a.astype(jnp.float32))).bfloat16()
+    tx = t(x).requires_grad_(True)
+    ty = tact.get_activation_by_string(name)(tx)
+    tgx, = torch.autograd.grad(ty, tx, t(g))
+    assert ty.dtype == torch.bfloat16
+    np.testing.assert_array_equal(ty.detach().float().numpy(),
+                                  np.asarray(y.astype(jnp.float32)))
+    np.testing.assert_array_equal(tgx.float().numpy(),
+                                  np.asarray(gx.astype(jnp.float32)))
+
+
+class _DtypeAudit(torch.utils._python_dispatch.TorchDispatchMode):
+    '''Records the dtype of every floating-point tensor an aten op
+    returns.'''
+
+    def __init__(self):
+        super().__init__()
+        self.seen = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for v in torch.utils._pytree.tree_leaves(out):
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                self.seen.setdefault(v.dtype, set()).add(
+                    func.__name__.split('.')[0])
+        return out
+
+
+@pytest.mark.parametrize('layout', ['dense', 'lists', 'inverse', 'newton3'])
+def test_bf16_stack_dtype_audit(layout, monkeypatch):
+    '''With compute_dtype bfloat16, every floating-point tensor that an
+    operation makes between the stack's casts (inside each interaction
+    layer: linear layers, activations, elementwise products, sums, gathers
+    and mirror sums) is bf16, as the JAX source types it.'''
+    from newtonnet_tpu_torch.models import xla_stack
+    graph = {'dense': dict(graph_mode='dense'),
+             'lists': dict(graph_mode='neighborlist'),
+             'inverse': dict(graph_mode='neighborlist', inverse_lists=True),
+             'newton3': dict(graph_mode='neighborlist', newton3=True)}[
+                 layout]
+    _, _, tm, z, pos, cell = _models(seed=5, compute_dtype='bfloat16',
+                                     **graph)
+    nlist = (host_symmetric_nlist(tm, z, pos, cell, skin=0.0)
+             if layout in ('inverse', 'newton3') else None)
+    audits = []
+    layer = xla_stack.interaction
+
+    def audited(lp, atom_node, force_node, *rest):
+        assert atom_node.dtype == force_node.dtype == torch.bfloat16
+        with _DtypeAudit() as audit:
+            out = layer(lp, atom_node, force_node, *rest)
+        audits.append(audit.seen)
+        return out
+    monkeypatch.setattr(xla_stack, 'interaction', audited)
+    out = tm(*(torch.from_numpy(a) for a in (z, pos, cell)), nlist=nlist)
+    assert len(audits) == tm.n_interactions
+    for seen in audits:
+        assert set(seen) == {torch.bfloat16}, {
+            str(k): sorted(v) for k, v in seen.items()}
+    assert out['energy'].dtype == torch.float32

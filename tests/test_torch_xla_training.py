@@ -14,9 +14,10 @@ CLI on the repo's own XLA config, scripts/config.yml, cut to tiny sizes.
 Tolerances are those of tests/test_torch_training.py's
 test_trainer_steps_match_jax: metrics at rtol 2e-5, parameters at
 atol 2e-6, with SGD, momentum and the global-norm clip, whose update is
-linear in the gradient. A bf16 stack is held to four times the JAX
-package's bf16-to-fp32 spread on top of those bars, metric by metric and
-parameter by parameter.
+linear in the gradient. A bf16 stack is held to twice the JAX package's
+bf16-to-fp32 spread on top of those bars, metric by metric and parameter
+by parameter, its JAX program compiled without excess precision (the
+program that rounds where the port's bf16 stack rounds).
 '''
 import csv
 import importlib.util
@@ -175,15 +176,19 @@ def test_fast_grad_resolves_as_the_jax_trainer(kernel, fast_grad, keys,
             assert build().fast_grad is want
 
 
-def test_xla_trainer_bf16_stack_matches_jax():
+def test_xla_trainer_bf16_stack_matches_jax(monkeypatch):
     '''compute_dtype bfloat16 over neighbour lists: after each step,
-    every metric and parameter of the port within four times the JAX
-    package's bf16-to-fp32 spread (from an fp32 run of the same steps),
-    plus the fp32 bar, of the JAX value. The spread is the reference's
-    alone: the port's own would raise its bar. The port's bf16 shift is
-    not the JAX package's (ROADMAP.md C11: the JAX program rounds more
-    values to bf16 than the gathered rows), so the JAX spread bounds how
-    far a port result may stray, not how it must move.'''
+    every metric and parameter of the port within twice the JAX package's
+    bf16-to-fp32 spread (from an fp32 run of the same steps), plus the fp32
+    bar, of the JAX value. The JAX Trainer's programs are compiled without
+    excess precision (jax.jit with compiler_options
+    xla_allow_excess_precision False, patched in for this test), so they
+    round every value its source types as bf16, as the port's bf16 stack
+    does (models/xla_stack.py). The spread is the reference's alone: the
+    port's own would raise its bar.'''
+    jit = jax.jit
+    monkeypatch.setattr(jax, 'jit', lambda fn, **kw: jit(
+        fn, compiler_options={'xla_allow_excess_precision': False}, **kw))
     data = _samples(seed=1)
     runs = {cd: _run(dict(CFG, graph_mode='neighborlist', k_max=12,
                           compute_dtype=cd), EF, 'auto', data)
@@ -193,11 +198,11 @@ def test_xla_trainer_bf16_stack_matches_jax():
         m_j32, p_j32 = step32[1]
         for n in m_j:
             spread = abs(m_j[n] - m_j32[n])
-            assert abs(m_t[n] - m_j[n]) <= 4 * spread + 2e-5 * abs(m_j[n]), \
+            assert abs(m_t[n] - m_j[n]) <= 2 * spread + 2e-5 * abs(m_j[n]), \
                 f'{n} step {k}: {m_t[n]} vs {m_j[n]} (spread {spread})'
         for n in p_j:
             spread = np.abs(p_j[n] - p_j32[n]).max()
-            assert np.abs(p_t[n] - p_j[n]).max() <= 4 * spread + 2e-6, \
+            assert np.abs(p_t[n] - p_j[n]).max() <= 2 * spread + 2e-6, \
                 f'{n} step {k}'
 
 
