@@ -168,6 +168,24 @@ with a non-zero exit code and no result line):
             through the calculator (swapped to newton3) equal to 8a's
             request bit for bit; the staircase's host build and slot rows.
 8e. c11     the bf16 numbers of 5c and 7h in units of the JAX shift.
+9a. widths  K1-K8 at F = 16, 20, 48, 96 and 256 (WIDTHS_9A; their own
+            libraries, built with the others) against their plain
+            versions at small ragged shapes, both variants, K2/K6 with and
+            without weight cotangents, K3/K4 in both dot modes, fp32 and
+            bf16 edges; phase 3's bars; second launches repeat their bits.
+9b. lj-pallas  the LJ checkpoint overridden to kernel='pallas' (LJ_PALLAS)
+            at its width F=48 through the calculator, dense (K1/K2) and
+            over plain K-lists (K5/K6), against the JAX package's numbers
+            (JAX_LJ_PALLAS_*) and its own XLA newton3 request (8a's), at
+            1e-5 of the energy and 1e-4 of the largest force.
+9c. lj-pallas-train  LJ_CONFIG's fine-tuning of it, 10 steps dense (K1-K4,
+            bf16 duals) and over plain precomputed lists (K5-K8) against
+            the JAX package's (JAX_LJ_PALLAS_STEP_*; step 1's gradient
+            norm at 2e-3 with bf16 duals), the K-list step 1 against the
+            dense one with fp32 duals (1e-4), one K-list CLI epoch.
+9d. widths timing  K1-K8 at F = 48, 64 and 256 (WIDTHS_9D): K1-K4 at
+            LJ_CONFIG's training shape (B=12, N=64, R=16), K5-K8 at the
+            box shape; bounds on the work at the true width.
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
@@ -184,8 +202,9 @@ with a non-zero exit code and no result line):
             index_add_), bound by bytes; K9 and K12 also with their
             launches on the XLA training paths (7g, 7h).
 
-Then the card's nvidia-smi line, the `kernels` JSON line and, last,
-{"ok": true, "device": {...}}.
+Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
+their times at the 9d widths, 9a's errors and their 9b/9c launches) and,
+last, {"ok": true, "device": {...}}.
 '''
 import functools
 import json
@@ -421,6 +440,71 @@ JAX_LJ_STEP_LOSS = [11.21076, 7.211863, 5.258116, 2.762722, 1.232769,
                     0.6052042, 0.4521829, 0.4364477, 0.6743013, 1163.501]
 JAX_LJ_STEP_GRAD_NORM = [152.23, 317.9, 210.82, 81.833, 51.404, 33.548,
                          19.597, 66.983, 21.964, 14627.0]
+# Phase 9: the LJ checkpoint as a kernel='pallas' model at its own width
+# F=48 (the override a caller gives the newton3 checkpoint's config: no
+# newton3, plain full lists of its k_max 16 over K-lists), dense (K1-K4) and
+# over K-lists (K5-K8). The JAX package's calculator on lj_box's box
+# (energy, first 8 atoms' forces) and its first 10 fine-tuning steps of
+# LJ_CONFIG over lj_pallas_data_settings' batches (loss, global gradient
+# norm before the clip; the dense duals in the config's default bf16, the
+# K-list ones in float32), from `python tests/test_torch_widths.py
+# lj-pallas` (CPU, interpret-mode Pallas, float32).
+LJ_PALLAS = {'kernel': 'pallas', 'newton3': False}
+JAX_LJ_PALLAS_ENERGY = {
+    'dense': -0.8382089734077454,
+    'neighborlist': -0.8382088541984558,
+}
+JAX_LJ_PALLAS_FORCES_8 = {
+    'dense': [
+        [-0.06270399689674377, 0.007688185200095177, 0.009886199608445168],
+        [-0.0018863184377551079, -0.09109245985746384, 0.05898401141166687],
+        [-0.041956957429647446, 0.17625832557678223, 0.1120276004076004],
+        [0.023618856444954872, 0.09030559659004211, 0.045221537351608276],
+        [-0.1561538726091385, 0.1090630367398262, -0.16298460960388184],
+        [-0.04434707760810852, -0.09446988999843597, 0.06551916897296906],
+        [0.284021258354187, -0.05271607264876366, 0.04702077805995941],
+        [-0.18937328457832336, -0.21798792481422424, -0.0747164934873581],
+    ],
+    'neighborlist': [
+        [-0.06270408630371094, 0.007688267156481743, 0.009886205196380615],
+        [-0.001886129379272461, -0.09109237790107727, 0.058984022587537766],
+        [-0.041957054287195206, 0.17625823616981506, 0.11202755570411682],
+        [0.0236189141869545, 0.09030560404062271, 0.04522160068154335],
+        [-0.15615370869636536, 0.10906321555376053, -0.1629846692085266],
+        [-0.044347044080495834, -0.09446988999843597, 0.06551916897296906],
+        [0.284021258354187, -0.052716027945280075, 0.04702078178524971],
+        [-0.18937312066555023, -0.21798783540725708, -0.07471635192632675],
+    ],
+}
+JAX_LJ_PALLAS_STEP_LOSS = {
+    'dense':
+        [11.210762977600098, 7.201947212219238, 5.25237512588501,
+         2.7583110332489014, 1.231848955154419, 0.6050155162811279,
+         0.4517867863178253, 0.4365600645542145, 0.6739151477813721,
+         1161.4866943359375],
+    'neighborlist':
+        [11.21076488494873, 7.211883544921875, 5.258123874664307,
+         2.7627146244049072, 1.2327677011489868, 0.6052030920982361,
+         0.4521811604499817, 0.4364464282989502, 0.674301028251648,
+         1163.502197265625],
+}
+JAX_LJ_PALLAS_STEP_GRAD_NORM = {
+    'dense':
+        [152.15933227539062, 317.4409484863281, 210.59669494628906,
+         81.92987823486328, 51.46177673339844, 33.47886657714844,
+         19.64616584777832, 67.03063201904297, 22.029096603393555,
+         19714.3046875],
+    'neighborlist':
+        [152.22665405273438, 317.8999938964844, 210.82395935058594,
+         81.83312225341797, 51.403839111328125, 33.548194885253906,
+         19.596834182739258, 66.98257446289062, 21.964038848876953,
+         14624.9970703125],
+}
+# the widths of phase 9a's kernel checks (a pad to 32 lanes, 16 and 20;
+# the LJ width 48; 96 and 256, libraries of their own, 256 in the wide
+# tiles) and of phase 9d's timing (48 beside 64, 256 beside 128)
+WIDTHS_9A = (16, 20, 48, 96, 256)
+WIDTHS_9D = (48, 64, 256)
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
 WINDOW_T, WINDOW_F = 128, 512
@@ -827,6 +911,17 @@ def lj_data_settings(root):
         data = yaml.safe_load(f)['data']
     data.update(train_root=root, prefetch=0, train_size=120, val_size=15,
                 test_size=15, val_batch_size=15, test_batch_size=15)
+    return data
+
+
+def lj_pallas_data_settings(root, graph_mode):
+    """lj_data_settings for phase 9c's kernel='pallas' fine-tuning: no
+    precomputed lists for the dense model, plain full lists (the config's
+    cutoff and k_max) for the K-list one."""
+    data = lj_data_settings(root)
+    lists = data.pop('precompute_nlist')
+    if graph_mode == 'neighborlist':
+        data['precompute_nlist'] = dict(lists, mode='plain')
     return data
 
 
@@ -2265,11 +2360,13 @@ def xla_steps(torch, model, loss_fns, batches, fast_grad, lr=1e-3,
     return losses, norms, step_s, grads1, preds1, trainer
 
 
-def check_jax_steps(what, losses, norms, jax_loss, jax_norm, loss64, bar1):
+def check_jax_steps(what, losses, norms, jax_loss, jax_norm, loss64, bar1,
+                    norm_bar=1e-3):
     """Phase 7a's bars: step 1's loss, and the JAX package's, within bar1
     (one float32 ulp of every frame's energy) of the float64 loss and of
-    each other; step 1's gradient norm at 1e-3 and steps 2-10's losses at 1e-2
-    relative to the JAX package's. -> the relative differences."""
+    each other; step 1's gradient norm at norm_bar (1e-3; bf16 duals 2e-3)
+    and steps 2-10's losses at 1e-2 relative to the JAX package's. -> the
+    relative differences."""
     rel_loss = [abs(a - b) / b for a, b in zip(losses, jax_loss)]
     rel_gn = [abs(a - b) / b for a, b in zip(norms, jax_norm)]
     check(all(math.isfinite(v) for v in losses + norms),
@@ -2277,7 +2374,7 @@ def check_jax_steps(what, losses, norms, jax_loss, jax_norm, loss64, bar1):
     check(max(rel_loss[0], abs(losses[0] - loss64) / loss64,
               abs(jax_loss[0] - loss64) / loss64) <= bar1,
           f'{what}: step 1 loss {losses[0]} (float64 {loss64})')
-    check(rel_gn[0] <= 1e-3, f'{what}: step 1 grad norm {norms[0]}')
+    check(rel_gn[0] <= norm_bar, f'{what}: step 1 grad norm {norms[0]}')
     check(max(rel_loss[1:]) <= 1e-2, f'{what}: steps 2-10 loss {losses}')
     return rel_loss, rel_gn
 
@@ -3019,6 +3116,373 @@ def gather_timing(torch, rg, wn, errs, launches, window):
     return rows
 
 
+def worst_vs_plain(torch, where, pairs, bar):
+    """max over (kernel, plain) output pairs of the excess over the plain
+    value relative to its largest magnitude: the difference for fp32
+    outputs, the difference beyond one bf16 ulp for bf16-stored ones;
+    fails the phase past `bar` or on a non-finite output."""
+    worst = 0.0
+    for k, (x, y) in enumerate(pairs):
+        check((x is None) == (y is None), f'{where} output {k}')
+        if x is None:
+            continue
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f'{where} output {k}: {x.dtype} {tuple(x.shape)}')
+        check(bool(torch.isfinite(x.float()).all()),
+              f'{where} output {k} not finite')
+        x32, y32 = x.float(), y.float()
+        diff = (x32 - y32).abs()
+        if x.dtype == torch.bfloat16:
+            diff = (diff - bf16_ulp(torch, torch.maximum(
+                x32.abs(), y32.abs()))).clamp_min(0)
+        scale = y32.abs().max().item()
+        ratio = diff.max().item() / scale if scale else diff.max().item()
+        check(ratio <= bar, f'{where} output {k}: {ratio} > {bar}')
+        worst = max(worst, ratio)
+    return worst
+
+
+def repeats(torch, fn):
+    """True iff a second launch of fn gives the same bits."""
+    a, b = fn(), fn()
+    return all(exact(torch, x, y) for x, y in zip(a, b) if x is not None)
+
+
+def phase_width_kernels(torch, fd, fdd, fk):
+    """Phase 9a: K1-K8 at the widths of WIDTHS_9A against their plain
+    versions, at small seeded ragged shapes (N = 13 and 37 no multiple of
+    the row or column tiles, K = 11 of the slot steps, R = 12 padded to 32):
+    both first-layer variants, K2/K6 with and without weight cotangents,
+    K3/K4 in both dot modes, fp32 and bf16 edges. Bars: KERNEL_BAR of each
+    output's largest magnitude, beyond one bf16 ulp for bf16-stored
+    outputs; K3/K4 in bf16 mode DUAL_BF16_BAR (phase 3's). Each kernel
+    launched twice gives the same bits. -> {F: {kernel: worst ratio}}."""
+    from newtonnet_tpu_torch.ops import _build
+    out = {}
+    for F in WIDTHS_9A:
+        worst, same = {}, {}
+        B, N, R = 2, 13, 12
+        ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=F)
+        args, cots = dual_inputs(torch, B, N, F, R, seed=F + 1)
+        for first in (False, True):
+            kw = dict(first_layer=first)
+            pairs = list(zip(fd.pair_interaction_fwd(*ins, **kw),
+                             fd.pair_interaction_fwd_ref(*ins, **kw)))
+            worst['K1'] = max(worst.get('K1', 0.0), worst_vs_plain(
+                torch, f'K1 F={F} first={first}', pairs, KERNEL_BAR))
+            same[f'K1 first={first}'] = repeats(
+                torch, lambda: fd.pair_interaction_fwd(*ins, **kw))
+            for wg in (False, True):
+                def k2(wg=wg):
+                    return fd.pair_interaction_bwd(*ins, dinv1, deq, **kw,
+                                                   weight_grads=wg)
+                pairs = list(zip(k2(), fd.pair_interaction_bwd_ref(
+                    *ins, dinv1, deq, **kw, weight_grads=wg)))
+                worst['K2'] = max(worst.get('K2', 0.0), worst_vs_plain(
+                    torch, f'K2 F={F} first={first} wg={wg}', pairs,
+                    KERNEL_BAR))
+                same[f'K2 first={first} wg={wg}'] = repeats(torch, k2)
+            for dt, bar in (('float32', KERNEL_BAR),
+                            ('bfloat16', DUAL_BF16_BAR)):
+                dkw = dict(first_layer=first, dot_dtype=dt)
+                for name, fn, ref, a in (
+                        ('K3', fdd.pair_interaction_dual_fwd,
+                         fdd.pair_interaction_dual_fwd_ref, args),
+                        ('K4', fdd.pair_interaction_dual_bwd,
+                         fdd.pair_interaction_dual_bwd_ref, args + cots)):
+                    pairs = list(zip(fn(*a, **dkw), ref(*a, **dkw)))
+                    worst[name] = max(worst.get(name, 0.0), worst_vs_plain(
+                        torch, f'{name} F={F} first={first} {dt}', pairs,
+                        bar))
+                    same[f'{name} first={first} {dt}'] = repeats(
+                        torch, lambda fn=fn, a=a: fn(*a, **dkw))
+        names = {'klist_fwd': 'K5', 'klist_bwd(wg=0)': 'K6',
+                 'klist_bwd(wg=1)': 'K6', 'klist_dual_fwd': 'K7',
+                 'klist_dual_bwd': 'K8'}
+        for edt in (torch.float32, torch.bfloat16):
+            for first in (False, True):
+                kins, tans, kcots = klist_inputs(torch, 1, 37, 11, F, R,
+                                                 first, edt, seed=F + 2)
+                refs = klist_calls(fk, kins, tans, kcots, first, ref=True)
+                for call, (fn, a, kw) in klist_calls(
+                        fk, kins, tans, kcots, first).items():
+                    rfn, ra, rkw = refs[call]
+                    pairs = list(zip(fn(*a, first_layer=first, **kw),
+                                     rfn(*ra, first_layer=first, **rkw)))
+                    name = names[call]
+                    where = f'{call} F={F} first={first} {edt}'
+                    worst[name] = max(worst.get(name, 0.0), worst_vs_plain(
+                        torch, where, pairs, KERNEL_BAR))
+                    same[where] = repeats(
+                        torch, lambda fn=fn, a=a, kw=kw: fn(
+                            *a, first_layer=first, **kw))
+        torch.cuda.synchronize()
+        emit('width_kernels', F=F, padded=_build.padded_width(F),
+             worst_err_over_max=worst, bar=KERNEL_BAR,
+             dual_bf16_bar=DUAL_BF16_BAR,
+             bf16_stored_bar='one bf16 ulp + bar',
+             repeat_their_bits=all(same.values()))
+        check(all(same.values()), f'F={F}: a second launch differs: '
+              f'{[k for k, v in same.items() if not v]}')
+        out[F] = worst
+    return out
+
+
+def lj_pallas_model(torch, graph_mode, **changes):
+    """LJ_CKPT as a kernel='pallas' model (LJ_PALLAS) with its trained
+    weights: the config override a caller gives the newton3 checkpoint."""
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    base = load_model(LJ_CKPT)
+    model = NewtonNet(**dict(base.config_dict(), **LJ_PALLAS,
+                             graph_mode=graph_mode, **changes),
+                      device='cuda')
+    model.load_state_dict(base.state_dict())
+    return model
+
+
+def lj_counts(fd, fdd, fk):
+    return {**fd.LAUNCHES, **fdd.LAUNCHES, **fk.LAUNCHES}
+
+
+def reset_counts(fd, fdd, fk):
+    for m in (fd, fdd, fk):
+        m.reset_launch_counts()
+
+
+def phase_lj_pallas_serve(torch, fd, fdd, fk):
+    """Phase 9b: LJ_CKPT as a kernel='pallas' model at its width F=48
+    through the calculator (model and flax params: the JAX package's entry
+    point for an overridden config) on lj_box's box, dense (K1/K2) and over
+    plain K-lists of k_max 16 (K5/K6): against the JAX package's numbers
+    (JAX_LJ_PALLAS_*) and against the checkpoint's own XLA newton3 request
+    (phase 8a's), energy within 1e-5 of its magnitude and forces within
+    1e-4 of the largest force; three requests repeat their bits.
+    -> {graph_mode: launches per request}."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.utils.params import params_to_flax
+    z, pos, cell, _, _ = lj_box()
+    req = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    n3 = NewtonNetCalculator(LJ_CKPT).calculate(**req)
+    per_request = {}
+    for gm in ('dense', 'neighborlist'):
+        model = lj_pallas_model(torch, gm)
+        calc = NewtonNetCalculator(model=model,
+                                   params=params_to_flax(model.core))
+        calc.calculate(**req)
+        torch.cuda.synchronize()
+        reset_counts(fd, fdd, fk)
+        results, lat = [], []
+        for _ in range(3):
+            t = time.perf_counter()
+            results.append(calc.calculate(**req))
+            lat.append(time.perf_counter() - t)
+        launches = {k: v // 3 for k, v in lj_counts(fd, fdd, fk).items()
+                    if v}
+        r = results[0]
+        same = all(np.array_equal(r[k], x[k]) for x in results[1:]
+                   for k in r)
+        jf8 = np.asarray(JAX_LJ_PALLAS_FORCES_8[gm])
+        je = JAX_LJ_PALLAS_ENERGY[gm]
+        cmp = {'jax': {'energy_diff': abs(r['energy'] - je),
+                       'energy_bar': 1e-5 * abs(je),
+                       'forces8_diff': float(np.abs(r['forces'][:8] - jf8)
+                                             .max()),
+                       'forces8_bar': 1e-4 * float(np.abs(jf8).max())},
+               'xla_newton3': {
+                   'energy_diff': abs(r['energy'] - n3['energy']),
+                   'energy_bar': 1e-5 * abs(n3['energy']),
+                   'forces_diff': float(np.abs(r['forces'] - n3['forces'])
+                                        .max()),
+                   'forces_bar': 1e-4 * float(np.abs(n3['forces']).max())}}
+        emit('lj_pallas_serve', graph_mode=gm, n_features=model.n_features,
+             energy=r['energy'], vs=cmp, requests_repeat_their_bits=same,
+             launches_per_request=launches,
+             latency_ms_median=1e3 * statistics.median(lat))
+        check(np.isfinite(r['energy']) and np.isfinite(r['forces']).all(),
+              f'LJ pallas {gm} request not finite')
+        for ref, c in cmp.items():
+            for key in ('energy', 'forces8', 'forces'):
+                if f'{key}_diff' in c:
+                    check(c[f'{key}_diff'] <= c[f'{key}_bar'],
+                          f'LJ pallas {gm} {key} vs {ref}: {c}')
+        check(same, f'LJ pallas {gm} requests do not repeat their bits')
+        want = (('pair_fwd', 'pair_fwd_first', 'pair_bwd', 'pair_bwd_first')
+                if gm == 'dense' else
+                ('klist_fwd', 'klist_fwd_first', 'klist_bwd',
+                 'klist_bwd_first'))
+        check(all(launches.get(k, 0) > 0 for k in want),
+              f'LJ pallas {gm} request did not launch {want}: {launches}')
+        per_request[gm] = launches
+        del calc, model
+    return per_request
+
+
+def phase_lj_pallas_train(torch, fd, fdd, fk):
+    """Phase 9c: LJ_CONFIG's fine-tuning of LJ_CKPT as a kernel='pallas'
+    model (prefetch 0, B=12, lj_pallas_data_settings), dense (fastgrad
+    through K1/K2 and K3/K4 in the default bf16 duals) and over plain
+    precomputed K-lists (K5-K8): 10 steps each against the JAX package's
+    (JAX_LJ_PALLAS_STEP_*: step 1's loss within bar1 of the float64 loss,
+    its gradient norm at 1e-3 for fp32 duals or 2e-3 for bf16 ones, steps
+    2-10 at 1e-2); the K-list step 1 gradient within 1e-4 (relative norm)
+    of the dense model's with float32 duals; one epoch of the K-list config
+    through the CLI's entry point. -> {what: launches}."""
+    import csv
+    import tempfile
+
+    import yaml
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    with open(LJ_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    main_loss = get_loss_by_string(cfg['training']['loss'])
+    lr = cfg['training']['optimizer']['adam']['lr']
+    clip = cfg['training']['clip_grad']
+    out, grads1 = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        write_lj_dataset(root)
+        for gm in ('dense', 'neighborlist'):
+            train_gen, _, _, stats = parse_train_test(
+                seed=0, **lj_pallas_data_settings(root, gm))
+            it = iter(train_gen)
+            batches = [{k: torch.as_tensor(v).cuda()
+                        for k, v in next(it).items()} for _ in range(10)]
+
+            def start(gm=gm, stats=stats, **changes):
+                model = lj_pallas_model(torch, gm, **changes)
+                set_scalers(model.core, model.output_properties, stats,
+                            {'energy': dict(cfg['training']['fit_scalers'])})
+                return model.requires_grad_(True)
+            reset_counts(fd, fdd, fk)
+            losses, norms, step_s, g1, _, trainer = xla_steps(
+                torch, start(), main_loss, batches, 'auto', lr=lr, clip=clip)
+            launches = {k: v for k, v in lj_counts(fd, fdd, fk).items() if v}
+            check(trainer.fast_grad, f'LJ pallas {gm}: not fastgrad')
+            grads1[gm] = g1
+            if gm == 'dense':
+                loss64, ulp_term = float64_loss(fd, main_loss[0], batches[0],
+                                                start())
+                bar1 = max(ulp_term / loss64, LJ_STEP1_REL)
+                # the dense step 1 with float32 duals: the K-list's reference
+                _, _, _, grads1['dense_fp32'], _, _ = xla_steps(
+                    torch, start(pallas_grad_dot_dtype='float32'), main_loss,
+                    batches[:1], 'auto', lr=lr, clip=clip)
+            norm_bar = 2e-3 if gm == 'dense' else 1e-3
+            rel_loss, rel_gn = check_jax_steps(
+                f'LJ pallas {gm}', losses, norms,
+                JAX_LJ_PALLAS_STEP_LOSS[gm], JAX_LJ_PALLAS_STEP_GRAD_NORM[gm],
+                loss64, bar1, norm_bar=norm_bar)
+            emit('lj_pallas_train', graph_mode=gm, loss=losses,
+                 grad_norm=norms, jax_loss=JAX_LJ_PALLAS_STEP_LOSS[gm],
+                 jax_grad_norm=JAX_LJ_PALLAS_STEP_GRAD_NORM[gm],
+                 rel_loss=rel_loss, rel_grad_norm=rel_gn, loss64=loss64,
+                 step1_loss_bar=bar1, step1_grad_norm_bar=norm_bar,
+                 step_ms=[1e3 * t for t in step_s],
+                 step_ms_median=1e3 * statistics.median(step_s[1:]),
+                 launches_10_steps=launches)
+            want = (fd.LAUNCHES.keys() | fdd.LAUNCHES.keys()
+                    if gm == 'dense' else fk.LAUNCHES.keys())
+            check(all(launches.get(k, 0) > 0 for k in want),
+                  f'LJ pallas {gm} steps did not launch every kernel: '
+                  f'{launches}')
+            out[f'train_{gm}_10_steps'] = launches
+            del trainer
+            torch.cuda.empty_cache()
+        rel = rel_norm(grads1['neighborlist'], grads1['dense_fp32'])
+        emit('lj_pallas_train_klist_vs_dense_fp32',
+             step1_grad_rel_norm=rel, bar=1e-4)
+        check(rel <= 1e-4, f'LJ pallas K-list vs dense fp32 step 1: {rel}')
+        settings = dict(
+            cfg, general=dict(cfg['general'], device='cuda'),
+            data=lj_pallas_data_settings(root, 'neighborlist'),
+            model=dict(cfg['model'], **LJ_PALLAS),
+            training=dict(cfg['training'], epochs=1))
+        with tempfile.TemporaryDirectory() as tmp:
+            settings['general']['output'] = tmp
+            torch.cuda.synchronize()
+            reset_counts(fd, fdd, fk)
+            t = time.perf_counter()
+            tr = train_from_settings(settings)
+            torch.cuda.synchronize()
+            epoch_s = time.perf_counter() - t
+            launches = {k: v for k, v in lj_counts(fd, fdd, fk).items() if v}
+            with open(os.path.join(tr.output_path, 'log.csv')) as f:
+                rows = list(csv.DictReader(f))
+    finite = all(math.isfinite(float(rows[0][k])) for k in
+                 ('train_loss', 'val_loss', 'test_loss'))
+    emit('lj_pallas_cli_epoch', config=LJ_CONFIG[len(ROOT) + 1:],
+         model=settings['model'], seconds=epoch_s, launches=launches,
+         log={k: rows[0][k] for k in ('train_loss', 'val_loss', 'test_loss',
+                                      'steps_per_s')})
+    check(finite, f'LJ pallas CLI epoch log not finite: {rows[0]}')
+    check(all(launches.get(k, 0) > 0 for k in fk.LAUNCHES),
+          f'LJ pallas CLI epoch did not launch K5-K8: {launches}')
+    out['cli_epoch_neighborlist'] = launches
+    return out
+
+
+def width_timing(torch, fd, fdd, fk, widths=WIDTHS_9D):
+    """Phase 9d: K1-K4 at LJ_CONFIG's training shape (B=12, N=64, R=16)
+    and K5-K8 at the box shape (bf16 edges, R=20) at each width: CUDA-event
+    times (two runs) and the bound computed on the work at the true width.
+    -> {kernel name: {F: {...}}}."""
+    timing = {}
+
+    def add(name, F, run, flops, nbytes, peak):
+        ms, ms2 = time_ms(torch, run, inner=3), time_ms(torch, run, inner=3)
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
+        timing.setdefault(name, {})[F] = {
+            'ms': statistics.median([ms, ms2]), 'ms_runs': [ms, ms2],
+            'bound_ms': 1e3 * max(t_ops, t_bytes),
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
+    B, N, R = 12, 64, 16
+    for F in widths:
+        ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=F)
+        args, cots = dual_inputs(torch, B, N, F, R, seed=F)
+        for first in (False, True):
+            sfx = '_first' if first else ''
+            add('pair_fwd' + sfx, F,
+                lambda: fd.pair_interaction_fwd(*ins, first_layer=first),
+                *layer_work(B, N, F, R, 'fwd', first), PEAK_FP32_FLOPS)
+            add('pair_bwd' + sfx, F,
+                lambda: fd.pair_interaction_bwd(*ins, dinv1, deq,
+                                                first_layer=first,
+                                                weight_grads=False),
+                *layer_work(B, N, F, R, 'bwd', first), PEAK_FP32_FLOPS)
+            kw = dict(first_layer=first, dot_dtype='bfloat16')
+            add('dual_fwd' + sfx, F,
+                lambda: fdd.pair_interaction_dual_fwd(*args, **kw),
+                *dual_work(B, N, F, R, 'fwd', first), PEAK_BF16_FLOPS)
+            add('dual_bwd' + sfx, F,
+                lambda: fdd.pair_interaction_dual_bwd(*args, *cots, **kw),
+                *dual_work(B, N, F, R, 'bwd', first), PEAK_BF16_FLOPS)
+        del ins, args, cots
+    B, N, K, R = 1, BOX_ATOMS, BOX_K_MAX, 20
+    for F in widths:
+        for first in (False, True):
+            kins, tans, kcots = klist_inputs(torch, B, N, K, F, R, first,
+                                             torch.bfloat16, seed=30)
+            calls = klist_calls(fk, kins, tans, kcots, first)
+            for call in ('klist_fwd', 'klist_bwd(wg=0)', 'klist_dual_fwd',
+                         'klist_dual_bwd'):
+                kind = call.split('(')[0]
+                fn, a, kw = calls[call]
+                add(kind + ('_first' if first else ''), F,
+                    lambda: fn(*a, first_layer=first, **kw),
+                    *klist_work(B, N, K, F, R, kind, first, 2),
+                    PEAK_FP32_FLOPS)
+            del kins, tans, kcots, calls
+            torch.cuda.empty_cache()
+    emit('timing', what='K1-K8 at other widths', widths=list(widths),
+         dense_shape=dict(B=12, N=64, R=16),
+         klist_shape=dict(B=1, N=BOX_ATOMS, K=BOX_K_MAX, R=20),
+         edge_dtype='bfloat16', dual_dot_dtype='bfloat16', timing=timing)
+    return timing
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3060,9 +3524,10 @@ def main():
              torch.backends.cuda.matmul
              .allow_bf16_reduced_precision_reduction))
 
-    # 2. build
+    # 2. build: the default libraries and, for phase 9a, the K1-K8
+    # sources' libraries of its widths (a pad below 32 and 64; 96; 256)
     t0 = time.perf_counter()
-    report = _build.build_all()
+    report = _build.build_all(widths=WIDTHS_9A)
     ptxas = {}
     for name, (_, log) in report.items():
         entry = None
@@ -3106,6 +3571,8 @@ def main():
         f'{kind} F={F}': fk.smem_bytes(F, 20, kind)
         for kind in ('fwd', 'bwd', 'dual_fwd', 'dual_bwd')
         for F in (32, 64, 128)})
+    # 9a. K1-K8 at other widths against their plain versions
+    width_errs = phase_width_kernels(torch, fd, fdd, fk)
     # 3e. the gathers: K9/K12 and K10/K11, and the window ops' entry point
     gather_errs, window_launches, window = phase_gather_kernels(torch, rg,
                                                                 wn)
@@ -3322,6 +3789,10 @@ def main():
     stair_launches = phase_staircase(torch, rg, xcfg, n3_model, n3_result)
     del n3_model
     torch.cuda.empty_cache()
+    # 9b. + 9c. the LJ checkpoint as a kernel='pallas' model at F=48:
+    # served dense and over K-lists, fine-tuned dense and over K-lists
+    lj_serve_launches = phase_lj_pallas_serve(torch, fd, fdd, fk)
+    lj_train_launches = phase_lj_pallas_train(torch, fd, fdd, fk)
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -3451,6 +3922,25 @@ def main():
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12, fp32_mode_rows=fp32_rows)
 
     rows += klist_timing(torch, fk, errs, klist_launches, train_nl_launches)
+    # 9d. K1-K8 at the LJ width beside 64 and at 256 (the prediction's
+    # comparisons, 128 in the rows above) and their launches on phase 9's
+    # paths
+    wt = width_timing(torch, fd, fdd, fk)
+    lj_launches = {**{f'serve_{gm}_per_request': n
+                      for gm, n in lj_serve_launches.items()},
+                   **lj_train_launches}
+    family = {'pair_fwd': 'K1', 'pair_bwd': 'K2', 'dual_fwd': 'K3',
+              'dual_bwd': 'K4', 'klist_fwd': 'K5', 'klist_bwd': 'K6',
+              'klist_dual_fwd': 'K7', 'klist_dual_bwd': 'K8'}
+    for row in rows:
+        if row['name'] not in wt:
+            continue
+        kname = family[row['name'].replace('_first', '')]
+        row['widths'] = {str(F): v for F, v in wt[row['name']].items()}
+        row['widths_checked'] = {str(F): width_errs[F][kname]
+                                 for F in WIDTHS_9A}
+        row['lj_pallas_launches'] = {k: n.get(row['name'], 0)
+                                     for k, n in lj_launches.items()}
     emit('gather_launches', serve_500_frames_xla=serve_xla_launches,
          per_box_xla_request=box_xla_launches,
          window_entry_point=window_launches)

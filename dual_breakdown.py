@@ -6,7 +6,7 @@ csrc/fused_dense.cu) and K7 (klist_dual_fwd_kernel, csrc/fused_klist.cu);
 with `k6k1`, kernels K6 (klist_bwd_kernel) and K1 (pair_fwd_kernel).
 
     python3 dual_breakdown.py [k2k7 | k6k1 | k5k11 | k1train ROOT... |
-                               steptime ROOT...]
+                               steptime ROOT... | kerneltime ROOT...]
 
 Builds the source as it is and in variants with one part taken out
 (written to newtonnet_tpu_torch/_build/dual_breakdown/, gitignored; all
@@ -46,6 +46,15 @@ milliseconds of 30 steps (three passes over the first 10 batches; the
 median of steps 2-10, as phase 7a reports it, and of steps 2-30) and one
 step under torch.profiler (device busy ms, idle share). Give the parent
 and this checkout in turns, e.g. `steptime runs/parent . . runs/parent`.
+
+With `kerneltime ROOT...` it times K1-K8 at F=128 at the shapes of
+chip_smoke.py's timing phase (K1/K2 at B=100, N=21, R=20, K2 without
+weight cotangents; K3/K4 at B=10, N=24 in bf16 mode; K5-K8 at the box
+shape, bf16 edges, K6 without weight cotangents), full and first layer,
+in the package of each checkout ROOT in turn, each in a process of its
+own: CUDA-event milliseconds per call (chip_smoke.time_ms). Give the
+parent and this checkout in turns, e.g. `kerneltime runs/parent . .
+runs/parent`.
 
 With `k5k11`, kernel K5 (klist_fwd_kernel, csrc/fused_klist.cu: k5_prod)
 as it is (16-atom tiles, 128 slot rows a step), with 8-atom tiles (m64: 64
@@ -107,14 +116,14 @@ VARIANTS = {
 K2K7_VARIANTS = {
     'fused_dense': {
         'as_is': [],
-        'no_products': [('  const int nch = Qp / KC2;',
+        'no_products': [('  const int nch = Qp / KC;',
                          '  const int nch = 0 * Qp;')],
         'no_mma': [('          mma3(d[x][j], ah, al, bh, bl);',
                     '          d[x][j][0] += __uint_as_float(ah[0] ^ bh[0]'
                     ' ^ al[1] ^ bl[1]);')]},
     'fused_klist': {
         'as_is': [],
-        'no_products': [('  const int nch = Qp / KC7;\n  // chunk v',
+        'no_products': [('  const int nch = Qp / KC;\n  // chunk v',
                          '  const int nch = 0 * Qp;\n  // chunk v')],
         'no_mma': [(f'        for (int x = 0; x < 2; ++x) mma_tf32(d[x][j], '
                     f'{a}[x], {b}[j]);',
@@ -130,20 +139,22 @@ K6K1_VARIANTS = {
         'as_is': [],
         'no_products': [('  const int nch = cur.qp / RW;',
                          '  const int nch = 0 * cur.qp;')],
-        'no_mma': [(f'          for (int rg = 0; rg < 2; ++rg) mma_tf32('
-                    f'd[o][rg][j], {a}[rg], {b}[j]);',
-                    f'          for (int rg = 0; rg < 2; ++rg) d[o][rg][j][{e}]'
-                    f' += __uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
+        'no_mma': [(f'          for (int rg = 0; rg < RG; ++rg)\n'
+                    f'            mma_tf32(d[o][rg][j], {a}[rg], {b}[j]);',
+                    f'          for (int rg = 0; rg < RG; ++rg)\n'
+                    f'            d[o][rg][j][{e}] += '
+                    f'__uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
                    for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
                                                ('ah', 'bh')))]},
     'fused_dense': {
         'as_is': [],
         'no_products': [('  const int nch = cur.qp / RW;',
                          '  const int nch = 0 * cur.qp;')],
-        'no_mma': [(f'          for (int rg = 0; rg < 2; ++rg) mma_tf32('
-                    f'd[x][rg][j], {a}[rg], {b}[j]);',
-                    f'          for (int rg = 0; rg < 2; ++rg) d[x][rg][j][{e}]'
-                    f' += __uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
+        'no_mma': [(f'          for (int rg = 0; rg < RG; ++rg)\n'
+                    f'            mma_tf32(d[x][rg][j], {a}[rg], {b}[j]);',
+                    f'          for (int rg = 0; rg < RG; ++rg)\n'
+                    f'            d[x][rg][j][{e}] += '
+                    f'__uint_as_float({a}[rg][{e}] ^ {b}[j][1]);')
                    for e, (a, b) in enumerate((('al', 'bh'), ('ah', 'bl'),
                                                ('ah', 'bh')))]}}
 
@@ -360,6 +371,67 @@ def k1time(torch, root):
         for tag, first in (('full', False), ('first', True))}), flush=True)
 
 
+def kerneltime(roots, card):
+    '''The K1-K8 lines (module docstring): one process per checkout root,
+    in the order given.'''
+    for root in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              'kernelone', os.path.abspath(root)],
+                             capture_output=True, text=True, timeout=1200)
+        if out.returncode != 0:
+            raise RuntimeError(f'kernelone {root} failed:\n'
+                               f'{out.stderr[-3000:]}')
+        ms = json.loads(out.stdout.strip().splitlines()[-1])
+        print(json.dumps({'root': root, 'F=128 ms': ms, 'card': card}),
+              flush=True)
+
+
+def kernelone(torch, root):
+    '''K1-K8's ms per call at F=128 (kerneltime's shapes), from the package
+    under root (printed as one JSON line), with this checkout's
+    chip_smoke.py making the inputs and timing.'''
+    import importlib.util
+    sys.path.insert(0, root)  # the package under root, not this one's
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_dual as fdd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    assert fd.__file__.startswith(root), fd.__file__
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke_here', os.path.join(HERE, 'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ms = {}
+    ins, dinv1, deq = cs.random_inputs(torch, 100, 21, 128, 20, seed=0)
+    args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)
+    for first in (False, True):
+        sfx = '_first' if first else ''
+        ms['pair_fwd' + sfx] = cs.time_ms(
+            torch, lambda: fd.pair_interaction_fwd(*ins, first_layer=first))
+        ms['pair_bwd' + sfx] = cs.time_ms(
+            torch, lambda: fd.pair_interaction_bwd(
+                *ins, dinv1, deq, first_layer=first, weight_grads=False))
+        kw = dict(first_layer=first, dot_dtype='bfloat16')
+        ms['dual_fwd' + sfx] = cs.time_ms(
+            torch, lambda: fdd.pair_interaction_dual_fwd(*args, **kw))
+        ms['dual_bwd' + sfx] = cs.time_ms(
+            torch, lambda: fdd.pair_interaction_dual_bwd(*args, *cots, **kw))
+    del ins, args, cots
+    for first in (False, True):
+        kins, tans, kcots = cs.klist_inputs(
+            torch, 1, cs.BOX_ATOMS, cs.BOX_K_MAX, 128, 20, first,
+            torch.bfloat16, seed=30)
+        calls = cs.klist_calls(fk, kins, tans, kcots, first)
+        for call in ('klist_fwd', 'klist_bwd(wg=0)', 'klist_dual_fwd',
+                     'klist_dual_bwd'):
+            fn, a, kw = calls[call]
+            ms[call.split('(')[0] + ('_first' if first else '')] = \
+                cs.time_ms(torch, lambda: fn(*a, first_layer=first, **kw),
+                           inner=3)
+        del kins, tans, kcots, calls
+        torch.cuda.empty_cache()
+    print(json.dumps(ms), flush=True)
+
+
 def steptime(roots, card):
     '''The dense training step lines (module docstring): one process per
     checkout root, in the order given.'''
@@ -513,6 +585,9 @@ def main():
     if sys.argv[1:2] == ['stepone']:  # the same
         stepone(torch, sys.argv[2])
         return 0
+    if sys.argv[1:2] == ['kernelone']:  # the same
+        kernelone(torch, sys.argv[2])
+        return 0
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
@@ -536,6 +611,9 @@ def main():
         return 0
     if sys.argv[1:2] == ['steptime']:
         steptime(sys.argv[2:], card)
+        return 0
+    if sys.argv[1:2] == ['kerneltime']:
+        kerneltime(sys.argv[2:], card)
         return 0
     libs = build()
     args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)

@@ -3,8 +3,18 @@
 // Replaces the TPU kernels newtonnet_tpu/ops/pallas_dense.py:_fwd_kernel
 // (K1) and newtonnet_tpu/ops/pallas_dense.py:_bwd_kernel (K2). Both are
 // templated on FIRST (the stack's first layer, whose force_node input is
-// identically zero, so the phi2 branch is skipped) and on the feature width
-// F (32, 64 or 128); R (the radial basis size) and N (atoms) are runtime.
+// identically zero, so the phi2 branch is skipped) and on the padded
+// feature width F, a multiple of 32; R (the radial basis size), N (atoms)
+// and the tensors' true width Fg (1 <= Fg <= F) are runtime.
+//
+// Any width: the tiles, rings and slot buffers hold F columns, and the
+// kernels read every F-wide tensor (np_, force, dinv1, deq, the weights) at
+// its true width Fg, zero-filling the pad lanes Fg..F in shared memory or
+// registers; the weight preparation writes zero pad rows and columns.
+// silu(0) = 0, so the pad lanes of every slot buffer stay zero and change
+// no sum. The cross-block partials are kept at F in the scratch, and the
+// kernels that sum them write the outputs at Fg: no pad lane reaches an
+// output.
 //
 // Computation (B molecules, N atoms, pair slot (i, j), Cartesian d):
 //     me   = rbf[i,j] @ We                          (F)
@@ -103,24 +113,80 @@ __device__ __forceinline__ float dsilu_fast(float x) {
 //   (me, msg, p1, p2 and two that carry h, phi, dphi, dh, dp, dmsg, t, dme
 //   in turn) 99 KB, rbf (then drbf) 4.5 KB, the row and column inputs
 //   16 KB: 200 KB, one block per SM.
+// * Past F=128 (wide) the tile has 2 columns (16 slot rows: each warp takes
+//   all of them and an eighth of the columns), chunks of 8 depth steps and
+//   drbf products of 64 columns r (R padded to 64), so that it fits: 222 KB
+//   at F=256, R=20.
 // * Code size: k2_prod and k2_wgrad are out of line (__noinline__).
 // On the card its time splits three ways (PERF.md, dual_breakdown.py
 // k2k7): the elementwise chain and tile loads, the weight stream (each
 // 32-slot tile streams all the weights from L2, 1.1 MB of pairs at F=128)
 // with the fragment loads and splits, and the mma.
-constexpr int TJ2 = 4;         // columns j per K2 tile
-constexpr int M2 = TI * TJ2;   // pair slots per K2 tile; p = il * TJ2 + jl
-constexpr int KC2 = 16;        // depth steps of a staged weight chunk
-constexpr int RS2 = KC2 + 4;   // (hi, lo) pairs per staged chunk row
 constexpr int kColSlots = 4;   // column partials: dnp, dforce[3]
 
+// K2's columns j per tile, depth steps of a staged weight chunk, and
+// columns r of a drbf product (its radial depth is padded to a multiple).
+__host__ __device__ constexpr int k2_tj(int F) { return F > 128 ? 2 : 4; }
+__host__ __device__ constexpr int k2_kc(int F) { return F > 128 ? 8 : 16; }
+__host__ __device__ constexpr int k2_rc(int F) { return F > 128 ? 64 : 32; }
+__host__ __device__ constexpr int k2_rp(int F, int R) {
+  return (R + k2_rc(F) - 1) / k2_rc(F) * k2_rc(F);
+}
+
+template <bool WIDE>
+struct K2Shape {
+  static constexpr int TJ = k2_tj(WIDE ? 256 : 128);  // columns j per tile
+  static constexpr int M = TI * TJ;  // pair slots per tile; p = il * TJ + jl
+  static constexpr int KC = k2_kc(WIDE ? 256 : 128);  // depth steps a chunk
+  static constexpr int RS = KC + 4;  // (hi, lo) pairs per staged chunk row
+  static constexpr int RG = M / 16;  // 16-row groups of a product
+  static constexpr int CG = kWarps / RG;  // column groups of a product
+};
+
 __host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
+
+// The padded widths this library holds: 32, 64 and 128, or the one width
+// NN_WIDTH names (ops/_build.py builds a library per further width at its
+// first use).
+#ifdef NN_WIDTH
+#define NN_WIDTHS(X) X(NN_WIDTH)
+#else
+#define NN_WIDTHS(X) X(32) X(64) X(128)
+#endif
+// A library runs either its padded widths exactly (Fg == F, the masks of
+// the pad lanes folded away at compile time) or, built with NN_PADDED,
+// the widths below them (ops/_build.py builds one at the first call of
+// such a width).
+#ifdef NN_PADDED
+constexpr bool kPadded = true;
+#else
+constexpr bool kPadded = false;
+#endif
+constexpr int kMaxWidth = 256;  // the widest F the kernels take
+
+// The padded width a true width F runs at: the next multiple of 32, and
+// past 128 of 64 (the wide tiles split their columns eight ways).
+__host__ __device__ constexpr int padded_width(int F) {
+  return F > 128 ? (F + 63) / 64 * 64 : (F + 31) / 32 * 32;
+}
+
+// Whether this library's kind runs width F (its padded width, one of
+// NN_WIDTHS, is checked where the launch is picked).
+__host__ __device__ constexpr bool library_runs(int F) {
+  return F >= 1 && F <= kMaxWidth && (F != padded_width(F)) == kPadded;
+}
+
+// Index of element (row, f) of an (rows, Fg) tensor in its copy at padded
+// width F, for the partials and weight cotangents the scratch keeps at F.
+__host__ __device__ inline size_t padded_at(size_t e, int Fg, int F) {
+  return kPadded ? e / Fg * F + e % Fg : e;
+}
 
 // The prepared weights, in (hi, lo) pairs, n-major: block 0 We^T (F x Rp),
 // 1 We (Rp x F, zero rows past R), 2-5 W1a^T, W2a^T, W1b^T, W2b^T (products
 // with W), 6-9 W1a, W2a, W1b, W2b (products with W^T), F x F each.
 __host__ __device__ inline size_t k2_prep_offset(int F, int R, int block) {
-  const size_t fr = (size_t)F * pad32(R);
+  const size_t fr = (size_t)F * k2_rp(F, R);
   return block < 2 ? block * fr : 2 * fr + (size_t)(block - 2) * F * F;
 }
 
@@ -128,11 +194,23 @@ __host__ __device__ inline size_t wgrad_size(int F, int R) {
   return (size_t)R * F + (size_t)4 * F * F;
 }
 
+// Element e of the weight cotangents at width Fg (dWe, dW1a, dW1b, dW2a,
+// dW2b one after the other) in a block's partial at width F.
+__host__ __device__ inline size_t wgrad_padded_at(size_t e, int R, int F,
+                                                  int Fg) {
+  if (!kPadded) return e;
+  const size_t rf = (size_t)R * Fg, ff = (size_t)Fg * Fg;
+  if (e < rf) return padded_at(e, Fg, F);
+  const size_t k = (e - rf) / ff;
+  return (size_t)R * F + k * F * F + padded_at(e - rf - k * ff, Fg, F);
+}
+
 template <int F>
 constexpr size_t bwd_smem_floats(int R) {
-  return (size_t)2 * 2 * 2 * F * RS2 + (size_t)6 * M2 * (F + 4) +
-         (size_t)M2 * (pad32(R) + 4) + (size_t)2 * TI * F +
-         (size_t)4 * TJ2 * F + (size_t)4 * M2;
+  using S = K2Shape<(F > 128)>;
+  return (size_t)2 * 2 * 2 * F * S::RS + (size_t)6 * S::M * (F + 4) +
+         (size_t)S::M * (k2_rp(F, R) + 4) + (size_t)2 * TI * F +
+         (size_t)4 * S::TJ * F + (size_t)4 * S::M;
 }
 
 #ifndef NN_CUDA_EMU
@@ -196,25 +274,28 @@ __global__ void pair_bwd_prep_kernel(const float* __restrict__ We,
                                      const float* __restrict__ W1b,
                                      const float* __restrict__ W2a,
                                      const float* __restrict__ W2b,
-                                     uint2* __restrict__ out, int F, int R) {
-  const int Rp = pad32(R);
+                                     uint2* __restrict__ out, int F, int Fg,
+                                     int R) {
+  const int Rp = k2_rp(F, R);
   const size_t fr = (size_t)F * Rp, total = k2_prep_offset(F, R, 10);
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     float v;
     if (e < fr) {  // We^T: n = f, q = r
       const int n = (int)(e / Rp), q = (int)(e % Rp);
-      v = q < R ? We[(size_t)q * F + n] : 0.0f;
+      v = q < R && n < Fg ? We[(size_t)q * Fg + n] : 0.0f;
     } else if (e < 2 * fr) {  // We: n = r, q = f
       const int n = (int)((e - fr) / F), q = (int)((e - fr) % F);
-      v = n < R ? We[(size_t)n * F + q] : 0.0f;
+      v = n < R && q < Fg ? We[(size_t)n * Fg + q] : 0.0f;
     } else {
       const size_t e2 = e - 2 * fr, ff = (size_t)F * F;
       const int k = (int)(e2 / ff), r = (int)(e2 % ff);
       const int n = r / F, q = r % F;
       const float* W = (k & 3) == 0 ? W1a : (k & 3) == 1 ? W2a
                        : (k & 3) == 2 ? W1b : W2b;
-      v = k < 4 ? W[(size_t)q * F + n] : W[(size_t)n * F + q];
+      v = n >= Fg || q >= Fg ? 0.0f
+          : k < 4            ? W[(size_t)q * Fg + n]
+                             : W[(size_t)n * Fg + q];
     }
     const unsigned hi = tf32_rna(v);
     out[e] = make_uint2(hi, tf32_rna(v - __uint_as_float(hi)));
@@ -222,40 +303,46 @@ __global__ void pair_bwd_prep_kernel(const float* __restrict__ We,
 }
 
 // Chunk ch of a prepared weight (NC rows of Qp pairs) into a ring slot: per
-// row n the KC2 pairs of depth [ch*KC2, ch*KC2 + KC2) at pair n*RS2, as
-// eight 16-byte cp.async copies.
-template <int NC>
+// row n the KC pairs of depth [ch*KC, ch*KC + KC) at pair n*RS, as KC/2
+// 16-byte cp.async copies.
+template <int NC, bool WIDE>
 __device__ __forceinline__ void k2_stage(const uint2* __restrict__ Bt, int Qp,
                                          int ch, uint2* slot) {
-  for (int v = threadIdx.x; v < NC * 8; v += kThreads) {
-    const int n = v >> 3, part = v & 7;
-    cp_async16(slot + n * RS2 + part * 2,
-               Bt + (size_t)n * Qp + (size_t)ch * KC2 + part * 2);
+  using S = K2Shape<WIDE>;
+  constexpr int P = S::KC / 2;  // copies per row
+  for (int v = threadIdx.x; v < NC * P; v += kThreads) {
+    const int n = v / P, part = v - n * P;
+    cp_async16(slot + n * S::RS + part * 2,
+               Bt + (size_t)n * Qp + (size_t)ch * S::KC + part * 2);
   }
 }
 
-// For the tile's 32 slot rows m and n < NC, q < Qp (a multiple of 32), in
+// For the tile's M slot rows m and n < NC, q < Qp (a multiple of 32), in
 // 3xTF32: D1[m*ldd + n] = sum_q A1[m*lda + q] B1(q, n), and with B2
 // D2[m*ldd + n] = sum_q A2[m*lda + q] B2(q, n), or with `sum` D1 = the sum
 // of both. A's columns past the true depth hold zeros; B(q, n) = Bt[n*Qp +
-// q] is a prepared weight. Warp w computes the 16-row half (w & 1) and
-// NC/4 columns. Every warp reads every A row after the loop's first
+// q] is a prepared weight. Warp w computes the 16-row group w % RG and
+// NC/CG columns (RG = M/16 groups, CG = 8/RG; NC >= 8 CG). Every warp
+// reads every A row after the loop's first
 // barrier and D is written after a barrier that follows the last read, so
 // A may be written just before the call and D may be A. Ends with a
 // __syncthreads. All threads of the block must call it. Not inlined.
-template <int NC>
+template <int NC, bool WIDE>
 __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
                                      int lda, int Qp,
                                      const uint2* __restrict__ B1,
                                      const uint2* __restrict__ B2,
                                      uint2* ring, float* D1, float* D2,
                                      int ldd, bool sum) {
-  constexpr int NT = NC / 32;  // 16 x 8 tiles per warp and product
-  constexpr int SLOT = 2 * NC * RS2;  // pairs per ring slot: two weights
+  using S = K2Shape<WIDE>;
+  constexpr int NT = NC / (8 * S::CG);  // 16 x 8 tiles per warp, product
+  constexpr int RS = S::RS, KC = S::KC;
+  constexpr int SLOT = 2 * NC * RS;  // pairs per ring slot: two weights
+  static_assert(NT >= 1, "NC < 8 column groups");
   const bool two = B2 != nullptr;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * (NC / 4);
+  const int m0 = (warp % S::RG) * 16, n0 = (warp / S::RG) * (NC / S::CG);
   float tot[2][NT][4];
 #pragma unroll
   for (int x = 0; x < 2; ++x)
@@ -266,17 +353,17 @@ __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
   const float* rows[2][2] = {
       {A1 + (size_t)(m0 + g) * lda, A1 + (size_t)(m0 + g + 8) * lda},
       {A2s + (size_t)(m0 + g) * lda, A2s + (size_t)(m0 + g + 8) * lda}};
-  const int nch = Qp / KC2;
-  k2_stage<NC>(B1, Qp, 0, ring);
-  if (two) k2_stage<NC>(B2, Qp, 0, ring + NC * RS2);
+  const int nch = Qp / KC;
+  k2_stage<NC, WIDE>(B1, Qp, 0, ring);
+  if (two) k2_stage<NC, WIDE>(B2, Qp, 0, ring + NC * RS);
   cp_async_commit();
   for (int ch = 0; ch < nch; ++ch) {
     cp_async_wait<0>();
     __syncthreads();  // chunk ch is in; every warp is done with ch - 1
     if (ch + 1 < nch) {
       uint2* next = ring + ((ch + 1) & 1) * SLOT;
-      k2_stage<NC>(B1, Qp, ch + 1, next);
-      if (two) k2_stage<NC>(B2, Qp, ch + 1, next + NC * RS2);
+      k2_stage<NC, WIDE>(B1, Qp, ch + 1, next);
+      if (two) k2_stage<NC, WIDE>(B2, Qp, ch + 1, next + NC * RS);
     }
     cp_async_commit();
     const uint2* wc = ring + (ch & 1) * SLOT;
@@ -287,8 +374,8 @@ __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
       for (int j = 0; j < NT; ++j)
         d[x][j][0] = d[x][j][1] = d[x][j][2] = d[x][j][3] = 0.0f;
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {  // two k-steps per chunk
-      const int k = ch * KC2 + s * 8 + t;
+    for (int s = 0; s < KC / 8; ++s) {  // k-steps of a chunk
+      const int k = ch * KC + s * 8 + t;
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
         if (x == 1 && !two) break;
@@ -299,7 +386,7 @@ __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
         split_tf32(rows[x][1][k + 4], ah[3], al[3]);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
-          const uint2* w = wc + (x * NC + n0 + j * 8 + g) * RS2 + s * 8 + t;
+          const uint2* w = wc + (x * NC + n0 + j * 8 + g) * RS + s * 8 + t;
           const uint2 b0 = w[0], b1 = w[4];  // depth k, k + 4
           const unsigned bh[2] = {b0.x, b1.x}, bl[2] = {b0.y, b1.y};
           mma3(d[x][j], ah, al, bh, bl);
@@ -359,7 +446,7 @@ __device__ __noinline__ void k2_wgrad(const float* __restrict__ A, int lda,
 #pragma unroll
     for (int j = 0; j < 4; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < M2; kk += 8) {
+    for (int kk = 0; kk < K2Shape<(F > 128)>::M; kk += 8) {
       const int p = kk + t;
       float av[4] = {A[p * lda + qa], A[p * lda + qb], A[(p + 4) * lda + qa],
                      A[(p + 4) * lda + qb]};
@@ -399,14 +486,17 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
                 const float* __restrict__ deq, float* __restrict__ drbf,
                 float* __restrict__ ddir, float* __restrict__ rowpart,
                 float* __restrict__ colpart, float* __restrict__ wpart, int N,
-                int R, int n_it, int n_jt) {
+                int Fg_, int R, int n_it, int n_jt) {
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
+  constexpr bool WIDE = F > 128;
+  using S = K2Shape<WIDE>;
   constexpr int C = F / 32;
   constexpr int LD = F + 4;
-  constexpr int TJ = TJ2, M = M2;
-  const int Rp = pad32(R), lr = Rp + 4;
+  constexpr int TJ = S::TJ, M = S::M, RC = k2_rc(F);
+  const int Rp = k2_rp(F, R), lr = Rp + 4;
   extern __shared__ float smem[];
   uint2* ring = reinterpret_cast<uint2*>(smem);  // 2 slots x 2 weights
-  float* me_s = smem + 2 * 2 * 2 * F * RS2;  // M x LD: me
+  float* me_s = smem + 2 * 2 * 2 * F * S::RS;  // M x LD: me
   float* msg_s = me_s + M * LD;       // M x LD: msg
   float* p1_s = msg_s + M * LD;       // M x LD: p1
   float* p2_s = p1_s + M * LD;        // M x LD: p2
@@ -428,25 +518,26 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int i = i0 + warp;
-  const size_t nf = (size_t)N * F;
+  const size_t nf = (size_t)N * F, nfg = (size_t)N * Fg;
 
   for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
     const int il = idx / F, f = idx - il * F;
-    const bool ok = i0 + il < N;
-    const size_t row = ((size_t)b * N + i0 + il) * F + f;
+    const bool ok = i0 + il < N && f < Fg;
+    const size_t row = ((size_t)b * N + i0 + il) * Fg + f;
     npi_s[idx] = ok ? np_[row] : 0.0f;
     dinv_s[idx] = ok ? dinv1[row] : 0.0f;
   }
   for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
     const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
-    npj_s[idx] = j < N ? np_[((size_t)b * N + j) * F + f] : 0.0f;
+    npj_s[idx] = j < N && f < Fg ? np_[((size_t)b * N + j) * Fg + f] : 0.0f;
   }
   if (!FIRST) {
     for (int idx = threadIdx.x; idx < 3 * TJ * F; idx += kThreads) {
       const int d = idx / (TJ * F), rem = idx - d * (TJ * F);
       const int jl = rem / F, f = rem - jl * F, j = j0 + jl;
-      fj_s[idx] = j < N ? force[((size_t)b * 3 + d) * nf + (size_t)j * F + f]
-                        : 0.0f;
+      fj_s[idx] = j < N && f < Fg ? force[((size_t)b * 3 + d) * nfg +
+                                          (size_t)j * Fg + f]
+                                  : 0.0f;
     }
   }
   for (int idx = threadIdx.x; idx < 4 * M; idx += kThreads) {
@@ -472,9 +563,10 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
   for (int d = 0; d < 3; ++d)
 #pragma unroll
     for (int c = 0; c < C; ++c)
-      gq[d][c] = i < N ? deq[((size_t)b * 3 + d) * nf + (size_t)i * F + lane +
-                             32 * c]
-                       : 0.0f;
+      gq[d][c] = i < N && lane + 32 * c < Fg
+                     ? deq[((size_t)b * 3 + d) * nfg + (size_t)i * Fg + lane +
+                           32 * c]
+                     : 0.0f;
 
   const uint2* WeT = wprep + k2_prep_offset(F, R, 0);
   const uint2* Wer = wprep + k2_prep_offset(F, R, 1);
@@ -491,8 +583,8 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
 
   // me, then msg = me np_i np_j adj
   // me, then msg = me np_i np_j adj
-  k2_prod<F>(rbf_s, nullptr, lr, Rp, WeT, nullptr, ring, me_s, nullptr, LD,
-             false);
+  k2_prod<F, WIDE>(rbf_s, nullptr, lr, Rp, WeT, nullptr, ring, me_s, nullptr,
+                   LD, false);
 #pragma unroll
   for (int r = 0; r < TJ; ++r) {
     const int p = warp * TJ + r;
@@ -505,8 +597,8 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
   }
   // p1, p2; h = silu(p); phi = h @ Wb (the second branch is skipped at the
   // first layer: force_node is zero)
-  k2_prod<F>(msg_s, msg_s, LD, F, W1aT, FIRST ? nullptr : W2aT, ring, p1_s,
-             p2_s, LD, false);
+  k2_prod<F, WIDE>(msg_s, msg_s, LD, F, W1aT, FIRST ? nullptr : W2aT, ring,
+                   p1_s, p2_s, LD, false);
 #pragma unroll
   for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -515,8 +607,8 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
       x1_s[o] = silu_f(p1_s[o]);
       if (!FIRST) x2_s[o] = silu_f(p2_s[o]);
     }
-  k2_prod<F>(x1_s, x2_s, LD, F, W1bT, FIRST ? nullptr : W2bT, ring, x1_s,
-             x2_s, LD, false);
+  k2_prod<F, WIDE>(x1_s, x2_s, LD, F, W1bT, FIRST ? nullptr : W2bT, ring,
+                   x1_s, x2_s, LD, false);
   // ddir[d,i,j] = sum_f phi1 deq[d,i]; dphi1 = sum_d deq[d,i] dir[d,i,j] adj
 #pragma unroll
   for (int r = 0; r < TJ; ++r) {
@@ -552,13 +644,13 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
       const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
       if (j >= N) continue;
       float s[3] = {0.0f, 0.0f, 0.0f};
-      for (int il = 0; il < TI && i0 + il < N; ++il) {
+      for (int il = 0; il < TI && i0 + il < N && f < Fg; ++il) {
         const int p = il * TJ + jl;
         const float phi = x2_s[p * LD + f] * adj_s[p];
 #pragma unroll
         for (int d = 0; d < 3; ++d)
-          s[d] += phi * deq[((size_t)b * 3 + d) * nf +
-                            (size_t)(i0 + il) * F + f];
+          s[d] += phi * deq[((size_t)b * 3 + d) * nfg +
+                            (size_t)(i0 + il) * Fg + f];
       }
 #pragma unroll
       for (int d = 0; d < 3; ++d)
@@ -585,8 +677,8 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
       k2_wgrad<F>(p2_s, LD, F, true, x2_s, wp + (size_t)R * F + 3 * F * F);
   }
   // dh = dphi @ Wb^T; dp = dh silu'(p)
-  k2_prod<F>(x1_s, x2_s, LD, F, W1b, FIRST ? nullptr : W2b, ring, x1_s, x2_s,
-             LD, false);
+  k2_prod<F, WIDE>(x1_s, x2_s, LD, F, W1b, FIRST ? nullptr : W2b, ring, x1_s,
+                   x2_s, LD, false);
 #pragma unroll
   for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -601,8 +693,8 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
       k2_wgrad<F>(msg_s, LD, F, false, x2_s, wp + (size_t)R * F + 2 * F * F);
   }
   // dmsg = dp1 @ W1a^T + dp2 @ W2a^T
-  k2_prod<F>(x1_s, x2_s, LD, F, W1a, FIRST ? nullptr : W2a, ring, x1_s,
-             nullptr, LD, true);
+  k2_prod<F, WIDE>(x1_s, x2_s, LD, F, W1a, FIRST ? nullptr : W2a, ring, x1_s,
+                   nullptr, LD, true);
 
   // dmsg4 = (dmsg + dinv1_i) adj; t = dmsg4 me: row part of dnp (t np_j),
   // column part (t np_i); dme = dmsg4 np_i np_j
@@ -634,10 +726,10 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
     colb[(size_t)j * F + f] = s;
   }
   if (WGRAD) k2_wgrad<F>(rbf_s, lr, R, false, x2_s, wp);  // dWe = rbf^T dme
-  // drbf = dme @ We^T, 32 columns r at a time, into rbf_s
-  for (int cb = 0; cb < Rp; cb += 32)
-    k2_prod<32>(x2_s, nullptr, LD, F, Wer + (size_t)cb * F, nullptr, ring,
-                rbf_s + cb, nullptr, lr, false);
+  // drbf = dme @ We^T, RC columns r at a time, into rbf_s
+  for (int cb = 0; cb < Rp; cb += RC)
+    k2_prod<RC, WIDE>(x2_s, nullptr, LD, F, Wer + (size_t)cb * F, nullptr,
+                      ring, rbf_s + cb, nullptr, lr, false);
   for (int idx = threadIdx.x; idx < M * R; idx += kThreads) {
     const int p = idx / R, r = idx - p * R;
     const int ii = i0 + p / TJ, j = j0 + p % TJ;
@@ -660,12 +752,13 @@ __global__ void pair_bwd_nodesum_kernel(float* __restrict__ dnp,
                                         float* __restrict__ dforce,
                                         const float* __restrict__ rowpart,
                                         const float* __restrict__ colpart,
-                                        int B, int N, int F, int n_it,
-                                        int n_jt, int first) {
-  const size_t nf = (size_t)N * F;
+                                        int B, int N, int F, int Fg,
+                                        int n_it, int n_jt, int first) {
+  const size_t nf = (size_t)N * F, nfg = (size_t)N * Fg;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * nf) return;
-  const size_t b = idx / nf, rem = idx - b * nf;
+  if (idx >= (size_t)B * nfg) return;
+  const size_t b = idx / nfg, remg = idx - b * nfg;
+  const size_t rem = padded_at(remg, Fg, F);
   float s[kColSlots] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int jt = 0; jt < n_jt; ++jt) s[0] += rowpart[(b * n_jt + jt) * nf + rem];
   for (int it = 0; it < n_it; ++it) {
@@ -675,19 +768,23 @@ __global__ void pair_bwd_nodesum_kernel(float* __restrict__ dnp,
       for (int k = 1; k < kColSlots; ++k) s[k] += c[k * nf];
   }
   dnp[idx] = s[0];
-  for (int d = 0; d < 3; ++d) dforce[(b * 3 + d) * nf + rem] = s[1 + d];
+  for (int d = 0; d < 3; ++d) dforce[(b * 3 + d) * nfg + remg] = s[1 + d];
 }
 
 // out[e] = sum_blk part[blk, e] for e < n_valid; 0 for the rest (the
-// first layer's W2a/W2b). Fixed summation order.
+// first layer's W2a/W2b). out is at width Fg, the partials at F. Fixed
+// summation order.
 __global__ void pair_bwd_wsum_kernel(float* __restrict__ out,
                                      const float* __restrict__ part,
-                                     int n_blocks, size_t n, size_t n_valid) {
+                                     int n_blocks, int R, int F, int Fg,
+                                     size_t n_valid) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  if (e >= wgrad_size(Fg, R)) return;
   float s = 0.0f;
-  if (e < n_valid)
-    for (int k = 0; k < n_blocks; ++k) s += part[(size_t)k * n + e];
+  if (e < n_valid) {
+    const size_t n = wgrad_size(F, R), at = wgrad_padded_at(e, R, F, Fg);
+    for (int k = 0; k < n_blocks; ++k) s += part[(size_t)k * n + at];
+  }
   out[e] = s;
 }
 
@@ -727,32 +824,47 @@ __global__ void pair_bwd_wsum_kernel(float* __restrict__ out,
 // * Shared memory at F=128, R=20: the ring 64 KB, three fp32 slot buffers
 //   (me then msg; p1, h1, phi1; p2, h2, phi2) 99 KB, rbf 9 KB, the row and
 //   column inputs 24 KB: 196 KB, one block per SM.
-constexpr int TJ1 = 8;          // columns j per K1 tile
-constexpr int M1 = TI * TJ1;    // pair slots per K1 tile; p = il * TJ1 + jl
-constexpr int K1_RW = 32;       // depth pairs of one weight in a ring slot
+// * Past F=128 (wide) the tile has 4 columns (32 slot rows, one 32-row
+//   group per warp pair) and a ring slot 16 depth steps of one weight or 8
+//   of each of two, so that it fits: 190 KB at F=256, R=20.
 constexpr int kRowSlots = 4;    // row partials: inv1, eq[3]
+
+// The XOR swizzle of a ring row of rw pairs (rw >= 8): pair q of row r at
+// q ^ ring_swz(r, rw), so that the B fragments' 64-bit loads spread over
+// the banks.
+__host__ __device__ constexpr int ring_swz(int r, int rw) {
+  return (r & (rw >= 16 ? 3 : 1)) << 2;
+}
+
+// K1's columns j per tile and depth pairs of one weight in a ring slot.
+__host__ __device__ constexpr int k1_tj(int F) { return F > 128 ? 4 : 8; }
+__host__ __device__ constexpr int k1_rw(int F) { return F > 128 ? 16 : 32; }
 
 template <int F>
 struct K1Shape {
-  static constexpr int LD = F + 4;       // fp32 slot buffers (M1 x LD)
-  static constexpr int RING = K1_RW * F;  // pairs per ring slot
+  static constexpr int TJ = k1_tj(F);    // columns j per tile
+  static constexpr int M = TI * TJ;      // pair slots; p = il * TJ + jl
+  static constexpr int RW = k1_rw(F);    // depth pairs of one weight
+  static constexpr int LD = F + 4;       // fp32 slot buffers (M x LD)
+  static constexpr int RING = RW * F;    // pairs per ring slot
 };
 
 template <int F>
 constexpr size_t fwd_smem_floats(int R) {
   using S = K1Shape<F>;
-  return (size_t)4 * S::RING + (size_t)3 * M1 * S::LD +
-         (size_t)M1 * (pad32(R) + 4) + (size_t)TI * F + (size_t)4 * TJ1 * F +
-         (size_t)4 * M1;
+  return (size_t)4 * S::RING + (size_t)3 * S::M * S::LD +
+         (size_t)S::M * (pad32(R) + 4) + (size_t)TI * F +
+         (size_t)4 * S::TJ * F + (size_t)4 * S::M;
 }
 
 // K1's prepared weights, in (hi, lo) tf32 pairs: me's We^T (B(q, n) =
 // We[q][n], q < pad32(R)), then p's W1a and phi's W1b (B(q, n) = W[q][n]),
 // each with its second branch's weight (W2a, W2b) except at the first
 // layer; each chunk-major and swizzled as a ring slot holds it, so that a
-// chunk stages as one contiguous copy: chunks of 32 depth steps of one
-// weight (rows n of 32 pairs), or of 16 of each of two (rows x*F + n of 16
-// pairs), pair q of row r at r*rw + (q ^ 4(r & 3)).
+// chunk stages as one contiguous copy: chunks of k1_rw(F) depth steps of
+// one weight (rows n of rw = k1_rw(F) pairs), or of half that of each of
+// two (rows x*F + n of rw = k1_rw(F) / 2 pairs), pair q of row r at r*rw +
+// (q ^ ring_swz(r, rw)).
 __host__ __device__ inline size_t k1_prep_pairs(int F, int R) {
   return (size_t)F * pad32(R) + (size_t)4 * F * F;
 }
@@ -762,8 +874,8 @@ __global__ void pair_fwd_prep_kernel(const float* __restrict__ We,
                                      const float* __restrict__ W1b,
                                      const float* __restrict__ W2a,
                                      const float* __restrict__ W2b,
-                                     uint2* __restrict__ out, int F, int R,
-                                     int first) {
+                                     uint2* __restrict__ out, int F, int Fg,
+                                     int R, int first) {
   const size_t fr = (size_t)F * pad32(R), ff = (size_t)F * F;
   const size_t total = fr + (first ? 2 : 4) * ff;
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
@@ -771,16 +883,17 @@ __global__ void pair_fwd_prep_kernel(const float* __restrict__ We,
     const bool me = e < fr;  // else p (k = 0) or phi (k = 1)
     const int k = me ? 0 : (int)((e - fr) / ((first ? 1 : 2) * ff));
     const size_t local = me ? e : e - fr - k * (first ? 1 : 2) * ff;
-    const int rw = me || first ? 32 : 16;
-    const int ch = (int)(local / (32 * F)), rem = (int)(local % (32 * F));
+    const int rwd = k1_rw(F), rw = me || first ? rwd : rwd / 2;
+    const int ch = (int)(local / ((size_t)rwd * F));
+    const int rem = (int)(local % ((size_t)rwd * F));
     const int r = rem / rw, j = rem - r * rw;
-    const int q = ch * rw + (j ^ ((r & 3) << 2)), x = r / F, n = r - x * F;
+    const int q = ch * rw + (j ^ ring_swz(r, rw)), x = r / F, n = r - x * F;
     float v;
     if (me) {
-      v = q < R ? We[(size_t)q * F + n] : 0.0f;
+      v = q < R && n < Fg ? We[(size_t)q * Fg + n] : 0.0f;
     } else {
       const float* W = k == 0 ? (x ? W2a : W1a) : (x ? W2b : W1b);
-      v = W[(size_t)q * F + n];
+      v = q < Fg && n < Fg ? W[(size_t)q * Fg + n] : 0.0f;
     }
     const unsigned hi = tf32_rna(v);
     out[e] = make_uint2(hi, tf32_rna(v - __uint_as_float(hi)));
@@ -798,12 +911,13 @@ struct K1W {
 // laid it out as the slot holds it), by 16-byte cp.async copies.
 template <int F>
 __device__ __forceinline__ void k1_stage(const K1W& w, int ch, uint2* slot) {
-  const uint2* src = w.b + (size_t)ch * 32 * F;
-  for (int v = threadIdx.x; v < 16 * F; v += kThreads)
+  constexpr int RING = K1Shape<F>::RING;
+  const uint2* src = w.b + (size_t)ch * RING;
+  for (int v = threadIdx.x; v < RING / 2; v += kThreads)
     cp_async16(slot + 2 * v, src + 2 * v);
 }
 
-// For the tile's 64 slot rows m and n < F, q < cur.qp, in 3xTF32: MODE 0
+// For the tile's M slot rows m and n < F, q < cur.qp, in 3xTF32: MODE 0
 // D1 = A1 B1; MODE 1 D1 = A1 B1 and D2 = A1 B2; MODE 2 D1 = A1 B1 and D2 =
 // A2 B2, where A is fp32 at row stride lda (zeros past the true depth) and
 // B the prepared weight of cur (pair_fwd_prep_kernel's layout). Chunk 0 of
@@ -819,20 +933,22 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
                                     int lda, K1W cur, K1W next, int slot,
                                     uint2* ring, float* D1, float* D2,
                                     int ldd) {
+  using S = K1Shape<F>;
   constexpr int NT = F / 32;             // 16 x 8 tiles per row group
+  constexpr int RG = S::M / 32;          // 16-row groups per warp
   constexpr int NX = MODE == 0 ? 1 : 2;  // weights per chunk and products
-  constexpr int RW = K1_RW / NX;         // pairs per ring row
-  constexpr int RING = K1Shape<F>::RING;
+  constexpr int RW = S::RW / NX;         // pairs per ring row
+  constexpr int RING = S::RING;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * (F / 4);
-  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
+  const int m0 = (warp & 1) * (S::M / 2), n0 = (warp >> 1) * (F / 4);
+  const int o0 = t ^ ring_swz(g, RW);  // the swizzled pair of depth t
   const int nch = cur.qp / RW;
-  float tot[NX][2][NT][4];
+  float tot[NX][RG][NT][4];
 #pragma unroll
   for (int x = 0; x < NX; ++x)
 #pragma unroll
-    for (int rg = 0; rg < 2; ++rg)
+    for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         tot[x][rg][j][0] = tot[x][rg][j][1] = tot[x][rg][j][2] =
@@ -847,11 +963,11 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
       k1_stage<F>(next, 0, other);
     cp_async_commit();
     const uint2* wc = ring + slot * RING;
-    float d[NX][2][NT][4];
+    float d[NX][RG][NT][4];
 #pragma unroll
     for (int x = 0; x < NX; ++x)
 #pragma unroll
-      for (int rg = 0; rg < 2; ++rg)
+      for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
           d[x][rg][j][0] = d[x][rg][j][1] = d[x][rg][j][2] =
@@ -859,13 +975,13 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
 #pragma unroll
     for (int s = 0; s < RW / 8; ++s) {
       const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
-      unsigned ah[2][4], al[2][4];
+      unsigned ah[RG][4], al[RG][4];
 #pragma unroll
       for (int x = 0; x < NX; ++x) {
         if (x == 0 || MODE == 2) {
           const float* A = x == 0 ? A1 : A2;
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) {
+          for (int rg = 0; rg < RG; ++rg) {
             const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
             const float* r8 = r0 + (size_t)8 * lda;
             split_tf32_mma(r0[k], ah[rg][0], al[rg][0]);
@@ -881,26 +997,29 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
           const uint2 wk = w[(s * 8) ^ o0], wk4 = w[(s * 8) ^ o0 ^ 4];
           bh[j][0] = wk.x, bh[j][1] = wk4.x, bl[j][0] = wk.y, bl[j][1] = wk4.y;
         }
-        // lo*hi, hi*lo, hi*hi of every tile in turn: 2 NT independent
+        // lo*hi, hi*lo, hi*hi of every tile in turn: RG NT independent
         // accumulators between two dependent products
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[x][rg][j], al[rg], bh[j]);
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(d[x][rg][j], al[rg], bh[j]);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[x][rg][j], ah[rg], bl[j]);
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(d[x][rg][j], ah[rg], bl[j]);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[x][rg][j], ah[rg], bh[j]);
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(d[x][rg][j], ah[rg], bh[j]);
       }
     }
 #pragma unroll
     for (int x = 0; x < NX; ++x)
 #pragma unroll
-      for (int rg = 0; rg < 2; ++rg)
+      for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -912,7 +1031,7 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
   for (int x = 0; x < NX; ++x) {
     float* D = x == 0 ? D1 : D2;
 #pragma unroll
-    for (int rg = 0; rg < 2; ++rg)
+    for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
       for (int j = 0; j < NT; ++j) {  // (n, n + 1) as one 8-byte store
         const int m = m0 + rg * 16 + g, n = n0 + j * 8 + 2 * t;
@@ -932,12 +1051,13 @@ pair_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
                 const float* __restrict__ dir, const float* __restrict__ adj,
                 const float* __restrict__ force,
                 const uint2* __restrict__ wprep,
-                float* __restrict__ rowpart, int N, int R, int n_it,
+                float* __restrict__ rowpart, int N, int Fg_, int R, int n_it,
                 int n_jt, int n_tiles) {
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
   using S = K1Shape<F>;
   constexpr int C = F / 32;
   constexpr int LD = S::LD;
-  constexpr int TJ = TJ1, M = M1;
+  constexpr int TJ = S::TJ, M = S::M;
   const int Rp = pad32(R), lr = Rp + 4;
   extern __shared__ float smem[];
   uint2* ring = reinterpret_cast<uint2*>(smem);  // 2 x RING
@@ -953,7 +1073,7 @@ pair_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const size_t nf = (size_t)N * F;
+  const size_t nf = (size_t)N * F, nfg = (size_t)N * Fg;
   // the products of a tile, in the order of the prepared weights
   const size_t wbr = (size_t)(FIRST ? 1 : 2) * F * F;
   const K1W w_me = {wprep, Rp};
@@ -972,19 +1092,21 @@ pair_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
     __syncthreads();  // the last tile's reads of the tile buffers are done
     for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
       const int il = idx / F, f = idx - il * F;
-      npi_s[idx] = i0 + il < N ? np_[((size_t)b * N + i0 + il) * F + f]
-                               : 0.0f;
+      npi_s[idx] = i0 + il < N && f < Fg
+                       ? np_[((size_t)b * N + i0 + il) * Fg + f]
+                       : 0.0f;
     }
     for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
       const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
-      npj_s[idx] = j < N ? np_[((size_t)b * N + j) * F + f] : 0.0f;
+      npj_s[idx] = j < N && f < Fg ? np_[((size_t)b * N + j) * Fg + f] : 0.0f;
     }
     if (!FIRST) {
       for (int idx = threadIdx.x; idx < 3 * TJ * F; idx += kThreads) {
         const int d = idx / (TJ * F), rem = idx - d * (TJ * F);
         const int jl = rem / F, f = rem - jl * F, j = j0 + jl;
-        fj_s[idx] = j < N ? force[((size_t)b * 3 + d) * nf + (size_t)j * F + f]
-                          : 0.0f;
+        fj_s[idx] = j < N && f < Fg ? force[((size_t)b * 3 + d) * nfg +
+                                            (size_t)j * Fg + f]
+                                    : 0.0f;
       }
     }
     for (int idx = threadIdx.x; idx < 4 * M; idx += kThreads) {
@@ -1090,11 +1212,13 @@ pair_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
 __global__ void pair_fwd_rowsum_kernel(float* __restrict__ inv1,
                                        float* __restrict__ eq,
                                        const float* __restrict__ rowpart,
-                                       int B, int N, int F, int n_jt) {
-  const size_t nf = (size_t)N * F;
+                                       int B, int N, int F, int Fg,
+                                       int n_jt) {
+  const size_t nf = (size_t)N * F, nfg = (size_t)N * Fg;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * nf) return;
-  const size_t b = idx / nf, rem = idx - b * nf;
+  if (idx >= (size_t)B * nfg) return;
+  const size_t b = idx / nfg, remg = idx - b * nfg;
+  const size_t rem = padded_at(remg, Fg, F);
   float s[kRowSlots] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (int jt = 0; jt < n_jt; ++jt) {
     const float* r = rowpart + (b * n_jt + jt) * kRowSlots * nf + rem;
@@ -1102,13 +1226,14 @@ __global__ void pair_fwd_rowsum_kernel(float* __restrict__ inv1,
     for (int k = 0; k < kRowSlots; ++k) s[k] += r[k * nf];
   }
   inv1[idx] = s[0];
-  for (int d = 0; d < 3; ++d) eq[(b * 3 + d) * nf + rem] = s[1 + d];
+  for (int d = 0; d < 3; ++d) eq[(b * 3 + d) * nfg + remg] = s[1 + d];
 }
 
 // Scratch of one K2 launch, in floats: the prepared weights, the row and
 // column partials and, with weight cotangents, one partial per block.
 size_t bwd_scratch_floats(int B, int N, int F, int R, bool wgrad) {
-  const size_t n_it = (N + TI - 1) / TI, n_jt = (N + TJ2 - 1) / TJ2;
+  const size_t n_it = (N + TI - 1) / TI;
+  const size_t n_jt = (N + k2_tj(F) - 1) / k2_tj(F);
   const size_t nf = (size_t)N * F;
   return 2 * k2_prep_offset(F, R, 10) + B * n_jt * nf +
          B * n_it * kColSlots * nf +
@@ -1118,20 +1243,21 @@ size_t bwd_scratch_floats(int B, int N, int F, int R, bool wgrad) {
 // Scratch of one K1 launch, in floats: the prepared weights and the row
 // partials.
 size_t fwd_scratch_floats(int B, int N, int F, int R) {
-  const size_t n_jt = (N + TJ1 - 1) / TJ1;
+  const size_t n_jt = (N + k1_tj(F) - 1) / k1_tj(F);
   return 2 * k1_prep_pairs(F, R) + B * n_jt * kRowSlots * (size_t)N * F;
 }
 
 template <int F, bool FIRST>
 cudaError_t launch_fwd(const float* const* in, float* inv1, float* eq,
-                       float* scratch, int B, int N, int R, int max_blocks,
-                       cudaStream_t stream) {
+                       float* scratch, int B, int N, int Fg, int R,
+                       int max_blocks, cudaStream_t stream) {
   const size_t smem = fwd_smem_floats<F>(R) * sizeof(float);
   auto kern = pair_fwd_kernel<F, FIRST>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_it = (N + TI - 1) / TI, n_jt = (N + TJ1 - 1) / TJ1;
+  const int n_it = (N + TI - 1) / TI;
+  const int n_jt = (N + K1Shape<F>::TJ - 1) / K1Shape<F>::TJ;
   const int n_tiles = B * n_it * n_jt;
   const int n_blocks = n_tiles < max_blocks ? n_tiles : max_blocks;
   if (n_blocks < 1) return cudaErrorInvalidValue;
@@ -1140,17 +1266,17 @@ cudaError_t launch_fwd(const float* const* in, float* inv1, float* eq,
   const size_t want = (k1_prep_pairs(F, R) + 255) / 256;
   pair_fwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
                          stream>>>(in[5], in[6], in[7], in[8], in[9], wprep,
-                                   F, R, FIRST ? 1 : 0);
+                                   F, Fg, R, FIRST ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kern<<<n_blocks, kThreads, smem, stream>>>(in[0], in[1], in[2], in[3],
-                                             in[4], wprep, rowpart, N, R,
+                                             in[4], wprep, rowpart, N, Fg, R,
                                              n_it, n_jt, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)(((size_t)B * N * F + 255) / 256);
+  const unsigned grid = (unsigned)(((size_t)B * N * Fg + 255) / 256);
   pair_fwd_rowsum_kernel<<<grid, 256, 0, stream>>>(inv1, eq, rowpart, B, N,
-                                                   F, n_jt);
+                                                   F, Fg, n_jt);
   return cudaGetLastError();
 }
 
@@ -1158,14 +1284,15 @@ cudaError_t launch_fwd(const float* const* in, float* inv1, float* eq,
 // dw.
 template <int F, bool FIRST, bool WGRAD>
 cudaError_t launch_bwd(const float* const* in, float* const* out,
-                       float* scratch, int B, int N, int R,
+                       float* scratch, int B, int N, int Fg, int R,
                        cudaStream_t stream) {
   const size_t smem = bwd_smem_floats<F>(R) * sizeof(float);
   auto kern = pair_bwd_kernel<F, FIRST, WGRAD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_it = (N + TI - 1) / TI, n_jt = (N + TJ2 - 1) / TJ2;
+  const int n_it = (N + TI - 1) / TI;
+  const int n_jt = (N + K2Shape<(F > 128)>::TJ - 1) / K2Shape<(F > 128)>::TJ;
   const size_t nf = (size_t)N * F;
   uint2* wprep = reinterpret_cast<uint2*>(scratch);
   float* rowpart = scratch + 2 * k2_prep_offset(F, R, 10);
@@ -1174,33 +1301,34 @@ cudaError_t launch_bwd(const float* const* in, float* const* out,
   const size_t want = (k2_prep_offset(F, R, 10) + 255) / 256;
   pair_bwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
                          stream>>>(in[5], in[6], in[7], in[8], in[9], wprep,
-                                   F, R);
+                                   F, Fg, R);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n_blocks = B * n_it * n_jt;
   kern<<<n_blocks, kThreads, smem, stream>>>(
       in[0], in[1], in[2], in[3], in[4], wprep, in[10], in[11], out[1],
-      out[2], rowpart, colpart, wpart, N, R, n_it, n_jt);
+      out[2], rowpart, colpart, wpart, N, Fg, R, n_it, n_jt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)(((size_t)B * nf + 255) / 256);
+  const unsigned grid = (unsigned)(((size_t)B * N * Fg + 255) / 256);
   pair_bwd_nodesum_kernel<<<grid, 256, 0, stream>>>(
-      out[0], out[3], rowpart, colpart, B, N, F, n_it, n_jt, FIRST ? 1 : 0);
+      out[0], out[3], rowpart, colpart, B, N, F, Fg, n_it, n_jt,
+      FIRST ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess || !WGRAD) return err;
-  const size_t n = wgrad_size(F, R);
-  const size_t n_valid = FIRST ? (size_t)R * F + 2 * (size_t)F * F : n;
+  const size_t n = wgrad_size(Fg, R);
+  const size_t n_valid = FIRST ? (size_t)R * Fg + 2 * (size_t)Fg * Fg : n;
   pair_bwd_wsum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      out[4], wpart, n_blocks, n, n_valid);
+      out[4], wpart, n_blocks, R, F, Fg, n_valid);
   return cudaGetLastError();
 }
 
 template <int F>
 cudaError_t dispatch_bwd(bool first, bool wgrad, const float* const* in,
                          float* const* out, float* scratch, int B, int N,
-                         int R, cudaStream_t s) {
+                         int Fg, int R, cudaStream_t s) {
 #define NN_BWD(FI, WG) \
-  return launch_bwd<F, FI, WG>(in, out, scratch, B, N, R, s)
+  return launch_bwd<F, FI, WG>(in, out, scratch, B, N, Fg, R, s)
   if (first) {
     if (wgrad) NN_BWD(true, true);
     NN_BWD(true, false);
@@ -1216,7 +1344,9 @@ extern "C" {
 
 // K1. Shapes: np (B,N,F), rbf (B,N,N,R), dir (B,3,N,N), adj (B,N,N),
 // force (B,3,N,F), We (R,F), W* (F,F) -> inv1 (B,N,F), eq (B,3,N,F); all
-// fp32, contiguous, on the device of `stream`. F must be 32, 64 or 128.
+// fp32, contiguous, on the device of `stream`. Any F whose padded width
+// (padded_width) this library holds (NN_WIDTHS); else
+// cudaErrorInvalidValue.
 // Scratch: 16-byte aligned, nn_pair_scratch_floats(B, N, F, R, 2) floats;
 // max_blocks bounds the grid (the wrapper passes the SM count).
 int nn_pair_fwd(const float* np_, const float* rbf, const float* dir,
@@ -1227,16 +1357,16 @@ int nn_pair_fwd(const float* np_, const float* rbf, const float* dir,
                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* in[10] = {np_, rbf, dir, adj, force, We, W1a, W1b, W2a, W2b};
+  if (!library_runs(F)) return (int)cudaErrorInvalidValue;
 #define NN_FWD(FF)                                                          \
-  return first_layer                                                        \
-             ? launch_fwd<FF, true>(in, inv1, eq, scratch, B, N, R,         \
-                                    max_blocks, s)                          \
-             : launch_fwd<FF, false>(in, inv1, eq, scratch, B, N, R,        \
-                                     max_blocks, s)
-  switch (F) {
-    case 32: NN_FWD(32);
-    case 64: NN_FWD(64);
-    case 128: NN_FWD(128);
+  case FF:                                                                  \
+    return first_layer                                                      \
+               ? launch_fwd<FF, true>(in, inv1, eq, scratch, B, N, F, R,    \
+                                      max_blocks, s)                        \
+               : launch_fwd<FF, false>(in, inv1, eq, scratch, B, N, F, R,   \
+                                       max_blocks, s);
+  switch (padded_width(F)) {
+    NN_WIDTHS(NN_FWD)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef NN_FWD
@@ -1259,22 +1389,23 @@ int nn_pair_bwd(const float* np_, const float* rbf, const float* dir,
   const float* in[12] = {np_, rbf, dir, adj, force, We,
                          W1a, W1b, W2a, W2b, dinv1, deq};
   float* out[5] = {dnp, drbf, ddir, dforce, dw};
+  if (!library_runs(F)) return (int)cudaErrorInvalidValue;
 #define NN_BWD_F(FF) \
-  return (int)dispatch_bwd<FF>(first, wgrad, in, out, scratch, B, N, R, s)
-  switch (F) {
-    case 32: NN_BWD_F(32);
-    case 64: NN_BWD_F(64);
-    case 128: NN_BWD_F(128);
+  case FF:           \
+    return (int)dispatch_bwd<FF>(first, wgrad, in, out, scratch, B, N, F, R, s);
+  switch (padded_width(F)) {
+    NN_WIDTHS(NN_BWD_F)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef NN_BWD_F
 }
 
 // Scratch of one K2 launch without (kind 0) or with (kind 1) weight
-// cotangents, or of one K1 launch (kind 2), in floats.
+// cotangents, or of one K1 launch (kind 2), in floats, for true width F.
 size_t nn_pair_scratch_floats(int B, int N, int F, int R, int kind) {
-  return kind == 2 ? fwd_scratch_floats(B, N, F, R)
-                   : bwd_scratch_floats(B, N, F, R, kind != 0);
+  const int Fp = padded_width(F);
+  return kind == 2 ? fwd_scratch_floats(B, N, Fp, R)
+                   : bwd_scratch_floats(B, N, Fp, R, kind != 0);
 }
 
 }  // extern "C"

@@ -3,11 +3,19 @@
 //
 // Replaces the TPU kernels newtonnet_tpu/ops/pallas_dense.py:
 // _dual_fwd_kernel (K3) and _dual_bwd_kernel (K4). Both are templated on
-// the feature width F (32, 64 or 128), on FIRST (the stack's first layer,
-// where force, forcedot and npdot are zero: the phi2 branch and every npdot
-// term are skipped, and K4's dforce, dforcedot, dnpdot, dW2a and dW2b are
-// exact zeros) and on BF (bf16 mode). R (radial basis size) and N (atoms)
-// are runtime.
+// the padded feature width F (a multiple of 32), on FIRST (the stack's
+// first layer, where force, forcedot and npdot are zero: the phi2 branch
+// and every npdot term are skipped, and K4's dforce, dforcedot, dnpdot,
+// dW2a and dW2b are exact zeros) and on BF (bf16 mode). R (radial basis
+// size), N (atoms) and the tensors' true width Fg (1 <= Fg <= F) are
+// runtime.
+//
+// Any width: the tiles hold F columns, every F-wide tensor is read at its
+// true width Fg with the pad lanes zero-filled, and the weight preparation
+// writes zero pad rows and columns (a zero rounds to a zero bf16), so the
+// pad lanes of every slot buffer stay zero (silu(0) = 0) and change no
+// sum. The cross-block partials are kept at F in the scratch; the kernels
+// that sum them write the outputs at Fg.
 //
 // Computation, per molecule and pair slot (i, j), primal and tangent:
 //     me = rbf @ We, medot = rbfdot @ We
@@ -67,6 +75,9 @@
 //   h, hdot, g, gdot) and takes 199 KB of shared memory at F=128, R=20
 //   (K3 157 KB), and about 220 registers a thread: one block per SM, so
 //   the 180 blocks run in two waves (180 / 264 of the SM time).
+// * Past F=128 (wide) a tile has TJ=2 columns, M=16 pair slots (each warp
+//   takes all 16 rows and an eighth of the columns of a product), so that
+//   K4 fits: 225 KB at F=256, R=20 in bf16 mode.
 // * Code size: tc_pair and wgrad_pair are out of line (__noinline__), one
 //   copy per (F, BF), so that the kernels fit the instruction cache.
 //
@@ -92,8 +103,13 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int TI = kWarps;   // rows i per tile: one per warp
-constexpr int TJ = 4;        // columns j per tile: all held by one warp
-constexpr int M = TI * TJ;   // pair slots per tile; slot p = il * TJ + jl
+// Columns j per tile (all held by one warp) and pair slots per tile (slot
+// p = il * TJ + jl) at a padded width F: 4 and 32, and past 128 (wide) 2
+// and 16, so that the slot buffers fit the shared memory.
+template <int F>
+constexpr int kTJ = F > 128 ? 2 : 4;
+template <int F>
+constexpr int kM = TI * kTJ<F>;
 constexpr int kRowSlotsFwd = 8;  // K3 row partials: inv1, inv1dot, eq[3],
                                  // eqdot[3]
 constexpr int kRowSlotsBwd = 2;  // K4 row partials: dnp, dnpdot
@@ -103,6 +119,43 @@ constexpr int KW = 20;       // 32-bit words per staged chunk row: 16 + 4
 constexpr int kStages = 2;   // chunk slots of the weight ring
 
 __host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
+
+// The padded widths this library holds: 32, 64 and 128, or the one width
+// NN_WIDTH names (ops/_build.py builds a library per further width at its
+// first use).
+#ifdef NN_WIDTH
+#define NN_WIDTHS(X) X(NN_WIDTH)
+#else
+#define NN_WIDTHS(X) X(32) X(64) X(128)
+#endif
+// A library runs either its padded widths exactly (Fg == F, the masks of
+// the pad lanes folded away at compile time) or, built with NN_PADDED,
+// the widths below them (ops/_build.py builds one at the first call of
+// such a width).
+#ifdef NN_PADDED
+constexpr bool kPadded = true;
+#else
+constexpr bool kPadded = false;
+#endif
+constexpr int kMaxWidth = 256;  // the widest F the kernels take
+
+// The padded width a true width F runs at: the next multiple of 32, and
+// past 128 of 64 (the wide tiles split their columns eight ways).
+__host__ __device__ constexpr int padded_width(int F) {
+  return F > 128 ? (F + 63) / 64 * 64 : (F + 31) / 32 * 32;
+}
+
+// Whether this library's kind runs width F (its padded width, one of
+// NN_WIDTHS, is checked where the launch is picked).
+__host__ __device__ constexpr bool library_runs(int F) {
+  return F >= 1 && F <= kMaxWidth && (F != padded_width(F)) == kPadded;
+}
+
+// Index of element (row, f) of an (rows, Fg) tensor in its copy at padded
+// width F, for the partials and weight cotangents the scratch keeps at F.
+__host__ __device__ inline size_t padded_at(size_t e, int Fg, int F) {
+  return kPadded ? e / Fg * F + e % Fg : e;
+}
 
 template <int F, bool BF>
 struct Shape {
@@ -131,6 +184,17 @@ __host__ __device__ inline size_t prep_floats(int F, int R) {
 
 __host__ __device__ inline size_t wgrad_size(int F, int R) {
   return (size_t)R * F + (size_t)4 * F * F;
+}
+
+// Element e of the weight cotangents at width Fg (dWe, dW1a, dW1b, dW2a,
+// dW2b one after the other) in a block's partial at width F.
+__host__ __device__ inline size_t wgrad_padded_at(size_t e, int R, int F,
+                                                  int Fg) {
+  if (!kPadded) return e;
+  const size_t rf = (size_t)R * Fg, ff = (size_t)Fg * Fg;
+  if (e < rf) return padded_at(e, Fg, F);
+  const size_t k = (e - rf) / ff;
+  return (size_t)R * F + k * F * F + padded_at(e - rf - k * ff, Fg, F);
 }
 
 __device__ __forceinline__ float sigmoid_f(float x) {
@@ -215,7 +279,7 @@ __device__ void prep_weights(const float* __restrict__ We,
                              const float* __restrict__ W1b,
                              const float* __restrict__ W2a,
                              const float* __restrict__ W2b, void* out, int F,
-                             int R) {
+                             int Fg, int R) {
   const int Rp = pad32(R);
   const size_t n_e = (size_t)F * Rp, total = prep_floats(F, R);
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
@@ -223,14 +287,16 @@ __device__ void prep_weights(const float* __restrict__ We,
     float v;
     if (e < n_e) {
       const int n = (int)(e / Rp), q = (int)(e % Rp);
-      v = q < R ? We[(size_t)q * F + n] : 0.0f;
+      v = q < R && n < Fg ? We[(size_t)q * Fg + n] : 0.0f;
     } else {
       const size_t e2 = e - n_e, ff = (size_t)F * F;
       const int k = (int)(e2 / ff), r = (int)(e2 % ff);
       const int n = r / F, q = r % F;
       const float* W = (k & 3) == 0 ? W1a : (k & 3) == 1 ? W1b
                        : (k & 3) == 2 ? W2a : W2b;
-      v = k < 4 ? W[(size_t)q * F + n] : W[(size_t)n * F + q];
+      v = n >= Fg || q >= Fg ? 0.0f
+          : k < 4            ? W[(size_t)q * Fg + n]
+                             : W[(size_t)n * Fg + q];
     }
     if constexpr (BF)
       static_cast<__nv_bfloat16*>(out)[e] = __float2bfloat16_rn(v);
@@ -243,15 +309,15 @@ template <bool BF>
 __global__ void dual_fwd_prep_kernel(const float* We, const float* W1a,
                                      const float* W1b, const float* W2a,
                                      const float* W2b, void* out, int F,
-                                     int R) {
-  prep_weights<BF>(We, W1a, W1b, W2a, W2b, out, F, R);
+                                     int Fg, int R) {
+  prep_weights<BF>(We, W1a, W1b, W2a, W2b, out, F, Fg, R);
 }
 template <bool BF>
 __global__ void dual_bwd_prep_kernel(const float* We, const float* W1a,
                                      const float* W1b, const float* W2a,
                                      const float* W2b, void* out, int F,
-                                     int R) {
-  prep_weights<BF>(We, W1a, W1b, W2a, W2b, out, F, R);
+                                     int Fg, int R) {
+  prep_weights<BF>(We, W1a, W1b, W2a, W2b, out, F, Fg, R);
 }
 
 // Chunk ch of a prepared weight (F rows of Qp elements) into a ring slot:
@@ -271,9 +337,11 @@ __device__ __forceinline__ void stage_chunk(const char* __restrict__ Bt,
 // D1[m*LD + n] = sum_q A1[m*lda + q] B(q, n) and D2 likewise from A2, for
 // the tile's M slot rows m and n < F, q < Qp (Qp a multiple of 32; A's
 // columns past the true depth hold zeros). Bt is the prepared weight:
-// B(q, n) = Bt[n*Qp + q]. Warp w computes the 16-row half (w & 1) and F/4
-// columns. Each chunk accumulates in fresh tensor-core registers and is
-// added to the running sum on the CUDA cores. A1 and A2 are read by every
+// B(q, n) = Bt[n*Qp + q]. Warp w computes the 16-row group w % RG and F/CG
+// columns (RG = M/16 groups, CG = 8/RG: the 16-row half (w & 1) and F/4
+// columns, and past F=128 all 16 rows and F/8 columns). Each chunk
+// accumulates in fresh tensor-core registers and is added to the running
+// sum on the CUDA cores. A1 and A2 are read by every
 // warp, so they must be written before the call; D1 and D2 are written at
 // its end and must be free during it (neither may be A1 or A2). Ends with
 // a __syncthreads, after which the D rows may be read by any thread. All
@@ -285,11 +353,13 @@ __device__ __noinline__ void tc_pair(const float* __restrict__ A1,
                                      unsigned* ring, float* __restrict__ D1,
                                      float* __restrict__ D2) {
   using S = Shape<F, BF>;
-  constexpr int NT = F / 32;  // 16 x 8 tiles per warp and product
+  constexpr int RG = kM<F> / 16;  // 16-row groups
+  constexpr int CG = kWarps / RG;  // column groups: F/CG columns a warp
+  constexpr int NT = F / (8 * CG);  // 16 x 8 tiles per warp and product
   const char* Bt = static_cast<const char*>(Bt_);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * (F / 4);
+  const int m0 = (warp % RG) * 16, n0 = (warp / RG) * (F / CG);
   float tot[2][NT][4];
 #pragma unroll
   for (int x = 0; x < 2; ++x)
@@ -398,6 +468,7 @@ __device__ __noinline__ void wgrad_pair(const float* __restrict__ A1,
                                         const float* __restrict__ B2,
                                         int lda, int qrows,
                                         float* __restrict__ part) {
+  constexpr int M = kM<F>;
   constexpr int LD = Shape<F, BF>::LD;
   constexpr int NG = F / 32;  // 32-column groups per 16-row band
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -468,12 +539,15 @@ __device__ __noinline__ void wgrad_pair(const float* __restrict__ A1,
   }
 }
 
-// Row-side inputs of the tile's TI rows (zero past N): TI x F each.
+// Row-side inputs of the tile's TI rows (zero past N and past Fg): TI x F
+// each, from rows of Fg.
 __device__ void load_rows(const float* __restrict__ src, int b, int i0,
-                          int N, int F, float* dst) {
+                          int N, int F, int Fg, float* dst) {
   for (int idx = threadIdx.x; idx < TI * F; idx += kThreads) {
     const int il = idx / F, f = idx - il * F;
-    dst[idx] = i0 + il < N ? src[((size_t)b * N + i0 + il) * F + f] : 0.0f;
+    dst[idx] = i0 + il < N && f < Fg
+                   ? src[((size_t)b * N + i0 + il) * Fg + f]
+                   : 0.0f;
   }
 }
 
@@ -481,7 +555,7 @@ __device__ void load_rows(const float* __restrict__ src, int b, int i0,
 // and forcedot_j; the per-slot adj, dir, dirdot, rbf and rbfdot (rows of
 // stride lr, zeros from R to pad32(R)). Slots outside the molecule read as
 // zero, so they contribute nothing and stay finite (silu(0) = 0).
-template <bool FIRST>
+template <int F, bool FIRST>
 __device__ void load_tile(const float* __restrict__ np_,
                           const float* __restrict__ npdot,
                           const float* __restrict__ rbf,
@@ -491,23 +565,27 @@ __device__ void load_tile(const float* __restrict__ np_,
                           const float* __restrict__ adj,
                           const float* __restrict__ force,
                           const float* __restrict__ forcedot, int b, int i0,
-                          int j0, int N, int F, int R, int lr, float* npj_s,
+                          int j0, int N, int Fg, int R, int lr,
+                          float* npj_s,
                           float* npdotj_s, float* fj_s, float* fjdot_s,
                           float* adj_s, float* dir_s, float* dirdot_s,
                           float* rbf_s, float* rbfdot_s) {
+  constexpr int TJ = kTJ<F>, M = kM<F>;
   for (int idx = threadIdx.x; idx < TJ * F; idx += kThreads) {
     const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
-    const size_t at = ((size_t)b * N + j) * F + f;
-    npj_s[idx] = j < N ? np_[at] : 0.0f;
-    if (!FIRST) npdotj_s[idx] = j < N ? npdot[at] : 0.0f;
+    const bool ok = j < N && f < Fg;
+    const size_t at = ((size_t)b * N + j) * Fg + f;
+    npj_s[idx] = ok ? np_[at] : 0.0f;
+    if (!FIRST) npdotj_s[idx] = ok ? npdot[at] : 0.0f;
   }
   if (!FIRST) {
     for (int idx = threadIdx.x; idx < 3 * TJ * F; idx += kThreads) {
       const int d = idx / (TJ * F), rem = idx - d * (TJ * F);
       const int jl = rem / F, f = rem - jl * F, j = j0 + jl;
-      const size_t at = (((size_t)b * 3 + d) * N + j) * F + f;
-      fj_s[idx] = j < N ? force[at] : 0.0f;
-      fjdot_s[idx] = j < N ? forcedot[at] : 0.0f;
+      const bool ok = j < N && f < Fg;
+      const size_t at = (((size_t)b * 3 + d) * N + j) * Fg + f;
+      fj_s[idx] = ok ? force[at] : 0.0f;
+      fjdot_s[idx] = ok ? forcedot[at] : 0.0f;
     }
   }
   for (int idx = threadIdx.x; idx < 7 * M; idx += kThreads) {
@@ -542,6 +620,7 @@ __device__ void messages(const float* me_s, const float* medot_s,
                          const float* npi_s, const float* npdoti_s,
                          const float* npj_s, const float* npdotj_s,
                          const float* adj_s, float* msg_s, float* msgdot_s) {
+  constexpr int TJ = kTJ<F>;
   constexpr int C = F / 32;
   constexpr int LD = Shape<F, BF>::LD;
   const int lane = threadIdx.x & 31;
@@ -578,6 +657,7 @@ struct Tile {
 // ------------------------------------------------------------------ K3 --
 template <int F, bool BF>
 constexpr size_t fwd_smem_floats(int R) {
+  constexpr int TJ = kTJ<F>, M = kM<F>;
   return (size_t)kStages * Shape<F, BF>::RING +
          (size_t)6 * M * Shape<F, BF>::LD + (size_t)2 * TI * F +
          (size_t)8 * TJ * F + (size_t)7 * M + (size_t)2 * M * ldr(R, BF);
@@ -593,8 +673,10 @@ dual_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
                 const float* __restrict__ adj, const float* __restrict__ force,
                 const float* __restrict__ forcedot,
                 const char* __restrict__ wprep, float* __restrict__ rowpart,
-                int N, int R, int n_it, int n_jt) {
+                int N, int Fg_, int R, int n_it, int n_jt) {
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
   using S = Shape<F, BF>;
+  constexpr int TJ = kTJ<F>, M = kM<F>;
   constexpr int C = F / 32;
   constexpr int LD = S::LD;
   const int lr = ldr(R, BF), Rp = pad32(R);
@@ -624,11 +706,12 @@ dual_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
   const int warp = threadIdx.x >> 5;
   const size_t es = S::ES;
 
-  load_rows(np_, b, i0, N, F, npi_s);
-  if (!FIRST) load_rows(npdot, b, i0, N, F, npdoti_s);
-  load_tile<FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force, forcedot,
-                   b, i0, j0, N, F, R, lr, npj_s, npdotj_s, fj_s, fjdot_s,
-                   adj_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
+  load_rows(np_, b, i0, N, F, Fg, npi_s);
+  if (!FIRST) load_rows(npdot, b, i0, N, F, Fg, npdoti_s);
+  load_tile<F, FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force,
+                      forcedot, b, i0, j0, N, Fg, R, lr, npj_s, npdotj_s,
+                      fj_s, fjdot_s, adj_s, dir_s, dirdot_s, rbf_s,
+                      rbfdot_s);
   tc_pair<F, BF>(rbf_s, rbfdot_s, lr, Rp, wprep, ring, h_s, hdot_s);
   messages<F, FIRST, BF>(h_s, hdot_s, npi_s, npdoti_s, npj_s, npdotj_s,
                          adj_s, msg_s, msgdot_s);
@@ -714,11 +797,13 @@ __global__ void dual_fwd_rowsum_kernel(float* __restrict__ inv1,
                                        float* __restrict__ inv1dot,
                                        float* __restrict__ eqdot,
                                        const float* __restrict__ rowpart,
-                                       int B, int N, int F, int n_jt) {
-  const size_t nf = (size_t)N * F;
+                                       int B, int N, int F, int Fg,
+                                       int n_jt) {
+  const size_t nf = (size_t)N * F, nfg = (size_t)N * Fg;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * nf) return;
-  const size_t b = idx / nf, rem = idx - b * nf;
+  if (idx >= (size_t)B * nfg) return;
+  const size_t b = idx / nfg, remg = idx - b * nfg;
+  const size_t rem = padded_at(remg, Fg, F);
   float s[kRowSlotsFwd];
   for (int k = 0; k < kRowSlotsFwd; ++k) s[k] = 0.0f;
   for (int jt = 0; jt < n_jt; ++jt) {
@@ -728,14 +813,15 @@ __global__ void dual_fwd_rowsum_kernel(float* __restrict__ inv1,
   inv1[idx] = s[0];
   inv1dot[idx] = s[1];
   for (int d = 0; d < 3; ++d) {
-    eq[(b * 3 + d) * nf + rem] = s[2 + d];
-    eqdot[(b * 3 + d) * nf + rem] = s[5 + d];
+    eq[(b * 3 + d) * nfg + remg] = s[2 + d];
+    eqdot[(b * 3 + d) * nfg + remg] = s[5 + d];
   }
 }
 
 // ------------------------------------------------------------------ K4 --
 template <int F, bool BF>
 constexpr size_t bwd_smem_floats(int R) {
+  constexpr int TJ = kTJ<F>, M = kM<F>;
   return (size_t)kStages * Shape<F, BF>::RING +
          (size_t)8 * M * Shape<F, BF>::LD + (size_t)4 * TI * F +
          (size_t)8 * TJ * F + (size_t)7 * M + (size_t)2 * M * ldr(R, BF);
@@ -754,8 +840,10 @@ dual_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
                 const float* __restrict__ dq, const float* __restrict__ didot,
                 const float* __restrict__ dqdot, float* __restrict__ rowpart,
                 float* __restrict__ colpart, float* __restrict__ wpart, int N,
-                int R, int n_it, int n_jt) {
+                int Fg_, int R, int n_it, int n_jt) {
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
   using S = Shape<F, BF>;
+  constexpr int TJ = kTJ<F>, M = kM<F>;
   constexpr int C = F / 32;
   constexpr int LD = S::LD;
   const int lr = ldr(R, BF), Rp = pad32(R);
@@ -788,15 +876,16 @@ dual_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int i = i0 + warp;
-  const size_t es = S::ES, nf = (size_t)N * F;
+  const size_t es = S::ES, nf = (size_t)N * F, nfg = (size_t)N * Fg;
 
-  load_rows(np_, b, i0, N, F, npi_s);
-  if (!FIRST) load_rows(npdot, b, i0, N, F, npdoti_s);
-  load_rows(di, b, i0, N, F, di_s);
-  load_rows(didot, b, i0, N, F, didot_s);
-  load_tile<FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force, forcedot,
-                   b, i0, j0, N, F, R, lr, npj_s, npdotj_s, fj_s, fjdot_s,
-                   adj_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
+  load_rows(np_, b, i0, N, F, Fg, npi_s);
+  if (!FIRST) load_rows(npdot, b, i0, N, F, Fg, npdoti_s);
+  load_rows(di, b, i0, N, F, Fg, di_s);
+  load_rows(didot, b, i0, N, F, Fg, didot_s);
+  load_tile<F, FIRST>(np_, npdot, rbf, rbfdot, dir, dirdot, adj, force,
+                      forcedot, b, i0, j0, N, Fg, R, lr, npj_s, npdotj_s,
+                      fj_s, fjdot_s, adj_s, dir_s, dirdot_s, rbf_s,
+                      rbfdot_s);
   tc_pair<F, BF>(rbf_s, rbfdot_s, lr, Rp, wprep, ring, p_s, pdot_s);
   messages<F, FIRST, BF>(p_s, pdot_s, npi_s, npdoti_s, npj_s, npdotj_s,
                          adj_s, msg_s, msgdot_s);
@@ -831,13 +920,14 @@ dual_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
         const int jl = idx / F, f = idx - jl * F, j = j0 + jl;
         if (j >= N) continue;
         float sf[3] = {0.0f, 0.0f, 0.0f}, sfd[3] = {0.0f, 0.0f, 0.0f};
-        for (int il = 0; il < TI && i0 + il < N; ++il) {
+        for (int il = 0; il < TI && i0 + il < N && f < Fg; ++il) {
           const int p = il * TJ + jl;
           const float phi = g_s[p * LD + f] * adj_s[p];
           const float phid = gdot_s[p * LD + f] * adj_s[p];
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
-            const size_t at = ((size_t)b * 3 + d) * nf + (size_t)(i0 + il) * F + f;
+            const size_t at =
+                ((size_t)b * 3 + d) * nfg + (size_t)(i0 + il) * Fg + f;
             const float q = dq[at], qd = dqdot[at];
             sf[d] += phi * q + phid * qd;
             sfd[d] += phi * qd;
@@ -865,9 +955,10 @@ dual_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ npdot,
         float dphi = 0.0f, dphidot = 0.0f;
 #pragma unroll
         for (int d = 0; d < 3; ++d) {
-          const size_t at = ((size_t)b * 3 + d) * nf + (size_t)i * F + f;
-          const float q = i < N ? dq[at] : 0.0f;
-          const float qd = i < N ? dqdot[at] : 0.0f;
+          const bool ok = i < N && f < Fg;
+          const size_t at = ((size_t)b * 3 + d) * nfg + (size_t)i * Fg + f;
+          const float q = ok ? dq[at] : 0.0f;
+          const float qd = ok ? dqdot[at] : 0.0f;
           const float x = br == 0 ? dir_s[d * M + p] : fj_s[(d * TJ + r) * F + f];
           const float xdot =
               br == 0 ? dirdot_s[d * M + p] : fjdot_s[(d * TJ + r) * F + f];
@@ -979,12 +1070,13 @@ __global__ void dual_bwd_nodesum_kernel(float* __restrict__ dnp,
                                         float* __restrict__ dforcedot,
                                         const float* __restrict__ rowpart,
                                         const float* __restrict__ colpart,
-                                        int B, int N, int F, int n_it,
-                                        int n_jt, int first) {
-  const size_t nf = (size_t)N * F;
+                                        int B, int N, int F, int Fg,
+                                        int n_it, int n_jt, int first) {
+  const size_t nf = (size_t)N * F, nfg = (size_t)N * Fg;
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * nf) return;
-  const size_t b = idx / nf, rem = idx - b * nf;
+  if (idx >= (size_t)B * nfg) return;
+  const size_t b = idx / nfg, remg = idx - b * nfg;
+  const size_t rem = padded_at(remg, Fg, F);
   float s[kColSlots];
   for (int k = 0; k < kColSlots; ++k) s[k] = 0.0f;
   for (int jt = 0; jt < n_jt; ++jt) {
@@ -1001,28 +1093,33 @@ __global__ void dual_bwd_nodesum_kernel(float* __restrict__ dnp,
   dnp[idx] = s[0];
   dnpdot[idx] = s[1];
   for (int d = 0; d < 3; ++d) {
-    dforce[(b * 3 + d) * nf + rem] = s[2 + d];
-    dforcedot[(b * 3 + d) * nf + rem] = s[5 + d];
+    dforce[(b * 3 + d) * nfg + remg] = s[2 + d];
+    dforcedot[(b * 3 + d) * nfg + remg] = s[5 + d];
   }
 }
 
 // out[e] = sum_blk part[blk, e] for e < n_valid; 0 for the rest (the
-// first layer's W2a/W2b). Fixed summation order.
+// first layer's W2a/W2b). out is at width Fg, the partials at F. Fixed
+// summation order.
 __global__ void dual_bwd_wsum_kernel(float* __restrict__ out,
                                      const float* __restrict__ part,
-                                     int n_blocks, size_t n, size_t n_valid) {
+                                     int n_blocks, int R, int F, int Fg,
+                                     size_t n_valid) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  if (e >= wgrad_size(Fg, R)) return;
   float s = 0.0f;
-  if (e < n_valid)
-    for (int k = 0; k < n_blocks; ++k) s += part[(size_t)k * n + e];
+  if (e < n_valid) {
+    const size_t n = wgrad_size(F, R), at = wgrad_padded_at(e, R, F, Fg);
+    for (int k = 0; k < n_blocks; ++k) s += part[(size_t)k * n + at];
+  }
   out[e] = s;
 }
 
 // Scratch of one launch, in floats: the prepared weights, then K3's row
 // partials, or K4's row, column and weight partials.
 size_t scratch_floats(int B, int N, int F, int R, bool bwd) {
-  const size_t n_it = (N + TI - 1) / TI, n_jt = (N + TJ - 1) / TJ;
+  const int tj = F > 128 ? kTJ<256> : kTJ<128>;
+  const size_t n_it = (N + TI - 1) / TI, n_jt = (N + tj - 1) / tj;
   const size_t nf = (size_t)N * F;
   if (!bwd) return prep_floats(F, R) + B * n_jt * kRowSlotsFwd * nf;
   return prep_floats(F, R) + B * n_jt * kRowSlotsBwd * nf +
@@ -1031,38 +1128,38 @@ size_t scratch_floats(int B, int N, int F, int R, bool bwd) {
 
 template <class Prep>
 cudaError_t launch_prep(Prep prep, const float* const* in, void* out, int F,
-                        int R, cudaStream_t stream) {
+                        int Fg, int R, cudaStream_t stream) {
   const size_t total = prep_floats(F, R);
   const size_t want = (total + 255) / 256;
   const unsigned grid = (unsigned)(want < 264 ? want : 264);
   prep<<<grid, 256, 0, stream>>>(in[9], in[10], in[11], in[12], in[13], out,
-                                 F, R);
+                                 F, Fg, R);
   return cudaGetLastError();
 }
 
 template <int F, bool FIRST, bool BF>
 cudaError_t launch_fwd(const float* const* in, float* const* out,
-                       float* scratch, int B, int N, int R,
+                       float* scratch, int B, int N, int Fg, int R,
                        cudaStream_t stream) {
   const size_t smem = fwd_smem_floats<F, BF>(R) * sizeof(float);
   auto kern = dual_fwd_kernel<F, FIRST, BF>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_it = (N + TI - 1) / TI, n_jt = (N + TJ - 1) / TJ;
+  const int n_it = (N + TI - 1) / TI, n_jt = (N + kTJ<F> - 1) / kTJ<F>;
   char* wprep = reinterpret_cast<char*>(scratch);
   float* rowpart = scratch + prep_floats(F, R);
-  err = launch_prep(dual_fwd_prep_kernel<BF>, in, wprep, F, R, stream);
+  err = launch_prep(dual_fwd_prep_kernel<BF>, in, wprep, F, Fg, R, stream);
   if (err != cudaSuccess) return err;
   const unsigned n_blocks = (unsigned)(B * n_it * n_jt);
   kern<<<n_blocks, kThreads, smem, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], wprep,
-      rowpart, N, R, n_it, n_jt);
+      rowpart, N, Fg, R, n_it, n_jt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)(((size_t)B * N * F + 255) / 256);
+  const unsigned grid = (unsigned)(((size_t)B * N * Fg + 255) / 256);
   dual_fwd_rowsum_kernel<<<grid, 256, 0, stream>>>(
-      out[0], out[1], out[2], out[3], rowpart, B, N, F, n_jt);
+      out[0], out[1], out[2], out[3], rowpart, B, N, F, Fg, n_jt);
   return cudaGetLastError();
 }
 
@@ -1070,56 +1167,56 @@ cudaError_t launch_fwd(const float* const* in, float* const* out,
 // dforce, dforcedot, dw.
 template <int F, bool FIRST, bool BF>
 cudaError_t launch_bwd(const float* const* in, float* const* out,
-                       float* scratch, int B, int N, int R,
+                       float* scratch, int B, int N, int Fg, int R,
                        cudaStream_t stream) {
   const size_t smem = bwd_smem_floats<F, BF>(R) * sizeof(float);
   auto kern = dual_bwd_kernel<F, FIRST, BF>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const int n_it = (N + TI - 1) / TI, n_jt = (N + TJ - 1) / TJ;
+  const int n_it = (N + TI - 1) / TI, n_jt = (N + kTJ<F> - 1) / kTJ<F>;
   const size_t nf = (size_t)N * F;
   char* wprep = reinterpret_cast<char*>(scratch);
   float* rowpart = scratch + prep_floats(F, R);
   float* colpart = rowpart + (size_t)B * n_jt * kRowSlotsBwd * nf;
   float* wpart = colpart + (size_t)B * n_it * kColSlots * nf;
-  err = launch_prep(dual_bwd_prep_kernel<BF>, in, wprep, F, R, stream);
+  err = launch_prep(dual_bwd_prep_kernel<BF>, in, wprep, F, Fg, R, stream);
   if (err != cudaSuccess) return err;
   const int n_blocks = B * n_it * n_jt;
   kern<<<n_blocks, kThreads, smem, stream>>>(
       in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7], in[8], wprep,
-      in[14], in[15], in[16], in[17], rowpart, colpart, wpart, N, R, n_it,
+      in[14], in[15], in[16], in[17], rowpart, colpart, wpart, N, Fg, R, n_it,
       n_jt);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)(((size_t)B * nf + 255) / 256);
+  const unsigned grid = (unsigned)(((size_t)B * N * Fg + 255) / 256);
   dual_bwd_nodesum_kernel<<<grid, 256, 0, stream>>>(
-      out[0], out[1], out[2], out[3], rowpart, colpart, B, N, F, n_it, n_jt,
-      FIRST ? 1 : 0);
+      out[0], out[1], out[2], out[3], rowpart, colpart, B, N, F, Fg, n_it,
+      n_jt, FIRST ? 1 : 0);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t n = wgrad_size(F, R);
-  const size_t n_valid = FIRST ? (size_t)R * F + 2 * (size_t)F * F : n;
+  const size_t n = wgrad_size(Fg, R);
+  const size_t n_valid = FIRST ? (size_t)R * Fg + 2 * (size_t)Fg * Fg : n;
   const unsigned wgrid = (unsigned)((n + 255) / 256);
-  dual_bwd_wsum_kernel<<<wgrid, 256, 0, stream>>>(out[4], wpart, n_blocks, n,
-                                                  n_valid);
+  dual_bwd_wsum_kernel<<<wgrid, 256, 0, stream>>>(out[4], wpart, n_blocks, R,
+                                                  F, Fg, n_valid);
   return cudaGetLastError();
 }
 
 typedef cudaError_t (*launch_fn)(const float* const*, float* const*, float*,
-                                 int, int, int, cudaStream_t);
+                                 int, int, int, int, cudaStream_t);
 
-// The instantiation for (F, first, bf16), or nullptr for an F the kernels
-// are not built for.
+// The instantiation for (F, first, bf16), where F is the true width, or
+// nullptr for an F whose padded width the library does not hold.
 template <template <int, bool, bool> class L>
 launch_fn pick(int F, bool first, bool bf) {
-#define NN_PICK(FF)                                                  \
-  return first ? (bf ? L<FF, true, true>::fn : L<FF, true, false>::fn) \
-               : (bf ? L<FF, false, true>::fn : L<FF, false, false>::fn)
-  switch (F) {
-    case 32: NN_PICK(32);
-    case 64: NN_PICK(64);
-    case 128: NN_PICK(128);
+  if (!library_runs(F)) return nullptr;
+#define NN_PICK(FF)                                                   \
+  case FF:                                                            \
+    return first ? (bf ? L<FF, true, true>::fn : L<FF, true, false>::fn) \
+                 : (bf ? L<FF, false, true>::fn : L<FF, false, false>::fn);
+  switch (padded_width(F)) {
+    NN_WIDTHS(NN_PICK)
     default: return nullptr;
   }
 #undef NN_PICK
@@ -1142,7 +1239,8 @@ extern "C" {
 // (B,3,N,N); adj (B,N,N); force, forcedot (B,3,N,F); We (R,F); W* (F,F)
 // -> inv1, inv1dot (B,N,F); eq, eqdot (B,3,N,F). Scratch: 16-byte aligned,
 // nn_dual_scratch_floats(B, N, F, R, 0) floats. All fp32, contiguous, on
-// the device of `stream`. F must be 32, 64 or 128; bf16 != 0 rounds the
+// the device of `stream`. Any F whose padded width (padded_width) this
+// library holds (NN_WIDTHS), else cudaErrorInvalidValue; bf16 != 0 rounds the
 // product operands to bf16.
 int nn_dual_fwd(const float* np_, const float* npdot, const float* rbf,
                 const float* rbfdot, const float* dir, const float* dirdot,
@@ -1156,7 +1254,7 @@ int nn_dual_fwd(const float* np_, const float* npdot, const float* rbf,
   const float* in[14] = {np_, npdot, rbf, rbfdot, dir, dirdot, adj,
                          force, forcedot, We, W1a, W1b, W2a, W2b};
   float* out[4] = {inv1, eq, inv1dot, eqdot};
-  return (int)fn(in, out, scratch, B, N, R,
+  return (int)fn(in, out, scratch, B, N, F, R,
                  static_cast<cudaStream_t>(stream));
 }
 
@@ -1179,28 +1277,29 @@ int nn_dual_bwd(const float* np_, const float* npdot, const float* rbf,
                          adj, force, forcedot, We, W1a, W1b,
                          W2a, W2b, di, dq, didot, dqdot};
   float* out[5] = {dnp, dnpdot, dforce, dforcedot, dw};
-  return (int)fn(in, out, scratch, B, N, R,
+  return (int)fn(in, out, scratch, B, N, F, R,
                  static_cast<cudaStream_t>(stream));
 }
 
-// Scratch of one K3 (kind 0) or K4 (kind 1) launch, in floats.
+// Scratch of one K3 (kind 0) or K4 (kind 1) launch at true width F, in
+// floats.
 size_t nn_dual_scratch_floats(int B, int N, int F, int R, int kind) {
-  return scratch_floats(B, N, F, R, kind != 0);
+  return scratch_floats(B, N, padded_width(F), R, kind != 0);
 }
 
 // Dynamic shared memory of one block of K3 (kind 0) or K4 (kind 1) in
-// bf16 (bf16 != 0) or fp32 mode, in bytes; 0 for an F the kernels are not
-// built for.
+// bf16 (bf16 != 0) or fp32 mode at true width F, in bytes; 0 for an F
+// whose padded width this library does not hold.
 size_t nn_dual_smem_bytes(int F, int R, int kind, int bf16) {
+  if (F < 1 || F > kMaxWidth) return 0;
 #define NN_SMEM(FF)                                                     \
-  return (kind ? (bf16 ? bwd_smem_floats<FF, true>(R)                   \
-                       : bwd_smem_floats<FF, false>(R))                 \
-               : (bf16 ? fwd_smem_floats<FF, true>(R)                   \
-                       : fwd_smem_floats<FF, false>(R))) * sizeof(float)
-  switch (F) {
-    case 32: NN_SMEM(32);
-    case 64: NN_SMEM(64);
-    case 128: NN_SMEM(128);
+  case FF:                                                              \
+    return (kind ? (bf16 ? bwd_smem_floats<FF, true>(R)                 \
+                         : bwd_smem_floats<FF, false>(R))               \
+                 : (bf16 ? fwd_smem_floats<FF, true>(R)                 \
+                         : fwd_smem_floats<FF, false>(R))) * sizeof(float);
+  switch (padded_width(F)) {
+    NN_WIDTHS(NN_SMEM)
     default: return 0;
   }
 #undef NN_SMEM

@@ -2,13 +2,25 @@
 //
 // Replaces the TPU kernels of newtonnet_tpu/ops/pallas_klist.py:
 // _fwd_kernel (K5), _bwd_kernel (K6), _dual_fwd_kernel (K7) and
-// _dual_bwd_kernel (K8). All are templated on the feature width F (32, 64
-// or 128), on FIRST (the stack's first layer: cat holds np_j only, C = F,
-// and the phi2 branch is skipped) and on the edge storage type E (float or
-// __nv_bfloat16) of cat, rbf and their tangents; every read converts to
-// fp32, and K6/K8 store the per-edge cotangents dcat, dcatdot and drbf in E.
-// K6 is also templated on WGRAD (the five weight cotangents; off in the
-// force pass). R (radial basis), N (atoms) and K (list width) are runtime.
+// _dual_bwd_kernel (K8). All are templated on the padded feature width F
+// (a multiple of 32), on FIRST (the stack's first layer: cat holds np_j
+// only, C = F, and the phi2 branch is skipped) and on the edge storage type
+// E (float or __nv_bfloat16) of cat, rbf and their tangents; every read
+// converts to fp32, and K6/K8 store the per-edge cotangents dcat, dcatdot
+// and drbf in E. K6 is also templated on WGRAD (the five weight
+// cotangents; off in the force pass). R (radial basis), N (atoms), K (list
+// width) and the tensors' true width Fg (1 <= Fg <= F) are runtime.
+//
+// Any width: the tiles, rings and slot buffers hold F columns. Every
+// F-wide tensor is read at its true width Fg, the edge tensors cat and
+// catdot (blocks at offsets d*Fg) included, with the pad lanes Fg..F
+// zero-filled in registers or shared memory; outputs are stored at Fg
+// (dcat, dcatdot included). No edge tensor is copied at another width.
+// The weight preparations write zero pad rows and columns (K8, which
+// stages the weights as they are, reads a zero-padded copy that its launch
+// writes first), so the pad lanes of every slot buffer stay zero (silu(0)
+// = 0) and change no sum. The weight partials are kept at F; the kernel
+// that sums them writes the cotangents at Fg.
 //
 // Computation, per molecule b, atom i and list slot k (neighbour j):
 //     npj = cat[i,k,:F], force_j[d] = cat[i,k,(d+1)F:(d+2)F]
@@ -55,9 +67,56 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int TI = kWarps;  // atoms i per block in K6-K8: one per warp
-constexpr int TJ_D = 4;     // list slots per tile in K7/K8
+// list slots per tile in K7/K8: 4, and past F=128 (wide) 2
+__host__ __device__ constexpr int tj_d(int F) { return F > 128 ? 2 : 4; }
+
+// The XOR swizzle of a ring row of rw pairs (rw >= 8): pair q of row r at
+// q ^ ring_swz(r, rw), so that the B fragments' 64-bit loads spread over
+// the banks.
+__host__ __device__ constexpr int ring_swz(int r, int rw) {
+  return (r & (rw >= 16 ? 3 : 1)) << 2;
+}
 
 typedef __nv_bfloat16 bf16;
+
+__host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
+
+// The padded widths this library holds: 32, 64 and 128, or the one width
+// NN_WIDTH names (ops/_build.py builds a library per further width at its
+// first use).
+#ifdef NN_WIDTH
+#define NN_WIDTHS(X) X(NN_WIDTH)
+#else
+#define NN_WIDTHS(X) X(32) X(64) X(128)
+#endif
+// A library runs either its padded widths exactly (Fg == F, the masks of
+// the pad lanes folded away at compile time) or, built with NN_PADDED,
+// the widths below them (ops/_build.py builds one at the first call of
+// such a width).
+#ifdef NN_PADDED
+constexpr bool kPadded = true;
+#else
+constexpr bool kPadded = false;
+#endif
+constexpr int kMaxWidth = 256;  // the widest F the kernels take
+
+// The padded width a true width F runs at: the next multiple of 32, and
+// past 128 of 64 (the wide tiles split their columns eight ways).
+__host__ __device__ constexpr int padded_width(int F) {
+  return F > 128 ? (F + 63) / 64 * 64 : (F + 31) / 32 * 32;
+}
+
+// Whether this library's kind runs width F (its padded width, one of
+// NN_WIDTHS, is checked where the launch is picked).
+__host__ __device__ constexpr bool library_runs(int F) {
+  return F >= 1 && F <= kMaxWidth && (F != padded_width(F)) == kPadded;
+}
+
+// Index of element (row, f) of an (rows, Fg) tensor in its copy at padded
+// width F.
+__host__ __device__ inline size_t padded_at(size_t e, int Fg, int F) {
+  return kPadded ? e / Fg * F + e % Fg : e;
+}
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
@@ -100,12 +159,15 @@ __host__ __device__ inline size_t slot_at(int b, int i, int k, int N,
   return ((size_t)b * N + i) * K + k;
 }
 
-// Row-side inputs of the block's `rows` atoms (zero past N): rows x F.
+// Row-side inputs of the block's `rows` atoms (zero past N and past Fg):
+// rows x F, from rows of Fg.
 __device__ void load_rows(const float* __restrict__ src, int b, int i0,
-                          int N, int F, float* dst, int rows = TI) {
+                          int N, int F, int Fg, float* dst, int rows = TI) {
   for (int idx = threadIdx.x; idx < rows * F; idx += kThreads) {
     const int il = idx / F, f = idx - il * F;
-    dst[idx] = i0 + il < N ? src[((size_t)b * N + i0 + il) * F + f] : 0.0f;
+    dst[idx] = i0 + il < N && f < Fg
+                   ? src[((size_t)b * N + i0 + il) * Fg + f]
+                   : 0.0f;
   }
 }
 
@@ -153,6 +215,39 @@ __host__ __device__ inline size_t wgrad_size(int F, int R) {
   return (size_t)R * F + (size_t)4 * F * F;
 }
 
+// Element e of the weight cotangents at width Fg in a block's partial at
+// width F.
+__host__ __device__ inline size_t wgrad_padded_at(size_t e, int R, int F,
+                                                  int Fg) {
+  if (!kPadded) return e;
+  const size_t rf = (size_t)R * Fg, ff = (size_t)Fg * Fg;
+  if (e < rf) return padded_at(e, Fg, F);
+  const size_t k = (e - rf) / ff;
+  return (size_t)R * F + k * F * F + padded_at(e - rf - k * ff, Fg, F);
+}
+
+// The five weights at width Fg copied to width F with zero pad rows and
+// columns (We R x F, then W1a, W1b, W2a, W2b F x F), for K8, which stages
+// them as they are.
+__global__ void klist_pad_weights_kernel(const float* __restrict__ We,
+                                         const float* __restrict__ W1a,
+                                         const float* __restrict__ W1b,
+                                         const float* __restrict__ W2a,
+                                         const float* __restrict__ W2b,
+                                         float* __restrict__ out, int F,
+                                         int Fg, int R) {
+  const size_t rf = (size_t)R * F, ff = (size_t)F * F;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+       e < rf + 4 * ff; e += (size_t)gridDim.x * blockDim.x) {
+    const size_t k = e < rf ? 0 : 1 + (e - rf) / ff;
+    const size_t local = k == 0 ? e : e - rf - (k - 1) * ff;
+    const int r = (int)(local / F), n = (int)(local % F);
+    const float* W = k == 0 ? We : k == 1 ? W1a : k == 2 ? W1b
+                     : k == 3 ? W2a : W2b;
+    out[e] = n < Fg && (k == 0 || r < Fg) ? W[(size_t)r * Fg + n] : 0.0f;
+  }
+}
+
 // ------------------------------------------------------------------ K8 --
 // What bounds K8: its products, about 6x K5's flops per slot (272 GFLOP
 // per full layer at the box shape B=1, N=4096, K=88, F=128, R=20), above
@@ -191,16 +286,22 @@ __host__ __device__ inline size_t wgrad_size(int F, int R) {
 //   through the conversion unit, and mma_product and wgrad_tc are out of
 //   line with the branch body unrolled once, so that the kernel's code
 //   fits the instruction cache (inlined, the same kernel ran 27% slower).
-constexpr int KC8 = 16;     // depth rows of a staged weight chunk in K8
-constexpr int KSTAGES = 4;  // weight chunk slots in K8's ring
-
+// * Past F=128 (wide) a tile has 2 slots of its 8 atoms (16 slot rows:
+//   each warp takes all of them and an eighth of the columns), chunks of 8
+//   depth rows in a ring of 3, so that it fits: 217 KB at F=256, R=20.
 template <int F>
 struct K8Shape {
+  static constexpr int TJ = tj_d(F);    // list slots per tile
+  static constexpr int M = TI * TJ;     // slot rows of a tile
+  static constexpr int KC = F > 128 ? 8 : 16;     // depth rows a chunk
+  static constexpr int STAGES = F > 128 ? 3 : 4;  // chunk slots of the ring
+  static constexpr int RG = M / 16;     // 16-row groups of a product
+  static constexpr int CG = kWarps / RG;  // its column groups
   static constexpr int LD = F + 4;      // slot buffers (M x LD)
-  static constexpr int WLD = F + 8;     // a chunk of W rows (KC8 x WLD)
-  static constexpr int TLD = KC8 + 4;   // a chunk of W^T rows (F x TLD)
+  static constexpr int WLD = F + 8;     // a chunk of W rows (KC x WLD)
+  static constexpr int TLD = KC + 4;    // a chunk of W^T rows (F x TLD)
   static constexpr int RING =
-      KC8 * WLD > F * TLD ? KC8 * WLD : F * TLD;  // floats per ring slot
+      KC * WLD > F * TLD ? KC * WLD : F * TLD;  // floats per ring slot
 };
 
 // x rounded to tf32, to nearest with ties away from zero: the bits of
@@ -274,28 +375,30 @@ template <int F, bool TRANS>
 __device__ __forceinline__ void stage_chunk(const float* __restrict__ W,
                                             int Q, int q0, float* buf) {
   using S = K8Shape<F>;
+  constexpr int KC = S::KC;
   if (q0 >= Q) return;
   if (!TRANS) {
-    const int qc = min(KC8, Q - q0);
+    const int qc = min(KC, Q - q0);
     for (int v = threadIdx.x; v < qc * (F / 4); v += kThreads) {
       const int qq = v / (F / 4), n = (v - qq * (F / 4)) * 4;
       cp_async16(buf + qq * S::WLD + n, W + (size_t)(q0 + qq) * F + n);
     }
   } else {
-    for (int v = threadIdx.x; v < F * (KC8 / 4); v += kThreads) {
-      const int n = v / (KC8 / 4), qq = (v - n * (KC8 / 4)) * 4;
+    for (int v = threadIdx.x; v < F * (KC / 4); v += kThreads) {
+      const int n = v / (KC / 4), qq = (v - n * (KC / 4)) * 4;
       cp_async16(buf + n * S::TLD + qq, W + (size_t)n * Q + q0 + qq);
     }
   }
 }
 
-// c_s[m*LD + n] = sum_q A[m*lda + q] * B(q, n), q < Q, for the tile's 32
+// c_s[m*LD + n] = sum_q A[m*lda + q] * B(q, n), q < Q, for the tile's M
 // slot rows m: B(q, n) = W[q*F + n], or with TRANS W[n*Q + q]. Warp w
-// computes the 16-row half (w & 1) and F/4 columns. The weight streams
-// through a ring of KSTAGES chunk slots: KSTAGES - 1 chunks are in flight
-// while one multiplies, one __syncthreads per chunk. Every warp reads rows
-// of other warps' slots, so A must be written before the call; it may be
-// overwritten after it (the last barrier orders that). All threads of the
+// computes the 16-row half (w & 1) and F/4 columns (wide: all 16 rows and
+// F/8 columns). The weight streams through a ring of STAGES chunk slots:
+// STAGES - 1 chunks are in flight while one multiplies, one __syncthreads
+// per chunk. Every warp reads rows of other warps' slots, so A must be
+// written before the call; it may be overwritten after it (the last
+// barrier orders that). All threads of the
 // block must call it. Not inlined: K8 runs 18 products per tile, and one
 // copy of each of the two variants keeps the kernel's code small enough
 // for the instruction cache.
@@ -305,29 +408,30 @@ __device__ __noinline__ void mma_product(const float* __restrict__ A,
                                          const float* __restrict__ W,
                                          float* ring, float* c_s) {
   using S = K8Shape<F>;
-  constexpr int NT = F / 32;  // 16 x 8 tiles per warp
+  constexpr int NT = F / (8 * S::CG);  // 16 x 8 tiles per warp
+  constexpr int KC = S::KC, KSTAGES = S::STAGES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * (F / 4);
+  const int m0 = (warp % S::RG) * 16, n0 = (warp / S::RG) * (F / S::CG);
   float d[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
   const float* a_lo = A + (size_t)(m0 + g) * lda;  // rows g and g + 8
   const float* a_hi = a_lo + (size_t)8 * lda;
-  const int nch = (Q + KC8 - 1) / KC8;
+  const int nch = (Q + KC - 1) / KC;
 #pragma unroll
   for (int st = 0; st < KSTAGES - 1; ++st) {  // one group per stage
-    stage_chunk<F, TRANS>(W, Q, st * KC8, ring + st * S::RING);
+    stage_chunk<F, TRANS>(W, Q, st * KC, ring + st * S::RING);
     cp_async_commit();
   }
   for (int ch = 0; ch < nch; ++ch) {
     cp_async_wait<KSTAGES - 2>();
     __syncthreads();  // chunk ch is in; every warp is done with ch - 1
-    stage_chunk<F, TRANS>(W, Q, (ch + KSTAGES - 1) * KC8,
+    stage_chunk<F, TRANS>(W, Q, (ch + KSTAGES - 1) * KC,
                           ring + ((ch + KSTAGES - 1) % KSTAGES) * S::RING);
     cp_async_commit();
     const float* wc = ring + (ch % KSTAGES) * S::RING;
-    const int q0 = ch * KC8, qc = min(KC8, Q - q0);
+    const int q0 = ch * KC, qc = min(KC, Q - q0);
     for (int kk = 0; kk < qc; kk += 8) {
       const int ka = q0 + kk + t, kb = kk + t;
       unsigned ah[4], al[4];
@@ -370,19 +474,20 @@ __device__ __forceinline__ void mma_rows(const float* __restrict__ A,
                                          int lda, int Q,
                                          const float* __restrict__ W,
                                          float* ring, float* c_s,
-                                         float (&acc)[TJ_D][F / 32]) {
-  constexpr int LD = K8Shape<F>::LD;
+                                         float (&acc)[tj_d(F)][F / 32]) {
+  constexpr int LD = K8Shape<F>::LD, TJ = tj_d(F);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   mma_product<F, TRANS>(A, lda, Q, W, ring, c_s);
 #pragma unroll
-  for (int r = 0; r < TJ_D; ++r)
+  for (int r = 0; r < TJ; ++r)
 #pragma unroll
     for (int c = 0; c < F / 32; ++c)
-      acc[r][c] = c_s[(warp * TJ_D + r) * LD + lane + 32 * c];
+      acc[r][c] = c_s[(warp * TJ + r) * LD + lane + 32 * c];
 }
 
 // part[q*F + n] (+)= sum_p a1(p, q) B1[p*LD + n] (+ A2[p*lda + q] B2[p*LD +
-// n] with TWO) over the tile's M slots (a multiple of 32), q < qrows, where
+// n] with TWO) over the tile's M slots (16, or a multiple of 32), q < qrows,
+// where
 // a1(p, q) = A1[p*lda + q], or silu_fast of it with SILU (h from p), as 16
 // x 8 tensor-core tiles in 3xTF32: warp w takes the (16-row, 32-column) groups
 // w, w + 8, ..., sums each 32 slots' products in fresh registers, adds them
@@ -390,9 +495,9 @@ __device__ __forceinline__ void mma_rows(const float* __restrict__ A,
 // (`init`, the block's first tile: overwrites). The partial's old values
 // are loaded before the products, so their latency hides behind them. Each
 // element has one owning thread and each block its own partial. Starts
-// with a __syncthreads. Not inlined, as mma_product. K8 takes 32 slots and
-// two sources, K6 64 slots and one.
-template <int F, int M = TI * TJ_D, bool SILU = false, bool TWO = true>
+// with a __syncthreads. Not inlined, as mma_product. K8 takes 32 slots (16
+// wide) and two sources, K6 64 slots (32 wide) and one.
+template <int F, int M = K8Shape<F>::M, bool SILU = false, bool TWO = true>
 __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
                          const float* __restrict__ B1,
                          const float* __restrict__ A2,
@@ -420,7 +525,9 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
       }
     }
 #pragma unroll
-    for (int half = 0; half < M / 32; ++half) {
+    constexpr int KH = M < 32 ? M : 32;  // slots summed in fresh registers
+#pragma unroll
+    for (int half = 0; half < M / KH; ++half) {
       float d[4][4];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
@@ -431,7 +538,7 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
         const float* B = src == 0 ? B1 : B2;
         const bool silu = SILU && src == 0;
 #pragma unroll
-        for (int kk = half * 32; kk < half * 32 + 32; kk += 8) {
+        for (int kk = half * KH; kk < half * KH + KH; kk += 8) {
           const int p = kk + t;
           float av[4] = {qa < qrows ? A[p * lda + qa] : 0.0f,
                          qb < qrows ? A[p * lda + qb] : 0.0f,
@@ -472,18 +579,19 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
 }
 
 // msg and msgdot on the tensor cores (mma_rows; slot buffers at stride
-// K8Shape<F>::LD).
-template <int F, int CW, class E>
+// K8Shape<F>::LD); cat rows of CW values, np_j their first Fg.
+template <int F, class E>
 __device__ void dual_messages_tc(const float* rbf_s, const float* rbfdot_s,
                                  int R, const float* __restrict__ We,
                                  float* ring, float* c_s, const float* npi_s,
                                  const float* npidot_s,
                                  const E* __restrict__ cat,
-                                 const E* __restrict__ catdot, int b, int i,
-                                 int k0, int N, int K, const float* mask_s,
-                                 float* msg_s, float* msgdot_s,
-                                 float (&acc)[TJ_D][F / 32]) {
-  constexpr int TJ = TJ_D;
+                                 const E* __restrict__ catdot, int CW, int Fg,
+                                 int b, int i, int k0, int N, int K,
+                                 const float* mask_s, float* msg_s,
+                                 float* msgdot_s,
+                                 float (&acc)[tj_d(F)][F / 32]) {
+  constexpr int TJ = tj_d(F);
   constexpr int C = F / 32;
   constexpr int LD = K8Shape<F>::LD;
   const int lane = threadIdx.x & 31;
@@ -498,7 +606,7 @@ __device__ void dual_messages_tc(const float* rbf_s, const float* rbfdot_s,
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int f = lane + 32 * c;
-      const float aj = ok ? ld(cat + at + f) : 0.0f;
+      const float aj = ok && f < Fg ? ld(cat + at + f) : 0.0f;
       msg_s[p * LD + f] = acc[r][c] * npi_s[warp * F + f] * aj * a;
       msgdot_s[p * LD + f] = acc[r][c];
     }
@@ -514,8 +622,8 @@ __device__ void dual_messages_tc(const float* rbf_s, const float* rbfdot_s,
     for (int c = 0; c < C; ++c) {
       const int f = lane + 32 * c;
       const float ai = npi_s[warp * F + f], aidot = npidot_s[warp * F + f];
-      const float aj = ok ? ld(cat + at + f) : 0.0f;
-      const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+      const float aj = ok && f < Fg ? ld(cat + at + f) : 0.0f;
+      const float ajdot = ok && f < Fg ? ld(catdot + at + f) : 0.0f;
       const float me = msgdot_s[p * LD + f];
       msgdot_s[p * LD + f] =
           (acc[r][c] * ai * aj + me * aidot * aj + me * ai * ajdot) * a;
@@ -526,8 +634,8 @@ __device__ void dual_messages_tc(const float* rbf_s, const float* rbfdot_s,
 template <int F>
 constexpr size_t dual_bwd_smem_floats(int R) {
   using S = K8Shape<F>;
-  constexpr int M = TI * TJ_D;
-  return (size_t)KSTAGES * S::RING + (size_t)9 * M * S::LD +
+  constexpr int M = S::M;
+  return (size_t)S::STAGES * S::RING + (size_t)9 * M * S::LD +
          (size_t)4 * TI * F +
          (size_t)7 * M + (size_t)2 * M * R;
 }
@@ -552,16 +660,18 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
                       const float* __restrict__ dqdot,
                       float* __restrict__ dnpi, float* __restrict__ dnpidot,
                       E* __restrict__ dcat, E* __restrict__ dcatdot,
-                      float* __restrict__ wpart, int N, int K, int R,
+                      float* __restrict__ wpart, int N, int K, int Fg_, int R,
                       int n_itiles, int n_tiles) {
-  constexpr int TJ = TJ_D;
-  constexpr int M = TI * TJ;
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
+  using S = K8Shape<F>;
+  constexpr int TJ = S::TJ;
+  constexpr int M = S::M;
   constexpr int C = F / 32;
-  constexpr int LD = K8Shape<F>::LD;
-  constexpr int CW = FIRST ? F : 4 * F;
+  constexpr int LD = S::LD;
+  const int CW = FIRST ? Fg : 4 * Fg;
   extern __shared__ float smem[];
-  float* ring = smem;  // KSTAGES x RING: weight chunks
-  float* c_s = ring + KSTAGES * K8Shape<F>::RING;  // M x LD: mma products
+  float* ring = smem;  // STAGES x RING: weight chunks
+  float* c_s = ring + S::STAGES * S::RING;  // M x LD: mma products
   float* msg_s = c_s + M * LD;         // M x LD: msg
   float* msgdot_s = msg_s + M * LD;    // M x LD: msgdot
   float* p_s = msgdot_s + M * LD;      // M x LD: p; tail: me
@@ -591,15 +701,16 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
     const int i0 = (tile - b * n_itiles) * TI;
     const int i = i0 + warp;
     __syncthreads();  // the last tile's reads of the row buffers are done
-    load_rows(npi, b, i0, N, F, npi_s);
-    load_rows(npidot, b, i0, N, F, npidot_s);
-    load_rows(di, b, i0, N, F, di_s);
-    load_rows(didot, b, i0, N, F, didot_s);
-    // dq, dqdot of the warp's atom (zero past N), read through L1 where
-    // they are used
+    load_rows(npi, b, i0, N, F, Fg, npi_s);
+    load_rows(npidot, b, i0, N, F, Fg, npidot_s);
+    load_rows(di, b, i0, N, F, Fg, di_s);
+    load_rows(didot, b, i0, N, F, Fg, didot_s);
+    // dq, dqdot of the warp's atom (zero past N and Fg), read through L1
+    // where they are used
     auto row3 = [&](const float* src, int d, int f) {
-      return i < N ? __ldg(src + (((size_t)b * 3 + d) * N + i) * F + f)
-                   : 0.0f;
+      return i < N && f < Fg
+                 ? __ldg(src + (((size_t)b * 3 + d) * N + i) * Fg + f)
+                 : 0.0f;
     };
     float dnp_acc[C], dnpdot_acc[C];
 #pragma unroll
@@ -610,9 +721,9 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
       __syncthreads();
       load_slots<TJ, true, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N,
                               K, R, mask_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
-      dual_messages_tc<F, CW, E>(rbf_s, rbfdot_s, R, We, ring, c_s, npi_s,
-                                 npidot_s, cat, catdot, b, i, k0, N, K,
-                                 mask_s, msg_s, msgdot_s, acc);
+      dual_messages_tc<F, E>(rbf_s, rbfdot_s, R, We, ring, c_s, npi_s,
+                             npidot_s, cat, catdot, CW, Fg, b, i, k0, N, K,
+                             mask_s, msg_s, msgdot_s, acc);
 
 #pragma unroll 1  // one copy of the branch body: code size
       for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
@@ -659,13 +770,14 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
 #pragma unroll
             for (int c = 0; c < C; ++c) {
               const int f = lane + 32 * c;
+              if (f >= Fg) continue;
               const float phi = g_s[p * LD + f];
               const float phid = acc[r][c] * a;
 #pragma unroll
               for (int d = 0; d < 3; ++d) {
                 const float q = row3(dq, d, f), qd = row3(dqdot, d, f);
-                st(dcat + at + (d + 1) * F + f, phi * q + phid * qd);
-                st(dcatdot + at + (d + 1) * F + f, phi * qd);
+                st(dcat + at + (d + 1) * Fg + f, phi * q + phid * qd);
+                st(dcatdot + at + (d + 1) * Fg + f, phi * qd);
               }
             }
           }
@@ -692,8 +804,9 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
                 x = dir_s[d * M + p];
                 xdot = dirdot_s[d * M + p];
               } else {
-                x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
-                xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
+                x = ok && f < Fg ? ld(cat + at + (d + 1) * Fg + f) : 0.0f;
+                xdot =
+                    ok && f < Fg ? ld(catdot + at + (d + 1) * Fg + f) : 0.0f;
               }
               dphi = dphi + q * x + qd * xdot;
               dphidot = dphidot + qd * x;
@@ -761,13 +874,14 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
           const float me = p_s[o], medot = acc[r][c];
           const float ai = npi_s[warp * F + f];
           const float aidot = npidot_s[warp * F + f];
-          const float aj = ok ? ld(cat + at + f) : 0.0f;
-          const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+          const bool okf = ok && f < Fg;
+          const float aj = okf ? ld(cat + at + f) : 0.0f;
+          const float ajdot = okf ? ld(catdot + at + f) : 0.0f;
           dnp_acc[c] += t * me * aj + tdot * (medot * aj + me * ajdot);
           dnpdot_acc[c] += tdot * me * aj;
           hdot_s[o] = t * ai * aj + tdot * (aidot * aj + ai * ajdot);  // dme
           g_s[o] = tdot * ai * aj;                                    // dmedot
-          if (ok) {
+          if (okf) {
             st(dcat + at + f, t * me * ai + tdot * (medot * ai + me * aidot));
             st(dcatdot + at + f, tdot * me * ai);
           }
@@ -780,8 +894,9 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
 #pragma unroll
       for (int c = 0; c < C; ++c) {
         const int f = lane + 32 * c;
-        dnpi[((size_t)b * N + i) * F + f] = dnp_acc[c];
-        dnpidot[((size_t)b * N + i) * F + f] = dnpdot_acc[c];
+        if (f >= Fg) continue;
+        dnpi[((size_t)b * N + i) * Fg + f] = dnp_acc[c];
+        dnpidot[((size_t)b * N + i) * Fg + f] = dnpdot_acc[c];
       }
     }
   }
@@ -808,7 +923,7 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
 //   W1a^T, W1b^T, W2a^T and W2b^T as (hi, lo) tf32 word pairs, n-major with
 //   the depth contiguous (We^T's depth padded with zeros to a multiple of
 //   32), into the launch's scratch (nn_klist_scratch_floats). Chunks of
-//   KC7 depth steps stream by cp.async through a ring of K7_STAGES slots,
+//   KC depth steps stream by cp.async through a ring of K7_STAGES slots,
 //   two in flight while one multiplies, and the stream runs across
 //   products: a product stages the first two chunks of the one after it
 //   (the next tile's We after the last), so no product starts on an empty
@@ -829,7 +944,7 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
 //   into L2 at the start of a tile, so the elementwise chain's reads of
 //   them wait on L2 rather than device memory.
 // * Grid as before: one block per (molecule, 8 atoms), looping over tiles
-//   of TJ_D list slots; sums over k are per-thread register sums, so no sum
+//   of tj_d(F) list slots; sums over k are per-thread register sums, so no sum
 //   crosses blocks and no float atomics: a run gives the same bits every
 //   time.
 // * Code size: k7_pair is out of line (one copy per F), as K8's products.
@@ -837,17 +952,21 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
 // k2k7): the elementwise chain and tile loads, the weight stream (each
 // 32-slot tile streams all five weights from L2, 544 KB of pairs at
 // F=128) with the fragment loads, and the mma.
-constexpr int KC7 = 16;       // depth steps of a staged weight chunk in K7
+// * Past F=128 (wide) a tile has 2 slots of its 8 atoms (16 slot rows:
+//   each warp takes all of them and an eighth of the columns) and chunks of
+//   8 depth steps, so that it fits: 227 KB at F=256.
 constexpr int K7_STAGES = 3;  // chunk slots of K7's weight ring
-
-__host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
 
 template <int F>
 struct K7Shape {
-  static constexpr int M = TI * TJ_D;   // slots of a tile
+  static constexpr int TJ = tj_d(F);    // list slots per tile
+  static constexpr int M = TI * TJ;     // slots of a tile
+  static constexpr int KC = F > 128 ? 8 : 16;  // depth steps of a chunk
+  static constexpr int RG = M / 16;     // 16-row groups of a product
+  static constexpr int CG = kWarps / RG;  // its column groups
   static constexpr int LDA = F + 4;     // split slot buffers, in pairs
-  static constexpr int LDP = F + 8;     // fp32 product buffers
-  static constexpr int RING = F * KC7;  // pairs per ring slot
+  static constexpr int LDP = F + (F > 128 ? 4 : 8);  // fp32 product buffers
+  static constexpr int RING = F * KC;   // pairs per ring slot
 };
 
 // The prepared weights, in (hi, lo) pairs: block 0 is We^T (F x pad32(R)),
@@ -883,7 +1002,7 @@ __global__ void klist_dual_fwd_prep_kernel(const float* __restrict__ We,
                                            const float* __restrict__ W2a,
                                            const float* __restrict__ W2b,
                                            uint2* __restrict__ out, int F,
-                                           int R) {
+                                           int Fg, int R) {
   const int Rp = pad32(R);
   const size_t n_e = (size_t)F * Rp, total = k7_prep_offset(F, R, 5);
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
@@ -891,27 +1010,29 @@ __global__ void klist_dual_fwd_prep_kernel(const float* __restrict__ We,
     float v;
     if (e < n_e) {
       const int n = (int)(e / Rp), q = (int)(e % Rp);
-      v = q < R ? We[(size_t)q * F + n] : 0.0f;
+      v = q < R && n < Fg ? We[(size_t)q * Fg + n] : 0.0f;
     } else {
       const size_t e2 = e - n_e, ff = (size_t)F * F;
       const int k = (int)(e2 / ff), r = (int)(e2 % ff);
+      const int n = r / F, q = r % F;
       const float* W = k == 0 ? W1a : k == 1 ? W1b : k == 2 ? W2a : W2b;
-      v = W[(size_t)(r % F) * F + r / F];
+      v = q < Fg && n < Fg ? W[(size_t)q * Fg + n] : 0.0f;
     }
     out[e] = split2(v);
   }
 }
 
 // Chunk ch of a prepared weight (F rows of Qp pairs) into a ring slot: per
-// row n the KC7 pairs of depth [ch*KC7, ch*KC7 + KC7), swizzled (pair q at
-// n*KC7 + (q ^ 4(n & 3))), as eight 16-byte cp.async copies.
+// row n the KC pairs of depth [ch*KC, ch*KC + KC), swizzled (pair q at
+// n*KC + (q ^ ring_swz(n, KC))), as KC/2 16-byte cp.async copies.
 template <int F>
 __device__ __forceinline__ void k7_stage(const uint2* __restrict__ Bt, int Qp,
                                          int ch, uint2* slot) {
-  for (int v = threadIdx.x; v < F * 8; v += kThreads) {
-    const int n = v >> 3, part = v & 7;
-    cp_async16(slot + n * KC7 + ((part * 2) ^ ((n & 3) << 2)),
-               Bt + (size_t)n * Qp + (size_t)ch * KC7 + part * 2);
+  constexpr int KC = K7Shape<F>::KC, P = KC / 2;
+  for (int v = threadIdx.x; v < F * P; v += kThreads) {
+    const int n = v / P, part = v - n * P;
+    cp_async16(slot + n * KC + ((part * 2) ^ ring_swz(n, KC)),
+               Bt + (size_t)n * Qp + (size_t)ch * KC + part * 2);
   }
 }
 
@@ -937,12 +1058,13 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
                                     float* __restrict__ D1,
                                     float* __restrict__ D2) {
   using S = K7Shape<F>;
-  constexpr int NT = F / 32;  // 16 x 8 tiles per warp and product
+  constexpr int NT = F / (8 * S::CG);  // 16 x 8 tiles per warp and product
+  constexpr int KC = S::KC;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * (F / 4);
-  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
-  const int nch = Qp / KC7;
+  const int m0 = (warp % S::RG) * 16, n0 = (warp / S::RG) * (F / S::CG);
+  const int o0 = t ^ ring_swz(g, KC);  // the swizzled pair of depth t
+  const int nch = Qp / KC;
   // chunk v of the stream from this product's chunk 0, one commit group
   auto stage = [&](int v) {
     uint2* dst = ring + ((slot0 + v) % K7_STAGES) * S::RING;
@@ -977,8 +1099,8 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
       for (int j = 0; j < NT; ++j)
         d[x][j][0] = d[x][j][1] = d[x][j][2] = d[x][j][3] = 0.0f;
 #pragma unroll
-    for (int s = 0; s < 2; ++s) {  // two k-steps per chunk
-      const int k = ch * KC7 + s * 8 + t;
+    for (int s = 0; s < KC / 8; ++s) {  // k-steps of a chunk
+      const int k = ch * KC + s * 8 + t;
       unsigned ah[2][4], al[2][4];
 #pragma unroll
       for (int x = 0; x < 2; ++x) {
@@ -990,7 +1112,7 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
       unsigned bh[NT][2], bl[NT][2];
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const uint2* w = wc + (n0 + j * 8 + g) * KC7;
+        const uint2* w = wc + (n0 + j * 8 + g) * KC;
         const uint2 wk = w[(s * 8) ^ o0], wk4 = w[(s * 8) ^ o0 ^ 4];
         bh[j][0] = wk.x, bh[j][1] = wk4.x, bl[j][0] = wk.y, bl[j][1] = wk4.y;
       }
@@ -1035,7 +1157,7 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
 // The tile's per-slot mask, dir and dirdot (fp32), and rbf, rbfdot split
 // into (hi, lo) pairs at row stride ldh, zeros from R to pad32(R). Slots
 // past N or K read as zero, so they contribute nothing and stay finite.
-template <class E>
+template <int TJ, class E>
 __device__ void k7_load_slots(const float* __restrict__ mask,
                               const float* __restrict__ dir,
                               const float* __restrict__ dirdot,
@@ -1044,10 +1166,10 @@ __device__ void k7_load_slots(const float* __restrict__ mask,
                               int k0, int N, int K, int R, int ldh,
                               float* mask_s, float* dir_s, float* dirdot_s,
                               uint2* rbf2, uint2* rbfdot2) {
-  constexpr int M = TI * TJ_D;
+  constexpr int M = TI * TJ;
   for (int idx = threadIdx.x; idx < 7 * M; idx += kThreads) {
     const int g = idx / M, p = idx - g * M;  // 0: mask, 1-3: dir, 4-6: dirdot
-    const int i = i0 + p / TJ_D, k = k0 + p % TJ_D;
+    const int i = i0 + p / TJ, k = k0 + p % TJ;
     const bool ok = i < N && k < K;
     if (g == 0)
       mask_s[p] = ok ? mask[slot_at(b, i, k, N, K)] : 0.0f;
@@ -1061,7 +1183,7 @@ __device__ void k7_load_slots(const float* __restrict__ mask,
   const int Rp = pad32(R);
   for (int idx = threadIdx.x; idx < M * Rp; idx += kThreads) {
     const int p = idx / Rp, r = idx - p * Rp;
-    const int i = i0 + p / TJ_D, k = k0 + p % TJ_D;
+    const int i = i0 + p / TJ, k = k0 + p % TJ;
     const bool ok = i < N && k < K && r < R;
     const size_t at = slot_at(b, i, k, N, K) * R + r;
     rbf2[p * ldh + r] = split2(ok ? ld(rbf + at) : 0.0f);
@@ -1081,13 +1203,14 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
                       const uint2* __restrict__ wprep,
                       float* __restrict__ inv1, float* __restrict__ eq,
                       float* __restrict__ inv1dot, float* __restrict__ eqdot,
-                      int N, int K, int R, int n_itiles) {
+                      int N, int K, int Fg_, int R, int n_itiles) {
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
   using S = K7Shape<F>;
-  constexpr int TJ = TJ_D;
+  constexpr int TJ = S::TJ;
   constexpr int M = S::M;
   constexpr int C = F / 32;
   constexpr int LDA = S::LDA, LDP = S::LDP;
-  constexpr int CW = FIRST ? F : 4 * F;
+  const int CW = FIRST ? Fg : 4 * Fg;
   const int ldh = k7_ldh(F, R), Rp = pad32(R);
   extern __shared__ float smem[];
   uint2* ring = reinterpret_cast<uint2*>(smem);  // K7_STAGES x RING
@@ -1109,8 +1232,8 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
   const int warp = threadIdx.x >> 5;
   const int i = i0 + warp;
 
-  load_rows(npi, b, i0, N, F, npi_s);
-  load_rows(npidot, b, i0, N, F, npidot_s);
+  load_rows(npi, b, i0, N, F, Fg, npi_s);
+  load_rows(npidot, b, i0, N, F, Fg, npidot_s);
   float inv_acc[C], invdot_acc[C], eq_acc[3][C], eqdot_acc[3][C];
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -1143,8 +1266,8 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
       }
     }
     __syncthreads();  // the last tile's reads of the slot buffers are done
-    k7_load_slots<E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N, K, R, ldh,
-                     mask_s, dir_s, dirdot_s, h2, hdot2);
+    k7_load_slots<TJ, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N, K, R,
+                         ldh, mask_s, dir_s, dirdot_s, h2, hdot2);
     slot = k7_pair<F>(h2, hdot2, ldh, Rp, wprep, W1a, F, slot, k0 > 0, ring,
                       p_s, pdot_s);  // me, medot
     // msg and msgdot of the warp's own slots; np_j and its tangent from
@@ -1159,8 +1282,8 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
       for (int c = 0; c < C; ++c) {
         const int f = lane + 32 * c;
         const float ai = npi_s[warp * F + f], aidot = npidot_s[warp * F + f];
-        const float aj = ok ? ld(cat + at + f) : 0.0f;
-        const float ajdot = ok ? ld(catdot + at + f) : 0.0f;
+        const float aj = ok && f < Fg ? ld(cat + at + f) : 0.0f;
+        const float ajdot = ok && f < Fg ? ld(catdot + at + f) : 0.0f;
         const float me = p_s[p * LDP + f], medot = pdot_s[p * LDP + f];
         const float msg = me * ai * aj * a;
         const float msgdot = (medot * ai * aj + me * aidot * aj +
@@ -1215,8 +1338,8 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
               x = dir_s[d * M + p];
               xdot = dirdot_s[d * M + p];
             } else {
-              x = ok ? ld(cat + at + (d + 1) * F + f) : 0.0f;
-              xdot = ok ? ld(catdot + at + (d + 1) * F + f) : 0.0f;
+              x = ok && f < Fg ? ld(cat + at + (d + 1) * Fg + f) : 0.0f;
+              xdot = ok && f < Fg ? ld(catdot + at + (d + 1) * Fg + f) : 0.0f;
             }
             eq_acc[d][c] += phi * x;
             eqdot_acc[d][c] += phi * xdot + phidot * x;
@@ -1230,12 +1353,13 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
 #pragma unroll
     for (int c = 0; c < C; ++c) {
       const int f = lane + 32 * c;
-      inv1[((size_t)b * N + i) * F + f] = inv_acc[c];
-      inv1dot[((size_t)b * N + i) * F + f] = invdot_acc[c];
+      if (f >= Fg) continue;
+      inv1[((size_t)b * N + i) * Fg + f] = inv_acc[c];
+      inv1dot[((size_t)b * N + i) * Fg + f] = invdot_acc[c];
 #pragma unroll
       for (int d = 0; d < 3; ++d) {
-        eq[(((size_t)b * 3 + d) * N + i) * F + f] = eq_acc[d][c];
-        eqdot[(((size_t)b * 3 + d) * N + i) * F + f] = eqdot_acc[d][c];
+        eq[(((size_t)b * 3 + d) * N + i) * Fg + f] = eq_acc[d][c];
+        eqdot[(((size_t)b * 3 + d) * N + i) * Fg + f] = eqdot_acc[d][c];
       }
     }
   }
@@ -1300,21 +1424,29 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
 //   (me; msg, h1, phi1, dphi1, dh1, dp1, dmsg; p1, then h2 ... dp2, dme;
 //   p2, then msg again for WGRAD) 132 KB, rbf (then drbf) 9 KB, the row
 //   inputs 8 KB: 214 KB, one block per SM.
-constexpr int TJ6 = 8;         // list slots per atom in a K6 step
-constexpr int M6 = TI * TJ6;   // slot rows of a K6 step
-constexpr int K6_RW = 32;      // depth pairs of one weight in a ring slot
+// * Past F=128 (wide) a step takes 4 slots of its 8 atoms (32 slot rows,
+//   one 32-row group per warp pair) and a ring slot 16 depth steps of one
+//   weight or 8 of each of two, so that it fits: 215 KB at F=256, R=20.
+// List slots per atom in a K6 (and K5) step, and depth pairs of one weight
+// in a ring slot of K5/K6.
+__host__ __device__ constexpr int k6_tj(int F) { return F > 128 ? 4 : 8; }
+__host__ __device__ constexpr int k6_rw(int F) { return F > 128 ? 16 : 32; }
 
 template <int F>
 struct K6Shape {
-  static constexpr int LD = F + 4;       // fp32 slot buffers (M6 x LD)
-  static constexpr int RING = K6_RW * F;  // pairs per ring slot
+  static constexpr int TJ = k6_tj(F);    // list slots per atom in a step
+  static constexpr int M = TI * TJ;      // slot rows of a K6 step
+  static constexpr int RW = k6_rw(F);    // depth pairs of one weight
+  static constexpr int LD = F + 4;       // fp32 slot buffers (M x LD)
+  static constexpr int RING = RW * F;    // pairs per ring slot
 };
 
 template <int F>
 constexpr size_t k6_smem_floats(int R) {
   using S = K6Shape<F>;
-  return (size_t)4 * S::RING + (size_t)4 * M6 * S::LD +
-         (size_t)M6 * (pad32(R) + 4) + (size_t)2 * TI * F + (size_t)4 * M6;
+  return (size_t)4 * S::RING + (size_t)4 * S::M * S::LD +
+         (size_t)S::M * (pad32(R) + 4) + (size_t)2 * TI * F +
+         (size_t)4 * S::M;
 }
 
 // K6's prepared weights, in (hi, lo) tf32 pairs: the products of a step in
@@ -1380,8 +1512,8 @@ __global__ void klist_prep_kernel(const float* __restrict__ We,
                                   const float* __restrict__ W1b,
                                   const float* __restrict__ W2a,
                                   const float* __restrict__ W2b,
-                                  uint2* __restrict__ out, int F, int R,
-                                  int first, int fwd) {
+                                  uint2* __restrict__ out, int F, int Fg,
+                                  int R, int first, int fwd) {
   const float* Ws[4] = {W1a, W1b, W2a, W2b};
   const int np = prep_n_products(fwd != 0, R, first != 0);
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;;
@@ -1394,22 +1526,23 @@ __global__ void klist_prep_kernel(const float* __restrict__ We,
       if (++p == np) return;
       q = prep_product(fwd != 0, p, F, R, first != 0);
     }
-    const int rw = q.w2 >= 0 ? 16 : 32;
-    const size_t local = e - base, chunk = (size_t)32 * q.nb;
+    const int rwd = k6_rw(F), rw = q.w2 >= 0 ? rwd / 2 : rwd;
+    const size_t local = e - base, chunk = (size_t)rwd * q.nb;
     const int ch = (int)(local / chunk), rem = (int)(local % chunk);
     const int r = rem / rw, j = rem - r * rw;
-    const int dq = ch * rw + (j ^ ((r & 3) << 2)), x = r / q.nb;
+    const int dq = ch * rw + (j ^ ring_swz(r, rw)), x = r / q.nb;
     const int n = r - x * q.nb;
     const float* W = Ws[x ? q.w2 : q.w1];
     float v;
     if (q.src == 0)
-      v = dq < R ? We[(size_t)dq * F + n] : 0.0f;
-    else if (q.src == 1)
-      v = W[(size_t)dq * F + n];
-    else if (q.src == 2)
-      v = W[(size_t)n * F + dq];
+      v = dq < R && n < Fg ? We[(size_t)dq * Fg + n] : 0.0f;
+    else if (q.src == 3)
+      v = q.row0 + n < R && dq < Fg ? We[(size_t)(q.row0 + n) * Fg + dq]
+                                    : 0.0f;
+    else if (dq >= Fg || n >= Fg)
+      v = 0.0f;
     else
-      v = q.row0 + n < R ? We[(size_t)(q.row0 + n) * F + dq] : 0.0f;
+      v = q.src == 1 ? W[(size_t)dq * Fg + n] : W[(size_t)n * Fg + dq];
     out[e] = split2(v);
   }
 }
@@ -1421,11 +1554,13 @@ struct K6W {
   int qp, nb;
 };
 
-// Chunk ch of w into a ring slot: one contiguous copy (the preparation
-// laid it out as the slot holds it), by 16-byte cp.async copies.
+// Chunk ch of w, of RW depth pairs of one weight, into a ring slot: one
+// contiguous copy (the preparation laid it out as the slot holds it), by
+// 16-byte cp.async copies.
+template <int RW>
 __device__ __forceinline__ void k6_stage(const K6W& w, int ch, uint2* slot) {
-  const uint2* src = w.b + (size_t)ch * 32 * w.nb;
-  for (int v = threadIdx.x; v < 16 * w.nb; v += kThreads)
+  const uint2* src = w.b + (size_t)ch * RW * w.nb;
+  for (int v = threadIdx.x; v < RW / 2 * w.nb; v += kThreads)
     cp_async16(slot + 2 * v, src + 2 * v);
 }
 
@@ -1445,21 +1580,23 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
                                     int lda, K6W cur, K6W next, int slot,
                                     uint2* ring, float* D1, float* D2,
                                     int ldd) {
+  using S = K6Shape<F>;
   constexpr int NT = NB / 32;            // 16 x 8 tiles per row group
+  constexpr int RG = S::M / 32;          // 16-row groups per warp
   constexpr int NX = MODE == 0 ? 1 : 2;  // weights per chunk
   constexpr int ND = MODE == 1 ? 2 : 1;  // products kept apart
-  constexpr int RW = K6_RW / NX;         // pairs per ring row
-  constexpr int RING = K6Shape<F>::RING;
+  constexpr int RW = S::RW / NX;         // pairs per ring row
+  constexpr int RING = S::RING;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int m0 = (warp & 1) * 32, n0 = (warp >> 1) * (NB / 4);
-  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
+  const int m0 = (warp & 1) * (S::M / 2), n0 = (warp >> 1) * (NB / 4);
+  const int o0 = t ^ ring_swz(g, RW);  // the swizzled pair of depth t
   const int nch = cur.qp / RW;
-  float tot[ND][2][NT][4];
+  float tot[ND][RG][NT][4];
 #pragma unroll
   for (int o = 0; o < ND; ++o)
 #pragma unroll
-    for (int rg = 0; rg < 2; ++rg)
+    for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         tot[o][rg][j][0] = tot[o][rg][j][1] = tot[o][rg][j][2] =
@@ -1469,16 +1606,16 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
     __syncthreads();  // chunk ch is in; every warp is done with ch - 1
     uint2* other = ring + (slot ^ 1) * RING;
     if (ch + 1 < nch)
-      k6_stage(cur, ch + 1, other);
+      k6_stage<S::RW>(cur, ch + 1, other);
     else if (next.b != nullptr)
-      k6_stage(next, 0, other);
+      k6_stage<S::RW>(next, 0, other);
     cp_async_commit();
     const uint2* wc = ring + slot * RING;
-    float d[ND][2][NT][4];
+    float d[ND][RG][NT][4];
 #pragma unroll
     for (int o = 0; o < ND; ++o)
 #pragma unroll
-      for (int rg = 0; rg < 2; ++rg)
+      for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
           d[o][rg][j][0] = d[o][rg][j][1] = d[o][rg][j][2] =
@@ -1486,13 +1623,13 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
 #pragma unroll
     for (int s = 0; s < RW / 8; ++s) {
       const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
-      unsigned ah[2][4], al[2][4];
+      unsigned ah[RG][4], al[RG][4];
 #pragma unroll
       for (int x = 0; x < NX; ++x) {
         if (x == 0 || MODE == 2) {
           const float* A = x == 0 ? A1 : A2;
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) {
+          for (int rg = 0; rg < RG; ++rg) {
             const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
             const float* r8 = r0 + (size_t)8 * lda;
             split_tf32_mma(r0[k], ah[rg][0], al[rg][0]);
@@ -1509,26 +1646,29 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
           bh[j][0] = b0.x, bh[j][1] = b4.x, bl[j][0] = b0.y, bl[j][1] = b4.y;
         }
         const int o = MODE == 1 ? x : 0;
-        // lo*hi, hi*lo, hi*hi of every tile in turn: 2 NT independent
+        // lo*hi, hi*lo, hi*hi of every tile in turn: RG NT independent
         // accumulators between two dependent products
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[o][rg][j], al[rg], bh[j]);
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(d[o][rg][j], al[rg], bh[j]);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[o][rg][j], ah[rg], bl[j]);
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(d[o][rg][j], ah[rg], bl[j]);
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int rg = 0; rg < 2; ++rg) mma_tf32(d[o][rg][j], ah[rg], bh[j]);
+          for (int rg = 0; rg < RG; ++rg)
+            mma_tf32(d[o][rg][j], ah[rg], bh[j]);
       }
     }
 #pragma unroll
     for (int o = 0; o < ND; ++o)
 #pragma unroll
-      for (int rg = 0; rg < 2; ++rg)
+      for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
         for (int j = 0; j < NT; ++j)
 #pragma unroll
@@ -1540,7 +1680,7 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
   for (int o = 0; o < ND; ++o) {
     float* D = o == 0 ? D1 : D2;
 #pragma unroll
-    for (int rg = 0; rg < 2; ++rg)
+    for (int rg = 0; rg < RG; ++rg)
 #pragma unroll
       for (int j = 0; j < NT; ++j) {  // (n, n + 1) as one 8-byte store
         const int m = m0 + rg * 16 + g, n = n0 + j * 8 + 2 * t;
@@ -1555,10 +1695,10 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
 }
 
 // The step's per-slot mask and dir (fp32), and rbf in fp32 at row stride
-// lr, zeros from R to pad32(R), for its M slot rows (TJ6 slots of M/TJ6
+// lr, zeros from R to pad32(R), for its M slot rows (TJ slots of M/TJ
 // atoms; K5 takes 128). Slots past N or K read as zero, so they
 // contribute nothing and stay finite (silu(0) = 0).
-template <class E, int M = M6>
+template <class E, int M, int TJ>
 __device__ void k6_load_slots(const float* __restrict__ mask,
                               const float* __restrict__ dir,
                               const E* __restrict__ rbf, int b, int i0,
@@ -1566,7 +1706,7 @@ __device__ void k6_load_slots(const float* __restrict__ mask,
                               float* mask_s, float* dir_s, float* rbf_s) {
   for (int idx = threadIdx.x; idx < 4 * M; idx += kThreads) {
     const int gi = idx / M, p = idx - gi * M;  // 0: mask, 1-3: dir
-    const int i = i0 + p / TJ6, k = k0 + p % TJ6;
+    const int i = i0 + p / TJ, k = k0 + p % TJ;
     const bool ok = i < N && k < K;
     if (gi == 0)
       mask_s[p] = ok ? mask[slot_at(b, i, k, N, K)] : 0.0f;
@@ -1577,7 +1717,7 @@ __device__ void k6_load_slots(const float* __restrict__ mask,
   const int Rp = pad32(R);
   for (int idx = threadIdx.x; idx < M * Rp; idx += kThreads) {
     const int p = idx / Rp, r = idx - p * Rp;
-    const int i = i0 + p / TJ6, k = k0 + p % TJ6;
+    const int i = i0 + p / TJ, k = k0 + p % TJ;
     rbf_s[p * lr + r] = i < N && k < K && r < R
                             ? ld(rbf + slot_at(b, i, k, N, K) * R + r)
                             : 0.0f;
@@ -1594,12 +1734,13 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
                  const float* __restrict__ deq, float* __restrict__ dnpi,
                  E* __restrict__ dcat, E* __restrict__ drbf,
                  float* __restrict__ ddir, float* __restrict__ wpart, int N,
-                 int K, int R, int n_itiles, int n_tiles) {
+                 int K, int Fg_, int R, int n_itiles, int n_tiles) {
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
   using S = K6Shape<F>;
-  constexpr int TJ = TJ6, M = M6;
+  constexpr int TJ = S::TJ, M = S::M;
   constexpr int C = F / 32;
   constexpr int LD = S::LD;
-  constexpr int CW = FIRST ? F : 4 * F;
+  const int CW = FIRST ? Fg : 4 * Fg;
   const int Rp = pad32(R), lr = Rp + 4;
   extern __shared__ float smem[];
   uint2* ring = reinterpret_cast<uint2*>(smem);  // 2 x RING
@@ -1638,7 +1779,7 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
   const size_t ff = (size_t)F * F;
 
   int slot = 0;  // the ring slot of the next product's first chunk
-  if ((int)blockIdx.x < n_tiles) k6_stage(w_me, 0, ring);
+  if ((int)blockIdx.x < n_tiles) k6_stage<S::RW>(w_me, 0, ring);
   cp_async_commit();
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first_tile = tile == (int)blockIdx.x;
@@ -1646,12 +1787,14 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
     const int i0 = (tile - b * n_itiles) * TI;
     const int i = i0 + warp;
     __syncthreads();  // the last tile's reads of the row buffers are done
-    load_rows(npi, b, i0, N, F, npi_s);
-    load_rows(dinv1, b, i0, N, F, dinv_s);
-    // deq of the warp's atom (zero past N), read through L1 where used
+    load_rows(npi, b, i0, N, F, Fg, npi_s);
+    load_rows(dinv1, b, i0, N, F, Fg, dinv_s);
+    // deq of the warp's atom (zero past N and Fg), read through L1 where
+    // used
     auto deq_at = [&](int d, int f) {
-      return i < N ? __ldg(deq + (((size_t)b * 3 + d) * N + i) * F + f)
-                   : 0.0f;
+      return i < N && f < Fg
+                 ? __ldg(deq + (((size_t)b * 3 + d) * N + i) * Fg + f)
+                 : 0.0f;
     };
     float dnp_acc[C];
 #pragma unroll
@@ -1675,8 +1818,8 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
         }
       }
       __syncthreads();  // the last step's reads of the slot buffers are done
-      k6_load_slots<E>(mask, dir, rbf, b, i0, k0, N, K, R, lr, mask_s, dir_s,
-                       rbf_s);
+      k6_load_slots<E, M, TJ>(mask, dir, rbf, b, i0, k0, N, K, R, lr, mask_s,
+                              dir_s, rbf_s);
       slot = k6_prod<F, F, 0>(rbf_s, nullptr, lr, w_me, w_p, slot, ring,
                               me_s, nullptr, LD);  // me
       // msg = me np_i np_j mask, np_j from cat
@@ -1690,7 +1833,7 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
 #pragma unroll
           for (int c = 0; c < C; ++c) {
             const int f = lane + 32 * c;
-            const float npj = ok ? ld(cj + f) : 0.0f;
+            const float npj = ok && f < Fg ? ld(cj + f) : 0.0f;
             dst[p * LD + f] = me_s[p * LD + f] * npi_s[warp * F + f] * npj * a;
           }
         }
@@ -1795,9 +1938,9 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
 #pragma unroll
             for (int d = 0; d < 3; ++d) {
               const float gd = gq[d][c];
-              if (ok) {
-                st(dcat + at + (d + 1) * F + f, phi * gd);
-                dphi += gd * ld(cat + at + (d + 1) * F + f);
+              if (ok && f < Fg) {
+                st(dcat + at + (d + 1) * Fg + f, phi * gd);
+                dphi += gd * ld(cat + at + (d + 1) * Fg + f);
               }
             }
             y_s[o] = dphi * a;
@@ -1847,9 +1990,10 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
           const float d3 = (x_s[o] + dinv_s[warp * F + f]) * a;
           const float tt = d3 * me_s[o];
           const float ni = npi_s[warp * F + f];
-          const float nj = ok ? ld(cat + at + f) : 0.0f;
+          const bool okf = ok && f < Fg;
+          const float nj = okf ? ld(cat + at + f) : 0.0f;
           dnp_acc[c] += tt * nj;
-          if (ok) st(dcat + at + f, tt * ni);
+          if (okf) st(dcat + at + f, tt * ni);
           y_s[o] = d3 * ni * nj;  // dme
         }
       }
@@ -1876,7 +2020,8 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
     if (i < N) {
 #pragma unroll
       for (int c = 0; c < C; ++c)
-        dnpi[((size_t)b * N + i) * F + lane + 32 * c] = dnp_acc[c];
+        if (lane + 32 * c < Fg)
+          dnpi[((size_t)b * N + i) * Fg + lane + 32 * c] = dnp_acc[c];
     }
   }
 }
@@ -1919,10 +2064,14 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
 //   as one vector load.
 // * Shared memory at F=128, R=20: the ring 64 KB, the two 128-row buffers
 //   132 KB, the row inputs 8 KB: 206 KB, one block per SM.
-constexpr int TJ5 = TJ6;            // list slots per atom in a K5 step
+// * Past F=128 (wide) a step takes K6's 4 slots of its 16 atoms (64 slot
+//   rows) and K6's ring of 16 depth steps: 211 KB at F=256, R=20.
 constexpr int TA5 = 16;             // atoms of a K5 tile
-constexpr int M5 = TA5 * TJ5;       // slot rows of a K5 step
 constexpr int APW5 = TA5 / kWarps;  // atoms per warp
+
+// slot rows of a K5 step: TA5 atoms of K6's list slots per atom
+template <int F>
+constexpr int kM5 = TA5 * k6_tj(F);
 // slots of an atom unrolled in the elementwise passes (a tuning knob:
 // loads in flight against registers)
 constexpr int kRowUnroll5 = 8;
@@ -1935,8 +2084,8 @@ __host__ __device__ constexpr int k5_ld(int F, int R) {
 
 template <int F>
 constexpr size_t k5_smem_floats(int R) {
-  return (size_t)4 * K6Shape<F>::RING + (size_t)2 * M5 * k5_ld(F, R) +
-         (size_t)TA5 * F + (size_t)4 * M5;
+  return (size_t)4 * K6Shape<F>::RING + (size_t)2 * kM5<F> * k5_ld(F, R) +
+         (size_t)TA5 * F + (size_t)4 * kM5<F>;
 }
 
 // For the step's M5 slot rows m and n < NB, q < cur.qp, in 3xTF32: MODE 0
@@ -1954,15 +2103,16 @@ template <int F, int NB, int MODE>
 __device__ __noinline__ int k5_prod(const float* A, int lda, K6W cur,
                                     K6W next, int slot, uint2* ring,
                                     float* D1, float* D2) {
+  constexpr int M5 = kM5<F>;
   constexpr int RG = M5 / 32;            // 16-row groups per warp
   constexpr int NT = NB / 32;            // 16 x 8 tiles per row group
   constexpr int NX = MODE == 1 ? 2 : 1;  // weights per chunk
-  constexpr int RW = K6_RW / NX;         // pairs per ring row
+  constexpr int RW = K6Shape<F>::RW / NX;  // pairs per ring row
   constexpr int RING = K6Shape<F>::RING;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (warp & 1) * (M5 / 2), n0 = (warp >> 1) * (NB / 4);
-  const int o0 = t ^ ((g & 3) << 2);  // the swizzled pair of depth t
+  const int o0 = t ^ ring_swz(g, RW);  // the swizzled pair of depth t
   const int n_chunks = cur.qp / RW;
   float acc[NX][RG][NT][4];
 #pragma unroll
@@ -1978,9 +2128,9 @@ __device__ __noinline__ int k5_prod(const float* A, int lda, K6W cur,
     __syncthreads();  // chunk ch is in; every warp is done with ch - 1
     uint2* other = ring + (slot ^ 1) * RING;
     if (ch + 1 < n_chunks)
-      k6_stage(cur, ch + 1, other);
+      k6_stage<K6Shape<F>::RW>(cur, ch + 1, other);
     else if (next.b != nullptr)
-      k6_stage(next, 0, other);
+      k6_stage<K6Shape<F>::RW>(next, 0, other);
     cp_async_commit();
     const uint2* wc = ring + slot * RING;
 #pragma unroll
@@ -2045,9 +2195,15 @@ __device__ __noinline__ int k5_prod(const float* A, int lda, K6W cur,
   return slot;
 }
 
-// C contiguous values, loaded or stored as one vector
+// The largest power of two that divides n: the alignment of a Pack.
+__host__ __device__ constexpr size_t pack_align(size_t n) {
+  return n & (~n + 1);
+}
+
+// C contiguous values, loaded or stored as one vector (as several, where
+// C is no power of two)
 template <int C, class T>
-struct alignas(C * sizeof(T)) Pack {
+struct alignas(pack_align(C * sizeof(T))) Pack {
   T v[C];
 };
 
@@ -2070,18 +2226,46 @@ __device__ __forceinline__ void store_pack(float* p, const float (&in)[C]) {
   *reinterpret_cast<Pack<C, float>*>(p) = q;
 }
 
+// The lane's C features f0.. of a row of a tensor of width Fg, zero from
+// Fg on: one vector load where the tensor is at the padded width (full),
+// else one masked load each.
+template <int C, class T>
+__device__ __forceinline__ void load_feats(const T* row, int f0, int Fg,
+                                           bool full, float (&out)[C]) {
+  if (full) {
+    load_pack<C>(row + f0, out);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) out[c] = f0 + c < Fg ? to_f(row[f0 + c]) : 0.0f;
+}
+
+template <int C>
+__device__ __forceinline__ void store_feats(float* row, int f0, int Fg,
+                                            bool full, const float (&in)[C]) {
+  if (full) {
+    store_pack<C>(row + f0, in);
+    return;
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+    if (f0 + c < Fg) row[f0 + c] = in[c];
+}
+
 template <int F, bool FIRST, class E>
 __global__ void __launch_bounds__(kThreads, 1)
 klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
                  const E* __restrict__ rbf, const float* __restrict__ dir,
                  const float* __restrict__ mask,
                  const uint2* __restrict__ wprep, float* __restrict__ inv1,
-                 float* __restrict__ eq, int N, int K, int R, int n_itiles,
-                 int n_tiles) {
-  constexpr int TJ = TJ5, M = M5;
+                 float* __restrict__ eq, int N, int K, int Fg_, int R,
+                 int n_itiles, int n_tiles) {
+  const int Fg = kPadded ? Fg_ : F;  // the tensors' width
+  constexpr int TJ = K6Shape<F>::TJ, M = kM5<F>;
   constexpr int RPW = M / kWarps;  // slot rows per warp (silu pass)
   constexpr int C = F / 32;        // features per lane: lane*C ..
-  constexpr int CW = FIRST ? F : 4 * F;
+  const int CW = FIRST ? Fg : 4 * Fg;
+  const bool full = Fg == F;  // the global rows as vectors
   const int Rp = pad32(R), L = k5_ld(F, R);
   extern __shared__ float smem[];
   uint2* ring = reinterpret_cast<uint2*>(smem);  // 2 x RING
@@ -2108,13 +2292,13 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
   const K6W none = {nullptr, 0, 0};
 
   int slot = 0;  // the ring slot of the next product's first chunk
-  if ((int)blockIdx.x < n_tiles) k6_stage(w_me, 0, ring);
+  if ((int)blockIdx.x < n_tiles) k6_stage<K6Shape<F>::RW>(w_me, 0, ring);
   cp_async_commit();
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int b = tile / n_itiles;
     const int i0 = (tile - b * n_itiles) * TA5;
     __syncthreads();  // the last tile's reads of npi_s are done
-    load_rows(npi, b, i0, N, F, npi_s, TA5);
+    load_rows(npi, b, i0, N, F, Fg, npi_s, TA5);
     float inv_acc[APW5][C], eq_acc[APW5][3][C];
 #pragma unroll
     for (int a = 0; a < APW5; ++a)
@@ -2140,8 +2324,8 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
         }
       }
       __syncthreads();  // the last step's reads of the slot buffers are done
-      k6_load_slots<E, M5>(mask, dir, rbf, b, i0, k0, N, K, R, L, mask_s,
-                           dir_s, y_s);
+      k6_load_slots<E, M, TJ>(mask, dir, rbf, b, i0, k0, N, K, R, L, mask_s,
+                              dir_s, y_s);
       slot = k5_prod<F, F, 0>(y_s, L, w_me, w_p, slot, ring, x_s,
                               nullptr);  // me
       // msg = me np_i np_j mask in place, np_j from cat; inv1 += msg
@@ -2155,7 +2339,7 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
           const int p = al * TJ + kk, k = k0 + kk;
           float nj[C] = {}, v[C];
           if (i < N && k < K)
-            load_pack<C>(cat + slot_at(b, i, k, N, K) * CW + f0, nj);
+            load_feats<C>(cat + slot_at(b, i, k, N, K) * CW, f0, Fg, full, nj);
           load_pack<C>(x_s + p * L + f0, v);
           const float m = mask_s[p];
 #pragma unroll
@@ -2213,9 +2397,10 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
             load_pack<C>(y_s + p * L + f0, phi);
             float fj[3][C] = {};
             if (i < N && k < K) {
-              const E* cj = cat + slot_at(b, i, k, N, K) * CW + f0;
+              const E* cj = cat + slot_at(b, i, k, N, K) * CW;
 #pragma unroll
-              for (int d = 0; d < 3; ++d) load_pack<C>(cj + (d + 1) * F, fj[d]);
+              for (int d = 0; d < 3; ++d)
+                load_feats<C>(cj + (d + 1) * Fg, f0, Fg, full, fj[d]);
             }
 #pragma unroll
             for (int d = 0; d < 3; ++d)
@@ -2231,34 +2416,39 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
     for (int a = 0; a < APW5; ++a) {
       const int i = i0 + warp * APW5 + a;
       if (i >= N) continue;
-      store_pack<C>(inv1 + ((size_t)b * N + i) * F + f0, inv_acc[a]);
+      store_feats<C>(inv1 + ((size_t)b * N + i) * Fg, f0, Fg, full,
+                     inv_acc[a]);
 #pragma unroll
       for (int d = 0; d < 3; ++d)
-        store_pack<C>(eq + (((size_t)b * 3 + d) * N + i) * F + f0,
-                      eq_acc[a][d]);
+        store_feats<C>(eq + (((size_t)b * 3 + d) * N + i) * Fg, f0, Fg, full,
+                       eq_acc[a][d]);
     }
   }
 }
 
 // out[e] = sum_blk part[blk, e] for e < n_valid; 0 for the rest (the
-// first layer's W2a/W2b). Fixed summation order.
+// first layer's W2a/W2b). out is at width Fg, the partials at F. Fixed
+// summation order.
 __global__ void klist_wsum_kernel(float* __restrict__ out,
                                   const float* __restrict__ part,
-                                  int n_blocks, size_t n, size_t n_valid) {
+                                  int n_blocks, int R, int F, int Fg,
+                                  size_t n_valid) {
   const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= n) return;
+  if (e >= wgrad_size(Fg, R)) return;
   float s = 0.0f;
-  if (e < n_valid)
-    for (int k = 0; k < n_blocks; ++k) s += part[(size_t)k * n + e];
+  if (e < n_valid) {
+    const size_t n = wgrad_size(F, R), at = wgrad_padded_at(e, R, F, Fg);
+    for (int k = 0; k < n_blocks; ++k) s += part[(size_t)k * n + at];
+  }
   out[e] = s;
 }
 
 cudaError_t sum_weights(float* dw, const float* wpart, int n_blocks, int F,
-                        int R, bool first, cudaStream_t stream) {
-  const size_t n = wgrad_size(F, R);
-  const size_t n_valid = first ? (size_t)R * F + 2 * (size_t)F * F : n;
+                        int Fg, int R, bool first, cudaStream_t stream) {
+  const size_t n = wgrad_size(Fg, R);
+  const size_t n_valid = first ? (size_t)R * Fg + 2 * (size_t)Fg * Fg : n;
   klist_wsum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      dw, wpart, n_blocks, n, n_valid);
+      dw, wpart, n_blocks, R, F, Fg, n_valid);
   return cudaGetLastError();
 }
 
@@ -2272,6 +2462,7 @@ struct Args {
   bool wgrad;
   cudaStream_t stream;
   int max_blocks;  // K5, K6, K8: the grid's upper bound (one block per SM)
+  int Fg;          // the tensors' true width
 };
 
 template <class T>
@@ -2284,11 +2475,12 @@ T* cout_(const Args& a, int k) {
 }
 
 // The weights of K5 (fwd) or K6 split into tf32 pairs, into wprep.
-cudaError_t prep_weights(const float* const* W, uint2* wprep, int F,
+cudaError_t prep_weights(const float* const* W, uint2* wprep, int F, int Fg,
                          int R, bool first, bool fwd, cudaStream_t stream) {
   const size_t want = (prep_pairs(fwd, F, R) + 255) / 256;
   klist_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0, stream>>>(
-      W[0], W[1], W[2], W[3], W[4], wprep, F, R, first ? 1 : 0, fwd ? 1 : 0);
+      W[0], W[1], W[2], W[3], W[4], wprep, F, Fg, R, first ? 1 : 0,
+      fwd ? 1 : 0);
   return cudaGetLastError();
 }
 
@@ -2303,21 +2495,22 @@ cudaError_t launch_fwd(const Args& a) {
   const int n_tiles = a.B * n_itiles;
   const int n_blocks = n_tiles < a.max_blocks ? n_tiles : a.max_blocks;
   if (n_blocks < 1) return cudaErrorInvalidValue;
-  // the vector loads of the elementwise chain: F/32 values of npi, cat,
-  // inv1 and eq at a time
-  const size_t vec = (size_t)(F / 32) * sizeof(E), vecf = F / 32 * 4;
-  if ((size_t)a.in[1] % vec || (size_t)a.in[0] % vecf ||
-      (size_t)a.out[0] % vecf || (size_t)a.out[1] % vecf)
+  // the vector loads of the elementwise chain at the padded width: F/32
+  // values of npi, cat, inv1 and eq at a time
+  const size_t vec = pack_align((size_t)(F / 32) * sizeof(E));
+  const size_t vecf = pack_align((size_t)(F / 32) * sizeof(float));
+  if (a.Fg == F && ((size_t)a.in[1] % vec || (size_t)a.in[0] % vecf ||
+                    (size_t)a.out[0] % vecf || (size_t)a.out[1] % vecf))
     return cudaErrorInvalidValue;
   const float* W[5];
   for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 5 + k);
   uint2* wprep = cout_<uint2>(a, 2);  // the launch's scratch
-  err = prep_weights(W, wprep, F, a.R, FIRST, true, a.stream);
+  err = prep_weights(W, wprep, F, a.Fg, a.R, FIRST, true, a.stream);
   if (err != cudaSuccess) return err;
   kern<<<n_blocks, kThreads, smem, a.stream>>>(
       cin<float>(a, 0), cin<E>(a, 1), cin<E>(a, 2), cin<float>(a, 3),
       cin<float>(a, 4), wprep, cout_<float>(a, 0), cout_<float>(a, 1), a.N,
-      a.K, a.R, n_itiles, n_tiles);
+      a.K, a.Fg, a.R, n_itiles, n_tiles);
   return cudaGetLastError();
 }
 
@@ -2335,18 +2528,18 @@ cudaError_t launch_bwd_w(const Args& a) {
   const float* W[5];
   for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 5 + k);
   uint2* wprep = cout_<uint2>(a, 6);  // the launch's scratch
-  err = prep_weights(W, wprep, F, a.R, FIRST, false, a.stream);
+  err = prep_weights(W, wprep, F, a.Fg, a.R, FIRST, false, a.stream);
   if (err != cudaSuccess) return err;
   float* wpart = cout_<float>(a, 4);
   kern<<<n_blocks, kThreads, smem, a.stream>>>(
       cin<float>(a, 0), cin<E>(a, 1), cin<E>(a, 2), cin<float>(a, 3),
       cin<float>(a, 4), wprep, cin<float>(a, 10), cin<float>(a, 11),
       cout_<float>(a, 0), cout_<E>(a, 1), cout_<E>(a, 2), cout_<float>(a, 3),
-      wpart, a.N, a.K, a.R, n_itiles, n_tiles);
+      wpart, a.N, a.K, a.Fg, a.R, n_itiles, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || !WGRAD) return err;
-  return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, a.R, FIRST,
-                     a.stream);
+  return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, a.Fg, a.R,
+                     FIRST, a.stream);
 }
 
 template <int F, bool FIRST, class E>
@@ -2369,7 +2562,7 @@ cudaError_t launch_dual_fwd(const Args& a) {
   const size_t want = (k7_prep_offset(F, a.R, 5) + 255) / 256;
   klist_dual_fwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
                                a.stream>>>(W[0], W[1], W[2], W[3], W[4],
-                                           wprep, F, a.R);
+                                           wprep, F, a.Fg, a.R);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const E* cat = cin<E>(a, 2);
@@ -2380,7 +2573,7 @@ cudaError_t launch_dual_fwd(const Args& a) {
       cin<float>(a, 0), cin<float>(a, 1), cat, catdot, rbf, rbfdot,
       cin<float>(a, 6), cin<float>(a, 7), cin<float>(a, 8), wprep,
       cout_<float>(a, 0), cout_<float>(a, 1), cout_<float>(a, 2),
-      cout_<float>(a, 3), a.N, a.K, a.R, n_itiles);
+      cout_<float>(a, 3), a.N, a.K, a.Fg, a.R, n_itiles);
   return cudaGetLastError();
 }
 
@@ -2395,6 +2588,22 @@ cudaError_t launch_dual_bwd(const Args& a) {
   const int n_tiles = a.B * n_itiles;
   const int n_blocks = n_tiles < a.max_blocks ? n_tiles : a.max_blocks;
   if (n_blocks < 1) return cudaErrorInvalidValue;
+  const int N = a.N, K = a.K, Fg = a.Fg, R = a.R;
+  float* wpart = cout_<float>(a, 4);
+  const float* W[5];
+  for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 9 + k);
+  if (Fg != F) {  // the weights at width F, zero-padded, after the partials
+    float* wpad = wpart + (size_t)n_blocks * wgrad_size(F, R);
+    const size_t want = (wgrad_size(F, R) + 255) / 256;
+    klist_pad_weights_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
+                               a.stream>>>(W[0], W[1], W[2], W[3], W[4],
+                                           wpad, F, Fg, R);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    W[0] = wpad;
+    for (int k = 1; k < 5; ++k)
+      W[k] = wpad + (size_t)R * F + (size_t)(k - 1) * F * F;
+  }
   const float* npi = cin<float>(a, 0);
   const float* npidot = cin<float>(a, 1);
   const E* cat = cin<E>(a, 2);
@@ -2404,11 +2613,6 @@ cudaError_t launch_dual_bwd(const Args& a) {
   const float* dir = cin<float>(a, 6);
   const float* dirdot = cin<float>(a, 7);
   const float* mask = cin<float>(a, 8);
-  const float* We = cin<float>(a, 9);
-  const float* W1a = cin<float>(a, 10);
-  const float* W1b = cin<float>(a, 11);
-  const float* W2a = cin<float>(a, 12);
-  const float* W2b = cin<float>(a, 13);
   const float* di = cin<float>(a, 14);
   const float* dq = cin<float>(a, 15);
   const float* didot = cin<float>(a, 16);
@@ -2417,29 +2621,29 @@ cudaError_t launch_dual_bwd(const Args& a) {
   float* dnpidot = cout_<float>(a, 1);
   E* dcat = cout_<E>(a, 2);
   E* dcatdot = cout_<E>(a, 3);
-  float* wpart = cout_<float>(a, 4);
-  const int N = a.N, K = a.K, R = a.R;
   kern<<<n_blocks, kThreads, smem, a.stream>>>(
-      npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We, W1a, W1b,
-      W2a, W2b, di, dq, didot, dqdot, dnpi, dnpidot, dcat, dcatdot, wpart, N,
-      K, R, n_itiles, n_tiles);
+      npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, W[0], W[1],
+      W[2], W[3], W[4], di, dq, didot, dqdot, dnpi, dnpidot, dcat, dcatdot,
+      wpart, N, K, Fg, R, n_itiles, n_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, a.R, FIRST,
+  return sum_weights(cout_<float>(a, 5), wpart, n_blocks, F, Fg, R, FIRST,
                      a.stream);
 }
 
 typedef cudaError_t (*launch_fn)(const Args&);
 
+// The instantiation for (F, first, bf16), where F is the true width, or
+// nullptr for an F whose padded width the library does not hold.
 template <template <int, bool, class> class L>
 launch_fn pick(int F, bool first, bool bf) {
+  if (!library_runs(F)) return nullptr;
 #define NN_PICK(FF)                                                        \
-  return first ? (bf ? L<FF, true, bf16>::fn : L<FF, true, float>::fn)     \
-               : (bf ? L<FF, false, bf16>::fn : L<FF, false, float>::fn)
-  switch (F) {
-    case 32: NN_PICK(32);
-    case 64: NN_PICK(64);
-    case 128: NN_PICK(128);
+  case FF:                                                                 \
+    return first ? (bf ? L<FF, true, bf16>::fn : L<FF, true, float>::fn)   \
+                 : (bf ? L<FF, false, bf16>::fn : L<FF, false, float>::fn);
+  switch (padded_width(F)) {
+    NN_WIDTHS(NN_PICK)
     default: return nullptr;
   }
 #undef NN_PICK
@@ -2463,9 +2667,10 @@ struct DualBwd {
 };
 
 template <template <int, bool, class> class L>
-int run(int F, int first, int bf16, const Args& a) {
+int run(int F, int first, int bf16, Args& a) {
   const launch_fn fn = pick<L>(F, first != 0, bf16 != 0);
   if (fn == nullptr || a.B * a.N * a.K == 0) return (int)cudaErrorInvalidValue;
+  a.Fg = F;
   return (int)fn(a);
 }
 
@@ -2476,10 +2681,11 @@ extern "C" {
 // K5. npi (B,N,F) f32; cat (B,N,K,C), C = F if first_layer else 4F, and
 // rbf (B,N,K,R) in the edge type (fp32, or bf16 when bf16 != 0); dir
 // (B,3,N,K), mask (B,N,K) f32; We (R,F), W* (F,F) f32 -> inv1 (B,N,F),
-// eq (B,3,N,F) f32. Contiguous, on the device of `stream`; F in 32/64/128.
-// Scratch: 16-byte aligned, nn_klist_scratch_floats(F, R, 0) floats (the
-// weights split into tf32 pairs); max_blocks bounds the grid (the wrapper
-// passes the SM count).
+// eq (B,3,N,F) f32. Contiguous, on the device of `stream`; any F whose
+// padded width (padded_width) this library holds (NN_WIDTHS), else
+// cudaErrorInvalidValue. Scratch: 16-byte aligned,
+// nn_klist_scratch_floats(F, R, 0) floats (the weights split into tf32
+// pairs); max_blocks bounds the grid (the wrapper passes the SM count).
 int nn_klist_fwd(const float* npi, const void* cat, const void* rbf,
                  const float* dir, const float* mask, const float* We,
                  const float* W1a, const float* W1b, const float* W2a,
@@ -2495,11 +2701,12 @@ int nn_klist_fwd(const float* npi, const void* cat, const void* rbf,
 
 // K6. Inputs of K5 plus dinv1 (B,N,F), deq (B,3,N,F) f32. Outputs dnpi
 // (B,N,F) f32, dcat (B,N,K,C) and drbf (B,N,K,R) in the edge type, ddir
-// (B,3,N,K) f32. With weight_grads: scratch wpart (min(B*ceil(N/8),
-// max_blocks), R*F+4F^2) and output dw (R*F+4F^2: dWe, dW1a, dW1b, dW2a,
-// dW2b). Scratch: 16-byte aligned, nn_klist_scratch_floats(F, R, 1) floats
-// (the weights split into tf32 pairs); max_blocks bounds the grid (the
-// wrapper passes the SM count).
+// (B,3,N,K) f32. With weight_grads: scratch wpart, 16-byte aligned,
+// nn_klist_wpart_floats(min(B*ceil(N/8), max_blocks), F, R) floats, and
+// output dw (R*F+4F^2: dWe, dW1a, dW1b, dW2a, dW2b). Scratch: 16-byte
+// aligned, nn_klist_scratch_floats(F, R, 1) floats (the weights split
+// into tf32 pairs); max_blocks bounds the grid (the wrapper passes the SM
+// count).
 int nn_klist_bwd(const float* npi, const void* cat, const void* rbf,
                  const float* dir, const float* mask, const float* We,
                  const float* W1a, const float* W1b, const float* W2a,
@@ -2538,9 +2745,10 @@ int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
 // K8. Inputs of K7 plus di, didot (B,N,F) and dq, dqdot (B,3,N,F) f32.
 // Outputs dnpi, dnpidot (B,N,F)
 // f32, dcat, dcatdot (B,N,K,C) in the edge type and dw (R*F+4F^2).
-// The weights 16-byte aligned (cp.async). Scratch wpart (min(B*ceil(N/8),
-// max_blocks), R*F+4F^2); max_blocks bounds the grid (the wrapper passes
-// the SM count).
+// The weights 16-byte aligned (cp.async). Scratch wpart, 16-byte aligned,
+// nn_klist_wpart_floats(min(B*ceil(N/8), max_blocks), F, R) floats (the
+// weight partials and, where F is no multiple of 32, the weights padded
+// to one); max_blocks bounds the grid (the wrapper passes the SM count).
 int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
                       const void* catdot, const void* rbf, const void* rbfdot,
                       const float* dir, const float* dirdot,
@@ -2560,30 +2768,41 @@ int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
 }
 
 // Dynamic shared memory of one block of K5 (kind 0), K6 (1), K7 (2) or K8
-// (3), in bytes; 0 for an F the kernels are not built for.
+// (3) at true width F, in bytes; 0 for an F whose padded width this
+// library does not hold.
 size_t nn_klist_smem_bytes(int F, int R, int kind) {
-#define NN_SMEM(FF)                                                      \
-  return (kind == 0   ? k5_smem_floats<FF>(R)                           \
-          : kind == 1 ? k6_smem_floats<FF>(R)                            \
-          : kind == 2 ? k7_smem_floats<FF>(R)                            \
-                      : dual_bwd_smem_floats<FF>(R)) * sizeof(float)
-  switch (F) {
-    case 32: NN_SMEM(32);
-    case 64: NN_SMEM(64);
-    case 128: NN_SMEM(128);
+  if (F < 1 || F > kMaxWidth) return 0;
+#define NN_SMEM(FF)                                                       \
+  case FF:                                                                \
+    return (kind == 0   ? k5_smem_floats<FF>(R)                           \
+            : kind == 1 ? k6_smem_floats<FF>(R)                           \
+            : kind == 2 ? k7_smem_floats<FF>(R)                           \
+                        : dual_bwd_smem_floats<FF>(R)) * sizeof(float);
+  switch (padded_width(F)) {
+    NN_WIDTHS(NN_SMEM)
     default: return 0;
   }
 #undef NN_SMEM
 }
 
-// Scratch of one launch of K5 (kind 0), K6 (1), K7 (2) or K8 (3), in
-// floats, beyond the weight partials that K6 and K8 take as an argument:
-// the weights split into tf32 pairs (K5: four blocks, K6: ten, K7: five);
-// 0 for K8.
+// Scratch of one launch of K5 (kind 0), K6 (1), K7 (2) or K8 (3) at true
+// width F, in floats, beyond the weight partials that K6 and K8 take as an
+// argument: the weights split into tf32 pairs (K5: four blocks, K6: ten,
+// K7: five); 0 for K8.
 size_t nn_klist_scratch_floats(int F, int R, int kind) {
-  return kind <= 1   ? 2 * prep_pairs(kind == 0, F, R)
-         : kind == 2 ? 2 * k7_prep_offset(F, R, 5)
+  const int Fp = padded_width(F);
+  return kind <= 1   ? 2 * prep_pairs(kind == 0, Fp, R)
+         : kind == 2 ? 2 * k7_prep_offset(Fp, R, 5)
                      : 0;
+}
+
+// The weight partials' scratch (wpart) of a K6 or K8 launch of n_blocks
+// blocks at true width F, in floats: one partial at the padded width per
+// block and, where F is no multiple of 32, K8's zero-padded weights.
+size_t nn_klist_wpart_floats(int n_blocks, int F, int R) {
+  const int Fp = padded_width(F);
+  return (size_t)n_blocks * wgrad_size(Fp, R) +
+         (Fp != F ? wgrad_size(Fp, R) : 0);
 }
 
 }  // extern "C"

@@ -4,8 +4,15 @@ ctypes.
 Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for sm_90a into `newtonnet_tpu_torch/_build/lib<name>-<hash>.so`, where the
 hash covers the source and the flags: an edited source builds anew, an
-unchanged one loads from the cache. `build_all` starts one `nvcc` per
-source at once and waits for all of them. The host-side C++ in
+unchanged one loads from the cache. The fused pair sources (WIDE_SOURCES)
+run a feature width F at its padded width Fp (`padded_width`): their
+default library holds the widths BUILT_WIDTHS, each run at its own width;
+any other F runs in a library of its own, `lib<name>-w<Fp>[p]-<hash>.so`,
+compiled with `-DNN_WIDTH=<Fp>` (and `-DNN_PADDED` where F is below Fp:
+the kernels then mask the pad lanes, which a library of full widths folds
+away) at the first call of such a width (`load(name, F)`), so a model of
+the usual widths never pays for it. `build_all` starts one `nvcc` per
+library at once and waits for all of them. The host-side C++ in
 `csrc/host/<name>.cpp` (plain C interface too) is built the same way by
 `g++` (`load_host`): it needs no CUDA toolkit, so it also builds where
 there is no card. Nothing here runs at import.
@@ -23,6 +30,10 @@ HOST_DIR = os.path.join(SRC_DIR, 'host')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('fused_dense', 'fused_dual', 'fused_klist', 'row_gather',
            'window')
+# the sources of K1-K8, instantiated per padded feature width
+WIDE_SOURCES = ('fused_dense', 'fused_dual', 'fused_klist')
+BUILT_WIDTHS = (32, 64, 128)  # the padded widths of their default libraries
+MAX_WIDTH = 256  # the widest F the kernels take
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 GXX_FLAGS = ('-std=c++17', '-O3', '-shared', '-fPIC')
@@ -41,31 +52,74 @@ def _nvcc():
                        'the CUDA toolkit is installed')
 
 
-def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib', headers=()):
+def padded_width(F):
+    '''The padded width the kernels of K1-K8 run a true width F at: the
+    next multiple of 32, and past 128 of 64 (their wide tiles split the
+    columns eight ways; csrc/fused_*.cu: padded_width). Raises ValueError
+    for a width they do not take.'''
+    if not 1 <= F <= MAX_WIDTH:
+        raise ValueError(
+            f'the CUDA kernels take 1 <= F <= {MAX_WIDTH}, got F={F} '
+            '(ROADMAP.md B, "Widths other than 32, 64 and 128")')
+    return (F + 31) // 32 * 32 if F <= 128 else (F + 63) // 64 * 64
+
+
+def width_flags(F):
+    '''The compiler defines of the library that runs width F: none for
+    the default library (F in BUILT_WIDTHS, or None), else its padded
+    width and, where F is below it, NN_PADDED.'''
+    if F is None or F in BUILT_WIDTHS:
+        return ()
+    Fp = padded_width(F)
+    return (f'-DNN_WIDTH={Fp}',) + (('-DNN_PADDED',) if F != Fp else ())
+
+
+def _key(name, F):
+    '''The library of source `name` that runs width F (None: the default
+    library).'''
+    if F is None or F in BUILT_WIDTHS:
+        return name
+    Fp = padded_width(F)
+    return f'{name}-w{Fp}' + ('p' if F != Fp else '')
+
+
+def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib', headers=(),
+            stem=None):
     with open(src or os.path.join(SRC_DIR, name + '.cu'), 'rb') as f:
         digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
     for path in headers:
         with open(path, 'rb') as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR,
-                        f'{prefix}{name}-{digest.hexdigest()[:16]}.so')
+    return os.path.join(
+        BUILD_DIR, f'{prefix}{stem or name}-{digest.hexdigest()[:16]}.so')
 
 
-def build_all(names=SOURCES):
-    '''Compile every source whose library is missing, all in parallel.
+def _lib_target(name, F):
+    return _target(name, flags=NVCC_FLAGS + width_flags(F),
+                   stem=_key(name, F))
 
-    Returns {name: (seconds, ptxas report)} for the sources it compiled.
-    Raises RuntimeError with the compiler's output if one fails.'''
+
+def build_all(names=SOURCES, widths=()):
+    '''Compile every library whose file is missing, all in parallel: the
+    default library of each source in `names` and, for each width F in
+    `widths`, the one that runs F of each of them in WIDE_SOURCES.
+
+    Returns {library: (seconds, ptxas report)} for the libraries it
+    compiled. Raises RuntimeError with the compiler's output if one fails.'''
     os.makedirs(BUILD_DIR, exist_ok=True)
+    libs = [(name, None) for name in names]
+    libs += [(name, F) for F in widths for name in names
+             if name in WIDE_SOURCES]
     jobs = {}
-    for name in names:
-        so = _target(name)
-        if os.path.exists(so):
+    for name, F in libs:
+        key = _key(name, F)
+        so = _lib_target(name, F)
+        if os.path.exists(so) or key in jobs:
             continue
         tmp = f'{so}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp,
+        cmd = [_nvcc(), *NVCC_FLAGS, *width_flags(F), '-o', tmp,
                os.path.join(SRC_DIR, name + '.cu')]
-        jobs[name] = (so, tmp, time.perf_counter(),
+        jobs[key] = (so, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True))
     report, failed = {}, []
@@ -83,12 +137,18 @@ def build_all(names=SOURCES):
     return report
 
 
-def load(name):
-    '''The ctypes handle of csrc/<name>.cu, built first if needed.'''
-    if name not in _LIBS:
-        build_all((name,))
-        _LIBS[name] = ctypes.CDLL(_target(name))
-    return _LIBS[name]
+def load(name, F=None):
+    '''The ctypes handle of csrc/<name>.cu, built first if needed: its
+    default library, or the one that runs feature width F. Raises
+    ValueError, before anything is built, for a width the kernels do not
+    take.'''
+    if F is not None:
+        padded_width(F)
+    key = _key(name, F)
+    if key not in _LIBS:
+        build_all((name,), () if F is None else (F,))
+        _LIBS[key] = ctypes.CDLL(_lib_target(name, F))
+    return _LIBS[key]
 
 
 def load_host(name):

@@ -17,7 +17,11 @@ On the card the forward runs `csrc/fused_dense.cu:nn_pair_fwd` (K1) and
 the backward `nn_pair_bwd` (K2), both on the tensor cores in 3xTF32 (each
 operand split in a TF32 high and low part, three products summed in fp32);
 on the CPU the wrappers run the plain versions below. A CUDA tensor either
-launches the kernel or raises: nothing falls back.
+launches the kernel or raises: nothing falls back. The kernels take any F
+from 1 to `_build.MAX_WIDTH`: they run at its padded width (the next
+multiple of 32, past 128 of 64; `_build.padded_width`) with zero pad
+lanes of their own, reading and writing every tensor at F, from the
+library that runs that width (`_build.load`).
 '''
 import ctypes
 
@@ -28,7 +32,6 @@ LAUNCHES = {'pair_fwd': 0, 'pair_fwd_first': 0,
             'pair_bwd': 0, 'pair_bwd_first': 0}
 # K2 launches among those that computed the weight cotangents
 WEIGHT_GRAD_LAUNCHES = {'pair_bwd': 0, 'pair_bwd_first': 0}
-KERNEL_WIDTHS = (32, 64, 128)  # the F the CUDA kernels are built for
 
 
 def reset_launch_counts():
@@ -115,9 +118,9 @@ def pair_interaction_bwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
 
 
 # ----------------------------------------------------------------------- #
-def _lib():
+def _lib(F):
     from newtonnet_tpu_torch.ops import _build
-    lib = _build.load('fused_dense')
+    lib = _build.load('fused_dense', F)
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_pair_fwd.argtypes = [p] * 13 + [i] * 6 + [p]
@@ -146,11 +149,10 @@ def _check_cuda(named, shapes):
 
 
 def _shapes(np_, rbf):
+    from newtonnet_tpu_torch.ops import _build
     B, N, F = np_.shape
     R = rbf.shape[-1]
-    if F not in KERNEL_WIDTHS:
-        raise ValueError(f'the CUDA kernels take F in {KERNEL_WIDTHS}, '
-                         f'got {F}')
+    _build.padded_width(F)  # refuses a width the kernels do not take
     if B * N == 0:
         raise ValueError(f'empty batch: B={B}, N={N}')
     return B, N, F, R, [(B, N, F), (B, N, N, R), (B, 3, N, N), (B, N, N),
@@ -180,7 +182,7 @@ def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     opts = dict(device=np_.device, dtype=torch.float32)
     inv1 = torch.empty((B, N, F), **opts)
     eq = torch.empty((B, 3, N, F), **opts)
-    lib = _lib()
+    lib = _lib(F)
     # the weights split into tf32 pairs and the row partials
     scratch = torch.empty((lib.nn_pair_scratch_floats(B, N, F, R, 2),),
                           **opts)
@@ -217,7 +219,7 @@ def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     dforce = torch.empty((B, 3, N, F), **opts)
     dw = (torch.empty((R * F + 4 * F * F,), **opts) if weight_grads
           else None)
-    lib = _lib()
+    lib = _lib(F)
     # the weights split into tf32 pairs, the cross-block partials and, with
     # weight cotangents, one partial per block
     scratch = torch.empty(

@@ -38,7 +38,6 @@ import ctypes
 import torch
 
 from newtonnet_tpu_torch.ops.fused_dense import (
-    KERNEL_WIDTHS,
     _check_cuda,
     _dsilu,
     _raise_on,
@@ -201,9 +200,9 @@ def pair_interaction_dual_bwd_ref(np_, npdot, rbf, rbfdot, dir_, dirdot, adj,
 
 
 # ----------------------------------------------------------------------- #
-def _lib():
+def _lib(F):
     from newtonnet_tpu_torch.ops import _build
-    lib = _build.load('fused_dual')
+    lib = _build.load('fused_dual', F)
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_dual_fwd.argtypes = [p] * 19 + [i] * 6 + [p]
@@ -222,14 +221,14 @@ def smem_bytes(F, R, kind, dot_dtype='bfloat16'):
     '''Dynamic shared memory of one block of K3 (kind 'fwd') or K4 ('bwd')
     in the given dot mode, as the CUDA source computes it (builds the
     source if needed).'''
-    return _lib().nn_dual_smem_bytes(F, R, int(kind == 'bwd'),
-                                     int(dot_dtype == 'bfloat16'))
+    return _lib(F).nn_dual_smem_bytes(F, R, int(kind == 'bwd'),
+                                      int(dot_dtype == 'bfloat16'))
 
 
 def _scratch(B, N, F, R, kind, device):
     '''The scratch of one K3 (kind 'fwd') or K4 ('bwd') launch, sized by
     the CUDA source (csrc/fused_dual.cu: nn_dual_scratch_floats).'''
-    n = _lib().nn_dual_scratch_floats(B, N, F, R, int(kind == 'bwd'))
+    n = _lib(F).nn_dual_scratch_floats(B, N, F, R, int(kind == 'bwd'))
     return torch.empty((n,), device=device, dtype=torch.float32)
 
 
@@ -243,11 +242,10 @@ def _checked(ins, dot_dtype, cots=()):
     if dot_dtype not in DOT_DTYPES:
         raise ValueError(f'dot_dtype must be one of {DOT_DTYPES}, got '
                          f'{dot_dtype!r}')
+    from newtonnet_tpu_torch.ops import _build
     B, N, F = ins[0].shape
     R = ins[2].shape[-1]
-    if F not in KERNEL_WIDTHS:
-        raise ValueError(f'the CUDA kernels take F in {KERNEL_WIDTHS}, '
-                         f'got {F}')
+    _build.padded_width(F)  # refuses a width the kernels do not take
     if B * N == 0:
         raise ValueError(f'empty batch: B={B}, N={N}')
     node, pair, vec = (B, N, F), (B, N, N, R), (B, 3, N, F)
@@ -276,7 +274,7 @@ def pair_interaction_dual_fwd(np_, npdot, rbf, rbfdot, dir_, dirdot, adj,
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts),
             torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
     scratch = _scratch(B, N, F, R, 'fwd', np_.device)
-    err = _lib().nn_dual_fwd(
+    err = _lib(F).nn_dual_fwd(
         *[t.data_ptr() for t in ins + outs + (scratch,)], B, N, F, R,
         int(first_layer), int(dot_dtype == 'bfloat16'),
         torch.cuda.current_stream(np_.device).cuda_stream)
@@ -308,7 +306,7 @@ def pair_interaction_dual_bwd(np_, npdot, rbf, rbfdot, dir_, dirdot, adj,
             torch.empty((B, 3, N, F), **opts))
     dw = torch.empty((R * F + 4 * F * F,), **opts)
     scratch = _scratch(B, N, F, R, 'bwd', np_.device)
-    err = _lib().nn_dual_bwd(
+    err = _lib(F).nn_dual_bwd(
         *[t.data_ptr() for t in ins + cots + outs + (dw, scratch)],
         B, N, F, R, int(first_layer), int(dot_dtype == 'bfloat16'),
         torch.cuda.current_stream(np_.device).cuda_stream)

@@ -32,15 +32,17 @@ On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
 nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
 the CPU the wrappers run the plain versions below. All four multiply on
 the tensor cores in 3xTF32 (each operand split in a TF32 high and low
-part, three products summed in fp32), which keeps fp32-level accuracy. A CUDA tensor either launches the kernel or
-raises: nothing falls back.
+part, three products summed in fp32), which keeps fp32-level accuracy. A
+CUDA tensor either launches the kernel or raises: nothing falls back. The
+kernels take any F from 1 to `_build.MAX_WIDTH` at its padded width
+(`_build.padded_width`) with zero pad lanes of their own: every tensor is
+read and written at F, and no edge tensor is copied to another width.
 '''
 import ctypes
 
 import torch
 
 from newtonnet_tpu_torch.ops.fused_dense import (
-    KERNEL_WIDTHS,
     _dsilu,
     _raise_on,
     _silu,
@@ -259,9 +261,9 @@ def klist_dual_bwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
 
 
 # ----------------------------------------------------------------------- #
-def _lib():
+def _lib(F):
     from newtonnet_tpu_torch.ops import _build
-    lib = _build.load('fused_klist')
+    lib = _build.load('fused_klist', F)
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_klist_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
@@ -271,7 +273,8 @@ def _lib():
         for fn in (lib.nn_klist_fwd, lib.nn_klist_bwd, lib.nn_klist_dual_fwd,
                    lib.nn_klist_dual_bwd):
             fn.restype = i
-        for fn in (lib.nn_klist_smem_bytes, lib.nn_klist_scratch_floats):
+        for fn in (lib.nn_klist_smem_bytes, lib.nn_klist_scratch_floats,
+                   lib.nn_klist_wpart_floats):
             fn.argtypes = [i] * 3
             fn.restype = ctypes.c_size_t
         lib._nn_typed = True
@@ -282,7 +285,7 @@ def smem_bytes(F, R, kind):
     '''Dynamic shared memory of one block of K5 ('fwd'), K6 ('bwd'), K7
     ('dual_fwd') or K8 ('dual_bwd'), as the CUDA source computes it.'''
     kinds = ('fwd', 'bwd', 'dual_fwd', 'dual_bwd')
-    return _lib().nn_klist_smem_bytes(F, R, kinds.index(kind))
+    return _lib(F).nn_klist_smem_bytes(F, R, kinds.index(kind))
 
 
 def _checked(npi, cat, rbf, named, first_layer):
@@ -292,9 +295,8 @@ def _checked(npi, cat, rbf, named, first_layer):
     B, N, F = npi.shape
     K, R = cat.shape[2], rbf.shape[-1]
     C = F if first_layer else 4 * F
-    if F not in KERNEL_WIDTHS:
-        raise ValueError(f'the CUDA kernels take F in {KERNEL_WIDTHS}, '
-                         f'got {F}')
+    from newtonnet_tpu_torch.ops import _build
+    _build.padded_width(F)  # refuses a width the kernels do not take
     if B * N * K == 0:
         raise ValueError(f'empty batch: B={B}, N={N}, K={K}')
     edt = cat.dtype
@@ -365,7 +367,7 @@ def klist_fwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
                                  list(zip(_NAMES, ins, _KINDS)), first_layer)
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
-    lib = _lib()
+    lib = _lib(F)
     # the weights split into tf32 (hi, lo) pairs, once per launch; at most
     # one block per SM, each walking atom tiles
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 0),), **opts)
@@ -393,9 +395,11 @@ def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
     outs = (torch.empty((B, N, F), **opts), torch.empty_like(cat),
             torch.empty_like(rbf), torch.empty((B, 3, N, K), **opts))
     n_w = R * F + 4 * F * F
-    lib = _lib()
+    lib = _lib(F)
     n_blocks = _n_blocks(B, N, npi.device)
-    wpart = torch.empty((n_blocks, n_w), **opts) if weight_grads else None
+    # one weight partial per block, at the kernels' padded width
+    wpart = (torch.empty((lib.nn_klist_wpart_floats(n_blocks, F, R),),
+                         **opts) if weight_grads else None)
     dw = torch.empty((n_w,), **opts) if weight_grads else None
     # the weights split into tf32 (hi, lo) pairs, once per launch
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 1),), **opts)
@@ -428,7 +432,7 @@ def klist_dual_fwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts),
             torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
-    lib = _lib()
+    lib = _lib(F)
     # the weights split into tf32 (hi, lo) pairs, once per launch
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 2),), **opts)
     err = lib.nn_klist_dual_fwd(*[t.data_ptr() for t in ins + outs],
@@ -460,10 +464,13 @@ def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, N, F), **opts),
             torch.empty_like(cat), torch.empty_like(catdot))
     n_w = R * F + 4 * F * F
+    lib = _lib(F)
     n_blocks = _n_blocks(B, N, npi.device)
-    wpart = torch.empty((n_blocks, n_w), **opts)
+    # one weight partial per block at the kernels' padded width and, where
+    # that is not F, the weights padded to it
+    wpart = torch.empty((lib.nn_klist_wpart_floats(n_blocks, F, R),), **opts)
     dw = torch.empty((n_w,), **opts)
-    err = _lib().nn_klist_dual_bwd(
+    err = lib.nn_klist_dual_bwd(
         *[t.data_ptr() for t in ins + cots + outs + (wpart, dw)], B, N, K, F,
         R, int(first_layer), bf, n_blocks, _stream(npi))
     _raise_on(err, 'nn_klist_dual_bwd')

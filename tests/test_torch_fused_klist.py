@@ -199,8 +199,9 @@ def test_wrappers_take_the_plain_version_on_cpu():
 
 def test_launch_checks_refuse_what_the_kernels_do_not_take():
     '''The checks a CUDA launch makes first (run here on CPU tensors): the
-    shapes they read, a bf16 edge flag, and refusals of a width without a
-    kernel, a mixed edge dtype, a wrong shape and a strided tensor.'''
+    shapes they read, a bf16 edge flag, any width from 1 to 256 (F=16
+    here), and refusals of a width without a kernel (past 256), a mixed
+    edge dtype, a wrong shape and a strided tensor.'''
     ins, ws, _, _ = _inputs(5, False, seed=1, F=32, R=8)
     tin = [torch.from_numpy(a) for a in ins]
     tin[1], tin[2] = tin[1].bfloat16(), tin[2].bfloat16()
@@ -210,9 +211,11 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take():
         named = list(zip(fk._NAMES, ts, fk._KINDS))
         return fk._checked(ts[0], ts[1], ts[2], named, first_layer)
     assert check(tin + tw) == (2, 8, 5, 32, 8, 1)
-    with pytest.raises(ValueError, match='F in'):
-        small, _, _, _ = _inputs(5, False, seed=1)  # F=16
-        check([torch.from_numpy(a) for a in small] + tw)
+    small, small_w, _, _ = _inputs(5, False, seed=1)  # F=16
+    assert check([torch.from_numpy(a) for a in small + small_w])[3] == 16
+    with pytest.raises(ValueError, match='ROADMAP.md B'):
+        wide, wide_w, _, _ = _inputs(5, False, seed=1, F=288, N=2)
+        check([torch.from_numpy(a) for a in wide + wide_w])
     mixed = list(tin)
     mixed[2] = mixed[2].float()
     with pytest.raises(TypeError, match='rbf'):

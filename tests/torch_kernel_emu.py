@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 import torch
 
+from newtonnet_tpu_torch.ops import fused_dense as fd
+from newtonnet_tpu_torch.ops import fused_klist as fk
+
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'newtonnet_tpu_torch')
 BAR = 1e-4
@@ -43,16 +46,20 @@ def for_gxx(src):
                   flags=re.S)
 
 
-def compile_emu(out, name, src):
-    '''Compile a rewritten source with g++ into out/lib<name>.so.'''
+def compile_emu(out, name, src, flags=()):
+    '''Compile a rewritten source with g++ into out/lib<name>.so: the
+    library of the default widths, or with the defines `flags`
+    (ops/_build.width_flags(F)) the one that runs width F, as
+    ops/_build.py builds it for the card.'''
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++')
     (out / f'{name}.cpp').write_text(for_gxx(src))
     so = out / f'lib{name}.so'
     subprocess.run([gxx, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
-                    '-I', os.path.join(PKG, 'csrc', 'emu'), '-o', str(so),
-                    str(out / f'{name}.cpp')], check=True, timeout=600)
+                    *flags, '-I', os.path.join(PKG, 'csrc', 'emu'), '-o',
+                    str(so), str(out / f'{name}.cpp')], check=True,
+                   timeout=600)
     return ctypes.CDLL(str(so))
 
 
@@ -93,3 +100,266 @@ def nan(*shape):
 
 def ptrs(ts):
     return [t.data_ptr() for t in ts]
+
+
+# ----------------------------------------------------------------- K1-K4 --
+# (B, N, F, R): the cases of test_emulated_kernels_match_plain, K1 in
+# test_torch_kernel_emulation_dense.py and K2 in ..._dense_bwd.py
+DENSE_CASES = [(2, 10, 32, 8), (1, 17, 64, 16), (1, 21, 128, 20),
+               (3, 13, 32, 12)]
+
+
+def dense_handle(handle):
+    '''The argument and result types of fused_dense.cu's C functions.'''
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.nn_pair_fwd.argtypes = [p] * 13 + [i] * 6 + [p]
+    handle.nn_pair_fwd.restype = i
+    handle.nn_pair_bwd.argtypes = [p] * 18 + [i] * 6 + [p]
+    handle.nn_pair_bwd.restype = i
+    handle.nn_pair_scratch_floats.argtypes = [i] * 5
+    handle.nn_pair_scratch_floats.restype = ctypes.c_size_t
+    return handle
+
+
+def dual_handle(handle):
+    '''The argument and result types of fused_dual.cu's C functions.'''
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.nn_dual_fwd.argtypes = [p] * 19 + [i] * 6 + [p]
+    handle.nn_dual_fwd.restype = i
+    handle.nn_dual_bwd.argtypes = [p] * 24 + [i] * 6 + [p]
+    handle.nn_dual_bwd.restype = i
+    handle.nn_dual_scratch_floats.argtypes = [i] * 5
+    handle.nn_dual_scratch_floats.restype = ctypes.c_size_t
+    return handle
+
+
+def run_k1(handle, ins, first_layer, max_blocks=3):
+    '''(kernel, plain) output pairs of K1, emulated, NaN-initialised, with
+    scratch (NaN too) of the size the source gives; its grid is at most
+    max_blocks blocks, so a block walks several tiles.'''
+    B, N, F = ins[0].shape
+    R = ins[1].shape[-1]
+    inv1, eq = nan(B, N, F), nan(B, 3, N, F)
+    scratch = nan(handle.nn_pair_scratch_floats(B, N, F, R, 2))
+    assert handle.nn_pair_fwd(*ptrs(ins + [inv1, eq, scratch]), B, N, F, R,
+                              int(first_layer), max_blocks, None) == 0
+    return list(zip((inv1, eq), fd.pair_interaction_fwd_ref(
+        *ins, first_layer=first_layer)))
+
+
+def run_k2(handle, ins, dinv1, deq, first_layer):
+    '''(kernel, plain) output pairs of K2 with and without weight
+    cotangents, emulated as run_k1's.'''
+    B, N, F = ins[0].shape
+    R = ins[1].shape[-1]
+    n_w = R * F + 4 * F * F
+    pairs = []
+    for wg in (True, False):
+        outs = [nan(B, N, F), nan(B, N, N, R), nan(B, 3, N, N),
+                nan(B, 3, N, F)]
+        dw = nan(n_w)
+        scratch = nan(handle.nn_pair_scratch_floats(B, N, F, R, int(wg)))
+        assert handle.nn_pair_bwd(
+            *ptrs(ins + [dinv1, deq] + outs),
+            dw.data_ptr() if wg else None, scratch.data_ptr(),
+            B, N, F, R, int(first_layer), int(wg), None) == 0
+        if wg:
+            outs += [v.view(s) for v, s in zip(
+                dw.split([R * F] + [F * F] * 4), [(R, F)] + [(F, F)] * 4)]
+        ref = fd.pair_interaction_bwd_ref(*ins, dinv1, deq,
+                                          first_layer=first_layer,
+                                          weight_grads=wg)
+        pairs += list(zip(outs, ref))
+    return pairs
+
+
+def run_pair(handle, ins, dinv1, deq, first_layer):
+    '''run_k1's and run_k2's pairs.'''
+    return (run_k1(handle, ins, first_layer)
+            + run_k2(handle, ins, dinv1, deq, first_layer))
+
+
+def check_pairs(pairs):
+    '''Each (kernel, plain) pair finite and within BAR of the plain
+    output's largest magnitude.'''
+    for k, (got, want) in enumerate(pairs):
+        assert torch.isfinite(got).all(), k
+        err = (got - want).abs().max().item()
+        assert err <= BAR * want.abs().max().item(), (k, err)
+
+
+def dual_inputs(B, N, F, R, seed):
+    '''K3's inputs and K4's cotangents, of the scale the model produces.'''
+    ins, di, dq = pair_inputs(B, N, F, R, seed)
+    rs = np.random.RandomState(seed + 100)
+
+    def t(*shape):
+        return torch.tensor(rs.randn(*shape) * 0.1, dtype=torch.float32)
+
+    np_, rbf, dir_, adj, force = ins[:5]
+    args = [np_, t(B, N, F), rbf, t(B, N, N, R), dir_, t(B, 3, N, N), adj,
+            force, t(B, 3, N, F)] + ins[5:]
+    return args, [di, dq, t(B, N, F), t(B, 3, N, F)]
+
+
+def run_dual(handle, args, cots, first_layer, bf16):
+    '''(K3 outputs, K4 outputs) of the emulated kernels, NaN-initialised,
+    with scratch (NaN too) of the size the source gives.'''
+    B, N, F = args[0].shape
+    R = args[2].shape[-1]
+    fwd = [nan(B, N, F), nan(B, 3, N, F), nan(B, N, F), nan(B, 3, N, F)]
+    scratch = nan(handle.nn_dual_scratch_floats(B, N, F, R, 0))
+    assert handle.nn_dual_fwd(*ptrs(args + fwd + [scratch]), B, N, F, R,
+                              int(first_layer), int(bf16), None) == 0
+    n_w = R * F + 4 * F * F
+    bwd = [nan(B, N, F), nan(B, N, F), nan(B, 3, N, F), nan(B, 3, N, F)]
+    dw = nan(n_w)
+    scratch = nan(handle.nn_dual_scratch_floats(B, N, F, R, 1))
+    assert handle.nn_dual_bwd(*ptrs(args + cots + bwd + [dw, scratch]), B, N,
+                              F, R, int(first_layer), int(bf16), None) == 0
+    bwd += [v.view(s) for v, s in zip(dw.split([R * F] + [F * F] * 4),
+                                      [(R, F)] + [(F, F)] * 4)]
+    return fwd, bwd
+
+
+# ----------------------------------------------------------------- K5-K8 --
+# (B, N, K, F, R), first_layer, bf16 edges: the cases of
+# test_emulated_klist_kernels_match_plain, K5/K6 in
+# test_torch_kernel_emulation_klist.py and K7/K8 in ..._klist_dual.py
+KLIST_CASES = [
+    ((2, 10, 13, 32, 8), False, False), ((2, 10, 13, 32, 8), True, False),
+    ((2, 10, 13, 32, 8), False, True), ((2, 10, 13, 32, 8), True, True),
+    ((1, 9, 6, 64, 16), False, True), ((1, 9, 6, 64, 16), True, False),
+    ((1, 9, 5, 128, 20), False, True), ((1, 9, 5, 128, 20), True, False)]
+
+
+def klist_handle(handle):
+    '''The argument and result types of fused_klist.cu's C functions.'''
+    p, i = ctypes.c_void_p, ctypes.c_int
+    handle.nn_klist_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
+    handle.nn_klist_bwd.argtypes = [p] * 19 + [i] * 9 + [p]
+    handle.nn_klist_dual_fwd.argtypes = [p] * 19 + [i] * 7 + [p]
+    handle.nn_klist_dual_bwd.argtypes = [p] * 24 + [i] * 8 + [p]
+    for fn in (handle.nn_klist_fwd, handle.nn_klist_bwd,
+               handle.nn_klist_dual_fwd, handle.nn_klist_dual_bwd):
+        fn.restype = i
+    for fn in (handle.nn_klist_scratch_floats, handle.nn_klist_wpart_floats):
+        fn.argtypes = [i] * 3
+        fn.restype = ctypes.c_size_t
+    return handle
+
+
+def klist_inputs(B, N, K, F, R, first_layer, bf16, seed):
+    '''K5's inputs, K7's tangents and the cotangents of both, with the edge
+    tensors (cat, rbf and their tangents) in the edge dtype.'''
+    rs = np.random.RandomState(seed)
+    C = F if first_layer else 4 * F
+    edt = torch.bfloat16 if bf16 else torch.float32
+
+    def t(*shape, scale=1.0, dtype=torch.float32):
+        return torch.tensor(rs.randn(*shape) * scale, dtype=torch.float32) \
+            .to(dtype)
+
+    mask = torch.tensor(rs.rand(B, N, K) < 0.7, dtype=torch.float32)
+    ins = [t(B, N, F, scale=0.3), t(B, N, K, C, scale=0.3, dtype=edt),
+           t(B, N, K, R, scale=0.3, dtype=edt), t(B, 3, N, K), mask]
+    ins += [t(*s, scale=s[0] ** -0.5)
+            for s in [(R, F), (F, F), (F, F), (F, F), (F, F)]]
+    tans = [t(B, N, F, scale=0.1), t(B, N, K, C, scale=0.1, dtype=edt),
+            t(B, N, K, R, scale=0.1, dtype=edt), t(B, 3, N, K, scale=0.1)]
+    cots = [t(B, N, F), t(B, 3, N, F), t(B, N, F, scale=0.3),
+            t(B, 3, N, F, scale=0.3)]
+    return ins, tans, cots
+
+
+def run_k5(handle, ins, first_layer, bf16, max_blocks=3):
+    '''(inv1, eq) of the emulated K5, NaN-initialised, its scratch too, with
+    a grid of at most max_blocks blocks.'''
+    B, N, F = ins[0].shape
+    K, R = ins[1].shape[2], ins[2].shape[-1]
+    out = [nan(B, N, F), nan(B, 3, N, F),
+           nan(handle.nn_klist_scratch_floats(F, R, 0))]
+    assert handle.nn_klist_fwd(*ptrs(ins + out), B, N, K, F, R,
+                               int(first_layer), int(bf16), max_blocks,
+                               None) == 0
+    return out[:2]
+
+
+def _nan_like(x):
+    return torch.full_like(x, float('nan'))
+
+
+def _wpart(handle, B, N, F, R, max_blocks):
+    '''K6's and K8's weight partials, NaN, of the size the source gives.'''
+    n_blk = min(B * ((N + 7) // 8), max_blocks)
+    return nan(handle.nn_klist_wpart_floats(n_blk, F, R))
+
+
+def run_k56(handle, ins, cots, first_layer, bf16, max_blocks=3):
+    '''(K5, K6 without and with weight cotangents) outputs of the emulated
+    kernels, NaN-initialised, and the plain versions' values. K6's grid is
+    at most max_blocks blocks, so a block walks several atom tiles (of both
+    molecules where B = 2) into one weight partial.'''
+    B, N, F = ins[0].shape
+    K, R = ins[1].shape[2], ins[2].shape[-1]
+    fl, bf = int(first_layer), int(bf16)
+    n_w = R * F + 4 * F * F
+    got, want = [], []
+    got += run_k5(handle, ins, first_layer, bf16, max_blocks)
+    want += fk.klist_fwd_ref(*ins, first_layer=first_layer)
+    for wg in (False, True):
+        outs = [nan(B, N, F), _nan_like(ins[1]), _nan_like(ins[2]),
+                nan(B, 3, N, K)]
+        wpart, dw = _wpart(handle, B, N, F, R, max_blocks), nan(n_w)
+        scratch = nan(handle.nn_klist_scratch_floats(F, R, 1))
+        assert handle.nn_klist_bwd(
+            *ptrs(ins + cots[:2] + outs),
+            wpart.data_ptr() if wg else None, dw.data_ptr() if wg else None,
+            scratch.data_ptr(), B, N, K, F, R, fl, int(wg), bf, max_blocks,
+            None) == 0
+        ref = fk.klist_bwd_ref(*ins, *cots[:2], first_layer=first_layer,
+                               weight_grads=wg)
+        got += outs + (list(dw.split([R * F] + [F * F] * 4)) if wg else [])
+        want += list(ref[:4]) + ([r.reshape(-1) for r in ref[4:]]
+                                 if wg else [])
+    return got, want
+
+
+def run_k78(handle, ins, tans, cots, first_layer, bf16, max_blocks=3):
+    '''(K7, K8) outputs of the emulated kernels, NaN-initialised, and the
+    plain versions' values. K8's grid is at most max_blocks blocks.'''
+    B, N, F = ins[0].shape
+    K, R = ins[1].shape[2], ins[2].shape[-1]
+    fl, bf = int(first_layer), int(bf16)
+    n_w = R * F + 4 * F * F
+    args = [ins[0], tans[0], ins[1], tans[1], ins[2], tans[2], ins[3],
+            tans[3], ins[4]] + ins[5:]
+    dfwd = [nan(B, N, F), nan(B, 3, N, F), nan(B, N, F), nan(B, 3, N, F)]
+    scratch = nan(handle.nn_klist_scratch_floats(F, R, 2))
+    assert handle.nn_klist_dual_fwd(*ptrs(args + dfwd + [scratch]), B, N, K,
+                                    F, R, fl, bf, None) == 0
+    got = list(dfwd)
+    want = list(fk.klist_dual_fwd_ref(*args, first_layer=first_layer))
+    dbwd = [nan(B, N, F), nan(B, N, F), _nan_like(ins[1]), _nan_like(tans[1])]
+    wpart, dw = _wpart(handle, B, N, F, R, max_blocks), nan(n_w)
+    assert handle.nn_klist_dual_bwd(*ptrs(args + cots + dbwd + [wpart, dw]),
+                                    B, N, K, F, R, fl, bf, max_blocks,
+                                    None) == 0
+    ref = fk.klist_dual_bwd_ref(*args, *cots, first_layer=first_layer)
+    got += dbwd + list(dw.split([R * F] + [F * F] * 4))
+    want += list(ref[:4]) + [r.reshape(-1) for r in ref[4:]]
+    return got, want
+
+
+def check_klist(got, want, bf16):
+    '''Each output against its plain value: fp32 outputs hold BAR; the
+    bf16-stored ones (dcat, dcatdot, drbf) one bf16 ulp, 2^-8 of the
+    output's largest magnitude (a last-bit fp32 difference before the
+    rounding can move a value to the neighbouring bf16 value).'''
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype, k
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), k
+        bar = 2.0 ** -8 if bf16 and got[k].dtype == torch.bfloat16 else BAR
+        err = (g - w).abs().max().item()
+        assert err <= bar * w.abs().max().item(), (k, err)
