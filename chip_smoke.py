@@ -8,8 +8,9 @@ with a non-zero exit code and no result line):
 
 1. env      the card, its power limit (nvidia-smi), torch / CUDA versions;
             TF32 off for matmuls and cuDNN.
-2. build    nvcc builds every kernel source of the package (sm_90a), all
-            at once; ptxas registers, spills and shared memory per kernel.
+2. build    nvcc builds every kernel source of the package (sm_90a), K1-K8's
+            once per width of BUILD_WIDTHS, all at once; ptxas registers,
+            spills and shared memory per library and kernel.
 3. kernels  K1/K2 against their plain PyTorch versions on the card, at the
             batched serving shape (B=100, N=21, F=128, R=20), at one
             calculator request (B=1, N=24), at (B=2, N=70, F=64, R=16) and
@@ -168,8 +169,8 @@ with a non-zero exit code and no result line):
             through the calculator (swapped to newton3) equal to 8a's
             request bit for bit; the staircase's host build and slot rows.
 8e. c11     the bf16 numbers of 5c and 7h in units of the JAX shift.
-9a. widths  K1-K8 at F = 16, 20, 48, 96 and 256 (WIDTHS_9A; their own
-            libraries, built with the others) against their plain
+9a. widths  K1-K8 at F = 16, 20, 48, 96 and 256 (WIDTHS_9A; their
+            libraries built with the others, BUILD_WIDTHS) against their plain
             versions at small ragged shapes, both variants, K2/K6 with and
             without weight cotangents, K3/K4 in both dot modes, fp32 and
             bf16 edges; phase 3's bars; second launches repeat their bits.
@@ -185,7 +186,9 @@ with a non-zero exit code and no result line):
             dense one with fp32 duals (1e-4), one K-list CLI epoch.
 9d. widths timing  K1-K8 at F = 48, 64 and 256 (WIDTHS_9D): K1-K4 at
             LJ_CONFIG's training shape (B=12, N=64, R=16), K5-K8 at the
-            box shape; bounds on the work at the true width.
+            box shape; bounds on the work at the true width; each timed
+            call's outputs against its plain version's at phase 3's bars
+            (at F=256 the box shape walks several atom tiles per block).
 6. timing   each kernel variant's launches on its main path, its time and
             its plain version's (CUDA events, median of 7 reps), and the
             least time the card could take: K1/K2 at the batched serving
@@ -203,7 +206,8 @@ with a non-zero exit code and no result line):
             launches on the XLA training paths (7g, 7h).
 
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
-their times at the 9d widths, 9a's errors and their 9b/9c launches) and,
+their times, bounds and errors at the 9d widths, 9a's errors and their
+9b/9c launches) and,
 last, {"ok": true, "device": {...}}.
 '''
 import functools
@@ -505,6 +509,8 @@ JAX_LJ_PALLAS_STEP_GRAD_NORM = {
 # tiles) and of phase 9d's timing (48 beside 64, 256 beside 128)
 WIDTHS_9A = (16, 20, 48, 96, 256)
 WIDTHS_9D = (48, 64, 256)
+# the widths whose K1-K8 libraries the build phase compiles
+BUILD_WIDTHS = tuple(sorted({32, 64, 128, *WIDTHS_9A, *WIDTHS_9D}))
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
 WINDOW_T, WINDOW_F = 128, 512
@@ -3427,38 +3433,51 @@ def phase_lj_pallas_train(torch, fd, fdd, fk):
 def width_timing(torch, fd, fdd, fk, widths=WIDTHS_9D):
     """Phase 9d: K1-K4 at LJ_CONFIG's training shape (B=12, N=64, R=16)
     and K5-K8 at the box shape (bf16 edges, R=20) at each width: CUDA-event
-    times (two runs) and the bound computed on the work at the true width.
-    -> {kernel name: {F: {...}}}."""
+    times (two runs), the bound computed on the work at the true width,
+    and the timed call's outputs against its plain version's on the same
+    inputs (worst_vs_plain: KERNEL_BAR, K3/K4 in bf16 mode DUAL_BF16_BAR;
+    the phase fails past it). -> {kernel name: {F: {...}}}."""
     timing = {}
 
-    def add(name, F, run, flops, nbytes, peak):
+    def add(name, F, run, plain, bar, flops, nbytes, peak):
+        err = worst_vs_plain(torch, f'9d {name} F={F}',
+                             list(zip(run(), plain())), bar)
         ms, ms2 = time_ms(torch, run, inner=3), time_ms(torch, run, inner=3)
         t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
         timing.setdefault(name, {})[F] = {
             'ms': statistics.median([ms, ms2]), 'ms_runs': [ms, ms2],
             'bound_ms': 1e3 * max(t_ops, t_bytes),
-            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes'}
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+            'err_over_max_vs_plain': err, 'bar': bar}
     B, N, R = 12, 64, 16
     for F in widths:
         ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=F)
         args, cots = dual_inputs(torch, B, N, F, R, seed=F)
         for first in (False, True):
             sfx = '_first' if first else ''
+            kw = dict(first_layer=first)
             add('pair_fwd' + sfx, F,
-                lambda: fd.pair_interaction_fwd(*ins, first_layer=first),
+                lambda: fd.pair_interaction_fwd(*ins, **kw),
+                lambda: fd.pair_interaction_fwd_ref(*ins, **kw), KERNEL_BAR,
                 *layer_work(B, N, F, R, 'fwd', first), PEAK_FP32_FLOPS)
+            bkw = dict(first_layer=first, weight_grads=False)
             add('pair_bwd' + sfx, F,
-                lambda: fd.pair_interaction_bwd(*ins, dinv1, deq,
-                                                first_layer=first,
-                                                weight_grads=False),
-                *layer_work(B, N, F, R, 'bwd', first), PEAK_FP32_FLOPS)
-            kw = dict(first_layer=first, dot_dtype='bfloat16')
+                lambda: fd.pair_interaction_bwd(*ins, dinv1, deq, **bkw),
+                lambda: fd.pair_interaction_bwd_ref(*ins, dinv1, deq, **bkw),
+                KERNEL_BAR, *layer_work(B, N, F, R, 'bwd', first),
+                PEAK_FP32_FLOPS)
+            dkw = dict(first_layer=first, dot_dtype='bfloat16')
             add('dual_fwd' + sfx, F,
-                lambda: fdd.pair_interaction_dual_fwd(*args, **kw),
-                *dual_work(B, N, F, R, 'fwd', first), PEAK_BF16_FLOPS)
+                lambda: fdd.pair_interaction_dual_fwd(*args, **dkw),
+                lambda: fdd.pair_interaction_dual_fwd_ref(*args, **dkw),
+                DUAL_BF16_BAR, *dual_work(B, N, F, R, 'fwd', first),
+                PEAK_BF16_FLOPS)
             add('dual_bwd' + sfx, F,
-                lambda: fdd.pair_interaction_dual_bwd(*args, *cots, **kw),
-                *dual_work(B, N, F, R, 'bwd', first), PEAK_BF16_FLOPS)
+                lambda: fdd.pair_interaction_dual_bwd(*args, *cots, **dkw),
+                lambda: fdd.pair_interaction_dual_bwd_ref(*args, *cots,
+                                                          **dkw),
+                DUAL_BF16_BAR, *dual_work(B, N, F, R, 'bwd', first),
+                PEAK_BF16_FLOPS)
         del ins, args, cots
     B, N, K, R = 1, BOX_ATOMS, BOX_K_MAX, 20
     for F in widths:
@@ -3466,20 +3485,27 @@ def width_timing(torch, fd, fdd, fk, widths=WIDTHS_9D):
             kins, tans, kcots = klist_inputs(torch, B, N, K, F, R, first,
                                              torch.bfloat16, seed=30)
             calls = klist_calls(fk, kins, tans, kcots, first)
+            refs = klist_calls(fk, kins, tans, kcots, first, ref=True)
             for call in ('klist_fwd', 'klist_bwd(wg=0)', 'klist_dual_fwd',
                          'klist_dual_bwd'):
                 kind = call.split('(')[0]
                 fn, a, kw = calls[call]
+                rfn, ra, rkw = refs[call]
                 add(kind + ('_first' if first else ''), F,
                     lambda: fn(*a, first_layer=first, **kw),
+                    lambda: rfn(*ra, first_layer=first, **rkw), KERNEL_BAR,
                     *klist_work(B, N, K, F, R, kind, first, 2),
                     PEAK_FP32_FLOPS)
-            del kins, tans, kcots, calls
+                torch.cuda.empty_cache()
+            del kins, tans, kcots, calls, refs
             torch.cuda.empty_cache()
     emit('timing', what='K1-K8 at other widths', widths=list(widths),
          dense_shape=dict(B=12, N=64, R=16),
          klist_shape=dict(B=1, N=BOX_ATOMS, K=BOX_K_MAX, R=20),
-         edge_dtype='bfloat16', dual_dot_dtype='bfloat16', timing=timing)
+         edge_dtype='bfloat16', dual_dot_dtype='bfloat16', timing=timing,
+         vs_plain='worst over outputs of the excess over the plain value '
+                  'relative to its largest magnitude (beyond one bf16 ulp '
+                  'for bf16-stored outputs)')
     return timing
 
 
@@ -3524,13 +3550,15 @@ def main():
              torch.backends.cuda.matmul
              .allow_bf16_reduced_precision_reduction))
 
-    # 2. build: the default libraries and, for phase 9a, the K1-K8
-    # sources' libraries of its widths (a pad below 32 and 64; 96; 256)
+    # 2. build: K9-K12's libraries and K1-K8's of every width the script
+    # runs (the checkpoints' 128, phase 3's 32 and 64, and phases 9a and
+    # 9d's), one library per (padded width, padded)
     t0 = time.perf_counter()
-    report = _build.build_all(widths=WIDTHS_9A)
+    report = _build.build_all(widths=BUILD_WIDTHS)
     ptxas = {}
     for name, (_, log) in report.items():
         entry = None
+        ptxas[name] = lib = {}
         for line in log.splitlines():
             if 'Compiling entry function' in line:
                 # e.g. ..._15dual_bwd_kernelILi128ELb0ELb1EE... ->
@@ -3539,7 +3567,7 @@ def main():
                 m = re.search(r'([a-z_]+_kernel)(I\w*?E)?E', mangled)
                 if m is None:
                     entry = mangled
-                    ptxas[entry] = {}
+                    lib[entry] = {}
                     continue
                 args = re.findall(r'L[ib](\d+)E', m.group(2) or '')
                 if m.group(1).startswith(('row_gather', 'window')) \
@@ -3548,12 +3576,12 @@ def main():
                 if 'bfloat16' in mangled:  # the K-list edge type
                     args.append('bf16')
                 entry = m.group(1) + (f'<{",".join(args)}>' if args else '')
-                ptxas[entry] = {}
+                lib[entry] = {}
             elif entry and 'registers' in line:
-                ptxas[entry]['registers'] = int(
+                lib[entry]['registers'] = int(
                     re.search(r'Used (\d+) registers', line).group(1))
             elif entry and 'spill' in line:
-                ptxas[entry]['spill_bytes'] = sum(
+                lib[entry]['spill_bytes'] = sum(
                     int(v) for v in re.findall(r'(\d+) bytes spill', line))
     emit('build', seconds=time.perf_counter() - t0,
          built={name: sec for name, (sec, _) in report.items()},

@@ -6,7 +6,8 @@ csrc/fused_dense.cu) and K7 (klist_dual_fwd_kernel, csrc/fused_klist.cu);
 with `k6k1`, kernels K6 (klist_bwd_kernel) and K1 (pair_fwd_kernel).
 
     python3 dual_breakdown.py [k2k7 | k6k1 | k5k11 | k1train ROOT... |
-                               steptime ROOT... | kerneltime ROOT...]
+                               steptime ROOT... | kerneltime ROOT... |
+                               k2diag ROOT...]
 
 Builds the source as it is and in variants with one part taken out
 (written to newtonnet_tpu_torch/_build/dual_breakdown/, gitignored; all
@@ -55,6 +56,17 @@ in the package of each checkout ROOT in turn, each in a process of its
 own: CUDA-event milliseconds per call (chip_smoke.time_ms). Give the
 parent and this checkout in turns, e.g. `kerneltime runs/parent . .
 runs/parent`.
+
+With `k2diag ROOT...` it compares K2 (pair_bwd_kernel, csrc/fused_dense.cu)
+at F=128 across checkouts, each in a process of its own: the device
+microseconds per call of each kernel of a K2 launch (the weight
+preparation, pair_bwd_kernel, the node sums; torch.profiler over 20 calls
+at B=100, N=21, R=20, no weight cotangents, full and first layer), and,
+from the library the checkout's wrapper loads, the ptxas registers,
+stack and spills and the SASS instruction counts by opcode (cuobjdump
+-sass) of pair_bwd_kernel<128,*,*>, k2_prod, k2_wgrad and the node-sum and
+preparation kernels. A last line gives the opcode counts of the second
+root minus the first's, per function. E.g. `k2diag runs/parent .`.
 
 With `k5k11`, kernel K5 (klist_fwd_kernel, csrc/fused_klist.cu: k5_prod)
 as it is (16-atom tiles, 128 slot rows a step), with 8-atom tiles (m64: 64
@@ -213,7 +225,6 @@ def weight_bytes(kernel, B, N, K, F, R, first):
 def k6k1(torch, cs, card):
     '''The K6 and K1 lines (module docstring).'''
     import threading
-    from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_dense as fd
     from newtonnet_tpu_torch.ops import fused_klist as fk
     built = {}
@@ -242,7 +253,7 @@ def k6k1(torch, cs, card):
           flush=True)
     for src, libs in built.items():
         for name, so in libs.items():
-            _build._LIBS[src] = ctypes.CDLL(so)  # the wrapper's library
+            use(src, so)
             ms = {}
             for first in (False, True):
                 tag = 'first' if first else 'full'
@@ -273,7 +284,6 @@ def k5k11(torch, cs, card):
     '''The K5 and K11 lines (module docstring).'''
     import threading
     from torch.profiler import ProfilerActivity, profile
-    from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_klist as fk
     from newtonnet_tpu_torch.ops import window as wn
     built = {}
@@ -295,7 +305,7 @@ def k5k11(torch, cs, card):
         for first, tag in ((False, 'full'), (True, 'first'))
         for rows in (128, 64)}, 'card': card}), flush=True)
     for name, so in built['fused_klist'].items():
-        _build._LIBS['fused_klist'] = ctypes.CDLL(so)  # the wrapper's library
+        use('fused_klist', so)
         ms = {}
         for first in (False, True):
             f, a, kw = box[first]
@@ -314,7 +324,7 @@ def k5k11(torch, cs, card):
     def k11():
         wn.window_scatter_sum_fwd(y, idx_kn, W, cs.WINDOW_T)
     for name, so in built['window'].items():
-        _build._LIBS['window'] = ctypes.CDLL(so)  # the wrapper's library
+        use('window', so)
         for _ in range(3):
             k11()
         torch.cuda.synchronize()
@@ -432,6 +442,127 @@ def kernelone(torch, root):
     print(json.dumps(ms), flush=True)
 
 
+K2_FUNCS = re.compile(r'(pair_bwd\w*?_kernel|k2_[a-z]+)(?:I((?:L[ib]\d+E)+)E|E)')
+
+
+def k2_function(mangled):
+    """The short name of a K2 function at F=128 (its template arguments
+    in <>), or None for another function."""
+    m = K2_FUNCS.search(mangled)
+    if m is None:
+        return None
+    args = re.findall(r'L[ib](\d+)E', m.group(2) or '')
+    if args and args[0] != '128' and not (
+            m.group(1).startswith('k2_') and args[0] == '32'):
+        return None
+    return m.group(1) + (f'<{",".join(args)}>' if args else '')
+
+
+def k2_ptxas(log):
+    """{function: {registers, stack, spill_bytes}} of K2's functions in an
+    nvcc -Xptxas -v log."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            entry = k2_function(line.split("'")[1])
+        elif 'Function properties for' in line:
+            props = k2_function(line.split('for', 1)[1])
+            if props:
+                out.setdefault(props, {})
+        elif 'stack frame' in line and props:
+            v = [int(x) for x in re.findall(r'(\d+) bytes', line)]
+            out[props].update(stack=v[0], spill_bytes=v[1] + v[2])
+        elif 'Used' in line and 'registers' in line and entry:
+            out.setdefault(entry, {})['registers'] = int(
+                re.search(r'Used (\d+) registers', line).group(1))
+    return out
+
+
+def k2_sass(so):
+    """{function: {opcode: count}} of K2's functions in a library's SASS."""
+    from newtonnet_tpu_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    text = subprocess.run([cuobjdump, '-sass', so], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if 'Function : ' in line:
+            name = k2_function(line.split('Function : ', 1)[1])
+            cur = out.setdefault(name, {}) if name else None
+            continue
+        m = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?'
+                     r'([A-Z][A-Z0-9_]*)', line)
+        if cur is not None and m:
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    return out
+
+
+def k2diag(roots, card):
+    """The K2 lines (module docstring): one process per checkout root."""
+    sass = []
+    for root in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              'k2one', os.path.abspath(root)],
+                             capture_output=True, text=True, timeout=1200)
+        if out.returncode != 0:
+            raise RuntimeError(f'k2one {root} failed:\n{out.stderr[-3000:]}')
+        line = json.loads(out.stdout.strip().splitlines()[-1])
+        sass.append(line['sass'])
+        line['sass_total'] = {f: sum(c.values())
+                              for f, c in line['sass'].items()}
+        print(json.dumps({'root': root, **line, 'card': card}), flush=True)
+    if len(sass) >= 2:
+        a, b = sass[0], sass[1]
+        diff = {}
+        for f in sorted(set(a) | set(b)):
+            ops = set(a.get(f, {})) | set(b.get(f, {}))
+            d = {op: b.get(f, {}).get(op, 0) - a.get(f, {}).get(op, 0)
+                 for op in sorted(ops)}
+            diff[f] = {op: n for op, n in d.items() if n}
+        print(json.dumps({'sass_second_minus_first': diff,
+                          'roots': roots[:2]}), flush=True)
+
+
+def k2one(torch, root):
+    """K2's per-kernel device microseconds at F=128 and its functions'
+    ptxas and SASS reports, from the package under root (one JSON line),
+    with this checkout's chip_smoke.py making the inputs."""
+    import importlib.util
+    from torch.profiler import ProfilerActivity, profile
+    sys.path.insert(0, root)  # the package under root, not this one's
+    from newtonnet_tpu_torch.ops import _build
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    assert fd.__file__.startswith(root), fd.__file__
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke_here', os.path.join(HERE, 'chip_smoke.py'))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    ins, dinv1, deq = cs.random_inputs(torch, 100, 21, 128, 20, seed=0)
+    dev = {}
+    for first in (False, True):
+        def fn():
+            fd.pair_interaction_bwd(*ins, dinv1, deq, first_layer=first,
+                                    weight_grads=False)
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        tag = 'first' if first else 'full'
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0:
+                kname = e.key.split('::')[-1].split('(')[0].split('<')[0]
+                dev[f'{tag} {kname}'] = e.self_device_time_total / 20
+    so = next(lib._name for key, lib in _build._LIBS.items()
+              if key.startswith('fused_dense'))
+    with open(so[:-3] + '.log') as f:
+        ptxas = k2_ptxas(f.read())
+    print(json.dumps({'device_us': dev, 'library': os.path.basename(so),
+                      'ptxas': ptxas, 'sass': k2_sass(so)}), flush=True)
+
+
 def steptime(roots, card):
     '''The dense training step lines (module docstring): one process per
     checkout root, in the order given.'''
@@ -500,6 +631,19 @@ def stepone(torch, root):
         'device_idle_share': prof['device_idle_share']}), flush=True)
 
 
+def width(source):
+    '''The feature width of the library of `source` that the variants are
+    built as: 128 for a source of K1-K8, none for the others.'''
+    from newtonnet_tpu_torch.ops import _build
+    return 128 if source in _build.WIDE_SOURCES else None
+
+
+def use(source, so):
+    '''Have the wrappers call the library `so` in place of source's own.'''
+    from newtonnet_tpu_torch.ops import _build
+    _build._LIBS[_build._key(source, width(source))] = ctypes.CDLL(so)
+
+
 def build(source='fused_dual', variants=VARIANTS):
     '''{variant: path of its shared library}, built all at once.'''
     from newtonnet_tpu_torch.ops import _build
@@ -518,7 +662,8 @@ def build(source='fused_dual', variants=VARIANTS):
             f.write(text)
         so = os.path.join(OUT, f'lib{source}_{name}.so')
         procs[name] = (so, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, '-o', so, cu],
+            [_build._nvcc(), *_build.flags(source, width(source)), '-o',
+             so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, proc) in procs.items():
@@ -532,7 +677,6 @@ def build(source='fused_dual', variants=VARIANTS):
 def k2k7(torch, cs, card):
     '''The K2 and K7 lines (module docstring).'''
     import threading
-    from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_dense as fd
     from newtonnet_tpu_torch.ops import fused_klist as fk
     built = {}
@@ -553,7 +697,7 @@ def k2k7(torch, cs, card):
             'klist_dual_fwd']
     for src, libs in built.items():
         for name, so in libs.items():
-            _build._LIBS[src] = ctypes.CDLL(so)  # the wrapper's library
+            use(src, so)
             ms = {}
             for first in (False, True):
                 tag = 'first' if first else 'full'
@@ -588,10 +732,12 @@ def main():
     if sys.argv[1:2] == ['kernelone']:  # the same
         kernelone(torch, sys.argv[2])
         return 0
+    if sys.argv[1:2] == ['k2one']:  # the same
+        k2one(torch, sys.argv[2])
+        return 0
     sys.path.insert(0, HERE)
     import chip_smoke as cs
     from torch.profiler import ProfilerActivity, profile
-    from newtonnet_tpu_torch.ops import _build
     from newtonnet_tpu_torch.ops import fused_dual as fdd
 
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
@@ -615,10 +761,13 @@ def main():
     if sys.argv[1:2] == ['kerneltime']:
         kerneltime(sys.argv[2:], card)
         return 0
+    if sys.argv[1:2] == ['k2diag']:
+        k2diag(sys.argv[2:], card)
+        return 0
     libs = build()
     args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)
     for name, so in libs.items():
-        _build._LIBS['fused_dual'] = ctypes.CDLL(so)  # the wrapper's library
+        use('fused_dual', so)
         for dt in ('bfloat16', 'float32'):
             dev, host = {}, {}
             for kind in ('fwd', 'bwd'):

@@ -74,7 +74,7 @@ def main():
         'chip_smoke', os.path.join(HERE, 'chip_smoke.py'))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
-    lib = _build.load('fused_klist')
+    lib = _build.load('fused_klist', 128)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     B, N, K, F, R = 1, cs.BOX_ATOMS, cs.BOX_K_MAX, 128, 20
     out = {'device': torch.cuda.get_device_name(0),

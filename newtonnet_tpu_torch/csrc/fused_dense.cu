@@ -145,18 +145,14 @@ struct K2Shape {
 
 __host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
 
-// The padded widths this library holds: 32, 64 and 128, or the one width
-// NN_WIDTH names (ops/_build.py builds a library per further width at its
-// first use).
-#ifdef NN_WIDTH
-#define NN_WIDTHS(X) X(NN_WIDTH)
-#else
-#define NN_WIDTHS(X) X(32) X(64) X(128)
+// A library runs one padded width, NN_WIDTH: either that width exactly
+// (Fg == F, the masks of the pad lanes folded away at compile time) or,
+// built with NN_PADDED, the widths below it that pad to it (ops/_build.py
+// builds one per (padded width, padded) at the first call of such a
+// width: width_flags).
+#ifndef NN_WIDTH
+#error "build with -DNN_WIDTH=<padded width> (ops/_build.py: width_flags)"
 #endif
-// A library runs either its padded widths exactly (Fg == F, the masks of
-// the pad lanes folded away at compile time) or, built with NN_PADDED,
-// the widths below them (ops/_build.py builds one at the first call of
-// such a width).
 #ifdef NN_PADDED
 constexpr bool kPadded = true;
 #else
@@ -170,10 +166,10 @@ __host__ __device__ constexpr int padded_width(int F) {
   return F > 128 ? (F + 63) / 64 * 64 : (F + 31) / 32 * 32;
 }
 
-// Whether this library's kind runs width F (its padded width, one of
-// NN_WIDTHS, is checked where the launch is picked).
+// Whether this library runs width F.
 __host__ __device__ constexpr bool library_runs(int F) {
-  return F >= 1 && F <= kMaxWidth && (F != padded_width(F)) == kPadded;
+  return F >= 1 && F <= kMaxWidth && padded_width(F) == NN_WIDTH &&
+         (F != NN_WIDTH) == kPadded;
 }
 
 // Index of element (row, f) of an (rows, Fg) tensor in its copy at padded
@@ -309,9 +305,13 @@ template <int NC, bool WIDE>
 __device__ __forceinline__ void k2_stage(const uint2* __restrict__ Bt, int Qp,
                                          int ch, uint2* slot) {
   using S = K2Shape<WIDE>;
-  constexpr int P = S::KC / 2;  // copies per row
-  for (int v = threadIdx.x; v < NC * P; v += kThreads) {
-    const int n = v / P, part = v - n * P;
+  // copies per row, a power of two: with v unsigned, v / P and v % P are
+  // a shift and a mask (signed, their rounding code cost K2 7% at F=128:
+  // PERF.md, dual_breakdown.py k2diag)
+  constexpr unsigned P = S::KC / 2;
+  static_assert((P & (P - 1)) == 0, "copies per row");
+  for (unsigned v = threadIdx.x; v < NC * P; v += kThreads) {
+    const int n = (int)(v / P), part = (int)(v % P);
     cp_async16(slot + n * S::RS + part * 2,
                Bt + (size_t)n * Qp + (size_t)ch * S::KC + part * 2);
   }
@@ -1344,9 +1344,8 @@ extern "C" {
 
 // K1. Shapes: np (B,N,F), rbf (B,N,N,R), dir (B,3,N,N), adj (B,N,N),
 // force (B,3,N,F), We (R,F), W* (F,F) -> inv1 (B,N,F), eq (B,3,N,F); all
-// fp32, contiguous, on the device of `stream`. Any F whose padded width
-// (padded_width) this library holds (NN_WIDTHS); else
-// cudaErrorInvalidValue.
+// fp32, contiguous, on the device of `stream`. Any F this library runs
+// (library_runs); else cudaErrorInvalidValue.
 // Scratch: 16-byte aligned, nn_pair_scratch_floats(B, N, F, R, 2) floats;
 // max_blocks bounds the grid (the wrapper passes the SM count).
 int nn_pair_fwd(const float* np_, const float* rbf, const float* dir,
@@ -1358,18 +1357,10 @@ int nn_pair_fwd(const float* np_, const float* rbf, const float* dir,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* in[10] = {np_, rbf, dir, adj, force, We, W1a, W1b, W2a, W2b};
   if (!library_runs(F)) return (int)cudaErrorInvalidValue;
-#define NN_FWD(FF)                                                          \
-  case FF:                                                                  \
-    return first_layer                                                      \
-               ? launch_fwd<FF, true>(in, inv1, eq, scratch, B, N, F, R,    \
-                                      max_blocks, s)                        \
-               : launch_fwd<FF, false>(in, inv1, eq, scratch, B, N, F, R,   \
-                                       max_blocks, s);
-  switch (padded_width(F)) {
-    NN_WIDTHS(NN_FWD)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef NN_FWD
+  return first_layer ? launch_fwd<NN_WIDTH, true>(in, inv1, eq, scratch, B,
+                                                  N, F, R, max_blocks, s)
+                     : launch_fwd<NN_WIDTH, false>(in, inv1, eq, scratch, B,
+                                                   N, F, R, max_blocks, s);
 }
 
 // K2. Inputs of K1 plus dinv1 (B,N,F), deq (B,3,N,F). Outputs dnp (B,N,F),
@@ -1390,14 +1381,8 @@ int nn_pair_bwd(const float* np_, const float* rbf, const float* dir,
                          W1a, W1b, W2a, W2b, dinv1, deq};
   float* out[5] = {dnp, drbf, ddir, dforce, dw};
   if (!library_runs(F)) return (int)cudaErrorInvalidValue;
-#define NN_BWD_F(FF) \
-  case FF:           \
-    return (int)dispatch_bwd<FF>(first, wgrad, in, out, scratch, B, N, F, R, s);
-  switch (padded_width(F)) {
-    NN_WIDTHS(NN_BWD_F)
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef NN_BWD_F
+  return (int)dispatch_bwd<NN_WIDTH>(first, wgrad, in, out, scratch, B, N, F,
+                                     R, s);
 }
 
 // Scratch of one K2 launch without (kind 0) or with (kind 1) weight

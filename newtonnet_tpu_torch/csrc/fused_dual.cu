@@ -120,18 +120,14 @@ constexpr int kStages = 2;   // chunk slots of the weight ring
 
 __host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
 
-// The padded widths this library holds: 32, 64 and 128, or the one width
-// NN_WIDTH names (ops/_build.py builds a library per further width at its
-// first use).
-#ifdef NN_WIDTH
-#define NN_WIDTHS(X) X(NN_WIDTH)
-#else
-#define NN_WIDTHS(X) X(32) X(64) X(128)
+// A library runs one padded width, NN_WIDTH: either that width exactly
+// (Fg == F, the masks of the pad lanes folded away at compile time) or,
+// built with NN_PADDED, the widths below it that pad to it (ops/_build.py
+// builds one per (padded width, padded) at the first call of such a
+// width: width_flags).
+#ifndef NN_WIDTH
+#error "build with -DNN_WIDTH=<padded width> (ops/_build.py: width_flags)"
 #endif
-// A library runs either its padded widths exactly (Fg == F, the masks of
-// the pad lanes folded away at compile time) or, built with NN_PADDED,
-// the widths below them (ops/_build.py builds one at the first call of
-// such a width).
 #ifdef NN_PADDED
 constexpr bool kPadded = true;
 #else
@@ -145,10 +141,10 @@ __host__ __device__ constexpr int padded_width(int F) {
   return F > 128 ? (F + 63) / 64 * 64 : (F + 31) / 32 * 32;
 }
 
-// Whether this library's kind runs width F (its padded width, one of
-// NN_WIDTHS, is checked where the launch is picked).
+// Whether this library runs width F.
 __host__ __device__ constexpr bool library_runs(int F) {
-  return F >= 1 && F <= kMaxWidth && (F != padded_width(F)) == kPadded;
+  return F >= 1 && F <= kMaxWidth && padded_width(F) == NN_WIDTH &&
+         (F != NN_WIDTH) == kPadded;
 }
 
 // Index of element (row, f) of an (rows, Fg) tensor in its copy at padded
@@ -1207,19 +1203,13 @@ typedef cudaError_t (*launch_fn)(const float* const*, float* const*, float*,
                                  int, int, int, int, cudaStream_t);
 
 // The instantiation for (F, first, bf16), where F is the true width, or
-// nullptr for an F whose padded width the library does not hold.
+// nullptr for an F this library does not run.
 template <template <int, bool, bool> class L>
 launch_fn pick(int F, bool first, bool bf) {
+  constexpr int FF = NN_WIDTH;
   if (!library_runs(F)) return nullptr;
-#define NN_PICK(FF)                                                   \
-  case FF:                                                            \
-    return first ? (bf ? L<FF, true, true>::fn : L<FF, true, false>::fn) \
-                 : (bf ? L<FF, false, true>::fn : L<FF, false, false>::fn);
-  switch (padded_width(F)) {
-    NN_WIDTHS(NN_PICK)
-    default: return nullptr;
-  }
-#undef NN_PICK
+  return first ? (bf ? L<FF, true, true>::fn : L<FF, true, false>::fn)
+               : (bf ? L<FF, false, true>::fn : L<FF, false, false>::fn);
 }
 
 template <int F, bool FIRST, bool BF>
@@ -1239,9 +1229,8 @@ extern "C" {
 // (B,3,N,N); adj (B,N,N); force, forcedot (B,3,N,F); We (R,F); W* (F,F)
 // -> inv1, inv1dot (B,N,F); eq, eqdot (B,3,N,F). Scratch: 16-byte aligned,
 // nn_dual_scratch_floats(B, N, F, R, 0) floats. All fp32, contiguous, on
-// the device of `stream`. Any F whose padded width (padded_width) this
-// library holds (NN_WIDTHS), else cudaErrorInvalidValue; bf16 != 0 rounds the
-// product operands to bf16.
+// the device of `stream`. Any F this library runs (library_runs), else
+// cudaErrorInvalidValue; bf16 != 0 rounds the product operands to bf16.
 int nn_dual_fwd(const float* np_, const float* npdot, const float* rbf,
                 const float* rbfdot, const float* dir, const float* dirdot,
                 const float* adj, const float* force, const float* forcedot,
@@ -1289,20 +1278,14 @@ size_t nn_dual_scratch_floats(int B, int N, int F, int R, int kind) {
 
 // Dynamic shared memory of one block of K3 (kind 0) or K4 (kind 1) in
 // bf16 (bf16 != 0) or fp32 mode at true width F, in bytes; 0 for an F
-// whose padded width this library does not hold.
+// this library does not run.
 size_t nn_dual_smem_bytes(int F, int R, int kind, int bf16) {
-  if (F < 1 || F > kMaxWidth) return 0;
-#define NN_SMEM(FF)                                                     \
-  case FF:                                                              \
-    return (kind ? (bf16 ? bwd_smem_floats<FF, true>(R)                 \
-                         : bwd_smem_floats<FF, false>(R))               \
-                 : (bf16 ? fwd_smem_floats<FF, true>(R)                 \
-                         : fwd_smem_floats<FF, false>(R))) * sizeof(float);
-  switch (padded_width(F)) {
-    NN_WIDTHS(NN_SMEM)
-    default: return 0;
-  }
-#undef NN_SMEM
+  constexpr int FF = NN_WIDTH;
+  if (!library_runs(F)) return 0;
+  return (kind ? (bf16 ? bwd_smem_floats<FF, true>(R)
+                       : bwd_smem_floats<FF, false>(R))
+               : (bf16 ? fwd_smem_floats<FF, true>(R)
+                       : fwd_smem_floats<FF, false>(R))) * sizeof(float);
 }
 
 }  // extern "C"

@@ -81,18 +81,14 @@ typedef __nv_bfloat16 bf16;
 
 __host__ __device__ constexpr int pad32(int q) { return (q + 31) / 32 * 32; }
 
-// The padded widths this library holds: 32, 64 and 128, or the one width
-// NN_WIDTH names (ops/_build.py builds a library per further width at its
-// first use).
-#ifdef NN_WIDTH
-#define NN_WIDTHS(X) X(NN_WIDTH)
-#else
-#define NN_WIDTHS(X) X(32) X(64) X(128)
+// A library runs one padded width, NN_WIDTH: either that width exactly
+// (Fg == F, the masks of the pad lanes folded away at compile time) or,
+// built with NN_PADDED, the widths below it that pad to it (ops/_build.py
+// builds one per (padded width, padded) at the first call of such a
+// width: width_flags).
+#ifndef NN_WIDTH
+#error "build with -DNN_WIDTH=<padded width> (ops/_build.py: width_flags)"
 #endif
-// A library runs either its padded widths exactly (Fg == F, the masks of
-// the pad lanes folded away at compile time) or, built with NN_PADDED,
-// the widths below them (ops/_build.py builds one at the first call of
-// such a width).
 #ifdef NN_PADDED
 constexpr bool kPadded = true;
 #else
@@ -106,10 +102,10 @@ __host__ __device__ constexpr int padded_width(int F) {
   return F > 128 ? (F + 63) / 64 * 64 : (F + 31) / 32 * 32;
 }
 
-// Whether this library's kind runs width F (its padded width, one of
-// NN_WIDTHS, is checked where the launch is picked).
+// Whether this library runs width F.
 __host__ __device__ constexpr bool library_runs(int F) {
-  return F >= 1 && F <= kMaxWidth && (F != padded_width(F)) == kPadded;
+  return F >= 1 && F <= kMaxWidth && padded_width(F) == NN_WIDTH &&
+         (F != NN_WIDTH) == kPadded;
 }
 
 // Index of element (row, f) of an (rows, Fg) tensor in its copy at padded
@@ -1028,9 +1024,12 @@ __global__ void klist_dual_fwd_prep_kernel(const float* __restrict__ We,
 template <int F>
 __device__ __forceinline__ void k7_stage(const uint2* __restrict__ Bt, int Qp,
                                          int ch, uint2* slot) {
-  constexpr int KC = K7Shape<F>::KC, P = KC / 2;
-  for (int v = threadIdx.x; v < F * P; v += kThreads) {
-    const int n = v / P, part = v - n * P;
+  constexpr int KC = K7Shape<F>::KC;
+  constexpr unsigned P = KC / 2;  // a power of two: unsigned, a shift and
+                                  // a mask (as K2's k2_stage)
+  static_assert((P & (P - 1)) == 0, "copies per row");
+  for (unsigned v = threadIdx.x; v < F * P; v += kThreads) {
+    const int n = (int)(v / P), part = (int)(v % P);
     cp_async16(slot + n * KC + ((part * 2) ^ ring_swz(n, KC)),
                Bt + (size_t)n * Qp + (size_t)ch * KC + part * 2);
   }
@@ -2634,19 +2633,13 @@ cudaError_t launch_dual_bwd(const Args& a) {
 typedef cudaError_t (*launch_fn)(const Args&);
 
 // The instantiation for (F, first, bf16), where F is the true width, or
-// nullptr for an F whose padded width the library does not hold.
+// nullptr for an F this library does not run.
 template <template <int, bool, class> class L>
 launch_fn pick(int F, bool first, bool bf) {
+  constexpr int FF = NN_WIDTH;
   if (!library_runs(F)) return nullptr;
-#define NN_PICK(FF)                                                        \
-  case FF:                                                                 \
-    return first ? (bf ? L<FF, true, bf16>::fn : L<FF, true, float>::fn)   \
-                 : (bf ? L<FF, false, bf16>::fn : L<FF, false, float>::fn);
-  switch (padded_width(F)) {
-    NN_WIDTHS(NN_PICK)
-    default: return nullptr;
-  }
-#undef NN_PICK
+  return first ? (bf ? L<FF, true, bf16>::fn : L<FF, true, float>::fn)
+               : (bf ? L<FF, false, bf16>::fn : L<FF, false, float>::fn);
 }
 
 template <int F, bool FIRST, class E>
@@ -2681,9 +2674,8 @@ extern "C" {
 // K5. npi (B,N,F) f32; cat (B,N,K,C), C = F if first_layer else 4F, and
 // rbf (B,N,K,R) in the edge type (fp32, or bf16 when bf16 != 0); dir
 // (B,3,N,K), mask (B,N,K) f32; We (R,F), W* (F,F) f32 -> inv1 (B,N,F),
-// eq (B,3,N,F) f32. Contiguous, on the device of `stream`; any F whose
-// padded width (padded_width) this library holds (NN_WIDTHS), else
-// cudaErrorInvalidValue. Scratch: 16-byte aligned,
+// eq (B,3,N,F) f32. Contiguous, on the device of `stream`; any F this
+// library runs (library_runs), else cudaErrorInvalidValue. Scratch: 16-byte aligned,
 // nn_klist_scratch_floats(F, R, 0) floats (the weights split into tf32
 // pairs); max_blocks bounds the grid (the wrapper passes the SM count).
 int nn_klist_fwd(const float* npi, const void* cat, const void* rbf,
@@ -2768,21 +2760,14 @@ int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
 }
 
 // Dynamic shared memory of one block of K5 (kind 0), K6 (1), K7 (2) or K8
-// (3) at true width F, in bytes; 0 for an F whose padded width this
-// library does not hold.
+// (3) at true width F, in bytes; 0 for an F this library does not run.
 size_t nn_klist_smem_bytes(int F, int R, int kind) {
-  if (F < 1 || F > kMaxWidth) return 0;
-#define NN_SMEM(FF)                                                       \
-  case FF:                                                                \
-    return (kind == 0   ? k5_smem_floats<FF>(R)                           \
-            : kind == 1 ? k6_smem_floats<FF>(R)                           \
-            : kind == 2 ? k7_smem_floats<FF>(R)                           \
-                        : dual_bwd_smem_floats<FF>(R)) * sizeof(float);
-  switch (padded_width(F)) {
-    NN_WIDTHS(NN_SMEM)
-    default: return 0;
-  }
-#undef NN_SMEM
+  constexpr int FF = NN_WIDTH;
+  if (!library_runs(F)) return 0;
+  return (kind == 0   ? k5_smem_floats<FF>(R)
+          : kind == 1 ? k6_smem_floats<FF>(R)
+          : kind == 2 ? k7_smem_floats<FF>(R)
+                      : dual_bwd_smem_floats<FF>(R)) * sizeof(float);
 }
 
 // Scratch of one launch of K5 (kind 0), K6 (1), K7 (2) or K8 (3) at true

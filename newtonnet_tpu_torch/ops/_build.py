@@ -5,13 +5,12 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc`
 for sm_90a into `newtonnet_tpu_torch/_build/lib<name>-<hash>.so`, where the
 hash covers the source and the flags: an edited source builds anew, an
 unchanged one loads from the cache. The fused pair sources (WIDE_SOURCES)
-run a feature width F at its padded width Fp (`padded_width`): their
-default library holds the widths BUILT_WIDTHS, each run at its own width;
-any other F runs in a library of its own, `lib<name>-w<Fp>[p]-<hash>.so`,
-compiled with `-DNN_WIDTH=<Fp>` (and `-DNN_PADDED` where F is below Fp:
-the kernels then mask the pad lanes, which a library of full widths folds
-away) at the first call of such a width (`load(name, F)`), so a model of
-the usual widths never pays for it. `build_all` starts one `nvcc` per
+run a feature width F at its padded width Fp (`padded_width`), one library
+per (padded width, padded): `lib<name>-w<Fp>[p]-<hash>.so`, compiled with
+`-DNN_WIDTH=<Fp>` and, where F is below Fp, `-DNN_PADDED` (the kernels
+then mask the pad lanes, which a library of F = Fp folds away;
+`width_flags`), at the first call of such a width (`load(name, F)`), so a
+model builds only its own width. `build_all` starts one `nvcc` per
 library at once and waits for all of them. The host-side C++ in
 `csrc/host/<name>.cpp` (plain C interface too) is built the same way by
 `g++` (`load_host`): it needs no CUDA toolkit, so it also builds where
@@ -30,9 +29,8 @@ HOST_DIR = os.path.join(SRC_DIR, 'host')
 BUILD_DIR = os.path.join(_PKG, '_build')
 SOURCES = ('fused_dense', 'fused_dual', 'fused_klist', 'row_gather',
            'window')
-# the sources of K1-K8, instantiated per padded feature width
+# the sources of K1-K8, built one library per padded feature width
 WIDE_SOURCES = ('fused_dense', 'fused_dual', 'fused_klist')
-BUILT_WIDTHS = (32, 64, 128)  # the padded widths of their default libraries
 MAX_WIDTH = 256  # the widest F the kernels take
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -65,22 +63,35 @@ def padded_width(F):
 
 
 def width_flags(F):
-    '''The compiler defines of the library that runs width F: none for
-    the default library (F in BUILT_WIDTHS, or None), else its padded
-    width and, where F is below it, NN_PADDED.'''
-    if F is None or F in BUILT_WIDTHS:
-        return ()
+    """The compiler defines of the library of K1-K8 that runs width F: its
+    padded width and, where F is below it, NN_PADDED."""
     Fp = padded_width(F)
     return (f'-DNN_WIDTH={Fp}',) + (('-DNN_PADDED',) if F != Fp else ())
 
 
-def _key(name, F):
-    '''The library of source `name` that runs width F (None: the default
-    library).'''
-    if F is None or F in BUILT_WIDTHS:
+def _check(name, F):
+    """Refuses a width for a source of K1-K8 that lacks one, or has one it
+    does not take, and a width for any other source."""
+    if name in WIDE_SOURCES:
+        if F is None:
+            raise ValueError(f'{name} is built per feature width: give F')
+        padded_width(F)
+    elif F is not None:
+        raise ValueError(f'{name} is not built per feature width')
+
+
+def _key(name, F=None):
+    """The library of source `name` that runs width F (None for a source
+    not built per width)."""
+    if F is None:
         return name
     Fp = padded_width(F)
     return f'{name}-w{Fp}' + ('p' if F != Fp else '')
+
+
+def flags(name, F=None):
+    """nvcc's flags for the library of source `name` that runs width F."""
+    return NVCC_FLAGS + (() if F is None else width_flags(F))
 
 
 def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib', headers=(),
@@ -95,19 +106,18 @@ def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib', headers=(),
 
 
 def _lib_target(name, F):
-    return _target(name, flags=NVCC_FLAGS + width_flags(F),
-                   stem=_key(name, F))
+    return _target(name, flags=flags(name, F), stem=_key(name, F))
 
 
 def build_all(names=SOURCES, widths=()):
-    '''Compile every library whose file is missing, all in parallel: the
-    default library of each source in `names` and, for each width F in
-    `widths`, the one that runs F of each of them in WIDE_SOURCES.
+    '''Compile every library whose file is missing, all in parallel: each
+    source in `names` outside WIDE_SOURCES and, for each width F in
+    `widths`, the library that runs F of each of them in WIDE_SOURCES.
 
     Returns {library: (seconds, ptxas report)} for the libraries it
     compiled. Raises RuntimeError with the compiler's output if one fails.'''
     os.makedirs(BUILD_DIR, exist_ok=True)
-    libs = [(name, None) for name in names]
+    libs = [(name, None) for name in names if name not in WIDE_SOURCES]
     libs += [(name, F) for F in widths for name in names
              if name in WIDE_SOURCES]
     jobs = {}
@@ -117,7 +127,7 @@ def build_all(names=SOURCES, widths=()):
         if os.path.exists(so) or key in jobs:
             continue
         tmp = f'{so}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *NVCC_FLAGS, *width_flags(F), '-o', tmp,
+        cmd = [_nvcc(), *flags(name, F), '-o', tmp,
                os.path.join(SRC_DIR, name + '.cu')]
         jobs[key] = (so, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -138,12 +148,11 @@ def build_all(names=SOURCES, widths=()):
 
 
 def load(name, F=None):
-    '''The ctypes handle of csrc/<name>.cu, built first if needed: its
-    default library, or the one that runs feature width F. Raises
-    ValueError, before anything is built, for a width the kernels do not
-    take.'''
-    if F is not None:
-        padded_width(F)
+    '''The ctypes handle of csrc/<name>.cu, built first if needed; for a
+    source of WIDE_SOURCES, of the library that runs feature width F.
+    Raises ValueError, before anything is built, for a width the kernels
+    do not take.'''
+    _check(name, F)
     key = _key(name, F)
     if key not in _LIBS:
         build_all((name,), () if F is None else (F,))

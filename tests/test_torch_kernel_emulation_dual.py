@@ -8,13 +8,14 @@ import pytest
 from newtonnet_tpu_torch.ops import fused_dual as fdd
 from torch_kernel_emu import (BAR, BF16_BAR, compile_emu, dual_handle,
                               dual_inputs, nan, ptrs, run_dual, source,
-                              worst_ratio)
+                              width_libs, worst_ratio)
 
 
 @pytest.fixture(scope='module')
 def dual_lib(tmp_path_factory):
-    return dual_handle(compile_emu(tmp_path_factory.mktemp('emu_dual'),
-                                   'fused_dual_emu', source('fused_dual')))
+    '''width F -> the emulated library that runs F.'''
+    return width_libs(tmp_path_factory.mktemp('emu_dual'), 'fused_dual',
+                      dual_handle)
 
 
 @pytest.mark.parametrize('shape, first_layer, bf16', [
@@ -39,7 +40,7 @@ def test_emulated_dual_kernels_match_plain(dual_lib, shape, first_layer,
     B, N, F, R = shape
     args, cots = dual_inputs(B, N, F, R, seed=N)
     dot_dtype = 'bfloat16' if bf16 else 'float32'
-    fwd, bwd = run_dual(dual_lib, args, cots, first_layer, bf16)
+    fwd, bwd = run_dual(dual_lib(F), args, cots, first_layer, bf16)
     want_f = fdd.pair_interaction_dual_fwd_ref(*args, first_layer=first_layer,
                                                dot_dtype=dot_dtype)
     want_b = fdd.pair_interaction_dual_bwd_ref(*args, *cots,
@@ -55,15 +56,16 @@ def test_emulated_dual_kernels_match_plain(dual_lib, shape, first_layer,
 def test_emulated_dual_kernels_refuse_what_they_do_not_take(dual_lib):
     '''A width the kernels do not take (0 and 288 here: they take 1 to
     256), or an R whose tiles overflow the 227 KB of shared memory a block
-    may use, returns cudaErrorInvalidValue.'''
+    may use, returns cudaErrorInvalidValue, as does a width another
+    library runs (64 of the library of 32).'''
     args, cots = dual_inputs(1, 4, 32, 4, seed=0)
     out = [nan(1, 4, 32), nan(1, 3, 4, 32)] * 2 + [nan(1, 4, 32)]
-    for F in (0, 288):
-        assert dual_lib.nn_dual_fwd(*ptrs(args + out), 1, 4, F, 4, 0, 0,
-                                    None) == 1
+    for F in (0, 288, 64):
+        assert dual_lib(32).nn_dual_fwd(*ptrs(args + out), 1, 4, F, 4, 0, 0,
+                                        None) == 1
     scratch = [nan(1, 4, 32)] * 6
-    assert dual_lib.nn_dual_bwd(*ptrs(args + cots + scratch), 1, 4, 128,
-                                200, 0, 0, None) == 1
+    assert dual_lib(128).nn_dual_bwd(*ptrs(args + cots + scratch), 1, 4,
+                                     128, 200, 0, 0, None) == 1
 
 
 def test_emulation_catches_a_dual_kernel_fault(tmp_path):
@@ -75,7 +77,7 @@ def test_emulation_catches_a_dual_kernel_fault(tmp_path):
     assert src.count(good) == 1
     mutant = dual_handle(compile_emu(
         tmp_path, 'fused_dual_mutant',
-        src.replace(good, 's += p_s[o] * ai + pdot_s[o] * ai;')))
+        src.replace(good, 's += p_s[o] * ai + pdot_s[o] * ai;'), 32))
     args, cots = dual_inputs(1, 10, 32, 8, seed=3)
     fwd, bwd = run_dual(mutant, args, cots, False, False)
     want = fdd.pair_interaction_dual_bwd_ref(*args, *cots,
@@ -94,7 +96,7 @@ def test_emulation_catches_a_bf16_fragment_fault(tmp_path):
     assert src.count(good) == 1
     mutant = dual_handle(compile_emu(
         tmp_path, 'fused_dual_bf16_mutant',
-        src.replace(good, 'const unsigned b[2] = {w[0], w[3]};')))
+        src.replace(good, 'const unsigned b[2] = {w[0], w[3]};'), 32))
     args, cots = dual_inputs(1, 10, 32, 8, seed=5)
     fwd, bwd = run_dual(mutant, args, cots, False, True)
     kw = dict(dot_dtype='bfloat16')

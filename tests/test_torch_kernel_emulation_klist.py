@@ -10,13 +10,14 @@ import torch
 from newtonnet_tpu_torch.ops import fused_klist as fk
 from torch_kernel_emu import (BAR, KLIST_CASES, check_klist, compile_emu,
                               klist_handle, klist_inputs, nan, ptrs, run_k5,
-                              run_k56, source, worst_ratio)
+                              run_k56, source, width_libs, worst_ratio)
 
 
 @pytest.fixture(scope='module')
 def klist_lib(tmp_path_factory):
-    return klist_handle(compile_emu(tmp_path_factory.mktemp('emu_klist'),
-                                    'fused_klist_emu', source('fused_klist')))
+    '''width F -> the emulated library that runs F.'''
+    return width_libs(tmp_path_factory.mktemp('emu_klist'), 'fused_klist',
+                      klist_handle)
 
 
 @pytest.mark.parametrize('shape, first_layer, bf16', KLIST_CASES)
@@ -24,7 +25,8 @@ def test_emulated_klist_kernels_match_plain(klist_lib, shape, first_layer,
                                             bf16):
     '''K5 and K6 at ragged sizes (N = 10 and 9 are no multiple of the
     8-atom tiles, K = 13, 6 and 5 none of the 8- or 4-slot tiles), every
-    width of the default library, both variants, fp32 and bf16 edges, K6
+    width of 32, 64 and 128 (each from its own library, as on the card),
+    both variants, fp32 and bf16 edges, K6
     with and without weight cotangents; K6 (tensor cores, 3xTF32) with a
     grid of at most 3 blocks, so that a block walks several atom tiles,
     the weight stream runs across them and the weight partial sums them
@@ -36,7 +38,7 @@ def test_emulated_klist_kernels_match_plain(klist_lib, shape, first_layer,
     B, N, K, F, R = shape
     ins, _, cots = klist_inputs(B, N, K, F, R, first_layer, bf16,
                                 seed=N + K)
-    got, want = run_k56(klist_lib, ins, cots, first_layer, bf16)
+    got, want = run_k56(klist_lib(F), ins, cots, first_layer, bf16)
     check_klist(got, want, bf16)
     # masked slots: exact zeros in K6's dcat and drbf
     off = ins[4] == 0
@@ -47,16 +49,17 @@ def test_emulated_klist_kernels_match_plain(klist_lib, shape, first_layer,
 def test_emulated_klist_kernels_refuse_what_they_do_not_take(klist_lib):
     '''A width the kernels do not take (0 and 288 here: they take 1 to
     256), an R whose tiles overflow the 227 KB of shared memory a block may
-    use, or an empty list: cudaErrorInvalidValue.'''
+    use, or an empty list: cudaErrorInvalidValue, as does a width another
+    library runs (64 of the library of 32).'''
     ins, _, _ = klist_inputs(1, 4, 3, 32, 4, False, False, seed=0)
     out = [nan(1, 4, 32), nan(1, 3, 4, 32), nan(4096)]
-    for F in (0, 288):
-        assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 3, F, 4, 0, 0,
+    for F in (0, 288, 64):
+        assert klist_lib(32).nn_klist_fwd(*ptrs(ins + out), 1, 4, 3, F, 4, 0,
+                                          0, 1, None) == 1
+    assert klist_lib(128).nn_klist_fwd(*ptrs(ins + out), 1, 4, 3, 128, 900,
+                                       0, 0, 1, None) == 1
+    assert klist_lib(32).nn_klist_fwd(*ptrs(ins + out), 1, 4, 0, 32, 4, 0, 0,
                                       1, None) == 1
-    assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 3, 128, 900, 0, 0,
-                                  1, None) == 1
-    assert klist_lib.nn_klist_fwd(*ptrs(ins + out), 1, 4, 0, 32, 4, 0, 0, 1,
-                                  None) == 1
 
 
 def test_emulation_catches_a_k6_fragment_fault(tmp_path):
@@ -69,7 +72,7 @@ def test_emulation_catches_a_k6_fragment_fault(tmp_path):
     assert src.count(good) == 1
     mutant = klist_handle(compile_emu(
         tmp_path, 'fused_klist_k6_mutant',
-        src.replace(good, 'b4 = w[(s * 8) ^ o0 ^ 5];')))
+        src.replace(good, 'b4 = w[(s * 8) ^ o0 ^ 5];'), 32))
     ins, _, cots = klist_inputs(1, 9, 6, 32, 8, False, False, seed=15)
     got, want = run_k56(mutant, ins, cots, False, False)
     # K6 without and with weight cotangents: dnpi, dcat, drbf, ddir, dW*
@@ -85,10 +88,10 @@ def test_emulated_k5_walks_atom_tiles_and_repeats_its_bits(klist_lib,
     tiles and the weight stream runs across steps and tiles: BAR against
     its plain version, and a second launch gives the same bits.'''
     ins, _, _ = klist_inputs(2, 37, 11, 32, 8, first_layer, bf16, seed=37)
-    got = run_k5(klist_lib, ins, first_layer, bf16)
+    got = run_k5(klist_lib(32), ins, first_layer, bf16)
     want = fk.klist_fwd_ref(*ins, first_layer=first_layer)
     assert worst_ratio(got, want) <= BAR
-    again = run_k5(klist_lib, ins, first_layer, bf16)
+    again = run_k5(klist_lib(32), ins, first_layer, bf16)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -102,7 +105,7 @@ def test_emulation_catches_a_k5_fragment_fault(tmp_path):
     assert src.count(good) == 1
     mutant = klist_handle(compile_emu(
         tmp_path, 'fused_klist_k5_mutant',
-        src.replace(good, 'u4 = w[(s * 8) ^ o0 ^ 5];')))
+        src.replace(good, 'u4 = w[(s * 8) ^ o0 ^ 5];'), 32))
     ins, _, _ = klist_inputs(1, 9, 6, 32, 8, False, False, seed=15)
     got = run_k5(mutant, ins, False, False)
     assert worst_ratio(got, fk.klist_fwd_ref(*ins)) > BAR

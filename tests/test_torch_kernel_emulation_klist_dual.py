@@ -7,13 +7,14 @@ import pytest
 
 from torch_kernel_emu import (BAR, KLIST_CASES, check_klist, compile_emu,
                               klist_handle, klist_inputs, run_k78, source,
-                              worst_ratio)
+                              width_libs, worst_ratio)
 
 
 @pytest.fixture(scope='module')
 def klist_lib(tmp_path_factory):
-    return klist_handle(compile_emu(tmp_path_factory.mktemp('emu_klist'),
-                                    'fused_klist_emu', source('fused_klist')))
+    '''width F -> the emulated library that runs F.'''
+    return width_libs(tmp_path_factory.mktemp('emu_klist'), 'fused_klist',
+                      klist_handle)
 
 
 @pytest.mark.parametrize('shape, first_layer, bf16', KLIST_CASES)
@@ -22,15 +23,15 @@ def test_emulated_klist_kernels_match_plain(klist_lib, shape, first_layer,
     '''K7 and K8 at the ragged sizes of
     test_torch_kernel_emulation_klist.py's cases (N = 10 and 9 are no
     multiple of the 8-atom tiles, K = 13, 6 and 5 none of the 4-slot
-    tiles), every width of the default library, both variants, fp32 and
-    bf16 edges; K8 (tensor cores, 3xTF32) with a grid of at most 3 blocks,
+    tiles), at 32, 64 and 128, each from its own library, both variants,
+    fp32 and bf16 edges; K8 (tensor cores, 3xTF32) with a grid of at most 3 blocks,
     so that a block walks several atom tiles into one weight partial (R
     pads to 32 in K7's products). fp32 outputs hold BAR; the bf16-stored
     ones (dcat, dcatdot) one bf16 ulp of the output's largest magnitude.'''
     B, N, K, F, R = shape
     ins, tans, cots = klist_inputs(B, N, K, F, R, first_layer, bf16,
                                    seed=N + K)
-    got, want = run_k78(klist_lib, ins, tans, cots, first_layer, bf16)
+    got, want = run_k78(klist_lib(F), ins, tans, cots, first_layer, bf16)
     check_klist(got, want, bf16)
     # masked slots: exact zeros in K8's dcat and dcatdot
     off = ins[4] == 0
@@ -48,7 +49,7 @@ def test_emulation_catches_a_tensor_core_fragment_fault(tmp_path):
     assert src.count(good) == 1
     mutant = klist_handle(compile_emu(
         tmp_path, 'fused_klist_mutant',
-        src.replace(good, 'wc[(kb + 3) * S::WLD + n]')))
+        src.replace(good, 'wc[(kb + 3) * S::WLD + n]'), 32))
     ins, tans, cots = klist_inputs(1, 9, 6, 32, 8, False, False, seed=15)
     got, want = run_k78(mutant, ins, tans, cots, False, False)
     worst = max((g - w).abs().max().item() / w.abs().max().item()
@@ -66,7 +67,7 @@ def test_emulation_catches_a_k7_fragment_fault(tmp_path):
     assert src.count(good) == 1
     mutant = klist_handle(compile_emu(
         tmp_path, 'fused_klist_k7_mutant',
-        src.replace(good, 'wk4 = w[(s * 8) ^ o0 ^ 5];')))
+        src.replace(good, 'wk4 = w[(s * 8) ^ o0 ^ 5];'), 32))
     ins, tans, cots = klist_inputs(1, 9, 6, 32, 8, False, False, seed=15)
     got, want = run_k78(mutant, ins, tans, cots, False, False)
     # inv1, eq, inv1dot, eqdot

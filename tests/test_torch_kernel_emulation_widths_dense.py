@@ -21,27 +21,20 @@ import torch
 
 from newtonnet_tpu_torch.ops import fused_dense as fd
 from newtonnet_tpu_torch.ops import fused_dual as fdd
-from newtonnet_tpu_torch.ops._build import width_flags
 from torch_kernel_emu import (BAR, BF16_BAR, check_pairs, compile_emu,
                               dense_handle, dual_handle, dual_inputs, nan,
                               pair_inputs, ptrs, run_dual, run_pair, source,
-                              worst_ratio)
+                              width_libs, worst_ratio)
 
 
 @pytest.fixture(scope='module')
 def libs(tmp_path_factory):
     '''(source, width F) -> the emulated library that runs F (its padded
     width alone, as ops/_build.py builds it), built at its first use.'''
-    out, built = tmp_path_factory.mktemp('emu_widths'), {}
-
-    def get(name, F):
-        key = (name, width_flags(F))
-        if key not in built:
-            wrap = dense_handle if name == 'fused_dense' else dual_handle
-            built[key] = wrap(compile_emu(out, f'{name}_{len(built)}',
-                                          source(name), flags=key[1]))
-        return built[key]
-    return get
+    out = tmp_path_factory.mktemp('emu_widths')
+    get = {'fused_dense': width_libs(out, 'fused_dense', dense_handle),
+           'fused_dual': width_libs(out, 'fused_dual', dual_handle)}
+    return lambda name, F: get[name](F)
 
 
 def _worst_dual(handle, args, cots, first_layer, bf16):
@@ -103,8 +96,7 @@ def test_emulation_catches_pad_lanes_read_from_memory(tmp_path):
     worst = {}
     for name, code in (('source', good), ('mutant', bad)):
         handle = dense_handle(compile_emu(
-            tmp_path, f'fused_dense_pad_{name}', src.replace(good, code),
-            flags=width_flags(F)))
+            tmp_path, f'fused_dense_pad_{name}', src.replace(good, code), F))
         inv1, eq = nan(1, N, F), nan(1, 3, N, F)
         scratch = nan(handle.nn_pair_scratch_floats(1, N, F, R, 2))
         assert handle.nn_pair_fwd(*ptrs(ins + [inv1, eq, scratch]), 1, N, F,

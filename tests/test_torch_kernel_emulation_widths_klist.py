@@ -22,26 +22,17 @@ import pytest
 import torch
 
 from newtonnet_tpu_torch.ops import fused_klist as fk
-from newtonnet_tpu_torch.ops._build import width_flags
 from torch_kernel_emu import (BAR, check_klist, compile_emu, klist_handle,
                               klist_inputs, run_k5, run_k56, run_k78, source,
-                              worst_ratio)
+                              width_libs, worst_ratio)
 
 
 @pytest.fixture(scope='module')
 def libs(tmp_path_factory):
     '''width F -> the emulated library that runs F (its padded width
     alone, as ops/_build.py builds it), built at its first use.'''
-    out, built = tmp_path_factory.mktemp('emu_widths_klist'), {}
-
-    def get(F):
-        key = width_flags(F)
-        if key not in built:
-            built[key] = klist_handle(compile_emu(
-                out, f'fused_klist_{len(built)}', source('fused_klist'),
-                flags=key))
-        return built[key]
-    return get
+    return width_libs(tmp_path_factory.mktemp('emu_widths_klist'),
+                      'fused_klist', klist_handle)
 
 
 @pytest.mark.parametrize('shape, first_layer, bf16', [
@@ -92,7 +83,7 @@ def test_emulation_catches_pad_lanes_read_from_memory(tmp_path):
     for name, code in (('source', src),
                        ('mutant', src.replace(old_mask, ''))):
         handle = klist_handle(compile_emu(tmp_path, f'fused_klist_pad_{name}',
-                                          code, flags=width_flags(F)))
+                                          code, F))
         worst[name] = worst_ratio(run_k5(handle, ins, False, False),
                                   fk.klist_fwd_ref(*ins))
     assert worst['source'] <= BAR < worst['mutant'], worst

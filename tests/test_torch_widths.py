@@ -188,19 +188,22 @@ def test_plain_k5_k8_match_pallas_at_any_width(F):
 
 def test_kernel_widths_and_their_libraries():
     '''Every F from 1 to 128 runs at the next multiple of 32 and every F
-    from 129 to 256 at the next multiple of 64 (the wide tiles), from the
-    default library at 32, 64 and 128, from one of its padded width
-    otherwise, and with the pad lanes masked (NN_PADDED) only below it; 0
+    from 129 to 256 at the next multiple of 64 (the wide tiles), each from
+    a library of its padded width alone, with the pad lanes masked
+    (NN_PADDED) only below it; the sources of K9-K12 have one library; 0
     and widths past 256 are refused with ROADMAP.md B's section named,
-    before anything is built or launched.'''
+    before anything is built or launched, as is a source of K1-K8 without
+    a width.'''
     assert [_build.padded_width(F) for F in (
         1, 16, 20, 32, 33, 48, 64, 96, 128, 129, 160, 192, 200, 256)] == \
         [32, 32, 32, 32, 64, 64, 64, 96, 128, 192, 192, 192, 256, 256]
-    assert _build._key('fused_klist', 64) == 'fused_klist'
+    assert _build._key('fused_klist', 64) == 'fused_klist-w64'
+    assert _build._key('window') == 'window'
     assert _build._key('fused_klist', 48) == 'fused_klist-w64p'
     assert _build._key('fused_klist', 96) == 'fused_klist-w96'
     assert _build._key('fused_dual', 200) == 'fused_dual-w256p'
-    assert _build.width_flags(128) == ()
+    assert _build.width_flags(128) == ('-DNN_WIDTH=128',)
+    assert _build.flags('row_gather') == _build.NVCC_FLAGS
     assert _build.width_flags(48) == ('-DNN_WIDTH=64', '-DNN_PADDED')
     assert _build.width_flags(256) == ('-DNN_WIDTH=256',)
     assert _build._lib_target('fused_dense', 96) != \
@@ -209,6 +212,12 @@ def test_kernel_widths_and_their_libraries():
         with pytest.raises(ValueError,
                            match='Widths other than 32, 64 and 128'):
             _build.padded_width(F)
+        with pytest.raises(ValueError, match='Widths other than'):
+            _build.load('fused_dense', F)
+    with pytest.raises(ValueError, match='give F'):
+        _build.load('fused_klist')
+    with pytest.raises(ValueError, match='not built per feature width'):
+        _build.load('window', 32)
 
 
 # ------------------------------------------------------ the LJ checkpoint --

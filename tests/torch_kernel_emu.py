@@ -23,6 +23,7 @@ import torch
 
 from newtonnet_tpu_torch.ops import fused_dense as fd
 from newtonnet_tpu_torch.ops import fused_klist as fk
+from newtonnet_tpu_torch.ops._build import width_flags
 
 PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'newtonnet_tpu_torch')
@@ -46,21 +47,36 @@ def for_gxx(src):
                   flags=re.S)
 
 
-def compile_emu(out, name, src, flags=()):
-    '''Compile a rewritten source with g++ into out/lib<name>.so: the
-    library of the default widths, or with the defines `flags`
-    (ops/_build.width_flags(F)) the one that runs width F, as
-    ops/_build.py builds it for the card.'''
+def compile_emu(out, name, src, F=None):
+    '''Compile a rewritten source with g++ into out/lib<name>.so; for a
+    source of K1-K8, the library that runs width F (its padded width alone,
+    with the defines ops/_build.width_flags(F)), as ops/_build.py builds it
+    for the card.'''
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++')
     (out / f'{name}.cpp').write_text(for_gxx(src))
     so = out / f'lib{name}.so'
+    flags = () if F is None else width_flags(F)
     subprocess.run([gxx, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
                     *flags, '-I', os.path.join(PKG, 'csrc', 'emu'), '-o',
                     str(so), str(out / f'{name}.cpp')], check=True,
                    timeout=600)
     return ctypes.CDLL(str(so))
+
+
+def width_libs(out, name, wrap):
+    '''width F -> wrap(the emulated library of csrc/<name>.cu that runs
+    F), compiled at the first use of its (padded width, padded).'''
+    built = {}
+
+    def get(F):
+        key = width_flags(F)
+        if key not in built:
+            built[key] = wrap(compile_emu(out, f'{name}_{len(built)}',
+                                          source(name), F))
+        return built[key]
+    return get
 
 
 def source(name):
