@@ -205,9 +205,39 @@ with a non-zero exit code and no result line):
             index_add_), bound by bytes; K9 and K12 also with their
             launches on the XLA training paths (7g, 7h).
 
+10. bf16  the Pallas pair kernels' bf16 mode (pallas_dot_dtype bfloat16)
+            in K1/K2 and K5/K6 (their bf16 libraries, BF16_WIDTHS, built
+            with the others), TF32 off:
+            a. K1/K2 and K5/K6 in bf16 mode against their plain bf16
+               versions at F = 20, 48, 128, 256, full and first layer,
+               K2/K6 with and without weight cotangents: K1/K2 at phase
+               3's ragged shape and the aspirin serving shape, K5/K6 at
+               phase 3's ragged shape, the serving shape and the box's,
+               with fp32 and bf16 edges; each output within DUAL_BF16_BAR
+               of its largest magnitude and its median element error
+               within BF16_MEDIAN_BAR of it; second launches repeat their
+               bits.
+            b. the aspirin checkpoint with pallas_dot_dtype bfloat16: the
+               first 50 test frames against the JAX package's bf16 numbers
+               (JAX_BF16_ASPIRIN_*) at BF16_SPREAD_FACTOR times its own
+               bf16-to-fp32 spread; all 500 frames (every K1/K2 bf16
+               variant launched, nothing else) with their MAEs beside the
+               fp32 model's; one batch timed beside the fp32 model's.
+            c. the LJ checkpoint as a kernel='pallas' bf16 model (F=48)
+               through the calculator, dense and over K-lists with fp32
+               and bf16 edges, against JAX_BF16_LJ_* at the same factor.
+            d. the 4096-atom box request over K-lists in bf16 (bf16
+               edges, box_weights, F=128) against the port's plain bf16
+               model on the card at 10a's bars, timed beside the fp32-dot
+               request.
+            e. K1/K2 at the serving shape and K5/K6 at the box shape in
+               bf16 mode beside fp32 mode, with their plain bf16 versions'
+               times, bounds at the bf16 peak and phase 10's launches (the
+               `kernels` line's bf16 rows).
+
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
-9b/9c launches) and,
+9b/9c launches; the bf16 rows of K1/K2 and K5/K6) and,
 last, {"ok": true, "device": {...}}.
 '''
 import functools
@@ -511,6 +541,198 @@ WIDTHS_9A = (16, 20, 48, 96, 256)
 WIDTHS_9D = (48, 64, 256)
 # the widths whose K1-K8 libraries the build phase compiles
 BUILD_WIDTHS = tuple(sorted({32, 64, 128, *WIDTHS_9A, *WIDTHS_9D}))
+# Phase 10: the Pallas pair kernels' bf16 mode (pallas_dot_dtype bfloat16)
+# in K1/K2 and K5/K6, served. The widths of 10a (a pad to 32 lanes, the LJ
+# width, the checkpoints' 128 and the wide 256), whose bf16 libraries the
+# build phase compiles; the median bar of 10a (the median element error over
+# the plain output's largest magnitude, beside DUAL_BF16_BAR on the largest):
+# where the kernel rounds the operands its plain version rounds, the two
+# differ by the fp32 summation order and a rare flip of a rounding; an
+# operand rounded on one side only moves the median by about 1e-4
+# (tests/test_torch_bf16_pair.py's control).
+BF16_WIDTHS = (20, 48, 128, 256)
+BF16_MEDIAN_BAR = 1e-5
+BF16_DENSE = ('pair_fwd_bf16', 'pair_fwd_first_bf16', 'pair_bwd_bf16',
+              'pair_bwd_first_bf16')
+BF16_KLIST = ('klist_fwd_bf16', 'klist_fwd_first_bf16', 'klist_bwd_bf16',
+              'klist_bwd_first_bf16')
+# 10b: artifacts/md17_model_pallas with pallas_dot_dtype bfloat16 on the
+# first BF16_ASPIRIN_FRAMES aspirin test frames (collate, n_pad 21): the JAX
+# package's energies (eV), the forces of the first 4 frames (eV/A) and its
+# own bf16-to-fp32 spread on those frames (the largest absolute difference
+# between its bf16 and fp32 models), from `python
+# tests/test_torch_bf16_pair.py aspirin` (CPU, interpret-mode Pallas).
+# 10c: the LJ checkpoint as a kernel='pallas' bf16 model (LJ_PALLAS) on
+# lj_box's box through the JAX package's calculator, dense and over plain
+# K-lists with fp32 and bf16 edges: energy, the first 8 atoms' forces and
+# the spread, from `python tests/test_torch_bf16_pair.py lj`. Both are held
+# at BF16_SPREAD_FACTOR times the spread.
+BF16_ASPIRIN_FRAMES = 50
+BF16_SPREAD_FACTOR = 4.0
+JAX_BF16_ASPIRIN_ENERGY = [
+    -17591.810546875, -17592.166015625, -17592.861328125,
+    -17592.72265625, -17592.318359375, -17592.470703125,
+    -17591.90234375, -17592.20703125, -17592.015625,
+    -17592.294921875, -17592.10546875, -17592.478515625,
+    -17592.466796875, -17592.041015625, -17591.748046875,
+    -17591.705078125, -17592.427734375, -17592.7109375,
+    -17592.05078125, -17592.130859375, -17592.4453125,
+    -17592.1328125, -17591.99609375, -17591.83984375,
+    -17592.234375, -17592.00390625, -17591.953125,
+    -17591.720703125, -17592.650390625, -17592.234375,
+    -17592.59765625, -17591.603515625, -17592.404296875,
+    -17592.1484375, -17591.8125, -17592.353515625,
+    -17591.8203125, -17592.0859375, -17591.82421875,
+    -17592.38671875, -17592.228515625, -17591.90625,
+    -17592.1328125, -17592.208984375, -17592.171875,
+    -17591.8125, -17592.47265625, -17592.30859375,
+    -17592.5, -17591.765625,
+]
+JAX_BF16_ASPIRIN_FORCES_4 = [
+    [
+        [1.5657679, 2.253922, 0.5659969],
+        [1.3176204, -2.285882, -0.1330001],
+        [0.8788271, -0.6573746, -0.5460213],
+        [-2.8284433, 1.1299343, 0.1219357],
+        [-3.2149363, -1.4194081, -0.1574625],
+        [-0.2238388, -0.6183659, -1.1259253],
+        [0.0917425, -0.3938419, 2.0335307],
+        [1.7769148, -1.6686223, -1.1047566],
+        [-0.4096322, 0.1235576, -0.5694569],
+        [-1.1808068, -0.524627, -0.8557308],
+        [-1.7474543, 1.5104601, 3.3167515],
+        [2.9457622, -2.54037, -1.5198944],
+        [-0.8325512, 1.6212058, 1.0752746],
+        [0.2210693, 1.0235981, -0.3214014],
+        [-0.3286401, -2.2689734, 0.9935197],
+        [-0.0826835, 1.5912331, -0.6492441],
+        [-0.6378059, -0.1238804, -0.1655045],
+        [1.7315331, 1.3726246, -1.4677715],
+        [0.1636122, 0.605921, 1.3437448],
+        [0.38101, -0.2685509, -0.7060573],
+        [0.4129329, 1.5374391, -0.1285263],
+    ],
+    [
+        [-3.4143083, -3.9654922, 3.6522601],
+        [-0.8907585, 1.5254192, 0.3851261],
+        [2.500891, 3.2250481, -2.4776282],
+        [0.3903651, 1.3123113, -0.7869843],
+        [2.3317375, -1.578876, 0.5169899],
+        [0.7920143, 0.3705421, -0.7331965],
+        [-1.7307527, -0.1421021, -0.7338144],
+        [0.1600551, -1.7105235, -1.5295544],
+        [0.3988219, 0.0969241, -0.5474842],
+        [-1.6277554, -1.4942725, 0.8014207],
+        [0.4750361, 0.920046, 2.4817662],
+        [-1.2495272, 0.1909371, 1.5521058],
+        [2.7618113, 0.463095, -1.5827012],
+        [0.9167938, 1.2427509, -0.7467844],
+        [0.0102509, -0.3020392, -0.8969821],
+        [0.4095853, -0.5304281, 0.4557672],
+        [-0.2053605, -0.6578607, 0.8240325],
+        [-0.2687364, -0.0637008, 0.266931],
+        [-0.489043, 2.1802258, -1.5586246],
+        [-1.5247865, -0.9500433, -0.2854958],
+        [0.2536665, -0.13196, 0.9428506],
+    ],
+    [
+        [-1.0484169, -0.5189314, 0.9571162],
+        [1.6414754, -1.9237419, -0.0193655],
+        [-0.4617311, 0.9686961, -0.680105],
+        [-0.0564224, -1.7636104, 0.6903974],
+        [-0.0394302, 0.3315204, -0.1070526],
+        [0.5103521, 1.9138851, -1.2433338],
+        [-1.024338, -0.116076, -0.1573913],
+        [-2.094326, 1.0427306, -0.4407881],
+        [-0.2212199, -0.6545106, -0.8476565],
+        [-0.0440741, -1.154289, 1.0998303],
+        [1.5932841, -1.4187217, 0.633406],
+        [-0.0717164, -0.8545665, 0.6954584],
+        [-0.4102073, 0.8988906, 1.315479],
+        [0.4710323, 1.1462584, -1.3763545],
+        [0.3729701, 0.2215306, -0.131889],
+        [-0.892971, 1.6031318, -0.6133177],
+        [0.3733521, -0.1507537, -0.0864416],
+        [-0.037557, 0.583959, 0.2589076],
+        [-0.0073143, -0.3292877, -0.7159458],
+        [0.1423826, 0.4391474, 0.0035525],
+        [1.3048759, -0.2652608, 0.7654941],
+    ],
+    [
+        [0.726291, -3.2774715, 1.7894243],
+        [1.0742719, 0.5844905, -0.5271311],
+        [-1.3758062, 0.7557851, -1.0032403],
+        [-0.7974502, 2.9113638, -1.1973779],
+        [-0.363885, 2.1378031, 0.9088389],
+        [0.3416765, -0.8822031, -0.9180756],
+        [-0.5849047, -0.7597973, 1.0692402],
+        [0.4855519, -1.5639609, -1.1036741],
+        [-0.1339734, 0.7325997, 0.2208278],
+        [-1.6894996, 0.4520717, 0.1782722],
+        [0.4040182, 1.5151134, 2.3371663],
+        [1.5044301, -2.1062269, -0.8641006],
+        [-0.4390439, 1.1079693, -0.3172752],
+        [0.7418108, 0.2386725, -0.8417572],
+        [-0.4583102, 1.2909849, 0.0016171],
+        [0.2217146, -0.538799, -0.1657331],
+        [1.7494714, -0.9735081, -0.0827558],
+        [-0.3486786, -0.6534636, 0.5815665],
+        [-1.9925274, -1.3441359, -0.8612202],
+        [0.1794829, -0.2368196, 1.0997002],
+        [0.7553598, 0.609532, -0.3043125],
+    ],
+]
+JAX_BF16_ASPIRIN_SPREAD = {'energy': 0.005859375,
+                           'forces': 0.008157134056091309}
+# (graph_mode, compute_dtype of the edges) of 10c's layouts
+BF16_LJ_LAYOUTS = {'dense': ('dense', ''),
+                   'klist_fp32_edges': ('neighborlist', ''),
+                   'klist_bf16_edges': ('neighborlist', 'bfloat16')}
+JAX_BF16_LJ_ENERGY = {
+    'dense': -0.8434973955154419,
+    'klist_fp32_edges': -0.8434973955154419,
+    'klist_bf16_edges': -0.8446181416511536,
+}
+JAX_BF16_LJ_FORCES_8 = {
+    'dense': [
+        [-0.06263429, 0.00777896, 0.00980835],
+        [-0.00194692, -0.09123254, 0.05919761],
+        [-0.04206689, 0.17581148, 0.11196369],
+        [0.02357298, 0.09031244, 0.04511277],
+        [-0.15595996, 0.10897519, -0.16269761],
+        [-0.04432977, -0.09444351, 0.06558999],
+        [0.28390944, -0.05271781, 0.04710156],
+        [-0.18897235, -0.21746373, -0.07456359],
+    ],
+    'klist_fp32_edges': [
+        [-0.06256032, 0.00776922, 0.00977578],
+        [-0.00203516, -0.09103705, 0.05917269],
+        [-0.04213427, 0.17584832, 0.11204991],
+        [0.02310453, 0.09010401, 0.04541176],
+        [-0.15603428, 0.10885698, -0.16283427],
+        [-0.04442054, -0.09432964, 0.06534065],
+        [0.28402197, -0.05292482, 0.04714361],
+        [-0.18888089, -0.21739925, -0.07454219],
+    ],
+    'klist_bf16_edges': [
+        [-0.06280071, 0.0079582, 0.00949243],
+        [-0.00189245, -0.09069975, 0.05899455],
+        [-0.04195592, 0.17598413, 0.11232339],
+        [0.02305029, 0.0903592, 0.04549427],
+        [-0.15581222, 0.10872356, -0.16265668],
+        [-0.04426331, -0.09413382, 0.06548937],
+        [0.28406945, -0.05282651, 0.04754356],
+        [-0.18932877, -0.21710217, -0.07457086],
+    ],
+}
+JAX_BF16_LJ_SPREAD = {
+    'dense': {'energy': 0.005288422107696533,
+              'forces': 0.000865638256072998},
+    'klist_fp32_edges': {'energy': 0.005288541316986084,
+                         'forces': 0.0029218196868896484},
+    'klist_bf16_edges': {'energy': 0.004579067230224609,
+                         'forces': 0.002246379852294922},
+}
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
 WINDOW_T, WINDOW_F = 128, 512
@@ -1202,7 +1424,7 @@ def phase_train_epoch(torch, fd, fdd):
         logged = float(row[f'test_{k}'])
         check(abs(v - logged) <= 1e-5 * abs(logged),
               f'reloaded best model test_{k}: {v} vs {logged}')
-    check(all(launches[k] > 0 for k in launches),
+    check(all(launches[k] > 0 for k in fp32_names(launches)),
           f'a kernel was not launched on the training path: {launches}')
     check(sum(wgrad.values()) == 0,
           f'K2 computed weight cotangents while training: {wgrad}')
@@ -3389,8 +3611,8 @@ def phase_lj_pallas_train(torch, fd, fdd, fk):
                  step_ms=[1e3 * t for t in step_s],
                  step_ms_median=1e3 * statistics.median(step_s[1:]),
                  launches_10_steps=launches)
-            want = (fd.LAUNCHES.keys() | fdd.LAUNCHES.keys()
-                    if gm == 'dense' else fk.LAUNCHES.keys())
+            want = fp32_names({**fd.LAUNCHES, **fdd.LAUNCHES}
+                              if gm == 'dense' else fk.LAUNCHES)
             check(all(launches.get(k, 0) > 0 for k in want),
                   f'LJ pallas {gm} steps did not launch every kernel: '
                   f'{launches}')
@@ -3424,7 +3646,7 @@ def phase_lj_pallas_train(torch, fd, fdd, fk):
          log={k: rows[0][k] for k in ('train_loss', 'val_loss', 'test_loss',
                                       'steps_per_s')})
     check(finite, f'LJ pallas CLI epoch log not finite: {rows[0]}')
-    check(all(launches.get(k, 0) > 0 for k in fk.LAUNCHES),
+    check(all(launches.get(k, 0) > 0 for k in fp32_names(fk.LAUNCHES)),
           f'LJ pallas CLI epoch did not launch K5-K8: {launches}')
     out['cli_epoch_neighborlist'] = launches
     return out
@@ -3509,6 +3731,463 @@ def width_timing(torch, fd, fdd, fk, widths=WIDTHS_9D):
     return timing
 
 
+def fp32_names(counts):
+    """The keys of a launch-count dict that name fp32-mode kernels (the
+    bf16 mode's end in '_bf16', counted on phase 10's paths)."""
+    return [k for k in counts if not k.endswith('_bf16')]
+
+
+def median_ratio(x, y):
+    """The median of |x - y| over the elements where y is not zero, over
+    y's largest magnitude (0 for a zero y)."""
+    x64, y64 = x.double(), y.double()
+    scale = y64.abs().max().item()
+    if scale == 0:
+        return 0.0
+    return (x64 - y64).abs()[y64 != 0].median().item() / scale
+
+
+def bf16_vs_plain(torch, where, triples):
+    """bf16 mode: (kernel, plain, plain in float64) outputs. Each kernel
+    output is held against the plain version's at DUAL_BF16_BAR of its
+    largest magnitude beyond one bf16 ulp of the element, and its median
+    element error, over the elements where the plain output is not zero,
+    at BF16_MEDIAN_BAR of it, or at twice the plain version's own median
+    error against its float64 run where that is more; fails the phase on
+    a non-finite output.
+
+    The ulp: both sides round the same operands to bf16, but an fp32
+    difference of a sum in another order can flip the rounding of a later
+    operand, which moves a product term by one bf16 ulp of it (up to 2^-7
+    of the term), and where one term dominates an element, by about one
+    bf16 ulp of the element (phase 3 allows bf16-stored outputs the same).
+    A flip is rare, so the median of most outputs stays at the fp32 level,
+    while an operand rounded on one side only moves it by about 1e-4. An
+    output that sums over every slot (the weight cotangents; a box
+    request's energy and stress) collects the flips of all its terms, a
+    random walk of about sqrt(flips) bf16 ulps of a term against a sum of
+    sqrt(slots) terms: there any two fp32 orders differ by more than 1e-5,
+    the plain version and its float64 run included, which the second bar
+    measures. -> (worst max ratio beyond the ulp, worst median ratio, max
+    abs error, worst raw max ratio, the largest median bar used)."""
+    worst = worst_med = abs_err = raw = bar_used = 0.0
+    for k, (x, y, y_f64) in enumerate(triples):
+        check((x is None) == (y is None), f'{where} output {k}')
+        if x is None:
+            continue
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f'{where} output {k}: {x.dtype} {tuple(x.shape)}')
+        check(bool(torch.isfinite(x.float()).all()),
+              f'{where} output {k} not finite')
+        x64, y64 = x.double(), y.double()
+        diff = (x64 - y64).abs()
+        abs_err = max(abs_err, diff.max().item())
+        scale = y64.abs().max().item()
+        if scale == 0:  # the first layer's zero dforce, dW2a, dW2b
+            check(diff.max().item() == 0, f'{where} output {k} not zero')
+            continue
+        med = median_ratio(x, y)
+        bar = max(BF16_MEDIAN_BAR, 2 * median_ratio(y_f64, y))
+        raw = max(raw, diff.max().item() / scale)
+        beyond = (diff - bf16_ulp(torch, torch.maximum(
+            x64.abs(), y64.abs())).double()).clamp_min(0)
+        ratio = beyond.max().item() / scale
+        check(ratio <= DUAL_BF16_BAR and med <= bar,
+              f'{where} output {k}: max beyond one bf16 ulp {ratio} (bar '
+              f'{DUAL_BF16_BAR}), median {med} (bar {bar}), raw max '
+              f'{diff.max().item() / scale}')
+        worst, worst_med = max(worst, ratio), max(worst_med, med)
+        bar_used = max(bar_used, bar)
+    return worst, worst_med, abs_err, raw, bar_used
+
+
+def plain_triples(fn, args, got, **kw):
+    """(kernel output, plain, plain in float64) triples of the kernel's
+    outputs `got` and the plain version fn on args, on the card; the
+    float64 run's outputs (the same operands rounded to bf16, summed with
+    float64's error) cast to the dtypes of `got`."""
+    res64 = fn(*[a.double() for a in args], **kw)
+    return [(g, r, None if r64 is None else r64.to(g.dtype))
+            for g, r, r64 in zip(got, fn(*args, **kw), res64)]
+
+
+def phase_bf16_kernels(torch, fd, fk):
+    """Phase 10a: K1/K2 and K5/K6 in bf16 mode against their plain bf16
+    versions, full and first layer, K2/K6 with and without weight
+    cotangents, at F = BF16_WIDTHS: K1/K2 at phase 3's ragged small shape
+    (B=3, N=37, R=12) and at the aspirin serving shape (B=100, N=21,
+    R=20), K5/K6 at phase 3's ragged shape (B=3, N=61, K=39, R=12), the
+    serving shape (B=100, N=21, K=20, R=20) and the 4096-atom box's (B=1,
+    K=88, R=20), each with fp32 and with bf16 edges; bars of
+    bf16_vs_plain (the plain versions run in fp32 and in float64,
+    plain_triples); second launches repeat their bits. -> {variant: max abs
+    error} at F=128, the serving shape (K1/K2) and the box shape with bf16
+    edges (K5/K6), as the fp32 rows of the kernels line."""
+    dot = 'bfloat16'
+    errs, table = {}, {}
+    dense = [('small', 3, 37, 12), ('serve', 100, 21, 20)]
+    klist = [('small', 3, 61, 39, 12), ('serve', 100, 21, 20, 20),
+             ('box', 1, BOX_ATOMS, BOX_K_MAX, 20)]
+    for F in BF16_WIDTHS:
+        for tag, B, N, R in dense:
+            ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=F + N)
+            for first in (False, True):
+                fwd = fd.launch_key('pair_fwd', first, dot)
+                bwd = fd.launch_key('pair_bwd', first, dot)
+
+                def k1(first=first):
+                    return fd.pair_interaction_fwd(*ins, first_layer=first,
+                                                   dot_dtype=dot)
+                got = k1()
+                ref = plain_triples(fd.pair_interaction_fwd_ref, ins, got,
+                              first_layer=first, dot_dtype=dot)
+                res = {fwd: bf16_vs_plain(torch, f'{fwd} F={F} {tag}',
+                                          ref)}
+                check(repeats(torch, k1), f'{fwd} F={F} {tag} repeats')
+                for wg in (False, True):
+                    def k2(first=first, wg=wg):
+                        return fd.pair_interaction_bwd(
+                            *ins, dinv1, deq, first_layer=first,
+                            weight_grads=wg, dot_dtype=dot)
+                    got = k2()
+                    ref = plain_triples(fd.pair_interaction_bwd_ref,
+                                  ins + [dinv1, deq], got, first_layer=first,
+                                  weight_grads=wg, dot_dtype=dot)
+                    res[f'{bwd}(wg={int(wg)})'] = bf16_vs_plain(
+                        torch, f'{bwd} F={F} {tag} wg={int(wg)}', ref)
+                    check(repeats(torch, k2), f'{bwd} F={F} {tag} repeats')
+                for key, (w, m, a, r, mb) in res.items():
+                    table[f'{key} F={F} {tag}'] = [w, m, r, mb]
+                    if F == 128 and tag == 'serve':
+                        name = key.split('(')[0]
+                        errs[name] = max(errs.get(name, 0.0), a)
+            del ins, dinv1, deq
+        for tag, B, N, K, R in klist:
+            for edt in (torch.float32, torch.bfloat16):
+                for first in (False, True):
+                    ins, _, cots = klist_inputs(torch, B, N, K, F, R, first,
+                                                edt, seed=F + N + K)
+                    fwd = fd.launch_key('klist_fwd', first, dot)
+                    bwd = fd.launch_key('klist_bwd', first, dot)
+                    et = 'bf16' if edt == torch.bfloat16 else 'fp32'
+
+                    def k5(first=first):
+                        return fk.klist_fwd(*ins, first_layer=first,
+                                            dot_dtype=dot)
+                    got = k5()
+                    ref = plain_triples(fk.klist_fwd_ref, ins, got,
+                                  first_layer=first, dot_dtype=dot)
+                    res = {fwd: bf16_vs_plain(
+                        torch, f'{fwd} F={F} {tag} {et} edges',
+                        ref)}
+                    check(repeats(torch, k5), f'{fwd} F={F} {tag} repeats')
+                    for wg in (False, True):
+                        def k6(first=first, wg=wg):
+                            return fk.klist_bwd(
+                                *ins, *cots[:2], first_layer=first,
+                                weight_grads=wg, dot_dtype=dot)
+                        got = k6()
+                        ref = plain_triples(fk.klist_bwd_ref, ins + cots[:2], got,
+                                      first_layer=first, weight_grads=wg,
+                                      dot_dtype=dot)
+                        res[f'{bwd}(wg={int(wg)})'] = bf16_vs_plain(
+                            torch, f'{bwd} F={F} {tag} {et} edges '
+                            f'wg={int(wg)}', ref)
+                        check(repeats(torch, k6),
+                              f'{bwd} F={F} {tag} repeats')
+                    for key, (w, m, a, r, mb) in res.items():
+                        table[f'{key} F={F} {tag} {et}'] = [w, m, r, mb]
+                        if F == 128 and tag == 'box' and et == 'bf16':
+                            name = key.split('(')[0]
+                            errs[name] = max(errs.get(name, 0.0), a)
+                    del ins, cots, got, ref
+            torch.cuda.empty_cache()
+        emit('bf16_kernel_vs_plain', F=F,
+             max_beyond_ulp_median_raw_max_median_bar=table,
+             bars={'max': DUAL_BF16_BAR, 'median': BF16_MEDIAN_BAR})
+        table = {}
+    return errs
+
+
+def phase_bf16_aspirin(torch, fd, fk, base, batches, to_dev, served):
+    """Phase 10b: the aspirin checkpoint with pallas_dot_dtype bfloat16
+    (dense, K1/K2 in bf16 mode): the first BF16_ASPIRIN_FRAMES test frames
+    against the JAX package's bf16 numbers at BF16_SPREAD_FACTOR times its
+    own bf16-to-fp32 spread; all 500 frames in batches of 100 (the main
+    path: every K1/K2 bf16 variant launched), their MAEs beside the fp32
+    model's (phase 4's). -> (the 500 frames' launches, the model)."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNet
+    model = NewtonNet(**dict(base.config_dict(), pallas_dot_dtype='bfloat16'),
+                      device='cuda')
+    model.load_state_dict(base.state_dict())
+    b = batches[0]
+    out = model(*[torch.from_numpy(b[k][:BF16_ASPIRIN_FRAMES]).cuda()
+                  for k in ('z', 'pos', 'cell')])
+    e = out['energy'].double().cpu().numpy()
+    f = out['gradient_force'].double().cpu().numpy()
+    k = BF16_SPREAD_FACTOR
+    diffs = {'energy': float(np.abs(e - JAX_BF16_ASPIRIN_ENERGY).max()),
+             'forces_4': float(np.abs(f[:4] - np.asarray(
+                 JAX_BF16_ASPIRIN_FORCES_4)).max())}
+    bars = {'energy': k * JAX_BF16_ASPIRIN_SPREAD['energy'],
+            'forces_4': k * JAX_BF16_ASPIRIN_SPREAD['forces']}
+    torch.cuda.synchronize()
+    fd.reset_launch_counts()
+    fk.reset_launch_counts()
+    out_bf, batch_s = [], []
+    for bb in batches:
+        t = time.perf_counter()
+        o = model(*to_dev(bb))
+        out_bf.append((o['energy'].cpu().numpy(),
+                       o['gradient_force'].cpu().numpy()))
+        batch_s.append(time.perf_counter() - t)
+    launches = {k: v for k, v in fd.LAUNCHES.items() if v}
+    others = sum(fk.LAUNCHES.values()) + sum(
+        fd.LAUNCHES[n] for n in fp32_names(fd.LAUNCHES))
+    mae = {}
+    for what, outs in (('bf16', out_bf), ('fp32', served)):
+        ae = af = 0.0
+        for bb, (ee, ff) in zip(batches, outs):
+            check(np.isfinite(ee).all() and np.isfinite(ff).all(),
+                  f'non-finite {what} output')
+            ae += np.abs(ee - bb['energy']).astype(np.float64).sum()
+            af += np.abs(ff - bb['force']).astype(np.float64).sum()
+        mae[what] = {'energy_mae': ae / 500, 'force_mae': af / (500 * 63)}
+    # one batch of 100 frames, bf16 and fp32 models in turns (CUDA events)
+    dev0 = to_dev(batches[0])
+    turns = [time_ms(torch, lambda m=m: m(*dev0), reps=5, inner=2)
+             for m in (model, base, base, model)]
+    emit('bf16_aspirin', frames_vs_jax=BF16_ASPIRIN_FRAMES, diffs=diffs,
+         bars=bars, jax_spread=JAX_BF16_ASPIRIN_SPREAD,
+         maes_500_frames=mae, launches_500_frames=launches,
+         batch_ms_median=1e3 * statistics.median(batch_s),
+         batch_ms_in_turns={
+             'bf16': statistics.median([turns[0], turns[3]]),
+             'fp32': statistics.median(turns[1:3]), 'runs': turns})
+    for key, d in diffs.items():
+        check(d <= bars[key], f'bf16 aspirin {key}: {d} > {bars[key]}')
+    check(all(launches.get(n, 0) > 0 for n in BF16_DENSE),
+          f'a K1/K2 bf16 variant was not launched serving: {launches}')
+    check(others == 0, f'a fp32 or K-list kernel ran: {launches}')
+    return launches, model
+
+
+def phase_bf16_lj(torch, fd, fdd, fk):
+    """Phase 10c: LJ_CKPT as a kernel='pallas' bf16 model (F=48) through
+    the calculator on lj_box's box, dense (K1/K2) and over plain K-lists
+    with fp32 and with bf16 edges (K5/K6), against the JAX package's bf16
+    numbers at BF16_SPREAD_FACTOR times its bf16-to-fp32 spread; three
+    requests repeat their bits. -> {layout: launches per request}."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.utils.params import params_to_flax
+    z, pos, cell, _, _ = lj_box()
+    req = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    per_request = {}
+    for layout, (gm, cd) in BF16_LJ_LAYOUTS.items():
+        model = lj_pallas_model(torch, gm, compute_dtype=cd,
+                                pallas_dot_dtype='bfloat16')
+        calc = NewtonNetCalculator(model=model,
+                                   params=params_to_flax(model.core))
+        calc.calculate(**req)
+        torch.cuda.synchronize()
+        reset_counts(fd, fdd, fk)
+        results = [calc.calculate(**req) for _ in range(3)]
+        launches = {k: v // 3 for k, v in lj_counts(fd, fdd, fk).items()
+                    if v}
+        r = results[0]
+        same = all(np.array_equal(r[k], x[k]) for x in results[1:]
+                   for k in r)
+        sp = JAX_BF16_LJ_SPREAD[layout]
+        diffs = {'energy': abs(r['energy'] - JAX_BF16_LJ_ENERGY[layout]),
+                 'forces_8': float(np.abs(r['forces'][:8] - np.asarray(
+                     JAX_BF16_LJ_FORCES_8[layout])).max())}
+        bars = {'energy': BF16_SPREAD_FACTOR * sp['energy'],
+                'forces_8': BF16_SPREAD_FACTOR * sp['forces']}
+        emit('bf16_lj', layout=layout, n_features=model.n_features,
+             energy=r['energy'], diffs=diffs, bars=bars,
+             requests_repeat_their_bits=same,
+             launches_per_request=launches)
+        check(np.isfinite(r['energy']) and np.isfinite(r['forces']).all(),
+              f'bf16 LJ {layout} request not finite')
+        for key, d in diffs.items():
+            check(d <= bars[key], f'bf16 LJ {layout} {key}: {d} > '
+                  f'{bars[key]}')
+        check(same, f'bf16 LJ {layout} requests do not repeat their bits')
+        want = BF16_DENSE[:] if gm == 'dense' else BF16_KLIST
+        check(all(launches.get(k, 0) > 0 for k in want)
+              and set(launches) <= set(want),
+              f'bf16 LJ {layout} launched {launches}, not {want}')
+        per_request[layout] = launches
+        del calc, model
+    return per_request
+
+
+def phase_bf16_box(torch, fk, base):
+    """Phase 10d: the 4096-atom box request (energy, forces, stress) over
+    K-lists with bf16 edges and pallas_dot_dtype bfloat16 (box_model, F=128,
+    k_max 88; K5/K6 in bf16 mode) through the calculator, against the
+    port's plain bf16 model on the card (in float64, its fp32 run giving
+    the median bar's floor as in 10a) at 10a's bars; three requests repeat
+    their bits. -> (launches per request, the request's latency and
+    that of the fp32-dot box model)."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.utils.params import params_to_flax
+    outs = ['energy', 'gradient_force', 'stress']
+    box = box_model(torch, base.config_dict(), 'bfloat16', outs,
+                    pallas_dot_dtype='bfloat16')
+    props = ['energy', 'forces', 'stress']
+    calc = NewtonNetCalculator(model=box, params=params_to_flax(box.core),
+                               properties=props)
+    z, pos, cell, _, _ = box_system()
+    req = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    calc.calculate(**req)
+    torch.cuda.synchronize()
+    fk.reset_launch_counts()
+    lat, results = [], []
+    for _ in range(3):
+        t = time.perf_counter()
+        results.append(calc.calculate(**req))
+        lat.append(time.perf_counter() - t)
+    launches = {k: v // 3 for k, v in fk.LAUNCHES.items() if v}
+    r = results[0]
+    same = all(np.array_equal(r[k], x[k]) for x in results[1:] for k in r)
+    tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (z, pos, cell)]
+
+    def outputs(model, dtype):
+        # energy, forces and stress (Voigt) of the plain bf16 model
+        o = model(tz, tpos.to(dtype), tcell.to(dtype),
+                  pair_op=plain_klist(fk))
+        s_p = o['stress'][0][[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]]
+        return [o['energy'][:1].double().cpu(),
+                o['gradient_force'][0].double().cpu(), s_p.double().cpu()]
+    plain = outputs(box, torch.float32)
+    # the plain bf16 model in float64 (bf16 edges all the same): energy and
+    # stress sum over every edge of the box, so their flips add up as the
+    # weight cotangents' do (bf16_vs_plain)
+    plain64_ = outputs(box_model(torch, base.config_dict(), 'bfloat16', outs,
+                                 pallas_dot_dtype='bfloat16').double(),
+                       torch.float64)
+    got = [torch.tensor([r['energy']], dtype=torch.float64),
+           torch.from_numpy(r['forces']).double(),
+           torch.from_numpy(r['stress']).double()]
+    worst, med, err, raw, med_bar = bf16_vs_plain(
+        torch, 'bf16 box request', zip(got, plain, plain64_))
+    fp32 = box_model(torch, base.config_dict(), 'bfloat16', outs)
+    calc32 = NewtonNetCalculator(model=fp32,
+                                 params=params_to_flax(fp32.core),
+                                 properties=props)
+    calc32.calculate(**req)
+    lat32 = []
+    for _ in range(3):
+        t = time.perf_counter()
+        calc32.calculate(**req)
+        lat32.append(time.perf_counter() - t)
+    emit('bf16_box', atoms=BOX_ATOMS, k_max=BOX_K_MAX, energy=r['energy'],
+         plain_energy=float(plain[0][0]),
+         plain_float64_energy=float(plain64_[0][0]),
+         worst_max_beyond_ulp_over_largest=worst,
+         worst_median_over_largest=med, worst_raw_max_over_largest=raw,
+         largest_median_bar=med_bar, max_abs_err=err, bars={'max': DUAL_BF16_BAR,
+                                'median': BF16_MEDIAN_BAR},
+         requests_repeat_their_bits=same, launches_per_request=launches,
+         latency_ms_median=1e3 * statistics.median(lat),
+         fp32_dot_latency_ms_median=1e3 * statistics.median(lat32))
+    check(same, 'bf16 box requests do not repeat their bits')
+    check(all(launches.get(k, 0) > 0 for k in BF16_KLIST)
+          and set(launches) <= set(BF16_KLIST),
+          f'bf16 box request launched {launches}, not {BF16_KLIST}')
+    return launches, {'bf16_ms': 1e3 * statistics.median(lat),
+                      'fp32_ms': 1e3 * statistics.median(lat32)}
+
+
+def bf16_timing(torch, fd, fk, errs, launches):
+    """Phase 10e: K1/K2 at the batched serving shape (B=100, N=21, F=128,
+    R=20) and K5/K6 at the box shape (bf16 edges), full and first layer,
+    K2/K6 without weight cotangents (the force pass's), in bf16 mode beside
+    fp32 mode in the same run, each with its plain bf16 version's time
+    (CUDA events, kernel and plain in turns); the bound takes every flop at
+    the bf16 tensor cores' peak (K2's fp32 cotangent products included).
+    -> the `kernels` rows of the bf16 variants."""
+    rows = []
+    B, N, F, R = 100, 21, 128, 20
+    ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=0)
+    for name in BF16_DENSE:
+        first = '_first' in name
+        fwd = name.startswith('pair_fwd')
+
+        def run(dot, ref=False, first=first, fwd=fwd):
+            if fwd:
+                f = fd.pair_interaction_fwd_ref if ref else \
+                    fd.pair_interaction_fwd
+                return f(*ins, first_layer=first, dot_dtype=dot)
+            f = fd.pair_interaction_bwd_ref if ref else \
+                fd.pair_interaction_bwd
+            return f(*ins, dinv1, deq, first_layer=first,
+                     weight_grads=False, dot_dtype=dot)
+        flops, nbytes = layer_work(B, N, F, R, 'fwd' if fwd else 'bwd',
+                                   first)
+        rows.append(bf16_row(torch, name, 'pair', run, flops, nbytes, errs,
+                             launches, dict(B=B, N=N, F=F, R=R)))
+    del ins, dinv1, deq
+    B, N, K = 1, BOX_ATOMS, BOX_K_MAX
+    for name in BF16_KLIST:
+        first = '_first' in name
+        fwd = name.startswith('klist_fwd')
+        ins, _, cots = klist_inputs(torch, B, N, K, F, R, first,
+                                    torch.bfloat16, seed=30)
+
+        def run(dot, ref=False, first=first, fwd=fwd):
+            if fwd:
+                f = fk.klist_fwd_ref if ref else fk.klist_fwd
+                return f(*ins, first_layer=first, dot_dtype=dot)
+            f = fk.klist_bwd_ref if ref else fk.klist_bwd
+            return f(*ins, *cots[:2], first_layer=first, weight_grads=False,
+                     dot_dtype=dot)
+        flops, nbytes = klist_work(B, N, K, F, R,
+                                   'klist_fwd' if fwd else 'klist_bwd',
+                                   first, 2)
+        rows.append(bf16_row(torch, name, 'klist', run, flops, nbytes, errs,
+                             launches, dict(B=B, N=N, K=K, F=F, R=R),
+                             inner=3))
+        del ins, cots
+        torch.cuda.empty_cache()
+    emit('timing', what='K1/K2 and K5/K6 in bf16 mode beside fp32 mode',
+         peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
+         rows={r['name']: {k: r[k] for k in ('ms', 'fp32_ms', 'plain_ms',
+                                              'bound_ms', 'shape')}
+               for r in rows})
+    return rows
+
+
+def bf16_row(torch, name, src, run, flops, nbytes, errs, launches, shape,
+             inner=10):
+    """One `kernels` row of a bf16 variant: its time and its plain
+    version's (turns: plain, kernel, kernel, plain), its fp32 mode's time
+    in the same turns, the bound at the bf16 peak."""
+    base = name[:-len('_bf16')]
+    plain1 = time_ms(torch, lambda: run('bfloat16', True), inner=inner)
+    ms = time_ms(torch, lambda: run('bfloat16'), inner=inner)
+    f32 = time_ms(torch, lambda: run('float32'), inner=inner)
+    f32b = time_ms(torch, lambda: run('float32'), inner=inner)
+    ms2 = time_ms(torch, lambda: run('bfloat16'), inner=inner)
+    plain2 = time_ms(torch, lambda: run('bfloat16', True), inner=inner)
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return {'name': name, 'route': 'cuda', 'source': SOURCES[src],
+            'replaces': REPLACES[base], 'launches': launches.get(name, 0),
+            'max_abs_err': errs[name], 'ms': statistics.median([ms, ms2]),
+            'plain_ms': statistics.median([plain1, plain2]),
+            'bound_ms': 1e3 * max(t_ops, t_bytes),
+            'bound_by': 'operations' if t_ops >= t_bytes else 'bytes',
+            'library_ms': None, 'dot_dtype': 'bfloat16',
+            'fp32_ms': statistics.median([f32, f32b]),
+            'flops': flops, 'bytes': nbytes, 'shape': shape,
+            'ms_runs': [ms, ms2], 'plain_ms_runs': [plain1, plain2],
+            'fp32_ms_runs': [f32, f32b]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3552,9 +4231,10 @@ def main():
 
     # 2. build: K9-K12's libraries and K1-K8's of every width the script
     # runs (the checkpoints' 128, phase 3's 32 and 64, and phases 9a and
-    # 9d's), one library per (padded width, padded)
+    # 9d's), one library per (padded width, padded), and the bf16 libraries
+    # of K1/K2 and K5/K6 at phase 10's widths
     t0 = time.perf_counter()
-    report = _build.build_all(widths=BUILD_WIDTHS)
+    report = _build.build_all(widths=BUILD_WIDTHS, bf16_widths=BF16_WIDTHS)
     ptxas = {}
     for name, (_, log) in report.items():
         entry = None
@@ -3691,7 +4371,7 @@ def main():
          latency_ms_min=1e3 * min(lat), latency_ms_max=1e3 * max(lat))
     check(r_e <= E_ATOL and r_f <= F_ATOL, 'requests vs batched serving')
     check(r_s <= 1e-6, 'stress is not -virial / volume')
-    check(all(launches[k] > 0 for k in fd.LAUNCHES),
+    check(all(launches[k] > 0 for k in fp32_names(fd.LAUNCHES)),
           f'a kernel was not launched on the main path: {launches}')
     emit('launches', **launches)
     tf32_pinned(torch, 'one calculator request (N=24)', calc,
@@ -3821,6 +4501,18 @@ def main():
     # served dense and over K-lists, fine-tuned dense and over K-lists
     lj_serve_launches = phase_lj_pallas_serve(torch, fd, fdd, fk)
     lj_train_launches = phase_lj_pallas_train(torch, fd, fdd, fk)
+    # 10. the bf16 mode of K1/K2 and K5/K6: the kernels against their plain
+    # versions, then served: the aspirin checkpoint (dense), the LJ
+    # checkpoint (dense and over K-lists), the box (over K-lists)
+    bf16_errs = phase_bf16_kernels(torch, fd, fk)
+    bf16_dense_launches, bf16_asp_model = phase_bf16_aspirin(
+        torch, fd, fk, model, batches, to_dev, served)
+    del bf16_asp_model
+    bf16_lj_launches = phase_bf16_lj(torch, fd, fdd, fk)
+    bf16_box_launches, bf16_box_ms = phase_bf16_box(torch, fk, model)
+    emit('bf16_launches', serve_500_frames=bf16_dense_launches,
+         lj_per_request=bf16_lj_launches, per_box_request=bf16_box_launches)
+    torch.cuda.empty_cache()
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -3950,6 +4642,12 @@ def main():
          peak_fp32_tflops=PEAK_FP32_FLOPS / 1e12, fp32_mode_rows=fp32_rows)
 
     rows += klist_timing(torch, fk, errs, klist_launches, train_nl_launches)
+    # 10e. K1/K2 and K5/K6 in bf16 mode beside fp32 mode; their launches
+    # on phase 10's main paths (the 500 aspirin frames, one box request)
+    rows += bf16_timing(torch, fd, fk, bf16_errs,
+                        {**bf16_dense_launches, **bf16_box_launches})
+    emit('bf16_requests', box_request_ms={'bf16': bf16_box_ms['bf16_ms'],
+                                          'fp32': bf16_box_ms['fp32_ms']})
     # 9d. K1-K8 at the LJ width beside 64 and at 256 (the prediction's
     # comparisons, 128 in the rows above) and their launches on phase 9's
     # paths

@@ -1,4 +1,5 @@
-// Fused dense pair-interaction layer for Hopper (sm_90a), fp32.
+// Fused dense pair-interaction layer for Hopper (sm_90a), fp32 or the
+// Pallas kernels' bf16 mode.
 //
 // Replaces the TPU kernels newtonnet_tpu/ops/pallas_dense.py:_fwd_kernel
 // (K1) and newtonnet_tpu/ops/pallas_dense.py:_bwd_kernel (K2). Both are
@@ -37,12 +38,58 @@
 // and are summed by second kernels in a fixed order: no float atomics, a
 // run gives the same bits every time.
 //
+// bf16 mode (a library built with -DNN_BF16: kBF; the JAX package's
+// pallas_dot_dtype bfloat16). The Pallas kernels round to bf16 both
+// operands of the chain's products (pallas_dense.py `_chain`: me = rbf We,
+// p = msg Wa, phi = h Wb) and of K2's weight cotangents (`dotT`), and
+// accumulate in fp32; K2's cotangent products (dh, dmsg, drbf) take fp32
+// operands. Here those products run as mma.sync m16n8k16 bf16 with fp32
+// accumulation (bf16_mma.cuh), one per 16 depth steps of a 16 x 8 tile
+// where 3xTF32 takes six m16n8k8: the weights are rounded once per launch
+// by the prep kernels, the slot operands (rbf, msg, h, and for the weight
+// cotangents dme, dp, dphi) where a fragment is loaded (rounding is
+// idempotent, so where it happens does not change the value); K2's
+// cotangent products keep their 3xTF32 path and its (hi, lo) weights.
+// Every elementwise operation and every sum stays fp32, on the same fp32
+// slot buffers, so the kernels and the plain versions (ops/fused_dense.py,
+// dot_dtype='bfloat16') differ only in summation order. The bf16 weights
+// stream through the same rings in chunks of 32 depth steps (two k-steps)
+// of one or two weights, rows of 16 words (K1: XOR-swizzled, bf16_swz;
+// K2: at a stride of 20 words), so that the B fragments' 32-bit loads hit
+// 32 banks.
+//
 // The host functions return the cudaError_t of the launches.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
+
+// The library's mode: the Pallas kernels' bf16 products (ops/_build.py
+// builds it with -DNN_BF16 for pallas_dot_dtype bfloat16) or fp32.
+#ifdef NN_BF16
+constexpr bool kBF = true;
+#else
+constexpr bool kBF = false;
+#endif
+// Elements of the prepared weights' type per uint2 of the scratch: four
+// bf16, or one (hi, lo) tf32 pair.
+constexpr int kEPP = kBF ? 4 : 1;
+// bf16 weight chunks: depth steps (two m16n8k16 k-steps), 32-bit words
+// per row, and K2's row stride in the ring (16 + 4: conflict-free B
+// fragment loads)
+constexpr int KB = 32;
+constexpr int KBW = KB / 2;
+constexpr int KB2S = KBW + 4;
+
+// The XOR swizzle of a bf16 chunk row of 16 words: word w of row r at w ^
+// bf16_swz(r), so that the B fragments' 32-bit loads (rows g = 0..7 at a
+// stride of 16 words) hit 32 banks.
+__host__ __device__ constexpr int bf16_swz(int r) {
+  return ((r >> 1) & 3) << 2;
+}
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -293,6 +340,16 @@ __global__ void pair_bwd_prep_kernel(const float* __restrict__ We,
           : k < 4            ? W[(size_t)q * Fg + n]
                              : W[(size_t)n * Fg + q];
     }
+    // bf16 mode: the chain's weights (blocks 0 and 2-5) rounded to bf16,
+    // n-major with the depth contiguous, from the block's start; the
+    // cotangent products' weights stay (hi, lo) tf32 pairs
+    const bool chain = e < fr || (e >= 2 * fr && (e - 2 * fr) / F / F < 4);
+    if (kBF && chain) {
+      const size_t base =
+          e < fr ? 0 : 2 * fr + (e - 2 * fr) / ((size_t)F * F) * F * F;
+      reinterpret_cast<unsigned short*>(out + base)[e - base] = bf16_bits(v);
+      continue;
+    }
     const unsigned hi = tf32_rna(v);
     out[e] = make_uint2(hi, tf32_rna(v - __uint_as_float(hi)));
   }
@@ -317,17 +374,33 @@ __device__ __forceinline__ void k2_stage(const uint2* __restrict__ Bt, int Qp,
   }
 }
 
+// Chunk ch (KB depth steps) of a prepared bf16 weight (NC rows of Qp
+// elements) into a ring slot: per row n its 16 words at word n*KB2S, as
+// four 16-byte cp.async copies.
+template <int NC>
+__device__ __forceinline__ void k2_stage_bf16(const uint2* __restrict__ Bt,
+                                              int Qp, int ch, unsigned* slot) {
+  const char* src = reinterpret_cast<const char*>(Bt);
+  for (unsigned v = threadIdx.x; v < NC * 4u; v += kThreads) {
+    const int n = (int)(v >> 2), part = (int)(v & 3);
+    cp_async16(slot + n * KB2S + part * 4,
+               src + ((size_t)n * Qp + (size_t)ch * KB) * 2 + part * 16);
+  }
+}
+
 // For the tile's M slot rows m and n < NC, q < Qp (a multiple of 32), in
 // 3xTF32: D1[m*ldd + n] = sum_q A1[m*lda + q] B1(q, n), and with B2
 // D2[m*ldd + n] = sum_q A2[m*lda + q] B2(q, n), or with `sum` D1 = the sum
 // of both. A's columns past the true depth hold zeros; B(q, n) = Bt[n*Qp +
-// q] is a prepared weight. Warp w computes the 16-row group w % RG and
+// q] is a prepared weight. With BFW the weights are bf16 (n-major, Qp
+// elements a row) and the products m16n8k16 bf16, A rounded to bf16 where
+// its fragments are loaded. Warp w computes the 16-row group w % RG and
 // NC/CG columns (RG = M/16 groups, CG = 8/RG; NC >= 8 CG). Every warp
 // reads every A row after the loop's first
 // barrier and D is written after a barrier that follows the last read, so
 // A may be written just before the call and D may be A. Ends with a
 // __syncthreads. All threads of the block must call it. Not inlined.
-template <int NC, bool WIDE>
+template <int NC, bool WIDE, bool BFW = false>
 __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
                                      int lda, int Qp,
                                      const uint2* __restrict__ B1,
@@ -353,6 +426,55 @@ __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
   const float* rows[2][2] = {
       {A1 + (size_t)(m0 + g) * lda, A1 + (size_t)(m0 + g + 8) * lda},
       {A2s + (size_t)(m0 + g) * lda, A2s + (size_t)(m0 + g + 8) * lda}};
+  if constexpr (BFW) {
+    unsigned* ringw = reinterpret_cast<unsigned*>(ring);
+    const int nch = Qp / KB;
+    k2_stage_bf16<NC>(B1, Qp, 0, ringw);
+    if (two) k2_stage_bf16<NC>(B2, Qp, 0, ringw + NC * KB2S);
+    cp_async_commit();
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait<0>();
+      __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+      if (ch + 1 < nch) {
+        unsigned* next = ringw + ((ch + 1) & 1) * 2 * SLOT;
+        k2_stage_bf16<NC>(B1, Qp, ch + 1, next);
+        if (two) k2_stage_bf16<NC>(B2, Qp, ch + 1, next + NC * KB2S);
+      }
+      cp_async_commit();
+      const unsigned* wc = ringw + (ch & 1) * 2 * SLOT;
+      float d[2][NT][4];
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          d[x][j][0] = d[x][j][1] = d[x][j][2] = d[x][j][3] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < KB / 16; ++s) {  // k-steps of a chunk
+        const int k = ch * KB + s * 16 + 2 * t;
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          if (x == 1 && !two) break;
+          const unsigned a[4] = {
+              pack_bf16_at(rows[x][0] + k), pack_bf16_at(rows[x][1] + k),
+              pack_bf16_at(rows[x][0] + k + 8),
+              pack_bf16_at(rows[x][1] + k + 8)};
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const unsigned* w =
+                wc + (x * NC + n0 + j * 8 + g) * KB2S + s * 8 + t;
+            const unsigned b[2] = {w[0], w[4]};  // depth 2t.., 2t + 8..
+            mma_bf16(d[x][j], a, b);
+          }
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tot[x][j][e] += d[x][j][e];
+    }
+  } else {
   const int nch = Qp / KC;
   k2_stage<NC, WIDE>(B1, Qp, 0, ring);
   if (two) k2_stage<NC, WIDE>(B2, Qp, 0, ring + NC * RS);
@@ -400,6 +522,7 @@ __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
 #pragma unroll
         for (int e = 0; e < 4; ++e) tot[x][j][e] += d[x][j][e];
   }
+  }
   __syncthreads();  // every warp is done reading A: D may overwrite it
 #pragma unroll
   for (int x = 0; x < 2; ++x) {
@@ -426,8 +549,9 @@ __device__ __noinline__ void k2_prod(const float* A1, const float* A2,
 // from p), on the tensor cores in 3xTF32: warp w takes the (16-row,
 // 32-column) groups w, w + 8, ... and writes each element of the block's
 // partial once (part 8-byte aligned). A's columns up to the next multiple
-// of 16 past qrows must be readable and finite. Starts with a
-// __syncthreads. Not inlined.
+// of 16 past qrows must be readable and finite. In bf16 mode both
+// operands are rounded to bf16 (K2's `dotT`) and multiplied by m16n8k16
+// bf16. Starts with a __syncthreads. Not inlined.
 template <int F>
 __device__ __noinline__ void k2_wgrad(const float* __restrict__ A, int lda,
                                       int qrows, bool silu,
@@ -445,6 +569,28 @@ __device__ __noinline__ void k2_wgrad(const float* __restrict__ A, int lda,
     float d[4][4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
+    if constexpr (kBF) {
+#pragma unroll
+      for (int kk = 0; kk < K2Shape<(F > 128)>::M; kk += 16) {
+        const int p = kk + 2 * t;  // slots p, p + 1 and p + 8, p + 9
+        auto av = [&](int pp, int q) {
+          const float v = A[pp * lda + q];
+          return silu ? silu_f(v) : v;
+        };
+        const unsigned a[4] = {pack_bf16(av(p, qa), av(p + 1, qa)),
+                               pack_bf16(av(p, qb), av(p + 1, qb)),
+                               pack_bf16(av(p + 8, qa), av(p + 9, qa)),
+                               pack_bf16(av(p + 8, qb), av(p + 9, qb))};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = nb + j * 8 + g;
+          const unsigned b[2] = {
+              pack_bf16(Bm[p * LD + n], Bm[(p + 1) * LD + n]),
+              pack_bf16(Bm[(p + 8) * LD + n], Bm[(p + 9) * LD + n])};
+          mma_bf16(d[j], a, b);
+        }
+      }
+    } else {
 #pragma unroll
     for (int kk = 0; kk < K2Shape<(F > 128)>::M; kk += 8) {
       const int p = kk + t;
@@ -462,6 +608,7 @@ __device__ __noinline__ void k2_wgrad(const float* __restrict__ A, int lda,
         split_tf32(Bm[(p + 4) * LD + n], bh[1], bl[1]);
         mma3(d[j], ah, al, bh, bl);
       }
+    }
     }
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -581,10 +728,11 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
   float* wp = WGRAD ? wpart + (size_t)blockIdx.x * wgrad_size(F, R) : nullptr;
   float* colb = colpart + ((size_t)b * n_it + it) * kColSlots * nf;
 
-  // me, then msg = me np_i np_j adj
-  // me, then msg = me np_i np_j adj
-  k2_prod<F, WIDE>(rbf_s, nullptr, lr, Rp, WeT, nullptr, ring, me_s, nullptr,
-                   LD, false);
+  // me, then msg = me np_i np_j adj (in bf16 mode the chain's products,
+  // me, p and phi, are bf16; the cotangent products dh, dmsg and drbf
+  // stay 3xTF32)
+  k2_prod<F, WIDE, kBF>(rbf_s, nullptr, lr, Rp, WeT, nullptr, ring, me_s,
+                        nullptr, LD, false);
 #pragma unroll
   for (int r = 0; r < TJ; ++r) {
     const int p = warp * TJ + r;
@@ -597,8 +745,8 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
   }
   // p1, p2; h = silu(p); phi = h @ Wb (the second branch is skipped at the
   // first layer: force_node is zero)
-  k2_prod<F, WIDE>(msg_s, msg_s, LD, F, W1aT, FIRST ? nullptr : W2aT, ring,
-                   p1_s, p2_s, LD, false);
+  k2_prod<F, WIDE, kBF>(msg_s, msg_s, LD, F, W1aT, FIRST ? nullptr : W2aT,
+                        ring, p1_s, p2_s, LD, false);
 #pragma unroll
   for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -607,8 +755,8 @@ pair_bwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
       x1_s[o] = silu_f(p1_s[o]);
       if (!FIRST) x2_s[o] = silu_f(p2_s[o]);
     }
-  k2_prod<F, WIDE>(x1_s, x2_s, LD, F, W1bT, FIRST ? nullptr : W2bT, ring,
-                   x1_s, x2_s, LD, false);
+  k2_prod<F, WIDE, kBF>(x1_s, x2_s, LD, F, W1bT, FIRST ? nullptr : W2bT,
+                        ring, x1_s, x2_s, LD, false);
   // ddir[d,i,j] = sum_f phi1 deq[d,i]; dphi1 = sum_d deq[d,i] dir[d,i,j] adj
 #pragma unroll
   for (int r = 0; r < TJ; ++r) {
@@ -878,6 +1026,34 @@ __global__ void pair_fwd_prep_kernel(const float* __restrict__ We,
                                      int R, int first) {
   const size_t fr = (size_t)F * pad32(R), ff = (size_t)F * F;
   const size_t total = fr + (first ? 2 : 4) * ff;
+  if constexpr (kBF) {
+    // words of two bf16 (depth q, q + 1), in chunks of KB depth steps of
+    // one weight (rows n) or of each of two (rows x*F + n), KBW words a
+    // row, word w of row r at r*KBW + (w ^ bf16_swz(r))
+    unsigned* outw = reinterpret_cast<unsigned*>(out);
+    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+         e < total / 2; e += (size_t)gridDim.x * blockDim.x) {
+      const bool me = e < fr / 2;  // else p (k = 0) or phi (k = 1)
+      const int nx = me || first ? 1 : 2;
+      const int k = me ? 0 : (int)((e - fr / 2) / (nx * ff / 2));
+      const size_t local = me ? e : e - fr / 2 - k * (nx * ff / 2);
+      const size_t chunk = (size_t)nx * F * KBW;
+      const int ch = (int)(local / chunk), rem = (int)(local % chunk);
+      const int r = rem / KBW, w = (rem % KBW) ^ bf16_swz(r);
+      const int x = r / F, n = r - x * F;
+      const float* W = k == 0 ? (x ? W2a : W1a) : (x ? W2b : W1b);
+      unsigned word = 0;
+      for (int h = 0; h < 2; ++h) {
+        const int q = ch * KB + 2 * w + h;
+        const float v = me ? (q < R && n < Fg ? We[(size_t)q * Fg + n] : 0.0f)
+                           : (q < Fg && n < Fg ? W[(size_t)q * Fg + n]
+                                               : 0.0f);
+        word |= (unsigned)bf16_bits(v) << (16 * h);
+      }
+      outw[e] = word;
+    }
+    return;
+  }
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     const bool me = e < fr;  // else p (k = 0) or phi (k = 1)
@@ -900,24 +1076,36 @@ __global__ void pair_fwd_prep_kernel(const float* __restrict__ We,
   }
 }
 
-// A product's prepared weight: chunks of 32 F pairs from b, qp depth steps
-// in all.
+// A product's prepared weight: chunks of k1_rw(F) depth pairs by F rows
+// (bf16: of KB depth steps by nx F rows) from b, qp depth steps in all.
 struct K1W {
   const uint2* b;
   int qp;
+  int nx;  // weights per chunk (bf16 mode's chunk size)
 };
 
 // Chunk ch of w into a ring slot: one contiguous copy (the preparation
 // laid it out as the slot holds it), by 16-byte cp.async copies.
 template <int F>
 __device__ __forceinline__ void k1_stage(const K1W& w, int ch, uint2* slot) {
+  if constexpr (kBF) {
+    const int words = w.nx * F * KBW;  // of a chunk
+    const unsigned* src =
+        reinterpret_cast<const unsigned*>(w.b) + (size_t)ch * words;
+    unsigned* dst = reinterpret_cast<unsigned*>(slot);
+    for (int v = threadIdx.x; v < words / 4; v += kThreads)
+      cp_async16(dst + 4 * v, src + 4 * v);
+    return;
+  }
   constexpr int RING = K1Shape<F>::RING;
   const uint2* src = w.b + (size_t)ch * RING;
   for (int v = threadIdx.x; v < RING / 2; v += kThreads)
     cp_async16(slot + 2 * v, src + 2 * v);
 }
 
-// For the tile's M slot rows m and n < F, q < cur.qp, in 3xTF32: MODE 0
+// For the tile's M slot rows m and n < F, q < cur.qp, in 3xTF32 (bf16
+// mode: one m16n8k16 bf16 mma per tile and k-step, A rounded to bf16
+// where its fragments are loaded): MODE 0
 // D1 = A1 B1; MODE 1 D1 = A1 B1 and D2 = A1 B2; MODE 2 D1 = A1 B1 and D2 =
 // A2 B2, where A is fp32 at row stride lda (zeros past the true depth) and
 // B the prepared weight of cur (pair_fwd_prep_kernel's layout). Chunk 0 of
@@ -943,7 +1131,7 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (warp & 1) * (S::M / 2), n0 = (warp >> 1) * (F / 4);
   const int o0 = t ^ ring_swz(g, RW);  // the swizzled pair of depth t
-  const int nch = cur.qp / RW;
+  const int nch = cur.qp / (kBF ? KB : RW);
   float tot[NX][RG][NT][4];
 #pragma unroll
   for (int x = 0; x < NX; ++x)
@@ -972,6 +1160,42 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
         for (int j = 0; j < NT; ++j)
           d[x][rg][j][0] = d[x][rg][j][1] = d[x][rg][j][2] =
               d[x][rg][j][3] = 0.0f;
+    if constexpr (kBF) {
+      const unsigned* wb = reinterpret_cast<const unsigned*>(wc);
+      const int sw = bf16_swz(g);  // rows x*F + n0 + j*8 + g: r & 7 == g
+#pragma unroll
+      for (int s = 0; s < KB / 16; ++s) {
+        const int k = ch * KB + s * 16 + 2 * t;  // depth of the A words
+        unsigned a[RG][4];
+#pragma unroll
+        for (int x = 0; x < NX; ++x) {
+          if (x == 0 || MODE == 2) {
+            const float* A = x == 0 ? A1 : A2;
+#pragma unroll
+            for (int rg = 0; rg < RG; ++rg) {
+              const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
+              const float* r8 = r0 + (size_t)8 * lda;
+              a[rg][0] = pack_bf16_at(r0 + k);
+              a[rg][1] = pack_bf16_at(r8 + k);
+              a[rg][2] = pack_bf16_at(r0 + k + 8);
+              a[rg][3] = pack_bf16_at(r8 + k + 8);
+            }
+          }
+          unsigned b[NT][2];
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const unsigned* w = wb + (x * F + n0 + j * 8 + g) * KBW;
+            b[j][0] = w[(s * 8 + t) ^ sw];
+            b[j][1] = w[(s * 8 + t + 4) ^ sw];
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int rg = 0; rg < RG; ++rg)
+              mma_bf16(d[x][rg][j], a[rg], b[j]);
+        }
+      }
+    } else {
 #pragma unroll
     for (int s = 0; s < RW / 8; ++s) {
       const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
@@ -1015,6 +1239,7 @@ __device__ __noinline__ int k1_prod(const float* A1, const float* A2,
           for (int rg = 0; rg < RG; ++rg)
             mma_tf32(d[x][rg][j], ah[rg], bh[j]);
       }
+    }
     }
 #pragma unroll
     for (int x = 0; x < NX; ++x)
@@ -1074,12 +1299,14 @@ pair_fwd_kernel(const float* __restrict__ np_, const float* __restrict__ rbf,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const size_t nf = (size_t)N * F, nfg = (size_t)N * Fg;
-  // the products of a tile, in the order of the prepared weights
-  const size_t wbr = (size_t)(FIRST ? 1 : 2) * F * F;
-  const K1W w_me = {wprep, Rp};
-  const K1W w_p = {wprep + (size_t)F * Rp, F};
-  const K1W w_phi = {w_p.b + wbr, F};
-  const K1W none = {nullptr, 0};
+  // the products of a tile, in the order of the prepared weights (offsets
+  // in uint2: kEPP elements of the prepared type)
+  constexpr int NXB = FIRST ? 1 : 2;  // weights of p's and phi's chunks
+  const size_t wbr = (size_t)NXB * F * F / kEPP;
+  const K1W w_me = {wprep, Rp, 1};
+  const K1W w_p = {wprep + (size_t)F * Rp / kEPP, F, NXB};
+  const K1W w_phi = {w_p.b + wbr, F, NXB};
+  const K1W none = {nullptr, 0, 0};
 
   int slot = 0;  // the ring slot of the next product's first chunk
   if ((int)blockIdx.x < n_tiles) k1_stage<F>(w_me, 0, ring);

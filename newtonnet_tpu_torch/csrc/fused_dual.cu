@@ -98,6 +98,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -208,14 +210,7 @@ __device__ __forceinline__ float d2silu_f(float x) {
 
 #ifndef NN_CUDA_EMU
 // One inline-PTX site per instruction (csrc/emu/cuda_emu.h replaces these
-// functions on the CPU).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
-                                         const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// functions on the CPU; mma_bf16 is bf16_mma.cuh's).
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
@@ -237,14 +232,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 #endif
-
-// (lo, hi) rounded to bf16 (nearest even) and packed, lo in the low half:
-// one register of an mma bf16 fragment.
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return (unsigned)__bfloat16_as_ushort(v.x) |
-         ((unsigned)__bfloat16_as_ushort(v.y) << 16);
-}
 
 // x rounded to tf32, to nearest with ties away from zero: the bits of
 // cvt.rna.tf32.f32 for finite x, from two integer operations.

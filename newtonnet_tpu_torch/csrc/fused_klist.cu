@@ -57,12 +57,56 @@
 //
 // Shared memory at F=128, R=20: K5 206 KB, K6 214 KB, K7 223 KB, K8
 // 215 KB. The host functions return the cudaError_t of the launch.
+//
+// bf16 mode (a library built with -DNN_BF16: kBF; the JAX package's
+// pallas_dot_dtype bfloat16) of K5 and K6. The Pallas K-list kernels round
+// to bf16 both operands of every product (pallas_klist.py `_mk_dot`,
+// `_mk_dotT`: the chain me, p, phi, K6's cotangent products dh, dmsg, drbf
+// and its weight cotangents) and accumulate in fp32. Here each runs as
+// mma.sync m16n8k16 bf16 with fp32 accumulation (bf16_mma.cuh), one per 16
+// depth steps of a 16 x 8 tile where 3xTF32 takes six m16n8k8. The weights
+// are rounded once per launch by klist_prep_kernel, in the same product
+// table and order, chunk-major in chunks of 32 depth steps (two k-steps)
+// of one weight or of each of two, rows of 16 words XOR-swizzled
+// (bf16_swz) so that the B fragments' 32-bit loads hit 32 banks; they
+// stream through the same two-slot ring. The slot operands are rounded
+// where a fragment is loaded (rounding is idempotent). Every elementwise
+// operation and every sum stays fp32, on the same fp32 slot buffers, and
+// bf16 edges are read into fp32 first, so the kernels and the plain
+// versions (ops/fused_klist.py, dot_dtype='bfloat16') differ only in
+// summation order. A bf16 library has no K7/K8 (their bf16 mode is not
+// ported: ROADMAP.md B); its nn_klist_dual_* return cudaErrorInvalidValue.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "bf16_mma.cuh"
+
 namespace {
+
+// The library's mode: K5/K6 with the Pallas kernels' bf16 products
+// (ops/_build.py builds it with -DNN_BF16 for pallas_dot_dtype bfloat16)
+// or fp32.
+#ifdef NN_BF16
+constexpr bool kBF = true;
+#else
+constexpr bool kBF = false;
+#endif
+// Elements of K5/K6's prepared weights' type per uint2 of the scratch:
+// four bf16, or one (hi, lo) tf32 pair.
+constexpr int kEPP = kBF ? 4 : 1;
+// bf16 weight chunks: depth steps (two m16n8k16 k-steps) and 32-bit words
+// per row
+constexpr int KB = 32;
+constexpr int KBW = KB / 2;
+
+// The XOR swizzle of a bf16 chunk row of 16 words: word w of row r at w ^
+// bf16_swz(r), so that the B fragments' 32-bit loads (rows g = 0..7 at a
+// stride of 16 words) hit 32 banks.
+__host__ __device__ constexpr int bf16_swz(int r) {
+  return ((r >> 1) & 3) << 2;
+}
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -493,7 +537,8 @@ __device__ __forceinline__ void mma_rows(const float* __restrict__ A,
 // element has one owning thread and each block its own partial. Starts
 // with a __syncthreads. Not inlined, as mma_product. K8 takes 32 slots (16
 // wide) and two sources, K6 64 slots (32 wide) and one.
-template <int F, int M = K8Shape<F>::M, bool SILU = false, bool TWO = true>
+template <int F, int M = K8Shape<F>::M, bool SILU = false, bool TWO = true,
+          bool BF = false>
 __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
                          const float* __restrict__ B1,
                          const float* __restrict__ A2,
@@ -533,6 +578,29 @@ __device__ __noinline__ void wgrad_tc(const float* __restrict__ A1,
         const float* A = src == 0 ? A1 : A2;
         const float* B = src == 0 ? B1 : B2;
         const bool silu = SILU && src == 0;
+        if constexpr (BF) {  // both operands rounded to bf16 (K6's dotT)
+#pragma unroll
+          for (int kk = half * KH; kk < half * KH + KH; kk += 16) {
+            const int p = kk + 2 * t;  // slots p, p + 1 and p + 8, p + 9
+            auto av = [&](int pp, int q) {
+              const float v = q < qrows ? A[pp * lda + q] : 0.0f;
+              return silu ? silu_fast(v) : v;
+            };
+            const unsigned a[4] = {pack_bf16(av(p, qa), av(p + 1, qa)),
+                                   pack_bf16(av(p, qb), av(p + 1, qb)),
+                                   pack_bf16(av(p + 8, qa), av(p + 9, qa)),
+                                   pack_bf16(av(p + 8, qb), av(p + 9, qb))};
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const int n = nb + j * 8 + g;
+              const unsigned b[2] = {
+                  pack_bf16(B[p * LD + n], B[(p + 1) * LD + n]),
+                  pack_bf16(B[(p + 8) * LD + n], B[(p + 9) * LD + n])};
+              mma_bf16(d[j], a, b);
+            }
+          }
+          continue;
+        }
 #pragma unroll
         for (int kk = half * KH; kk < half * KH + KH; kk += 8) {
           const int p = kk + t;
@@ -1515,6 +1583,44 @@ __global__ void klist_prep_kernel(const float* __restrict__ We,
                                   int R, int first, int fwd) {
   const float* Ws[4] = {W1a, W1b, W2a, W2b};
   const int np = prep_n_products(fwd != 0, R, first != 0);
+  if constexpr (kBF) {
+    // words of two bf16 (depth dq, dq + 1), product after product (base
+    // offsets in words: half of its pairs), in chunks of KB depth steps of
+    // one weight (rows n) or of each of two (rows x*nb + n), KBW words a
+    // row, word w of row r at r*KBW + (w ^ bf16_swz(r))
+    unsigned* outw = reinterpret_cast<unsigned*>(out);
+    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;;
+         e += (size_t)gridDim.x * blockDim.x) {
+      size_t base = 0;  // the product of e, in words
+      int p = 0;
+      K6P q = prep_product(fwd != 0, 0, F, R, first != 0);
+      while (e >= base + k6_product_pairs(q) / 2) {
+        base += k6_product_pairs(q) / 2;
+        if (++p == np) return;
+        q = prep_product(fwd != 0, p, F, R, first != 0);
+      }
+      const int nx = q.w2 >= 0 ? 2 : 1;
+      const size_t local = e - base, chunk = (size_t)nx * q.nb * KBW;
+      const int ch = (int)(local / chunk), rem = (int)(local % chunk);
+      const int r = rem / KBW, w = (rem % KBW) ^ bf16_swz(r);
+      const int x = r / q.nb, n = r - x * q.nb;
+      const float* W = Ws[x ? q.w2 : q.w1];
+      unsigned word = 0;
+      for (int h = 0; h < 2; ++h) {  // B(dq, n) as the tf32 layout's below
+        const int dq = ch * KB + 2 * w + h;
+        const bool in = q.src == 0   ? dq < R && n < Fg
+                        : q.src == 3 ? q.row0 + n < R && dq < Fg
+                                     : dq < Fg && n < Fg;
+        const size_t at = q.src == 0   ? (size_t)dq * Fg + n
+                          : q.src == 3 ? (size_t)(q.row0 + n) * Fg + dq
+                          : q.src == 1 ? (size_t)dq * Fg + n
+                                       : (size_t)n * Fg + dq;
+        const float v = in ? (q.src == 0 || q.src == 3 ? We : W)[at] : 0.0f;
+        word |= (unsigned)bf16_bits(v) << (16 * h);
+      }
+      outw[e] = word;
+    }
+  }
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;;
        e += (size_t)gridDim.x * blockDim.x) {
     size_t base = 0;  // the product of e
@@ -1546,24 +1652,36 @@ __global__ void klist_prep_kernel(const float* __restrict__ We,
   }
 }
 
-// A product's prepared weight: chunks of 32 nb pairs from b, qp depth
-// steps in all.
+// A product's prepared weight: chunks of RW depth pairs by nb rows (bf16:
+// of KB depth steps by nx nb rows) from b, qp depth steps in all.
 struct K6W {
   const uint2* b;
   int qp, nb;
+  int nx;  // weights per chunk (bf16 mode's chunk size)
 };
 
-// Chunk ch of w, of RW depth pairs of one weight, into a ring slot: one
-// contiguous copy (the preparation laid it out as the slot holds it), by
-// 16-byte cp.async copies.
+// Chunk ch of w, of RW depth pairs of one weight (bf16: KB depth steps of
+// nx weights), into a ring slot: one contiguous copy (the preparation laid
+// it out as the slot holds it), by 16-byte cp.async copies.
 template <int RW>
 __device__ __forceinline__ void k6_stage(const K6W& w, int ch, uint2* slot) {
+  if constexpr (kBF) {
+    const int words = w.nx * w.nb * KBW;  // of a chunk
+    const unsigned* src =
+        reinterpret_cast<const unsigned*>(w.b) + (size_t)ch * words;
+    unsigned* dst = reinterpret_cast<unsigned*>(slot);
+    for (int v = threadIdx.x; v < words / 4; v += kThreads)
+      cp_async16(dst + 4 * v, src + 4 * v);
+    return;
+  }
   const uint2* src = w.b + (size_t)ch * RW * w.nb;
   for (int v = threadIdx.x; v < RW / 2 * w.nb; v += kThreads)
     cp_async16(slot + 2 * v, src + 2 * v);
 }
 
-// For the step's 64 slot rows m and n < NB, q < cur.qp, in 3xTF32: MODE 0
+// For the step's 64 slot rows m and n < NB, q < cur.qp, in 3xTF32 (bf16
+// mode: one m16n8k16 bf16 mma per tile and k-step, A rounded to bf16
+// where its fragments are loaded): MODE 0
 // D1 = A1 B1; MODE 1 (pair) D1 = A1 B1 and D2 = A1 B2; MODE 2 (sum) D1 =
 // A1 B1 + A2 B2, where A is fp32 at row stride lda (zeros past the true
 // depth) and B the prepared weight of cur (k6_product's layout). Chunk 0
@@ -1590,7 +1708,7 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (warp & 1) * (S::M / 2), n0 = (warp >> 1) * (NB / 4);
   const int o0 = t ^ ring_swz(g, RW);  // the swizzled pair of depth t
-  const int nch = cur.qp / RW;
+  const int nch = cur.qp / (kBF ? KB : RW);
   float tot[ND][RG][NT][4];
 #pragma unroll
   for (int o = 0; o < ND; ++o)
@@ -1619,6 +1737,43 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
         for (int j = 0; j < NT; ++j)
           d[o][rg][j][0] = d[o][rg][j][1] = d[o][rg][j][2] =
               d[o][rg][j][3] = 0.0f;
+    if constexpr (kBF) {
+      const unsigned* wb = reinterpret_cast<const unsigned*>(wc);
+      const int sw = bf16_swz(g);  // rows x*NB + n0 + j*8 + g: r & 7 == g
+#pragma unroll
+      for (int s = 0; s < KB / 16; ++s) {
+        const int k = ch * KB + s * 16 + 2 * t;  // depth of the A words
+        unsigned a[RG][4];
+#pragma unroll
+        for (int x = 0; x < NX; ++x) {
+          if (x == 0 || MODE == 2) {
+            const float* A = x == 0 ? A1 : A2;
+#pragma unroll
+            for (int rg = 0; rg < RG; ++rg) {
+              const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
+              const float* r8 = r0 + (size_t)8 * lda;
+              a[rg][0] = pack_bf16_at(r0 + k);
+              a[rg][1] = pack_bf16_at(r8 + k);
+              a[rg][2] = pack_bf16_at(r0 + k + 8);
+              a[rg][3] = pack_bf16_at(r8 + k + 8);
+            }
+          }
+          unsigned b[NT][2];
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const unsigned* w = wb + (x * NB + n0 + j * 8 + g) * KBW;
+            b[j][0] = w[(s * 8 + t) ^ sw];
+            b[j][1] = w[(s * 8 + t + 4) ^ sw];
+          }
+          const int o = MODE == 1 ? x : 0;
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int rg = 0; rg < RG; ++rg)
+              mma_bf16(d[o][rg][j], a[rg], b[j]);
+        }
+      }
+    } else {
 #pragma unroll
     for (int s = 0; s < RW / 8; ++s) {
       const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
@@ -1663,6 +1818,7 @@ __device__ __noinline__ int k6_prod(const float* A1, const float* A2,
           for (int rg = 0; rg < RG; ++rg)
             mma_tf32(d[o][rg][j], ah[rg], bh[j]);
       }
+    }
     }
 #pragma unroll
     for (int o = 0; o < ND; ++o)
@@ -1758,10 +1914,11 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   // the products of a step, in the order of the prepared weights
+  // (offsets in uint2: kEPP elements of the prepared type)
   const uint2* wb = wprep;
   auto next_w = [&](int qp, int two) {
-    const K6W w = {wb, qp, F};
-    wb += (size_t)F * qp * (two ? 2 : 1);
+    const K6W w = {wb, qp, F, two ? 2 : 1};
+    wb += (size_t)F * qp * (two ? 2 : 1) / kEPP;
     return w;
   };
   const K6W w_me = next_w(Rp, 0);
@@ -1770,8 +1927,8 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
   const K6W w_phi2 = FIRST ? w_dh1 : next_w(F, 0);
   const K6W w_dh2 = FIRST ? w_dh1 : next_w(F, 0);
   const K6W w_dmsg = next_w(F, !FIRST);
-  const uint2* w_rbf = wb;  // 32 x F pairs for each 32 columns r
-  const K6W none = {nullptr, 0, 0};
+  const uint2* w_rbf = wb;  // 32 x F elements for each 32 columns r
+  const K6W none = {nullptr, 0, 0, 0};
   // the block's weight partial: dWe, then dW1a, dW1b, dW2a, dW2b
   float* wp = WGRAD ? wpart + (size_t)blockIdx.x * wgrad_size(F, R) : nullptr;
   float* wp1a = WGRAD ? wp + (size_t)R * F : nullptr;
@@ -1892,8 +2049,8 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
         }
       }
       if (WGRAD)  // dW1b = h1^T dphi1, h1 = silu(p1)
-        wgrad_tc<F, M, true, false>(y_s, x_s, nullptr, nullptr, LD, F,
-                                    wp1a + ff, init);
+        wgrad_tc<F, M, true, false, kBF>(y_s, x_s, nullptr, nullptr, LD, F,
+                                         wp1a + ff, init);
       // dh1 = dphi1 @ W1b^T; dp1 = dh1 silu'(p1)
       slot = k6_prod<F, F, 0>(x_s, nullptr, LD, w_dh1,
                               FIRST ? w_dmsg : w_phi2, slot, ring, x_s,
@@ -1946,8 +2103,8 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
           }
         }
         if (WGRAD)  // dW2b = h2^T dphi2
-          wgrad_tc<F, M, true, false>(z_s, y_s, nullptr, nullptr, LD, F,
-                                      wp1a + 3 * ff, init);
+          wgrad_tc<F, M, true, false, kBF>(z_s, y_s, nullptr, nullptr, LD,
+                                           F, wp1a + 3 * ff, init);
         slot = k6_prod<F, F, 0>(y_s, nullptr, LD, w_dh2, w_dmsg, slot, ring,
                                 y_s, nullptr, LD);
 #pragma unroll
@@ -1960,14 +2117,14 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
       }
       if (WGRAD) {  // dW1a = msg^T dp1, dW2a = msg^T dp2; msg again, in z_s
         msg_into(z_s);
-        wgrad_tc<F, M, false, false>(z_s, x_s, nullptr, nullptr, LD, F, wp1a,
-                                     init);
+        wgrad_tc<F, M, false, false, kBF>(z_s, x_s, nullptr, nullptr, LD, F,
+                                          wp1a, init);
         if (!FIRST)
-          wgrad_tc<F, M, false, false>(z_s, y_s, nullptr, nullptr, LD, F,
-                                       wp1a + 2 * ff, init);
+          wgrad_tc<F, M, false, false, kBF>(z_s, y_s, nullptr, nullptr, LD,
+                                            F, wp1a + 2 * ff, init);
       }
       // dmsg = dp1 @ W1a^T + dp2 @ W2a^T
-      const K6W w_rbf0 = {w_rbf, F, 32};
+      const K6W w_rbf0 = {w_rbf, F, 32, 1};
       if (FIRST)
         slot = k6_prod<F, F, 0>(x_s, nullptr, LD, w_dmsg, w_rbf0, slot, ring,
                                 x_s, nullptr, LD);
@@ -1997,13 +2154,13 @@ klist_bwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
         }
       }
       if (WGRAD)  // dWe = rbf^T dme
-        wgrad_tc<F, M, false, false>(rbf_s, y_s, nullptr, nullptr, lr, R, wp,
-                                     init);
+        wgrad_tc<F, M, false, false, kBF>(rbf_s, y_s, nullptr, nullptr, lr,
+                                          R, wp, init);
       // drbf = dme @ We^T, 32 columns r at a time, into rbf_s; then the
       // next step's me
       for (int cb = 0; cb < Rp; cb += 32) {
-        const K6W w_cb = {w_rbf + (size_t)cb * F, F, 32};
-        const K6W w_next = {w_rbf + (size_t)(cb + 32) * F, F, 32};
+        const K6W w_cb = {w_rbf + (size_t)cb * F / kEPP, F, 32, 1};
+        const K6W w_next = {w_rbf + (size_t)(cb + 32) * F / kEPP, F, 32, 1};
         slot = k6_prod<F, 32, 0>(y_s, nullptr, LD, w_cb,
                                  cb + 32 < Rp ? w_next : more ? w_me : none,
                                  slot, ring, rbf_s + cb, nullptr, lr);
@@ -2087,7 +2244,9 @@ constexpr size_t k5_smem_floats(int R) {
          (size_t)TA5 * F + (size_t)4 * kM5<F>;
 }
 
-// For the step's M5 slot rows m and n < NB, q < cur.qp, in 3xTF32: MODE 0
+// For the step's M5 slot rows m and n < NB, q < cur.qp, in 3xTF32 (bf16
+// mode: one m16n8k16 bf16 mma per tile and k-step, A rounded to bf16
+// where its fragments are loaded): MODE 0
 // D1 = A B1; MODE 1 (pair) D1 = A B1 and D2 = A B2, where A is fp32 at row
 // stride lda (zeros past the true depth) and B the prepared weight of cur
 // (k6_product's layout); D1 and D2 at row stride lda. The weight stream is
@@ -2112,7 +2271,7 @@ __device__ __noinline__ int k5_prod(const float* A, int lda, K6W cur,
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (warp & 1) * (M5 / 2), n0 = (warp >> 1) * (NB / 4);
   const int o0 = t ^ ring_swz(g, RW);  // the swizzled pair of depth t
-  const int n_chunks = cur.qp / RW;
+  const int n_chunks = cur.qp / (kBF ? KB : RW);
   float acc[NX][RG][NT][4];
 #pragma unroll
   for (int x = 0; x < NX; ++x)
@@ -2132,6 +2291,39 @@ __device__ __noinline__ int k5_prod(const float* A, int lda, K6W cur,
       k6_stage<K6Shape<F>::RW>(next, 0, other);
     cp_async_commit();
     const uint2* wc = ring + slot * RING;
+    if constexpr (kBF) {
+      const unsigned* wb = reinterpret_cast<const unsigned*>(wc);
+      const int sw = bf16_swz(g);  // rows x*NB + n0 + j*8 + g: r & 7 == g
+#pragma unroll
+      for (int s = 0; s < KB / 16; ++s) {
+        const int k = ch * KB + s * 16 + 2 * t;  // depth of the A words
+        unsigned a[RG][4];
+#pragma unroll
+        for (int rg = 0; rg < RG; ++rg) {
+          const float* r0 = A + (size_t)(m0 + rg * 16 + g) * lda;
+          const float* r8 = r0 + (size_t)8 * lda;
+          a[rg][0] = pack_bf16_at(r0 + k);
+          a[rg][1] = pack_bf16_at(r8 + k);
+          a[rg][2] = pack_bf16_at(r0 + k + 8);
+          a[rg][3] = pack_bf16_at(r8 + k + 8);
+        }
+#pragma unroll
+        for (int x = 0; x < NX; ++x) {
+          unsigned b[NT][2];
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            const unsigned* w = wb + (x * NB + n0 + j * 8 + g) * KBW;
+            b[j][0] = w[(s * 8 + t) ^ sw];
+            b[j][1] = w[(s * 8 + t + 4) ^ sw];
+          }
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int rg = 0; rg < RG; ++rg)
+              mma_bf16(acc[x][rg][j], a[rg], b[j]);
+        }
+      }
+    } else {
 #pragma unroll
     for (int s = 0; s < RW / 8; ++s) {
       const int k = ch * RW + s * 8 + t;  // depth of the A words k, k + 4
@@ -2172,6 +2364,7 @@ __device__ __noinline__ int k5_prod(const float* A, int lda, K6W cur,
           for (int rg = 0; rg < RG; ++rg)
             mma_tf32(acc[x][rg][j], ah[rg], bh[j]);
       }
+    }
     }
     slot ^= 1;
   }
@@ -2278,17 +2471,18 @@ klist_fwd_kernel(const float* __restrict__ npi, const E* __restrict__ cat,
   const int warp = threadIdx.x >> 5;
   const int f0 = lane * C;  // the lane's first feature
   // the products of a step, in the order of the prepared weights
+  // (offsets in uint2: kEPP elements of the prepared type)
   const uint2* wb = wprep;
   auto next_w = [&](int qp, int two) {
-    const K6W w = {wb, qp, F};
-    wb += (size_t)F * qp * (two ? 2 : 1);
+    const K6W w = {wb, qp, F, two ? 2 : 1};
+    wb += (size_t)F * qp * (two ? 2 : 1) / kEPP;
     return w;
   };
   const K6W w_me = next_w(Rp, 0);
   const K6W w_p = next_w(F, !FIRST);
   const K6W w_phi1 = next_w(F, 0);
   const K6W w_phi2 = FIRST ? w_phi1 : next_w(F, 0);
-  const K6W none = {nullptr, 0, 0};
+  const K6W none = {nullptr, 0, 0, 0};
 
   int slot = 0;  // the ring slot of the next product's first chunk
   if ((int)blockIdx.x < n_tiles) k6_stage<K6Shape<F>::RW>(w_me, 0, ring);
@@ -2727,11 +2921,15 @@ int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
                       float* inv1, float* eq, float* inv1dot, float* eqdot,
                       float* scratch, int B, int N, int K, int F, int R,
                       int first_layer, int bf16, void* stream) {
+#ifdef NN_BF16
+  return (int)cudaErrorInvalidValue;  // no K7 in a bf16 library
+#else
   Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
              W1a, W1b, W2a, W2b},
             {inv1, eq, inv1dot, eqdot, scratch},
             B, N, K, R, false, static_cast<cudaStream_t>(stream)};
   return run<DualFwd>(F, first_layer, bf16, a);
+#endif
 }
 
 // K8. Inputs of K7 plus di, didot (B,N,F) and dq, dqdot (B,3,N,F) f32.
@@ -2751,12 +2949,16 @@ int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
                       void* dcat, void* dcatdot, float* wpart, float* dw,
                       int B, int N, int K, int F, int R, int first_layer,
                       int bf16, int max_blocks, void* stream) {
+#ifdef NN_BF16
+  return (int)cudaErrorInvalidValue;  // no K8 in a bf16 library
+#else
   Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
              W1a, W1b, W2a, W2b, di, dq, didot, dqdot},
             {dnpi, dnpidot, dcat, dcatdot, wpart, dw},
             B, N, K, R, false, static_cast<cudaStream_t>(stream),
             max_blocks};
   return run<DualBwd>(F, first_layer, bf16, a);
+#endif
 }
 
 // Dynamic shared memory of one block of K5 (kind 0), K6 (1), K7 (2) or K8

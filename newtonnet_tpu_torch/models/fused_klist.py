@@ -104,7 +104,9 @@ def apply_core_nlist(model, z, pos, cell, nlist=None, pair_op=None):
     '''Primal forward: {atom_node, force_node (B,N,3,F), atomic_energy}.
     pair_op defaults to the fused op (K5/K6 on the card);
     fused_klist_interaction with plain=True (ops/fused_klist.py) runs the
-    same layer and backward as plain PyTorch ops.'''
+    same layer and backward as plain PyTorch ops. Its products run in the
+    model's pallas_dot_dtype, as the JAX package's pallas_klist.py hands it
+    to K5/K6.'''
     op = pair_op or fused_klist_interaction
     core = model.core
     z = z.long()
@@ -126,7 +128,8 @@ def apply_core_nlist(model, z, pos, cell, nlist=None, pair_op=None):
         cat_j = gather_nodes(_cat(np_, force_t, i == 0).to(edt), idx, kmask,
                              tr)
         inv1, eq = op(np_, cat_j, rbf, dir_t, mask, *_layer_weights(lp),
-                      first_layer=(i == 0))
+                      first_layer=(i == 0),
+                      dot_dtype=model.pallas_dot_dtype)
         atom_node = atom_node + inv1
         force_t = force_t + eq
         u = lp.equiv_update(force_t)

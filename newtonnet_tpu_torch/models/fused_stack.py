@@ -37,17 +37,22 @@ def geometry(z, pos, cell, cutoff, n_basis, mic_mode='exact'):
             rbf.contiguous())
 
 
-def apply_core(core, z, pos, cell, cutoff, mic_mode='exact', pair_op=None):
+def apply_core(core, z, pos, cell, cutoff, mic_mode='exact', pair_op=None,
+               dot_dtype='float32'):
     '''Primal forward: {atom_node, force_node (B,N,3,F), atomic_energy}.'''
     adj, dir_t, rbf = geometry(z, pos, cell, cutoff, core.n_basis, mic_mode)
-    return core_from_geom(core, z, adj, dir_t, rbf, pair_op=pair_op)
+    return core_from_geom(core, z, adj, dir_t, rbf, pair_op=pair_op,
+                          dot_dtype=dot_dtype)
 
 
-def core_from_geom(core, z, adj, dir_t, rbf, pair_op=None):
+def core_from_geom(core, z, adj, dir_t, rbf, pair_op=None,
+                   dot_dtype='float32'):
     '''apply_core given the geometry. pair_op defaults to the fused op;
     pair_interaction_fwd_ref (ops/fused_dense.py) runs the same layer as
-    plain PyTorch ops. The node MLPs and the energy head are the
-    parameter modules' own forward (silu between TorchLinears).'''
+    plain PyTorch ops. dot_dtype is the precision of the pair op's
+    products (the model's pallas_dot_dtype, which the JAX package's
+    pallas_stack.py hands to K1/K2). The node MLPs and the energy head are
+    the parameter modules' own forward (silu between TorchLinears).'''
     op = pair_op or fused_pair_interaction
     z = z.long()
     B, N = z.shape
@@ -64,7 +69,7 @@ def core_from_geom(core, z, adj, dir_t, rbf, pair_op=None):
                       lp.equiv_message1.TorchLinear_1.kernel,
                       lp.equiv_message2.TorchLinear_0.kernel,
                       lp.equiv_message2.TorchLinear_1.kernel,
-                      first_layer=(i == 0))
+                      first_layer=(i == 0), dot_dtype=dot_dtype)
         atom_node = atom_node + inv1
         force_t = force_t + eq
         u = lp.equiv_update(force_t)

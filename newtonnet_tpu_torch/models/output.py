@@ -27,9 +27,14 @@ create_graph=True (kernel='xla') the outputs stay differentiable in the
 parameters, for the standard training step (train/trainer.py), which
 trains energy, force, stress and virial losses.
 
-Not here: the charge, direct-force, Hessian and BEC heads and the bf16
-pair-layer products of kernel='pallas' raise NotImplementedError naming
-the ROADMAP.md item that will port them.
+kernel='pallas' takes pallas_dot_dtype 'float32' or 'bfloat16': the
+products of K1/K2 (dense) and K5/K6 (neighbour lists) round their
+operands to bf16 where the JAX package's Pallas kernels do
+(ops/fused_dense.py, ops/fused_klist.py); training such a model is not
+ported (train/trainer.py refuses it).
+
+Not here: the charge, direct-force, Hessian and BEC heads raise
+NotImplementedError naming the ROADMAP.md item that will port them.
 '''
 import contextlib
 from typing import Sequence
@@ -43,6 +48,7 @@ from newtonnet_tpu_torch.models.fused_klist import COMPUTE_DTYPES, \
 from newtonnet_tpu_torch.models.fused_stack import apply_core
 from newtonnet_tpu_torch.models.newtonnet import NewtonNetCore
 from newtonnet_tpu_torch.models.xla_stack import apply_core_xla
+from newtonnet_tpu_torch.ops.fused_dense import DOT_DTYPES
 from newtonnet_tpu_torch.ops.linalg3 import det3x3
 
 DIRECT_PROPERTIES = ('energy', 'charge', 'direct_force')
@@ -172,11 +178,9 @@ class NewtonNet(nn.Module):
             raise ValueError(f'compute_dtype must be one of '
                              f'{sorted(COMPUTE_DTYPES)}, got '
                              f'{compute_dtype!r}')
-        if kernel == 'pallas' and pallas_dot_dtype != 'float32':
-            raise NotImplementedError(
-                f'pallas_dot_dtype={pallas_dot_dtype!r} is not ported yet '
-                '(ROADMAP.md A, "bf16 pair-layer products"): the ported '
-                'kernels compute in float32 only')
+        if pallas_dot_dtype not in DOT_DTYPES:
+            raise ValueError(f'pallas_dot_dtype must be one of {DOT_DTYPES}, '
+                             f'got {pallas_dot_dtype!r}')
 
         self.output_properties = list(output_properties)
         self.cutoff = cutoff
@@ -260,7 +264,8 @@ class NewtonNet(nn.Module):
                                    pair_op=pair_op)
         else:
             out = apply_core(self.core, z, pos_d, cell_d, self.cutoff,
-                             mic_mode=self.mic_mode, pair_op=pair_op)
+                             mic_mode=self.mic_mode, pair_op=pair_op,
+                             dot_dtype=self.pallas_dot_dtype)
         energy = torch.sum(out['atomic_energy'][..., 0], dim=-1)
         out['energy'] = energy
         return torch.sum(energy), out

@@ -10,8 +10,13 @@ per (padded width, padded): `lib<name>-w<Fp>[p]-<hash>.so`, compiled with
 `-DNN_WIDTH=<Fp>` and, where F is below Fp, `-DNN_PADDED` (the kernels
 then mask the pad lanes, which a library of F = Fp folds away;
 `width_flags`), at the first call of such a width (`load(name, F)`), so a
-model builds only its own width. `build_all` starts one `nvcc` per
-library at once and waits for all of them. The host-side C++ in
+model builds only its own width. The sources of K1/K2 and K5/K6
+(BF16_SOURCES) also build a bf16 library per width, compiled with
+`-DNN_BF16` (`lib<name>-w<Fp>[p]-bf16-<hash>.so`), where K1, K2, K5 and K6
+run the `pallas_dot_dtype: bfloat16` mode (`load(name, F, 'bfloat16')`);
+an fp32 model builds none of them. The hash covers the shared headers of
+csrc/ (`*.cuh`) too. `build_all` starts one `nvcc` per library at once
+and waits for all of them. The host-side C++ in
 `csrc/host/<name>.cpp` (plain C interface too) is built the same way by
 `g++` (`load_host`): it needs no CUDA toolkit, so it also builds where
 there is no card. Nothing here runs at import.
@@ -31,6 +36,9 @@ SOURCES = ('fused_dense', 'fused_dual', 'fused_klist', 'row_gather',
            'window')
 # the sources of K1-K8, built one library per padded feature width
 WIDE_SOURCES = ('fused_dense', 'fused_dual', 'fused_klist')
+# the sources with a bf16 library (K1/K2, K5/K6): -DNN_BF16
+BF16_SOURCES = ('fused_dense', 'fused_klist')
+DOT_DTYPES = ('float32', 'bfloat16')
 MAX_WIDTH = 256  # the widest F the kernels take
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
@@ -69,9 +77,15 @@ def width_flags(F):
     return (f'-DNN_WIDTH={Fp}',) + (('-DNN_PADDED',) if F != Fp else ())
 
 
-def _check(name, F):
+def _check(name, F, dot_dtype='float32'):
     """Refuses a width for a source of K1-K8 that lacks one, or has one it
-    does not take, and a width for any other source."""
+    does not take, a width for any other source, and a bf16 library of a
+    source that has none."""
+    if dot_dtype not in DOT_DTYPES:
+        raise ValueError(f'dot_dtype must be one of {DOT_DTYPES}, got '
+                         f'{dot_dtype!r}')
+    if dot_dtype == 'bfloat16' and name not in BF16_SOURCES:
+        raise ValueError(f'{name} has no bf16 library')
     if name in WIDE_SOURCES:
         if F is None:
             raise ValueError(f'{name} is built per feature width: give F')
@@ -80,18 +94,27 @@ def _check(name, F):
         raise ValueError(f'{name} is not built per feature width')
 
 
-def _key(name, F=None):
+def _key(name, F=None, dot_dtype='float32'):
     """The library of source `name` that runs width F (None for a source
-    not built per width)."""
+    not built per width) in dot_dtype's mode."""
     if F is None:
         return name
     Fp = padded_width(F)
-    return f'{name}-w{Fp}' + ('p' if F != Fp else '')
+    return (f'{name}-w{Fp}' + ('p' if F != Fp else '')
+            + ('-bf16' if dot_dtype == 'bfloat16' else ''))
 
 
-def flags(name, F=None):
-    """nvcc's flags for the library of source `name` that runs width F."""
-    return NVCC_FLAGS + (() if F is None else width_flags(F))
+def flags(name, F=None, dot_dtype='float32'):
+    """nvcc's flags for the library of source `name` that runs width F in
+    dot_dtype's mode."""
+    return (NVCC_FLAGS + (() if F is None else width_flags(F))
+            + (('-DNN_BF16',) if dot_dtype == 'bfloat16' else ()))
+
+
+def _headers():
+    """The shared headers the CUDA sources include (csrc/*.cuh)."""
+    return sorted(os.path.join(SRC_DIR, h) for h in os.listdir(SRC_DIR)
+                  if h.endswith('.cuh'))
 
 
 def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib', headers=(),
@@ -105,29 +128,35 @@ def _target(name, src=None, flags=NVCC_FLAGS, prefix='lib', headers=(),
         BUILD_DIR, f'{prefix}{stem or name}-{digest.hexdigest()[:16]}.so')
 
 
-def _lib_target(name, F):
-    return _target(name, flags=flags(name, F), stem=_key(name, F))
+def _lib_target(name, F, dot_dtype='float32'):
+    return _target(name, flags=flags(name, F, dot_dtype),
+                   headers=_headers(), stem=_key(name, F, dot_dtype))
 
 
-def build_all(names=SOURCES, widths=()):
+def build_all(names=SOURCES, widths=(), bf16_widths=()):
     '''Compile every library whose file is missing, all in parallel: each
-    source in `names` outside WIDE_SOURCES and, for each width F in
-    `widths`, the library that runs F of each of them in WIDE_SOURCES.
+    source in `names` outside WIDE_SOURCES, for each width F in `widths`
+    the library that runs F of each of them in WIDE_SOURCES and, for each
+    width in `bf16_widths`, the bf16 library of each of them in
+    BF16_SOURCES.
 
     Returns {library: (seconds, ptxas report)} for the libraries it
     compiled. Raises RuntimeError with the compiler's output if one fails.'''
     os.makedirs(BUILD_DIR, exist_ok=True)
-    libs = [(name, None) for name in names if name not in WIDE_SOURCES]
-    libs += [(name, F) for F in widths for name in names
+    libs = [(name, None, 'float32') for name in names
+            if name not in WIDE_SOURCES]
+    libs += [(name, F, 'float32') for F in widths for name in names
              if name in WIDE_SOURCES]
+    libs += [(name, F, 'bfloat16') for F in bf16_widths for name in names
+             if name in BF16_SOURCES]
     jobs = {}
-    for name, F in libs:
-        key = _key(name, F)
-        so = _lib_target(name, F)
+    for name, F, dot_dtype in libs:
+        key = _key(name, F, dot_dtype)
+        so = _lib_target(name, F, dot_dtype)
         if os.path.exists(so) or key in jobs:
             continue
         tmp = f'{so}.{os.getpid()}.tmp'
-        cmd = [_nvcc(), *flags(name, F), '-o', tmp,
+        cmd = [_nvcc(), *flags(name, F, dot_dtype), '-o', tmp,
                os.path.join(SRC_DIR, name + '.cu')]
         jobs[key] = (so, tmp, time.perf_counter(),
                       subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -147,16 +176,19 @@ def build_all(names=SOURCES, widths=()):
     return report
 
 
-def load(name, F=None):
+def load(name, F=None, dot_dtype='float32'):
     '''The ctypes handle of csrc/<name>.cu, built first if needed; for a
-    source of WIDE_SOURCES, of the library that runs feature width F.
+    source of WIDE_SOURCES, of the library that runs feature width F, and
+    for one of BF16_SOURCES with dot_dtype 'bfloat16' its bf16 library.
     Raises ValueError, before anything is built, for a width the kernels
     do not take.'''
-    _check(name, F)
-    key = _key(name, F)
+    _check(name, F, dot_dtype)
+    key = _key(name, F, dot_dtype)
     if key not in _LIBS:
-        build_all((name,), () if F is None else (F,))
-        _LIBS[key] = ctypes.CDLL(_lib_target(name, F))
+        bf16 = dot_dtype == 'bfloat16'
+        widths = () if F is None else (F,)
+        build_all((name,), () if bf16 else widths, widths if bf16 else ())
+        _LIBS[key] = ctypes.CDLL(_lib_target(name, F, dot_dtype))
     return _LIBS[key]
 
 

@@ -13,10 +13,22 @@ atoms, F features and R radial basis functions:
 
 `first_layer=True` drops phi2: the stack's first layer sees force == 0.
 
+`dot_dtype='bfloat16'` (the JAX package's `pallas_dot_dtype`) rounds to
+bf16 both operands of the products the Pallas kernels cast
+(`ops/pallas_dense.py`: `_chain`'s `dot` and K2's weight cotangents
+`dotT`), accumulating in fp32; K2's cotangent products (dh, dmsg, drbf)
+stay fp32, as the Pallas kernel leaves them, and all elementwise
+arithmetic stays fp32. The plain versions compute such a product as an
+fp32 product of the rounded operands (`_dots`): a product of two bf16
+values is exact in fp32, so only the summation order is left to differ.
+
 On the card the forward runs `csrc/fused_dense.cu:nn_pair_fwd` (K1) and
-the backward `nn_pair_bwd` (K2), both on the tensor cores in 3xTF32 (each
-operand split in a TF32 high and low part, three products summed in fp32);
-on the CPU the wrappers run the plain versions below. A CUDA tensor either
+the backward `nn_pair_bwd` (K2), on the tensor cores: in fp32 mode in
+3xTF32 (each operand split in a TF32 high and low part, three products
+summed in fp32), in bf16 mode the rounded products as bf16 `mma.sync`
+with fp32 accumulation (K2's fp32 cotangent products still in 3xTF32),
+from a library built for that mode (`_build.load(..., dot_dtype)`); on
+the CPU the wrappers run the plain versions below. A CUDA tensor either
 launches the kernel or raises: nothing falls back. The kernels take any F
 from 1 to `_build.MAX_WIDTH`: they run at its padded width (the next
 multiple of 32, past 128 of 64; `_build.padded_width`) with zero pad
@@ -27,11 +39,17 @@ import ctypes
 
 import torch
 
-# Launches of each kernel variant, counted by its wrapper.
+from newtonnet_tpu_torch.ops._build import DOT_DTYPES
+
+# Launches of each kernel variant, counted by its wrapper (bf16 mode under
+# the names ending in '_bf16').
 LAUNCHES = {'pair_fwd': 0, 'pair_fwd_first': 0,
-            'pair_bwd': 0, 'pair_bwd_first': 0}
+            'pair_bwd': 0, 'pair_bwd_first': 0,
+            'pair_fwd_bf16': 0, 'pair_fwd_first_bf16': 0,
+            'pair_bwd_bf16': 0, 'pair_bwd_first_bf16': 0}
 # K2 launches among those that computed the weight cotangents
-WEIGHT_GRAD_LAUNCHES = {'pair_bwd': 0, 'pair_bwd_first': 0}
+WEIGHT_GRAD_LAUNCHES = {'pair_bwd': 0, 'pair_bwd_first': 0,
+                        'pair_bwd_bf16': 0, 'pair_bwd_first_bf16': 0}
 
 
 def reset_launch_counts():
@@ -40,7 +58,40 @@ def reset_launch_counts():
             counts[key] = 0
 
 
+def launch_key(name, first_layer, dot_dtype):
+    '''The LAUNCHES key of a kernel variant.'''
+    return (name + ('_first' if first_layer else '')
+            + ('_bf16' if dot_dtype == 'bfloat16' else ''))
+
+
 _silu = torch.nn.functional.silu
+
+
+def check_dot_dtype(dot_dtype):
+    if dot_dtype not in DOT_DTYPES:
+        raise ValueError(f'dot_dtype must be one of {DOT_DTYPES}, got '
+                         f'{dot_dtype!r}')
+    return dot_dtype
+
+
+def _dots(dot_dtype):
+    '''(dot, dotT): a @ b and a^T @ b over the flattened slots, with both
+    operands rounded to bf16 first in bf16 mode.'''
+    if check_dot_dtype(dot_dtype) == 'bfloat16':
+        def cast(a):
+            return a.bfloat16().to(a.dtype)
+    else:
+        def cast(a):
+            return a
+
+    def dot(a, b):
+        return cast(a) @ cast(b)
+
+    def dotT(a, b):
+        return cast(a).reshape(-1, a.shape[-1]).T @ \
+            cast(b).reshape(-1, b.shape[-1])
+
+    return dot, dotT
 
 
 def _dsilu(x):
@@ -49,15 +100,16 @@ def _dsilu(x):
 
 
 def pair_interaction_fwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
-                             W2b, first_layer=False):
+                             W2b, first_layer=False, dot_dtype='float32'):
     '''Plain PyTorch forward of the layer -> (inv1 (B,N,F), eq (B,3,N,F)).'''
+    dot, _ = _dots(dot_dtype)
     adj4 = adj[..., None]
-    msg = (rbf @ We) * np_[:, :, None, :] * np_[:, None, :, :] * adj4
+    msg = dot(rbf, We) * np_[:, :, None, :] * np_[:, None, :, :] * adj4
     inv1 = msg.sum(2)
-    phi1 = (_silu(msg @ W1a) @ W1b) * adj4
+    phi1 = dot(_silu(dot(msg, W1a)), W1b) * adj4
     eqs = [(phi1 * dir_[:, d, :, :, None]).sum(2) for d in range(3)]
     if not first_layer:
-        phi2 = (_silu(msg @ W2a) @ W2b) * adj4
+        phi2 = dot(_silu(dot(msg, W2a)), W2b) * adj4
         eqs = [e + (phi2 * force[:, d, None, :, :]).sum(2)
                for d, e in enumerate(eqs)]
     return inv1, torch.stack(eqs, dim=1)
@@ -65,21 +117,24 @@ def pair_interaction_fwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
 
 def pair_interaction_bwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
                              W2b, dinv1, deq, first_layer=False,
-                             weight_grads=True):
+                             weight_grads=True, dot_dtype='float32'):
     '''Plain PyTorch backward of the layer, written out by hand (not
     autograd of the forward): the cotangents of every input given those of
     (inv1, eq).
 
     Returns (dnp, drbf, ddir, dforce, dWe, dW1a, dW1b, dW2a, dW2b); the five
     weight cotangents are None unless weight_grads. At the first layer
-    dforce, dW2a and dW2b are zeros.'''
+    dforce, dW2a and dW2b are zeros. In bf16 mode the chain and the weight
+    cotangents take rounded operands, the cotangent products (dh, dmsg,
+    drbf) fp32 ones, as the Pallas kernel computes them.'''
+    dot, dotT = _dots(dot_dtype)
     adj4 = adj[..., None]
     ni, nj = np_[:, :, None, :], np_[:, None, :, :]
-    me = rbf @ We
+    me = dot(rbf, We)
     msg = me * ni * nj * adj4
-    p1 = msg @ W1a
+    p1 = dot(msg, W1a)
     h1 = _silu(p1)
-    phi1 = (h1 @ W1b) * adj4
+    phi1 = dot(h1, W1b) * adj4
     g = deq[:, :, :, None, :]                          # (B, 3, N, 1, F)
     dphi1 = sum(g[:, d] * dir_[:, d, :, :, None] for d in range(3)) * adj4
     ddir = (phi1[:, None] * g).sum(-1)                 # (B, 3, N, N)
@@ -89,9 +144,9 @@ def pair_interaction_bwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
     if first_layer:
         dforce = torch.zeros_like(force)
     else:
-        p2 = msg @ W2a
+        p2 = dot(msg, W2a)
         h2 = _silu(p2)
-        phi2 = (h2 @ W2b) * adj4
+        phi2 = dot(h2, W2b) * adj4
         dforce = (phi2[:, None] * g).sum(2)            # sum over i
         dphi2 = sum(g[:, d] * force[:, d, None, :, :]
                     for d in range(3)) * adj4
@@ -103,10 +158,6 @@ def pair_interaction_bwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
     drbf = dme @ We.T
     if not weight_grads:
         return dnp, drbf, ddir, dforce, None, None, None, None, None
-
-    def dotT(a, b):
-        return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
-
     dWe = dotT(rbf, dme)
     dW1a = dotT(msg, dp1)
     dW1b = dotT(h1, dphi1)
@@ -118,9 +169,9 @@ def pair_interaction_bwd_ref(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
 
 
 # ----------------------------------------------------------------------- #
-def _lib(F):
+def _lib(F, dot_dtype='float32'):
     from newtonnet_tpu_torch.ops import _build
-    lib = _build.load('fused_dense', F)
+    lib = _build.load('fused_dense', F, dot_dtype)
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_pair_fwd.argtypes = [p] * 13 + [i] * 6 + [p]
@@ -169,12 +220,14 @@ def _raise_on(err, what):
 
 
 def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
-                         first_layer=False):
+                         first_layer=False, dot_dtype='float32'):
     '''The layer's forward: kernel K1 for CUDA tensors, the plain version
     for CPU tensors. -> (inv1, eq).'''
     ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
     if np_.device.type == 'cpu':
-        return pair_interaction_fwd_ref(*ins, first_layer=first_layer)
+        return pair_interaction_fwd_ref(*ins, first_layer=first_layer,
+                                        dot_dtype=dot_dtype)
     if np_.device.type != 'cuda':
         raise ValueError(f'no kernel for device {np_.device}')
     B, N, F, R, shapes = _shapes(np_, rbf)
@@ -182,8 +235,8 @@ def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     opts = dict(device=np_.device, dtype=torch.float32)
     inv1 = torch.empty((B, N, F), **opts)
     eq = torch.empty((B, 3, N, F), **opts)
-    lib = _lib(F)
-    # the weights split into tf32 pairs and the row partials
+    lib = _lib(F, dot_dtype)
+    # the prepared weights (tf32 pairs, or bf16) and the row partials
     scratch = torch.empty((lib.nn_pair_scratch_floats(B, N, F, R, 2),),
                           **opts)
     # at most one block per SM, each walking tiles
@@ -193,20 +246,23 @@ def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
                           int(first_layer), sms,
                           torch.cuda.current_stream(np_.device).cuda_stream)
     _raise_on(err, 'nn_pair_fwd')
-    LAUNCHES['pair_fwd_first' if first_layer else 'pair_fwd'] += 1
+    LAUNCHES[launch_key('pair_fwd', first_layer, dot_dtype)] += 1
     return inv1, eq
 
 
 def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
-                         dinv1, deq, first_layer=False, weight_grads=True):
+                         dinv1, deq, first_layer=False, weight_grads=True,
+                         dot_dtype='float32'):
     '''The layer's backward: kernel K2 for CUDA tensors, the plain version
     for CPU tensors. -> (dnp, drbf, ddir, dforce, dWe, dW1a, dW1b, dW2a,
     dW2b), weight cotangents None unless weight_grads.'''
     ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
     if np_.device.type == 'cpu':
         return pair_interaction_bwd_ref(*ins, dinv1, deq,
                                         first_layer=first_layer,
-                                        weight_grads=weight_grads)
+                                        weight_grads=weight_grads,
+                                        dot_dtype=dot_dtype)
     if np_.device.type != 'cuda':
         raise ValueError(f'no kernel for device {np_.device}')
     B, N, F, R, shapes = _shapes(np_, rbf)
@@ -219,8 +275,8 @@ def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     dforce = torch.empty((B, 3, N, F), **opts)
     dw = (torch.empty((R * F + 4 * F * F,), **opts) if weight_grads
           else None)
-    lib = _lib(F)
-    # the weights split into tf32 pairs, the cross-block partials and, with
+    lib = _lib(F, dot_dtype)
+    # the prepared weights, the cross-block partials and, with
     # weight cotangents, one partial per block
     scratch = torch.empty(
         (lib.nn_pair_scratch_floats(B, N, F, R, int(weight_grads)),), **opts)
@@ -230,10 +286,11 @@ def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
         B, N, F, R, int(first_layer), int(weight_grads),
         torch.cuda.current_stream(np_.device).cuda_stream)
     _raise_on(err, 'nn_pair_bwd')
-    LAUNCHES['pair_bwd_first' if first_layer else 'pair_bwd'] += 1
+    key = launch_key('pair_bwd', first_layer, dot_dtype)
+    LAUNCHES[key] += 1
     if not weight_grads:
         return dnp, drbf, ddir, dforce, None, None, None, None, None
-    WEIGHT_GRAD_LAUNCHES['pair_bwd_first' if first_layer else 'pair_bwd'] += 1
+    WEIGHT_GRAD_LAUNCHES[key] += 1
     sizes = [R * F] + [F * F] * 4
     shapes_w = [(R, F)] + [(F, F)] * 4
     return (dnp, drbf, ddir, dforce,
@@ -245,35 +302,38 @@ class FusedPairInteraction(torch.autograd.Function):
     on the CPU). Differentiable to first order in np_, rbf, dir_, force and
     the five weights; adj is a mask and gets no gradient.
 
-    apply(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b, first_layer)
-    -> (inv1, eq)'''
+    apply(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b, first_layer,
+          dot_dtype) -> (inv1, eq)'''
 
     @staticmethod
     def forward(ctx, np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
-                first_layer=False):
+                first_layer=False, dot_dtype='float32'):
         ctx.first_layer = bool(first_layer)
+        ctx.dot_dtype = dot_dtype
         ctx.save_for_backward(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
                               W2b)
         return pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a,
                                      W1b, W2a, W2b,
-                                     first_layer=ctx.first_layer)
+                                     first_layer=ctx.first_layer,
+                                     dot_dtype=dot_dtype)
 
     @staticmethod
     def backward(ctx, dinv1, deq):
         need_w = ctx.needs_input_grad[5:10]
         grads = pair_interaction_bwd(
             *ctx.saved_tensors, dinv1.contiguous(), deq.contiguous(),
-            first_layer=ctx.first_layer, weight_grads=any(need_w))
+            first_layer=ctx.first_layer, weight_grads=any(need_w),
+            dot_dtype=ctx.dot_dtype)
         dnp, drbf, ddir, dforce = grads[:4]
         dws = [g if need else None for g, need in zip(grads[4:], need_w)]
-        return (dnp, drbf, ddir, None, dforce, *dws, None)
+        return (dnp, drbf, ddir, None, dforce, *dws, None, None)
 
 
 def fused_pair_interaction(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a,
-                           W2b, first_layer=False):
+                           W2b, first_layer=False, dot_dtype='float32'):
     '''The layer through FusedPairInteraction (the kernels on the card).
     pair_interaction_fwd_ref, autograd-differentiated, is the same layer as
     plain PyTorch ops on any device.'''
     return FusedPairInteraction.apply(np_, rbf, dir_, adj, force, We, W1a,
-                                      W1b, W2a, W2b, first_layer)
+                                      W1b, W2a, W2b, first_layer, dot_dtype)
 

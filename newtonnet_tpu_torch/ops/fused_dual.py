@@ -38,7 +38,9 @@ import ctypes
 import torch
 
 from newtonnet_tpu_torch.ops.fused_dense import (
+    DOT_DTYPES,
     _check_cuda,
+    _dots,
     _dsilu,
     _raise_on,
     _silu,
@@ -47,7 +49,6 @@ from newtonnet_tpu_torch.ops.fused_dense import (
 # Launches of each kernel variant, counted by its wrapper.
 LAUNCHES = {'dual_fwd': 0, 'dual_fwd_first': 0,
             'dual_bwd': 0, 'dual_bwd_first': 0}
-DOT_DTYPES = ('float32', 'bfloat16')
 
 
 def reset_launch_counts():
@@ -58,29 +59,6 @@ def reset_launch_counts():
 def _d2silu(x):
     s = torch.sigmoid(x)
     return s * (1.0 - s) * (2.0 + x * (1.0 - 2.0 * s))
-
-
-def _dots(dot_dtype):
-    '''(dot, dotT): a @ b and a^T @ b over the flattened pair slots, with
-    both operands rounded to bf16 first in bf16 mode.'''
-    if dot_dtype not in DOT_DTYPES:
-        raise ValueError(f'dot_dtype must be one of {DOT_DTYPES}, got '
-                         f'{dot_dtype!r}')
-    if dot_dtype == 'bfloat16':
-        def cast(a):
-            return a.bfloat16().to(a.dtype)
-    else:
-        def cast(a):
-            return a
-
-    def dot(a, b):
-        return cast(a) @ cast(b)
-
-    def dotT(a, b):
-        return cast(a).reshape(-1, a.shape[-1]).T @ \
-            cast(b).reshape(-1, b.shape[-1])
-
-    return dot, dotT
 
 
 def _chain(np_, npdot, rbf, rbfdot, adj4, weights, dot, first_layer):

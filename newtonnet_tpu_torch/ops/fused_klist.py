@@ -24,16 +24,24 @@ npidot, cat, catdot and the five weights, and none for the geometry.
 Edge tensors (cat, rbf and their tangents) may be bfloat16: the kernels
 and the plain versions read them into fp32 and round the per-edge
 cotangents (dcat, dcatdot, drbf) to the edge dtype on store, as the JAX
-kernels do. Every product and every sum runs in fp32: the JAX package's
-K-list kernels compute in model.pallas_dot_dtype, which the port takes as
-float32 only.
+kernels do. The JAX package's K-list kernels compute their products in
+model.pallas_dot_dtype. K5 and K6 take it as `dot_dtype`: with
+'bfloat16' both operands of every product are rounded to bf16 (`_mk_dot`
+/ `_mk_dotT` in ops/pallas_klist.py: the chain, K6's cotangent products
+dh, dmsg, drbf and its weight cotangents) and accumulated in fp32, the
+plain versions as fp32 products of the rounded operands (fused_dense
+`_dots`); all elementwise arithmetic and every sum stays fp32. K7 and K8
+compute in fp32 only (ROADMAP.md B, "bf16 pair-layer products": their
+bf16 mode is the next slice's).
 
 On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
 nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
 the CPU the wrappers run the plain versions below. All four multiply on
-the tensor cores in 3xTF32 (each operand split in a TF32 high and low
-part, three products summed in fp32), which keeps fp32-level accuracy. A
-CUDA tensor either launches the kernel or raises: nothing falls back. The
+the tensor cores, in fp32 mode in 3xTF32 (each operand split in a TF32
+high and low part, three products summed in fp32), which keeps
+fp32-level accuracy; K5 and K6 in bf16 mode as bf16 `mma.sync` with fp32
+accumulation, from a library built for that mode. A CUDA tensor either
+launches the kernel or raises: nothing falls back. The
 kernels take any F from 1 to `_build.MAX_WIDTH` at its padded width
 (`_build.padded_width`) with zero pad lanes of their own: every tensor is
 read and written at F, and no edge tensor is copied to another width.
@@ -43,19 +51,26 @@ import ctypes
 import torch
 
 from newtonnet_tpu_torch.ops.fused_dense import (
+    _dots,
     _dsilu,
     _raise_on,
     _silu,
+    check_dot_dtype,
+    launch_key,
 )
 from newtonnet_tpu_torch.ops.fused_dual import _d2silu
 
-# Launches of each kernel variant, counted by its wrapper.
+# Launches of each kernel variant, counted by its wrapper (K5/K6 in bf16
+# mode under the names ending in '_bf16').
 LAUNCHES = {'klist_fwd': 0, 'klist_fwd_first': 0,
             'klist_bwd': 0, 'klist_bwd_first': 0,
             'klist_dual_fwd': 0, 'klist_dual_fwd_first': 0,
-            'klist_dual_bwd': 0, 'klist_dual_bwd_first': 0}
+            'klist_dual_bwd': 0, 'klist_dual_bwd_first': 0,
+            'klist_fwd_bf16': 0, 'klist_fwd_first_bf16': 0,
+            'klist_bwd_bf16': 0, 'klist_bwd_first_bf16': 0}
 # K6 launches among those that computed the weight cotangents
-WEIGHT_GRAD_LAUNCHES = {'klist_bwd': 0, 'klist_bwd_first': 0}
+WEIGHT_GRAD_LAUNCHES = {'klist_bwd': 0, 'klist_bwd_first': 0,
+                        'klist_bwd_bf16': 0, 'klist_bwd_first_bf16': 0}
 EDGE_DTYPES = (torch.float32, torch.bfloat16)
 _TI = 8  # atoms per tile in K6-K8 (csrc/fused_klist.cu: TI)
 
@@ -66,29 +81,26 @@ def reset_launch_counts():
             counts[key] = 0
 
 
-def _key(name, first_layer):
-    return name + ('_first' if first_layer else '')
-
-
 def _tdot(a, b):
     '''a^T @ b over the flattened (B, N, K) slots.'''
     return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
 
 
-def _chain(npi, cat, rbf, mask, weights, first_layer):
-    '''The per-slot forward chain in fp32: npj, me, msg and, per branch,
-    (p, h, phi); branch 2 is None at the first layer.'''
+def _chain(npi, cat, rbf, mask, weights, first_layer, dot):
+    '''The per-slot forward chain, products by `dot`, the rest fp32: npj,
+    me, msg and, per branch, (p, h, phi); branch 2 is None at the first
+    layer.'''
     We, W1a, W1b, W2a, W2b = weights
     F = npi.shape[-1]
     m = mask[..., None]
     npj = cat[..., :F].to(npi.dtype)
-    me = rbf.to(npi.dtype) @ We
+    me = dot(rbf.to(npi.dtype), We)
     msg = me * npi[:, :, None] * npj * m
 
     def branch(wa, wb):
-        p = msg @ wa
+        p = dot(msg, wa)
         h = _silu(p)
-        return p, h, (h @ wb) * m
+        return p, h, dot(h, wb) * m
 
     return npj, me, msg, branch(W1a, W1b), \
         None if first_layer else branch(W2a, W2b)
@@ -101,10 +113,11 @@ def _forces(cat, npi):
 
 
 def klist_fwd_ref(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
-                  first_layer=False):
+                  first_layer=False, dot_dtype='float32'):
     '''Plain PyTorch forward of the layer -> (inv1 (B,N,F), eq (B,3,N,F)).'''
+    dot, _ = _dots(dot_dtype)
     _, _, msg, b1, b2 = _chain(npi, cat, rbf, mask, (We, W1a, W1b, W2a, W2b),
-                               first_layer)
+                               first_layer, dot)
     eqs = [(b1[2] * dir_[:, d, ..., None]).sum(2) for d in range(3)]
     if not first_layer:
         fj = _forces(cat, npi)
@@ -113,43 +126,46 @@ def klist_fwd_ref(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
 
 
 def klist_bwd_ref(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1,
-                  deq, first_layer=False, weight_grads=True):
+                  deq, first_layer=False, weight_grads=True,
+                  dot_dtype='float32'):
     '''Plain PyTorch backward of the layer, written out by hand (the JAX
-    package's `_bwd_kernel`), given the cotangents of (inv1, eq).
+    package's `_bwd_kernel`), given the cotangents of (inv1, eq). In bf16
+    mode every product takes rounded operands.
 
     Returns (dnpi, dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a, dW2b): dcat and
     drbf in the edge dtype, the rest fp32; the weight cotangents are None
     unless weight_grads, and dW2a, dW2b are zeros at the first layer.'''
+    dot, dotT = _dots(dot_dtype)
     m = mask[..., None]
     npj, me, msg, (p1, h1, phi1), b2 = _chain(
-        npi, cat, rbf, mask, (We, W1a, W1b, W2a, W2b), first_layer)
+        npi, cat, rbf, mask, (We, W1a, W1b, W2a, W2b), first_layer, dot)
     g = [deq[:, d, :, None, :] for d in range(3)]      # (B, N, 1, F)
     dphi1 = sum(g[d] * dir_[:, d, ..., None] for d in range(3)) * m
     ddir = torch.stack([(phi1 * g[d]).sum(-1) for d in range(3)], dim=1)
-    dp1 = (dphi1 @ W1b.T) * _dsilu(p1)
-    dmsg = dp1 @ W1a.T
+    dp1 = dot(dphi1, W1b.T) * _dsilu(p1)
+    dmsg = dot(dp1, W1a.T)
     dcat_f = []
     if not first_layer:
         p2, h2, phi2 = b2
         fj = _forces(cat, npi)
         dcat_f = [phi2 * g[d] for d in range(3)]
         dphi2 = sum(g[d] * fj[d] for d in range(3)) * m
-        dp2 = (dphi2 @ W2b.T) * _dsilu(p2)
-        dmsg = dmsg + dp2 @ W2a.T
+        dp2 = dot(dphi2, W2b.T) * _dsilu(p2)
+        dmsg = dmsg + dot(dp2, W2a.T)
     dmsg3 = (dmsg + dinv1[:, :, None, :]) * m
     ni = npi[:, :, None, :]
     dnpi = (dmsg3 * me * npj).sum(2)
     dcat = torch.cat([dmsg3 * me * ni] + dcat_f, dim=-1).to(cat.dtype)
     dme = dmsg3 * ni * npj
-    drbf = (dme @ We.T).to(rbf.dtype)
+    drbf = dot(dme, We.T).to(rbf.dtype)
     if not weight_grads:
         return dnpi, dcat, drbf, ddir, None, None, None, None, None
-    dWe = _tdot(rbf.to(npi.dtype), dme)
-    dW1a, dW1b = _tdot(msg, dp1), _tdot(h1, dphi1)
+    dWe = dotT(rbf.to(npi.dtype), dme)
+    dW1a, dW1b = dotT(msg, dp1), dotT(h1, dphi1)
     if first_layer:
         dW2a, dW2b = torch.zeros_like(W2a), torch.zeros_like(W2b)
     else:
-        dW2a, dW2b = _tdot(msg, dp2), _tdot(h2, dphi2)
+        dW2a, dW2b = dotT(msg, dp2), dotT(h2, dphi2)
     return dnpi, dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a, dW2b
 
 
@@ -261,9 +277,9 @@ def klist_dual_bwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
 
 
 # ----------------------------------------------------------------------- #
-def _lib(F):
+def _lib(F, dot_dtype='float32'):
     from newtonnet_tpu_torch.ops import _build
-    lib = _build.load('fused_klist', F)
+    lib = _build.load('fused_klist', F, dot_dtype)
     if not getattr(lib, '_nn_typed', False):
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nn_klist_fwd.argtypes = [p] * 13 + [i] * 8 + [p]
@@ -357,37 +373,40 @@ def _device(t):
 
 
 def klist_fwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
-              first_layer=False):
+              first_layer=False, dot_dtype='float32'):
     '''The layer's forward: kernel K5 for CUDA tensors, the plain version
     for CPU tensors. -> (inv1, eq).'''
     ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
     if _device(npi) == 'cpu':
-        return klist_fwd_ref(*ins, first_layer=first_layer)
+        return klist_fwd_ref(*ins, first_layer=first_layer,
+                             dot_dtype=dot_dtype)
     B, N, K, F, R, bf = _checked(npi, cat, rbf,
                                  list(zip(_NAMES, ins, _KINDS)), first_layer)
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
-    lib = _lib(F)
-    # the weights split into tf32 (hi, lo) pairs, once per launch; at most
-    # one block per SM, each walking atom tiles
+    lib = _lib(F, dot_dtype)
+    # the weights prepared (tf32 (hi, lo) pairs, or bf16), once per launch;
+    # at most one block per SM, each walking atom tiles
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 0),), **opts)
     err = lib.nn_klist_fwd(*[t.data_ptr() for t in ins + outs + (scratch,)],
                            B, N, K, F, R, int(first_layer), bf,
                            _sms(npi.device), _stream(npi))
     _raise_on(err, 'nn_klist_fwd')
-    LAUNCHES[_key('klist_fwd', first_layer)] += 1
+    LAUNCHES[launch_key('klist_fwd', first_layer, dot_dtype)] += 1
     return outs
 
 
 def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
-              first_layer=False, weight_grads=True):
+              first_layer=False, weight_grads=True, dot_dtype='float32'):
     '''The layer's backward: kernel K6 for CUDA tensors, the plain version
     for CPU tensors. -> (dnpi, dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a,
     dW2b), weight cotangents None unless weight_grads.'''
     ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
     if _device(npi) == 'cpu':
         return klist_bwd_ref(*ins, dinv1, deq, first_layer=first_layer,
-                             weight_grads=weight_grads)
+                             weight_grads=weight_grads, dot_dtype=dot_dtype)
     B, N, K, F, R, bf = _checked(
         npi, cat, rbf, list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq),
                                 _KINDS + ('node', 'vec'))), first_layer)
@@ -395,13 +414,13 @@ def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
     outs = (torch.empty((B, N, F), **opts), torch.empty_like(cat),
             torch.empty_like(rbf), torch.empty((B, 3, N, K), **opts))
     n_w = R * F + 4 * F * F
-    lib = _lib(F)
+    lib = _lib(F, dot_dtype)
     n_blocks = _n_blocks(B, N, npi.device)
     # one weight partial per block, at the kernels' padded width
     wpart = (torch.empty((lib.nn_klist_wpart_floats(n_blocks, F, R),),
                          **opts) if weight_grads else None)
     dw = torch.empty((n_w,), **opts) if weight_grads else None
-    # the weights split into tf32 (hi, lo) pairs, once per launch
+    # the weights prepared (tf32 (hi, lo) pairs, or bf16), once per launch
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 1),), **opts)
     err = lib.nn_klist_bwd(
         *[t.data_ptr() for t in ins + (dinv1, deq) + outs],
@@ -410,7 +429,7 @@ def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
         B, N, K, F, R, int(first_layer), int(weight_grads), bf, n_blocks,
         _stream(npi))
     _raise_on(err, 'nn_klist_bwd')
-    key = _key('klist_bwd', first_layer)
+    key = launch_key('klist_bwd', first_layer, dot_dtype)
     LAUNCHES[key] += 1
     if not weight_grads:
         return (*outs, None, None, None, None, None)
@@ -439,7 +458,7 @@ def klist_dual_fwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
                                 scratch.data_ptr(), B, N, K, F, R,
                                 int(first_layer), bf, _stream(npi))
     _raise_on(err, 'nn_klist_dual_fwd')
-    LAUNCHES[_key('klist_dual_fwd', first_layer)] += 1
+    LAUNCHES[launch_key('klist_dual_fwd', first_layer, 'float32')] += 1
     return outs
 
 
@@ -474,7 +493,7 @@ def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
         *[t.data_ptr() for t in ins + cots + outs + (wpart, dw)], B, N, K, F,
         R, int(first_layer), bf, n_blocks, _stream(npi))
     _raise_on(err, 'nn_klist_dual_bwd')
-    LAUNCHES[_key('klist_dual_bwd', first_layer)] += 1
+    LAUNCHES[launch_key('klist_dual_bwd', first_layer, 'float32')] += 1
     return (*outs, *_split_w(dw, F, R))
 
 
@@ -487,25 +506,27 @@ class FusedKlistInteraction(torch.autograd.Function):
     one (the force pass holds the parameters constant).
 
     apply(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, first_layer,
-          plain) -> (inv1, eq)'''
+          plain, dot_dtype) -> (inv1, eq)'''
 
     @staticmethod
     def forward(ctx, npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
-                first_layer=False, plain=False):
+                first_layer=False, plain=False, dot_dtype='float32'):
         ctx.first_layer, ctx.plain = bool(first_layer), bool(plain)
+        ctx.dot_dtype = dot_dtype
         ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
         ctx.save_for_backward(*ins)
         fwd = klist_fwd_ref if plain else klist_fwd
-        return fwd(*ins, first_layer=ctx.first_layer)
+        return fwd(*ins, first_layer=ctx.first_layer, dot_dtype=dot_dtype)
 
     @staticmethod
     def backward(ctx, dinv1, deq):
         need_w = ctx.needs_input_grad[5:10]
         bwd = klist_bwd_ref if ctx.plain else klist_bwd
         grads = bwd(*ctx.saved_tensors, dinv1.contiguous(), deq.contiguous(),
-                    first_layer=ctx.first_layer, weight_grads=any(need_w))
+                    first_layer=ctx.first_layer, weight_grads=any(need_w),
+                    dot_dtype=ctx.dot_dtype)
         dws = [g if need else None for g, need in zip(grads[4:], need_w)]
-        return (*grads[:4], None, *dws, None, None)
+        return (*grads[:4], None, *dws, None, None, None)
 
 
 class FusedKlistInteractionDual(torch.autograd.Function):
@@ -541,11 +562,13 @@ class FusedKlistInteractionDual(torch.autograd.Function):
 
 
 def fused_klist_interaction(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a,
-                            W2b, first_layer=False, plain=False):
+                            W2b, first_layer=False, plain=False,
+                            dot_dtype='float32'):
     '''The layer through FusedKlistInteraction: K5/K6 on the card, or with
     plain=True the plain versions on any device.'''
     return FusedKlistInteraction.apply(npi, cat, rbf, dir_, mask, We, W1a,
-                                       W1b, W2a, W2b, first_layer, plain)
+                                       W1b, W2a, W2b, first_layer, plain,
+                                       dot_dtype)
 
 
 def fused_klist_interaction_dual(npi, npidot, cat, catdot, rbf, rbfdot, dir_,

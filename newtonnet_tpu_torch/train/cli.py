@@ -13,7 +13,9 @@ general.matmul_precision and training.eval_matmul_precision take
 'highest' (or nothing): the port computes in IEEE fp32; other values raise
 ValueError. Not ported, and refused with NotImplementedError before any
 data is read: a .pt warm start, a set training.parallel, training.halo, a
-set training.wandb, training.profile_dir and general.debug_nans.
+set training.wandb, training.profile_dir, general.debug_nans and a
+kernel='pallas' model with pallas_dot_dtype 'bfloat16' (the Trainer
+refuses it too, as a warm start's config may set it).
 training.steps_per_call is accepted and does nothing (eager PyTorch has
 no dispatch chunking).
 '''
@@ -57,8 +59,14 @@ def train_from_settings(settings, settings_path=None, resume=None):
         raise NotImplementedError(
             _NOT_PORTED.format('general.debug_nans', 'training extras'))
     from newtonnet_tpu_torch.layers.precision import check_matmul_precision
-    from newtonnet_tpu_torch.train.trainer import refuse_unported_extras
+    from newtonnet_tpu_torch.train.trainer import (
+        refuse_bf16_pair_training,
+        refuse_unported_extras,
+    )
     refuse_unported_extras(**training)
+    model_cfg = settings.get('model', {})
+    refuse_bf16_pair_training(model_cfg.get('kernel', 'xla'),
+                              model_cfg.get('pallas_dot_dtype', 'float32'))
     check_matmul_precision(general.get('matmul_precision'),
                            'general.matmul_precision')
     check_matmul_precision(training.get('eval_matmul_precision'),

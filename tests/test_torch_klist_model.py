@@ -157,11 +157,18 @@ def test_neighbour_list_checkpoint_loads_and_serves(tmp_path):
 
 
 def test_unported_neighbour_list_options_are_refused():
-    '''bf16 products in the fused layers are not ported; an unknown
-    compute_dtype is an error.'''
-    with pytest.raises(NotImplementedError, match='ROADMAP.md A'):
-        NewtonNet(graph_mode='neighborlist', kernel='pallas',
-                  pallas_dot_dtype='bfloat16', device='cpu')
+    '''A neighbour-list model with bf16 products in the fused layers serves
+    but does not train yet (the Trainer refuses it, naming ROADMAP.md B);
+    an unknown compute_dtype is an error.'''
+    from newtonnet_tpu_torch.train.trainer import Trainer
+    model = NewtonNet(graph_mode='neighborlist', kernel='pallas',
+                      pallas_dot_dtype='bfloat16', n_features=8, n_basis=4,
+                      n_interactions=1, k_max=4,
+                      output_properties=['energy', 'gradient_force'],
+                      device='cpu')
+    with pytest.raises(NotImplementedError,
+                       match='ROADMAP.md B, "bf16 pair-layer products"'):
+        Trainer(model)
     with pytest.raises(ValueError, match='compute_dtype'):
         NewtonNet(graph_mode='neighborlist', compute_dtype='float16',
                   device='cpu')

@@ -105,7 +105,20 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
      'charge head and Ewald'),
 ])
 def test_unported_configurations_name_their_roadmap_item(kw, item):
+    '''Each configuration the port does not have yet raises, naming its
+    ROADMAP.md item. A bf16 kernel='pallas' model builds and serves; the
+    Trainer refuses to train it (section B's item).'''
     from newtonnet_tpu_torch import NewtonNet
+    if kw.get('pallas_dot_dtype') == 'bfloat16':
+        from newtonnet_tpu_torch.train.trainer import Trainer
+        model = NewtonNet(device='cpu', n_features=8, n_basis=4,
+                          n_interactions=1,
+                          output_properties=['energy', 'gradient_force'],
+                          **kw)
+        with pytest.raises(NotImplementedError,
+                           match=f'ROADMAP.md B.*{item}'):
+            Trainer(model)
+        return
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md A.*{item}'):
         NewtonNet(device='cpu', **kw)
 

@@ -29,6 +29,13 @@ PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'newtonnet_tpu_torch')
 BAR = 1e-4
 BF16_BAR = 2e-3
+# bf16 mode of K1/K2 and K5/K6 (pallas_dot_dtype): the median element
+# error, over the plain output's largest magnitude. Where the kernel rounds
+# the operands the plain version rounds, the two differ by the fp32
+# summation order and a rare flip of a rounding; an operand rounded that
+# the plain version leaves fp32 (or the reverse) moves the median by about
+# a bf16 ulp of the products, 1e-4 (tests/test_torch_bf16_pair.py).
+BF16_MEDIAN_BAR = 1e-5
 
 
 def for_gxx(src):
@@ -47,34 +54,37 @@ def for_gxx(src):
                   flags=re.S)
 
 
-def compile_emu(out, name, src, F=None):
+def compile_emu(out, name, src, F=None, bf16=False):
     '''Compile a rewritten source with g++ into out/lib<name>.so; for a
     source of K1-K8, the library that runs width F (its padded width alone,
-    with the defines ops/_build.width_flags(F)), as ops/_build.py builds it
-    for the card.'''
+    with the defines ops/_build.width_flags(F)) and, with bf16, its bf16
+    library (-DNN_BF16), as ops/_build.py builds them for the card. The
+    shared headers of csrc/ are found by -I.'''
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++')
     (out / f'{name}.cpp').write_text(for_gxx(src))
     so = out / f'lib{name}.so'
-    flags = () if F is None else width_flags(F)
+    flags = (() if F is None else width_flags(F)) + \
+        (('-DNN_BF16',) if bf16 else ())
     subprocess.run([gxx, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
-                    *flags, '-I', os.path.join(PKG, 'csrc', 'emu'), '-o',
-                    str(so), str(out / f'{name}.cpp')], check=True,
-                   timeout=600)
+                    *flags, '-I', os.path.join(PKG, 'csrc', 'emu'), '-I',
+                    os.path.join(PKG, 'csrc'), '-o', str(so),
+                    str(out / f'{name}.cpp')], check=True, timeout=600)
     return ctypes.CDLL(str(so))
 
 
-def width_libs(out, name, wrap):
+def width_libs(out, name, wrap, bf16=False):
     '''width F -> wrap(the emulated library of csrc/<name>.cu that runs
-    F), compiled at the first use of its (padded width, padded).'''
+    F, the bf16 one with bf16), compiled at the first use of its (padded
+    width, padded).'''
     built = {}
 
     def get(F):
         key = width_flags(F)
         if key not in built:
             built[key] = wrap(compile_emu(out, f'{name}_{len(built)}',
-                                          source(name), F))
+                                          source(name), F, bf16=bf16))
         return built[key]
     return get
 
@@ -149,10 +159,11 @@ def dual_handle(handle):
     return handle
 
 
-def run_k1(handle, ins, first_layer, max_blocks=3):
+def run_k1(handle, ins, first_layer, max_blocks=3, dot_dtype='float32'):
     '''(kernel, plain) output pairs of K1, emulated, NaN-initialised, with
     scratch (NaN too) of the size the source gives; its grid is at most
-    max_blocks blocks, so a block walks several tiles.'''
+    max_blocks blocks, so a block walks several tiles. dot_dtype is the
+    library's mode (its plain version's).'''
     B, N, F = ins[0].shape
     R = ins[1].shape[-1]
     inv1, eq = nan(B, N, F), nan(B, 3, N, F)
@@ -160,10 +171,10 @@ def run_k1(handle, ins, first_layer, max_blocks=3):
     assert handle.nn_pair_fwd(*ptrs(ins + [inv1, eq, scratch]), B, N, F, R,
                               int(first_layer), max_blocks, None) == 0
     return list(zip((inv1, eq), fd.pair_interaction_fwd_ref(
-        *ins, first_layer=first_layer)))
+        *ins, first_layer=first_layer, dot_dtype=dot_dtype)))
 
 
-def run_k2(handle, ins, dinv1, deq, first_layer):
+def run_k2(handle, ins, dinv1, deq, first_layer, dot_dtype='float32'):
     '''(kernel, plain) output pairs of K2 with and without weight
     cotangents, emulated as run_k1's.'''
     B, N, F = ins[0].shape
@@ -184,7 +195,8 @@ def run_k2(handle, ins, dinv1, deq, first_layer):
                 dw.split([R * F] + [F * F] * 4), [(R, F)] + [(F, F)] * 4)]
         ref = fd.pair_interaction_bwd_ref(*ins, dinv1, deq,
                                           first_layer=first_layer,
-                                          weight_grads=wg)
+                                          weight_grads=wg,
+                                          dot_dtype=dot_dtype)
         pairs += list(zip(outs, ref))
     return pairs
 
@@ -202,6 +214,28 @@ def check_pairs(pairs):
         assert torch.isfinite(got).all(), k
         err = (got - want).abs().max().item()
         assert err <= BAR * want.abs().max().item(), (k, err)
+
+
+def bf16_errors(got, want):
+    '''(max element error, median element error over the elements where
+    want is not zero), both over want's largest magnitude.'''
+    g, w = got.double(), want.double()
+    scale = w.abs().max().item()
+    err = (g - w).abs()
+    if scale == 0:  # an output that is zero (the first layer's dW2a)
+        return err.max().item(), 0.0
+    return err.max().item() / scale, err[w != 0].median().item() / scale
+
+
+def check_bf16_pairs(pairs):
+    '''bf16 mode: each (kernel, plain) pair finite, within BF16_BAR of the
+    plain output's largest magnitude and its median element error within
+    BF16_MEDIAN_BAR of it (the bars of chip_smoke.py phase 10a).'''
+    for k, (got, want) in enumerate(pairs):
+        assert torch.isfinite(got.float()).all(), k
+        worst, median = bf16_errors(got, want)
+        assert worst <= BF16_BAR, (k, worst)
+        assert median <= BF16_MEDIAN_BAR, (k, median)
 
 
 def dual_inputs(B, N, F, R, seed):
@@ -311,18 +345,21 @@ def _wpart(handle, B, N, F, R, max_blocks):
     return nan(handle.nn_klist_wpart_floats(n_blk, F, R))
 
 
-def run_k56(handle, ins, cots, first_layer, bf16, max_blocks=3):
+def run_k56(handle, ins, cots, first_layer, bf16, max_blocks=3,
+            dot_dtype='float32'):
     '''(K5, K6 without and with weight cotangents) outputs of the emulated
-    kernels, NaN-initialised, and the plain versions' values. K6's grid is
-    at most max_blocks blocks, so a block walks several atom tiles (of both
-    molecules where B = 2) into one weight partial.'''
+    kernels, NaN-initialised, and the plain versions' values (in the
+    library's mode, dot_dtype). K6's grid is at most max_blocks blocks, so
+    a block walks several atom tiles (of both molecules where B = 2) into
+    one weight partial.'''
     B, N, F = ins[0].shape
     K, R = ins[1].shape[2], ins[2].shape[-1]
     fl, bf = int(first_layer), int(bf16)
     n_w = R * F + 4 * F * F
     got, want = [], []
     got += run_k5(handle, ins, first_layer, bf16, max_blocks)
-    want += fk.klist_fwd_ref(*ins, first_layer=first_layer)
+    want += fk.klist_fwd_ref(*ins, first_layer=first_layer,
+                             dot_dtype=dot_dtype)
     for wg in (False, True):
         outs = [nan(B, N, F), _nan_like(ins[1]), _nan_like(ins[2]),
                 nan(B, 3, N, K)]
@@ -334,7 +371,7 @@ def run_k56(handle, ins, cots, first_layer, bf16, max_blocks=3):
             scratch.data_ptr(), B, N, K, F, R, fl, int(wg), bf, max_blocks,
             None) == 0
         ref = fk.klist_bwd_ref(*ins, *cots[:2], first_layer=first_layer,
-                               weight_grads=wg)
+                               weight_grads=wg, dot_dtype=dot_dtype)
         got += outs + (list(dw.split([R * F] + [F * F] * 4)) if wg else [])
         want += list(ref[:4]) + ([r.reshape(-1) for r in ref[4:]]
                                  if wg else [])
