@@ -235,9 +235,40 @@ with a non-zero exit code and no result line):
                times, bounds at the bf16 peak and phase 10's launches (the
                `kernels` line's bf16 rows).
 
+11. bf16-train  the K-list duals K7/K8 in bf16 mode and fine-tuning
+            kernel='pallas', pallas_dot_dtype bfloat16 models (TF32 off):
+            a. K7/K8 in bf16 mode against their plain bf16 versions at
+               F = 20, 48, 128, 256 (BF16_WIDTHS), full and first layer,
+               at phase 3's ragged shape, the aspirin K-list training
+               shape (B=10, N=24, K=48) and the box's, fp32 and bf16
+               edges: 10a's bars (the float64 floor of the median bar for
+               the weight cotangents alone); second launches repeat their
+               bits.
+            b. the aspirin checkpoint fine-tuned by
+               scripts/config_md17_pallas.yml with pallas_dot_dtype
+               bfloat16: 10 steps dense and 10 over K-lists (k_max 48)
+               against the JAX package's bf16 steps
+               (JAX_BF16_ASPIRIN_STEP_*; check_bf16_steps: each quantity
+               within BF16_SPREAD_FACTOR times the JAX package's own
+               bf16-to-fp32 shift, PR 2's fp32 bars the floor); the
+               K-list step 1 gradient within BF16_KLIST_VS_DENSE of the
+               dense one; one dense CLI epoch.
+            c. the LJ checkpoint as a kernel='pallas' bf16 model (F=48):
+               10 steps of LJ_CONFIG dense and over K-lists with fp32 and
+               bf16 edges against JAX_BF16_LJ_STEP_*; one K-list CLI
+               epoch.
+            d. three box steps in bf16 (bf16 edges, box_weights, F=128):
+               step 1 against the plain bf16 step at 2e-3, three
+               gradients with equal bits, the step timed beside the
+               fp32-product step with device busy time and K8's share.
+            e. K7/K8 in bf16 mode beside fp32 mode at the box shape (and
+               F=48), their plain bf16 versions' times, bounds at the
+               bf16 peak, phase 11's launches (the kernels line's
+               klist_dual_*_bf16 rows, K7 bf16 and K8 bf16).
+
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
-9b/9c launches; the bf16 rows of K1/K2 and K5/K6) and,
+9b/9c launches; the bf16 rows of K1/K2 and K5-K8) and,
 last, {"ok": true, "device": {...}}.
 '''
 import functools
@@ -732,6 +763,137 @@ JAX_BF16_LJ_SPREAD = {
                          'forces': 0.0029218196868896484},
     'klist_bf16_edges': {'energy': 0.004579067230224609,
                          'forces': 0.002246379852294922},
+}
+# Phase 11: the K-list duals K7/K8 in bf16 mode, and fine-tuning
+# pallas_dot_dtype bfloat16 models dense and over K-lists. The bf16 dual
+# variants; 11b/11c's JAX numbers: the JAX package's first 10 fine-tuning
+# steps (loss, global gradient norm before the clip) of its bf16 model and
+# their bf16-to-fp32 shift (|bf16 - fp32| of each quantity, the same recipe
+# with pallas_dot_dtype float32), from `python
+# tests/test_torch_bf16_training.py aspirin` (scripts/config_md17_pallas.yml
+# from the trained checkpoint: phase 7a's recipe dense, 7d's with graph_mode
+# neighborlist, k_max 48) and `... lj` (the LJ checkpoint as a
+# kernel='pallas' bf16 model fine-tuned by LJ_CONFIG over 10c's layouts:
+# phase 9c's recipe); CPU, interpret-mode Pallas. Each quantity is held at
+# BF16_SPREAD_FACTOR times its shift, or at PR 2's fp32 bar where that is
+# larger (check_bf16_steps). On the CPU the port's plain bf16 aspirin step
+# 1 gradient over K-lists is 1.5e-3 (relative norm) from its dense one:
+# the two round different operands (K5/K6 and K7/K8 against K1/K2 and
+# K3/K4), so 11b holds them at BF16_KLIST_VS_DENSE; the LJ model's two
+# measure 3.0e-3 on the CPU and 11c prints theirs.
+BF16_DUAL = ('klist_dual_fwd_bf16', 'klist_dual_fwd_first_bf16',
+             'klist_dual_bwd_bf16', 'klist_dual_bwd_first_bf16')
+BF16_KLIST_VS_DENSE = 2e-3
+JAX_BF16_ASPIRIN_STEP_LOSS = {
+    'dense': [7.437622547149658, 1.9063150882720947, 1.69451904296875,
+              2.0260660648345947, 0.8412765860557556, 0.4333455562591553,
+              0.426226943731308, 0.2938873767852783, 0.4301496744155884,
+              0.46481817960739136],
+    'neighborlist': [7.441060543060303, 1.9138054847717285, 1.6917777061462402,
+                     2.0304901599884033, 0.8468963503837585,
+                     0.4289546608924866, 0.4205749034881592,
+                     0.28811758756637573, 0.4290848672389984,
+                     0.47147321701049805],
+}
+JAX_BF16_ASPIRIN_STEP_GRAD_NORM = {
+    'dense': [441.7536315917969, 157.07211303710938, 169.60189819335938,
+              225.13279724121094, 103.35162353515625, 31.419347763061523,
+              26.358827590942383, 13.103588104248047, 40.573726654052734,
+              36.74274444580078],
+    'neighborlist': [442.268310546875, 157.68922424316406, 169.42095947265625,
+                     225.31719970703125, 104.24945831298828,
+                     31.424633026123047, 25.78559112548828, 12.33523178100586,
+                     40.828330993652344, 36.621070861816406],
+}
+JAX_BF16_ASPIRIN_STEP_SHIFT = {
+    'dense': {
+        'loss': [0.005924701690673828, 0.009181022644042969,
+                 0.007262825965881348, 0.021657466888427734,
+                 0.005901515483856201, 0.00037541985511779785,
+                 0.00348016619682312, 0.005118519067764282,
+                 0.0014879107475280762, 0.013849765062332153],
+        'grad_norm': [0.2989501953125, 0.0913543701171875, 0.603057861328125,
+                      1.2500457763671875, 0.5165939331054688,
+                      0.7331066131591797, 0.6452808380126953, 0.7625732421875,
+                      0.5742645263671875, 0.7238388061523438],
+    },
+    'neighborlist': {
+        'loss': [0.009362220764160156, 0.003407001495361328,
+                 0.009351134300231934, 0.030375957489013672,
+                 0.0022742152214050293, 0.00218963623046875,
+                 0.009017407894134521, 2.2351741790771484e-06,
+                 0.0008099675178527832, 0.007458299398422241],
+        'grad_norm': [0.29278564453125, 0.4499053955078125, 0.9797210693359375,
+                      2.322967529296875, 1.5567245483398438, 0.5738525390625,
+                      0.16149330139160156, 0.013742446899414062,
+                      0.458251953125, 0.08815765380859375],
+    },
+}
+JAX_BF16_LJ_STEP_LOSS = {
+    'dense': [11.261275291442871, 7.167778491973877, 5.25321626663208,
+              2.7779831886291504, 1.2276614904403687, 0.6056777238845825,
+              0.456305593252182, 0.43583863973617554, 0.6743670701980591,
+              1165.58447265625],
+    'klist_fp32_edges': [11.255277633666992, 7.177620887756348,
+                         5.266170501708984, 2.7680163383483887,
+                         1.2207694053649902, 0.6031954884529114,
+                         0.4580892026424408, 0.4351978003978729,
+                         0.6734233498573303, 1161.8255615234375],
+    'klist_bf16_edges': [11.239806175231934, 7.198912620544434,
+                         5.276431083679199, 2.750553607940674,
+                         1.2167086601257324, 0.6007124781608582,
+                         0.45038890838623047, 0.4296683669090271,
+                         0.675966203212738, 1162.0030517578125],
+}
+JAX_BF16_LJ_STEP_GRAD_NORM = {
+    'dense': [153.6453857421875, 316.05914306640625, 210.12167358398438,
+              82.60806274414062, 50.213077545166016, 33.73255920410156,
+              19.153383255004883, 66.82833099365234, 21.903793334960938,
+              19550.552734375],
+    'klist_fp32_edges': [153.42742919921875, 316.58294677734375,
+                         210.62570190429688, 82.09170532226562,
+                         49.67734909057617, 33.6422119140625,
+                         19.16147804260254, 66.68804931640625,
+                         21.828744888305664, 19693.6484375],
+    'klist_bf16_edges': [153.27008056640625, 317.98248291015625,
+                         212.36669921875, 81.03970336914062,
+                         49.383033752441406, 33.472904205322266,
+                         18.83971405029297, 65.49048614501953,
+                         20.985553741455078, 16245.4658203125],
+}
+JAX_BF16_LJ_STEP_SHIFT = {
+    'dense': {
+        'loss': [0.05051231384277344, 0.03416872024536133,
+                 0.0008411407470703125, 0.019672155380249023,
+                 0.004187464714050293, 0.0006622076034545898,
+                 0.0045188069343566895, 0.0007214248180389404,
+                 0.0004519224166870117, 4.0977783203125],
+        'grad_norm': [1.486053466796875, 1.381805419921875, 0.4750213623046875,
+                      0.6781845092773438, 1.2486991882324219,
+                      0.253692626953125, 0.4927825927734375, 0.202301025390625,
+                      0.1253032684326172, 163.751953125],
+    },
+    'klist_fp32_edges': {
+        'loss': [0.04451274871826172, 0.034262657165527344,
+                 0.008046627044677734, 0.005301713943481445,
+                 0.011998295783996582, 0.002007603645324707,
+                 0.0059080421924591064, 0.0012486279010772705,
+                 0.000877678394317627, 1.6766357421875],
+        'grad_norm': [1.200775146484375, 1.317047119140625, 0.1982574462890625,
+                      0.25858306884765625, 1.7264900207519531,
+                      0.09401702880859375, 0.43535614013671875,
+                      0.294525146484375, 0.13529396057128906, 5068.6513671875],
+    },
+    'klist_bf16_edges': {
+        'loss': [0.01710987091064453, 0.00942230224609375, 0.03796100616455078,
+                 0.011311769485473633, 0.013683319091796875,
+                 0.005718410015106201, 0.003297269344329834,
+                 0.008052319288253784, 0.004491865634918213, 8.911376953125],
+        'grad_norm': [0.5893707275390625, 0.42730712890625, 2.2406768798828125,
+                      1.12554931640625, 2.462474822998047, 0.14518356323242188,
+                      0.7249698638916016, 1.8253402709960938,
+                      1.4053192138671875, 3729.0791015625],
+    },
 }
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
@@ -1464,11 +1626,16 @@ def klist_inputs(torch, B, N, K, F, R, first, edt, seed):
     return ins, tans, cots
 
 
+def dual_args(ins, tans):
+    """K7's argument list from klist_inputs' inputs and tangents."""
+    return [ins[0], tans[0], ins[1], tans[1], ins[2], tans[2], ins[3],
+            tans[3], ins[4]] + ins[5:]
+
+
 def klist_calls(fk, ins, tans, cots, first, ref=False):
     """{call: (kernel name, argument list, keywords)} of K5, K6 without and
     with weight cotangents, K7 and K8; ref=True names the plain versions."""
-    args = [ins[0], tans[0], ins[1], tans[1], ins[2], tans[2], ins[3],
-            tans[3], ins[4]] + ins[5:]
+    args = dual_args(ins, tans)
     sfx = '_ref' if ref else ''
     return {
         'klist_fwd': (getattr(fk, 'klist_fwd' + sfx), ins, {}),
@@ -1765,11 +1932,14 @@ def phase_box_request(torch, fk, base):
                                      'forces_fp32': f_32, **timing}
 
 
-def phase_box_train(torch, fk, base):
-    """Phase 7e: three fastgrad steps with Adam (lr 1e-3, no clip) on the
-    box, as tools/bench_train_large.py takes them: box_model (bf16 edges),
-    targets from box_system's seed. Step 1's gradient is held against the
-    plain path on the card at 2e-3 relative norm. -> (per-step launch
+def phase_box_train(torch, fk, base, dot_dtype='float32'):
+    """Phase 7e (and 11d with dot_dtype bfloat16: K5-K8 in bf16 mode):
+    three fastgrad steps with Adam (lr 1e-3, no clip) on the box, as
+    tools/bench_train_large.py takes them: box_model (bf16 edges,
+    pallas_dot_dtype dot_dtype), targets from box_system's seed. Step 1's
+    gradient is held against the plain path on the card at 2e-3 relative
+    norm; three gradients from one start repeat their bits; a step launches
+    every K5-K8 variant of its mode and no other. -> (per-step launch
     counts, one_step, step seconds)."""
     import math as _math
     from newtonnet_tpu_torch.train import fastgrad
@@ -1786,7 +1956,8 @@ def phase_box_train(torch, fk, base):
 
     def start():
         return box_model(torch, base.config_dict(), 'bfloat16',
-                         ['energy', 'gradient_force']).requires_grad_(True)
+                         ['energy', 'gradient_force'],
+                         pallas_dot_dtype=dot_dtype).requires_grad_(True)
 
     model = start()
     opt = get_optimizer_by_string('adam', model.core, lr=1e-3)
@@ -1828,16 +1999,19 @@ def phase_box_train(torch, fk, base):
         with fp32_matmuls():
             fastgrad.value_and_grad(model, main_loss, batch)
             opt.step()
-    emit('box_train', atoms=BOX_ATOMS, steps=3, loss=losses,
-         plain_loss=float(loss_p), grad_rel_norm_diff_vs_plain=rel,
-         bar=2e-3, step_ms=[1e3 * t for t in step_s],
+    bf = dot_dtype == 'bfloat16'
+    emit('bf16_box_train' if bf else 'box_train', atoms=BOX_ATOMS, steps=3,
+         loss=losses, plain_loss=float(loss_p),
+         grad_rel_norm_diff_vs_plain=rel, bar=2e-3,
+         step_ms=[1e3 * t for t in step_s],
          step_ms_after_first=1e3 * statistics.median(step_s[1:]),
          gradients_repeat_their_bits=repeats, launches_per_step=launches)
     check(all(_math.isfinite(v) for v in losses), f'box losses {losses}')
     check(repeats, 'three box gradients from one start differ in their bits')
     check(rel <= 2e-3, f'box step 1 gradient vs plain: {rel}')
-    check(all(launches[k] > 0 for k in KLIST_NAMES),
-          f'a K5-K8 variant was not launched in a box step: {launches}')
+    names = BF16_KLIST + BF16_DUAL if bf else KLIST_NAMES
+    check({k for k, v in launches.items() if v} == set(names),
+          f'a box step launched {launches}, not every one of {names}')
     return launches, one_step, step_s
 
 
@@ -3753,8 +3927,9 @@ def bf16_vs_plain(torch, where, triples):
     largest magnitude beyond one bf16 ulp of the element, and its median
     element error, over the elements where the plain output is not zero,
     at BF16_MEDIAN_BAR of it, or at twice the plain version's own median
-    error against its float64 run where that is more; fails the phase on
-    a non-finite output.
+    error against its float64 run where that is more (an output given no
+    float64 run, None, takes BF16_MEDIAN_BAR alone); fails the phase on a
+    non-finite output.
 
     The ulp: both sides round the same operands to bf16, but an fp32
     difference of a sum in another order can flip the rounding of a later
@@ -3787,7 +3962,8 @@ def bf16_vs_plain(torch, where, triples):
             check(diff.max().item() == 0, f'{where} output {k} not zero')
             continue
         med = median_ratio(x, y)
-        bar = max(BF16_MEDIAN_BAR, 2 * median_ratio(y_f64, y))
+        bar = BF16_MEDIAN_BAR if y_f64 is None else max(
+            BF16_MEDIAN_BAR, 2 * median_ratio(y_f64, y))
         raw = max(raw, diff.max().item() / scale)
         beyond = (diff - bf16_ulp(torch, torch.maximum(
             x64.abs(), y64.abs())).double()).clamp_min(0)
@@ -4188,6 +4364,387 @@ def bf16_row(torch, name, src, run, flops, nbytes, errs, launches, shape,
             'fp32_ms_runs': [f32, f32b]}
 
 
+# ------------------------------------------------------------ phase 11 --
+def phase_bf16_dual_kernels(torch, fk):
+    """Phase 11a: K7 and K8 in bf16 mode against their plain bf16 versions,
+    full and first layer, at F = BF16_WIDTHS: at phase 3's ragged shape
+    (B=3, N=61, K=39, R=12), the aspirin K-list training shape (B=10, N=24,
+    K=48, R=20) and the 4096-atom box's (B=1, K=88, R=20), each with fp32
+    and with bf16 edges; bars of bf16_vs_plain: each output within
+    DUAL_BF16_BAR of its largest magnitude beyond one bf16 ulp, its median
+    element error within BF16_MEDIAN_BAR, for the five weight cotangents
+    alone within twice the plain version's own median distance from its
+    float64 run where that is larger (plain_triples); second launches
+    repeat their bits. -> {variant: max abs error} at F=128 and the box
+    shape with bf16 edges, the bf16 rows' shape in 11e."""
+    dot = 'bfloat16'
+    errs, table = {}, {}
+    shapes = [('small', 3, 61, 39, 12), ('train', 10, 24, 48, 20),
+              ('box', 1, BOX_ATOMS, BOX_K_MAX, 20)]
+    for F in BF16_WIDTHS:
+        for tag, B, N, K, R in shapes:
+            for edt in (torch.float32, torch.bfloat16):
+                et = 'bf16' if edt == torch.bfloat16 else 'fp32'
+                for first in (False, True):
+                    ins, tans, cots = klist_inputs(torch, B, N, K, F, R,
+                                                   first, edt,
+                                                   seed=F + N + K + 1)
+                    args = dual_args(ins, tans)
+                    fwd = fk.launch_key('klist_dual_fwd', first, dot)
+                    bwd = fk.launch_key('klist_dual_bwd', first, dot)
+                    where = f'F={F} {tag} {et} edges'
+
+                    def k7(first=first):
+                        return fk.klist_dual_fwd(*args, first_layer=first,
+                                                 dot_dtype=dot)
+
+                    def k8(first=first):
+                        return fk.klist_dual_bwd(*args, *cots,
+                                                 first_layer=first,
+                                                 dot_dtype=dot)
+                    got = k7()
+                    ref = fk.klist_dual_fwd_ref(*args, first_layer=first,
+                                                dot_dtype=dot)
+                    res = {fwd: bf16_vs_plain(
+                        torch, f'{fwd} {where}',
+                        [(g, r, None) for g, r in zip(got, ref)])}
+                    check(repeats(torch, k7), f'{fwd} {where} repeats')
+                    got = k8()
+                    # the float64 floor of the median bar: the weight
+                    # cotangents (outputs 4-8) alone
+                    ref = [(g, r, r64 if k >= 4 else None)
+                           for k, (g, r, r64) in enumerate(plain_triples(
+                               fk.klist_dual_bwd_ref, args + cots, got,
+                               first_layer=first, dot_dtype=dot))]
+                    res[bwd] = bf16_vs_plain(torch, f'{bwd} {where}', ref)
+                    check(repeats(torch, k8), f'{bwd} {where} repeats')
+                    for key, (w, m, a, r, mb) in res.items():
+                        table[f'{key} F={F} {tag} {et}'] = [w, m, r, mb]
+                        if F == 128 and tag == 'box' and et == 'bf16':
+                            errs[key] = max(errs.get(key, 0.0), a)
+                    del ins, tans, cots, args, got, ref
+                    torch.cuda.empty_cache()
+        emit('bf16_dual_kernel_vs_plain', F=F,
+             max_beyond_ulp_median_raw_max_median_bar=table,
+             bars={'max': DUAL_BF16_BAR, 'median': BF16_MEDIAN_BAR})
+        table = {}
+    return errs
+
+
+def check_bf16_steps(what, losses, norms, jax_loss, jax_norm, shift, bar1,
+                     norm_bar=1e-3):
+    """Phase 11's bars on 10 fine-tuning steps against the JAX package's
+    bf16 steps: step 1's loss, step 1's gradient norm and steps 2-10's
+    losses, each within BF16_SPREAD_FACTOR times the JAX package's own
+    bf16-to-fp32 shift of that quantity (`shift`), or within PR 2's fp32
+    bar where that is larger: bar1 (relative) for step 1's loss, norm_bar
+    for its gradient norm, 1e-2 for the later losses. -> {quantity:
+    [difference, bar]}."""
+    check(all(math.isfinite(v) for v in losses + norms),
+          f'{what}: non-finite loss or gradient norm')
+    out = {}
+
+    def hold(name, got, want, sh, rel):
+        bar = max(BF16_SPREAD_FACTOR * sh, rel * abs(want))
+        out[name] = [abs(got - want), bar]
+        check(abs(got - want) <= bar,
+              f'{what}: {name} {got} against the JAX package\'s {want} '
+              f'(bar {bar})')
+    hold('step 1 loss', losses[0], jax_loss[0], shift['loss'][0], bar1)
+    hold('step 1 grad norm', norms[0], jax_norm[0], shift['grad_norm'][0],
+         norm_bar)
+    for k in range(1, len(losses)):
+        hold(f'step {k + 1} loss', losses[k], jax_loss[k], shift['loss'][k],
+             1e-2)
+    return out
+
+
+def cli_epoch(torch, fd, fdd, fk, settings):
+    """One epoch through the CLI's entry point: -> (seconds, launches,
+    log.csv's first row, the best model reloaded)."""
+    import csv
+    import tempfile
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    with tempfile.TemporaryDirectory() as out:
+        settings['general']['output'] = out
+        torch.cuda.synchronize()
+        reset_counts(fd, fdd, fk)
+        t = time.perf_counter()
+        trainer = train_from_settings(settings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: v for k, v in lj_counts(fd, fdd, fk).items() if v}
+        with open(os.path.join(trainer.output_path, 'log.csv')) as f:
+            row = next(csv.DictReader(f))
+        best = load_model(os.path.join(trainer.model_path,
+                                       'best_model.msgpack'))
+    check(list(row) == LOG_COLUMNS, f'log.csv columns {list(row)}')
+    check(all(math.isfinite(float(row[k])) for k in LOG_COLUMNS[1:-1]),
+          f'non-finite log.csv value: {row}')
+    check(best.pallas_dot_dtype == 'bfloat16',
+          f'the best model lost its dot dtype: {best.pallas_dot_dtype}')
+    return seconds, launches, row, best
+
+
+def phase_bf16_aspirin_train(torch, fd, fdd, fk):
+    """Phase 11b: fine-tuning artifacts/md17_model_pallas with
+    scripts/config_md17_pallas.yml and pallas_dot_dtype bfloat16, 10 steps
+    dense (K1/K2 bf16, the duals K3/K4 in the default bf16) and 10 over
+    plain K-lists built in each step (k_max 48; K5/K6 and K7/K8 bf16)
+    against the JAX package's bf16 steps (JAX_BF16_ASPIRIN_STEP_*,
+    check_bf16_steps; step 1's loss floor is phase 7a's bar1); the K-list
+    step 1 gradient within BF16_KLIST_VS_DENSE (relative norm) of the dense
+    one; one dense epoch through the CLI's entry point (95 steps) from a
+    bf16 copy of the checkpoint. -> {what: launches}."""
+    import tempfile
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    cfg = md17_settings(None, 1)
+    train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
+    loss_fns = get_loss_by_string(cfg['training']['loss'])
+
+    def start(**changes):
+        base = load_model(CKPT)
+        model = NewtonNet(**dict(base.config_dict(), **changes),
+                          device='cuda')
+        model.load_state_dict(base.state_dict())
+        set_scalers(model.core, model.output_properties, stats,
+                    {'energy': dict(cfg['training']['fit_scalers'])})
+        return model.requires_grad_(True)
+
+    it = iter(train_gen)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()}
+               for _ in range(10)]
+    # step 1's fp32 floor, phase 7a's: one float32 ulp of every frame's
+    # energy, relative to the float64 loss
+    loss64, ulp_term = float64_loss(fd, loss_fns[0], batches[0], start())
+    bar1 = ulp_term / loss64
+    out, grads1 = {}, {}
+    for gm in ('dense', 'neighborlist'):
+        reset_counts(fd, fdd, fk)
+        losses, norms, step_s, g1, _, trainer = xla_steps(
+            torch, start(graph_mode=gm, pallas_dot_dtype='bfloat16'),
+            loss_fns, batches, 'auto')
+        launches = {k: v for k, v in lj_counts(fd, fdd, fk).items() if v}
+        check(trainer.fast_grad, f'bf16 aspirin {gm}: not fastgrad')
+        grads1[gm] = g1
+        bars = check_bf16_steps(
+            f'bf16 aspirin {gm}', losses, norms,
+            JAX_BF16_ASPIRIN_STEP_LOSS[gm],
+            JAX_BF16_ASPIRIN_STEP_GRAD_NORM[gm],
+            JAX_BF16_ASPIRIN_STEP_SHIFT[gm], bar1)
+        emit('bf16_aspirin_train', graph_mode=gm, loss=losses,
+             grad_norm=norms, jax_loss=JAX_BF16_ASPIRIN_STEP_LOSS[gm],
+             jax_grad_norm=JAX_BF16_ASPIRIN_STEP_GRAD_NORM[gm],
+             diff_and_bar=bars, step1_loss_floor=bar1,
+             step_ms=[1e3 * t for t in step_s],
+             step_ms_median=1e3 * statistics.median(step_s[1:]),
+             launches_10_steps=launches)
+        want = (BF16_DENSE + ('dual_fwd', 'dual_fwd_first', 'dual_bwd',
+                              'dual_bwd_first')
+                if gm == 'dense' else BF16_KLIST + BF16_DUAL)
+        check(all(launches.get(k, 0) > 0 for k in want)
+              and not set(launches) & set(fp32_names(fd.LAUNCHES)
+                                          + fp32_names(fk.LAUNCHES)),
+              f'bf16 aspirin {gm} steps launched {launches}')
+        out[f'train_{gm}_10_steps'] = launches
+        del trainer
+        torch.cuda.empty_cache()
+    rel = rel_norm(grads1['neighborlist'], grads1['dense'])
+    emit('bf16_aspirin_klist_vs_dense', step1_grad_rel_norm=rel,
+         bar=BF16_KLIST_VS_DENSE)
+    check(rel <= BF16_KLIST_VS_DENSE,
+          f'bf16 aspirin K-list vs dense step 1: {rel}')
+    # the CLI warm-starts from the checkpoint's own config: a bf16 copy
+    with tempfile.TemporaryDirectory() as tmp:
+        start_path = os.path.join(tmp, 'bf16_start.msgpack')
+        base = load_model(CKPT)
+        bf16 = NewtonNet(**dict(base.config_dict(),
+                                pallas_dot_dtype='bfloat16'), device='cuda')
+        bf16.load_state_dict(base.state_dict())
+        save_model(start_path, bf16)
+        settings = md17_settings(None, 1)
+        settings['model'].update(pallas_dot_dtype='bfloat16',
+                                 pretrained_model={'path': start_path})
+        seconds, launches, row, best = cli_epoch(torch, fd, fdd, fk,
+                                                 settings)
+    emit('bf16_aspirin_cli_epoch', seconds=seconds, launches=launches,
+         log={k: row[k] for k in ('step', 'train_loss', 'val_loss',
+                                  'test_loss', 'test_gradient_force_mae',
+                                  'steps_per_s')})
+    check(row['step'] == '95', f'expected 95 steps, got {row["step"]}')
+    check(all(launches.get(k, 0) > 0 for k in BF16_DENSE),
+          f'bf16 aspirin CLI epoch launched {launches}')
+    out['cli_epoch_dense'] = launches
+    return out
+
+
+def phase_bf16_lj_train(torch, fd, fdd, fk):
+    """Phase 11c: LJ_CONFIG's fine-tuning of LJ_CKPT as a kernel='pallas'
+    bf16 model (F=48, prefetch 0, B=12, lj_pallas_data_settings), 10 steps
+    dense and over plain precomputed K-lists with fp32 and with bf16 edges
+    (10c's layouts) against the JAX package's bf16 steps
+    (JAX_BF16_LJ_STEP_*, check_bf16_steps; phase 9c's floors); the K-list
+    step 1 gradients' distance from the dense one, printed; one K-list
+    epoch through the CLI's entry point. -> {what: launches}."""
+    import tempfile
+
+    import yaml
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    with open(LJ_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    loss_fns = get_loss_by_string(cfg['training']['loss'])
+    lr = cfg['training']['optimizer']['adam']['lr']
+    clip = cfg['training']['clip_grad']
+    out, grads1 = {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        write_lj_dataset(root)
+        for layout, (gm, cd) in BF16_LJ_LAYOUTS.items():
+            train_gen, _, _, stats = parse_train_test(
+                seed=0, **lj_pallas_data_settings(root, gm))
+            it = iter(train_gen)
+            batches = [{k: torch.as_tensor(v).cuda()
+                        for k, v in next(it).items()} for _ in range(10)]
+
+            def start(gm=gm, stats=stats, **changes):
+                model = lj_pallas_model(torch, gm, **changes)
+                set_scalers(model.core, model.output_properties, stats,
+                            {'energy': dict(cfg['training']['fit_scalers'])})
+                return model.requires_grad_(True)
+            if layout == 'dense':
+                loss64, ulp_term = float64_loss(fd, loss_fns[0], batches[0],
+                                                start())
+                bar1 = max(ulp_term / loss64, LJ_STEP1_REL)
+            reset_counts(fd, fdd, fk)
+            losses, norms, step_s, g1, _, trainer = xla_steps(
+                torch, start(compute_dtype=cd, pallas_dot_dtype='bfloat16'),
+                loss_fns, batches, 'auto', lr=lr, clip=clip)
+            launches = {k: v for k, v in lj_counts(fd, fdd, fk).items() if v}
+            check(trainer.fast_grad, f'bf16 LJ {layout}: not fastgrad')
+            grads1[layout] = g1
+            bars = check_bf16_steps(
+                f'bf16 LJ {layout}', losses, norms,
+                JAX_BF16_LJ_STEP_LOSS[layout],
+                JAX_BF16_LJ_STEP_GRAD_NORM[layout],
+                JAX_BF16_LJ_STEP_SHIFT[layout], bar1,
+                norm_bar=2e-3 if gm == 'dense' else 1e-3)
+            emit('bf16_lj_train', layout=layout, loss=losses,
+                 grad_norm=norms, jax_loss=JAX_BF16_LJ_STEP_LOSS[layout],
+                 jax_grad_norm=JAX_BF16_LJ_STEP_GRAD_NORM[layout],
+                 diff_and_bar=bars, step1_loss_floor=bar1,
+                 step_ms=[1e3 * t for t in step_s],
+                 step_ms_median=1e3 * statistics.median(step_s[1:]),
+                 launches_10_steps=launches)
+            want = BF16_DENSE if gm == 'dense' else BF16_KLIST + BF16_DUAL
+            check(all(launches.get(k, 0) > 0 for k in want),
+                  f'bf16 LJ {layout} steps launched {launches}')
+            out[f'train_{layout}_10_steps'] = launches
+            del trainer
+            torch.cuda.empty_cache()
+        emit('bf16_lj_klist_vs_dense', step1_grad_rel_norm={
+            layout: rel_norm(grads1[layout], grads1['dense'])
+            for layout in BF16_LJ_LAYOUTS if layout != 'dense'})
+        settings = dict(
+            cfg, general=dict(cfg['general'], device='cuda'),
+            data=lj_pallas_data_settings(root, 'neighborlist'),
+            model=dict(cfg['model'], **LJ_PALLAS,
+                       pallas_dot_dtype='bfloat16'),
+            training=dict(cfg['training'], epochs=1))
+        seconds, launches, row, _ = cli_epoch(torch, fd, fdd, fk, settings)
+    emit('bf16_lj_cli_epoch', config=LJ_CONFIG[len(ROOT) + 1:],
+         model=settings['model'], seconds=seconds, launches=launches,
+         log={k: row[k] for k in ('step', 'train_loss', 'val_loss',
+                                  'test_loss', 'steps_per_s')})
+    check(all(launches.get(k, 0) > 0 for k in BF16_KLIST + BF16_DUAL),
+          f'bf16 LJ CLI epoch launched {launches}')
+    out['cli_epoch_neighborlist'] = launches
+    return out
+
+
+def box_step_timings(torch, steps):
+    """Phase 11d's timing: the box steps of `steps` ({dot dtype: one_step})
+    taken three times each in turns (host clock, synchronised), then one
+    of each under torch.profiler. -> {dot dtype: step ms (median), device
+    busy ms, idle share, K5-K8 device ms, K8's share of the busy time}."""
+    ms = {dot: [] for dot in steps}
+    for _ in range(3):
+        for dot, one_step in steps.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            one_step()
+            torch.cuda.synchronize()
+            ms[dot].append(1e3 * (time.perf_counter() - t))
+    out = {}
+    for dot, one_step in steps.items():
+        prof = profile_call(torch, one_step)
+        busy, fam = prof['device_busy_ms'], prof['kernel_ms']
+        med = statistics.median(ms[dot])
+        out[dot] = {'step_ms': ms[dot], 'step_ms_median': med,
+                    'device_busy_ms': busy,
+                    'device_idle_share_vs_unprofiled': 1.0 - busy / med,
+                    **{f'{k}_ms': fam.get(name, 0.0) for k, name in (
+                        ('k8', 'klist_dual_bwd'), ('k7', 'klist_dual_fwd'),
+                        ('k6', 'klist_bwd'), ('k5', 'klist_fwd'))},
+                    'k8_share_of_busy': fam.get('klist_dual_bwd', 0.0)
+                    / busy, 'top_device_ms': prof['top_device_ms']}
+    return out
+
+
+def bf16_dual_timing(torch, fk, errs, launches, phase11):
+    """Phase 11e: K7/K8 in bf16 mode beside fp32 mode at the box shape
+    (B=1, N=4096, K=88, F=128, R=20, bf16 edges), full and first layer,
+    with their plain bf16 versions' times (bf16_row: CUDA events in turns)
+    and bounds at the bf16 peak or by bytes, and the same at F=48 (the LJ
+    width) in each row's `widths`; the launches of the aspirin K-list
+    fine-tuning's 10 steps, and of every phase 11 path in `phase11`. ->
+    the `kernels` rows."""
+    rows = []
+    B, N, K, R = 1, BOX_ATOMS, BOX_K_MAX, 20
+    for name in BF16_DUAL:
+        first = '_first' in name
+        fwd = name.startswith('klist_dual_fwd')
+        kind = 'klist_dual_fwd' if fwd else 'klist_dual_bwd'
+        row = None
+        for F in (128, 48):
+            ins, tans, cots = klist_inputs(torch, B, N, K, F, R, first,
+                                           torch.bfloat16, seed=31)
+            args = dual_args(ins, tans)
+
+            def run(dot, ref=False, first=first, fwd=fwd, args=args,
+                    cots=cots):
+                if fwd:
+                    f = fk.klist_dual_fwd_ref if ref else fk.klist_dual_fwd
+                    return f(*args, first_layer=first, dot_dtype=dot)
+                f = fk.klist_dual_bwd_ref if ref else fk.klist_dual_bwd
+                return f(*args, *cots, first_layer=first, dot_dtype=dot)
+            flops, nbytes = klist_work(B, N, K, F, R, kind, first, 2)
+            r = bf16_row(torch, name, 'klist', run, flops, nbytes, errs,
+                         launches, dict(B=B, N=N, K=K, F=F, R=R), inner=3)
+            if row is None:
+                row = r
+            else:
+                row['widths'] = {str(F): {k: r[k] for k in (
+                    'ms', 'fp32_ms', 'plain_ms', 'bound_ms', 'bound_by',
+                    'shape')}}
+            del ins, tans, cots, args
+            torch.cuda.empty_cache()
+        row['phase11_launches'] = {what: n.get(name, 0)
+                                   for what, n in phase11.items()}
+        rows.append(row)
+    emit('timing', what='K7/K8 in bf16 mode beside fp32 mode',
+         peak_bf16_tflops=PEAK_BF16_FLOPS / 1e12,
+         rows={r['name']: {k: r[k] for k in (
+             'ms', 'fp32_ms', 'plain_ms', 'bound_ms', 'shape', 'widths',
+             'phase11_launches')} for r in rows})
+    return rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4232,7 +4789,7 @@ def main():
     # 2. build: K9-K12's libraries and K1-K8's of every width the script
     # runs (the checkpoints' 128, phase 3's 32 and 64, and phases 9a and
     # 9d's), one library per (padded width, padded), and the bf16 libraries
-    # of K1/K2 and K5/K6 at phase 10's widths
+    # of K1/K2 and K5-K8 at phases 10 and 11's widths
     t0 = time.perf_counter()
     report = _build.build_all(widths=BUILD_WIDTHS, bf16_widths=BF16_WIDTHS)
     ptxas = {}
@@ -4260,7 +4817,9 @@ def main():
             elif entry and 'registers' in line:
                 lib[entry]['registers'] = int(
                     re.search(r'Used (\d+) registers', line).group(1))
-            elif entry and 'spill' in line:
+            elif entry and 'spill' in line and 'registers' not in lib[entry]:
+                # the entry's own properties come before its registers;
+                # those after them are the out-of-line functions' it calls
                 lib[entry]['spill_bytes'] = sum(
                     int(v) for v in re.findall(r'(\d+) bytes spill', line))
     emit('build', seconds=time.perf_counter() - t0,
@@ -4513,6 +5072,22 @@ def main():
     emit('bf16_launches', serve_500_frames=bf16_dense_launches,
          lj_per_request=bf16_lj_launches, per_box_request=bf16_box_launches)
     torch.cuda.empty_cache()
+    # 11. the bf16 mode of K7/K8 against their plain versions, then
+    # fine-tuning bf16 pallas models: the aspirin checkpoint (dense, over
+    # K-lists, a dense CLI epoch), the LJ checkpoint (dense, over K-lists
+    # with fp32 and bf16 edges, a K-list CLI epoch), the box (three steps)
+    bf16_dual_errs = phase_bf16_dual_kernels(torch, fk)
+    p11 = phase_bf16_aspirin_train(torch, fd, fdd, fk)
+    p11.update({f'lj_{what}': n for what, n in phase_bf16_lj_train(
+        torch, fd, fdd, fk).items()})
+    p11['per_box_step'], bf16_box_step, _ = phase_box_train(
+        torch, fk, model, 'bfloat16')
+    bf16_box_t = box_step_timings(
+        torch, {'bfloat16': bf16_box_step, 'float32': box_step})
+    emit('bf16_box_steps', **bf16_box_t)
+    del bf16_box_step
+    emit('bf16_train_launches', **p11)
+    torch.cuda.empty_cache()
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -4648,6 +5223,10 @@ def main():
                         {**bf16_dense_launches, **bf16_box_launches})
     emit('bf16_requests', box_request_ms={'bf16': bf16_box_ms['bf16_ms'],
                                           'fp32': bf16_box_ms['fp32_ms']})
+    # 11e. K7/K8 in bf16 mode beside fp32 mode; their launches on the
+    # aspirin K-list fine-tuning's 10 steps (and on every phase 11 path)
+    rows += bf16_dual_timing(torch, fk, bf16_dual_errs,
+                             p11['train_neighborlist_10_steps'], p11)
     # 9d. K1-K8 at the LJ width beside 64 and at 256 (the prediction's
     # comparisons, 128 in the rows above) and their launches on phase 9's
     # paths

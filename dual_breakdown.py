@@ -7,7 +7,7 @@ with `k6k1`, kernels K6 (klist_bwd_kernel) and K1 (pair_fwd_kernel).
 
     python3 dual_breakdown.py [k2k7 | k6k1 | k5k11 | k1train ROOT... |
                                steptime ROOT... | kerneltime ROOT... |
-                               k2diag ROOT...]
+                               k2diag ROOT... | k78sass ROOT ROOT]
 
 Builds the source as it is and in variants with one part taken out
 (written to newtonnet_tpu_torch/_build/dual_breakdown/, gitignored; all
@@ -68,6 +68,18 @@ stack and spills and the SASS instruction counts by opcode (cuobjdump
 preparation kernels. A last line gives the opcode counts of the second
 root minus the first's, per function. E.g. `k2diag runs/parent .`.
 
+With `k78sass ROOT ROOT` it builds csrc/fused_klist.cu of both checkouts
+as ops/_build.py builds the fp32 libraries of F = 48, 128 and 256 (all
+nvcc runs at once, into newtonnet_tpu_torch/_build/dual_breakdown/) and
+compares their SASS (cuobjdump -sass) function by function, instruction
+by instruction (addresses, encodings and the anonymous namespace's hash
+dropped): one JSON line per width with the functions identical in both,
+those that differ and those in one checkout only. Then the ptxas
+registers, stack and spills of K7 and K8 (klist_dual_fwd_kernel,
+klist_dual_bwd_kernel) in the second checkout's fp32 and bf16 libraries
+of each width. E.g. `k78sass runs/parent .`: the fp32 libraries should
+compile the parent's code.
+
 With `k5k11`, kernel K5 (klist_fwd_kernel, csrc/fused_klist.cu: k5_prod)
 as it is (16-atom tiles, 128 slot rows a step), with 8-atom tiles (m64: 64
 rows a step, K6's), with two slots unrolled in its elementwise passes
@@ -94,6 +106,7 @@ N=4096, K=88, bf16 edges; CUDA events, chip_smoke.time_ms), full and
 first layer, no weight cotangents.
 '''
 import ctypes
+import difflib
 import json
 import os
 import re
@@ -497,6 +510,95 @@ def k2_sass(so):
     return out
 
 
+KLIST_ANON = re.compile(r'_GLOBAL__N__[0-9a-f]+_\d+_fused_klist_cu_[0-9a-f]+')
+
+
+def klist_sass(so):
+    """{function: [instruction]} of a fused_klist library's SASS, the
+    anonymous namespace's hash, addresses and encodings dropped."""
+    from newtonnet_tpu_torch.ops import _build
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), 'cuobjdump')
+    text = subprocess.run([cuobjdump, '-sass', so], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+    out, cur = {}, None
+    for line in text.splitlines():
+        if 'Function : ' in line:
+            cur = out.setdefault(KLIST_ANON.sub(
+                '_', line.split('Function : ', 1)[1].strip()), [])
+            continue
+        m = re.match(r'\s*/\*[0-9a-f]{4,}\*/\s+(.*?)\s*/\* 0x', line)
+        if cur is not None and m:
+            cur.append(KLIST_ANON.sub('_', m.group(1)))
+    return out
+
+
+def klist_dual_ptxas(log):
+    """{kernel<F,first,edge type>: {registers, stack, spill_bytes}} of K7 and
+    K8 in an nvcc -Xptxas -v log: the entry's own properties, which
+    ptxas prints before its registers."""
+    out, entry = {}, None
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            m = re.search(r'(klist_dual_(?:fwd|bwd)_kernel)ILi(\d+)ELb(\d)E'
+                          r'(f|13__nv_bfloat16)E', line)
+            entry = (f'{m.group(1)}<{m.group(2)},{m.group(3)},'
+                     f'{"f32" if m.group(4) == "f" else "bf16"} edges>'
+                     if m else None)
+            if entry:
+                out[entry] = {}
+        elif entry and 'stack frame' in line and 'registers' not in \
+                out[entry]:
+            v = [int(x) for x in re.findall(r'(\d+) bytes', line)]
+            out[entry].update(stack=v[0], spill_bytes=v[1] + v[2])
+        elif entry and 'Used' in line and 'registers' in line:
+            out[entry]['registers'] = int(
+                re.search(r'Used (\d+) registers', line).group(1))
+            entry = None
+    return out
+
+
+def k78sass(roots, card):
+    """The K7/K8 build lines (module docstring)."""
+    from newtonnet_tpu_torch.ops import _build
+    out_dir = os.path.join(_build.BUILD_DIR, 'dual_breakdown')
+    os.makedirs(out_dir, exist_ok=True)
+    widths = (48, 128, 256)
+    jobs = {}
+    for r, root in enumerate(roots[:2]):
+        for F in widths:
+            for dt in ('float32',) + (('bfloat16',) if r == 1 else ()):
+                so = os.path.join(out_dir, f'k78sass_{r}_{F}_{dt}.so')
+                cmd = [_build._nvcc(), *_build.flags('fused_klist', F, dt),
+                       '-o', so, os.path.join(root, 'newtonnet_tpu_torch',
+                                              'csrc', 'fused_klist.cu')]
+                jobs[(r, F, dt)] = (so, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True))
+    logs = {}
+    for key, (so, proc) in jobs.items():
+        logs[key] = proc.communicate(timeout=1200)[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc {key} failed:\n{logs[key][-3000:]}')
+    for F in widths:
+        a = klist_sass(jobs[(0, F, 'float32')][0])
+        b = klist_sass(jobs[(1, F, 'float32')][0])
+        both = sorted(set(a) & set(b))
+        differ = [f for f in both if a[f] != b[f]]
+        print(json.dumps({
+            'F': F, 'roots': roots[:2], 'fp32_library_functions': len(b),
+            'identical': len(both) - len(differ), 'differ': differ,
+            'only_first': sorted(set(a) - set(b)),
+            'only_second': sorted(set(b) - set(a)),
+            # the first lines where each differing function differs
+            'diff_excerpts': {f: list(difflib.unified_diff(
+                a[f], b[f], n=1, lineterm=''))[2:40] for f in differ},
+            'card': card}), flush=True)
+    print(json.dumps({'ptxas_second_root': {
+        f'F={F} {dt}': klist_dual_ptxas(logs[(1, F, dt)])
+        for F in widths for dt in ('float32', 'bfloat16')}, 'card': card}),
+        flush=True)
+
+
 def k2diag(roots, card):
     """The K2 lines (module docstring): one process per checkout root."""
     sass = []
@@ -763,6 +865,9 @@ def main():
         return 0
     if sys.argv[1:2] == ['k2diag']:
         k2diag(sys.argv[2:], card)
+        return 0
+    if sys.argv[1:2] == ['k78sass']:
+        k78sass(sys.argv[2:], card)
         return 0
     libs = build()
     args, cots = cs.dual_inputs(torch, 10, 24, 128, 20, seed=0)

@@ -59,23 +59,30 @@
 // 215 KB. The host functions return the cudaError_t of the launch.
 //
 // bf16 mode (a library built with -DNN_BF16: kBF; the JAX package's
-// pallas_dot_dtype bfloat16) of K5 and K6. The Pallas K-list kernels round
+// pallas_dot_dtype bfloat16) of K5-K8. The Pallas K-list kernels round
 // to bf16 both operands of every product (pallas_klist.py `_mk_dot`,
-// `_mk_dotT`: the chain me, p, phi, K6's cotangent products dh, dmsg, drbf
-// and its weight cotangents) and accumulate in fp32. Here each runs as
-// mma.sync m16n8k16 bf16 with fp32 accumulation (bf16_mma.cuh), one per 16
-// depth steps of a 16 x 8 tile where 3xTF32 takes six m16n8k8. The weights
-// are rounded once per launch by klist_prep_kernel, in the same product
-// table and order, chunk-major in chunks of 32 depth steps (two k-steps)
-// of one weight or of each of two, rows of 16 words XOR-swizzled
-// (bf16_swz) so that the B fragments' 32-bit loads hit 32 banks; they
-// stream through the same two-slot ring. The slot operands are rounded
-// where a fragment is loaded (rounding is idempotent). Every elementwise
-// operation and every sum stays fp32, on the same fp32 slot buffers, and
-// bf16 edges are read into fp32 first, so the kernels and the plain
+// `_mk_dotT`: the chains me, p, phi and, in K7/K8, their tangents medot,
+// pdot, phidot; the cotangent products dh, dmsg, drbf of K6 and dh, dhdot,
+// dmsg, dmsgdot of K8; the weight cotangents) and accumulate in fp32. Here
+// each runs as mma.sync m16n8k16 bf16 with fp32 accumulation
+// (bf16_mma.cuh), one per 16 depth steps of a 16 x 8 tile where 3xTF32
+// takes six m16n8k8. The weights are rounded once per launch by the prep
+// kernels into chunks of 32 depth steps (two k-steps), rows of 16 words
+// XOR-swizzled (bf16_swz) so that the B fragments' 32-bit loads hit 32
+// banks: klist_prep_kernel (K5/K6, in their product table and order,
+// chunks of one weight or of each of two, through the same two-slot ring),
+// klist_dual_fwd_prep_kernel (K7, n-major rows, swizzled as they stage,
+// through a two-slot ring with one chunk in flight) and
+// klist_dual_bwd_prep_kernel (K8, its products' B operands chunk-major,
+// through a ring of up to four slots in the space of the fp32 one). The
+// slot operands are rounded where a fragment is loaded (rounding is
+// idempotent); K7 keeps its slot buffers' (hi, lo) layout, holding (x, 0).
+// Every elementwise operation and every sum stays fp32, on the same fp32
+// slot buffers, the weight partials are summed in the same fixed order,
+// and bf16 edges are read into fp32 first, so the kernels and the plain
 // versions (ops/fused_klist.py, dot_dtype='bfloat16') differ only in
-// summation order. A bf16 library has no K7/K8 (their bf16 mode is not
-// ported: ROADMAP.md B); its nn_klist_dual_* return cudaErrorInvalidValue.
+// summation order. The fp32 libraries compile the code they compiled
+// before bf16 mode existed (`if constexpr` on kBF).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -85,7 +92,7 @@
 
 namespace {
 
-// The library's mode: K5/K6 with the Pallas kernels' bf16 products
+// The library's mode: K5-K8 with the Pallas kernels' bf16 products
 // (ops/_build.py builds it with -DNN_BF16 for pallas_dot_dtype bfloat16)
 // or fp32.
 #ifdef NN_BF16
@@ -93,7 +100,7 @@ constexpr bool kBF = true;
 #else
 constexpr bool kBF = false;
 #endif
-// Elements of K5/K6's prepared weights' type per uint2 of the scratch:
+// Elements of K5-K7's prepared weights' type per uint2 of the scratch:
 // four bf16, or one (hi, lo) tf32 pair.
 constexpr int kEPP = kBF ? 4 : 1;
 // bf16 weight chunks: depth steps (two m16n8k16 k-steps) and 32-bit words
@@ -329,6 +336,11 @@ __global__ void klist_pad_weights_kernel(const float* __restrict__ We,
 // * Past F=128 (wide) a tile has 2 slots of its 8 atoms (16 slot rows:
 //   each warp takes all of them and an eighth of the columns), chunks of 8
 //   depth rows in a ring of 3, so that it fits: 217 KB at F=256, R=20.
+// * bf16 mode: the products' B operands are prepared once per launch
+//   (klist_dual_bwd_prep_kernel, into the launch's wpart after the
+//   partials) and stream as 32-depth chunks of bf16 words through a ring
+//   of 4 slots (2 past F=128) in the fp32 ring's space; the shared memory
+//   is the fp32 mode's.
 template <int F>
 struct K8Shape {
   static constexpr int TJ = tj_d(F);    // list slots per tile
@@ -342,7 +354,61 @@ struct K8Shape {
   static constexpr int TLD = KC + 4;    // a chunk of W^T rows (F x TLD)
   static constexpr int RING =
       KC * WLD > F * TLD ? KC * WLD : F * TLD;  // floats per ring slot
+  // bf16 mode: chunk slots of KB depth steps (F rows of KBW words) in the
+  // same space
+  static constexpr int BSTAGES = F > 128 ? 2 : 4;
+  static_assert(BSTAGES * F * KBW <= STAGES * RING, "the bf16 ring fits");
 };
+
+// K8's prepared weights in bf16 mode (klist_dual_bwd_prep_kernel), in
+// 32-bit words: product 0 is We (depth pad32(R)), then per branch br
+// products 1 + 4br.. 4 + 4br: Wa, Wb, Wb^T, Wa^T (depth F).
+__host__ __device__ inline size_t k8_prep_offset(int F, int R, int prod) {
+  return prod == 0 ? 0
+                   : (size_t)F * pad32(R) / 2 +
+                         (size_t)(prod - 1) * F * F / 2;
+}
+
+// The B operands of K8's products rounded to bf16, once per launch (bf16
+// mode): product prod of k8_prep_offset is B(q, n) = W[q][n] (We, Wa, Wb)
+// or W[n][q] (Wb^T, Wa^T), zero past R and past the true width Fg, each
+// chunk-major in chunks of KB depth steps by F rows n of KBW words, word w
+// of row n at n*KBW + (w ^ bf16_swz(n)) holding depths 2w, 2w + 1 of the
+// chunk (the lower in the low half): a chunk stages as one contiguous
+// copy, and its B fragments' loads hit 32 banks, as K5/K6's bf16 chunks.
+__global__ void klist_dual_bwd_prep_kernel(const float* __restrict__ We,
+                                           const float* __restrict__ W1a,
+                                           const float* __restrict__ W1b,
+                                           const float* __restrict__ W2a,
+                                           const float* __restrict__ W2b,
+                                           unsigned* __restrict__ out, int F,
+                                           int Fg, int R) {
+  const size_t n_e = k8_prep_offset(F, R, 1), ff = (size_t)F * F / 2;
+  const size_t total = k8_prep_offset(F, R, 9);
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int prod = e < n_e ? 0 : 1 + (int)((e - n_e) / ff);
+    const size_t local = e < n_e ? e : (e - n_e) % ff;
+    const int ch = (int)(local / (F * KBW)), rem = (int)(local % (F * KBW));
+    const int n = rem / KBW, w = (rem % KBW) ^ bf16_swz(n);
+    const int kind = (prod - 1) & 3, br = (prod - 1) >> 2;  // prod > 0
+    const float* W = kind == 0 || kind == 3 ? (br ? W2a : W1a)
+                                            : (br ? W2b : W1b);
+    unsigned word = 0;
+    for (int h = 0; h < 2; ++h) {
+      const int q = ch * KB + 2 * w + h;
+      float v;
+      if (prod == 0)
+        v = q < R && n < Fg ? We[(size_t)q * Fg + n] : 0.0f;
+      else if (q >= Fg || n >= Fg)
+        v = 0.0f;
+      else
+        v = kind < 2 ? W[(size_t)q * Fg + n] : W[(size_t)n * Fg + q];
+      word |= (unsigned)bf16_bits(v) << (16 * h);
+    }
+    out[e] = word;
+  }
+}
 
 // x rounded to tf32, to nearest with ties away from zero: the bits of
 // cvt.rna.tf32.f32 for finite x, from two integer operations. The
@@ -438,7 +504,9 @@ __device__ __forceinline__ void stage_chunk(const float* __restrict__ W,
 // STAGES - 1 chunks are in flight while one multiplies, one __syncthreads
 // per chunk. Every warp reads rows of other warps' slots, so A must be
 // written before the call; it may be overwritten after it (the last
-// barrier orders that). All threads of the
+// barrier orders that). bf16 mode: W is the product's prepared B operand
+// (klist_dual_bwd_prep_kernel; TRANS is in its layout), one bf16 mma per
+// 16 depth steps. All threads of the
 // block must call it. Not inlined: K8 runs 18 products per tile, and one
 // copy of each of the two variants keeps the kernel's code small enough
 // for the instruction cache.
@@ -458,6 +526,49 @@ __device__ __noinline__ void mma_product(const float* __restrict__ A,
   for (int j = 0; j < NT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
   const float* a_lo = A + (size_t)(m0 + g) * lda;  // rows g and g + 8
   const float* a_hi = a_lo + (size_t)8 * lda;
+  if constexpr (kBF) {
+    // W is the prepared product (klist_dual_bwd_prep_kernel), its chunks
+    // of KB depth steps streamed whole through a ring of BSTAGES slots,
+    // BSTAGES - 1 in flight while one multiplies: one m16n8k16 bf16 mma
+    // per 16 x 8 tile and 16 depth steps, A rounded to bf16 where its
+    // fragments are loaded (zero past Q).
+    constexpr int BST = S::BSTAGES, CHW = F * KBW;  // words of a chunk
+    const unsigned* Wp = reinterpret_cast<const unsigned*>(W);
+    unsigned* rw = reinterpret_cast<unsigned*>(ring);
+    const int nch = (Q + KB - 1) / KB;
+    auto stage = [&](int ch) {  // one commit group, empty past the last
+      if (ch < nch)
+        for (int v = threadIdx.x; v < CHW / 4; v += kThreads)
+          cp_async16(rw + (ch % BST) * CHW + 4 * v,
+                     Wp + (size_t)ch * CHW + 4 * v);
+      cp_async_commit();
+    };
+    auto a_at = [&](const float* row, int k) {  // depths k, k + 1
+      return pack_bf16(k < Q ? row[k] : 0.0f, k + 1 < Q ? row[k + 1] : 0.0f);
+    };
+    const int sw = bf16_swz(g);  // rows n0 + 8j + g: n & 7 == g
+#pragma unroll
+    for (int st = 0; st < BST - 1; ++st) stage(st);
+    for (int ch = 0; ch < nch; ++ch) {
+      cp_async_wait<BST - 2>();
+      __syncthreads();  // chunk ch is in; every warp is done with ch - 1
+      stage(ch + BST - 1);
+      const unsigned* wc = rw + (ch % BST) * CHW;
+#pragma unroll
+      for (int s = 0; s < KB / 16; ++s) {
+        const int k = ch * KB + s * 16 + 2 * t;  // depth of the A words
+        const unsigned a[4] = {a_at(a_lo, k), a_at(a_hi, k),
+                               a_at(a_lo, k + 8), a_at(a_hi, k + 8)};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const unsigned* wr = wc + (n0 + j * 8 + g) * KBW;
+          const unsigned bw[2] = {wr[(s * 8 + t) ^ sw],
+                                  wr[(s * 8 + t + 4) ^ sw]};
+          mma_bf16(d[j], a, bw);
+        }
+      }
+    }
+  } else {
   const int nch = (Q + KC - 1) / KC;
 #pragma unroll
   for (int st = 0; st < KSTAGES - 1; ++st) {  // one group per stage
@@ -494,6 +605,7 @@ __device__ __noinline__ void mma_product(const float* __restrict__ A,
         mma3(d[j], ah, al, bh, bl);
       }
     }
+  }
   }
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
@@ -758,6 +870,11 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
   const int warp = threadIdx.x >> 5;
   float* wp = wpart + (size_t)blockIdx.x * wgrad_size(F, R);
   float acc[TJ][C], dmsg[TJ][C], dmsgdot[TJ][C];
+  // the B operand of a product: the weight W, or in bf16 mode the
+  // prepared product prod (k8_prep_offset), which the launch passes as We
+  auto wt = [&](int prod, const float* W) {
+    return kBF ? We + k8_prep_offset(F, R, prod) : W;
+  };
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const bool first_tile = tile == (int)blockIdx.x;
@@ -785,9 +902,9 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
       __syncthreads();
       load_slots<TJ, true, E>(mask, dir, dirdot, rbf, rbfdot, b, i0, k0, N,
                               K, R, mask_s, dir_s, dirdot_s, rbf_s, rbfdot_s);
-      dual_messages_tc<F, E>(rbf_s, rbfdot_s, R, We, ring, c_s, npi_s,
-                             npidot_s, cat, catdot, CW, Fg, b, i, k0, N, K,
-                             mask_s, msg_s, msgdot_s, acc);
+      dual_messages_tc<F, E>(rbf_s, rbfdot_s, R, wt(0, We), ring, c_s,
+                             npi_s, npidot_s, cat, catdot, CW, Fg, b, i, k0,
+                             N, K, mask_s, msg_s, msgdot_s, acc);
 
 #pragma unroll 1  // one copy of the branch body: code size
       for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
@@ -795,7 +912,8 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
         const float* Wb = br == 0 ? W1b : W2b;
         float* wpa = wp + (size_t)R * F + (size_t)(2 * br) * F * F;
         float* wpb = wpa + (size_t)F * F;
-        mma_rows<F, false>(msg_s, LD, F, Wa, ring, c_s, acc);  // p
+        mma_rows<F, false>(msg_s, LD, F, wt(1 + 4 * br, Wa), ring, c_s,
+                           acc);  // p
 #pragma unroll
         for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -804,7 +922,8 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
             p_s[o] = acc[r][c];
             h_s[o] = silu_f(acc[r][c]);
           }
-        mma_rows<F, false>(msgdot_s, LD, F, Wa, ring, c_s, acc);  // pdot
+        mma_rows<F, false>(msgdot_s, LD, F, wt(1 + 4 * br, Wa), ring, c_s,
+                           acc);  // pdot
 #pragma unroll
         for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -817,14 +936,16 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
           // phi2, phi2dot -> the per-slot force cotangents:
           // dcat[force_j[d]] = phi2 dq[d,i] + phi2dot dqdot[d,i],
           // dcatdot[force_j[d]] = phi2 dqdot[d,i]
-          mma_rows<F, false>(h_s, LD, F, Wb, ring, c_s, acc);
+          mma_rows<F, false>(h_s, LD, F, wt(2 + 4 * br, Wb), ring, c_s,
+                             acc);
 #pragma unroll
           for (int r = 0; r < TJ; ++r)
 #pragma unroll
             for (int c = 0; c < C; ++c)
               g_s[(warp * TJ + r) * LD + lane + 32 * c] =
                   acc[r][c] * mask_s[warp * TJ + r];
-          mma_rows<F, false>(hdot_s, LD, F, Wb, ring, c_s, acc);
+          mma_rows<F, false>(hdot_s, LD, F, wt(2 + 4 * br, Wb), ring, c_s,
+                             acc);
 #pragma unroll
           for (int r = 0; r < TJ; ++r) {
             const int p = warp * TJ + r, k = k0 + r;
@@ -879,8 +1000,10 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
             gdot_s[p * LD + f] = dphidot * a;
           }
         }
-        wgrad_tc<F>(h_s, g_s, hdot_s, gdot_s, LD, F, wpb, init);  // dWb
-        mma_rows<F, true>(gdot_s, LD, F, Wb, ring, c_s, acc);  // dhdot
+        wgrad_tc<F, M, false, true, kBF>(h_s, g_s, hdot_s, gdot_s, LD, F,
+                                         wpb, init);  // dWb
+        mma_rows<F, true>(gdot_s, LD, F, wt(3 + 4 * br, Wb), ring, c_s,
+                          acc);  // dhdot
 #pragma unroll
         for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -890,7 +1013,8 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
             pdot_s[o] = d2silu_f(pv) * pdot_s[o] * acc[r][c];
             gdot_s[o] = dsilu_f(pv) * acc[r][c];  // dpdot
           }
-        mma_rows<F, true>(g_s, LD, F, Wb, ring, c_s, acc);  // dh
+        mma_rows<F, true>(g_s, LD, F, wt(3 + 4 * br, Wb), ring, c_s,
+                          acc);  // dh
 #pragma unroll
         for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -898,14 +1022,16 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
             const int o = (warp * TJ + r) * LD + lane + 32 * c;
             g_s[o] = dsilu_f(p_s[o]) * acc[r][c] + pdot_s[o];  // dp
           }
-        wgrad_tc<F>(msg_s, g_s, msgdot_s, gdot_s, LD, F, wpa, init);  // dWa
-        mma_rows<F, true>(g_s, LD, F, Wa, ring, c_s, acc);
+        wgrad_tc<F, M, false, true, kBF>(msg_s, g_s, msgdot_s, gdot_s, LD,
+                                         F, wpa, init);  // dWa
+        mma_rows<F, true>(g_s, LD, F, wt(4 + 4 * br, Wa), ring, c_s, acc);
 #pragma unroll
         for (int r = 0; r < TJ; ++r)
 #pragma unroll
           for (int c = 0; c < C; ++c)
             dmsg[r][c] = br == 0 ? acc[r][c] : dmsg[r][c] + acc[r][c];
-        mma_rows<F, true>(gdot_s, LD, F, Wa, ring, c_s, acc);
+        mma_rows<F, true>(gdot_s, LD, F, wt(4 + 4 * br, Wa), ring, c_s,
+                          acc);
 #pragma unroll
         for (int r = 0; r < TJ; ++r)
 #pragma unroll
@@ -916,13 +1042,14 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
       // ---- t = (dmsg + di_i) mask, tdot = (dmsgdot + didot_i) mask; dnpi,
       // dnpidot, dcat[np_j], dcatdot[np_j], dme, dmedot, dWe. me and medot
       // are recomputed.
-      mma_rows<F, false>(rbf_s, R, R, We, ring, c_s, acc);  // me
+      mma_rows<F, false>(rbf_s, R, R, wt(0, We), ring, c_s, acc);  // me
 #pragma unroll
       for (int r = 0; r < TJ; ++r)
 #pragma unroll
         for (int c = 0; c < C; ++c)
           p_s[(warp * TJ + r) * LD + lane + 32 * c] = acc[r][c];
-      mma_rows<F, false>(rbfdot_s, R, R, We, ring, c_s, acc);  // medot
+      mma_rows<F, false>(rbfdot_s, R, R, wt(0, We), ring, c_s,
+                         acc);  // medot
 #pragma unroll
       for (int r = 0; r < TJ; ++r) {
         const int p = warp * TJ + r, k = k0 + r;
@@ -951,7 +1078,8 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
           }
         }
       }
-      wgrad_tc<F>(rbf_s, hdot_s, rbfdot_s, g_s, R, R, wp, init);  // dWe
+      wgrad_tc<F, M, false, true, kBF>(rbf_s, hdot_s, rbfdot_s, g_s, R, R,
+                                       wp, init);  // dWe
     }
 
     if (i < N) {
@@ -1019,6 +1147,12 @@ klist_dual_bwd_kernel(const float* __restrict__ npi,
 // * Past F=128 (wide) a tile has 2 slots of its 8 atoms (16 slot rows:
 //   each warp takes all of them and an eighth of the columns) and chunks of
 //   8 depth steps, so that it fits: 227 KB at F=256.
+// * bf16 mode: the prepared weights are bf16 words (two depth steps each)
+//   in 32-depth chunks, a two-slot ring with one chunk in flight (We and
+//   the products at F=32 are one chunk each, and the stream stages only
+//   the next product's first chunk); the slot buffers hold (x, 0) in the
+//   fp32 mode's (hi, lo) layout, rounded where the fragments are loaded.
+//   The shared memory is the fp32 mode's.
 constexpr int K7_STAGES = 3;  // chunk slots of K7's weight ring
 
 template <int F>
@@ -1060,6 +1194,15 @@ __device__ __forceinline__ uint2 split2(float x) {
   return make_uint2(hi, tf32_rna(x - __uint_as_float(hi)));
 }
 
+// A slot operand of K7's products as its buffers hold it: split2(x), or in
+// bf16 mode (x, 0), rounded to bf16 where its fragments are loaded.
+__device__ __forceinline__ uint2 k7_operand(float x) {
+  if constexpr (kBF)
+    return make_uint2(__float_as_uint(x), 0u);
+  else
+    return split2(x);
+}
+
 __global__ void klist_dual_fwd_prep_kernel(const float* __restrict__ We,
                                            const float* __restrict__ W1a,
                                            const float* __restrict__ W1b,
@@ -1069,6 +1212,32 @@ __global__ void klist_dual_fwd_prep_kernel(const float* __restrict__ We,
                                            int Fg, int R) {
   const int Rp = pad32(R);
   const size_t n_e = (size_t)F * Rp, total = k7_prep_offset(F, R, 5);
+  if constexpr (kBF) {
+    // the same elements in bf16, two of consecutive depth q, q + 1 a word
+    // (the lower in the low half): row n of a block is Qp/2 words
+    unsigned* outw = reinterpret_cast<unsigned*>(out);
+    for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+         e < total / 2; e += (size_t)gridDim.x * blockDim.x) {
+      unsigned word = 0;
+      for (int h = 0; h < 2; ++h) {
+        const size_t el = 2 * e + h;
+        float v;
+        if (el < n_e) {
+          const int n = (int)(el / Rp), q = (int)(el % Rp);
+          v = q < R && n < Fg ? We[(size_t)q * Fg + n] : 0.0f;
+        } else {
+          const size_t e2 = el - n_e, ff = (size_t)F * F;
+          const int k = (int)(e2 / ff), r = (int)(e2 % ff);
+          const int n = r / F, q = r % F;
+          const float* W = k == 0 ? W1a : k == 1 ? W1b : k == 2 ? W2a : W2b;
+          v = q < Fg && n < Fg ? W[(size_t)q * Fg + n] : 0.0f;
+        }
+        word |= (unsigned)bf16_bits(v) << (16 * h);
+      }
+      outw[e] = word;
+    }
+    return;
+  }
   for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (size_t)gridDim.x * blockDim.x) {
     float v;
@@ -1092,6 +1261,19 @@ __global__ void klist_dual_fwd_prep_kernel(const float* __restrict__ We,
 template <int F>
 __device__ __forceinline__ void k7_stage(const uint2* __restrict__ Bt, int Qp,
                                          int ch, uint2* slot) {
+  if constexpr (kBF) {
+    // bf16 mode: per row n the KBW words of depth [ch*KB, ch*KB + KB),
+    // word w at n*KBW + (w ^ bf16_swz(n)), as KBW/4 16-byte copies
+    const unsigned* src = reinterpret_cast<const unsigned*>(Bt);
+    unsigned* dst = reinterpret_cast<unsigned*>(slot);
+    constexpr unsigned P = KBW / 4;
+    for (unsigned v = threadIdx.x; v < F * P; v += kThreads) {
+      const int n = (int)(v / P), part = (int)(v % P);
+      cp_async16(dst + n * KBW + ((part * 4) ^ bf16_swz(n)),
+                 src + (size_t)n * (Qp / 2) + (size_t)ch * KBW + part * 4);
+    }
+    return;
+  }
   constexpr int KC = K7Shape<F>::KC;
   constexpr unsigned P = KC / 2;  // a power of two: unsigned, a shift and
                                   // a mask (as K2's k2_stage)
@@ -1127,14 +1309,19 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
   using S = K7Shape<F>;
   constexpr int NT = F / (8 * S::CG);  // 16 x 8 tiles per warp and product
   constexpr int KC = S::KC;
+  // the ring: K7_STAGES slots of KC depth steps, two chunks in flight while
+  // one multiplies; bf16 mode: two slots of KB depth steps (F rows of KBW
+  // words), one in flight (a product of depth 32 is a single chunk there)
+  constexpr int NS = kBF ? 2 : K7_STAGES, AHEAD = NS - 1;
+  constexpr int SLOT = kBF ? F * KBW / 2 : S::RING;  // uint2 per slot
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int m0 = (warp % S::RG) * 16, n0 = (warp / S::RG) * (F / S::CG);
   const int o0 = t ^ ring_swz(g, KC);  // the swizzled pair of depth t
-  const int nch = Qp / KC;
+  const int nch = Qp / (kBF ? KB : KC);
   // chunk v of the stream from this product's chunk 0, one commit group
   auto stage = [&](int v) {
-    uint2* dst = ring + ((slot0 + v) % K7_STAGES) * S::RING;
+    uint2* dst = ring + ((slot0 + v) % NS) * SLOT;
     if (v < nch)
       k7_stage<F>(Bt, Qp, v, dst);
     else if (Bn != nullptr)
@@ -1151,20 +1338,49 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
       {A1 + (size_t)(m0 + g) * lda, A1 + (size_t)(m0 + g + 8) * lda},
       {A2 + (size_t)(m0 + g) * lda, A2 + (size_t)(m0 + g + 8) * lda}};
   if (!staged) {
-    stage(0);
-    stage(1);
+#pragma unroll
+    for (int v = 0; v < AHEAD; ++v) stage(v);
   }
   for (int ch = 0; ch < nch; ++ch) {
-    cp_async_wait<1>();
+    cp_async_wait<AHEAD - 1>();
     __syncthreads();  // chunk ch is in; every warp is done with ch - 1
-    stage(ch + 2);
-    const uint2* wc = ring + ((slot0 + ch) % K7_STAGES) * S::RING;
+    stage(ch + AHEAD);
+    const uint2* wc = ring + ((slot0 + ch) % NS) * SLOT;
     float d[2][NT][4];
 #pragma unroll
     for (int x = 0; x < 2; ++x)
 #pragma unroll
       for (int j = 0; j < NT; ++j)
         d[x][j][0] = d[x][j][1] = d[x][j][2] = d[x][j][3] = 0.0f;
+    if constexpr (kBF) {
+      // one m16n8k16 bf16 mma per tile and 16 depth steps; the slot
+      // buffers hold (x, 0) pairs, depths k and k + 1 one 16-byte load,
+      // rounded to bf16 here
+      const unsigned* wb = reinterpret_cast<const unsigned*>(wc);
+      const int sw = bf16_swz(g);  // rows n0 + 8j + g: n & 7 == g
+      auto a_at = [&](const uint2* row, int k) {
+        const uint4 v = *reinterpret_cast<const uint4*>(row + k);
+        return pack_bf16(__uint_as_float(v.x), __uint_as_float(v.z));
+      };
+#pragma unroll
+      for (int s = 0; s < KB / 16; ++s) {
+        const int k = ch * KB + s * 16 + 2 * t;  // depth of the A words
+        unsigned a[2][4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          a[x][0] = a_at(rows[x][0], k), a[x][1] = a_at(rows[x][1], k);
+          a[x][2] = a_at(rows[x][0], k + 8), a[x][3] = a_at(rows[x][1], k + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const unsigned* wk = wb + (n0 + j * 8 + g) * KBW;
+          const unsigned bw[2] = {wk[(s * 8 + t) ^ sw],
+                                  wk[(s * 8 + t + 4) ^ sw]};
+#pragma unroll
+          for (int x = 0; x < 2; ++x) mma_bf16(d[x][j], a[x], bw);
+        }
+      }
+    } else {
 #pragma unroll
     for (int s = 0; s < KC / 8; ++s) {  // k-steps of a chunk
       const int k = ch * KC + s * 8 + t;
@@ -1198,6 +1414,7 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
 #pragma unroll
         for (int x = 0; x < 2; ++x) mma_tf32(d[x][j], ah[x], bh[j]);
     }
+    }
 #pragma unroll
     for (int x = 0; x < 2; ++x)
 #pragma unroll
@@ -1218,7 +1435,7 @@ __device__ __noinline__ int k7_pair(const uint2* __restrict__ A1,
     }
   }
   __syncthreads();
-  return (slot0 + nch) % K7_STAGES;
+  return (slot0 + nch) % NS;
 }
 
 // The tile's per-slot mask, dir and dirdot (fp32), and rbf, rbfdot split
@@ -1253,8 +1470,8 @@ __device__ void k7_load_slots(const float* __restrict__ mask,
     const int i = i0 + p / TJ, k = k0 + p % TJ;
     const bool ok = i < N && k < K && r < R;
     const size_t at = slot_at(b, i, k, N, K) * R + r;
-    rbf2[p * ldh + r] = split2(ok ? ld(rbf + at) : 0.0f);
-    rbfdot2[p * ldh + r] = split2(ok ? ld(rbfdot + at) : 0.0f);
+    rbf2[p * ldh + r] = k7_operand(ok ? ld(rbf + at) : 0.0f);
+    rbfdot2[p * ldh + r] = k7_operand(ok ? ld(rbfdot + at) : 0.0f);
   }
 }
 
@@ -1309,7 +1526,7 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
     for (int d = 0; d < 3; ++d) eq_acc[d][c] = eqdot_acc[d][c] = 0.0f;
   }
 
-  const uint2* W1a = wprep + k7_prep_offset(F, R, 1);
+  const uint2* W1a = wprep + k7_prep_offset(F, R, 1) / kEPP;
   int slot = 0;  // the ring slot of the next product's first chunk
   for (int k0 = 0; k0 < K; k0 += TJ) {
     const bool last = k0 + TJ >= K;
@@ -1357,18 +1574,18 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
                               me * ai * ajdot) * a;
         inv_acc[c] += msg;
         invdot_acc[c] += msgdot;
-        msg2[p * LDA + f] = split2(msg);
-        msgdot2[p * LDA + f] = split2(msgdot);
+        msg2[p * LDA + f] = k7_operand(msg);
+        msgdot2[p * LDA + f] = k7_operand(msgdot);
       }
     }
 
 #pragma unroll 1  // one copy of the branch body: code size
     for (int br = 0; br < (FIRST ? 1 : 2); ++br) {
-      const uint2* Wa = wprep + k7_prep_offset(F, R, 1 + 2 * br);
-      const uint2* Wb = wprep + k7_prep_offset(F, R, 2 + 2 * br);
+      const uint2* Wa = wprep + k7_prep_offset(F, R, 1 + 2 * br) / kEPP;
+      const uint2* Wb = wprep + k7_prep_offset(F, R, 2 + 2 * br) / kEPP;
       // after phi: the second branch's Wa, or the next tile's We
       const bool last_br = FIRST || br == 1;
-      const uint2* Wn = !last_br ? wprep + k7_prep_offset(F, R, 3)
+      const uint2* Wn = !last_br ? wprep + k7_prep_offset(F, R, 3) / kEPP
                         : last   ? nullptr
                                  : wprep;
       slot = k7_pair<F>(msg2, msgdot2, LDA, F, Wa, Wb, F, slot, true, ring,
@@ -1379,9 +1596,10 @@ klist_dual_fwd_kernel(const float* __restrict__ npi,
         for (int c = 0; c < C; ++c) {
           const int p = warp * TJ + r, f = lane + 32 * c;
           const float pv = p_s[p * LDP + f], sg = sigmoid_f(pv);
-          h2[p * ldh + f] = split2(pv * sg);  // silu, silu' as silu_f, dsilu_f
-          hdot2[p * ldh + f] =
-              split2(sg * (1.0f + pv * (1.0f - sg)) * pdot_s[p * LDP + f]);
+          h2[p * ldh + f] = k7_operand(pv * sg);  // silu, silu' as silu_f,
+                                                  // dsilu_f
+          hdot2[p * ldh + f] = k7_operand(sg * (1.0f + pv * (1.0f - sg)) *
+                                          pdot_s[p * LDP + f]);
         }
       slot = k7_pair<F>(h2, hdot2, ldh, F, Wb, Wn, last_br ? Rp : F, slot,
                         true, ring, p_s, pdot_s);  // phi, phidot
@@ -2785,7 +3003,20 @@ cudaError_t launch_dual_bwd(const Args& a) {
   float* wpart = cout_<float>(a, 4);
   const float* W[5];
   for (int k = 0; k < 5; ++k) W[k] = cin<float>(a, 9 + k);
-  if (Fg != F) {  // the weights at width F, zero-padded, after the partials
+  if constexpr (kBF) {
+    // the products' weights in bf16 (zero-padded), after the partials; the
+    // kernel finds them at W[0]
+    unsigned* wprep = reinterpret_cast<unsigned*>(
+        wpart + (size_t)n_blocks * wgrad_size(F, R));
+    const size_t want = (k8_prep_offset(F, R, 9) + 255) / 256;
+    klist_dual_bwd_prep_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
+                                 a.stream>>>(W[0], W[1], W[2], W[3], W[4],
+                                             wprep, F, Fg, R);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    W[0] = reinterpret_cast<const float*>(wprep);
+  } else if (Fg != F) {  // the weights at width F, zero-padded, after the
+                         // partials
     float* wpad = wpart + (size_t)n_blocks * wgrad_size(F, R);
     const size_t want = (wgrad_size(F, R) + 255) / 256;
     klist_pad_weights_kernel<<<(unsigned)(want < 264 ? want : 264), 256, 0,
@@ -2912,7 +3143,7 @@ int nn_klist_bwd(const float* npi, const void* cat, const void* rbf,
 // (B,N,K,R) in the edge type; dir, dirdot (B,3,N,K), mask (B,N,K) f32;
 // We, W* f32 -> inv1, inv1dot (B,N,F), eq, eqdot (B,3,N,F) f32. Scratch:
 // 16-byte aligned, nn_klist_scratch_floats(F, R, 2) floats (the weights
-// split into tf32 pairs).
+// split into tf32 pairs, or in bf16).
 int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
                       const void* catdot, const void* rbf, const void* rbfdot,
                       const float* dir, const float* dirdot,
@@ -2921,15 +3152,11 @@ int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
                       float* inv1, float* eq, float* inv1dot, float* eqdot,
                       float* scratch, int B, int N, int K, int F, int R,
                       int first_layer, int bf16, void* stream) {
-#ifdef NN_BF16
-  return (int)cudaErrorInvalidValue;  // no K7 in a bf16 library
-#else
   Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
              W1a, W1b, W2a, W2b},
             {inv1, eq, inv1dot, eqdot, scratch},
             B, N, K, R, false, static_cast<cudaStream_t>(stream)};
   return run<DualFwd>(F, first_layer, bf16, a);
-#endif
 }
 
 // K8. Inputs of K7 plus di, didot (B,N,F) and dq, dqdot (B,3,N,F) f32.
@@ -2937,8 +3164,9 @@ int nn_klist_dual_fwd(const float* npi, const float* npidot, const void* cat,
 // f32, dcat, dcatdot (B,N,K,C) in the edge type and dw (R*F+4F^2).
 // The weights 16-byte aligned (cp.async). Scratch wpart, 16-byte aligned,
 // nn_klist_wpart_floats(min(B*ceil(N/8), max_blocks), F, R) floats (the
-// weight partials and, where F is no multiple of 32, the weights padded
-// to one); max_blocks bounds the grid (the wrapper passes the SM count).
+// weight partials and the weights prepared in bf16 or, in an fp32 library
+// where F is no multiple of 32, padded to one); max_blocks bounds the grid
+// (the wrapper passes the SM count).
 int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
                       const void* catdot, const void* rbf, const void* rbfdot,
                       const float* dir, const float* dirdot,
@@ -2949,16 +3177,12 @@ int nn_klist_dual_bwd(const float* npi, const float* npidot, const void* cat,
                       void* dcat, void* dcatdot, float* wpart, float* dw,
                       int B, int N, int K, int F, int R, int first_layer,
                       int bf16, int max_blocks, void* stream) {
-#ifdef NN_BF16
-  return (int)cudaErrorInvalidValue;  // no K8 in a bf16 library
-#else
   Args a = {{npi, npidot, cat, catdot, rbf, rbfdot, dir, dirdot, mask, We,
              W1a, W1b, W2a, W2b, di, dq, didot, dqdot},
             {dnpi, dnpidot, dcat, dcatdot, wpart, dw},
             B, N, K, R, false, static_cast<cudaStream_t>(stream),
             max_blocks};
   return run<DualBwd>(F, first_layer, bf16, a);
-#endif
 }
 
 // Dynamic shared memory of one block of K5 (kind 0), K6 (1), K7 (2) or K8
@@ -2985,11 +3209,12 @@ size_t nn_klist_scratch_floats(int F, int R, int kind) {
 
 // The weight partials' scratch (wpart) of a K6 or K8 launch of n_blocks
 // blocks at true width F, in floats: one partial at the padded width per
-// block and, where F is no multiple of 32, K8's zero-padded weights.
+// block and K8's weights: in bf16 its products' prepared B operands, in
+// fp32 where F is no multiple of 32 the weights zero-padded.
 size_t nn_klist_wpart_floats(int n_blocks, int F, int R) {
   const int Fp = padded_width(F);
   return (size_t)n_blocks * wgrad_size(Fp, R) +
-         (Fp != F ? wgrad_size(Fp, R) : 0);
+         (kBF ? k8_prep_offset(Fp, R, 9) : Fp != F ? wgrad_size(Fp, R) : 0);
 }
 
 }  // extern "C"

@@ -145,7 +145,9 @@ def dual_energy_nlist(model, z, pos, cell, v, nlist=None, dual_op=None):
     position tangent v (B, N, 3), differentiable in the parameters. The
     geometry's tangent comes from one forward-mode pass (torch.func.jvp);
     the pair level goes through dual_op, by default the fused dual op
-    (K7/K8 on the card; with plain=True its plain versions).'''
+    (K7/K8 on the card; with plain=True its plain versions). Its products
+    run in the model's pallas_dot_dtype, as the JAX package's
+    pallas_klist.py hands it to K7/K8.'''
     op = dual_op or fused_klist_interaction_dual
     core = model.core
     z = z.long()
@@ -175,7 +177,8 @@ def dual_energy_nlist(model, z, pos, cell, v, nlist=None, dual_op=None):
                                 kmask, tr)
         inv1, eq, inv1dot, eqdot = op(
             np_, npdot, cat_j, catdot_j, rbf, rbfdot, dir_t, dirdot_t, mask,
-            *_layer_weights(lp), first_layer=first)
+            *_layer_weights(lp), first_layer=first,
+            dot_dtype=model.pallas_dot_dtype)
         atom_node = atom_node + inv1
         atomdot = atomdot + inv1dot
         force_t = force_t + eq

@@ -30,8 +30,9 @@ trains energy, force, stress and virial losses.
 kernel='pallas' takes pallas_dot_dtype 'float32' or 'bfloat16': the
 products of K1/K2 (dense) and K5/K6 (neighbour lists) round their
 operands to bf16 where the JAX package's Pallas kernels do
-(ops/fused_dense.py, ops/fused_klist.py); training such a model is not
-ported (train/trainer.py refuses it).
+(ops/fused_dense.py, ops/fused_klist.py), and so do those of the K-list
+duals K7/K8 that train such a model (train/fastgrad.py; the dense duals
+K3/K4 take pallas_grad_dot_dtype).
 
 Not here: the charge, direct-force, Hessian and BEC heads raise
 NotImplementedError naming the ROADMAP.md item that will port them.

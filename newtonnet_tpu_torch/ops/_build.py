@@ -10,9 +10,9 @@ per (padded width, padded): `lib<name>-w<Fp>[p]-<hash>.so`, compiled with
 `-DNN_WIDTH=<Fp>` and, where F is below Fp, `-DNN_PADDED` (the kernels
 then mask the pad lanes, which a library of F = Fp folds away;
 `width_flags`), at the first call of such a width (`load(name, F)`), so a
-model builds only its own width. The sources of K1/K2 and K5/K6
+model builds only its own width. The sources of K1/K2 and K5-K8
 (BF16_SOURCES) also build a bf16 library per width, compiled with
-`-DNN_BF16` (`lib<name>-w<Fp>[p]-bf16-<hash>.so`), where K1, K2, K5 and K6
+`-DNN_BF16` (`lib<name>-w<Fp>[p]-bf16-<hash>.so`), where K1, K2 and K5-K8
 run the `pallas_dot_dtype: bfloat16` mode (`load(name, F, 'bfloat16')`);
 an fp32 model builds none of them. The hash covers the shared headers of
 csrc/ (`*.cuh`) too. `build_all` starts one `nvcc` per library at once
@@ -36,7 +36,7 @@ SOURCES = ('fused_dense', 'fused_dual', 'fused_klist', 'row_gather',
            'window')
 # the sources of K1-K8, built one library per padded feature width
 WIDE_SOURCES = ('fused_dense', 'fused_dual', 'fused_klist')
-# the sources with a bf16 library (K1/K2, K5/K6): -DNN_BF16
+# the sources with a bf16 library (K1/K2, K5-K8): -DNN_BF16
 BF16_SOURCES = ('fused_dense', 'fused_klist')
 DOT_DTYPES = ('float32', 'bfloat16')
 MAX_WIDTH = 256  # the widest F the kernels take

@@ -25,21 +25,20 @@ Edge tensors (cat, rbf and their tangents) may be bfloat16: the kernels
 and the plain versions read them into fp32 and round the per-edge
 cotangents (dcat, dcatdot, drbf) to the edge dtype on store, as the JAX
 kernels do. The JAX package's K-list kernels compute their products in
-model.pallas_dot_dtype. K5 and K6 take it as `dot_dtype`: with
-'bfloat16' both operands of every product are rounded to bf16 (`_mk_dot`
-/ `_mk_dotT` in ops/pallas_klist.py: the chain, K6's cotangent products
-dh, dmsg, drbf and its weight cotangents) and accumulated in fp32, the
-plain versions as fp32 products of the rounded operands (fused_dense
-`_dots`); all elementwise arithmetic and every sum stays fp32. K7 and K8
-compute in fp32 only (ROADMAP.md B, "bf16 pair-layer products": their
-bf16 mode is the next slice's).
+model.pallas_dot_dtype. K5-K8 take it as `dot_dtype`: with 'bfloat16'
+both operands of every product are rounded to bf16 (`_mk_dot` /
+`_mk_dotT` in ops/pallas_klist.py: the chains, the tangent products
+beside the primal ones, K6's and K8's cotangent products and their weight
+cotangents) and accumulated in fp32, the plain versions as fp32 products
+of the rounded operands (fused_dense `_dots`); all elementwise arithmetic
+and every sum stays fp32.
 
 On the card the kernels are `csrc/fused_klist.cu`: nn_klist_fwd (K5),
 nn_klist_bwd (K6), nn_klist_dual_fwd (K7) and nn_klist_dual_bwd (K8); on
 the CPU the wrappers run the plain versions below. All four multiply on
 the tensor cores, in fp32 mode in 3xTF32 (each operand split in a TF32
 high and low part, three products summed in fp32), which keeps
-fp32-level accuracy; K5 and K6 in bf16 mode as bf16 `mma.sync` with fp32
+fp32-level accuracy; in bf16 mode as bf16 `mma.sync` with fp32
 accumulation, from a library built for that mode. A CUDA tensor either
 launches the kernel or raises: nothing falls back. The
 kernels take any F from 1 to `_build.MAX_WIDTH` at its padded width
@@ -60,14 +59,16 @@ from newtonnet_tpu_torch.ops.fused_dense import (
 )
 from newtonnet_tpu_torch.ops.fused_dual import _d2silu
 
-# Launches of each kernel variant, counted by its wrapper (K5/K6 in bf16
-# mode under the names ending in '_bf16').
+# Launches of each kernel variant, counted by its wrapper (bf16 mode under
+# the names ending in '_bf16').
 LAUNCHES = {'klist_fwd': 0, 'klist_fwd_first': 0,
             'klist_bwd': 0, 'klist_bwd_first': 0,
             'klist_dual_fwd': 0, 'klist_dual_fwd_first': 0,
             'klist_dual_bwd': 0, 'klist_dual_bwd_first': 0,
             'klist_fwd_bf16': 0, 'klist_fwd_first_bf16': 0,
-            'klist_bwd_bf16': 0, 'klist_bwd_first_bf16': 0}
+            'klist_bwd_bf16': 0, 'klist_bwd_first_bf16': 0,
+            'klist_dual_fwd_bf16': 0, 'klist_dual_fwd_first_bf16': 0,
+            'klist_dual_bwd_bf16': 0, 'klist_dual_bwd_first_bf16': 0}
 # K6 launches among those that computed the weight cotangents
 WEIGHT_GRAD_LAUNCHES = {'klist_bwd': 0, 'klist_bwd_first': 0,
                         'klist_bwd_bf16': 0, 'klist_bwd_first_bf16': 0}
@@ -79,11 +80,6 @@ def reset_launch_counts():
     for counts in (LAUNCHES, WEIGHT_GRAD_LAUNCHES):
         for key in counts:
             counts[key] = 0
-
-
-def _tdot(a, b):
-    '''a^T @ b over the flattened (B, N, K) slots.'''
-    return a.reshape(-1, a.shape[-1]).T @ b.reshape(-1, b.shape[-1])
 
 
 def _chain(npi, cat, rbf, mask, weights, first_layer, dot):
@@ -170,34 +166,37 @@ def klist_bwd_ref(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1,
 
 
 def _dual_chain(npi, npidot, cat, catdot, rbf, rbfdot, mask, weights,
-                first_layer):
-    '''The per-slot primal and tangent chain in fp32 (the JAX package's
-    `_dual_chain`): npj, npjdot, me, medot, msg, msgdot and, per branch,
-    (p, pdot, h, hdot, phi, phidot).'''
+                first_layer, dot):
+    '''The per-slot primal and tangent chain (the JAX package's
+    `_dual_chain`), products by `dot`, the rest fp32: npj, npjdot, me,
+    medot, msg, msgdot and, per branch, (p, pdot, h, hdot, phi, phidot).'''
     We, W1a, W1b, W2a, W2b = weights
     F = npi.shape[-1]
     m = mask[..., None]
     npj, npjdot = cat[..., :F].to(npi.dtype), catdot[..., :F].to(npi.dtype)
-    me, medot = rbf.to(npi.dtype) @ We, rbfdot.to(npi.dtype) @ We
+    me, medot = dot(rbf.to(npi.dtype), We), dot(rbfdot.to(npi.dtype), We)
     ai, aidot = npi[:, :, None], npidot[:, :, None]
     msg = me * ai * npj * m
     msgdot = (medot * ai * npj + me * aidot * npj + me * ai * npjdot) * m
 
     def branch(wa, wb):
-        p, pdot = msg @ wa, msgdot @ wa
+        p, pdot = dot(msg, wa), dot(msgdot, wa)
         h, hdot = _silu(p), _dsilu(p) * pdot
-        return p, pdot, h, hdot, (h @ wb) * m, (hdot @ wb) * m
+        return p, pdot, h, hdot, dot(h, wb) * m, dot(hdot, wb) * m
 
     b2 = None if first_layer else branch(W2a, W2b)
     return npj, npjdot, me, medot, msg, msgdot, branch(W1a, W1b), b2
 
 
 def klist_dual_fwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
-                       mask, We, W1a, W1b, W2a, W2b, first_layer=False):
-    '''Plain PyTorch dual forward -> (inv1, eq, inv1dot, eqdot).'''
+                       mask, We, W1a, W1b, W2a, W2b, first_layer=False,
+                       dot_dtype='float32'):
+    '''Plain PyTorch dual forward -> (inv1, eq, inv1dot, eqdot). In bf16
+    mode every product takes rounded operands.'''
+    dot, _ = _dots(dot_dtype)
     *_, msg, msgdot, b1, b2 = _dual_chain(
         npi, npidot, cat, catdot, rbf, rbfdot, mask,
-        (We, W1a, W1b, W2a, W2b), first_layer)
+        (We, W1a, W1b, W2a, W2b), first_layer, dot)
     phi1, phi1dot = b1[4], b1[5]
     fjs, fjdots = _forces(cat, npi), _forces(catdot, npi)
     eq, eqdot = [], []
@@ -218,18 +217,21 @@ def klist_dual_fwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
 
 def klist_dual_bwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
                        mask, We, W1a, W1b, W2a, W2b, di, dq, didot, dqdot,
-                       first_layer=False):
+                       first_layer=False, dot_dtype='float32'):
     '''Plain PyTorch reverse of the dual forward, written out by hand (the
     JAX package's `_dual_bwd_kernel`), given the cotangents (di, dq, didot,
-    dqdot) of (inv1, eq, inv1dot, eqdot).
+    dqdot) of (inv1, eq, inv1dot, eqdot). In bf16 mode every product takes
+    rounded operands: the chain, dh, dhdot, dmsg, dmsgdot and the weight
+    cotangents.
 
     Returns (dnpi, dnpidot, dcat, dcatdot, dWe, dW1a, dW1b, dW2a, dW2b):
     dcat and dcatdot in the edge dtype; dW2a, dW2b zeros at the first
     layer.'''
+    dot, dotT = _dots(dot_dtype)
     m = mask[..., None]
     npj, npjdot, me, medot, msg, msgdot, b1, b2 = _dual_chain(
         npi, npidot, cat, catdot, rbf, rbfdot, mask,
-        (We, W1a, W1b, W2a, W2b), first_layer)
+        (We, W1a, W1b, W2a, W2b), first_layer, dot)
     q = [dq[:, d, :, None, :] for d in range(3)]
     qd = [dqdot[:, d, :, None, :] for d in range(3)]
     dirs = [dir_[:, d, ..., None] for d in range(3)]
@@ -240,12 +242,12 @@ def klist_dual_bwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
     def backprop_branch(dphi, dphidot, br, wa, wb):
         p, pdot, h, hdot = br[:4]
         g, gdot = dphi * m, dphidot * m
-        dh, dhdot = g @ wb.T, gdot @ wb.T
-        dwb = _tdot(h, g) + _tdot(hdot, gdot)
+        dh, dhdot = dot(g, wb.T), dot(gdot, wb.T)
+        dwb = dotT(h, g) + dotT(hdot, gdot)
         dp = _dsilu(p) * dh + _d2silu(p) * pdot * dhdot
         dpdot = _dsilu(p) * dhdot
-        dwa = _tdot(msg, dp) + _tdot(msgdot, dpdot)
-        return dp @ wa.T, dpdot @ wa.T, dwa, dwb
+        dwa = dotT(msg, dp) + dotT(msgdot, dpdot)
+        return dot(dp, wa.T), dot(dpdot, wa.T), dwa, dwb
 
     dmsg, dmsgdot, dW1a, dW1b = backprop_branch(dphi1, dphi1dot, b1, W1a, W1b)
     dcat_f, dcatdot_f = [], []
@@ -272,7 +274,7 @@ def klist_dual_bwd_ref(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
                      + dcat_f, dim=-1).to(cat.dtype)
     dcatdot = torch.cat([tdot * me * ai] + dcatdot_f,
                         dim=-1).to(catdot.dtype)
-    dWe = _tdot(rbf.to(npi.dtype), dme) + _tdot(rbfdot.to(npi.dtype), dmedot)
+    dWe = dotT(rbf.to(npi.dtype), dme) + dotT(rbfdot.to(npi.dtype), dmedot)
     return dnpi, dnpidot, dcat, dcatdot, dWe, dW1a, dW1b, dW2a, dW2b
 
 
@@ -438,41 +440,46 @@ def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
 
 
 def klist_dual_fwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
-                   We, W1a, W1b, W2a, W2b, first_layer=False):
+                   We, W1a, W1b, W2a, W2b, first_layer=False,
+                   dot_dtype='float32'):
     '''The dual forward: kernel K7 for CUDA tensors, the plain version for
     CPU tensors. -> (inv1, eq, inv1dot, eqdot).'''
     ins = (npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
            W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
     if _device(npi) == 'cpu':
-        return klist_dual_fwd_ref(*ins, first_layer=first_layer)
+        return klist_dual_fwd_ref(*ins, first_layer=first_layer,
+                                  dot_dtype=dot_dtype)
     B, N, K, F, R, bf = _checked(npi, cat, rbf,
                                  list(zip(_DUAL_NAMES, ins, _DUAL_KINDS)),
                                  first_layer)
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts),
             torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
-    lib = _lib(F)
-    # the weights split into tf32 (hi, lo) pairs, once per launch
+    lib = _lib(F, dot_dtype)
+    # the weights prepared (tf32 (hi, lo) pairs, or bf16), once per launch
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 2),), **opts)
     err = lib.nn_klist_dual_fwd(*[t.data_ptr() for t in ins + outs],
                                 scratch.data_ptr(), B, N, K, F, R,
                                 int(first_layer), bf, _stream(npi))
     _raise_on(err, 'nn_klist_dual_fwd')
-    LAUNCHES[launch_key('klist_dual_fwd', first_layer, 'float32')] += 1
+    LAUNCHES[launch_key('klist_dual_fwd', first_layer, dot_dtype)] += 1
     return outs
 
 
 def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
                    We, W1a, W1b, W2a, W2b, di, dq, didot, dqdot,
-                   first_layer=False):
+                   first_layer=False, dot_dtype='float32'):
     '''The dual backward: kernel K8 for CUDA tensors, the plain version for
     CPU tensors. -> (dnpi, dnpidot, dcat, dcatdot, dWe, dW1a, dW1b, dW2a,
     dW2b).'''
     ins = (npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
            W1a, W1b, W2a, W2b)
     cots = (di, dq, didot, dqdot)
+    check_dot_dtype(dot_dtype)
     if _device(npi) == 'cpu':
-        return klist_dual_bwd_ref(*ins, *cots, first_layer=first_layer)
+        return klist_dual_bwd_ref(*ins, *cots, first_layer=first_layer,
+                                  dot_dtype=dot_dtype)
     named = list(zip(_DUAL_NAMES + ('di', 'dq', 'didot', 'dqdot'),
                      ins + cots, _DUAL_KINDS + ('node', 'vec', 'node', 'vec')))
     B, N, K, F, R, bf = _checked(npi, cat, rbf, named, first_layer)
@@ -483,17 +490,18 @@ def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, N, F), **opts),
             torch.empty_like(cat), torch.empty_like(catdot))
     n_w = R * F + 4 * F * F
-    lib = _lib(F)
+    lib = _lib(F, dot_dtype)
     n_blocks = _n_blocks(B, N, npi.device)
-    # one weight partial per block at the kernels' padded width and, where
-    # that is not F, the weights padded to it
+    # one weight partial per block at the kernels' padded width and the
+    # weights prepared for the products (bf16), or, where F is not the
+    # padded width, padded to it (fp32)
     wpart = torch.empty((lib.nn_klist_wpart_floats(n_blocks, F, R),), **opts)
     dw = torch.empty((n_w,), **opts)
     err = lib.nn_klist_dual_bwd(
         *[t.data_ptr() for t in ins + cots + outs + (wpart, dw)], B, N, K, F,
         R, int(first_layer), bf, n_blocks, _stream(npi))
     _raise_on(err, 'nn_klist_dual_bwd')
-    LAUNCHES[launch_key('klist_dual_bwd', first_layer, 'float32')] += 1
+    LAUNCHES[launch_key('klist_dual_bwd', first_layer, dot_dtype)] += 1
     return (*outs, *_split_w(dw, F, R))
 
 
@@ -537,18 +545,20 @@ class FusedKlistInteractionDual(torch.autograd.Function):
     VJP gives zeros there.
 
     apply(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
-          W1a, W1b, W2a, W2b, first_layer, plain) -> (inv1, eq, inv1dot,
-          eqdot)'''
+          W1a, W1b, W2a, W2b, first_layer, plain, dot_dtype) -> (inv1, eq,
+          inv1dot, eqdot)'''
 
     @staticmethod
     def forward(ctx, npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot,
-                mask, We, W1a, W1b, W2a, W2b, first_layer=False, plain=False):
+                mask, We, W1a, W1b, W2a, W2b, first_layer=False, plain=False,
+                dot_dtype='float32'):
         ctx.first_layer, ctx.plain = bool(first_layer), bool(plain)
+        ctx.dot_dtype = dot_dtype
         ins = (npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We,
                W1a, W1b, W2a, W2b)
         ctx.save_for_backward(*ins)
         fwd = klist_dual_fwd_ref if plain else klist_dual_fwd
-        return fwd(*ins, first_layer=ctx.first_layer)
+        return fwd(*ins, first_layer=ctx.first_layer, dot_dtype=dot_dtype)
 
     @staticmethod
     def backward(ctx, di, dq, didot, dqdot):
@@ -556,9 +566,9 @@ class FusedKlistInteractionDual(torch.autograd.Function):
         dnpi, dnpidot, dcat, dcatdot, *dws = bwd(
             *ctx.saved_tensors, di.contiguous(), dq.contiguous(),
             didot.contiguous(), dqdot.contiguous(),
-            first_layer=ctx.first_layer)
+            first_layer=ctx.first_layer, dot_dtype=ctx.dot_dtype)
         return (dnpi, dnpidot, dcat, dcatdot, None, None, None, None, None,
-                *dws, None, None)
+                *dws, None, None, None)
 
 
 def fused_klist_interaction(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a,
@@ -573,9 +583,10 @@ def fused_klist_interaction(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a,
 
 def fused_klist_interaction_dual(npi, npidot, cat, catdot, rbf, rbfdot, dir_,
                                  dirdot, mask, We, W1a, W1b, W2a, W2b,
-                                 first_layer=False, plain=False):
+                                 first_layer=False, plain=False,
+                                 dot_dtype='float32'):
     '''The dual layer through FusedKlistInteractionDual: K7/K8 on the card,
     or with plain=True the plain versions on any device.'''
     return FusedKlistInteractionDual.apply(
         npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask, We, W1a,
-        W1b, W2a, W2b, first_layer, plain)
+        W1b, W2a, W2b, first_layer, plain, dot_dtype)

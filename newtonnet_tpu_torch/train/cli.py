@@ -59,14 +59,8 @@ def train_from_settings(settings, settings_path=None, resume=None):
         raise NotImplementedError(
             _NOT_PORTED.format('general.debug_nans', 'training extras'))
     from newtonnet_tpu_torch.layers.precision import check_matmul_precision
-    from newtonnet_tpu_torch.train.trainer import (
-        refuse_bf16_pair_training,
-        refuse_unported_extras,
-    )
+    from newtonnet_tpu_torch.train.trainer import refuse_unported_extras
     refuse_unported_extras(**training)
-    model_cfg = settings.get('model', {})
-    refuse_bf16_pair_training(model_cfg.get('kernel', 'xla'),
-                              model_cfg.get('pallas_dot_dtype', 'float32'))
     check_matmul_precision(general.get('matmul_precision'),
                            'general.matmul_precision')
     check_matmul_precision(training.get('eval_matmul_precision'),

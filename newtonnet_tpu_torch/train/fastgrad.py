@@ -65,7 +65,8 @@ def _energies(model, batch, pos, pair_op=None, nlist=None, plain=False):
     else:
         adj, dir_t, rbf = geometry(z, pos, cell, model.cutoff, model.n_basis,
                                    model.mic_mode)
-        out = core_from_geom(model.core, z, adj, dir_t, rbf, pair_op=pair_op)
+        out = core_from_geom(model.core, z, adj, dir_t, rbf, pair_op=pair_op,
+                             dot_dtype=model.pallas_dot_dtype)
     return out['atomic_energy'][..., 0].sum(-1)
 
 
@@ -80,7 +81,7 @@ def _energy_tangent(model, batch, v, dual_op, nlist, plain):
             lambda y: _energies(model, batch, y, nlist=nlist, plain=plain),
             (pos.detach(),), (v,))
     if model.graph_mode == 'neighborlist':
-        # the K-list duals compute in pallas_dot_dtype (float32), not
+        # the K-list duals compute in pallas_dot_dtype, not
         # pallas_grad_dot_dtype, as the JAX package's do
         return dual_energy_nlist(model, z, pos, cell, v, nlist=nlist,
                                  dual_op=dual_op)
@@ -136,8 +137,14 @@ def value_and_grad(model, main_loss, batch, pair_op=None, dual_op=None,
         preds = {'energy': energy.detach().requires_grad_(True),
                  'gradient_force': (-dpos).requires_grad_(True)}
         loss = main_loss(preds, batch)
-        e_bar, f_bar = torch.autograd.grad(
-            loss, (preds['energy'], preds['gradient_force']))
+        # a loss that reads one of the two (energy alone) gives zeros for
+        # the other, as jax.grad does
+        e_bar, f_bar = [
+            torch.zeros_like(x) if g is None else g
+            for g, x in zip(torch.autograd.grad(
+                loss, (preds['energy'], preds['gradient_force']),
+                allow_unused=True),
+                (preds['energy'], preds['gradient_force']))]
         params = [p for p in model.core.parameters() if p.requires_grad]
         for p in params:
             p.grad = None

@@ -34,10 +34,6 @@ Not here (ROADMAP.md A, "parallelism", "remaining heads" and "training
 extras"): meshes, halo exchange, several processes, direct_force losses,
 wandb, the profiler hook and the standard step over a kernel='pallas'
 model (`halo`, `profile_dir` and that step raise NotImplementedError).
-Nor a kernel='pallas' model with pallas_dot_dtype 'bfloat16' (ROADMAP.md
-B, "bf16 pair-layer products": its K-list duals K7/K8 compute in that
-mode, which the port does not have yet): the Trainer refuses it when it
-is built (refuse_bf16_pair_training).
 The JAX Trainer's steps_per_call, which chunks steps into one device
 dispatch, is accepted and does nothing: eager PyTorch dispatches each
 operation as it comes.
@@ -69,17 +65,6 @@ from newtonnet_tpu_torch.utils.params import params_from_flax
 UNPORTED_EXTRAS = {'profile_dir': 'training extras', 'halo': 'parallelism'}
 # loss keys the standard step trains (prediction keys a model can output)
 TRAINED_KEYS = frozenset({'energy', 'gradient_force', 'stress', 'virial'})
-
-
-def refuse_bf16_pair_training(kernel, pallas_dot_dtype):
-    '''NotImplementedError for training a kernel='pallas' model whose pair
-    products run in bf16: the port serves such a model (K1/K2, K5/K6) but
-    does not train it yet.'''
-    if kernel == 'pallas' and pallas_dot_dtype == 'bfloat16':
-        raise NotImplementedError(
-            'training a kernel=pallas model with pallas_dot_dtype='
-            "'bfloat16' is not ported yet (ROADMAP.md B, \"bf16 pair-layer "
-            'products": the training half, K7/K8 in bf16); it serves')
 
 
 def refuse_unported_extras(**given):
@@ -142,7 +127,6 @@ class Trainer:
             ):
         del steps_per_call  # no dispatch chunking in eager PyTorch
         refuse_unported_extras(profile_dir=profile_dir, halo=halo)
-        refuse_bf16_pair_training(model.kernel, model.pallas_dot_dtype)
         check_matmul_precision(eval_matmul_precision,
                                'eval_matmul_precision')
         self.model = model

@@ -13,9 +13,9 @@ by the fp32 summation order and a rare flip of a rounding, far inside
 that spread; a port that rounded other operands, or none, would move by
 about a spread. Then the serving surface: a bf16 checkpoint written by
 save_model through load_model and NewtonNetCalculator, an unknown
-pallas_dot_dtype refused, and the Trainer and the training CLI refusing
-to train a bf16 model (ROADMAP.md B, "bf16 pair-layer products": the
-training half is the next slice).
+pallas_dot_dtype refused, and the Trainer and the training CLI training a
+bf16 model (tests/test_torch_bf16_training.py holds its steps against the
+JAX package's).
 '''
 import os
 
@@ -139,25 +139,47 @@ def test_unknown_pallas_dot_dtype_is_refused():
 
 
 @pytest.mark.parametrize('layout', ['dense', 'klist'])
-def test_training_a_bf16_model_is_refused(layout, tmp_path):
-    '''The Trainer, and the CLI before it reads any data, refuse to train
-    a kernel='pallas' bf16 model, naming the ROADMAP.md item.'''
+def test_a_bf16_model_trains(layout, tmp_path):
+    '''The Trainer and the training CLI train a kernel='pallas' bf16 model
+    (they refused it before K7/K8 had a bf16 mode): the Trainer resolves
+    fast_grad to the first-order step (fast_grad=False stays refused,
+    naming its ROADMAP.md item), and the CLI runs one epoch of
+    scripts/config_md17_pallas.yml cut to tiny sizes whose best model
+    keeps the dot dtype.'''
+    import csv
+
     import yaml
 
     from newtonnet_tpu_torch.train import cli
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
     from newtonnet_tpu_torch.train.trainer import Trainer
-    match = 'ROADMAP.md B, "bf16 pair-layer products"'
     model = NewtonNet(**config(layout, 'bfloat16'), device='cpu')
-    with pytest.raises(NotImplementedError, match=match):
-        Trainer(model)
+    losses = get_loss_by_string({'energy': {}, 'gradient_force': {}})
+    assert Trainer(model, loss_fns=losses).fast_grad
+    with pytest.raises(NotImplementedError, match='ROADMAP.md A'):
+        Trainer(model, fast_grad=False)  # an energy loss
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     with open(os.path.join(root, 'scripts', 'config_md17_pallas.yml')) as f:
         cfg = yaml.safe_load(f)
+    data = os.path.join(root, 'data', 'md17_aspirin', 'ccsd_train')
     cfg['general'].update(device='cpu', output=str(tmp_path / 'runs'))
-    cfg['data'].update(train_root=str(tmp_path / 'no_data'))
-    cfg['model'].update(pallas_dot_dtype='bfloat16',
+    cfg['data'].update(train_root=data, test_root=None, train_size=8,
+                       val_size=4, test_size=4, train_batch_size=4,
+                       val_batch_size=4, test_batch_size=4)
+    cfg['model'].update(pallas_dot_dtype='bfloat16', n_features=8,
+                        n_basis=4, n_interactions=2,
                         graph_mode=LAYOUTS[layout][0])
+    if layout == 'klist':
+        cfg['model']['k_max'] = 12
+    cfg['model'].pop('pretrained_model', None)
+    cfg['training']['epochs'] = 1
     path = tmp_path / 'bf16.yml'
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(['--config', str(path)])
+    cli.main(['--config', str(path)])
+    run = tmp_path / 'runs' / 'training_1'
+    with open(run / 'log.csv') as f:
+        row = next(csv.DictReader(f))
+    assert np.isfinite(float(row['train_loss']))
+    best = load_model(str(run / 'models' / 'best_model.msgpack'),
+                      device='cpu')
+    assert best.pallas_dot_dtype == 'bfloat16'

@@ -6,13 +6,15 @@ bfloat16) runs on the CPU under the emulation of CUDA's thread model
 its largest magnitude and its median element error within BF16_MEDIAN_BAR
 of it, the bars of chip_smoke.py phase 10a. One small shape per kernel and
 layer variant at F=32 and at a padded width (F=20), with fp32 edges, and
-one case with bf16 edges; K6 with and without weight cotangents.
+one case with bf16 edges; K6 with and without weight cotangents. The same
+library runs K7/K8 (test_torch_kernel_emulation_bf16_klist_dual.py holds
+them at more shapes).
 '''
 import pytest
 
 from torch_kernel_emu import (BF16_MEDIAN_BAR, bf16_errors, check_bf16_pairs,
                               compile_emu, klist_handle, klist_inputs,
-                              run_k56, source, width_libs)
+                              run_k56, run_k78, source, width_libs)
 
 # ((B, N, K, F, R), first_layer, bf16 edges)
 CASES = [((2, 10, 9, 32, 8), False, False), ((2, 10, 9, 32, 8), True, False),
@@ -38,14 +40,15 @@ def test_emulated_bf16_k5_k6_match_plain(lib, shape, first_layer, bf16):
     check_bf16_pairs(list(zip(got, want)))
 
 
-def test_bf16_library_has_no_k7_k8(lib):
-    '''A bf16 library refuses the K-list duals (their bf16 mode is the
-    next slice's): cudaErrorInvalidValue before any launch.'''
-    handle = lib(32)
-    assert handle.nn_klist_dual_fwd(*([None] * 19), 1, 8, 4, 32, 8, 0, 0,
-                                    None) == 1
-    assert handle.nn_klist_dual_bwd(*([None] * 24), 1, 8, 4, 32, 8, 0, 0,
-                                    3, None) == 1
+def test_bf16_library_runs_k7_k8(lib):
+    '''The bf16 library runs the K-list duals too (it refused them before
+    their bf16 mode was ported): K7 and K8 at one small shape against their
+    plain bf16 versions; the widths, layers and the mutant are in
+    test_torch_kernel_emulation_bf16_klist_dual.py.'''
+    ins, tans, cots = klist_inputs(1, 8, 4, 32, 8, False, False, seed=8)
+    got, want = run_k78(lib(32), ins, tans, cots, False, False,
+                        dot_dtype='bfloat16')
+    check_bf16_pairs(list(zip(got, want)))
 
 
 def test_emulation_catches_a_bf16_k5_k6_fragment_fault(tmp_path):

@@ -14,6 +14,7 @@ ulp (2^-8 relative); the bf16 case is held at 2e-3 relative to each
 output's largest magnitude.
 '''
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -158,7 +159,8 @@ def test_neighbour_list_checkpoint_loads_and_serves(tmp_path):
 
 def test_unported_neighbour_list_options_are_refused():
     '''A neighbour-list model with bf16 products in the fused layers serves
-    but does not train yet (the Trainer refuses it, naming ROADMAP.md B);
+    and trains (the Trainer refused it before K7/K8 had a bf16 mode: it
+    now takes a first-order step, K7/K8's plain bf16 versions on the CPU);
     an unknown compute_dtype is an error.'''
     from newtonnet_tpu_torch.train.trainer import Trainer
     model = NewtonNet(graph_mode='neighborlist', kernel='pallas',
@@ -166,9 +168,25 @@ def test_unported_neighbour_list_options_are_refused():
                       n_interactions=1, k_max=4,
                       output_properties=['energy', 'gradient_force'],
                       device='cpu')
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md B, "bf16 pair-layer products"'):
-        Trainer(model)
+    trainer = Trainer(model)
+    assert trainer.fast_grad
+    fk.reset_launch_counts()
+    seen = []
+    ref = fk.klist_dual_bwd_ref
+
+    def spy(*a, **kw):
+        seen.append(kw.get('dot_dtype'))
+        return ref(*a, **kw)
+    rs = np.random.RandomState(0)
+    batch = {'z': torch.tensor([[6, 1, 8, 1, 0]]),
+             'pos': torch.tensor(rs.randn(1, 5, 3) * 1.2,
+                                 dtype=torch.float32),
+             'cell': torch.zeros(1, 3, 3),
+             'energy': torch.tensor([1.0]),
+             'graph_mask': torch.ones(1, dtype=torch.bool)}
+    with mock.patch.object(fk, 'klist_dual_bwd_ref', spy):
+        loss, _ = trainer.loss_and_grad(batch)
+    assert torch.isfinite(loss) and seen == ['bfloat16']
     with pytest.raises(ValueError, match='compute_dtype'):
         NewtonNet(graph_mode='neighborlist', compute_dtype='float16',
                   device='cpu')

@@ -98,7 +98,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     ({'kernel': 'xla', 'output_properties': ['energy', 'direct_force']},
      'remaining heads'),
     ({'graph_mode': 'neighborlist', 'kernel': 'pallas',
-      'pallas_dot_dtype': 'bfloat16'}, 'bf16 pair-layer products'),
+      'pallas_dot_dtype': 'bfloat16'}, 'training extras'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'hessian']},
      'Hessian'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'charge']},
@@ -106,8 +106,10 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 ])
 def test_unported_configurations_name_their_roadmap_item(kw, item):
     '''Each configuration the port does not have yet raises, naming its
-    ROADMAP.md item. A bf16 kernel='pallas' model builds and serves; the
-    Trainer refuses to train it (section B's item).'''
+    ROADMAP.md item. A bf16 kernel='pallas' model builds, serves and
+    trains (section B's last item, ported): the Trainer takes the
+    first-order step, and only the standard step over it (fast_grad=False)
+    is refused, naming section A's item.'''
     from newtonnet_tpu_torch import NewtonNet
     if kw.get('pallas_dot_dtype') == 'bfloat16':
         from newtonnet_tpu_torch.train.trainer import Trainer
@@ -115,9 +117,10 @@ def test_unported_configurations_name_their_roadmap_item(kw, item):
                           n_interactions=1,
                           output_properties=['energy', 'gradient_force'],
                           **kw)
+        assert Trainer(model).fast_grad
         with pytest.raises(NotImplementedError,
-                           match=f'ROADMAP.md B.*{item}'):
-            Trainer(model)
+                           match=f'ROADMAP.md A.*{item}'):
+            Trainer(model, fast_grad=False)
         return
     with pytest.raises(NotImplementedError, match=f'ROADMAP.md A.*{item}'):
         NewtonNet(device='cpu', **kw)

@@ -29,7 +29,7 @@ PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'newtonnet_tpu_torch')
 BAR = 1e-4
 BF16_BAR = 2e-3
-# bf16 mode of K1/K2 and K5/K6 (pallas_dot_dtype): the median element
+# bf16 mode of K1/K2 and K5-K8 (pallas_dot_dtype): the median element
 # error, over the plain output's largest magnitude. Where the kernel rounds
 # the operands the plain version rounds, the two differ by the fp32
 # summation order and a rare flip of a rounding; an operand rounded that
@@ -378,9 +378,11 @@ def run_k56(handle, ins, cots, first_layer, bf16, max_blocks=3,
     return got, want
 
 
-def run_k78(handle, ins, tans, cots, first_layer, bf16, max_blocks=3):
+def run_k78(handle, ins, tans, cots, first_layer, bf16, max_blocks=3,
+            dot_dtype='float32'):
     '''(K7, K8) outputs of the emulated kernels, NaN-initialised, and the
-    plain versions' values. K8's grid is at most max_blocks blocks.'''
+    plain versions' values (in the library's mode, dot_dtype). K8's grid is
+    at most max_blocks blocks.'''
     B, N, F = ins[0].shape
     K, R = ins[1].shape[2], ins[2].shape[-1]
     fl, bf = int(first_layer), int(bf16)
@@ -392,13 +394,15 @@ def run_k78(handle, ins, tans, cots, first_layer, bf16, max_blocks=3):
     assert handle.nn_klist_dual_fwd(*ptrs(args + dfwd + [scratch]), B, N, K,
                                     F, R, fl, bf, None) == 0
     got = list(dfwd)
-    want = list(fk.klist_dual_fwd_ref(*args, first_layer=first_layer))
+    want = list(fk.klist_dual_fwd_ref(*args, first_layer=first_layer,
+                                      dot_dtype=dot_dtype))
     dbwd = [nan(B, N, F), nan(B, N, F), _nan_like(ins[1]), _nan_like(tans[1])]
     wpart, dw = _wpart(handle, B, N, F, R, max_blocks), nan(n_w)
     assert handle.nn_klist_dual_bwd(*ptrs(args + cots + dbwd + [wpart, dw]),
                                     B, N, K, F, R, fl, bf, max_blocks,
                                     None) == 0
-    ref = fk.klist_dual_bwd_ref(*args, *cots, first_layer=first_layer)
+    ref = fk.klist_dual_bwd_ref(*args, *cots, first_layer=first_layer,
+                                dot_dtype=dot_dtype)
     got += dbwd + list(dw.split([R * F] + [F * F] * 4))
     want += list(ref[:4]) + [r.reshape(-1) for r in ref[4:]]
     return got, want
