@@ -242,8 +242,9 @@ with a non-zero exit code and no result line):
                at phase 3's ragged shape, the aspirin K-list training
                shape (B=10, N=24, K=48) and the box's, fp32 and bf16
                edges: 10a's bars (the float64 floor of the median bar for
-               the weight cotangents alone); second launches repeat their
-               bits.
+               the weight cotangents alone; K8's other outputs held and
+               printed apart, at BF16_MEDIAN_BAR); second launches repeat
+               their bits.
             b. the aspirin checkpoint fine-tuned by
                scripts/config_md17_pallas.yml with pallas_dot_dtype
                bfloat16: 10 steps dense and 10 over K-lists (k_max 48)
@@ -255,7 +256,10 @@ with a non-zero exit code and no result line):
                dense one; one dense CLI epoch.
             c. the LJ checkpoint as a kernel='pallas' bf16 model (F=48):
                10 steps of LJ_CONFIG dense and over K-lists with fp32 and
-               bf16 edges against JAX_BF16_LJ_STEP_*; one K-list CLI
+               bf16 edges against JAX_BF16_LJ_STEP_*; the K-list step 1
+               gradients within BF16_LJ_KLIST_FACTOR times the JAX
+               package's own distance from the dense one, a control (the
+               fp32-product dense step) failing that bar; one K-list CLI
                epoch.
             d. three box steps in bf16 (bf16 edges, box_weights, F=128):
                step 1 against the plain bf16 step at 2e-3, three
@@ -266,10 +270,29 @@ with a non-zero exit code and no result line):
                bf16 peak, phase 11's launches (the kernels line's
                klist_dual_*_bf16 rows, K7 bf16 and K8 bf16).
 
+12. data  the data pipeline on the repo's heterogeneous config,
+            artifacts/lj_hetero_model's config_lj_hetero.yml (F=64, 3
+            interactions, cutoff 7, bucketed batches of 20 LJ clusters of
+            6-38 atoms, an XLA model), over a copy of data/lj_hetero:
+            a. the bucket sequence of the first 10 batches against the JAX
+               loader's (JAX_LJ_HETERO_N_PAD); 10 training steps of the
+               checkpoint that config trained against the JAX package's
+               (JAX_LJ_HETERO_STEP_*, PR 2's bars).
+            b. K1-K4 against their plain versions at every bucket's shape
+               (B=20, N = 8..40, F=64, R=20); the checkpoint with a
+               kernel='pallas' override trained by fastgrad over the whole
+               epoch: K1-K4 launched at every bucket size, step 1's
+               gradient within 2e-3 of 12a's.
+            c. one CLI epoch with the kernel='pallas' override,
+               in_memory 'sharded' (shards of 64 frames): locality_block
+               'auto' with prefetch 2 and 0, and 0 with prefetch 2; the
+               epoch seconds, steps/s and shard_loads; the sharded,
+               prefetched epoch's batches equal to the in-memory one's.
+
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
-9b/9c launches; the bf16 rows of K1/K2 and K5-K8) and,
-last, {"ok": true, "device": {...}}.
+9b/9c launches, K1-K4's phase 12 launches; the bf16 rows of K1/K2 and
+K5-K8) and, last, {"ok": true, "device": {...}}.
 '''
 import functools
 import json
@@ -779,11 +802,27 @@ JAX_BF16_LJ_SPREAD = {
 # larger (check_bf16_steps). On the CPU the port's plain bf16 aspirin step
 # 1 gradient over K-lists is 1.5e-3 (relative norm) from its dense one:
 # the two round different operands (K5/K6 and K7/K8 against K1/K2 and
-# K3/K4), so 11b holds them at BF16_KLIST_VS_DENSE; the LJ model's two
-# measure 3.0e-3 on the CPU and 11c prints theirs.
+# K3/K4), so 11b holds them at BF16_KLIST_VS_DENSE. 11c holds the LJ
+# model's at BF16_LJ_KLIST_FACTOR times the JAX package's own distance
+# between its bf16 K-list and dense step 1 gradients
+# (JAX_BF16_LJ_KLIST_VS_DENSE, relative norm, from `python
+# tests/test_torch_bf16_training.py lj-klist`). Not 4x: 4x passes the
+# control, the bf16 K-list step against the fp32-product dense one, which
+# the JAX package puts at 2.85x its distance with fp32 edges
+# (JAX_BF16_LJ_KLIST_VS_FP32_DENSE) and the port's CPU run at 2.86x; at 2x
+# the port's CPU distances are 1.00x (fp32 edges) and 1.66x (bf16 edges)
+# of the JAX package's. With bf16 edges the edges' rounding dominates: the
+# JAX package's control is 1.20x its distance and the port's own distance
+# 1.66x, so no multiple separates a control there, and 11c computes the
+# control with fp32 edges alone.
 BF16_DUAL = ('klist_dual_fwd_bf16', 'klist_dual_fwd_first_bf16',
              'klist_dual_bwd_bf16', 'klist_dual_bwd_first_bf16')
 BF16_KLIST_VS_DENSE = 2e-3
+BF16_LJ_KLIST_FACTOR = 2.0
+JAX_BF16_LJ_KLIST_VS_DENSE = {'klist_fp32_edges': 0.0030425613963543734,
+                              'klist_bf16_edges': 0.007627414972146785}
+JAX_BF16_LJ_KLIST_VS_FP32_DENSE = {'klist_fp32_edges': 0.008670860981708446,
+                                   'klist_bf16_edges': 0.0091654828261673}
 JAX_BF16_ASPIRIN_STEP_LOSS = {
     'dense': [7.437622547149658, 1.9063150882720947, 1.69451904296875,
               2.0260660648345947, 0.8412765860557556, 0.4333455562591553,
@@ -895,6 +934,34 @@ JAX_BF16_LJ_STEP_SHIFT = {
                       1.4053192138671875, 3729.0791015625],
     },
 }
+# Phase 12: the data pipeline (ROADMAP.md A4) under the repo's
+# heterogeneous config, config_lj_hetero.yml as in the tree (F=64, 3
+# interactions, cutoff 7, bucketed batches of 20 LJ clusters of 6-38 atoms,
+# an XLA model), from the checkpoint that config trained, over a copy of
+# data/lj_hetero. 12a's JAX numbers: the JAX package's first 10 training
+# steps (loss, global gradient norm before the clip) and each batch's n_pad,
+# from `python tests/test_torch_bucketed_training.py hetero` (CPU).
+HETERO_DIR = os.path.join(ROOT, 'data', 'lj_hetero')
+HETERO_RUN = os.path.join(ROOT, 'artifacts', 'lj_hetero_model', 'training_1')
+HETERO_CONFIG = os.path.join(HETERO_RUN, 'run_scripts',
+                             'config_lj_hetero.yml')
+HETERO_CKPT = os.path.join(HETERO_RUN, 'models', 'best_model.msgpack')
+HETERO_BUCKETS = (8, 16, 24, 32, 40)
+HETERO_SHARD = 64
+JAX_LJ_HETERO_STEP_LOSS = [
+    0.0035989556927233934, 0.0004746905469801277, 0.000642496335785836,
+    0.000615361554082483, 0.00011181036097696051, 0.01157854963093996,
+    0.0002738984767347574, 0.00014937161176931113, 0.0004660892009269446,
+    0.0006347735179588199]
+JAX_LJ_HETERO_STEP_GRAD_NORM = [
+    1.2836589813232422, 0.4442877471446991, 0.5637891888618469,
+    0.5640550255775452, 0.11487258225679398, 8.194170951843262,
+    0.28286048769950867, 0.10472200810909271, 0.4215766191482544,
+    0.549811065196991]
+JAX_LJ_HETERO_N_PAD = [16, 16, 16, 16, 8, 40, 16, 16, 16, 16]
+DENSE_FP32 = ('pair_fwd', 'pair_fwd_first', 'pair_bwd', 'pair_bwd_first',
+              'dual_fwd', 'dual_fwd_first', 'dual_bwd', 'dual_bwd_first')
+
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
 WINDOW_T, WINDOW_F = 128, 512
@@ -1083,13 +1150,14 @@ def profile_call(torch, fn):
             'top_device_ms': [[k[:70], ms, n] for k, ms, n in top]}
 
 
-def phase_kernels(torch, fd):
-    '''Phase 3: every kernel variant against its plain version.'''
+def phase_kernels(torch, fd, shapes=None):
+    '''Phase 3: every kernel variant against its plain version, at phase
+    3's shapes or at `shapes` ((B, N, F, R) each; phase 12b's buckets).'''
     errs = {}
     # the last one ragged: N = 37 is no multiple of K2's 8-row or 4-column
     # tiles, R = 12 pads to 32 in its products
-    shapes = [(100, 21, 128, 20), (1, 24, 128, 20), (2, 70, 64, 16),
-              (3, 37, 32, 12)]
+    shapes = shapes or [(100, 21, 128, 20), (1, 24, 128, 20),
+                        (2, 70, 64, 16), (3, 37, 32, 12)]
     for si, (B, N, F, R) in enumerate(shapes):
         ins, dinv1, deq = random_inputs(torch, B, N, F, R, seed=si)
         worst = 0.0
@@ -1154,15 +1222,16 @@ def phase_kernels(torch, fd):
     return errs
 
 
-def phase_dual_kernels(torch, fdd):
+def phase_dual_kernels(torch, fdd, shapes=None):
     '''Phase 3, dual: K3/K4 against their plain versions, both variants,
-    fp32 and bf16 modes. -> {variant: max abs err} at the training shape in
-    bf16 mode (the training path's).'''
+    fp32 and bf16 modes, at phase 3's shapes or at `shapes`. -> {variant:
+    max abs err} at the first shape (the training shape) in bf16 mode (the
+    training path's).'''
     errs = {}
     # the training shape, one molecule, and two whose N is no multiple of
     # the 8-row or 4-column tiles (the last with R padded to 32)
-    shapes = [(10, 24, 128, 20), (1, 24, 128, 20), (2, 70, 64, 16),
-              (3, 37, 32, 12)]
+    shapes = shapes or [(10, 24, 128, 20), (1, 24, 128, 20),
+                        (2, 70, 64, 16), (3, 37, 32, 12)]
     labels = ['inv1', 'eq', 'inv1dot', 'eqdot', 'dnp', 'dnpdot', 'dforce',
               'dforcedot', 'dWe', 'dW1a', 'dW1b', 'dW2a', 'dW2b']
     for si, (B, N, F, R) in enumerate(shapes):
@@ -1295,7 +1364,8 @@ def write_lj_dataset(root, n_frames=LJ_FRAMES, seed=0):
 def lj_data_settings(root):
     """The `data` section of LJ_CONFIG for write_lj_dataset's frames: its
     batch size 12 and precompute_nlist (mode newton3, k_max 16), prefetch 0
-    (ROADMAP.md A4), 120 / 15 / 15 frames."""
+    (the same batches, assembled in the caller's thread), 120 / 15 / 15
+    frames."""
     import yaml
     with open(LJ_CONFIG) as f:
         data = yaml.safe_load(f)['data']
@@ -4374,9 +4444,11 @@ def phase_bf16_dual_kernels(torch, fk):
     DUAL_BF16_BAR of its largest magnitude beyond one bf16 ulp, its median
     element error within BF16_MEDIAN_BAR, for the five weight cotangents
     alone within twice the plain version's own median distance from its
-    float64 run where that is larger (plain_triples); second launches
-    repeat their bits. -> {variant: max abs error} at F=128 and the box
-    shape with bf16 edges, the bf16 rows' shape in 11e."""
+    float64 run where that is larger (plain_triples); K8's other four
+    outputs are held and printed apart from its weight cotangents (`...
+    weights` rows of the table); second launches repeat their bits. ->
+    {variant: max abs error} at F=128 and the box shape with bf16 edges,
+    the bf16 rows' shape in 11e."""
     dot = 'bfloat16'
     errs, table = {}, {}
     shapes = [('small', 3, 61, 39, 12), ('train', 10, 24, 48, 20),
@@ -4410,17 +4482,23 @@ def phase_bf16_dual_kernels(torch, fk):
                         [(g, r, None) for g, r in zip(got, ref)])}
                     check(repeats(torch, k7), f'{fwd} {where} repeats')
                     got = k8()
-                    # the float64 floor of the median bar: the weight
-                    # cotangents (outputs 4-8) alone
-                    ref = [(g, r, r64 if k >= 4 else None)
-                           for k, (g, r, r64) in enumerate(plain_triples(
-                               fk.klist_dual_bwd_ref, args + cots, got,
-                               first_layer=first, dot_dtype=dot))]
-                    res[bwd] = bf16_vs_plain(torch, f'{bwd} {where}', ref)
+                    ref = plain_triples(fk.klist_dual_bwd_ref, args + cots,
+                                        got, first_layer=first,
+                                        dot_dtype=dot)
+                    # C16: the edge and node cotangents (outputs 0-3) at
+                    # BF16_MEDIAN_BAR, held and printed apart from the
+                    # weight cotangents (outputs 4-8), whose median bar
+                    # has the float64 floor
+                    res[bwd] = bf16_vs_plain(
+                        torch, f'{bwd} {where}',
+                        [(g, r, None) for g, r, _ in ref[:4]])
+                    res[f'{bwd} weights'] = bf16_vs_plain(
+                        torch, f'{bwd} {where} weights', ref[4:])
                     check(repeats(torch, k8), f'{bwd} {where} repeats')
                     for key, (w, m, a, r, mb) in res.items():
                         table[f'{key} F={F} {tag} {et}'] = [w, m, r, mb]
                         if F == 128 and tag == 'box' and et == 'bf16':
+                            key = key.split()[0]
                             errs[key] = max(errs.get(key, 0.0), a)
                     del ins, tans, cots, args, got, ref
                     torch.cuda.empty_cache()
@@ -4589,8 +4667,11 @@ def phase_bf16_lj_train(torch, fd, fdd, fk):
     dense and over plain precomputed K-lists with fp32 and with bf16 edges
     (10c's layouts) against the JAX package's bf16 steps
     (JAX_BF16_LJ_STEP_*, check_bf16_steps; phase 9c's floors); the K-list
-    step 1 gradients' distance from the dense one, printed; one K-list
-    epoch through the CLI's entry point. -> {what: launches}."""
+    step 1 gradients' distance from the dense one within
+    BF16_LJ_KLIST_FACTOR times the JAX package's, with the fp32-edge
+    K-list step against the fp32-product dense step as the control that
+    fails that bar; one K-list epoch through the CLI's entry point. ->
+    {what: launches}."""
     import tempfile
 
     import yaml
@@ -4647,9 +4728,38 @@ def phase_bf16_lj_train(torch, fd, fdd, fk):
             out[f'train_{layout}_10_steps'] = launches
             del trainer
             torch.cuda.empty_cache()
-        emit('bf16_lj_klist_vs_dense', step1_grad_rel_norm={
-            layout: rel_norm(grads1[layout], grads1['dense'])
-            for layout in BF16_LJ_LAYOUTS if layout != 'dense'})
+        # C15: step 1's K-list-to-dense distance at BF16_LJ_KLIST_FACTOR
+        # times the JAX package's; the control, the fp32-edge K-list step
+        # against the fp32-product dense step, must fail its bar
+        reset_counts(fd, fdd, fk)
+        train_gen, _, _, stats = parse_train_test(
+            seed=0, **lj_pallas_data_settings(root, 'dense'))
+        b0 = {k: torch.as_tensor(v).cuda()
+              for k, v in next(iter(train_gen)).items()}
+        model = lj_pallas_model(torch, 'dense')
+        set_scalers(model.core, model.output_properties, stats,
+                    {'energy': dict(cfg['training']['fit_scalers'])})
+        dense32 = xla_steps(torch, model.requires_grad_(True), loss_fns,
+                            [b0], 'auto', lr=lr, clip=clip)[3]
+        dist, bars = {}, {}
+        for layout in BF16_LJ_LAYOUTS:
+            if layout == 'dense':
+                continue
+            dist[layout] = rel_norm(grads1[layout], grads1['dense'])
+            bars[layout] = (BF16_LJ_KLIST_FACTOR
+                            * JAX_BF16_LJ_KLIST_VS_DENSE[layout])
+        control = rel_norm(grads1['klist_fp32_edges'], dense32)
+        emit('bf16_lj_klist_vs_dense', step1_grad_rel_norm=dist, bars=bars,
+             jax=JAX_BF16_LJ_KLIST_VS_DENSE,
+             factor=BF16_LJ_KLIST_FACTOR,
+             control_vs_fp32_dense_fp32_edges=control,
+             jax_control=JAX_BF16_LJ_KLIST_VS_FP32_DENSE)
+        for layout, d in dist.items():
+            check(d <= bars[layout], f'bf16 LJ {layout} step 1 gradient '
+                  f'{d} from the dense one (bar {bars[layout]})')
+        check(control > bars['klist_fp32_edges'],
+              f'the control (fp32-product dense step, {control}) passes the '
+              f'bar {bars["klist_fp32_edges"]}')
         settings = dict(
             cfg, general=dict(cfg['general'], device='cuda'),
             data=lj_pallas_data_settings(root, 'neighborlist'),
@@ -4743,6 +4853,228 @@ def bf16_dual_timing(torch, fk, errs, launches, phase11):
              'ms', 'fp32_ms', 'plain_ms', 'bound_ms', 'shape', 'widths',
              'phase11_launches')} for r in rows})
     return rows
+
+
+def hetero_copy(out):
+    """data/lj_hetero's raw files under `out`, where the datasets write
+    their caches."""
+    import shutil
+    for split in ('train', 'test'):
+        shutil.copytree(os.path.join(HETERO_DIR, split, 'raw'),
+                        os.path.join(out, split, 'raw'))
+    return out
+
+
+def hetero_settings(root, **data):
+    """HETERO_CONFIG on CUDA, its data roots under `root` (a hetero_copy),
+    with `data` changed."""
+    import yaml
+    with open(HETERO_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    cfg['general']['device'] = 'cuda'
+    cfg['data'].update(train_root=os.path.join(root, 'train'),
+                       test_root=os.path.join(root, 'test'), **data)
+    return cfg
+
+
+def hetero_start(torch, cfg, stats, **changes):
+    """HETERO_CKPT's weights in a model with `changes`, its scalers refit
+    as the CLI fits them (training.fit_scalers per output property)."""
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    base = load_model(HETERO_CKPT)
+    model = NewtonNet(**dict(base.config_dict(), **changes), device='cuda')
+    model.load_state_dict(base.state_dict())
+    fit = cfg['training']['fit_scalers']
+    set_scalers(model.core, model.output_properties, stats,
+                {k: fit.get(k, {}) for k in model.output_properties})
+    return model.requires_grad_(True)
+
+
+def phase_hetero_train(torch, fd, fdd, fk):
+    """Phase 12a/b: HETERO_CONFIG's bucketed batches (parse_train_test as
+    the CLI calls it; the bucket sequence of the first 10 against
+    JAX_LJ_HETERO_N_PAD, the epoch's against HETERO_BUCKETS).
+    a. 10 training steps of HETERO_CKPT's XLA model (the standard step)
+       against the JAX package's (JAX_LJ_HETERO_STEP_*, check_jax_steps:
+       step 1's loss within the energies' rounding, floor LJ_STEP1_REL, its
+       gradient norm at 1e-3, steps 2-10's losses at 1e-2).
+    b. K1-K4 against their plain versions at every bucket's shape (B=20,
+       N in HETERO_BUCKETS, F=64, R=20; phase 3's bars, 2e-3 for the bf16
+       duals); the same checkpoint with a kernel='pallas' override trained
+       by fastgrad (K1/K2, the duals K3/K4 in bf16) over the whole epoch:
+       K1-K4 launched at every bucket size, step 1's gradient within 2e-3
+       (relative norm) of 12a's. -> {n_pad: launches} of 12b's epoch."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import Trainer
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    with tempfile.TemporaryDirectory() as root:
+        cfg = hetero_settings(hetero_copy(root))
+        t = time.perf_counter()
+        train_gen, _, _, stats = parse_train_test(
+            precision=np.float32, seed=cfg['general']['seed'], **cfg['data'])
+        epoch = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+                 for b in train_gen]
+        data_s = time.perf_counter() - t
+    n_pads = [int(b['z'].shape[1]) for b in epoch]
+    check(n_pads[:10] == JAX_LJ_HETERO_N_PAD,
+          f'bucket sequence {n_pads[:10]}, the JAX loader\'s '
+          f'{JAX_LJ_HETERO_N_PAD}')
+    check(sorted(set(n_pads)) == list(HETERO_BUCKETS),
+          f'the epoch\'s buckets {sorted(set(n_pads))}')
+    loss_fns = get_loss_by_string(cfg['training']['loss'])
+    lr = cfg['training']['optimizer']['adam']['lr']
+    clip = cfg['training']['clip_grad']
+
+    losses, norms, step_s, grads1, _, trainer = xla_steps(
+        torch, hetero_start(torch, cfg, stats), loss_fns, epoch[:10], 'auto',
+        lr=lr, clip=clip)
+    check(not trainer.fast_grad, 'the XLA model resolved to fastgrad')
+    loss64, ulp_term = float64_loss(fd, loss_fns[0], epoch[0],
+                                    hetero_start(torch, cfg, stats))
+    bar1 = max(ulp_term / loss64, LJ_STEP1_REL)
+    rel_loss, rel_gn = check_jax_steps(
+        'hetero XLA', losses, norms, JAX_LJ_HETERO_STEP_LOSS,
+        JAX_LJ_HETERO_STEP_GRAD_NORM, loss64, bar1)
+    emit('hetero_train_xla', config=HETERO_CONFIG[len(ROOT) + 1:],
+         checkpoint=HETERO_CKPT[len(ROOT) + 1:], n_pad=n_pads[:10],
+         jax_n_pad=JAX_LJ_HETERO_N_PAD, epoch_batches=len(epoch),
+         epoch_buckets={str(n): n_pads.count(n) for n in HETERO_BUCKETS},
+         data_seconds=data_s, loss=losses, grad_norm=norms,
+         jax_loss=JAX_LJ_HETERO_STEP_LOSS,
+         jax_grad_norm=JAX_LJ_HETERO_STEP_GRAD_NORM, rel_loss=rel_loss,
+         rel_grad_norm=rel_gn, loss64=loss64, step1_loss_bar=bar1,
+         step_ms=[1e3 * t for t in step_s])
+    del trainer
+    torch.cuda.empty_cache()
+
+    shapes = [(20, n, 64, 20) for n in HETERO_BUCKETS]
+    phase_kernels(torch, fd, shapes=shapes)
+    phase_dual_kernels(torch, fdd, shapes=shapes)
+    model = hetero_start(torch, cfg, stats, kernel='pallas')
+    opt = get_optimizer_by_string('adam', model.core, clip_grad=clip, lr=lr)
+    trainer = Trainer(model, loss_fns=loss_fns, optimizer=opt)
+    check(trainer.fast_grad, 'the pallas model did not resolve to fastgrad')
+    launches = {n: dict.fromkeys(DENSE_FP32, 0) for n in HETERO_BUCKETS}
+    step_ms = {n: [] for n in HETERO_BUCKETS}
+    pallas_losses, pallas_grads1 = [], None
+    with fp32_matmuls():
+        for b in epoch:
+            n = int(b['z'].shape[1])
+            reset_counts(fd, fdd, fk)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, _ = trainer.loss_and_grad(b)
+            if pallas_grads1 is None:
+                pallas_grads1 = param_grads(torch, model)
+            opt.step()
+            torch.cuda.synchronize()
+            step_ms[n].append(1e3 * (time.perf_counter() - t))
+            pallas_losses.append(float(loss))
+            for k, v in lj_counts(fd, fdd, fk).items():
+                if v:
+                    launches[n][k] = launches[n].get(k, 0) + v
+    rel = rel_norm(pallas_grads1, grads1)
+    emit('hetero_train_pallas', steps=len(epoch), loss=pallas_losses,
+         step1_grad_rel_norm_vs_xla=rel, bar=2e-3,
+         step_ms_median_by_n_pad={str(n): statistics.median(v)
+                                  for n, v in step_ms.items()},
+         launches_by_n_pad={str(n): v for n, v in launches.items()})
+    check(all(math.isfinite(v) for v in pallas_losses),
+          f'non-finite pallas loss: {pallas_losses}')
+    check(rel <= 2e-3, f'pallas step 1 gradient {rel} from the XLA one')
+    check(all(launches[n][k] > 0 for n in HETERO_BUCKETS
+              for k in DENSE_FP32),
+          f'a dense kernel was not launched at every bucket: {launches}')
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_hetero_cli(torch, fd, fdd, fk):
+    """Phase 12c: one epoch of HETERO_CONFIG (with the kernel='pallas'
+    override, fresh weights from the config's seed) through the CLI's entry
+    point, in_memory 'sharded' with shards of HETERO_SHARD frames, its
+    caches written into a hetero_copy: locality_block 'auto' with prefetch
+    2 and 0, and locality_block 0 with prefetch 2; each run's seconds,
+    log.csv's epoch_seconds and steps_per_s and the train root's
+    shard_loads over the run. Held: log.csv's columns and finite values,
+    the kernels launched, and that the sharded, prefetched loaders' epoch
+    is that of the in_memory True loaders with the same seed and block
+    (locality_block HETERO_SHARD), batch for batch. -> the first run's
+    launches."""
+    import csv
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        hetero_copy(root)
+        for name, block, prefetch in (('auto_prefetch_2', 'auto', 2),
+                                      ('auto_prefetch_0', 'auto', 0),
+                                      ('block_0_prefetch_2', 0, 2)):
+            cfg = hetero_settings(root, in_memory='sharded',
+                                  shard_size=HETERO_SHARD,
+                                  locality_block=block, prefetch=prefetch)
+            cfg['general']['output'] = os.path.join(root, 'runs')
+            cfg['model']['kernel'] = 'pallas'
+            cfg['training']['epochs'] = 1
+            torch.cuda.synchronize()
+            reset_counts(fd, fdd, fk)
+            t = time.perf_counter()
+            trainer = train_from_settings(cfg)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t
+            with open(os.path.join(trainer.output_path, 'log.csv')) as f:
+                row = next(csv.DictReader(f))
+            check(list(row) == LOG_COLUMNS, f'log.csv columns {list(row)}')
+            check(all(math.isfinite(float(row[k]))
+                      for k in LOG_COLUMNS[1:-1]),
+                  f'non-finite log.csv value: {row}')
+            runs[name] = {
+                'seconds': seconds,
+                'epoch_seconds': float(row['epoch_seconds']),
+                'steps_per_s': float(row['steps_per_s']),
+                'train_loss': float(row['train_loss']),
+                'shard_loads_train_root':
+                    trainer.train_generator.dataset.dataset.shard_loads,
+                'launches': {k: v for k, v in lj_counts(fd, fdd,
+                                                        fk).items() if v}}
+            del trainer
+        processed = sorted(os.listdir(os.path.join(root, 'train',
+                                                   'processed')))
+        data = hetero_settings(root, in_memory='sharded',
+                               shard_size=HETERO_SHARD,
+                               locality_block='auto', prefetch=2)['data']
+        sharded = parse_train_test(precision=np.float32, seed=0, **data)
+        data.pop('shard_size')
+        in_memory = parse_train_test(precision=np.float32, seed=0, **dict(
+            data, in_memory=True, locality_block=HETERO_SHARD, prefetch=0))
+        batches = 0
+        for gs, gm in zip(sharded[:3], in_memory[:3]):
+            check(len(gs) == len(gm), 'loader lengths differ')
+            for bs, bm in zip(gs, gm):
+                check(bs.keys() == bm.keys() and all(
+                    np.array_equal(bs[k], bm[k]) for k in bm),
+                      f'sharded batch {batches} differs from in-memory')
+                batches += 1
+    emit('hetero_cli_epoch', config=HETERO_CONFIG[len(ROOT) + 1:],
+         model={'kernel': 'pallas'}, shard_size=HETERO_SHARD,
+         processed_files=processed, runs=runs,
+         sharded_vs_in_memory_batches_equal=batches)
+    first = runs['auto_prefetch_2']['launches']
+    check(all(first.get(k, 0) > 0 for k in DENSE_FP32),
+          f'the CLI epoch launched {first}')
+    check('meta.npz' in processed and 'shard_0.npz' in processed,
+          f'the sharded cache: {processed}')
+    return first
 
 
 def main():
@@ -5088,6 +5420,12 @@ def main():
     del bf16_box_step
     emit('bf16_train_launches', **p11)
     torch.cuda.empty_cache()
+    # 12. the data pipeline: config_lj_hetero.yml's bucketed batches, 10 XLA
+    # steps against the JAX package's, the kernel='pallas' override over
+    # every bucket, one sharded, prefetched CLI epoch
+    hetero_launches = phase_hetero_train(torch, fd, fdd, fk)
+    hetero_cli_launches = phase_hetero_cli(torch, fd, fdd, fk)
+    torch.cuda.empty_cache()
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -5246,6 +5584,14 @@ def main():
                                  for F in WIDTHS_9A}
         row['lj_pallas_launches'] = {k: n.get(row['name'], 0)
                                      for k, n in lj_launches.items()}
+    # K1-K4 on phase 12's bucketed paths: 12b's epoch by bucket, 12c's CLI
+    # epoch
+    for row in rows:
+        if row['name'] in DENSE_FP32:
+            row['hetero_launches'] = {
+                **{f'train_epoch_n_pad_{n}': c[row['name']]
+                   for n, c in hetero_launches.items()},
+                'cli_epoch': hetero_cli_launches.get(row['name'], 0)}
     emit('gather_launches', serve_500_frames_xla=serve_xla_launches,
          per_box_xla_request=box_xla_launches,
          window_entry_point=window_launches)

@@ -157,6 +157,11 @@ class NeighborListDataset:
     def precision(self):
         return self.dataset.precision
 
+    @property
+    def frame_sizes(self):
+        # the wrapped dataset's (AttributeError where it has none)
+        return self.dataset.frame_sizes
+
     def __getitem__(self, i):
         s = Sample(self.dataset[i])
         if self.mode == 'newton3c':

@@ -1,6 +1,10 @@
-'''Extended-XYZ (extxyz) reader: the dialect of the NewtonNet datasets
+'''Extended-XYZ (extxyz) readers for the dialect of the NewtonNet datasets
 (`Properties=species:S:1:pos:R:3:forces:R:3 energy=... pbc="F F F"`,
-optional `Lattice="..."`, `stress=`/`virial=`).'''
+optional `Lattice="..."`, `stress=`/`virial=`): `read_extxyz` in Python,
+and `parse_extxyz` through the C++ parser of csrc/host/extxyz.cpp (built
+by g++ at first use; a failed build raises), which reads no stress= or
+virial= fields.'''
+import os
 import re
 
 import numpy as np
@@ -134,3 +138,67 @@ def read_extxyz(path):
                                 energy=energy, forces=forces, stress=stress,
                                 virial=virial, info=info, arrays=columns))
     return frames
+
+
+def _extxyz_lib():
+    '''The ctypes handle of csrc/host/extxyz.cpp (built by g++ at first
+    use; a failed build raises), its functions typed.'''
+    import ctypes
+
+    from newtonnet_tpu_torch.ops import _build
+    lib = _build.load_host('extxyz')
+    if not getattr(lib, '_nn_typed', False):
+        p = ctypes.c_void_p
+        lib.xyz_parse.restype = p
+        lib.xyz_parse.argtypes = [ctypes.c_char_p]
+        lib.xyz_error.restype = ctypes.c_char_p
+        lib.xyz_error.argtypes = [p]
+        for fn in ('xyz_n_frames', 'xyz_total_atoms'):
+            getattr(lib, fn).restype = ctypes.c_int64
+            getattr(lib, fn).argtypes = [p]
+        for fn in ('xyz_has_energy', 'xyz_has_forces'):
+            getattr(lib, fn).restype = ctypes.c_uint8
+            getattr(lib, fn).argtypes = [p]
+        lib.xyz_fill.restype = None
+        lib.xyz_fill.argtypes = [p] * 8
+        lib.xyz_free.restype = None
+        lib.xyz_free.argtypes = [p]
+        lib._nn_typed = True
+    return lib
+
+
+def parse_extxyz(path):
+    '''Parse an extxyz file with the C++ parser (csrc/host/extxyz.cpp),
+    which reads no stress=/virial= fields.
+
+    Returns a dict: ptr (n_frames + 1,), z (atoms,), pos (atoms, 3),
+    forces (atoms, 3) or None, cell (n_frames, 3, 3), energy (n_frames,)
+    or None, pbc (n_frames, 3) bool. Raises ValueError on a malformed
+    file.'''
+    import ctypes
+    lib = _extxyz_lib()
+    h = lib.xyz_parse(os.fsencode(path))
+    try:
+        err = lib.xyz_error(h)
+        if err:
+            raise ValueError(f'{path}: {err.decode()}')
+        n_frames = lib.xyz_n_frames(h)
+        atoms = lib.xyz_total_atoms(h)
+        z = np.empty(atoms, np.int32)
+        pos = np.empty((atoms, 3), np.float64)
+        forces = np.empty((atoms, 3), np.float64)
+        cell = np.empty((n_frames, 3, 3), np.float64)
+        energy = np.empty(n_frames, np.float64)
+        pbc = np.empty((n_frames, 3), np.uint8)
+        ptr = np.empty(n_frames + 1, np.int64)
+        lib.xyz_fill(h, *(a.ctypes.data_as(ctypes.c_void_p)
+                          for a in (z, pos, forces, cell, energy, pbc, ptr)))
+        return {
+            'ptr': ptr, 'z': z, 'pos': pos,
+            'forces': forces if lib.xyz_has_forces(h) else None,
+            'cell': cell,
+            'energy': energy if lib.xyz_has_energy(h) else None,
+            'pbc': pbc.astype(bool),
+        }
+    finally:
+        lib.xyz_free(h)

@@ -13,11 +13,9 @@ general.matmul_precision and training.eval_matmul_precision take
 'highest' (or nothing): the port computes in IEEE fp32; other values raise
 ValueError. Not ported, and refused with NotImplementedError before any
 data is read: a .pt warm start, a set training.parallel, training.halo, a
-set training.wandb, training.profile_dir, general.debug_nans and a
-kernel='pallas' model with pallas_dot_dtype 'bfloat16' (the Trainer
-refuses it too, as a warm start's config may set it).
+set training.wandb, training.profile_dir and general.debug_nans.
 training.steps_per_call is accepted and does nothing (eager PyTorch has
-no dispatch chunking).
+no dispatch chunking, and bucketed batches change shape anyway).
 '''
 import argparse
 import os

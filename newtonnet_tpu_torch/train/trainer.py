@@ -20,6 +20,10 @@ A training step is one of two, chosen as the JAX Trainer chooses
   order, so a kernel='pallas' model with fast_grad=False is refused when
   the Trainer is built).
 Evaluation runs NewtonNet.forward (K1/K2, or K5/K6, for kernel='pallas').
+Batches may change shape from one step to the next (a BucketedLoader pads
+each bucket to its own size): nothing is kept by shape between steps. A
+PrefetchLoader's shuffling Generator is its wrapped loader's, so the
+train state's loader_rng_state resumes either.
 All matrix products are IEEE fp32: TF32 is off while the Trainer runs,
 which is what eval_matmul_precision='highest' asks of the JAX Trainer.
 

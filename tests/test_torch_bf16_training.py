@@ -5,6 +5,7 @@ package, whose Pallas kernels run in interpret mode.
 
     python tests/test_torch_bf16_training.py aspirin   # JAX_BF16_ASPIRIN_STEP_*
     python tests/test_torch_bf16_training.py lj        # JAX_BF16_LJ_STEP_*
+    python tests/test_torch_bf16_training.py lj-klist  # JAX_BF16_LJ_KLIST_VS_*
 
 Cases (F=32, R=8, 2 interactions, batches of 4 molecules of at most 8
 atoms): dense and over plain neighbour lists (k_max 12), three steps of
@@ -368,11 +369,12 @@ def jax_aspirin_steps(cs, graph_mode, dot_dtype, n_steps=10):
     return losses, norms
 
 
-def jax_lj_steps(cs, layout, dot_dtype, n_steps=10):
+def jax_lj_steps(cs, layout, dot_dtype, n_steps=10, grads1=None):
     '''The JAX package's first fine-tuning steps of LJ_CONFIG with the LJ
     checkpoint as a pallas model in dot_dtype over `layout`
     (chip_smoke.BF16_LJ_LAYOUTS; the lists precomputed, plain, as
-    lj_pallas_data_settings gives them): (losses, gradient norms).'''
+    lj_pallas_data_settings gives them): (losses, gradient norms). A list
+    given as grads1 receives step 1's gradient leaves.'''
     import optax
     import yaml
 
@@ -406,12 +408,15 @@ def jax_lj_steps(cs, layout, dot_dtype, n_steps=10):
                                                      nlist=nl)
         updates, o = tx.update(grads, o, p)
         return optax.apply_updates(p, updates), o, loss, \
-            optax.global_norm(grads)
+            optax.global_norm(grads), grads
 
     losses, norms = [], []
     for batch in batches:
-        params, opt, loss, norm = step(
+        params, opt, loss, norm, grads = step(
             params, opt, {k: jnp.asarray(v) for k, v in batch.items()})
+        if grads1 is not None and not losses:
+            grads1 += [np.asarray(g, np.float64)
+                       for g in jax.tree.leaves(grads)]
         losses.append(float(loss))
         norms.append(float(norm))
     return losses, norms
@@ -444,6 +449,24 @@ if __name__ == '__main__':
         for name, k in (('LOSS', 0), ('GRAD_NORM', 1), ('SHIFT', 2)):
             print(f'JAX_BF16_LJ_STEP_{name} = '
                   f'{ {lay: out[lay][k] for lay in out} !r}')
+    elif sys.argv[1:] == ['lj-klist']:
+        # C15: the JAX package's own bf16 K-list-to-dense distance of step
+        # 1's gradient (relative norm), and the control's: the bf16 K-list
+        # step against the fp32-product dense one
+        runs = [(lay, 'bfloat16') for lay in cs.BF16_LJ_LAYOUTS]
+        g = {run: [] for run in runs + [('dense', 'float32')]}
+        for (layout, dot), leaves in g.items():
+            jax_lj_steps(cs, layout, dot, n_steps=1, grads1=leaves)
+
+        def rel(a, b):
+            return float(np.sqrt(sum(((x - y) ** 2).sum()
+                                     for x, y in zip(a, b))
+                                 / sum((y ** 2).sum() for y in b)))
+        klists = [lay for lay in cs.BF16_LJ_LAYOUTS if lay != 'dense']
+        for name, dense in (('DENSE', 'bfloat16'), ('FP32_DENSE', 'float32')):
+            out = {lay: rel(g[lay, 'bfloat16'], g['dense', dense])
+                   for lay in klists}
+            print(f'JAX_BF16_LJ_KLIST_VS_{name} = {out!r}')
     else:
         sys.exit('usage: python tests/test_torch_bf16_training.py '
-                 'aspirin|lj')
+                 'aspirin|lj|lj-klist')

@@ -1,14 +1,20 @@
 '''The CUDA source of kernels K3/K4 (newtonnet_tpu_torch/csrc/fused_dual.cu)
 runs on the CPU under the emulation of CUDA's thread model
 (tests/torch_kernel_emu.py), against the plain PyTorch versions, in fp32
-and bf16 mode.
+and bf16 mode: the cases of DUAL_CASES at F=32 here, those at F=64 and
+128 in test_torch_kernel_emulation_dual_wide.py (two files, so that two
+test workers share K3/K4's emulation time).
 '''
 import pytest
 
 from newtonnet_tpu_torch.ops import fused_dual as fdd
-from torch_kernel_emu import (BAR, BF16_BAR, compile_emu, dual_handle,
-                              dual_inputs, nan, ptrs, run_dual, source,
-                              width_libs, worst_ratio)
+from torch_kernel_emu import (BAR, BF16_BAR, DUAL_CASES, case_params,
+                              compile_emu, dual_handle, dual_inputs, nan,
+                              ptrs, run_dual, source, width_libs,
+                              worst_ratio)
+
+# DUAL_CASES at F=32; test_torch_kernel_emulation_dual_wide.py runs the rest
+NARROW = [i for i, (shape, _, _) in enumerate(DUAL_CASES) if shape[2] == 32]
 
 
 @pytest.fixture(scope='module')
@@ -18,11 +24,8 @@ def dual_lib(tmp_path_factory):
                       dual_handle)
 
 
-@pytest.mark.parametrize('shape, first_layer, bf16', [
-    (shape, first, bf16) for shape in [(2, 10, 32, 8), (1, 13, 64, 16)]
-    for first in (False, True) for bf16 in (False, True)]
-    + [((1, 21, 128, 20), False, True), ((3, 11, 32, 12), False, True),
-       ((3, 11, 32, 12), True, False)])
+@pytest.mark.parametrize('shape, first_layer, bf16',
+                         case_params(DUAL_CASES, NARROW))
 def test_emulated_dual_kernels_match_plain(dual_lib, shape, first_layer,
                                            bf16):
     '''K3/K4 at ragged atom counts (10, 11, 13 and 21 are no multiple of

@@ -1,13 +1,21 @@
 '''The CUDA source of kernels K7/K8 (newtonnet_tpu_torch/csrc/fused_klist.cu)
 runs on the CPU under the emulation of CUDA's thread model
-(tests/torch_kernel_emu.py), against the plain PyTorch versions. K5/K6,
-from the same source, are in test_torch_kernel_emulation_klist.py.
+(tests/torch_kernel_emu.py), against the plain PyTorch versions: the
+cases of KLIST_CASES at F=32 and 64 and the mutants here, those at F=128
+in test_torch_kernel_emulation_klist_dual_wide.py (two files, so that two
+test workers share K7/K8's emulation time). K5/K6, from the same source,
+are in test_torch_kernel_emulation_klist.py.
 '''
 import pytest
 
-from torch_kernel_emu import (BAR, KLIST_CASES, check_klist, compile_emu,
-                              klist_handle, klist_inputs, run_k78, source,
-                              width_libs, worst_ratio)
+from torch_kernel_emu import (BAR, KLIST_CASES, case_params, check_klist,
+                              compile_emu, klist_handle, klist_inputs,
+                              run_k78, source, width_libs, worst_ratio)
+
+# KLIST_CASES below F=128; test_torch_kernel_emulation_klist_dual_wide.py
+# runs the rest
+NARROW = [i for i, (shape, _, _) in enumerate(KLIST_CASES)
+          if shape[3] < 128]
 
 
 @pytest.fixture(scope='module')
@@ -17,7 +25,8 @@ def klist_lib(tmp_path_factory):
                       klist_handle)
 
 
-@pytest.mark.parametrize('shape, first_layer, bf16', KLIST_CASES)
+@pytest.mark.parametrize('shape, first_layer, bf16',
+                         case_params(KLIST_CASES, NARROW))
 def test_emulated_klist_kernels_match_plain(klist_lib, shape, first_layer,
                                             bf16):
     '''K7 and K8 at the ragged sizes of

@@ -21,8 +21,11 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch
         import newtonnet_tpu_torch.data.loader
         import newtonnet_tpu_torch.data.pipeline
+        import newtonnet_tpu_torch.data.prelists
+        import newtonnet_tpu_torch.data.preprocess
         import newtonnet_tpu_torch.data.statistics
         import newtonnet_tpu_torch.data.units
+        import newtonnet_tpu_torch.data.xyz
         import newtonnet_tpu_torch.layers.activations
         import newtonnet_tpu_torch.md.calculator
         import newtonnet_tpu_torch.md.driver

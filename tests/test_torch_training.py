@@ -94,8 +94,18 @@ def test_parse_train_test_matches_jax(aspirin_copy):
         for part in sj[key]:
             np.testing.assert_array_equal(st[key][part], sj[key][part])
     assert st['periodicity'] == sj['periodicity'] == 'aperiodic'
-    with pytest.raises(NotImplementedError, match='bucketed'):
-        parse_train_test(**kw, bucketed=True)
+    # bucketed: the JAX package's bucketed batches (aspirin: one bucket)
+    jax_out = jax_parse_train_test(**kw, bucketed=True)
+    ours = parse_train_test(**kw, bucketed=True)
+    for gj, gt in zip(jax_out[:3], ours[:3]):
+        assert gt.buckets == gj.buckets == [24]
+        for _ in range(2):
+            for k, (bj, bt) in enumerate(zip(gj, gt)):
+                if k == 3:
+                    break
+                assert bj.keys() == bt.keys()
+                for key in bj:
+                    np.testing.assert_array_equal(bt[key], bj[key], key)
 
 
 def _jax_params(seed=0):

@@ -283,6 +283,26 @@ KLIST_CASES = [
     ((1, 9, 5, 128, 20), False, True), ((1, 9, 5, 128, 20), True, False)]
 
 
+# K3/K4's cases: ragged atom counts, both variants and both dot dtypes at
+# F=32 and 64, the training path's variant at F=128, three molecules with
+# R=12 (test_torch_kernel_emulation_dual.py and _dual_wide.py)
+DUAL_CASES = ([(shape, first, bf16)
+               for shape in [(2, 10, 32, 8), (1, 13, 64, 16)]
+               for first in (False, True) for bf16 in (False, True)]
+              + [((1, 21, 128, 20), False, True),
+                 ((3, 11, 32, 12), False, True),
+                 ((3, 11, 32, 12), True, False)])
+
+
+def case_params(cases, keep):
+    '''pytest.param entries of the (shape, first_layer, bf16) cases whose
+    index is in `keep`, each with the id it has in the whole list
+    (shape<i>-<first_layer>-<bf16>), so that the cases of one list split
+    across two files keep their test ids.'''
+    return [pytest.param(*case, id=f'shape{i}-{case[1]}-{case[2]}')
+            for i, case in enumerate(cases) if i in keep]
+
+
 def klist_handle(handle):
     '''The argument and result types of fused_klist.cu's C functions.'''
     p, i = ctypes.c_void_p, ctypes.c_int
