@@ -289,10 +289,42 @@ with a non-zero exit code and no result line):
                epoch seconds, steps/s and shard_loads; the sharded,
                prefetched epoch's batches equal to the in-memory one's.
 
+13. charge  charge heads (kernel='xla'), the latent Ewald energy and Born
+            effective charges (BEC), each charge head from charge_head_tree
+            (numpy, CHARGE_SEED), held to the JAX package's numbers in
+            CHARGE_REF:
+            a. the trained aspirin checkpoint (XLA_CKPT) with a charge head
+               and BEC (ewald_mode 'auto') serves the 500 test frames in
+               batches of 100; the first 8 frames' energies (E_ATOL),
+               forces, charges (CHARGE_BAR) and BEC (CHARGE_BAR of its
+               largest magnitude) against the JAX package's; 20
+               calculator requests resolved 'auto -> aperiodic' against
+               the batches; the device time of the Ewald term and of the
+               BEC's reverse passes as shares of a batch's.
+            b. the box model (box_weights, F=128) with a charge head over
+               newton3 half lists (BOX_N3_K_MAX) through the calculator,
+               'auto -> periodic': at BOX_REF_ATOMS energy, forces,
+               stress and charges against the JAX calculator's (phase
+               8a's bars); at BOX_ATOMS with bec, K9 and K12 launched,
+               the plain row gather giving the same bits, every output
+               finite, the acoustic sum rule sum_i Z*_i = (sum_i q_i) I
+               at SUM_RULE_BAR with a control that fails it, and the
+               request times with and without bec.
+            c. the newton3 LJ checkpoint (F=48) with a charge head: 4
+               frames' BEC and charges against the JAX package's; 10
+               standard fine-tuning steps of the charged checkpoint (the
+               port writes it) over LJ_CONFIG's newton3 lists against
+               the JAX package's (JAX_LJ_CHARGE_STEP_*, phase 8b's bars),
+               the Trainer printing 'ewald_mode: auto -> periodic (from
+               the first training batch)'; fast_grad's step 1 against the
+               standard one at FASTGRAD_CHARGE_BAR, and fastgrad without
+               E_lr as a control that misses it.
+
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
-9b/9c launches, K1-K4's phase 12 launches; the bf16 rows of K1/K2 and
-K5-K8) and, last, {"ok": true, "device": {...}}.
+9b/9c launches, K1-K4's phase 12 launches, K9/K12's phase 13 launches;
+the bf16 rows of K1/K2 and K5-K8) and, last, {"ok": true, "device":
+{...}}.
 '''
 import functools
 import json
@@ -961,6 +993,35 @@ JAX_LJ_HETERO_STEP_GRAD_NORM = [
 JAX_LJ_HETERO_N_PAD = [16, 16, 16, 16, 8, 40, 16, 16, 16, 16]
 DENSE_FP32 = ('pair_fwd', 'pair_fwd_first', 'pair_bwd', 'pair_bwd_first',
               'dual_fwd', 'dual_fwd_first', 'dual_bwd', 'dual_bwd_first')
+
+# Phase 13: charge heads, the latent Ewald energy and Born effective charges
+# (kernel='xla' models). Every phase 13 model's charge head comes from
+# charge_head_tree (numpy, CHARGE_SEED). The JAX package's numbers: the
+# arrays in CHARGE_REF and the steps below, from `python
+# tests/test_torch_charge_model.py card` (CPU).
+CHARGE_SEED = 17
+CHARGE_REF = os.path.join(ROOT, 'tests', 'reference', 'jax_charge_heads.npz')
+CHARGE_OUTPUTS = ('energy', 'gradient_force', 'charge', 'bec')
+CHARGE_FRAMES = 8
+CHARGE_ASPIRIN_KEYS = {'energy': 'ENERGY', 'gradient_force': 'FORCES',
+                       'charge': 'CHARGES', 'bec': 'BEC'}
+CHARGE_BOX_OUTPUTS = ('energy', 'gradient_force', 'stress', 'charge', 'bec')
+CHARGE_BOX_KEYS = {'energy': 'ENERGY', 'forces': 'FORCES',
+                   'stress': 'STRESS', 'charges': 'CHARGES'}
+LJ_CHARGE_FRAMES = 4
+# the float32 model bar (atol) of forces and charges; BEC at CHARGE_BAR of
+# its largest magnitude; energies of the trained aspirin model at E_ATOL
+# (one float32 ulp at -17,600 eV is 0.002 eV)
+CHARGE_BAR = 2e-4
+# the acoustic sum rule sum_i Z*_i = (sum_i q_i) I, relative to
+# sum_i |Z*_i| (Frobenius norms)
+SUM_RULE_BAR = 1e-5
+FASTGRAD_CHARGE_BAR = 2e-4
+JAX_LJ_CHARGE_STEP_LOSS = [1.860039, 0.6277779, 0.6093386, 0.5693539,
+                           665.002, 0.2448078, 2.182259, 2.886215, 0.4894759,
+                           33.04141]
+JAX_LJ_CHARGE_STEP_GRAD_NORM = [59.4, 89.255, 74.687, 53.441, 1584.5,
+                                40.489, 97.842, 54.554, 30.338, 391.6]
 
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
@@ -2804,17 +2865,18 @@ def param_grads(torch, model):
 
 
 def xla_steps(torch, model, loss_fns, batches, fast_grad, lr=1e-3,
-              clip=1.0):
+              clip=1.0, train_generator=None):
     """Steps through Trainer.loss_and_grad (the step fast_grad resolves
-    to) with Adam (lr, clip). -> (losses, global gradient norms before the
-    clip, step seconds, step 1's gradients and predictions, the
-    Trainer)."""
+    to) with Adam (lr, clip); the Trainer is given train_generator (which
+    it reads only to resolve a charge head's ewald_mode). -> (losses,
+    global gradient norms before the clip, step seconds, step 1's
+    gradients and predictions, the Trainer)."""
     from newtonnet_tpu_torch import Trainer
     from newtonnet_tpu_torch.layers.precision import fp32_matmuls
     from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
     opt = get_optimizer_by_string('adam', model.core, clip_grad=clip, lr=lr)
     trainer = Trainer(model, loss_fns=loss_fns, optimizer=opt,
-                      fast_grad=fast_grad)
+                      fast_grad=fast_grad, train_generator=train_generator)
     losses, norms, step_s, grads1, preds1 = [], [], [], None, None
     with fp32_matmuls():
         for b in batches:
@@ -5077,6 +5139,414 @@ def phase_hetero_cli(torch, fd, fdd, fk):
     return first
 
 
+def charge_head_tree(F, seed=CHARGE_SEED):
+    """A charge head's parameters as flax initializes them, from numpy with
+    `seed`: charge_head.TorchLinear_{0,1,2} (F -> F -> F -> 1), every kernel
+    and bias U(+-1/sqrt(fan_in)); scaler_charge scale ones, shift zeros
+    (119, 1); float32 numpy arrays in a flax-named tree."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    head = {}
+    for i, (fan_in, out) in enumerate(((F, F), (F, F), (F, 1))):
+        b = fan_in ** -0.5
+        head[f'TorchLinear_{i}'] = {
+            'kernel': rs.uniform(-b, b, (fan_in, out)).astype(np.float32),
+            'bias': rs.uniform(-b, b, (out,)).astype(np.float32)}
+    return {'charge_head': head, 'scaler_charge': {
+        'scale': np.ones((119, 1), np.float32),
+        'shift': np.zeros((119, 1), np.float32)}}
+
+
+def with_charge_head(torch, base, output_properties, device='cuda',
+                     **changes):
+    """A model of base's configuration with `output_properties` (charge
+    and/or bec among them) and `changes`: base's weights and
+    charge_head_tree's charge head."""
+    from newtonnet_tpu_torch import NewtonNet
+    from newtonnet_tpu_torch.utils.params import params_from_flax, \
+        params_to_flax
+    model = NewtonNet(**{**base.config_dict(),
+                         'output_properties': list(output_properties),
+                         **changes}, device=device)
+    tree = params_to_flax(base.core)['params']
+    tree.update(charge_head_tree(base.n_features))
+    params_from_flax({'params': {k: v for k, v in tree.items()
+                                 if hasattr(model.core, k)}},
+                     core=model.core)
+    return model.requires_grad_(False).eval()
+
+
+def charged_box_model(torch, base_cfg, device='cuda', outputs=None):
+    """Phase 13b's model: box_model's newton3 box (F=128, 3 interactions,
+    box_weights, half-list capacity BOX_N3_K_MAX, float32) with
+    charge_head_tree's head and CHARGE_BOX_OUTPUTS (or `outputs`)."""
+    base = box_model(torch, base_cfg, '', ['energy', 'gradient_force'],
+                     device=device, newton3=True, k_max=BOX_N3_K_MAX)
+    return with_charge_head(torch, base, outputs or CHARGE_BOX_OUTPUTS,
+                            device=device)
+
+
+def charged_lj_model(torch, device='cuda', bec=False):
+    """Phase 13c's model: the trained newton3 LJ checkpoint (F=48, 2
+    interactions, k_max 16) with charge_head_tree's head, its outputs plus
+    charge (and bec)."""
+    from newtonnet_tpu_torch import load_model
+    base = load_model(LJ_CKPT, device=device)
+    return with_charge_head(torch, base, base.output_properties + (
+        ['charge', 'bec'] if bec else ['charge']), device=device)
+
+
+def write_charged_lj_checkpoint(torch, root):
+    """charged_lj_model (without bec) written by the port, in the JAX
+    package's format, as root/lj_charged.msgpack. -> its path."""
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    path = os.path.join(root, 'lj_charged.msgpack')
+    save_model(path, charged_lj_model(torch, device='cpu'))
+    return path
+
+
+def check_charge_aspirin(np, out, ref):
+    """Phase 13a's outputs (numpy, a batch whose first CHARGE_FRAMES frames
+    are the pinned ones) against CHARGE_REF: energies at E_ATOL, forces
+    and charges at CHARGE_BAR, BEC at CHARGE_BAR of its largest magnitude.
+    -> {output: (max |diff|, bar)}."""
+    res = {}
+    for key, name in CHARGE_ASPIRIN_KEYS.items():
+        want = ref[f'JAX_CHARGE_ASPIRIN_{name}'].astype(np.float64)
+        got = np.asarray(out[key][:CHARGE_FRAMES], np.float64)
+        bar = {'energy': E_ATOL,
+               'bec': CHARGE_BAR * float(np.abs(want).max())}.get(
+                   key, CHARGE_BAR)
+        res[key] = (float(np.abs(got - want).max()), bar)
+        check(got.shape == want.shape and res[key][0] <= bar,
+              f'13a {key} against the JAX package: {res[key]}')
+    return res
+
+
+def sum_rule(torch, bec, charge):
+    """|sum_i Z*_i - (sum_i q_i) I| / sum_i |Z*_i| (Frobenius norms) of
+    bec (N, 3, 3) and charge (N,), in float64."""
+    bec, charge = bec.double(), charge.double()
+    eye = torch.eye(3, dtype=bec.dtype, device=bec.device)
+    resid = bec.sum(0) - charge.sum() * eye
+    return float(torch.linalg.norm(resid)
+                 / torch.linalg.norm(bec, dim=(1, 2)).sum())
+
+
+def phase_charge_aspirin(torch, batches, samples, to_dev):
+    """Phase 13a: the trained kernel='xla' aspirin checkpoint (XLA_CKPT:
+    F=128, 20 basis, 3 interactions, cutoff 5, ewald_mode 'auto') with
+    CHARGE_OUTPUTS and charge_head_tree's head serves the 500 test frames
+    in batches of 100 through forward (both Ewald branches, 'auto'); the
+    first CHARGE_FRAMES frames against the JAX package's (CHARGE_REF,
+    check_charge_aspirin); 20 calculator requests (energy, forces,
+    charges, bec), resolved to 'aperiodic', against the batches; the
+    device time of the Ewald term (its forward and backward in charges
+    and positions) and of the BEC's three reverse passes as shares of a
+    batch's."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator, load_model
+    from newtonnet_tpu_torch.ops.ewald import ewald_energy
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    base = load_model(XLA_CKPT)
+    model = with_charge_head(torch, base, CHARGE_OUTPUTS)
+    ref = dict(np.load(CHARGE_REF))
+    model(*to_dev(batches[0]))
+    served, batch_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = model(*to_dev(b))
+        host = {k: out[k].cpu().numpy() for k in CHARGE_OUTPUTS}
+        batch_s.append(time.perf_counter() - t)
+        served.append(host)
+    for h in served:
+        check(all(np.isfinite(v).all() for v in h.values()),
+              '13a: a served output is not finite')
+        check(h['bec'].shape == (100, 21, 3, 3)
+              and h['charge'].shape == (100, 21), '13a: output shapes')
+    vs_jax = check_charge_aspirin(np, served[0], ref)
+    e_mae = float(np.mean([np.abs(h['energy'] - b['energy']).mean()
+                           for h, b in zip(served, batches)]))
+    f_mae = float(np.mean([np.abs(h['gradient_force'] - b['force']).mean()
+                           for h, b in zip(served, batches)]))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'charged.msgpack')
+        save_model(path, model)
+        calc = NewtonNetCalculator(path, properties=['energy', 'forces',
+                                                     'charges', 'bec'])
+    resolved = f'{calc.model.ewald_mode} -> {calc.model_for(None).ewald_mode}'
+    lat, worst = [], {k: 0.0 for k in ('energy', 'forces', 'charges', 'bec')}
+    first = served[0]
+    for k in range(20):
+        t = time.perf_counter()
+        r = calc.calculate(numbers=samples[k]['z'],
+                           positions=samples[k]['pos'])
+        lat.append(time.perf_counter() - t)
+        for key, want in (('energy', first['energy'][k]),
+                          ('forces', first['gradient_force'][k]),
+                          ('charges', first['charge'][k]),
+                          ('bec', first['bec'][k])):
+            worst[key] = max(worst[key], float(np.abs(r[key] - want).max()))
+    b0 = to_dev(batches[0])
+    nobec = with_charge_head(torch, base, ('energy', 'gradient_force',
+                                           'charge'))
+    q = torch.from_numpy(first['charge']).cuda().requires_grad_(True)
+    pos = b0[1].clone().requires_grad_(True)
+
+    def ewald():
+        with torch.enable_grad():
+            e = ewald_energy(q, pos, b0[2], b0[0] > 0,
+                             sigma=model.ewald_sigma, n_k=model.ewald_n_k,
+                             mode=model.ewald_mode)
+            torch.autograd.grad(e.sum(), (q, pos))
+    times = {'batch_ms': device_ms(torch, lambda: model(*b0)),
+             'batch_without_bec_ms': device_ms(torch, lambda: nobec(*b0)),
+             'batch_without_charge_head_ms': device_ms(
+                 torch, lambda: base(*b0)),
+             'ewald_forward_backward_ms': device_ms(torch, ewald)}
+    times['ewald_share'] = times['ewald_forward_backward_ms'] \
+        / times['batch_ms']
+    times['bec_share'] = (times['batch_ms'] - times['batch_without_bec_ms']) \
+        / times['batch_ms']
+    emit('charge_aspirin', checkpoint=XLA_CKPT[len(ROOT) + 1:],
+         outputs=CHARGE_OUTPUTS, ewald_mode=model.ewald_mode,
+         frames=500, batch=100, vs_jax_first_frames=vs_jax,
+         energy_mae=e_mae, force_mae=f_mae,
+         batch_ms_median=1e3 * statistics.median(batch_s),
+         calculator_ewald_mode=resolved, requests=20,
+         requests_vs_batch_max_abs_diff=worst,
+         request_ms_median=1e3 * statistics.median(lat),
+         device_times=times)
+    check(resolved == 'auto -> aperiodic', f'13a calculator: {resolved}')
+    check(worst['energy'] <= E_ATOL and worst['forces'] <= F_ATOL
+          and worst['charges'] <= F_ATOL
+          and worst['bec'] <= CHARGE_BAR * float(np.abs(first['bec']).max()),
+          f'13a requests against the batch: {worst}')
+
+
+def phase_charge_box(torch, rg, xcfg):
+    """Phase 13b: charged_box_model through the calculator over newton3
+    half lists. The BOX_REF_ATOMS box (energy, forces, stress, charges;
+    resolved 'auto -> periodic') against the JAX package's calculator
+    (CHARGE_REF; phase 8a's bars: 1e-5 of the energy, 1e-4 of the largest
+    magnitude of forces, stress and charges). The BOX_ATOMS box with bec:
+    K9 and K12 launched (counted per request), the plain row gather giving
+    the same bits for every output, every output finite, the acoustic sum
+    rule at SUM_RULE_BAR, with a control that must fail it (the cross term
+    weighted by the differentiating atom's own position, r_i (x) d(sum_j
+    q_j)/dr_i), and the request times with bec and of the same weights
+    without it. -> K9 launches per request, with and without bec."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    from newtonnet_tpu_torch.models.xla_stack import apply_core_xla
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    ref = dict(np.load(CHARGE_REF))
+    model = charged_box_model(torch, xcfg)
+    props = ['energy', 'forces', 'stress', 'charges']
+    nobec = charged_box_model(torch, xcfg, outputs=[
+        k for k in CHARGE_BOX_OUTPUTS if k != 'bec'])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'box.msgpack')
+        save_model(path, model)
+        calc = NewtonNetCalculator(path, properties=props + ['bec'])
+        save_model(path, nobec)
+        calc_nobec = NewtonNetCalculator(path, properties=props)
+    del nobec
+    z5, p5, c5, _, _ = box_system(BOX_REF_ATOMS)
+    resolved = f'{calc.model.ewald_mode} -> ' \
+        f'{calc.model_for(c5[0]).ewald_mode}'
+    r5 = calc.calculate(numbers=z5[0], positions=p5[0], cell=c5[0])
+    vs_jax = {}
+    for key, name in CHARGE_BOX_KEYS.items():
+        want = np.asarray(ref[f'JAX_CHARGE_BOX_{name}'], np.float64)
+        diff = float(np.abs(np.asarray(r5[key], np.float64) - want).max())
+        bar = (1e-5 if key == 'energy' else 1e-4) * float(np.abs(want).max())
+        vs_jax[key] = (diff, bar)
+    zb, pb, cb, _, _ = box_system()
+    req = dict(numbers=zb[0], positions=pb[0], cell=cb[0])
+    res, lat, launches, repeats = timed_requests(torch, rg, calc, req)
+    _, lat_nobec, launches_nobec, _ = timed_requests(torch, rg, calc_nobec,
+                                                     req)
+    served = calc.model_for(cb[0])
+    tz, tpos, tcell = [torch.from_numpy(a).cuda() for a in (zb, pb, cb)]
+    nl = host_symmetric_nlist(served, tz, tpos, tcell, skin=0.0)
+    out = served(tz, tpos, tcell, nlist=nl)
+    plain = served(tz, tpos, tcell, nlist=nl, plain=True)
+    outs = ('energy', 'gradient_force', 'stress', 'charge', 'bec')
+    bitwise = all(exact(torch, out[k], plain[k]) for k in outs)
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in outs)
+    del plain
+    rule = sum_rule(torch, out['bec'][0], out['charge'][0])
+    with torch.enable_grad():
+        p = tpos.clone().requires_grad_(True)
+        q = apply_core_xla(served, tz, p, tcell, nlist=nl)['charge']
+        (g,) = torch.autograd.grad(q.sum(), p)
+    eye = torch.eye(3, device='cuda')
+    control = q.detach()[0, :, None, None] * eye + torch.einsum(
+        'ia,ib->iab', p.detach()[0], g[0])
+    rule_control = sum_rule(torch, control, q.detach()[0])
+    torch.cuda.empty_cache()
+    emit('charge_box', outputs=CHARGE_BOX_OUTPUTS, k_max_half=BOX_N3_K_MAX,
+         calculator_ewald_mode=resolved, ref_atoms=BOX_REF_ATOMS,
+         vs_jax=vs_jax, atoms=BOX_ATOMS,
+         launches_per_request=launches,
+         launches_per_request_without_bec=launches_nobec,
+         kernel_vs_plain_bitwise=bitwise, outputs_finite=finite,
+         requests_repeat_their_bits=repeats,
+         sum_rule=rule, sum_rule_bar=SUM_RULE_BAR,
+         sum_rule_control_own_position=rule_control,
+         total_charge=float(out['charge'].sum()),
+         request_ms_median=1e3 * statistics.median(lat),
+         request_without_bec_ms_median=1e3 * statistics.median(lat_nobec))
+    check(resolved == 'auto -> periodic', f'13b calculator: {resolved}')
+    for key, (diff, bar) in vs_jax.items():
+        check(diff <= bar, f'13b {key} against the JAX package: {diff}')
+    check(launches['row_gather'] > 0 and launches['row_gather_b1'] > 0,
+          f'13b: K9/K12 not launched: {launches}')
+    check(bitwise, '13b: kernel and plain gathers differ')
+    check(finite and repeats, '13b: outputs not finite or not repeated')
+    check(rule <= SUM_RULE_BAR, f'13b sum rule: {rule}')
+    check(rule_control > SUM_RULE_BAR,
+          f'13b: the sum rule control passes ({rule_control})')
+    return {'per_charge_box_request': launches,
+            'per_charge_box_request_without_bec': launches_nobec}
+
+
+def phase_charge_lj(torch, fd, rg):
+    """Phase 13c: charged_lj_model over newton3 half lists. Its BEC and
+    charges on lj_box's first LJ_CHARGE_FRAMES frames against the JAX
+    package's (CHARGE_REF; BEC at CHARGE_BAR of its largest magnitude,
+    charges at CHARGE_BAR). Then write_charged_lj_checkpoint's file
+    fine-tuned by LJ_CONFIG (prefetch 0) on write_lj_dataset's frames over
+    precompute_nlist mode newton3: 10 standard steps (the batches the
+    Trainer trains on when it is given the loader; it is given them, and
+    resolves ewald_mode from them and prints it) against
+    the JAX package's (JAX_LJ_CHARGE_STEP_*, phase 8b's bars); step 1 by
+    fast_grad True against the standard step 1 at FASTGRAD_CHARGE_BAR
+    (relative norm), and as a control the same with fastgrad's energies
+    without E_lr (the sum of the atomic energies), which must miss it.
+    -> K9 launches (BEC frames, 10 steps)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import yaml
+    from newtonnet_tpu_torch import Trainer, load_model
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    from newtonnet_tpu_torch.train import fastgrad
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    ref = dict(np.load(CHARGE_REF))
+    lj = charged_lj_model(torch, bec=True)
+    z, pos, cell, _, _ = lj_box(n_frames=LJ_CHARGE_FRAMES)
+    tz, tpos, tcell = (torch.from_numpy(z).cuda(),
+                       torch.from_numpy(pos).float().cuda(),
+                       torch.from_numpy(cell).float().cuda())
+    rg.reset_launch_counts()
+    out = lj(tz, tpos, tcell, nlist=host_symmetric_nlist(
+        lj, tz, tpos, tcell, skin=0.0))
+    bec_launches = dict(rg.LAUNCHES)
+    want_bec = ref['JAX_LJ_CHARGE_BEC'].astype(np.float64)
+    bec_diff = float(np.abs(out['bec'].double().cpu().numpy()
+                            - want_bec).max())
+    bec_bar = CHARGE_BAR * float(np.abs(want_bec).max())
+    q_diff = float(np.abs(out['charge'].double().cpu().numpy()
+                          - ref['JAX_LJ_CHARGE_CHARGE']).max())
+    del lj
+    with open(LJ_CONFIG) as f:
+        cfg = yaml.safe_load(f)
+    main_loss = get_loss_by_string(cfg['training']['loss'])
+    lr = cfg['training']['optimizer']['adam']['lr']
+    with tempfile.TemporaryDirectory() as root:
+        write_lj_dataset(root)
+        ckpt = write_charged_lj_checkpoint(torch, root)
+        train_gen, _, _, stats = parse_train_test(
+            seed=0, **lj_data_settings(root))
+        # the batches a Trainer given this loader trains on: its peek at
+        # the first batch (ewald_mode 'auto') draws one shuffle first, as
+        # the JAX Trainer's does
+        check(Trainer._peek_periodicity(train_gen) == 'periodic',
+              '13c: the LJ batches are not periodic')
+        it = iter(train_gen)
+        batches = [next(it) for _ in range(10)]
+        starts = []
+        for _ in range(4):
+            model = load_model(ckpt)
+            set_scalers(model.core, model.output_properties, stats,
+                        {'energy': dict(cfg['training']['fit_scalers'])})
+            starts.append(model.requires_grad_(True))
+    dbatches = [{k: torch.as_tensor(v).cuda() for k, v in b.items()}
+                for b in batches]
+    said = io.StringIO()
+    rg.reset_launch_counts()
+    with contextlib.redirect_stdout(said):
+        losses, norms, step_s, grads1, _, trainer = xla_steps(
+            torch, starts[0], main_loss, dbatches, 'auto', lr=lr,
+            clip=cfg['training']['clip_grad'], train_generator=batches)
+    step_launches = dict(rg.LAUNCHES)
+    said = [ln for ln in said.getvalue().splitlines()
+            if ln.startswith('ewald_mode:')]
+    nl0 = trainer._batch_nlist(dbatches[0])
+    loss64, ulp_term = float64_loss(fd, main_loss[0], dbatches[0],
+                                    starts[1], nlist=nl0)
+    bar1 = max(ulp_term / loss64, LJ_STEP1_REL)
+    rel_loss, rel_gn = check_jax_steps(
+        'charged LJ', losses, norms, JAX_LJ_CHARGE_STEP_LOSS,
+        JAX_LJ_CHARGE_STEP_GRAD_NORM, loss64, bar1)
+    with contextlib.redirect_stdout(io.StringIO()):
+        _, _, _, fast1, _, _ = xla_steps(
+            torch, starts[2], main_loss, dbatches[:1], True, lr=lr,
+            clip=cfg['training']['clip_grad'], train_generator=batches)
+    rel_fast = rel_norm(fast1, grads1)
+
+    def short_range(model, batch, pos, pair_op=None, nlist=None,
+                    plain=False):
+        out = model._energy_and_aux(batch['z'], pos, None, batch['cell'],
+                                    nlist=nlist, plain=plain)[1]
+        return out['atomic_energy'][..., 0].sum(-1)
+    kept = fastgrad._energies
+    fastgrad._energies = short_range
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, _, _, ctl1, _, _ = xla_steps(
+                torch, starts[3], main_loss, dbatches[:1], True, lr=lr,
+                clip=cfg['training']['clip_grad'], train_generator=batches)
+    finally:
+        fastgrad._energies = kept
+    rel_ctl = rel_norm(ctl1, grads1)
+    emit('charge_lj', checkpoint=LJ_CKPT[len(ROOT) + 1:],
+         frames=LJ_CHARGE_FRAMES, bec_vs_jax=(bec_diff, bec_bar),
+         charges_vs_jax=(q_diff, CHARGE_BAR), bec_launches=bec_launches,
+         trainer_said=said, loss=losses, grad_norm=norms,
+         jax_loss=JAX_LJ_CHARGE_STEP_LOSS,
+         jax_grad_norm=JAX_LJ_CHARGE_STEP_GRAD_NORM, rel_loss=rel_loss,
+         rel_grad_norm=rel_gn, loss64=loss64, step1_loss_bar=bar1,
+         fastgrad_step1_rel_norm=rel_fast,
+         fastgrad_without_ewald_step1_rel_norm=rel_ctl,
+         fastgrad_bar=FASTGRAD_CHARGE_BAR,
+         step_ms_median=1e3 * statistics.median(step_s[1:]),
+         launches_10_steps=step_launches)
+    check(bec_diff <= bec_bar and q_diff <= CHARGE_BAR,
+          f'13c BEC / charges against the JAX package: {bec_diff}, {q_diff}')
+    check(said == ['ewald_mode: auto -> periodic (from the first training '
+                   'batch)'], f'13c: the Trainer said {said}')
+    check(rel_fast <= FASTGRAD_CHARGE_BAR, f'13c fast_grad: {rel_fast}')
+    check(rel_ctl > FASTGRAD_CHARGE_BAR,
+          f'13c: the control meets the fast_grad bar ({rel_ctl})')
+    check(bec_launches['row_gather'] > 0 and step_launches['row_gather'] > 0,
+          f'13c: K9 not launched: {bec_launches}, {step_launches}')
+    return {'charged_lj_bec_4_frames': bec_launches,
+            'charged_lj_10_steps': step_launches}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5426,6 +5896,16 @@ def main():
     hetero_launches = phase_hetero_train(torch, fd, fdd, fk)
     hetero_cli_launches = phase_hetero_cli(torch, fd, fdd, fk)
     torch.cuda.empty_cache()
+    # 13. charge heads, the latent Ewald energy and Born effective charges:
+    # the aspirin checkpoint served (dense), the box over newton3 half
+    # lists (K9, K12), the LJ checkpoint's BEC and fine-tuning
+    t13 = time.perf_counter()
+    phase_charge_aspirin(torch, batches, samples, to_dev)
+    charge_launches = phase_charge_box(torch, rg,
+                                       load_model(XLA_CKPT).config_dict())
+    charge_launches.update(phase_charge_lj(torch, fd, rg))
+    torch.cuda.empty_cache()
+    emit('charge_phase', seconds=time.perf_counter() - t13)
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -5614,6 +6094,9 @@ def main():
                 'per_lj_request': n3_lj_launches[key],
                 'per_box_request': n3_box_launches[key],
                 'staircase_box_forward_and_forces': stair_launches[key]}
+            # charge heads over half lists (phase 13)
+            row['charge_launches'] = {what: n[key] for what, n in
+                                      charge_launches.items()}
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

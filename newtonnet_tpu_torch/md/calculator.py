@@ -8,7 +8,10 @@ or the cell grid of a cell_grid model), or, for an inverse_lists or a
 newton3 model, the symmetric-slotted or half lists of
 md/driver.host_symmetric_nlist (device build, host colouring). A
 newton3_compact checkpoint is served through the newton3 layout, with the
-same parameters.
+same parameters. A charge-head model in ewald_mode 'auto' is served by
+its 'periodic' or 'aperiodic' clone (NewtonNet.with_ewald_mode, the same
+parameters), chosen per request by the cell, as the JAX calculator
+resolves it.
 '''
 import numpy as np
 import torch
@@ -25,12 +28,17 @@ from newtonnet_tpu_torch.utils.params import params_from_flax
 
 # ASE result name -> model output property
 PROPERTY_MAP = {
+    'charges': 'charge',
+    'bec': 'bec',
     'energy': 'energy',
     'free_energy': 'energy',
     'forces': 'gradient_force',
     'stress': 'stress',
     'virial': 'virial',
 }
+# result names the JAX calculator has and this one does not yet, with the
+# ROADMAP.md A item that ports each
+UNPORTED_PROPERTIES = {'hessian': 'Hessian'}
 
 
 def _round_up(x, m=8):
@@ -45,8 +53,8 @@ class NewtonNetCalculator:
             and params=, as the JAX calculator takes them). A list of
             checkpoints (an ensemble) is not ported yet (ROADMAP.md A,
             "remaining heads").
-        properties: ASE-style result names (default: energy and forces
-            where the model has them).
+        properties: ASE-style result names (default: charges, energy
+            and forces where the model has them).
         precision: 'float32' (the kernels' type) or 'float64' (CPU only).
         model: with params, in place of model_path: a NewtonNet of this
             package, whose configuration the calculator serves.
@@ -64,6 +72,7 @@ class NewtonNetCalculator:
                  model=None, params=None, matmul_precision='highest',
                  device=None):
         check_matmul_precision(matmul_precision, 'matmul_precision')
+        self.dtype = get_precision_by_string(precision)
         if isinstance(model_path, (list, tuple)):
             raise NotImplementedError(
                 'an ensemble of checkpoints (a list model_path) is not ported '
@@ -73,8 +82,10 @@ class NewtonNetCalculator:
         elif model is None or params is None:
             raise ValueError('need model_path or (model, params)')
         else:
+            # in the serving precision, as the JAX calculator casts the
+            # given parameters to it
             own = NewtonNet(**model.config_dict(),
-                            device=device or model.device)
+                            device=device or model.device, dtype=self.dtype)
             params_from_flax(params, core=own.core)
             model = own.requires_grad_(False).eval()
         if model.newton3_compact:
@@ -85,34 +96,55 @@ class NewtonNetCalculator:
             # geometry)
             swapped = NewtonNet(**dict(model.config_dict(),
                                        newton3_compact=False, newton3=True),
-                                device=model.device)
+                                device=model.device, dtype=self.dtype)
             swapped.load_state_dict(model.state_dict())
             model = swapped.requires_grad_(False).eval()
         if properties is None:
-            inv = {'energy': 'energy', 'gradient_force': 'forces'}
+            inv = {'charge': 'charges', 'energy': 'energy',
+                   'gradient_force': 'forces'}
             properties = [inv[k] for k in model.output_properties
                           if k in inv]
+        for prop in properties:
+            if prop in UNPORTED_PROPERTIES:
+                raise NotImplementedError(
+                    f'property {prop!r} is not ported yet (ROADMAP.md A, '
+                    f'"{UNPORTED_PROPERTIES[prop]}")')
         unknown = set(properties) - set(PROPERTY_MAP)
         if unknown:
-            raise NotImplementedError(
-                f'properties {sorted(unknown)} are not ported yet')
+            raise ValueError(f'unknown properties {sorted(unknown)}')
         self.properties = list(properties)
         # derivative outputs reuse the trained parameters: extend the
-        # model's outputs with them
+        # model's outputs with them; a head the checkpoint lacks would be
+        # untrained, and is refused as the JAX calculator refuses it
         needed = {PROPERTY_MAP[p] for p in self.properties}
         missing = needed - set(model.output_properties)
-        if 'energy' in missing:
-            raise ValueError('checkpoint has no trained energy head')
         if missing:
             cfg = model.config_dict()
             cfg['output_properties'] = (list(model.output_properties)
                                         + sorted(missing))
-            extended = NewtonNet(**cfg, device=model.device)
+            extended = NewtonNet(**cfg, device=model.device,
+                                 dtype=self.dtype)
+            untrained = set(extended.core.heads) - set(model.core.heads)
+            if untrained:
+                raise ValueError(
+                    f'checkpoint has no trained head(s) for '
+                    f'{sorted(untrained)}')
             extended.load_state_dict(model.state_dict())
             model = extended.requires_grad_(False).eval()
-        self.dtype = get_precision_by_string(precision)
         self.model = model.to(self.dtype)
         self.device = model.device
+        # ewald_mode 'auto': both static clones, sharing the parameters
+        self._by_periodicity = {
+            periodic: self.model.with_ewald_mode(
+                'periodic' if periodic else 'aperiodic')
+            for periodic in (True, False)}
+
+    def model_for(self, cell):
+        '''The model that serves a request with this cell (None or (3, 3)):
+        the calculator's model, its ewald_mode resolved by whether the
+        cell is nonzero.'''
+        return self._by_periodicity[cell is not None
+                                    and bool(np.any(np.asarray(cell)))]
 
     def calculate(self, system=None, numbers=None, positions=None,
                   cell=None):
@@ -121,8 +153,9 @@ class NewtonNetCalculator:
         argument is an MD system object (not ported: pass None or use the
         keywords). Returns numpy results keyed by property: energy
         (float), forces (n, 3), stress (Voigt-6 xx yy zz yz xz xy),
-        virial (3, 3). Matrix products run in IEEE fp32 (fp32_matmuls),
-        the caller's TF32 flags restored afterwards.'''
+        virial (3, 3), charges (n,), bec (n, 3, 3). Matrix products run
+        in IEEE fp32 (fp32_matmuls), the caller's TF32 flags restored
+        afterwards.'''
         if system is not None:
             raise NotImplementedError(
                 'calculate(system=...) is not ported yet: md/system.py '
@@ -144,17 +177,18 @@ class NewtonNetCalculator:
             c[0] = cell
         z, pos, c = (torch.from_numpy(a).to(self.device)
                      for a in (z, pos, c))
+        model = self.model_for(cell)
         nlist = None
-        if (self.model.graph_mode == 'neighborlist'
-                and (self.model.inverse_lists or self.model.newton3)):
-            nlist = host_symmetric_nlist(self.model, z, pos, c, skin=0.0)
-        out = self.model(z, pos, c, nlist=nlist)
+        if (model.graph_mode == 'neighborlist'
+                and (model.inverse_lists or model.newton3)):
+            nlist = host_symmetric_nlist(model, z, pos, c, skin=0.0)
+        out = model(z, pos, c, nlist=nlist)
         results = {}
         for prop in self.properties:
             v = out[PROPERTY_MAP[prop]].cpu().numpy()
             if prop in ('energy', 'free_energy'):
                 results[prop] = float(v[0])
-            elif prop == 'forces':
+            elif prop in ('forces', 'charges', 'bec'):
                 results[prop] = v[0, :n]
             elif prop == 'stress':
                 s = v[0]

@@ -2,7 +2,8 @@
 
 The module and parameter names follow the JAX package's flax tree one to
 one (`node_embedding`, `interaction_{i}.message_nodepart.TorchLinear_0.
-kernel`, ..., `energy_head.TorchLinear_2.bias`, `scaler_energy.scale`), and
+kernel`, ..., `energy_head.TorchLinear_2.bias`, `scaler_energy.scale`,
+`charge_head...`, `scaler_charge...`), and
 every kernel keeps flax's `x @ kernel` (in, out) layout, so a checkpoint
 maps across without transposes (utils/params.py).
 
@@ -143,14 +144,22 @@ class InteractionNet(nn.Module):
             self.layer_norm = LayerNorm(f, device=device, dtype=dtype)
 
 
+# the direct heads a core can carry, in the JAX core's order
+HEADS = ('energy', 'charge')
+
+
 class NewtonNetCore(nn.Module):
-    '''All parameters of the energy model: node_embedding, interaction_{i},
-    energy_head (F -> F -> F -> 1), scaler_energy and, with
-    trainable_basis, bessel_frequencies (n_basis,).'''
+    '''All parameters of the model: node_embedding, interaction_{i}, per
+    head of `heads` (within HEADS) its MLP {key}_head (F -> F -> F -> 1)
+    and its scaler_{key} and, with trainable_basis, bessel_frequencies
+    (n_basis,). The JAX core builds the heads its model's outputs need
+    (models/output.py there): a model of charges alone has no energy
+    head.'''
 
     def __init__(self, n_features=128, n_basis=20, n_interactions=3,
                  activation='swish', layer_norm=False, trainable_basis=False,
-                 generator=None, device=None, dtype=torch.float32):
+                 heads=('energy',), generator=None, device=None,
+                 dtype=torch.float32):
         super().__init__()
         self.n_features = n_features
         self.n_basis = n_basis
@@ -163,9 +172,12 @@ class NewtonNetCore(nn.Module):
         for i in range(n_interactions):
             self.add_module(f'interaction_{i}', InteractionNet(
                 n_features, n_basis, activation, layer_norm, **kw))
-        self.energy_head = MLP(n_features, [n_features, n_features, 1],
-                               activation, **kw)
-        self.scaler_energy = ScaleShift(device=device, dtype=dtype)
+        self.heads = tuple(k for k in HEADS if k in heads)
+        for key in self.heads:
+            self.add_module(f'{key}_head', MLP(
+                n_features, [n_features, n_features, 1], activation, **kw))
+            self.add_module(f'scaler_{key}',
+                            ScaleShift(device=device, dtype=dtype))
         if trainable_basis:
             self.bessel_frequencies = nn.Parameter(
                 torch.arange(1, n_basis + 1, device=device, dtype=dtype)

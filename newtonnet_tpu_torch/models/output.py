@@ -1,7 +1,8 @@
 '''User-facing NewtonNet: configuration, parameters and derivative heads.
 
 The JAX package's `models/output.py` for the configurations this port
-serves, outputs within {energy, gradient_force, virial, stress}:
+serves, outputs within {energy, charge, gradient_force, virial, stress,
+bec}:
 
 * kernel='xla' (the default, as there): the plain formulation of
   models/xla_stack.py, every activation, layer_norm, trainable_basis and
@@ -21,8 +22,21 @@ Forces, virial and stress are one autograd pass over the energy:
     stress = dE/d(displacement) / |det(cell)|,
 
 where `displacement` is an identity-valued (B, 3, 3) strain applied
-(symmetrized) to positions and cell before the graph is built. Serving
-holds the parameters constant and detaches the outputs; with
+(symmetrized) to positions and cell before the graph is built.
+
+A charge head (kernel='xla') gives latent charges q (B, N) and adds the
+latent Ewald energy of ops/ewald.py to each graph's energy, evaluated at
+the raw positions and cell as the JAX package evaluates it: it enters the
+forces but not the virial or the stress. Born effective charges are
+
+    Z*_{i,ab} = q_i delta_ab + sum_j r_{j,a} dq_j/dr_{i,b},
+
+the contraction the JAX package takes after a per-graph Jacobian
+(jax.jacrev, N reverse passes per graph), computed here as three reverse
+passes of the charges, with the raw positions' a-th column as cotangent
+(graphs are independent, so one pass serves the batch).
+
+Serving holds the parameters constant and detaches the outputs; with
 create_graph=True (kernel='xla') the outputs stay differentiable in the
 parameters, for the standard training step (train/trainer.py), which
 trains energy, force, stress and virial losses.
@@ -34,10 +48,11 @@ operands to bf16 where the JAX package's Pallas kernels do
 duals K7/K8 that train such a model (train/fastgrad.py; the dense duals
 K3/K4 take pallas_grad_dot_dtype).
 
-Not here: the charge, direct-force, Hessian and BEC heads raise
-NotImplementedError naming the ROADMAP.md item that will port them.
+Not here: the direct-force and Hessian heads raise NotImplementedError
+naming the ROADMAP.md item that will port them.
 '''
 import contextlib
+import copy
 from typing import Sequence
 
 import torch
@@ -47,8 +62,9 @@ from newtonnet_tpu_torch.layers.precision import fp32_matmuls
 from newtonnet_tpu_torch.models.fused_klist import COMPUTE_DTYPES, \
     apply_core_nlist
 from newtonnet_tpu_torch.models.fused_stack import apply_core
-from newtonnet_tpu_torch.models.newtonnet import NewtonNetCore
+from newtonnet_tpu_torch.models.newtonnet import HEADS, NewtonNetCore
 from newtonnet_tpu_torch.models.xla_stack import apply_core_xla
+from newtonnet_tpu_torch.ops.ewald import ewald_energy
 from newtonnet_tpu_torch.ops.fused_dense import DOT_DTYPES
 from newtonnet_tpu_torch.ops.linalg3 import det3x3
 
@@ -60,10 +76,8 @@ ALL_PROPERTIES = (DIRECT_PROPERTIES + DERIVATIVE_PROPERTIES
 SERVED_PROPERTIES = ('energy', 'gradient_force', 'virial', 'stress')
 
 _NOT_YET = {
-    'charge': 'ROADMAP.md A, "charge head and Ewald"',
     'direct_force': 'ROADMAP.md A, "remaining heads"',
     'hessian': 'ROADMAP.md A, "Hessian"',
-    'bec': 'ROADMAP.md A, "BEC"',
 }
 
 
@@ -145,6 +159,13 @@ class NewtonNet(nn.Module):
             raise ValueError(
                 'newton3_compact is its own neighborlist edge layout '
                 '(kernel=xla, no newton3/reverse_lists/inverse_lists)')
+        bad = set(output_properties) & {'hessian', 'bec'}
+        if newton3_compact and bad:
+            raise ValueError(
+                f'newton3_compact does not support {sorted(bad)}: '
+                'their per-graph vmap wrappers unpack flat (idx, mask) '
+                'nlists, not staircase chunk tuples -- use newton3 for '
+                'those heads')
         if kernel not in ('xla', 'pallas'):
             raise ValueError(f'kernel must be xla or pallas, got {kernel}')
         if kernel == 'pallas':
@@ -209,19 +230,48 @@ class NewtonNet(nn.Module):
         self.pallas_dot_dtype = pallas_dot_dtype
         self.pallas_grad_dot_dtype = pallas_grad_dot_dtype
         needs = set(self.output_properties)
-        if needs & set(DERIVATIVE_PROPERTIES):
+        # derivative heads need the energy, the BEC the charges
+        if needs & set(DERIVATIVE_PROPERTIES) or 'hessian' in needs:
             needs.add('energy')
+        if 'bec' in needs:
+            needs.add('charge')
         self._needs = needs
         self.core = NewtonNetCore(n_features, n_basis, n_interactions,
                                   activation=activation,
                                   layer_norm=layer_norm,
                                   trainable_basis=trainable_basis,
+                                  heads=[k for k in HEADS if k in needs],
                                   generator=generator,
                                   device=resolve_device(device), dtype=dtype)
 
     @property
     def device(self):
         return self.core.node_embedding.device
+
+    def with_ewald_mode(self, mode):
+        '''This model with ewald_mode resolved to 'periodic' or
+        'aperiodic': one Ewald branch for every graph, where 'auto'
+        computes both and picks per graph. The clone shares this model's
+        core (the same modules and parameters; the Ewald sum has none).
+        Returns self for a model without a charge head or with a static
+        mode already; any other mode raises ValueError.'''
+        if mode not in ('periodic', 'aperiodic'):
+            raise ValueError(
+                f"ewald mode must be 'periodic' or 'aperiodic', got {mode!r}")
+        if not self.ewald_dispatches_at_runtime:
+            return self
+        clone = copy.copy(self)
+        # its own module registry, holding the same core
+        clone._modules = dict(self._modules)
+        clone.ewald_mode = mode
+        return clone
+
+    @property
+    def ewald_dispatches_at_runtime(self):
+        '''True when the energy computes both Ewald branches (a charge head
+        with ewald_mode 'auto'): callers that know the data's periodicity
+        resolve it with with_ewald_mode.'''
+        return 'charge' in self._needs and self.ewald_mode == 'auto'
 
     def config_dict(self):
         '''Serializable model config (the checkpoints' `config`).'''
@@ -249,10 +299,16 @@ class NewtonNet(nn.Module):
     def _energy_and_aux(self, z, pos, displacement, cell, pair_op=None,
                         nlist=None, plain=False):
         '''Total (summed over graphs) energy and the per-graph outputs, at
-        positions and cell strained by the symmetrized displacement.'''
-        sym = 0.5 * (displacement + displacement.transpose(-1, -2))
-        pos_d = torch.einsum('bni,bij->bnj', pos, sym)
-        cell_d = torch.einsum('bxi,bij->bxj', cell, sym)
+        positions and cell strained by the symmetrized displacement
+        (displacement None: unstrained). With a charge head each graph's
+        energy adds the latent Ewald energy at the raw pos and cell; a
+        model without an energy head gives a total of 0.'''
+        if displacement is None:
+            pos_d, cell_d = pos, cell
+        else:
+            sym = 0.5 * (displacement + displacement.transpose(-1, -2))
+            pos_d = torch.einsum('bni,bij->bnj', pos, sym)
+            cell_d = torch.einsum('bxi,bij->bxj', cell, sym)
         if (pair_op is not None and self.kernel != 'pallas') or \
                 (plain and self.kernel != 'xla'):
             raise ValueError('pair_op applies to kernel=pallas models, '
@@ -267,7 +323,13 @@ class NewtonNet(nn.Module):
             out = apply_core(self.core, z, pos_d, cell_d, self.cutoff,
                              mic_mode=self.mic_mode, pair_op=pair_op,
                              dot_dtype=self.pallas_dot_dtype)
+        if 'energy' not in self._needs:
+            return torch.zeros((), dtype=pos.dtype, device=pos.device), out
         energy = torch.sum(out['atomic_energy'][..., 0], dim=-1)
+        if 'charge' in self._needs:
+            energy = energy + ewald_energy(
+                out['charge'], pos, cell, z > 0, sigma=self.ewald_sigma,
+                n_k=self.ewald_n_k, mode=self.ewald_mode)
         out['energy'] = energy
         return torch.sum(energy), out
 
@@ -300,12 +362,14 @@ class NewtonNet(nn.Module):
                 kernels are first order.
 
         Returns:
-            dict with energy (B,), the configured derivative outputs
-            (gradient_force (B, N, 3), virial/stress (B, 3, 3)) and
+            dict with energy (B,) and charge (B, N) where the model has
+            them, the configured derivative outputs (gradient_force
+            (B, N, 3), virial/stress (B, 3, 3), bec (B, N, 3, 3)) and
             atom_node, force_node, atomic_energy; detached unless
-            create_graph. Matrix products run in IEEE fp32 (fp32_matmuls),
-            whatever TF32 flags the caller set, as the JAX package's
-            calculator pins 'highest'.
+            create_graph (bec always is: no loss reads it). Matrix
+            products run in IEEE fp32 (fp32_matmuls), whatever TF32 flags
+            the caller set, as the JAX package's calculator pins
+            'highest'.
         '''
         if create_graph and self.kernel != 'xla':
             raise ValueError('create_graph needs a kernel=xla model: the '
@@ -317,7 +381,8 @@ class NewtonNet(nn.Module):
     def _forward(self, z, pos, cell, pair_op, nlist, plain, create_graph):
         needs = self._needs
         need_grad = bool(needs & set(DERIVATIVE_PROPERTIES))
-        pos = pos.detach().requires_grad_(need_grad)
+        bec = 'bec' in needs
+        pos = pos.detach().requires_grad_(need_grad or bec)
         displacement = torch.eye(3, dtype=cell.dtype, device=cell.device) \
             .expand(cell.shape[0], 3, 3).clone().requires_grad_(need_grad)
         # serving holds the parameters constant and detaches the outputs:
@@ -329,9 +394,14 @@ class NewtonNet(nn.Module):
                                               pair_op, nlist, plain)
             if need_grad:
                 pos_grad, disp_grad = torch.autograd.grad(
-                    total, (pos, displacement), create_graph=create_graph)
+                    total, (pos, displacement), create_graph=create_graph,
+                    retain_graph=create_graph or bec)
+            if bec:
+                born = self._bec(pos, out['charge'], keep=create_graph)
         outputs = out if create_graph else \
             {k: v.detach() for k, v in out.items()}
+        if bec:
+            outputs['bec'] = born
         if 'gradient_force' in needs:
             outputs['gradient_force'] = -pos_grad
         if 'virial' in needs:
@@ -340,3 +410,19 @@ class NewtonNet(nn.Module):
             volume = torch.abs(det3x3(cell))[:, None, None]
             outputs['stress'] = disp_grad / volume
         return outputs
+
+    @staticmethod
+    def _bec(pos, charge, keep=False):
+        '''Born effective charges (B, N, 3, 3) of charge (B, N) computed
+        from pos (B, N, 3): q_i delta_ab + sum_j r_{j,a} dq_j/dr_{i,b},
+        one reverse pass per a with the raw positions' column a as the
+        charges' cotangent. keep: leave the graph for a later backward.'''
+        r = pos.detach()
+        rows = [torch.autograd.grad(charge, pos, grad_outputs=r[..., a],
+                                    retain_graph=keep or a < 2,
+                                    allow_unused=True)[0]
+                for a in range(3)]
+        rows = [torch.zeros_like(r) if g is None else g for g in rows]
+        eye = torch.eye(3, dtype=pos.dtype, device=pos.device)
+        return charge.detach()[..., None, None] * eye + \
+            torch.stack(rows, dim=-2)

@@ -353,8 +353,10 @@ def _cast_edges(edges, cd):
 
 
 def apply_core_xla(model, z, pos, cell, nlist=None, plain=False):
-    '''Primal forward: {atom_node (B,N,F), force_node (B,N,3,F),
-    atomic_energy (B,N,1)}. plain=True runs the inverse-list gathers
+    '''Primal forward: {atom_node (B,N,F), force_node (B,N,3,F)} and the
+    core's heads, atomic_energy (B,N,1) and charge (B,N), computed in
+    pos's dtype after a bf16 stack casts back, as the JAX core computes
+    them. plain=True runs the inverse-list gathers
     through the plain row gather (the same numbers as K9, bit for bit).'''
     core = model.core
     z = z.long()
@@ -379,6 +381,11 @@ def apply_core_xla(model, z, pos, cell, nlist=None, plain=False):
     if cd is not None:
         atom_node, force_node = atom_node.to(pos.dtype), \
             force_node.to(pos.dtype)
-    e = core.scaler_energy(core.energy_head(atom_node), z)
-    return {'atom_node': atom_node, 'force_node': force_node,
-            'atomic_energy': e * fmask}
+    out = {'atom_node': atom_node, 'force_node': force_node}
+    if 'energy' in core.heads:
+        e = core.scaler_energy(core.energy_head(atom_node), z)
+        out['atomic_energy'] = e * fmask
+    if 'charge' in core.heads:
+        q = core.scaler_charge(core.charge_head(atom_node), z)
+        out['charge'] = (q * fmask)[..., 0]
+    return out

@@ -98,6 +98,14 @@ def train_from_settings(settings, settings_path=None, resume=None):
                   for k in ('freeze_encoder', 'freeze_interaction',
                             'freeze_decoder', 'freeze_scaler')}
     else:
+        # a static ewald_mode from the dataset's periodicity, as the JAX
+        # CLI picks it ('auto' computes both branches in every step)
+        if ('charge' in settings['model'].get('output_properties', ())
+                and settings['model'].get('ewald_mode', 'auto') == 'auto'
+                and stats.get('periodicity') in ('periodic', 'aperiodic')):
+            settings['model']['ewald_mode'] = stats['periodicity']
+            print(f"ewald_mode: auto -> {stats['periodicity']} "
+                  f"(from dataset periodicity)")
         model = NewtonNet(
             **settings['model'], device=device, dtype=dtype,
             generator=torch.Generator(device=device).manual_seed(seed))

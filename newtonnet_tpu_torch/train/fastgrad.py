@@ -42,7 +42,6 @@ from newtonnet_tpu_torch.models.fused_stack import (
     geometry_tangent,
 )
 from newtonnet_tpu_torch.models.output import constant_parameters
-from newtonnet_tpu_torch.models.xla_stack import apply_core_xla
 
 # prediction keys whose parameter dependence this path accounts for
 SUPPORTED_KEYS = frozenset({'energy', 'gradient_force'})
@@ -55,11 +54,15 @@ def supports(losses):
 
 def _energies(model, batch, pos, pair_op=None, nlist=None, plain=False):
     '''The energies (B,) at pos. The strain displacement is left out: it
-    is the identity here, and pos @ I == pos exactly.'''
+    is the identity here, and pos @ I == pos exactly. kernel='xla': the
+    model's own energies (NewtonNet._energy_and_aux), the latent Ewald
+    energy of a charge head included, as the JAX package's fastgrad takes
+    them.'''
     z, cell = batch['z'], batch['cell']
     if model.kernel == 'xla':
-        out = apply_core_xla(model, z, pos, cell, nlist=nlist, plain=plain)
-    elif model.graph_mode == 'neighborlist':
+        return model._energy_and_aux(z, pos, None, cell, nlist=nlist,
+                                     plain=plain)[1]['energy']
+    if model.graph_mode == 'neighborlist':
         out = apply_core_nlist(model, z, pos, cell, nlist=nlist,
                                pair_op=pair_op)
     else:

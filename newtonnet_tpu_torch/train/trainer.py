@@ -27,6 +27,11 @@ train state's loader_rng_state resumes either.
 All matrix products are IEEE fp32: TF32 is off while the Trainer runs,
 which is what eval_matmul_precision='highest' asks of the JAX Trainer.
 
+A charge-head model in ewald_mode 'auto' is resolved as the JAX Trainer
+resolves it: from the first batch's periodicity when train_generator can
+be iterated again (a loader, a list), printing the choice; otherwise it
+warns and computes both Ewald branches in every step.
+
 A batch's precomputed lists (data.precompute_nlist, data/prelists.py)
 go to the model as its nlist (_batch_nlist), and the first batch of each
 pass is checked against the model's list mode with the JAX Trainer's
@@ -46,6 +51,7 @@ import csv
 import os
 import shutil
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -133,6 +139,18 @@ class Trainer:
         refuse_unported_extras(profile_dir=profile_dir, halo=halo)
         check_matmul_precision(eval_matmul_precision,
                                'eval_matmul_precision')
+        if model.ewald_dispatches_at_runtime:
+            mode = self._peek_periodicity(train_generator)
+            if mode is not None:
+                model = model.with_ewald_mode(mode)
+                print(f'ewald_mode: auto -> {mode} '
+                      f'(from the first training batch)')
+            else:
+                warnings.warn(
+                    "ewald_mode='auto' computes BOTH Ewald branches every "
+                    "step; resolve statically with "
+                    "model.with_ewald_mode('periodic'|'aperiodic') when "
+                    "the data's periodicity is known", stacklevel=2)
         self.model = model
         model.requires_grad_(True)
         apply_freeze(model.core, **(freeze or {}))
@@ -170,6 +188,37 @@ class Trainer:
         self.check_val = checkpoint.get('check_val', 1)
         self.check_test = checkpoint.get('check_test', 1)
         self.print_layers()
+
+    @staticmethod
+    def _peek_periodicity(generator):
+        '''The JAX Trainer's: 'periodic' or 'aperiodic' when the first batch
+        of a generator that can be iterated again (not a one-shot iterator,
+        which peeking would consume) has only periodic or only aperiodic
+        graphs among those its graph_mask keeps; None otherwise (mixed,
+        empty, or not peekable).'''
+        if generator is None:
+            return None
+        try:
+            it = iter(generator)
+            if it is generator:
+                return None
+            first = next(it)
+        except (TypeError, StopIteration):
+            return None
+        if not isinstance(first, dict) or 'cell' not in first:
+            return None
+        cell = np.asarray(first['cell'])
+        periodic = np.any(cell.reshape(cell.shape[0], -1) != 0, axis=1)
+        gmask = np.asarray(first.get('graph_mask',
+                                     np.ones(len(periodic), bool)))
+        periodic = periodic[gmask.astype(bool)]
+        if periodic.size == 0:
+            return None
+        if periodic.all():
+            return 'periodic'
+        if not periodic.any():
+            return 'aperiodic'
+        return None
 
     def _resolve_fast_grad(self, fast_grad, loss_keys):
         '''fast_grad as the JAX Trainer resolves it: 'auto' takes

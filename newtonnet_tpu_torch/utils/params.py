@@ -4,7 +4,7 @@ keep the (in, out) layout, so nothing is transposed.'''
 import numpy as np
 import torch
 
-from newtonnet_tpu_torch.models.newtonnet import NewtonNetCore
+from newtonnet_tpu_torch.models.newtonnet import HEADS, NewtonNetCore
 
 
 def _flatten(tree, prefix=''):
@@ -20,9 +20,9 @@ def params_from_flax(tree, core=None, device='cpu'):
     '''Load a flax `{'params': {...}}` tree of arrays into a NewtonNetCore.
 
     With core=None a core is built on `device` with the widths, the layer
-    norms and the trainable basis read from the tree (and the swish
-    activation's layer widths). Raises if the names or shapes differ.
-    Returns the core.'''
+    norms, the trainable basis and the heads (energy_head, charge_head)
+    read from the tree (and the swish activation's layer widths). Raises
+    if the names or shapes differ. Returns the core.'''
     p = tree['params']
     if core is None:
         n_int = sum(k.startswith('interaction_') for k in p)
@@ -30,7 +30,8 @@ def params_from_flax(tree, core=None, device='cpu'):
         R = np.shape(p['interaction_0']['message_edgepart']['kernel'])[0]
         core = NewtonNetCore(
             F, R, n_int, layer_norm='layer_norm' in p['interaction_0'],
-            trainable_basis='bessel_frequencies' in p, device=device)
+            trainable_basis='bessel_frequencies' in p,
+            heads=[k for k in HEADS if f'{k}_head' in p], device=device)
     flat = dict(_flatten(p))
     own = dict(core.named_parameters())
     if set(flat) != set(own):

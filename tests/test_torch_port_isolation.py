@@ -34,6 +34,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.models.xla_stack
         import newtonnet_tpu_torch.ops._build
         import newtonnet_tpu_torch.layers.precision
+        import newtonnet_tpu_torch.ops.ewald
         import newtonnet_tpu_torch.ops.fused_dense
         import newtonnet_tpu_torch.ops.fused_dual
         import newtonnet_tpu_torch.ops.fused_klist
@@ -104,16 +105,29 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
       'pallas_dot_dtype': 'bfloat16'}, 'training extras'),
     ({'kernel': 'xla', 'output_properties': ['energy', 'hessian']},
      'Hessian'),
-    ({'kernel': 'xla', 'output_properties': ['energy', 'charge']},
-     'charge head and Ewald'),
+    ({'calculator_properties': ['energy', 'hessian']}, 'Hessian'),
 ])
 def test_unported_configurations_name_their_roadmap_item(kw, item):
     '''Each configuration the port does not have yet raises, naming its
-    ROADMAP.md item. A bf16 kernel='pallas' model builds, serves and
-    trains (section B's last item, ported): the Trainer takes the
-    first-order step, and only the standard step over it (fast_grad=False)
-    is refused, naming section A's item.'''
+    ROADMAP.md item: a Hessian head in a model or asked of the calculator.
+    A bf16 kernel='pallas' model builds, serves and trains (section B's
+    last item, ported): the Trainer takes the first-order step, and only
+    the standard step over it (fast_grad=False) is refused, naming
+    section A's item.'''
     from newtonnet_tpu_torch import NewtonNet
+    if 'calculator_properties' in kw:
+        from newtonnet_tpu_torch import NewtonNetCalculator
+        from newtonnet_tpu_torch.utils.params import params_to_flax
+        model = NewtonNet(device='cpu', n_features=8, n_basis=4,
+                          n_interactions=1,
+                          output_properties=['energy', 'gradient_force'])
+        with pytest.raises(NotImplementedError,
+                           match=f'ROADMAP.md A.*{item}'):
+            NewtonNetCalculator(model=model,
+                                params=params_to_flax(model.core),
+                                properties=kw['calculator_properties'],
+                                device='cpu')
+        return
     if kw.get('pallas_dot_dtype') == 'bfloat16':
         from newtonnet_tpu_torch.train.trainer import Trainer
         model = NewtonNet(device='cpu', n_features=8, n_basis=4,
