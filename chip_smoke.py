@@ -320,11 +320,48 @@ with a non-zero exit code and no result line):
                standard one at FASTGRAD_CHARGE_BAR, and fastgrad without
                E_lr as a control that misses it.
 
+14. hessian  the Hessian head (forward over reverse, hessian_block
+            lanes folded into K9's batch), the direct-force head and
+            calculator ensembles (kernel='xla'), held to the JAX package's
+            numbers in HESSIAN_REF:
+            a. the aspirin checkpoint (XLA_CKPT) through the calculator
+               with HESSIAN_PROPS: the first HESSIAN_FRAMES test frames'
+               Hessians against the JAX calculator's float32 ones at
+               hessian_bar (HESSIAN_SPREAD_FACTOR times the JAX package's
+               own float32-to-float64 spread), their symmetry at that bar,
+               frame 0's mass-weighted eigenvalues against the JAX float64
+               ones (Weyl: HESSIAN_SPREAD_FACTOR times the spectral norm
+               of the JAX float32 error); hessian_block=16 (63 lanes, the
+               last block ragged) against the unblocked Hessian.
+            b. the newton3 LJ checkpoint (F=48) on lj_box(LJ_HESSIAN_ATOMS)
+               through the calculator with hessian_block in
+               LJ_HESSIAN_BLOCKS: 9 columns (atoms LJ_HESSIAN_ATOMS_PICKED)
+               against the JAX package's HVPs at 14a's kind of bar; the
+               plain row gather giving the same bits; K9's folded launches
+               per request growing with the blocks (twice the blocks, twice
+               the launches); the translational sum rule sum_j H[i,a,j,b]
+               = 0 at HESSIAN_SUM_BAR of max |H|, with a control (one
+               block's lanes shifted by one, a slicing fault) that fails
+               it; request time and peak memory per block size, and
+               unblocked where the blocked peaks say it fits; one
+               request (and one of 14a's) under torch.profiler.
+            c. the aspirin checkpoint with direct_force_tree's head
+               (DIRECT_SEED): the first DIRECT_FRAMES frames' direct forces
+               against the JAX package's at CHARGE_BAR; 10 standard
+               fine-tuning steps (energy + gradient_force + direct_force
+               losses, DIRECT_LOSS) against JAX_DIRECT_STEP_* (phase 13c's
+               bars); fast_grad True refused as the JAX Trainer refuses it.
+            d. the ensemble ENSEMBLE_CKPTS through the calculator:
+               ENSEMBLE_REQUESTS requests' energies and forces against the
+               JAX ensemble calculator's (E_ATOL / F_ATOL); the ensemble's
+               energy and force MAE over the first ENSEMBLE_MAE_FRAMES
+               test frames against the JAX ensemble's, at those bars.
+
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
-9b/9c launches, K1-K4's phase 12 launches, K9/K12's phase 13 launches;
-the bf16 rows of K1/K2 and K5-K8) and, last, {"ok": true, "device":
-{...}}.
+9b/9c launches, K1-K4's phase 12 launches, K9/K12's phase 13 and 14
+launches and K9 at phase 14's folded Hessian shape; the bf16 rows of
+K1/K2 and K5-K8) and, last, {"ok": true, "device": {...}}.
 '''
 import functools
 import json
@@ -1022,6 +1059,43 @@ JAX_LJ_CHARGE_STEP_LOSS = [1.860039, 0.6277779, 0.6093386, 0.5693539,
                            33.04141]
 JAX_LJ_CHARGE_STEP_GRAD_NORM = [59.4, 89.255, 74.687, 53.441, 1584.5,
                                 40.489, 97.842, 54.554, 30.338, 391.6]
+
+# Phase 14: the Hessian, the direct-force head and ensembles (kernel='xla').
+# The JAX package's numbers: the arrays in HESSIAN_REF and the steps below,
+# from `python tests/test_torch_hessian.py card` (CPU).
+HESSIAN_REF = os.path.join(ROOT, 'tests', 'reference',
+                           'jax_hessian_heads.npz')
+HESSIAN_PROPS = ['energy', 'forces', 'hessian']
+HESSIAN_FRAMES = 4
+# 14a/14b's bars: this factor times the JAX package's own float32-to-
+# float64 spread of the same quantity
+HESSIAN_SPREAD_FACTOR = 4.0
+HESSIAN_ASPIRIN_BLOCK = 16
+LJ_HESSIAN_ATOMS = 512
+LJ_HESSIAN_ATOMS_PICKED = (0, 171, 342)
+LJ_HESSIAN_BLOCKS = (192, 96)
+# the translational sum rule, relative to max |H|
+HESSIAN_SUM_BAR = 1e-4
+# atomic masses (u) of the elements of aspirin and LJ argon
+MASSES = {1: 1.008, 6: 12.011, 7: 14.007, 8: 15.999, 18: 39.948}
+DIRECT_SEED = 18
+DIRECT_FRAMES = 8
+DIRECT_LOSS = {'energy': {'weight': 1.0, 'mode': 'mse'},
+               'gradient_force': {'weight': 50.0, 'mode': 'mse'},
+               'direct_force': {'weight': 50.0, 'mode': 'mse'}}
+JAX_DIRECT_STEP_LOSS = [163.6291, 129.4189, 74.35656, 65.06251, 68.4675,
+                        68.8425, 45.72818, 49.2178, 41.45601, 35.31856]
+JAX_DIRECT_STEP_GRAD_NORM = [1346.6, 1200.5, 306.08, 312.59, 243.24, 326.0,
+                             293.92, 461.44, 463.13, 281.94]
+# the ensemble's MAE against the JAX ensemble's: energies at one float32
+# ulp of the energies (0.002 eV at -17,600 eV; the members' sum is rounded
+# at five times their magnitude, so the two packages' ensembles round
+# apart by about that), forces at phase 4's force MAE bar
+ENSEMBLE_MAE_BARS = {'energy': 2e-3, 'forces': 5e-5}
+ENSEMBLE_CKPTS = [os.path.join(ROOT, 'artifacts', f'md17_model_s{k}',
+                               'best_model.msgpack') for k in range(3, 8)]
+ENSEMBLE_REQUESTS = 20
+ENSEMBLE_MAE_FRAMES = 100
 
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
@@ -5547,6 +5621,436 @@ def phase_charge_lj(torch, fd, rg):
             'charged_lj_10_steps': step_launches}
 
 
+def direct_force_tree(F, seed=DIRECT_SEED):
+    """A direct-force head's parameters from numpy with `seed`:
+    direct_force_head.TorchLinear_{0,1,2} (F -> F -> F -> F), every kernel
+    and bias U(+-1/sqrt(fan_in)) as flax initializes them, and
+    scaler_direct_force's scale (119, 1) U(0.5, 1.5) (it has no shift);
+    float32 numpy arrays in a flax-named tree."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    head = {}
+    for i in range(3):
+        b = F ** -0.5
+        head[f'TorchLinear_{i}'] = {
+            'kernel': rs.uniform(-b, b, (F, F)).astype(np.float32),
+            'bias': rs.uniform(-b, b, (F,)).astype(np.float32)}
+    return {'direct_force_head': head, 'scaler_direct_force': {
+        'scale': rs.uniform(0.5, 1.5, (119, 1)).astype(np.float32)}}
+
+
+def with_direct_force_head(torch, base, device='cuda'):
+    """base's configuration and weights with direct_force added to its
+    outputs and direct_force_tree's head."""
+    from newtonnet_tpu_torch import NewtonNet
+    from newtonnet_tpu_torch.utils.params import params_from_flax, \
+        params_to_flax
+    model = NewtonNet(**{**base.config_dict(), 'output_properties':
+                         list(base.output_properties) + ['direct_force']},
+                      device=device)
+    tree = params_to_flax(base.core)['params']
+    tree.update(direct_force_tree(base.n_features))
+    params_from_flax({'params': tree}, core=model.core)
+    return model.requires_grad_(False).eval()
+
+
+def mass_weighted(np, h, z):
+    """The (3n, 3n) mass-weighted Hessian H_ij / sqrt(m_i m_j) of h (n, 3,
+    n, 3), float64, masses from MASSES by atomic number."""
+    n = len(z)
+    m = np.repeat(np.array([MASSES[int(a)] for a in z]), 3)
+    return np.asarray(h, np.float64).reshape(3 * n, 3 * n) \
+        / np.sqrt(np.outer(m, m))
+
+
+def harmonic_eigenvalues(np, h, z):
+    """The eigenvalues (eV / (A^2 u), ascending) of the symmetrized
+    mass-weighted Hessian: the squared harmonic frequencies."""
+    a = mass_weighted(np, h, z)
+    return np.linalg.eigvalsh(0.5 * (a + a.T))
+
+
+def hessian_bar(ref):
+    """14a's bar: HESSIAN_SPREAD_FACTOR times the JAX package's float32-to-
+    float64 spread of the aspirin Hessians in `ref`."""
+    import numpy as np
+    return HESSIAN_SPREAD_FACTOR * float(np.abs(
+        ref['JAX_ASPIRIN_HESSIAN'].astype(np.float64)
+        - ref['JAX_ASPIRIN_HESSIAN_FP64']).max())
+
+
+def phase_hessian_aspirin(torch, rg):
+    """Phase 14a: the aspirin checkpoint's Hessian through the calculator
+    (HESSIAN_PROPS; 21 atoms padded to 24, 72 lanes at once): the first
+    HESSIAN_FRAMES test frames against the JAX calculator's float32
+    Hessians at hessian_bar, symmetric at that bar; frame 0's mass-weighted
+    eigenvalues against the JAX float64 ones at HESSIAN_SPREAD_FACTOR
+    times the spectral norm of the JAX package's float32 error (Weyl's
+    bound); the model at 21 atoms with hessian_block HESSIAN_ASPIRIN_BLOCK
+    (63 lanes: three blocks and a ragged one) against it unblocked; one
+    request under torch.profiler. -> launches per request."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNet, NewtonNetCalculator, \
+        load_model
+    from newtonnet_tpu_torch.data.loader import parse_xyz
+    ref = dict(np.load(HESSIAN_REF))
+    bar = hessian_bar(ref)
+    samples = parse_xyz(XYZ)[:HESSIAN_FRAMES]
+    calc = NewtonNetCalculator(XLA_CKPT, properties=HESSIAN_PROPS)
+    calc.calculate(numbers=samples[0]['z'], positions=samples[0]['pos'])
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    lat, hs = [], []
+    for s in samples:
+        t = time.perf_counter()
+        hs.append(calc.calculate(numbers=s['z'],
+                                 positions=s['pos'])['hessian'])
+        lat.append(time.perf_counter() - t)
+    launches = {k: v // HESSIAN_FRAMES for k, v in rg.LAUNCHES.items()}
+    prof = profile_call(torch, lambda: calc.calculate(
+        numbers=samples[0]['z'], positions=samples[0]['pos']))
+    got = np.stack(hs).astype(np.float64)
+    want = ref['JAX_ASPIRIN_HESSIAN'].astype(np.float64)
+    check(got.shape == want.shape == (HESSIAN_FRAMES, 21, 3, 21, 3)
+          and np.isfinite(got).all(), f'14a: Hessian shape {got.shape}')
+    diff = float(np.abs(got - want).max())
+    sym = float(np.abs(got - got.transpose(0, 3, 4, 1, 2)).max())
+    z0 = samples[0]['z']
+    eig = harmonic_eigenvalues(np, got[0], z0)
+    eig_diff = float(np.abs(eig - ref['JAX_ASPIRIN_FREQS']).max())
+    eig_bar = HESSIAN_SPREAD_FACTOR * float(np.linalg.norm(mass_weighted(
+        np, ref['JAX_ASPIRIN_HESSIAN'][0].astype(np.float64)
+        - ref['JAX_ASPIRIN_HESSIAN_FP64'][0], z0), 2))
+    base = load_model(XLA_CKPT)
+    s0 = samples[0]
+    z = torch.as_tensor(s0['z'])[None].cuda()
+    pos = torch.as_tensor(s0['pos'], dtype=torch.float32)[None].cuda()
+    cell = torch.zeros((1, 3, 3)).cuda()
+    blocked = {}
+    for block in (0, HESSIAN_ASPIRIN_BLOCK):
+        m = NewtonNet(**dict(base.config_dict(), hessian_block=block,
+                             output_properties=['energy', 'hessian']),
+                      device='cuda')
+        m.load_state_dict(base.state_dict())
+        rg.reset_launch_counts()
+        blocked[block] = m.requires_grad_(False)(z, pos, cell)['hessian'][0]
+    block_diff = float((blocked[HESSIAN_ASPIRIN_BLOCK] - blocked[0]).abs()
+                       .max())
+    emit('hessian_aspirin', checkpoint=XLA_CKPT[len(ROOT) + 1:],
+         frames=HESSIAN_FRAMES, lanes=3 * 24, vs_jax=(diff, bar),
+         jax_fp32_to_fp64_spread=bar / HESSIAN_SPREAD_FACTOR,
+         symmetry=(sym, bar), eigenvalues_vs_jax_fp64=(eig_diff, eig_bar),
+         eigenvalues_frame0=eig.tolist(),
+         blocked_vs_unblocked=dict(block=HESSIAN_ASPIRIN_BLOCK, lanes=63,
+                                   max_abs_diff=block_diff, bar=bar),
+         request_ms=[1e3 * t for t in lat], launches_per_request=launches,
+         profile=prof)
+    check(diff <= bar, f'14a Hessian against the JAX package: {diff} > {bar}')
+    check(sym <= bar, f'14a Hessian symmetry: {sym} > {bar}')
+    check(eig_diff <= eig_bar, f'14a eigenvalues: {eig_diff} > {eig_bar}')
+    check(block_diff <= bar, f'14a hessian_block: {block_diff} > {bar}')
+    return {'aspirin_per_request': launches}
+
+
+def lj_hessian_calculator(torch, root, block):
+    """The newton3 LJ checkpoint with the Hessian in its outputs and
+    hessian_block `block`, written by the port as a user would configure
+    it, served by a calculator with HESSIAN_PROPS."""
+    from newtonnet_tpu_torch import NewtonNet, NewtonNetCalculator, \
+        load_model
+    from newtonnet_tpu_torch.utils.checkpoint import save_model
+    base = load_model(LJ_CKPT)
+    model = NewtonNet(**dict(base.config_dict(), hessian_block=block,
+                             output_properties=list(base.output_properties)
+                             + ['hessian']), device='cuda')
+    model.load_state_dict(base.state_dict())
+    path = os.path.join(root, f'lj_hessian_{block}.msgpack')
+    save_model(path, model)
+    return NewtonNetCalculator(path, properties=HESSIAN_PROPS)
+
+
+def sum_rule_residual(np, h):
+    """max_{i,a,b} |sum_j H[i,a,j,b]| / max |H| of h (n, 3, n, 3)."""
+    h = np.asarray(h, np.float64)
+    return float(np.abs(h.sum(axis=2)).max() / np.abs(h).max())
+
+
+def phase_hessian_lj(torch, rg):
+    """Phase 14b: the newton3 LJ checkpoint (F=48, 2 interactions, k_max
+    16) on lj_box(LJ_HESSIAN_ATOMS) through the calculator (its half lists
+    built on the host once per request), at each hessian_block of
+    LJ_HESSIAN_BLOCKS (1536 lanes): the columns of the atoms
+    LJ_HESSIAN_ATOMS_PICKED against the JAX package's HVPs at
+    HESSIAN_SPREAD_FACTOR times its float32-to-float64 spread; the
+    model's plain row gather giving the same bits; K9's folded launches
+    doubling with the blocks and the others growing by blocks, not lanes;
+    the translational sum rule at HESSIAN_SUM_BAR, with one block's lanes
+    shifted by one as a control that fails it; request time and peak
+    memory per block size, and unblocked where the two blocked peaks,
+    extended linearly in the lanes, say it fits; one request at the first
+    block size under torch.profiler. -> (launches per request, K9's
+    folded shape (lanes, atoms, row width, rows))."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch.md.driver import host_symmetric_nlist
+    ref = dict(np.load(HESSIAN_REF))
+    z, pos, cell, _, _ = lj_box(n_atoms=LJ_HESSIAN_ATOMS)
+    pos, cell = pos.astype(np.float32), cell.astype(np.float32)
+    req = dict(numbers=z[0], positions=pos[0], cell=cell[0])
+    n, lanes = LJ_HESSIAN_ATOMS, 3 * LJ_HESSIAN_ATOMS
+    res = {}
+    with tempfile.TemporaryDirectory() as root:
+        for i, block in enumerate(LJ_HESSIAN_BLOCKS):
+            calc = lj_hessian_calculator(torch, root, block)
+            if i == 0:
+                calc.calculate(**req)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            rg.reset_launch_counts()
+            t = time.perf_counter()
+            r = calc.calculate(**req)
+            res[block] = dict(
+                ms=1e3 * (time.perf_counter() - t),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                launches=dict(rg.LAUNCHES), hessian=r['hessian'])
+            if i == 0:
+                model = calc.model
+                tz, tpos, tcell = (torch.from_numpy(a).cuda()
+                                   for a in (z.astype(np.int64), pos, cell))
+                nl = host_symmetric_nlist(model, tz, tpos, tcell, skin=0.0)
+                plain = model(tz, tpos, tcell, nlist=nl, plain=True)[
+                    'hessian'][0].cpu().numpy()
+                same_bits = bool(np.array_equal(plain, r['hessian']))
+                k_slots = int(nl[2].shape[1])
+                del plain
+                prof = profile_call(torch, lambda: calc.calculate(**req))
+            del calc, r
+        b0, b1 = LJ_HESSIAN_BLOCKS
+        slope = (res[b0]['peak_gib'] - res[b1]['peak_gib']) / (b0 - b1)
+        unblocked_gib = res[b1]['peak_gib'] + slope * (lanes - b1)
+        total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+        unblocked = {'predicted_peak_gib': unblocked_gib}
+        if unblocked_gib < 0.8 * total_gib:
+            calc = lj_hessian_calculator(torch, root, 0)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            r = calc.calculate(**req)
+            unblocked.update(
+                ms=1e3 * (time.perf_counter() - t),
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                max_abs_diff_to_blocked=float(np.abs(
+                    r['hessian'] - res[b0]['hessian']).max()))
+            del calc, r
+    torch.cuda.empty_cache()
+    rows32 = ref['JAX_LJ_HESSIAN_ROWS'].astype(np.float64)
+    rows_bar = HESSIAN_SPREAD_FACTOR * float(np.abs(
+        rows32 - ref['JAX_LJ_HESSIAN_ROWS_FP64']).max())
+    cols = [(a, d) for a in LJ_HESSIAN_ATOMS_PICKED for d in range(3)]
+    out = {}
+    for block, r in res.items():
+        h = r['hessian']
+        check(h.shape == (n, 3, n, 3) and np.isfinite(h).all(),
+              f'14b: Hessian shape {h.shape} at block {block}')
+        got = np.stack([h[:, :, a, d] for a, d in cols]).astype(np.float64)
+        ctl = h.reshape(lanes, lanes).copy()
+        ctl[:, b0:2 * b0] = np.roll(ctl[:, b0:2 * b0], 1, axis=1)
+        n_blocks = -(-lanes // block)
+        out[block] = dict(
+            blocks=n_blocks, request_ms=r['ms'], peak_gib=r['peak_gib'],
+            launches=r['launches'],
+            vs_jax_rows=float(np.abs(got - rows32).max()),
+            sum_rule=sum_rule_residual(np, h),
+            sum_rule_control=sum_rule_residual(
+                np, ctl.reshape(n, 3, n, 3)))
+    jax_sum = float(np.abs(rows32.sum(axis=1)).max() / np.abs(rows32).max())
+    (l0, l1) = (res[b]['launches'] for b in LJ_HESSIAN_BLOCKS)
+    n0, n1 = (out[b]['blocks'] for b in LJ_HESSIAN_BLOCKS)
+    flat0 = l0['row_gather'] - l0['row_gather_folded']
+    flat1 = l1['row_gather'] - l1['row_gather_folded']
+    per_block = (flat1 - flat0) / (n1 - n0)
+    energy_pass = flat0 - n0 * per_block
+    emit('hessian_lj', checkpoint=LJ_CKPT[len(ROOT) + 1:], atoms=n,
+         lanes=lanes, half_list_slots=k_slots, per_block_size=out,
+         unblocked=unblocked, profile_first_block=prof, jax_rows_bar=rows_bar,
+         jax_rows_sum_rule=jax_sum, sum_rule_bar=HESSIAN_SUM_BAR,
+         plain_row_gather_same_bits=same_bits,
+         unfolded_launches=dict(per_block=per_block,
+                                energy_pass=energy_pass))
+    for block, o in out.items():
+        check(o['vs_jax_rows'] <= rows_bar,
+              f'14b columns against the JAX package at block {block}: '
+              f'{o["vs_jax_rows"]} > {rows_bar}')
+        check(o['sum_rule'] <= HESSIAN_SUM_BAR,
+              f'14b sum rule at block {block}: {o["sum_rule"]}')
+        check(o['sum_rule_control'] > HESSIAN_SUM_BAR,
+              f'14b: the sum-rule control passes ({o["sum_rule_control"]})')
+    check(same_bits, '14b: the plain row gather gives other bits')
+    check(l0['row_gather_folded'] > 0 and l1['row_gather_folded']
+          == l0['row_gather_folded'] * n1 // n0,
+          f'14b: folded K9 launches do not follow the blocks: {l0}, {l1}')
+    check(per_block > 0 and energy_pass >= 0
+          and per_block == int(per_block),
+          f'14b: K9 launches do not grow by blocks: {l0}, {l1}')
+    shape = (b0, n, 4 * model.n_features, k_slots * n)
+    return ({f'lj_per_request_block_{b}': res[b]['launches']
+             for b in LJ_HESSIAN_BLOCKS}, shape)
+
+
+def hessian_folded_timing(torch, rg, shape, launches):
+    """K9 at 14b's largest folded shape (the second layer's gather of
+    [message | 3 x force] rows over the half list, at L lanes of one
+    graph): CUDA-event times of the kernel, its plain version and
+    torch.gather, each checked bitwise against the plain result; the
+    bound: bytes written, the indices and one read of the source over the
+    memory rate."""
+    L, n, F4, R = shape
+    g = torch.Generator(device='cuda').manual_seed(51)
+    x = torch.randn((L, n, F4), generator=g, device='cuda')
+    idx = torch.randint(0, n, (L, R), generator=g, device='cuda')
+    want = rg.row_gather_ref(x, idx)
+    got = rg.row_gather(x, idx)
+    lib = torch.gather(x, 1, idx[..., None].expand(L, R, F4))
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want) and torch.equal(lib, want),
+          '14: K9 at the folded Hessian shape is not bitwise')
+    del got, want, lib
+    plain1 = time_ms(torch, lambda: rg.row_gather_ref(x, idx), inner=3)
+    ms = time_ms(torch, lambda: rg.row_gather(x, idx), inner=3)
+    ms2 = time_ms(torch, lambda: rg.row_gather(x, idx), inner=3)
+    plain2 = time_ms(torch, lambda: rg.row_gather_ref(x, idx), inner=3)
+    lib_ms = time_ms(torch, lambda: torch.gather(
+        x, 1, idx[..., None].expand(L, R, F4)), inner=3)
+    nbytes = L * R * F4 * 4 + L * R * 8 + L * n * F4 * 4
+    return {'shape': f'x ({L}, {n}, {F4}) fp32, idx ({L}, {R})',
+            'launches': launches, 'max_abs_err': err,
+            'ms': statistics.median([ms, ms2]),
+            'plain_ms': statistics.median([plain1, plain2]),
+            'bound_ms': 1e3 * nbytes / PEAK_BYTES_PER_S, 'bound_by': 'bytes',
+            'library_ms': lib_ms, 'bytes': nbytes, 'ms_runs': [ms, ms2],
+            'plain_ms_runs': [plain1, plain2]}
+
+
+def phase_direct_force(torch, fd):
+    """Phase 14c: the aspirin checkpoint with direct_force_tree's head.
+    The first DIRECT_FRAMES test frames' direct forces against the JAX
+    package's (HESSIAN_REF) at CHARGE_BAR; 10 standard fine-tuning steps
+    with DIRECT_LOSS ('auto' resolves to the standard step for this
+    kernel='xla' model, as in the JAX Trainer) on the batches of phase
+    7f against JAX_DIRECT_STEP_* (phase 13c's bars); fast_grad True
+    refused with the JAX Trainer's ValueError."""
+    import numpy as np
+    from newtonnet_tpu_torch import Trainer, load_model
+    from newtonnet_tpu_torch.data.loader import collate, parse_xyz
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    ref = dict(np.load(HESSIAN_REF))
+    model = with_direct_force_head(torch, load_model(XLA_CKPT))
+    batch = collate(parse_xyz(XYZ)[:DIRECT_FRAMES], n_pad=21)
+    out = model(*(torch.from_numpy(batch[k]).cuda()
+                  for k in ('z', 'pos', 'cell')))
+    got = out['direct_force'].double().cpu().numpy()
+    want = ref['JAX_DIRECT_FORCES'].astype(np.float64)
+    diff = float(np.abs(got - want).max())
+    check(got.shape == want.shape and np.isfinite(got).all(),
+          f'14c: direct forces {got.shape}')
+    cfg = xla_settings(None, 1)
+    train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
+    it = iter(train_gen)
+    batches = [{k: torch.as_tensor(v).cuda() for k, v in next(it).items()}
+               for _ in range(10)]
+
+    def start():
+        m = with_direct_force_head(torch, load_model(XLA_CKPT))
+        set_scalers(m.core, m.output_properties, stats,
+                    {'energy': dict(cfg['training']['fit_scalers'])})
+        return m.requires_grad_(True)
+    loss_fns = get_loss_by_string(DIRECT_LOSS)
+    losses, norms, step_s, _, _, trainer = xla_steps(
+        torch, start(), loss_fns, batches, 'auto')
+    loss64, ulp_term = float64_loss(fd, loss_fns[0], batches[0], start())
+    bar1 = max(ulp_term / loss64, LJ_STEP1_REL)
+    rel_loss, rel_gn = check_jax_steps(
+        'direct force', losses, norms, JAX_DIRECT_STEP_LOSS,
+        JAX_DIRECT_STEP_GRAD_NORM, loss64, bar1)
+    refused = None
+    try:
+        Trainer(start(), loss_fns=loss_fns, fast_grad=True)
+    except ValueError as exc:
+        refused = str(exc)
+    emit('direct_force', checkpoint=XLA_CKPT[len(ROOT) + 1:],
+         frames=DIRECT_FRAMES, vs_jax=(diff, CHARGE_BAR), loss=losses,
+         grad_norm=norms, jax_loss=JAX_DIRECT_STEP_LOSS,
+         jax_grad_norm=JAX_DIRECT_STEP_GRAD_NORM, rel_loss=rel_loss,
+         rel_grad_norm=rel_gn, loss64=loss64, step1_loss_bar=bar1,
+         standard_step=not trainer.fast_grad,
+         fast_grad_true_refused=refused,
+         step_ms_median=1e3 * statistics.median(step_s[1:]))
+    check(diff <= CHARGE_BAR, f'14c direct forces against JAX: {diff}')
+    check(not trainer.fast_grad, "14c: 'auto' did not take the standard "
+          'step')
+    check(refused is not None and 'fast_grad requires losses' in refused,
+          f'14c: fast_grad True not refused: {refused}')
+
+
+def phase_ensemble(torch):
+    """Phase 14d: the ENSEMBLE_CKPTS checkpoints as one calculator (a list
+    model_path): the first ENSEMBLE_MAE_FRAMES test frames as single
+    requests, the first ENSEMBLE_REQUESTS against the JAX ensemble
+    calculator's energies and forces (HESSIAN_REF) at E_ATOL / F_ATOL,
+    and the ensemble's energy and force MAE against the JAX ensemble's
+    over all of them at ENSEMBLE_MAE_BARS; request time beside one
+    member's."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator
+    from newtonnet_tpu_torch.data.loader import parse_xyz
+    ref = dict(np.load(HESSIAN_REF))
+    samples = parse_xyz(XYZ)[:ENSEMBLE_MAE_FRAMES]
+    calc = NewtonNetCalculator(ENSEMBLE_CKPTS)
+    one = NewtonNetCalculator(ENSEMBLE_CKPTS[0])
+    check(len(calc.members) == len(ENSEMBLE_CKPTS), '14d: members')
+    energy, forces, lat, lat1 = [], [], [], []
+    for s in samples:
+        req = dict(numbers=s['z'], positions=s['pos'])
+        t = time.perf_counter()
+        r = calc.calculate(**req)
+        lat.append(time.perf_counter() - t)
+        energy.append(r['energy'])
+        forces.append(r['forces'])
+        if len(lat1) < ENSEMBLE_REQUESTS:
+            t = time.perf_counter()
+            one.calculate(**req)
+            lat1.append(time.perf_counter() - t)
+    energy, forces = np.asarray(energy), np.stack(forces)
+    k = ENSEMBLE_REQUESTS
+    e_diff = float(np.abs(energy[:k] - ref['JAX_ENSEMBLE_ENERGY'][:k]).max())
+    f_diff = float(np.abs(forces[:k] - ref['JAX_ENSEMBLE_FORCES'][:k]).max())
+    labels_e = np.array([s['energy'] for s in samples], np.float64)
+    labels_f = np.stack([s['force'] for s in samples])
+    mae = {'energy': float(np.abs(energy - labels_e).mean()),
+           'forces': float(np.abs(forces - labels_f).mean())}
+    jax_mae = {'energy': float(np.abs(ref['JAX_ENSEMBLE_ENERGY']
+                                      - labels_e).mean()),
+               'forces': float(np.abs(ref['JAX_ENSEMBLE_FORCES']
+                                      - labels_f).mean())}
+    emit('ensemble', checkpoints=[c[len(ROOT) + 1:] for c in ENSEMBLE_CKPTS],
+         requests_vs_jax=dict(energy=(e_diff, E_ATOL),
+                              forces=(f_diff, F_ATOL)),
+         frames=len(samples), mae=mae, jax_mae=jax_mae,
+         mae_bars=ENSEMBLE_MAE_BARS,
+         request_ms_median=1e3 * statistics.median(lat),
+         one_member_request_ms_median=1e3 * statistics.median(lat1))
+    check(e_diff <= E_ATOL and f_diff <= F_ATOL,
+          f'14d requests against the JAX ensemble: {e_diff}, {f_diff}')
+    for key, bar in ENSEMBLE_MAE_BARS.items():
+        check(abs(mae[key] - jax_mae[key]) <= bar,
+              f'14d {key} MAE {mae[key]} against the JAX ensemble\'s '
+              f'{jax_mae[key]}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5906,6 +6410,16 @@ def main():
     charge_launches.update(phase_charge_lj(torch, fd, rg))
     torch.cuda.empty_cache()
     emit('charge_phase', seconds=time.perf_counter() - t13)
+    # 14. the Hessian (hessian_block lanes folded into K9's batch), the
+    # direct-force head and calculator ensembles
+    t14 = time.perf_counter()
+    hessian_launches = phase_hessian_aspirin(torch, rg)
+    lj_hessian_launches, folded_shape = phase_hessian_lj(torch, rg)
+    hessian_launches.update(lj_hessian_launches)
+    phase_direct_force(torch, fd)
+    phase_ensemble(torch)
+    torch.cuda.empty_cache()
+    emit('hessian_phase', seconds=time.perf_counter() - t14)
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -6097,6 +6611,17 @@ def main():
             # charge heads over half lists (phase 13)
             row['charge_launches'] = {what: n[key] for what, n in
                                       charge_launches.items()}
+            # Hessian requests (phase 14): all launches, and K9's at a
+            # fold of lanes into the batch
+            row['hessian_launches'] = {what: n[key] for what, n in
+                                       hessian_launches.items()}
+            if key == 'row_gather':
+                row['hessian_folded_launches'] = {
+                    what: n['row_gather_folded']
+                    for what, n in hessian_launches.items()}
+                row['hessian_folded'] = hessian_folded_timing(
+                    torch, rg, folded_shape,
+                    row['hessian_folded_launches'])
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)

@@ -76,8 +76,9 @@ def set_scalers(core, output_properties, stats, fit_config=None):
         fit = fit_config.get(key, {})
         with torch.no_grad():
             for name in ('scale', 'shift'):
-                if name in stats[key] and fit.get(f'fit_{name}', True):
-                    param = getattr(scaler, name)
+                param = getattr(scaler, name)
+                if param is not None and name in stats[key] \
+                        and fit.get(f'fit_{name}', True):
                     param.copy_(torch.as_tensor(
                         np.asarray(stats[key][name]).reshape(-1, 1),
                         dtype=param.dtype))

@@ -165,6 +165,11 @@ class _Bf16Activation(torch.autograd.Function):
     def jvp(ctx, t, _):
         return ctx.rule.jvp(ctx.x, t)
 
+    @staticmethod
+    def vmap(info, in_dims, x, name):
+        # elementwise: the rule runs on the batched tensor as it lies
+        return _Bf16Activation.apply(x, name), in_dims[0]
+
 
 def _rounded(name, library):
     '''`library` for float32/float64 inputs, the bf16 rule `name` for

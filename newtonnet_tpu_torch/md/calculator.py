@@ -12,6 +12,11 @@ same parameters. A charge-head model in ewald_mode 'auto' is served by
 its 'periodic' or 'aperiodic' clone (NewtonNet.with_ewald_mode, the same
 parameters), chosen per request by the cell, as the JAX calculator
 resolves it.
+
+A list of checkpoints is an ensemble: every member is served as above and
+the outputs that the first and the last member both give are averaged in
+member order, as the JAX calculator averages them; the list is built once
+per request, for the first member, and every member takes it.
 '''
 import numpy as np
 import torch
@@ -35,10 +40,8 @@ PROPERTY_MAP = {
     'forces': 'gradient_force',
     'stress': 'stress',
     'virial': 'virial',
+    'hessian': 'hessian',
 }
-# result names the JAX calculator has and this one does not yet, with the
-# ROADMAP.md A item that ports each
-UNPORTED_PROPERTIES = {'hessian': 'Hessian'}
 
 
 def _round_up(x, m=8):
@@ -49,10 +52,9 @@ class NewtonNetCalculator:
     '''Evaluate a trained model on one system per call.
 
     Args:
-        model_path: .msgpack checkpoint of the JAX package (or pass model=
-            and params=, as the JAX calculator takes them). A list of
-            checkpoints (an ensemble) is not ported yet (ROADMAP.md A,
-            "remaining heads").
+        model_path: .msgpack checkpoint of the JAX package, or a list of
+            them (an ensemble, averaged), or pass model= and params=, as
+            the JAX calculator takes them.
         properties: ASE-style result names (default: charges, energy
             and forces where the model has them).
         precision: 'float32' (the kernels' type) or 'float64' (CPU only).
@@ -73,12 +75,12 @@ class NewtonNetCalculator:
                  device=None):
         check_matmul_precision(matmul_precision, 'matmul_precision')
         self.dtype = get_precision_by_string(precision)
-        if isinstance(model_path, (list, tuple)):
-            raise NotImplementedError(
-                'an ensemble of checkpoints (a list model_path) is not ported '
-                'yet (ROADMAP.md A, "remaining heads")')
+        members = []
         if model_path is not None:
-            model = load_model(model_path, device=device)
+            paths = (model_path if isinstance(model_path, (list, tuple))
+                     else [model_path])
+            members = [load_model(p, device=device) for p in paths]
+            model = members[0]
         elif model is None or params is None:
             raise ValueError('need model_path or (model, params)')
         else:
@@ -88,63 +90,64 @@ class NewtonNetCalculator:
                             device=device or model.device, dtype=self.dtype)
             params_from_flax(params, core=own.core)
             model = own.requires_grad_(False).eval()
-        if model.newton3_compact:
-            # the staircase layer creates the newton3 layer's parameters:
-            # a calculator serves a staircase-trained checkpoint through
-            # the rectangular newton3 layout (single requests would
-            # otherwise change their chunk widths from geometry to
-            # geometry)
-            swapped = NewtonNet(**dict(model.config_dict(),
-                                       newton3_compact=False, newton3=True),
-                                device=model.device, dtype=self.dtype)
-            swapped.load_state_dict(model.state_dict())
-            model = swapped.requires_grad_(False).eval()
+            members = [model]
         if properties is None:
             inv = {'charge': 'charges', 'energy': 'energy',
                    'gradient_force': 'forces'}
             properties = [inv[k] for k in model.output_properties
                           if k in inv]
-        for prop in properties:
-            if prop in UNPORTED_PROPERTIES:
-                raise NotImplementedError(
-                    f'property {prop!r} is not ported yet (ROADMAP.md A, '
-                    f'"{UNPORTED_PROPERTIES[prop]}")')
         unknown = set(properties) - set(PROPERTY_MAP)
         if unknown:
             raise ValueError(f'unknown properties {sorted(unknown)}')
         self.properties = list(properties)
         # derivative outputs reuse the trained parameters: extend the
-        # model's outputs with them; a head the checkpoint lacks would be
-        # untrained, and is refused as the JAX calculator refuses it
+        # first model's outputs with them, and every member's to the same
+        # list; a head a checkpoint lacks would be untrained, and is
+        # refused as the JAX calculator refuses it
         needed = {PROPERTY_MAP[p] for p in self.properties}
         missing = needed - set(model.output_properties)
-        if missing:
-            cfg = model.config_dict()
-            cfg['output_properties'] = (list(model.output_properties)
-                                        + sorted(missing))
-            extended = NewtonNet(**cfg, device=model.device,
-                                 dtype=self.dtype)
-            untrained = set(extended.core.heads) - set(model.core.heads)
+        outputs = list(model.output_properties) + sorted(missing)
+        self.members = [self._serving(m, outputs) for m in members]
+        self.model = self.members[0]
+        self.device = self.model.device
+        # ewald_mode 'auto': both static clones, sharing the parameters
+        self._by_periodicity = {
+            periodic: [m.with_ewald_mode('periodic' if periodic
+                                         else 'aperiodic')
+                       for m in self.members]
+            for periodic in (True, False)}
+
+    def _serving(self, model, outputs):
+        '''`model` as this calculator serves it: a newton3_compact
+        checkpoint through the newton3 layout (the staircase layer creates
+        the newton3 layer's parameters; single requests would otherwise
+        change their chunk widths from geometry to geometry), with
+        `outputs`, in the serving precision.'''
+        cfg = model.config_dict()
+        if model.newton3_compact:
+            cfg.update(newton3_compact=False, newton3=True)
+        if model.newton3_compact or outputs != model.output_properties:
+            cfg['output_properties'] = outputs
+            served = NewtonNet(**cfg, device=model.device, dtype=self.dtype)
+            untrained = set(served.core.heads) - set(model.core.heads)
             if untrained:
                 raise ValueError(
                     f'checkpoint has no trained head(s) for '
                     f'{sorted(untrained)}')
-            extended.load_state_dict(model.state_dict())
-            model = extended.requires_grad_(False).eval()
-        self.model = model.to(self.dtype)
-        self.device = model.device
-        # ewald_mode 'auto': both static clones, sharing the parameters
-        self._by_periodicity = {
-            periodic: self.model.with_ewald_mode(
-                'periodic' if periodic else 'aperiodic')
-            for periodic in (True, False)}
+            served.load_state_dict(model.state_dict())
+            model = served.requires_grad_(False).eval()
+        return model.to(self.dtype)
 
-    def model_for(self, cell):
-        '''The model that serves a request with this cell (None or (3, 3)):
-        the calculator's model, its ewald_mode resolved by whether the
-        cell is nonzero.'''
+    def models_for(self, cell):
+        '''The members that serve a request with this cell (None or
+        (3, 3)): the calculator's models, their ewald_mode resolved by
+        whether the cell is nonzero.'''
         return self._by_periodicity[cell is not None
                                     and bool(np.any(np.asarray(cell)))]
+
+    def model_for(self, cell):
+        '''The first member of models_for(cell).'''
+        return self.models_for(cell)[0]
 
     def calculate(self, system=None, numbers=None, positions=None,
                   cell=None):
@@ -153,7 +156,8 @@ class NewtonNetCalculator:
         argument is an MD system object (not ported: pass None or use the
         keywords). Returns numpy results keyed by property: energy
         (float), forces (n, 3), stress (Voigt-6 xx yy zz yz xz xy),
-        virial (3, 3), charges (n,), bec (n, 3, 3). Matrix products run
+        virial (3, 3), charges (n,), bec (n, 3, 3), hessian (n, 3, n,
+        3); an ensemble's mean. Matrix products run
         in IEEE fp32 (fp32_matmuls), the caller's TF32 flags restored
         afterwards.'''
         if system is not None:
@@ -177,12 +181,16 @@ class NewtonNetCalculator:
             c[0] = cell
         z, pos, c = (torch.from_numpy(a).to(self.device)
                      for a in (z, pos, c))
-        model = self.model_for(cell)
+        models = self.models_for(cell)
         nlist = None
-        if (model.graph_mode == 'neighborlist'
-                and (model.inverse_lists or model.newton3)):
-            nlist = host_symmetric_nlist(model, z, pos, c, skin=0.0)
-        out = model(z, pos, c, nlist=nlist)
+        if (models[0].graph_mode == 'neighborlist'
+                and (models[0].inverse_lists or models[0].newton3)):
+            nlist = host_symmetric_nlist(models[0], z, pos, c, skin=0.0)
+        outs = [m(z, pos, c, nlist=nlist) for m in models]
+        out = outs[0]
+        if len(outs) > 1:
+            out = {k: sum(o[k] for o in outs) / len(outs)
+                   for k in set(outs[0]) & set(outs[-1])}
         results = {}
         for prop in self.properties:
             v = out[PROPERTY_MAP[prop]].cpu().numpy()
@@ -195,4 +203,6 @@ class NewtonNetCalculator:
                 results[prop] = s[[0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]]
             elif prop == 'virial':
                 results[prop] = v[0]
+            elif prop == 'hessian':
+                results[prop] = v[0, :n, :, :n, :]
         return results

@@ -81,17 +81,23 @@ class MLP(nn.Module):
 
 
 class ScaleShift(nn.Module):
-    '''Per-element (Z-indexed) scale and shift, each (119, 1).'''
+    '''Per-element (Z-indexed) scale and shift, each (119, 1); with
+    use_shift False the shift is None (the direct-force scaler has a scale
+    alone, as the JAX package's SCALER_CONFIG gives it).'''
 
-    def __init__(self, device=None, dtype=torch.float32):
+    def __init__(self, use_shift=True, device=None, dtype=torch.float32):
         super().__init__()
         self.scale = nn.Parameter(torch.ones((N_ELEMENTS, 1), device=device,
                                              dtype=dtype))
-        self.shift = nn.Parameter(torch.zeros((N_ELEMENTS, 1), device=device,
-                                              dtype=dtype))
+        self.shift = (nn.Parameter(torch.zeros((N_ELEMENTS, 1),
+                                               device=device, dtype=dtype))
+                      if use_shift else None)
 
     def forward(self, output, z):
-        return output * self.scale[z, 0][..., None] + self.shift[z, 0][..., None]
+        output = output * self.scale[z, 0][..., None]
+        if self.shift is None:
+            return output
+        return output + self.shift[z, 0][..., None]
 
 
 class LayerNorm(nn.Module):
@@ -145,16 +151,17 @@ class InteractionNet(nn.Module):
 
 
 # the direct heads a core can carry, in the JAX core's order
-HEADS = ('energy', 'charge')
+HEADS = ('energy', 'charge', 'direct_force')
 
 
 class NewtonNetCore(nn.Module):
     '''All parameters of the model: node_embedding, interaction_{i}, per
-    head of `heads` (within HEADS) its MLP {key}_head (F -> F -> F -> 1)
-    and its scaler_{key} and, with trainable_basis, bessel_frequencies
-    (n_basis,). The JAX core builds the heads its model's outputs need
-    (models/output.py there): a model of charges alone has no energy
-    head.'''
+    head of `heads` (within HEADS) its MLP {key}_head (F -> F -> F -> 1;
+    F -> F -> F -> F for direct_force) and its scaler_{key} (scale and
+    shift; a scale alone for direct_force) and, with trainable_basis,
+    bessel_frequencies (n_basis,). The JAX core builds the heads its
+    model's outputs need (models/output.py there): a model of charges
+    alone has no energy head.'''
 
     def __init__(self, n_features=128, n_basis=20, n_interactions=3,
                  activation='swish', layer_norm=False, trainable_basis=False,
@@ -174,10 +181,13 @@ class NewtonNetCore(nn.Module):
                 n_features, n_basis, activation, layer_norm, **kw))
         self.heads = tuple(k for k in HEADS if k in heads)
         for key in self.heads:
+            # the direct-force head's F outputs weigh force_node's features
+            direct = key == 'direct_force'
             self.add_module(f'{key}_head', MLP(
-                n_features, [n_features, n_features, 1], activation, **kw))
-            self.add_module(f'scaler_{key}',
-                            ScaleShift(device=device, dtype=dtype))
+                n_features, [n_features, n_features,
+                             n_features if direct else 1], activation, **kw))
+            self.add_module(f'scaler_{key}', ScaleShift(
+                not direct, device=device, dtype=dtype))
         if trainable_basis:
             self.bessel_frequencies = nn.Parameter(
                 torch.arange(1, n_basis + 1, device=device, dtype=dtype)

@@ -1,8 +1,7 @@
 '''User-facing NewtonNet: configuration, parameters and derivative heads.
 
-The JAX package's `models/output.py` for the configurations this port
-serves, outputs within {energy, charge, gradient_force, virial, stress,
-bec}:
+The JAX package's `models/output.py`, every output: energy, charge,
+direct_force, gradient_force, virial, stress, hessian and bec:
 
 * kernel='xla' (the default, as there): the plain formulation of
   models/xla_stack.py, every activation, layer_norm, trainable_basis and
@@ -36,10 +35,16 @@ the contraction the JAX package takes after a per-graph Jacobian
 passes of the charges, with the raw positions' a-th column as cotangent
 (graphs are independent, so one pass serves the batch).
 
+The direct-force head (kernel='xla') is a direct output of the core: an
+MLP of atom_node weighing force_node's features (models/xla_stack.py).
+The Hessian (kernel='xla') is forward over reverse, per graph, with
+hessian_block lanes at a time (NewtonNet._hessian), through the vmap
+rules of the list Functions (ops/nlist.py).
+
 Serving holds the parameters constant and detaches the outputs; with
 create_graph=True (kernel='xla') the outputs stay differentiable in the
 parameters, for the standard training step (train/trainer.py), which
-trains energy, force, stress and virial losses.
+trains energy, force, direct-force, stress and virial losses.
 
 kernel='pallas' takes pallas_dot_dtype 'float32' or 'bfloat16': the
 products of K1/K2 (dense) and K5/K6 (neighbour lists) round their
@@ -47,9 +52,6 @@ operands to bf16 where the JAX package's Pallas kernels do
 (ops/fused_dense.py, ops/fused_klist.py), and so do those of the K-list
 duals K7/K8 that train such a model (train/fastgrad.py; the dense duals
 K3/K4 take pallas_grad_dot_dtype).
-
-Not here: the direct-force and Hessian heads raise NotImplementedError
-naming the ROADMAP.md item that will port them.
 '''
 import contextlib
 import copy
@@ -63,7 +65,8 @@ from newtonnet_tpu_torch.models.fused_klist import COMPUTE_DTYPES, \
     apply_core_nlist
 from newtonnet_tpu_torch.models.fused_stack import apply_core
 from newtonnet_tpu_torch.models.newtonnet import HEADS, NewtonNetCore
-from newtonnet_tpu_torch.models.xla_stack import apply_core_xla
+from newtonnet_tpu_torch.models.xla_stack import apply_core_xla, \
+    request_nlist
 from newtonnet_tpu_torch.ops.ewald import ewald_energy
 from newtonnet_tpu_torch.ops.fused_dense import DOT_DTYPES
 from newtonnet_tpu_torch.ops.linalg3 import det3x3
@@ -74,11 +77,6 @@ SECOND_DERIVATIVE_PROPERTIES = ('hessian', 'bec')
 ALL_PROPERTIES = (DIRECT_PROPERTIES + DERIVATIVE_PROPERTIES
                   + SECOND_DERIVATIVE_PROPERTIES)
 SERVED_PROPERTIES = ('energy', 'gradient_force', 'virial', 'stress')
-
-_NOT_YET = {
-    'direct_force': 'ROADMAP.md A, "remaining heads"',
-    'hessian': 'ROADMAP.md A, "Hessian"',
-}
 
 
 def resolve_device(device=None):
@@ -189,11 +187,6 @@ class NewtonNet(nn.Module):
                 raise ValueError(
                     'kernel=pallas neighborlist uses plain full lists '
                     '(newton3/reverse_lists/inverse_lists unsupported)')
-        # what this port serves so far
-        for key in output_properties:
-            if key in _NOT_YET:
-                raise NotImplementedError(
-                    f'output {key!r} is not ported yet ({_NOT_YET[key]})')
         if kernel == 'xla' and graph_mode not in ('dense', 'neighborlist'):
             raise ValueError(f'unknown graph_mode {graph_mode}')
         if compute_dtype not in COMPUTE_DTYPES:
@@ -362,11 +355,12 @@ class NewtonNet(nn.Module):
                 kernels are first order.
 
         Returns:
-            dict with energy (B,) and charge (B, N) where the model has
-            them, the configured derivative outputs (gradient_force
-            (B, N, 3), virial/stress (B, 3, 3), bec (B, N, 3, 3)) and
-            atom_node, force_node, atomic_energy; detached unless
-            create_graph (bec always is: no loss reads it). Matrix
+            dict with energy (B,), charge (B, N) and direct_force
+            (B, N, 3) where the model has them, the configured derivative
+            outputs (gradient_force (B, N, 3), virial/stress (B, 3, 3),
+            hessian (B, N, 3, N, 3), bec (B, N, 3, 3)) and atom_node,
+            force_node, atomic_energy; detached unless create_graph (bec
+            and hessian always are: no loss reads them). Matrix
             products run in IEEE fp32 (fp32_matmuls), whatever TF32 flags
             the caller set, as the JAX package's calculator pins
             'highest'.
@@ -409,7 +403,57 @@ class NewtonNet(nn.Module):
         if 'stress' in needs:
             volume = torch.abs(det3x3(cell))[:, None, None]
             outputs['stress'] = disp_grad / volume
+        if 'hessian' in needs:
+            outputs['hessian'] = self._hessian(z, pos.detach(), cell, nlist,
+                                               plain)
         return outputs
+
+    def _hessian(self, z, pos, cell, nlist=None, plain=False):
+        '''Per-graph Hessian d2E/dpos2 (B, N, 3, N, 3), forward over
+        reverse as the JAX package takes it (jax.jacfwd of jax.grad):
+        torch.func.vmap over lanes of torch.func.jvp of torch.func.grad of
+        the energy, with the parameters held constant and the list built
+        once, outside the lanes (xla_stack.request_nlist).
+
+        Graphs are independent, so one lane seeds the same position
+        coordinate c in every graph and its jvp is column c of each
+        graph's Hessian: there are 3N lanes whatever B, and no cross-graph
+        blocks. hessian_block > 0 (below 3N) runs the lanes in blocks of
+        that many one-hot seeds, built from indices (never the (3N, 3N)
+        identity); the last block's lanes past 3N - 1 seed zero and are
+        dropped. Under the vmap the list Functions fold a block's lanes
+        into the batch axis (ops/nlist.py), so each gather of the block is
+        one row gather (kernel K9 on the card) at L*B.'''
+        B, N = pos.shape[:2]
+        lanes = 3 * N
+        block = int(self.hessian_block)
+        if block <= 0 or block >= lanes:
+            block = lanes
+        nlist = request_nlist(self, z, pos, cell, nlist)
+
+        def energy(p):
+            return self._energy_and_aux(z, p, None, cell, nlist=nlist,
+                                        plain=plain)[0]
+
+        grad_fn = torch.func.grad(energy)
+
+        def hvp(v):
+            return torch.func.jvp(grad_fn, (pos,), (v,))[1]
+
+        cols = torch.arange(lanes, device=pos.device)
+        hess = torch.empty((lanes, B, N, 3), dtype=pos.dtype,
+                           device=pos.device)
+        with torch.no_grad(), constant_parameters(self.core):
+            for k0 in range(0, lanes, block):
+                lane = k0 + torch.arange(block, device=pos.device)
+                seeds = (lane[:, None] == cols[None, :]).to(pos.dtype)
+                seeds = seeds.reshape(block, 1, N, 3).expand(
+                    block, B, N, 3).contiguous()
+                rows = torch.func.vmap(hvp)(seeds)
+                hess[k0:k0 + block] = rows[:lanes - k0]
+        # hess[(i, a), b, j, d] = d grad[b, j, d] / d pos[b, i, a]
+        return hess.reshape(N, 3, B, N, 3).permute(2, 3, 4, 0, 1) \
+            .contiguous()
 
     @staticmethod
     def _bec(pos, charge, keep=False):

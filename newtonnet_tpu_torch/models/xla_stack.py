@@ -162,13 +162,37 @@ def stair_edges(model, pos, cell, nlist, plain=False):
     return StairEdges(chunks=tuple(chunks))
 
 
+def request_nlist(model, z, pos, cell, nlist=None):
+    '''The list a request's graph runs over, built at pos (no gradient:
+    a list is piecewise constant in the positions), so that several
+    passes at these positions (the Hessian's blocks of lanes) can share
+    it: a given nlist as it is; for a neighbour-list model without one,
+    the plain (idx, mask) list of neighbor_list (or of the cell grid, for
+    a cell_grid model), with its reverse list for a reverse_lists model
+    (the 4-tuple nlist_edges takes); None for the dense graph and for the
+    layouts that need a list from the host (newton3, newton3_compact).'''
+    if model.graph_mode != 'neighborlist' or nlist is not None \
+            or model.newton3 or model.newton3_compact:
+        return nlist
+    build = cell_grid_neighbor_list if model.cell_grid else neighbor_list
+    extra = ((tuple(model.cell_grid), model.cell_capacity)
+             if model.cell_grid else ())
+    with torch.no_grad():
+        idx, listed, _, _ = build(pos.detach(), cell.detach(), z > 0,
+                                  model.cutoff, model.k_max, *extra,
+                                  mic_mode=model.mic_mode)
+        if model.reverse_lists:
+            return (idx, listed) + tuple(build_reverse_list(idx, listed))
+    return idx, listed
+
+
 def nlist_edges(model, z, pos, cell, nlist=None, plain=False):
     '''K-major list edges (see the module docstring): from the 4-tuple of
     inverse or half lists (inverse_lists and newton3 models), a plain
     (idx, mask) list, a reverse-list 4-tuple (idx, mask, rev, rev_mask)
-    (reverse_lists models), or a plain full list built at pos (by the cell
-    grid for a cell_grid model). A given list is tightened to the cutoff
-    at the current positions (a stale pair drops out).'''
+    (reverse_lists models), or a plain full list built at pos by
+    request_nlist. The list is tightened to the cutoff at the current
+    positions (a stale pair of a given list drops out).'''
     cut2 = model.cutoff * model.cutoff
     if (model.inverse_lists or model.newton3) and model.reverse_lists:
         raise ValueError(
@@ -188,21 +212,14 @@ def nlist_edges(model, z, pos, cell, nlist=None, plain=False):
             'mask, inv, inv_mask) -- build it with ops/nlist.'
             'newton3_half_list + build_inverse_list, or md/driver.'
             'host_symmetric_nlist')
-    if nlist is not None:
-        if len(nlist) == 4:
-            pre_rev = (nlist[2].long(), nlist[3].bool())
-        idx, listed = nlist[0].long(), nlist[1].bool()
-        disp = recompute_displacements(pos, cell, idx,
-                                       mic_mode=model.mic_mode, mask=listed)
-        kmask = listed & (torch.sum(disp * disp, dim=-1) < cut2)
-    else:
-        build = cell_grid_neighbor_list if model.cell_grid else neighbor_list
-        extra = ((tuple(model.cell_grid), model.cell_capacity)
-                 if model.cell_grid else ())
-        idx, listed, disp, _ = build(pos, cell, z > 0, model.cutoff,
-                                     model.k_max, *extra,
-                                     mic_mode=model.mic_mode)
-        kmask = listed
+    if nlist is None:
+        nlist = request_nlist(model, z, pos, cell)
+    if len(nlist) == 4:
+        pre_rev = (nlist[2].long(), nlist[3].bool())
+    idx, listed = nlist[0].long(), nlist[1].bool()
+    disp = recompute_displacements(pos, cell, idx, mic_mode=model.mic_mode,
+                                   mask=listed)
+    kmask = listed & (torch.sum(disp * disp, dim=-1) < cut2)
     dir_, rbf = _features(model, disp)
     if model.reverse_lists:
         # a stale pair's cotangent is zero (the layer multiplies by the
@@ -354,7 +371,8 @@ def _cast_edges(edges, cd):
 
 def apply_core_xla(model, z, pos, cell, nlist=None, plain=False):
     '''Primal forward: {atom_node (B,N,F), force_node (B,N,3,F)} and the
-    core's heads, atomic_energy (B,N,1) and charge (B,N), computed in
+    core's heads, atomic_energy (B,N,1), charge (B,N) and direct_force
+    (B,N,3), computed in
     pos's dtype after a bf16 stack casts back, as the JAX core computes
     them. plain=True runs the inverse-list gathers
     through the plain row gather (the same numbers as K9, bit for bit).'''
@@ -388,4 +406,9 @@ def apply_core_xla(model, z, pos, cell, nlist=None, plain=False):
     if 'charge' in core.heads:
         q = core.scaler_charge(core.charge_head(atom_node), z)
         out['charge'] = (q * fmask)[..., 0]
+    if 'direct_force' in core.heads:
+        # the head's F weights summed against force_node over F
+        w = core.direct_force_head(atom_node)
+        force = torch.sum(w[:, :, None, :] * force_node, dim=-1)
+        out['direct_force'] = core.scaler_direct_force(force, z) * fmask
     return out

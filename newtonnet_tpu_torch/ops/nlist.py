@@ -48,7 +48,11 @@ import torch
 
 from newtonnet_tpu_torch.ops import _build
 from newtonnet_tpu_torch.ops.neighbors import minimum_image
-from newtonnet_tpu_torch.ops.row_gather import row_gather, row_gather_ref
+from newtonnet_tpu_torch.ops.row_gather import (
+    folded_lanes,
+    row_gather,
+    row_gather_ref,
+)
 
 # slots per chunk of inv_scatter_sum: one row gather over a (B, c*N, F)
 # stack per chunk (the JAX package's NEWTONNET_SCATTER_CHUNK default)
@@ -184,6 +188,28 @@ def _masked(y, mask):
     return torch.where(mask.reshape(mask.shape + (1,) * (y.dim() - 3)), y, 0)
 
 
+def _fold_lanes(fn, info, in_dims, *args):
+    '''The vmap rule of the list Functions (the JAX package's batching
+    rule of its gather primitives): the vmap axis of L lanes moves to the
+    front and folds into the batch axis B, the unbatched lists broadcast
+    to it (expanded, then copied contiguous by the fold), and `fn` runs
+    once at L*B: one row gather per gather for the whole block of lanes.
+    Arguments that are not tensors (flags) and None pass as they are.'''
+    L = info.batch_size
+
+    def fold(a, d):
+        if not isinstance(a, torch.Tensor):
+            return a
+        a = a.expand((L,) + a.shape) if d is None else a.movedim(d, 0)
+        # a view where it can be: a batch of one keeps the expand's zero
+        # stride, which the row gather's layout refuses
+        return a.reshape((L * a.shape[1],) + a.shape[2:]).contiguous()
+
+    with folded_lanes():
+        out = fn.apply(*(fold(a, d) for a, d in zip(args, in_dims)))
+    return out.reshape((L, -1) + out.shape[1:]), 0
+
+
 class GatherNodes(torch.autograd.Function):
     '''y = x[idx] (all slots); its derivative is that of where(mask,
     x[idx], 0): masked slots are constants. Backward ScatterNodes.
@@ -214,6 +240,10 @@ class GatherNodes(torch.autograd.Function):
         # ScatterNodes (fixed order), not torch.gather's scatter-add
         return _masked(GatherNodes.apply(x_t, *ctx.lists), ctx.lists[1])
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _fold_lanes(GatherNodes, info, in_dims, *args)
+
 
 class ScatterNodes(torch.autograd.Function):
     '''The adjoint of GatherNodes' derivative: the sum of each node's
@@ -231,12 +261,22 @@ class ScatterNodes(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         _, idx, mask, slots, valid = inputs
         ctx.save_for_backward(idx, mask, slots, valid)
+        ctx.lists = (idx, mask, slots, valid)
 
     @staticmethod
     def backward(ctx, g):
         idx, mask, slots, valid = ctx.saved_tensors
         return (_masked(GatherNodes.apply(g, idx, mask, slots, valid), mask),
                 None, None, None, None)
+
+    @staticmethod
+    def jvp(ctx, y_t, *_):
+        # linear: the scatter of the tangent, through apply
+        return ScatterNodes.apply(y_t, *ctx.lists)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _fold_lanes(ScatterNodes, info, in_dims, *args)
 
 
 def gather_nodes(x, idx, mask=None, transpose=None):
@@ -481,6 +521,10 @@ class EdgePull(torch.autograd.Function):
     def jvp(ctx, y_t, *_):
         return EdgePull.apply(y_t, *ctx.lists)
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _fold_lanes(EdgePull, info, in_dims, *args)
+
 
 class EdgeGather(torch.autograd.Function):
     '''x[idx] (torch.gather at every slot) whose backward pulls the slot
@@ -509,6 +553,10 @@ class EdgeGather(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, x_t, *_):
         return EdgeGather.apply(x_t, *ctx.lists)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _fold_lanes(EdgeGather, info, in_dims, *args)
 
 
 def edge_pull(y, idx, rev, rev_mask):
@@ -603,6 +651,10 @@ class InvGather(torch.autograd.Function):
     def jvp(ctx, x_t, *_):
         return InvGather.apply(x_t, *ctx.lists, ctx.plain)
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _fold_lanes(InvGather, info, in_dims, *args)
+
 
 class InvScatterSum(torch.autograd.Function):
     '''The adjoint of InvGather; backward InvGather. Linear: its jvp is
@@ -628,6 +680,10 @@ class InvScatterSum(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, y_t, *_):
         return InvScatterSum.apply(y_t, *ctx.lists, ctx.plain)
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _fold_lanes(InvScatterSum, info, in_dims, *args)
 
 
 def inv_gather(x, idx_kn, inv, inv_mask, plain=False):

@@ -16,9 +16,9 @@ A training step is one of two, chosen as the JAX Trainer chooses
 * the standard step, reverse over reverse: the loss over
   NewtonNet.forward(..., create_graph=True), then loss.backward(). It
   trains every loss the model has outputs for: energy, gradient_force,
-  stress and virial (kernel='xla' only; the fused kernels are first
-  order, so a kernel='pallas' model with fast_grad=False is refused when
-  the Trainer is built).
+  direct_force, stress and virial (kernel='xla' only; the fused
+  kernels are first order, so a kernel='pallas' model with
+  fast_grad=False is refused when the Trainer is built).
 Evaluation runs NewtonNet.forward (K1/K2, or K5/K6, for kernel='pallas').
 Batches may change shape from one step to the next (a BucketedLoader pads
 each bucket to its own size): nothing is kept by shape between steps. A
@@ -39,10 +39,10 @@ errors (_check_batch_nlist). Every list layout keeps the step gather-only:
 inv_gather / inv_scatter_sum, gather_nodes and edge_gather have gather
 backwards in every order.
 
-Not here (ROADMAP.md A, "parallelism", "remaining heads" and "training
-extras"): meshes, halo exchange, several processes, direct_force losses,
-wandb, the profiler hook and the standard step over a kernel='pallas'
-model (`halo`, `profile_dir` and that step raise NotImplementedError).
+Not here (ROADMAP.md A, "parallelism" and "training extras"): meshes,
+halo exchange, several processes, wandb, the profiler hook and the
+standard step over a kernel='pallas' model (`halo`, `profile_dir` and
+that step raise NotImplementedError).
 The JAX Trainer's steps_per_call, which chunks steps into one device
 dispatch, is accepted and does nothing: eager PyTorch dispatches each
 operation as it comes.
@@ -73,8 +73,6 @@ from newtonnet_tpu_torch.utils.params import params_from_flax
 # Trainer arguments of the JAX package that the port refuses when set, with
 # the ROADMAP.md A item that ports each.
 UNPORTED_EXTRAS = {'profile_dir': 'training extras', 'halo': 'parallelism'}
-# loss keys the standard step trains (prediction keys a model can output)
-TRAINED_KEYS = frozenset({'energy', 'gradient_force', 'stress', 'virial'})
 
 
 def refuse_unported_extras(**given):
@@ -91,7 +89,8 @@ def standard_value_and_grad(model, main_loss, batch, nlist=None,
     over reverse (the JAX Trainer's jax.value_and_grad of the loss over
     model.apply): the loss of NewtonNet.forward(..., create_graph=True),
     then one backward pass. Any loss the model has outputs for (energy,
-    gradient_force, stress, virial); kernel='xla' models only.
+    gradient_force, direct_force, stress, virial); kernel='xla' models
+    only.
 
     Arguments and result as train/fastgrad.value_and_grad's: nlist and
     plain pass through to the model (plain: the inverse-list gathers
@@ -157,10 +156,6 @@ class Trainer:
         self.main_loss, self.eval_loss = (
             loss_fns or get_loss_by_string({'energy': {}}))
         loss_keys = getattr(self.main_loss, 'keys', None)
-        if set(loss_keys or ()) - TRAINED_KEYS:
-            raise NotImplementedError(
-                f'training on {sorted(set(loss_keys) - TRAINED_KEYS)} is not '
-                'ported yet (ROADMAP.md A, "remaining heads")')
         self.fast_grad = self._resolve_fast_grad(fast_grad, loss_keys)
         self.optimizer = optimizer if optimizer is not None else \
             get_optimizer_by_string('adam', model.core, clip_grad=clip_grad)

@@ -308,8 +308,9 @@ def test_calculator_takes_the_jax_constructors_keywords():
     bits of the checkpoint's calculator, served from a copy of the model,
     and match the JAX calculator built from the same model and params; the
     JAX refusal text for no path and no (model, params) pair (model= alone
-    included), and the refusals of a precision other than 'highest' and
-    an ensemble."""
+    included), and the refusal of a precision other than 'highest'. An
+    ensemble (ROADMAP.md A8, ported) of one checkpoint twice gives that
+    checkpoint's bits: the mean of two equal outputs."""
     from newtonnet_tpu.md.calculator import NewtonNetCalculator as JaxCalc
     from newtonnet_tpu.utils.checkpoint import load_model as jax_load
     from newtonnet_tpu_torch import NewtonNet
@@ -337,9 +338,11 @@ def test_calculator_takes_the_jax_constructors_keywords():
             NewtonNetCalculator(**kw)
     with pytest.raises(ValueError, match='matmul_precision'):
         NewtonNetCalculator(XLA_CKPT, device='cpu', matmul_precision='high')
-    with pytest.raises(NotImplementedError,
-                       match='ROADMAP.md A, "remaining heads"'):
-        NewtonNetCalculator([XLA_CKPT, XLA_CKPT], device='cpu')
+    twice = NewtonNetCalculator([XLA_CKPT, XLA_CKPT], device='cpu')
+    assert len(twice.members) == 2
+    got = twice.calculate(**req)
+    assert got['energy'] == want['energy']
+    assert np.array_equal(got['forces'], want['forces'])
 
 
 def test_standard_step_over_a_pallas_model_is_refused_when_built(tmp_path):

@@ -7,6 +7,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
@@ -109,29 +110,36 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
 ])
 def test_unported_configurations_name_their_roadmap_item(kw, item):
     '''Each configuration the port does not have yet raises, naming its
-    ROADMAP.md item: a Hessian head in a model or asked of the calculator.
-    A bf16 kernel='pallas' model builds, serves and trains (section B's
-    last item, ported): the Trainer takes the first-order step, and only
-    the standard step over it (fast_grad=False) is refused, naming
-    section A's item.'''
+    ROADMAP.md item. A bf16 kernel='pallas' model builds, serves and
+    trains (section B's last item, ported): the Trainer takes the
+    first-order step, and only the standard step over it (fast_grad=False)
+    is refused, naming section A's item. The items "remaining heads" and
+    "Hessian" are ported (ROADMAP.md A6 and A8): a direct-force or a
+    Hessian head in a model, and the Hessian asked of the calculator, now
+    build and give their outputs, and raise NotImplementedError no
+    more.'''
     from newtonnet_tpu_torch import NewtonNet
+    small = dict(device='cpu', n_features=8, n_basis=4, n_interactions=1)
+    z = torch.tensor([[1, 6, 8, 1]])
+    pos = torch.tensor([[[0.0, 0.0, 0.0], [1.1, 0.0, 0.0], [0.0, 1.2, 0.0],
+                         [0.3, 0.4, 1.0]]])
+    cell = torch.zeros((1, 3, 3))
     if 'calculator_properties' in kw:
         from newtonnet_tpu_torch import NewtonNetCalculator
         from newtonnet_tpu_torch.utils.params import params_to_flax
-        model = NewtonNet(device='cpu', n_features=8, n_basis=4,
-                          n_interactions=1,
+        model = NewtonNet(**small,
                           output_properties=['energy', 'gradient_force'])
-        with pytest.raises(NotImplementedError,
-                           match=f'ROADMAP.md A.*{item}'):
-            NewtonNetCalculator(model=model,
-                                params=params_to_flax(model.core),
-                                properties=kw['calculator_properties'],
-                                device='cpu')
+        calc = NewtonNetCalculator(model=model,
+                                   params=params_to_flax(model.core),
+                                   properties=kw['calculator_properties'],
+                                   device='cpu')
+        out = calc.calculate(numbers=z[0].numpy(), positions=pos[0].numpy())
+        assert out['hessian'].shape == (4, 3, 4, 3)
+        assert np.isfinite(out['hessian']).all()
         return
     if kw.get('pallas_dot_dtype') == 'bfloat16':
         from newtonnet_tpu_torch.train.trainer import Trainer
-        model = NewtonNet(device='cpu', n_features=8, n_basis=4,
-                          n_interactions=1,
+        model = NewtonNet(**small,
                           output_properties=['energy', 'gradient_force'],
                           **kw)
         assert Trainer(model).fast_grad
@@ -139,8 +147,11 @@ def test_unported_configurations_name_their_roadmap_item(kw, item):
                            match=f'ROADMAP.md A.*{item}'):
             Trainer(model, fast_grad=False)
         return
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md A.*{item}'):
-        NewtonNet(device='cpu', **kw)
+    model = NewtonNet(**small, **kw)
+    out = model(z, pos, cell)
+    key = kw['output_properties'][-1]
+    shape = {'direct_force': (1, 4, 3), 'hessian': (1, 4, 3, 4, 3)}[key]
+    assert out[key].shape == shape and torch.isfinite(out[key]).all()
 
 
 @pytest.mark.parametrize('kw', [
