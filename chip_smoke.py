@@ -357,10 +357,41 @@ with a non-zero exit code and no result line):
                energy and force MAE over the first ENSEMBLE_MAE_FRAMES
                test frames against the JAX ensemble's, at those bars.
 
+15. md  molecular dynamics (md/driver.py, md/simulate.py), each trajectory
+            on the card from first step to last:
+            a. (in a process of its own, `python3 chip_smoke.py
+               md-aspirin`, beside 15b and 15c) XLA_CKPT's MD_REPLICAS
+               replicas of the record MD_LOG's run (frame 0 at rest, 300 K,
+               0.5 fs, friction 1/(500 fs)) for MD_ASPIRIN_STEPS steps
+               through run_langevin_on_device: mean
+               T and Epot over MD_WINDOW within MD_T_BAR / MD_EPOT_BAR of
+               the record's 2-10 ps means, both standard errors printed,
+               the 0-0.5 ps control failing the T bar; host syncs per
+               step (torch.cuda.set_sync_debug_mode); `python -m
+               newtonnet_tpu_torch.md.simulate --on-device` writing an
+               md.log in the record's format.
+            b. CKPT (K1/K2) through run_nhc_on_device, 8 replicas, 1000
+               steps at 300 K: the conserved quantity's drift within
+               MD_DRIFT_BAR, a 2 fs control missing it; K1/K2 launches
+               per step; peak memory after 1000 steps equal to that after
+               10; 20 friction-0 steps on the card within MD_TRAJ_BAR of
+               the same run with the model on the CPU (plain versions).
+            c. LJ_CKPT on lj_box(512) (lj_md_start): MD_LJ's 20 NVE steps
+               over newton3 host rebuilds (K9/K12), the staircase (host
+               rebuilds with re-sorts) and a kernel='pallas' K-list model
+               (K5/K6, on-device cell-grid rebuilds), each within
+               MD_LJ_BAR of the JAX package's newton3 run (MD_LJ_REF),
+               both counters 0, launches per step.
+            d. tools/demo_large_md.py's 4096-atom box (F=128, bf16 stack)
+               over newton3 and staircase half lists: steps/s, host
+               rebuild ms, the device's busy share over one chunk, K9/K12
+               launches and host syncs per step, both counters 0.
+
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
 9b/9c launches, K1-K4's phase 12 launches, K9/K12's phase 13 and 14
-launches and K9 at phase 14's folded Hessian shape; the bf16 rows of
+launches and K9 at phase 14's folded Hessian shape; K1/K2, K5/K6 and
+K9/K12 with their launches per MD step of phase 15; the bf16 rows of
 K1/K2 and K5-K8) and, last, {"ok": true, "device": {...}}.
 '''
 import functools
@@ -1096,6 +1127,47 @@ ENSEMBLE_CKPTS = [os.path.join(ROOT, 'artifacts', f'md17_model_s{k}',
                                'best_model.msgpack') for k in range(3, 8)]
 ENSEMBLE_REQUESTS = 20
 ENSEMBLE_MAE_FRAMES = 100
+
+# Phase 15: MD (ROADMAP.md A9). 15a: the aspirin record MD_LOG (the JAX
+# driver's run of XLA_CKPT: frame 0 at rest, 300 K, 0.5 fs, friction
+# 1/(500 fs), logged every 100 steps), against MD_REPLICAS replicas of the
+# same run over MD_ASPIRIN_STEPS steps: mean T and Epot over MD_WINDOW (ps)
+# within MD_T_BAR / MD_EPOT_BAR of the record's MD_REF_WINDOW means; the
+# first 0.5 ps (MD_CONTROL_WINDOW, 343.7 K in the record) must fail the
+# temperature bar.
+MD_LOG = os.path.join(ROOT, 'artifacts', 'md17_model', 'md.log')
+MD_REPLICAS = 8
+MD_ASPIRIN_STEPS = 6000
+MD_LOG_EVERY = 10
+MD_WINDOW, MD_REF_WINDOW, MD_CONTROL_WINDOW = (2.0, 3.0), (2.0, 10.0), \
+    (0.0, 0.5)
+MD_T_BAR, MD_EPOT_BAR = 20.0, 0.06
+MD_SIMULATE_STEPS = 200
+# 15b: NHC of CKPT (K1/K2) over MD_NHC_STEPS, tdamp 50 fs: the largest drift
+# of the conserved quantity within MD_DRIFT_BAR (eV), which a run at 4x the
+# timestep over the same simulated time must miss; MD_NVE_STEPS friction-0 steps on the card within
+# MD_TRAJ_BAR (A) of the same run with the model on the CPU (the plain
+# versions)
+MD_NHC_STEPS = 1000
+MD_DRIFT_BAR = 0.03
+MD_NVE_STEPS = 20
+MD_TRAJ_BAR = 1e-5
+# 15c: LJ_CKPT on lj_box(512): MD_LJ's 20 friction-0 steps in three
+# layouts against the JAX package's newton3 run (MD_LJ_REF, from `python
+# tests/test_torch_md_driver.py lj-newton3` on the CPU), positions and
+# per-step Epot within MD_LJ_BAR; the K-list layout at k_max MD_LJ_K_MAX
+# (full lists at cutoff + skin: the box's largest degree there is 22)
+MD_LJ = dict(atoms=512, steps=20, nlist_every=5, skin=1.0, temperature=100.0,
+             timestep_fs=1.0)
+MD_LJ_REF = os.path.join(ROOT, 'tests', 'reference', 'jax_md_lj_newton3.npz')
+MD_LJ_BAR = 1e-4
+MD_LJ_K_MAX = 32
+# 15d: tools/demo_large_md.py's box (4096 atoms at 0.1 per cubic A, F=128,
+# bf16 stack, box_weights scaled by 0.1 as the demo scales its weights),
+# Langevin over MD_BOX_STEPS steps with rebuilds every MD_BOX_EVERY, at the
+# demo's half-list capacity
+MD_BOX_ATOMS, MD_BOX_K_MAX = 4096, 72
+MD_BOX_STEPS, MD_BOX_EVERY = 100, 10
 
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
@@ -6051,6 +6123,545 @@ def phase_ensemble(torch):
               f'{jax_mae[key]}')
 
 
+@functools.lru_cache(maxsize=None)
+def card_name():
+    """The card's name and power limit as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    return smi[0] if smi else 'nvidia-smi gave nothing'
+
+
+def md_emit(phase, **fields):
+    """emit with the card beside phase 15's times."""
+    emit(phase, card=card_name(), **fields)
+
+
+def md_record(np, path=MD_LOG):
+    """An md.log's columns: time (ps), Epot (eV), T (K)."""
+    a = np.loadtxt(path, skiprows=1, ndmin=2)
+    return a[:, 0], a[:, 2], a[:, 4]
+
+
+def window_mean(np, t, x, window):
+    sel = (t >= window[0]) & (t < window[1])
+    return x[sel].mean(axis=0)
+
+
+def syncs_per_step(torch, step, steps=10):
+    """Host syncs per call of `step` over `steps` calls (after one warm
+    call), as torch.cuda.set_sync_debug_mode('warn') reports them, with
+    the source lines that made them."""
+    import collections
+    import warnings
+    step()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        torch.cuda.set_sync_debug_mode('warn')
+        try:
+            for _ in range(steps):
+                step()
+            seen = list(caught)  # not the mode switch's own
+        finally:
+            torch.cuda.set_sync_debug_mode('default')
+    where = collections.Counter(
+        f'{os.path.relpath(w.filename, ROOT)}:{w.lineno}' for w in seen
+        if 'synchroniz' in str(w.message))
+    return sum(where.values()) / steps, dict(where.most_common(6))
+
+
+def md_step_fn(torch, model, z, masses, cell, pos, nlist=None):
+    """One Langevin step of md/driver as the driver takes it (noise drawn on
+    the card, then driver.langevin_step) at a fixed list, for counting
+    syncs. -> a function of no arguments."""
+    from newtonnet_tpu_torch.data.units import fs, kB
+    from newtonnet_tpu_torch.md import driver
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    with torch.no_grad():
+        _, f = driver._energy_forces(model, z, pos, cell, nlist)
+    state = [(pos, torch.zeros_like(pos), f)]
+
+    def step():
+        with torch.no_grad():
+            noise = [torch.randn(pos.shape, generator=gen, device='cuda')
+                     for _ in range(2)]
+            state[0] = driver.langevin_step(
+                model, z, masses, cell, state[0], *noise, dt=0.5 * fs,
+                temp=kB * 300.0, friction=1 / (500 * fs), nlist=nlist)[0]
+    return step
+
+
+def padded_batch(torch, systems):
+    """(z, masses, cell, pos) of md/driver's padded replica batch, on the
+    card."""
+    import numpy as np
+    from newtonnet_tpu_torch.md import driver
+    z, pos, _, masses, cell = driver._pad_systems(systems, np.float32)
+    return [torch.from_numpy(a).cuda() for a in (z, masses, cell, pos)]
+
+
+def aspirin_systems(n=MD_REPLICAS, temperature=None):
+    """n copies of the first test frame (XYZ), at rest or with
+    Maxwell-Boltzmann momenta at `temperature` (default_rng(k) for copy
+    k)."""
+    import numpy as np
+    from newtonnet_tpu_torch.data.xyz import read_extxyz
+    from newtonnet_tpu_torch.md import System, maxwell_boltzmann
+    frame = read_extxyz(XYZ)[0]
+    out = []
+    for k in range(n):
+        s = System.from_frame(frame)
+        if temperature is not None:
+            maxwell_boltzmann(s, temperature, rng=np.random.default_rng(k))
+        out.append(s)
+    return out
+
+
+def phase_md_aspirin(torch):
+    """Phase 15a: XLA_CKPT's MD_REPLICAS replicas of MD_LOG's run through
+    run_langevin_on_device against the record (MD_T_BAR, MD_EPOT_BAR over
+    MD_WINDOW, the control window failing the temperature bar), with the
+    standard errors of both means; then the entry point `python -m
+    newtonnet_tpu_torch.md.simulate --on-device` writing an md.log in
+    the record's format."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.data import units
+    from newtonnet_tpu_torch.md.driver import run_langevin_on_device
+    model = load_model(XLA_CKPT)
+    dt = 0.5 * units.fs
+    t_ref, e_ref, temp_ref = md_record(np)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, log = run_langevin_on_device(
+        model, None, aspirin_systems(), timestep=dt, temperature_K=300.0,
+        friction=1 / (500 * units.fs), n_steps=MD_ASPIRIN_STEPS,
+        log_every=MD_LOG_EVERY, seed=0)
+    seconds = time.perf_counter() - t0
+    t = np.arange(len(log['epot'])) * MD_LOG_EVERY * dt / units.ps
+    check(np.isfinite(log['epot']).all() and np.isfinite(log['ekin']).all(),
+          '15a: the trajectory is not finite')
+    temp, epot = log['temperature'], log['epot'].astype(np.float64)
+    means = {'T': window_mean(np, t, temp, MD_WINDOW),
+             'Epot': window_mean(np, t, epot, MD_WINDOW)}  # (M,) each
+    ref = {'T': window_mean(np, t_ref, temp_ref, MD_REF_WINDOW),
+           'Epot': window_mean(np, t_ref, e_ref, MD_REF_WINDOW)}
+    # the record's standard error from 1 ps blocks; the port's from the
+    # spread of the replicas' window means
+    blocks = np.arange(MD_REF_WINDOW[0], MD_REF_WINDOW[1], 1.0)
+    out = {}
+    for key, bar in (('T', MD_T_BAR), ('Epot', MD_EPOT_BAR)):
+        col = temp_ref if key == 'T' else e_ref
+        b = [window_mean(np, t_ref, col, (lo, lo + 1.0)) for lo in blocks]
+        se_ref = float(np.std(b, ddof=1) / np.sqrt(len(b)))
+        se = float(np.std(means[key], ddof=1) / np.sqrt(len(means[key])))
+        out[key] = dict(port=float(means[key].mean()), record=float(ref[key]),
+                        diff=float(means[key].mean() - ref[key]), bar=bar,
+                        port_se=se, record_se=se_ref,
+                        combined_se=float(np.hypot(se, se_ref)))
+    control = float(window_mean(np, t, temp, MD_CONTROL_WINDOW).mean())
+    control_ref = float(window_mean(np, t_ref, temp_ref, MD_CONTROL_WINDOW))
+    md_emit('md_aspirin', checkpoint=XLA_CKPT[len(ROOT) + 1:],
+         replicas=MD_REPLICAS, steps=MD_ASPIRIN_STEPS, window_ps=MD_WINDOW,
+         record_window_ps=MD_REF_WINDOW, vs_record=out,
+         control_window_ps=MD_CONTROL_WINDOW, control_T=control,
+         control_record_T=control_ref,
+         control_fails_the_bar=bool(abs(control - ref['T']) > MD_T_BAR),
+         seconds=seconds, steps_per_s=MD_ASPIRIN_STEPS / seconds,
+         counters=[log['nlist_overflow'], log['skin_violations']])
+    for key, o in out.items():
+        check(abs(o['diff']) <= o['bar'], f'15a: mean {key} {o}')
+    check(abs(control - ref['T']) > MD_T_BAR,
+          f'15a: the control window passes the T bar: {control}')
+    sysm = padded_batch(torch, aspirin_systems())
+    rate, where = syncs_per_step(torch, md_step_fn(
+        torch, model, *sysm))
+    md_emit('md_syncs', path='15a dense XLA aspirin, 8 replicas',
+         syncs_per_step=rate, where=where)
+
+    out_dir = tempfile.mkdtemp(prefix='md_simulate_')
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, '-m', 'newtonnet_tpu_torch.md.simulate',
+         '--on-device', '--steps', str(MD_SIMULATE_STEPS), '--out', out_dir],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(run.returncode == 0, f'15a: simulate failed: {run.stderr[-2000:]}')
+    with open(os.path.join(out_dir, 'md.log')) as f:
+        lines = f.read().splitlines()
+    with open(MD_LOG) as f:
+        header = f.readline().rstrip('\n')
+    n_lines = MD_SIMULATE_STEPS // 100
+    ok = lines[0] == header and len(lines) == n_lines + 1
+    for line in lines[1:]:
+        v = [float(x) for x in line.split()]
+        ok = ok and len(v) == 5 and np.isfinite(v).all() and line == (
+            f'{v[0]:<10.4f} {v[1]:12.4f} {v[2]:12.4f} {v[3]:12.4f} '
+            f'{v[4]:6.1f}')
+    md_emit('md_simulate', steps=MD_SIMULATE_STEPS, lines=lines,
+         seconds=time.perf_counter() - t0, format_ok=bool(ok))
+    check(ok, f'15a: simulate md.log: {lines}')
+
+
+def nhc_drift(np, log):
+    """The largest |conserved(t) - conserved(0)| over the replicas."""
+    c = log['conserved'].astype(np.float64)
+    return float(np.abs(c - c[:1]).max())
+
+
+def phase_md_pallas(torch, fd):
+    """Phase 15b: CKPT (K1/K2) through run_nhc_on_device, MD_REPLICAS
+    replicas at 300 K: the conserved quantity's drift over MD_NHC_STEPS
+    within MD_DRIFT_BAR, a run at 4x the timestep missing it; peak memory
+    after MD_NHC_STEPS steps equal to that after 10; MD_NVE_STEPS
+    friction-0 Langevin steps on the card against the same run with the
+    model on the CPU (plain versions) within MD_TRAJ_BAR.
+    -> {K1/K2 key: launches per step}."""
+    import numpy as np
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.data import units
+    from newtonnet_tpu_torch.md.driver import (run_langevin_on_device,
+                                               run_nhc_on_device)
+    model = load_model(CKPT)
+    kw = dict(temperature_K=300.0, tdamp=50 * units.fs)
+    run_nhc_on_device(model, None, aspirin_systems(2, 300.0),
+                      timestep=0.5 * units.fs, n_steps=2, log_every=1, **kw)
+    torch.cuda.synchronize()
+    fd.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, log = run_nhc_on_device(model, None, aspirin_systems(temperature=300.0),
+                               timestep=0.5 * units.fs, n_steps=MD_NHC_STEPS,
+                               log_every=MD_LOG_EVERY, **kw)
+    seconds = time.perf_counter() - t0
+    launches = {k: v / (MD_NHC_STEPS + 1)
+                for k, v in fd.LAUNCHES.items() if v}
+    parts = {}
+    t0 = time.perf_counter()
+    # the control covers the same simulated time in a quarter of the steps
+    _, control = run_nhc_on_device(
+        model, None, aspirin_systems(temperature=300.0),
+        timestep=2.0 * units.fs, n_steps=MD_NHC_STEPS // 4,
+        log_every=MD_LOG_EVERY // 4, **kw)
+    parts['control'] = time.perf_counter() - t0
+    drift, drift_control = nhc_drift(np, log), nhc_drift(np, control)
+    t0 = time.perf_counter()
+    peaks = {}
+    for n in (10, MD_NHC_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_nhc_on_device(model, None, aspirin_systems(temperature=300.0),
+                          timestep=0.5 * units.fs, n_steps=n, log_every=n,
+                          **kw)
+        peaks[n] = torch.cuda.max_memory_allocated()
+    parts['memory'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nve = dict(timestep=0.5 * units.fs, temperature_K=300.0, friction=0.0,
+               n_steps=MD_NVE_STEPS, log_every=1)
+    card, log_card = run_langevin_on_device(
+        model, None, aspirin_systems(temperature=300.0), **nve)
+    cpu, log_cpu = run_langevin_on_device(
+        load_model(CKPT, device='cpu'), None,
+        aspirin_systems(temperature=300.0), **nve)
+    parts['nve_card_and_cpu'] = time.perf_counter() - t0
+    traj_diff = max(float(np.abs(a.positions - b.positions).max())
+                    for a, b in zip(card, cpu))
+    epot_diff = float(np.abs(log_card['epot'] - log_cpu['epot']).max())
+    md_emit('md_pallas_nhc', checkpoint=CKPT[len(ROOT) + 1:],
+         replicas=MD_REPLICAS, steps=MD_NHC_STEPS,
+         conserved_drift_eV=drift, drift_bar=MD_DRIFT_BAR,
+         control_drift_eV_at_2fs=drift_control,
+         control_fails_the_bar=bool(drift_control > MD_DRIFT_BAR),
+         mean_T=float(log['temperature'].mean()), seconds=seconds,
+         other_seconds=parts,
+         steps_per_s=MD_NHC_STEPS / seconds,
+         k1_k2_launches_per_step=launches,
+         peak_bytes_after_steps={str(k): v for k, v in peaks.items()},
+         nve_steps=MD_NVE_STEPS, card_vs_cpu_positions=traj_diff,
+         card_vs_cpu_epot=epot_diff, positions_bar=MD_TRAJ_BAR)
+    check(np.isfinite(log['conserved']).all(), '15b: NHC not finite')
+    check(drift <= MD_DRIFT_BAR, f'15b: conserved drift {drift}')
+    check(drift_control > MD_DRIFT_BAR,
+          f'15b: the 2 fs control passes the drift bar: {drift_control}')
+    check(peaks[10] == peaks[MD_NHC_STEPS], f'15b: peak memory {peaks}')
+    check(all(launches.get(k, 0) > 0 for k in
+              ('pair_fwd', 'pair_fwd_first', 'pair_bwd', 'pair_bwd_first')),
+          f'15b: K1/K2 not launched on the MD path: {launches}')
+    check(traj_diff <= MD_TRAJ_BAR, f'15b: card vs CPU {traj_diff}')
+    sysm = padded_batch(torch, aspirin_systems())
+    md = load_model(CKPT)
+    rate, where = syncs_per_step(torch, md_step_fn(torch, md, *sysm))
+    md_emit('md_syncs', path='15b dense pallas aspirin (K1/K2), 8 replicas',
+         syncs_per_step=rate, where=where)
+    return launches
+
+
+def lj_md_start():
+    """Phase 15c's start (and the JAX run's, tests/test_torch_md_driver.py
+    lj-newton3): lj_box's MD_LJ['atoms']-atom frame with Maxwell-Boltzmann
+    momenta at MD_LJ['temperature'] (default_rng(0)). -> (numbers,
+    positions, cell, momenta), float64 numpy."""
+    import numpy as np
+    from newtonnet_tpu_torch.md.system import System, maxwell_boltzmann
+    z, pos, cell, _, _ = lj_box(MD_LJ['atoms'])
+    s = System(z[0], pos[0], cell=cell[0], pbc=[True] * 3)
+    maxwell_boltzmann(s, MD_LJ['temperature'], rng=np.random.default_rng(0))
+    return s.numbers, s.positions, s.cell, s.momenta
+
+
+def held_list(torch, model, numbers, pos, cell, skin=MD_LJ['skin']):
+    """One frame on the card as md/driver holds it between rebuilds, for
+    md_step_fn: (z, masses, cell, pos, nlist), the list built as the
+    driver builds it for the model's layout (on the host for newton3 and
+    the staircase, whose order the frame takes; on the device
+    otherwise)."""
+    import numpy as np
+    from newtonnet_tpu_torch.md import driver
+    z, p, c = (torch.from_numpy(np.asarray(a)[None]).cuda()
+               for a in (numbers, pos.astype(np.float32),
+                         cell.astype(np.float32)))
+    z = z.long()
+    if model.newton3_compact:
+        nlist, perm = driver.host_staircase_nlist(model, z, p, c, skin, {})
+        perm = torch.from_numpy(perm).cuda()
+        z = torch.take_along_dim(z, perm, dim=1)
+        p = torch.take_along_dim(p, perm[..., None], dim=1)
+    elif model.newton3 or model.inverse_lists:
+        nlist = driver.host_symmetric_nlist(model, z, p, c, skin=skin)
+    else:
+        grid, cap = driver._grid_for(model, c.cpu().numpy(), z.shape[1], 2,
+                                     skin)
+        nlist = driver._make_nlist_builder(model, z, c, skin, grid, cap)(p)[0]
+    return z, torch.ones_like(p[..., 0]), c, p, nlist
+
+
+def phase_md_lj(torch, fk, rg):
+    """Phase 15c: LJ_CKPT's MD_LJ run in three layouts (newton3 over host
+    rebuilds, K9/K12; newton3_compact over the staircase with its
+    re-sorts; a kernel='pallas' K-list model, K5/K6, over on-device
+    rebuilds) against the JAX package's newton3 run (MD_LJ_REF) at
+    MD_LJ_BAR, both counters 0. -> {layout: launches per step}."""
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    from newtonnet_tpu_torch.data import units
+    from newtonnet_tpu_torch.md import System
+    from newtonnet_tpu_torch.md.driver import run_langevin_on_device
+    ref = dict(np.load(MD_LJ_REF))
+    numbers, pos, cell, mom = lj_md_start()
+    base = load_model(LJ_CKPT)
+    layouts = {'newton3': {},
+               'staircase': dict(newton3=False, newton3_compact=True),
+               'klist_pallas': dict(LJ_PALLAS, k_max=MD_LJ_K_MAX)}
+    per_step = {}
+    for name, change in layouts.items():
+        model = NewtonNet(**dict(base.config_dict(), **change),
+                          device='cuda')
+        model.load_state_dict(base.state_dict())
+        torch.cuda.synchronize()
+        fk.reset_launch_counts()
+        rg.reset_launch_counts()
+        t0 = time.perf_counter()
+        s, log = run_langevin_on_device(
+            model, None, System(numbers, pos, cell=cell, momenta=mom),
+            timestep=MD_LJ['timestep_fs'] * units.fs,
+            temperature_K=MD_LJ['temperature'], friction=0.0,
+            n_steps=MD_LJ['steps'], log_every=1,
+            nlist_every=MD_LJ['nlist_every'], skin=MD_LJ['skin'])
+        seconds = time.perf_counter() - t0
+        counts = {**{k: v for k, v in fk.LAUNCHES.items() if v},
+                  **{k: v for k, v in rg.LAUNCHES.items() if v}}
+        per_step[name] = {k: v / (MD_LJ['steps'] + 1)
+                          for k, v in counts.items()}
+        pos_diff = float(np.abs(s.positions
+                                - ref['JAX_MD_LJ_NEWTON3_POS']).max())
+        epot_diff = float(np.abs(log['epot']
+                                 - ref['JAX_MD_LJ_NEWTON3_EPOT']).max())
+        rate, where = syncs_per_step(torch, md_step_fn(
+            torch, model, *held_list(torch, model, numbers, pos, cell)))
+        md_emit('md_lj', layout=name, atoms=MD_LJ['atoms'], md=MD_LJ,
+             vs_jax_newton3=dict(positions=pos_diff, epot=epot_diff,
+                                 bar=MD_LJ_BAR),
+             counters=[log['nlist_overflow'], log['skin_violations']],
+             launches_per_step=per_step[name], seconds=seconds,
+             syncs_per_step=rate, syncs_where=where)
+        check(pos_diff <= MD_LJ_BAR and epot_diff <= MD_LJ_BAR,
+              f'15c {name}: against the JAX run {pos_diff}, {epot_diff}')
+        check(log['nlist_overflow'] == 0 and log['skin_violations'] == 0,
+              f'15c {name}: counters')
+        want = (('klist_fwd', 'klist_fwd_first', 'klist_bwd',
+                 'klist_bwd_first') if name == 'klist_pallas' else
+                ('row_gather', 'row_gather_b1'))
+        check(all(counts.get(k, 0) > 0 for k in want),
+              f'15c {name}: {want} not launched: {counts}')
+    return per_step
+
+
+def device_busy(torch, fn):
+    """One call of fn under torch.profiler, device activity only (a
+    10-step staircase chunk launches about 40,000 kernels; with the host's
+    operators as well the trace takes minutes to read): wall ms (host
+    clock, ending in a synchronise), device busy ms and share, K9's ms and
+    the three longest kernel families."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    dev = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()]
+    busy = sum(ms for _, ms, _ in dev)
+    top = sorted(dev, key=lambda d: -d[1])[:3]
+    return {'wall_ms': wall, 'device_busy_ms': busy,
+            'device_busy_share': busy / wall,
+            'k9_ms': sum(ms for k, ms, _ in dev if 'row_gather_kernel' in k),
+            'kernels': sum(n for _, _, n in dev),
+            'top_device_ms': [[k[:60], ms, n] for k, ms, n in top]}
+
+
+def md_box(torch, xcfg, mode):
+    """Phase 15d's model and System: tools/demo_large_md.py's box (numpy
+    RandomState(0): positions, then numbers from {1, 1, 8}; momenta at
+    300 K from default_rng(0)) and the checkpoint's widths over half lists
+    (mode 'newton3' or 'newton3c', the staircase) at MD_BOX_K_MAX, bf16
+    stack, box_weights scaled by 0.1."""
+    import numpy as np
+    from newtonnet_tpu_torch.md import System, maxwell_boltzmann
+    rs = np.random.RandomState(0)
+    L = (MD_BOX_ATOMS / 0.1) ** (1 / 3)
+    cell = np.diag([L, L, L])
+    pos = rs.rand(MD_BOX_ATOMS, 3) @ cell
+    numbers = rs.choice([1, 1, 8], size=MD_BOX_ATOMS)
+    system = System(numbers, pos, cell=cell, pbc=[True] * 3)
+    maxwell_boltzmann(system, 300.0, rng=np.random.default_rng(0))
+    model = box_model(torch, xcfg, 'bfloat16', ['energy', 'gradient_force'],
+                      k_max=MD_BOX_K_MAX, newton3=mode == 'newton3',
+                      newton3_compact=mode == 'newton3c')
+    with torch.no_grad():
+        for p in model.core.parameters():
+            p.mul_(0.1)
+    return model, system
+
+
+def phase_md_box(torch, rg, xcfg):
+    """Phase 15d: MD_BOX_STEPS Langevin steps of md_box in both half-list
+    modes (host rebuilds every MD_BOX_EVERY): steps/s, the host rebuild's
+    ms, the device's busy share over one chunk (torch.profiler), K9/K12
+    launches per step and host syncs per step; both counters 0, the state
+    finite. -> {mode: launches per step}."""
+    import numpy as np
+    from newtonnet_tpu_torch.data import units
+    from newtonnet_tpu_torch.md import driver
+    per_step = {}
+    for mode in ('newton3c', 'newton3'):
+        model, system = md_box(torch, xcfg, mode)
+        plan = {}
+        kw = dict(timestep=0.5 * units.fs, temperature_K=300.0,
+                  friction=1 / (100 * units.fs), nlist_every=MD_BOX_EVERY,
+                  stair_plan=plan)
+        system, _ = driver.run_langevin_on_device(
+            model, None, system, n_steps=MD_BOX_EVERY, log_every=1, **kw)
+        torch.cuda.synchronize()
+        rg.reset_launch_counts()
+        t0 = time.perf_counter()
+        system, log = driver.run_langevin_on_device(
+            model, None, system, n_steps=MD_BOX_STEPS, log_every=10, **kw)
+        seconds = time.perf_counter() - t0
+        per_step[mode] = {k: v / (MD_BOX_STEPS + 1)
+                          for k, v in rg.LAUNCHES.items() if v}
+        z = system.numbers[None]
+        p, c = system.positions[None], system.cell[None]
+        rebuild_ms = []
+        for _ in range(3):
+            t = time.perf_counter()
+            if mode == 'newton3c':
+                driver.host_staircase_nlist(model, z, p, c, 1.0, dict(plan))
+            else:
+                driver.host_symmetric_nlist(model, z, p, c, skin=1.0)
+            torch.cuda.synchronize()
+            rebuild_ms.append(1e3 * (time.perf_counter() - t))
+        prof = device_busy(torch, lambda: driver.run_langevin_on_device(
+            model, None, system, n_steps=MD_BOX_EVERY, log_every=1, **kw))
+        rate, where = syncs_per_step(torch, md_step_fn(
+            torch, model, *held_list(torch, model, system.numbers,
+                                     system.positions, system.cell)),
+            steps=5)
+        md_emit('md_box', mode=mode, atoms=MD_BOX_ATOMS, k_max=MD_BOX_K_MAX,
+             steps=MD_BOX_STEPS, nlist_every=MD_BOX_EVERY, seconds=seconds,
+             steps_per_s=MD_BOX_STEPS / seconds,
+             host_rebuild_ms_median=statistics.median(rebuild_ms),
+             chunk_profile=dict(steps=MD_BOX_EVERY, **prof),
+             k9_k12_launches_per_step=per_step[mode],
+             syncs_per_step=rate, syncs_where=where,
+             counters=[log['nlist_overflow'], log['skin_violations']])
+        check(np.isfinite(log['epot']).all()
+              and np.isfinite(system.positions).all(), f'15d {mode} finite')
+        check(log['nlist_overflow'] == 0 and log['skin_violations'] == 0,
+              f'15d {mode}: counters')
+        check(per_step[mode].get('row_gather', 0) > 0
+              and per_step[mode].get('row_gather_b1', 0) > 0,
+              f'15d {mode}: K9/K12 not launched')
+        del model
+        torch.cuda.empty_cache()
+    return per_step
+
+
+def phase_md(torch, fd, fk, rg, xcfg):
+    """Phase 15 (15a-15d) with its own wall time. 15a runs in a process of
+    its own (md_aspirin_main) beside 15b and 15c: its 6000 steps wait on
+    the host's launches far more than on the card, so the two overlap;
+    15d's timings run alone after both. -> {path: launches per step}."""
+    import tempfile
+    t15 = time.perf_counter()
+    out, err = tempfile.TemporaryFile('w+'), tempfile.TemporaryFile('w+')
+    child = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              'md-aspirin'], cwd=ROOT, stdout=out,
+                             stderr=err, text=True)
+    marks = {}
+    try:
+        launches = {'nhc_dense_aspirin': phase_md_pallas(torch, fd)}
+        marks['15b'] = time.perf_counter()
+        launches.update({f'lj_{k}': v
+                         for k, v in phase_md_lj(torch, fk, rg).items()})
+        marks['15c'] = time.perf_counter()
+        child.wait(timeout=900)
+        marks['15a'] = time.perf_counter()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    out.seek(0)
+    err.seek(0)
+    sys.stdout.write(out.read())
+    sys.stdout.flush()
+    check(child.returncode == 0, f'15a failed: {err.read()[-3000:]}')
+    launches.update({f'box_{k}': v
+                     for k, v in phase_md_box(torch, rg, xcfg).items()})
+    torch.cuda.empty_cache()
+    marks['15d'] = time.perf_counter()
+    ends = {k: v - t15 for k, v in marks.items()}
+    md_emit('md_phase', seconds=time.perf_counter() - t15,
+         seconds_at_end_of=ends, launches_per_step=launches)
+    return launches
+
+
+def md_aspirin_main():
+    """`python3 chip_smoke.py md-aspirin`: phase 15a alone (phase_md runs it
+    so, beside 15b and 15c)."""
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_md_aspirin(torch)
+    return 0
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6420,6 +7031,10 @@ def main():
     phase_ensemble(torch)
     torch.cuda.empty_cache()
     emit('hessian_phase', seconds=time.perf_counter() - t14)
+    # 15. MD: the aspirin record, NHC over K1/K2, the LJ liquid in three
+    # layouts (K9/K12, the staircase, K5/K6), the large box's half lists
+    md_launches = phase_md(torch, fd, fk, rg,
+                           load_model(XLA_CKPT).config_dict())
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -6623,6 +7238,14 @@ def main():
                     torch, rg, folded_shape,
                     row['hessian_folded_launches'])
 
+    # launches per MD step (phase 15) of K1/K2, K5/K6 and K9/K12
+    for row in rows:
+        name = {'exp_row_gather': 'row_gather_b1'}.get(row['name'],
+                                                       row['name'])
+        md = {path: n[name] for path, n in md_launches.items() if name in n}
+        if md:
+            row['md_launches_per_step'] = md
+
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -6633,7 +7256,8 @@ def main():
 
 if __name__ == '__main__':
     try:
-        sys.exit(main())
+        sys.exit(md_aspirin_main() if sys.argv[1:] == ['md-aspirin']
+                 else main())
     except PhaseFailed as exc:
         print(f'chip_smoke: FAILED: {exc}', file=sys.stderr, flush=True)
         sys.exit(1)

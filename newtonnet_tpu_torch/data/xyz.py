@@ -3,7 +3,8 @@
 optional `Lattice="..."`, `stress=`/`virial=`): `read_extxyz` in Python,
 and `parse_extxyz` through the C++ parser of csrc/host/extxyz.cpp (built
 by g++ at first use; a failed build raises), which reads no stress= or
-virial= fields.'''
+virial= fields. `write_extxyz` writes the JAX package's bytes (MD
+trajectories), and `ATOMIC_MASSES` are the masses the MD module uses.'''
 import os
 import re
 
@@ -22,6 +23,27 @@ CHEMICAL_SYMBOLS = [
     'Mt', 'Ds', 'Rg', 'Cn', 'Nh', 'Fl', 'Mc', 'Lv', 'Ts', 'Og',
 ]
 SYMBOL_TO_Z = {s: i for i, s in enumerate(CHEMICAL_SYMBOLS)}
+
+# atomic masses (amu), IUPAC 2016 abridged -- used by the MD module
+ATOMIC_MASSES = np.array([
+    0.0, 1.008, 4.002602, 6.94, 9.0121831, 10.81, 12.011, 14.007, 15.999,
+    18.998403163, 20.1797, 22.98976928, 24.305, 26.9815385, 28.085,
+    30.973761998, 32.06, 35.45, 39.948, 39.0983, 40.078, 44.955908,
+    47.867, 50.9415, 51.9961, 54.938044, 55.845, 58.933194, 58.6934,
+    63.546, 65.38, 69.723, 72.63, 74.921595, 78.971, 79.904, 83.798,
+    85.4678, 87.62, 88.90584, 91.224, 92.90637, 95.95, 97.90721, 101.07,
+    102.9055, 106.42, 107.8682, 112.414, 114.818, 118.71, 121.76, 127.6,
+    126.90447, 131.293, 132.90545196, 137.327, 138.90547, 140.116,
+    140.90766, 144.242, 144.91276, 150.36, 151.964, 157.25, 158.92535,
+    162.5, 164.93033, 167.259, 168.93422, 173.054, 174.9668, 178.49,
+    180.94788, 183.84, 186.207, 190.23, 192.217, 195.084, 196.966569,
+    200.592, 204.38, 207.2, 208.9804, 208.98243, 209.98715, 222.01758,
+    223.01974, 226.02541, 227.02775, 232.0377, 231.03588, 238.02891,
+    237.04817, 244.06421, 243.06138, 247.07035, 247.07031, 251.07959,
+    252.083, 257.09511, 258.09843, 259.101, 262.11, 267.122, 268.126,
+    271.134, 270.133, 269.1338, 278.156, 281.165, 281.166, 285.177,
+    286.182, 289.19, 289.194, 293.204, 293.208, 294.214,
+])
 
 _KEY_VALUE_RE = re.compile(
     r'''([A-Za-z_][A-Za-z0-9_/-]*)=(?:"([^"]*)"|(\S+))''')
@@ -138,6 +160,40 @@ def read_extxyz(path):
                                 energy=energy, forces=forces, stress=stress,
                                 virial=virial, info=info, arrays=columns))
     return frames
+
+
+def write_extxyz(path, frames, mode='w'):
+    '''Write a Frame or a list of them to an extxyz file (mode 'w' or
+    'a'), in the JAX package's format, byte for byte.'''
+    if isinstance(frames, Frame):
+        frames = [frames]
+    with open(path, mode) as f:
+        for fr in frames:
+            parts = []
+            if fr.cell.any():
+                lat = ' '.join(f'{x:.10f}' for x in fr.cell.ravel())
+                parts.append(f'Lattice="{lat}"')
+            prop = 'species:S:1:pos:R:3'
+            if fr.forces is not None:
+                prop += ':forces:R:3'
+            parts.append(f'Properties={prop}')
+            if fr.energy is not None:
+                parts.append(f'energy={fr.energy!r}')
+            for key in ('stress', 'virial'):
+                value = getattr(fr, key)
+                if value is not None:
+                    s = ' '.join(f'{x:.10g}' for x in value.ravel())
+                    parts.append(f'{key}="{s}"')
+            pbc = ' '.join('T' if b else 'F' for b in fr.pbc)
+            parts.append(f'pbc="{pbc}"')
+            f.write(f'{len(fr)}\n{" ".join(parts)}\n')
+            for i in range(len(fr)):
+                sym = CHEMICAL_SYMBOLS[fr.numbers[i]]
+                row = f'{sym:3s} ' + ' '.join(
+                    f'{x:16.8f}' for x in fr.positions[i])
+                if fr.forces is not None:
+                    row += ' ' + ' '.join(f'{x:16.8f}' for x in fr.forces[i])
+                f.write(row + '\n')
 
 
 def _extxyz_lib():

@@ -18,6 +18,7 @@ every derivative order (the standard training step's reverse over
 reverse, fastgrad's reverse over forward) differentiates on through them.
 Float32 and float64 inputs keep the library functions.
 '''
+import functools
 import math
 from typing import Callable, NamedTuple
 
@@ -27,10 +28,16 @@ import torch.nn.functional as F
 _LOG2 = math.log(2.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _const(value, dtype, device):
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
 def _c(x, value):
     '''A constant in x's dtype (a JAX weak-typed constant: rounded to the
-    dtype before it meets x).'''
-    return torch.tensor(value, dtype=x.dtype, device=x.device)
+    dtype before it meets x), made once per dtype and device: a fresh one
+    on the card would be a host-to-device copy, a host sync, per call.'''
+    return _const(value, x.dtype, x.device)
 
 
 def _logistic(x):

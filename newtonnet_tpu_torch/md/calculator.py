@@ -152,18 +152,16 @@ class NewtonNetCalculator:
     def calculate(self, system=None, numbers=None, positions=None,
                   cell=None):
         '''Run the model on one system: numbers (n,), positions (n, 3),
-        optional cell (3, 3); the JAX package's signature, whose first
-        argument is an MD system object (not ported: pass None or use the
-        keywords). Returns numpy results keyed by property: energy
-        (float), forces (n, 3), stress (Voigt-6 xx yy zz yz xz xy),
-        virial (3, 3), charges (n,), bec (n, 3, 3), hessian (n, 3, n,
-        3); an ensemble's mean. Matrix products run
-        in IEEE fp32 (fp32_matmuls), the caller's TF32 flags restored
-        afterwards.'''
+        optional cell (3, 3), or a System (md/system.py) as the first
+        argument, which supplies all three; the JAX package's signature.
+        Returns numpy results keyed by property: energy (float), forces
+        (n, 3), stress (Voigt-6 xx yy zz yz xz xy), virial (3, 3), charges
+        (n,), bec (n, 3, 3), hessian (n, 3, n, 3); an ensemble's mean.
+        Matrix products run in IEEE fp32 (fp32_matmuls), the caller's TF32
+        flags restored afterwards.'''
         if system is not None:
-            raise NotImplementedError(
-                'calculate(system=...) is not ported yet: md/system.py '
-                '(ROADMAP.md A, "MD"); pass numbers, positions and cell')
+            numbers, positions, cell = (system.numbers, system.positions,
+                                        system.cell)
         with fp32_matmuls():
             return self._calculate(numbers, positions, cell)
 

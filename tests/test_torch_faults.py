@@ -207,8 +207,9 @@ def test_calculate_gives_the_same_bits_with_tf32_on_cuda():
 def test_calculate_takes_the_jax_calculators_positional_arguments():
     '''calculate(None, numbers, positions, cell) means what it means in the
     JAX package: the same numbers as the keyword call, and the JAX
-    calculator's at the parity bar (atol 2e-4); a system object as the
-    first argument is refused until md/system.py is ported.'''
+    calculator's at the parity bar (atol 2e-4); a System as the first
+    argument (md/system.py, ROADMAP.md A, "MD", ported) supplies numbers,
+    positions and cell: the keyword call's numbers, bit for bit.'''
     from newtonnet_tpu.md.calculator import NewtonNetCalculator as JaxCalc
     numbers, positions = _aspirin_request()
     calc = NewtonNetCalculator(XLA_CKPT, device='cpu')
@@ -219,8 +220,10 @@ def test_calculate_takes_the_jax_calculators_positional_arguments():
     want = JaxCalc(XLA_CKPT).calculate(None, numbers, positions, None)
     assert got['energy'] == pytest.approx(want['energy'], abs=2e-4)
     np.testing.assert_allclose(got['forces'], want['forces'], atol=2e-4)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md A, "MD"'):
-        calc.calculate(object())
+    from newtonnet_tpu_torch.md import System
+    by_system = calc.calculate(System(numbers, positions))
+    assert by_system['energy'] == kw['energy']
+    assert np.array_equal(by_system['forces'], kw['forces'])
 
 
 def _settings(tmp_path, train_root):

@@ -28,8 +28,13 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.data.units
         import newtonnet_tpu_torch.data.xyz
         import newtonnet_tpu_torch.layers.activations
+        import newtonnet_tpu_torch.md
         import newtonnet_tpu_torch.md.calculator
         import newtonnet_tpu_torch.md.driver
+        import newtonnet_tpu_torch.md.integrators
+        import newtonnet_tpu_torch.md.optimize
+        import newtonnet_tpu_torch.md.simulate
+        import newtonnet_tpu_torch.md.system
         import newtonnet_tpu_torch.models.fused_klist
         import newtonnet_tpu_torch.models.fused_stack
         import newtonnet_tpu_torch.models.xla_stack
@@ -97,6 +102,9 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     from newtonnet_tpu_torch.train.cli import train_from_settings
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_from_settings({'general': {'device': 'cuda'}, 'training': {}})
+    from newtonnet_tpu_torch.md.simulate import main as simulate
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate(['--steps', '1', '--on-device'])
 
 
 @pytest.mark.parametrize('kw, item', [
@@ -107,6 +115,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
     ({'kernel': 'xla', 'output_properties': ['energy', 'hessian']},
      'Hessian'),
     ({'calculator_properties': ['energy', 'hessian']}, 'Hessian'),
+    ({'md_system': True}, 'MD'),
 ])
 def test_unported_configurations_name_their_roadmap_item(kw, item):
     '''Each configuration the port does not have yet raises, naming its
@@ -117,7 +126,8 @@ def test_unported_configurations_name_their_roadmap_item(kw, item):
     "Hessian" are ported (ROADMAP.md A6 and A8): a direct-force or a
     Hessian head in a model, and the Hessian asked of the calculator, now
     build and give their outputs, and raise NotImplementedError no
-    more.'''
+    more; so does the item "MD" (ROADMAP.md A9): the calculator takes a
+    System, and the on-device driver runs it.'''
     from newtonnet_tpu_torch import NewtonNet
     small = dict(device='cpu', n_features=8, n_basis=4, n_interactions=1)
     z = torch.tensor([[1, 6, 8, 1]])
@@ -136,6 +146,26 @@ def test_unported_configurations_name_their_roadmap_item(kw, item):
         out = calc.calculate(numbers=z[0].numpy(), positions=pos[0].numpy())
         assert out['hessian'].shape == (4, 3, 4, 3)
         assert np.isfinite(out['hessian']).all()
+        return
+    if kw.get('md_system'):
+        from newtonnet_tpu_torch import NewtonNetCalculator
+        from newtonnet_tpu_torch.md import System
+        from newtonnet_tpu_torch.md.driver import run_langevin_on_device
+        from newtonnet_tpu_torch.utils.params import params_to_flax
+        model = NewtonNet(**small,
+                          output_properties=['energy', 'gradient_force'])
+        calc = NewtonNetCalculator(model=model,
+                                   params=params_to_flax(model.core),
+                                   properties=['energy', 'forces'],
+                                   device='cpu')
+        system = System(z[0].numpy(), pos[0].numpy())
+        out = calc.calculate(system)
+        assert out['forces'].shape == (4, 3)
+        system, log = run_langevin_on_device(
+            model, None, system, timestep=0.1, temperature_K=300.0,
+            friction=0.01, n_steps=4, log_every=2)
+        assert log['epot'].shape == (2,)
+        assert np.isfinite(system.positions).all()
         return
     if kw.get('pallas_dot_dtype') == 'bfloat16':
         from newtonnet_tpu_torch.train.trainer import Trainer
