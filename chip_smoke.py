@@ -386,13 +386,28 @@ with a non-zero exit code and no result line):
                over newton3 and staircase half lists: steps/s, host
                rebuild ms, the device's busy share over one chunk, K9/K12
                launches and host syncs per step, both counters 0.
+16. export  serving artifacts (utils/export.py) captured on the card and
+            replayed in a fresh process (`chip_smoke.py replay`) that
+            imports no model module: a. the aspirin pallas checkpoint
+            dense (batch 100 and 1; K1/K2), b. over K-lists (K5/K6), both
+            within phase 4's MAE bars and E_ATOL / F_ATOL of the eager
+            batches, launches per call equal to the eager batch's; c. the
+            XLA checkpoint as a newton3 model and the LJ newton3
+            checkpoint through the plain list (K9/K12), periodic requests
+            against the eager newton3 calculator at 1e-5 / 1e-4, no host
+            sync per call; d. the aspirin Hessian over the plain list
+            against the eager calculator's and JAX's at 14a's bar; a JAX
+            artifact and a request past n_pad refused; request latency
+            beside the eager path's. `python3 chip_smoke.py export` runs
+            it alone.
 
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
 9b/9c launches, K1-K4's phase 12 launches, K9/K12's phase 13 and 14
 launches and K9 at phase 14's folded Hessian shape; K1/K2, K5/K6 and
-K9/K12 with their launches per MD step of phase 15; the bf16 rows of
-K1/K2 and K5-K8) and, last, {"ok": true, "device": {...}}.
+K9/K12 with their launches per MD step of phase 15 and per replayed
+call of phase 16; the bf16 rows of K1/K2 and K5-K8) and, last,
+{"ok": true, "device": {...}}.
 '''
 import functools
 import json
@@ -6648,6 +6663,471 @@ def phase_md(torch, fd, fk, rg, xcfg):
     return launches
 
 
+# --------------------------------------------------------------------- #
+# 16. export: artifacts captured here, replayed in a fresh process
+EXPORT_BATCH = 100
+EXPORT_REQUESTS = 20
+# the XLA checkpoint's newton3 variant (half-list capacity: aspirin's 21
+# atoms have at most 20 neighbours in range) and its plain-list variant
+EXPORT_N3_K_MAX = 24
+EXPORT_PLAIN_K_MAX = 48
+EXPORT_BOX = 30.0  # the periodic cell of 16c's aspirin requests (A)
+# 16c: the float32 bars of phase 8's newton3 requests (against_fp32_box): 1e-5
+# of the energy, 1e-4 of the largest force (and stress component)
+EXPORT_E_REL, EXPORT_F_REL = 1e-5, 1e-4
+REPLAY_TIMEOUT = 300
+
+
+def pad_atoms(np, arrays, n_pad):
+    """z (..., N) and pos (..., N, 3) zero-padded to n_pad atoms."""
+    z, pos = arrays
+    extra = n_pad - z.shape[-1]
+    zp = np.pad(z, [(0, 0)] * (z.ndim - 1) + [(0, extra)])
+    pp = np.pad(pos, [(0, 0)] * (pos.ndim - 2) + [(0, extra), (0, 0)])
+    return zp, pp
+
+
+def export_to(path, model, **kw):
+    """export_inference + save_serving_artifact of `model` (its own
+    weights) -> what the header says and the export's time and size."""
+    from newtonnet_tpu_torch.utils.export import export_inference, \
+        save_serving_artifact
+    t = time.perf_counter()
+    header, blob = export_inference(model, None, **kw)
+    save_serving_artifact(path, header, blob)
+    return {'export_s': time.perf_counter() - t,
+            'bytes': os.path.getsize(path), 'n_pad': header['n_pad'],
+            'batch': header['batch_size'],
+            'properties': header['properties']}
+
+
+def replay_main(plan_path):
+    """`python3 chip_smoke.py replay PLAN`: the fresh process of phase 16.
+    Imports the port's export module and op modules only, replays each
+    job's artifact on its inputs (one warm-up call, then one call per
+    input batch, timed to a synchronize), counts the kernels' launches per
+    call and the host syncs per call over three (syncs_per_step),
+    times single-system requests through ServedModel.__call__, checks the
+    refusal of a request with more atoms than the artifact holds, and
+    writes the outputs and a report."""
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    from newtonnet_tpu_torch.ops import row_gather as rg
+    from newtonnet_tpu_torch.utils.export import ServedModel
+    # a caller's TF32 setting, which the replay must not take
+    torch.backends.cuda.matmul.allow_tf32 = True
+    with open(plan_path) as f:
+        plan = json.load(f)
+    report = {}
+    for job in plan['jobs']:
+        t = time.perf_counter()
+        served = ServedModel(job['artifact'])
+        load_s = time.perf_counter() - t
+        with np.load(job['inputs']) as f:
+            z, pos, cell = (torch.from_numpy(f[k]).cuda()
+                            for k in ('z', 'pos', 'cell'))
+        t = time.perf_counter()
+        served.call_raw(z[0], pos[0], cell[0])
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        for mod in (fd, fk, rg):
+            mod.reset_launch_counts()
+        outs, call_s = [], []
+        for c in range(z.shape[0]):
+            t = time.perf_counter()
+            out = served.call_raw(z[c], pos[c], cell[c])
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t)
+            outs.append({k: v.cpu().numpy() for k, v in out.items()})
+        launches = {k: v / z.shape[0] for mod in (fd, fk, rg)
+                    for k, v in mod.LAUNCHES.items() if v}
+        syncs, sync_at = syncs_per_step(
+            torch, lambda: served.call_raw(z[0], pos[0], cell[0]), steps=3)
+        request_s = []
+        if job.get('requests'):
+            with np.load(job['requests']) as f:
+                reqs = {k: f[k] for k in f.files}
+            for k in range(len(reqs['numbers'])):
+                t = time.perf_counter()
+                served(reqs['numbers'][k], reqs['positions'][k])
+                request_s.append(time.perf_counter() - t)
+        try:
+            served(np.ones(served.n_pad + 1, np.int64),
+                   np.zeros((served.n_pad + 1, 3), np.float32))
+            too_many = 'served'
+        except ValueError as exc:
+            too_many = str(exc)
+        np.savez(job['out'], **{k: np.stack([o[k] for o in outs])
+                                for k in served.properties})
+        report[job['name']] = {
+            'load_s': load_s, 'first_call_s': first_s,
+            'call_ms': [1e3 * s for s in call_s],
+            'launches_per_call': launches, 'syncs_per_call': syncs,
+            'sync_at': sync_at, 'request_ms': [1e3 * s for s in request_s],
+            'too_many_atoms': too_many}
+    report['modules'] = sorted(
+        m for m in sys.modules
+        if m.startswith('newtonnet_tpu_torch.models')
+        or m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'newtonnet_tpu'))
+    report['matmul_allow_tf32_after'] = \
+        torch.backends.cuda.matmul.allow_tf32
+    with open(plan['report'], 'w') as f:
+        json.dump(report, f)
+    return 0
+
+
+def replay(jobs, tmp):
+    """Run replay_main in a fresh process over `jobs` -> its report."""
+    plan = os.path.join(tmp, 'plan.json')
+    report = os.path.join(tmp, 'report.json')
+    with open(plan, 'w') as f:
+        json.dump({'jobs': jobs, 'report': report}, f)
+    t = time.perf_counter()
+    out = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          'replay', plan], capture_output=True, text=True,
+                         timeout=REPLAY_TIMEOUT)
+    check(out.returncode == 0, f'16: the replay process failed:\n'
+          f'{out.stdout[-3000:]}\n{out.stderr[-3000:]}')
+    with open(report) as f:
+        rep = json.load(f)
+    rep['process_s'] = time.perf_counter() - t
+    return rep
+
+
+def max_diff(np, a, b):
+    return float(np.abs(np.asarray(a, np.float64)
+                        - np.asarray(b, np.float64)).max())
+
+
+def phase_export(torch, fd, fk, rg, batches, samples, to_dev):
+    """Phase 16: serving artifacts (utils/export.py) captured here and
+    replayed in a fresh process (replay_main) that imports no model
+    module.
+    a. the aspirin kernel='pallas' checkpoint dense at n_atoms 21 (n_pad
+       24), batch 100, energy and forces: the 500 test frames within phase
+       4's MAE bars, against the eager batches (21 atoms) at E_ATOL /
+       F_ATOL, K1/K2 launches per call equal to the eager batch's; and at
+       batch 1, 20 requests timed beside the eager calculator's;
+    b. the same checkpoint over K-lists (K5/K6) at the same bars;
+    c. the kernel='xla' checkpoint as a newton3 model and the LJ newton3
+       checkpoint, exported through the plain list (K9/K12), periodic
+       requests against the eager newton3 calculator at 1e-5 of the
+       energy and 1e-4 of the largest force and stress component; no host
+       sync in a replayed call;
+    d. the XLA checkpoint's Hessian over the plain list (4 frames) against
+       the eager calculator's and the JAX package's at phase 14a's bar,
+       K9 launches counted;
+    refusals: a JAX package artifact, a request with more atoms than the
+    artifact holds. -> K1/K2, K5/K6, K9/K12 launches per replayed call."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator, load_model
+    from newtonnet_tpu_torch.utils.export import JAX_FORMAT, ServedModel
+    t16 = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    jobs, exports = [], {}
+
+    def add_job(name, model, inputs, requests=None, **kw):
+        path = os.path.join(tmp, f'{name}.npz')
+        exports[name] = export_to(path, model, **kw)
+        np.savez(os.path.join(tmp, f'{name}_in.npz'), **inputs)
+        job = {'name': name, 'artifact': path,
+               'inputs': os.path.join(tmp, f'{name}_in.npz'),
+               'out': os.path.join(tmp, f'{name}_out.npz')}
+        if requests is not None:
+            job['requests'] = os.path.join(tmp, f'{name}_req.npz')
+            np.savez(job['requests'], **requests)
+        jobs.append(job)
+
+    # 16a. + 16b. the pallas checkpoint, dense and over K-lists
+    base = load_model(CKPT)
+    kl = klist_model(torch, base)
+    n_pad = 24
+    zs, ps = pad_atoms(np, (np.stack([b['z'] for b in batches]),
+                            np.stack([b['pos'] for b in batches])), n_pad)
+    asp_in = {'z': zs.astype(np.int64), 'pos': ps,
+              'cell': np.stack([b['cell'] for b in batches])}
+    add_job('dense', base, asp_in, n_atoms=21, batch_size=EXPORT_BATCH)
+    add_job('klist', kl, asp_in, n_atoms=21, batch_size=EXPORT_BATCH)
+    reqs = samples[:EXPORT_REQUESTS]
+    z1, p1 = pad_atoms(np, (np.stack([s['z'] for s in reqs]),
+                            np.stack([s['pos'] for s in reqs])), n_pad)
+    add_job('dense_b1', base, {'z': z1[:, None].astype(np.int64),
+                               'pos': p1[:, None].astype(np.float32),
+                               'cell': np.zeros((len(reqs), 1, 3, 3),
+                                                np.float32)},
+            requests={'numbers': np.stack([s['z'] for s in reqs]),
+                      'positions': np.stack([s['pos'] for s in reqs])},
+            n_atoms=21, batch_size=1)
+    eager = {}
+    for name, model, mod in (('dense', base, fd), ('klist', kl, fk)):
+        model(*to_dev(batches[0]))
+        torch.cuda.synchronize()
+        mod.reset_launch_counts()
+        outs, batch_s = [], []
+        for b in batches:
+            t = time.perf_counter()
+            out = model(*to_dev(b))
+            outs.append((out['energy'].cpu().numpy(),
+                         out['gradient_force'].cpu().numpy()))
+            batch_s.append(time.perf_counter() - t)
+        eager[name] = (outs, batch_s, {k: v / len(batches) for k, v in
+                                       mod.LAUNCHES.items() if v})
+    calc = NewtonNetCalculator(CKPT)
+    calc.calculate(numbers=reqs[0]['z'], positions=reqs[0]['pos'])
+    calc_s = []
+    for s in reqs:
+        t = time.perf_counter()
+        calc.calculate(numbers=s['z'], positions=s['pos'])
+        calc_s.append(time.perf_counter() - t)
+    del calc
+
+    # 16c. the XLA checkpoint (newton3 variant) and the LJ checkpoint over
+    # the plain list; periodic requests
+    outs3 = ['energy', 'gradient_force', 'stress']
+    xbase = load_model(XLA_CKPT)
+    n3 = xla_model(torch, xbase, graph_mode='neighborlist', newton3=True,
+                   k_max=EXPORT_N3_K_MAX, output_properties=outs3)
+    hreq = samples[:HESSIAN_FRAMES]
+    zc, pc = pad_atoms(np, (np.stack([s['z'] for s in hreq]),
+                            np.stack([s['pos'] for s in hreq])), n_pad)
+    box = EXPORT_BOX * np.eye(3, dtype=np.float32)
+    add_job('xla_newton3', n3, {
+        'z': zc[:, None].astype(np.int64), 'pos': pc[:, None],
+        'cell': np.broadcast_to(box, (len(hreq), 1, 3, 3)).copy()},
+        n_atoms=21, batch_size=1)
+    lj = load_model(LJ_CKPT)
+    lj3 = xla_model(torch, lj, output_properties=outs3)
+    lz, lpos, lcell, _, _ = lj_box()
+    add_job('lj_newton3', lj3, {'z': lz[:, None].astype(np.int64),
+                                'pos': lpos[:, None].astype(np.float32),
+                                'cell': lcell[:, None].astype(np.float32)},
+            n_atoms=lz.shape[1], batch_size=1)
+    # 16d. the Hessian over the plain list
+    hm = xla_model(torch, xbase, graph_mode='neighborlist',
+                   k_max=EXPORT_PLAIN_K_MAX, hessian_block=0,
+                   output_properties=['energy', 'gradient_force',
+                                      'hessian'])
+    add_job('hessian', hm, {'z': zc[None].astype(np.int64),
+                            'pos': pc[None],
+                            'cell': np.zeros((1, len(hreq), 3, 3),
+                                             np.float32)},
+            n_atoms=21, batch_size=len(hreq))
+    export_s = time.perf_counter() - t16
+    del hm, n3, lj3
+    torch.cuda.empty_cache()
+
+    rep = replay(jobs, tmp)
+
+    def result(name):
+        with np.load(os.path.join(tmp, f'{name}_out.npz')) as f:
+            return {k: f[k] for k in f.files}
+
+    fields = {}
+    for name in ('dense', 'klist'):
+        got = result(name)
+        outs, batch_s, eager_launches = eager[name]
+        e_rep, f_rep = got['energy'], got['gradient_force'][:, :, :21]
+        ae = sum(np.abs(e_rep[c] - b['energy']).astype(np.float64).sum()
+                 for c, b in enumerate(batches))
+        af = sum(np.abs(f_rep[c] - b['force']).astype(np.float64).sum()
+                 for c, b in enumerate(batches))
+        e_mae, f_mae = ae / 500, af / (500 * 21 * 3)
+        e_diff = max(max_diff(np, e_rep[c], e) for c, (e, _) in
+                     enumerate(outs))
+        f_diff = max(max_diff(np, f_rep[c], f) for c, (_, f) in
+                     enumerate(outs))
+        r = rep[name]
+        kernel_keys = [k for k in eager_launches if k.startswith(
+            ('pair_', 'klist_'))]
+        fields[name] = dict(
+            energy_mae=e_mae, force_mae=f_mae,
+            energy_max_abs_diff_vs_eager=e_diff,
+            force_max_abs_diff_vs_eager=f_diff,
+            diffs_are_zero=e_diff == 0.0 and f_diff == 0.0,
+            replay_launches_per_call=r['launches_per_call'],
+            eager_launches_per_batch=eager_launches,
+            replay_call_ms_median=statistics.median(r['call_ms']),
+            eager_batch_ms_median=1e3 * statistics.median(batch_s),
+            syncs_per_call=r['syncs_per_call'], sync_at=r['sync_at'],
+            **exports[name])
+        check(abs(e_mae - JAX_ENERGY_MAE) <= 5e-4,
+              f'16 {name}: replayed energy MAE {e_mae}')
+        check(abs(f_mae - JAX_FORCE_MAE) <= 5e-5,
+              f'16 {name}: replayed force MAE {f_mae}')
+        check(e_diff <= E_ATOL and f_diff <= F_ATOL,
+              f'16 {name}: replay vs eager {e_diff} {f_diff}')
+        check(kernel_keys and all(
+            r['launches_per_call'].get(k) == eager_launches[k]
+            for k in kernel_keys),
+            f'16 {name}: replayed launches {r["launches_per_call"]} vs '
+            f'eager {eager_launches}')
+    r = rep['dense_b1']
+    fields['latency'] = dict(
+        card=card_name(),
+        batch_1_replay_request_ms_median=statistics.median(
+            r['request_ms']),
+        batch_1_eager_calculator_ms_median=1e3 * statistics.median(
+            calc_s),
+        batch_100_replay_call_ms_median=fields['dense'][
+            'replay_call_ms_median'],
+        batch_100_eager_ms_median=fields['dense']['eager_batch_ms_median'])
+
+    # 16c against the eager newton3 calculators
+    n3_calc = box_calculator(torch, xla_model(
+        torch, xbase, graph_mode='neighborlist', newton3=True,
+        k_max=EXPORT_N3_K_MAX, output_properties=outs3))
+    lj_calc = NewtonNetCalculator(LJ_CKPT, properties=['energy', 'forces',
+                                                       'stress'])
+    voigt = ([0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1])
+    # the eager plain list the artifacts were captured over: the fixed
+    # degree of the capture against the largest degree read on the host
+    plain = {'xla_newton3': xla_model(
+        torch, xbase, graph_mode='neighborlist', k_max=2 * EXPORT_N3_K_MAX
+        + 8, output_properties=outs3),
+        'lj_newton3': xla_model(torch, lj, newton3=False, k_max=2 * lj.k_max
+                                + 8, output_properties=outs3)}
+    plain_in = {'xla_newton3': (zc, pc, np.broadcast_to(
+        box, (len(hreq), 3, 3))), 'lj_newton3': (lz, lpos, lcell)}
+    for name, calc, frames in (
+            ('xla_newton3', n3_calc,
+             [(s['z'], s['pos'], box) for s in hreq]),
+            ('lj_newton3', lj_calc, [(lz[0], lpos[0], lcell[0])])):
+        got = result(name)
+        vs_plain = {k: 0.0 for k in outs3}
+        for c, frame in enumerate(zip(*plain_in[name])):
+            t = [torch.as_tensor(np.asarray(a)[None]).cuda()
+                 for a in frame]
+            out = plain[name](t[0].long(), t[1].float(), t[2].float())
+            for k in outs3:
+                vs_plain[k] = max(vs_plain[k], max_diff(
+                    np, got[k][c, 0], out[k][0].cpu().numpy()))
+        frame_diffs, frame_bars = [], []
+        for c, (zz, pp, cc) in enumerate(frames):
+            want = calc.calculate(numbers=zz, positions=pp, cell=cc)
+            n = len(zz)
+            diffs = {
+                'energy': abs(float(got['energy'][c, 0]) - want['energy']),
+                'forces': max_diff(np, got['gradient_force'][c, 0, :n],
+                                   want['forces']),
+                'stress': max_diff(np, got['stress'][c, 0][voigt],
+                                   want['stress'])}
+            bars = {'energy': EXPORT_E_REL * abs(want['energy']),
+                    'forces': EXPORT_F_REL * float(np.abs(
+                        want['forces']).max()),
+                    'stress': EXPORT_F_REL * float(np.abs(
+                        want['stress']).max())}
+            frame_diffs.append(diffs)
+            frame_bars.append(bars)
+            for k in diffs:
+                check(diffs[k] <= bars[k],
+                      f'16c {name} frame {c} {k}: {diffs[k]} > {bars[k]}')
+        r = rep[name]
+        fields[name] = dict(
+            diffs=frame_diffs, bars=frame_bars,
+            vs_eager_plain_list=vs_plain,
+            bitwise_vs_eager_plain_list=not any(vs_plain.values()),
+            replay_launches_per_call=r[
+                'launches_per_call'], syncs_per_call=r['syncs_per_call'],
+            replay_call_ms_median=statistics.median(r['call_ms']),
+            **exports[name])
+        check(r['launches_per_call'].get('row_gather', 0) > 0,
+              f'16c {name}: K9 was not launched in the replay')
+        check(r['launches_per_call'].get('row_gather_b1', 0) > 0,
+              f'16c {name}: K12 (B = 1) was not launched in the replay')
+        check(r['syncs_per_call'] == 0,
+              f'16c {name}: {r["syncs_per_call"]} host syncs per call')
+    del n3_calc, lj_calc, plain
+
+    # 16d against the eager calculator and the JAX package
+    ref = dict(np.load(HESSIAN_REF))
+    bar = hessian_bar(ref)
+    hcalc = NewtonNetCalculator(XLA_CKPT, properties=HESSIAN_PROPS)
+    eager_h = np.stack([hcalc.calculate(numbers=s['z'], positions=s['pos'])
+                        ['hessian'] for s in hreq])
+    del hcalc
+    got_h = result('hessian')['hessian'][0][:, :21, :, :21, :]
+    h_eager = max_diff(np, got_h, eager_h)
+    h_jax = max_diff(np, got_h, ref['JAX_ASPIRIN_HESSIAN'])
+    r = rep['hessian']
+    fields['hessian'] = dict(
+        vs_eager=(h_eager, bar), vs_jax=(h_jax, bar),
+        replay_launches_per_call=r['launches_per_call'],
+        syncs_per_call=r['syncs_per_call'],
+        replay_call_ms=r['call_ms'], **exports['hessian'])
+    check(h_eager <= bar and h_jax <= bar,
+          f'16d Hessian: {h_eager} / {h_jax} > {bar}')
+    check(r['launches_per_call'].get('row_gather', 0) > 0,
+          '16d: K9 was not launched in the Hessian replay')
+
+    # refusals: a JAX package artifact, more atoms than the artifact holds
+    jax_art = os.path.join(tmp, 'jax_format.npz')
+    np.savez(jax_art, header=np.asarray(json.dumps(
+        {'format': JAX_FORMAT, 'version': 1})),
+        blob=np.zeros(8, np.uint8))
+    try:
+        ServedModel(jax_art)
+        jax_refusal = None
+    except ValueError as exc:
+        jax_refusal = str(exc)
+    too_many = rep['dense']['too_many_atoms']
+    emit('export', seconds=time.perf_counter() - t16, export_s=export_s,
+         replay_process_s=rep['process_s'],
+         replay_load_s={j['name']: rep[j['name']]['load_s'] for j in jobs},
+         replay_first_call_s={j['name']: rep[j['name']]['first_call_s']
+                              for j in jobs},
+         replay_modules=rep['modules'],
+         replay_tf32_left_on=rep['matmul_allow_tf32_after'],
+         jax_artifact_refusal=jax_refusal, too_many_atoms=too_many,
+         **fields)
+    check(rep['modules'] == [], f'16: the replay imported {rep["modules"]}')
+    check(jax_refusal is not None and 'newtonnet-tpu-serving' in
+          jax_refusal and 'newtonnet-tpu-torch-serving' in jax_refusal,
+          f'16: a JAX artifact was not refused by name: {jax_refusal}')
+    check('exported capacity' in too_many,
+          f'16: a request with too many atoms: {too_many}')
+    tmp_dir.cleanup()
+    return {name: rep[name]['launches_per_call']
+            for name in ('dense', 'klist', 'dense_b1', 'xla_newton3',
+                         'lj_newton3', 'hessian')}
+
+
+def export_main():
+    """`python3 chip_smoke.py export`: phase 16 alone (the build of its
+    libraries, the aspirin frames, the phase)."""
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import numpy as np  # noqa: F401
+    from newtonnet_tpu_torch.data.loader import collate, parse_xyz
+    from newtonnet_tpu_torch.ops import _build
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    from newtonnet_tpu_torch.ops import row_gather as rg
+    emit('env', device=torch.cuda.get_device_name(0), nvidia_smi=card_name(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+    t = time.perf_counter()
+    _build.build_all(names=('fused_dense', 'fused_klist', 'row_gather'),
+                     widths=(128,))
+    emit('build', seconds=time.perf_counter() - t)
+    samples = parse_xyz(XYZ)
+    batches = [collate(samples[k:k + 100], n_pad=21)
+               for k in range(0, 500, 100)]
+
+    def to_dev(b):
+        return [torch.from_numpy(b[k]).cuda() for k in ('z', 'pos', 'cell')]
+    emit('export_launches', **phase_export(torch, fd, fk, rg, batches,
+                                           samples, to_dev))
+    return 0
+
+
 def md_aspirin_main():
     """`python3 chip_smoke.py md-aspirin`: phase 15a alone (phase_md runs it
     so, beside 15b and 15c)."""
@@ -7035,6 +7515,10 @@ def main():
     # layouts (K9/K12, the staircase, K5/K6), the large box's half lists
     md_launches = phase_md(torch, fd, fk, rg,
                            load_model(XLA_CKPT).config_dict())
+    # 16. export: serving artifacts replayed in a fresh process (K1/K2,
+    # K5/K6, K9/K12 as custom ops in the captured programs)
+    export_launches = phase_export(torch, fd, fk, rg, batches, samples,
+                                   to_dev)
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -7245,6 +7729,11 @@ def main():
         md = {path: n[name] for path, n in md_launches.items() if name in n}
         if md:
             row['md_launches_per_step'] = md
+        # launches per replayed call of each phase 16 artifact
+        replayed = {what: n[name] for what, n in export_launches.items()
+                    if name in n}
+        if replayed:
+            row['export_launches_per_call'] = replayed
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
@@ -7256,8 +7745,11 @@ def main():
 
 if __name__ == '__main__':
     try:
-        sys.exit(md_aspirin_main() if sys.argv[1:] == ['md-aspirin']
-                 else main())
+        modes = {'md-aspirin': md_aspirin_main, 'export': export_main}
+        if sys.argv[1:2] == ['replay']:
+            sys.exit(replay_main(sys.argv[2]))
+        sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and
+                 sys.argv[1] in modes else main())
     except PhaseFailed as exc:
         print(f'chip_smoke: FAILED: {exc}', file=sys.stderr, flush=True)
         sys.exit(1)

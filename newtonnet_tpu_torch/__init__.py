@@ -11,12 +11,24 @@ the windowed gather ops are csrc/window.cu). The kernels are built with
 nvcc at first use. It imports torch and numpy only: no JAX and nothing of
 newtonnet_tpu.
 
-Entry points run on CUDA unless the caller passes device='cpu'.
+Entry points run on CUDA unless the caller passes device='cpu'. A model
+exported by utils/export.py replays through ServedModel with the op
+modules alone.
 '''
-from newtonnet_tpu_torch.md.calculator import NewtonNetCalculator
-from newtonnet_tpu_torch.models.output import NewtonNet
-from newtonnet_tpu_torch.train.trainer import Trainer
-from newtonnet_tpu_torch.utils.checkpoint import load_model, save_model
+# the entry points import at first use, so that importing a module of the
+# package (utils/export's ServedModel, an op module) loads no model code
+_LAZY = {'NewtonNet': 'newtonnet_tpu_torch.models.output',
+         'NewtonNetCalculator': 'newtonnet_tpu_torch.md.calculator',
+         'Trainer': 'newtonnet_tpu_torch.train.trainer',
+         'load_model': 'newtonnet_tpu_torch.utils.checkpoint',
+         'save_model': 'newtonnet_tpu_torch.utils.checkpoint'}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
 def main(argv=None):

@@ -48,13 +48,25 @@ def _round_up(x, m=8):
     return max(m, ((x + m - 1) // m) * m)
 
 
+def _load_one(path, device):
+    '''A member's model: a reference `.pt` pickle through
+    utils/torch_import, any other path as a checkpoint of the JAX
+    package's format.'''
+    if str(path).endswith('.pt'):
+        from newtonnet_tpu_torch.utils.torch_import import \
+            load_reference_model
+        return load_reference_model(path, device=device)
+    return load_model(path, device=device)
+
+
 class NewtonNetCalculator:
     '''Evaluate a trained model on one system per call.
 
     Args:
-        model_path: .msgpack checkpoint of the JAX package, or a list of
-            them (an ensemble, averaged), or pass model= and params=, as
-            the JAX calculator takes them.
+        model_path: .msgpack checkpoint of the JAX package or reference
+            .pt pickle (utils/torch_import.py), or a list of them (an
+            ensemble, averaged), or pass model= and params=, as the JAX
+            calculator takes them.
         properties: ASE-style result names (default: charges, energy
             and forces where the model has them).
         precision: 'float32' (the kernels' type) or 'float64' (CPU only).
@@ -79,7 +91,7 @@ class NewtonNetCalculator:
         if model_path is not None:
             paths = (model_path if isinstance(model_path, (list, tuple))
                      else [model_path])
-            members = [load_model(p, device=device) for p in paths]
+            members = [_load_one(p, device) for p in paths]
             model = members[0]
         elif model is None or params is None:
             raise ValueError('need model_path or (model, params)')

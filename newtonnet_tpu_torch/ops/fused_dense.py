@@ -34,6 +34,13 @@ from 1 to `_build.MAX_WIDTH`: they run at its padded width (the next
 multiple of 32, past 128 of 64; `_build.padded_width`) with zero pad
 lanes of their own, reading and writing every tensor at F, from the
 library that runs that width (`_build.load`).
+
+Each launch is a torch custom op (`newtonnet_tpu_torch::pair_fwd`,
+`pair_bwd`; torch.library): its implementation is the launch on CUDA
+tensors and the plain version on CPU ones, its fake implementation gives
+the outputs' shapes, so that torch.export records the op in a serving
+artifact (utils/export.py) and a replay of it launches the kernel. The
+wrappers check what the kernels take and call the ops.
 '''
 import ctypes
 
@@ -219,19 +226,40 @@ def _raise_on(err, what):
         raise RuntimeError(f'{what} launch failed: cudaError_t {err}')
 
 
-def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
-                         first_layer=False, dot_dtype='float32'):
-    '''The layer's forward: kernel K1 for CUDA tensors, the plain version
-    for CPU tensors. -> (inv1, eq).'''
+def _w_flat(dws):
+    """The five weight cotangents as one flat tensor (the ops' last
+    output), or an empty one without them."""
+    if dws[0] is None:
+        return torch.empty((0,))
+    return torch.cat([w.reshape(-1) for w in dws])
+
+
+def split_weight_grads(dw, F, R):
+    """(dWe, dW1a, dW1b, dW2a, dW2b) as views of the flat dw of a backward
+    op, or five None where it is empty (no weight cotangents)."""
+    if dw.numel() == 0:
+        return (None,) * 5
+    shapes = [(R, F)] + [(F, F)] * 4
+    return tuple(v.view(s) for v, s in zip(dw.split([R * F] + [F * F] * 4),
+                                           shapes))
+
+
+@torch.library.custom_op('newtonnet_tpu_torch::pair_fwd', mutates_args=())
+def _pair_fwd_op(np_: torch.Tensor, rbf: torch.Tensor, dir_: torch.Tensor,
+                 adj: torch.Tensor, force: torch.Tensor, We: torch.Tensor,
+                 W1a: torch.Tensor, W1b: torch.Tensor, W2a: torch.Tensor,
+                 W2b: torch.Tensor, first_layer: bool,
+                 dot_dtype: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 on CUDA tensors (checked by pair_interaction_fwd), the plain
+    version on CPU ones. -> (inv1, eq)."""
     ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
-    check_dot_dtype(dot_dtype)
     if np_.device.type == 'cpu':
-        return pair_interaction_fwd_ref(*ins, first_layer=first_layer,
-                                        dot_dtype=dot_dtype)
-    if np_.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {np_.device}')
-    B, N, F, R, shapes = _shapes(np_, rbf)
-    _check_cuda(list(zip(_NAMES, ins)), shapes)
+        inv1, eq = pair_interaction_fwd_ref(*ins, first_layer=first_layer,
+                                            dot_dtype=dot_dtype)
+        # contiguous, as the kernel writes them and the fake gives them
+        return inv1.contiguous(), eq.contiguous()
+    B, N, F = np_.shape
+    R = rbf.shape[-1]
     opts = dict(device=np_.device, dtype=torch.float32)
     inv1 = torch.empty((B, N, F), **opts)
     eq = torch.empty((B, 3, N, F), **opts)
@@ -250,31 +278,41 @@ def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     return inv1, eq
 
 
-def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
-                         dinv1, deq, first_layer=False, weight_grads=True,
-                         dot_dtype='float32'):
-    '''The layer's backward: kernel K2 for CUDA tensors, the plain version
-    for CPU tensors. -> (dnp, drbf, ddir, dforce, dWe, dW1a, dW1b, dW2a,
-    dW2b), weight cotangents None unless weight_grads.'''
+@_pair_fwd_op.register_fake
+def _(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b, first_layer,
+      dot_dtype):
+    B, N, F = np_.shape
+    return np_.new_empty((B, N, F)), np_.new_empty((B, 3, N, F))
+
+
+@torch.library.custom_op('newtonnet_tpu_torch::pair_bwd', mutates_args=())
+def _pair_bwd_op(np_: torch.Tensor, rbf: torch.Tensor, dir_: torch.Tensor,
+                 adj: torch.Tensor, force: torch.Tensor, We: torch.Tensor,
+                 W1a: torch.Tensor, W1b: torch.Tensor, W2a: torch.Tensor,
+                 W2b: torch.Tensor, dinv1: torch.Tensor, deq: torch.Tensor,
+                 first_layer: bool, weight_grads: bool, dot_dtype: str
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor, torch.Tensor]:
+    """K2 on CUDA tensors (checked by pair_interaction_bwd), the plain
+    version on CPU ones. -> (dnp, drbf, ddir, dforce, dw): dw the five
+    weight cotangents flat (R*F + 4*F*F,), or empty without
+    weight_grads."""
     ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
-    check_dot_dtype(dot_dtype)
     if np_.device.type == 'cpu':
-        return pair_interaction_bwd_ref(*ins, dinv1, deq,
-                                        first_layer=first_layer,
-                                        weight_grads=weight_grads,
-                                        dot_dtype=dot_dtype)
-    if np_.device.type != 'cuda':
-        raise ValueError(f'no kernel for device {np_.device}')
-    B, N, F, R, shapes = _shapes(np_, rbf)
-    _check_cuda(list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq))),
-                shapes + [(B, N, F), (B, 3, N, F)])
+        grads = pair_interaction_bwd_ref(*ins, dinv1, deq,
+                                         first_layer=first_layer,
+                                         weight_grads=weight_grads,
+                                         dot_dtype=dot_dtype)
+        return (*[g.contiguous() for g in grads[:4]],
+                _w_flat(grads[4:]).to(np_.dtype))
+    B, N, F = np_.shape
+    R = rbf.shape[-1]
     opts = dict(device=np_.device, dtype=torch.float32)
     dnp = torch.empty((B, N, F), **opts)
     drbf = torch.empty((B, N, N, R), **opts)
     ddir = torch.empty((B, 3, N, N), **opts)
     dforce = torch.empty((B, 3, N, F), **opts)
-    dw = (torch.empty((R * F + 4 * F * F,), **opts) if weight_grads
-          else None)
+    dw = torch.empty((R * F + 4 * F * F if weight_grads else 0,), **opts)
     lib = _lib(F, dot_dtype)
     # the prepared weights, the cross-block partials and, with
     # weight cotangents, one partial per block
@@ -288,13 +326,56 @@ def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
     _raise_on(err, 'nn_pair_bwd')
     key = launch_key('pair_bwd', first_layer, dot_dtype)
     LAUNCHES[key] += 1
-    if not weight_grads:
-        return dnp, drbf, ddir, dforce, None, None, None, None, None
-    WEIGHT_GRAD_LAUNCHES[key] += 1
-    sizes = [R * F] + [F * F] * 4
-    shapes_w = [(R, F)] + [(F, F)] * 4
-    return (dnp, drbf, ddir, dforce,
-            *[v.view(s) for v, s in zip(dw.split(sizes), shapes_w)])
+    if weight_grads:
+        WEIGHT_GRAD_LAUNCHES[key] += 1
+    return dnp, drbf, ddir, dforce, dw
+
+
+@_pair_bwd_op.register_fake
+def _(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b, dinv1, deq,
+      first_layer, weight_grads, dot_dtype):
+    B, N, F = np_.shape
+    R = rbf.shape[-1]
+    return (np_.new_empty((B, N, F)), np_.new_empty((B, N, N, R)),
+            np_.new_empty((B, 3, N, N)), np_.new_empty((B, 3, N, F)),
+            np_.new_empty((R * F + 4 * F * F if weight_grads else 0,)))
+
+
+def _checked_device(np_):
+    if np_.device.type not in ('cpu', 'cuda'):
+        raise ValueError(f'no kernel for device {np_.device}')
+    return np_.device.type == 'cuda'
+
+
+def pair_interaction_fwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
+                         first_layer=False, dot_dtype='float32'):
+    '''The layer's forward: kernel K1 for CUDA tensors, the plain version
+    for CPU tensors (the op newtonnet_tpu_torch::pair_fwd). -> (inv1,
+    eq).'''
+    ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
+    if _checked_device(np_):
+        _, _, _, _, shapes = _shapes(np_, rbf)
+        _check_cuda(list(zip(_NAMES, ins)), shapes)
+    return _pair_fwd_op(*ins, bool(first_layer), dot_dtype)
+
+
+def pair_interaction_bwd(np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b,
+                         dinv1, deq, first_layer=False, weight_grads=True,
+                         dot_dtype='float32'):
+    '''The layer's backward: kernel K2 for CUDA tensors, the plain version
+    for CPU tensors (the op newtonnet_tpu_torch::pair_bwd). -> (dnp, drbf,
+    ddir, dforce, dWe, dW1a, dW1b, dW2a, dW2b), weight cotangents None
+    unless weight_grads.'''
+    ins = (np_, rbf, dir_, adj, force, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
+    if _checked_device(np_):
+        B, N, F, R, shapes = _shapes(np_, rbf)
+        _check_cuda(list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq))),
+                    shapes + [(B, N, F), (B, 3, N, F)])
+    *grads, dw = _pair_bwd_op(*ins, dinv1, deq, bool(first_layer),
+                              bool(weight_grads), dot_dtype)
+    return (*grads, *split_weight_grads(dw, np_.shape[-1], rbf.shape[-1]))
 
 
 class FusedPairInteraction(torch.autograd.Function):

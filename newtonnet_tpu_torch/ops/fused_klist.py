@@ -44,6 +44,9 @@ launches the kernel or raises: nothing falls back. The
 kernels take any F from 1 to `_build.MAX_WIDTH` at its padded width
 (`_build.padded_width`) with zero pad lanes of their own: every tensor is
 read and written at F, and no edge tensor is copied to another width.
+K5 and K6 are torch custom ops (`newtonnet_tpu_torch::klist_fwd`,
+`klist_bwd`), as K1/K2 are (ops/fused_dense.py), so that a serving
+artifact records and replays them; K7/K8 train and stay ctypes calls.
 '''
 import ctypes
 
@@ -54,8 +57,10 @@ from newtonnet_tpu_torch.ops.fused_dense import (
     _dsilu,
     _raise_on,
     _silu,
+    _w_flat,
     check_dot_dtype,
     launch_key,
+    split_weight_grads,
 )
 from newtonnet_tpu_torch.ops.fused_dual import _d2silu
 
@@ -352,12 +357,6 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _split_w(dw, F, R):
-    shapes = [(R, F)] + [(F, F)] * 4
-    return [v.view(s) for v, s in zip(dw.split([R * F] + [F * F] * 4),
-                                      shapes)]
-
-
 def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -374,17 +373,21 @@ def _device(t):
     return t.device.type
 
 
-def klist_fwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
-              first_layer=False, dot_dtype='float32'):
-    '''The layer's forward: kernel K5 for CUDA tensors, the plain version
-    for CPU tensors. -> (inv1, eq).'''
+@torch.library.custom_op('newtonnet_tpu_torch::klist_fwd', mutates_args=())
+def _klist_fwd_op(npi: torch.Tensor, cat: torch.Tensor, rbf: torch.Tensor,
+                  dir_: torch.Tensor, mask: torch.Tensor, We: torch.Tensor,
+                  W1a: torch.Tensor, W1b: torch.Tensor, W2a: torch.Tensor,
+                  W2b: torch.Tensor, first_layer: bool,
+                  dot_dtype: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 on CUDA tensors (checked by klist_fwd), the plain version on CPU
+    ones. -> (inv1, eq)."""
     ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
-    check_dot_dtype(dot_dtype)
-    if _device(npi) == 'cpu':
-        return klist_fwd_ref(*ins, first_layer=first_layer,
-                             dot_dtype=dot_dtype)
-    B, N, K, F, R, bf = _checked(npi, cat, rbf,
-                                 list(zip(_NAMES, ins, _KINDS)), first_layer)
+    if npi.device.type == 'cpu':
+        inv1, eq = klist_fwd_ref(*ins, first_layer=first_layer,
+                                 dot_dtype=dot_dtype)
+        return inv1.contiguous(), eq.contiguous()
+    B, N, F = npi.shape
+    K, R = cat.shape[2], rbf.shape[-1]
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty((B, 3, N, F), **opts))
     lib = _lib(F, dot_dtype)
@@ -392,51 +395,102 @@ def klist_fwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
     # at most one block per SM, each walking atom tiles
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 0),), **opts)
     err = lib.nn_klist_fwd(*[t.data_ptr() for t in ins + outs + (scratch,)],
-                           B, N, K, F, R, int(first_layer), bf,
+                           B, N, K, F, R, int(first_layer),
+                           int(cat.dtype == torch.bfloat16),
                            _sms(npi.device), _stream(npi))
     _raise_on(err, 'nn_klist_fwd')
     LAUNCHES[launch_key('klist_fwd', first_layer, dot_dtype)] += 1
     return outs
 
 
-def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
-              first_layer=False, weight_grads=True, dot_dtype='float32'):
-    '''The layer's backward: kernel K6 for CUDA tensors, the plain version
-    for CPU tensors. -> (dnpi, dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a,
-    dW2b), weight cotangents None unless weight_grads.'''
+@_klist_fwd_op.register_fake
+def _(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, first_layer,
+      dot_dtype):
+    B, N, F = npi.shape
+    return npi.new_empty((B, N, F)), npi.new_empty((B, 3, N, F))
+
+
+@torch.library.custom_op('newtonnet_tpu_torch::klist_bwd', mutates_args=())
+def _klist_bwd_op(npi: torch.Tensor, cat: torch.Tensor, rbf: torch.Tensor,
+                  dir_: torch.Tensor, mask: torch.Tensor, We: torch.Tensor,
+                  W1a: torch.Tensor, W1b: torch.Tensor, W2a: torch.Tensor,
+                  W2b: torch.Tensor, dinv1: torch.Tensor, deq: torch.Tensor,
+                  first_layer: bool, weight_grads: bool, dot_dtype: str
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor, torch.Tensor]:
+    """K6 on CUDA tensors (checked by klist_bwd), the plain version on CPU
+    ones. -> (dnpi, dcat, drbf, ddir, dw): dw the five weight cotangents
+    flat (R*F + 4*F*F,), or empty without weight_grads."""
     ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
-    check_dot_dtype(dot_dtype)
-    if _device(npi) == 'cpu':
-        return klist_bwd_ref(*ins, dinv1, deq, first_layer=first_layer,
-                             weight_grads=weight_grads, dot_dtype=dot_dtype)
-    B, N, K, F, R, bf = _checked(
-        npi, cat, rbf, list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq),
-                                _KINDS + ('node', 'vec'))), first_layer)
+    if npi.device.type == 'cpu':
+        grads = klist_bwd_ref(*ins, dinv1, deq, first_layer=first_layer,
+                              weight_grads=weight_grads, dot_dtype=dot_dtype)
+        return (*[g.contiguous() for g in grads[:4]],
+                _w_flat(grads[4:]).to(npi.dtype))
+    B, N, F = npi.shape
+    K, R = cat.shape[2], rbf.shape[-1]
     opts = dict(device=npi.device, dtype=torch.float32)
     outs = (torch.empty((B, N, F), **opts), torch.empty_like(cat),
             torch.empty_like(rbf), torch.empty((B, 3, N, K), **opts))
-    n_w = R * F + 4 * F * F
     lib = _lib(F, dot_dtype)
     n_blocks = _n_blocks(B, N, npi.device)
     # one weight partial per block, at the kernels' padded width
     wpart = (torch.empty((lib.nn_klist_wpart_floats(n_blocks, F, R),),
                          **opts) if weight_grads else None)
-    dw = torch.empty((n_w,), **opts) if weight_grads else None
+    dw = torch.empty((R * F + 4 * F * F if weight_grads else 0,), **opts)
     # the weights prepared (tf32 (hi, lo) pairs, or bf16), once per launch
     scratch = torch.empty((lib.nn_klist_scratch_floats(F, R, 1),), **opts)
     err = lib.nn_klist_bwd(
         *[t.data_ptr() for t in ins + (dinv1, deq) + outs],
         wpart.data_ptr() if weight_grads else None,
         dw.data_ptr() if weight_grads else None, scratch.data_ptr(),
-        B, N, K, F, R, int(first_layer), int(weight_grads), bf, n_blocks,
-        _stream(npi))
+        B, N, K, F, R, int(first_layer), int(weight_grads),
+        int(cat.dtype == torch.bfloat16), n_blocks, _stream(npi))
     _raise_on(err, 'nn_klist_bwd')
     key = launch_key('klist_bwd', first_layer, dot_dtype)
     LAUNCHES[key] += 1
-    if not weight_grads:
-        return (*outs, None, None, None, None, None)
-    WEIGHT_GRAD_LAUNCHES[key] += 1
-    return (*outs, *_split_w(dw, F, R))
+    if weight_grads:
+        WEIGHT_GRAD_LAUNCHES[key] += 1
+    return (*outs, dw)
+
+
+@_klist_bwd_op.register_fake
+def _(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
+      first_layer, weight_grads, dot_dtype):
+    B, N, F = npi.shape
+    K, R = cat.shape[2], rbf.shape[-1]
+    return (npi.new_empty((B, N, F)), torch.empty_like(cat),
+            torch.empty_like(rbf), npi.new_empty((B, 3, N, K)),
+            npi.new_empty((R * F + 4 * F * F if weight_grads else 0,)))
+
+
+def klist_fwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b,
+              first_layer=False, dot_dtype='float32'):
+    '''The layer's forward: kernel K5 for CUDA tensors, the plain version
+    for CPU tensors (the op newtonnet_tpu_torch::klist_fwd). -> (inv1,
+    eq).'''
+    ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
+    if _device(npi) == 'cuda':
+        _checked(npi, cat, rbf, list(zip(_NAMES, ins, _KINDS)), first_layer)
+    return _klist_fwd_op(*ins, bool(first_layer), dot_dtype)
+
+
+def klist_bwd(npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b, dinv1, deq,
+              first_layer=False, weight_grads=True, dot_dtype='float32'):
+    '''The layer's backward: kernel K6 for CUDA tensors, the plain version
+    for CPU tensors (the op newtonnet_tpu_torch::klist_bwd). -> (dnpi,
+    dcat, drbf, ddir, dWe, dW1a, dW1b, dW2a, dW2b), weight cotangents None
+    unless weight_grads.'''
+    ins = (npi, cat, rbf, dir_, mask, We, W1a, W1b, W2a, W2b)
+    check_dot_dtype(dot_dtype)
+    if _device(npi) == 'cuda':
+        _checked(npi, cat, rbf,
+                 list(zip(_NAMES + ('dinv1', 'deq'), ins + (dinv1, deq),
+                          _KINDS + ('node', 'vec'))), first_layer)
+    *grads, dw = _klist_bwd_op(*ins, dinv1, deq, bool(first_layer),
+                               bool(weight_grads), dot_dtype)
+    return (*grads, *split_weight_grads(dw, npi.shape[-1], rbf.shape[-1]))
 
 
 def klist_dual_fwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
@@ -502,7 +556,7 @@ def klist_dual_bwd(npi, npidot, cat, catdot, rbf, rbfdot, dir_, dirdot, mask,
         R, int(first_layer), bf, n_blocks, _stream(npi))
     _raise_on(err, 'nn_klist_dual_bwd')
     LAUNCHES[launch_key('klist_dual_bwd', first_layer, dot_dtype)] += 1
-    return (*outs, *_split_w(dw, F, R))
+    return (*outs, *split_weight_grads(dw, F, R))
 
 
 # ----------------------------------------------------------------------- #

@@ -40,6 +40,7 @@ backward sums over the list's transpose (node_transpose) with K9 row
 gathers in a fixed order. The staircase layout of half lists is
 ops/staircase.py.
 '''
+import contextlib
 import ctypes
 from typing import NamedTuple
 
@@ -59,6 +60,7 @@ from newtonnet_tpu_torch.ops.row_gather import (
 SCATTER_CHUNK = 6
 # bytes of gathered rows per chunk of gather_nodes' backward (_scatter_rows)
 TRANSPOSE_CHUNK_BYTES = 256 << 20
+_FIXED_DEGREE = [0]
 
 
 def neighbor_list(pos, cell, atom_mask, cutoff, k_max, mic_mode='exact',
@@ -124,12 +126,30 @@ class NodeTranspose(NamedTuple):
     valid: torch.Tensor
 
 
+@contextlib.contextmanager
+def fixed_degree():
+    '''Inside the block node_transpose pads to a bound fixed by the list's
+    shape instead of reading the largest in-degree on the host, so that a
+    traced program (utils/export.py) has fixed shapes and no host sync.'''
+    _FIXED_DEGREE[0] += 1
+    try:
+        yield
+    finally:
+        _FIXED_DEGREE[0] -= 1
+
+
 def node_transpose(idx, n_nodes, mask=None):
     '''NodeTranspose of idx (B, R, K) onto n_nodes nodes, counting only
     the slots where `mask` (B, R, K) is True (all of them without one).
     Integer ops only: a stable argsort of the flat keys (a masked slot's
     key is n_nodes, past every node), then each node's run of the sorted
-    slot ids, padded to the largest in-degree.'''
+    slot ids, padded to the largest in-degree, read on the host.
+
+    Under fixed_degree() the pad is min(R, K) columns instead: the list's
+    capacity in both layouts (atom-major (B, N, K) and slot-major (B, K,
+    N)). A node's in-degree stays within it wherever no atom has more
+    neighbours in range than the capacity (neighbor_list's overflow count
+    is 0); the slots of a node past it would be dropped from the sum.'''
     B = idx.shape[0]
     S = idx.shape[1] * idx.shape[2]
     dev = idx.device
@@ -141,7 +161,10 @@ def node_transpose(idx, n_nodes, mask=None):
         torch.gather(key, 1, order).contiguous(),
         torch.arange(n_nodes + 1, device=dev).expand(B, -1).contiguous())
     start, deg = bounds[:, :-1], bounds[:, 1:] - bounds[:, :-1]
-    D = max(int(deg.max()), 1) if deg.numel() else 1
+    if _FIXED_DEGREE[0]:
+        D = max(min(idx.shape[1], idx.shape[2]), 1)
+    else:
+        D = max(int(deg.max()), 1) if deg.numel() else 1
     col = torch.arange(D, device=dev)
     valid = col < deg[..., None]
     at = (start[..., None] + col).clamp_max(S - 1).reshape(B, -1)

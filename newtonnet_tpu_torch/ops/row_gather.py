@@ -15,6 +15,12 @@ Functions of ops/nlist.py fold a block of L lanes into the batch axis
 (their vmap rules), so the wrapper sees one plain (L*B, ...) tensor per
 gather; a functorch-wrapped tensor (batched, dual or grad-tracking) that
 reaches it raises, on any device, instead of launching on its storage.
+
+The gather is the custom op `newtonnet_tpu_torch::row_gather`
+(torch.library): its implementation launches K9 for a CUDA tensor and runs
+the plain version for a CPU one, and its fake implementation gives the
+output's shape, so that torch.export records the op in a program
+(utils/export.py) and a replay of that program launches the kernel.
 '''
 import contextlib
 import ctypes
@@ -86,6 +92,44 @@ def _lib():
     return lib
 
 
+@torch.library.custom_op('newtonnet_tpu_torch::row_gather', mutates_args=())
+def _row_gather_op(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    '''The op row_gather calls, its layout checked: K9 on CUDA tensors, the
+    plain version on CPU ones.'''
+    if x.device.type == 'cpu':
+        return row_gather_ref(x, idx)
+    B, N, F = x.shape
+    R = idx.shape[1]
+    out = torch.empty((B, R, F), dtype=x.dtype, device=x.device)
+    if B * R * F == 0:
+        return out
+    row_bytes = F * x.element_size()
+    if B * R * (row_bytes // vector_bytes(row_bytes, x.data_ptr(),
+                                          out.data_ptr())) >= MAX_VECTORS:
+        raise ValueError(
+            f'row_gather: {B} x {R} rows of {row_bytes} bytes pass the '
+            f'kernel\'s 2^31 vectors; use smaller blocks of lanes '
+            f'(hessian_block)')
+    bstride = x.stride(0) // F if B > 1 else N
+    err = _lib().nn_row_gather(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, R,
+        row_bytes, bstride, int(idx.dtype == torch.int64),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f'nn_row_gather launch failed: cudaError_t {err}')
+    LAUNCHES['row_gather'] += 1
+    if B == 1:
+        LAUNCHES['row_gather_b1'] += 1
+    elif _FOLDING[0]:
+        LAUNCHES['row_gather_folded'] += 1
+    return out
+
+
+@_row_gather_op.register_fake
+def _(x, idx):
+    return x.new_empty((x.shape[0], idx.shape[1], x.shape[2]))
+
+
 def row_gather(x, idx):
     '''out[b, r] = x[b, idx[b, r]]: kernel K9 for CUDA tensors, the plain
     version for CPU tensors.
@@ -113,30 +157,6 @@ def row_gather(x, idx):
     if x.stride(2) != 1 or (N > 1 and x.stride(1) != F) \
             or x.stride(0) % max(F, 1) or (B > 1 and x.stride(0) < N * F):
         raise ValueError('the rows of x must be contiguous')
-    if x.device.type == 'cpu':
-        return row_gather_ref(x, idx)
-    if x.device.type != 'cuda':
+    if x.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'no kernel for device {x.device}')
-    out = torch.empty((B, R, F), dtype=x.dtype, device=x.device)
-    if B * R * F == 0:
-        return out
-    row_bytes = F * x.element_size()
-    if B * R * (row_bytes // vector_bytes(row_bytes, x.data_ptr(),
-                                          out.data_ptr())) >= MAX_VECTORS:
-        raise ValueError(
-            f'row_gather: {B} x {R} rows of {row_bytes} bytes pass the '
-            f'kernel\'s 2^31 vectors; use smaller blocks of lanes '
-            f'(hessian_block)')
-    bstride = x.stride(0) // F if B > 1 else N
-    err = _lib().nn_row_gather(
-        x.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, R,
-        row_bytes, bstride, int(idx.dtype == torch.int64),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f'nn_row_gather launch failed: cudaError_t {err}')
-    LAUNCHES['row_gather'] += 1
-    if B == 1:
-        LAUNCHES['row_gather_b1'] += 1
-    elif _FOLDING[0]:
-        LAUNCHES['row_gather_folded'] += 1
-    return out
+    return _row_gather_op(x, idx)

@@ -91,9 +91,11 @@ def train_from_settings(settings, settings_path=None, resume=None):
     if pretrained is not None:
         path = str(pretrained['path'])
         if path.endswith('.pt'):
-            raise NotImplementedError(_NOT_PORTED.format('a .pt warm start',
-                                                         'export'))
-        model = load_model(path, device=device)
+            from newtonnet_tpu_torch.utils.torch_import import \
+                load_reference_model
+            model = load_reference_model(path, device=device)
+        else:
+            model = load_model(path, device=device)
         freeze = {k: pretrained.get(k, False)
                   for k in ('freeze_encoder', 'freeze_interaction',
                             'freeze_decoder', 'freeze_scaler')}

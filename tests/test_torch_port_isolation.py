@@ -52,14 +52,48 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.train.loss
         import newtonnet_tpu_torch.train.optimizer
         import newtonnet_tpu_torch.train.trainer
+        import newtonnet_tpu_torch.utils.ase_interface
         import newtonnet_tpu_torch.utils.checkpoint
+        import newtonnet_tpu_torch.utils.export
+        import newtonnet_tpu_torch.utils.export_model
         import newtonnet_tpu_torch.utils.freeze
         import newtonnet_tpu_torch.utils.params
+        import newtonnet_tpu_torch.utils.pretrained
+        import newtonnet_tpu_torch.utils.torch_import
         banned = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack')
         bad = sorted(m for m in sys.modules
                      if m.split('.')[0] in banned
                      or m == 'newtonnet_tpu'
                      or m.startswith('newtonnet_tpu.'))
+        print(','.join(bad))
+    ''')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == ''
+
+
+def test_served_model_process_imports_no_model_and_no_jax(tmp_path):
+    '''A process that replays a serving artifact (utils/export.ServedModel)
+    imports the op modules and no model module, no JAX and nothing of
+    newtonnet_tpu; the package itself imports its entry points lazily.'''
+    from newtonnet_tpu_torch import NewtonNet
+    from newtonnet_tpu_torch.utils.export import (export_inference,
+                                                  save_serving_artifact)
+    model = NewtonNet(n_features=4, n_basis=4, n_interactions=1,
+                      output_properties=['energy'], device='cpu')
+    path = str(tmp_path / 'tiny.npz')
+    save_serving_artifact(path, *export_inference(model, n_atoms=3))
+    code = textwrap.dedent(f'''
+        import sys
+        import numpy as np
+        from newtonnet_tpu_torch.utils.export import ServedModel
+        out = ServedModel({path!r}, device='cpu')(
+            np.array([1, 8, 1]), np.eye(3, dtype=np.float32))
+        assert np.isfinite(out['energy'])
+        bad = sorted(m for m in sys.modules
+                     if m.startswith('newtonnet_tpu_torch.models')
+                     or m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax',
+                                            'msgpack', 'newtonnet_tpu'))
         print(','.join(bad))
     ''')
     out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
@@ -116,6 +150,7 @@ def test_entry_points_need_cuda_or_an_explicit_cpu():
      'Hessian'),
     ({'calculator_properties': ['energy', 'hessian']}, 'Hessian'),
     ({'md_system': True}, 'MD'),
+    ({'pt_checkpoint': True}, 'export'),
 ])
 def test_unported_configurations_name_their_roadmap_item(kw, item):
     '''Each configuration the port does not have yet raises, naming its
@@ -127,7 +162,9 @@ def test_unported_configurations_name_their_roadmap_item(kw, item):
     Hessian head in a model, and the Hessian asked of the calculator, now
     build and give their outputs, and raise NotImplementedError no
     more; so does the item "MD" (ROADMAP.md A9): the calculator takes a
-    System, and the on-device driver runs it.'''
+    System, and the on-device driver runs it; and the item "export"
+    (ROADMAP.md A10): a reference .pt checkpoint, refused as a warm start
+    before, loads (utils/torch_import.py) and serves.'''
     from newtonnet_tpu_torch import NewtonNet
     small = dict(device='cpu', n_features=8, n_basis=4, n_interactions=1)
     z = torch.tensor([[1, 6, 8, 1]])
@@ -166,6 +203,24 @@ def test_unported_configurations_name_their_roadmap_item(kw, item):
             friction=0.01, n_steps=4, log_every=2)
         assert log['epot'].shape == (2,)
         assert np.isfinite(system.positions).all()
+        return
+    if kw.get('pt_checkpoint'):
+        import tempfile
+
+        from newtonnet_tpu_torch import NewtonNetCalculator
+        from newtonnet_tpu_torch.utils.params import params_to_flax
+        from test_torch_import import _fabricate_old_checkpoint
+        model = NewtonNet(**small, layer_norm=True,
+                          output_properties=['energy', 'gradient_force'])
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, 'reference.pt')
+            _fabricate_old_checkpoint(path, params_to_flax(model.core),
+                                      n_features=8, n_basis=4,
+                                      n_interactions=1, cutoff=5.0)
+            calc = NewtonNetCalculator(path, device='cpu')
+        out = calc.calculate(numbers=z[0].numpy(), positions=pos[0].numpy())
+        want = model(z, pos, cell)
+        assert abs(out['energy'] - float(want['energy'][0])) <= 1e-5
         return
     if kw.get('pallas_dot_dtype') == 'bfloat16':
         from newtonnet_tpu_torch.train.trainer import Trainer
