@@ -398,15 +398,52 @@ with a non-zero exit code and no result line):
             sync per call; d. the aspirin Hessian over the plain list
             against the eager calculator's and JAX's at 14a's bar; a JAX
             artifact and a request past n_pad refused; request latency
-            beside the eager path's. `python3 chip_smoke.py export` runs
-            it alone.
+            beside the eager path's; the plain-list transpose's overflow
+            path (ROADMAP.md C17): its transient bytes per call of each
+            list artifact, and b's artifact against one exported without
+            it, replayed alternately (the same bits, ms and peak memory
+            per call). `python3 chip_smoke.py export` runs it alone.
+
+17. parallel  ranks as processes on this card, started by
+            newtonnet_tpu_torch/parallel/launch.py (gloo: ranks that share
+            a card cannot use NCCL, so their collectives cross through
+            host memory; NCCL, NVLink and scaling across cards are not
+            exercised here, and no time of this phase is a scaling
+            result). `python3 chip_smoke.py parallel` runs it alone.
+            a. CKPT fine-tuned over PAR_STEPS global batches of 10 (5 per
+               rank, 2 ranks, training.parallel {data: 2}), dense (K1-K4
+               on each rank) and over K-lists (K5-K8), against this
+               process's one-rank run on the same batches, with SGD and
+               with the CLI's Adam (PAR_OPTIMIZERS): step 1's loss within
+               one float32 ulp of every energy (phase 7a's bar); every
+               step bit for bit the ranks' arithmetic run in this process
+               (par_halves); with SGD, step 1's gradient within
+               PAR_GRAD_BAR (relative norm) and steps 2-10 within
+               PAR_LOSS_BAR, and a rank's gradient without the all-reduce
+               (the control) must miss the gradient bar; with Adam, the
+               ranks' and the halves' drift from the whole batch
+               reported; every K1-K8 kernel launched on every rank. One
+               CLI epoch (SGD) at
+               PAR_CLI_DATA's sizes, data 2 against data 1: log.csv within
+               PAR_LOG_REL, one training_1 directory. Steps/s, step ms,
+               launches, collectives and host syncs per rank per step.
+            b. XLA_CKPT graph-parallel at (data, graph) = (1, 2)
+               (parallel/graph_parallel.py): the 500 aspirin frames within
+               phase 5's MAE bars; a CLUSTER_ATOMS-atom aperiodic cluster
+               (cluster_frame, seeded weights) whose one-process request
+               peaks above CLUSTER_PEAK_GIB, at (1, 2) and at (2, 2) with a
+               second cluster, against the one-process requests at
+               CLUSTER_E_REL of the energy and CLUSTER_F_REL of the largest
+               force; peak memory per rank beside the one process's.
 
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
 9b/9c launches, K1-K4's phase 12 launches, K9/K12's phase 13 and 14
 launches and K9 at phase 14's folded Hessian shape; K1/K2, K5/K6 and
 K9/K12 with their launches per MD step of phase 15 and per replayed
-call of phase 16; the bf16 rows of K1/K2 and K5-K8) and, last,
+call of phase 16; K1-K8 with their launches per rank per
+data-parallel step of phase 17a; the bf16 rows of K1/K2 and K5-K8) and,
+last,
 {"ok": true, "device": {...}}.
 '''
 import functools
@@ -414,6 +451,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -6676,6 +6714,10 @@ EXPORT_BOX = 30.0  # the periodic cell of 16c's aspirin requests (A)
 # of the energy, 1e-4 of the largest force (and stress component)
 EXPORT_E_REL, EXPORT_F_REL = 1e-5, 1e-4
 REPLAY_TIMEOUT = 300
+# 16b's A/B of the plain-list transpose's overflow path (ROADMAP.md C17):
+# the K-list artifact against one exported with the path taken out (the
+# pad before the repair), replayed alternately (a, b, b, a, ...)
+EXPORT_AB_ROUNDS = 20
 
 
 def pad_atoms(np, arrays, n_pad):
@@ -6706,10 +6748,14 @@ def replay_main(plan_path):
     Imports the port's export module and op modules only, replays each
     job's artifact on its inputs (one warm-up call, then one call per
     input batch, timed to a synchronize), counts the kernels' launches per
-    call and the host syncs per call over three (syncs_per_step),
+    call and the host syncs per call over three (syncs_per_step) and the
+    peak of the card's memory above what was allocated before a call,
     times single-system requests through ServedModel.__call__, checks the
-    refusal of a request with more atoms than the artifact holds, and
-    writes the outputs and a report."""
+    refusal of a request with more atoms than the artifact holds, times
+    the plan's A/B pairs of artifacts on their first input batch, called
+    alternately, then profiles one call of each (device_busy) and counts
+    the operator calls of its program, and writes the outputs and a
+    report."""
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
@@ -6721,7 +6767,20 @@ def replay_main(plan_path):
     torch.backends.cuda.matmul.allow_tf32 = True
     with open(plan_path) as f:
         plan = json.load(f)
-    report = {}
+    report, kept = {}, {}
+
+    def timed_call(served, z, pos, cell):
+        # -> (outputs, seconds, peak bytes above the allocation before)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        out = served.call_raw(z, pos, cell)
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t,
+                torch.cuda.max_memory_allocated() - base)
+
+    ab_names = {n for pair in plan.get('ab', []) for n in pair}
     for job in plan['jobs']:
         t = time.perf_counter()
         served = ServedModel(job['artifact'])
@@ -6735,12 +6794,11 @@ def replay_main(plan_path):
         first_s = time.perf_counter() - t
         for mod in (fd, fk, rg):
             mod.reset_launch_counts()
-        outs, call_s = [], []
+        outs, call_s, peak = [], [], 0
         for c in range(z.shape[0]):
-            t = time.perf_counter()
-            out = served.call_raw(z[c], pos[c], cell[c])
-            torch.cuda.synchronize()
-            call_s.append(time.perf_counter() - t)
+            out, dt, pk = timed_call(served, z[c], pos[c], cell[c])
+            call_s.append(dt)
+            peak = max(peak, pk)
             outs.append({k: v.cpu().numpy() for k, v in out.items()})
         launches = {k: v / z.shape[0] for mod in (fd, fk, rg)
                     for k, v in mod.LAUNCHES.items() if v}
@@ -6767,7 +6825,29 @@ def replay_main(plan_path):
             'call_ms': [1e3 * s for s in call_s],
             'launches_per_call': launches, 'syncs_per_call': syncs,
             'sync_at': sync_at, 'request_ms': [1e3 * s for s in request_s],
-            'too_many_atoms': too_many}
+            'call_peak_bytes': peak, 'too_many_atoms': too_many}
+        if job['name'] in ab_names:
+            kept[job['name']] = (served, z[0], pos[0], cell[0])
+    for a, b in plan.get('ab', []):
+        ms = {a: [], b: []}
+        peaks = {a: 0, b: 0}
+        for r in range(EXPORT_AB_ROUNDS):
+            for name in ((a, b) if r % 2 == 0 else (b, a)):
+                _, dt, pk = timed_call(*kept[name])
+                ms[name].append(1e3 * dt)
+                peaks[name] = max(peaks[name], pk)
+        # one more call of each under the profiler: how much of the call
+        # the card is busy, and with how many kernels
+        busy = {name: device_busy(torch, lambda s=kept[name]: s[0].call_raw(
+            *s[1:])) for name in (a, b)}
+        report[f'ab_{a}_{b}'] = {
+            name: {'call_ms_median': statistics.median(ms[name]),
+                   'call_ms': ms[name], 'call_peak_bytes': peaks[name],
+                   'profiled': busy[name],
+                   'graph_calls': sum(
+                       n.op == 'call_function'
+                       for n in kept[name][0]._program.graph.nodes)}
+            for name in (a, b)}
     report['modules'] = sorted(
         m for m in sys.modules
         if m.startswith('newtonnet_tpu_torch.models')
@@ -6779,12 +6859,13 @@ def replay_main(plan_path):
     return 0
 
 
-def replay(jobs, tmp):
-    """Run replay_main in a fresh process over `jobs` -> its report."""
+def replay(jobs, tmp, ab=()):
+    """Run replay_main in a fresh process over `jobs` (and the A/B pairs
+    of job names `ab`) -> its report."""
     plan = os.path.join(tmp, 'plan.json')
     report = os.path.join(tmp, 'report.json')
     with open(plan, 'w') as f:
-        json.dump({'jobs': jobs, 'report': report}, f)
+        json.dump({'jobs': jobs, 'report': report, 'ab': list(ab)}, f)
     t = time.perf_counter()
     out = subprocess.run([sys.executable, os.path.abspath(__file__),
                           'replay', plan], capture_output=True, text=True,
@@ -6821,20 +6902,46 @@ def phase_export(torch, fd, fk, rg, batches, samples, to_dev):
        the eager calculator's and the JAX package's at phase 14a's bar,
        K9 launches counted;
     refusals: a JAX package artifact, a request with more atoms than the
-    artifact holds. -> K1/K2, K5/K6, K9/K12 launches per replayed call."""
+    artifact holds. The plain-list transpose's overflow path (ROADMAP.md
+    C17): its transient bytes per call of each list artifact, from the
+    shapes its calls were traced at, and the K-list artifact against one
+    exported without it (the pad before the repair), replayed alternately:
+    the same bits, its ms and peak memory per call. -> K1/K2, K5/K6, K9/K12
+    launches per replayed call."""
     import tempfile
 
     import numpy as np
     from newtonnet_tpu_torch import NewtonNetCalculator, load_model
+    from newtonnet_tpu_torch.ops import nlist as tnl
     from newtonnet_tpu_torch.utils.export import JAX_FORMAT, ServedModel
     t16 = time.perf_counter()
     tmp_dir = tempfile.TemporaryDirectory()
     tmp = tmp_dir.name
-    jobs, exports = [], {}
+    jobs, exports, overflow = [], {}, {}
+    traced_overflow = tnl._overflow_rows
 
     def add_job(name, model, inputs, requests=None, **kw):
         path = os.path.join(tmp, f'{name}.npz')
-        exports[name] = export_to(path, model, **kw)
+        calls = overflow.setdefault(name, [])
+
+        def recorded(rows, idx, mask, n_nodes, D):
+            # the path's tensors of one call (freed after it): the sorted
+            # rows behind a zero row and their float64 prefix; per slot
+            # the order, the sorted keys and the rank, and behind a zero
+            # slot the order and the mask kept; per node the bounds, the
+            # two read positions, the two prefix reads and their
+            # difference (float64)
+            B, S, F = rows.shape
+            calls.append(B * (S + 1) * F * (rows.element_size() + 8)
+                         + B * S * 3 * 8 + B * (S + 1) * (8 + 1)
+                         + B * (n_nodes + 1) * 8 + B * 2 * n_nodes * 8
+                         + B * 3 * n_nodes * F * 8)
+            return traced_overflow(rows, idx, mask, n_nodes, D)
+        tnl._overflow_rows = recorded
+        try:
+            exports[name] = export_to(path, model, **kw)
+        finally:
+            tnl._overflow_rows = traced_overflow
         np.savez(os.path.join(tmp, f'{name}_in.npz'), **inputs)
         job = {'name': name, 'artifact': path,
                'inputs': os.path.join(tmp, f'{name}_in.npz'),
@@ -6854,6 +6961,18 @@ def phase_export(torch, fd, fk, rg, batches, samples, to_dev):
               'cell': np.stack([b['cell'] for b in batches])}
     add_job('dense', base, asp_in, n_atoms=21, batch_size=EXPORT_BATCH)
     add_job('klist', kl, asp_in, n_atoms=21, batch_size=EXPORT_BATCH)
+    # the control of 16b's A/B: the overflow path taken out (exact zeros
+    # in its place, as the pad before the repair dropped the slots)
+    tnl._overflow_rows = lambda rows, idx, mask, n_nodes, D: rows.new_zeros(
+        (rows.shape[0], n_nodes, rows.shape[2]), dtype=torch.float64)
+    try:
+        path = os.path.join(tmp, 'klist_old_pad.npz')
+        exports['klist_old_pad'] = export_to(
+            path, kl, n_atoms=21, batch_size=EXPORT_BATCH)
+    finally:
+        tnl._overflow_rows = traced_overflow
+    jobs.append(dict(jobs[-1], name='klist_old_pad', artifact=path,
+                     out=os.path.join(tmp, 'klist_old_pad_out.npz')))
     reqs = samples[:EXPORT_REQUESTS]
     z1, p1 = pad_atoms(np, (np.stack([s['z'] for s in reqs]),
                             np.stack([s['pos'] for s in reqs])), n_pad)
@@ -6922,7 +7041,7 @@ def phase_export(torch, fd, fk, rg, batches, samples, to_dev):
     del hm, n3, lj3
     torch.cuda.empty_cache()
 
-    rep = replay(jobs, tmp)
+    rep = replay(jobs, tmp, ab=[('klist', 'klist_old_pad')])
 
     def result(name):
         with np.load(os.path.join(tmp, f'{name}_out.npz')) as f:
@@ -6967,6 +7086,34 @@ def phase_export(torch, fd, fk, rg, batches, samples, to_dev):
             for k in kernel_keys),
             f'16 {name}: replayed launches {r["launches_per_call"]} vs '
             f'eager {eager_launches}')
+    # C17: the overflow path adds exact zeros where no atom overflows
+    old_pad = result('klist_old_pad')
+    same_bits = all(np.array_equal(v, old_pad[k])
+                    for k, v in result('klist').items())
+    ab = rep['ab_klist_klist_old_pad']
+    fields['overflow_path'] = dict(
+        card=card_name(),
+        transient_bytes_per_call={k: max(v) for k, v in overflow.items()
+                                  if v},
+        traced_calls={k: len(v) for k, v in overflow.items()},
+        klist_vs_old_pad_same_bits=same_bits,
+        klist_call_ms_median=ab['klist']['call_ms_median'],
+        old_pad_call_ms_median=ab['klist_old_pad']['call_ms_median'],
+        klist_call_peak_bytes=ab['klist']['call_peak_bytes'],
+        old_pad_call_peak_bytes=ab['klist_old_pad']['call_peak_bytes'],
+        klist_profiled=ab['klist']['profiled'],
+        old_pad_profiled=ab['klist_old_pad']['profiled'],
+        klist_graph_calls=ab['klist']['graph_calls'],
+        old_pad_graph_calls=ab['klist_old_pad']['graph_calls'],
+        call_peak_bytes={j['name']: rep[j['name']]['call_peak_bytes']
+                         for j in jobs},
+        old_pad_launches_per_call=rep['klist_old_pad'][
+            'launches_per_call'])
+    check(same_bits, '16b: the overflow path moved the K-list replay')
+    check(all(overflow[k] for k in ('klist', 'xla_newton3', 'lj_newton3',
+                                    'hessian')),
+          f'16: a list artifact traced no overflow path: '
+          f'{fields["overflow_path"]["traced_calls"]}')
     r = rep['dense_b1']
     fields['latency'] = dict(
         card=card_name(),
@@ -7125,6 +7272,574 @@ def export_main():
         return [torch.from_numpy(b[k]).cuda() for k in ('z', 'pos', 'cell')]
     emit('export_launches', **phase_export(torch, fd, fk, rg, batches,
                                            samples, to_dev))
+    return 0
+
+
+# --------------------------------------------------------------------- #
+# 17. parallel: data-parallel fine-tuning and graph-parallel dense serving,
+# each rank a process on this card (parallel/launch.py, gloo)
+PAR_STEPS = 10
+PAR_CLI_DATA = dict(train_size=100, val_size=50, test_size=100,
+                    train_batch_size=10, val_batch_size=50,
+                    test_batch_size=100)
+# the aperiodic cluster of 17b: CLUSTER_ATOMS atoms on a jittered cubic
+# lattice of CLUSTER_SPACING A (H, C, O), big enough that the one-process
+# dense request peaks above CLUSTER_PEAK_GIB
+CLUSTER_ATOMS, CLUSTER_SPACING, CLUSTER_PEAK_GIB = 1728, 1.6, 20.0
+CLUSTER_E_REL, CLUSTER_F_REL = 1e-5, 1e-4
+# 17a's gradient bars: the bf16 duals (dense, K3/K4) and the fp32 K-list
+# duals (K7/K8); steps 2-10 losses
+PAR_GRAD_BAR = {'dense': DUAL_BF16_BAR, 'klist': 1e-4}
+PAR_LOSS_BAR = 1e-3
+# 17a's optimizers, each with the global-norm clip 1.0. 'sgd', SGD with
+# momentum, whose update is linear in the gradient (the optimizer of the
+# port's parity tests): steps 2-10 are held to the one-process run on whole
+# batches at PAR_LOSS_BAR, and the CLI epoch runs it. 'adam', the CLI's
+# (scripts/config_md17_pallas.yml): Adam's first steps (m / sqrt(v)) turn
+# a sum-order difference in a near-zero gradient component into an update
+# of the learning rate, and one float32 ulp of every energy moves this loss
+# by 1.3e-3, so the same function summed in another order drifts past
+# PAR_LOSS_BAR; its ranks are held bit for bit to their own arithmetic in
+# one process (par_halves) at every step and to the whole batch at step 1,
+# and both drifts from the whole batch (the ranks' and the one-process
+# halves', with no collective) are reported.
+PAR_OPTIMIZERS = {'sgd': ('sgd', dict(lr=1e-3, momentum=0.9)),
+                  'adam': ('adam', dict(lr=1e-3))}
+# 17a's runs: (layout, optimizer) -> the key of its results
+PAR_RUNS = {(layout, opt): layout if opt == 'sgd' else f'{layout}_{opt}'
+            for layout in ('dense', 'klist') for opt in PAR_OPTIMIZERS}
+PAR_LOG_REL = 1e-5
+PAR_TIMING_COLUMNS = ('epoch_seconds', 'steps_per_s', 'edges_per_s')
+PAR_TIMEOUT = 600
+
+
+def cluster_frame(np, seed):
+    """(z, pos, cell) of one aperiodic cluster: CLUSTER_ATOMS atoms on the
+    first sites of a jittered cubic lattice, numbers drawn from H, C, O."""
+    rs = np.random.RandomState(seed)
+    side = int(np.ceil(CLUSTER_ATOMS ** (1 / 3)))
+    sites = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing='ij'),
+                     -1).reshape(-1, 3)[:CLUSTER_ATOMS]
+    pos = (sites + rs.uniform(-0.2, 0.2, sites.shape)) * CLUSTER_SPACING
+    z = rs.choice([1, 6, 8], size=CLUSTER_ATOMS)
+    return (z[None].astype(np.int64), pos[None].astype(np.float32),
+            np.zeros((1, 3, 3), np.float32))
+
+
+def cluster_model(torch, seed=0):
+    """The XLA checkpoint's widths (F=128, 3 interactions, dense) with
+    box_weights: the trained weights are not finite far from aspirin's
+    geometries (ROADMAP.md C3)."""
+    from newtonnet_tpu_torch import NewtonNet, load_model
+    cfg = load_model(XLA_CKPT).config_dict()
+    model = NewtonNet(**cfg, device='cuda')
+    box_weights(torch, model.core, seed)
+    return model.requires_grad_(False).eval()
+
+
+def par_settings(output, parallel=None):
+    """Phase 7c's CLI settings at PAR_CLI_DATA's sizes with
+    PAR_OPTIMIZERS['sgd'], one epoch, with training.parallel."""
+    cfg = md17_settings(output, 1)
+    cfg['data'].update(PAR_CLI_DATA)
+    name, kw = PAR_OPTIMIZERS['sgd']
+    cfg['training']['optimizer'] = {name: dict(kw)}
+    if parallel:
+        cfg['training']['parallel'] = parallel
+    return cfg
+
+
+def par_trainer(torch, stats, cfg, mesh=None, opt='sgd', **changes):
+    """The fine-tuning start of phase 7a (7d with changes) in a Trainer
+    with PAR_OPTIMIZERS[opt]."""
+    from newtonnet_tpu_torch import NewtonNet, Trainer, load_model
+    from newtonnet_tpu_torch.data.statistics import set_scalers
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    base = load_model(CKPT)
+    model = NewtonNet(**dict(base.config_dict(), **changes), device='cuda')
+    model.load_state_dict(base.state_dict())
+    set_scalers(model.core, model.output_properties, stats,
+                {'energy': dict(cfg['training']['fit_scalers'])})
+    name, kw = PAR_OPTIMIZERS[opt]
+    return Trainer(model, loss_fns=get_loss_by_string(
+        cfg['training']['loss']), optimizer=get_optimizer_by_string(
+            name, model.core, clip_grad=1.0, **kw), mesh=mesh)
+
+
+def par_batches():
+    """The PAR_STEPS global batches (B=10) of phase 7a's seeded loader,
+    and the data statistics."""
+    from newtonnet_tpu_torch.data.pipeline import parse_train_test
+    cfg = md17_settings(None, 1)
+    train_gen, _, _, stats = parse_train_test(seed=0, **cfg['data'])
+    it = iter(train_gen)
+    return [next(it) for _ in range(PAR_STEPS)], stats, cfg
+
+
+def par_gradient(torch, t, batch):
+    """Trainer t's global loss and flat parameter gradient for a numpy
+    batch, nothing stepped: this rank's rows, its loss and gradient, both
+    summed over the data group as train_step sums the gradient."""
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.parallel import collectives
+    with fp32_matmuls():
+        loss, _ = t.loss_and_grad(t._to_device(t._shard(batch)))
+        t.reduce_gradients()
+    return (collectives.all_reduce_sum(loss, t._data_group()),
+            torch.cat([p.grad.reshape(-1) for p in t.model.core.parameters()
+                       if p.grad is not None]))
+
+
+def par_steps(torch, fd, fdd, fk, mesh, layout, opt='sgd'):
+    """17a on this process's rank(s): with 'sgd', step 1's global loss and
+    gradient (and, with a mesh, this rank's gradient without the
+    all-reduce, the control); then PAR_STEPS steps with PAR_OPTIMIZERS[opt]
+    from the same start: losses, step ms, launches, collectives and (with
+    'sgd') host syncs per step."""
+    from newtonnet_tpu_torch.parallel import collectives
+    batches, stats, cfg = par_batches()
+    changes = {'graph_mode': 'neighborlist'} if layout == 'klist' else {}
+    group = None if mesh is None else mesh.group('data')
+    out = {}
+    if opt == 'sgd':
+        t = par_trainer(torch, stats, cfg, mesh, **changes)
+        loss1, grad1 = par_gradient(torch, t, batches[0])
+        out.update(loss1=float(loss1), grad1=grad1.cpu().numpy())
+        if group is not None:
+            t.loss_and_grad(t._to_device(t._shard(batches[0])))
+            out['grad1_no_allreduce'] = torch.cat(
+                [p.grad.reshape(-1) for p in t.model.core.parameters()
+                 if p.grad is not None]).cpu().numpy()
+    t = par_trainer(torch, stats, cfg, mesh, opt, **changes)
+    torch.cuda.synchronize()
+    reset_counts(fd, fdd, fk)
+    collectives.reset_stats()
+    partial, step_s = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        partial.append(t.train_step(b)['loss'].double())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    counts = lj_counts(fd, fdd, fk)
+    stats = dict(collectives.STATS)  # the steps' own, not the check's
+    losses = collectives.all_reduce_sum(torch.stack(partial), group)
+    out.update(
+        losses=losses.tolist(), step_ms=[1e3 * s for s in step_s],
+        steps_per_s=1.0 / statistics.median(step_s[1:]),
+        launches_per_step={k: v / PAR_STEPS for k, v in counts.items()
+                           if v},
+        collective_ms_per_step=1e3 * stats['seconds'] / PAR_STEPS,
+        collectives_per_step=stats['calls'] / PAR_STEPS)
+    if opt == 'sgd':
+        out['syncs_per_step'], out['sync_sites'] = syncs_per_step(
+            torch, lambda: t.train_step(batches[1]), steps=3)
+    return out
+
+
+
+def par_halves(torch, fd, fdd, fk, layout, opt='sgd'):
+    """The two ranks' arithmetic in this process: each global batch's two
+    halves (global_data_batch's rows and counts of data index 0 and 1),
+    their gradients summed in fp32 as the all-reduce sums them, then
+    PAR_OPTIMIZERS[opt]: -> step 1's gradient and the PAR_STEPS losses.
+    Against the one-process run on whole batches this is the same function
+    summed in another order, with no collective."""
+    import numpy as np
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.parallel.distributed import global_data_batch
+    from newtonnet_tpu_torch.parallel.mesh import Mesh
+    batches, stats, cfg = par_batches()
+    changes = {'graph_mode': 'neighborlist'} if layout == 'klist' else {}
+    t = par_trainer(torch, stats, cfg, None, opt, **changes)
+    params = list(t.model.core.parameters())
+    halves = [Mesh(np.arange(2)[:, None], {'data': None, 'graph': None}, d)
+              for d in range(2)]
+    losses, grad1 = [], None
+    for b in batches:
+        total, acc = 0.0, None
+        with fp32_matmuls():
+            for mesh in halves:
+                loss, _ = t.loss_and_grad(
+                    t._to_device(global_data_batch(mesh, b)))
+                total = total + loss.double()
+                g = [None if p.grad is None else p.grad.clone()
+                     for p in params]
+                acc = g if acc is None else [
+                    None if a is None else a + x for a, x in zip(acc, g)]
+            for p, a in zip(params, acc):
+                p.grad = a
+            if grad1 is None:
+                grad1 = torch.cat([a.reshape(-1) for a in acc
+                                   if a is not None]).cpu().numpy()
+            t.optimizer.step()
+        losses.append(float(total))
+    return grad1, losses
+
+def par_aspirin(torch, fn, to_dev, batches):
+    """The 500 aspirin test frames through fn (batches of 100): -> (energy
+    MAE, force MAE, ms per batch)."""
+    import numpy as np
+    ae = af = 0.0
+    ms = []
+    for b in batches:
+        z, pos, cell = to_dev(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e, f = fn(z, pos, cell)
+        e, f = e.cpu().numpy(), f.cpu().numpy()[:, :21]
+        ms.append(1e3 * (time.perf_counter() - t0))
+        ae += np.abs(e - b['energy']).astype(np.float64).sum()
+        af += np.abs(f - b['force']).astype(np.float64).sum()
+    return ae / 500, af / (500 * 21 * 3), ms
+
+
+def par_cluster(torch, fn, frames):
+    """One request of the clusters `frames` (stacked) through fn: ->
+    (energies, forces, peak GiB of this process, ms of a second call)."""
+    import numpy as np
+    z, pos, cell = (torch.from_numpy(np.concatenate(a)).cuda()
+                    for a in zip(*frames))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    e, f = fn(z, pos, cell)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    t0 = time.perf_counter()
+    fn(z, pos, cell)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return e.cpu().numpy(), f.cpu().numpy(), peak, ms
+
+
+def parallel_rank_main(work, what):
+    """`python3 chip_smoke.py parallel-rank WORK {dp|gp}`: one rank of
+    phase 17, started by parallel/launch.py; writes WORK/<what>_rank<r>.npz
+    (and the chief's results as JSON)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import numpy as np
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.data.loader import collate, parse_xyz
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_dual as fdd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    from newtonnet_tpu_torch.parallel import collectives, distributed
+    from newtonnet_tpu_torch.parallel.graph_parallel import (
+        make_sharded_energy_force_fn,
+        pad_atoms_to_multiple,
+    )
+    from newtonnet_tpu_torch.parallel.mesh import make_mesh
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    check(distributed.maybe_initialize_from_env('cuda'),
+          'rank started without NEWTONNET_DIST_* variables')
+    rank, size = distributed.world()
+    res, arrays = {'rank': rank, 'world': size,
+                   'backend': distributed.backend(),
+                   'describe': distributed.describe(
+                       torch.device('cuda', torch.cuda.current_device()))}, {}
+
+    def sharded(model, mesh):
+        fn = make_sharded_energy_force_fn(model, mesh)
+
+        def call(z, pos, cell):
+            zp, posp = pad_atoms_to_multiple(z, pos, mesh.shape['graph'])
+            return fn(zp, posp, cell)
+        return call
+
+    if what == 'dp':
+        mesh = make_mesh(data=2)
+        for (layout, opt), key in PAR_RUNS.items():
+            got = par_steps(torch, fd, fdd, fk, mesh, layout, opt)
+            for k in ('grad1', 'grad1_no_allreduce'):
+                if k in got:
+                    arrays[f'{key}_{k}'] = got.pop(k)
+            res[key] = got
+        # one CLI epoch, data 2 (the chief writes into WORK/cli_mp)
+        collectives.reset_stats()
+        t0 = time.perf_counter()
+        train_from_settings(par_settings(os.path.join(work, 'cli_mp'),
+                                         {'data': 2}))
+        res['cli_seconds'] = time.perf_counter() - t0
+        res['cli_collectives'] = dict(collectives.STATS)
+        # 17b at (1, 2): the aspirin frames, then the cluster
+        mesh = make_mesh(data=1, graph=2)
+        samples = parse_xyz(XYZ)
+        batches = [collate(samples[k:k + 100], n_pad=21)
+                   for k in range(0, 500, 100)]
+
+        def to_dev(b):
+            return [torch.from_numpy(b[k]).cuda()
+                    for k in ('z', 'pos', 'cell')]
+        collectives.reset_stats()
+        e_mae, f_mae, ms = par_aspirin(
+            torch, sharded(load_model(XLA_CKPT), mesh), to_dev, batches)
+        res['aspirin'] = dict(energy_mae=e_mae, force_mae=f_mae,
+                              batch_ms=ms, collectives=dict(
+                                  collectives.STATS))
+        frames = [cluster_frame(np, 0)]
+    else:
+        mesh = make_mesh(data=2, graph=2)
+        frames = [cluster_frame(np, 0), cluster_frame(np, 1)]
+    collectives.reset_stats()
+    e, f, peak, ms = par_cluster(torch, sharded(cluster_model(torch), mesh),
+                                 frames)
+    arrays['cluster_energy'], arrays['cluster_forces'] = e, f
+    res['cluster'] = dict(mesh=mesh.shape, peak_gib=peak, request_ms=ms,
+                          collectives=dict(collectives.STATS))
+    np.savez(os.path.join(work, f'{what}_rank{rank}.npz'), **arrays)
+    with open(os.path.join(work, f'{what}_rank{rank}.json'), 'w') as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def launch_ranks(work, what, nprocs):
+    """Run `nprocs` ranks of parallel_rank_main through parallel/launch.py;
+    a failed rank fails the phase (with its log's tail)."""
+    logs = os.path.join(work, f'logs_{what}')
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, '-m', 'newtonnet_tpu_torch.parallel.launch',
+         '--nprocs', str(nprocs), '--log-dir', logs, '--timeout',
+         str(PAR_TIMEOUT), '--', sys.executable, os.path.abspath(__file__),
+         'parallel-rank', work, what], cwd=ROOT, capture_output=True,
+        text=True, timeout=PAR_TIMEOUT + 60)
+    tails = ''
+    for r in range(nprocs):
+        path = os.path.join(logs, f'proc_{r}.log')
+        if os.path.exists(path):
+            with open(path) as fh:
+                tails += f'--- rank {r} ---\n' + fh.read()[-2500:]
+    check(run.returncode == 0,
+          f'17 {what}: a rank failed ({run.returncode}): {run.stderr}{tails}')
+    import numpy as np
+    return ([json.load(open(os.path.join(work, f'{what}_rank{r}.json')))
+             for r in range(nprocs)],
+            [dict(np.load(os.path.join(work, f'{what}_rank{r}.npz')))
+             for r in range(nprocs)], time.perf_counter() - t0)
+
+
+def par_log(path):
+    import csv
+    with open(os.path.join(path, 'log.csv')) as fh:
+        return list(csv.DictReader(fh))
+
+
+def phase_parallel(torch, fd, fdd, fk):
+    """Phase 17 (see the module docstring): the one-process references in
+    this process, then two launches of ranks on this card. -> {'dense':
+    {kernel: launches per rank per step}, 'klist': ...}."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.data.loader import collate, parse_xyz
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    t17 = time.perf_counter()
+    card = card_name()
+    work = tempfile.mkdtemp(prefix='phase17_')
+    # one process: 17a's steps, the CLI epoch, 17b's requests
+    one = {key: par_steps(torch, fd, fdd, fk, None, layout, opt)
+           for (layout, opt), key in PAR_RUNS.items()}
+    batches, stats, cfg = par_batches()
+    b0 = {k: torch.as_tensor(v).cuda() for k, v in batches[0].items()}
+    main_loss = par_trainer(torch, stats, cfg).main_loss
+    start = par_trainer(torch, stats, cfg).model
+    loss64, ulp_term = float64_loss(fd, main_loss, b0, start)
+    bar1 = ulp_term / loss64
+    del start
+    train_from_settings(par_settings(os.path.join(work, 'cli_sp')))
+    samples = parse_xyz(XYZ)
+    asp = [collate(samples[k:k + 100], n_pad=21) for k in range(0, 500, 100)]
+    xla = load_model(XLA_CKPT)
+
+    def whole(z, pos, cell):
+        out = xla(z, pos, cell)
+        return out['energy'], out['gradient_force']
+
+    def to_dev(b):
+        return [torch.from_numpy(b[k]).cuda() for k in ('z', 'pos', 'cell')]
+    e_mae1, f_mae1, asp_ms1 = par_aspirin(torch, whole, to_dev, asp)
+    del xla
+    model = cluster_model(torch)
+
+    def request(z, pos, cell):
+        out = model(z, pos, cell)
+        return out['energy'], out['gradient_force']
+    clusters = [cluster_frame(np, 0), cluster_frame(np, 1)]
+    ref = [par_cluster(torch, request, [c]) for c in clusters]
+    del model
+    torch.cuda.empty_cache()
+    # the ranks: 17a and 17b at (1, 2), then 17b at (2, 2)
+    dp, dp_arr, dp_s = launch_ranks(work, 'dp', 2)
+    gp, gp_arr, gp_s = launch_ranks(work, 'gp', 4)
+
+    # 17a: the steps against the one-process run on whole batches (step 1,
+    # and with SGD every step) and on the ranks' halves (every step, bit
+    # for bit), and the control
+    halves = {key: par_halves(torch, fd, fdd, fk, layout, opt)
+              for (layout, opt), key in PAR_RUNS.items()}
+
+    def rel_to(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def rel_steps(a, b):
+        return [abs(x - y) / abs(y) for x, y in zip(a, b)]
+    rows, fails = {}, []
+    for (layout, opt), key in PAR_RUNS.items():
+        o = one[key]
+        h_grad1, h_losses = halves[key]
+        bar = PAR_GRAD_BAR[layout]
+        need = DENSE_FP32 if layout == 'dense' else KLIST_NAMES
+        for r, (res, arr) in enumerate(zip(dp, dp_arr)):
+            got = res[key]
+            rel1 = abs(got['losses'][0] - o['losses'][0]) / abs(
+                o['losses'][0])
+            whole = rel_steps(got['losses'], o['losses'])
+            row = dict(optimizer=opt, loss1_rel=rel1, loss1_bar=bar1,
+                       steps_rel_vs_halves=rel_steps(got['losses'],
+                                                     h_losses),
+                       steps_rel_vs_whole=whole,
+                       halves_vs_whole=rel_steps(h_losses, o['losses']))
+            checks = [
+                (rel1 <= bar1, f'{key} rank {r}: step 1 loss'),
+                (got['losses'] == h_losses,
+                 f'{key} rank {r}: steps not bit for bit the halves'),
+                (all(got['launches_per_step'].get(k, 0) > 0 for k in need),
+                 f'{key} rank {r}: a kernel was not launched: '
+                 f'{got["launches_per_step"]}')]
+            if opt == 'sgd':
+                g1 = rel_to(arr[f'{key}_grad1'], o['grad1'])
+                ctl = rel_to(arr[f'{key}_grad1_no_allreduce'], o['grad1'])
+                g1h = rel_to(arr[f'{key}_grad1'], h_grad1)
+                row.update(grad1_rel_norm=g1, grad1_bar=bar,
+                           control_no_allreduce_rel_norm=ctl,
+                           grad1_rel_norm_vs_halves=g1h,
+                           steps_bar=PAR_LOSS_BAR)
+                checks += [
+                    (g1 <= bar, f'{key} rank {r}: step 1 gradient'),
+                    (g1h == 0.0,
+                     f'{key} rank {r}: step 1 gradient vs the halves'),
+                    (ctl > bar, f'{key} rank {r}: the control without the '
+                     'all-reduce passed the gradient bar'),
+                    (max(whole[1:]) <= PAR_LOSS_BAR,
+                     f'{key} rank {r}: steps 2-10')]
+            rows[f'{key}_rank{r}'] = row
+            fails += [what for ok, what in checks if not ok]
+    emit('parallel_steps', card=card, backend=dp[0]['backend'],
+         describe=[r['describe'] for r in dp], checks=rows,
+         one_process={k: {x: v[x] for x in (
+             'steps_per_s', 'step_ms', 'launches_per_step',
+             'syncs_per_step') if x in v} for k, v in one.items()},
+         ranks={f'{key}_rank{r}': {x: res[key][x] for x in (
+             'steps_per_s', 'step_ms', 'launches_per_step',
+             'collective_ms_per_step', 'collectives_per_step',
+             'syncs_per_step', 'sync_sites') if x in res[key]}
+             for key in PAR_RUNS.values()
+             for r, res in enumerate(dp)})
+    check(not fails, f'17a: {fails}')
+    # the CLI epoch, data 2 against data 1
+    mp_dirs = sorted(os.listdir(os.path.join(work, 'cli_mp')))
+    check(mp_dirs == ['training_1'], f'17a CLI run directories {mp_dirs}')
+    mp = par_log(os.path.join(work, 'cli_mp', 'training_1'))
+    sp = par_log(os.path.join(work, 'cli_sp', 'training_1'))
+    check([r['epoch'] for r in mp] == [r['epoch'] for r in sp],
+          f'17a CLI rows {[r["epoch"] for r in mp]}')
+    worst, same = 0.0, []
+    for a, b in zip(mp, sp):
+        for key, value in b.items():
+            if key in PAR_TIMING_COLUMNS or key == 'epoch':
+                continue
+            try:
+                worst = max(worst, abs(float(a[key]) - float(value))
+                            / max(abs(float(value)), 1e-30))
+            except ValueError:  # best_model
+                same.append(a[key] == value)
+    emit('parallel_cli', card=card, rows=[r['epoch'] for r in mp],
+         worst_rel=worst, bar=PAR_LOG_REL, flags_equal=all(same),
+         seconds_2_ranks=dp[0]['cli_seconds'],
+         collectives_2_ranks=dp[0]['cli_collectives'],
+         epoch_seconds={'1': sp[0]['epoch_seconds'],
+                        '2': mp[0]['epoch_seconds']})
+    check(all(same), '17a CLI best_model flags')
+    check(worst <= PAR_LOG_REL, f'17a CLI log.csv {worst}')
+    # 17b: the aspirin frames at (1, 2)
+    a = dp[0]['aspirin']
+    emit('parallel_aspirin', card=card, mesh={'data': 1, 'graph': 2},
+         energy_mae=a['energy_mae'], force_mae=a['force_mae'],
+         one_process=[e_mae1, f_mae1],
+         jax=[JAX_XLA_ENERGY_MAE, JAX_XLA_FORCE_MAE],
+         batch_ms=a['batch_ms'], one_process_batch_ms=asp_ms1,
+         collectives=a['collectives'])
+    check(abs(a['energy_mae'] - JAX_XLA_ENERGY_MAE) <= 5e-4,
+          f'17b energy MAE {a["energy_mae"]}')
+    check(abs(a['force_mae'] - JAX_XLA_FORCE_MAE) <= 5e-5,
+          f'17b force MAE {a["force_mae"]}')
+    # 17b: the cluster at (1, 2) and (2, 2)
+    e_ref = np.concatenate([r[0] for r in ref])
+    f_ref = np.concatenate([r[1] for r in ref])
+    peak1 = min(r[2] for r in ref)
+    out = {}
+    for what, ranks, arrs in (('1x2', dp, dp_arr), ('2x2', gp, gp_arr)):
+        n = len(arrs[0]['cluster_energy'])
+        e_rel = max(float(np.abs(arr['cluster_energy'] - e_ref[:n]).max()
+                          / np.abs(e_ref[:n]).max()) for arr in arrs)
+        f_rel = max(float(np.abs(arr['cluster_forces'] - f_ref[:n]).max()
+                          / np.abs(f_ref[:n]).max()) for arr in arrs)
+        out[what] = dict(energy_rel=e_rel, force_rel=f_rel,
+                         peak_gib_per_rank=[r['cluster']['peak_gib']
+                                            for r in ranks],
+                         request_ms=[r['cluster']['request_ms']
+                                     for r in ranks],
+                         collectives=[r['cluster']['collectives']
+                                      for r in ranks])
+    emit('parallel_cluster', card=card, atoms=CLUSTER_ATOMS,
+         one_process_peak_gib=[r[2] for r in ref],
+         one_process_request_ms=[r[3] for r in ref],
+         bars=[CLUSTER_E_REL, CLUSTER_F_REL], **out)
+    for what, o in out.items():
+        check(np.isfinite(o['energy_rel']) and np.isfinite(o['force_rel'])
+              and o['energy_rel'] <= CLUSTER_E_REL
+              and o['force_rel'] <= CLUSTER_F_REL,
+              f'17b {what}: energy {o["energy_rel"]}, forces '
+              f'{o["force_rel"]}')
+    check(peak1 > CLUSTER_PEAK_GIB,
+          f'17b one-process cluster peak {peak1} GiB')
+    emit('parallel_phase', card=card, seconds=time.perf_counter() - t17,
+         launch_seconds={'dp': dp_s, 'gp': gp_s},
+         gap='ranks share one card: gloo through host memory; NCCL, '
+             'NVLink and scaling across cards are not exercised, and no '
+             'time here is a scaling result')
+    shutil.rmtree(work, ignore_errors=True)
+    return {layout: dp[0][layout]['launches_per_step']
+            for layout in ('dense', 'klist')}
+
+
+def parallel_main():
+    """`python3 chip_smoke.py parallel`: phase 17 alone (the build of its
+    libraries at the checkpoints' width, then the phase)."""
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from newtonnet_tpu_torch.ops import _build
+    from newtonnet_tpu_torch.ops import fused_dense as fd
+    from newtonnet_tpu_torch.ops import fused_dual as fdd
+    from newtonnet_tpu_torch.ops import fused_klist as fk
+    emit('env', device=torch.cuda.get_device_name(0), nvidia_smi=card_name(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+    t = time.perf_counter()
+    _build.build_all(names=('fused_dense', 'fused_dual', 'fused_klist',
+                            'row_gather'), widths=(128,))
+    emit('build', seconds=time.perf_counter() - t)
+    emit('parallel_launches', **phase_parallel(torch, fd, fdd, fk))
     return 0
 
 
@@ -7519,6 +8234,10 @@ def main():
     # K5/K6, K9/K12 as custom ops in the captured programs)
     export_launches = phase_export(torch, fd, fk, rg, batches, samples,
                                    to_dev)
+    # 17. parallelism: data-parallel fine-tuning (K1-K4, then K5-K8, on
+    # each rank) and graph-parallel dense serving, ranks as processes on
+    # this card
+    par_launches = phase_parallel(torch, fd, fdd, fk)
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -7734,6 +8453,11 @@ def main():
                     if name in n}
         if replayed:
             row['export_launches_per_call'] = replayed
+        # launches per rank per data-parallel step of phase 17a
+        dp = {f'{layout}_step': n[name] for layout, n in par_launches.items()
+              if name in n}
+        if dp:
+            row['dp_launches_per_step'] = dp
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
@@ -7745,9 +8469,12 @@ def main():
 
 if __name__ == '__main__':
     try:
-        modes = {'md-aspirin': md_aspirin_main, 'export': export_main}
+        modes = {'md-aspirin': md_aspirin_main, 'export': export_main,
+                 'parallel': parallel_main}
         if sys.argv[1:2] == ['replay']:
             sys.exit(replay_main(sys.argv[2]))
+        if sys.argv[1:2] == ['parallel-rank']:
+            sys.exit(parallel_rank_main(sys.argv[2], sys.argv[3]))
         sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and
                  sys.argv[1] in modes else main())
     except PhaseFailed as exc:

@@ -4,15 +4,34 @@
 //
 // A source is rewritten for g++ (cuda_runtime.h -> this header, dynamic
 // shared memory -> g_smem, `k<<<grid, block, smem, stream>>>(args)` ->
-// emu_launch) and run with one std::thread per CUDA thread:
-// __syncthreads is a barrier over the block, __syncwarp one over the warp,
-// __shfl_xor_sync exchanges through a per-warp buffer between two per-warp
-// barriers. Lanes run as independent threads, as the CUDA memory model
-// allows, so a missing __syncwarp shows as a race. Blocks run one
-// after another; each starts with its shared memory filled with NaN, so a
-// read of shared memory that the block never wrote shows in the results.
-// It checks indexing, masking and barrier placement, not speed, and it
-// does not model warp-synchronous execution.
+// emu_launch) and run with one fiber per CUDA thread on the launching
+// thread (each on a stack of its own, switched by emu_ctx_switch: the
+// callee-saved registers and the stack pointer, no system call):
+// __syncthreads is a barrier over the block, __syncwarp one over the
+// warp, __shfl_xor_sync exchanges through a per-warp buffer between two
+// per-warp barriers. A fiber runs from one barrier to the next. The
+// scheduler always resumes the runnable fiber first in an order of the
+// block's threads (the warps in a random order, each warp's lanes in a
+// random order), drawn anew at each barrier of the block from a generator
+// seeded by the launch itself (its kernel's name, grid, block and shared
+// memory bytes: the same orders in every run, whatever ran before in the
+// process): the first warp runs
+// as far as the block's next barrier before the second starts, so a read
+// that a missing barrier lets run before its write, or a write before
+// another warp's read, shows in the results, in either direction across
+// the phases. Lanes run independently, as the CUDA memory model allows,
+// so a missing __syncwarp shows the same way. A barrier costs each fiber
+// one switch, where a thread per CUDA thread cost the machine's scheduler
+// a wake-up of every waiter, so the emulation's time does not follow the
+// machine's load. A block whose fibers all wait on barriers that cannot
+// complete (a barrier some threads skip) aborts with a message, and so
+// does a launch that runs past kEmuLaunchSeconds (a fiber that never
+// reaches its next barrier, as a mutant's out-of-range writes can make
+// it), checked by a watchdog thread. Blocks
+// run one after another; each starts with its shared memory filled with
+// NaN, so a read of shared memory that the block never wrote shows in the
+// results. It checks indexing, masking and barrier placement, not speed,
+// and it does not model warp-synchronous execution.
 //
 // The PTX wrappers of csrc/fused_klist.cu, csrc/fused_dual.cu and
 // csrc/fused_dense.cu (mma_tf32, mma_bf16, cp_async16, cp_async_commit,
@@ -25,13 +44,22 @@
 // __expf and __fdividef exactly.
 #pragma once
 #define NN_CUDA_EMU 1
+#include <sys/mman.h>
+
 #include <algorithm>
-#include <barrier>
+#include <atomic>
+#include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
+#include <mutex>
+#include <random>
+#include <string_view>
 #include <thread>
 #include <vector>
 
@@ -40,10 +68,167 @@ using std::min;
 struct emu_dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-inline thread_local emu_dim3 threadIdx, blockIdx;
+// the running fiber's indices: the scheduler sets them before each resume
+inline emu_dim3 threadIdx, blockIdx;
 inline emu_dim3 blockDim, gridDim;
-inline std::barrier<>* g_block_barrier = nullptr;
-inline std::vector<std::unique_ptr<std::barrier<>>> g_warp_barriers;
+
+// emu_ctx_switch(&from_sp, to_sp): save the callee-saved registers on the
+// current stack and its pointer in from_sp, then resume the stack to_sp
+// saved the same way (or prepared by emu_fiber_stack).
+#if !defined(__x86_64__)
+#error "the CUDA emulation's fibers switch x86-64 stacks"
+#endif
+extern "C" void emu_ctx_switch(void** from_sp, void* to_sp);
+asm(R"(
+  .text
+  .p2align 4
+  .hidden emu_ctx_switch
+  .type emu_ctx_switch, @function
+emu_ctx_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_ctx_switch, .-emu_ctx_switch
+)");
+
+struct emu_fiber {
+  void* sp = nullptr;
+  char* stack = nullptr;  // kEmuFiberStack bytes, the lowest page a guard
+  bool done = false;
+  const void* waiting = nullptr;  // the barrier it waits on, if any
+};
+constexpr std::size_t kEmuFiberStack = 256 * 1024;
+inline std::vector<emu_fiber> g_fibers;
+inline void* g_sched_sp = nullptr;
+inline unsigned g_cur = 0;
+inline const std::function<void()>* g_body = nullptr;
+
+// The watchdog: a thread that aborts the process when the running launch
+// is past its deadline (steady-clock seconds; 0 while none runs).
+constexpr long long kEmuLaunchSeconds = 120;
+inline std::atomic<long long> g_deadline{0};
+inline long long emu_now_s() {
+  return std::chrono::duration_cast<std::chrono::seconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
+inline void emu_watchdog_start() {
+  static std::once_flag once;
+  std::call_once(once, [] {
+    std::thread([] {
+      for (;;) {
+        std::this_thread::sleep_for(std::chrono::seconds(1));
+        const long long d = g_deadline.load();
+        if (d && emu_now_s() > d) {
+          std::fprintf(stderr,
+                       "cuda_emu: a launch ran past %lld s (a fiber that "
+                       "never reaches its next barrier)\n",
+                       kEmuLaunchSeconds);
+          std::abort();
+        }
+      }
+    }).detach();
+  });
+}
+
+// The seed of a launch's orders: FNV-1a over its kernel's name, then its
+// grid, block and shared memory bytes.
+inline std::uint32_t emu_seed(std::string_view name, unsigned grid,
+                              unsigned block, std::size_t smem_bytes) {
+  std::uint64_t h = 0xcbf29ce484222325ull;
+  auto mix = [&](std::uint64_t v) {
+    h ^= v;
+    h *= 0x100000001b3ull;
+  };
+  for (char c : name) mix((unsigned char)c);
+  mix(grid);
+  mix(block);
+  mix(smem_bytes);
+  return (std::uint32_t)(h ^ (h >> 32));
+}
+
+// back to the scheduler
+inline void emu_yield() { emu_ctx_switch(&g_fibers[g_cur].sp, g_sched_sp); }
+
+// The scheduler's order (emu_launch): the fibers in order of priority,
+// each fiber's place in it, the first place a barrier just released, and
+// whether the block's barrier did (which draws a new order).
+inline std::vector<unsigned> g_by_prio, g_prio_pos;
+inline unsigned g_released = ~0u;
+inline bool g_phase_done = false;
+
+class emu_barrier {
+ public:
+  explicit emu_barrier(unsigned n, bool block = false)
+      : n_(n), block_(block) {}
+  void arrive_and_wait() {
+    if (++arrived_ == n_) {
+      arrived_ = 0;
+      for (unsigned t = 0; t < g_by_prio.size(); ++t)
+        if (g_fibers[t].waiting == this) {
+          g_fibers[t].waiting = nullptr;
+          g_released = std::min(g_released, g_prio_pos[t]);
+        }
+      g_phase_done = g_phase_done || block_;
+    } else {
+      g_fibers[g_cur].waiting = this;
+    }
+    // every fiber yields at a barrier, the last one too: the scheduler
+    // picks who runs first past it
+    emu_yield();
+  }
+
+ private:
+  const unsigned n_;
+  const bool block_;
+  unsigned arrived_ = 0;
+};
+inline emu_barrier* g_block_barrier = nullptr;
+inline std::vector<std::unique_ptr<emu_barrier>> g_warp_barriers;
+
+[[noreturn]] inline void emu_fiber_main() {
+  (*g_body)();
+  g_fibers[g_cur].done = true;
+  emu_yield();  // never resumed
+  std::abort();
+}
+
+// A fiber's stack, mapped once per fiber and kept: an overflow runs into
+// the guard page at its bottom and faults, rather than writing past it.
+inline char* emu_fiber_map() {
+  void* p = mmap(nullptr, kEmuFiberStack, PROT_READ | PROT_WRITE,
+                 MAP_PRIVATE | MAP_ANONYMOUS, -1, 0);
+  if (p == MAP_FAILED || mprotect(p, 4096, PROT_NONE) != 0) {
+    std::fprintf(stderr, "cuda_emu: cannot map a fiber stack\n");
+    std::abort();
+  }
+  return static_cast<char*>(p);
+}
+
+// A new fiber's stack: emu_ctx_switch's six saved registers (zero) under
+// the address of emu_fiber_main, entered by its `ret` with the stack
+// aligned as after a call.
+inline void* emu_fiber_stack(char* base) {
+  auto top = reinterpret_cast<std::uintptr_t>(base + kEmuFiberStack) &
+             ~std::uintptr_t(15);
+  auto* sp = reinterpret_cast<void**>(top);
+  *--sp = nullptr;  // emu_fiber_main's return address: never used
+  *--sp = reinterpret_cast<void*>(&emu_fiber_main);
+  for (int r = 0; r < 6; ++r) *--sp = nullptr;
+  return sp;
+}
 inline float g_shfl[32][32];
 inline float* g_smem = nullptr;
 
@@ -211,26 +396,83 @@ inline float __bfloat162float(__nv_bfloat16 h) {
   return f;
 }
 
-inline void emu_launch(unsigned grid, unsigned block, size_t smem_bytes,
-                       const std::function<void()>& body) {
+inline void emu_launch(const char* name, unsigned grid, unsigned block,
+                       size_t smem_bytes, const std::function<void()>& body) {
   blockDim.x = block;
   gridDim.x = grid;
+  g_body = &body;
   std::vector<float> smem(smem_bytes / sizeof(float) + 1);
+  if (g_fibers.size() < block) g_fibers.resize(block);
+  std::mt19937 rng(emu_seed(name, grid, block, smem_bytes));
+  emu_watchdog_start();
+  g_deadline.store(emu_now_s() + kEmuLaunchSeconds);
+  const unsigned warps = (block + 31) / 32;
+  std::vector<unsigned> warp_order(warps), lane_order(32);
+  // a new order: the warps in a random order, and within each warp its
+  // lanes in a random order
+  auto draw = [&] {
+    for (unsigned w = 0; w < warps; ++w) warp_order[w] = w;
+    std::shuffle(warp_order.begin(), warp_order.end(), rng);
+    g_by_prio.clear();
+    for (unsigned w : warp_order) {
+      for (unsigned l = 0; l < 32; ++l) lane_order[l] = l;
+      std::shuffle(lane_order.begin(), lane_order.end(), rng);
+      for (unsigned l : lane_order)
+        if (w * 32 + l < block) g_by_prio.push_back(w * 32 + l);
+    }
+    for (unsigned i = 0; i < block; ++i) g_prio_pos[g_by_prio[i]] = i;
+  };
+  g_prio_pos.assign(block, 0);
   for (unsigned b = 0; b < grid; ++b) {
     std::fill(smem.begin(), smem.end(), std::nanf(""));
     g_smem = smem.data();
-    std::barrier<> bar(block);
+    emu_barrier bar(block, true);
     g_block_barrier = &bar;
     g_warp_barriers.clear();
     for (unsigned w = 0; w < (block + 31) / 32; ++w)
-      g_warp_barriers.push_back(std::make_unique<std::barrier<>>(32));
-    std::vector<std::thread> threads;
-    for (unsigned t = 0; t < block; ++t)
-      threads.emplace_back([&, t, b] {
-        threadIdx.x = t;
-        blockIdx.x = b;
-        body();
-      });
-    for (auto& th : threads) th.join();
+      g_warp_barriers.push_back(std::make_unique<emu_barrier>(32));
+    for (unsigned t = 0; t < block; ++t) {
+      emu_fiber& f = g_fibers[t];
+      if (!f.stack) f.stack = emu_fiber_map();
+      f.sp = emu_fiber_stack(f.stack);
+      f.done = false;
+      f.waiting = nullptr;
+    }
+    // Always resume the runnable fiber first in the order: the first warp
+    // runs as far as the block's next barrier before the second starts, so
+    // a warp that a missing barrier lets run ahead of another (a write
+    // before the other's read, or the reverse) does so. The order is drawn
+    // anew at each of the block's barriers, so either warp of a pair leads
+    // in some phase.
+    draw();
+    for (unsigned left = block, pos = 0; left;) {
+      if (pos == block) {
+        std::fprintf(stderr,
+                     "cuda_emu: block %u of %u threads: %u threads wait on "
+                     "barriers the others never reach\n",
+                     b, block, left);
+        std::abort();
+      }
+      const unsigned t = g_by_prio[pos];
+      if (g_fibers[t].done || g_fibers[t].waiting) {
+        ++pos;
+        continue;
+      }
+      g_cur = t;
+      threadIdx.x = t;
+      blockIdx.x = b;
+      emu_ctx_switch(&g_sched_sp, g_fibers[t].sp);
+      if (g_fibers[t].done) --left;
+      if (g_phase_done) {
+        g_phase_done = false;
+        g_released = ~0u;
+        draw();
+        pos = 0;
+      } else if (g_released < pos) {
+        pos = g_released;
+      }
+      g_released = ~0u;
+    }
   }
+  g_deadline.store(0);
 }

@@ -6,7 +6,12 @@ parameter modules of models/newtonnet.py.
 Graph layouts:
 
 * dense: the (B, N, N) pair tensor of ops/neighbors.dense_graph, summed
-  over the neighbour axis j = 2.
+  over the neighbour axis j = 2. Atom-sharded (graph parallelism,
+  parallel/graph_parallel.py): the rows are this rank's block of atoms and
+  the columns all of them (ops/neighbors.dense_graph_sharded), and each
+  layer all-gathers the neighbour side's node features over the mesh's
+  'graph' group (Edges.cols; the JAX package's InteractionNet.gather_cols,
+  whose backward is the reduce-scatter).
 * neighbour lists, K-major: every per-edge tensor is (B, K, N, ...) and
   the sums run over the slot axis 1. The neighbour features come from
   - gather_nodes on a plain full list (built here by neighbor_list, or by
@@ -76,7 +81,10 @@ from newtonnet_tpu_torch.layers.representations import (
 )
 from newtonnet_tpu_torch.models.fused_klist import COMPUTE_DTYPES
 from newtonnet_tpu_torch.ops.cellgrid import cell_grid_neighbor_list
-from newtonnet_tpu_torch.ops.neighbors import dense_graph
+from newtonnet_tpu_torch.ops.neighbors import (
+    dense_graph,
+    dense_graph_sharded,
+)
 from newtonnet_tpu_torch.ops.nlist import (
     build_reverse_list,
     edge_gather,
@@ -88,19 +96,23 @@ from newtonnet_tpu_torch.ops.nlist import (
     recompute_displacements,
     recompute_displacements_kn,
 )
+from newtonnet_tpu_torch.parallel.collectives import gather_rows
 
 
 class Edges(NamedTuple):
     '''The graph one layer sees. Dense: mask (B, N, N), dir (B, N, N, 3),
-    rbf (B, N, N, R), gather None. K-major lists: mask (B, K, N), dir
-    (B, K, N, 3), rbf (B, K, N, R) and gather: x (B, N, ...) -> (B, K, N,
-    ...); for a newton3 half list also mirror: y (B, K, N, ...) ->
-    (B, N, ...), the sum onto each edge's stored neighbour.'''
+    rbf (B, N, N, R), gather None, and with sharded atoms (B, N_loc, N,
+    ...) with cols: x (B, N_loc, ...) -> (B, N, ...), the all-gather of the
+    neighbour side. K-major lists: mask (B, K, N), dir (B, K, N, 3), rbf
+    (B, K, N, R) and gather: x (B, N, ...) -> (B, K, N, ...); for a newton3
+    half list also mirror: y (B, K, N, ...) -> (B, N, ...), the sum onto
+    each edge's stored neighbour.'''
     mask: torch.Tensor
     dir: torch.Tensor
     rbf: torch.Tensor
     gather: Optional[Callable] = None
     mirror: Optional[Callable] = None
+    cols: Optional[Callable] = None
 
 
 class StairEdges(NamedTuple):
@@ -120,11 +132,21 @@ def _features(model, disp):
     return dir_, rbf
 
 
-def dense_edges(model, z, pos, cell):
-    disp, adj = dense_graph(pos, cell, z > 0, model.cutoff,
-                            mic_mode=model.mic_mode)
+def dense_edges(model, z, pos, cell, graph_group=None):
+    '''The dense graph's Edges; with a graph group, this rank's rows
+    against every atom (dense_graph_sharded) and the columns' gather.'''
+    if graph_group is None:
+        disp, adj = dense_graph(pos, cell, z > 0, model.cutoff,
+                                mic_mode=model.mic_mode)
+        cols = None
+    else:
+        disp, adj = dense_graph_sharded(pos, cell, z > 0, model.cutoff,
+                                        graph_group, mic_mode=model.mic_mode)
+
+        def cols(x):
+            return gather_rows(x, graph_group, 1)
     dir_, rbf = _features(model, disp)
-    return Edges(mask=adj, dir=dir_, rbf=rbf)
+    return Edges(mask=adj, dir=dir_, rbf=rbf, cols=cols)
 
 
 def _inverse_edges(model, pos, cell, idx_kn, kmask_kn, inv, inv_mask, plain,
@@ -332,9 +354,10 @@ def interaction(lp, atom_node, force_node, edges, first_layer, layer_norm):
     f = atom_node.shape[-1]
     nodepart = lp.message_nodepart(atom_node)
     if edges.gather is None:  # dense: j is axis 2
+        cols = edges.cols or (lambda x: x)
         w = edges.mask[..., None].to(atom_node.dtype)
         message = lp.message_edgepart(edges.rbf) \
-            * nodepart[:, :, None] * nodepart[:, None] * w
+            * nodepart[:, :, None] * cols(nodepart)[:, None] * w
         atom_node = atom_node + torch.sum(message, dim=2)
         phi1 = lp.equiv_message1(message) * w
         equiv = torch.stack(
@@ -343,8 +366,9 @@ def interaction(lp, atom_node, force_node, edges, first_layer, layer_norm):
         updated = force_node + equiv
         if not first_layer:
             phi2 = lp.equiv_message2(message) * w
+            force_j = cols(force_node)
             updated = updated + torch.stack(
-                [torch.sum(phi2 * force_node[:, None, :, d], dim=2)
+                [torch.sum(phi2 * force_j[:, None, :, d], dim=2)
                  for d in range(3)], dim=2)
         return _node_update(lp, atom_node, updated, layer_norm)
     msum, equiv, equiv2, S = _edge_messages(
@@ -369,13 +393,16 @@ def _cast_edges(edges, cd):
     return edges._replace(dir=edges.dir.to(cd), rbf=edges.rbf.to(cd))
 
 
-def apply_core_xla(model, z, pos, cell, nlist=None, plain=False):
+def apply_core_xla(model, z, pos, cell, nlist=None, plain=False,
+                   graph_group=None):
     '''Primal forward: {atom_node (B,N,F), force_node (B,N,3,F)} and the
     core's heads, atomic_energy (B,N,1), charge (B,N) and direct_force
     (B,N,3), computed in
     pos's dtype after a bf16 stack casts back, as the JAX core computes
     them. plain=True runs the inverse-list gathers
-    through the plain row gather (the same numbers as K9, bit for bit).'''
+    through the plain row gather (the same numbers as K9, bit for bit).
+    graph_group: the dense graph with atoms sharded over that process
+    group (z, pos this rank's block; the JAX core's shard_axis).'''
     core = model.core
     z = z.long()
     B, N = z.shape
@@ -384,7 +411,7 @@ def apply_core_xla(model, z, pos, cell, nlist=None, plain=False):
     force_node = torch.zeros((B, N, 3, core.n_features), dtype=pos.dtype,
                              device=pos.device)
     if model.graph_mode == 'dense':
-        edges = dense_edges(model, z, pos, cell)
+        edges = dense_edges(model, z, pos, cell, graph_group)
     elif model.newton3_compact:
         edges = stair_edges(model, pos, cell, nlist, plain)
     else:

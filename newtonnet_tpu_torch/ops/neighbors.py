@@ -10,8 +10,13 @@ row-vector minimum image); 'reference' uses cell, as the original
 NewtonNet code does (identical for symmetric cells).
 '''
 import torch
+import torch.distributed as dist
 
 from newtonnet_tpu_torch.ops.linalg3 import inv3x3
+from newtonnet_tpu_torch.parallel.collectives import (
+    all_gather_cat,
+    gather_rows,
+)
 
 
 def minimum_image(disp, cell, is_periodic, mic_mode='exact'):
@@ -51,5 +56,40 @@ def dense_graph(pos, cell, atom_mask, cutoff, mic_mode='exact'):
     n = pos.shape[1]
     not_self = ~torch.eye(n, dtype=torch.bool, device=pos.device)
     pair_mask = atom_mask[:, :, None] & atom_mask[:, None, :] & not_self
+    d2 = torch.sum(disp * disp, dim=-1)
+    return disp, pair_mask & (d2 < cutoff * cutoff)
+
+
+def dense_graph_sharded(pos, cell, atom_mask, cutoff, group,
+                        mic_mode='exact'):
+    '''Atom-sharded dense graph: local rows against all-gathered columns
+    (the JAX package's dense_graph_sharded).
+
+    The atom axis is split in equal blocks over the ranks of `group` (a
+    mesh's 'graph' group), block r on the group's rank r. The positions
+    and masks of every block are all-gathered once (they are small, (B, N,
+    3)); the O(N_loc x N) pair tensors stay local. The positions' gather
+    is differentiable: its backward sums the cotangents over the group and
+    keeps this rank's block.
+
+    Args:
+        pos: (B, N_loc, 3) this rank's positions.
+        atom_mask: (B, N_loc) this rank's validity.
+        group: the process group (None: one block, the dense graph).
+
+    Returns:
+        disp (B, N_loc, N, 3), adj (B, N_loc, N) -- rows local, columns
+        global.
+    '''
+    pos_all = gather_rows(pos, group, 1)
+    mask_all = all_gather_cat(atom_mask, group, 1)
+    n_loc, n = pos.shape[1], pos_all.shape[1]
+    offset = (dist.get_rank(group) if group is not None else 0) * n_loc
+    disp = pos[:, :, None, :] - pos_all[:, None, :, :]
+    is_periodic = torch.any((cell != 0).flatten(1), dim=-1)
+    disp = minimum_image(disp, cell, is_periodic, mic_mode=mic_mode)
+    row_ids = offset + torch.arange(n_loc, device=pos.device)
+    not_self = row_ids[:, None] != torch.arange(n, device=pos.device)[None]
+    pair_mask = atom_mask[:, :, None] & mask_all[:, None, :] & not_self
     d2 = torch.sum(disp * disp, dim=-1)
     return disp, pair_mask & (d2 < cutoff * cutoff)

@@ -130,12 +130,32 @@ class NodeTranspose(NamedTuple):
 def fixed_degree():
     '''Inside the block node_transpose pads to a bound fixed by the list's
     shape instead of reading the largest in-degree on the host, so that a
-    traced program (utils/export.py) has fixed shapes and no host sync.'''
+    traced program (utils/export.py) has fixed shapes and no host sync;
+    gather_nodes' backward then adds the slots past that pad through a
+    fixed-size overflow path (_overflow_rows), so no term is dropped.'''
     _FIXED_DEGREE[0] += 1
     try:
         yield
     finally:
         _FIXED_DEGREE[0] -= 1
+
+
+def _slot_order(idx, n_nodes, mask):
+    '''(order, sorted keys, bounds) of idx (B, R, K): a stable argsort of
+    the flat slot keys (a masked slot's key is n_nodes, past every node),
+    the keys in that order, and bounds (B, n_nodes + 1), where node j's
+    run of sorted slots is [bounds[j], bounds[j + 1]).'''
+    B = idx.shape[0]
+    S = idx.shape[1] * idx.shape[2]
+    key = idx.reshape(B, S).long()
+    if mask is not None:
+        key = torch.where(mask.reshape(B, S).bool(), key, n_nodes)
+    order = torch.argsort(key, dim=1, stable=True)
+    keys = torch.gather(key, 1, order).contiguous()
+    bounds = torch.searchsorted(
+        keys, torch.arange(n_nodes + 1, device=idx.device)
+        .expand(B, -1).contiguous())
+    return order, keys, bounds
 
 
 def node_transpose(idx, n_nodes, mask=None):
@@ -149,17 +169,13 @@ def node_transpose(idx, n_nodes, mask=None):
     capacity in both layouts (atom-major (B, N, K) and slot-major (B, K,
     N)). A node's in-degree stays within it wherever no atom has more
     neighbours in range than the capacity (neighbor_list's overflow count
-    is 0); the slots of a node past it would be dropped from the sum.'''
+    is 0); where one has, another node's in-degree can pass it (a crowded
+    atom is listed by more rows than the capacity), and gather_nodes'
+    backward sums the slots past the pad through _overflow_rows.'''
     B = idx.shape[0]
     S = idx.shape[1] * idx.shape[2]
     dev = idx.device
-    key = idx.reshape(B, S).long()
-    if mask is not None:
-        key = torch.where(mask.reshape(B, S).bool(), key, n_nodes)
-    order = torch.argsort(key, dim=1, stable=True)
-    bounds = torch.searchsorted(
-        torch.gather(key, 1, order).contiguous(),
-        torch.arange(n_nodes + 1, device=dev).expand(B, -1).contiguous())
+    order, _, bounds = _slot_order(idx, n_nodes, mask)
     start, deg = bounds[:, :-1], bounds[:, 1:] - bounds[:, :-1]
     if _FIXED_DEGREE[0]:
         D = max(min(idx.shape[1], idx.shape[2]), 1)
@@ -181,14 +197,42 @@ def _gather_rows(x, idx):
     return torch.gather(flat, 1, index).reshape((B, R, K) + x.shape[2:])
 
 
-def _scatter_rows(y, tr):
+def _overflow_rows(rows, idx, mask, n_nodes, D):
+    '''The sums of each node's slot rows past the first D of its run
+    (B, n_nodes, F), in float64, for rows (B, R*K, F) of a list idx (B, R,
+    K): the fixed-size overflow path of a transpose padded to D columns
+    (fixed_degree). One row gather puts the rows in the transpose's order
+    behind a zero row; those at a rank D or more within their node's run
+    are kept and the others zeroed, and a prefix sum along the order gives
+    at position i the sum of the sorted rows before i. A node's overflow is
+    the prefix at the end of its run less the prefix at its D-th slot
+    (masked slots sort last, past every node's run, and are never read).
+    Where no node passes D every kept row is zero and so is every sum,
+    exactly. Fixed shapes, no host read, no atomics: the same bits in every
+    run.'''
+    B, S, Ff = rows.shape
+    order, keys, bounds = _slot_order(idx, n_nodes, mask)
+    rank = torch.arange(S, device=rows.device) - torch.gather(bounds, 1, keys)
+    keep = torch.nn.functional.pad(rank >= D, (1, 0))
+    prefix = torch.cumsum(
+        row_gather(rows, torch.nn.functional.pad(order, (1, 0)))
+        .masked_fill_(~keep[..., None], 0), dim=1, dtype=torch.float64)
+    end = bounds[:, 1:]
+    at = torch.cat([torch.minimum(bounds[:, :-1] + D, end), end], 1)
+    got = torch.gather(prefix, 1, at[..., None].expand(B, 2 * n_nodes, Ff))
+    return got[:, n_nodes:] - got[:, :n_nodes]
+
+
+def _scatter_rows(y, tr, overflow=None):
     '''out[b, j] = sum_d where(tr.valid[b, j, d], y_flat[b, tr.slots[b, j,
     d]], 0) for y (B, R, K, ...): per chunk of columns d (as many as fit
     TRANSPOSE_CHUNK_BYTES of gathered rows) one row gather of the (B, R*K,
     F) cotangent rows, then the mask and the sum over the chunk,
     accumulated chunk after chunk. Sums run in fp32 (fp64 for fp64 y) in
     the order of d, and the result is rounded to y's dtype once: the same
-    bits in every run.'''
+    bits in every run. overflow: the list (idx, mask) of a transpose
+    padded to a fixed width (fixed_degree), whose slots past the pad
+    _overflow_rows adds before the rounding.'''
     B, N, D = tr.slots.shape
     feat = y.shape[3:]
     rows = y.reshape(B, y.shape[1] * y.shape[2], -1).contiguous()
@@ -202,6 +246,8 @@ def _scatter_rows(y, tr):
         g = row_gather(rows, tr.slots[:, :, d0:d0 + c].reshape(B, N * c))
         g = torch.where(tr.valid[:, :, d0:d0 + c].reshape(B, N * c, 1), g, 0)
         acc = acc + g.reshape(B, N, c, Ff).sum(2, dtype=acc_dt)
+    if overflow is not None:
+        acc = acc + _overflow_rows(rows, *overflow, N, D).to(acc_dt)
     return acc.to(y.dtype).reshape((B, N) + feat)
 
 
@@ -278,7 +324,10 @@ class ScatterNodes(torch.autograd.Function):
     @staticmethod
     def forward(y, idx, mask, slots, valid):
         with torch.profiler.record_function('gather_nodes_backward'):
-            return _scatter_rows(y, NodeTranspose(slots, valid))
+            # under fixed_degree the transpose is at the fixed pad: the
+            # slots past it go through the overflow path
+            return _scatter_rows(y, NodeTranspose(slots, valid),
+                                 (idx, mask) if _FIXED_DEGREE[0] else None)
 
     @staticmethod
     def setup_context(ctx, inputs, output):

@@ -6,16 +6,27 @@
 The same YAML schema (general / data / model / training). general.device
 'cpu' trains on the CPU (the kernels' plain versions); any other value
 trains on CUDA and raises where there is none. model.pretrained_model.path
-to a .msgpack checkpoint warm-starts from it, with its freeze flags. Both
+to a .msgpack checkpoint, or to a reference .pt checkpoint
+(utils/torch_import.py), warm-starts from it, with its freeze flags. Both
 kernels train: kernel='xla' (the default, as scripts/config.yml and
 artifacts/md17_model/config.yml have it) and kernel='pallas'.
 general.matmul_precision and training.eval_matmul_precision take
 'highest' (or nothing): the port computes in IEEE fp32; other values raise
-ValueError. Not ported, and refused with NotImplementedError before any
-data is read: a .pt warm start, a set training.parallel, training.halo, a
-set training.wandb, training.profile_dir and general.debug_nans.
-training.steps_per_call is accepted and does nothing (eager PyTorch has
-no dispatch chunking, and bucketed batches change shape anyway).
+ValueError.
+
+Several processes: started by parallel/launch.py (or any launcher that
+exports NEWTONNET_DIST_COORD, _NPROCS and _PROCID), each process joins the
+process group before any device use (parallel/distributed.
+maybe_initialize_from_env: NCCL where each rank has a card of its own,
+gloo where they share one or on the CPU; the choice is printed), and
+training.parallel {data: D, graph: G} builds the Trainer's mesh
+(parallel/mesh.make_mesh).
+
+Not ported, and refused with NotImplementedError before any data is read:
+training.halo, a set training.wandb, training.profile_dir and
+general.debug_nans. training.steps_per_call is accepted and does nothing
+(eager PyTorch has no dispatch chunking, and bucketed batches change shape
+anyway).
 '''
 import argparse
 import os
@@ -47,12 +58,11 @@ def train_from_settings(settings, settings_path=None, resume=None):
     dict of the YAML schema (consumed as the JAX CLI consumes it), train,
     and return the Trainer. `resume` is a training_{n} directory.'''
     general, training = settings['general'], settings['training']
-    for key, item in (('wandb', 'training extras'),
-                      ('parallel', 'parallelism')):
-        # popped as the JAX CLI pops them: the Trainer takes neither
-        if training.pop(key, None):
-            raise NotImplementedError(
-                _NOT_PORTED.format(f'training.{key}', item))
+    # popped as the JAX CLI pops it: the Trainer does not take it
+    if training.pop('wandb', None):
+        raise NotImplementedError(
+            _NOT_PORTED.format('training.wandb', 'training extras'))
+    parallel = training.pop('parallel', None)
     if general.get('debug_nans', False):
         raise NotImplementedError(
             _NOT_PORTED.format('general.debug_nans', 'training extras'))
@@ -77,8 +87,21 @@ def train_from_settings(settings, settings_path=None, resume=None):
     from newtonnet_tpu_torch.train.trainer import Trainer
     from newtonnet_tpu_torch.utils.checkpoint import load_model
 
-    device = resolve_device('cpu' if general.get('device') == 'cpu'
-                            else None)
+    from newtonnet_tpu_torch.parallel import distributed
+    kind = 'cpu' if general.get('device') == 'cpu' else 'cuda'
+    if kind == 'cuda':
+        resolve_device()  # raises where there is no card
+    # before any device use, as the JAX CLI initialises jax.distributed
+    if distributed.maybe_initialize_from_env(kind):
+        device = distributed.rank_device(kind, distributed.world()[0])
+        print(distributed.describe(device))
+    else:
+        device = resolve_device('cpu' if kind == 'cpu' else None)
+    mesh = None
+    if parallel:
+        from newtonnet_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(**parallel)
+        print(f'mesh: {mesh}')
     pretrained = settings['model'].get('pretrained_model')
     dtype = get_precision_by_string(general['precision'])
     seed = general.get('seed', 0)
@@ -143,6 +166,7 @@ def train_from_settings(settings, settings_path=None, resume=None):
         val_generator=val_gen,
         test_generator=test_gen,
         freeze=freeze,
+        mesh=mesh,
         **training,
     )
     if resume is not None:

@@ -6,21 +6,29 @@
     energy per atom, cos/norm transforms of direct forces).
 Every mean is masked: padding atoms (z = 0) and padding graphs
 (graph_mask False) contribute nothing. Inputs are torch tensors.
+
+A data-parallel rank holds some rows of the global batch
+(parallel/distributed.global_data_batch), which carries the global
+batch's counts of real graphs and atoms (batch['graph_count'],
+batch['atom_count']). Each mean then divides by the global count, so the
+ranks' losses are partial sums that add up to the global batch's loss (a
+mean over local counts would weigh a rank by its own padding).
 '''
 import torch
 
 
-def _masked_mean(err, mask):
+def _masked_mean(err, mask, count=None):
     '''Mean of err over the entries where mask is True; mask broadcasts over
-    err's trailing dimensions, which all count.'''
+    err's trailing dimensions, which all count. `count`: the number of
+    True entries of the global batch's mask (default: mask's own).'''
     mask = mask.to(err.dtype)
     extra = 1
     for d in err.shape[mask.ndim:]:
         extra *= d
     total = torch.sum(err * mask.reshape(mask.shape
                                          + (1,) * (err.ndim - mask.ndim)))
-    count = torch.sum(mask) * extra
-    return total / torch.clamp(count, min=1.0)
+    count = torch.sum(mask) if count is None else count.to(err.dtype)
+    return total / torch.clamp(count * extra, min=1.0)
 
 
 def _elementwise(mode, pred, ref, delta=1.0):
@@ -44,7 +52,8 @@ def _energy_loss(mode, per_atom=False, weight=1.0, **kw):
             n = n.to(pred.dtype)
             pred, ref = pred / n, ref / n
         err = _elementwise(mode, pred, ref, **kw)
-        return weight * _masked_mean(err, batch['graph_mask'])
+        return weight * _masked_mean(err, batch['graph_mask'],
+                                     batch.get('graph_count'))
     return fn
 
 
@@ -65,7 +74,8 @@ def _force_loss(key, mode, transform=None, weight=1.0, **kw):
             err = _elementwise(mode, pred, ref, **kw)
         else:
             raise ValueError(f'transform {transform} not implemented')
-        return weight * _masked_mean(err, atom_mask)
+        return weight * _masked_mean(err, atom_mask,
+                                     batch.get('atom_count'))
     return fn
 
 
@@ -74,7 +84,8 @@ def _graph_tensor_loss(key, mode, weight=1.0, **kw):
     graphs.'''
     def fn(preds, batch):
         err = _elementwise(mode, preds[key], batch[key], **kw)
-        return weight * _masked_mean(err, batch['graph_mask'])
+        return weight * _masked_mean(err, batch['graph_mask'],
+                                     batch.get('graph_count'))
     return fn
 
 

@@ -1,5 +1,5 @@
-'''The training loop (the JAX package's train/trainer.py, one process on
-one device).
+'''The training loop (the JAX package's train/trainer.py): one process
+on one device, or data-parallel ranks over a mesh (below).
 
 Same surface and the same records: training_{n}/ with run_scripts/ and
 models/{best,last}_model.msgpack, train/val/test cadence, log.csv with the
@@ -39,14 +39,31 @@ errors (_check_batch_nlist). Every list layout keeps the step gather-only:
 inv_gather / inv_scatter_sum, gather_nodes and edge_gather have gather
 backwards in every order.
 
-Not here (ROADMAP.md A, "parallelism" and "training extras"): meshes,
-halo exchange, several processes, wandb, the profiler hook and the
-standard step over a kernel='pallas' model (`halo`, `profile_dir` and
-that step raise NotImplementedError).
+Data parallelism (mesh=, parallel/mesh.make_mesh; the JAX Trainer's
+mesh): every rank iterates the same seeded loader and keeps its rows of
+each batch (parallel/distributed.global_data_batch), whose global masked
+counts make each rank's loss a partial sum of the global batch's loss
+(train/loss.py). After each rank's gradient, the gradients are summed
+over the mesh's data group as one flat buffer in parameter order, before
+the optimizer (so clip_grad sees the global norm); the parameters are
+broadcast from rank 0 when the Trainer is built; the metrics (losses,
+MAEs, edge counts) are summed over the data group, so log.csv has the
+global batch's; validation and test epochs are sharded the same way. A
+graph axis above 1 replicates the data rows over the graph ranks (P('data')
+on a (D, G) mesh). Only the chief (rank 0) writes the run directory, the
+checkpoints and log.csv. The final re-evaluation of the last and best
+models runs on every rank from the parameters in memory (the best ones
+kept as they pass), with or without a mesh.
+
+Not here (ROADMAP.md A, "parallelism" and "training extras"): halo
+exchange, wandb, the profiler hook and the standard step over a
+kernel='pallas' model (`halo`, `profile_dir` and that step raise
+NotImplementedError).
 The JAX Trainer's steps_per_call, which chunks steps into one device
 dispatch, is accepted and does nothing: eager PyTorch dispatches each
 operation as it comes.
 '''
+import copy
 import csv
 import os
 import shutil
@@ -62,6 +79,9 @@ from newtonnet_tpu_torch.layers.precision import (
 )
 from newtonnet_tpu_torch.ops.neighbors import dense_graph
 from newtonnet_tpu_torch.ops.nlist import build_inverse_list
+from newtonnet_tpu_torch.parallel import collectives
+from newtonnet_tpu_torch.parallel.distributed import global_data_batch
+from newtonnet_tpu_torch.parallel.mesh import world
 from newtonnet_tpu_torch.train import fastgrad
 from newtonnet_tpu_torch.train.loss import get_loss_by_string
 from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
@@ -110,7 +130,8 @@ class Trainer:
     `optimizer` from train.optimizer.get_optimizer_by_string over
     model.core (default: adam with `clip_grad`). `freeze` holds the
     pretrained warm start's freeze flags (utils/freeze.py); every other
-    parameter is trained, whatever requires_grad it came with.'''
+    parameter is trained, whatever requires_grad it came with. `mesh`: a
+    parallel/mesh.Mesh for data parallelism (module docstring).'''
 
     def __init__(
             self,
@@ -133,9 +154,12 @@ class Trainer:
             profile_dir=None,
             halo=None,
             eval_matmul_precision='highest',
+            mesh=None,
             ):
         del steps_per_call  # no dispatch chunking in eager PyTorch
         refuse_unported_extras(profile_dir=profile_dir, halo=halo)
+        if mesh is not None and mesh.coords is None:
+            raise ValueError(f'rank {world()[0]} is not in {mesh}')
         check_matmul_precision(eval_matmul_precision,
                                'eval_matmul_precision')
         if model.ewald_dispatches_at_runtime:
@@ -151,6 +175,15 @@ class Trainer:
                     "model.with_ewald_mode('periodic'|'aperiodic') when "
                     "the data's periodicity is known", stacklevel=2)
         self.model = model
+        self.mesh = mesh
+        # every rank tracks the best model where a run directory is asked
+        # for; only the chief (rank 0) writes it
+        self._is_chief = world()[0] == 0
+        self._keeps_best = output_base_path is not None
+        self._best_state = None
+        if mesh is not None:
+            # every rank starts from rank 0's parameters
+            collectives.broadcast_(list(model.core.parameters()))
         model.requires_grad_(True)
         apply_freeze(model.core, **(freeze or {}))
         self.main_loss, self.eval_loss = (
@@ -173,7 +206,7 @@ class Trainer:
         self.start_step = 0
         self.epochs = epochs
         self.log_rows = []
-        if output_base_path is not None:
+        if output_base_path is not None and self._is_chief:
             self.make_subdirs(output_base_path, script_path, settings_path)
         else:
             self.output_path = None
@@ -267,7 +300,9 @@ class Trainer:
 
     def resume(self, checkpoint_dir):
         '''Continue the run in a previous training_{n} directory: its train
-        state, best model and log are copied into this run's directory.'''
+        state, best model and log are copied into this run's directory. With
+        a mesh every rank restarts from the directory (which each must be
+        able to read); the chief copies it.'''
         if self.output_path is not None:
             for name in ('models/train_state.msgpack',
                          'models/best_model.msgpack', 'log.csv'):
@@ -290,6 +325,12 @@ class Trainer:
         if meta.get('loader_rng_state') and self.train_generator is not None:
             self.train_generator._rng.bit_generator.state = \
                 meta['loader_rng_state']
+        best_path = os.path.join(state_dir, 'models', 'best_model.msgpack')
+        if self._keeps_best and os.path.exists(best_path):
+            # the best so far, kept in memory as train() keeps it (every
+            # rank reads the checkpoint directory, as the train state)
+            self._best_state = ckpt.load_model(
+                best_path, device=self.model.device).core.state_dict()
         if self.output_path is not None:
             log_path = os.path.join(self.output_path, 'log.csv')
             if os.path.exists(log_path):
@@ -421,12 +462,42 @@ class Trainer:
         return step(self.model, self.main_loss, batch,
                     nlist=self._batch_nlist(batch))
 
+    def _shard(self, batch):
+        '''This rank's rows of a numpy batch with the global counts (with a
+        mesh), or the batch.'''
+        if self.mesh is None:
+            return batch
+        return global_data_batch(self.mesh, batch)
+
+    def _data_group(self):
+        return None if self.mesh is None else self.mesh.group('data')
+
+    def reduce_gradients(self):
+        '''Sum the parameters' gradients over the mesh's data group, as one
+        flat buffer in the order of model.core.parameters() (parameters
+        without a gradient, frozen ones, are left out on every rank).'''
+        group = self._data_group()
+        if group is None:
+            return
+        grads = [p.grad for p in self.model.core.parameters()
+                 if p.grad is not None]
+        if not grads:
+            return
+        flat = collectives.all_reduce_sum(
+            torch.cat([g.reshape(-1) for g in grads]), group)
+        at = 0
+        for g in grads:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+
     def train_step(self, batch):
         '''One optimizer step on a numpy batch; -> its metrics as 0-d
-        tensors on the device: loss, the eval battery and the edge count.'''
-        b = self._to_device(batch)
+        tensors on the device: loss, the eval battery and the edge count
+        (with a mesh, this rank's partial sums of the global batch's).'''
+        b = self._to_device(self._shard(batch))
         with fp32_matmuls():
             loss, preds = self.loss_and_grad(b)
+            self.reduce_gradients()
             if self._per_step_sched:
                 # the lr of step k is the scheduler's value before its
                 # k-th advance (torch semantics)
@@ -438,7 +509,7 @@ class Trainer:
     def eval_step(self, batch, model=None):
         '''Metrics of one numpy batch through NewtonNet.forward.'''
         model = model or self.model
-        b = self._to_device(batch)
+        b = self._to_device(self._shard(batch))
         with fp32_matmuls():
             preds = model(b['z'], b['pos'], b['cell'],
                           nlist=self._batch_nlist(b, model))
@@ -446,7 +517,9 @@ class Trainer:
                                  edges=False)
 
     def run_one_epoch(self, generator, step=False, model=None):
-        '''One pass over a loader; the metrics averaged per batch.'''
+        '''One pass over a loader; the metrics averaged per batch (with a
+        mesh, the global batches': summed over the data group once, at the
+        end).'''
         totals, n = None, 0
         for batch in generator:
             if n == 0:
@@ -456,6 +529,12 @@ class Trainer:
             totals = m if totals is None else \
                 {k: totals[k] + v for k, v in m.items()}
             n += 1
+        if totals and self._data_group() is not None:
+            keys = list(totals)
+            summed = collectives.all_reduce_sum(
+                torch.stack([totals[k].to(torch.float64) for k in keys]),
+                self._data_group())
+            totals = dict(zip(keys, summed))
         return {k: float(v) / max(n, 1) for k, v in (totals or {}).items()}
 
     def train(self):
@@ -488,17 +567,24 @@ class Trainer:
                 test_log = self.run_one_epoch(self.test_generator)
                 log_one_epoch |= {f'test_{k}': v for k, v in test_log.items()}
 
-            if epoch % self.check_log == 0 and self.model_path is not None:
+            if epoch % self.check_log == 0 and self._keeps_best:
                 val_loss = log_one_epoch.get('val_loss', float('inf'))
                 if val_loss < self.best_val_loss:
                     self.best_val_loss = val_loss
-                    ckpt.save_model(os.path.join(self.model_path,
-                                                 'best_model.msgpack'),
-                                    self.model)
+                    # every rank keeps the best parameters for the final
+                    # re-evaluation (no shared disk)
+                    self._best_state = {
+                        k: v.detach().clone() for k, v in
+                        self.model.core.state_dict().items()}
+                    if self.model_path is not None:
+                        ckpt.save_model(os.path.join(self.model_path,
+                                                     'best_model.msgpack'),
+                                        self.model)
                     log_one_epoch['best_model'] = True
-                ckpt.save_model(os.path.join(self.model_path,
-                                             'last_model.msgpack'),
-                                self.model)
+                if self.model_path is not None:
+                    ckpt.save_model(os.path.join(self.model_path,
+                                                 'last_model.msgpack'),
+                                    self.model)
             if self.output_path is not None:
                 self.local_log(log_one_epoch)
 
@@ -511,22 +597,30 @@ class Trainer:
                     self.lr_scheduler.step()
                 self.optimizer.lr = self.lr_scheduler.lr
 
-            if epoch % self.check_log == 0 and self.model_path is not None:
-                self._save_checkpoint(epoch, step)
+            if epoch % self.check_log == 0 and self._keeps_best:
+                if self.model_path is not None:
+                    self._save_checkpoint(epoch, step)
+                # every rank stops together: the schedulers see the same
+                # global metrics
                 if (self.lr_scheduler is not None
                         and self.lr_scheduler.should_stop):
                     break
 
         print('Training finished')
-        if self.model_path is None:
+        if not self._keeps_best:
             return
-        ckpt.save_model(os.path.join(self.model_path, 'last_model.msgpack'),
-                        self.model)
-        for tag in ('last', 'best'):
-            path = os.path.join(self.model_path, f'{tag}_model.msgpack')
-            if not os.path.exists(path):
-                continue
-            model = ckpt.load_model(path, device=self.model.device)
+        if self.model_path is not None:
+            ckpt.save_model(os.path.join(self.model_path,
+                                         'last_model.msgpack'), self.model)
+        # the last and best models re-evaluated from the parameters in
+        # memory, on every rank (with a mesh the eval epochs are
+        # collectives); only the chief has files to write
+        finals = [('last', self.model)]
+        if self._best_state is not None:
+            best = copy.deepcopy(self.model)
+            best.core.load_state_dict(self._best_state)
+            finals.append(('best', best))
+        for tag, model in finals:
             log_one_epoch = {'epoch': tag}
             for name, gen in (('train', self.train_generator),
                               ('val', self.val_generator),
@@ -535,4 +629,5 @@ class Trainer:
                     log = self.run_one_epoch(gen, model=model)
                     log_one_epoch |= {f'{name}_{k}': v
                                       for k, v in log.items()}
-            self.local_log(log_one_epoch)
+            if self.output_path is not None:
+                self.local_log(log_one_epoch)

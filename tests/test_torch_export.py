@@ -189,8 +189,9 @@ def test_wrappers_go_through_the_ops_with_unchanged_numbers():
 def test_fixed_degree_transpose_sums_the_same_bits():
     '''Under fixed_degree node_transpose pads to the list's capacity
     (min(R, K)) instead of reading the largest in-degree; on a list where
-    no atom overflows, the transposed sum (gather_nodes' backward) gives
-    the eager request's bits.'''
+    no atom overflows, the transposed sum (gather_nodes' backward, with
+    the fixed pad's overflow path, which then adds exact zeros) gives the
+    eager request's bits.'''
     g = torch.Generator().manual_seed(6)
     pos = torch.rand(2, 9, 3, generator=g) * 7.0
     cell = torch.zeros(2, 3, 3)
@@ -204,7 +205,7 @@ def test_fixed_degree_transpose_sums_the_same_bits():
     assert fixed.slots.shape == (2, 9, 8)
     assert eager.slots.shape[2] < 8
     assert torch.equal(tnl._scatter_rows(y, eager),
-                       tnl._scatter_rows(y, fixed))
+                       tnl._scatter_rows(y, fixed, (idx, mask)))
 
 
 # ---------------------------------------------------------------- #

@@ -246,15 +246,17 @@ def _settings(tmp_path, train_root):
     ('parallel', None, None),
     ('eval_matmul_precision', 'highest', None),
     ('wandb', {'project': 'x'}, 'training extras'),
-    ('parallel', {'data': 2}, 'parallelism')])
+    ('parallel', {'data': -1}, 'parallelism')])
 def test_jax_training_keys(tmp_path, key, value, item):
     '''training.steps_per_call trains (eager PyTorch has no dispatch
     chunking to do), and so do wandb and parallel without a value and
     eval_matmul_precision 'highest' (C9: each ended in a TypeError after
-    the data were read); profile_dir, halo and set wandb / parallel raise
+    the data were read); profile_dir, halo and a set wandb raise
     NotImplementedError naming their ROADMAP.md A item, before any data
-    is read (the data root does not exist).'''
-    if item is None:
+    is read (the data root does not exist). A set parallel trains
+    (ROADMAP.md A11a, "parallelism"): {data: -1} fills the mesh with the
+    ranks of the world, here this one process.'''
+    if item is None or key == 'parallel':
         cfg = _settings(tmp_path, os.path.join(ASPIRIN, 'ccsd_train'))
         cfg['training'][key] = value
         trainer = cli.train_from_settings(cfg)

@@ -47,6 +47,12 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.ops.nlist
         import newtonnet_tpu_torch.ops.row_gather
         import newtonnet_tpu_torch.ops.window
+        import newtonnet_tpu_torch.parallel
+        import newtonnet_tpu_torch.parallel.collectives
+        import newtonnet_tpu_torch.parallel.distributed
+        import newtonnet_tpu_torch.parallel.graph_parallel
+        import newtonnet_tpu_torch.parallel.launch
+        import newtonnet_tpu_torch.parallel.mesh
         import newtonnet_tpu_torch.train.cli
         import newtonnet_tpu_torch.train.fastgrad
         import newtonnet_tpu_torch.train.loss

@@ -265,9 +265,12 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path):
     assert os.path.exists(os.path.join(out, 'run_scripts', 'tiny.yml'))
     again = cli.main(['--resume', out])
     assert again.start_epoch == 1
+    # training.parallel builds the mesh (ROADMAP.md A11a): in one process
+    # a data axis of 2 needs ranks the world does not have, and the mesh
+    # asserts it as the JAX make_mesh does, before any data is read
     cfg['training']['parallel'] = {'data': 2}
     path.write_text(yaml.safe_dump(cfg))
-    with pytest.raises(NotImplementedError, match='ROADMAP.md A'):
+    with pytest.raises(AssertionError, match='mesh 2x1 needs more than 1'):
         cli.main(['--config', str(path)])
 
 

@@ -12,6 +12,7 @@ ulp is 2^-8 relative), so the bar there is BF16_BAR, derived in
 test_torch_kernel_emulation_dual.py:test_emulated_dual_kernels_match_plain.
 '''
 import ctypes
+import hashlib
 import os
 import re
 import shutil
@@ -47,31 +48,62 @@ def for_gxx(src):
 
     def launch(m):
         grid, block, smem = [p.strip() for p in m.group(2).split(',')][:3]
-        return (f'emu_launch({grid}, {block}, {smem}, '
-                f'[&] {{ {m.group(1).strip()}({m.group(3)}); }});')
+        kernel = m.group(1).strip()
+        return (f'emu_launch("{kernel}", {grid}, {block}, {smem}, '
+                f'[&] {{ {kernel}({m.group(3)}); }});')
 
     return re.sub(r'([\w<>, ]+?)<<<(.*?)>>>\((.*?)\);', launch, src,
                   flags=re.S)
 
 
+# compiled emulation libraries, shared by the test files of one checkout
+# (several compile the same source at the same width): one per content
+# hash, so that a changed source, header or flag compiles anew
+EMU_CACHE = os.path.join(PKG, '_build', 'emu')
+
+
+def _headers():
+    '''The text of every header a rewritten source may include.'''
+    text = ''
+    for d in (os.path.join(PKG, 'csrc', 'emu'), os.path.join(PKG, 'csrc')):
+        for f in sorted(os.listdir(d)):
+            if f.endswith(('.h', '.cuh')):
+                with open(os.path.join(d, f)) as fh:
+                    text += f + fh.read()
+    return text
+
+
 def compile_emu(out, name, src, F=None, bf16=False):
-    '''Compile a rewritten source with g++ into out/lib<name>.so; for a
-    source of K1-K8, the library that runs width F (its padded width alone,
-    with the defines ops/_build.width_flags(F)) and, with bf16, its bf16
-    library (-DNN_BF16), as ops/_build.py builds them for the card. The
-    shared headers of csrc/ are found by -I.'''
+    '''Compile a rewritten source with g++ into a shared library (written
+    to out/<name>.cpp for reading); for a source of K1-K8, the library that
+    runs width F (its padded width alone, with the defines
+    ops/_build.width_flags(F)) and, with bf16, its bf16 library
+    (-DNN_BF16), as ops/_build.py builds them for the card. The shared
+    headers of csrc/ are found by -I. A library of the same source, flags
+    and headers compiled before (by any test file) is loaded from
+    EMU_CACHE instead.'''
     gxx = shutil.which('g++')
     if gxx is None:
         pytest.skip('needs g++')
-    (out / f'{name}.cpp').write_text(for_gxx(src))
-    so = out / f'lib{name}.so'
+    code = for_gxx(src)
+    (out / f'{name}.cpp').write_text(code)
     flags = (() if F is None else width_flags(F)) + \
         (('-DNN_BF16',) if bf16 else ())
-    subprocess.run([gxx, '-std=c++20', '-O1', '-shared', '-fPIC', '-pthread',
-                    *flags, '-I', os.path.join(PKG, 'csrc', 'emu'), '-I',
-                    os.path.join(PKG, 'csrc'), '-o', str(so),
-                    str(out / f'{name}.cpp')], check=True, timeout=600)
-    return ctypes.CDLL(str(so))
+    cmd = ['-std=c++20', '-O1', '-shared', '-fPIC', '-pthread', *flags,
+           '-I', os.path.join(PKG, 'csrc', 'emu'), '-I',
+           os.path.join(PKG, 'csrc')]
+    key = hashlib.sha256('\0'.join([code, _headers(), *cmd]).encode()) \
+        .hexdigest()[:20]
+    so = os.path.join(EMU_CACHE, f'lib{key}.so')
+    if not os.path.exists(so):
+        os.makedirs(EMU_CACHE, exist_ok=True)
+        # written under a name of this process, then renamed into place:
+        # another worker compiling the same library at once is harmless
+        tmp = f'{so}.{os.getpid()}.tmp'
+        subprocess.run([gxx, *cmd, '-o', tmp, str(out / f'{name}.cpp')],
+                       check=True, timeout=600)
+        os.replace(tmp, so)
+    return ctypes.CDLL(so)
 
 
 def width_libs(out, name, wrap, bf16=False):
