@@ -436,13 +436,52 @@ with a non-zero exit code and no result line):
                CLUSTER_E_REL of the energy and CLUSTER_F_REL of the largest
                force; peak memory per rank beside the one process's.
 
+18. halo   halo-exchange graph parallelism (parallel/halo.py): ranks as
+            processes on this card, started by parallel/launch.py (gloo,
+            as phase 17's: NCCL, NVLink and scaling across cards are not
+            exercised here, and no time of this phase is a scaling
+            result); the large box (box_system, 0.1 atoms per cubic A;
+            F=128, R=20, 3 interactions, cutoff 5 A, k_max 88,
+            box_weights) in x-sorted slabs. `python3 chip_smoke.py halo`
+            runs it alone.
+            a. 4096 atoms at (data, graph) = (1, 2) and (1, 4), n_halo
+               HALO_N: energy, forces and stress against the one-process
+               request at HALO_E_REL / HALO_F_REL / HALO_S_REL; the charge
+               head (ewald_mode 'periodic', the sharded Ewald sum) against
+               the one-process charged request; K9 launches per rank per
+               request, every exchange 2 n_halo rows (collectives.STATS),
+               ms per request (median of HALO_REPS), and the ms inside
+               the exchanges and collectives (host-staged, the peers'
+               waits included).
+            b. HALO_BIG_ATOMS atoms at (1, 4) (HALO_SMALL_ATOMS when the
+               ranks' memory, reckoned before the launch from the
+               one-process request's peak, would not fit): each rank's
+               peak memory beside the one-process request's, the same
+               bars.
+            c. HALO_STEPS steps with the CLI's Adam at (1, 2) on a
+               4096-atom frame, energy + force and energy + force + stress
+               losses, against the one-process standard steps: step 1's
+               loss (HALO_LOSS_REL) and gradient (HALO_GRAD_REL), steps
+               2-3 (HALO_STEPS_REL); one CLI epoch with training.parallel
+               {data: 1, graph: 2}, training.halo and data.spatial_sort
+               over write_box_dataset's frames against the same epoch in
+               one process (log.csv within HALO_CLI_REL).
+            d. run_md_halo on md_box's system (weights x 0.1) at (1, 2),
+               n_halo HALO_MD_N: NVE, HALO_MD_STEPS steps re-sorted every
+               HALO_MD_EVERY, against the host loop's velocity Verlet
+               (md/integrators.py) over the calculator (positions within
+               HALO_MD_POS_ATOL, energies HALO_MD_EPOT_PER_ATOM per atom);
+               a Langevin chunk; skin_violations; an undersized n_halo
+               raises.
+
 Then the card's nvidia-smi line, the `kernels` JSON line (K1-K8 rows with
 their times, bounds and errors at the 9d widths, 9a's errors and their
 9b/9c launches, K1-K4's phase 12 launches, K9/K12's phase 13 and 14
 launches and K9 at phase 14's folded Hessian shape; K1/K2, K5/K6 and
 K9/K12 with their launches per MD step of phase 15 and per replayed
 call of phase 16; K1-K8 with their launches per rank per
-data-parallel step of phase 17a; the bf16 rows of K1/K2 and K5-K8) and,
+data-parallel step of phase 17a; K9/K12 with their launches per rank of
+phase 18; the bf16 rows of K1/K2 and K5-K8) and,
 last,
 {"ok": true, "device": {...}}.
 '''
@@ -1218,9 +1257,10 @@ MD_LJ_K_MAX = 32
 # 15d: tools/demo_large_md.py's box (4096 atoms at 0.1 per cubic A, F=128,
 # bf16 stack, box_weights scaled by 0.1 as the demo scales its weights),
 # Langevin over MD_BOX_STEPS steps with rebuilds every MD_BOX_EVERY, at the
-# demo's half-list capacity
+# demo's half-list capacity; 40 steps (four rebuild chunks) give the rate,
+# and the staircase's step takes about half a second of the script's limit
 MD_BOX_ATOMS, MD_BOX_K_MAX = 4096, 72
-MD_BOX_STEPS, MD_BOX_EVERY = 100, 10
+MD_BOX_STEPS, MD_BOX_EVERY = 40, 10
 
 # the window ops' shapes (tools/bench_window.py): T atoms per block, the
 # payload 4F = 512 bf16; K12 at tools/exp_pallas_gather.py's default
@@ -6575,12 +6615,10 @@ def device_busy(torch, fn):
             'top_device_ms': [[k[:60], ms, n] for k, ms, n in top]}
 
 
-def md_box(torch, xcfg, mode):
-    """Phase 15d's model and System: tools/demo_large_md.py's box (numpy
-    RandomState(0): positions, then numbers from {1, 1, 8}; momenta at
-    300 K from default_rng(0)) and the checkpoint's widths over half lists
-    (mode 'newton3' or 'newton3c', the staircase) at MD_BOX_K_MAX, bf16
-    stack, box_weights scaled by 0.1."""
+def md_box_system():
+    """tools/demo_large_md.py's box (numpy RandomState(0): positions, then
+    numbers from {1, 1, 8}; momenta at 300 K from default_rng(0)): the
+    System of phases 15d and 18d."""
     import numpy as np
     from newtonnet_tpu_torch.md import System, maxwell_boltzmann
     rs = np.random.RandomState(0)
@@ -6590,6 +6628,14 @@ def md_box(torch, xcfg, mode):
     numbers = rs.choice([1, 1, 8], size=MD_BOX_ATOMS)
     system = System(numbers, pos, cell=cell, pbc=[True] * 3)
     maxwell_boltzmann(system, 300.0, rng=np.random.default_rng(0))
+    return system
+
+
+def md_box(torch, xcfg, mode):
+    """Phase 15d's model and System: md_box_system and the checkpoint's
+    widths over half lists (mode 'newton3' or 'newton3c', the staircase)
+    at MD_BOX_K_MAX, bf16 stack, box_weights scaled by 0.1."""
+    system = md_box_system()
     model = box_model(torch, xcfg, 'bfloat16', ['energy', 'gradient_force'],
                       k_max=MD_BOX_K_MAX, newton3=mode == 'newton3',
                       newton3_compact=mode == 'newton3c')
@@ -7597,17 +7643,20 @@ def parallel_rank_main(work, what):
     return 0
 
 
-def launch_ranks(work, what, nprocs):
-    """Run `nprocs` ranks of parallel_rank_main through parallel/launch.py;
-    a failed rank fails the phase (with its log's tail)."""
+def launch_ranks(work, what, nprocs, mode='parallel-rank', phase='17',
+                 timeout=PAR_TIMEOUT):
+    """Run `nprocs` ranks of `python3 chip_smoke.py mode WORK what`
+    (parallel_rank_main, or halo_rank_main for mode 'halo-rank') through
+    parallel/launch.py; a failed rank fails the phase (with its log's
+    tail)."""
     logs = os.path.join(work, f'logs_{what}')
     t0 = time.perf_counter()
     run = subprocess.run(
         [sys.executable, '-m', 'newtonnet_tpu_torch.parallel.launch',
          '--nprocs', str(nprocs), '--log-dir', logs, '--timeout',
-         str(PAR_TIMEOUT), '--', sys.executable, os.path.abspath(__file__),
-         'parallel-rank', work, what], cwd=ROOT, capture_output=True,
-        text=True, timeout=PAR_TIMEOUT + 60)
+         str(timeout), '--', sys.executable, os.path.abspath(__file__),
+         mode, work, what], cwd=ROOT, capture_output=True,
+        text=True, timeout=timeout + 60)
     tails = ''
     for r in range(nprocs):
         path = os.path.join(logs, f'proc_{r}.log')
@@ -7615,7 +7664,8 @@ def launch_ranks(work, what, nprocs):
             with open(path) as fh:
                 tails += f'--- rank {r} ---\n' + fh.read()[-2500:]
     check(run.returncode == 0,
-          f'17 {what}: a rank failed ({run.returncode}): {run.stderr}{tails}')
+          f'{phase} {what}: a rank failed ({run.returncode}): '
+          f'{run.stderr}{tails}')
     import numpy as np
     return ([json.load(open(os.path.join(work, f'{what}_rank{r}.json')))
              for r in range(nprocs)],
@@ -7840,6 +7890,621 @@ def parallel_main():
                             'row_gather'), widths=(128,))
     emit('build', seconds=time.perf_counter() - t)
     emit('parallel_launches', **phase_parallel(torch, fd, fdd, fk))
+    return 0
+
+
+# 18. halo: halo-exchange graph parallelism (parallel/halo.py) on the large
+# periodic box, ranks as processes on this card (gloo through host memory,
+# as phase 17's). n_halo from check_halo_capacity on the seeded boxes
+# (numpy): at cutoff 5 A the 4096-atom box needs 614 at (1, 2) and 644 at
+# (1, 4) (frames of seeds 0-3 at most 649), at cutoff + skin = 6 A (MD) 744
+# and 746 (md_box's positions); 16,384 atoms at (1, 4) need 1570, 8192
+# atoms 992.
+HALO_N, HALO_MD_N = 704, 768
+HALO_BIG_ATOMS, HALO_BIG_N = 16384, 1600
+HALO_SMALL_ATOMS, HALO_SMALL_N = 8192, 1024
+# the same float32 function with its sums in another order (the slabs'
+# energies added over the ranks, each node's slots summed on its rank then
+# with the neighbours' returned halo cotangents): phase 17b's bars, and
+# the stress at the forces' bar
+HALO_E_REL, HALO_F_REL, HALO_S_REL = 1e-5, 1e-4, 1e-4
+# 18c: step 1's loss (its energy term dominates: 1e-5 is 170 float32
+# ulps of it), its gradient (relative norm, phase 17a's K-list bar), and
+# steps 2-3 and the CLI epoch's log.csv under the CLI's Adam, whose m/sqrt(v)
+# turns the sums' order into parameter steps of lr (phase 17: 3.3e-3 by
+# step 10 on aspirin; 1e-3 here, after 2 or 3 steps)
+HALO_LOSS_REL, HALO_GRAD_REL, HALO_STEPS_REL, HALO_CLI_REL = \
+    1e-5, 1e-4, 1e-3, 1e-3
+HALO_STEPS = 3
+HALO_LOSSES = {'ef': {'energy': {'weight': 1.0, 'mode': 'mse'},
+                      'gradient_force': {'weight': 50.0, 'mode': 'mse'}},
+               'stress': {'energy': {'weight': 1.0, 'mode': 'mse'},
+                          'gradient_force': {'weight': 50.0, 'mode': 'mse'},
+                          'stress': {'weight': 100.0, 'mode': 'mse'}}}
+# 18d: float32 state on the ranks against the host loop's float64 numpy
+# state (float32 forces both): a position stored in float32 at 35 A moves
+# by up to 4e-6 A per step, about 2e-5 A over 20 steps, which moves the
+# energy by about sqrt(N) * |F| * 2e-5: bars 1e-3 A and 1e-5 eV per atom
+HALO_MD_STEPS, HALO_MD_EVERY = 20, 10
+HALO_MD_POS_ATOL, HALO_MD_EPOT_PER_ATOM = 1e-3, 1e-5
+HALO_MD_UNDERSIZED = 64
+HALO_REPS = 5
+HALO_CLI_SEEDS = (0, 1, 2, 3)
+HALO_TIMEOUT = 900
+
+
+def halo_box_model(torch, xcfg, outputs=('energy', 'gradient_force'),
+                   charge=False, scale=1.0):
+    """The large box's model (box_model: the XLA checkpoint's widths over
+    plain lists at k_max BOX_K_MAX, float32, box_weights) with `outputs`;
+    charge: charge_head_tree's head and ewald_mode 'periodic'; scale:
+    the weights times it (md_box's 0.1)."""
+    model = box_model(torch, xcfg, '', list(outputs))
+    if charge:
+        model = with_charge_head(torch, model, ['charge'] + list(outputs),
+                                 ewald_mode='periodic')
+    if scale != 1.0:
+        with torch.no_grad():
+            for p in model.core.parameters():
+                p.mul_(scale)
+    return model
+
+
+def halo_frame(np, n_atoms, n_shards, seed=0):
+    """box_system's frame sorted along x for n_shards slabs (spatial_sort),
+    with box_stress's label: a batch dict of numpy arrays."""
+    from newtonnet_tpu_torch.parallel.halo import spatial_sort
+    z, pos, cell, energy, force = box_system(n_atoms, seed)
+    z, pos, extra = spatial_sort(z, pos, cell, extra={'force': force},
+                                 n_shards=n_shards)
+    return {'z': z.astype(np.int64), 'pos': pos, 'cell': cell,
+            'energy': energy, 'force': extra['force'],
+            'stress': box_stress(seed), 'graph_mask': np.ones(1, bool)}
+
+
+def write_box_dataset(root):
+    """box_system's frames of HALO_CLI_SEEDS as root/raw/box.extxyz
+    (positions and forces to 8 decimals, an energy label from numpy)."""
+    import numpy as np
+    os.makedirs(os.path.join(root, 'raw'), exist_ok=True)
+    names = {1: 'H', 8: 'O'}
+    with open(os.path.join(root, 'raw', 'box.extxyz'), 'w') as f:
+        for seed in HALO_CLI_SEEDS:
+            z, pos, cell, _, force = box_system(BOX_ATOMS, seed)
+            L = cell[0, 0, 0]
+            energy = float(np.random.RandomState(100 + seed).randn()) * 10.0
+            f.write(f'{BOX_ATOMS}\nLattice="{L} 0 0 0 {L} 0 0 0 {L}" '
+                    f'Properties=species:S:1:pos:R:3:forces:R:3 '
+                    f'energy={energy:.10f} pbc="T T T"\n')
+            for a, p, fo in zip(z[0], pos[0], force[0]):
+                f.write(f'{names[int(a)]} {p[0]:.8f} {p[1]:.8f} {p[2]:.8f} '
+                        f'{fo[0]:.8f} {fo[1]:.8f} {fo[2]:.8f}\n')
+    return root
+
+
+def halo_cli_settings(output, root, halo):
+    """One CLI epoch on write_box_dataset's frames (2 / 1 / 1, batch 1,
+    spatially sorted) with the box's widths, the CLI's Adam; halo: at
+    (data, graph) = (1, 2) with n_halo HALO_N."""
+    from newtonnet_tpu_torch import load_model
+    cfg = load_model(XLA_CKPT).config_dict()
+    model = {k: cfg[k] for k in ('cutoff', 'n_features', 'n_basis',
+                                 'n_interactions', 'activation')}
+    model.update(graph_mode='neighborlist', k_max=BOX_K_MAX,
+                 output_properties=['energy', 'gradient_force'])
+    settings = {
+        'general': {'device': 'cuda', 'output': output,
+                    'precision': 'float32', 'seed': 0},
+        'data': {'train_root': root, 'test_root': None, 'train_size': 2,
+                 'val_size': 1, 'test_size': 1, 'train_batch_size': 1,
+                 'val_batch_size': 1, 'test_batch_size': 1,
+                 'spatial_sort': True},
+        'model': model,
+        'training': {'epochs': 1, 'loss': HALO_LOSSES['ef'],
+                     'checkpoint': {'check_val': 1, 'check_test': 1,
+                                    'check_log': 1}},
+    }
+    if halo:
+        settings['training'].update(parallel={'data': 1, 'graph': 2},
+                                    halo={'n_halo': HALO_N})
+    return settings
+
+
+def halo_request(torch, rg, fn, batch, reps=HALO_REPS):
+    """fn(z, pos, cell) on batch's tensors: -> (outputs as numpy, K9
+    launches per request, ms of `reps` more calls, and collectives.STATS
+    over those calls: the exchanges' payloads, and the host-clock seconds
+    inside exchanges and collectives, the peers' waits included)."""
+    from newtonnet_tpu_torch.parallel import collectives
+    z, pos, cell = (torch.from_numpy(batch[k]).cuda()
+                    for k in ('z', 'pos', 'cell'))
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    out = fn(z, pos, cell)
+    torch.cuda.synchronize()
+    launches = rg.LAUNCHES['row_gather']
+    collectives.reset_stats()
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(z, pos, cell)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return [o.cpu().numpy() for o in out], launches, ms, \
+        dict(collectives.STATS)
+
+
+def one_request(model, compute_stress=False):
+    """The one-process request as the halo function's: (energy, forces[,
+    stress])."""
+    def fn(z, pos, cell):
+        out = model(z, pos, cell)
+        got = (out['energy'], out['gradient_force'])
+        return got + ((out['stress'],) if compute_stress else ())
+    return fn
+
+
+def halo_payload_ok(stats, n_halo):
+    """Every exchange sent 2 n_halo rows of its own width."""
+    return (stats['halo_calls'] > 0
+            and stats['halo_rows_max'] == 2 * n_halo
+            and stats['halo_rows'] == 2 * n_halo * stats['halo_calls']
+            and stats['halo_bytes'] == 2 * n_halo * stats['halo_row_bytes'])
+
+
+def halo_steps(torch, rg, model, batch, key, step_fn):
+    """HALO_STEPS steps of step_fn(batch) -> loss (with the gradient left
+    in the parameters) then the CLI's Adam: step 1's loss and flat
+    gradient, every step's loss, ms and K9 launches per step, and the
+    collectives per step after step 1 (its first use) with their
+    host-clock ms, the peers' waits included."""
+    from newtonnet_tpu_torch.parallel import collectives
+    from newtonnet_tpu_torch.train.optimizer import get_optimizer_by_string
+    opt = get_optimizer_by_string('adam', model.core)
+    losses, ms, grad1 = [], [], None
+    rg.reset_launch_counts()
+    for step in range(HALO_STEPS):
+        if step == 1:
+            collectives.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step_fn(batch)
+        if grad1 is None:
+            grad1 = torch.cat([
+                (torch.zeros_like(p) if p.grad is None else p.grad)
+                .reshape(-1) for p in model.core.parameters()]).cpu().numpy()
+        opt.step()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(loss))
+    later = HALO_STEPS - 1
+    return dict(losses=losses, grad1=grad1, step_ms=ms,
+                k9_per_step=rg.LAUNCHES['row_gather'] / HALO_STEPS,
+                collectives_per_step=collectives.STATS['calls'] / later,
+                collective_ms_per_step=1e3 * collectives.STATS['seconds']
+                / later)
+
+
+def halo_md(torch, rg, mesh, model, n_halo, **kw):
+    """run_md_halo of md_box_system: -> (final System, log, ms per step,
+    K9 launches per force call)."""
+    from newtonnet_tpu_torch.md.halo_md import run_md_halo
+    system = md_box_system()
+    torch.cuda.synchronize()
+    rg.reset_launch_counts()
+    t0 = time.perf_counter()
+    system, log = run_md_halo(model, None, system, mesh, n_halo, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    # each chunk computes its starting forces once more
+    calls = kw['n_steps'] + kw['n_steps'] // kw['resort_every']
+    return system, log, 1e3 * seconds / kw['n_steps'], \
+        rg.LAUNCHES['row_gather'] / calls
+
+
+def halo_rank_main(work, what):
+    """`python3 chip_smoke.py halo-rank WORK {g2|g4}`: one rank of phase
+    18, started by parallel/launch.py; writes WORK/<what>_rank<r>.npz and
+    .json."""
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import numpy as np
+    from newtonnet_tpu_torch import load_model
+    from newtonnet_tpu_torch.data import units
+    from newtonnet_tpu_torch.ops import row_gather as rg
+    from newtonnet_tpu_torch.parallel import distributed
+    from newtonnet_tpu_torch.parallel.halo import (
+        make_halo_energy_force_fn,
+        make_halo_grads_fn,
+        shard_halo_batch,
+    )
+    from newtonnet_tpu_torch.parallel.mesh import make_mesh
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    check(distributed.maybe_initialize_from_env('cuda'),
+          'rank started without NEWTONNET_DIST_* variables')
+    rank, size = distributed.world()
+    xcfg = load_model(XLA_CKPT).config_dict()
+    mesh = make_mesh(data=1, graph=size)
+    res, arrays = {'rank': rank, 'world': size,
+                   'backend': distributed.backend()}, {}
+
+    def serve(model, batch, n_halo, key, stress=False, reps=HALO_REPS):
+        fn = make_halo_energy_force_fn(model, mesh, n_halo,
+                                       compute_stress=stress)
+        out, k9, ms, stats = halo_request(torch, rg, fn, batch, reps)
+        for name, a in zip(('energy', 'forces', 'stress'), out):
+            arrays[f'{key}_{name}'] = a
+        res[key] = dict(k9_per_request=k9, request_ms=ms,
+                        payload_ok=halo_payload_ok(stats, n_halo),
+                        stats=stats)
+
+    batch = halo_frame(np, BOX_ATOMS, size)
+    serve(halo_box_model(torch, xcfg, ['energy', 'gradient_force',
+                                       'stress']),
+          batch, HALO_N, 'box', stress=True)
+    serve(halo_box_model(torch, xcfg, charge=True), batch, HALO_N,
+          'charged')
+    if what == 'g4':
+        with open(os.path.join(work, 'big.json')) as fh:
+            n_atoms, n_halo = json.load(fh)
+        big = halo_frame(np, n_atoms, size)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        serve(halo_box_model(torch, xcfg), big, n_halo, 'big', reps=2)
+        res['big']['peak_gib'] = torch.cuda.max_memory_allocated() / 2 ** 30
+        res['big']['atoms'], res['big']['n_halo'] = n_atoms, n_halo
+    else:
+        # 18c: steps on a frame of seed 1, then one CLI epoch
+        for key, losses in HALO_LOSSES.items():
+            model = halo_box_model(torch, xcfg, list(losses))
+            model.requires_grad_(True)
+            fn = make_halo_grads_fn(model, mesh, HALO_N, loss_config=losses)
+            frame = shard_halo_batch(halo_frame(np, BOX_ATOMS, size, 1),
+                                     mesh)
+            got = halo_steps(torch, rg, model, frame, key,
+                             lambda b: fn(b)['loss'])
+            arrays[f'step_{key}_grad1'] = got.pop('grad1')
+            res[f'step_{key}'] = got
+            del model
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        train_from_settings(halo_cli_settings(
+            os.path.join(work, 'cli_halo'), os.path.join(work, 'box_data'),
+            True))
+        res['cli_seconds'] = time.perf_counter() - t0
+        # 18d: NVE against the host loop, a Langevin chunk, an undersized
+        # n_halo
+        model = halo_box_model(torch, xcfg, scale=0.1)
+        system, log, ms, k9 = halo_md(
+            torch, rg, mesh, model, HALO_MD_N, timestep=0.5 * units.fs,
+            n_steps=HALO_MD_STEPS, resort_every=HALO_MD_EVERY,
+            integrator='nve')
+        arrays['md_positions'], arrays['md_epot'] = \
+            system.positions, log['epot']
+        res['md_nve'] = dict(step_ms=ms, k9_per_force_call=k9,
+                             skin_violations=log['skin_violations'],
+                             n_resorts=log['n_resorts'])
+        _, log, ms, k9 = halo_md(
+            torch, rg, mesh, model, HALO_MD_N, timestep=0.5 * units.fs,
+            n_steps=HALO_MD_EVERY, resort_every=HALO_MD_EVERY,
+            integrator='langevin', temperature_K=300.0,
+            friction=1 / (100 * units.fs), seed=1)
+        res['md_langevin'] = dict(
+            step_ms=ms, k9_per_force_call=k9,
+            skin_violations=log['skin_violations'],
+            temperature=[float(t) for t in log['temperature']],
+            finite=bool(np.isfinite(log['epot']).all()))
+        try:
+            halo_md(torch, rg, mesh, model, HALO_MD_UNDERSIZED,
+                    timestep=0.5 * units.fs, n_steps=HALO_MD_EVERY,
+                    resort_every=HALO_MD_EVERY, integrator='nve')
+            res['md_undersized'] = ''
+        except ValueError as exc:
+            res['md_undersized'] = str(exc)
+    np.savez(os.path.join(work, f'{what}_rank{rank}.npz'), **arrays)
+    with open(os.path.join(work, f'{what}_rank{rank}.json'), 'w') as fh:
+        json.dump(res, fh)
+    return 0
+
+
+def rel_max(np, a, b):
+    """max|a - b| / max|b|."""
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def phase_halo(torch, rg):
+    """Phase 18 (see the module docstring): the one-process references in
+    this process, then two launches of ranks on this card. -> {path: K9
+    launches per rank per call}."""
+    import tempfile
+
+    import numpy as np
+    from newtonnet_tpu_torch import NewtonNetCalculator, load_model
+    from newtonnet_tpu_torch.data import units
+    from newtonnet_tpu_torch.layers.precision import fp32_matmuls
+    from newtonnet_tpu_torch.md.integrators import VelocityVerlet
+    from newtonnet_tpu_torch.train.cli import train_from_settings
+    from newtonnet_tpu_torch.train.loss import get_loss_by_string
+    from newtonnet_tpu_torch.train.trainer import standard_value_and_grad
+    from newtonnet_tpu_torch.utils.params import params_to_flax
+    t18 = time.perf_counter()
+    card = card_name()
+    work = tempfile.mkdtemp(prefix='phase18_')
+    write_box_dataset(os.path.join(work, 'box_data'))
+    xcfg = load_model(XLA_CKPT).config_dict()
+    one, one_arr = {}, {}
+    # 18a: the box requests in one process (the graph is the same for any
+    # slab count: one sort serves both launches' comparisons)
+    batch = halo_frame(np, BOX_ATOMS, 4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, k9, ms, _ = halo_request(torch, rg, one_request(halo_box_model(
+        torch, xcfg, ['energy', 'gradient_force', 'stress']), True), batch)
+    one['box'] = dict(k9_per_request=k9, request_ms=ms,
+                      peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    one_arr['box'] = out
+    out, k9, ms, _ = halo_request(torch, rg, one_request(
+        halo_box_model(torch, xcfg, charge=True)), batch)
+    one['charged'] = dict(k9_per_request=k9, request_ms=ms)
+    one_arr['charged'] = out
+    # 18b: the one-process request at HALO_BIG_ATOMS, its peak memory, and
+    # the ranks' memory reckoned from it before they are launched
+    big = halo_frame(np, HALO_BIG_ATOMS, 4)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, k9, ms, _ = halo_request(torch, rg, one_request(
+        halo_box_model(torch, xcfg)), big, reps=1)
+    peak_big = torch.cuda.max_memory_allocated() / 2 ** 30
+    total_gib = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    # a rank holds its slab's rows and the exchanged halo rows of every
+    # node tensor, and its own rows' edges: at most (N_loc + 2 H) / N of
+    # the one-process request, with a quarter more for its own context
+    per_rank = peak_big * (HALO_BIG_ATOMS / 4 + 2 * HALO_BIG_N) \
+        / HALO_BIG_ATOMS * 1.25
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    fits = 4 * per_rank + held + 2.0 < 0.9 * total_gib
+    n_big, h_big = ((HALO_BIG_ATOMS, HALO_BIG_N) if fits
+                    else (HALO_SMALL_ATOMS, HALO_SMALL_N))
+    one['big'] = dict(atoms=HALO_BIG_ATOMS, k9_per_request=k9,
+                      request_ms=ms, peak_gib=peak_big,
+                      reckoned_gib_per_rank=per_rank, card_gib=total_gib,
+                      fits=fits)
+    if fits:
+        one_arr['big'] = out
+    else:
+        out, _, _, _ = halo_request(torch, rg, one_request(
+            halo_box_model(torch, xcfg)),
+            halo_frame(np, HALO_SMALL_ATOMS, 4), reps=1)
+        one_arr['big'] = out
+    with open(os.path.join(work, 'big.json'), 'w') as fh:
+        json.dump([n_big, h_big], fh)
+    # 18c: the standard steps and the CLI epoch in one process
+    for key, losses in HALO_LOSSES.items():
+        model = halo_box_model(torch, xcfg, list(losses))
+        model.requires_grad_(True)
+        main_loss = get_loss_by_string(losses)[0]
+        frame = {k: torch.as_tensor(v).cuda() for k, v in
+                 halo_frame(np, BOX_ATOMS, 2, 1).items()}
+
+        def standard(b, model=model, main_loss=main_loss):
+            with fp32_matmuls():
+                return standard_value_and_grad(model, main_loss, b)[0]
+        got = halo_steps(torch, rg, model, frame, key, standard)
+        one_arr[f'step_{key}_grad1'] = got.pop('grad1')
+        one[f'step_{key}'] = got
+        del model, frame
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    train_from_settings(halo_cli_settings(
+        os.path.join(work, 'cli_one'), os.path.join(work, 'box_data'),
+        False))
+    one['cli_seconds'] = time.perf_counter() - t0
+    # 18d: the host loop's velocity Verlet over the calculator
+    model = halo_box_model(torch, xcfg, scale=0.1)
+    system = md_box_system()
+    system.calc = NewtonNetCalculator(
+        model=model, params=params_to_flax(model.core),
+        properties=['energy', 'forces'])
+    epots = []
+    md = VelocityVerlet(system, 0.5 * units.fs)
+    md.attach(lambda s, t: epots.append(s.get_potential_energy()))
+    rg.reset_launch_counts()
+    t0 = time.perf_counter()
+    md.run(HALO_MD_STEPS)
+    # the forces of the start and of each step
+    one['md_nve'] = dict(step_ms=1e3 * (time.perf_counter() - t0)
+                         / HALO_MD_STEPS,
+                         k9_per_force_call=rg.LAUNCHES['row_gather']
+                         / (HALO_MD_STEPS + 1))
+    one_arr['md_positions'], one_arr['md_epot'] = \
+        system.positions.copy(), np.asarray(epots[1:])
+    del model, system
+    torch.cuda.empty_cache()
+    # the ranks: (1, 2), then (1, 4)
+    g2, g2_arr, g2_s = launch_ranks(work, 'g2', 2, 'halo-rank', '18',
+                                    HALO_TIMEOUT)
+    g4, g4_arr, g4_s = launch_ranks(work, 'g4', 4, 'halo-rank', '18',
+                                    HALO_TIMEOUT)
+
+    fails = []
+    # 18a
+    rows = {}
+    for mesh, ranks, arrs in (('1x2', g2, g2_arr), ('1x4', g4, g4_arr)):
+        for key in ('box', 'charged'):
+            ref = one_arr[key]
+            for r, (res, arr) in enumerate(zip(ranks, arrs)):
+                d = dict(energy_rel=rel_max(np, arr[f'{key}_energy'],
+                                            ref[0]),
+                         force_rel=rel_max(np, arr[f'{key}_forces'], ref[1]))
+                if key == 'box':
+                    d['stress_rel'] = rel_max(np, arr['box_stress'], ref[2])
+                d.update(k9_per_request=res[key]['k9_per_request'],
+                         request_ms_median=statistics.median(
+                             res[key]['request_ms']),
+                         payload_ok=res[key]['payload_ok'],
+                         exchanges=res[key]['stats']['halo_calls']
+                         / HALO_REPS,
+                         bytes_sent=res[key]['stats']['halo_bytes']
+                         / HALO_REPS,
+                         collective_ms=1e3 * res[key]['stats']['seconds']
+                         / HALO_REPS,
+                         collectives=res[key]['stats']['calls']
+                         / HALO_REPS)
+                rows[f'{key}_{mesh}_rank{r}'] = d
+                fails += [w for ok, w in (
+                    (d['energy_rel'] <= HALO_E_REL, f'{key} {mesh} energy'),
+                    (d['force_rel'] <= HALO_F_REL, f'{key} {mesh} forces'),
+                    (d.get('stress_rel', 0.0) <= HALO_S_REL,
+                     f'{key} {mesh} stress'),
+                    (d['payload_ok'], f'{key} {mesh} payload'),
+                    (d['k9_per_request'] > 0, f'{key} {mesh}: K9 not '
+                     'launched')) if not ok]
+    emit('halo_requests', card=card, atoms=BOX_ATOMS, n_halo=HALO_N,
+         bars=[HALO_E_REL, HALO_F_REL, HALO_S_REL], ranks=rows,
+         one_process={k: {x: (statistics.median(v) if x == 'request_ms'
+                              else v) for x, v in one[k].items()}
+                      for k in ('box', 'charged')},
+         gap='ranks share one card: gloo through host memory; NCCL, '
+             'NVLink and scaling across cards are not exercised')
+    check(not fails, f'18a: {fails}')
+    # 18b
+    n_cmp = len(g4_arr[0]['big_energy'])
+    b_rows = {}
+    for r, (res, arr) in enumerate(zip(g4, g4_arr)):
+        b_rows[f'rank{r}'] = dict(
+            energy_rel=rel_max(np, arr['big_energy'], one_arr['big'][0]),
+            force_rel=rel_max(np, arr['big_forces'], one_arr['big'][1]),
+            peak_gib=res['big']['peak_gib'],
+            k9_per_request=res['big']['k9_per_request'],
+            request_ms_median=statistics.median(res['big']['request_ms']),
+            payload_ok=res['big']['payload_ok'])
+    emit('halo_scale', card=card, atoms=n_big, n_halo=h_big,
+         one_process=one['big'], ranks=b_rows, frames=n_cmp,
+         note=(f'{n_big} atoms' if fits else
+               f'{n_big} atoms: four ranks at {HALO_BIG_ATOMS} reckoned '
+               f'{4 * per_rank:.1f} GiB'))
+    for r, d in b_rows.items():
+        check(d['energy_rel'] <= HALO_E_REL and d['force_rel'] <= HALO_F_REL
+              and d['payload_ok'] and d['k9_per_request'] > 0,
+              f'18b {r}: {d}')
+    # 18c
+    c_rows = {}
+    for key in HALO_LOSSES:
+        o = one[f'step_{key}']
+        for r, (res, arr) in enumerate(zip(g2, g2_arr)):
+            got = res[f'step_{key}']
+            loss1 = abs(got['losses'][0] - o['losses'][0]) / abs(
+                o['losses'][0])
+            g1 = float(np.linalg.norm(arr[f'step_{key}_grad1']
+                                      - one_arr[f'step_{key}_grad1'])
+                       / np.linalg.norm(one_arr[f'step_{key}_grad1']))
+            later = [abs(a - b) / abs(b) for a, b in
+                     zip(got['losses'][1:], o['losses'][1:])]
+            c_rows[f'{key}_rank{r}'] = dict(
+                loss1_rel=loss1, grad1_rel_norm=g1, later_rel=later,
+                step_ms=got['step_ms'], one_process_step_ms=o['step_ms'],
+                k9_per_step=got['k9_per_step'],
+                one_process_k9_per_step=o['k9_per_step'],
+                collectives_per_step=got['collectives_per_step'],
+                collective_ms_per_step=got['collective_ms_per_step'])
+            fails += [w for ok, w in (
+                (loss1 <= HALO_LOSS_REL, f'{key} rank {r}: step 1 loss'),
+                (g1 <= HALO_GRAD_REL, f'{key} rank {r}: step 1 gradient'),
+                (max(later) <= HALO_STEPS_REL, f'{key} rank {r}: steps'),
+                (got['k9_per_step'] > 0, f'{key} rank {r}: K9')) if not ok]
+    emit('halo_train', card=card, mesh={'data': 1, 'graph': 2},
+         bars=[HALO_LOSS_REL, HALO_GRAD_REL, HALO_STEPS_REL], ranks=c_rows)
+    check(not fails, f'18c: {fails}')
+    mp = par_log(os.path.join(work, 'cli_halo', 'training_1'))
+    sp = par_log(os.path.join(work, 'cli_one', 'training_1'))
+    check([r['epoch'] for r in mp] == [r['epoch'] for r in sp],
+          f'18c CLI rows {[r["epoch"] for r in mp]}')
+    worst, same = 0.0, []
+    for a, b in zip(mp, sp):
+        for key, value in b.items():
+            if key in PAR_TIMING_COLUMNS or key == 'epoch' or not value:
+                continue
+            try:
+                worst = max(worst, abs(float(a[key]) - float(value))
+                            / max(abs(float(value)), 1e-30))
+            except ValueError:  # best_model
+                same.append(a[key] == value)
+    emit('halo_cli', card=card, rows=[r['epoch'] for r in mp],
+         worst_rel=worst, bar=HALO_CLI_REL, flags_equal=all(same),
+         seconds={'halo_1x2': g2[0]['cli_seconds'],
+                  'one_process': one['cli_seconds']},
+         epoch_seconds={'halo_1x2': mp[0]['epoch_seconds'],
+                        'one_process': sp[0]['epoch_seconds']})
+    check(all(same) and worst <= HALO_CLI_REL, f'18c CLI log.csv {worst}')
+    # 18d
+    d_rows = {}
+    for r, (res, arr) in enumerate(zip(g2, g2_arr)):
+        pos_err = float(np.abs(arr['md_positions']
+                               - one_arr['md_positions']).max())
+        e_err = float(np.abs(arr['md_epot'] - one_arr['md_epot']).max()
+                      / MD_BOX_ATOMS)
+        d_rows[f'rank{r}'] = dict(
+            position_err=pos_err, epot_err_per_atom=e_err,
+            nve=res['md_nve'], langevin=res['md_langevin'],
+            undersized=res['md_undersized'])
+        fails += [w for ok, w in (
+            (pos_err <= HALO_MD_POS_ATOL, f'rank {r}: positions'),
+            (e_err <= HALO_MD_EPOT_PER_ATOM, f'rank {r}: energies'),
+            (res['md_nve']['n_resorts'] == 2, f'rank {r}: resorts'),
+            (res['md_langevin']['finite'], f'rank {r}: Langevin'),
+            (res['md_nve']['k9_per_force_call'] > 0, f'rank {r}: K9'),
+            ('halo partition invalid' in res['md_undersized'],
+             f'rank {r}: undersized n_halo ran')) if not ok]
+    emit('halo_md', card=card, atoms=MD_BOX_ATOMS, n_halo=HALO_MD_N,
+         steps=HALO_MD_STEPS, resort_every=HALO_MD_EVERY,
+         bars=[HALO_MD_POS_ATOL, HALO_MD_EPOT_PER_ATOM], ranks=d_rows,
+         one_process=one['md_nve'])
+    check(not fails, f'18d: {fails}')
+    emit('halo_phase', card=card, seconds=time.perf_counter() - t18,
+         launch_seconds={'g2': g2_s, 'g4': g4_s},
+         gap='ranks share one card: gloo through host memory; NCCL, '
+             'NVLink and scaling across cards are not exercised, and no '
+             'time here is a scaling result')
+    shutil.rmtree(work, ignore_errors=True)
+    launches = {}
+    for r, res in enumerate(g2):
+        launches.update({
+            f'request_1x2_rank{r}': res['box']['k9_per_request'],
+            f'charged_request_1x2_rank{r}': res['charged']['k9_per_request'],
+            f'train_step_ef_1x2_rank{r}': res['step_ef']['k9_per_step'],
+            f'train_step_stress_1x2_rank{r}':
+                res['step_stress']['k9_per_step'],
+            f'md_force_call_1x2_rank{r}':
+                res['md_nve']['k9_per_force_call']})
+    for r, res in enumerate(g4):
+        launches.update({
+            f'request_1x4_rank{r}': res['box']['k9_per_request'],
+            f'request_{n_big}_1x4_rank{r}': res['big']['k9_per_request']})
+    return launches
+
+
+def halo_main():
+    """`python3 chip_smoke.py halo`: phase 18 alone (the build of K9's
+    library, then the phase)."""
+    import torch
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from newtonnet_tpu_torch.ops import _build
+    from newtonnet_tpu_torch.ops import row_gather as rg
+    emit('env', device=torch.cuda.get_device_name(0), nvidia_smi=card_name(),
+         torch=torch.__version__, cuda=torch.version.cuda)
+    t = time.perf_counter()
+    _build.load('row_gather')
+    emit('build', seconds=time.perf_counter() - t)
+    emit('halo_launches', k9_per_rank=phase_halo(torch, rg))
     return 0
 
 
@@ -8238,6 +8903,10 @@ def main():
     # each rank) and graph-parallel dense serving, ranks as processes on
     # this card
     par_launches = phase_parallel(torch, fd, fdd, fk)
+    # 18. halo-exchange graph parallelism on the large box: requests,
+    # training steps, a CLI epoch and MD, ranks as processes on this card
+    # (K9 in every rank's backward)
+    halo_launches = phase_halo(torch, rg)
     emit('c11', box_requests=xla_t['c11'],
          box_step_512=box_xla_c11, bars={**C11_BARS,
                                          'step': C11_STEP_SHIFTS},
@@ -8458,6 +9127,10 @@ def main():
               if name in n}
         if dp:
             row['dp_launches_per_step'] = dp
+        # K9 launches per rank per request, training step and MD force
+        # call of phase 18 (every call there is at B = 1: K12's count too)
+        if name in ('row_gather', 'row_gather_b1'):
+            row['halo_launches_per_rank'] = halo_launches
 
     print(card, flush=True)
     print(json.dumps({'kernels': rows}), flush=True)
@@ -8470,11 +9143,13 @@ def main():
 if __name__ == '__main__':
     try:
         modes = {'md-aspirin': md_aspirin_main, 'export': export_main,
-                 'parallel': parallel_main}
+                 'parallel': parallel_main, 'halo': halo_main}
         if sys.argv[1:2] == ['replay']:
             sys.exit(replay_main(sys.argv[2]))
         if sys.argv[1:2] == ['parallel-rank']:
             sys.exit(parallel_rank_main(sys.argv[2], sys.argv[3]))
+        if sys.argv[1:2] == ['halo-rank']:
+            sys.exit(halo_rank_main(sys.argv[2], sys.argv[3]))
         sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and
                  sys.argv[1] in modes else main())
     except PhaseFailed as exc:

@@ -30,6 +30,15 @@ Graph layouts:
     contribution onto the neighbour (+message, -phi1 * dir + phi2 * f_i)
     is summed by one inv_scatter_sum of [message | 3 x equivariant] rows
     in the forward pass (Edges.mirror).
+  - gather_nodes on the halo-extended axis (halo graph parallelism,
+    parallel/halo.py): each rank holds an x-sorted slab of the atoms, its
+    own rows' list is built against [left halo | own | right halo]
+    (ops/nlist.neighbor_list_rect, after exchanging pos and the atom
+    mask), and every layer's gather exchanges the n_halo boundary rows of
+    its input with the two ring neighbours (parallel/collectives.
+    exchange_halo) before gathering; the transpose of that gather over
+    the N_loc + 2 n_halo nodes is built once per request, and the
+    exchange's backward sends the halos' cotangents back.
   All of them run through the row gather (kernel K9 on the card) or
   torch.gather forwards with gather-only backwards, so no scatter-add runs
   and a request repeats its bits. An inverse_lists model given a plain
@@ -92,11 +101,15 @@ from newtonnet_tpu_torch.ops.nlist import (
     inv_gather,
     inv_scatter_sum,
     neighbor_list,
+    neighbor_list_rect,
     node_transpose,
     recompute_displacements,
     recompute_displacements_kn,
 )
-from newtonnet_tpu_torch.parallel.collectives import gather_rows
+from newtonnet_tpu_torch.parallel.collectives import (
+    exchange_halo,
+    gather_rows,
+)
 
 
 class Edges(NamedTuple):
@@ -260,6 +273,44 @@ def nlist_edges(model, z, pos, cell, nlist=None, plain=False):
                  rbf=rbf.transpose(1, 2), gather=gather)
 
 
+def halo_edges(model, z, pos, cell, n_halo, group):
+    '''K-major list edges of this rank's slab under halo graph
+    parallelism (the JAX core's halo branch, models/newtonnet.py:646-662
+    and :228-236 there): pos and the atom mask exchanged, the own rows'
+    list against the extended candidates (self-edges excluded at offset
+    n_halo), and a gather that exchanges its input before gathering on the
+    extended axis. Refuses what the JAX core refuses under sharding, with
+    its messages, before any exchange.'''
+    if model.newton3_compact:
+        raise ValueError(
+            'newton3_compact is its own edge layout: no sharding, '
+            'reverse_lists, inverse_lists, or newton3')
+    if model.reverse_lists:
+        raise ValueError(
+            'reverse_lists is incompatible with halo sharding '
+            '(transpose lists would span shard boundaries)')
+    if model.inverse_lists or model.newton3:
+        raise ValueError(
+            'inverse_lists/newton3 require the K-major edge layout '
+            '(no sharding/reverse_lists, NEWTONNET_EDGE_LAYOUT=kn, '
+            'NEWTONNET_EINSUM_IMPL=unroll)')
+    mask = z > 0
+    pos_ext = exchange_halo(pos, n_halo, group)
+    mask_ext = exchange_halo(mask, n_halo, group)
+    idx, kmask, disp, _ = neighbor_list_rect(
+        pos, pos_ext, cell, mask, mask_ext, model.cutoff, model.k_max,
+        self_offset=n_halo, mic_mode=model.mic_mode)
+    dir_, rbf = _features(model, disp)
+    idx_kn, kmask_kn = idx.transpose(1, 2), kmask.transpose(1, 2)
+    tr = node_transpose(idx_kn, pos_ext.shape[1], kmask_kn)
+
+    def gather(x):
+        return gather_nodes(exchange_halo(x, n_halo, group), idx_kn,
+                            kmask_kn, tr)
+    return Edges(mask=kmask_kn, dir=dir_.transpose(1, 2),
+                 rbf=rbf.transpose(1, 2), gather=gather)
+
+
 def _edge_messages(lp, nodepart, cat, edges, first_layer, f, force_i):
     '''The per-edge part of a list layer over K-major edges (B, K, N), in
     the JAX layer's order of operations (so that each tensor's cotangents
@@ -394,7 +445,7 @@ def _cast_edges(edges, cd):
 
 
 def apply_core_xla(model, z, pos, cell, nlist=None, plain=False,
-                   graph_group=None):
+                   graph_group=None, halo=0):
     '''Primal forward: {atom_node (B,N,F), force_node (B,N,3,F)} and the
     core's heads, atomic_energy (B,N,1), charge (B,N) and direct_force
     (B,N,3), computed in
@@ -402,7 +453,10 @@ def apply_core_xla(model, z, pos, cell, nlist=None, plain=False,
     them. plain=True runs the inverse-list gathers
     through the plain row gather (the same numbers as K9, bit for bit).
     graph_group: the dense graph with atoms sharded over that process
-    group (z, pos this rank's block; the JAX core's shard_axis).'''
+    group (z, pos this rank's block; the JAX core's shard_axis); with
+    halo = n_halo > 0 (a neighbour-list model) the halo-exchange graph
+    over that group instead (z, pos this rank's x-sorted slab; the JAX
+    core's shard_axis with halo, halo_edges).'''
     core = model.core
     z = z.long()
     B, N = z.shape
@@ -412,6 +466,8 @@ def apply_core_xla(model, z, pos, cell, nlist=None, plain=False,
                              device=pos.device)
     if model.graph_mode == 'dense':
         edges = dense_edges(model, z, pos, cell, graph_group)
+    elif halo:
+        edges = halo_edges(model, z, pos, cell, halo, graph_group)
     elif model.newton3_compact:
         edges = stair_edges(model, pos, cell, nlist, plain)
     else:

@@ -41,9 +41,10 @@ def _is_periodic(cell):
     return (cell != 0).any(dim=-1).any(dim=-1)
 
 
-def ewald_energy_periodic(charge, pos, cell, atom_mask, sigma=1.0, n_k=8):
-    '''Reciprocal-space energy (B,) of charge (B, N), pos (B, N, 3) and
-    cell rows (B, 3, 3); 0 for a graph with an all-zero cell.'''
+def _structure_factor(charge, pos, cell, atom_mask, n_k):
+    '''The structure factor's real and imaginary parts (B, M) of the
+    n_k cube's k-vectors with what the k-weights need: -> (s_re, s_im,
+    k2_safe (B, M), k_mask (M,), volume (B,), is_periodic (B,)).'''
     is_periodic = _is_periodic(cell)
     eye = torch.eye(3, dtype=cell.dtype, device=cell.device)
     safe_cell = torch.where(is_periodic[:, None, None], cell, eye)
@@ -64,11 +65,54 @@ def ewald_energy_periodic(charge, pos, cell, atom_mask, sigma=1.0, n_k=8):
     q = charge * atom_mask.to(charge.dtype)
     s_re = torch.einsum('bmn,bn->bm', torch.cos(phase), q)
     s_im = torch.einsum('bmn,bn->bm', torch.sin(phase), q)
-    s2 = s_re * s_re + s_im * s_im
+    return s_re, s_im, k2_safe, k_mask, volume, is_periodic
+
+
+def _k_weight(sigma, k2_safe, k_mask):
     weight = torch.exp(-0.5 * sigma * sigma * k2_safe) / k2_safe
-    weight = torch.where(k_mask, weight, 0.0)
-    energy = (TWO_PI / volume) * torch.sum(weight * s2, dim=-1)
+    return torch.where(k_mask, weight, 0.0)
+
+
+def ewald_energy_periodic(charge, pos, cell, atom_mask, sigma=1.0, n_k=8):
+    '''Reciprocal-space energy (B,) of charge (B, N), pos (B, N, 3) and
+    cell rows (B, 3, 3); 0 for a graph with an all-zero cell.'''
+    s_re, s_im, k2_safe, k_mask, volume, is_periodic = _structure_factor(
+        charge, pos, cell, atom_mask, n_k)
+    s2 = s_re * s_re + s_im * s_im
+    energy = (TWO_PI / volume) * torch.sum(
+        _k_weight(sigma, k2_safe, k_mask) * s2, dim=-1)
     return torch.where(is_periodic, energy, 0.0)
+
+
+def ewald_energy_periodic_sharded(charge, pos, cell, atom_mask, reduce,
+                                  sigma=1.0, n_k=8):
+    '''This rank's share (B,) of the reciprocal-space energy with the atoms
+    sharded over ranks (halo graph parallelism, parallel/halo.py; the JAX
+    package's ewald_energy_periodic_sharded): charge (B, N_loc), pos
+    (B, N_loc, 3) this rank's atoms, cell (B, 3, 3) the graphs'; `reduce`
+    sums a tensor over the ranks, differentiably (parallel/collectives.psum
+    over the graph group; the identity for one rank).
+
+    The structure factor is a sum over atoms, S = sum over the ranks of
+    S_loc, so the share is
+
+        e_loc = sum_k P_k Re[conj(S) S_loc],   S = reduce(S_loc).
+
+    With reduce's backward the all-reduce of the cotangent
+    (collectives.AllReduceSum), the shares add up to ewald_energy_periodic
+    of the whole graph as a functional identity, not only in value, so
+    with each rank seeding its own share every derivative order is exact:
+    the cotangent of S_loc gathers the other ranks' P_k S terms through
+    the all-reduce's backward (the product rule's factor 2), and the force
+    loss's parameter gradient keeps the coupling through dS/dtheta
+    (nothing is detached).'''
+    s_re, s_im, k2_safe, k_mask, volume, is_periodic = _structure_factor(
+        charge, pos, cell, atom_mask, n_k)
+    sbar_re, sbar_im = reduce(s_re), reduce(s_im)
+    u = sbar_re * s_re + sbar_im * s_im
+    p = (TWO_PI / volume[:, None]) * _k_weight(sigma, k2_safe, k_mask)
+    e_local = torch.sum(p * u, dim=-1)
+    return torch.where(is_periodic, e_local, 0.0)
 
 
 def ewald_energy_aperiodic(charge, pos, atom_mask, sigma=1.0, eps=1e-12):

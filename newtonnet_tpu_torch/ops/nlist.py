@@ -107,6 +107,60 @@ def neighbor_list(pos, cell, atom_mask, cutoff, k_max, mic_mode='exact',
                                                mask=kmask), overflow
 
 
+def neighbor_list_rect(pos_own, pos_cand, cell, own_mask, cand_mask, cutoff,
+                       k_max, self_offset=None, mic_mode='exact', chunk=512):
+    '''Rectangular neighbour list: own rows against a candidate column set
+    (the JAX package's neighbor_list_rect). Halo-exchange graph parallelism
+    (parallel/halo.py) searches each rank's own atoms' neighbours among its
+    extended candidates [left halo | own | right halo], O(N_own x N_cand).
+
+    Args:
+        pos_own: (B, N_own, 3) row atoms; pos_cand: (B, N_cand, 3).
+        own_mask: (B, N_own) bool; cand_mask: (B, N_cand) bool.
+        self_offset: if not None, candidate column self_offset + i is
+            excluded for row i (the own atoms sit there in the candidates).
+        chunk: rows per block of the distance search.
+
+    Returns:
+        idx (B, N_own, K) int64 into the candidate axis (0 where the mask is
+        false), mask (B, N_own, K), disp (B, N_own, K, 3) = pos_own_i -
+        pos_cand_j minimum-imaged (differentiable in both position sets,
+        through gather_nodes), overflow (B,): rows with more in-range
+        candidates than K = min(k_max, N_cand - 1).
+    '''
+    B, N_own = pos_own.shape[:2]
+    N_cand = pos_cand.shape[1]
+    k_max = min(k_max, N_cand - 1) if N_cand > 1 else 1
+    is_periodic = torch.any((cell != 0).flatten(1), dim=-1)
+    own_d, cand_d = pos_own.detach(), pos_cand.detach()
+    idx_c, mask_c = [], []
+    overflow = torch.zeros(B, dtype=torch.int64, device=pos_own.device)
+    col_ids = torch.arange(N_cand, device=pos_own.device)
+    for c0 in range(0, N_own, chunk):
+        rows = own_d[:, c0:c0 + chunk]
+        rmask = own_mask[:, c0:c0 + chunk]
+        disp = rows[:, :, None, :] - cand_d[:, None, :, :]
+        disp = minimum_image(disp, cell.detach(), is_periodic,
+                             mic_mode=mic_mode)
+        d2 = torch.sum(disp * disp, dim=-1)
+        valid = (rmask[:, :, None] & cand_mask[:, None, :]
+                 & (d2 < cutoff * cutoff))
+        if self_offset is not None:
+            row_ids = torch.arange(c0, c0 + rows.shape[1],
+                                   device=pos_own.device) + self_offset
+            valid = valid & (row_ids[:, None] != col_ids[None, :])
+        score = torch.where(valid, -d2, torch.full_like(d2, -torch.inf))
+        top_score, top_idx = torch.topk(score, k_max, dim=-1)
+        idx_c.append(top_idx)
+        mask_c.append(torch.isfinite(top_score))
+        overflow += ((valid.sum(-1) > k_max) & rmask).sum(-1)
+    kmask = torch.cat(mask_c, dim=1)
+    idx = torch.where(kmask, torch.cat(idx_c, dim=1), 0)
+    disp = pos_own[:, :, None, :] - gather_nodes(pos_cand, idx, kmask)
+    return idx, kmask, minimum_image(disp, cell, is_periodic,
+                                     mic_mode=mic_mode), overflow
+
+
 def recompute_displacements(pos, cell, idx, mic_mode='exact', mask=None,
                             transpose=None):
     '''pos_i - pos_j for an index list, minimum-imaged. The indices carry
@@ -243,7 +297,10 @@ def _scatter_rows(y, tr, overflow=None):
                                                 * rows.element_size()))
     for d0 in range(0, D, chunk):
         c = min(chunk, D - d0)
-        g = row_gather(rows, tr.slots[:, :, d0:d0 + c].reshape(B, N * c))
+        # a one-column chunk would reshape to a strided view: K9 takes
+        # contiguous indices
+        g = row_gather(rows, tr.slots[:, :, d0:d0 + c].reshape(B, N * c)
+                       .contiguous())
         g = torch.where(tr.valid[:, :, d0:d0 + c].reshape(B, N * c, 1), g, 0)
         acc = acc + g.reshape(B, N, c, Ff).sum(2, dtype=acc_dt)
     if overflow is not None:

@@ -19,6 +19,7 @@ and on the CPU. A rank with a card of its own runs on cuda:<rank mod
 cards>; ranks that share one all run on it. A failed initialisation
 raises: nothing drops to the CPU or to one process.
 '''
+import datetime
 import os
 
 import numpy as np
@@ -31,6 +32,10 @@ ENV = ('NEWTONNET_DIST_COORD', 'NEWTONNET_DIST_NPROCS',
        'NEWTONNET_DIST_PROCID')
 # the batch keys carrying the global batch's masked counts (train/loss.py)
 COUNT_KEYS = ('graph_count', 'atom_count')
+# seconds a collective or a point-to-point exchange waits for its peers:
+# ranks that disagree on the order of their exchanges (a halo backward run
+# in another order) fail with an error instead of hanging
+TIMEOUT_S = 600
 
 
 def choose_backend(device, num_processes, n_cards=None):
@@ -64,7 +69,8 @@ def initialize_distributed(coordinator_address, num_processes, process_id,
     choose_backend gives for `device` ('cuda' or 'cpu'), and make this
     rank's card the current one. A no-op returning False for one process
     or when already initialised; True when it joined. A failed join
-    raises.'''
+    raises, and so does a collective whose peers have not come after
+    TIMEOUT_S seconds.'''
     if num_processes is None or int(num_processes) <= 1:
         return False
     if dist.is_initialized():
@@ -76,7 +82,8 @@ def initialize_distributed(coordinator_address, num_processes, process_id,
         torch.cuda.set_device(dev)
     dist.init_process_group(backend=backend,
                             init_method=f'tcp://{coordinator_address}',
-                            world_size=num_processes, rank=process_id)
+                            world_size=num_processes, rank=process_id,
+                            timeout=datetime.timedelta(seconds=TIMEOUT_S))
     return True
 
 

@@ -15,8 +15,8 @@ halo bookkeeping, exact to the one-process result up to the order of
 float sums.
 
 This is the path for one dense-mode molecule too large for one device
-(inference only). The halo exchange, which moves only boundary blocks, is
-not ported yet (ROADMAP.md A, "parallelism").
+(inference only). For neighbour-list models parallel/halo.py moves only
+the slabs' boundary blocks instead.
 '''
 import torch
 

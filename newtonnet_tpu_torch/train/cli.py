@@ -20,13 +20,14 @@ process group before any device use (parallel/distributed.
 maybe_initialize_from_env: NCCL where each rank has a card of its own,
 gloo where they share one or on the CPU; the choice is printed), and
 training.parallel {data: D, graph: G} builds the Trainer's mesh
-(parallel/mesh.make_mesh).
+(parallel/mesh.make_mesh), and training.halo {n_halo: H} with it trains
+halo-exchange graph parallel (the Trainer's halo mode; the frames sorted
+along x by data.spatial_sort: true, the atom padding a multiple of G).
 
 Not ported, and refused with NotImplementedError before any data is read:
-training.halo, a set training.wandb, training.profile_dir and
-general.debug_nans. training.steps_per_call is accepted and does nothing
-(eager PyTorch has no dispatch chunking, and bucketed batches change shape
-anyway).
+a set training.wandb, training.profile_dir and general.debug_nans.
+training.steps_per_call is accepted and does nothing (eager PyTorch has
+no dispatch chunking, and bucketed batches change shape anyway).
 '''
 import argparse
 import os

@@ -55,10 +55,21 @@ checkpoints and log.csv. The final re-evaluation of the last and best
 models runs on every rank from the parameters in memory (the best ones
 kept as they pass), with or without a mesh.
 
-Not here (ROADMAP.md A, "parallelism" and "training extras"): halo
-exchange, wandb, the profiler hook and the standard step over a
-kernel='pallas' model (`halo`, `profile_dir` and that step raise
-NotImplementedError).
+Halo-exchange graph parallelism (halo={'n_halo': H} with a mesh whose
+'graph' axis has at least 2 ranks; the JAX Trainer's halo mode): the
+atoms of each (large, x-sorted) frame are split in slabs over the graph
+ranks, and each layer swaps only the n_halo boundary rows with the ring
+neighbours (parallel/halo.py). Steps and evaluation run
+parallel/halo.make_halo_grads_fn (its own loss algebra, the mse battery
+of HALO_LOSS_KEYS, gradients summed over both mesh axes), so fast_grad
+is off; every batch of every epoch is checked for capacity
+(_check_halo_batch) before it runs. The JAX Trainer also requires each
+graph line of the mesh to stay inside one process; here every rank is a
+process, so there is nothing to check.
+
+Not here (ROADMAP.md A, "training extras"): wandb, the profiler hook and
+the standard step over a kernel='pallas' model (`profile_dir` and that
+step raise NotImplementedError).
 The JAX Trainer's steps_per_call, which chunks steps into one device
 dispatch, is accepted and does nothing: eager PyTorch dispatches each
 operation as it comes.
@@ -81,6 +92,12 @@ from newtonnet_tpu_torch.ops.neighbors import dense_graph
 from newtonnet_tpu_torch.ops.nlist import build_inverse_list
 from newtonnet_tpu_torch.parallel import collectives
 from newtonnet_tpu_torch.parallel.distributed import global_data_batch
+from newtonnet_tpu_torch.parallel.halo import (
+    check_halo_capacity,
+    halo_batch_specs,
+    make_halo_grads_fn,
+    shard_halo_batch,
+)
 from newtonnet_tpu_torch.parallel.mesh import world
 from newtonnet_tpu_torch.train import fastgrad
 from newtonnet_tpu_torch.train.loss import get_loss_by_string
@@ -92,7 +109,7 @@ from newtonnet_tpu_torch.utils.params import params_from_flax
 
 # Trainer arguments of the JAX package that the port refuses when set, with
 # the ROADMAP.md A item that ports each.
-UNPORTED_EXTRAS = {'profile_dir': 'training extras', 'halo': 'parallelism'}
+UNPORTED_EXTRAS = {'profile_dir': 'training extras'}
 
 
 def refuse_unported_extras(**given):
@@ -157,7 +174,7 @@ class Trainer:
             mesh=None,
             ):
         del steps_per_call  # no dispatch chunking in eager PyTorch
-        refuse_unported_extras(profile_dir=profile_dir, halo=halo)
+        refuse_unported_extras(profile_dir=profile_dir)
         if mesh is not None and mesh.coords is None:
             raise ValueError(f'rank {world()[0]} is not in {mesh}')
         check_matmul_precision(eval_matmul_precision,
@@ -215,7 +232,37 @@ class Trainer:
         self.check_log = checkpoint.get('check_log', 1)
         self.check_val = checkpoint.get('check_val', 1)
         self.check_test = checkpoint.get('check_test', 1)
+        self.halo = dict(halo) if halo else None
+        if self.halo:
+            self._build_halo()
         self.print_layers()
+
+    def _build_halo(self):
+        '''The halo mode's checks (the JAX Trainer's errors) and its
+        gradient and evaluation functions.'''
+        if self.mesh is None or self.mesh.shape['graph'] < 2:
+            raise ValueError(
+                "halo training needs a mesh with a 'graph' axis of "
+                "size >= 2 (training: parallel: {data: D, graph: G})")
+        cfg = getattr(self.main_loss, 'config', None)
+        if cfg is None:
+            raise ValueError(
+                'halo training needs a loss built by get_loss_by_string '
+                '(its .config drives the sharded loss algebra)')
+        n_halo = int(self.halo['n_halo'])
+        self._halo_cfg = cfg
+        # validates the keys and modes and the charge head's ewald_mode
+        self._halo_grads = make_halo_grads_fn(self.model, self.mesh, n_halo,
+                                              loss_config=cfg)
+        # (the model it evaluates, its function): rebuilt once for the
+        # final re-evaluation's best model
+        self._halo_eval = (self.model, make_halo_grads_fn(
+            self.model, self.mesh, n_halo, loss_config=cfg,
+            with_grads=False))
+        # the keys the loss reads; the others are dropped
+        self._halo_keys = frozenset(halo_batch_specs(
+            tensor_labels=[k for k in ('stress', 'virial') if k in cfg]))
+        self.fast_grad = False  # the halo mode owns its gradient algebra
 
     @staticmethod
     def _peek_periodicity(generator):
@@ -464,31 +511,53 @@ class Trainer:
 
     def _shard(self, batch):
         '''This rank's rows of a numpy batch with the global counts (with a
-        mesh), or the batch.'''
+        mesh), or the batch; in halo mode this rank's block (its rows, its
+        slab of their atoms) of the keys the loss reads.'''
+        if self.halo:
+            return shard_halo_batch(
+                {k: v for k, v in batch.items() if k in self._halo_keys},
+                self.mesh)
         if self.mesh is None:
             return batch
         return global_data_batch(self.mesh, batch)
+
+    def _check_halo_batch(self, batch, n=1):
+        '''The JAX Trainer's per-batch capacity check (every batch of every
+        epoch, on the host): the padded atom count divides over the graph
+        ranks, and every atom within the cutoff of a slab boundary lies in
+        the adjacent n_halo block (parallel/halo.check_halo_capacity).
+        Frames differ from batch to batch, so a check of the first alone
+        would let a later frame train on wrong forces.'''
+        n_shards = self.mesh.shape['graph']
+        z = np.asarray(batch['z'])
+        if z.shape[1] % n_shards:
+            raise ValueError(
+                f"halo training: padded atom count {z.shape[1]} is not "
+                f"divisible by the graph axis ({n_shards}); set data: "
+                f"n_pad to a multiple")
+        bad = check_halo_capacity(
+            z, np.asarray(batch['pos']), np.asarray(batch['cell']),
+            n_shards=n_shards, n_halo=int(self.halo['n_halo']),
+            cutoff=self.model.cutoff)
+        if bad:
+            raise ValueError(
+                f'halo training: {bad} capacity violations in batch {n} '
+                f'-- frames must be spatially sorted (data: '
+                f'spatial_sort: true) and n_halo large enough for every '
+                f'boundary atom (got {self.halo["n_halo"]})')
+
+    def _halo_metrics(self, metrics):
+        return {'loss': metrics['loss'],
+                **{k: metrics[k] for k in sorted(metrics) if k != 'loss'}}
 
     def _data_group(self):
         return None if self.mesh is None else self.mesh.group('data')
 
     def reduce_gradients(self):
-        '''Sum the parameters' gradients over the mesh's data group, as one
-        flat buffer in the order of model.core.parameters() (parameters
-        without a gradient, frozen ones, are left out on every rank).'''
-        group = self._data_group()
-        if group is None:
-            return
-        grads = [p.grad for p in self.model.core.parameters()
-                 if p.grad is not None]
-        if not grads:
-            return
-        flat = collectives.all_reduce_sum(
-            torch.cat([g.reshape(-1) for g in grads]), group)
-        at = 0
-        for g in grads:
-            g.copy_(flat[at:at + g.numel()].view_as(g))
-            at += g.numel()
+        '''Sum the parameters' gradients over the mesh's data group
+        (collectives.sum_gradients: one flat buffer in parameter order).'''
+        collectives.sum_gradients(self.model.core.parameters(),
+                                  self._data_group())
 
     def train_step(self, batch):
         '''One optimizer step on a numpy batch; -> its metrics as 0-d
@@ -496,20 +565,32 @@ class Trainer:
         (with a mesh, this rank's partial sums of the global batch's).'''
         b = self._to_device(self._shard(batch))
         with fp32_matmuls():
-            loss, preds = self.loss_and_grad(b)
-            self.reduce_gradients()
+            if self.halo:
+                # the gradient summed over both mesh axes
+                metrics = self._halo_metrics(self._halo_grads(b))
+            else:
+                loss, preds = self.loss_and_grad(b)
+                self.reduce_gradients()
             if self._per_step_sched:
                 # the lr of step k is the scheduler's value before its
                 # k-th advance (torch semantics)
                 self.optimizer.lr = self.lr_scheduler.lr
                 self.lr_scheduler.step()
             self.optimizer.step()
+            if self.halo:
+                return metrics
             return self._metrics(loss, preds, b, edges=True)
 
     def eval_step(self, batch, model=None):
         '''Metrics of one numpy batch through NewtonNet.forward.'''
         model = model or self.model
         b = self._to_device(self._shard(batch))
+        if self.halo:
+            if model is not self._halo_eval[0]:
+                self._halo_eval = (model, make_halo_grads_fn(
+                    model, self.mesh, int(self.halo['n_halo']),
+                    loss_config=self._halo_cfg, with_grads=False))
+            return self._halo_metrics(self._halo_eval[1](b))
         with fp32_matmuls():
             preds = model(b['z'], b['pos'], b['cell'],
                           nlist=self._batch_nlist(b, model))
@@ -519,17 +600,20 @@ class Trainer:
     def run_one_epoch(self, generator, step=False, model=None):
         '''One pass over a loader; the metrics averaged per batch (with a
         mesh, the global batches': summed over the data group once, at the
-        end).'''
+        end; in halo mode each batch's are already global).'''
         totals, n = None, 0
         for batch in generator:
             if n == 0:
                 self._check_batch_nlist(batch)
+            if self.halo:
+                self._check_halo_batch(batch, n + 1)
             m = self.train_step(batch) if step else \
                 self.eval_step(batch, model)
             totals = m if totals is None else \
                 {k: totals[k] + v for k, v in m.items()}
             n += 1
-        if totals and self._data_group() is not None:
+        # the halo mode's metrics are already the global batch's
+        if totals and self._data_group() is not None and not self.halo:
             keys = list(totals)
             summed = collectives.all_reduce_sum(
                 torch.stack([totals[k].to(torch.float64) for k in keys]),

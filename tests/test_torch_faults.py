@@ -12,7 +12,8 @@ caller's flags back.
 C7: calculate(system=None, numbers=None, positions=None, cell=None), the
 JAX calculator's signature.
 C8: the JAX Trainer's steps_per_call is accepted (a no-op), profile_dir
-and halo are refused, each before any data is read.
+is refused before any data is read, and halo without a graph mesh gives
+the JAX Trainer's ValueError (ROADMAP.md A11b ported it).
 C9: training.wandb and training.parallel given without a value, and
 training.eval_matmul_precision / general.matmul_precision 'highest', reach
 training; set values of the first two and other precisions are refused
@@ -251,11 +252,19 @@ def test_jax_training_keys(tmp_path, key, value, item):
     '''training.steps_per_call trains (eager PyTorch has no dispatch
     chunking to do), and so do wandb and parallel without a value and
     eval_matmul_precision 'highest' (C9: each ended in a TypeError after
-    the data were read); profile_dir, halo and a set wandb raise
+    the data were read); profile_dir and a set wandb raise
     NotImplementedError naming their ROADMAP.md A item, before any data
     is read (the data root does not exist). A set parallel trains
     (ROADMAP.md A11a, "parallelism"): {data: -1} fills the mesh with the
-    ranks of the world, here this one process.'''
+    ranks of the world, here this one process. A set halo (ROADMAP.md
+    A11b) reaches the Trainer, which raises the JAX Trainer's ValueError:
+    there is no mesh with a 'graph' axis of at least 2.'''
+    if key == 'halo':
+        cfg = _settings(tmp_path, os.path.join(ASPIRIN, 'ccsd_train'))
+        cfg['training'][key] = value
+        with pytest.raises(ValueError, match="mesh with a 'graph' axis"):
+            cli.train_from_settings(cfg)
+        return
     if item is None or key == 'parallel':
         cfg = _settings(tmp_path, os.path.join(ASPIRIN, 'ccsd_train'))
         cfg['training'][key] = value
@@ -271,14 +280,15 @@ def test_jax_training_keys(tmp_path, key, value, item):
 
 
 def test_trainer_takes_the_jax_trainers_keys():
-    '''Trainer(profile_dir=...) and Trainer(halo=...) are refused before
-    the model is looked at.'''
+    '''Trainer(profile_dir=...) is refused before the model is looked at;
+    Trainer(halo=...) without a mesh raises the JAX Trainer's ValueError
+    (halo needs a 'graph' axis of at least 2).'''
     from newtonnet_tpu_torch import Trainer
     model = load_model(os.path.join(ROOT, 'artifacts', 'md17_model',
                                     'best_model.msgpack'), device='cpu')
     with pytest.raises(NotImplementedError, match='training extras'):
         Trainer(model, profile_dir='prof')
-    with pytest.raises(NotImplementedError, match='parallelism'):
+    with pytest.raises(ValueError, match="mesh with a 'graph' axis"):
         Trainer(model, halo={'axis': 'atoms'})
 
 

@@ -31,6 +31,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.md
         import newtonnet_tpu_torch.md.calculator
         import newtonnet_tpu_torch.md.driver
+        import newtonnet_tpu_torch.md.halo_md
         import newtonnet_tpu_torch.md.integrators
         import newtonnet_tpu_torch.md.optimize
         import newtonnet_tpu_torch.md.simulate
@@ -51,6 +52,7 @@ def test_import_loads_no_jax_and_no_reference_package():
         import newtonnet_tpu_torch.parallel.collectives
         import newtonnet_tpu_torch.parallel.distributed
         import newtonnet_tpu_torch.parallel.graph_parallel
+        import newtonnet_tpu_torch.parallel.halo
         import newtonnet_tpu_torch.parallel.launch
         import newtonnet_tpu_torch.parallel.mesh
         import newtonnet_tpu_torch.train.cli
